@@ -1,0 +1,121 @@
+"""Build the port's containers from numpy arrays.
+
+The JAX package's lookups, states and boundary conditions are pytrees: array
+leaves plus static metadata. These functions take those leaves as numpy
+arrays (``np.asarray`` of each leaf) together with the static fields and
+build the matching torch containers, so the same weights and inputs feed both
+packages. Nothing here imports jax.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .data.lookups import GasLookup, MinorInterval
+from .states import AtmosphericState, LwBCs, SwBCs, Vmr, VmrGM
+
+#: Array fields of GasLookup (None allowed for the LW-only / SW-only ones).
+GAS_LOOKUP_ARRAYS = (
+    "kmajor", "kminor_lower", "kminor_upper", "eta_half",
+    "planck_fraction", "totplnk", "rayl", "solar_src_scaled",
+)
+#: Static fields of GasLookup.
+GAS_LOOKUP_META = (
+    "idx_h2o", "p_ref_tropo", "p_ref_min", "key_species", "bnd_lims_gpt",
+    "minor_lower", "minor_upper", "gas_names", "n_eta", "n_press", "n_temp",
+    "t_ref_min", "t_ref_delta", "ln_p_ref_max", "ln_p_ref_delta",
+    "t_planck_min", "t_planck_delta", "solar_src_tot",
+)
+
+
+def _tensor(x, dtype, device):
+    if x is None:
+        return None
+    return torch.from_numpy(np.array(x)).to(device=device, dtype=dtype)
+
+
+def _float_dtype(x, dtype):
+    if dtype is not None:
+        return dtype
+    return torch.float64 if np.asarray(x).dtype == np.float64 else torch.float32
+
+
+def gas_lookup_from_numpy(
+    arrays: dict[str, np.ndarray | None], meta: dict, *,
+    dtype: torch.dtype | None = None, device=None,
+) -> GasLookup:
+    """GasLookup from its array fields (GAS_LOOKUP_ARRAYS) and static fields
+    (GAS_LOOKUP_META). ``dtype`` defaults to the arrays' own float type."""
+    dtype = _float_dtype(arrays["kmajor"], dtype)
+    fields = {k: _tensor(arrays.get(k), dtype, device) for k in GAS_LOOKUP_ARRAYS}
+    static = {k: meta[k] for k in GAS_LOOKUP_META}
+    for side in ("minor_lower", "minor_upper"):
+        static[side] = tuple(MinorInterval(*itv) for itv in static[side])
+    static["key_species"] = tuple(
+        tuple(tuple(int(i) for i in pair) for pair in bnd) for bnd in static["key_species"]
+    )
+    static["bnd_lims_gpt"] = tuple((int(a), int(b)) for a, b in static["bnd_lims_gpt"])
+    return GasLookup(**fields, **static)
+
+
+def gas_lookup_from_object(obj, **kwargs) -> GasLookup:
+    """``gas_lookup_from_numpy`` of any object with GasLookup's field names
+    (the JAX package's GasLookup among them), its arrays read with
+    ``np.asarray``. ``kwargs`` go to ``gas_lookup_from_numpy``."""
+    arrays = {
+        k: None if getattr(obj, k) is None else np.asarray(getattr(obj, k))
+        for k in GAS_LOOKUP_ARRAYS
+    }
+    return gas_lookup_from_numpy(arrays, {k: getattr(obj, k) for k in GAS_LOOKUP_META}, **kwargs)
+
+
+def atmosphere_from_object(obj, **kwargs) -> AtmosphericState:
+    """``atmosphere_from_numpy`` of any clear-sky state object with
+    AtmosphericState's field names and a global-mean vmr (``vmr_h2o``,
+    ``vmr_o3``, ``vmr``), the JAX package's among them."""
+    return atmosphere_from_numpy(
+        **{k: np.asarray(getattr(obj, k)) for k in ("p_lay", "t_lay", "p_lev", "t_lev", "t_sfc", "col_dry")},
+        vmr_h2o=np.asarray(obj.vmr.vmr_h2o), vmr_o3=np.asarray(obj.vmr.vmr_o3),
+        vmr_gm=np.asarray(obj.vmr.vmr), **kwargs,
+    )
+
+
+def atmosphere_from_numpy(
+    *, p_lay, t_lay, p_lev, t_lev, t_sfc, col_dry,
+    vmr_h2o=None, vmr_o3=None, vmr_gm=None, vmr=None,
+    lon=None, lat=None, dtype: torch.dtype | None = None, device=None,
+) -> AtmosphericState:
+    """AtmosphericState from numpy fields. Give either ``vmr_h2o``, ``vmr_o3``
+    and ``vmr_gm`` (a VmrGM) or ``vmr`` (a full (ngas+1, nlay, ncol) Vmr)."""
+    dtype = _float_dtype(p_lay, dtype)
+    t = lambda x: _tensor(x, dtype, device)
+    if vmr is not None:
+        vmr_c = Vmr(vmr=t(vmr))
+    else:
+        vmr_c = VmrGM(vmr_h2o=t(vmr_h2o), vmr_o3=t(vmr_o3), vmr=t(vmr_gm))
+    return AtmosphericState(
+        p_lay=t(p_lay), t_lay=t(t_lay), p_lev=t(p_lev), t_lev=t(t_lev),
+        t_sfc=t(t_sfc), col_dry=t(col_dry), vmr=vmr_c, lon=t(lon), lat=t(lat),
+    )
+
+
+def lw_bcs_from_numpy(*, sfc_emis, inc_flux=None, dtype=None, device=None) -> LwBCs:
+    dtype = _float_dtype(sfc_emis, dtype)
+    return LwBCs(
+        sfc_emis=_tensor(sfc_emis, dtype, device),
+        inc_flux=_tensor(inc_flux, dtype, device),
+    )
+
+
+def sw_bcs_from_numpy(
+    *, cos_zenith, toa_flux, sfc_alb_direct, sfc_alb_diffuse,
+    inc_flux_diffuse=None, dtype=None, device=None,
+) -> SwBCs:
+    dtype = _float_dtype(cos_zenith, dtype)
+    t = lambda x: _tensor(x, dtype, device)
+    return SwBCs(
+        cos_zenith=t(cos_zenith), toa_flux=t(toa_flux),
+        sfc_alb_direct=t(sfc_alb_direct), sfc_alb_diffuse=t(sfc_alb_diffuse),
+        inc_flux_diffuse=t(inc_flux_diffuse),
+    )

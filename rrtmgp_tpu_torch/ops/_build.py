@@ -1,0 +1,115 @@
+"""Build and load the CUDA kernels of ``rrtmgp_tpu_torch/csrc``.
+
+``nvcc`` compiles every ``csrc/*.cu`` into one shared library with a plain C
+interface for Hopper (sm_90a), loaded with ctypes. ``-fmad=false`` keeps
+multiply-adds unfused, so the kernels round op by op like their plain torch
+twins: near the Meador-Weaver singularity (k * mu0 = 1) the SW coefficients
+amplify a one-ulp difference far beyond the kernels' tolerance. The library is named by a
+hash of the sources and flags and lives in ``rrtmgp_tpu_torch/build/``, so a
+changed source rebuilds and an unchanged one is reused. The first CUDA call of
+a kernel wrapper builds it.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import pathlib
+import shutil
+import subprocess
+import tempfile
+
+_PKG = pathlib.Path(__file__).resolve().parent.parent
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG / "build"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+_P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
+#: C entry points: name -> argtypes. Each returns a cudaError_t as int.
+SIGNATURES = {
+    "rrtmgp_planck_band": [_P, _P, _P, _L, _I, _I, _F, _F, _P],
+    "rrtmgp_lw_clear_mega": [_P] * 30 + [_I] * 7 + [_F, _F, _P],
+    "rrtmgp_sw_clear_mega": [_P] * 34 + [_I] * 7 + [_P],
+}
+
+
+def find_nvcc() -> str:
+    """nvcc from $CUDA_HOME, PATH or /usr/local/cuda; raises if none."""
+    candidates = []
+    if os.environ.get("CUDA_HOME"):
+        candidates.append(os.path.join(os.environ["CUDA_HOME"], "bin", "nvcc"))
+    on_path = shutil.which("nvcc")
+    if on_path:
+        candidates.append(on_path)
+    candidates.append("/usr/local/cuda/bin/nvcc")
+    for c in candidates:
+        if os.path.isfile(c) and os.access(c, os.X_OK):
+            return c
+    raise RuntimeError(
+        "nvcc not found (looked in $CUDA_HOME/bin, PATH, /usr/local/cuda/bin): "
+        "the rrtmgp_tpu_torch CUDA kernels need the CUDA toolkit to build"
+    )
+
+
+def _sources() -> list[pathlib.Path]:
+    return sorted(p for p in CSRC.iterdir() if p.suffix in (".cu", ".cuh"))
+
+
+def library_path() -> pathlib.Path:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for p in _sources():
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    return BUILD_DIR / f"librrtmgp_kernels_{h.hexdigest()[:16]}.so"
+
+
+def build() -> pathlib.Path:
+    """Compile the kernels unless a library of the current sources exists.
+    The compiler's report (registers, spills) is kept beside it as .log."""
+    out = library_path()
+    if out.exists():
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    cu = [str(p) for p in _sources() if p.suffix == ".cu"]
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    try:
+        proc = subprocess.run(
+            [find_nvcc(), *NVCC_FLAGS, "-o", tmp, *cu],
+            capture_output=True, text=True, cwd=CSRC,
+        )
+        out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed ({proc.returncode}) building {out.name}:\n{proc.stderr[-8000:]}"
+            )
+        os.replace(tmp, out)  # atomic: concurrent builders never see a partial file
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+    return out
+
+
+@functools.cache
+def library() -> ctypes.CDLL:
+    """The loaded kernel library (built on first use)."""
+    lib = ctypes.CDLL(str(build()))
+    for name, argtypes in SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    lib.rrtmgp_error_string.argtypes = [ctypes.c_int]
+    lib.rrtmgp_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def check(err: int, name: str) -> None:
+    """Raise if a launch returned a CUDA error."""
+    if err != 0:
+        text = library().rrtmgp_error_string(err).decode()
+        raise RuntimeError(f"{name}: CUDA error {err} ({text}) at launch")

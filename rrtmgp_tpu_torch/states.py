@@ -1,0 +1,161 @@
+"""Atmospheric state containers and state precompute ops (counterpart of
+``rrtmgp_tpu/states.py``, clear sky only).
+
+Containers are plain dataclasses of tensors with a ``.to(device, dtype)``
+method. Layout matches the JAX package: (nlay, ncol) / (nlay+1, ncol),
+level 0 = surface. Cloud and aerosol states are not ported yet.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from .parameters import RRTMGPParameters
+
+
+class TensorContainer:
+    """Mixin for dataclasses whose fields are tensors, None, or containers."""
+
+    def to(self, device=None, dtype: torch.dtype | None = None):
+        """Copy with every floating tensor moved to ``device`` and, when given,
+        cast to ``dtype``; integer and bool tensors keep their dtype."""
+
+        def move(x):
+            if isinstance(x, torch.Tensor):
+                cast = dtype if dtype is not None and x.is_floating_point() else None
+                return x.to(device=device, dtype=cast)
+            if isinstance(x, TensorContainer):
+                return x.to(device, dtype)
+            return x
+
+        return dataclasses.replace(
+            self, **{f.name: move(getattr(self, f.name)) for f in dataclasses.fields(self)}
+        )
+
+
+# ---------------------------------------------------------------------------
+# Volume mixing ratios
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class VmrGM(TensorContainer):
+    """Global-mean VMRs: 2D h2o + o3, global means for all other gases.
+
+    ``vmr`` is indexed by the 1-based gas index of the gas lookup
+    (position 0 unused).
+    """
+
+    vmr_h2o: torch.Tensor  # (nlay, ncol)
+    vmr_o3: torch.Tensor   # (nlay, ncol)
+    vmr: torch.Tensor      # (ngas+1,)
+
+
+@dataclasses.dataclass(frozen=True)
+class Vmr(TensorContainer):
+    """Fully 3D VMRs ``(ngas+1, nlay, ncol)``."""
+
+    vmr: torch.Tensor
+
+
+def get_vmr(vmr, ig: int) -> torch.Tensor:
+    """VMR of gas ``ig`` (1-based index; 0 = none -> 1.0).
+
+    For VmrGM, ig 1 = h2o and ig 3 = o3 are 2D; other gases are global means
+    (0-dim tensors).
+    """
+    if isinstance(vmr, VmrGM):
+        if ig == 0:
+            return torch.ones((), dtype=vmr.vmr_h2o.dtype, device=vmr.vmr_h2o.device)
+        if ig == 1:
+            return vmr.vmr_h2o
+        if ig == 3:
+            return vmr.vmr_o3
+        return vmr.vmr[ig]
+    if isinstance(vmr, Vmr):
+        if ig == 0:
+            return torch.ones((), dtype=vmr.vmr.dtype, device=vmr.vmr.device)
+        return vmr.vmr[ig]
+    raise TypeError(f"unknown vmr container {type(vmr)}")
+
+
+# ---------------------------------------------------------------------------
+# Atmospheric state
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class AtmosphericState(TensorContainer):
+    """Clear-sky atmospheric state."""
+
+    p_lay: torch.Tensor    # (nlay, ncol)
+    t_lay: torch.Tensor    # (nlay, ncol)
+    p_lev: torch.Tensor    # (nlay+1, ncol)
+    t_lev: torch.Tensor    # (nlay+1, ncol)
+    t_sfc: torch.Tensor    # (ncol,)
+    col_dry: torch.Tensor  # (nlay, ncol) molecules/cm^2
+    vmr: VmrGM | Vmr
+    lon: torch.Tensor | None = None
+    lat: torch.Tensor | None = None
+
+    @property
+    def nlay(self) -> int:
+        return self.p_lay.shape[0]
+
+    @property
+    def ncol(self) -> int:
+        return self.p_lay.shape[-1]
+
+
+# ---------------------------------------------------------------------------
+# Boundary conditions
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class LwBCs(TensorContainer):
+    """Longwave boundary conditions."""
+
+    sfc_emis: torch.Tensor                 # (nbnd, ncol)
+    inc_flux: torch.Tensor | None = None   # (ncol, ngpt)
+
+
+@dataclasses.dataclass(frozen=True)
+class SwBCs(TensorContainer):
+    """Shortwave boundary conditions."""
+
+    cos_zenith: torch.Tensor       # (ncol,)
+    toa_flux: torch.Tensor         # (ncol,)
+    sfc_alb_direct: torch.Tensor   # (nbnd, ncol)
+    sfc_alb_diffuse: torch.Tensor  # (nbnd, ncol)
+    inc_flux_diffuse: torch.Tensor | None = None  # (ncol, ngpt)
+
+
+# ---------------------------------------------------------------------------
+# Precompute ops
+# ---------------------------------------------------------------------------
+
+
+def compute_col_gas(
+    p_lev: torch.Tensor,
+    params: RRTMGPParameters,
+    vmr_h2o: torch.Tensor | None = None,
+    lat: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """Hydrostatic column density of moist air [molecules/cm^2], (nlay, ncol).
+
+    Helmert gravity when latitude is given.
+    """
+    helmert1 = params.grav
+    helmert2 = 0.02586
+    m2_to_cm2 = 1.0e4
+    if lat is not None:
+        g0 = (helmert1 - helmert2 * torch.cos(2.0 * torch.pi * lat / 180.0))[None, :]
+    else:
+        g0 = helmert1
+    dp = p_lev[:-1] - p_lev[1:]  # positive: level 0 = surface
+    vmr = 0.0 if vmr_h2o is None else vmr_h2o
+    m_air = params.molmass_dryair + params.molmass_water * vmr
+    return dp * params.avogad / (m2_to_cm2 * m_air * g0)

@@ -1,0 +1,55 @@
+"""Package hygiene of the port: it never imports jax, every module imports
+cleanly, and the public names resolve."""
+
+import importlib
+import pkgutil
+import subprocess
+import sys
+import textwrap
+from pathlib import Path
+
+import rrtmgp_tpu_torch
+
+ROOT = str(Path(rrtmgp_tpu_torch.__file__).resolve().parent.parent)
+
+
+def test_import_leaves_no_jax_module():
+    """In a fresh interpreter, importing the port and all its modules pulls in
+    no jax (the tests import both packages; the port itself must not)."""
+    code = textwrap.dedent(f"""
+        import importlib, pkgutil, sys
+        sys.path.insert(0, {ROOT!r})
+        import rrtmgp_tpu_torch
+        for m in pkgutil.walk_packages(rrtmgp_tpu_torch.__path__, prefix="rrtmgp_tpu_torch."):
+            importlib.import_module(m.name)
+        bad = sorted(m for m in sys.modules
+                     if m == "jax" or m.startswith(("jax.", "jaxlib", "rrtmgp_tpu.")))
+        print(",".join(bad))
+        sys.exit(1 if bad else 0)
+    """)
+    # -I: no PYTHONPATH or user site, so nothing but the port can bring jax in
+    proc = subprocess.run([sys.executable, "-I", "-c", code], capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, (proc.stdout, proc.stderr[-2000:])
+
+
+def test_all_modules_import():
+    for m in pkgutil.walk_packages(rrtmgp_tpu_torch.__path__, prefix="rrtmgp_tpu_torch."):
+        importlib.import_module(m.name)
+
+
+def test_public_api_resolves():
+    for name in rrtmgp_tpu_torch.__all__:
+        assert getattr(rrtmgp_tpu_torch, name) is not None, name
+    for fn in ("solve_lw", "solve_sw", "get_vmr", "compute_col_gas", "angular_discretization"):
+        assert callable(getattr(rrtmgp_tpu_torch, fn)), fn
+
+
+def test_kernel_sources_present_and_build_is_lazy():
+    """The three main-path kernels have CUDA sources, and importing the ops
+    builds nothing (the library is built on the first CUDA call)."""
+    from rrtmgp_tpu_torch.ops import _build
+
+    names = {p.name for p in _build.CSRC.iterdir()}
+    assert {"planck_band.cu", "lw_clear_mega.cu", "sw_clear_mega.cu"} <= names
+    assert _build.library.cache_info().currsize == 0
+    assert _build.library_path().name.startswith("librrtmgp_kernels_")
