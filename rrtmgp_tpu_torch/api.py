@@ -1,0 +1,446 @@
+"""High-level solver API (counterpart of ``rrtmgp_tpu/api.py``).
+
+``RRTMGPGridParams`` and the radiation-method dataclasses, ``LookupBundle``
+and ``lookup_tables`` (synthetic tables), the canonical aerosol and gas name
+lists, ``domain_view``, and ``RRTMGPSolver``: a host-side bundle that owns the
+atmospheric state, boundary conditions and lookups, runs one LW and one SW
+solve per ``update_*`` call and keeps the fluxes for its getters.
+
+McICA reproducibility: the cloudy solves draw their mask from the seed
+``2 * step + wave`` (wave 0 = LW, 1 = SW) keyed on the global column, so
+setting the same step reproduces the same sampling bit for bit.
+
+Not ported: the TPU-only arguments of the JAX solver (``pallas_windowed``,
+``use_pallas``, ``f64_kernel``). Features still to come raise
+``NotImplementedError`` naming their ROADMAP item. The port adds ``impl``,
+passed through to ``solve_lw`` / ``solve_sw``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import os
+
+import torch
+
+from .data.lookups import AerosolLookup, CloudLookup, GasLookup
+from .models import rrtmgp as _solvers
+from .parameters import RRTMGPParameters
+from .states import AtmosphericState, LwBCs, SwBCs, get_vmr
+
+# ---------------------------------------------------------------------------
+# Grid params + radiation methods
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class RRTMGPGridParams:
+    nlay: int
+    ncol: int
+    dtype: torch.dtype = torch.float32
+    isothermal_boundary_layer: bool = False
+
+
+@dataclasses.dataclass(frozen=True)
+class GrayRadiation:
+    pass
+
+
+@dataclasses.dataclass(frozen=True)
+class ClearSkyRadiation:
+    aerosol_radiation: bool = False
+
+
+@dataclasses.dataclass(frozen=True)
+class AllSkyRadiation:
+    aerosol_radiation: bool = False
+    reset_rng_seed: bool = False
+
+
+@dataclasses.dataclass(frozen=True)
+class AllSkyRadiationWithClearSkyDiagnostics:
+    aerosol_radiation: bool = False
+    reset_rng_seed: bool = False
+
+
+RadiationMethod = (
+    GrayRadiation | ClearSkyRadiation | AllSkyRadiation | AllSkyRadiationWithClearSkyDiagnostics
+)
+_CLOUDY = (AllSkyRadiation, AllSkyRadiationWithClearSkyDiagnostics)
+
+
+def _not_ported(what: str, item: int):
+    raise NotImplementedError(f"{what} is not ported yet (ROADMAP queue 1, item {item})")
+
+
+# ---------------------------------------------------------------------------
+# Lookup tables per radiation method
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class LookupBundle:
+    lookup_lw: GasLookup | None = None
+    lookup_sw: GasLookup | None = None
+    lookup_lw_cld: CloudLookup | None = None
+    lookup_sw_cld: CloudLookup | None = None
+    lookup_lw_aero: AerosolLookup | None = None
+    lookup_sw_aero: AerosolLookup | None = None
+
+
+def lookup_tables(
+    radiation_method: RadiationMethod,
+    data_dir: str | None = None,
+    dtype=torch.float64,
+    device=None,
+) -> LookupBundle:
+    """The lookup set of a radiation method: synthetic tables at the real
+    files' dimensions (LW 256 g-points in 16 bands, SW 224 in 14), with the
+    JAX package's seeds, so they equal its tables bit for bit."""
+    if isinstance(radiation_method, GrayRadiation):
+        return LookupBundle()
+    if data_dir or os.environ.get("RRTMGP_DATA"):
+        _not_ported("loading rrtmgp-data files (data_dir / $RRTMGP_DATA)", 15)
+
+    from .data.synthetic import (
+        synthetic_aerosol_lookup,
+        synthetic_cloud_lookup,
+        synthetic_gas_lookup,
+    )
+
+    kw = dict(dtype=dtype, device=device)
+    bundle = dict(
+        lookup_lw=synthetic_gas_lookup(longwave=True, n_gpt=256, n_bnd=16, **kw),
+        lookup_sw=synthetic_gas_lookup(longwave=False, n_gpt=224, n_bnd=14, seed=1, **kw),
+    )
+    if isinstance(radiation_method, _CLOUDY):
+        bundle["lookup_lw_cld"] = synthetic_cloud_lookup(n_bnd=16, **kw)
+        bundle["lookup_sw_cld"] = synthetic_cloud_lookup(n_bnd=14, seed=5, **kw)
+    if getattr(radiation_method, "aerosol_radiation", False):
+        bundle["lookup_lw_aero"] = synthetic_aerosol_lookup(n_bnd=16, **kw)
+        bundle["lookup_sw_aero"] = synthetic_aerosol_lookup(n_bnd=14, seed=6, **kw)
+    return LookupBundle(**bundle)
+
+
+# ---------------------------------------------------------------------------
+# Canonical name lists
+# ---------------------------------------------------------------------------
+
+
+def aerosol_names() -> list[str]:
+    """Canonical MERRA aerosol-name set."""
+    return [
+        "dust4", "sea_salt5", "dust1", "sulfate", "organic_carbon", "dust5",
+        "sea_salt3", "sea_salt1", "organic_carbon_rh", "dust2", "sea_salt2",
+        "sea_salt4", "dust3", "black_carbon_rh", "black_carbon",
+    ]
+
+
+#: aerosol name -> 0-based row of AerosolState.aero_mass / aero_size
+AEROSOL_INDEX = {
+    "dust1": 0, "sea_salt1": 1, "sulfate": 2, "black_carbon_rh": 3,
+    "black_carbon": 4, "organic_carbon_rh": 5, "organic_carbon": 6,
+    "dust2": 7, "dust3": 8, "dust4": 9, "dust5": 10,
+    "sea_salt2": 11, "sea_salt3": 12, "sea_salt4": 13, "sea_salt5": 14,
+}
+
+
+def gas_names_sw() -> list[str]:
+    """Gas names of the SW lookup tables."""
+    return [
+        "h2o", "cfc11", "h2o_self", "co2", "cfc12", "hfc134a", "cfc22", "ch4",
+        "hfc23", "ccl4", "hfc143a", "co", "no2", "n2", "o2", "o3", "h2o_frgn",
+        "hfc32", "n2o", "cf4", "hfc125",
+    ]
+
+
+def domain_view(isothermal_boundary_layer: bool, data):
+    """``data`` without the isothermal boundary layer (the top layer or
+    level; vertical axis leading) when the grid has one."""
+    if not isothermal_boundary_layer:
+        return data
+    return data[:-1]
+
+
+# ---------------------------------------------------------------------------
+# Solver
+# ---------------------------------------------------------------------------
+
+
+class RRTMGPSolver:
+    """Host-side solver bundle: state, boundary conditions, lookups, and the
+    fluxes of the last ``update_lw_fluxes`` / ``update_sw_fluxes``."""
+
+    def __init__(
+        self,
+        grid_params: RRTMGPGridParams,
+        radiation_method: RadiationMethod,
+        params: RRTMGPParameters,
+        bcs_lw: LwBCs | None,
+        bcs_sw: SwBCs | None,
+        as_: AtmosphericState,
+        lookups: LookupBundle | None = None,
+        center_z=None,
+        face_z=None,
+        two_stream_lw: bool = True,
+        two_stream_sw: bool = True,
+        n_gauss_angles: int = 1,
+        data_dir: str | None = None,
+        aero_species: tuple | None = None,
+        mesh=None,
+        metric_scaling=None,
+        eta_node_mode: str = "continuous",
+        impl: str | None = None,
+    ):
+        if isinstance(radiation_method, GrayRadiation):
+            _not_ported("GrayRadiation (the gray model)", 12)
+        if mesh is not None:
+            _not_ported("the multi-device column split (mesh)", 14)
+        want, got = grid_params.dtype, as_.p_lay.dtype
+        if got != want:
+            raise TypeError(
+                f"AtmosphericState dtype {got} != grid_params dtype {want}; "
+                "build the state with the grid dtype (e.g. synthetic_atmosphere(dtype=...))"
+            )
+        self.grid_params = grid_params
+        self.radiation_method = radiation_method
+        self.params = params
+        self.bcs_lw = bcs_lw
+        self.bcs_sw = bcs_sw
+        self.as_ = as_
+        self.center_z = center_z
+        self.face_z = face_z
+        self.two_stream_lw = two_stream_lw
+        self.two_stream_sw = two_stream_sw
+        self.n_gauss_angles = n_gauss_angles
+        self.aero_species = aero_species
+        self.mesh = mesh
+        self.metric_scaling = metric_scaling
+        self.eta_node_mode = eta_node_mode
+        self.impl = impl
+        if lookups is None:
+            lookups = lookup_tables(radiation_method, data_dir, dtype=want, device=as_.p_lay.device)
+        self.lookups = lookups
+        if want == torch.float64:
+            self._check_f64_budget()
+
+        self.flux_lw: _solvers.FluxLW | None = None
+        self.flux_sw: _solvers.FluxSW | None = None
+        self.clear_flux_lw: _solvers.FluxLW | None = None
+        self.clear_flux_sw: _solvers.FluxSW | None = None
+        self.diag_lw: _solvers.SolveDiagnostics | None = None
+        self.diag_sw: _solvers.SolveDiagnostics | None = None
+        self._step = 0
+
+    def _check_f64_budget(self):
+        """The JAX package splits f64 solves above a memory budget into
+        column chunks; the port does not yet, so it refuses them."""
+        lk = self.lookups
+        ngpt_max = max(lk.lookup_lw.n_gpt, lk.lookup_sw.n_gpt)
+        per_col = self.as_.nlay * ngpt_max * 8 * 34  # ~34 spectral tensors per solve
+        budget = float(os.environ.get("RRTMGP_CHUNK_BUDGET_GB", "8")) * 1e9
+        if self.as_.ncol > max(int(budget // per_col), 1):
+            _not_ported(
+                f"the f64 auto-chunk (ncol={self.as_.ncol} would materialize "
+                f"~{self.as_.ncol * per_col / 1e9:.1f} GB of spectral tensors)", 9,
+            )
+
+    # -- solves ------------------------------------------------------------
+
+    def _aero(self, wave: int):
+        if not getattr(self.radiation_method, "aerosol_radiation", False):
+            return None
+        return self.lookups.lookup_sw_aero if wave else self.lookups.lookup_lw_aero
+
+    def _lw(self, cloudy: bool):
+        lk = self.lookups
+        kw = dict(lkp_cld=lk.lookup_lw_cld, cld_mask_seed=self._mcica_key(0)) if cloudy else {}
+        return _solvers.solve_lw(
+            lk.lookup_lw, self.as_, self.bcs_lw, two_stream=self.two_stream_lw,
+            n_gauss_angles=self.n_gauss_angles, lkp_aero=self._aero(0),
+            metric_scaling=self.metric_scaling, aero_species=self.aero_species,
+            eta_node_mode=self.eta_node_mode, impl=self.impl, **kw,
+        )
+
+    def _sw(self, cloudy: bool):
+        lk = self.lookups
+        kw = dict(lkp_cld=lk.lookup_sw_cld, cld_mask_seed=self._mcica_key(1)) if cloudy else {}
+        return _solvers.solve_sw(
+            lk.lookup_sw, self.as_, self.bcs_sw, two_stream=self.two_stream_sw,
+            lkp_aero=self._aero(1), metric_scaling=self.metric_scaling,
+            aero_species=self.aero_species, eta_node_mode=self.eta_node_mode,
+            impl=self.impl, **kw,
+        )
+
+    def _mcica_key(self, wave: int) -> int:
+        """McICA seed of this step and wave (0 = LW, 1 = SW)."""
+        return 2 * self._step + wave
+
+    def advance_step(self, step: int | None = None):
+        """Advance (or set) the step that keys the McICA sampling."""
+        self._step = self._step + 1 if step is None else step
+
+    def check_window(self, as_=None) -> bool:
+        """Always True: the port's kernels read whole tables, with no table
+        windows to outgrow."""
+        return True
+
+    def update_fluxes(self):
+        """``update_lw_fluxes()`` then ``update_sw_fluxes()``; returns
+        (flux_lw, flux_sw)."""
+        self.update_lw_fluxes()
+        self.update_sw_fluxes()
+        return self.flux_lw, self.flux_sw
+
+    def update_lw_fluxes(self):
+        m = self.radiation_method
+        if isinstance(m, AllSkyRadiationWithClearSkyDiagnostics):
+            self.clear_flux_lw, _ = self._lw(cloudy=False)
+        self.flux_lw, self.diag_lw = self._lw(cloudy=isinstance(m, _CLOUDY))
+        return self.flux_lw
+
+    def update_sw_fluxes(self):
+        m = self.radiation_method
+        if isinstance(m, AllSkyRadiationWithClearSkyDiagnostics):
+            self.clear_flux_sw, _ = self._sw(cloudy=False)
+        self.flux_sw, self.diag_sw = self._sw(cloudy=isinstance(m, _CLOUDY))
+        return self.flux_sw
+
+    # -- getters -------------------------------------------------------------
+
+    def top_of_atmosphere_lw_flux_dn(self):
+        return None if self.bcs_lw is None else self.bcs_lw.inc_flux
+
+    def top_of_atmosphere_diffuse_sw_flux_dn(self):
+        return None if self.bcs_sw is None else self.bcs_sw.inc_flux_diffuse
+
+    def lw_flux_up(self):
+        return self.flux_lw.flux_up
+
+    def lw_flux_dn(self):
+        return self.flux_lw.flux_dn
+
+    def lw_flux_net(self):
+        return self.flux_lw.flux_net
+
+    def clear_lw_flux_up(self):
+        return self.clear_flux_lw.flux_up
+
+    def clear_lw_flux_dn(self):
+        return self.clear_flux_lw.flux_dn
+
+    def clear_lw_flux(self):
+        return self.clear_flux_lw.flux_net
+
+    def surface_emissivity(self):
+        return self.bcs_lw.sfc_emis
+
+    def sw_flux_up(self):
+        return self.flux_sw.flux_up
+
+    def sw_flux_dn(self):
+        return self.flux_sw.flux_dn
+
+    def sw_flux_net(self):
+        return self.flux_sw.flux_net
+
+    def sw_direct_flux_dn(self):
+        return self.flux_sw.flux_dn_dir
+
+    def clear_sw_flux_up(self):
+        return self.clear_flux_sw.flux_up
+
+    def clear_sw_flux_dn(self):
+        return self.clear_flux_sw.flux_dn
+
+    def clear_sw_direct_flux_dn(self):
+        return self.clear_flux_sw.flux_dn_dir
+
+    def clear_sw_flux(self):
+        return self.clear_flux_sw.flux_net
+
+    def cloud_liquid_effective_radius(self):
+        return self.as_.cloud_state.cld_r_eff_liq
+
+    def cloud_ice_effective_radius(self):
+        return self.as_.cloud_state.cld_r_eff_ice
+
+    def cloud_liquid_water_path(self):
+        return self.as_.cloud_state.cld_path_liq
+
+    def cloud_ice_water_path(self):
+        return self.as_.cloud_state.cld_path_ice
+
+    def cloud_fraction(self):
+        return self.as_.cloud_state.cld_frac
+
+    def sw_cloud_cover(self):
+        return None if self.diag_sw is None else self.diag_sw.cld_cover
+
+    def lw_cloud_cover(self):
+        return None if self.diag_lw is None else self.diag_lw.cld_cover
+
+    def aod_sw_extinction(self):
+        return None if self.diag_sw is None else self.diag_sw.aod_sw_ext
+
+    def aod_sw_scattering(self):
+        return None if self.diag_sw is None else self.diag_sw.aod_sw_sca
+
+    def get_center_z(self):
+        return self.center_z
+
+    def get_face_z(self):
+        return self.face_z
+
+    def cos_zenith(self):
+        return self.bcs_sw.cos_zenith
+
+    def toa_flux(self):
+        return self.bcs_sw.toa_flux
+
+    def direct_sw_surface_albedo(self):
+        return self.bcs_sw.sfc_alb_direct
+
+    def diffuse_sw_surface_albedo(self):
+        return self.bcs_sw.sfc_alb_diffuse
+
+    def latitude(self):
+        return self.as_.lat
+
+    def surface_temperature(self):
+        return self.as_.t_sfc
+
+    def domain_view(self, data):
+        """``data`` without the isothermal boundary layer when the grid has
+        one (see ``domain_view``)."""
+        if data is None:
+            return None
+        return domain_view(self.grid_params.isothermal_boundary_layer, data)
+
+    def pressure(self):
+        return self.domain_view(self.as_.p_lay)
+
+    def temperature(self):
+        return self.domain_view(self.as_.t_lay)
+
+    def relative_humidity(self):
+        return self.domain_view(self.as_.rel_hum)
+
+    def optical_thickness_parameter(self):
+        return getattr(self.as_, "otp", None)
+
+    def isothermal_boundary_layer(self) -> bool:
+        return self.grid_params.isothermal_boundary_layer
+
+    def aero_radius(self, name: str):
+        return self.as_.aerosol_state.aero_size[AEROSOL_INDEX[name]]
+
+    def aero_column_mass_density(self, name: str):
+        return self.as_.aerosol_state.aero_mass[AEROSOL_INDEX[name]]
+
+    def volume_mixing_ratio(self, name: str):
+        """VMR by gas name through the SW lookup's gas names."""
+        sw = self.lookups.lookup_sw
+        names = list(sw.gas_names) if sw is not None else gas_names_sw()
+        name = {"h2o_self": "h2o", "h2o_frgn": "h2o"}.get(name, name)
+        return get_vmr(self.as_.vmr, names.index(name) + 1)

@@ -1,9 +1,10 @@
-// Whole clear-sky SW two-stream solve in one kernel.
+// Whole SW two-stream solve in one kernel, clear or all-sky.
 //
 // Replaces: rrtmgp_tpu/ops/pallas_mega.py, _sw_mega_kernel (wrapper
-//   sw_clear_mega): gas optics with Rayleigh scattering, the PIFM /
-//   Meador-Weaver layer coefficients with their energy clamps, the direct
-//   beam, the adding recurrence and the g-point sums.
+//   sw_clear_mega): gas optics with Rayleigh scattering, the McICA cloud
+//   mask, cloud and aerosol composition (band properties delta-scaled by the
+//   caller), the PIFM / Meador-Weaver layer coefficients with their energy
+//   clamps, the direct beam, the adding recurrence and the g-point sums.
 //
 // Bound on this card: at 32768 columns x 60 layers x 224 g-points each
 //   (layer, column, g-point) reads 12 table values (8 kmajor + 4 Rayleigh,
@@ -23,19 +24,24 @@
 //   the TPU kernel), so no (nlev, ncol, ngpt) albedo/source arrays exist.
 //   mu0 guarded by eps enters only the beam transmittance; the coefficients
 //   see the raw mu0. Level sums are deterministic per-warp partials, as in
-//   lw_clear_mega.cu. Night columns are zeroed by the caller.
+//   lw_clear_mega.cu. Night columns are zeroed by the caller. All-sky: the
+//   optics loop runs top-down, which is the McICA recurrence's direction, so
+//   in seed mode the mask is drawn inline (mcica.cuh) and the column's cloud
+//   cover counted; clouds and aerosols compose under their masks
+//   (allsky.cuh). Cloud, aerosol and mask mode are template parameters: the
+//   clear variant is the clear-sky kernel, with g = 0 folded in.
+#include "allsky.cuh"
 #include "common.cuh"
 
 namespace rrtmgp {
 
 // Zdunkowski PIFM gammas + Meador-Weaver reflectance/transmittance with the
-// energy clamps (rrtmgp_tpu/ops/pallas_rte.py _sw_coeffs); asymmetry g = 0
-// for clear sky. T0 = exp(-tau / max(mu0, eps)) is passed in.
-__device__ __forceinline__ void sw_coeffs(float tau, float ssa, float mu0, float T0, float& Rdir,
+// energy clamps (rrtmgp_tpu/ops/pallas_rte.py _sw_coeffs); the clear-sky
+// kernel passes asymmetry g = 0. T0 = exp(-tau / max(mu0, eps)) is passed in.
+__device__ __forceinline__ void sw_coeffs(float tau, float ssa, float g, float mu0, float T0, float& Rdir,
                                           float& Tdir, float& Rdif, float& Tdif) {
   const float eps = FLT_EPSILON;
   const float k_min = 3.4526698300124393e-4f;  // sqrt(eps)
-  const float g = 0.f;
   const float gamma1 = (8.f - ssa * (5.f + 3.f * g)) * 0.25f;
   const float gamma2 = 3.f * (ssa * (1.f - g)) * 0.25f;
   const float gamma3 = (2.f - (3.f * mu0) * g) * 0.25f;
@@ -59,7 +65,8 @@ __device__ __forceinline__ void sw_coeffs(float tau, float ssa, float mu0, float
   Tdir = fmaxf(0.f, fminf(tdir, 1.f - T0 - Rdir));
 }
 
-__global__ void sw_clear_mega_kernel(OpticsIn in, Tables tb, Dims d,
+template <bool CLOUD, bool AERO, int MASK>
+__global__ void sw_clear_mega_kernel(OpticsIn in, Tables tb, Dims d, AllSkyIn as,
                                      const float* __restrict__ mu0_col,   // (ncol,)
                                      const float* __restrict__ toa_gpt,   // (ncol, ngpt)
                                      const float* __restrict__ alb_dir,   // (nbnd, ncol)
@@ -71,7 +78,8 @@ __global__ void sw_clear_mega_kernel(OpticsIn in, Tables tb, Dims d,
                                      float* __restrict__ s_tdif,
                                      float* __restrict__ flux_up,         // 3 x (nlev, ncol)
                                      float* __restrict__ flux_dn,
-                                     float* __restrict__ flux_dir) {
+                                     float* __restrict__ flux_dir,
+                                     float* __restrict__ cover) {         // (ncol,), MASK_SEED
   extern __shared__ float smem[];
   const int col = blockIdx.x;
   const int g = threadIdx.x;
@@ -86,6 +94,10 @@ __global__ void sw_clear_mega_kernel(OpticsIn in, Tables tb, Dims d,
   // phase 1, top-down: optics + coefficients to scratch, beam in a register
   float beam = active ? __ldg(toa_gpt + (size_t)col * d.ngpt + g) * mu0 : 0.f;
   sums.add(DIR, nlay, beam);
+  Key2x32 ck{0u, 0u};
+  if constexpr (MASK == MASK_SEED) ck = mcica_column_key(as.seed, as.col_offset + col);
+  McicaCarry carry;
+  bool any_cloud = false;
   for (int l = nlay - 1; l >= 0; --l) {
     if (active) {
       const Cell c = load_cell(in, d, l, col, band);
@@ -96,11 +108,24 @@ __global__ void sw_clear_mega_kernel(OpticsIn in, Tables tb, Dims d,
       const float r1 = tab(tb.second, d, side, c.jt + 1, c.je2, g) * (1.f - c.fe2) +
                        tab(tb.second, d, side, c.jt + 1, c.je2 + 1, g) * c.fe2;
       const float tau_ray = ((1.f - c.ft) * r0 + c.ft * r1) * __ldg(in.ray_factor + c.lc);
-      const float tau = fmaxf(tau_major(tb, d, c, g) + tau_minor(in, tb, d, c, g) + tau_ray, 0.f);
-      const float ssa = tau > 0.f ? tau_ray / tau : 0.f;
+      float tau = fmaxf(tau_major(tb, d, c, g) + tau_minor(in, tb, d, c, g) + tau_ray, 0.f);
+      float ssa = tau > 0.f ? tau_ray / tau : 0.f;
+      float gg = 0.f;
+      if constexpr (CLOUD) {
+        bool m;
+        if constexpr (MASK == MASK_SEED) {
+          m = carry.step(mcica_uniform(ck, (uint32_t)l * (uint32_t)d.ngpt + (uint32_t)g),
+                         __ldg(as.cld_frac + c.lc));
+          any_cloud = any_cloud || m;
+        } else {
+          m = __ldg(as.cmask + c.lc * d.ngpt + g) != 0;
+        }
+        add_cloud(as, c.lc, d.nbnd, band, m, tau, ssa, gg);
+      }
+      if constexpr (AERO) add_aerosol(as, l, col, ncol, c.lc, d.nbnd, band, tau, ssa, gg);
       const float T0 = expf(-tau / mu0_safe);
       float Rdir, Tdir, Rdif, Tdif;
-      sw_coeffs(tau, ssa, mu0, T0, Rdir, Tdir, Rdif, Tdif);
+      sw_coeffs(tau, ssa, (CLOUD || AERO) ? gg : 0.f, mu0, T0, Rdir, Tdir, Rdif, Tdif);
       const size_t s = c.lc * d.ngpt + g;
       s_rdir[s] = Rdir * beam;
       s_tdir[s] = Tdir * beam;
@@ -109,6 +134,10 @@ __global__ void sw_clear_mega_kernel(OpticsIn in, Tables tb, Dims d,
       beam *= T0;
     }
     sums.add(DIR, l, beam);
+  }
+  if constexpr (MASK == MASK_SEED) {
+    const int n = block_count(any_cloud, (int*)(smem + 3 * nlev * (int)(blockDim.x >> 5)));
+    if (threadIdx.x == 0) cover[col] = (float)n / (float)d.ngpt;
   }
 
   // phase 2, bottom-up adding. Afterwards layer l's slots hold:
@@ -161,6 +190,19 @@ __global__ void sw_clear_mega_kernel(OpticsIn in, Tables tb, Dims d,
   }
 }
 
+template <bool CLOUD, bool AERO, int MASK>
+cudaError_t launch_sw(const MegaLaunch& m, cudaStream_t stream, OpticsIn in, Tables tb, Dims d, AllSkyIn as,
+                      const float* mu0, const float* toa_gpt, const float* alb_dir, const float* alb_dif,
+                      const float* inc_dif, float* s_rdir, float* s_tdir, float* s_rdif, float* s_tdif,
+                      float* up, float* dn, float* dir, float* cover) {
+  auto kernel = sw_clear_mega_kernel<CLOUD, AERO, MASK>;
+  cudaError_t err = prepare_smem(kernel, m.smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<m.grid, m.block, m.smem, stream>>>(in, tb, d, as, mu0, toa_gpt, alb_dir, alb_dif, inc_dif, s_rdir,
+                                              s_tdir, s_rdif, s_tdif, up, dn, dir, cover);
+  return cudaGetLastError();
+}
+
 }  // namespace rrtmgp
 
 extern "C" int rrtmgp_sw_clear_mega(
@@ -172,9 +214,13 @@ extern "C" int rrtmgp_sw_clear_mega(
     const void* kmajor, const void* rayl, const void* kminor, const void* gpt2band,
     const void* minor_start, const void* minor_list, const void* minor_kbase, const void* minor_band,
     const void* mu0, const void* toa_gpt, const void* alb_dir, const void* alb_dif, const void* inc_dif,
+    const void* ctau, const void* cssa, const void* cg, const void* cmask, const void* cld_frac,
+    const void* atau, const void* assa, const void* ag, const void* amask,
     void* s_rdir, void* s_tdir, void* s_rdif, void* s_tdif,
-    void* flux_up, void* flux_dn, void* flux_dir,
-    int nlay, int ncol, int ngpt, int nbnd, int ntemp, int neta, int ncontrib, void* stream) {
+    void* flux_up, void* flux_dn, void* flux_dir, void* cover,
+    int nlay, int ncol, int ngpt, int nbnd, int ntemp, int neta, int ncontrib,
+    int cloud, int aero, int mask_mode, unsigned seed_hi, unsigned seed_lo, long long col_offset,
+    void* stream) {
   using namespace rrtmgp;
   const OpticsIn in{(const int*)jtemp, (const float*)ftemp, (const int*)jpress, (const float*)fpress,
                     (const unsigned char*)tropo_lower, (const float*)col_dry,
@@ -185,12 +231,25 @@ extern "C" int rrtmgp_sw_clear_mega(
                   (const int*)minor_start, (const int*)minor_list, (const int*)minor_kbase,
                   (const int*)minor_band};
   const Dims d{nlay, ncol, ngpt, nbnd, ntemp, neta, ncontrib};
-  const MegaLaunch m = mega_launch(d, 3);
-  cudaError_t err = prepare_smem(sw_clear_mega_kernel, m.smem);
-  if (err != cudaSuccess) return (int)err;
-  sw_clear_mega_kernel<<<m.grid, m.block, m.smem, (cudaStream_t)stream>>>(
-      in, tb, d, (const float*)mu0, (const float*)toa_gpt, (const float*)alb_dir, (const float*)alb_dif,
-      (const float*)inc_dif, (float*)s_rdir, (float*)s_tdir, (float*)s_rdif, (float*)s_tdif,
-      (float*)flux_up, (float*)flux_dn, (float*)flux_dir);
-  return (int)cudaGetLastError();
+  const AllSkyIn as{(const float*)ctau, (const float*)cssa, (const float*)cg, (const unsigned char*)cmask,
+                    (const float*)cld_frac, Key2x32{seed_hi, seed_lo}, col_offset,
+                    (const float*)atau, (const float*)assa, (const float*)ag, (const unsigned char*)amask};
+  MegaLaunch m = mega_launch(d, 3);
+  m.smem += 32 * sizeof(int);  // block_count of the McICA cover
+  const cudaStream_t s = (cudaStream_t)stream;
+  const float *mu = (const float*)mu0, *toa = (const float*)toa_gpt, *ad = (const float*)alb_dir,
+              *af = (const float*)alb_dif, *inc = (const float*)inc_dif;
+  float *r0 = (float*)s_rdir, *r1 = (float*)s_tdir, *r2 = (float*)s_rdif, *r3 = (float*)s_tdif;
+  float *up = (float*)flux_up, *dn = (float*)flux_dn, *dir = (float*)flux_dir, *cv = (float*)cover;
+#define RRTMGP_SW(C, A, M) launch_sw<C, A, M>(m, s, in, tb, d, as, mu, toa, ad, af, inc, r0, r1, r2, r3, up, dn, dir, cv)
+  cudaError_t err;
+  if (!cloud) {
+    err = aero ? RRTMGP_SW(false, true, MASK_NONE) : RRTMGP_SW(false, false, MASK_NONE);
+  } else if (mask_mode == MASK_SEED) {
+    err = aero ? RRTMGP_SW(true, true, MASK_SEED) : RRTMGP_SW(true, false, MASK_SEED);
+  } else {
+    err = aero ? RRTMGP_SW(true, true, MASK_GIVEN) : RRTMGP_SW(true, false, MASK_GIVEN);
+  }
+#undef RRTMGP_SW
+  return (int)err;
 }

@@ -1,5 +1,5 @@
-"""Lookup-table containers for RRTMGP k-distribution gas optics (counterpart
-of ``rrtmgp_tpu/data/lookups.py``).
+"""Lookup-table containers for RRTMGP gas, cloud and aerosol optics
+(counterpart of ``rrtmgp_tpu/data/lookups.py``).
 
 Dense coefficient tensors keep the JAX package's layout, g-point leading
 (``kmajor (ngpt, npress+1, ntemp, neta)``). Index data (key species per band,
@@ -104,6 +104,56 @@ class GasLookup(TensorContainer):
         from ..ops.mega_inputs import build_kernel_tables
 
         return build_kernel_tables(self)
+
+
+@dataclasses.dataclass(frozen=True)
+class CloudLookup(TensorContainer):
+    """Cloud optics table.
+
+    liq (3, nsize_liq, nbnd): ext/ssa/asy vs liquid effective radius;
+    ice (3, nsize_ice, nbnd, nrghice): the same for ice x roughness. The
+    radius bounds are 0-dim tensors of the table's dtype, so the radius grid
+    step is computed at the working precision, as in the JAX package.
+    """
+
+    liq: torch.Tensor
+    ice: torch.Tensor
+    bnd_lims_wn: torch.Tensor
+    radliq_lwr: torch.Tensor
+    radliq_upr: torch.Tensor
+    radice_lwr: torch.Tensor
+    radice_upr: torch.Tensor
+    nsize_liq: int
+    nsize_ice: int
+    nrghice: int
+
+
+@dataclasses.dataclass(frozen=True)
+class AerosolLookup(TensorContainer):
+    """MERRA aerosol table; (ext, ssa, asy) on the leading axis of each:
+
+      dust              (3, nbin, nbnd)
+      sea_salt          (3, nrh, nbin, nbnd)
+      sulfate           (3, nrh, nbnd)
+      black_carbon_rh   (3, nrh, nbnd)
+      black_carbon      (3, nbnd)
+      organic_carbon_rh (3, nrh, nbnd)
+      organic_carbon    (3, nbnd)
+    """
+
+    size_bin_limits: torch.Tensor  # (2, nbin)
+    rh_levels: torch.Tensor        # (nrh,)
+    dust: torch.Tensor
+    sea_salt: torch.Tensor
+    sulfate: torch.Tensor
+    black_carbon_rh: torch.Tensor
+    black_carbon: torch.Tensor
+    organic_carbon_rh: torch.Tensor
+    organic_carbon: torch.Tensor
+    bnd_lims_wn: torch.Tensor
+    iband_550nm: int  # 0-based; -1 if absent
+    n_bin: int
+    n_rh: int
 
 
 def band_limits_to_gpt2band(bnd_lims_gpt: tuple, n_gpt: int) -> np.ndarray:

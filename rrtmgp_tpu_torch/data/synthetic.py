@@ -1,5 +1,5 @@
-"""Synthetic lookup tables and clear-sky atmospheres for data-free runs
-(counterpart of ``rrtmgp_tpu/data/synthetic.py``).
+"""Synthetic gas, cloud and aerosol lookup tables and atmospheres for
+data-free runs (counterpart of ``rrtmgp_tpu/data/synthetic.py``).
 
 The tables have the exact structure of the rrtmgp-data files (shapes, index
 conventions, metadata invariants, physical magnitudes). The numpy RNG code is
@@ -12,10 +12,15 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..convert import atmosphere_from_numpy, gas_lookup_from_numpy
+from ..convert import (
+    aerosol_lookup_from_numpy,
+    atmosphere_from_numpy,
+    cloud_lookup_from_numpy,
+    gas_lookup_from_numpy,
+)
 from ..parameters import RRTMGPParameters
 from ..states import AtmosphericState
-from .lookups import GasLookup, MinorInterval
+from .lookups import AerosolLookup, CloudLookup, GasLookup, MinorInterval
 
 # Gas ordering mirrors rrtmgp-data g-files: h2o=1, co2=2, o3=3 (1-based).
 GAS_NAMES = ("h2o", "co2", "o3", "n2o", "co", "ch4", "o2", "n2")
@@ -156,6 +161,58 @@ def synthetic_gas_lookup(
     return gas_lookup_from_numpy(arrays, meta, dtype=_torch_dtype(dtype), device=device)
 
 
+def synthetic_cloud_lookup(
+    n_bnd: int = 2, nsize_liq: int = 25, nsize_ice: int = 25, nrghice: int = 3,
+    seed: int = 3, dtype=np.float64, device=None,
+) -> CloudLookup:
+    """Synthetic cloud optics table with the real files' structure."""
+    rng = np.random.default_rng(seed)
+    ext_l = np.abs(rng.normal(0.1, 0.02, (nsize_liq, n_bnd))) + 0.02   # m^2/g
+    ssa_l = np.clip(rng.normal(0.6, 0.1, (nsize_liq, n_bnd)), 0.05, 0.999)
+    asy_l = np.clip(rng.normal(0.85, 0.05, (nsize_liq, n_bnd)), 0.0, 0.99)
+    ext_i = np.abs(rng.normal(0.05, 0.01, (nsize_ice, n_bnd, nrghice))) + 0.01
+    ssa_i = np.clip(rng.normal(0.55, 0.1, (nsize_ice, n_bnd, nrghice)), 0.05, 0.999)
+    asy_i = np.clip(rng.normal(0.8, 0.05, (nsize_ice, n_bnd, nrghice)), 0.0, 0.99)
+    arrays = dict(
+        liq=np.stack([ext_l, ssa_l, asy_l]),
+        ice=np.stack([ext_i, ssa_i, asy_i]),
+        bnd_lims_wn=np.linspace(10.0, 3000.0, 2 * n_bnd).reshape(2, n_bnd),
+        radliq_lwr=np.asarray(2.5), radliq_upr=np.asarray(21.5),
+        radice_lwr=np.asarray(10.0), radice_upr=np.asarray(90.0),
+    )
+    meta = dict(nsize_liq=nsize_liq, nsize_ice=nsize_ice, nrghice=nrghice)
+    return cloud_lookup_from_numpy(arrays, meta, dtype=_torch_dtype(dtype), device=device)
+
+
+def synthetic_aerosol_lookup(
+    n_bnd: int = 2, n_bin: int = 5, n_rh: int = 7, seed: int = 4, dtype=np.float64, device=None,
+) -> AerosolLookup:
+    """Synthetic MERRA aerosol table with the real files' structure."""
+    rng = np.random.default_rng(seed)
+
+    def props(shape):
+        ext = np.abs(rng.normal(0.3, 0.05, shape)) + 0.05   # m^2/g-ish
+        ssa = np.clip(rng.normal(0.7, 0.1, shape), 0.05, 0.999)
+        asy = np.clip(rng.normal(0.6, 0.1, shape), 0.0, 0.95)
+        return np.stack([ext, ssa, asy])
+
+    bins = np.array([[0.1, 1.0, 2.0, 3.0, 6.0], [1.0, 2.0, 3.0, 6.0, 10.0]])
+    arrays = dict(
+        size_bin_limits=bins,
+        rh_levels=np.linspace(0.0, 0.99, n_rh),
+        dust=props((n_bin, n_bnd)),
+        sea_salt=props((n_rh, n_bin, n_bnd)),
+        sulfate=props((n_rh, n_bnd)),
+        black_carbon_rh=props((n_rh, n_bnd)),
+        black_carbon=props((n_bnd,)),
+        organic_carbon_rh=props((n_rh, n_bnd)),
+        organic_carbon=props((n_bnd,)),
+        bnd_lims_wn=np.array([[2600.0, 16000.0], [16000.0, 50000.0]]).T.reshape(2, -1)[:, :n_bnd],
+    )
+    meta = dict(iband_550nm=min(1, n_bnd - 1), n_bin=n_bin, n_rh=n_rh)
+    return aerosol_lookup_from_numpy(arrays, meta, dtype=_torch_dtype(dtype), device=device)
+
+
 def synthetic_atmosphere(
     ncol: int = 8,
     nlay: int = 42,
@@ -164,9 +221,13 @@ def synthetic_atmosphere(
     seed: int = 7,
     dtype=np.float64,
     params: RRTMGPParameters = RRTMGPParameters(),
+    with_clouds: bool = False,
+    with_aerosols: bool = False,
     device=None,
 ) -> AtmosphericState:
-    """RFMIP-like synthetic clear-sky atmospheric state (level 0 = surface)."""
+    """RFMIP-like synthetic atmospheric state (level 0 = surface), with
+    optional clouds (cloud fraction 0 or 1, every third column clear) and
+    MERRA aerosols in the layers below 800 hPa."""
     rng = np.random.default_rng(seed)
     p0 = 101000.0 + rng.normal(0, 500, ncol)
     # log-spaced levels, surface -> TOA
@@ -193,8 +254,45 @@ def synthetic_atmosphere(
     m_air = params.molmass_dryair + params.molmass_water * vmr_h2o
     col_dry = dp * params.avogad / (1.0e4 * m_air * params.grav)
 
+    cloud_state = None
+    if with_clouds:
+        cld_frac = np.zeros((nlay, ncol))
+        in_cloud = (p_lay > 10000.0) & (p_lay < 90000.0) & (np.arange(ncol)[None, :] % 3 != 2)
+        cld_frac[in_cloud] = 1.0
+        t_mask = t_lay > 263.0
+        cloud_state = dict(
+            cld_r_eff_liq=np.where(in_cloud & t_mask, 12.0, 0.0),
+            cld_r_eff_ice=np.where(in_cloud & ~t_mask, 35.0, 0.0),
+            cld_path_liq=np.where(in_cloud & t_mask, 60.0, 0.0),
+            cld_path_ice=np.where(in_cloud & ~t_mask, 80.0, 0.0),
+            cld_frac=cld_frac,
+            ice_rgh=2,
+        )
+
+    aerosol_state = None
+    rel_hum = None
+    if with_aerosols:
+        n_aero = 15
+        mass = np.zeros((n_aero, nlay, ncol))
+        size = np.zeros((n_aero, nlay, ncol))
+        low = p_lay > 80000.0
+        mass[0, :, :] = np.where(low, 1e-5, 0.0)   # dust1
+        size[0, :, :] = np.where(low, 0.5, 0.0)
+        mass[1, :, :] = np.where(low, 2e-5, 0.0)   # sea_salt1
+        size[1, :, :] = np.where(low, 0.8, 0.0)
+        mass[2, :, :] = np.where(low, 5e-6, 0.0)   # sulfate
+        mass[4, :, :] = np.where(low, 1e-6, 0.0)   # black carbon (phobic)
+        aerosol_state = dict(aero_size=size, aero_mass=mass)
+        # numpy mirror of states.compute_relative_humidity
+        mwd = params.molmass_water / params.molmass_dryair
+        mmr_h2o = vmr_h2o * mwd
+        q_tmp = np.maximum(1e-7, mmr_h2o / (1.0 + mmr_h2o))
+        es_tmp = np.exp((17.67 * (t_lay - 273.16)) / (t_lay - 29.65))
+        rel_hum = np.maximum(0.01 * (0.263 * p_lay * q_tmp) / es_tmp, 0.0)
+
     return atmosphere_from_numpy(
         p_lay=p_lay, t_lay=t_lay, p_lev=p_lev, t_lev=t_lev, t_sfc=t_sfc,
         col_dry=col_dry, vmr_h2o=vmr_h2o, vmr_o3=vmr_o3, vmr_gm=vmr_gm,
+        rel_hum=rel_hum, cloud_state=cloud_state, aerosol_state=aerosol_state,
         dtype=_torch_dtype(dtype), device=device,
     )

@@ -1,30 +1,51 @@
-"""Clear-sky RRTMGP radiation solves (counterpart of
-``rrtmgp_tpu/models/rrtmgp.py``): LW no-scattering and SW two-stream.
+"""RRTMGP radiation solves, clear sky and all-sky (counterpart of
+``rrtmgp_tpu/models/rrtmgp.py``): LW no-scattering or two-stream, SW
+two-stream or direct beam only, with McICA clouds and MERRA aerosols.
 
 Two implementations of the same functions, chosen by ``impl``:
 
-- ``"kernel"``: the hand-written CUDA kernels of ``ops.mega`` (band Planck,
-  then one kernel for the whole solve), fed by ``ops.mega_inputs``. CUDA
-  tensors, f32.
-- ``"torch"``: plain torch, ``ops.gas_optics`` then ``ops.rte``; any device,
-  f32 or f64.
+- ``"kernel"``: the hand-written CUDA kernels of ``ops.mega`` and
+  ``ops.aerosol_bands`` (band Planck, then one kernel for the whole solve),
+  fed by ``ops.mega_inputs``. CUDA tensors, f32. LW no-scattering (K1) is
+  clear sky only; LW two-stream (K4) and SW two-stream (K2) take clouds
+  (a mask, or McICA drawn in the kernel from a seed) and aerosols.
+- ``"torch"``: plain torch, ``ops.gas_optics`` then the composition and
+  ``ops.rte``; any device, f32 or f64. Every combination of the JAX
+  package's XLA path.
 
-``impl=None`` picks ``"kernel"`` for CUDA tensors and ``"torch"`` otherwise.
-What this slice does not cover raises ``NotImplementedError`` naming the
-ROADMAP item that will add it. Fluxes are (nlay+1, ncol), level 0 = surface.
+``impl=None`` picks ``"kernel"`` for f32 CUDA tensors and ``"torch"``
+otherwise (f64 CUDA tensors with a warning: the kernels are f32 only).
+What the kernel path does not cover raises ``NotImplementedError`` naming
+the ROADMAP item that will add it. Fluxes are (nlay+1, ncol), level 0 =
+surface.
+
+McICA: ``cld_mask_seed`` draws the mask from the JAX package's off-TPU
+threefry stream keyed on (seed, ``col_offset`` + column), on both paths, so
+a seeded solve equals the JAX package's CPU solve bit for bit in its mask
+and is invariant to column splits.
 """
 
 from __future__ import annotations
 
+import warnings
 from typing import NamedTuple
 
 import torch
 
 from ..angular import angular_discretization
-from ..data.lookups import GasLookup
+from ..data.lookups import AerosolLookup, CloudLookup, GasLookup
 from ..ops import rte
+from ..ops.aerosol_bands import aerosol_bands
+from ..ops.aerosol_optics import aerosol_optics_bands
+from ..ops.cloud_optics import (
+    build_cloud_mask_mcica,
+    cloud_cover_from_mask,
+    cloud_optics_bands,
+    compose_2stream,
+    delta_scale,
+)
 from ..ops.gas_optics import gas_optics_lw, gas_optics_sw, gpt2band
-from ..ops.mega import lw_clear_mega, planck_band, sw_clear_mega
+from ..ops.mega import Composition, lw2_mega, lw_clear_mega, planck_band, sw_clear_mega
 from ..ops.mega_inputs import mega_lw_inputs, mega_sw_inputs
 from ..states import AtmosphericState, LwBCs, SwBCs
 
@@ -49,11 +70,24 @@ class SolveDiagnostics(NamedTuple):
 
 
 IMPLS = ("kernel", "torch")
+F64_WARNING = (
+    "impl=None on float64 CUDA tensors: the CUDA kernel tier is f32-only; "
+    "non-f32 inputs dispatch the exact-precision torch path instead "
+    "(slower, but true f64 — not an f32-faithful approximation)"
+)
 
 
-def _resolve_impl(impl: str | None, device: torch.device) -> str:
+def _resolve_impl(impl: str | None, device: torch.device, dtype: torch.dtype) -> str:
+    """``impl=None``: the kernels for f32 CUDA tensors, the torch path
+    otherwise (with a warning for f64 CUDA tensors). ``impl="kernel"`` needs
+    CUDA tensors; its wrappers reject f64."""
     if impl is None:
-        return "kernel" if device.type == "cuda" else "torch"
+        if device.type != "cuda":
+            return "torch"
+        if dtype == torch.float32:
+            return "kernel"
+        warnings.warn(F64_WARNING, stacklevel=3)
+        return "torch"
     if impl not in IMPLS:
         raise ValueError(f"impl={impl!r} not in {IMPLS}")
     if impl == "kernel" and device.type != "cuda":
@@ -67,18 +101,131 @@ def _not_ported(what: str, item: str):
     raise NotImplementedError(f"{what} is not ported yet (ROADMAP queue 1, {item})")
 
 
-def _reject_all_sky(lkp_cld, lkp_aero, cld_mask) -> None:
-    if lkp_cld is not None or cld_mask is not None:
-        _not_ported("cloud optics (lkp_cld / cld_mask)", "item 8, the all-sky slice")
-    if lkp_aero is not None:
-        _not_ported("aerosol optics (lkp_aero)", "item 8, the all-sky slice")
-
-
 def _apply_metric_scaling(flux, metric_scaling):
     """Deep-atmosphere metric scaling of every flux field."""
     if metric_scaling is None:
         return flux
     return type(flux)(*(f * metric_scaling for f in flux))
+
+
+def _bands_to_gpt(lkp: GasLookup, x_bands: torch.Tensor) -> torch.Tensor:
+    """Expand a per-band tensor (..., nbnd) to per-g-point (..., ngpt)."""
+    return x_bands[..., gpt2band(lkp)]
+
+
+def _mcica_mask(lkp, as_, lkp_cld, cld_mask, cld_mask_seed, col_offset):
+    """The caller's mask, or the McICA mask of the seed when clouds are on."""
+    if lkp_cld is not None and cld_mask is None and cld_mask_seed is None:
+        raise ValueError("lkp_cld needs cld_mask or cld_mask_seed")
+    if cld_mask is None and cld_mask_seed is not None and lkp_cld is not None:
+        return build_cloud_mask_mcica(
+            as_.cloud_state.cld_frac, lkp.n_gpt, int(cld_mask_seed), int(col_offset)
+        )
+    return cld_mask
+
+
+def _add_cloud_all(lkp, lkp_cld, as_, tau, ssa, g_asym, cld_mask, delta_scaling):
+    """Cloud optics per band, expanded to g-points, added under the mask:
+    absorption only for the 1-scalar path (ssa None), else the two-stream
+    increment."""
+    tau_c, ssa_c, g_c = (_bands_to_gpt(lkp, x) for x in cloud_optics_bands(lkp_cld, as_.cloud_state))
+    if ssa is None:
+        return tau + torch.where(cld_mask, tau_c - ssa_c * tau_c, 0.0), None, None
+    if delta_scaling:
+        tau_c, ssa_c, g_c = delta_scale(tau_c, ssa_c, g_c)
+    return compose_2stream(tau, ssa, g_asym, tau_c, ssa_c, g_c, cld_mask)
+
+
+def _aerosol_raw(lkp_aero, as_, active_species, kernel: bool):
+    """Raw band sums (tau, tau*ssa, tau*ssa*g): the aerosol_bands kernel's
+    (nlay, nbnd, ncol) on the kernel path, the plain (nlay, ncol, nbnd)
+    otherwise; and the (nlay, ncol) mask of layers carrying aerosol."""
+    aero = as_.aerosol_state
+    active = (aero.aero_mass > 0.0).any(dim=0)
+    if kernel:
+        return aerosol_bands(lkp_aero, aero, as_.rel_hum, active_species), active
+    raw = aerosol_optics_bands(lkp_aero, aero, as_.rel_hum, active_species)
+    return tuple(torch.where(active[..., None], x, 0.0) for x in raw), active
+
+
+def _aod(lkp_aero, t_b, ts_b, collect_aod, band_axis):
+    """Aerosol optical depth at 550 nm (extinction, scattering), or Nones."""
+    if not collect_aod or lkp_aero.iband_550nm < 0:
+        return None, None
+    pick = lambda x: x.select(band_axis, lkp_aero.iband_550nm).sum(dim=0)
+    return pick(t_b), pick(ts_b)
+
+
+def _aerosol_props(t_b, ts_b, tsg_b, delta_scaling):
+    """(tau, ssa, g) of the raw band sums, delta-scaled when asked."""
+    eps = float(torch.finfo(t_b.dtype).eps)
+    g_a = tsg_b / torch.clamp(ts_b, min=eps)
+    ssa_a = ts_b / torch.clamp(t_b, min=eps)
+    if delta_scaling:
+        return delta_scale(t_b, ssa_a, g_a)
+    return t_b, ssa_a, g_a
+
+
+def _add_aerosol_all(lkp, lkp_aero, as_, tau, ssa, g_asym, delta_scaling, collect_aod,
+                     active_species=None):
+    """Aerosol optics per band, expanded to g-points and added where a layer
+    carries aerosol; returns (tau, ssa, g, aod_ext, aod_sca)."""
+    (t_b, ts_b, tsg_b), active = _aerosol_raw(lkp_aero, as_, active_species, kernel=False)
+    aod_ext, aod_sca = _aod(lkp_aero, t_b, ts_b, collect_aod, band_axis=2)
+    t_a, ts_a, tsg_a = (_bands_to_gpt(lkp, x) for x in (t_b, ts_b, tsg_b))
+    if ssa is None:
+        return tau + (t_a - ts_a), None, None, aod_ext, aod_sca
+    tau, ssa, g_asym = compose_2stream(
+        tau, ssa, g_asym, *_aerosol_props(t_a, ts_a, tsg_a, delta_scaling), active[..., None]
+    )
+    return tau, ssa, g_asym, aod_ext, aod_sca
+
+
+def _aerosol_bands_masked(lkp_aero, as_, delta_scaling, collect_aod, active_species=None):
+    """Band-level aerosol (tau, ssa, g), each (nlay, nbnd, ncol), from the
+    aerosol_bands kernel, with the active mask and the AOD: the megakernels'
+    aerosol input. The ratios and delta scaling are pointwise in band
+    values, so they commute with the band -> g-point expansion of the torch
+    path."""
+    raw, active = _aerosol_raw(lkp_aero, as_, active_species, kernel=True)
+    aod_ext, aod_sca = _aod(lkp_aero, raw[0], raw[1], collect_aod, band_axis=1)
+    props = tuple(x.contiguous() for x in _aerosol_props(*raw, delta_scaling))
+    return props, active.contiguous(), aod_ext, aod_sca
+
+
+def _kernel_composition(lkp, as_, lkp_cld, lkp_aero, cld_mask, cld_mask_seed, col_offset,
+                        aero_species, delta_scaling, collect_aod):
+    """The megakernels' Composition: cloud band properties (delta-scaled for
+    SW) with the caller's mask or, in seed mode, the cloud fraction and
+    seed; aerosol band properties from the aerosol_bands kernel. Returns
+    (Composition, aod_ext, aod_sca)."""
+    cld_bands = frac = seed = None
+    if lkp_cld is not None:
+        if cld_mask is None and cld_mask_seed is None:
+            raise ValueError("lkp_cld needs cld_mask or cld_mask_seed")
+        cld_bands = cloud_optics_bands(lkp_cld, as_.cloud_state)
+        if delta_scaling:
+            cld_bands = delta_scale(*cld_bands)
+        cld_bands = tuple(x.contiguous() for x in cld_bands)
+        if cld_mask is None:
+            frac, seed = as_.cloud_state.cld_frac.contiguous(), int(cld_mask_seed)
+    aero_bands = aero_mask = aod_ext = aod_sca = None
+    if lkp_aero is not None:
+        aero_bands, aero_mask, aod_ext, aod_sca = _aerosol_bands_masked(
+            lkp_aero, as_, delta_scaling, collect_aod, aero_species
+        )
+    comp = Composition(
+        cld_bands=cld_bands, cld_mask=cld_mask if cld_bands is not None and frac is None else None,
+        cld_frac=frac, seed=seed, col_offset=int(col_offset),
+        aero_bands=aero_bands, aero_mask=aero_mask,
+    )
+    return comp, aod_ext, aod_sca
+
+
+def _cover(cover, cld_mask, dtype):
+    if cover is None and cld_mask is not None:
+        cover = cloud_cover_from_mask(cld_mask)
+    return None if cover is None else cover.to(dtype)
 
 
 def solve_lw(
@@ -88,49 +235,84 @@ def solve_lw(
     *,
     two_stream: bool = False,
     n_gauss_angles: int = 1,
-    lkp_cld=None,
-    lkp_aero=None,
-    cld_mask: torch.Tensor | None = None,
+    lkp_cld: CloudLookup | None = None,
+    lkp_aero: AerosolLookup | None = None,
+    cld_mask: torch.Tensor | None = None,   # (nlay, ncol, ngpt) bool McICA mask
     metric_scaling: torch.Tensor | None = None,
+    aero_species: tuple | None = None,      # active MERRA species (None: all 15)
+    cld_mask_seed: int | None = None,       # McICA from (seed, global column)
+    col_offset: int = 0,                    # global index of column 0
     eta_node_mode: str = "continuous",
     impl: str | None = None,
 ) -> tuple[FluxLW, SolveDiagnostics]:
-    """Longwave no-scattering flux solve over all g-points."""
-    _reject_all_sky(lkp_cld, lkp_aero, cld_mask)
-    if two_stream:
-        _not_ported("the LW two-stream solve (two_stream=True)", "item 8, the all-sky slice")
-    impl = _resolve_impl(impl, as_.p_lay.device)
+    """Longwave flux solve over all g-points: no-scattering (one or more
+    angles) or two-stream, clear or with clouds and aerosols."""
+    dtype = as_.p_lay.dtype
+    impl = _resolve_impl(impl, as_.p_lay.device, dtype)
     Ds, wts = angular_discretization(n_gauss_angles)
 
     if impl == "kernel":
-        if n_gauss_angles != 1:
+        if not two_stream and n_gauss_angles != 1:
             _not_ported("the multi-angle LW kernel (n_gauss_angles > 1)", "item 10")
+        if not two_stream and (lkp_cld is not None or lkp_aero is not None):
+            _not_ported("cloud/aerosol composition in the LW no-scattering kernel (K1)", "item 17")
         tabs = lkp.kernel_tables
         inp = mega_lw_inputs(lkp, as_, eta_node_mode)
         plk = lambda t: planck_band(
             t.reshape(-1), lkp.totplnk, lkp.t_planck_min, lkp.t_planck_delta
         )
-        flux_up, flux_dn = lw_clear_mega(
-            inp, tabs, plk(as_.t_lay), plk(as_.t_lev), plk(as_.t_sfc),
-            bcs.sfc_emis, bcs.inc_flux, float(Ds[0]), float(wts[0]),
+        cover = None
+        if two_stream:
+            comp, _, _ = _kernel_composition(
+                lkp, as_, lkp_cld, lkp_aero, cld_mask, cld_mask_seed, col_offset, aero_species,
+                delta_scaling=False, collect_aod=False,
+            )
+            out = lw2_mega(inp, tabs, plk(as_.t_lev), plk(as_.t_sfc), bcs.sfc_emis, bcs.inc_flux, comp)
+            flux_up, flux_dn = out[0], out[1]
+            cover = out[2] if comp.seeded else None
+        else:
+            flux_up, flux_dn = lw_clear_mega(
+                inp, tabs, plk(as_.t_lay), plk(as_.t_lev), plk(as_.t_sfc),
+                bcs.sfc_emis, bcs.inc_flux, float(Ds[0]), float(wts[0]),
+            )
+        flux = FluxLW(flux_up, flux_dn, flux_up - flux_dn)
+        diag = SolveDiagnostics(cld_cover=_cover(cover, cld_mask, dtype))
+        return _apply_metric_scaling(flux, metric_scaling), diag
+
+    cld_mask = _mcica_mask(lkp, as_, lkp_cld, cld_mask, cld_mask_seed, col_offset)
+    optics = gas_optics_lw(lkp, as_, eta_node_mode=eta_node_mode)
+    src = optics.sources
+    tau = optics.tau
+    ssa = torch.zeros_like(tau) if two_stream else None
+    g_asym = torch.zeros_like(tau) if two_stream else None
+    if lkp_cld is not None:
+        tau, ssa, g_asym = _add_cloud_all(lkp, lkp_cld, as_, tau, ssa, g_asym, cld_mask, False)
+    if lkp_aero is not None:
+        tau, ssa, g_asym, _, _ = _add_aerosol_all(
+            lkp, lkp_aero, as_, tau, ssa, g_asym, delta_scaling=False, collect_aod=False,
+            active_species=aero_species,
         )
+    sfc_emis = _bands_to_gpt(lkp, bcs.sfc_emis.T)  # (ncol, ngpt)
+    if two_stream:
+        up, dn = rte.lw_2stream(
+            tau, ssa, g_asym, src.lev_source, src.sfc_source, sfc_emis, bcs.inc_flux
+        )
+        flux_up, flux_dn = up.sum(-1), dn.sum(-1)
     else:
-        optics = gas_optics_lw(lkp, as_, eta_node_mode=eta_node_mode)
-        src = optics.sources
-        sfc_emis = bcs.sfc_emis.T[:, gpt2band(lkp)]  # (ncol, ngpt)
         flux_up = flux_dn = 0.0
         # Gauss-Jacobi weights sum to 1, so the TOA incident flux splits by
         # weight and every angle sees the same isotropic intensity
         for k in range(n_gauss_angles):
             inc_k = None if bcs.inc_flux is None else bcs.inc_flux * float(wts[k])
             up, dn = rte.lw_noscat(
-                optics.tau, src.lay_source, src.lev_source, src.sfc_source,
+                tau, src.lay_source, src.lev_source, src.sfc_source,
                 sfc_emis, float(Ds[k]), float(wts[k]), inc_k,
             )
             flux_up = flux_up + up.sum(-1)
             flux_dn = flux_dn + dn.sum(-1)
     flux = FluxLW(flux_up, flux_dn, flux_up - flux_dn)
-    return _apply_metric_scaling(flux, metric_scaling), SolveDiagnostics()
+    diag = SolveDiagnostics(cld_cover=_cover(None, cld_mask, dtype))
+    return _apply_metric_scaling(flux, metric_scaling), diag
 
 
 def solve_sw(
@@ -139,43 +321,75 @@ def solve_sw(
     bcs: SwBCs,
     *,
     two_stream: bool = True,
-    lkp_cld=None,
-    lkp_aero=None,
+    lkp_cld: CloudLookup | None = None,
+    lkp_aero: AerosolLookup | None = None,
     cld_mask: torch.Tensor | None = None,
     metric_scaling: torch.Tensor | None = None,
+    aero_species: tuple | None = None,
+    cld_mask_seed: int | None = None,
+    col_offset: int = 0,
     eta_node_mode: str = "continuous",
     impl: str | None = None,
 ) -> tuple[FluxSW, SolveDiagnostics]:
-    """Shortwave two-stream flux solve over all g-points. Night columns
+    """Shortwave flux solve over all g-points: two-stream or direct beam
+    only, clear or with clouds and aerosols (delta-scaled). Night columns
     (cos_zenith <= 0) produce exactly zero fluxes."""
-    _reject_all_sky(lkp_cld, lkp_aero, cld_mask)
-    if not two_stream:
-        _not_ported("the SW direct-beam-only solve (two_stream=False)", "item 3")
-    impl = _resolve_impl(impl, as_.p_lay.device)
+    dtype = as_.p_lay.dtype
+    impl = _resolve_impl(impl, as_.p_lay.device, dtype)
     mu0 = bcs.cos_zenith
     toa_gpt = bcs.toa_flux[:, None] * lkp.solar_src_scaled[None, :]  # (ncol, ngpt)
+    aod_ext = aod_sca = cover = None
 
     if impl == "kernel":
-        tabs = lkp.kernel_tables
-        inp = mega_sw_inputs(lkp, as_, eta_node_mode)
-        flux_up, flux_dn, flux_dn_dir = sw_clear_mega(
-            inp, tabs, mu0, toa_gpt, bcs.sfc_alb_direct, bcs.sfc_alb_diffuse,
-            bcs.inc_flux_diffuse,
+        if not two_stream:
+            _not_ported("the SW direct-beam-only solve on the kernel path (two_stream=False; "
+                        "needs the materialized-optics kernel K8)", "item 18")
+        comp, aod_ext, aod_sca = _kernel_composition(
+            lkp, as_, lkp_cld, lkp_aero, cld_mask, cld_mask_seed, col_offset, aero_species,
+            delta_scaling=True, collect_aod=True,
         )
+        out = sw_clear_mega(
+            mega_sw_inputs(lkp, as_, eta_node_mode), lkp.kernel_tables, mu0, toa_gpt,
+            bcs.sfc_alb_direct, bcs.sfc_alb_diffuse, bcs.inc_flux_diffuse, comp,
+        )
+        flux_up, flux_dn, flux_dn_dir = out[:3]
+        if comp.seeded:
+            cover = out[3]
     else:
+        cld_mask = _mcica_mask(lkp, as_, lkp_cld, cld_mask, cld_mask_seed, col_offset)
         optics = gas_optics_sw(lkp, as_, eta_node_mode=eta_node_mode)
-        g2b = gpt2band(lkp)
+        tau = optics.tau
+        ssa = optics.ssa if two_stream else None
         # clear-sky gas optics has zero asymmetry (Rayleigh g = 0)
-        up, dn, dn_dir = rte.sw_2stream(
-            optics.tau, optics.ssa, 0.0, mu0[:, None], toa_gpt,
-            bcs.sfc_alb_direct.T[:, g2b], bcs.sfc_alb_diffuse.T[:, g2b],
-            bcs.inc_flux_diffuse,
-        )
-        flux_up, flux_dn, flux_dn_dir = up.sum(-1), dn.sum(-1), dn_dir.sum(-1)
+        need_g = two_stream and (lkp_cld is not None or lkp_aero is not None)
+        g_asym = torch.zeros_like(tau) if need_g else None
+        if lkp_cld is not None:
+            tau, ssa, g_asym = _add_cloud_all(lkp, lkp_cld, as_, tau, ssa, g_asym, cld_mask, True)
+        if lkp_aero is not None:
+            tau, ssa, g_asym, aod_ext, aod_sca = _add_aerosol_all(
+                lkp, lkp_aero, as_, tau, ssa, g_asym, delta_scaling=True, collect_aod=True,
+                active_species=aero_species,
+            )
+        if two_stream:
+            g2b = gpt2band(lkp)
+            up, dn, dn_dir = rte.sw_2stream(
+                tau, ssa, 0.0 if g_asym is None else g_asym, mu0[:, None], toa_gpt,
+                bcs.sfc_alb_direct.T[:, g2b], bcs.sfc_alb_diffuse.T[:, g2b],
+                bcs.inc_flux_diffuse,
+            )
+            flux_up, flux_dn, flux_dn_dir = up.sum(-1), dn.sum(-1), dn_dir.sum(-1)
+        else:
+            # direct beam only: up and diffuse down stay zero
+            flux_dn_dir = rte.sw_noscat(tau, mu0[:, None], toa_gpt).sum(-1)
+            flux_up = torch.zeros_like(flux_dn_dir)
+            flux_dn = torch.zeros_like(flux_dn_dir)
 
     day = (mu0 > 0)[None, :]
     flux_up, flux_dn, flux_dn_dir = (
         torch.where(day, f, 0.0) for f in (flux_up, flux_dn, flux_dn_dir)
     )
     flux = FluxSW(flux_up, flux_dn, flux_dn_dir, flux_up - flux_dn)
-    return _apply_metric_scaling(flux, metric_scaling), SolveDiagnostics()
+    diag = SolveDiagnostics(
+        cld_cover=_cover(cover, cld_mask, dtype), aod_sw_ext=aod_ext, aod_sw_sca=aod_sca
+    )
+    return _apply_metric_scaling(flux, metric_scaling), diag

@@ -1,7 +1,8 @@
 """Build and load the CUDA kernels of ``rrtmgp_tpu_torch/csrc``.
 
-``nvcc`` compiles every ``csrc/*.cu`` into one shared library with a plain C
-interface for Hopper (sm_90a), loaded with ctypes. ``-fmad=false`` keeps
+``nvcc`` compiles every ``csrc/*.cu`` for Hopper (sm_90a), one process per
+source, all started together, and links the objects into one shared library
+with a plain C interface, loaded with ctypes. ``-fmad=false`` keeps
 multiply-adds unfused, so the kernels round op by op like their plain torch
 twins: near the Meador-Weaver singularity (k * mu0 = 1) the SW coefficients
 amplify a one-ulp difference far beyond the kernels' tolerance. The library is named by a
@@ -24,17 +25,22 @@ import tempfile
 _PKG = pathlib.Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "build"
+ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    *ARCH, "-std=c++17", "-O3", "-fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
-_P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
-#: C entry points: name -> argtypes. Each returns a cudaError_t as int.
+_P, _I, _U, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_longlong, ctypes.c_float
+#: C entry points: name -> argtypes. Each returns a cudaError_t as int. The
+#: all-sky megakernels end with (cloud, aero, mask_mode, seed_hi, seed_lo,
+#: col_offset, stream).
 SIGNATURES = {
     "rrtmgp_planck_band": [_P, _P, _P, _L, _I, _I, _F, _F, _P],
     "rrtmgp_lw_clear_mega": [_P] * 30 + [_I] * 7 + [_F, _F, _P],
-    "rrtmgp_sw_clear_mega": [_P] * 34 + [_I] * 7 + [_P],
+    "rrtmgp_sw_clear_mega": [_P] * 44 + [_I] * 10 + [_U, _U, _L, _P],
+    "rrtmgp_lw2_mega": [_P] * 42 + [_I] * 10 + [_U, _U, _L, _P],
+    "rrtmgp_aerosol_bands": [_P] * 15 + [_I] * 6 + [_P],
+    "rrtmgp_mcica_export": [_P] * 3 + [_I] * 3 + [_U, _U, _L, _P],
 }
 
 
@@ -75,23 +81,25 @@ def build() -> pathlib.Path:
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    cu = [str(p) for p in _sources() if p.suffix == ".cu"]
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    try:
-        proc = subprocess.run(
-            [find_nvcc(), *NVCC_FLAGS, "-o", tmp, *cu],
-            capture_output=True, text=True, cwd=CSRC,
-        )
-        out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}) building {out.name}:\n{proc.stderr[-8000:]}"
-            )
-        os.replace(tmp, out)  # atomic: concurrent builders never see a partial file
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
+    nvcc = find_nvcc()
+    cu = [p for p in _sources() if p.suffix == ".cu"]
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs = [os.path.join(tmp, p.stem + ".o") for p in cu]
+        procs = [
+            subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", o, str(p)], cwd=CSRC,
+                             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for p, o in zip(cu, objs)
+        ]
+        logs = [(p, proc.communicate()[0], proc.returncode) for p, proc in zip(cu, procs)]
+        so = os.path.join(tmp, out.name)
+        link = subprocess.run([nvcc, *ARCH, "-shared", "-o", so, *objs],
+                              capture_output=True, text=True, cwd=CSRC)
+        logs.append(("link", link.stdout + link.stderr, link.returncode))
+        out.with_suffix(".log").write_text("".join(text for _, text, _ in logs))
+        for name, text, rc in logs:
+            if rc != 0:
+                raise RuntimeError(f"nvcc failed ({rc}) on {name} building {out.name}:\n{text[-8000:]}")
+        os.replace(so, out)  # atomic: a concurrent build never sees a partial file
     return out
 
 

@@ -49,7 +49,7 @@ class EtaInterp(NamedTuple):
 
 
 class LWSources(NamedTuple):
-    lay_source: torch.Tensor  # (nlay, ncol, ngpt)
+    lay_source: torch.Tensor | None  # (nlay, ncol, ngpt); None when not needed
     lev_source: torch.Tensor  # (nlay+1, ncol, ngpt)
     sfc_source: torch.Tensor  # (ncol, ngpt)
 
@@ -306,13 +306,13 @@ def planck_sources_from_bands(
     """Planck sources from band Planck values (band axis last) and the
     per-g-point Planck fraction. Interior level sources use the geometric
     mean of the adjacent layers' fractions; the surface, bottom and top
-    levels use the adjacent layer's own."""
+    levels use the adjacent layer's own. ``plk_lay=None`` skips the layer
+    source (the two-stream solve needs only level and surface sources)."""
     g2b = gpt2band(lkp)
     nlay = pfrac.shape[0]
-    planck_lay = plk_lay[..., g2b]
     planck_lev = plk_lev[..., g2b]
     planck_sfc = plk_sfc[..., g2b]
-    lay_source = planck_lay * pfrac
+    lay_source = None if plk_lay is None else plk_lay[..., g2b] * pfrac
     lev0 = planck_lev[0] * pfrac[0]
     interior = planck_lev[1:nlay] * torch.sqrt(pfrac[:-1] * pfrac[1:])
     top = planck_lev[nlay] * pfrac[-1]

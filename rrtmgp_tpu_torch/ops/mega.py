@@ -1,5 +1,5 @@
-"""Clear-sky kernels of the main path and their plain torch twins
-(counterpart of ``rrtmgp_tpu/ops/pallas_mega.py``).
+"""Kernels of the main paths and their plain torch twins (counterpart of
+``rrtmgp_tpu/ops/pallas_mega.py``).
 
 Each wrapper launches its hand-written CUDA kernel (``csrc/*.cu``) for CUDA
 tensors and raises on anything the kernel does not take; for CPU tensors it
@@ -9,17 +9,33 @@ launched.
 
 - ``planck_band``: band Planck emission (replaces ``planck_band_pallas_t``
   and ``planck_band_windowed``);
-- ``lw_clear_mega``: whole LW no-scattering solve (replaces ``lw_clear_mega``);
-- ``sw_clear_mega``: whole SW two-stream solve (replaces ``sw_clear_mega``).
+- ``lw_clear_mega``: whole clear-sky LW no-scattering solve (replaces
+  ``lw_clear_mega``);
+- ``lw2_mega``: whole LW two-stream solve, clear or all-sky (replaces
+  ``lw2_mega``);
+- ``sw_clear_mega``: whole SW two-stream solve, clear or all-sky (replaces
+  ``sw_clear_mega``);
+- ``mcica_mask_export``: the McICA uniforms and mask the all-sky kernels
+  draw in seed mode (replaces ``mcica_mask_export``).
+
+The all-sky inputs of ``lw2_mega`` and ``sw_clear_mega`` travel in a
+``Composition``. Its McICA seed mode draws the JAX package's off-TPU
+threefry stream (``ops.cloud_optics``), so kernel and twin use the same mask.
 """
 
 from __future__ import annotations
 
-import ctypes
+from typing import NamedTuple
 
 import torch
 
 from . import _build
+from ._launch import cuda_device as _cuda_device
+from ._launch import ptr as _ptr
+from ._launch import require as _require
+from ._launch import stream as _stream
+from .aerosol_bands import aerosol_bands
+from .cloud_optics import cloud_cover_from_mask, compose_2stream, mcica_sample
 from .gas_optics import (
     compute_planck_fraction,
     compute_tau_major,
@@ -32,38 +48,10 @@ from .gas_optics import (
     tau_rayleigh_from_factor,
 )
 from .mega_inputs import KernelTables, MegaInputs
-from .rte import intensity_to_flux, lw_noscat, round_to, sw_2stream
+from .rte import intensity_to_flux, lw_2stream, lw_noscat, round_to, sw_2stream
+from .threefry import seed_key
 
 MAX_GPT = 1024  # one thread per g-point in a block
-
-
-def _ptr(t: torch.Tensor | None) -> ctypes.c_void_p:
-    return ctypes.c_void_p(None if t is None else t.data_ptr())
-
-
-def _stream(device: torch.device) -> ctypes.c_void_p:
-    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
-
-
-def _require(t, name: str, shape: tuple, dtype: torch.dtype, device: torch.device) -> None:
-    """Raise unless ``t`` is a contiguous tensor of this shape/dtype on ``device``."""
-    if not isinstance(t, torch.Tensor):
-        raise TypeError(f"{name}: expected a tensor, got {type(t).__name__}")
-    if t.device != device:
-        raise ValueError(f"{name}: on {t.device}, expected {device}")
-    if t.dtype != dtype:
-        raise TypeError(f"{name}: dtype {t.dtype}, the kernel takes {dtype}")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {tuple(shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name}: must be contiguous")
-
-
-def _cuda_device(t: torch.Tensor, name: str) -> torch.device:
-    if t.device.type != "cuda":
-        raise ValueError(f"{name}: tensors on {t.device}; the kernel runs on CUDA, "
-                         "the plain version on CPU")
-    return t.device
 
 
 # ---------------------------------------------------------------------------
@@ -238,26 +226,186 @@ lw_clear_mega.launches = 0
 
 
 # ---------------------------------------------------------------------------
+# All-sky composition of the two-stream megakernels
+# ---------------------------------------------------------------------------
+
+
+class Composition(NamedTuple):
+    """What ``lw2_mega`` / ``sw_clear_mega`` add to the gas optics. Clouds
+    come with either a mask or, for McICA in the kernel, the cloud fraction
+    and a seed; aerosols with their per-layer active mask."""
+
+    cld_bands: tuple | None = None     # (tau, ssa, g), each (nlay, ncol, nbnd)
+    cld_mask: torch.Tensor | None = None  # (nlay, ncol, ngpt) bool
+    cld_frac: torch.Tensor | None = None  # (nlay, ncol): McICA mask from the seed
+    seed: int | None = None
+    col_offset: int = 0                # global index of column 0 (seed mode)
+    aero_bands: tuple | None = None    # (tau, ssa, g), each (nlay, nbnd, ncol)
+    aero_mask: torch.Tensor | None = None  # (nlay, ncol) bool
+
+    @property
+    def seeded(self) -> bool:
+        return self.cld_bands is not None and self.cld_mask is None
+
+
+CLEAR = Composition()
+MASK_NONE, MASK_GIVEN, MASK_SEED = 0, 1, 2
+
+
+def _compose_ref(comp: Composition, lkp, tau, ssa, g):
+    """Twin side of the composition: the McICA mask (drawn from the seed in
+    seed mode) and the cloud / aerosol increments at g-point resolution.
+    Returns (tau, ssa, g, cloud cover or None)."""
+    g2b = gpt2band(lkp)
+    cover = None
+    if comp.cld_bands is not None:
+        mask = comp.cld_mask
+        if comp.seeded:
+            mask = mcica_sample(comp.cld_frac, lkp.n_gpt, comp.seed, comp.col_offset)[1]
+            cover = cloud_cover_from_mask(mask)
+        tau, ssa, g = compose_2stream(tau, ssa, g, *(x[..., g2b] for x in comp.cld_bands), mask)
+    if comp.aero_bands is not None:
+        bands = (x.transpose(1, 2)[..., g2b] for x in comp.aero_bands)
+        tau, ssa, g = compose_2stream(tau, ssa, g, *bands, comp.aero_mask[..., None])
+    return tau, ssa, g, cover
+
+
+def _composition_args(comp: Composition, dev, nlay, ncol, ngpt, nbnd) -> tuple[list, list]:
+    """Check a Composition against the kernel's shapes; returns the pointer
+    arguments (ctau, cssa, cg, cmask, cld_frac, atau, assa, ag, amask) and
+    the trailing scalars (cloud, aero, mask_mode, seed_hi, seed_lo,
+    col_offset)."""
+    f32 = torch.float32
+    cloud, aero = comp.cld_bands is not None, comp.aero_bands is not None
+    mode = MASK_NONE
+    cb = [None] * 3
+    if cloud:
+        cb = list(comp.cld_bands)
+        for name, x in zip(("cld_tau", "cld_ssa", "cld_g"), cb):
+            _require(x, name, (nlay, ncol, nbnd), f32, dev)
+        if (comp.cld_mask is None) == (comp.cld_frac is None):
+            raise ValueError("clouds need exactly one of cld_mask and cld_frac (with seed)")
+        if comp.cld_mask is not None:
+            _require(comp.cld_mask, "cld_mask", (nlay, ncol, ngpt), torch.bool, dev)
+            mode = MASK_GIVEN
+        else:
+            _require(comp.cld_frac, "cld_frac", (nlay, ncol), f32, dev)
+            if comp.seed is None:
+                raise ValueError("cld_frac needs a McICA seed")
+            mode = MASK_SEED
+    elif comp.cld_mask is not None or comp.cld_frac is not None:
+        raise ValueError("a cloud mask or cloud fraction needs cld_bands")
+    ab = [None] * 3
+    if aero:
+        ab = list(comp.aero_bands)
+        for name, x in zip(("aero_tau", "aero_ssa", "aero_g"), ab):
+            _require(x, name, (nlay, nbnd, ncol), f32, dev)
+        _require(comp.aero_mask, "aero_mask", (nlay, ncol), torch.bool, dev)
+    hi, lo = seed_key(comp.seed) if mode == MASK_SEED else (0, 0)
+    ptrs = [*cb, comp.cld_mask if mode == MASK_GIVEN else None,
+            comp.cld_frac if mode == MASK_SEED else None, *ab, comp.aero_mask if aero else None]
+    return list(map(_ptr, ptrs)), [int(cloud), int(aero), mode, hi, lo, int(comp.col_offset)]
+
+
+# ---------------------------------------------------------------------------
+# LW two-stream megakernel
+# ---------------------------------------------------------------------------
+
+
+def lw2_mega_ref(
+    inp: MegaInputs, tabs: KernelTables, plk_lev, plk_sfc, sfc_emis, inc_flux,
+    comp: Composition = CLEAR,
+):
+    """Plain twin of ``lw2_mega``: ``ops.gas_optics`` optics and level
+    sources, the composition at g-point resolution, then
+    ``ops.rte.lw_2stream``, summed over g-points."""
+    lkp = tabs.lkp
+    nlay, ncol = inp.nlay, inp.ncol
+    tau = _tau_gas(inp, tabs).clamp_(min=0.0)
+    pfrac = compute_planck_fraction(lkp, inp.pt, inp.eta)
+    src = planck_sources_from_bands(
+        lkp, None, plk_lev.reshape(lkp.n_bnd, nlay + 1, ncol).movedim(0, -1), plk_sfc.T, pfrac
+    )
+    del pfrac
+    tau, ssa, g, cover = _compose_ref(comp, lkp, tau, torch.zeros_like(tau), torch.zeros_like(tau))
+    emis = sfc_emis.T[:, gpt2band(lkp)]
+    up, dn = lw_2stream(tau, ssa, g, src.lev_source, src.sfc_source, emis, inc_flux)
+    out = (up.sum(-1), dn.sum(-1))
+    return out + (cover,) if comp.seeded else out
+
+
+def lw2_mega(
+    inp: MegaInputs, tabs: KernelTables,
+    plk_lev: torch.Tensor,   # (nbnd, nlev*ncol) planck_band at t_lev
+    plk_sfc: torch.Tensor,   # (nbnd, ncol) planck_band at t_sfc
+    sfc_emis: torch.Tensor,  # (nbnd, ncol)
+    inc_flux: torch.Tensor | None,  # (ncol, ngpt) TOA incident flux
+    comp: Composition = CLEAR,
+):
+    """Whole LW two-stream solve, clear or composed with ``comp``; returns
+    (flux_up, flux_dn), each (nlev, ncol), plus the McICA cloud cover (ncol,)
+    in seed mode."""
+    if inp.jtemp.device.type == "cpu":
+        return lw2_mega_ref(inp, tabs, plk_lev, plk_sfc, sfc_emis, inc_flux, comp)
+    dev = _cuda_device(inp.jtemp, "lw2_mega")
+    if not tabs.lkp.is_longwave:
+        raise ValueError("lw2_mega: needs a longwave lookup")
+    nlay, ncol, ngpt, nbnd, ntemp, neta, ncontrib = _check_inputs(inp, tabs, dev, False)
+    f32 = torch.float32
+    _require(plk_lev, "plk_lev", (nbnd, (nlay + 1) * ncol), f32, dev)
+    _require(plk_sfc, "plk_sfc", (nbnd, ncol), f32, dev)
+    _require(sfc_emis, "sfc_emis", (nbnd, ncol), f32, dev)
+    if inc_flux is not None:
+        _require(inc_flux, "inc_flux", (ncol, ngpt), f32, dev)
+    comp_ptrs, comp_scalars = _composition_args(comp, dev, nlay, ncol, ngpt, nbnd)
+    seeded = comp_scalars[2] == MASK_SEED
+    mask_s = torch.empty((nlay, ncol, ngpt), dtype=torch.uint8, device=dev) if seeded else None
+    scratch = [torch.empty((nlay, ncol, ngpt), dtype=f32, device=dev) for _ in range(4)]
+    up = torch.empty((nlay + 1, ncol), dtype=f32, device=dev)
+    dn = torch.empty_like(up)
+    cover = torch.empty((ncol,), dtype=f32, device=dev) if seeded else None
+    with torch.cuda.device(dev):
+        err = _build.library().rrtmgp_lw2_mega(
+            *_input_ptrs(inp), *_table_ptrs(tabs),
+            *map(_ptr, (plk_lev, plk_sfc, sfc_emis, inc_flux)), *comp_ptrs,
+            *map(_ptr, (mask_s, *scratch, up, dn, cover)),
+            nlay, ncol, ngpt, nbnd, ntemp, neta, ncontrib, *comp_scalars, _stream(dev),
+        )
+    _build.check(err, "lw2_mega")
+    lw2_mega.launches += 1
+    return (up, dn, cover) if seeded else (up, dn)
+
+
+lw2_mega.launches = 0
+
+
+# ---------------------------------------------------------------------------
 # SW two-stream megakernel
 # ---------------------------------------------------------------------------
 
 
 def sw_clear_mega_ref(
     inp: MegaInputs, tabs: KernelTables, mu0, toa_gpt, alb_dir, alb_dif, inc_flux_diffuse,
+    comp: Composition = CLEAR,
 ):
     """Plain twin of ``sw_clear_mega``: ``ops.gas_optics`` optics with
-    Rayleigh, then ``ops.rte.sw_2stream`` (asymmetry 0), summed over
-    g-points. Night columns are not zeroed."""
+    Rayleigh, the composition at g-point resolution (asymmetry 0 for clear
+    sky), then ``ops.rte.sw_2stream``, summed over g-points. Night columns
+    are not zeroed."""
     lkp = tabs.lkp
     tau_ray = tau_rayleigh_from_factor(lkp, inp.ray_factor, inp.pt, inp.eta)
     optics = sw_tau_ssa(_tau_gas(inp, tabs), tau_ray)
     del tau_ray
+    tau, ssa, g, cover = optics.tau, optics.ssa, 0.0, None
+    if comp.cld_bands is not None or comp.aero_bands is not None:
+        tau, ssa, g, cover = _compose_ref(comp, lkp, tau, ssa, torch.zeros_like(tau))
     g2b = gpt2band(lkp)
     up, dn, dn_dir = sw_2stream(
-        optics.tau, optics.ssa, 0.0, mu0[:, None], toa_gpt,
+        tau, ssa, g, mu0[:, None], toa_gpt,
         alb_dir.T[:, g2b], alb_dif.T[:, g2b], inc_flux_diffuse,
     )
-    return up.sum(-1), dn.sum(-1), dn_dir.sum(-1)
+    out = (up.sum(-1), dn.sum(-1), dn_dir.sum(-1))
+    return out + (cover,) if comp.seeded else out
 
 
 def sw_clear_mega(
@@ -267,12 +415,15 @@ def sw_clear_mega(
     alb_dir: torch.Tensor,  # (nbnd, ncol)
     alb_dif: torch.Tensor,  # (nbnd, ncol)
     inc_flux_diffuse: torch.Tensor | None,  # (ncol, ngpt)
-) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Whole clear-sky SW two-stream solve; returns (flux_up, flux_dn,
-    flux_dn_dir), each (nlev, ncol). flux_dn includes the direct beam.
-    Night columns are the caller's to zero."""
+    comp: Composition = CLEAR,
+):
+    """Whole SW two-stream solve, clear or composed with ``comp`` (cloud and
+    aerosol band properties already delta-scaled); returns (flux_up,
+    flux_dn, flux_dn_dir), each (nlev, ncol), plus the McICA cloud cover
+    (ncol,) in seed mode. flux_dn includes the direct beam. Night columns
+    are the caller's to zero."""
     if inp.jtemp.device.type == "cpu":
-        return sw_clear_mega_ref(inp, tabs, mu0, toa_gpt, alb_dir, alb_dif, inc_flux_diffuse)
+        return sw_clear_mega_ref(inp, tabs, mu0, toa_gpt, alb_dir, alb_dif, inc_flux_diffuse, comp)
     dev = _cuda_device(inp.jtemp, "sw_clear_mega")
     if tabs.lkp.is_longwave:
         raise ValueError("sw_clear_mega: needs a shortwave lookup")
@@ -284,27 +435,71 @@ def sw_clear_mega(
     _require(alb_dif, "alb_dif", (nbnd, ncol), f32, dev)
     if inc_flux_diffuse is not None:
         _require(inc_flux_diffuse, "inc_flux_diffuse", (ncol, ngpt), f32, dev)
+    comp_ptrs, comp_scalars = _composition_args(comp, dev, nlay, ncol, ngpt, nbnd)
+    seeded = comp_scalars[2] == MASK_SEED
     scratch = [torch.empty((nlay, ncol, ngpt), dtype=f32, device=dev) for _ in range(4)]
     fluxes = [torch.empty((nlay + 1, ncol), dtype=f32, device=dev) for _ in range(3)]
+    cover = torch.empty((ncol,), dtype=f32, device=dev) if seeded else None
     with torch.cuda.device(dev):
         err = _build.library().rrtmgp_sw_clear_mega(
             *_input_ptrs(inp), _ptr(inp.ray_factor), *_table_ptrs(tabs),
-            *map(_ptr, (mu0, toa_gpt, alb_dir, alb_dif, inc_flux_diffuse, *scratch, *fluxes)),
-            nlay, ncol, ngpt, nbnd, ntemp, neta, ncontrib, _stream(dev),
+            *map(_ptr, (mu0, toa_gpt, alb_dir, alb_dif, inc_flux_diffuse)), *comp_ptrs,
+            *map(_ptr, (*scratch, *fluxes, cover)),
+            nlay, ncol, ngpt, nbnd, ntemp, neta, ncontrib, *comp_scalars, _stream(dev),
         )
     _build.check(err, "sw_clear_mega")
     sw_clear_mega.launches += 1
-    return tuple(fluxes)
+    return (*fluxes, cover) if seeded else tuple(fluxes)
 
 
 sw_clear_mega.launches = 0
 
 
+# ---------------------------------------------------------------------------
+# McICA export
+# ---------------------------------------------------------------------------
+
+
+def mcica_mask_export_ref(cld_frac: torch.Tensor, seed: int, col_offset: int, n_gpt: int):
+    """Plain twin of ``mcica_mask_export``: ``ops.cloud_optics.mcica_sample``
+    with the mask as 0/1 floats."""
+    u, mask = mcica_sample(cld_frac, n_gpt, seed, col_offset)
+    return u, mask.to(u.dtype)
+
+
+def mcica_mask_export(cld_frac: torch.Tensor, seed: int, col_offset: int, n_gpt: int):
+    """The McICA uniforms and mask, each (nlay, ncol, n_gpt) f32, that the
+    all-sky kernels draw for (seed, global column col_offset + c)."""
+    if cld_frac.device.type == "cpu":
+        return mcica_mask_export_ref(cld_frac, seed, col_offset, n_gpt)
+    dev = _cuda_device(cld_frac, "mcica_mask_export")
+    if cld_frac.dim() != 2 or not 1 <= n_gpt <= MAX_GPT:
+        raise ValueError(f"mcica_mask_export: cld_frac {tuple(cld_frac.shape)}, n_gpt {n_gpt}")
+    nlay, ncol = cld_frac.shape
+    _require(cld_frac, "cld_frac", (nlay, ncol), torch.float32, dev)
+    hi, lo = seed_key(seed)
+    u = torch.empty((nlay, ncol, n_gpt), dtype=torch.float32, device=dev)
+    m = torch.empty_like(u)
+    with torch.cuda.device(dev):
+        err = _build.library().rrtmgp_mcica_export(
+            _ptr(cld_frac), _ptr(u), _ptr(m), nlay, ncol, n_gpt, hi, lo, int(col_offset), _stream(dev)
+        )
+    _build.check(err, "mcica_mask_export")
+    mcica_mask_export.launches += 1
+    return u, m
+
+
+mcica_mask_export.launches = 0
+
+KERNEL_WRAPPERS = (planck_band, lw_clear_mega, lw2_mega, sw_clear_mega, aerosol_bands,
+                   mcica_mask_export)
+
+
 def reset_launch_counts() -> None:
     """Set every kernel wrapper's launch count to 0."""
-    for fn in (planck_band, lw_clear_mega, sw_clear_mega):
+    for fn in KERNEL_WRAPPERS:
         fn.launches = 0
 
 
 def launch_counts() -> dict[str, int]:
-    return {fn.__name__: fn.launches for fn in (planck_band, lw_clear_mega, sw_clear_mega)}
+    return {fn.__name__: fn.launches for fn in KERNEL_WRAPPERS}

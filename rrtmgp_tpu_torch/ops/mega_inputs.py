@@ -1,5 +1,5 @@
-"""Inputs of the clear-sky megakernels, in plain torch (counterpart of the
-XLA prologue ``mega_lw_inputs`` / ``mega_sw_inputs`` in
+"""Inputs of the megakernels, in plain torch (counterpart of the XLA
+prologue ``mega_lw_inputs`` / ``mega_sw_inputs`` in
 ``rrtmgp_tpu/ops/gas_optics_pallas.py``).
 
 Two containers:
@@ -14,7 +14,10 @@ Two containers:
 
 The TPU-only structure of the JAX prologue (bf16 hi/lo table splits,
 per-layer table windows and their guards, 128-column padding) has no
-counterpart here.
+counterpart here. Band Planck values are not part of the inputs: the solves
+launch ``ops.mega.planck_band`` at t_lay, t_lev and t_sfc for LW
+no-scattering, and at t_lev and t_sfc only for LW two-stream (the JAX
+prologue's ``need_lay=False``).
 """
 
 from __future__ import annotations
@@ -173,7 +176,7 @@ def _mega_inputs(lkp, as_, eta_node_mode, shortwave) -> MegaInputs:
 def mega_lw_inputs(
     lkp: GasLookup, as_: AtmosphericState, eta_node_mode: str = "continuous"
 ) -> MegaInputs:
-    """Inputs of ``ops.mega.lw_clear_mega``."""
+    """Inputs of ``ops.mega.lw_clear_mega`` and ``ops.mega.lw2_mega``."""
     return _mega_inputs(lkp, as_, eta_node_mode, shortwave=False)
 
 

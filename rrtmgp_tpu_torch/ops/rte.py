@@ -1,5 +1,6 @@
 """RTE vertical-transport solvers in plain torch (counterpart of
-``rrtmgp_tpu/ops/rte.py``): LW no-scattering and SW two-stream.
+``rrtmgp_tpu/ops/rte.py``): LW no-scattering, LW two-stream, SW
+direct-beam only and SW two-stream.
 
 Layer recurrences are Python loops over layers; each step works on whole
 (*B) batches (columns x g-points). Per-layer coefficients are computed inside
@@ -86,6 +87,80 @@ def lw_noscat(
     for l in range(nlay):
         i_up[l + 1] = trans_all[l] * i_up[l] + src_up_all[l]
     return i_up.mul_(i2f), i_dn.mul_(i2f)
+
+
+# ---------------------------------------------------------------------------
+# Longwave two-stream
+# ---------------------------------------------------------------------------
+
+
+def lw_2stream_coeffs(tau, ssa, g, lev_src_bot, lev_src_top):
+    """Meador-Weaver diffuse R/T + Toon-1989 linear-in-tau layer sources
+    (flux units). Elementwise; returns (Rdif, Tdif, src_up, src_dn)."""
+    dtype = tau.dtype
+    eps = _eps(dtype)
+    k_min = eps ** 0.5
+    tau_thresh = 100.0 * eps
+    lw_diff_sec = 1.66
+    pi = round_to(math.pi, dtype)
+
+    gamma1 = lw_diff_sec * (1.0 - 0.5 * ssa * (1.0 + g))
+    gamma2 = lw_diff_sec * 0.5 * ssa * (1.0 - g)
+    k = torch.sqrt(torch.clamp((gamma1 + gamma2) * (gamma1 - gamma2), min=k_min))
+
+    coeff = torch.exp(-2.0 * tau * k)
+    rt_term = 1.0 / (k * (1.0 + coeff) + gamma1 * (1.0 - coeff))
+    Rdif = rt_term * gamma2 * (1.0 - coeff)            # MW Eq 25
+    Tdif = rt_term * 2.0 * k * torch.exp(-tau * k)     # MW Eq 26
+
+    # Toon et al. 1989 Eqs 26-27
+    big = tau > tau_thresh
+    tau_safe = torch.where(big, tau, 1.0)
+    Z = (lev_src_bot - lev_src_top) / (tau_safe * (gamma1 + gamma2))
+    Zup_top = Z + lev_src_top
+    Zup_bottom = Z + lev_src_bot
+    Zdn_top = -Z + lev_src_top
+    Zdn_bottom = -Z + lev_src_bot
+    src_up = torch.where(big, pi * (Zup_top - Rdif * Zdn_top - Tdif * Zup_bottom), 0.0)
+    src_dn = torch.where(big, pi * (Zdn_bottom - Rdif * Zup_bottom - Tdif * Zdn_top), 0.0)
+    return Rdif, Tdif, src_up, src_dn
+
+
+def lw_2stream(
+    tau: torch.Tensor,         # (nlay, *B)
+    ssa: torch.Tensor,         # (nlay, *B)
+    g: torch.Tensor,           # (nlay, *B)
+    lev_source: torch.Tensor,  # (nlay+1, *B)
+    sfc_source: torch.Tensor,  # (*B,)
+    sfc_emis: torch.Tensor,    # (*B,)
+    inc_flux: torch.Tensor | None = None,  # (*B,)
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """LW two-stream adding; returns (flux_up, flux_dn), each (nlay+1, *B)."""
+    nlay = tau.shape[0]
+    pi = round_to(math.pi, tau.dtype)
+    Rdif, Tdif, src_up, src_dn = (torch.empty_like(tau) for _ in range(4))
+    for l in range(nlay):
+        Rdif[l], Tdif[l], src_up[l], src_dn[l] = lw_2stream_coeffs(
+            tau[l], ssa[l], g[l], lev_source[l], lev_source[l + 1]
+        )
+    flux_dn_top = 0.0 if inc_flux is None else inc_flux
+    return _adding(
+        Rdif, Tdif, src_up, src_dn, 1.0 - sfc_emis, pi * sfc_emis * sfc_source, flux_dn_top
+    )
+
+
+# ---------------------------------------------------------------------------
+# Shortwave, direct beam only
+# ---------------------------------------------------------------------------
+
+
+def sw_noscat(tau: torch.Tensor, mu0: torch.Tensor, toa_flux: torch.Tensor) -> torch.Tensor:
+    """Direct-beam extinction; returns flux_dn_dir (nlay+1, *B): the TOA beam
+    times exp(-(optical depth above the level) / mu0)."""
+    mu0_safe = torch.clamp(mu0, min=_eps(tau.dtype))
+    tau_above = torch.flip(torch.cumsum(torch.flip(tau, (0,)), dim=0), (0,))
+    tau_to_lev = torch.cat([tau_above, torch.zeros_like(tau_above[:1])], dim=0)
+    return toa_flux * mu0 * torch.exp(-tau_to_lev / mu0_safe)
 
 
 # ---------------------------------------------------------------------------

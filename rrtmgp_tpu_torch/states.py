@@ -1,9 +1,9 @@
 """Atmospheric state containers and state precompute ops (counterpart of
-``rrtmgp_tpu/states.py``, clear sky only).
+``rrtmgp_tpu/states.py``).
 
 Containers are plain dataclasses of tensors with a ``.to(device, dtype)``
 method. Layout matches the JAX package: (nlay, ncol) / (nlay+1, ncol),
-level 0 = surface. Cloud and aerosol states are not ported yet.
+level 0 = surface.
 """
 
 from __future__ import annotations
@@ -82,13 +82,39 @@ def get_vmr(vmr, ig: int) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
+# Cloud / aerosol states
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class CloudState(TensorContainer):
+    """Cloud state, every field (nlay, ncol)."""
+
+    cld_r_eff_liq: torch.Tensor
+    cld_r_eff_ice: torch.Tensor
+    cld_path_liq: torch.Tensor
+    cld_path_ice: torch.Tensor
+    cld_frac: torch.Tensor
+    ice_rgh: int = 2  # 1 = none, 2 = medium, 3 = rough
+
+
+@dataclasses.dataclass(frozen=True)
+class AerosolState(TensorContainer):
+    """Aerosol state: size and mass (n_aero, nlay, ncol) in MERRA type order
+    (``ops.aerosol_optics`` index constants)."""
+
+    aero_size: torch.Tensor
+    aero_mass: torch.Tensor
+
+
+# ---------------------------------------------------------------------------
 # Atmospheric state
 # ---------------------------------------------------------------------------
 
 
 @dataclasses.dataclass(frozen=True)
 class AtmosphericState(TensorContainer):
-    """Clear-sky atmospheric state."""
+    """Full-physics atmospheric state."""
 
     p_lay: torch.Tensor    # (nlay, ncol)
     t_lay: torch.Tensor    # (nlay, ncol)
@@ -97,6 +123,9 @@ class AtmosphericState(TensorContainer):
     t_sfc: torch.Tensor    # (ncol,)
     col_dry: torch.Tensor  # (nlay, ncol) molecules/cm^2
     vmr: VmrGM | Vmr
+    rel_hum: torch.Tensor | None = None  # (nlay, ncol), aerosol path only
+    cloud_state: CloudState | None = None
+    aerosol_state: AerosolState | None = None
     lon: torch.Tensor | None = None
     lat: torch.Tensor | None = None
 
@@ -159,3 +188,21 @@ def compute_col_gas(
     vmr = 0.0 if vmr_h2o is None else vmr_h2o
     m_air = params.molmass_dryair + params.molmass_water * vmr
     return dp * params.avogad / (m2_to_cm2 * m_air * g0)
+
+
+def compute_relative_humidity(
+    p_lay: torch.Tensor,
+    t_lay: torch.Tensor,
+    vmr_h2o: torch.Tensor,
+    params: RRTMGPParameters,
+) -> torch.Tensor:
+    """Relative humidity used by MERRA aerosol optics, (nlay, ncol)
+    (Magnus-type formula)."""
+    mwd = params.molmass_water / params.molmass_dryair
+    t_ref = 273.16
+    q_lay_min = 1e-7
+    mmr_h2o = vmr_h2o * mwd
+    q_lay = mmr_h2o / (1.0 + mmr_h2o)
+    q_tmp = torch.clamp(q_lay, min=q_lay_min)
+    es_tmp = torch.exp((17.67 * (t_lay - t_ref)) / (t_lay - 29.65))
+    return torch.clamp(0.01 * (0.263 * p_lay * q_tmp) / es_tmp, min=0.0)

@@ -6,11 +6,13 @@ tests/conftest.py:
 
     python -m pytest --noconftest -m gpu tests/test_torch_cuda.py -q
 
-They cover what chip_smoke.py does not: the incident-flux inputs of both
+They cover what chip_smoke.py does not: the incident-flux inputs of the
 megakernels, odd shapes, run-to-run determinism, the wrappers' argument
-checks on CUDA tensors, and the launch counts of solve_lw / solve_sw.
+checks on CUDA tensors, the f64 routing of solve_lw / solve_sw, and the
+launch counts of solve_lw / solve_sw and RRTMGPSolver.update_fluxes.
 Tolerances as chip_smoke.py: max |kernel - twin| / max |twin| <= 1e-6
-(Planck), 5e-5 (LW), 1e-4 (SW).
+(Planck, aerosol_bands), 5e-5 (LW no-scattering), 1e-4 (LW two-stream,
+SW); the McICA cloud cover and mcica_mask_export bit for bit.
 """
 
 import dataclasses
@@ -27,7 +29,8 @@ from rrtmgp_tpu_torch.ops.mega_inputs import mega_lw_inputs, mega_sw_inputs
 
 pytestmark = pytest.mark.gpu
 
-TOL = {"planck_band": 1e-6, "lw_clear_mega": 5e-5, "sw_clear_mega": 1e-4}
+TOL = {"planck_band": 1e-6, "lw_clear_mega": 5e-5, "sw_clear_mega": 1e-4, "lw2_mega": 1e-4,
+       "aerosol_bands": 1e-6}
 
 
 @pytest.fixture
@@ -38,12 +41,18 @@ def cuda():
     return torch.device("cuda")
 
 
+def _counts() -> dict:
+    """The wrappers that launched, with their counts."""
+    return {k: n for k, n in mega.launch_counts().items() if n}
+
+
 def _rel(out, ref) -> float:
     err = scale = 0.0
     for a, b in zip(out, ref):
         assert torch.isfinite(a).all() and torch.isfinite(b).all()
         err = max(err, (a.double() - b.double()).abs().max().item())
         scale = max(scale, b.double().abs().max().item())
+    assert scale > 0.0
     return err / scale
 
 
@@ -81,7 +90,7 @@ def test_kernels_match_twins_with_incident_flux(cuda, ngpt, nbnd, ncol, nlay):
     out = mega.sw_clear_mega(*sw_args)
     assert _rel(out, mega.sw_clear_mega_ref(*sw_args)) <= TOL["sw_clear_mega"]
     torch.cuda.synchronize()
-    assert mega.launch_counts() == {"planck_band": 3, "lw_clear_mega": 1, "sw_clear_mega": 1}
+    assert _counts() == {"planck_band": 3, "lw_clear_mega": 1, "sw_clear_mega": 1}
 
 
 def test_kernels_are_deterministic(cuda):
@@ -107,7 +116,7 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
         mega.sw_clear_mega(*sw_args[:2], sw_args[2][:-1], *sw_args[3:])
     with pytest.raises(ValueError, match="longwave"):
         mega.lw_clear_mega(sw_args[0], sw_args[1], *lw_args[2:])
-    assert mega.launch_counts() == {"planck_band": 3, "lw_clear_mega": 0, "sw_clear_mega": 0}
+    assert _counts() == {"planck_band": 3}
 
 
 def test_more_than_1024_gpoints_raises(cuda):
@@ -130,7 +139,7 @@ def test_solves_on_cuda_take_the_kernels(cuda):
                sfc_alb_direct=f((4, 300), 0.2), sfc_alb_diffuse=f((4, 300), 0.2))
     k_lw, _ = solve_lw(lw, atm, bl)
     k_sw, _ = solve_sw(sw, atm, bs)
-    assert mega.launch_counts() == {"planck_band": 3, "lw_clear_mega": 1, "sw_clear_mega": 1}
+    assert _counts() == {"planck_band": 3, "lw_clear_mega": 1, "sw_clear_mega": 1}
     t_lw, _ = solve_lw(lw, atm, bl, impl="torch")
     t_sw, _ = solve_sw(sw, atm, bs, impl="torch")
     assert mega.launch_counts()["lw_clear_mega"] == 1
@@ -142,4 +151,163 @@ def test_solves_on_cuda_take_the_kernels(cuda):
         solve_lw(lw, atm, bl, n_gauss_angles=2)
     with pytest.raises(TypeError, match="float32"):
         solve_lw(lw.to(dtype=torch.float64), atm.to(dtype=torch.float64),
-                 dataclasses.replace(bl, sfc_emis=bl.sfc_emis.double()))
+                 dataclasses.replace(bl, sfc_emis=bl.sfc_emis.double()), impl="kernel")
+
+
+def test_f64_with_the_default_impl_takes_the_torch_path(cuda):
+    lw = synthetic_gas_lookup(longwave=True, n_gpt=16, n_bnd=2, dtype=np.float64, device=cuda)
+    sw = synthetic_gas_lookup(longwave=False, n_gpt=16, n_bnd=2, seed=1, dtype=np.float64, device=cuda)
+    atm = synthetic_atmosphere(ncol=40, nlay=8, dtype=np.float64, device=cuda)
+    f = lambda shape, v: torch.full(shape, v, dtype=torch.float64, device=cuda)
+    bl = LwBCs(sfc_emis=f((2, 40), 0.98))
+    bs = SwBCs(cos_zenith=f((40,), 0.6), toa_flux=f((40,), 1361.0),
+               sfc_alb_direct=f((2, 40), 0.2), sfc_alb_diffuse=f((2, 40), 0.2))
+    with pytest.warns(UserWarning, match="f32-only"):
+        k_lw, _ = solve_lw(lw, atm, bl)
+    with pytest.warns(UserWarning, match="f32-only"):
+        k_sw, _ = solve_sw(sw, atm, bs)
+    assert _counts() == {}
+    for a, b in zip((*k_lw, *k_sw), (*solve_lw(lw, atm, bl, impl="torch")[0],
+                                     *solve_sw(sw, atm, bs, impl="torch")[0])):
+        assert a.dtype == torch.float64 and torch.equal(a, b)
+    with pytest.raises(TypeError, match="float32"):
+        solve_sw(sw, atm, bs, impl="kernel")
+
+
+def _allsky_case(dev, ngpt, nbnd, ncol, nlay):
+    """All-sky kernel arguments at one size: LW two-stream (with an incident
+    flux) and SW inputs, cloud and aerosol lookups, fractional cloud
+    fraction, and a McICA mask drawn by the torch twin."""
+    from rrtmgp_tpu_torch.data.synthetic import synthetic_aerosol_lookup, synthetic_cloud_lookup
+    from rrtmgp_tpu_torch.ops.cloud_optics import build_cloud_mask_mcica
+
+    lw = synthetic_gas_lookup(longwave=True, n_gpt=ngpt, n_bnd=nbnd, dtype=np.float32, device=dev)
+    sw = synthetic_gas_lookup(longwave=False, n_gpt=ngpt, n_bnd=nbnd, seed=1, dtype=np.float32, device=dev)
+    atm = synthetic_atmosphere(ncol=ncol, nlay=nlay, dtype=np.float32, device=dev,
+                               with_clouds=True, with_aerosols=True)
+    rng = np.random.default_rng(6)
+    u = lambda lo, hi, *shape: torch.from_numpy(rng.uniform(lo, hi, shape).astype(np.float32)).to(dev)
+    cs = atm.cloud_state
+    mass = u(0.0, 2e-5, 15, nlay, ncol) * (u(0.0, 1.0, 15, nlay, ncol) > 0.3)
+    # aerosols in every layer (the synthetic ones sit below 800 hPa only)
+    atm = dataclasses.replace(
+        atm, cloud_state=dataclasses.replace(cs, cld_frac=(cs.cld_frac * u(0.2, 1.0, nlay, ncol)).contiguous()),
+        aerosol_state=dataclasses.replace(atm.aerosol_state, aero_mass=mass.contiguous(),
+                                          aero_size=u(0.05, 12.0, 15, nlay, ncol)),
+    )
+    kw = dict(n_bnd=nbnd, dtype=np.float32, device=dev)
+    cld = (synthetic_cloud_lookup(**kw), synthetic_cloud_lookup(seed=5, **kw))
+    aero = (synthetic_aerosol_lookup(**kw), synthetic_aerosol_lookup(seed=6, **kw))
+    plk = lambda t: mega.planck_band(t.reshape(-1), lw.totplnk, lw.t_planck_min, lw.t_planck_delta)
+    lw_args = (mega_lw_inputs(lw, atm), lw.kernel_tables, plk(atm.t_lev), plk(atm.t_sfc),
+               u(0.8, 1.0, nbnd, ncol), u(0.0, 2.0, ncol, ngpt))
+    toa_gpt = u(1000.0, 1400.0, ncol)[:, None] * sw.solar_src_scaled[None, :]
+    sw_args = (mega_sw_inputs(sw, atm), sw.kernel_tables, u(0.05, 1.0, ncol), toa_gpt.contiguous(),
+               u(0.05, 0.4, nbnd, ncol), u(0.05, 0.4, nbnd, ncol), u(0.0, 2.0, ncol, ngpt))
+    masks = [build_cloud_mask_mcica(atm.cloud_state.cld_frac, ngpt, 9, 100) for _ in (lw, sw)]
+    return lw, sw, atm, cld, aero, lw_args, sw_args, masks
+
+
+def _compositions(lkp, atm, cld, aero, mask, delta):
+    """(cloud mask, seed + aerosols) Compositions as the solves build them."""
+    from rrtmgp_tpu_torch.models.rrtmgp import _kernel_composition
+
+    make = lambda a, m, s: _kernel_composition(lkp, atm, cld, a, m, s, 100, None, delta, False)[0]
+    return make(None, mask, None), make(aero, None, 9)
+
+
+@pytest.mark.parametrize("ngpt,nbnd,ncol,nlay", [(36, 4, 1000, 30), (256, 16, 257, 12), (5, 5, 3, 4)])
+def test_allsky_kernels_match_twins(cuda, ngpt, nbnd, ncol, nlay):
+    from rrtmgp_tpu_torch.ops import aerosol_bands as ab
+
+    lw, sw, atm, cld, aero, lw_args, sw_args, masks = _allsky_case(cuda, ngpt, nbnd, ncol, nlay)
+    mega.reset_launch_counts()
+    for (fn, ref, args, tol), lkp, c, a, m, delta in (
+        ((mega.lw2_mega, mega.lw2_mega_ref, lw_args, TOL["lw2_mega"]), lw, cld[0], aero[0], masks[0], False),
+        ((mega.sw_clear_mega, mega.sw_clear_mega_ref, sw_args, TOL["sw_clear_mega"]), sw, cld[1], aero[1],
+         masks[1], True),
+    ):
+        for comp in (mega.CLEAR, *_compositions(lkp, atm, c, a, m, delta)):
+            out, want = fn(*args, comp), ref(*args, comp)
+            if comp.seeded:
+                assert torch.equal(out[-1], want[-1])  # McICA cloud cover
+                out, want = out[:-1], want[:-1]
+            assert out[0].shape == (nlay + 1, ncol)
+            assert _rel(out, want) <= tol
+    for lkp in aero:
+        a = (lkp, atm.aerosol_state, atm.rel_hum)
+        assert _rel(ab.aerosol_bands(*a), ab.aerosol_bands_ref(*a)) <= TOL["aerosol_bands"]
+    cf = atm.cloud_state.cld_frac
+    for off in (0, 384):
+        u, m = mega.mcica_mask_export(cf, 9, off, ngpt)
+        u_ref, m_ref = mega.mcica_mask_export_ref(cf, 9, off, ngpt)
+        assert u.shape == (nlay, ncol, ngpt) and torch.equal(u, u_ref) and torch.equal(m, m_ref)
+    torch.cuda.synchronize()
+    # aerosol_bands: 2 here, 2 in the seeded compositions
+    assert _counts() == {"lw2_mega": 3, "sw_clear_mega": 3, "aerosol_bands": 4, "mcica_mask_export": 2}
+
+
+def test_allsky_kernels_are_deterministic(cuda):
+    lw, sw, atm, cld, aero, lw_args, sw_args, masks = _allsky_case(cuda, 64, 4, 500, 20)
+    for fn, args, lkp, c, a, m, delta in ((mega.lw2_mega, lw_args, lw, cld[0], aero[0], masks[0], False),
+                                          (mega.sw_clear_mega, sw_args, sw, cld[1], aero[1], masks[1], True)):
+        for comp in _compositions(lkp, atm, c, a, m, delta):
+            for x, y in zip(fn(*args, comp), fn(*args, comp)):
+                assert torch.equal(x, y)
+
+
+def test_allsky_wrappers_reject_what_the_kernels_do_not_take(cuda):
+    from rrtmgp_tpu_torch.ops import aerosol_bands as ab
+
+    lw, sw, atm, cld, aero, lw_args, sw_args, masks = _allsky_case(cuda, 8, 2, 16, 4)
+    by_mask, seeded = _compositions(lw, atm, cld[0], aero[0], masks[0], False)
+    mega.reset_launch_counts()
+    bad = lambda **kw: seeded._replace(**kw)
+    with pytest.raises(ValueError, match="shape"):
+        mega.lw2_mega(*lw_args, bad(cld_bands=tuple(x[:, :-1] for x in seeded.cld_bands)))
+    with pytest.raises(TypeError, match="bool"):
+        mega.lw2_mega(*lw_args, by_mask._replace(cld_mask=by_mask.cld_mask.float()))
+    with pytest.raises(ValueError, match="seed"):
+        mega.lw2_mega(*lw_args, bad(seed=None))
+    with pytest.raises(ValueError, match="exactly one"):
+        mega.lw2_mega(*lw_args, bad(cld_mask=masks[0]))
+    with pytest.raises(ValueError, match="shape"):
+        mega.sw_clear_mega(*sw_args, bad(aero_mask=seeded.aero_mask[:, :-1].contiguous()))
+    with pytest.raises(ValueError, match="non-negative"):
+        mega.lw2_mega(*lw_args, bad(seed=-1))
+    with pytest.raises(TypeError, match="float32"):
+        ab.aerosol_bands(aero[0], atm.aerosol_state, atm.rel_hum.double())
+    with pytest.raises(ValueError, match="species index"):
+        ab.aerosol_bands(aero[0], atm.aerosol_state, atm.rel_hum, (0, 15))
+    with pytest.raises(ValueError, match="n_gpt"):
+        mega.mcica_mask_export(atm.cloud_state.cld_frac, 1, 0, 1025)
+    assert _counts() == {}
+
+
+def test_solver_update_fluxes_takes_the_kernels(cuda):
+    from rrtmgp_tpu_torch import (
+        AllSkyRadiation,
+        AllSkyRadiationWithClearSkyDiagnostics,
+        RRTMGPGridParams,
+        RRTMGPParameters,
+        RRTMGPSolver,
+    )
+
+    ncol, nlay = 300, 12
+    atm = synthetic_atmosphere(ncol=ncol, nlay=nlay, dtype=np.float32, device=cuda,
+                               with_clouds=True, with_aerosols=True)
+    f = lambda shape, v: torch.full(shape, v, dtype=torch.float32, device=cuda)
+    bl = LwBCs(sfc_emis=f((16, ncol), 0.98))
+    bs = SwBCs(cos_zenith=f((ncol,), 0.6), toa_flux=f((ncol,), 1361.0),
+               sfc_alb_direct=f((14, ncol), 0.2), sfc_alb_diffuse=f((14, ncol), 0.2))
+    grid = RRTMGPGridParams(nlay=nlay, ncol=ncol)
+    for method, n in ((AllSkyRadiation(aerosol_radiation=True), 1),
+                      (AllSkyRadiationWithClearSkyDiagnostics(aerosol_radiation=True), 2)):
+        solver = RRTMGPSolver(grid, method, RRTMGPParameters(), bl, bs, atm)
+        mega.reset_launch_counts()
+        f_lw, f_sw = solver.update_fluxes()
+        torch.cuda.synchronize()
+        # LW two-stream needs Planck at t_lev and t_sfc only
+        assert _counts() == {"planck_band": 2 * n, "lw2_mega": n, "sw_clear_mega": n, "aerosol_bands": 2 * n}
+        assert all(torch.isfinite(x).all() for x in (*f_lw, *f_sw))
+        assert solver.lw_cloud_cover().shape == solver.sw_cloud_cover().shape == (ncol,)

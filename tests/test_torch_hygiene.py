@@ -40,16 +40,22 @@ def test_all_modules_import():
 def test_public_api_resolves():
     for name in rrtmgp_tpu_torch.__all__:
         assert getattr(rrtmgp_tpu_torch, name) is not None, name
-    for fn in ("solve_lw", "solve_sw", "get_vmr", "compute_col_gas", "angular_discretization"):
+    for fn in ("solve_lw", "solve_sw", "get_vmr", "compute_col_gas", "angular_discretization",
+               "compute_relative_humidity", "lookup_tables", "RRTMGPSolver", "domain_view"):
         assert callable(getattr(rrtmgp_tpu_torch, fn)), fn
 
 
 def test_kernel_sources_present_and_build_is_lazy():
-    """The three main-path kernels have CUDA sources, and importing the ops
-    builds nothing (the library is built on the first CUDA call)."""
+    """Every kernel of the clear-sky and all-sky paths has its CUDA source
+    and C entry point, and importing the ops builds nothing (the library is
+    built on the first CUDA call)."""
     from rrtmgp_tpu_torch.ops import _build
 
     names = {p.name for p in _build.CSRC.iterdir()}
-    assert {"planck_band.cu", "lw_clear_mega.cu", "sw_clear_mega.cu"} <= names
+    assert {"planck_band.cu", "lw_clear_mega.cu", "sw_clear_mega.cu", "lw2_mega.cu",
+            "aerosol_bands.cu", "mcica_export.cu", "mcica.cuh", "allsky.cuh"} <= names
+    sources = "".join(p.read_text() for p in _build.CSRC.glob("*.cu"))
+    for entry in _build.SIGNATURES:
+        assert f'extern "C" int {entry}(' in sources, entry
     assert _build.library.cache_info().currsize == 0
     assert _build.library_path().name.startswith("librrtmgp_kernels_")

@@ -100,3 +100,59 @@ def test_sw_2stream(dtype, with_inc, clear_sky_g):
     day = mu0[:, 0] > 0
     d = tout[2].numpy()[:, day]
     assert np.all(np.diff(d, axis=0) >= 0.0)
+
+
+def _lw2_inputs(dtype):
+    rng = np.random.default_rng(13)
+    b = (NCOL, NGPT)
+    tau = rng.uniform(0.0, 3.0, (NLAY, *b)).astype(dtype)
+    tau[0, 0, 0] = 0.0       # below tau_thresh: no layer source
+    tau[1, 0, 1] = 1e-5
+    ssa = rng.uniform(0.0, 0.9, (NLAY, *b)).astype(dtype)
+    g = rng.uniform(0.0, 0.9, (NLAY, *b)).astype(dtype)
+    lev = rng.uniform(1.0, 50.0, (NLAY + 1, *b)).astype(dtype)
+    sfc = rng.uniform(10.0, 60.0, b).astype(dtype)
+    emis = rng.uniform(0.8, 0.99, b).astype(dtype)  # != 1: the surface reflects
+    inc = rng.uniform(0.0, 5.0, b).astype(dtype)
+    return tau, ssa, g, lev, sfc, emis, inc
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("with_inc", [False, True])
+def test_lw_2stream(dtype, with_inc):
+    arrays = _lw2_inputs(dtype)
+    j, t = _both(*arrays)
+    ju, jd = jrte.lw_2stream(*j[:6], j[6] if with_inc else None)
+    tu, td = trte.lw_2stream(*t[:6], t[6] if with_inc else None)
+    assert _rel(tu, ju) <= TOL[dtype]
+    assert _rel(td, jd) <= TOL[dtype]
+    if with_inc:
+        assert torch.equal(td[-1], t[6])
+    else:
+        assert torch.all(td[-1] == 0.0)
+
+
+def test_lw_2stream_matches_scalar_oracle():
+    """f64 against the scalar loops of tests/test_oracle.py, one column of
+    the batch at a time (the oracle takes (nlay, nb))."""
+    from test_oracle import oracle_lw_2stream
+
+    tau, ssa, g, lev, sfc, emis, inc = _lw2_inputs(np.float64)
+    flat = lambda x: x.reshape(x.shape[0], -1) if x.ndim == 3 else x.reshape(-1)
+    tu, td = trte.lw_2stream(*(torch.from_numpy(x) for x in (tau, ssa, g, lev, sfc, emis, inc)))
+    ou, od = oracle_lw_2stream(*(flat(x) for x in (tau, ssa, g, lev, sfc, emis, inc)))
+    np.testing.assert_allclose(flat(tu.numpy()), ou, rtol=1e-10, atol=1e-10)
+    np.testing.assert_allclose(flat(td.numpy()), od, rtol=1e-10, atol=1e-10)
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_sw_noscat(dtype):
+    """Direct beam only, mu0 in {0.6, 0, tiny, negative, 1}."""
+    tau, _, _, mu0, toa, *_ = _sw_inputs(dtype, MU0)
+    j, t = _both(tau, mu0, toa)
+    jd = jrte.sw_noscat(*j)
+    td = trte.sw_noscat(*t)
+    assert _rel(td, jd) <= TOL[dtype]
+    assert torch.equal(td[-1], t[2] * t[1])
+    day = mu0[:, 0] > 0
+    assert np.all(np.diff(td.numpy()[:, day], axis=0) >= 0.0)

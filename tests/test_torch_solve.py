@@ -148,23 +148,56 @@ def test_kernel_impl_on_cpu_raises():
         solve_lw(tl, ta, tb, impl="xla")
 
 
+@pytest.fixture
+def kernel_dispatch(monkeypatch):
+    """solve_* take their kernel path whatever the device: what that path
+    does not cover raises before any kernel is reached, so the dispatch is
+    testable without a card."""
+    from rrtmgp_tpu_torch.models import rrtmgp as tmod
+
+    monkeypatch.setattr(tmod, "_resolve_impl", lambda impl, device, dtype: "kernel")
+
+
 @pytest.mark.parametrize("kwargs", [
-    dict(two_stream=True), dict(lkp_cld=object()), dict(lkp_aero=object()),
-    dict(cld_mask=torch.ones(1, dtype=torch.bool)),
+    dict(n_gauss_angles=2), dict(lkp_cld=object()), dict(lkp_aero=object()),
+    dict(lkp_cld=object(), cld_mask=torch.ones(1, dtype=torch.bool)),
 ])
-def test_lw_unported_options_raise(kwargs):
+def test_lw_unported_options_raise(kernel_dispatch, kwargs):
+    """The kernel path of LW no-scattering covers one angle, clear sky."""
     _, _, _, tl, ta, tb = _lw_case(8, np.float32)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         solve_lw(tl, ta, tb, **kwargs)
 
 
 @pytest.mark.parametrize("kwargs", [
-    dict(two_stream=False), dict(lkp_cld=object()), dict(lkp_aero=object()),
+    dict(two_stream=False), dict(two_stream=False, lkp_cld=object()),
+    dict(two_stream=False, lkp_aero=object()),
 ])
-def test_sw_unported_options_raise(kwargs):
+def test_sw_unported_options_raise(kernel_dispatch, kwargs):
+    """The kernel path of SW is two-stream only."""
     _, _, _, tl, ta, tb = _sw_case(8, np.float32)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         solve_sw(tl, ta, tb, **kwargs)
+
+
+def test_resolve_impl_routes_by_device_and_dtype():
+    """impl=None: the kernels for f32 CUDA tensors only; f64 CUDA tensors
+    take the torch path with the JAX package's warning; impl='kernel' needs
+    CUDA tensors (f64 ones are then refused by the wrappers)."""
+    from rrtmgp_tpu_torch.models.rrtmgp import _resolve_impl
+
+    cuda, cpu = torch.device("cuda"), torch.device("cpu")
+    assert _resolve_impl(None, cuda, torch.float32) == "kernel"
+    with pytest.warns(UserWarning, match="f32-only"):
+        assert _resolve_impl(None, cuda, torch.float64) == "torch"
+    assert _resolve_impl(None, cpu, torch.float32) == "torch"
+    assert _resolve_impl(None, cpu, torch.float64) == "torch"
+    assert _resolve_impl("kernel", cuda, torch.float64) == "kernel"
+    assert _resolve_impl("torch", cuda, torch.float32) == "torch"
+    with pytest.raises(ValueError, match="CUDA"):
+        _resolve_impl("kernel", cpu, torch.float32)
+    with pytest.raises(ValueError, match="not in"):
+        _resolve_impl("xla", cuda, torch.float32)
 
 
 def test_torch_impl_runs_without_cuda_kernels():
