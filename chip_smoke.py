@@ -8,13 +8,17 @@ is non-zero:
 1. device: torch/CUDA versions, card name and power limit (nvidia-smi);
 2. build: nvcc builds the CUDA kernels of rrtmgp_tpu_torch/csrc;
 3. kernels: each kernel against its plain torch twin on the card, first at
-   small shapes (ncol 1000, 36 g-points in 4 bands), then at the main
-   paths' shapes: the clear-sky kernels at 32768 columns x 60 layers, the
-   all-sky ones (lw2_mega clear / cloud mask / McICA seed + aerosols,
-   sw_clear_mega with cloud mask + aerosols / seed + aerosols,
-   aerosol_bands, mcica_mask_export) at 75748 x 60, LW 256 / SW 224
-   g-points, their twins on 8192-column chunks; with each kernel's median
-   time and its twin's;
+   small shapes (ncol 1000, 36 g-points in 4 bands, f32 and f64), then at
+   the main paths' shapes: the clear-sky kernels at 32768 columns x 60
+   layers in f32 and, for planck_band and lw_clear_mega, in f64 (the f64
+   twin on 4096-column chunks; f64 against f32 too), the all-sky ones
+   (lw2_mega clear / cloud mask / McICA seed + aerosols, lw_clear_mega with
+   cloud mask / aerosols / seed + aerosols, sw_clear_mega with cloud mask +
+   aerosols / seed + aerosols, aerosol_bands, mcica_mask_export) at 75748 x
+   60, LW 256 / SW 224 g-points, their twins on 8192-column chunks; with
+   each kernel's median time, its twin's, and its bound (the larger of its
+   input and output bytes over 3.35 TB/s and its operations over the
+   card's peak rate);
 4. clear slice: solve_lw (LW no-scattering) + solve_sw (SW two-stream)
    through the kernels at 32768 x 60 on the synthetic tables and
    atmosphere of the JAX package's bench.py, with physics oracles, night
@@ -28,7 +32,19 @@ is non-zero:
    physics and McICA oracles, step reproducibility, column-split
    invariance, seed mode against the exported-mask mode (the path that
    launches mcica_mask_export), the kernel path against the torch path,
-   and one AllSkyRadiationWithClearSkyDiagnostics step.
+   and one AllSkyRadiationWithClearSkyDiagnostics step;
+6. f64 slice: RRTMGPSolver in f64 with ClearSkyRadiation and LW
+   no-scattering at 32768 x 60: LW through the f64 builds of planck_band
+   and lw_clear_mega, SW through solve_chunked on the torch path, both in
+   the auto-chunk's column chunks; step time, columns/s, peak memory; LW
+   within 1e-4 W/m2 of the exact f64 torch path and 5e-5 of the f32 slice,
+   chunked SW equal to unchunked bit for bit, 3 angles, and the
+   aerosol-laden clear-sky solver keeping its aerosols on the torch path;
+7. all-sky no-scattering slice: RRTMGPSolver + AllSkyRadiation(aerosol_
+   radiation=True) with two_stream_lw=False at 75748 x 60 in f32: LW
+   through lw_clear_mega composed with in-kernel McICA and aerosols; step
+   time, columns/s, peak memory, launch counts, the McICA oracles, the
+   kernel path against the torch path, and 3 angles.
 
 The last lines are a JSON object per kernel, the card's name and power limit,
 and {"ok": true, "device": {...}}. Needs CUDA and nvcc; imports no JAX.
@@ -47,6 +63,8 @@ from typing import NamedTuple
 NCOL, NLAY = 32768, 60          # bench.py's DYAMOND-order clear-sky batch
 ALLSKY_NCOL = 75748             # benchmarks/dyamond.py:27, the reference's all-sky DYAMOND size
 TWIN_CHUNK = 8192               # the all-sky twins run on column chunks (bounds their memory)
+F64_TWIN_CHUNK = 4096           # the f64 twin holds 8-byte (nlay, ncol, ngpt) tensors
+ANGLES_NCOL = 8192              # the 3-angle all-sky comparison
 SMALL_NCOL, SMALL_NLAY = 1000, 30
 CMP_NCOL = 4096                 # kernel vs torch path on the first columns
 STEPS = 5
@@ -54,7 +72,11 @@ DEVICE = "cuda"
 MCICA_SEED, COL_OFFSET = 11, 384
 TOL = {"planck_band": 1e-6, "lw_clear_mega": 5e-5, "sw_clear_mega": 1e-4,
        "lw2_mega": 1e-4, "sw_clear_mega_allsky": 1e-4, "aerosol_bands": 1e-6,
-       "mcica_mask_export": 0.0}
+       "mcica_mask_export": 0.0, "planck_band_f64": 1e-14, "lw_clear_mega_f64": 1e-12,
+       "lw_clear_mega_allsky": 5e-5}
+F64_LW_TOL_WM2 = 1e-4           # the reference's f64 LW tolerance, absolute
+HBM_BYTES_PER_S = 3.35e12       # H100 SXM data sheet
+PEAK_OPS_PER_S = {"f32": 67e12, "f64": 33.5e12}  # outside the tensor cores; f64 at half the f32 rate
 SOURCES = {
     "planck_band": ("rrtmgp_tpu_torch/csrc/planck_band.cu", "rrtmgp_tpu/ops/pallas_mega.py:224"),
     "lw_clear_mega": ("rrtmgp_tpu_torch/csrc/lw_clear_mega.cu", "rrtmgp_tpu/ops/pallas_mega.py:522"),
@@ -63,6 +85,9 @@ SOURCES = {
     "sw_clear_mega_allsky": ("rrtmgp_tpu_torch/csrc/sw_clear_mega.cu", "rrtmgp_tpu/ops/pallas_mega.py:959"),
     "aerosol_bands": ("rrtmgp_tpu_torch/csrc/aerosol_bands.cu", "rrtmgp_tpu/ops/pallas_aerosol.py:64"),
     "mcica_mask_export": ("rrtmgp_tpu_torch/csrc/mcica_export.cu", "rrtmgp_tpu/ops/pallas_mega.py:1983"),
+    "planck_band_f64": ("rrtmgp_tpu_torch/csrc/planck_band.cu", "rrtmgp_tpu/ops/pallas_mega.py:224"),
+    "lw_clear_mega_f64": ("rrtmgp_tpu_torch/csrc/lw_clear_mega.cu", "rrtmgp_tpu/ops/pallas_mega_df.py:218"),
+    "lw_clear_mega_allsky": ("rrtmgp_tpu_torch/csrc/lw_clear_mega.cu", "rrtmgp_tpu/ops/pallas_mega.py:522"),
 }
 
 
@@ -117,14 +142,14 @@ def require(ok, what: str) -> None:
 # ---------------------------------------------------------------------------
 
 
-def lookups(n_lw, b_lw, n_sw, b_sw):
+def lookups(n_lw, b_lw, n_sw, b_sw, dtype="float32"):
     import numpy as np
 
     from rrtmgp_tpu_torch.data.synthetic import synthetic_gas_lookup
 
-    lw = synthetic_gas_lookup(longwave=True, n_gpt=n_lw, n_bnd=b_lw, dtype=np.float32, device=DEVICE)
-    sw = synthetic_gas_lookup(longwave=False, n_gpt=n_sw, n_bnd=b_sw, seed=1, dtype=np.float32,
-                              device=DEVICE)
+    dt = np.dtype(dtype).type
+    lw = synthetic_gas_lookup(longwave=True, n_gpt=n_lw, n_bnd=b_lw, dtype=dt, device=DEVICE)
+    sw = synthetic_gas_lookup(longwave=False, n_gpt=n_sw, n_bnd=b_sw, seed=1, dtype=dt, device=DEVICE)
     return lw, sw
 
 
@@ -144,12 +169,12 @@ def small_allsky_lookups():
     )
 
 
-def atmosphere(ncol, nlay):
+def atmosphere(ncol, nlay, dtype="float32", **kw):
     import numpy as np
 
     from rrtmgp_tpu_torch.data.synthetic import synthetic_atmosphere
 
-    return synthetic_atmosphere(ncol=ncol, nlay=nlay, dtype=np.float32, device=DEVICE)
+    return synthetic_atmosphere(ncol=ncol, nlay=nlay, dtype=np.dtype(dtype).type, device=DEVICE, **kw)
 
 
 def allsky_atmosphere(ncol, nlay):
@@ -159,10 +184,7 @@ def allsky_atmosphere(ncol, nlay):
     import numpy as np
     import torch
 
-    from rrtmgp_tpu_torch.data.synthetic import synthetic_atmosphere
-
-    atm = synthetic_atmosphere(ncol=ncol, nlay=nlay, dtype=np.float32, device=DEVICE,
-                               with_clouds=True, with_aerosols=True)
+    atm = atmosphere(ncol, nlay, with_clouds=True, with_aerosols=True)
     scale = np.random.default_rng(17).uniform(0.2, 1.0, (nlay, ncol)).astype(np.float32)
     cs = atm.cloud_state
     cf = (cs.cld_frac * torch.from_numpy(scale).to(DEVICE)).contiguous()
@@ -170,11 +192,12 @@ def allsky_atmosphere(ncol, nlay):
 
 
 def boundary_conditions(lw, sw, ncol, mu0=None):
+    """Boundary values of the cells, in the lookups' dtype."""
     import torch
 
     from rrtmgp_tpu_torch import LwBCs, SwBCs
 
-    f = lambda shape, v: torch.full(shape, v, dtype=torch.float32, device=DEVICE)
+    f = lambda shape, v: torch.full(shape, v, dtype=lw.kmajor.dtype, device=DEVICE)
     bcs_lw = LwBCs(sfc_emis=f((lw.n_bnd, ncol), 0.98))
     bcs_sw = SwBCs(
         cos_zenith=f((ncol,), 0.6) if mu0 is None else mu0,
@@ -192,7 +215,8 @@ def plk_fn(lw):
 
 
 def kernel_args(lw, sw, atm, bcs_lw, bcs_sw):
-    """The clear-sky wrappers' arguments exactly as solve_lw / solve_sw build them."""
+    """The clear-sky wrappers' arguments exactly as solve_lw / solve_sw build
+    them (LW only when ``sw`` is None)."""
     from rrtmgp_tpu_torch.angular import angular_discretization
     from rrtmgp_tpu_torch.ops.mega_inputs import mega_lw_inputs, mega_sw_inputs
 
@@ -200,34 +224,78 @@ def kernel_args(lw, sw, atm, bcs_lw, bcs_sw):
     plk = plk_fn(lw)
     lw_args = (mega_lw_inputs(lw, atm), lw.kernel_tables, plk(atm.t_lay), plk(atm.t_lev),
                plk(atm.t_sfc), bcs_lw.sfc_emis, None, float(Ds[0]), float(wts[0]))
-    toa_gpt = bcs_sw.toa_flux[:, None] * sw.solar_src_scaled[None, :]
-    sw_args = (mega_sw_inputs(sw, atm), sw.kernel_tables, bcs_sw.cos_zenith, toa_gpt,
-               bcs_sw.sfc_alb_direct, bcs_sw.sfc_alb_diffuse, None)
+    sw_args = None
+    if sw is not None:
+        toa_gpt = bcs_sw.toa_flux[:, None] * sw.solar_src_scaled[None, :]
+        sw_args = (mega_sw_inputs(sw, atm), sw.kernel_tables, bcs_sw.cos_zenith, toa_gpt,
+                   bcs_sw.sfc_alb_direct, bcs_sw.sfc_alb_diffuse, None)
     plk_args = [(t.reshape(-1), lw.totplnk, lw.t_planck_min, lw.t_planck_delta)
                 for t in (atm.t_lay, atm.t_lev, atm.t_sfc)]
     return plk_args, lw_args, sw_args
 
 
-def columns(x, lo, hi=None):
-    """Columns [lo, hi) (or the first ``lo`` with one argument) of a state or
-    boundary-condition container."""
+# ---------------------------------------------------------------------------
+# Bounds: the least time the card could take for a kernel's work
+# ---------------------------------------------------------------------------
+
+# Arithmetic per (layer, column, g-point), counted from the kernels' sources
+# with an exp, a sqrt or a divide as one operation: the table interpolations
+# and blends, the transport or two-stream coefficients and adding, the
+# sweeps and the shuffle sums of the levels.
+OPS_PER_POINT = {"lw_clear_mega": 90, "sw_clear_mega": 150, "lw2_mega": 140}
+OPS_PER_MINOR = 14        # one covering minor-gas interval: two eta blends, the temperature blend, scale, add
+OPS_INCREMENT = {"lw_clear_mega": 3, "sw_clear_mega": 12, "lw2_mega": 12}  # one cloud or aerosol increment
+OPS_MCICA = 85            # threefry2x32 (20 rounds of add, rotate, xor; integer) and the overlap recurrence
+OPS_PLANCK = 10           # per band value
+OPS_AEROSOL = 90          # per (layer, column, band): 15 species, a table blend and three sums each
+
+
+def nbytes(x) -> int:
+    """Bytes of the tensors of a kernel argument (nested tuples,
+    Compositions, containers). KernelTables count their own layouts, not
+    the lookup they were built from."""
     import torch
 
-    from rrtmgp_tpu_torch.states import TensorContainer, VmrGM
+    from rrtmgp_tpu_torch.states import TensorContainer
 
-    if hi is None:
-        lo, hi = 0, lo
+    if isinstance(x, torch.Tensor):
+        return x.numel() * x.element_size()
+    if isinstance(x, TensorContainer):
+        return sum(nbytes(getattr(x, f.name)) for f in dataclasses.fields(x) if f.name != "lkp")
+    if isinstance(x, (tuple, list)):
+        return sum(nbytes(v) for v in x)
+    return 0
 
-    def cut(v):
-        if isinstance(v, VmrGM):
-            return dataclasses.replace(v, vmr_h2o=cut(v.vmr_h2o), vmr_o3=cut(v.vmr_o3))
-        if isinstance(v, TensorContainer):
-            return columns(v, lo, hi)
-        if isinstance(v, torch.Tensor):
-            return v[..., lo:hi].contiguous()
-        return v
 
-    return dataclasses.replace(x, **{f.name: cut(getattr(x, f.name)) for f in dataclasses.fields(x)})
+def mega_ops(name, inp, tabs, comp=None) -> float:
+    """Operations of one megakernel call on these inputs: the minor-gas
+    loop counts the intervals that cover each g-point on the troposphere
+    side of each cell, as this atmosphere has them."""
+    per_side = (tabs.minor_start[:, 1:] - tabs.minor_start[:, :-1]).double().mean(dim=1)
+    lower = inp.tropo_lower.double().mean().item()
+    per_point = OPS_PER_POINT[name] + OPS_PER_MINOR * (lower * per_side[0].item() + (1 - lower) * per_side[1].item())
+    if comp is not None:
+        n_incr = (comp.cld_bands is not None) + (comp.aero_bands is not None)
+        per_point += OPS_INCREMENT[name] * n_incr + (OPS_MCICA if comp.seeded else 0)
+    return per_point * inp.nlay * inp.ncol * tabs.lkp.n_gpt
+
+
+class Work(NamedTuple):
+    """What a kernel call must do: the bytes of its inputs (its outputs are
+    added when they exist), its operations and their type."""
+
+    input_bytes: int
+    ops: float
+    kind: str = "f32"
+
+
+def bound_ms(work: Work, out) -> tuple[float, str]:
+    """(milliseconds, "bytes" or "operations"): the larger of the input and
+    output bytes over the card's memory rate and the operations over its
+    peak rate for their type."""
+    t_bytes = (work.input_bytes + nbytes(out)) / HBM_BYTES_PER_S
+    t_ops = work.ops / PEAK_OPS_PER_S[work.kind]
+    return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
 # ---------------------------------------------------------------------------
@@ -264,12 +332,12 @@ def phase_build() -> float:
     return seconds
 
 
-def check_case(label, name, kern, ref, reps, results, cover=False) -> None:
+def check_case(label, name, kern, ref, reps, results, cover=False, work=None) -> None:
     """One kernel call against its twin on the same inputs (tuples of
     tensors). With ``cover`` the last output is the McICA cloud cover, which
     must agree bit for bit; mcica_mask_export must agree bit for bit
-    throughout. Keeps the largest error of a name and, with reps, the
-    times."""
+    throughout. Keeps the largest error of a name and, with reps, the times
+    and the bound of ``work``."""
     import torch
 
     out = kern()
@@ -277,37 +345,74 @@ def check_case(label, name, kern, ref, reps, results, cover=False) -> None:
     want = ref()
     if cover:
         require(torch.equal(out[-1], want[-1]), f"{label} {name}: McICA cloud cover differs from the twin's")
+    if work is not None:
+        results.setdefault(name, {})["bound_ms"], results[name]["bound_by"] = bound_ms(work, out)
+    if cover:
         out, want = out[:-1], want[:-1]
     if TOL[name] == 0.0:
         require(all(torch.equal(a, b) for a, b in zip(out, want)), f"{label} {name}: differs from the twin")
     err, rel = rel_err(out, want)
     del out, want
-    res = results.setdefault(name, {"max_abs_err": 0.0, "rel": 0.0})
-    res["max_abs_err"] = max(res["max_abs_err"], err)
-    res["rel"] = max(res["rel"], rel)
+    res = results.setdefault(name, {})
+    res["max_abs_err"] = max(res.get("max_abs_err", 0.0), err)
+    res["rel"] = max(res.get("rel", 0.0), rel)
     timing = ""
     if reps:
         res["ms"] = timed(kern, reps)
         res["plain_ms"] = timed(ref, reps)
         timing = f", kernel {res['ms']:.3f} ms, plain {res['plain_ms']:.3f} ms"
+        if work is not None:
+            timing += f", bound {res['bound_ms']:.3f} ms by {res['bound_by']}"
     torch.cuda.empty_cache()
     phase("kernels", f"{label} {name}: max|d|={err:.3e} rel={rel:.3e} (tol {TOL[name]:.0e}){timing}")
     require(rel <= TOL[name], f"{label} {name}: rel error {rel:.3e} > {TOL[name]:.0e}")
 
 
 def check_kernels(label, lw, sw, atm, bcs_lw, bcs_sw, reps, results) -> None:
-    """The clear-sky kernels against their twins."""
+    """The clear-sky f32 kernels against their twins."""
     from rrtmgp_tpu_torch.ops import mega
 
     plk_args, lw_args, sw_args = kernel_args(lw, sw, atm, bcs_lw, bcs_sw)
+    n_plk = sum(a[0].numel() for a in plk_args) * lw.n_bnd
     cases = {
         "planck_band": (lambda: tuple(mega.planck_band(*a) for a in plk_args),
-                        lambda: tuple(mega.planck_band_ref(*a) for a in plk_args)),
-        "lw_clear_mega": (lambda: mega.lw_clear_mega(*lw_args), lambda: mega.lw_clear_mega_ref(*lw_args)),
-        "sw_clear_mega": (lambda: mega.sw_clear_mega(*sw_args), lambda: mega.sw_clear_mega_ref(*sw_args)),
+                        lambda: tuple(mega.planck_band_ref(*a) for a in plk_args),
+                        Work(nbytes([a[:2] for a in plk_args]), OPS_PLANCK * n_plk)),
+        "lw_clear_mega": (lambda: mega.lw_clear_mega(*lw_args), lambda: mega.lw_clear_mega_ref(*lw_args),
+                          Work(nbytes(lw_args), mega_ops("lw_clear_mega", *lw_args[:2]))),
+        "sw_clear_mega": (lambda: mega.sw_clear_mega(*sw_args), lambda: mega.sw_clear_mega_ref(*sw_args),
+                          Work(nbytes(sw_args), mega_ops("sw_clear_mega", *sw_args[:2]))),
     }
-    for name, (kern, ref) in cases.items():
-        check_case(label, name, kern, ref, reps, results)
+    for name, (kern, ref, work) in cases.items():
+        check_case(label, name, kern, ref, reps, results, work=work)
+
+
+def check_f64_kernels(label, lw64, atm64, bcs_lw64, lw_f32_args, reps, results, chunk=None,
+                      f32_tol=TOL["lw_clear_mega"]) -> None:
+    """planck_band and lw_clear_mega built for f64 against their f64 twins
+    (the LW twin on column chunks), and the f64 LW kernel against the f32
+    one on the f32 rounding of the same inputs, within ``f32_tol`` of the
+    largest flux: that difference is the f32 algorithm's own (its Clough
+    factor cancels in thin layers), not the kernel's."""
+    import torch
+
+    from rrtmgp_tpu_torch.ops import mega
+
+    ncol = atm64.ncol
+    plk_args, lw_args, _ = kernel_args(lw64, None, atm64, bcs_lw64, None)
+    n_plk = sum(a[0].numel() for a in plk_args) * lw64.n_bnd
+    check_case(label, "planck_band_f64", lambda: tuple(mega.planck_band(*a) for a in plk_args),
+               lambda: tuple(mega.planck_band_ref(*a) for a in plk_args), reps, results,
+               work=Work(nbytes([a[:2] for a in plk_args]), OPS_PLANCK * n_plk, "f64"))
+    check_case(label, "lw_clear_mega_f64", lambda: mega.lw_clear_mega(*lw_args),
+               lambda: by_columns(mega.lw_clear_mega_ref, lw_args, ncol, chunk), reps, results,
+               work=Work(nbytes(lw_args), mega_ops("lw_clear_mega", *lw_args[:2]), "f64"))
+    out64, out32 = mega.lw_clear_mega(*lw_args), mega.lw_clear_mega(*lw_f32_args)
+    require(out64[0].dtype == torch.float64, "the f64 kernel returned another dtype")
+    err, rel = rel_err(out32, out64)
+    phase("kernels", f"{label} lw_clear_mega f32 vs f64 kernel: max|d|={err:.3e} rel={rel:.3e} "
+                     f"(tol {f32_tol:.0e})")
+    require(rel <= f32_tol, f"lw_clear_mega f32 vs f64: rel error {rel:.3e} > {f32_tol:.0e}")
 
 
 class ColOffset(NamedTuple):
@@ -326,7 +431,7 @@ def cut(x, lo, hi, ncol):
 
     from rrtmgp_tpu_torch.ops.mega import Composition
     from rrtmgp_tpu_torch.ops.mega_inputs import MegaInputs
-    from rrtmgp_tpu_torch.states import AerosolState
+    from rrtmgp_tpu_torch.states import AerosolState, tree_map_columns
 
     c = lambda v: cut(v, lo, hi, ncol)
     if isinstance(x, Composition):
@@ -337,7 +442,7 @@ def cut(x, lo, hi, ncol):
     if isinstance(x, tuple):
         return tuple(c(v) for v in x)
     if isinstance(x, (MegaInputs, AerosolState)):
-        return dataclasses.replace(x, **{f.name: c(getattr(x, f.name)) for f in dataclasses.fields(x)})
+        return tree_map_columns(c, c, x)
     if isinstance(x, torch.Tensor):
         for axis, n in enumerate(x.shape):
             if n == ncol:
@@ -364,10 +469,12 @@ def by_columns(fn, args, ncol, chunk):
 def check_allsky_kernels(label, L, atm, reps, results, chunk=None) -> None:
     """The all-sky kernels against their twins, the Compositions built as
     solve_lw / solve_sw build them; with ``chunk`` the twins run on column
-    chunks. Timed (with reps) in the main path's mode, McICA seed +
-    aerosols."""
+    chunks. lw_clear_mega's composed variants are the all-sky ones of the LW
+    no-scattering kernel. Timed (with reps) in the main path's mode, McICA
+    seed + aerosols."""
     import torch
 
+    from rrtmgp_tpu_torch.angular import angular_discretization
     from rrtmgp_tpu_torch.models.rrtmgp import _kernel_composition
     from rrtmgp_tpu_torch.ops import aerosol_bands as ab
     from rrtmgp_tpu_torch.ops import mega
@@ -394,27 +501,41 @@ def check_allsky_kernels(label, L, atm, reps, results, chunk=None) -> None:
     toa_gpt = bcs_sw.toa_flux[:, None] * sw.solar_src_scaled[None, :]
     sw_args = (mega_sw_inputs(sw, atm), sw.kernel_tables, mu0, toa_gpt,
                bcs_sw.sfc_alb_direct, bcs_sw.sfc_alb_diffuse, None)
+    twin = lambda fn, *args: by_columns(fn, args, ncol, chunk)
+    work = lambda name, args, c: Work(nbytes((args, c)), mega_ops(name, *args[:2], c))
     lw_cases = (("clear", mega.CLEAR), ("cloud mask", comp(lw, L.lookup_lw_cld, None, "mask", False)),
                 ("seed+aerosols", comp(lw, L.lookup_lw_cld, L.lookup_lw_aero, "seed", False)))
-    twin = lambda fn, *args: by_columns(fn, args, ncol, chunk)
     for i, (what, c) in enumerate(lw_cases):
         check_case(f"{label} [{what}]", "lw2_mega", lambda: mega.lw2_mega(*lw_args, c),
-                   lambda: twin(mega.lw2_mega_ref, *lw_args, c), reps if i == 2 else 0, results, c.seeded)
+                   lambda: twin(mega.lw2_mega_ref, *lw_args, c), reps if i == 2 else 0, results, c.seeded,
+                   work("lw2_mega", lw_args, c))
+    # LW no-scattering composed (absorption only), one angle as solve_lw passes it
+    Ds, wts = angular_discretization(1)
+    ns_args = (*lw_args[:2], plk(atm.t_lay), *lw_args[2:], float(Ds[0]), float(wts[0]))
+    ns_cases = (("cloud mask", lw_cases[1][1]), ("aerosols", comp(lw, None, L.lookup_lw_aero, None, False)),
+                ("seed+aerosols", lw_cases[2][1]))
+    for i, (what, c) in enumerate(ns_cases):
+        check_case(f"{label} [{what}]", "lw_clear_mega_allsky", lambda: mega.lw_clear_mega(*ns_args, c),
+                   lambda: twin(mega.lw_clear_mega_ref, *ns_args, c), reps if i == 2 else 0, results, c.seeded,
+                   work("lw_clear_mega", ns_args, c))
+    del ns_args, ns_cases, lw_cases
     sw_cases = (("cloud mask+aerosols", comp(sw, L.lookup_sw_cld, L.lookup_sw_aero, "mask", True)),
                 ("seed+aerosols", comp(sw, L.lookup_sw_cld, L.lookup_sw_aero, "seed", True)))
     for i, (what, c) in enumerate(sw_cases):
         check_case(f"{label} [{what}]", "sw_clear_mega_allsky", lambda: mega.sw_clear_mega(*sw_args, c),
                    lambda: twin(mega.sw_clear_mega_ref, *sw_args, c), reps if i == 1 else 0, results,
-                   c.seeded)
+                   c.seeded, work("sw_clear_mega", sw_args, c))
     for i, lkp in enumerate((L.lookup_sw_aero, L.lookup_lw_aero)):
         a = (lkp, atm.aerosol_state, atm.rel_hum)
-        check_case(f"{label} [{lkp.dust.shape[-1]} bands]", "aerosol_bands",
+        nbnd = lkp.dust.shape[-1]
+        check_case(f"{label} [{nbnd} bands]", "aerosol_bands",
                    lambda: ab.aerosol_bands(*a), lambda: twin(ab.aerosol_bands_ref, *a), reps if i == 1 else 0,
-                   results)
+                   results, work=Work(nbytes(a), OPS_AEROSOL * atm.nlay * ncol * nbnd))
     export_ref = lambda f, o: mega.mcica_mask_export_ref(f, seed, o.value, lw.n_gpt)
     check_case(f"{label} [ngpt {lw.n_gpt}]", "mcica_mask_export",
                lambda: mega.mcica_mask_export(cf, seed, off, lw.n_gpt),
-               lambda: twin(export_ref, cf, ColOffset(off)), reps, results)
+               lambda: twin(export_ref, cf, ColOffset(off)), reps, results,
+               work=Work(nbytes(cf), OPS_MCICA * atm.nlay * ncol * lw.n_gpt))
 
 
 def phase_kernels_small() -> None:
@@ -427,14 +548,20 @@ def phase_kernels_small() -> None:
     bcs_lw, bcs_sw = boundary_conditions(lw, sw, SMALL_NCOL, mu0)
     label = f"small ncol={SMALL_NCOL} nlay={SMALL_NLAY} ngpt=36"
     check_kernels(label, lw, sw, atm, bcs_lw, bcs_sw, 0, {})
+    lw64, _ = lookups(36, 4, 36, 4, "float64")
+    check_f64_kernels(label, lw64, atmosphere(SMALL_NCOL, SMALL_NLAY, "float64"),
+                      boundary_conditions(lw64, lw64, SMALL_NCOL)[0],
+                      kernel_args(lw, None, atm, bcs_lw, None)[1], 0, {}, f32_tol=1e-4)
     check_allsky_kernels(label, small_allsky_lookups(), allsky_atmosphere(SMALL_NCOL, SMALL_NLAY), 0, {})
 
 
-def phase_clear_slice(lw, sw, atm, bcs_lw, bcs_sw) -> tuple[dict, float]:
+def phase_clear_slice(lw, sw, atm, bcs_lw, bcs_sw):
+    """The clear f32 slice; returns (launch counts, step ms, LW fluxes)."""
     import torch
 
     from rrtmgp_tpu_torch import solve_lw, solve_sw
     from rrtmgp_tpu_torch.ops import mega
+    from rrtmgp_tpu_torch.states import slice_columns
 
     def step():
         f_lw, _ = solve_lw(lw, atm, bcs_lw, impl="kernel")
@@ -475,7 +602,7 @@ def phase_clear_slice(lw, sw, atm, bcs_lw, bcs_sw) -> tuple[dict, float]:
     check_night(sw, atm, bcs_sw, {}, "slice")
 
     # kernel path vs torch path on the first columns
-    a, bl, bs = columns(atm, CMP_NCOL), columns(bcs_lw, CMP_NCOL), columns(bcs_sw, CMP_NCOL)
+    a, bl, bs = (slice_columns(x, 0, CMP_NCOL, NCOL) for x in (atm, bcs_lw, bcs_sw))
     t_lw, _ = solve_lw(lw, a, bl, impl="torch")
     t_sw, _ = solve_sw(sw, a, bs, impl="torch")
     for name, kern, ref, tol in (
@@ -490,7 +617,7 @@ def phase_clear_slice(lw, sw, atm, bcs_lw, bcs_sw) -> tuple[dict, float]:
     phase("slice", f"LW+SW step: median {step_ms:.3f} ms over {STEPS} steps "
                    f"(min {1e3 * min(times):.3f}, max {1e3 * max(times):.3f}), "
                    f"{NCOL / (step_ms / 1e3):.1f} columns/s, peak memory {peak_gb:.2f} GB")
-    return launches, step_ms
+    return launches, step_ms, f_lw
 
 
 def check_night(sw, atm, bcs_sw, kw, tag) -> None:
@@ -509,9 +636,13 @@ def check_night(sw, atm, bcs_sw, kw, tag) -> None:
     phase(tag, f"night columns exactly 0 ({int(night.sum())} of {atm.ncol})")
 
 
-def phase_allsky_slice(L, atm, bcs_lw, bcs_sw) -> dict:
-    """RRTMGPSolver all-sky with aerosols at full size; returns the launch
-    counts of its update_fluxes() steps and of the exported-mask path."""
+def phase_allsky_slice(L, atm, bcs_lw, bcs_sw, two_stream_lw=True) -> dict:
+    """RRTMGPSolver all-sky with aerosols at full size, LW two-stream
+    (lw2_mega) or, with two_stream_lw=False, LW no-scattering (lw_clear_mega
+    composed); returns the launch counts of its update_fluxes() steps and of
+    the exported-mask path. The no-scattering run repeats the LW oracles and
+    adds 3 angles; the SW-only ones (night columns, clear-sky diagnostics)
+    belong to the two-stream run."""
     import torch
 
     from rrtmgp_tpu_torch import (
@@ -525,11 +656,15 @@ def phase_allsky_slice(L, atm, bcs_lw, bcs_sw) -> dict:
     )
     from rrtmgp_tpu_torch.ops import mega
     from rrtmgp_tpu_torch.ops.cloud_optics import build_cloud_mask_mcica
+    from rrtmgp_tpu_torch.states import slice_columns
 
     ncol = atm.ncol
+    tag = "allsky" if two_stream_lw else "allsky-noscat"
+    lw_kernel = "lw2_mega" if two_stream_lw else "lw_clear_mega"
+    columns = lambda x, lo, hi: slice_columns(x, lo, hi, ncol)
     grid = RRTMGPGridParams(nlay=NLAY, ncol=ncol, dtype=torch.float32)
     solver = RRTMGPSolver(grid, AllSkyRadiation(aerosol_radiation=True), RRTMGPParameters(),
-                          bcs_lw, bcs_sw, atm, lookups=L)
+                          bcs_lw, bcs_sw, atm, lookups=L, two_stream_lw=two_stream_lw)
     solver.update_fluxes()  # warm-up
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -544,10 +679,14 @@ def phase_allsky_slice(L, atm, bcs_lw, bcs_sw) -> dict:
     launches = mega.launch_counts()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     step_ms = 1e3 * statistics.median(times)
-    phase("allsky", f"launches in {STEPS} update_fluxes() steps: {launches}")
-    for name in ("planck_band", "lw2_mega", "sw_clear_mega", "aerosol_bands"):
-        require(launches[name] > 0, f"{name} was not launched on the all-sky path")
-    phase("allsky", f"update_fluxes() at {ncol} x {NLAY}: median {step_ms:.3f} ms over {STEPS} steps "
+    phase(tag, f"launches in {STEPS} update_fluxes() steps: {launches}")
+    for name in ("planck_band", lw_kernel, "sw_clear_mega", "aerosol_bands"):
+        require(launches[name] > 0, f"{name} was not launched on the {tag} path")
+    # per step: LW two-stream needs Planck at t_lev and t_sfc, no-scattering at t_lay too
+    want = {"planck_band": 2 if two_stream_lw else 3, lw_kernel: 1, "sw_clear_mega": 1, "aerosol_bands": 2}
+    per_step = {k: n / STEPS for k, n in launches.items() if n}
+    require(per_step == want, f"launches per step {per_step}, expected {want}")
+    phase(tag, f"update_fluxes() at {ncol} x {NLAY}: median {step_ms:.3f} ms over {STEPS} steps "
                     f"(min {1e3 * min(times):.3f}, max {1e3 * max(times):.3f}), "
                     f"{ncol / (step_ms / 1e3):.1f} columns/s, peak memory {peak_gb:.2f} GB")
 
@@ -567,11 +706,12 @@ def phase_allsky_slice(L, atm, bcs_lw, bcs_sw) -> dict:
                 f"{name}: not 0 in the cloud-free columns and > 0 in the others")
     ext, sca = solver.aod_sw_extinction(), solver.aod_sw_scattering()
     require(torch.all(sca >= 0) and torch.all(ext >= sca), "AOD: not ext >= sca >= 0")
-    phase("allsky", "oracles: finite, LW TOA dn = 0, SW direct beam monotone, TOA up <= incoming, "
+    phase(tag, "oracles: finite, LW TOA dn = 0, SW direct beam monotone, TOA up <= incoming, "
                     f"cloud cover in [0, 1], 0 in the {int(clear.sum())} cloud-free columns and > 0 "
                     f"elsewhere, AOD ext >= sca >= 0 (mean ext {ext.mean().item():.3e})")
-    check_night(L.lookup_sw, atm, bcs_sw, dict(lkp_cld=L.lookup_sw_cld, lkp_aero=L.lookup_sw_aero,
-                                                cld_mask_seed=MCICA_SEED), "allsky")
+    if two_stream_lw:
+        check_night(L.lookup_sw, atm, bcs_sw, dict(lkp_cld=L.lookup_sw_cld, lkp_aero=L.lookup_sw_aero,
+                                                    cld_mask_seed=MCICA_SEED), tag)
 
     # the same step twice gives bitwise-equal fluxes; a new step new masks
     snap = lambda: [t.clone() for t in (*solver.flux_lw, *solver.flux_sw)]
@@ -583,10 +723,10 @@ def phase_allsky_slice(L, atm, bcs_lw, bcs_sw) -> dict:
     solver.advance_step()
     solver.update_fluxes()
     require(not torch.equal(first[0], solver.flux_lw.flux_up), "a new step drew the same masks")
-    phase("allsky", "same step twice: bitwise-equal fluxes; the next step: new masks")
+    phase(tag, "same step twice: bitwise-equal fluxes; the next step: new masks")
 
     lw, sw = L.lookup_lw, L.lookup_sw
-    lw_kw = dict(two_stream=True, lkp_cld=L.lookup_lw_cld, lkp_aero=L.lookup_lw_aero)
+    lw_kw = dict(two_stream=two_stream_lw, lkp_cld=L.lookup_lw_cld, lkp_aero=L.lookup_lw_aero)
     sw_kw = dict(lkp_cld=L.lookup_sw_cld, lkp_aero=L.lookup_sw_aero)
     seed = solver._mcica_key(0)
 
@@ -602,11 +742,11 @@ def phase_allsky_slice(L, atm, bcs_lw, bcs_sw) -> dict:
             require(all(torch.equal(w[:, lo:hi], p) for w, p in zip(fw, fp)),
                     f"columns [{lo}, {hi}) with col_offset differ from the whole")
     del whole
-    phase("allsky", f"column split at {half}: halves with col_offset equal the whole bitwise")
+    phase(tag, f"column split at {half}: halves with col_offset equal the whole bitwise")
 
     # seed mode against the exported-mask mode; the exported-mask path is
     # the one that launches mcica_mask_export
-    a, bl, bs = columns(atm, CMP_NCOL), columns(bcs_lw, CMP_NCOL), columns(bcs_sw, CMP_NCOL)
+    a, bl, bs = columns(atm, 0, CMP_NCOL), columns(bcs_lw, 0, CMP_NCOL), columns(bcs_sw, 0, CMP_NCOL)
     cf = a.cloud_state.cld_frac
     mega.reset_launch_counts()
     exported = []
@@ -615,14 +755,14 @@ def phase_allsky_slice(L, atm, bcs_lw, bcs_sw) -> dict:
     k_lw_mask, d_lw_mask = solve_lw(lw, a, bl, cld_mask=exported[0], **lw_kw)
     k_sw_mask, d_sw_mask = solve_sw(sw, a, bs, cld_mask=exported[1], **sw_kw)
     export_launches = mega.launch_counts()
-    phase("allsky", f"exported-mask path launches: {export_launches}")
+    phase(tag, f"exported-mask path launches: {export_launches}")
     require(export_launches["mcica_mask_export"] > 0, "mcica_mask_export was not launched")
     k_lw, d_lw = solve_lw(lw, a, bl, cld_mask_seed=seed, **lw_kw)
     k_sw, d_sw = solve_sw(sw, a, bs, cld_mask_seed=seed + 1, **sw_kw)
     for name, x, y in (("LW", (*k_lw, d_lw.cld_cover), (*k_lw_mask, d_lw_mask.cld_cover)),
                        ("SW", (*k_sw, d_sw.cld_cover), (*k_sw_mask, d_sw_mask.cld_cover))):
         require(all(torch.equal(p, q) for p, q in zip(x, y)), f"{name}: seed mode != exported-mask mode")
-    phase("allsky", f"seed mode equals the exported-mask mode bitwise (LW and SW, {CMP_NCOL} columns)")
+    phase(tag, f"seed mode equals the exported-mask mode bitwise (LW and SW, {CMP_NCOL} columns)")
 
     # kernel path against the torch path
     for lkp, s, mask in ((lw, seed, exported[0]), (sw, seed + 1, exported[1])):
@@ -630,18 +770,33 @@ def phase_allsky_slice(L, atm, bcs_lw, bcs_sw) -> dict:
                 "McICA mask of the kernel differs from the torch twin's")
     t_lw, td_lw = solve_lw(lw, a, bl, cld_mask_seed=seed, impl="torch", **lw_kw)
     t_sw, td_sw = solve_sw(sw, a, bs, cld_mask_seed=seed + 1, impl="torch", **sw_kw)
-    for name, kern, ref, tol in (("solve_lw", k_lw, t_lw, TOL["lw2_mega"]),
+    for name, kern, ref, tol in (("solve_lw", k_lw, t_lw, TOL["lw2_mega" if two_stream_lw else "lw_clear_mega_allsky"]),
                                  ("solve_sw", k_sw, t_sw, TOL["sw_clear_mega_allsky"])):
         err, rel = rel_err(tuple(kern), tuple(ref))
-        phase("allsky", f"{name} kernel vs torch on {CMP_NCOL} columns: max|d|={err:.3e} rel={rel:.3e} "
+        phase(tag, f"{name} kernel vs torch on {CMP_NCOL} columns: max|d|={err:.3e} rel={rel:.3e} "
                         f"(tol {tol:.0e})")
         require(rel <= tol, f"{name}: kernel vs torch rel error {rel:.3e} > {tol:.0e}")
     require(torch.equal(d_lw.cld_cover, td_lw.cld_cover) and torch.equal(d_sw.cld_cover, td_sw.cld_cover),
             "cloud cover: kernel path differs from the torch path")
     _, rel = rel_err((d_sw.aod_sw_ext, d_sw.aod_sw_sca), (td_sw.aod_sw_ext, td_sw.aod_sw_sca))
     require(rel <= 1e-6, f"AOD: kernel path vs torch path rel error {rel:.3e} > 1e-6")
-    phase("allsky", f"masks bitwise, cloud cover bitwise, AOD rel {rel:.3e} against the torch path")
+    phase(tag, f"masks bitwise, cloud cover bitwise, AOD rel {rel:.3e} against the torch path")
     del solver, first, exported
+    if not two_stream_lw:
+        # 3 quadrature angles: one launch each, the mask drawn alike in all
+        a, bl = columns(atm, 0, ANGLES_NCOL), columns(bcs_lw, 0, ANGLES_NCOL)
+        mega.reset_launch_counts()
+        k3, d3 = solve_lw(lw, a, bl, cld_mask_seed=seed, n_gauss_angles=3, **lw_kw)
+        n3 = mega.launch_counts()
+        require(n3["lw_clear_mega"] == 3 and n3["planck_band"] == 3 and n3["lw2_mega"] == 0,
+                f"3 angles: launches {n3}")
+        t3, td3 = solve_lw(lw, a, bl, cld_mask_seed=seed, n_gauss_angles=3, impl="torch", **lw_kw)
+        err, rel = rel_err(tuple(k3), tuple(t3))
+        phase(tag, f"3 angles on {ANGLES_NCOL} columns, kernel (3 launches) vs torch: max|d|={err:.3e} "
+                   f"rel={rel:.3e} (tol {TOL['lw_clear_mega_allsky']:.0e}), cover bitwise")
+        require(rel <= TOL["lw_clear_mega_allsky"], f"3 angles: rel error {rel:.3e}")
+        require(torch.equal(d3.cld_cover, td3.cld_cover), "3 angles: cloud cover differs from the torch path")
+        return {**launches, "mcica_mask_export": export_launches["mcica_mask_export"]}
 
     # the clear-sky diagnostics once
     diag = RRTMGPSolver(grid, AllSkyRadiationWithClearSkyDiagnostics(aerosol_radiation=True),
@@ -654,9 +809,135 @@ def phase_allsky_slice(L, atm, bcs_lw, bcs_sw) -> dict:
         require(bool((allsky != clr)[:, cloudy].any(dim=0).all()),
                 f"clear_{name} equals {name} in a cloudy column")
     diff = (diag.lw_flux_up() - diag.clear_lw_flux_up())[:, clear].abs().max().item()
-    phase("allsky", "AllSkyRadiationWithClearSkyDiagnostics: clear getters differ from all-sky in every "
+    phase(tag, "AllSkyRadiationWithClearSkyDiagnostics: clear getters differ from all-sky in every "
                     f"cloudy column (cloud-free columns: max |LW up diff| {diff:.3e})")
     return {**launches, "mcica_mask_export": export_launches["mcica_mask_export"]}
+
+
+def phase_f64_slice(lw, sw, atm, bcs_lw, bcs_sw, f32_lw) -> dict:
+    """RRTMGPSolver in f64, clear sky, LW no-scattering, at full size: LW
+    through the f64 kernels, SW through the chunked torch path. ``f32_lw``
+    is the f32 clear slice's LW flux on the f32 rounding of the same
+    inputs. Returns the launch counts of the timed steps."""
+    import warnings
+
+    import torch
+
+    from rrtmgp_tpu_torch import (
+        ClearSkyRadiation,
+        LookupBundle,
+        RRTMGPGridParams,
+        RRTMGPParameters,
+        RRTMGPSolver,
+        lookup_tables,
+        solve_lw,
+        solve_sw,
+    )
+    from rrtmgp_tpu_torch.models.rrtmgp import solve_chunked
+    from rrtmgp_tpu_torch.ops import mega
+    from rrtmgp_tpu_torch.states import slice_columns
+
+    ncol, f64 = atm.ncol, torch.float64
+    bundle = LookupBundle(lookup_lw=lw, lookup_sw=sw)
+
+    def make(atm_, bl, bs, method=ClearSkyRadiation(False), lookups=bundle, **kw):
+        """An f64 solver and the warnings of its construction."""
+        grid = RRTMGPGridParams(nlay=NLAY, ncol=atm_.ncol, dtype=f64)
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            solver = RRTMGPSolver(grid, method, RRTMGPParameters(), bl, bs, atm_, lookups=lookups,
+                                  two_stream_lw=False, **kw)
+        return solver, [str(w.message) for w in caught]
+
+    solver, notes = make(atm, bcs_lw, bcs_sw)
+    require(solver.auto_chunk is not None and any("auto-chunking" in n for n in notes),
+            f"no auto-chunk at {ncol} columns in f64: {notes}")
+    phase("f64", f"auto-chunk {solver.auto_chunk} columns: {notes[0]}")
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        solver.update_fluxes()  # warm-up
+    require(any("exact-precision torch path" in str(w.message) for w in caught),
+            "the f64 SW solve did not warn that it takes the torch path")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    mega.reset_launch_counts()
+    times = []
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        for _ in range(3):
+            t0 = time.perf_counter()
+            f_lw, f_sw = solver.update_fluxes()
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        launches = mega.launch_counts()
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        t_lw = timed(solver.update_lw_fluxes, 3)
+    n_chunks = -(-ncol // solver.auto_chunk)
+    phase("f64", f"launches in 3 update_fluxes() steps: {launches}")
+    require(launches["lw_clear_mega"] == 3 * n_chunks and launches["planck_band"] == 9 * n_chunks,
+            f"LW did not go through the f64 kernels once per chunk: {launches}")
+    require(launches["sw_clear_mega"] == 0 and launches["lw2_mega"] == 0, "an f32-only kernel was launched")
+    step_ms = 1e3 * statistics.median(times)
+    phase("f64", f"update_fluxes() at {ncol} x {NLAY} f64: median {step_ms:.3f} ms over 3 steps "
+                 f"(min {1e3 * min(times):.3f}, max {1e3 * max(times):.3f}), "
+                 f"{ncol / (step_ms / 1e3):.1f} columns/s, LW alone {t_lw:.3f} ms, "
+                 f"peak memory {peak_gb:.2f} GB, {n_chunks} chunks of {solver.auto_chunk}")
+    for f in (*f_lw, *f_sw):
+        require(f.dtype == f64 and f.shape == (NLAY + 1, ncol) and torch.isfinite(f).all(), "f64 flux")
+    require(torch.all(f_lw.flux_dn[-1] == 0.0), "LW flux_dn at TOA is not 0 (no incident flux)")
+
+    # LW against the exact f64 torch path, and against the f32 slice
+    a, bl, bs = (slice_columns(x, 0, CMP_NCOL, ncol) for x in (atm, bcs_lw, bcs_sw))
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        e_lw, _ = solve_lw(lw, a, bl, impl="torch")
+        err = max((k[:, :CMP_NCOL] - e).abs().max().item() for k, e in zip(f_lw, e_lw))
+        phase("f64", f"LW kernel path vs exact f64 torch path on {CMP_NCOL} columns: max|d|={err:.3e} W/m2 "
+                     f"(tol {F64_LW_TOL_WM2:.0e})")
+        require(err <= F64_LW_TOL_WM2, f"f64 LW: {err:.3e} W/m2 from the exact torch path")
+        err, rel = rel_err(tuple(f32_lw), tuple(f_lw))
+        phase("f64", f"LW f32 slice vs f64 slice: max|d|={err:.3e} rel={rel:.3e} (tol {TOL['lw_clear_mega']:.0e})")
+        require(rel <= TOL["lw_clear_mega"], f"f32 vs f64 LW: rel error {rel:.3e}")
+
+        # SW: chunked equals unchunked, bit for bit
+        whole, _ = solve_sw(sw, a, bs)
+        parts, _ = solve_chunked(lambda x, y: solve_sw(sw, x, y), a, bs, solver.auto_chunk)
+        require(all(torch.equal(p, w) for p, w in zip(parts, whole)), "SW chunked != unchunked")
+        require(all(torch.equal(f[:, :CMP_NCOL], w) for f, w in zip(f_sw, whole)),
+                "SW of the solver != the unchunked torch path")
+        phase("f64", f"SW chunked ({solver.auto_chunk}) equals unchunked bitwise on {CMP_NCOL} columns, "
+                     "and the solver's SW equals both")
+        del whole, parts
+
+        # 3 angles through the solver
+        s3, _ = make(a, bl, bs, n_gauss_angles=3)
+        mega.reset_launch_counts()
+        k3 = s3.update_lw_fluxes()
+        n3 = mega.launch_counts()["lw_clear_mega"]
+        require(n3 == 3 * -(-CMP_NCOL // s3.auto_chunk), f"3 angles: {n3} launches")
+        e3, _ = solve_lw(lw, a, bl, n_gauss_angles=3, impl="torch")
+        err = max((k - e).abs().max().item() for k, e in zip(k3, e3))
+        phase("f64", f"3 angles ({n3} launches) vs exact f64 torch path: max|d|={err:.3e} W/m2")
+        require(err <= F64_LW_TOL_WM2, f"f64 LW, 3 angles: {err:.3e} W/m2 from the exact torch path")
+        del s3, k3, e3, a, bl, bs
+
+        # clear sky with aerosols: no f64 kernel, the aerosols are kept
+        n = CMP_NCOL // 2
+        aero_atm = atmosphere(n, NLAY, "float64", with_aerosols=True)
+        La = lookup_tables(ClearSkyRadiation(True), dtype=f64, device=DEVICE)
+        bl, bs = boundary_conditions(La.lookup_lw, La.lookup_sw, n)
+        with_aero, _ = make(aero_atm, bl, bs, ClearSkyRadiation(True), La)
+        without, _ = make(aero_atm, bl, bs, ClearSkyRadiation(False), La)
+        mega.reset_launch_counts()
+        fa = with_aero.update_lw_fluxes()
+        require(mega.launch_counts()["lw_clear_mega"] == 0, "f64 LW with aerosols launched the aerosol-free kernel")
+        fn = without.update_lw_fluxes()
+        require(mega.launch_counts()["lw_clear_mega"] > 0, "f64 clear LW did not launch its kernel")
+        diff = (fa.flux_up - fn.flux_up).abs().max().item()
+        phase("f64", f"ClearSkyRadiation(aerosol_radiation=True) in f64: torch path, LW up differs from the "
+                     f"aerosol-free kernel solve by up to {diff:.3e} W/m2")
+        require(diff > 1e-6, "the f64 aerosol solve dropped its aerosols")
+    return launches
 
 
 def main() -> None:
@@ -672,9 +953,19 @@ def main() -> None:
     lw, sw = lookups(256, 16, 224, 14)
     atm = atmosphere(NCOL, NLAY)
     bcs_lw, bcs_sw = boundary_conditions(lw, sw, NCOL)
-    check_kernels(f"main ncol={NCOL} nlay={NLAY} ngpt=256/224", lw, sw, atm, bcs_lw, bcs_sw, 3, results)
-    launches, _ = phase_clear_slice(lw, sw, atm, bcs_lw, bcs_sw)
+    label = f"main ncol={NCOL} nlay={NLAY} ngpt=256/224"
+    check_kernels(label, lw, sw, atm, bcs_lw, bcs_sw, 3, results)
+    lw64, sw64 = lookups(256, 16, 224, 14, "float64")
+    atm64 = atmosphere(NCOL, NLAY, "float64")
+    bcs_lw64, bcs_sw64 = boundary_conditions(lw64, sw64, NCOL)
+    check_f64_kernels(label, lw64, atm64, bcs_lw64, kernel_args(lw, None, atm, bcs_lw, None)[1], 3, results,
+                      chunk=F64_TWIN_CHUNK)
+    launches, _, f32_lw = phase_clear_slice(lw, sw, atm, bcs_lw, bcs_sw)
     del atm, bcs_lw, bcs_sw
+    torch.cuda.empty_cache()
+    f64 = phase_f64_slice(lw64, sw64, atm64, bcs_lw64, bcs_sw64, f32_lw)
+    launches.update(planck_band_f64=f64["planck_band"], lw_clear_mega_f64=f64["lw_clear_mega"])
+    del atm64, bcs_lw64, bcs_sw64, lw64, sw64, f32_lw
     torch.cuda.empty_cache()
 
     L = lookup_tables(AllSkyRadiation(aerosol_radiation=True), dtype=torch.float32, device=DEVICE)
@@ -686,13 +977,21 @@ def main() -> None:
     allsky = phase_allsky_slice(L, atm, bcs_lw, bcs_sw)
     launches.update(lw2_mega=allsky["lw2_mega"], sw_clear_mega_allsky=allsky["sw_clear_mega"],
                     aerosol_bands=allsky["aerosol_bands"], mcica_mask_export=allsky["mcica_mask_export"])
+    torch.cuda.empty_cache()
+    noscat = phase_allsky_slice(L, atm, bcs_lw, bcs_sw, two_stream_lw=False)
+    launches.update(lw_clear_mega_allsky=noscat["lw_clear_mega"])
 
     kernels = [
         {"name": name, "route": "cuda", "source": SOURCES[name][0], "replaces": SOURCES[name][1],
          "launches": launches[name], "max_abs_err": results[name]["max_abs_err"],
-         "ms": results[name]["ms"], "plain_ms": results[name]["plain_ms"]}
+         "ms": results[name]["ms"], "plain_ms": results[name]["plain_ms"],
+         "bound_ms": results[name]["bound_ms"], "bound_by": results[name]["bound_by"],
+         # no single PyTorch call computes any of these functions
+         "library_ms": None}
         for name in SOURCES
     ]
+    for k in kernels:
+        require(k["launches"] > 0, f"{k['name']} was not launched on its main path")
     print(json.dumps({"kernels": kernels}))
     print(nvidia_smi())
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

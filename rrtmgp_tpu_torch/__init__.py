@@ -5,9 +5,9 @@ The port of ``rrtmgp_tpu`` (JAX), which stays beside it as the reference.
 Layouts match the JAX package: optics (nlay, ncol, ngpt), fluxes
 (nlev, ncol) with level 0 at the surface. ``solve_lw`` (no-scattering or
 two-stream) and ``solve_sw`` (two-stream or direct beam), clear sky or with
-McICA clouds and MERRA aerosols, and the ``RRTMGPSolver`` API over them, run
-the CUDA kernels of ``ops.mega`` / ``ops.aerosol_bands`` on CUDA tensors and
-plain torch on the CPU.
+McICA clouds and MERRA aerosols, f32 or f64, ``solve_chunked`` and the
+``RRTMGPSolver`` API over them, run the CUDA kernels of ``ops.mega`` /
+``ops.aerosol_bands`` on CUDA tensors and plain torch on the CPU.
 """
 
 from .angular import angular_discretization
@@ -32,7 +32,7 @@ from .data.lookups import (
     MinorInterval,
     band_limits_to_gpt2band,
 )
-from .models.rrtmgp import FluxLW, FluxSW, SolveDiagnostics, solve_lw, solve_sw
+from .models.rrtmgp import FluxLW, FluxSW, SolveDiagnostics, solve_chunked, solve_lw, solve_sw
 from .parameters import RRTMGPParameters
 from .states import (
     AerosolState,
@@ -55,5 +55,5 @@ __all__ = [
     "RRTMGPSolver", "SolveDiagnostics", "SwBCs", "Vmr", "VmrGM", "aerosol_names",
     "angular_discretization", "band_limits_to_gpt2band", "compute_col_gas",
     "compute_relative_humidity", "domain_view", "gas_names_sw", "get_vmr",
-    "lookup_tables", "solve_lw", "solve_sw",
+    "lookup_tables", "solve_chunked", "solve_lw", "solve_sw",
 ]

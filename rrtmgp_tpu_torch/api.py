@@ -10,16 +10,25 @@ McICA reproducibility: the cloudy solves draw their mask from the seed
 ``2 * step + wave`` (wave 0 = LW, 1 = SW) keyed on the global column, so
 setting the same step reproduces the same sampling bit for bit.
 
+f64: an f64 solver runs at any column count. Above a memory budget (8 GB
+of spectral tensors by default, ``$RRTMGP_CHUNK_BUDGET_GB`` to adjust) every
+solve goes through ``solve_chunked`` in ``auto_chunk``-column chunks, the
+kernel path too; chunked fluxes equal unchunked ones bit for bit. On CUDA
+tensors the clear-sky LW no-scattering solve without aerosols takes the f64
+build of the ``lw_clear_mega`` kernel (``f64_kernel=False`` keeps it on the
+exact torch path); every other f64 solve takes the torch path.
+
 Not ported: the TPU-only arguments of the JAX solver (``pallas_windowed``,
-``use_pallas``, ``f64_kernel``). Features still to come raise
-``NotImplementedError`` naming their ROADMAP item. The port adds ``impl``,
-passed through to ``solve_lw`` / ``solve_sw``.
+``use_pallas``). Features still to come raise ``NotImplementedError`` naming
+their ROADMAP item. The port adds ``impl``, passed through to ``solve_lw`` /
+``solve_sw``.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import os
+import warnings
 
 import torch
 
@@ -27,6 +36,12 @@ from .data.lookups import AerosolLookup, CloudLookup, GasLookup
 from .models import rrtmgp as _solvers
 from .parameters import RRTMGPParameters
 from .states import AtmosphericState, LwBCs, SwBCs, get_vmr
+
+#: (nlay, ncol, ngpt) tensor-equivalents the f64 auto-chunk budgets per solve:
+#: the JAX package's figure, kept so that both packages choose the same chunk.
+#: The torch path measures 7-18 at its peak on an H100 and the f64 kernel
+#: path 2.5 (PERF.md), so the budget is a safe upper bound here.
+F64_TENSOR_EQUIVALENTS = 34
 
 # ---------------------------------------------------------------------------
 # Grid params + radiation methods
@@ -190,6 +205,7 @@ class RRTMGPSolver:
         mesh=None,
         metric_scaling=None,
         eta_node_mode: str = "continuous",
+        f64_kernel: bool | None = None,
         impl: str | None = None,
     ):
         if isinstance(radiation_method, GrayRadiation):
@@ -217,12 +233,16 @@ class RRTMGPSolver:
         self.mesh = mesh
         self.metric_scaling = metric_scaling
         self.eta_node_mode = eta_node_mode
+        self.f64_kernel = f64_kernel
         self.impl = impl
         if lookups is None:
             lookups = lookup_tables(radiation_method, data_dir, dtype=want, device=as_.p_lay.device)
         self.lookups = lookups
+        #: columns per chunk of every solve, or None: set for f64 problems
+        #: above the memory budget
+        self.auto_chunk: int | None = None
         if want == torch.float64:
-            self._check_f64_budget()
+            self._set_auto_chunk()
 
         self.flux_lw: _solvers.FluxLW | None = None
         self.flux_sw: _solvers.FluxSW | None = None
@@ -232,17 +252,30 @@ class RRTMGPSolver:
         self.diag_sw: _solvers.SolveDiagnostics | None = None
         self._step = 0
 
-    def _check_f64_budget(self):
-        """The JAX package splits f64 solves above a memory budget into
-        column chunks; the port does not yet, so it refuses them."""
+    def _set_auto_chunk(self):
+        """f64 auto-chunking: an f64 solve on the torch path materializes the
+        (nlay, ncol, ngpt) spectral tensors, budgeted at 34 tensor-equivalents,
+        ~4 MB per column at 60 layers x 256 g-points. Above the budget
+        (default 8 GB, override $RRTMGP_CHUNK_BUDGET_GB) every solve runs
+        through ``solve_chunked``; the f64 kernel's scratch (2 tensors) counts
+        against the same budget. The chunk is the largest power of two under
+        the budget and need not divide ncol. McICA stays chunk-invariant
+        (global-column keying)."""
         lk = self.lookups
+        ncol = self.as_.ncol
         ngpt_max = max(lk.lookup_lw.n_gpt, lk.lookup_sw.n_gpt)
-        per_col = self.as_.nlay * ngpt_max * 8 * 34  # ~34 spectral tensors per solve
+        per_col = self.as_.nlay * ngpt_max * 8 * F64_TENSOR_EQUIVALENTS
         budget = float(os.environ.get("RRTMGP_CHUNK_BUDGET_GB", "8")) * 1e9
-        if self.as_.ncol > max(int(budget // per_col), 1):
-            _not_ported(
-                f"the f64 auto-chunk (ncol={self.as_.ncol} would materialize "
-                f"~{self.as_.ncol * per_col / 1e9:.1f} GB of spectral tensors)", 9,
+        cmax = max(int(budget // per_col), 1)
+        if ncol > cmax:
+            self.auto_chunk = 1 << (cmax.bit_length() - 1)
+            warnings.warn(
+                f"f64 solve at ncol={ncol} would materialize "
+                f"~{ncol * per_col / 1e9:.1f} GB of spectral tensors; "
+                f"auto-chunking into {self.auto_chunk}-column chunks "
+                f"(budget {budget / 1e9:.0f} GB, "
+                f"$RRTMGP_CHUNK_BUDGET_GB to adjust)",
+                stacklevel=3,
             )
 
     # -- solves ------------------------------------------------------------
@@ -252,24 +285,37 @@ class RRTMGPSolver:
             return None
         return self.lookups.lookup_sw_aero if wave else self.lookups.lookup_lw_aero
 
+    def _solve(self, solve_fn, bcs, cloudy: bool, wave: int, **kw):
+        """One solve of the whole state, in ``auto_chunk``-column chunks when
+        that is set. Metric scaling is applied to the assembled fluxes."""
+        if cloudy:
+            kw["lkp_cld"] = self.lookups.lookup_sw_cld if wave else self.lookups.lookup_lw_cld
+        seed = self._mcica_key(wave) if cloudy else None
+        if self.auto_chunk is None:
+            return solve_fn(self.as_, bcs, metric_scaling=self.metric_scaling, cld_mask_seed=seed, **kw)
+        if cloudy:
+            one = lambda a, b, s, off: solve_fn(a, b, cld_mask_seed=s, col_offset=off, **kw)
+        else:
+            one = lambda a, b: solve_fn(a, b, **kw)
+        flux, diag = _solvers.solve_chunked(one, self.as_, bcs, self.auto_chunk, cld_mask_seed=seed)
+        return _solvers._apply_metric_scaling(flux, self.metric_scaling), diag
+
     def _lw(self, cloudy: bool):
-        lk = self.lookups
-        kw = dict(lkp_cld=lk.lookup_lw_cld, cld_mask_seed=self._mcica_key(0)) if cloudy else {}
-        return _solvers.solve_lw(
-            lk.lookup_lw, self.as_, self.bcs_lw, two_stream=self.two_stream_lw,
+        impl = self.impl
+        if impl is None and self.f64_kernel is False and self.grid_params.dtype == torch.float64:
+            impl = "torch"  # the exact path also where f64 has a kernel
+        solve = lambda a, b, **kw: _solvers.solve_lw(self.lookups.lookup_lw, a, b, **kw)
+        return self._solve(
+            solve, self.bcs_lw, cloudy, 0, two_stream=self.two_stream_lw,
             n_gauss_angles=self.n_gauss_angles, lkp_aero=self._aero(0),
-            metric_scaling=self.metric_scaling, aero_species=self.aero_species,
-            eta_node_mode=self.eta_node_mode, impl=self.impl, **kw,
+            aero_species=self.aero_species, eta_node_mode=self.eta_node_mode, impl=impl,
         )
 
     def _sw(self, cloudy: bool):
-        lk = self.lookups
-        kw = dict(lkp_cld=lk.lookup_sw_cld, cld_mask_seed=self._mcica_key(1)) if cloudy else {}
-        return _solvers.solve_sw(
-            lk.lookup_sw, self.as_, self.bcs_sw, two_stream=self.two_stream_sw,
-            lkp_aero=self._aero(1), metric_scaling=self.metric_scaling,
-            aero_species=self.aero_species, eta_node_mode=self.eta_node_mode,
-            impl=self.impl, **kw,
+        solve = lambda a, b, **kw: _solvers.solve_sw(self.lookups.lookup_sw, a, b, **kw)
+        return self._solve(
+            solve, self.bcs_sw, cloudy, 1, two_stream=self.two_stream_sw, lkp_aero=self._aero(1),
+            aero_species=self.aero_species, eta_node_mode=self.eta_node_mode, impl=self.impl,
         )
 
     def _mcica_key(self, wave: int) -> int:

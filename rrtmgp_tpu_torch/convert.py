@@ -73,7 +73,9 @@ def gas_lookup_from_numpy(
 def gas_lookup_from_object(obj, **kwargs) -> GasLookup:
     """``gas_lookup_from_numpy`` of any object with GasLookup's field names
     (the JAX package's GasLookup among them), its arrays read with
-    ``np.asarray``. ``kwargs`` go to ``gas_lookup_from_numpy``."""
+    ``np.asarray``. ``kwargs`` go to ``gas_lookup_from_numpy``. The result's
+    ``kernel_tables`` are built in its dtype: ``dtype=torch.float64`` (or f64
+    arrays) feeds the f64 kernels, f32 the f32 ones."""
     arrays = {
         k: None if getattr(obj, k) is None else np.asarray(getattr(obj, k))
         for k in GAS_LOOKUP_ARRAYS

@@ -1,7 +1,8 @@
-// Cloud and aerosol composition shared by the two-stream megakernels
-// (lw2_mega.cu, sw_clear_mega.cu): the inputs of one all-sky solve and the
-// two-stream increment, in the operation order of the plain twins
-// (ops/cloud_optics.py increment_2stream).
+// Cloud and aerosol composition shared by the megakernels (lw2_mega.cu,
+// sw_clear_mega.cu, lw_clear_mega.cu): the inputs of one all-sky solve, the
+// two-stream increment in the operation order of the plain twins
+// (ops/cloud_optics.py increment_2stream), and the absorption-only
+// increment of the LW no-scattering solve.
 //
 // Layouts: cloud band properties (nlay, ncol, nbnd), as ops/cloud_optics.py
 // cloud_optics_bands returns them; aerosol band properties (nlay, nbnd,
@@ -60,6 +61,26 @@ __device__ __forceinline__ void add_aerosol(const AllSkyIn& a, int l, int col, i
   if (__ldg(a.amask + lc) == 0) return;
   const size_t ab = ((size_t)l * nbnd + band) * ncol + col;
   increment_2stream(tau, ssa, g, __ldg(a.atau + ab), __ldg(a.assa + ab), __ldg(a.ag + ab));
+}
+
+// Absorption-only composition of the no-scattering solve: the optical depth
+// grows by the absorbing part tau_x - ssa_x * tau_x of the cloud (under its
+// mask bit) and of the aerosol (where the layer carries aerosol); the
+// asymmetry is not read.
+__device__ __forceinline__ void add_cloud_absorption(const AllSkyIn& a, size_t lc, int nbnd, int band, bool m,
+                                                     float& tau) {
+  if (!m) return;
+  const size_t cb = lc * nbnd + band;
+  const float t = __ldg(a.ctau + cb);
+  tau += t - __ldg(a.cssa + cb) * t;
+}
+
+__device__ __forceinline__ void add_aerosol_absorption(const AllSkyIn& a, int l, int col, int ncol, size_t lc,
+                                                       int nbnd, int band, float& tau) {
+  if (__ldg(a.amask + lc) == 0) return;
+  const size_t ab = ((size_t)l * nbnd + band) * ncol + col;
+  const float t = __ldg(a.atau + ab);
+  tau += t - __ldg(a.assa + ab) * t;
 }
 
 }  // namespace rrtmgp

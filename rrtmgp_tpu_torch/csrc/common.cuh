@@ -2,7 +2,13 @@
 // sw_clear_mega.cu): the per-(layer, column) gas-optics inputs, table
 // interpolation for one g-point, and deterministic per-level g-point sums.
 //
-// Layouts (all f32 unless noted, C order):
+// Every real-valued type is a template parameter R (float by default, double
+// for the f64 instantiations); the unsuffixed names (OpticsIn, Tables, Cell,
+// LevelSums) are the float ones. Constants and math functions go through the
+// small overloads below, so an instantiation has no step of another
+// precision in its value path.
+//
+// Layouts (reals of type R, C order):
 //   per (layer, column)          (nlay, ncol)
 //   per (layer, column, band)    (nlay, ncol, nbnd)
 //   minor scaling                (n_minor, nlay, ncol)
@@ -18,50 +24,68 @@
 
 namespace rrtmgp {
 
+// Machine epsilon and the math functions of the working precision.
+template <typename R> __host__ __device__ constexpr R r_eps();
+template <> __host__ __device__ constexpr float r_eps<float>() { return FLT_EPSILON; }
+template <> __host__ __device__ constexpr double r_eps<double>() { return DBL_EPSILON; }
+__device__ __forceinline__ float r_exp(float x) { return expf(x); }
+__device__ __forceinline__ double r_exp(double x) { return exp(x); }
+__device__ __forceinline__ float r_sqrt(float x) { return sqrtf(x); }
+__device__ __forceinline__ double r_sqrt(double x) { return sqrt(x); }
+__device__ __forceinline__ float r_max(float a, float b) { return fmaxf(a, b); }
+__device__ __forceinline__ double r_max(double a, double b) { return fmax(a, b); }
+
 // Gas-optics inputs of one solve (ops/mega_inputs.py MegaInputs).
-struct OpticsIn {
+template <typename R>
+struct OpticsInT {
   const int* jtemp;
-  const float* ftemp;
+  const R* ftemp;
   const int* jpress;
-  const float* fpress;
+  const R* fpress;
   const unsigned char* tropo_lower;
-  const float* col_dry;
+  const R* col_dry;
   const int* jeta1;
-  const float* feta1;
-  const float* cmix1;
+  const R* feta1;
+  const R* cmix1;
   const int* jeta2;
-  const float* feta2;
-  const float* cmix2;
-  const float* minor_scaling;
-  const float* ray_factor;  // SW only
+  const R* feta2;
+  const R* cmix2;
+  const R* minor_scaling;
+  const R* ray_factor;  // SW only
 };
+using OpticsIn = OpticsInT<float>;
 
 // One lookup's tables (ops/mega_inputs.py KernelTables).
-struct Tables {
-  const float* kmajor;
-  const float* second;  // planck fraction (LW) or rayleigh (SW)
-  const float* kminor;
+template <typename R>
+struct TablesT {
+  const R* kmajor;
+  const R* second;  // planck fraction (LW) or rayleigh (SW)
+  const R* kminor;
   const int* gpt2band;
   const int* minor_start;  // (2, ngpt+1)
   const int* minor_list;
   const int* minor_kbase;
   const int* minor_band;
 };
+using Tables = TablesT<float>;
 
 struct Dims {
   int nlay, ncol, ngpt, nbnd, ntemp, neta, ncontrib;
 };
 
 // Interpolation state of one (layer, column) for the band of one g-point.
-struct Cell {
+template <typename R>
+struct CellT {
   size_t lc;  // layer * ncol + column
   int jt, jp, je1, je2;
-  float ft, fp, fe1, fe2, cm1, cm2, col_dry;
+  R ft, fp, fe1, fe2, cm1, cm2, col_dry;
   bool lower;
 };
+using Cell = CellT<float>;
 
-__device__ __forceinline__ Cell load_cell(const OpticsIn& in, const Dims& d, int l, int col, int band) {
-  Cell c;
+template <typename R>
+__device__ __forceinline__ CellT<R> load_cell(const OpticsInT<R>& in, const Dims& d, int l, int col, int band) {
+  CellT<R> c;
   c.lc = (size_t)l * d.ncol + col;
   c.jt = __ldg(in.jtemp + c.lc);
   c.ft = __ldg(in.ftemp + c.lc);
@@ -80,51 +104,54 @@ __device__ __forceinline__ Cell load_cell(const OpticsIn& in, const Dims& d, int
 }
 
 // table[p][t][e][g] of a (*, ntemp, neta, ngpt) table
-__device__ __forceinline__ float tab(const float* t, const Dims& d, int p, int it, int e, int g) {
+template <typename R>
+__device__ __forceinline__ R tab(const R* t, const Dims& d, int p, int it, int e, int g) {
   return __ldg(t + (((size_t)p * d.ntemp + it) * d.neta + e) * d.ngpt + g);
 }
 
 // Pressure/eta interpolation of a (npress+1, ntemp, neta, ngpt) table at the
 // two temperature nodes of a cell: v0 at jtemp (eta data 1), v1 at jtemp+1
 // (eta data 2). The temperature blend is left to the caller.
-__device__ __forceinline__ void interp_p_eta(const float* t, const Dims& d, const Cell& c, int g,
-                                             float& v0, float& v1) {
-  const float omfp = 1.f - c.fp;
-  float a = omfp * tab(t, d, c.jp, c.jt, c.je1, g) + c.fp * tab(t, d, c.jp + 1, c.jt, c.je1, g);
-  float b = omfp * tab(t, d, c.jp, c.jt, c.je1 + 1, g) + c.fp * tab(t, d, c.jp + 1, c.jt, c.je1 + 1, g);
-  v0 = a * (1.f - c.fe1) + b * c.fe1;
+template <typename R>
+__device__ __forceinline__ void interp_p_eta(const R* t, const Dims& d, const CellT<R>& c, int g, R& v0, R& v1) {
+  const R omfp = R(1) - c.fp;
+  R a = omfp * tab(t, d, c.jp, c.jt, c.je1, g) + c.fp * tab(t, d, c.jp + 1, c.jt, c.je1, g);
+  R b = omfp * tab(t, d, c.jp, c.jt, c.je1 + 1, g) + c.fp * tab(t, d, c.jp + 1, c.jt, c.je1 + 1, g);
+  v0 = a * (R(1) - c.fe1) + b * c.fe1;
   a = omfp * tab(t, d, c.jp, c.jt + 1, c.je2, g) + c.fp * tab(t, d, c.jp + 1, c.jt + 1, c.je2, g);
   b = omfp * tab(t, d, c.jp, c.jt + 1, c.je2 + 1, g) + c.fp * tab(t, d, c.jp + 1, c.jt + 1, c.je2 + 1, g);
-  v1 = a * (1.f - c.fe2) + b * c.fe2;
+  v1 = a * (R(1) - c.fe2) + b * c.fe2;
 }
 
 // Major-species optical depth of g-point g (before the minor gases).
-__device__ __forceinline__ float tau_major(const Tables& tb, const Dims& d, const Cell& c, int g) {
-  float v0, v1;
+template <typename R>
+__device__ __forceinline__ R tau_major(const TablesT<R>& tb, const Dims& d, const CellT<R>& c, int g) {
+  R v0, v1;
   interp_p_eta(tb.kmajor, d, c, g, v0, v1);
-  return ((1.f - c.ft) * (v0 * c.cm1) + c.ft * (v1 * c.cm2)) * c.col_dry;
+  return ((R(1) - c.ft) * (v0 * c.cm1) + c.ft * (v1 * c.cm2)) * c.col_dry;
 }
 
 // Minor-gas optical depth of g-point g: the intervals of the cell's
 // troposphere side that cover g (the other side's scalings are zero).
-__device__ __forceinline__ float tau_minor(const OpticsIn& in, const Tables& tb, const Dims& d,
-                                           const Cell& c, int g) {
+template <typename R>
+__device__ __forceinline__ R tau_minor(const OpticsInT<R>& in, const TablesT<R>& tb, const Dims& d,
+                                       const CellT<R>& c, int g) {
   const int side = c.lower ? 0 : 1;
   const int* start = tb.minor_start + side * (d.ngpt + 1);
   const size_t plane = (size_t)d.nlay * d.ncol;
-  float tau = 0.f;
+  R tau = R(0);
   for (int k = __ldg(start + g), k1 = __ldg(start + g + 1); k < k1; ++k) {
     const int i = __ldg(tb.minor_list + k);
-    const float s = __ldg(in.minor_scaling + (size_t)i * plane + c.lc);
+    const R s = __ldg(in.minor_scaling + (size_t)i * plane + c.lc);
     const size_t lcb = c.lc * d.nbnd + __ldg(tb.minor_band + i);
     const int je1 = __ldg(in.jeta1 + lcb), je2 = __ldg(in.jeta2 + lcb);
-    const float fe1 = __ldg(in.feta1 + lcb), fe2 = __ldg(in.feta2 + lcb);
-    const float* k0 = tb.kminor + __ldg(tb.minor_kbase + i) + g;
+    const R fe1 = __ldg(in.feta1 + lcb), fe2 = __ldg(in.feta2 + lcb);
+    const R* k0 = tb.kminor + __ldg(tb.minor_kbase + i) + g;
     const size_t nc = d.ncontrib;
     const size_t r1 = (size_t)c.jt * d.neta, r2 = (size_t)(c.jt + 1) * d.neta;
-    const float v1 = (1.f - fe1) * __ldg(k0 + (r1 + je1) * nc) + fe1 * __ldg(k0 + (r1 + je1 + 1) * nc);
-    const float v2 = (1.f - fe2) * __ldg(k0 + (r2 + je2) * nc) + fe2 * __ldg(k0 + (r2 + je2 + 1) * nc);
-    tau += ((1.f - c.ft) * v1 + c.ft * v2) * s;
+    const R v1 = (R(1) - fe1) * __ldg(k0 + (r1 + je1) * nc) + fe1 * __ldg(k0 + (r1 + je1 + 1) * nc);
+    const R v2 = (R(1) - fe2) * __ldg(k0 + (r2 + je2) * nc) + fe2 * __ldg(k0 + (r2 + je2 + 1) * nc);
+    tau += ((R(1) - c.ft) * v1 + c.ft * v2) * s;
   }
   return tau;
 }
@@ -133,39 +160,43 @@ __device__ __forceinline__ float tau_minor(const OpticsIn& in, const Tables& tb,
 // shuffles and its lane 0 writes the warp's partial into its own shared
 // slot; finish() adds the warps in a fixed order. No atomics, so the sums
 // are the same on every run.
-struct LevelSums {
-  float* smem;  // [nf][nlev][nwarps]
+template <typename R>
+struct LevelSumsT {
+  R* smem;  // [nf][nlev][nwarps]
   int nlev, nwarps;
 
-  __device__ __forceinline__ void add(int f, int lev, float v) const {
+  __device__ __forceinline__ void add(int f, int lev, R v) const {
 #pragma unroll
     for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
     if ((threadIdx.x & 31) == 0) smem[((size_t)f * nlev + lev) * nwarps + (threadIdx.x >> 5)] = v;
   }
 
   // sum of field f at level lev, after a __syncthreads()
-  __device__ __forceinline__ float total(int f, int lev) const {
-    const float* p = smem + ((size_t)f * nlev + lev) * nwarps;
-    float s = 0.f;
+  __device__ __forceinline__ R total(int f, int lev) const {
+    const R* p = smem + ((size_t)f * nlev + lev) * nwarps;
+    R s = R(0);
     for (int w = 0; w < nwarps; ++w) s += p[w];
     return s;
   }
 };
+using LevelSums = LevelSumsT<float>;
 
 // Launch shape shared by the megakernels: one block per column, one thread
 // per g-point rounded up to whole warps, nf per-level fields of per-warp
-// partial sums in dynamic shared memory.
+// partial sums of type R in dynamic shared memory. Any ngpt: the idle
+// threads of the last warp add zeros.
 struct MegaLaunch {
   dim3 grid, block;
   size_t smem;
 };
 
+template <typename R = float>
 inline MegaLaunch mega_launch(const Dims& d, int nf) {
   MegaLaunch m;
   const int threads = (d.ngpt + 31) / 32 * 32;
   m.grid = dim3((unsigned)d.ncol);
   m.block = dim3((unsigned)threads);
-  m.smem = (size_t)nf * (d.nlay + 1) * (threads / 32) * sizeof(float);
+  m.smem = (size_t)nf * (d.nlay + 1) * (threads / 32) * sizeof(R);
   return m;
 }
 

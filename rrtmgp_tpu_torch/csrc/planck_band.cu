@@ -13,38 +13,56 @@
 //   the layers, ~40 us at 3.35 TB/s.
 //
 // Design: one thread per (band, point), band-major, so consecutive threads
-//   write consecutive addresses of the (nbnd, N) output. f32 throughout, no
-//   hi/lo split. j = clip(floor((t - t_min)/dt), 0, n_t-2), f = clip(loc - j,
+//   write consecutive addresses of the (nbnd, N) output. The working
+//   precision throughout (one instantiation for f32, one for f64, 8-byte
+//   stores), no hi/lo split. j = clip(floor((t - t_min)/dt), 0, n_t-2), f = clip(loc - j,
 //   0, 1): outside the grid the end values are returned.
 #include <cuda_runtime.h>
 
 namespace rrtmgp {
 
-__global__ void planck_band_kernel(const float* __restrict__ t,   // (n,)
-                                   const float* __restrict__ tp,  // (n_t, nbnd)
-                                   float* __restrict__ out,       // (nbnd, n)
-                                   long long n, int nbnd, int n_t, float t_min, float t_delta) {
+__device__ __forceinline__ float clip(float x, float lo, float hi) { return fminf(fmaxf(x, lo), hi); }
+__device__ __forceinline__ double clip(double x, double lo, double hi) { return fmin(fmax(x, lo), hi); }
+__device__ __forceinline__ float floor_r(float x) { return floorf(x); }
+__device__ __forceinline__ double floor_r(double x) { return floor(x); }
+
+template <typename R>
+__global__ void planck_band_kernel(const R* __restrict__ t,   // (n,)
+                                   const R* __restrict__ tp,  // (n_t, nbnd)
+                                   R* __restrict__ out,       // (nbnd, n)
+                                   long long n, int nbnd, int n_t, R t_min, R t_delta) {
   const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (idx >= n * nbnd) return;
   const int b = (int)(idx / n);
   const long long i = idx - (long long)b * n;
-  const float loc = (__ldg(t + i) - t_min) / t_delta;
-  const float j = fminf(fmaxf(floorf(loc), 0.f), (float)(n_t - 2));
-  const float f = fminf(fmaxf(loc - j, 0.f), 1.f);
+  const R loc = (__ldg(t + i) - t_min) / t_delta;
+  const R j = clip(floor_r(loc), R(0), (R)(n_t - 2));
+  const R f = clip(loc - j, R(0), R(1));
   const int jj = (int)j;
-  out[idx] = __ldg(tp + (size_t)jj * nbnd + b) * (1.f - f) + __ldg(tp + (size_t)(jj + 1) * nbnd + b) * f;
+  out[idx] = __ldg(tp + (size_t)jj * nbnd + b) * (R(1) - f) + __ldg(tp + (size_t)(jj + 1) * nbnd + b) * f;
+}
+
+template <typename R>
+int launch_planck_band(const void* t, const void* totplnk, void* out, long long n, int nbnd, int n_t,
+                       R t_min, R t_delta, void* stream) {
+  const int threads = 256;
+  const long long total = n * nbnd;
+  const unsigned blocks = (unsigned)((total + threads - 1) / threads);
+  if (blocks > 0) {
+    planck_band_kernel<R><<<blocks, threads, 0, (cudaStream_t)stream>>>(
+        (const R*)t, (const R*)totplnk, (R*)out, n, nbnd, n_t, t_min, t_delta);
+  }
+  return (int)cudaGetLastError();
 }
 
 }  // namespace rrtmgp
 
 extern "C" int rrtmgp_planck_band(const void* t, const void* totplnk, void* out, long long n, int nbnd,
                                   int n_t, float t_min, float t_delta, void* stream) {
-  const int threads = 256;
-  const long long total = n * nbnd;
-  const unsigned blocks = (unsigned)((total + threads - 1) / threads);
-  if (blocks > 0) {
-    rrtmgp::planck_band_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
-        (const float*)t, (const float*)totplnk, (float*)out, n, nbnd, n_t, t_min, t_delta);
-  }
-  return (int)cudaGetLastError();
+  return rrtmgp::launch_planck_band<float>(t, totplnk, out, n, nbnd, n_t, t_min, t_delta, stream);
+}
+
+extern "C" int rrtmgp_planck_band_f64(const void* t, const void* totplnk, void* out, long long n, int nbnd,
+                                      int n_t, double t_min, double t_delta, void* stream) {
+  return rrtmgp::launch_planck_band<double>(t, totplnk, out, n, nbnd, n_t, t_min, t_delta, stream);
 }

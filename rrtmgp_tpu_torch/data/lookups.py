@@ -98,7 +98,7 @@ class GasLookup(TensorContainer):
 
     @functools.cached_property
     def kernel_tables(self):
-        """The CUDA kernels' f32 layouts of these tables
+        """The CUDA kernels' layouts of these tables, in their dtype
         (``ops.mega_inputs.KernelTables``), built on first use and owned by
         this lookup, so they live exactly as long as it does."""
         from ..ops.mega_inputs import build_kernel_tables

@@ -6,18 +6,23 @@ Two implementations of the same functions, chosen by ``impl``:
 
 - ``"kernel"``: the hand-written CUDA kernels of ``ops.mega`` and
   ``ops.aerosol_bands`` (band Planck, then one kernel for the whole solve),
-  fed by ``ops.mega_inputs``. CUDA tensors, f32. LW no-scattering (K1) is
-  clear sky only; LW two-stream (K4) and SW two-stream (K2) take clouds
-  (a mask, or McICA drawn in the kernel from a seed) and aerosols.
+  fed by ``ops.mega_inputs``. CUDA tensors. In f32, LW no-scattering (K1,
+  one launch per quadrature angle), LW two-stream (K4) and SW two-stream
+  (K2) take clouds (a mask, or McICA drawn in the kernel from a seed) and
+  aerosols. In f64, clear-sky LW no-scattering without aerosols (K1 built
+  for native f64, 1-4 angles, with or without incident flux).
 - ``"torch"``: plain torch, ``ops.gas_optics`` then the composition and
   ``ops.rte``; any device, f32 or f64. Every combination of the JAX
   package's XLA path.
 
-``impl=None`` picks ``"kernel"`` for f32 CUDA tensors and ``"torch"``
-otherwise (f64 CUDA tensors with a warning: the kernels are f32 only).
-What the kernel path does not cover raises ``NotImplementedError`` naming
-the ROADMAP item that will add it. Fluxes are (nlay+1, ncol), level 0 =
-surface.
+``impl=None`` picks ``"kernel"`` for f32 CUDA tensors and for the f64 solve
+that has a kernel, and ``"torch"`` otherwise (other f64 solves on CUDA
+tensors with a warning). What the kernel path does not cover raises
+``NotImplementedError`` naming the ROADMAP item that will add it. Fluxes are
+(nlay+1, ncol), level 0 = surface.
+
+``solve_chunked`` runs a solve over column chunks in bounded memory; the
+chunks' fluxes equal the unchunked ones bit for bit.
 
 McICA: ``cld_mask_seed`` draws the mask from the JAX package's off-TPU
 threefry stream keyed on (seed, ``col_offset`` + column), on both paths, so
@@ -45,9 +50,16 @@ from ..ops.cloud_optics import (
     delta_scale,
 )
 from ..ops.gas_optics import gas_optics_lw, gas_optics_sw, gpt2band
-from ..ops.mega import Composition, lw2_mega, lw_clear_mega, planck_band, sw_clear_mega
+from ..ops.mega import (
+    F64_ALLSKY_ITEM,
+    Composition,
+    lw2_mega,
+    lw_clear_mega,
+    planck_band,
+    sw_clear_mega,
+)
 from ..ops.mega_inputs import mega_lw_inputs, mega_sw_inputs
-from ..states import AtmosphericState, LwBCs, SwBCs
+from ..states import AtmosphericState, LwBCs, SwBCs, slice_columns
 
 
 class FluxLW(NamedTuple):
@@ -71,29 +83,36 @@ class SolveDiagnostics(NamedTuple):
 
 IMPLS = ("kernel", "torch")
 F64_WARNING = (
-    "impl=None on float64 CUDA tensors: the CUDA kernel tier is f32-only; "
-    "non-f32 inputs dispatch the exact-precision torch path instead "
-    "(slower, but true f64 — not an f32-faithful approximation)"
+    "impl=None on float64 CUDA tensors: only the clear-sky LW no-scattering "
+    "solve without aerosols has an f64 CUDA kernel; this f64 solve dispatches "
+    "the exact-precision torch path instead (slower, but true f64 — not an "
+    "f32-faithful approximation)"
 )
 
 
-def _resolve_impl(impl: str | None, device: torch.device, dtype: torch.dtype) -> str:
-    """``impl=None``: the kernels for f32 CUDA tensors, the torch path
-    otherwise (with a warning for f64 CUDA tensors). ``impl="kernel"`` needs
-    CUDA tensors; its wrappers reject f64."""
+def _resolve_impl(impl: str | None, device: torch.device, dtype: torch.dtype,
+                  has_f64_kernel: bool = False) -> str:
+    """``impl=None``: the kernels for f32 CUDA tensors and for an f64 solve
+    that has a kernel (``has_f64_kernel``), the torch path otherwise (with a
+    warning for the other f64 solves on CUDA tensors). ``impl="kernel"``
+    needs CUDA tensors, and raises for an f64 solve without a kernel."""
+    f64_without = dtype == torch.float64 and not has_f64_kernel
     if impl is None:
         if device.type != "cuda":
             return "torch"
-        if dtype == torch.float32:
-            return "kernel"
-        warnings.warn(F64_WARNING, stacklevel=3)
-        return "torch"
+        if f64_without:
+            warnings.warn(F64_WARNING, stacklevel=3)
+            return "torch"
+        return "kernel"
     if impl not in IMPLS:
         raise ValueError(f"impl={impl!r} not in {IMPLS}")
     if impl == "kernel" and device.type != "cuda":
         raise ValueError(
             f"impl='kernel' runs the CUDA kernels and needs CUDA tensors, got {device}"
         )
+    if impl == "kernel" and f64_without:
+        _not_ported("an f64 CUDA kernel for this solve (f64 has one for clear-sky LW "
+                    "no-scattering without aerosols only)", F64_ALLSKY_ITEM)
     return impl
 
 
@@ -106,6 +125,59 @@ def _apply_metric_scaling(flux, metric_scaling):
     if metric_scaling is None:
         return flux
     return type(flux)(*(f * metric_scaling for f in flux))
+
+
+def _map_tensors(fn, *trees):
+    """``fn`` over the tensors of (nested) tuples of the same structure;
+    None stays None and namedtuples keep their type."""
+    first = trees[0]
+    if isinstance(first, torch.Tensor):
+        return fn(*trees)
+    if isinstance(first, tuple):
+        vals = [_map_tensors(fn, *xs) for xs in zip(*trees)]
+        return type(first)(*vals) if hasattr(first, "_fields") else tuple(vals)
+    return first
+
+
+def solve_chunked(solve_fn, as_: AtmosphericState, bcs, chunk: int, *,
+                  cld_mask: torch.Tensor | None = None, cld_mask_seed: int | None = None):
+    """Run a solve over column chunks, one after the other, to bound memory:
+    the (nlay, ncol, ngpt) spectral tensors of the torch path and the
+    scratch of the kernels exist for ``chunk`` columns at a time.
+
+    ``solve_fn(atm_chunk, bcs_chunk[, cld_mask_chunk | seed, col_offset])``
+    returns a (flux namedtuple, diagnostics) pair or any nested tuple of
+    tensors with a trailing column axis. ``cld_mask`` (nlay, ncol, ngpt),
+    when given, is cut along with the columns. In seed mode ``solve_fn``
+    receives the seed and the chunk's global column offset: forward both
+    (``cld_mask_seed=seed, col_offset=off``), so that the McICA sample
+    equals the unchunked one bit for bit. ``chunk`` need not divide the
+    column count: the last chunk is short (every quantity is per column, so
+    no padding is needed). Returns the same structure with the columns put
+    together in preallocated outputs.
+    """
+    ncol = as_.ncol
+    if chunk < 1:
+        raise ValueError(f"chunk={chunk}: need at least one column per chunk")
+    out = None
+    for lo in range(0, ncol, chunk):
+        hi = min(lo + chunk, ncol)
+        atm_c, bcs_c = slice_columns(as_, lo, hi, ncol), slice_columns(bcs, lo, hi, ncol)
+        if cld_mask is not None:
+            part = solve_fn(atm_c, bcs_c, cld_mask[:, lo:hi].contiguous())
+        elif cld_mask_seed is not None:
+            part = solve_fn(atm_c, bcs_c, cld_mask_seed, lo)
+        else:
+            part = solve_fn(atm_c, bcs_c)
+        if out is None:
+            out = _map_tensors(lambda t: t.new_empty((*t.shape[:-1], ncol)), part)
+
+        def store(whole, piece):
+            whole[..., lo:hi] = piece
+            return whole
+
+        _map_tensors(store, out, part)
+    return out
 
 
 def _bands_to_gpt(lkp: GasLookup, x_bands: torch.Tensor) -> torch.Tensor:
@@ -248,33 +320,44 @@ def solve_lw(
     """Longwave flux solve over all g-points: no-scattering (one or more
     angles) or two-stream, clear or with clouds and aerosols."""
     dtype = as_.p_lay.dtype
-    impl = _resolve_impl(impl, as_.p_lay.device, dtype)
+    # f64 has a kernel for clear sky, no scattering, no aerosols (sky type
+    # and aerosols decide together: an aerosol-laden solve keeps its aerosols
+    # on the torch path)
+    has_f64_kernel = not two_stream and lkp_cld is None and lkp_aero is None
+    impl = _resolve_impl(impl, as_.p_lay.device, dtype, has_f64_kernel)
     Ds, wts = angular_discretization(n_gauss_angles)
 
     if impl == "kernel":
-        if not two_stream and n_gauss_angles != 1:
-            _not_ported("the multi-angle LW kernel (n_gauss_angles > 1)", "item 10")
-        if not two_stream and (lkp_cld is not None or lkp_aero is not None):
-            _not_ported("cloud/aerosol composition in the LW no-scattering kernel (K1)", "item 17")
         tabs = lkp.kernel_tables
         inp = mega_lw_inputs(lkp, as_, eta_node_mode)
         plk = lambda t: planck_band(
             t.reshape(-1), lkp.totplnk, lkp.t_planck_min, lkp.t_planck_delta
         )
+        comp, _, _ = _kernel_composition(
+            lkp, as_, lkp_cld, lkp_aero, cld_mask, cld_mask_seed, col_offset, aero_species,
+            delta_scaling=False, collect_aod=False,
+        )
         cover = None
         if two_stream:
-            comp, _, _ = _kernel_composition(
-                lkp, as_, lkp_cld, lkp_aero, cld_mask, cld_mask_seed, col_offset, aero_species,
-                delta_scaling=False, collect_aod=False,
-            )
             out = lw2_mega(inp, tabs, plk(as_.t_lev), plk(as_.t_sfc), bcs.sfc_emis, bcs.inc_flux, comp)
             flux_up, flux_dn = out[0], out[1]
             cover = out[2] if comp.seeded else None
         else:
-            flux_up, flux_dn = lw_clear_mega(
-                inp, tabs, plk(as_.t_lay), plk(as_.t_lev), plk(as_.t_sfc),
-                bcs.sfc_emis, bcs.inc_flux, float(Ds[0]), float(wts[0]),
-            )
+            # one launch per angle, summed here; in seed mode every angle
+            # draws the same mask (same seed and offset) and the cover is
+            # taken once. The incident flux splits by weight, as below.
+            plk_lay, plk_lev, plk_sfc = plk(as_.t_lay), plk(as_.t_lev), plk(as_.t_sfc)
+            for k in range(n_gauss_angles):
+                inc_k = None if bcs.inc_flux is None else bcs.inc_flux * float(wts[k])
+                out = lw_clear_mega(
+                    inp, tabs, plk_lay, plk_lev, plk_sfc, bcs.sfc_emis, inc_k,
+                    float(Ds[k]), float(wts[k]), comp,
+                )
+                if k == 0:
+                    flux_up, flux_dn = out[0], out[1]
+                    cover = out[2] if comp.seeded else None
+                else:
+                    flux_up, flux_dn = flux_up + out[0], flux_dn + out[1]
         flux = FluxLW(flux_up, flux_dn, flux_up - flux_dn)
         diag = SolveDiagnostics(cld_cover=_cover(cover, cld_mask, dtype))
         return _apply_metric_scaling(flux, metric_scaling), diag

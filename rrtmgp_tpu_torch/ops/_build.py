@@ -30,13 +30,17 @@ NVCC_FLAGS = (
     *ARCH, "-std=c++17", "-O3", "-fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
-_P, _I, _U, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_longlong, ctypes.c_float
+_P, _I, _U, _L, _F, _D = (ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_longlong, ctypes.c_float,
+                          ctypes.c_double)
 #: C entry points: name -> argtypes. Each returns a cudaError_t as int. The
 #: all-sky megakernels end with (cloud, aero, mask_mode, seed_hi, seed_lo,
-#: col_offset, stream).
+#: col_offset, stream), lw_clear_mega with (ds, i2f) before the stream. The
+#: _f64 entries take f64 tensors and double scalars.
 SIGNATURES = {
     "rrtmgp_planck_band": [_P, _P, _P, _L, _I, _I, _F, _F, _P],
-    "rrtmgp_lw_clear_mega": [_P] * 30 + [_I] * 7 + [_F, _F, _P],
+    "rrtmgp_planck_band_f64": [_P, _P, _P, _L, _I, _I, _D, _D, _P],
+    "rrtmgp_lw_clear_mega": [_P] * 40 + [_I] * 10 + [_U, _U, _L, _F, _F, _P],
+    "rrtmgp_lw_clear_mega_f64": [_P] * 30 + [_I] * 7 + [_D, _D, _P],
     "rrtmgp_sw_clear_mega": [_P] * 44 + [_I] * 10 + [_U, _U, _L, _P],
     "rrtmgp_lw2_mega": [_P] * 42 + [_I] * 10 + [_U, _U, _L, _P],
     "rrtmgp_aerosol_bands": [_P] * 15 + [_I] * 6 + [_P],

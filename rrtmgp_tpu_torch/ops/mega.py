@@ -7,10 +7,13 @@ returns its plain twin ``*_ref``. Each counts its launches in a plain integer
 attribute, ``<wrapper>.launches``, incremented only where the kernel is
 launched.
 
-- ``planck_band``: band Planck emission (replaces ``planck_band_pallas_t``
-  and ``planck_band_windowed``);
-- ``lw_clear_mega``: whole clear-sky LW no-scattering solve (replaces
-  ``lw_clear_mega``);
+- ``planck_band``: band Planck emission, f32 or f64 (replaces
+  ``planck_band_pallas_t`` and ``planck_band_windowed``);
+- ``lw_clear_mega``: whole LW no-scattering solve for one angle: f32 clear
+  or all-sky (replaces ``lw_clear_mega``), f64 clear sky (replaces the
+  double-f32 ``lw_noscat_mega_df`` / ``solve_lw_df64`` of
+  ``rrtmgp_tpu/ops/pallas_mega_df.py`` by the same kernel built for native
+  f64);
 - ``lw2_mega``: whole LW two-stream solve, clear or all-sky (replaces
   ``lw2_mega``);
 - ``sw_clear_mega``: whole SW two-stream solve, clear or all-sky (replaces
@@ -18,9 +21,9 @@ launched.
 - ``mcica_mask_export``: the McICA uniforms and mask the all-sky kernels
   draw in seed mode (replaces ``mcica_mask_export``).
 
-The all-sky inputs of ``lw2_mega`` and ``sw_clear_mega`` travel in a
-``Composition``. Its McICA seed mode draws the JAX package's off-TPU
-threefry stream (``ops.cloud_optics``), so kernel and twin use the same mask.
+The all-sky inputs of the megakernels travel in a ``Composition``. Its McICA
+seed mode draws the JAX package's off-TPU threefry stream
+(``ops.cloud_optics``), so kernel and twin use the same mask.
 """
 
 from __future__ import annotations
@@ -52,6 +55,13 @@ from .rte import intensity_to_flux, lw_2stream, lw_noscat, round_to, sw_2stream
 from .threefry import seed_key
 
 MAX_GPT = 1024  # one thread per g-point in a block
+KERNEL_DTYPES = (torch.float32, torch.float64)
+
+
+def _kernel_dtype(t: torch.Tensor, name: str) -> torch.dtype:
+    if t.dtype not in KERNEL_DTYPES:
+        raise TypeError(f"{name}: dtype {t.dtype}, the kernel takes float32 or float64")
+    return t.dtype
 
 
 # ---------------------------------------------------------------------------
@@ -76,13 +86,14 @@ def planck_band(t: torch.Tensor, totplnk: torch.Tensor, t_min: float, t_delta: f
         raise ValueError(f"planck_band: t {tuple(t.shape)}, totplnk {tuple(totplnk.shape)}")
     n = t.shape[0]
     n_t, nbnd = totplnk.shape
-    _require(t, "t", (n,), torch.float32, dev)
-    _require(totplnk, "totplnk", (n_t, nbnd), torch.float32, dev)
-    out = torch.empty((nbnd, n), dtype=torch.float32, device=dev)
+    dtype = _kernel_dtype(t, "planck_band")
+    _require(t, "t", (n,), dtype, dev)
+    _require(totplnk, "totplnk", (n_t, nbnd), dtype, dev)
+    out = torch.empty((nbnd, n), dtype=dtype, device=dev)
+    lib = _build.library()
+    entry = lib.rrtmgp_planck_band if dtype == torch.float32 else lib.rrtmgp_planck_band_f64
     with torch.cuda.device(dev):
-        err = _build.library().rrtmgp_planck_band(
-            _ptr(t), _ptr(totplnk), _ptr(out), n, nbnd, n_t, t_min, t_delta, _stream(dev)
-        )
+        err = entry(_ptr(t), _ptr(totplnk), _ptr(out), n, nbnd, n_t, t_min, t_delta, _stream(dev))
     _build.check(err, "planck_band")
     planck_band.launches += 1
     return out
@@ -96,31 +107,34 @@ planck_band.launches = 0
 # ---------------------------------------------------------------------------
 
 
-def _check_inputs(inp: MegaInputs, tabs: KernelTables, dev, shortwave: bool) -> tuple:
+def _check_inputs(inp: MegaInputs, tabs: KernelTables, dev, shortwave: bool,
+                  dtype: torch.dtype = torch.float32) -> tuple:
+    """Check the gas-optics inputs and tables of a megakernel built for
+    ``dtype``; returns its dimensions."""
     lkp = tabs.lkp
     nlay, ncol = inp.nlay, inp.ncol
     ngpt, nbnd = lkp.n_gpt, lkp.n_bnd
     if not 1 <= ngpt <= MAX_GPT:
         raise ValueError(f"n_gpt={ngpt}: the kernels take 1..{MAX_GPT} g-points")
-    f32, i32 = torch.float32, torch.int32
+    real, i32 = dtype, torch.int32
     lc, lcb = (nlay, ncol), (nlay, ncol, nbnd)
     for name, shape, dtype in (
-        ("jtemp", lc, i32), ("ftemp", lc, f32), ("jpress_base", lc, i32),
-        ("fpress", lc, f32), ("tropo_lower", lc, torch.bool), ("col_dry", lc, f32),
-        ("jeta1", lcb, i32), ("feta1", lcb, f32), ("col_mix1", lcb, f32),
-        ("jeta2", lcb, i32), ("feta2", lcb, f32), ("col_mix2", lcb, f32),
-        ("minor_scaling", (tabs.n_minor, nlay, ncol), f32),
+        ("jtemp", lc, i32), ("ftemp", lc, real), ("jpress_base", lc, i32),
+        ("fpress", lc, real), ("tropo_lower", lc, torch.bool), ("col_dry", lc, real),
+        ("jeta1", lcb, i32), ("feta1", lcb, real), ("col_mix1", lcb, real),
+        ("jeta2", lcb, i32), ("feta2", lcb, real), ("col_mix2", lcb, real),
+        ("minor_scaling", (tabs.n_minor, nlay, ncol), real),
     ):
         _require(getattr(inp, name), name, shape, dtype, dev)
     if shortwave:
-        _require(inp.ray_factor, "ray_factor", lc, f32, dev)
+        _require(inp.ray_factor, "ray_factor", lc, real, dev)
     ntemp, neta = lkp.n_temp, lkp.n_eta
     npp = tabs.kmajor.shape[0]
     ncontrib = tabs.kminor.shape[-1]
     second = (2, ntemp, neta, ngpt) if shortwave else (npp, ntemp, neta, ngpt)
     for name, shape, dtype in (
-        ("kmajor", (npp, ntemp, neta, ngpt), f32), ("second", second, f32),
-        ("kminor", (ntemp, neta, ncontrib), f32), ("gpt2band", (ngpt,), i32),
+        ("kmajor", (npp, ntemp, neta, ngpt), real), ("second", second, real),
+        ("kminor", (ntemp, neta, ncontrib), real), ("gpt2band", (ngpt,), i32),
         ("minor_start", (2, ngpt + 1), i32),
         ("minor_list", tuple(tabs.minor_list.shape), i32),
         ("minor_kbase", (tabs.n_minor,), i32), ("minor_band", (tabs.n_minor,), i32),
@@ -155,85 +169,15 @@ def _tau_gas(inp: MegaInputs, tabs: KernelTables):
 
 
 # ---------------------------------------------------------------------------
-# LW no-scattering megakernel
-# ---------------------------------------------------------------------------
-
-
-def lw_clear_mega_ref(
-    inp: MegaInputs, tabs: KernelTables, plk_lay, plk_lev, plk_sfc, sfc_emis,
-    inc_flux, ds: float, w_mu: float,
-):
-    """Plain twin of ``lw_clear_mega``: ``ops.gas_optics`` optics and
-    sources, then ``ops.rte.lw_noscat``, summed over g-points."""
-    lkp = tabs.lkp
-    nlay, ncol = inp.nlay, inp.ncol
-    tau = _tau_gas(inp, tabs).clamp_(min=0.0)
-    pfrac = compute_planck_fraction(lkp, inp.pt, inp.eta)
-    band_last = lambda x, *shape: x.reshape(x.shape[0], *shape).movedim(0, -1)
-    src = planck_sources_from_bands(
-        lkp, band_last(plk_lay, nlay, ncol), band_last(plk_lev, nlay + 1, ncol),
-        plk_sfc.T, pfrac,
-    )
-    del pfrac
-    emis = sfc_emis.T[:, gpt2band(lkp)]
-    up, dn = lw_noscat(
-        tau, src.lay_source, src.lev_source, src.sfc_source, emis, ds, w_mu, inc_flux
-    )
-    return up.sum(-1), dn.sum(-1)
-
-
-def lw_clear_mega(
-    inp: MegaInputs, tabs: KernelTables,
-    plk_lay: torch.Tensor,   # (nbnd, nlay*ncol) planck_band at t_lay
-    plk_lev: torch.Tensor,   # (nbnd, nlev*ncol) planck_band at t_lev
-    plk_sfc: torch.Tensor,   # (nbnd, ncol) planck_band at t_sfc
-    sfc_emis: torch.Tensor,  # (nbnd, ncol)
-    inc_flux: torch.Tensor | None,  # (ncol, ngpt) TOA incident flux
-    ds: float, w_mu: float,
-) -> tuple[torch.Tensor, torch.Tensor]:
-    """Whole clear-sky LW no-scattering solve for one angle (secant ``ds``,
-    weight ``w_mu``); returns (flux_up, flux_dn), each (nlev, ncol)."""
-    if inp.jtemp.device.type == "cpu":
-        return lw_clear_mega_ref(inp, tabs, plk_lay, plk_lev, plk_sfc, sfc_emis, inc_flux, ds, w_mu)
-    dev = _cuda_device(inp.jtemp, "lw_clear_mega")
-    if not tabs.lkp.is_longwave:
-        raise ValueError("lw_clear_mega: needs a longwave lookup")
-    nlay, ncol, ngpt, nbnd, ntemp, neta, ncontrib = _check_inputs(inp, tabs, dev, False)
-    f32 = torch.float32
-    _require(plk_lay, "plk_lay", (nbnd, nlay * ncol), f32, dev)
-    _require(plk_lev, "plk_lev", (nbnd, (nlay + 1) * ncol), f32, dev)
-    _require(plk_sfc, "plk_sfc", (nbnd, ncol), f32, dev)
-    _require(sfc_emis, "sfc_emis", (nbnd, ncol), f32, dev)
-    if inc_flux is not None:
-        _require(inc_flux, "inc_flux", (ncol, ngpt), f32, dev)
-    trans_s = torch.empty((nlay, ncol, ngpt), dtype=f32, device=dev)
-    sup_s = torch.empty_like(trans_s)
-    up = torch.empty((nlay + 1, ncol), dtype=f32, device=dev)
-    dn = torch.empty_like(up)
-    with torch.cuda.device(dev):
-        err = _build.library().rrtmgp_lw_clear_mega(
-            *_input_ptrs(inp), *_table_ptrs(tabs),
-            *map(_ptr, (plk_lay, plk_lev, plk_sfc, sfc_emis, inc_flux, trans_s, sup_s, up, dn)),
-            nlay, ncol, ngpt, nbnd, ntemp, neta, ncontrib,
-            round_to(ds, f32), intensity_to_flux(w_mu, f32), _stream(dev),
-        )
-    _build.check(err, "lw_clear_mega")
-    lw_clear_mega.launches += 1
-    return up, dn
-
-
-lw_clear_mega.launches = 0
-
-
-# ---------------------------------------------------------------------------
-# All-sky composition of the two-stream megakernels
+# All-sky composition of the megakernels
 # ---------------------------------------------------------------------------
 
 
 class Composition(NamedTuple):
-    """What ``lw2_mega`` / ``sw_clear_mega`` add to the gas optics. Clouds
-    come with either a mask or, for McICA in the kernel, the cloud fraction
-    and a seed; aerosols with their per-layer active mask."""
+    """What the megakernels add to the gas optics. Clouds come with either a
+    mask or, for McICA in the kernel, the cloud fraction and a seed; aerosols
+    with their per-layer active mask. ``lw_clear_mega`` (no scattering) adds
+    the absorbing part tau - ssa * tau of each and does not read g."""
 
     cld_bands: tuple | None = None     # (tau, ssa, g), each (nlay, ncol, nbnd)
     cld_mask: torch.Tensor | None = None  # (nlay, ncol, ngpt) bool
@@ -247,27 +191,56 @@ class Composition(NamedTuple):
     def seeded(self) -> bool:
         return self.cld_bands is not None and self.cld_mask is None
 
+    @property
+    def clear(self) -> bool:
+        return self.cld_bands is None and self.aero_bands is None
+
 
 CLEAR = Composition()
 MASK_NONE, MASK_GIVEN, MASK_SEED = 0, 1, 2
+#: ROADMAP queue 1 item that adds f64 builds of the all-sky kernels
+F64_ALLSKY_ITEM = "item 20"
+
+
+def _cloud_mask_ref(comp: Composition, lkp):
+    """The cloud mask of a composition with clouds: the caller's, or the
+    McICA mask of the seed with its cloud cover. Returns (mask, cover or
+    None)."""
+    if not comp.seeded:
+        return comp.cld_mask, None
+    mask = mcica_sample(comp.cld_frac, lkp.n_gpt, comp.seed, comp.col_offset)[1]
+    return mask, cloud_cover_from_mask(mask)
 
 
 def _compose_ref(comp: Composition, lkp, tau, ssa, g):
-    """Twin side of the composition: the McICA mask (drawn from the seed in
-    seed mode) and the cloud / aerosol increments at g-point resolution.
-    Returns (tau, ssa, g, cloud cover or None)."""
+    """Twin side of the two-stream composition: the McICA mask (drawn from
+    the seed in seed mode) and the cloud / aerosol increments at g-point
+    resolution. Returns (tau, ssa, g, cloud cover or None)."""
     g2b = gpt2band(lkp)
     cover = None
     if comp.cld_bands is not None:
-        mask = comp.cld_mask
-        if comp.seeded:
-            mask = mcica_sample(comp.cld_frac, lkp.n_gpt, comp.seed, comp.col_offset)[1]
-            cover = cloud_cover_from_mask(mask)
+        mask, cover = _cloud_mask_ref(comp, lkp)
         tau, ssa, g = compose_2stream(tau, ssa, g, *(x[..., g2b] for x in comp.cld_bands), mask)
     if comp.aero_bands is not None:
         bands = (x.transpose(1, 2)[..., g2b] for x in comp.aero_bands)
         tau, ssa, g = compose_2stream(tau, ssa, g, *bands, comp.aero_mask[..., None])
     return tau, ssa, g, cover
+
+
+def _compose_absorption_ref(comp: Composition, lkp, tau):
+    """Twin side of the no-scattering composition: tau grows by
+    tau_x - ssa_x * tau_x of the clouds under their mask and of the aerosols
+    where a layer carries them. Returns (tau, cloud cover or None)."""
+    g2b = gpt2band(lkp)
+    cover = None
+    if comp.cld_bands is not None:
+        mask, cover = _cloud_mask_ref(comp, lkp)
+        t, s = (x[..., g2b] for x in comp.cld_bands[:2])
+        tau = tau + torch.where(mask, t - s * t, 0.0)
+    if comp.aero_bands is not None:
+        t, s = (x.transpose(1, 2)[..., g2b] for x in comp.aero_bands[:2])
+        tau = tau + torch.where(comp.aero_mask[..., None], t - s * t, 0.0)
+    return tau, cover
 
 
 def _composition_args(comp: Composition, dev, nlay, ncol, ngpt, nbnd) -> tuple[list, list]:
@@ -305,6 +278,100 @@ def _composition_args(comp: Composition, dev, nlay, ncol, ngpt, nbnd) -> tuple[l
     ptrs = [*cb, comp.cld_mask if mode == MASK_GIVEN else None,
             comp.cld_frac if mode == MASK_SEED else None, *ab, comp.aero_mask if aero else None]
     return list(map(_ptr, ptrs)), [int(cloud), int(aero), mode, hi, lo, int(comp.col_offset)]
+
+
+# ---------------------------------------------------------------------------
+# LW no-scattering megakernel
+# ---------------------------------------------------------------------------
+
+
+def lw_clear_mega_ref(
+    inp: MegaInputs, tabs: KernelTables, plk_lay, plk_lev, plk_sfc, sfc_emis,
+    inc_flux, ds: float, w_mu: float, comp: Composition = CLEAR,
+):
+    """Plain twin of ``lw_clear_mega``: ``ops.gas_optics`` optics and
+    sources, the absorption-only composition at g-point resolution, then
+    ``ops.rte.lw_noscat``, summed over g-points. Any float dtype."""
+    lkp = tabs.lkp
+    nlay, ncol = inp.nlay, inp.ncol
+    tau = _tau_gas(inp, tabs).clamp_(min=0.0)
+    pfrac = compute_planck_fraction(lkp, inp.pt, inp.eta)
+    band_last = lambda x, *shape: x.reshape(x.shape[0], *shape).movedim(0, -1)
+    src = planck_sources_from_bands(
+        lkp, band_last(plk_lay, nlay, ncol), band_last(plk_lev, nlay + 1, ncol),
+        plk_sfc.T, pfrac,
+    )
+    del pfrac
+    tau, cover = _compose_absorption_ref(comp, lkp, tau)
+    emis = sfc_emis.T[:, gpt2band(lkp)]
+    up, dn = lw_noscat(
+        tau, src.lay_source, src.lev_source, src.sfc_source, emis, ds, w_mu, inc_flux
+    )
+    out = (up.sum(-1), dn.sum(-1))
+    return out + (cover,) if comp.seeded else out
+
+
+def lw_clear_mega(
+    inp: MegaInputs, tabs: KernelTables,
+    plk_lay: torch.Tensor,   # (nbnd, nlay*ncol) planck_band at t_lay
+    plk_lev: torch.Tensor,   # (nbnd, nlev*ncol) planck_band at t_lev
+    plk_sfc: torch.Tensor,   # (nbnd, ncol) planck_band at t_sfc
+    sfc_emis: torch.Tensor,  # (nbnd, ncol)
+    inc_flux: torch.Tensor | None,  # (ncol, ngpt) TOA incident flux
+    ds: float, w_mu: float,
+    comp: Composition = CLEAR,
+):
+    """Whole LW no-scattering solve for one angle (secant ``ds``, weight
+    ``w_mu``), clear or composed with ``comp`` (absorption only: the optical
+    depth grows by tau_x - ssa_x * tau_x of clouds under their mask and of
+    aerosols in the layers that carry them). Returns (flux_up, flux_dn), each
+    (nlev, ncol), plus the McICA cloud cover (ncol,) in seed mode. f32 or
+    f64 by the inputs' dtype; the f64 kernel is clear sky only."""
+    if inp.jtemp.device.type == "cpu":
+        return lw_clear_mega_ref(inp, tabs, plk_lay, plk_lev, plk_sfc, sfc_emis, inc_flux, ds, w_mu, comp)
+    dev = _cuda_device(inp.jtemp, "lw_clear_mega")
+    if not tabs.lkp.is_longwave:
+        raise ValueError("lw_clear_mega: needs a longwave lookup")
+    real = _kernel_dtype(inp.ftemp, "lw_clear_mega")
+    f64 = real == torch.float64
+    if f64 and not comp.clear:
+        raise NotImplementedError(
+            "lw_clear_mega: the f64 kernel is clear sky only; cloud/aerosol composition in f64 "
+            f"is not ported yet (ROADMAP queue 1, {F64_ALLSKY_ITEM})"
+        )
+    nlay, ncol, ngpt, nbnd, ntemp, neta, ncontrib = _check_inputs(inp, tabs, dev, False, real)
+    _require(plk_lay, "plk_lay", (nbnd, nlay * ncol), real, dev)
+    _require(plk_lev, "plk_lev", (nbnd, (nlay + 1) * ncol), real, dev)
+    _require(plk_sfc, "plk_sfc", (nbnd, ncol), real, dev)
+    _require(sfc_emis, "sfc_emis", (nbnd, ncol), real, dev)
+    if inc_flux is not None:
+        _require(inc_flux, "inc_flux", (ncol, ngpt), real, dev)
+    comp_ptrs, comp_scalars = _composition_args(comp, dev, nlay, ncol, ngpt, nbnd)
+    seeded = comp_scalars[2] == MASK_SEED
+    trans_s = torch.empty((nlay, ncol, ngpt), dtype=real, device=dev)
+    sup_s = torch.empty_like(trans_s)
+    up = torch.empty((nlay + 1, ncol), dtype=real, device=dev)
+    dn = torch.empty_like(up)
+    cover = torch.empty((ncol,), dtype=torch.float32, device=dev) if seeded else None
+    head = (*_input_ptrs(inp), *_table_ptrs(tabs),
+            *map(_ptr, (plk_lay, plk_lev, plk_sfc, sfc_emis, inc_flux)))
+    dims = (nlay, ncol, ngpt, nbnd, ntemp, neta, ncontrib)
+    scalars = (round_to(ds, real), intensity_to_flux(w_mu, real), _stream(dev))
+    lib = _build.library()
+    with torch.cuda.device(dev):
+        if f64:
+            err = lib.rrtmgp_lw_clear_mega_f64(
+                *head, *map(_ptr, (trans_s, sup_s, up, dn)), *dims, *scalars)
+        else:
+            err = lib.rrtmgp_lw_clear_mega(
+                *head, *comp_ptrs, *map(_ptr, (trans_s, sup_s, up, dn, cover)), *dims,
+                *comp_scalars, *scalars)
+    _build.check(err, "lw_clear_mega")
+    lw_clear_mega.launches += 1
+    return (up, dn, cover) if seeded else (up, dn)
+
+
+lw_clear_mega.launches = 0
 
 
 # ---------------------------------------------------------------------------

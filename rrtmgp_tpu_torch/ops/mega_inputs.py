@@ -8,9 +8,10 @@ Two containers:
   pressure/temperature interpolation and ``col_dry``, per (layer, column,
   band) the eta interpolation, per minor interval its scaling (zeroed outside
   its troposphere side), and for SW the Rayleigh column amount;
-- ``KernelTables``: one lookup's f32 tables in g-point-fastest layouts, so
-  that the threads of one column, one per g-point, read neighbouring
-  addresses, plus the minor-interval index.
+- ``KernelTables``: one lookup's tables, in the lookup's dtype (f32, or f64
+  for the f64 kernels), in g-point-fastest layouts, so that the threads of
+  one column, one per g-point, read neighbouring addresses, plus the
+  minor-interval index.
 
 The TPU-only structure of the JAX prologue (bf16 hi/lo table splits,
 per-layer table windows and their guards, 128-column padding) has no
@@ -130,14 +131,14 @@ def _minor_index(lkp: GasLookup):
 
 
 def build_kernel_tables(lkp: GasLookup) -> KernelTables:
-    """Build the kernels' f32 table layouts for one lookup (a few MB of
-    permuted copies). Use ``lkp.kernel_tables``, which builds them once."""
-    f32 = lambda x: x.to(torch.float32).contiguous()
-    g_last = lambda t: f32(t.permute(*range(1, t.ndim), 0))  # g-point axis to the end
+    """Build the kernels' table layouts for one lookup, in the lookup's
+    dtype (a few MB of permuted copies). Use ``lkp.kernel_tables``, which
+    builds them once."""
+    g_last = lambda t: t.permute(*range(1, t.ndim), 0).contiguous()  # g-point axis to the end
     if lkp.is_longwave:
         second = g_last(lkp.planck_fraction)
     else:
-        second = f32(lkp.rayl.permute(0, 2, 3, 1))
+        second = lkp.rayl.permute(0, 2, 3, 1).contiguous()
     kminor = torch.cat([lkp.kminor_lower, lkp.kminor_upper], dim=0)
     start, entries, kbase, band = _minor_index(lkp)
     return KernelTables(

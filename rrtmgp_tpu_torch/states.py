@@ -163,6 +163,56 @@ class SwBCs(TensorContainer):
 
 
 # ---------------------------------------------------------------------------
+# Column maps
+# ---------------------------------------------------------------------------
+
+#: boundary-condition fields laid out (ncol, ngpt): the column axis leads
+_COLUMN_LEADING = ("inc_flux", "inc_flux_diffuse")
+
+
+def tree_map_columns(col_fn, other_fn, tree):
+    """Map ``col_fn`` over the tensors of a state or boundary-condition
+    container that may carry a trailing column axis, and ``other_fn`` over
+    those known not to; None and static fields pass through.
+
+    Column helpers (slice, chunk, shard) recognise a column tensor by the
+    size of its trailing axis. One tensor defeats that test: the ``VmrGM``
+    global-mean vector, shape (ngas+1,), looks like a column tensor whenever
+    ncol == ngas+1, and slicing it would corrupt every gas concentration; it
+    is excluded by type. The incident fluxes of ``LwBCs`` / ``SwBCs`` are
+    (ncol, ngpt): ``col_fn`` sees them transposed, column axis trailing, and
+    its result is transposed back into a contiguous tensor.
+    """
+    rec = lambda x: tree_map_columns(col_fn, other_fn, x)
+    if isinstance(tree, VmrGM):
+        return VmrGM(col_fn(tree.vmr_h2o), col_fn(tree.vmr_o3), other_fn(tree.vmr))
+    if isinstance(tree, TensorContainer):
+        new = {}
+        for f in dataclasses.fields(tree):
+            v = getattr(tree, f.name)
+            if f.name in _COLUMN_LEADING and isinstance(v, torch.Tensor):
+                new[f.name] = col_fn(v.T).T.contiguous()
+            else:
+                new[f.name] = rec(v)
+        return dataclasses.replace(tree, **new)
+    if isinstance(tree, torch.Tensor):
+        return col_fn(tree)
+    return tree
+
+
+def slice_columns(tree, lo: int, hi: int, ncol: int):
+    """Columns [lo, hi) of a state or boundary-condition container of
+    ``ncol`` columns, every cut tensor contiguous (the kernels need that)."""
+
+    def cut(x):
+        if x.ndim == 0 or x.shape[-1] != ncol:
+            return x
+        return x[..., lo:hi].contiguous()
+
+    return tree_map_columns(cut, lambda x: x, tree)
+
+
+# ---------------------------------------------------------------------------
 # Precompute ops
 # ---------------------------------------------------------------------------
 

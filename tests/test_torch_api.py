@@ -245,16 +245,21 @@ def test_what_is_not_ported_raises(monkeypatch):
     with pytest.raises(TypeError, match="dtype"):
         rt.RRTMGPSolver(rt.RRTMGPGridParams(nlay=NLAY, ncol=NCOL, dtype=torch.float64),
                         rt.ClearSkyRadiation(), rt.RRTMGPParameters(), bl, bs, atm, lookups=T_LOOKUPS)
-    # f64 above the memory budget: the JAX package chunks, the port refuses
-    monkeypatch.setenv("RRTMGP_CHUNK_BUDGET_GB", "0.0001")
+    # f64 above the memory budget: chunked like the JAX package, no refusal
     atm64 = atm.to(dtype=torch.float64)
     lk64 = rt.LookupBundle(**{f.name: getattr(T_LOOKUPS, f.name).to(dtype=torch.float64)
                               for f in dataclasses.fields(T_LOOKUPS)})
-    with pytest.raises(NotImplementedError, match="item 9"):
-        rt.RRTMGPSolver(rt.RRTMGPGridParams(nlay=NLAY, ncol=NCOL, dtype=torch.float64),
-                        rt.AllSkyRadiation(), rt.RRTMGPParameters(), bl, bs, atm64, lookups=lk64)
+    mk64 = lambda: rt.RRTMGPSolver(rt.RRTMGPGridParams(nlay=NLAY, ncol=NCOL, dtype=torch.float64),
+                                   rt.AllSkyRadiation(), rt.RRTMGPParameters(), bl.to(dtype=torch.float64),
+                                   bs.to(dtype=torch.float64), atm64, lookups=lk64)
+    monkeypatch.setenv("RRTMGP_CHUNK_BUDGET_GB", "0.0001")
+    with pytest.warns(UserWarning, match=r"auto-chunking into 2-column chunks \(budget 0 GB"):
+        chunked = mk64()
+    assert chunked.auto_chunk == 2
     monkeypatch.delenv("RRTMGP_CHUNK_BUDGET_GB")
-    s = rt.RRTMGPSolver(rt.RRTMGPGridParams(nlay=NLAY, ncol=NCOL, dtype=torch.float64),
-                        rt.AllSkyRadiation(), rt.RRTMGPParameters(), bl.to(dtype=torch.float64),
-                        bs.to(dtype=torch.float64), atm64, lookups=lk64)
+    s = mk64()
+    assert s.auto_chunk is None
     assert s.update_lw_fluxes().flux_up.dtype == torch.float64
+    for a, b in zip(chunked.update_lw_fluxes(), s.flux_lw):
+        assert torch.equal(a, b)
+    assert torch.equal(chunked.lw_cloud_cover(), s.lw_cloud_cover())

@@ -8,11 +8,13 @@ tests/conftest.py:
 
 They cover what chip_smoke.py does not: the incident-flux inputs of the
 megakernels, odd shapes, run-to-run determinism, the wrappers' argument
-checks on CUDA tensors, the f64 routing of solve_lw / solve_sw, and the
-launch counts of solve_lw / solve_sw and RRTMGPSolver.update_fluxes.
-Tolerances as chip_smoke.py: max |kernel - twin| / max |twin| <= 1e-6
-(Planck, aerosol_bands), 5e-5 (LW no-scattering), 1e-4 (LW two-stream,
-SW); the McICA cloud cover and mcica_mask_export bit for bit.
+checks on CUDA tensors, the f64 routing of solve_lw / solve_sw, the angle
+loop, and the launch counts of solve_lw / solve_sw and
+RRTMGPSolver.update_fluxes. Tolerances as chip_smoke.py: max |kernel - twin|
+/ max |twin| <= 1e-6 (Planck, aerosol_bands), 5e-5 (LW no-scattering), 1e-4
+(LW two-stream, SW); in f64 1e-14 (Planck) and 1e-12 (LW no-scattering: the
+same operations, up to the order of the g-point sums and an ulp of exp);
+the McICA cloud cover and mcica_mask_export bit for bit.
 """
 
 import dataclasses
@@ -31,6 +33,7 @@ pytestmark = pytest.mark.gpu
 
 TOL = {"planck_band": 1e-6, "lw_clear_mega": 5e-5, "sw_clear_mega": 1e-4, "lw2_mega": 1e-4,
        "aerosol_bands": 1e-6}
+TOL64 = {"planck_band": 1e-14, "lw_clear_mega": 1e-12}
 
 
 @pytest.fixture
@@ -147,31 +150,94 @@ def test_solves_on_cuda_take_the_kernels(cuda):
     assert _rel(k_sw, t_sw) <= TOL["sw_clear_mega"]
     for flux in k_sw:
         assert torch.all(flux[:, mu0 <= 0] == 0.0)
+    # one launch per quadrature angle, the band Planck values shared
+    for n in (2, 3, 4):
+        mega.reset_launch_counts()
+        k_n, _ = solve_lw(lw, atm, bl, n_gauss_angles=n)
+        assert _counts() == {"planck_band": 3, "lw_clear_mega": n}
+        assert _rel(k_n, solve_lw(lw, atm, bl, n_gauss_angles=n, impl="torch")[0]) <= TOL["lw_clear_mega"]
+    # f64 clear-sky LW no-scattering has a kernel, LW two-stream has none
+    lw64, atm64 = lw.to(dtype=torch.float64), atm.to(dtype=torch.float64)
+    bl64 = dataclasses.replace(bl, sfc_emis=bl.sfc_emis.double())
+    mega.reset_launch_counts()
+    k64, _ = solve_lw(lw64, atm64, bl64, impl="kernel")
+    assert _counts() == {"planck_band": 3, "lw_clear_mega": 1} and k64.flux_up.dtype == torch.float64
+    assert _rel(k64, solve_lw(lw64, atm64, bl64, impl="torch")[0]) <= TOL64["lw_clear_mega"]
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        solve_lw(lw, atm, bl, n_gauss_angles=2)
-    with pytest.raises(TypeError, match="float32"):
-        solve_lw(lw.to(dtype=torch.float64), atm.to(dtype=torch.float64),
-                 dataclasses.replace(bl, sfc_emis=bl.sfc_emis.double()), impl="kernel")
+        solve_lw(lw64, atm64, bl64, two_stream=True, impl="kernel")
 
 
-def test_f64_with_the_default_impl_takes_the_torch_path(cuda):
+def test_f64_routing(cuda):
+    """impl=None on f64 CUDA tensors: clear-sky LW no-scattering without
+    aerosols takes the f64 kernel (1-4 angles, with or without incident
+    flux); with aerosols, two-stream, or SW, the torch path with a warning;
+    impl='kernel' raises where f64 has no kernel."""
+    from rrtmgp_tpu_torch.data.synthetic import synthetic_aerosol_lookup
+
+    ncol = 40
     lw = synthetic_gas_lookup(longwave=True, n_gpt=16, n_bnd=2, dtype=np.float64, device=cuda)
     sw = synthetic_gas_lookup(longwave=False, n_gpt=16, n_bnd=2, seed=1, dtype=np.float64, device=cuda)
-    atm = synthetic_atmosphere(ncol=40, nlay=8, dtype=np.float64, device=cuda)
+    atm = synthetic_atmosphere(ncol=ncol, nlay=8, dtype=np.float64, device=cuda, with_aerosols=True)
+    rng = np.random.default_rng(2)
+    mass = torch.from_numpy(rng.uniform(0.0, 2e-5, (15, 8, ncol))).to(cuda)
+    atm = dataclasses.replace(atm, aerosol_state=dataclasses.replace(atm.aerosol_state, aero_mass=mass))
+    aero = synthetic_aerosol_lookup(n_bnd=2, dtype=np.float64, device=cuda)
     f = lambda shape, v: torch.full(shape, v, dtype=torch.float64, device=cuda)
-    bl = LwBCs(sfc_emis=f((2, 40), 0.98))
-    bs = SwBCs(cos_zenith=f((40,), 0.6), toa_flux=f((40,), 1361.0),
-               sfc_alb_direct=f((2, 40), 0.2), sfc_alb_diffuse=f((2, 40), 0.2))
-    with pytest.warns(UserWarning, match="f32-only"):
-        k_lw, _ = solve_lw(lw, atm, bl)
-    with pytest.warns(UserWarning, match="f32-only"):
+    bl = LwBCs(sfc_emis=f((2, ncol), 0.98))
+    bl_inc = dataclasses.replace(bl, inc_flux=torch.from_numpy(rng.uniform(0.0, 2.0, (ncol, 16))).to(cuda))
+    bs = SwBCs(cos_zenith=f((ncol,), 0.6), toa_flux=f((ncol,), 1361.0),
+               sfc_alb_direct=f((2, ncol), 0.2), sfc_alb_diffuse=f((2, ncol), 0.2))
+    for bcs, n in ((bl, 1), (bl_inc, 3)):
+        mega.reset_launch_counts()
+        k_lw, _ = solve_lw(lw, atm, bcs, n_gauss_angles=n)
+        assert _counts() == {"planck_band": 3, "lw_clear_mega": n}
+        t_lw, _ = solve_lw(lw, atm, bcs, n_gauss_angles=n, impl="torch")
+        assert k_lw.flux_up.dtype == torch.float64 and _rel(k_lw, t_lw) <= TOL64["lw_clear_mega"]
+    mega.reset_launch_counts()
+    with pytest.warns(UserWarning, match="f64 CUDA kernel"):
+        a_lw, _ = solve_lw(lw, atm, bl, lkp_aero=aero)
+    with pytest.warns(UserWarning, match="f64 CUDA kernel"):
+        k_lw2, _ = solve_lw(lw, atm, bl, two_stream=True)
+    with pytest.warns(UserWarning, match="f64 CUDA kernel"):
         k_sw, _ = solve_sw(sw, atm, bs)
     assert _counts() == {}
-    for a, b in zip((*k_lw, *k_sw), (*solve_lw(lw, atm, bl, impl="torch")[0],
-                                     *solve_sw(sw, atm, bs, impl="torch")[0])):
+    # the aerosols are kept: the fluxes differ from the aerosol-free ones
+    assert not torch.equal(a_lw.flux_up, solve_lw(lw, atm, bl, impl="torch")[0].flux_up)
+    for a, b in zip((*a_lw, *k_lw2, *k_sw), (*solve_lw(lw, atm, bl, lkp_aero=aero, impl="torch")[0],
+                                             *solve_lw(lw, atm, bl, two_stream=True, impl="torch")[0],
+                                             *solve_sw(sw, atm, bs, impl="torch")[0])):
         assert a.dtype == torch.float64 and torch.equal(a, b)
-    with pytest.raises(TypeError, match="float32"):
-        solve_sw(sw, atm, bs, impl="kernel")
+    for call in (lambda: solve_sw(sw, atm, bs, impl="kernel"),
+                 lambda: solve_lw(lw, atm, bl, two_stream=True, impl="kernel"),
+                 lambda: solve_lw(lw, atm, bl, lkp_aero=aero, impl="kernel")):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            call()
+
+
+@pytest.mark.parametrize("ngpt,nbnd,ncol,nlay", [(36, 4, 1000, 30), (256, 16, 257, 60), (5, 5, 3, 2)])
+def test_f64_kernels_match_twins(cuda, ngpt, nbnd, ncol, nlay):
+    """planck_band and lw_clear_mega built for f64 against their f64 twins
+    (any n_gpt, not only powers of two), and against the f32 kernels."""
+    plk_args, lw_args, _ = _case(cuda, ngpt, nbnd, ncol, nlay)
+    lw64 = synthetic_gas_lookup(longwave=True, n_gpt=ngpt, n_bnd=nbnd, dtype=np.float64, device=cuda)
+    atm64 = synthetic_atmosphere(ncol=ncol, nlay=nlay, dtype=np.float64, device=cuda)
+    plk64 = [(t.reshape(-1), lw64.totplnk, lw64.t_planck_min, lw64.t_planck_delta)
+             for t in (atm64.t_lay, atm64.t_lev, atm64.t_sfc)]
+    mega.reset_launch_counts()
+    planck = [mega.planck_band(*a) for a in plk64]
+    for out, a in zip(planck, plk64):
+        assert out.dtype == torch.float64
+        assert _rel([out], [mega.planck_band_ref(*a)]) <= TOL64["planck_band"]
+    args64 = (mega_lw_inputs(lw64, atm64), lw64.kernel_tables, *planck, lw_args[5].double(),
+              lw_args[6].double(), *lw_args[7:])
+    up, dn = mega.lw_clear_mega(*args64)
+    assert up.dtype == torch.float64 and up.shape == (nlay + 1, ncol)
+    assert _rel((up, dn), mega.lw_clear_mega_ref(*args64)) <= TOL64["lw_clear_mega"]
+    assert _counts() == {"planck_band": 3, "lw_clear_mega": 1}
+    # f32 against f64: the f32 algorithm's own error (its Clough factor cancels in thin layers)
+    assert _rel(mega.lw_clear_mega(*lw_args), (up, dn)) <= 1e-4
+    again = mega.lw_clear_mega(*args64)
+    assert torch.equal(again[0], up) and torch.equal(again[1], dn)
 
 
 def _allsky_case(dev, ngpt, nbnd, ncol, nlay):
@@ -245,6 +311,78 @@ def test_allsky_kernels_match_twins(cuda, ngpt, nbnd, ncol, nlay):
     torch.cuda.synchronize()
     # aerosol_bands: 2 here, 2 in the seeded compositions
     assert _counts() == {"lw2_mega": 3, "sw_clear_mega": 3, "aerosol_bands": 4, "mcica_mask_export": 2}
+
+
+@pytest.mark.parametrize("ngpt,nbnd,ncol,nlay", [(36, 4, 1000, 30), (256, 16, 257, 12), (5, 5, 3, 4)])
+def test_lw_noscat_composed_matches_twin(cuda, ngpt, nbnd, ncol, nlay):
+    """lw_clear_mega with a cloud mask, McICA seed + aerosols, and aerosols
+    alone against its twin; seed mode equals the exported-mask mode and its
+    cover the twin's, bit for bit; f64 composition raises."""
+    from rrtmgp_tpu_torch.models.rrtmgp import _kernel_composition
+
+    lw, _, atm, cld, aero, lw2_args, _, masks = _allsky_case(cuda, ngpt, nbnd, ncol, nlay)
+    inp, tabs, plk_lev, plk_sfc, emis, inc = lw2_args
+    plk_lay = mega.planck_band(atm.t_lay.reshape(-1), lw.totplnk, lw.t_planck_min, lw.t_planck_delta)
+    Ds, wts = angular_discretization(2)
+    args = (inp, tabs, plk_lay, plk_lev, plk_sfc, emis, inc, float(Ds[1]), float(wts[1]))
+    by_mask, seeded = _compositions(lw, atm, cld[0], aero[0], masks[0], False)
+    aero_only = _kernel_composition(lw, atm, None, aero[0], None, None, 0, None, False, False)[0]
+    clear = mega.lw_clear_mega(*args)
+    mega.reset_launch_counts()
+    for comp in (by_mask, seeded, aero_only):
+        out, want = mega.lw_clear_mega(*args, comp), mega.lw_clear_mega_ref(*args, comp)
+        assert len(out) == (3 if comp.seeded else 2)
+        if comp.seeded:
+            assert out[2].dtype == torch.float32 and torch.equal(out[2], want[2])
+        assert _rel(out[:2], want[:2]) <= TOL["lw_clear_mega"]
+        assert ncol < 100 or not torch.equal(out[0], clear[0])
+        again = mega.lw_clear_mega(*args, comp)
+        assert all(torch.equal(x, y) for x, y in zip(out, again))
+    assert _counts() == {"lw_clear_mega": 6}
+    # seed mode against the same mask handed in
+    exported = mega.mcica_mask_export(atm.cloud_state.cld_frac, 9, 100, ngpt)[1].bool()
+    given = seeded._replace(cld_mask=exported, cld_frac=None, seed=None)
+    for x, y in zip(mega.lw_clear_mega(*args, seeded)[:2], mega.lw_clear_mega(*args, given)):
+        assert torch.equal(x, y)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        mega.lw_clear_mega(mega_lw_inputs(lw.to(dtype=torch.float64), atm.to(dtype=torch.float64)),
+                           lw.to(dtype=torch.float64).kernel_tables,
+                           *(x.double() for x in (plk_lay, plk_lev, plk_sfc, emis, inc)),
+                           float(Ds[1]), float(wts[1]), by_mask)
+
+
+def test_allsky_noscat_solver_takes_the_kernels(cuda):
+    """RRTMGPSolver with two_stream_lw=False under clouds and aerosols runs
+    LW through lw_clear_mega (one launch per angle), not lw2_mega, and
+    agrees with the torch path; chunked equals unchunked bit for bit."""
+    from rrtmgp_tpu_torch import AllSkyRadiation, RRTMGPGridParams, RRTMGPParameters, RRTMGPSolver
+    from rrtmgp_tpu_torch.models.rrtmgp import solve_chunked
+
+    ncol, nlay = 300, 12
+    atm = synthetic_atmosphere(ncol=ncol, nlay=nlay, dtype=np.float32, device=cuda,
+                               with_clouds=True, with_aerosols=True)
+    f = lambda shape, v: torch.full(shape, v, dtype=torch.float32, device=cuda)
+    bl = LwBCs(sfc_emis=f((16, ncol), 0.98))
+    bs = SwBCs(cos_zenith=f((ncol,), 0.6), toa_flux=f((ncol,), 1361.0),
+               sfc_alb_direct=f((14, ncol), 0.2), sfc_alb_diffuse=f((14, ncol), 0.2))
+    grid = RRTMGPGridParams(nlay=nlay, ncol=ncol)
+    for n in (1, 3):
+        mk = lambda **kw: RRTMGPSolver(grid, AllSkyRadiation(aerosol_radiation=True), RRTMGPParameters(),
+                                       bl, bs, atm, two_stream_lw=False, n_gauss_angles=n, **kw)
+        solver, ref = mk(), mk(impl="torch")
+        mega.reset_launch_counts()
+        f_lw, f_sw = solver.update_fluxes()
+        torch.cuda.synchronize()
+        assert _counts() == {"planck_band": 3, "lw_clear_mega": n, "sw_clear_mega": 1, "aerosol_bands": 2}
+        t_lw, _ = ref.update_fluxes()
+        assert _rel(f_lw, t_lw) <= TOL["lw_clear_mega"]
+        assert torch.equal(solver.lw_cloud_cover(), ref.lw_cloud_cover())
+        L = solver.lookups
+        one = lambda a, b, s, off: solve_lw(L.lookup_lw, a, b, n_gauss_angles=n, lkp_cld=L.lookup_lw_cld,
+                                            lkp_aero=L.lookup_lw_aero, cld_mask_seed=s, col_offset=off)
+        c_lw, c_diag = solve_chunked(one, atm, bl, 128, cld_mask_seed=solver._mcica_key(0))
+        assert all(torch.equal(x, y) for x, y in zip(c_lw, f_lw))
+        assert torch.equal(c_diag.cld_cover, solver.lw_cloud_cover())
 
 
 def test_allsky_kernels_are_deterministic(cuda):

@@ -46,15 +46,23 @@ def test_public_api_resolves():
 
 
 def test_kernel_sources_present_and_build_is_lazy():
-    """Every kernel of the clear-sky and all-sky paths has its CUDA source
-    and C entry point, and importing the ops builds nothing (the library is
-    built on the first CUDA call)."""
+    """Every kernel of the clear-sky, all-sky and f64 paths has its CUDA
+    source and C entry point (the f64 builds among them), every header a
+    source includes is there, and importing the ops builds nothing (the
+    library is built on the first CUDA call)."""
+    import re
+
     from rrtmgp_tpu_torch.ops import _build
 
     names = {p.name for p in _build.CSRC.iterdir()}
     assert {"planck_band.cu", "lw_clear_mega.cu", "sw_clear_mega.cu", "lw2_mega.cu",
-            "aerosol_bands.cu", "mcica_export.cu", "mcica.cuh", "allsky.cuh"} <= names
+            "aerosol_bands.cu", "mcica_export.cu", "errors.cu", "mcica.cuh", "allsky.cuh",
+            "common.cuh"} <= names
+    for p in _build.CSRC.iterdir():
+        for header in re.findall(r'#include "([^"]+)"', p.read_text()):
+            assert header in names, (p.name, header)
     sources = "".join(p.read_text() for p in _build.CSRC.glob("*.cu"))
+    assert {"rrtmgp_planck_band_f64", "rrtmgp_lw_clear_mega_f64"} <= set(_build.SIGNATURES)
     for entry in _build.SIGNATURES:
         assert f'extern "C" int {entry}(' in sources, entry
     assert _build.library.cache_info().currsize == 0

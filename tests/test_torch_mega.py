@@ -6,6 +6,11 @@ the JAX Pallas kernels they replace, run in interpret mode on the CPU.
   solve_lw / solve_sw, set up as tests/test_pallas_optics.py does (ncol 128),
   at 5e-5 (LW) and 1e-4 (SW) of max |flux|, the JAX megakernel-vs-XLA
   tolerances: the Pallas kernels contract bf16 hi/lo table splits;
+- lw_clear_mega_ref composed (cloud mask, cloud mask + aerosols, McICA
+  seed + aerosols, aerosols alone: absorption only) vs the JAX megakernel
+  path in interpret mode at 1e-4 of max |flux| (the tolerance of
+  tests/test_pallas_optics.py for the same comparison) and vs the JAX XLA
+  path at 1e-5; cloud cover at rtol 1e-6;
 - lw2_mega_ref and the all-sky sw_clear_mega_ref vs the JAX megakernel
   path (lw2_mega / sw_clear_mega in interpret mode) clear, with a cloud
   mask, with a cloud mask and aerosols, and with a McICA seed and some
@@ -288,6 +293,47 @@ def test_allsky_sw_clear_mega_ref_matches_jax_megakernel(case):
         rtol = 1e-6 if spec["aero"] is None else 3e-5
         np.testing.assert_allclose(aod_ext.numpy(), np.asarray(dref.aod_sw_ext), rtol=rtol)
         np.testing.assert_allclose(aod_sca.numpy(), np.asarray(dref.aod_sw_sca), rtol=rtol)
+
+
+NOSCAT_CASES = {**{k: v for k, v in ALLSKY_CASES.items() if k != "clear"}, "aerosols": dict(aero=None)}
+
+
+@pytest.mark.parametrize("case", list(NOSCAT_CASES))
+def test_lw_clear_mega_ref_composed_matches_jax_megakernel(case):
+    """The LW no-scattering twin with clouds and aerosols (absorption only)
+    against the JAX lw_clear_mega in interpret mode, driven as
+    tests/test_pallas_optics.py drives it, and against the JAX XLA path."""
+    from rrtmgp_tpu.models.rrtmgp import solve_lw
+
+    (jl, ja, jc, jae, mask), (tl, ta, tc, tae) = _allsky_setup(True)
+    spec = NOSCAT_CASES[case]
+    bcs = LwBCs(sfc_emis=jnp.full((jl.n_bnd, NCOL), 0.95, jnp.float32))
+    kw = _jax_kw(spec, jc, jae, mask)
+    ref, dref = solve_lw(
+        jl, ja, bcs, pallas_tables=gp.build_pallas_tables(jl), pallas_rte=True,
+        pallas_windowed="force", pallas_window=gp.compute_min_window(jl, ja, mega=True), **kw,
+    )
+    xla, dxla = solve_lw(jl, ja, bcs, pallas_rte=False, **kw)
+    comp, _, _ = _port_comp(spec, tl, ta, tc, tae, mask, False)
+    plk = lambda t: mega.planck_band(t.reshape(-1), tl.totplnk, tl.t_planck_min, tl.t_planck_delta)
+    Ds, wts = angular_discretization(1)
+    args = (mega_lw_inputs(tl, ta), tl.kernel_tables, plk(ta.t_lay), plk(ta.t_lev), plk(ta.t_sfc),
+            torch.full((tl.n_bnd, NCOL), 0.95), None, float(Ds[0]), float(wts[0]))
+    out = mega.lw_clear_mega(*args, comp)
+    for a, b in zip(out, mega.lw_clear_mega_ref(*args, comp)):
+        assert torch.equal(a, b)
+    assert len(out) == (3 if comp.seeded else 2)
+    clear = mega.lw_clear_mega_ref(*args)
+    assert not torch.equal(out[0], clear[0])  # the composition is felt
+    for name, port in zip(("flux_up", "flux_dn"), out):
+        assert _rel(port, getattr(ref, name)) < 1e-4, (name, _rel(port, getattr(ref, name)))
+        assert _rel(port, getattr(xla, name)) < 1e-5, (name, _rel(port, getattr(xla, name)))
+    if spec.get("cloud"):
+        from rrtmgp_tpu_torch.ops.cloud_optics import cloud_cover_from_mask
+
+        cover = out[2] if comp.seeded else cloud_cover_from_mask(comp.cld_mask)
+        np.testing.assert_allclose(cover.numpy(), np.asarray(dref.cld_cover), rtol=1e-6)
+        np.testing.assert_allclose(cover.numpy(), np.asarray(dxla.cld_cover), rtol=1e-6)
 
 
 @pytest.mark.parametrize("species", [None, SPECIES])

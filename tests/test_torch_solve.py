@@ -151,22 +151,72 @@ def test_kernel_impl_on_cpu_raises():
 @pytest.fixture
 def kernel_dispatch(monkeypatch):
     """solve_* take their kernel path whatever the device: what that path
-    does not cover raises before any kernel is reached, so the dispatch is
-    testable without a card."""
+    does not cover raises before any kernel is reached, and on CPU tensors
+    the wrappers run their plain twins, so the dispatch is testable without
+    a card."""
     from rrtmgp_tpu_torch.models import rrtmgp as tmod
 
-    monkeypatch.setattr(tmod, "_resolve_impl", lambda impl, device, dtype: "kernel")
+    monkeypatch.setattr(tmod, "_resolve_impl", lambda impl, device, dtype, has_f64_kernel=False: "kernel")
 
 
-@pytest.mark.parametrize("kwargs", [
-    dict(n_gauss_angles=2), dict(lkp_cld=object()), dict(lkp_aero=object()),
-    dict(lkp_cld=object(), cld_mask=torch.ones(1, dtype=torch.bool)),
-])
+def _noscat_allsky_case():
+    """Port inputs of an all-sky LW no-scattering solve with the JAX
+    objects of the same numbers (fractional clouds, aerosols below)."""
+    from rrtmgp_tpu.ops.cloud_optics import build_cloud_mask_mcica
+
+    ncol = 24
+    jl, ja, jb, tl, _, tb = _lw_case(ncol, np.float32)
+    ja = jsyn.synthetic_atmosphere(ncol=ncol, nlay=NLAY, dtype=np.float32, with_clouds=True,
+                                   with_aerosols=True)
+    rng = np.random.default_rng(21)
+    cf = np.asarray(ja.cloud_state.cld_frac) * rng.uniform(0.2, 1.0, (NLAY, ncol)).astype(np.float32)
+    mass = rng.uniform(0.0, 2e-5, (15, NLAY, ncol)).astype(np.float32)
+    mass[:, NLAY // 2:] = 0.0  # the thin top layers stay clean (see the module docstring)
+    ja = dataclasses.replace(
+        ja, cloud_state=dataclasses.replace(ja.cloud_state, cld_frac=jnp.asarray(cf)),
+        aerosol_state=dataclasses.replace(ja.aerosol_state, aero_mass=jnp.asarray(mass)),
+    )
+    jc = jsyn.synthetic_cloud_lookup(n_bnd=4, dtype=np.float32)
+    jae = jsyn.synthetic_aerosol_lookup(n_bnd=4, dtype=np.float32)
+    mask = np.array(build_cloud_mask_mcica(jax.random.key(6), ja.cloud_state.cld_frac, jl.n_gpt))
+    jax_kw = {"n_gauss_angles=2": dict(n_gauss_angles=2),
+              "n_gauss_angles=4": dict(n_gauss_angles=4),
+              "clouds by seed": dict(lkp_cld=jc, cld_mask_seed=6),
+              "aerosols": dict(lkp_aero=jae),
+              "clouds by mask": dict(lkp_cld=jc, cld_mask=jnp.asarray(mask)),
+              "clouds by seed, aerosols, 3 angles": dict(lkp_cld=jc, cld_mask_seed=6, lkp_aero=jae,
+                                                         n_gauss_angles=3)}
+    tc, tae = convert.cloud_lookup_from_object(jc), convert.aerosol_lookup_from_object(jae)
+    swap = {id(jc): tc, id(jae): tae}
+    port_kw = {name: {k: torch.from_numpy(mask) if k == "cld_mask" else swap.get(id(v), v)
+                      for k, v in kw.items()} for name, kw in jax_kw.items()}
+    return jl, ja, jb, tl, convert.atmosphere_from_object(ja), tb, jax_kw, port_kw
+
+
+@pytest.mark.parametrize("kwargs", [dict(option=o) for o in (
+    "n_gauss_angles=2", "clouds by seed", "aerosols", "clouds by mask",
+    "n_gauss_angles=4", "clouds by seed, aerosols, 3 angles",
+)])
 def test_lw_unported_options_raise(kernel_dispatch, kwargs):
-    """The kernel path of LW no-scattering covers one angle, clear sky."""
-    _, _, _, tl, ta, tb = _lw_case(8, np.float32)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        solve_lw(tl, ta, tb, **kwargs)
+    """What the kernel path of LW no-scattering once refused (more than one
+    angle, clouds, aerosols) it now covers: through the kernel dispatch (the
+    wrappers' twins on the CPU) it equals the torch path to rounding and the
+    JAX XLA solve within the slice's tolerance; nothing raises."""
+    option = kwargs["option"]
+    jl, ja, jb, tl, ta, tb, jax_kw, port_kw = _noscat_allsky_case()
+    out, diag = solve_lw(tl, ta, tb, **port_kw[option])
+    exact, ediag = solve_lw(tl, ta, tb, impl="torch", **port_kw[option])
+    ref, rdiag = jmod.solve_lw(jl, ja, jb, **jax_kw[option])
+    for name in ("flux_up", "flux_dn", "flux_net"):
+        assert _rel(getattr(out, name), getattr(exact, name).numpy()) <= 2e-6, name
+        assert _rel(getattr(out, name), getattr(ref, name)) <= TOL[np.float32], name
+    if "clouds" in option:
+        assert torch.equal(diag.cld_cover, ediag.cld_cover)
+        np.testing.assert_allclose(diag.cld_cover.numpy(), np.asarray(rdiag.cld_cover), rtol=1e-6)
+        clear, _ = solve_lw(tl, ta, tb)
+        assert float((clear.flux_up - out.flux_up).abs().max()) > 1e-2
+    else:
+        assert diag.cld_cover is None
 
 
 @pytest.mark.parametrize("kwargs", [
@@ -181,18 +231,22 @@ def test_sw_unported_options_raise(kernel_dispatch, kwargs):
 
 
 def test_resolve_impl_routes_by_device_and_dtype():
-    """impl=None: the kernels for f32 CUDA tensors only; f64 CUDA tensors
-    take the torch path with the JAX package's warning; impl='kernel' needs
-    CUDA tensors (f64 ones are then refused by the wrappers)."""
+    """impl=None: the kernels for f32 CUDA tensors and for the f64 solve
+    that has a kernel; other f64 solves on CUDA tensors take the torch path
+    with a warning; impl='kernel' needs CUDA tensors and an existing
+    kernel."""
     from rrtmgp_tpu_torch.models.rrtmgp import _resolve_impl
 
     cuda, cpu = torch.device("cuda"), torch.device("cpu")
     assert _resolve_impl(None, cuda, torch.float32) == "kernel"
-    with pytest.warns(UserWarning, match="f32-only"):
+    with pytest.warns(UserWarning, match="exact-precision torch path"):
         assert _resolve_impl(None, cuda, torch.float64) == "torch"
+    assert _resolve_impl(None, cuda, torch.float64, has_f64_kernel=True) == "kernel"
     assert _resolve_impl(None, cpu, torch.float32) == "torch"
     assert _resolve_impl(None, cpu, torch.float64) == "torch"
-    assert _resolve_impl("kernel", cuda, torch.float64) == "kernel"
+    assert _resolve_impl("kernel", cuda, torch.float64, has_f64_kernel=True) == "kernel"
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        _resolve_impl("kernel", cuda, torch.float64)
     assert _resolve_impl("torch", cuda, torch.float32) == "torch"
     with pytest.raises(ValueError, match="CUDA"):
         _resolve_impl("kernel", cpu, torch.float32)
