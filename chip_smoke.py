@@ -44,7 +44,21 @@ is non-zero:
    radiation=True) with two_stream_lw=False at 75748 x 60 in f32: LW
    through lw_clear_mega composed with in-kernel McICA and aerosols; step
    time, columns/s, peak memory, launch counts, the McICA oracles, the
-   kernel path against the torch path, and 3 angles.
+   kernel path against the torch path, and 3 angles (one megakernel launch
+   each);
+8. two-kernel slice (run after the clear slice, on its inputs): the
+   kernels of the two-kernel path (optics_fused LW and SW, planck_band_rows,
+   lw_noscat_banded_reduced, sw_2stream_reduced) against their twins at the
+   small shape and at 32768 x 60 (twins on 8192-column chunks; the SW sweep
+   also with an asymmetry on an all-sky composition at 8192 columns), then
+   solve_lw with 3 angles + solve_sw through impl="two_kernel" and the SW
+   direct-beam solve with the default impl at 32768 x 60: step time,
+   columns/s, peak memory, launches per step; the two-kernel path against
+   the megakernel path at full width and against the torch path on 4096
+   columns; direct beam monotone with flux_up = flux_dn = 0, night columns
+   0, LW TOA down = 0; all-sky (McICA by seed + aerosols) through the
+   two-kernel path against the torch path at 8192 columns. (The time of 1-4
+   LW angles on both routes: scripts/port_measure.py angles.)
 
 The last lines are a JSON object per kernel, the card's name and power limit,
 and {"ok": true, "device": {...}}. Needs CUDA and nvcc; imports no JAX.
@@ -73,7 +87,8 @@ MCICA_SEED, COL_OFFSET = 11, 384
 TOL = {"planck_band": 1e-6, "lw_clear_mega": 5e-5, "sw_clear_mega": 1e-4,
        "lw2_mega": 1e-4, "sw_clear_mega_allsky": 1e-4, "aerosol_bands": 1e-6,
        "mcica_mask_export": 0.0, "planck_band_f64": 1e-14, "lw_clear_mega_f64": 1e-12,
-       "lw_clear_mega_allsky": 5e-5}
+       "lw_clear_mega_allsky": 5e-5, "optics_fused_lw": 1e-6, "optics_fused_sw": 1e-6,
+       "planck_band_rows": 1e-6, "lw_noscat_banded_reduced": 5e-5, "sw_2stream_reduced": 1e-4}
 F64_LW_TOL_WM2 = 1e-4           # the reference's f64 LW tolerance, absolute
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM data sheet
 PEAK_OPS_PER_S = {"f32": 67e12, "f64": 33.5e12}  # outside the tensor cores; f64 at half the f32 rate
@@ -88,6 +103,11 @@ SOURCES = {
     "planck_band_f64": ("rrtmgp_tpu_torch/csrc/planck_band.cu", "rrtmgp_tpu/ops/pallas_mega.py:224"),
     "lw_clear_mega_f64": ("rrtmgp_tpu_torch/csrc/lw_clear_mega.cu", "rrtmgp_tpu/ops/pallas_mega_df.py:218"),
     "lw_clear_mega_allsky": ("rrtmgp_tpu_torch/csrc/lw_clear_mega.cu", "rrtmgp_tpu/ops/pallas_mega.py:522"),
+    "optics_fused_lw": ("rrtmgp_tpu_torch/csrc/optics_fused.cu", "rrtmgp_tpu/ops/pallas_interp.py:530"),
+    "optics_fused_sw": ("rrtmgp_tpu_torch/csrc/optics_fused.cu", "rrtmgp_tpu/ops/pallas_interp.py:530"),
+    "planck_band_rows": ("rrtmgp_tpu_torch/csrc/planck_band.cu", "rrtmgp_tpu/ops/pallas_interp.py:828"),
+    "lw_noscat_banded_reduced": ("rrtmgp_tpu_torch/csrc/lw_noscat_banded.cu", "rrtmgp_tpu/ops/pallas_rte.py:858"),
+    "sw_2stream_reduced": ("rrtmgp_tpu_torch/csrc/sw_2stream_reduced.cu", "rrtmgp_tpu/ops/pallas_rte.py:225"),
 }
 
 
@@ -242,7 +262,11 @@ def kernel_args(lw, sw, atm, bcs_lw, bcs_sw):
 # with an exp, a sqrt or a divide as one operation: the table interpolations
 # and blends, the transport or two-stream coefficients and adding, the
 # sweeps and the shuffle sums of the levels.
-OPS_PER_POINT = {"lw_clear_mega": 90, "sw_clear_mega": 150, "lw2_mega": 140}
+OPS_PER_POINT = {"lw_clear_mega": 90, "sw_clear_mega": 150, "lw2_mega": 140,
+                 # the optics alone: major tau and the Planck fraction, or major tau, Rayleigh and ssa
+                 "optics_fused_lw": 50, "optics_fused_sw": 42}
+OPS_LW_SWEEP = 44         # two sweeps of exp, Clough factor (a divide), sqrt, two sources, recurrence, level sum
+OPS_SW_SWEEP = 110        # beam, coefficients (three exp, a sqrt, two divides), adding, flux pass, level sums
 OPS_PER_MINOR = 14        # one covering minor-gas interval: two eta blends, the temperature blend, scale, add
 OPS_INCREMENT = {"lw_clear_mega": 3, "sw_clear_mega": 12, "lw2_mega": 12}  # one cloud or aerosol increment
 OPS_MCICA = 85            # threefry2x32 (20 rounds of add, rotate, xor; integer) and the overlap recurrence
@@ -552,7 +576,10 @@ def phase_kernels_small() -> None:
     check_f64_kernels(label, lw64, atmosphere(SMALL_NCOL, SMALL_NLAY, "float64"),
                       boundary_conditions(lw64, lw64, SMALL_NCOL)[0],
                       kernel_args(lw, None, atm, bcs_lw, None)[1], 0, {}, f32_tol=1e-4)
-    check_allsky_kernels(label, small_allsky_lookups(), allsky_atmosphere(SMALL_NCOL, SMALL_NLAY), 0, {})
+    small_L, small_allsky = small_allsky_lookups(), allsky_atmosphere(SMALL_NCOL, SMALL_NLAY)
+    check_allsky_kernels(label, small_L, small_allsky, 0, {})
+    check_two_kernel_kernels(label, lw, sw, atm, bcs_lw, bcs_sw, 0, {})
+    check_sw_sweep_allsky(label, small_L, small_allsky, {})
 
 
 def phase_clear_slice(lw, sw, atm, bcs_lw, bcs_sw):
@@ -620,8 +647,8 @@ def phase_clear_slice(lw, sw, atm, bcs_lw, bcs_sw):
     return launches, step_ms, f_lw
 
 
-def check_night(sw, atm, bcs_sw, kw, tag) -> None:
-    """Night columns come out exactly 0 on the kernel path."""
+def check_night(sw, atm, bcs_sw, kw, tag, impl="kernel") -> None:
+    """Night columns come out exactly 0 on the path of ``impl``."""
     import torch
 
     from rrtmgp_tpu_torch import solve_sw
@@ -629,7 +656,7 @@ def check_night(sw, atm, bcs_sw, kw, tag) -> None:
     mu0 = bcs_sw.cos_zenith.clone()
     mu0[::5] = -0.3
     mu0[1::5] = 0.0
-    f_night, _ = solve_sw(sw, atm, dataclasses.replace(bcs_sw, cos_zenith=mu0), impl="kernel", **kw)
+    f_night, _ = solve_sw(sw, atm, dataclasses.replace(bcs_sw, cos_zenith=mu0), impl=impl, **kw)
     night = mu0 <= 0
     for f in f_night:
         require(torch.all(f[:, night] == 0.0), "night column not exactly 0")
@@ -786,7 +813,7 @@ def phase_allsky_slice(L, atm, bcs_lw, bcs_sw, two_stream_lw=True) -> dict:
         # 3 quadrature angles: one launch each, the mask drawn alike in all
         a, bl = columns(atm, 0, ANGLES_NCOL), columns(bcs_lw, 0, ANGLES_NCOL)
         mega.reset_launch_counts()
-        k3, d3 = solve_lw(lw, a, bl, cld_mask_seed=seed, n_gauss_angles=3, **lw_kw)
+        k3, d3 = solve_lw(lw, a, bl, cld_mask_seed=seed, n_gauss_angles=3, impl="kernel", **lw_kw)
         n3 = mega.launch_counts()
         require(n3["lw_clear_mega"] == 3 and n3["planck_band"] == 3 and n3["lw2_mega"] == 0,
                 f"3 angles: launches {n3}")
@@ -940,6 +967,207 @@ def phase_f64_slice(lw, sw, atm, bcs_lw, bcs_sw, f32_lw) -> dict:
     return launches
 
 
+def two_kernel_args(lw, sw, atm, bcs_lw, bcs_sw):
+    """The arguments of the four kernels of the two-kernel path as solve_lw /
+    solve_sw build them on clear sky: the sweeps read what the optics kernels
+    wrote. Returns (optics LW, optics SW, Planck rows x 3, LW sweep, SW
+    sweep)."""
+    from rrtmgp_tpu_torch.angular import angular_discretization
+    from rrtmgp_tpu_torch.ops import interp
+    from rrtmgp_tpu_torch.ops.gas_optics_kernel import gas_optics_lw_raw
+    from rrtmgp_tpu_torch.ops.mega_inputs import mega_lw_inputs, mega_sw_inputs
+
+    Ds, wts = angular_discretization(1)
+    lw_in = (mega_lw_inputs(lw, atm), lw.kernel_tables)
+    sw_in = (mega_sw_inputs(sw, atm), sw.kernel_tables)
+    plk_args = [(t.reshape(-1), lw.totplnk, lw.t_planck_min, lw.t_planck_delta)
+                for t in (atm.t_lay, atm.t_lev, atm.t_sfc)]
+    raw = gas_optics_lw_raw(lw, atm)
+    k12 = (*raw, bcs_lw.sfc_emis, lw.kernel_tables.gpt2band, float(Ds[0]), float(wts[0]), None)
+    tau, ssa = interp.optics_fused(*sw_in)
+    toa_gpt = bcs_sw.toa_flux[:, None] * sw.solar_src_scaled[None, :]
+    k15 = (tau, ssa, None, bcs_sw.cos_zenith, toa_gpt, bcs_sw.sfc_alb_direct, bcs_sw.sfc_alb_diffuse,
+           sw.kernel_tables.gpt2band, None)
+    return lw_in, sw_in, plk_args, k12, k15
+
+
+def check_two_kernel_kernels(label, lw, sw, atm, bcs_lw, bcs_sw, reps, results, chunk=None) -> None:
+    """The kernels of the two-kernel path against their twins, the twins on
+    column chunks when ``chunk`` is given."""
+    from rrtmgp_tpu_torch.ops import interp, rte_kernels
+
+    ncol = atm.ncol
+    lw_in, sw_in, plk_args, k12, k15 = two_kernel_args(lw, sw, atm, bcs_lw, bcs_sw)
+    twin = lambda fn, args: by_columns(fn, args, ncol, chunk)
+    points = lambda lkp: atm.nlay * ncol * lkp.n_gpt
+    n_plk = sum(a[0].numel() for a in plk_args) * lw.n_bnd
+    cases = (
+        ("optics_fused_lw", lambda: interp.optics_fused(*lw_in), lambda: twin(interp.optics_fused_ref, lw_in),
+         Work(nbytes(lw_in), mega_ops("optics_fused_lw", *lw_in))),
+        ("optics_fused_sw", lambda: interp.optics_fused(*sw_in), lambda: twin(interp.optics_fused_ref, sw_in),
+         Work(nbytes(sw_in), mega_ops("optics_fused_sw", *sw_in))),
+        ("planck_band_rows", lambda: tuple(interp.planck_band_rows(*a) for a in plk_args),
+         lambda: tuple(interp.planck_band_rows_ref(*a) for a in plk_args),
+         Work(nbytes([a[:2] for a in plk_args]), OPS_PLANCK * n_plk)),
+        ("lw_noscat_banded_reduced", lambda: rte_kernels.lw_noscat_banded_reduced(*k12),
+         lambda: twin(rte_kernels.lw_noscat_banded_reduced_ref, k12),
+         Work(nbytes(k12), OPS_LW_SWEEP * points(lw))),
+        ("sw_2stream_reduced", lambda: rte_kernels.sw_2stream_reduced(*k15),
+         lambda: twin(rte_kernels.sw_2stream_reduced_ref, k15),
+         Work(nbytes(k15), OPS_SW_SWEEP * points(sw))),
+    )
+    for name, kern, ref, work in cases:
+        check_case(label, name, kern, ref, reps, results, work=work)
+
+
+def check_sw_sweep_allsky(label, L, atm, results) -> None:
+    """sw_2stream_reduced with an asymmetry: the optics kernel's output
+    composed with clouds (McICA by seed) and aerosols, delta-scaled, at
+    g-point resolution."""
+    import torch
+
+    from rrtmgp_tpu_torch.models.rrtmgp import _kernel_composition
+    from rrtmgp_tpu_torch.ops import interp, mega, rte_kernels
+    from rrtmgp_tpu_torch.ops.mega_inputs import mega_sw_inputs
+
+    sw, ncol = L.lookup_sw, atm.ncol
+    _, bcs_sw = boundary_conditions(L.lookup_lw, sw, ncol)
+    gen = torch.Generator(device=DEVICE).manual_seed(5)
+    mu0 = 0.05 + 0.95 * torch.rand(ncol, generator=gen, device=DEVICE)
+    tau, ssa = interp.optics_fused(mega_sw_inputs(sw, atm), sw.kernel_tables)
+    comp = _kernel_composition(sw, atm, L.lookup_sw_cld, L.lookup_sw_aero, None, MCICA_SEED, COL_OFFSET,
+                               None, True, False)[0]
+    tau, ssa, g, _ = mega._compose_ref(comp, sw, tau, ssa, torch.zeros_like(tau))
+    require(float(g.max()) > 0.1, "the all-sky composition has no asymmetry")
+    toa_gpt = bcs_sw.toa_flux[:, None] * sw.solar_src_scaled[None, :]
+    args = (tau.contiguous(), ssa.contiguous(), g.contiguous(), mu0, toa_gpt, bcs_sw.sfc_alb_direct,
+            bcs_sw.sfc_alb_diffuse, sw.kernel_tables.gpt2band, None)
+    check_case(f"{label} [with g, clouds+aerosols]", "sw_2stream_reduced",
+               lambda: rte_kernels.sw_2stream_reduced(*args),
+               lambda: rte_kernels.sw_2stream_reduced_ref(*args), 0, results)
+
+
+def phase_two_kernel_slice(lw, sw, atm, bcs_lw, bcs_sw, mega_lw, L) -> dict:
+    """The two-kernel slice at full width on the clear cell's inputs:
+    solve_lw with 3 angles and solve_sw through impl="two_kernel", then the
+    SW direct-beam solve with the default impl. ``mega_lw`` is the clear
+    slice's one-angle LW flux through the megakernel, ``L`` the all-sky
+    lookups of the all-sky comparison. Returns the launch counts of the
+    timed steps, optics_fused split into its LW and SW launches."""
+    import torch
+
+    from rrtmgp_tpu_torch import solve_lw, solve_sw
+    from rrtmgp_tpu_torch.ops import interp, mega
+    from rrtmgp_tpu_torch.states import slice_columns
+
+    tag, ncol = "two-kernel", atm.ncol
+    lw_optics = []
+
+    def step():
+        before = interp.optics_fused.launches
+        f_lw, _ = solve_lw(lw, atm, bcs_lw, n_gauss_angles=3, impl="two_kernel")
+        lw_optics.append(interp.optics_fused.launches - before)
+        f_sw, _ = solve_sw(sw, atm, bcs_sw, impl="two_kernel")
+        f_dir, _ = solve_sw(sw, atm, bcs_sw, two_stream=False)  # default impl
+        return f_lw, f_sw, f_dir
+
+    step()  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    mega.reset_launch_counts()
+    lw_optics.clear()
+    times = []
+    for _ in range(STEPS):
+        t0 = time.perf_counter()
+        f_lw, f_sw, f_dir = step()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    launches = mega.launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    launches["optics_fused_lw"] = sum(lw_optics)
+    launches["optics_fused_sw"] = launches.pop("optics_fused") - launches["optics_fused_lw"]
+    per_step = {k: n / STEPS for k, n in launches.items() if n}
+    want = {"optics_fused_lw": 1, "optics_fused_sw": 2, "planck_band_rows": 3,
+            "lw_noscat_banded_reduced": 3, "sw_2stream_reduced": 1}
+    phase(tag, f"launches in {STEPS} steps: {launches}")
+    require(per_step == want, f"launches per step {per_step}, expected {want}")
+    step_ms = 1e3 * statistics.median(times)
+    phase(tag, f"LW 3 angles + SW two-stream + SW direct beam at {ncol} x {NLAY}: median {step_ms:.3f} ms over "
+               f"{STEPS} steps (min {1e3 * min(times):.3f}, max {1e3 * max(times):.3f}), "
+               f"{ncol / (step_ms / 1e3):.1f} columns/s, peak memory {peak_gb:.2f} GB")
+
+    # physics oracles
+    for f in (*f_lw, *f_sw, *f_dir):
+        require(f.shape == (NLAY + 1, ncol) and torch.isfinite(f).all(), "flux shape or non-finite flux")
+    require(torch.all(f_lw.flux_dn[-1] == 0.0), "LW flux_dn at TOA is not 0 (no incident flux)")
+    for f in (f_sw, f_dir):
+        require(torch.all(f.flux_dn_dir[:-1] <= f.flux_dn_dir[1:]), "SW direct beam increases toward the surface")
+    require(torch.all(f_dir.flux_up == 0.0) and torch.all(f_dir.flux_dn == 0.0),
+            "the direct-beam solve has a diffuse flux")
+    require(rel_err((f_dir.flux_dn_dir,), (f_sw.flux_dn_dir,))[1] <= TOL["sw_2stream_reduced"],
+            "the direct-beam solve's beam differs from the two-stream solve's")
+    require(torch.all(f_sw.flux_up[-1] <= 1361.0 * 0.6), "SW TOA up flux exceeds the incoming flux")
+    phase(tag, "oracles: finite, LW TOA dn = 0, direct beam monotone and equal in both SW solves, "
+               "flux_up = flux_dn = 0 in the direct-beam solve, TOA up <= incoming")
+    check_night(sw, atm, bcs_sw, {}, tag, impl="two_kernel")
+    check_night(sw, atm, bcs_sw, dict(two_stream=False), tag, impl=None)
+
+    # the two-kernel path against the megakernel path at full width
+    one_lw, _ = solve_lw(lw, atm, bcs_lw, impl="two_kernel")
+    k3_lw, _ = solve_lw(lw, atm, bcs_lw, n_gauss_angles=3, impl="kernel")
+    k_sw, _ = solve_sw(sw, atm, bcs_sw, impl="kernel")
+    for name, out, ref, tol in (
+        ("solve_lw 1 angle", one_lw, mega_lw, TOL["lw_noscat_banded_reduced"]),
+        ("solve_lw 3 angles", f_lw, k3_lw, TOL["lw_noscat_banded_reduced"]),
+        ("solve_sw", f_sw, k_sw, TOL["sw_2stream_reduced"]),
+    ):
+        err, rel = rel_err(tuple(out), tuple(ref))
+        phase(tag, f"{name} two-kernel vs megakernel path on {ncol} columns: max|d|={err:.3e} rel={rel:.3e} "
+                   f"(tol {tol:.0e}), bitwise equal: {all(torch.equal(a, b) for a, b in zip(out, ref))}")
+        require(rel <= tol, f"{name}: two-kernel vs megakernel rel error {rel:.3e} > {tol:.0e}")
+    del one_lw, k3_lw, k_sw
+
+    # against the torch path on the first columns
+    a, bl, bs = (slice_columns(x, 0, CMP_NCOL, ncol) for x in (atm, bcs_lw, bcs_sw))
+    t_lw, _ = solve_lw(lw, a, bl, n_gauss_angles=3, impl="torch")
+    t_sw, _ = solve_sw(sw, a, bs, impl="torch")
+    t_dir, _ = solve_sw(sw, a, bs, two_stream=False, impl="torch")
+    for name, out, ref, tol in (
+        ("solve_lw 3 angles", f_lw, t_lw, TOL["lw_noscat_banded_reduced"]),
+        ("solve_sw", f_sw, t_sw, TOL["sw_2stream_reduced"]),
+        ("solve_sw direct beam", f_dir, t_dir, TOL["sw_2stream_reduced"]),
+    ):
+        err, rel = rel_err(tuple(k[:, :CMP_NCOL] for k in out), tuple(ref))
+        phase(tag, f"{name} two-kernel vs torch on {CMP_NCOL} columns: max|d|={err:.3e} rel={rel:.3e} "
+                   f"(tol {tol:.0e})")
+        require(rel <= tol, f"{name}: two-kernel vs torch rel error {rel:.3e} > {tol:.0e}")
+    del t_lw, t_sw, t_dir, f_lw, f_sw, f_dir
+
+    # all-sky (McICA by seed + aerosols) through the two-kernel path against the torch path
+    atm_as = allsky_atmosphere(TWIN_CHUNK, NLAY)
+    bl, bs = boundary_conditions(L.lookup_lw, L.lookup_sw, TWIN_CHUNK)
+    lw_kw = dict(lkp_cld=L.lookup_lw_cld, lkp_aero=L.lookup_lw_aero, cld_mask_seed=MCICA_SEED,
+                 col_offset=COL_OFFSET)
+    sw_kw = dict(lkp_cld=L.lookup_sw_cld, lkp_aero=L.lookup_sw_aero, cld_mask_seed=MCICA_SEED + 1,
+                 col_offset=COL_OFFSET)
+    cases = (
+        ("solve_lw 3 angles", lambda i: solve_lw(L.lookup_lw, atm_as, bl, n_gauss_angles=3, impl=i, **lw_kw),
+         TOL["lw_noscat_banded_reduced"]),
+        ("solve_sw", lambda i: solve_sw(L.lookup_sw, atm_as, bs, impl=i, **sw_kw), TOL["sw_2stream_reduced"]),
+        ("solve_sw direct beam", lambda i: solve_sw(L.lookup_sw, atm_as, bs, two_stream=False, impl=i, **sw_kw),
+         TOL["sw_2stream_reduced"]),
+    )
+    for name, solve, tol in cases:
+        (out, d_out), (ref, d_ref) = solve("two_kernel"), solve("torch")
+        err, rel = rel_err(tuple(out), tuple(ref))
+        phase(tag, f"all-sky {name} two-kernel vs torch on {TWIN_CHUNK} columns: max|d|={err:.3e} "
+                   f"rel={rel:.3e} (tol {tol:.0e}), cloud cover bitwise")
+        require(rel <= tol, f"all-sky {name}: two-kernel vs torch rel error {rel:.3e} > {tol:.0e}")
+        require(torch.equal(d_out.cld_cover, d_ref.cld_cover), f"all-sky {name}: cloud cover differs")
+        require(float(d_out.cld_cover.max()) > 0.0, "no cloud in the all-sky comparison")
+    return launches
+
+
 def main() -> None:
     import torch
 
@@ -961,6 +1189,14 @@ def main() -> None:
     check_f64_kernels(label, lw64, atm64, bcs_lw64, kernel_args(lw, None, atm, bcs_lw, None)[1], 3, results,
                       chunk=F64_TWIN_CHUNK)
     launches, _, f32_lw = phase_clear_slice(lw, sw, atm, bcs_lw, bcs_sw)
+    L = lookup_tables(AllSkyRadiation(aerosol_radiation=True), dtype=torch.float32, device=DEVICE)
+    check_two_kernel_kernels(label, lw, sw, atm, bcs_lw, bcs_sw, 3, results, chunk=TWIN_CHUNK)
+    check_sw_sweep_allsky(f"main ncol={TWIN_CHUNK} nlay={NLAY} ngpt=224", L, allsky_atmosphere(TWIN_CHUNK, NLAY),
+                          results)
+    torch.cuda.empty_cache()
+    two_kernel = phase_two_kernel_slice(lw, sw, atm, bcs_lw, bcs_sw, f32_lw, L)
+    launches.update({k: two_kernel[k] for k in ("optics_fused_lw", "optics_fused_sw", "planck_band_rows",
+                                                "lw_noscat_banded_reduced", "sw_2stream_reduced")})
     del atm, bcs_lw, bcs_sw
     torch.cuda.empty_cache()
     f64 = phase_f64_slice(lw64, sw64, atm64, bcs_lw64, bcs_sw64, f32_lw)
@@ -968,7 +1204,6 @@ def main() -> None:
     del atm64, bcs_lw64, bcs_sw64, lw64, sw64, f32_lw
     torch.cuda.empty_cache()
 
-    L = lookup_tables(AllSkyRadiation(aerosol_radiation=True), dtype=torch.float32, device=DEVICE)
     atm = allsky_atmosphere(ALLSKY_NCOL, NLAY)
     check_allsky_kernels(f"main ncol={ALLSKY_NCOL} nlay={NLAY} ngpt=256/224", L, atm, 3, results,
                          chunk=TWIN_CHUNK)

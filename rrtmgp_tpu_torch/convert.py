@@ -5,6 +5,10 @@ leaves plus static metadata. These functions take those leaves as numpy
 arrays (``np.asarray`` of each leaf) together with the static fields and
 build the matching torch containers, so the same weights and inputs feed both
 packages. Nothing here imports jax.
+
+The kernels need no conversion of their own: the megakernels and the kernels
+of the two-kernel path read ``KernelTables`` (``ops.mega_inputs``, built once
+per converted ``GasLookup`` as ``lkp.kernel_tables``) and ``lkp.totplnk``.
 """
 
 from __future__ import annotations

@@ -1,6 +1,8 @@
-// Device helpers shared by the clear-sky megakernels (lw_clear_mega.cu,
-// sw_clear_mega.cu): the per-(layer, column) gas-optics inputs, table
-// interpolation for one g-point, and deterministic per-level g-point sums.
+// Device helpers shared by the megakernels (lw_clear_mega.cu,
+// sw_clear_mega.cu, lw2_mega.cu) and the kernels of the two-kernel path
+// (optics_fused.cu, lw_noscat_banded.cu, sw_2stream_reduced.cu): the
+// per-(layer, column) gas-optics inputs, table interpolation for one g-point,
+// the Clough source factor, and deterministic per-level g-point sums.
 //
 // Every real-valued type is a template parameter R (float by default, double
 // for the f64 instantiations); the unsuffixed names (OpticsIn, Tables, Cell,
@@ -28,12 +30,20 @@ namespace rrtmgp {
 template <typename R> __host__ __device__ constexpr R r_eps();
 template <> __host__ __device__ constexpr float r_eps<float>() { return FLT_EPSILON; }
 template <> __host__ __device__ constexpr double r_eps<double>() { return DBL_EPSILON; }
+// sqrt(r_eps), the floor of k^2 in the SW two-stream coefficients
+template <typename R> __host__ __device__ constexpr R r_sqrt_eps();
+template <> __host__ __device__ constexpr float r_sqrt_eps<float>() { return 3.4526698300124393e-4f; }
+template <> __host__ __device__ constexpr double r_sqrt_eps<double>() { return 1.4901161193847656e-8; }
 __device__ __forceinline__ float r_exp(float x) { return expf(x); }
 __device__ __forceinline__ double r_exp(double x) { return exp(x); }
 __device__ __forceinline__ float r_sqrt(float x) { return sqrtf(x); }
 __device__ __forceinline__ double r_sqrt(double x) { return sqrt(x); }
 __device__ __forceinline__ float r_max(float a, float b) { return fmaxf(a, b); }
 __device__ __forceinline__ double r_max(double a, double b) { return fmax(a, b); }
+__device__ __forceinline__ float r_min(float a, float b) { return fminf(a, b); }
+__device__ __forceinline__ double r_min(double a, double b) { return fmin(a, b); }
+__device__ __forceinline__ float r_abs(float x) { return fabsf(x); }
+__device__ __forceinline__ double r_abs(double x) { return fabs(x); }
 
 // Gas-optics inputs of one solve (ops/mega_inputs.py MegaInputs).
 template <typename R>
@@ -154,6 +164,38 @@ __device__ __forceinline__ R tau_minor(const OpticsInT<R>& in, const TablesT<R>&
     tau += ((R(1) - c.ft) * v1 + c.ft * v2) * s;
   }
   return tau;
+}
+
+// Planck fraction of g-point g (LW: tb.second is the Planck-fraction table).
+template <typename R>
+__device__ __forceinline__ R planck_fraction(const TablesT<R>& tb, const Dims& d, const CellT<R>& c, int g) {
+  R v0, v1;
+  interp_p_eta(tb.second, d, c, g, v0, v1);
+  return (R(1) - c.ft) * v0 + c.ft * v1;
+}
+
+// Rayleigh optical depth of g-point g (SW: tb.second is the Rayleigh table):
+// (troposphere side, temperature, eta) interpolation times the Rayleigh
+// column amount.
+template <typename R>
+__device__ __forceinline__ R tau_rayleigh(const OpticsInT<R>& in, const TablesT<R>& tb, const Dims& d,
+                                          const CellT<R>& c, int g) {
+  const int side = c.lower ? 0 : 1;
+  const R r0 = tab(tb.second, d, side, c.jt, c.je1, g) * (R(1) - c.fe1) +
+               tab(tb.second, d, side, c.jt, c.je1 + 1, g) * c.fe1;
+  const R r1 = tab(tb.second, d, side, c.jt + 1, c.je2, g) * (R(1) - c.fe2) +
+               tab(tb.second, d, side, c.jt + 1, c.je2 + 1, g) * c.fe2;
+  return ((R(1) - c.ft) * r0 + c.ft * r1) * __ldg(in.ray_factor + c.lc);
+}
+
+// Clough et al. (1992) linear-in-tau source factor (1 - trans) / tau - trans
+// for the slant optical depth tau_loc with trans = exp(-tau_loc); below
+// 100 eps its three-term series, where the closed form cancels.
+template <typename R>
+__device__ __forceinline__ R clough_factor(R tau_loc, R trans) {
+  return tau_loc > R(100) * r_eps<R>()
+             ? (R(1) - trans) / tau_loc - trans
+             : tau_loc * (R(0.5) + tau_loc * (R(-1) / R(3) + tau_loc * R(0.125)));
 }
 
 // Per-level g-point sums for one column (one block). Each warp reduces with

@@ -64,7 +64,6 @@ __global__ void lw_clear_mega_kernel(OpticsInT<R> in, TablesT<R> tb, Dims d, All
   const bool active = g < d.ngpt;
   const int nlay = d.nlay, nlev = d.nlay + 1, ncol = d.ncol;
   const LevelSumsT<R> sums{smem, nlev, (int)(blockDim.x >> 5)};
-  const R tau_thresh = R(100) * r_eps<R>();
   const R one = R(1), two = R(2);
   const int band = active ? __ldg(tb.gpt2band + g) : 0;
   const size_t lay_plane = (size_t)nlay * ncol, lev_plane = (size_t)nlev * ncol;
@@ -82,9 +81,7 @@ __global__ void lw_clear_mega_kernel(OpticsInT<R> in, TablesT<R> tb, Dims d, All
   for (int l = nlay - 1; l >= 0; --l) {
     if (active) {
       const CellT<R> c = load_cell(in, d, l, col, band);
-      R v0, v1;
-      interp_p_eta(tb.second, d, c, g, v0, v1);
-      const R pf = (one - c.ft) * v0 + c.ft * v1;
+      const R pf = planck_fraction(tb, d, c, g);
       R tau = r_max(tau_major(tb, d, c, g) + tau_minor(in, tb, d, c, g), R(0));
       if constexpr (CLOUD) {
         bool m;
@@ -101,9 +98,7 @@ __global__ void lw_clear_mega_kernel(OpticsInT<R> in, TablesT<R> tb, Dims d, All
 
       const R tau_loc = tau * ds;
       const R trans = r_exp(-tau_loc);
-      const R fact = tau_loc > tau_thresh
-                         ? (one - trans) / tau_loc - trans
-                         : tau_loc * (R(0.5) + tau_loc * (R(-1) / R(3) + tau_loc * R(0.125)));
+      const R fact = clough_factor(tau_loc, trans);
       const R lay_val = __ldg(plk_lay + band * lay_plane + c.lc) * pf;
       // level l+1: geometric mean of the adjacent fractions; at the top the
       // neighbour is the layer's own

@@ -29,41 +29,14 @@
 //   in seed mode the mask is drawn inline (mcica.cuh) and the column's cloud
 //   cover counted; clouds and aerosols compose under their masks
 //   (allsky.cuh). Cloud, aerosol and mask mode are template parameters: the
-//   clear variant is the clear-sky kernel, with g = 0 folded in.
+//   clear variant is the clear-sky kernel, with g = 0 folded in. The
+//   coefficients and the adding and flux passes are sw_twostream.cuh's,
+//   shared with the sweep of the two-kernel path (sw_2stream_reduced.cu).
 #include "allsky.cuh"
 #include "common.cuh"
+#include "sw_twostream.cuh"
 
 namespace rrtmgp {
-
-// Zdunkowski PIFM gammas + Meador-Weaver reflectance/transmittance with the
-// energy clamps (rrtmgp_tpu/ops/pallas_rte.py _sw_coeffs); the clear-sky
-// kernel passes asymmetry g = 0. T0 = exp(-tau / max(mu0, eps)) is passed in.
-__device__ __forceinline__ void sw_coeffs(float tau, float ssa, float g, float mu0, float T0, float& Rdir,
-                                          float& Tdir, float& Rdif, float& Tdif) {
-  const float eps = FLT_EPSILON;
-  const float k_min = 3.4526698300124393e-4f;  // sqrt(eps)
-  const float gamma1 = (8.f - ssa * (5.f + 3.f * g)) * 0.25f;
-  const float gamma2 = 3.f * (ssa * (1.f - g)) * 0.25f;
-  const float gamma3 = (2.f - (3.f * mu0) * g) * 0.25f;
-  const float gamma4 = 1.f - gamma3;
-  const float alpha1 = gamma1 * gamma4 + gamma2 * gamma3;
-  const float alpha2 = gamma1 * gamma3 + gamma2 * gamma4;
-  const float k = sqrtf(fmaxf((gamma1 - gamma2) * (gamma1 + gamma2), k_min));
-  const float e1 = expf(-tau * k);
-  const float e2 = e1 * e1;
-  const float rt = 1.f / (k * (1.f + e2) + gamma1 * (1.f - e2));
-  Rdif = rt * gamma2 * (1.f - e2);
-  Tdif = rt * 2.f * k * e1;
-  const float k_mu = k * mu0, k_g3 = k * gamma3, k_g4 = k * gamma4;
-  const float omk2 = 1.f - k_mu * k_mu;
-  const float rt2 = ssa * rt / (fabsf(omk2) >= eps ? omk2 : eps);
-  const float rdir = rt2 * ((1.f - k_mu) * (alpha2 + k_g3) - (1.f + k_mu) * (alpha2 - k_g3) * e2 -
-                            2.f * (k_g3 - alpha2 * k_mu) * e1 * T0);
-  const float tdir = -rt2 * ((1.f + k_mu) * (alpha1 + k_g4) * T0 - (1.f - k_mu) * (alpha1 - k_g4) * e2 * T0 -
-                             2.f * (k_g4 + alpha1 * k_mu) * e1);
-  Rdir = fmaxf(0.f, fminf(rdir, 1.f - T0));
-  Tdir = fmaxf(0.f, fminf(tdir, 1.f - T0 - Rdir));
-}
 
 template <bool CLOUD, bool AERO, int MASK>
 __global__ void sw_clear_mega_kernel(OpticsIn in, Tables tb, Dims d, AllSkyIn as,
@@ -89,11 +62,10 @@ __global__ void sw_clear_mega_kernel(OpticsIn in, Tables tb, Dims d, AllSkyIn as
   const int band = active ? __ldg(tb.gpt2band + g) : 0;
   const float mu0 = __ldg(mu0_col + col);
   const float mu0_safe = fmaxf(mu0, FLT_EPSILON);
-  enum { UP = 0, DN_DIF = 1, DIR = 2 };
 
   // phase 1, top-down: optics + coefficients to scratch, beam in a register
   float beam = active ? __ldg(toa_gpt + (size_t)col * d.ngpt + g) * mu0 : 0.f;
-  sums.add(DIR, nlay, beam);
+  sums.add(SW_DIR, nlay, beam);
   Key2x32 ck{0u, 0u};
   if constexpr (MASK == MASK_SEED) ck = mcica_column_key(as.seed, as.col_offset + col);
   McicaCarry carry;
@@ -101,13 +73,7 @@ __global__ void sw_clear_mega_kernel(OpticsIn in, Tables tb, Dims d, AllSkyIn as
   for (int l = nlay - 1; l >= 0; --l) {
     if (active) {
       const Cell c = load_cell(in, d, l, col, band);
-      // Rayleigh: (tropo side, temperature, eta) interpolation
-      const int side = c.lower ? 0 : 1;
-      const float r0 = tab(tb.second, d, side, c.jt, c.je1, g) * (1.f - c.fe1) +
-                       tab(tb.second, d, side, c.jt, c.je1 + 1, g) * c.fe1;
-      const float r1 = tab(tb.second, d, side, c.jt + 1, c.je2, g) * (1.f - c.fe2) +
-                       tab(tb.second, d, side, c.jt + 1, c.je2 + 1, g) * c.fe2;
-      const float tau_ray = ((1.f - c.ft) * r0 + c.ft * r1) * __ldg(in.ray_factor + c.lc);
+      const float tau_ray = tau_rayleigh(in, tb, d, c, g);
       float tau = fmaxf(tau_major(tb, d, c, g) + tau_minor(in, tb, d, c, g) + tau_ray, 0.f);
       float ssa = tau > 0.f ? tau_ray / tau : 0.f;
       float gg = 0.f;
@@ -133,61 +99,16 @@ __global__ void sw_clear_mega_kernel(OpticsIn in, Tables tb, Dims d, AllSkyIn as
       s_tdif[s] = Tdif;
       beam *= T0;
     }
-    sums.add(DIR, l, beam);
+    sums.add(SW_DIR, l, beam);
   }
   if constexpr (MASK == MASK_SEED) {
     const int n = block_count(any_cloud, (int*)(smem + 3 * nlev * (int)(blockDim.x >> 5)));
     if (threadIdx.x == 0) cover[col] = (float)n / (float)d.ngpt;
   }
 
-  // phase 2, bottom-up adding. Afterwards layer l's slots hold:
-  // rdif = denom*(Rdif*src_l + Tdir*beam), tdif = Tdif*denom, and rdir/tdir
-  // the albedo/source at level l+1.
-  const float alb0 = active ? __ldg(alb_dif + (size_t)band * ncol + col) : 0.f;
-  const float src0 = active ? beam * __ldg(alb_dir + (size_t)band * ncol + col) : 0.f;
-  float alb = alb0, src = src0;
-  if (active) {
-    for (int l = 0; l < nlay; ++l) {
-      const size_t s = ((size_t)l * ncol + col) * d.ngpt + g;
-      const float Rdif = s_rdif[s], Tdif = s_tdif[s], tdird = s_tdir[s];
-      const float denom = 1.f / (1.f - Rdif * alb);
-      const float alb_n = Rdif + Tdif * Tdif * alb * denom;
-      const float src_n = s_rdir[s] + Tdif * denom * (src + alb * tdird);
-      s_rdif[s] = denom * (Rdif * src + tdird);
-      s_tdif[s] = Tdif * denom;
-      s_rdir[s] = alb_n;
-      s_tdir[s] = src_n;
-      alb = alb_n;
-      src = src_n;
-    }
-  }
-
-  // phase 3, top-down diffuse flux
-  float fd = (active && inc_dif != nullptr) ? inc_dif[(size_t)col * d.ngpt + g] : 0.f;
-  sums.add(UP, nlay, active ? fd * alb + src : 0.f);
-  sums.add(DN_DIF, nlay, fd);
-  for (int l = nlay - 1; l >= 0; --l) {
-    float up = 0.f;
-    if (active) {
-      const size_t s = ((size_t)l * ncol + col) * d.ngpt + g;
-      fd = s_tdif[s] * fd + s_rdif[s];
-      const size_t below = s - (size_t)ncol * d.ngpt;
-      const float alb_l = l == 0 ? alb0 : s_rdir[below];
-      const float src_l = l == 0 ? src0 : s_tdir[below];
-      up = fd * alb_l + src_l;
-    }
-    sums.add(UP, l, up);
-    sums.add(DN_DIF, l, fd);
-  }
-
-  __syncthreads();
-  for (int lev = threadIdx.x; lev < nlev; lev += blockDim.x) {
-    const size_t o = (size_t)lev * ncol + col;
-    const float dir = sums.total(DIR, lev);
-    flux_up[o] = sums.total(UP, lev);
-    flux_dn[o] = sums.total(DN_DIF, lev) + dir;
-    flux_dir[o] = dir;
-  }
+  // phases 2 and 3: bottom-up adding, top-down diffuse flux, level sums
+  sw_adding_and_fluxes(d, sums, col, g, active, band, beam, alb_dir, alb_dif, inc_dif,
+                       s_rdir, s_tdir, s_rdif, s_tdif, flux_up, flux_dn, flux_dir);
 }
 
 template <bool CLOUD, bool AERO, int MASK>

@@ -1,0 +1,117 @@
+// SW two-stream device code shared by the SW megakernel (sw_clear_mega.cu)
+// and the SW sweep of the two-kernel path (sw_2stream_reduced.cu): the layer
+// coefficients, and the adding and flux passes over four scratch arrays.
+// Both kernels run one block per column and one thread per g-point, carry
+// the direct beam top-down in a register and leave, per layer, Rdir * beam,
+// Tdir * beam, Rdif and Tdif in the scratch; from there on they are the same
+// code, so the two paths agree to the last bit on equal optics.
+#pragma once
+
+#include "common.cuh"
+
+namespace rrtmgp {
+
+// Fields of the SW level sums.
+enum SwField { SW_UP = 0, SW_DN_DIF = 1, SW_DIR = 2 };
+
+// Zdunkowski PIFM gammas + Meador-Weaver reflectance/transmittance with the
+// energy clamps (rrtmgp_tpu/ops/pallas_rte.py _sw_coeffs); a clear-sky
+// kernel passes asymmetry g = 0. T0 = exp(-tau / max(mu0, eps)) is passed in.
+// The real type R is a template parameter, deduced from the arguments.
+template <typename R>
+__device__ __forceinline__ void sw_coeffs(R tau, R ssa, R g, R mu0, R T0, R& Rdir, R& Tdir, R& Rdif, R& Tdif) {
+  const R eps = r_eps<R>();
+  const R k_min = r_sqrt_eps<R>();
+  const R one = R(1), two = R(2), three = R(3), quarter = R(0.25);
+  const R gamma1 = (R(8) - ssa * (R(5) + three * g)) * quarter;
+  const R gamma2 = three * (ssa * (one - g)) * quarter;
+  const R gamma3 = (two - (three * mu0) * g) * quarter;
+  const R gamma4 = one - gamma3;
+  const R alpha1 = gamma1 * gamma4 + gamma2 * gamma3;
+  const R alpha2 = gamma1 * gamma3 + gamma2 * gamma4;
+  const R k = r_sqrt(r_max((gamma1 - gamma2) * (gamma1 + gamma2), k_min));
+  const R e1 = r_exp(-tau * k);
+  const R e2 = e1 * e1;
+  const R rt = one / (k * (one + e2) + gamma1 * (one - e2));
+  Rdif = rt * gamma2 * (one - e2);
+  Tdif = rt * two * k * e1;
+  const R k_mu = k * mu0, k_g3 = k * gamma3, k_g4 = k * gamma4;
+  const R omk2 = one - k_mu * k_mu;
+  const R rt2 = ssa * rt / (r_abs(omk2) >= eps ? omk2 : eps);
+  const R rdir = rt2 * ((one - k_mu) * (alpha2 + k_g3) - (one + k_mu) * (alpha2 - k_g3) * e2 -
+                        two * (k_g3 - alpha2 * k_mu) * e1 * T0);
+  const R tdir = -rt2 * ((one + k_mu) * (alpha1 + k_g4) * T0 - (one - k_mu) * (alpha1 - k_g4) * e2 * T0 -
+                         two * (k_g4 + alpha1 * k_mu) * e1);
+  Rdir = r_max(R(0), r_min(rdir, one - T0));
+  Tdir = r_max(R(0), r_min(tdir, one - T0 - Rdir));
+}
+
+// The passes after the top-down optics pass, for the thread of g-point g of
+// column col (every thread of the block calls it; idle threads add zeros).
+// On entry the scratch holds, per layer, Rdir * beam, Tdir * beam (beam at
+// the top of the layer), Rdif and Tdif; `beam` is the direct beam at the
+// surface, and the SW_DIR sums of every level are already added.
+//   bottom-up adding: layer l's slots become rdif = denom * (Rdif * src_l +
+//     Tdir * beam), tdif = Tdif * denom, and rdir / tdir the albedo / source
+//     at level l + 1, so no (nlev, ncol, ngpt) arrays exist;
+//   top-down diffuse flux with the SW_UP and SW_DN_DIF sums;
+//   then the block writes flux_up, flux_dn (diffuse + direct) and flux_dir,
+//   each (nlev, ncol).
+template <typename R>
+__device__ __forceinline__ void sw_adding_and_fluxes(const Dims& d, const LevelSumsT<R>& sums, int col, int g,
+                                                     bool active, int band, R beam,
+                                                     const R* __restrict__ alb_dir,  // (nbnd, ncol)
+                                                     const R* __restrict__ alb_dif,  // (nbnd, ncol)
+                                                     const R* __restrict__ inc_dif,  // (ncol, ngpt) or null
+                                                     R* __restrict__ s_rdir,  // 4 x (nlay, ncol, ngpt)
+                                                     R* __restrict__ s_tdir, R* __restrict__ s_rdif,
+                                                     R* __restrict__ s_tdif, R* __restrict__ flux_up,
+                                                     R* __restrict__ flux_dn, R* __restrict__ flux_dir) {
+  const int nlay = d.nlay, nlev = d.nlay + 1, ncol = d.ncol;
+  const R alb0 = active ? __ldg(alb_dif + (size_t)band * ncol + col) : R(0);
+  const R src0 = active ? beam * __ldg(alb_dir + (size_t)band * ncol + col) : R(0);
+  R alb = alb0, src = src0;
+  if (active) {
+    for (int l = 0; l < nlay; ++l) {
+      const size_t i = ((size_t)l * ncol + col) * d.ngpt + g;
+      const R Rdif = s_rdif[i], Tdif = s_tdif[i], tdird = s_tdir[i];
+      const R denom = R(1) / (R(1) - Rdif * alb);
+      const R alb_n = Rdif + Tdif * Tdif * alb * denom;
+      const R src_n = s_rdir[i] + Tdif * denom * (src + alb * tdird);
+      s_rdif[i] = denom * (Rdif * src + tdird);
+      s_tdif[i] = Tdif * denom;
+      s_rdir[i] = alb_n;
+      s_tdir[i] = src_n;
+      alb = alb_n;
+      src = src_n;
+    }
+  }
+
+  R fd = (active && inc_dif != nullptr) ? inc_dif[(size_t)col * d.ngpt + g] : R(0);
+  sums.add(SW_UP, nlay, active ? fd * alb + src : R(0));
+  sums.add(SW_DN_DIF, nlay, fd);
+  for (int l = nlay - 1; l >= 0; --l) {
+    R up = R(0);
+    if (active) {
+      const size_t i = ((size_t)l * ncol + col) * d.ngpt + g;
+      fd = s_tdif[i] * fd + s_rdif[i];
+      const size_t below = i - (size_t)ncol * d.ngpt;
+      const R alb_l = l == 0 ? alb0 : s_rdir[below];
+      const R src_l = l == 0 ? src0 : s_tdir[below];
+      up = fd * alb_l + src_l;
+    }
+    sums.add(SW_UP, l, up);
+    sums.add(SW_DN_DIF, l, fd);
+  }
+
+  __syncthreads();
+  for (int lev = threadIdx.x; lev < nlev; lev += blockDim.x) {
+    const size_t o = (size_t)lev * ncol + col;
+    const R dir = sums.total(SW_DIR, lev);
+    flux_up[o] = sums.total(SW_UP, lev);
+    flux_dn[o] = sums.total(SW_DN_DIF, lev) + dir;
+    flux_dir[o] = dir;
+  }
+}
+
+}  // namespace rrtmgp

@@ -2,24 +2,43 @@
 ``rrtmgp_tpu/models/rrtmgp.py``): LW no-scattering or two-stream, SW
 two-stream or direct beam only, with McICA clouds and MERRA aerosols.
 
-Two implementations of the same functions, chosen by ``impl``:
+Three implementations of the same functions, chosen by ``impl``:
 
-- ``"kernel"``: the hand-written CUDA kernels of ``ops.mega`` and
-  ``ops.aerosol_bands`` (band Planck, then one kernel for the whole solve),
-  fed by ``ops.mega_inputs``. CUDA tensors. In f32, LW no-scattering (K1,
-  one launch per quadrature angle), LW two-stream (K4) and SW two-stream
-  (K2) take clouds (a mask, or McICA drawn in the kernel from a seed) and
-  aerosols. In f64, clear-sky LW no-scattering without aerosols (K1 built
-  for native f64, 1-4 angles, with or without incident flux).
+- ``"kernel"``: the megakernels, the hand-written CUDA kernels of
+  ``ops.mega`` and ``ops.aerosol_bands`` (band Planck, then one kernel for
+  the whole solve), fed by ``ops.mega_inputs``. CUDA tensors. In f32, LW
+  no-scattering (K1, one launch per quadrature angle), LW two-stream (K4)
+  and SW two-stream (K2) take clouds (a mask, or McICA drawn in the kernel
+  from a seed) and aerosols. In f64, clear-sky LW no-scattering without
+  aerosols (K1 built for native f64, 1-4 angles, with or without incident
+  flux).
+- ``"two_kernel"``: the two-kernel path of the JAX package. An optics kernel
+  writes tau and the Planck fraction (LW) or ssa (SW) per (layer, column,
+  g-point) to memory (``ops.gas_optics_kernel``: K8, and K11 for the band
+  Planck values), clouds and aerosols are composed on those tensors in plain
+  torch as on the torch path (a seeded McICA mask comes from the export
+  kernel K6, the aerosol band sums from K5), and a sweep kernel returns g-summed fluxes
+  (``ops.rte_kernels``: K12 once per angle on the same optics, K15). CUDA
+  tensors, f32. LW no-scattering with 1-4 angles, SW two-stream, and SW
+  direct beam only (the optics kernel, then the beam recurrence in plain
+  torch, which the JAX package too computes outside any kernel). LW
+  two-stream is not ported on this path yet.
 - ``"torch"``: plain torch, ``ops.gas_optics`` then the composition and
   ``ops.rte``; any device, f32 or f64. Every combination of the JAX
   package's XLA path.
 
-``impl=None`` picks ``"kernel"`` for f32 CUDA tensors and for the f64 solve
-that has a kernel, and ``"torch"`` otherwise (other f64 solves on CUDA
-tensors with a warning). What the kernel path does not cover raises
-``NotImplementedError`` naming the ROADMAP item that will add it. Fluxes are
-(nlay+1, ncol), level 0 = surface.
+``impl=None`` routes as the JAX package does. f32 CUDA tensors take the
+megakernels for LW no-scattering with one angle, LW two-stream and SW
+two-stream, and the two-kernel path for LW no-scattering with several angles
+(the optics are computed once, not once per angle; it holds them in memory,
+see ``solve_lw``) and for the SW direct-beam solve. f64 CUDA tensors take the kernel for the one f64 solve
+that has one and ``"torch"`` otherwise (with a warning); CPU tensors take
+``"torch"``. An explicit ``impl`` that does not cover a solve raises
+``NotImplementedError`` naming the ROADMAP item that will add it;
+``impl=None`` never does for a solve the JAX package computes. (The kernels
+run one thread per g-point: a lookup of more than 1024 g-points is refused
+by their wrappers on CUDA tensors, whatever the ``impl`` but ``"torch"``.)
+Fluxes are (nlay+1, ncol), level 0 = surface.
 
 ``solve_chunked`` runs a solve over column chunks in bounded memory; the
 chunks' fluxes equal the unchunked ones bit for bit.
@@ -32,6 +51,7 @@ and is invariant to column splits.
 
 from __future__ import annotations
 
+import dataclasses
 import warnings
 from typing import NamedTuple
 
@@ -50,15 +70,19 @@ from ..ops.cloud_optics import (
     delta_scale,
 )
 from ..ops.gas_optics import gas_optics_lw, gas_optics_sw, gpt2band
+from ..ops.gas_optics_kernel import gas_optics_lw_raw
+from ..ops.gas_optics_kernel import gas_optics_sw as gas_optics_sw_kernel
 from ..ops.mega import (
     F64_ALLSKY_ITEM,
     Composition,
     lw2_mega,
     lw_clear_mega,
+    mcica_mask_export,
     planck_band,
     sw_clear_mega,
 )
 from ..ops.mega_inputs import mega_lw_inputs, mega_sw_inputs
+from ..ops.rte_kernels import lw_noscat_banded_reduced, sw_2stream_reduced
 from ..states import AtmosphericState, LwBCs, SwBCs, slice_columns
 
 
@@ -81,7 +105,10 @@ class SolveDiagnostics(NamedTuple):
     aod_sw_sca: torch.Tensor | None = None
 
 
-IMPLS = ("kernel", "torch")
+IMPLS = ("kernel", "two_kernel", "torch")
+#: ROADMAP queue 1 item that adds LW two-stream and the sweep from
+#: precomputed sources to the two-kernel path (K13, K14)
+TWO_KERNEL_LW2_ITEM = "item 21"
 F64_WARNING = (
     "impl=None on float64 CUDA tensors: only the clear-sky LW no-scattering "
     "solve without aerosols has an f64 CUDA kernel; this f64 solve dispatches "
@@ -91,33 +118,47 @@ F64_WARNING = (
 
 
 def _resolve_impl(impl: str | None, device: torch.device, dtype: torch.dtype,
-                  has_f64_kernel: bool = False) -> str:
-    """``impl=None``: the kernels for f32 CUDA tensors and for an f64 solve
-    that has a kernel (``has_f64_kernel``), the torch path otherwise (with a
-    warning for the other f64 solves on CUDA tensors). ``impl="kernel"``
-    needs CUDA tensors, and raises for an f64 solve without a kernel."""
-    f64_without = dtype == torch.float64 and not has_f64_kernel
+                  has_f64_kernel: bool = False, mega: bool = True) -> str:
+    """``impl=None``: for f32 CUDA tensors the megakernels where they cover
+    the solve (``mega``), else the two-kernel path; the kernel for an f64
+    solve that has one (``has_f64_kernel``); the torch path otherwise (with
+    a warning for the other f64 solves on CUDA tensors). ``"kernel"`` and
+    ``"two_kernel"`` need CUDA tensors; ``"kernel"`` raises for an f64
+    solve without a kernel, ``"two_kernel"`` for any f64 solve."""
+    f64 = dtype == torch.float64
+    f64_without = f64 and not has_f64_kernel
     if impl is None:
         if device.type != "cuda":
             return "torch"
         if f64_without:
             warnings.warn(F64_WARNING, stacklevel=3)
             return "torch"
-        return "kernel"
+        return "kernel" if f64 or mega else "two_kernel"
     if impl not in IMPLS:
         raise ValueError(f"impl={impl!r} not in {IMPLS}")
-    if impl == "kernel" and device.type != "cuda":
+    if impl != "torch" and device.type != "cuda":
         raise ValueError(
-            f"impl='kernel' runs the CUDA kernels and needs CUDA tensors, got {device}"
+            f"impl={impl!r} runs the CUDA kernels and needs CUDA tensors, got {device}"
         )
     if impl == "kernel" and f64_without:
         _not_ported("an f64 CUDA kernel for this solve (f64 has one for clear-sky LW "
                     "no-scattering without aerosols only)", F64_ALLSKY_ITEM)
+    if impl == "two_kernel" and f64:
+        _not_ported("the two-kernel path in f64 (its four kernels are built for f32)", F64_ALLSKY_ITEM)
     return impl
 
 
 def _not_ported(what: str, item: str):
     raise NotImplementedError(f"{what} is not ported yet (ROADMAP queue 1, {item})")
+
+
+def _kernel_ready(bcs, cld_mask):
+    """Boundary conditions and cloud mask as the kernel wrappers take them:
+    contiguous (the wrappers check and refuse, the torch path takes any
+    strides; a contiguous tensor is returned as it is)."""
+    c = lambda x: x.contiguous() if isinstance(x, torch.Tensor) else x
+    bcs = dataclasses.replace(bcs, **{f.name: c(getattr(bcs, f.name)) for f in dataclasses.fields(bcs)})
+    return bcs, c(cld_mask)
 
 
 def _apply_metric_scaling(flux, metric_scaling):
@@ -185,24 +226,31 @@ def _bands_to_gpt(lkp: GasLookup, x_bands: torch.Tensor) -> torch.Tensor:
     return x_bands[..., gpt2band(lkp)]
 
 
-def _mcica_mask(lkp, as_, lkp_cld, cld_mask, cld_mask_seed, col_offset):
-    """The caller's mask, or the McICA mask of the seed when clouds are on."""
+def _mcica_mask(lkp, as_, lkp_cld, cld_mask, cld_mask_seed, col_offset, kernel=False):
+    """The caller's mask, or the McICA mask of the seed when clouds are on:
+    drawn in plain torch, or with ``kernel`` by the export kernel
+    (``ops.mega.mcica_mask_export``, the same stream bit for bit; its twin
+    on CPU tensors)."""
     if lkp_cld is not None and cld_mask is None and cld_mask_seed is None:
         raise ValueError("lkp_cld needs cld_mask or cld_mask_seed")
     if cld_mask is None and cld_mask_seed is not None and lkp_cld is not None:
-        return build_cloud_mask_mcica(
-            as_.cloud_state.cld_frac, lkp.n_gpt, int(cld_mask_seed), int(col_offset)
-        )
+        frac = as_.cloud_state.cld_frac
+        if kernel:
+            return mcica_mask_export(frac.contiguous(), int(cld_mask_seed), int(col_offset), lkp.n_gpt)[1] > 0.0
+        return build_cloud_mask_mcica(frac, lkp.n_gpt, int(cld_mask_seed), int(col_offset))
     return cld_mask
 
 
 def _add_cloud_all(lkp, lkp_cld, as_, tau, ssa, g_asym, cld_mask, delta_scaling):
     """Cloud optics per band, expanded to g-points, added under the mask:
-    absorption only for the 1-scalar path (ssa None), else the two-stream
-    increment."""
-    tau_c, ssa_c, g_c = (_bands_to_gpt(lkp, x) for x in cloud_optics_bands(lkp_cld, as_.cloud_state))
+    absorption only for the 1-scalar path (ssa None; the absorbing part is
+    formed per band and then expanded, which gives the same values as
+    expanding first), else the two-stream increment."""
+    bands = cloud_optics_bands(lkp_cld, as_.cloud_state)
     if ssa is None:
-        return tau + torch.where(cld_mask, tau_c - ssa_c * tau_c, 0.0), None, None
+        tau_b, ssa_b, _ = bands
+        return tau + torch.where(cld_mask, _bands_to_gpt(lkp, tau_b - ssa_b * tau_b), 0.0), None, None
+    tau_c, ssa_c, g_c = (_bands_to_gpt(lkp, x) for x in bands)
     if delta_scaling:
         tau_c, ssa_c, g_c = delta_scale(tau_c, ssa_c, g_c)
     return compose_2stream(tau, ssa, g_asym, tau_c, ssa_c, g_c, cld_mask)
@@ -239,14 +287,20 @@ def _aerosol_props(t_b, ts_b, tsg_b, delta_scaling):
 
 
 def _add_aerosol_all(lkp, lkp_aero, as_, tau, ssa, g_asym, delta_scaling, collect_aod,
-                     active_species=None):
+                     active_species=None, kernel=False):
     """Aerosol optics per band, expanded to g-points and added where a layer
-    carries aerosol; returns (tau, ssa, g, aod_ext, aod_sca)."""
-    (t_b, ts_b, tsg_b), active = _aerosol_raw(lkp_aero, as_, active_species, kernel=False)
+    carries aerosol; returns (tau, ssa, g, aod_ext, aod_sca). With ``kernel``
+    the raw band sums come from the aerosol_bands kernel (the two-kernel
+    path; equal to the plain sums bit for bit), else from plain torch."""
+    (t_b, ts_b, tsg_b), active = _aerosol_raw(lkp_aero, as_, active_species, kernel)
+    if kernel:  # (nlay, nbnd, ncol) -> band axis last, as views
+        t_b, ts_b, tsg_b = (x.transpose(1, 2) for x in (t_b, ts_b, tsg_b))
     aod_ext, aod_sca = _aod(lkp_aero, t_b, ts_b, collect_aod, band_axis=2)
-    t_a, ts_a, tsg_a = (_bands_to_gpt(lkp, x) for x in (t_b, ts_b, tsg_b))
     if ssa is None:
-        return tau + (t_a - ts_a), None, None, aod_ext, aod_sca
+        # the absorbing part per band, then expanded: the same values as
+        # expanding first
+        return tau + _bands_to_gpt(lkp, t_b - ts_b), None, None, aod_ext, aod_sca
+    t_a, ts_a, tsg_a = (_bands_to_gpt(lkp, x) for x in (t_b, ts_b, tsg_b))
     tau, ssa, g_asym = compose_2stream(
         tau, ssa, g_asym, *_aerosol_props(t_a, ts_a, tsg_a, delta_scaling), active[..., None]
     )
@@ -318,14 +372,47 @@ def solve_lw(
     impl: str | None = None,
 ) -> tuple[FluxLW, SolveDiagnostics]:
     """Longwave flux solve over all g-points: no-scattering (one or more
-    angles) or two-stream, clear or with clouds and aerosols."""
+    angles) or two-stream, clear or with clouds and aerosols.
+
+    Memory: with several angles the default ``impl`` on f32 CUDA tensors
+    takes the two-kernel path, which holds tau and the Planck fraction as
+    (nlay, ncol, ngpt) tensors, and the composition's temporaries of that
+    size when there are clouds or aerosols; the megakernel route holds two
+    scratch tensors of that size. All-sky with aerosols at 75748 x 60 x 256
+    on an NVIDIA H100 80GB HBM3 the two-kernel route peaked at 26.8 GB
+    against 14.6 GB (``scripts/port_measure.py angles``), and was the faster
+    one from 2 angles on. ``impl="kernel"`` keeps the low-memory route (one
+    megakernel launch per angle) for a solve that would not fit otherwise;
+    f32 solves are not chunked by ``RRTMGPSolver``, ``solve_chunked`` bounds
+    either route."""
     dtype = as_.p_lay.dtype
     # f64 has a kernel for clear sky, no scattering, no aerosols (sky type
     # and aerosols decide together: an aerosol-laden solve keeps its aerosols
     # on the torch path)
     has_f64_kernel = not two_stream and lkp_cld is None and lkp_aero is None
-    impl = _resolve_impl(impl, as_.p_lay.device, dtype, has_f64_kernel)
+    # the megakernel bakes one angle into its sweep: like the JAX package,
+    # several angles leave it for the two-kernel path, which computes the
+    # optics once and sweeps once per angle
+    mega = two_stream or n_gauss_angles == 1
+    impl = _resolve_impl(impl, as_.p_lay.device, dtype, has_f64_kernel, mega)
+    if impl != "torch":
+        bcs, cld_mask = _kernel_ready(bcs, cld_mask)
     Ds, wts = angular_discretization(n_gauss_angles)
+
+    def noscat_angles(one_angle):
+        """Sum one_angle(ds, w_mu, inc_flux) -> (flux_up, flux_dn, ...) over
+        the quadrature angles. Gauss-Jacobi weights sum to 1, so the TOA
+        incident flux splits by weight and every angle sees the same
+        isotropic intensity. Returns the sums and the first angle's output."""
+        first = None
+        for k in range(n_gauss_angles):
+            inc_k = None if bcs.inc_flux is None else bcs.inc_flux * float(wts[k])
+            out = one_angle(float(Ds[k]), float(wts[k]), inc_k)
+            if first is None:
+                first, up, dn = out, out[0], out[1]
+            else:
+                up, dn = up + out[0], dn + out[1]
+        return up, dn, first
 
     if impl == "kernel":
         tabs = lkp.kernel_tables
@@ -337,35 +424,33 @@ def solve_lw(
             lkp, as_, lkp_cld, lkp_aero, cld_mask, cld_mask_seed, col_offset, aero_species,
             delta_scaling=False, collect_aod=False,
         )
-        cover = None
         if two_stream:
             out = lw2_mega(inp, tabs, plk(as_.t_lev), plk(as_.t_sfc), bcs.sfc_emis, bcs.inc_flux, comp)
             flux_up, flux_dn = out[0], out[1]
-            cover = out[2] if comp.seeded else None
         else:
-            # one launch per angle, summed here; in seed mode every angle
-            # draws the same mask (same seed and offset) and the cover is
-            # taken once. The incident flux splits by weight, as below.
+            # one launch per angle; in seed mode every angle draws the same
+            # mask (same seed and offset) and the cover is taken once
             plk_lay, plk_lev, plk_sfc = plk(as_.t_lay), plk(as_.t_lev), plk(as_.t_sfc)
-            for k in range(n_gauss_angles):
-                inc_k = None if bcs.inc_flux is None else bcs.inc_flux * float(wts[k])
-                out = lw_clear_mega(
-                    inp, tabs, plk_lay, plk_lev, plk_sfc, bcs.sfc_emis, inc_k,
-                    float(Ds[k]), float(wts[k]), comp,
-                )
-                if k == 0:
-                    flux_up, flux_dn = out[0], out[1]
-                    cover = out[2] if comp.seeded else None
-                else:
-                    flux_up, flux_dn = flux_up + out[0], flux_dn + out[1]
+            flux_up, flux_dn, out = noscat_angles(lambda ds, w, inc_k: lw_clear_mega(
+                inp, tabs, plk_lay, plk_lev, plk_sfc, bcs.sfc_emis, inc_k, ds, w, comp))
+        cover = out[2] if comp.seeded else None
         flux = FluxLW(flux_up, flux_dn, flux_up - flux_dn)
         diag = SolveDiagnostics(cld_cover=_cover(cover, cld_mask, dtype))
         return _apply_metric_scaling(flux, metric_scaling), diag
 
-    cld_mask = _mcica_mask(lkp, as_, lkp_cld, cld_mask, cld_mask_seed, col_offset)
-    optics = gas_optics_lw(lkp, as_, eta_node_mode=eta_node_mode)
-    src = optics.sources
-    tau = optics.tau
+    two_kernel = impl == "two_kernel"
+    if two_kernel and two_stream:
+        _not_ported("LW two-stream on the two-kernel path (the sweeps from precomputed "
+                    "sources, K13 and K14)", TWO_KERNEL_LW2_ITEM)
+    cld_mask = _mcica_mask(lkp, as_, lkp_cld, cld_mask, cld_mask_seed, col_offset, two_kernel)
+    if two_kernel:
+        # the sources stay in banded form: the sweep builds them
+        raw = gas_optics_lw_raw(lkp, as_, eta_node_mode=eta_node_mode)
+        tau = raw.tau
+    else:
+        optics = gas_optics_lw(lkp, as_, eta_node_mode=eta_node_mode)
+        src = optics.sources
+        tau = optics.tau
     ssa = torch.zeros_like(tau) if two_stream else None
     g_asym = torch.zeros_like(tau) if two_stream else None
     if lkp_cld is not None:
@@ -373,26 +458,27 @@ def solve_lw(
     if lkp_aero is not None:
         tau, ssa, g_asym, _, _ = _add_aerosol_all(
             lkp, lkp_aero, as_, tau, ssa, g_asym, delta_scaling=False, collect_aod=False,
-            active_species=aero_species,
+            active_species=aero_species, kernel=two_kernel,
         )
-    sfc_emis = _bands_to_gpt(lkp, bcs.sfc_emis.T)  # (ncol, ngpt)
-    if two_stream:
+    if two_kernel:
+        g2b = lkp.kernel_tables.gpt2band
+        flux_up, flux_dn, _ = noscat_angles(lambda ds, w, inc_k: lw_noscat_banded_reduced(
+            tau, raw.pfrac, raw.plk_lay, raw.plk_lev, raw.plk_sfc, bcs.sfc_emis, g2b, ds, w, inc_k))
+    elif two_stream:
+        sfc_emis = _bands_to_gpt(lkp, bcs.sfc_emis.T)  # (ncol, ngpt)
         up, dn = rte.lw_2stream(
             tau, ssa, g_asym, src.lev_source, src.sfc_source, sfc_emis, bcs.inc_flux
         )
         flux_up, flux_dn = up.sum(-1), dn.sum(-1)
     else:
-        flux_up = flux_dn = 0.0
-        # Gauss-Jacobi weights sum to 1, so the TOA incident flux splits by
-        # weight and every angle sees the same isotropic intensity
-        for k in range(n_gauss_angles):
-            inc_k = None if bcs.inc_flux is None else bcs.inc_flux * float(wts[k])
+        sfc_emis = _bands_to_gpt(lkp, bcs.sfc_emis.T)  # (ncol, ngpt)
+
+        def one_angle(ds, w, inc_k):
             up, dn = rte.lw_noscat(
-                tau, src.lay_source, src.lev_source, src.sfc_source,
-                sfc_emis, float(Ds[k]), float(wts[k]), inc_k,
-            )
-            flux_up = flux_up + up.sum(-1)
-            flux_dn = flux_dn + dn.sum(-1)
+                tau, src.lay_source, src.lev_source, src.sfc_source, sfc_emis, ds, w, inc_k)
+            return up.sum(-1), dn.sum(-1)
+
+        flux_up, flux_dn, _ = noscat_angles(one_angle)
     flux = FluxLW(flux_up, flux_dn, flux_up - flux_dn)
     diag = SolveDiagnostics(cld_cover=_cover(None, cld_mask, dtype))
     return _apply_metric_scaling(flux, metric_scaling), diag
@@ -418,15 +504,20 @@ def solve_sw(
     only, clear or with clouds and aerosols (delta-scaled). Night columns
     (cos_zenith <= 0) produce exactly zero fluxes."""
     dtype = as_.p_lay.dtype
-    impl = _resolve_impl(impl, as_.p_lay.device, dtype)
+    # the SW megakernel is two-stream only: the direct-beam solve takes the
+    # two-kernel path (the optics kernel, then the beam recurrence)
+    impl = _resolve_impl(impl, as_.p_lay.device, dtype, mega=two_stream)
+    if impl != "torch":
+        bcs, cld_mask = _kernel_ready(bcs, cld_mask)
     mu0 = bcs.cos_zenith
     toa_gpt = bcs.toa_flux[:, None] * lkp.solar_src_scaled[None, :]  # (ncol, ngpt)
     aod_ext = aod_sca = cover = None
 
     if impl == "kernel":
         if not two_stream:
-            _not_ported("the SW direct-beam-only solve on the kernel path (two_stream=False; "
-                        "needs the materialized-optics kernel K8)", "item 18")
+            _not_ported("the SW direct-beam-only solve on the megakernel (two_stream=False; "
+                        "impl=None or 'two_kernel' run it through the materialized-optics kernel)",
+                        "item 18")
         comp, aod_ext, aod_sca = _kernel_composition(
             lkp, as_, lkp_cld, lkp_aero, cld_mask, cld_mask_seed, col_offset, aero_species,
             delta_scaling=True, collect_aod=True,
@@ -439,11 +530,14 @@ def solve_sw(
         if comp.seeded:
             cover = out[3]
     else:
-        cld_mask = _mcica_mask(lkp, as_, lkp_cld, cld_mask, cld_mask_seed, col_offset)
-        optics = gas_optics_sw(lkp, as_, eta_node_mode=eta_node_mode)
+        two_kernel = impl == "two_kernel"
+        cld_mask = _mcica_mask(lkp, as_, lkp_cld, cld_mask, cld_mask_seed, col_offset, two_kernel)
+        optics = (gas_optics_sw_kernel if two_kernel else gas_optics_sw)(
+            lkp, as_, eta_node_mode=eta_node_mode)
         tau = optics.tau
         ssa = optics.ssa if two_stream else None
-        # clear-sky gas optics has zero asymmetry (Rayleigh g = 0)
+        # clear-sky gas optics has zero asymmetry (Rayleigh g = 0): kept as
+        # None, so the sweep kernel reads one tensor less
         need_g = two_stream and (lkp_cld is not None or lkp_aero is not None)
         g_asym = torch.zeros_like(tau) if need_g else None
         if lkp_cld is not None:
@@ -451,9 +545,14 @@ def solve_sw(
         if lkp_aero is not None:
             tau, ssa, g_asym, aod_ext, aod_sca = _add_aerosol_all(
                 lkp, lkp_aero, as_, tau, ssa, g_asym, delta_scaling=True, collect_aod=True,
-                active_species=aero_species,
+                active_species=aero_species, kernel=two_kernel,
             )
-        if two_stream:
+        if two_stream and two_kernel:
+            flux_up, flux_dn, flux_dn_dir = sw_2stream_reduced(
+                tau, ssa, g_asym, mu0, toa_gpt, bcs.sfc_alb_direct, bcs.sfc_alb_diffuse,
+                lkp.kernel_tables.gpt2band, bcs.inc_flux_diffuse,
+            )
+        elif two_stream:
             g2b = gpt2band(lkp)
             up, dn, dn_dir = rte.sw_2stream(
                 tau, ssa, 0.0 if g_asym is None else g_asym, mu0[:, None], toa_gpt,

@@ -35,7 +35,10 @@ _P, _I, _U, _L, _F, _D = (ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c
 #: C entry points: name -> argtypes. Each returns a cudaError_t as int. The
 #: all-sky megakernels end with (cloud, aero, mask_mode, seed_hi, seed_lo,
 #: col_offset, stream), lw_clear_mega with (ds, i2f) before the stream. The
-#: _f64 entries take f64 tensors and double scalars.
+#: _f64 entries take f64 tensors and double scalars. The kernels of the
+#: two-kernel path: optics_fused ends with (7 dims, shortwave, stream),
+#: lw_noscat_banded with (nlay, ncol, ngpt, nbnd, ds, i2f, stream),
+#: sw_2stream_reduced with (nlay, ncol, ngpt, nbnd, stream).
 SIGNATURES = {
     "rrtmgp_planck_band": [_P, _P, _P, _L, _I, _I, _F, _F, _P],
     "rrtmgp_planck_band_f64": [_P, _P, _P, _L, _I, _I, _D, _D, _P],
@@ -45,6 +48,10 @@ SIGNATURES = {
     "rrtmgp_lw2_mega": [_P] * 42 + [_I] * 10 + [_U, _U, _L, _P],
     "rrtmgp_aerosol_bands": [_P] * 15 + [_I] * 6 + [_P],
     "rrtmgp_mcica_export": [_P] * 3 + [_I] * 3 + [_U, _U, _L, _P],
+    "rrtmgp_optics_fused": [_P] * 24 + [_I] * 8 + [_P],
+    "rrtmgp_planck_band_rows": [_P, _P, _P, _L, _I, _I, _F, _F, _P],
+    "rrtmgp_lw_noscat_banded": [_P] * 10 + [_I] * 4 + [_F, _F, _P],
+    "rrtmgp_sw_2stream_reduced": [_P] * 16 + [_I] * 4 + [_P],
 }
 
 

@@ -1,6 +1,8 @@
 """Argument plumbing shared by the kernel wrappers: raw pointers and the
-current stream for the ctypes calls, and the checks a wrapper makes before it
-hands a tensor to a kernel."""
+current stream for the ctypes calls, the checks a wrapper makes before it
+hands a tensor to a kernel, and the checks and pointer lists of the
+gas-optics inputs (``MegaInputs``) and tables (``KernelTables``) that the
+megakernels and the materialized-optics kernel share."""
 
 from __future__ import annotations
 
@@ -37,3 +39,63 @@ def cuda_device(t: torch.Tensor, name: str) -> torch.device:
         raise ValueError(f"{name}: tensors on {t.device}; the kernel runs on CUDA, "
                          "the plain version on CPU")
     return t.device
+
+
+MAX_GPT = 1024  # one thread per g-point in a block
+KERNEL_DTYPES = (torch.float32, torch.float64)
+
+
+def kernel_dtype(t: torch.Tensor, name: str) -> torch.dtype:
+    if t.dtype not in KERNEL_DTYPES:
+        raise TypeError(f"{name}: dtype {t.dtype}, the kernel takes float32 or float64")
+    return t.dtype
+
+
+def check_optics_inputs(inp, tabs, dev, shortwave: bool, dtype: torch.dtype = torch.float32) -> tuple:
+    """Check the gas-optics inputs (MegaInputs) and tables (KernelTables) of
+    a kernel built for ``dtype``; returns (nlay, ncol, ngpt, nbnd, ntemp,
+    neta, ncontrib)."""
+    lkp = tabs.lkp
+    nlay, ncol = inp.nlay, inp.ncol
+    ngpt, nbnd = lkp.n_gpt, lkp.n_bnd
+    if not 1 <= ngpt <= MAX_GPT:
+        raise ValueError(f"n_gpt={ngpt}: the kernels take 1..{MAX_GPT} g-points")
+    real, i32 = dtype, torch.int32
+    lc, lcb = (nlay, ncol), (nlay, ncol, nbnd)
+    for name, shape, dtype in (
+        ("jtemp", lc, i32), ("ftemp", lc, real), ("jpress_base", lc, i32),
+        ("fpress", lc, real), ("tropo_lower", lc, torch.bool), ("col_dry", lc, real),
+        ("jeta1", lcb, i32), ("feta1", lcb, real), ("col_mix1", lcb, real),
+        ("jeta2", lcb, i32), ("feta2", lcb, real), ("col_mix2", lcb, real),
+        ("minor_scaling", (tabs.n_minor, nlay, ncol), real),
+    ):
+        require(getattr(inp, name), name, shape, dtype, dev)
+    if shortwave:
+        require(inp.ray_factor, "ray_factor", lc, real, dev)
+    ntemp, neta = lkp.n_temp, lkp.n_eta
+    npp = tabs.kmajor.shape[0]
+    ncontrib = tabs.kminor.shape[-1]
+    second = (2, ntemp, neta, ngpt) if shortwave else (npp, ntemp, neta, ngpt)
+    for name, shape, dtype in (
+        ("kmajor", (npp, ntemp, neta, ngpt), real), ("second", second, real),
+        ("kminor", (ntemp, neta, ncontrib), real), ("gpt2band", (ngpt,), i32),
+        ("minor_start", (2, ngpt + 1), i32),
+        ("minor_list", tuple(tabs.minor_list.shape), i32),
+        ("minor_kbase", (tabs.n_minor,), i32), ("minor_band", (tabs.n_minor,), i32),
+    ):
+        require(getattr(tabs, name), name, shape, dtype, dev)
+    return nlay, ncol, ngpt, nbnd, ntemp, neta, ncontrib
+
+
+def optics_input_ptrs(inp) -> list:
+    return [ptr(getattr(inp, k)) for k in (
+        "jtemp", "ftemp", "jpress_base", "fpress", "tropo_lower", "col_dry",
+        "jeta1", "feta1", "col_mix1", "jeta2", "feta2", "col_mix2", "minor_scaling",
+    )]
+
+
+def table_ptrs(tabs) -> list:
+    return [ptr(getattr(tabs, k)) for k in (
+        "kmajor", "second", "kminor", "gpt2band",
+        "minor_start", "minor_list", "minor_kbase", "minor_band",
+    )]

@@ -301,14 +301,14 @@ def planck_bands(totplnk: torch.Tensor, t: torch.Tensor, t_min: float, t_delta: 
 
 
 def planck_sources_from_bands(
-    lkp: GasLookup, plk_lay, plk_lev, plk_sfc, pfrac
+    g2b: torch.Tensor, plk_lay, plk_lev, plk_sfc, pfrac
 ) -> LWSources:
-    """Planck sources from band Planck values (band axis last) and the
-    per-g-point Planck fraction. Interior level sources use the geometric
-    mean of the adjacent layers' fractions; the surface, bottom and top
-    levels use the adjacent layer's own. ``plk_lay=None`` skips the layer
-    source (the two-stream solve needs only level and surface sources)."""
-    g2b = gpt2band(lkp)
+    """Planck sources from band Planck values (band axis last), the (ngpt,)
+    int64 band of each g-point ``g2b`` and the per-g-point Planck fraction.
+    Interior level sources use the geometric mean of the adjacent layers'
+    fractions; the surface, bottom and top levels use the adjacent layer's
+    own. ``plk_lay=None`` skips the layer source (the two-stream solve needs
+    only level and surface sources)."""
     nlay = pfrac.shape[0]
     planck_lev = plk_lev[..., g2b]
     planck_sfc = plk_sfc[..., g2b]
@@ -325,7 +325,7 @@ def compute_planck_sources(lkp: GasLookup, as_: AtmosphericState, pfrac) -> LWSo
     """Planck sources (intensity units) for all g-points."""
     bands = lambda t: planck_bands(lkp.totplnk, t, lkp.t_planck_min, lkp.t_planck_delta)
     return planck_sources_from_bands(
-        lkp, bands(as_.t_lay), bands(as_.t_lev), bands(as_.t_sfc), pfrac
+        gpt2band(lkp), bands(as_.t_lay), bands(as_.t_lev), bands(as_.t_sfc), pfrac
     )
 
 

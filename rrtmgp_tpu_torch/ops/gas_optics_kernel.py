@@ -1,0 +1,61 @@
+"""Gas optics through the materialized-optics kernel (counterpart of
+``gas_optics_lw_raw`` / ``gas_optics_sw`` in
+``rrtmgp_tpu/ops/gas_optics_pallas.py``): the first half of the two-kernel
+path. The plain-torch prologue (``ops.mega_inputs``, the inputs the
+megakernels read) feeds ``ops.interp.optics_fused``; LW adds the band Planck
+values in row layout (``ops.interp.planck_band_rows``) and leaves the
+sources in banded form for ``ops.rte_kernels.lw_noscat_banded_reduced``, so
+no (nlay, ncol, ngpt) source tensor exists. On CPU tensors the wrappers run
+their plain twins.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from ..data.lookups import GasLookup
+from ..states import AtmosphericState
+from .gas_optics import SWOptics
+from .interp import optics_fused, planck_band_rows
+from .mega_inputs import mega_lw_inputs, mega_sw_inputs
+
+
+class RawLWOptics(NamedTuple):
+    """LW optics with the Planck sources left in banded form: the Planck
+    fraction per g-point and the band Planck values."""
+
+    tau: torch.Tensor      # (nlay, ncol, ngpt)
+    pfrac: torch.Tensor    # (nlay, ncol, ngpt)
+    plk_lay: torch.Tensor  # (nlay, ncol, nbnd) band Planck at t_lay
+    plk_lev: torch.Tensor  # (nlay+1, ncol, nbnd) band Planck at t_lev
+    plk_sfc: torch.Tensor  # (ncol, nbnd) band Planck at t_sfc
+
+
+def gas_optics_lw_raw(
+    lkp: GasLookup, as_: AtmosphericState, eta_node_mode: str = "continuous"
+) -> RawLWOptics:
+    """LW gas optics for the source-fused sweep: tau, Planck fraction and
+    band Planck values at layers, levels and the surface."""
+    tau, pfrac = optics_fused(mega_lw_inputs(lkp, as_, eta_node_mode), lkp.kernel_tables)
+    nlay, ncol = as_.nlay, as_.ncol
+    plk = lambda t: planck_band_rows(
+        t.reshape(-1).contiguous(), lkp.totplnk, lkp.t_planck_min, lkp.t_planck_delta
+    )
+    return RawLWOptics(
+        tau=tau, pfrac=pfrac,
+        plk_lay=plk(as_.t_lay).reshape(nlay, ncol, -1),
+        plk_lev=plk(as_.t_lev).reshape(nlay + 1, ncol, -1),
+        plk_sfc=plk(as_.t_sfc),
+    )
+
+
+def gas_optics_sw(
+    lkp: GasLookup, as_: AtmosphericState, eta_node_mode: str = "continuous"
+) -> SWOptics:
+    """SW gas optics: tau with Rayleigh and the Rayleigh single-scattering
+    albedo, each (nlay, ncol, ngpt); same contract as
+    ``ops.gas_optics.gas_optics_sw``."""
+    tau, ssa = optics_fused(mega_sw_inputs(lkp, as_, eta_node_mode), lkp.kernel_tables)
+    return SWOptics(tau=tau, ssa=ssa)

@@ -24,6 +24,13 @@ launched.
 The all-sky inputs of the megakernels travel in a ``Composition``. Its McICA
 seed mode draws the JAX package's off-TPU threefry stream
 (``ops.cloud_optics``), so kernel and twin use the same mask.
+
+The twins take their gas optics from ``ops.interp.optics_fused_ref``, the
+twin of the materialized-optics kernel, so the megakernels and the
+two-kernel path have one plain definition of the gas optics.
+``KERNEL_WRAPPERS`` lists every kernel wrapper of the port, those of
+``ops.interp`` and ``ops.rte_kernels`` included, for ``launch_counts`` and
+``reset_launch_counts``.
 """
 
 from __future__ import annotations
@@ -33,36 +40,23 @@ from typing import NamedTuple
 import torch
 
 from . import _build
+from ._launch import MAX_GPT
+from ._launch import check_optics_inputs as _check_inputs
 from ._launch import cuda_device as _cuda_device
+from ._launch import kernel_dtype as _kernel_dtype
+from ._launch import optics_input_ptrs as _input_ptrs
 from ._launch import ptr as _ptr
 from ._launch import require as _require
 from ._launch import stream as _stream
+from ._launch import table_ptrs as _table_ptrs
 from .aerosol_bands import aerosol_bands
 from .cloud_optics import cloud_cover_from_mask, compose_2stream, mcica_sample
-from .gas_optics import (
-    compute_planck_fraction,
-    compute_tau_major,
-    gpt2band,
-    minor_intervals,
-    planck_bands,
-    planck_sources_from_bands,
-    sw_tau_ssa,
-    tau_minor_from_scalings,
-    tau_rayleigh_from_factor,
-)
+from .gas_optics import gpt2band, planck_bands, planck_sources_from_bands
+from .interp import optics_fused, optics_fused_ref, planck_band_rows
 from .mega_inputs import KernelTables, MegaInputs
 from .rte import intensity_to_flux, lw_2stream, lw_noscat, round_to, sw_2stream
+from .rte_kernels import lw_noscat_banded_reduced, sw_2stream_reduced
 from .threefry import seed_key
-
-MAX_GPT = 1024  # one thread per g-point in a block
-KERNEL_DTYPES = (torch.float32, torch.float64)
-
-
-def _kernel_dtype(t: torch.Tensor, name: str) -> torch.dtype:
-    if t.dtype not in KERNEL_DTYPES:
-        raise TypeError(f"{name}: dtype {t.dtype}, the kernel takes float32 or float64")
-    return t.dtype
-
 
 # ---------------------------------------------------------------------------
 # Band Planck emission
@@ -100,72 +94,6 @@ def planck_band(t: torch.Tensor, totplnk: torch.Tensor, t_min: float, t_delta: f
 
 
 planck_band.launches = 0
-
-
-# ---------------------------------------------------------------------------
-# Shared argument checks of the megakernels
-# ---------------------------------------------------------------------------
-
-
-def _check_inputs(inp: MegaInputs, tabs: KernelTables, dev, shortwave: bool,
-                  dtype: torch.dtype = torch.float32) -> tuple:
-    """Check the gas-optics inputs and tables of a megakernel built for
-    ``dtype``; returns its dimensions."""
-    lkp = tabs.lkp
-    nlay, ncol = inp.nlay, inp.ncol
-    ngpt, nbnd = lkp.n_gpt, lkp.n_bnd
-    if not 1 <= ngpt <= MAX_GPT:
-        raise ValueError(f"n_gpt={ngpt}: the kernels take 1..{MAX_GPT} g-points")
-    real, i32 = dtype, torch.int32
-    lc, lcb = (nlay, ncol), (nlay, ncol, nbnd)
-    for name, shape, dtype in (
-        ("jtemp", lc, i32), ("ftemp", lc, real), ("jpress_base", lc, i32),
-        ("fpress", lc, real), ("tropo_lower", lc, torch.bool), ("col_dry", lc, real),
-        ("jeta1", lcb, i32), ("feta1", lcb, real), ("col_mix1", lcb, real),
-        ("jeta2", lcb, i32), ("feta2", lcb, real), ("col_mix2", lcb, real),
-        ("minor_scaling", (tabs.n_minor, nlay, ncol), real),
-    ):
-        _require(getattr(inp, name), name, shape, dtype, dev)
-    if shortwave:
-        _require(inp.ray_factor, "ray_factor", lc, real, dev)
-    ntemp, neta = lkp.n_temp, lkp.n_eta
-    npp = tabs.kmajor.shape[0]
-    ncontrib = tabs.kminor.shape[-1]
-    second = (2, ntemp, neta, ngpt) if shortwave else (npp, ntemp, neta, ngpt)
-    for name, shape, dtype in (
-        ("kmajor", (npp, ntemp, neta, ngpt), real), ("second", second, real),
-        ("kminor", (ntemp, neta, ncontrib), real), ("gpt2band", (ngpt,), i32),
-        ("minor_start", (2, ngpt + 1), i32),
-        ("minor_list", tuple(tabs.minor_list.shape), i32),
-        ("minor_kbase", (tabs.n_minor,), i32), ("minor_band", (tabs.n_minor,), i32),
-    ):
-        _require(getattr(tabs, name), name, shape, dtype, dev)
-    return nlay, ncol, ngpt, nbnd, ntemp, neta, ncontrib
-
-
-def _input_ptrs(inp: MegaInputs) -> list:
-    return [_ptr(getattr(inp, k)) for k in (
-        "jtemp", "ftemp", "jpress_base", "fpress", "tropo_lower", "col_dry",
-        "jeta1", "feta1", "col_mix1", "jeta2", "feta2", "col_mix2", "minor_scaling",
-    )]
-
-
-def _table_ptrs(tabs: KernelTables) -> list:
-    return [_ptr(getattr(tabs, k)) for k in (
-        "kmajor", "second", "kminor", "gpt2band",
-        "minor_start", "minor_list", "minor_kbase", "minor_band",
-    )]
-
-
-def _tau_gas(inp: MegaInputs, tabs: KernelTables):
-    """Major + minor optical depth (nlay, ncol, ngpt) of the plain twins."""
-    lkp = tabs.lkp
-    scalings = [
-        (side, itv, inp.minor_scaling[i])
-        for i, (side, itv) in enumerate(minor_intervals(lkp))
-    ]
-    tau = compute_tau_major(lkp, inp.col_dry, inp.pt, inp.eta)
-    return tau.add_(tau_minor_from_scalings(lkp, scalings, inp.pt, inp.eta))
 
 
 # ---------------------------------------------------------------------------
@@ -289,16 +217,16 @@ def lw_clear_mega_ref(
     inp: MegaInputs, tabs: KernelTables, plk_lay, plk_lev, plk_sfc, sfc_emis,
     inc_flux, ds: float, w_mu: float, comp: Composition = CLEAR,
 ):
-    """Plain twin of ``lw_clear_mega``: ``ops.gas_optics`` optics and
-    sources, the absorption-only composition at g-point resolution, then
-    ``ops.rte.lw_noscat``, summed over g-points. Any float dtype."""
+    """Plain twin of ``lw_clear_mega``: ``ops.interp.optics_fused_ref``
+    optics, the Planck sources, the absorption-only composition at g-point
+    resolution, then ``ops.rte.lw_noscat``, summed over g-points. Any float
+    dtype."""
     lkp = tabs.lkp
     nlay, ncol = inp.nlay, inp.ncol
-    tau = _tau_gas(inp, tabs).clamp_(min=0.0)
-    pfrac = compute_planck_fraction(lkp, inp.pt, inp.eta)
+    tau, pfrac = optics_fused_ref(inp, tabs)
     band_last = lambda x, *shape: x.reshape(x.shape[0], *shape).movedim(0, -1)
     src = planck_sources_from_bands(
-        lkp, band_last(plk_lay, nlay, ncol), band_last(plk_lev, nlay + 1, ncol),
+        gpt2band(lkp), band_last(plk_lay, nlay, ncol), band_last(plk_lev, nlay + 1, ncol),
         plk_sfc.T, pfrac,
     )
     del pfrac
@@ -383,15 +311,14 @@ def lw2_mega_ref(
     inp: MegaInputs, tabs: KernelTables, plk_lev, plk_sfc, sfc_emis, inc_flux,
     comp: Composition = CLEAR,
 ):
-    """Plain twin of ``lw2_mega``: ``ops.gas_optics`` optics and level
-    sources, the composition at g-point resolution, then
+    """Plain twin of ``lw2_mega``: ``ops.interp.optics_fused_ref`` optics, the
+    level sources, the composition at g-point resolution, then
     ``ops.rte.lw_2stream``, summed over g-points."""
     lkp = tabs.lkp
     nlay, ncol = inp.nlay, inp.ncol
-    tau = _tau_gas(inp, tabs).clamp_(min=0.0)
-    pfrac = compute_planck_fraction(lkp, inp.pt, inp.eta)
+    tau, pfrac = optics_fused_ref(inp, tabs)
     src = planck_sources_from_bands(
-        lkp, None, plk_lev.reshape(lkp.n_bnd, nlay + 1, ncol).movedim(0, -1), plk_sfc.T, pfrac
+        gpt2band(lkp), None, plk_lev.reshape(lkp.n_bnd, nlay + 1, ncol).movedim(0, -1), plk_sfc.T, pfrac
     )
     del pfrac
     tau, ssa, g, cover = _compose_ref(comp, lkp, tau, torch.zeros_like(tau), torch.zeros_like(tau))
@@ -455,15 +382,13 @@ def sw_clear_mega_ref(
     inp: MegaInputs, tabs: KernelTables, mu0, toa_gpt, alb_dir, alb_dif, inc_flux_diffuse,
     comp: Composition = CLEAR,
 ):
-    """Plain twin of ``sw_clear_mega``: ``ops.gas_optics`` optics with
-    Rayleigh, the composition at g-point resolution (asymmetry 0 for clear
+    """Plain twin of ``sw_clear_mega``: ``ops.interp.optics_fused_ref`` optics
+    with Rayleigh, the composition at g-point resolution (asymmetry 0 for clear
     sky), then ``ops.rte.sw_2stream``, summed over g-points. Night columns
     are not zeroed."""
     lkp = tabs.lkp
-    tau_ray = tau_rayleigh_from_factor(lkp, inp.ray_factor, inp.pt, inp.eta)
-    optics = sw_tau_ssa(_tau_gas(inp, tabs), tau_ray)
-    del tau_ray
-    tau, ssa, g, cover = optics.tau, optics.ssa, 0.0, None
+    tau, ssa = optics_fused_ref(inp, tabs)
+    g, cover = 0.0, None
     if comp.cld_bands is not None or comp.aero_bands is not None:
         tau, ssa, g, cover = _compose_ref(comp, lkp, tau, ssa, torch.zeros_like(tau))
     g2b = gpt2band(lkp)
@@ -558,8 +483,11 @@ def mcica_mask_export(cld_frac: torch.Tensor, seed: int, col_offset: int, n_gpt:
 
 mcica_mask_export.launches = 0
 
+#: every kernel wrapper of the port: the megakernels' path and the two-kernel
+#: path (``ops.interp``, ``ops.rte_kernels``)
 KERNEL_WRAPPERS = (planck_band, lw_clear_mega, lw2_mega, sw_clear_mega, aerosol_bands,
-                   mcica_mask_export)
+                   mcica_mask_export, optics_fused, planck_band_rows, lw_noscat_banded_reduced,
+                   sw_2stream_reduced)
 
 
 def reset_launch_counts() -> None:

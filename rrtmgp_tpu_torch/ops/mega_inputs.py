@@ -1,4 +1,5 @@
-"""Inputs of the megakernels, in plain torch (counterpart of the XLA
+"""Inputs of the megakernels and of the materialized-optics kernel
+(``ops.interp.optics_fused``), in plain torch (counterpart of the XLA
 prologue ``mega_lw_inputs`` / ``mega_sw_inputs`` in
 ``rrtmgp_tpu/ops/gas_optics_pallas.py``).
 

@@ -1,9 +1,9 @@
 """Measurements of the PyTorch/CUDA port (rrtmgp_tpu_torch) on one NVIDIA GPU
 that chip_smoke.py does not print. Run from the repository root:
 
-    python3 scripts/port_measure.py [f64-memory] [angles] [profile]
+    python3 scripts/port_measure.py [f64-memory] [angles] [profile] [profile-two-kernel]
 
-With no argument it runs all three. Each line names what it measured; the
+With no argument it runs all four. Each line names what it measured; the
 first line is the card's name and power limit. Problem sizes and inputs are
 chip_smoke.py's (its set-up functions are imported). Needs CUDA and nvcc;
 imports no JAX.
@@ -12,12 +12,20 @@ imports no JAX.
   (``torch.cuda.max_memory_allocated()`` above what is allocated before the
   call), at two column counts, as a multiple of one f64 (nlay, ncol, ngpt)
   tensor: the factor behind RRTMGPSolver's f64 auto-chunk budget.
-- ``angles``: time of solve_lw (LW no-scattering, kernel path) with 1-4
-  quadrature angles, f32 and f64 clear sky at 32768 x 60 and f32 all-sky
-  with aerosols at 75748 x 60.
+- ``angles``: time of solve_lw (LW no-scattering) with 1-4 quadrature angles
+  on both kernel routes, impl="kernel" (one megakernel launch per angle) and
+  impl="two_kernel" (the optics once, one sweep per angle): f32 clear sky at
+  32768 x 60 and f32 all-sky with aerosols at 75748 x 60; f64 clear sky on
+  the megakernel route (the two-kernel path is f32). Every f32 case is
+  timed in three rounds, the routes taking turns (each time a median of 3
+  calls), with the peak device memory of each all-sky solve: the numbers
+  behind the routing of several angles.
 - ``profile``: torch.profiler over 3 steps of the f64 clear solver (32768 x
   60) and of the all-sky no-scattering solver (75748 x 60): device time by
   kernel and the device's busy share of the step.
+- ``profile-two-kernel``: the same over 3 steps of the two-kernel cell
+  (solve_lw with 3 angles and solve_sw through impl="two_kernel", then the SW
+  direct-beam solve with the default impl, f32 clear sky at 32768 x 60).
 """
 
 from __future__ import annotations
@@ -86,27 +94,53 @@ def f64_memory() -> None:
                       "tensor-equivalents")
 
 
+def _rounds(impls, solve, rounds: int = 3) -> dict:
+    """{impl: [median ms of 3 calls, one per round]}, the impls taking turns
+    within a round so that a drift of the card's clock meets both alike."""
+    ms = {impl: [] for impl in impls}
+    for _ in range(rounds if len(impls) > 1 else 1):
+        for impl in impls:
+            ms[impl].append(cs.timed(lambda: solve(impl), 3))
+    return ms
+
+
+def _fmt(times) -> str:
+    return " / ".join(f"{t:.3f}" for t in times)
+
+
 def angles() -> None:
     import torch
 
     from rrtmgp_tpu_torch import AllSkyRadiation, lookup_tables, solve_lw
 
+    routes = {"float32": ("kernel", "two_kernel"), "float64": ("kernel",)}
     for dtype in ("float32", "float64"):
         lw, sw = cs.lookups(256, 16, 224, 14, dtype)
         atm = cs.atmosphere(cs.NCOL, cs.NLAY, dtype)
         bcs_lw, _ = cs.boundary_conditions(lw, sw, cs.NCOL)
         for n in (1, 2, 3, 4):
-            ms = cs.timed(lambda: solve_lw(lw, atm, bcs_lw, n_gauss_angles=n, impl="kernel"), 3)
-            say("angles", f"solve_lw clear {dtype} {cs.NCOL} x {cs.NLAY}, {n} angle(s): {ms:.3f} ms")
+            ms = _rounds(routes[dtype], lambda impl: solve_lw(lw, atm, bcs_lw, n_gauss_angles=n, impl=impl))
+            for impl in routes[dtype]:
+                say("angles", f"solve_lw clear {dtype} {cs.NCOL} x {cs.NLAY}, {n} angle(s), impl={impl}: "
+                              f"{_fmt(ms[impl])} ms")
         del lw, sw, atm, bcs_lw
         torch.cuda.empty_cache()
     L = lookup_tables(AllSkyRadiation(aerosol_radiation=True), dtype=torch.float32, device=cs.DEVICE)
     atm = cs.allsky_atmosphere(cs.ALLSKY_NCOL, cs.NLAY)
     bcs_lw, _ = cs.boundary_conditions(L.lookup_lw, L.lookup_sw, cs.ALLSKY_NCOL)
     for n in (1, 2, 3, 4):
-        ms = cs.timed(lambda: solve_lw(L.lookup_lw, atm, bcs_lw, n_gauss_angles=n, lkp_cld=L.lookup_lw_cld,
-                                       lkp_aero=L.lookup_lw_aero, cld_mask_seed=cs.MCICA_SEED), 3)
-        say("angles", f"solve_lw all-sky + aerosols float32 {cs.ALLSKY_NCOL} x {cs.NLAY}, {n} angle(s): {ms:.3f} ms")
+        solve = lambda impl: solve_lw(L.lookup_lw, atm, bcs_lw, n_gauss_angles=n, lkp_cld=L.lookup_lw_cld,
+                                      lkp_aero=L.lookup_lw_aero, cld_mask_seed=cs.MCICA_SEED, impl=impl)
+        ms = _rounds(routes["float32"], solve)
+        for impl in routes["float32"]:
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            solve(impl)
+            torch.cuda.synchronize()
+            say("angles", f"solve_lw all-sky + aerosols float32 {cs.ALLSKY_NCOL} x {cs.NLAY}, {n} angle(s), "
+                          f"impl={impl}: {_fmt(ms[impl])} ms, peak memory "
+                          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
 
 
 def _profile(tag: str, step, steps: int = 3) -> None:
@@ -171,12 +205,32 @@ def profile_cells() -> None:
     _profile("profile all-sky no-scattering", step)
 
 
+def profile_two_kernel() -> None:
+    from rrtmgp_tpu_torch import solve_lw, solve_sw
+
+    lw, sw = cs.lookups(256, 16, 224, 14)
+    atm = cs.atmosphere(cs.NCOL, cs.NLAY)
+    bcs_lw, bcs_sw = cs.boundary_conditions(lw, sw, cs.NCOL)
+
+    def step():
+        solve_lw(lw, atm, bcs_lw, n_gauss_angles=3, impl="two_kernel")
+        solve_sw(sw, atm, bcs_sw, impl="two_kernel")
+        solve_sw(sw, atm, bcs_sw, two_stream=False)
+
+    _profile("profile two-kernel", step)
+    for name, fn in (("LW 3 angles", lambda: solve_lw(lw, atm, bcs_lw, n_gauss_angles=3, impl="two_kernel")),
+                     ("SW two-stream", lambda: solve_sw(sw, atm, bcs_sw, impl="two_kernel")),
+                     ("SW direct beam", lambda: solve_sw(sw, atm, bcs_sw, two_stream=False))):
+        say("profile two-kernel", f"{name} alone, no profiler: {cs.timed(fn, 3):.3f} ms")
+
+
 def main() -> None:
-    want = sys.argv[1:] or ["f64-memory", "angles", "profile"]
+    want = sys.argv[1:] or ["f64-memory", "angles", "profile", "profile-two-kernel"]
     cs.phase_device()
     cs.phase_build()
     warnings.simplefilter("ignore")  # the f64 torch-path and auto-chunk notices
-    for name, fn in (("f64-memory", f64_memory), ("angles", angles), ("profile", profile_cells)):
+    for name, fn in (("f64-memory", f64_memory), ("angles", angles), ("profile", profile_cells),
+                     ("profile-two-kernel", profile_two_kernel)):
         if name in want:
             fn()
 

@@ -1,4 +1,5 @@
-"""The CUDA kernels of rrtmgp_tpu_torch.ops.mega on the card (marker ``gpu``).
+"""The CUDA kernels of rrtmgp_tpu_torch (ops.mega, ops.interp, ops.rte_kernels)
+on the card (marker ``gpu``).
 
 Each test skips where ``torch.cuda.is_available()`` is false. On a machine
 with an NVIDIA GPU, run them without the JAX test configuration of
@@ -7,12 +8,13 @@ tests/conftest.py:
     python -m pytest --noconftest -m gpu tests/test_torch_cuda.py -q
 
 They cover what chip_smoke.py does not: the incident-flux inputs of the
-megakernels, odd shapes, run-to-run determinism, the wrappers' argument
-checks on CUDA tensors, the f64 routing of solve_lw / solve_sw, the angle
-loop, and the launch counts of solve_lw / solve_sw and
+megakernels and of the two-kernel path's sweeps, odd shapes, run-to-run
+determinism, the wrappers' argument checks on CUDA tensors, the routing of
+solve_lw / solve_sw (f64, several angles, the SW direct-beam solve), the
+angle loop, and the launch counts of solve_lw / solve_sw and
 RRTMGPSolver.update_fluxes. Tolerances as chip_smoke.py: max |kernel - twin|
 / max |twin| <= 1e-6 (Planck, aerosol_bands), 5e-5 (LW no-scattering), 1e-4
-(LW two-stream, SW); in f64 1e-14 (Planck) and 1e-12 (LW no-scattering: the
+(LW two-stream, SW), 1e-6 (materialized optics, row-layout Planck); in f64 1e-14 (Planck) and 1e-12 (LW no-scattering: the
 same operations, up to the order of the g-point sums and an ulp of exp);
 the McICA cloud cover and mcica_mask_export bit for bit.
 """
@@ -26,13 +28,14 @@ import torch
 from rrtmgp_tpu_torch import LwBCs, SwBCs, solve_lw, solve_sw
 from rrtmgp_tpu_torch.angular import angular_discretization
 from rrtmgp_tpu_torch.data.synthetic import synthetic_atmosphere, synthetic_gas_lookup
-from rrtmgp_tpu_torch.ops import mega
+from rrtmgp_tpu_torch.ops import interp, mega, rte_kernels
 from rrtmgp_tpu_torch.ops.mega_inputs import mega_lw_inputs, mega_sw_inputs
 
 pytestmark = pytest.mark.gpu
 
 TOL = {"planck_band": 1e-6, "lw_clear_mega": 5e-5, "sw_clear_mega": 1e-4, "lw2_mega": 1e-4,
-       "aerosol_bands": 1e-6}
+       "aerosol_bands": 1e-6, "optics_fused": 1e-6, "planck_band_rows": 1e-6,
+       "lw_noscat_banded_reduced": 5e-5, "sw_2stream_reduced": 1e-4}
 TOL64 = {"planck_band": 1e-14, "lw_clear_mega": 1e-12}
 
 
@@ -123,11 +126,31 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
 
 
 def test_more_than_1024_gpoints_raises(cuda):
+    """A lookup of more g-points than a kernel block has threads: every
+    impl that runs the kernels raises, the default one too (CUDA tensors
+    never give way to the plain version unasked), and impl="torch" runs;
+    boundary conditions with other strides than the kernels take are made
+    contiguous by the solves."""
     lkp = synthetic_gas_lookup(longwave=True, n_gpt=1040, n_bnd=4, n_eta=3, n_press=4, n_temp=3,
                                dtype=np.float32, device=cuda)
     atm = synthetic_atmosphere(ncol=4, nlay=3, dtype=np.float32, device=cuda)
-    with pytest.raises(ValueError, match="1..1024"):
-        solve_lw(lkp, atm, LwBCs(sfc_emis=torch.full((4, 4), 0.98, device=cuda)))
+    bcs = LwBCs(sfc_emis=torch.full((4, 4), 0.98, device=cuda))
+    for impl in ("kernel", "two_kernel", None):
+        with pytest.raises(ValueError, match="1..1024"):
+            solve_lw(lkp, atm, bcs, impl=impl)
+    mega.reset_launch_counts()  # the refused megakernel solves had launched planck_band
+    out, _ = solve_lw(lkp, atm, bcs, impl="torch")
+    assert _counts() == {} and torch.isfinite(out.flux_up).all()
+    lkp = synthetic_gas_lookup(longwave=True, n_gpt=32, n_bnd=4, dtype=np.float32, device=cuda)
+    emis = torch.rand((4, 4), device=cuda) * 0.1 + 0.9
+    strided = LwBCs(sfc_emis=emis.T.contiguous().T)
+    assert not strided.sfc_emis.is_contiguous()
+    for n in (1, 2):
+        a, _ = solve_lw(lkp, atm, strided, n_gauss_angles=n)
+        b, _ = solve_lw(lkp, atm, LwBCs(sfc_emis=emis), n_gauss_angles=n)
+        assert torch.equal(a.flux_up, b.flux_up)
+    assert _counts() == {"planck_band": 6, "lw_clear_mega": 2, "optics_fused": 2, "planck_band_rows": 6,
+                         "lw_noscat_banded_reduced": 4}
 
 
 def test_solves_on_cuda_take_the_kernels(cuda):
@@ -150,12 +173,20 @@ def test_solves_on_cuda_take_the_kernels(cuda):
     assert _rel(k_sw, t_sw) <= TOL["sw_clear_mega"]
     for flux in k_sw:
         assert torch.all(flux[:, mu0 <= 0] == 0.0)
-    # one launch per quadrature angle, the band Planck values shared
+    # several angles: the megakernel path launches once per angle, the band
+    # Planck values shared; the default is the two-kernel path, which computes
+    # the optics once and sweeps once per angle
     for n in (2, 3, 4):
+        t_n = solve_lw(lw, atm, bl, n_gauss_angles=n, impl="torch")[0]
         mega.reset_launch_counts()
-        k_n, _ = solve_lw(lw, atm, bl, n_gauss_angles=n)
+        k_n, _ = solve_lw(lw, atm, bl, n_gauss_angles=n, impl="kernel")
         assert _counts() == {"planck_band": 3, "lw_clear_mega": n}
-        assert _rel(k_n, solve_lw(lw, atm, bl, n_gauss_angles=n, impl="torch")[0]) <= TOL["lw_clear_mega"]
+        assert _rel(k_n, t_n) <= TOL["lw_clear_mega"]
+        mega.reset_launch_counts()
+        d_n, _ = solve_lw(lw, atm, bl, n_gauss_angles=n)
+        assert _counts() == {"optics_fused": 1, "planck_band_rows": 3, "lw_noscat_banded_reduced": n}
+        assert _rel(d_n, t_n) <= TOL["lw_noscat_banded_reduced"]
+        assert _rel(d_n, k_n) <= TOL["lw_noscat_banded_reduced"]
     # f64 clear-sky LW no-scattering has a kernel, LW two-stream has none
     lw64, atm64 = lw.to(dtype=torch.float64), atm.to(dtype=torch.float64)
     bl64 = dataclasses.replace(bl, sfc_emis=bl.sfc_emis.double())
@@ -369,17 +400,29 @@ def test_allsky_noscat_solver_takes_the_kernels(cuda):
     for n in (1, 3):
         mk = lambda **kw: RRTMGPSolver(grid, AllSkyRadiation(aerosol_radiation=True), RRTMGPParameters(),
                                        bl, bs, atm, two_stream_lw=False, n_gauss_angles=n, **kw)
-        solver, ref = mk(), mk(impl="torch")
+        solver, ref = mk(impl="kernel"), mk(impl="torch")
         mega.reset_launch_counts()
         f_lw, f_sw = solver.update_fluxes()
         torch.cuda.synchronize()
         assert _counts() == {"planck_band": 3, "lw_clear_mega": n, "sw_clear_mega": 1, "aerosol_bands": 2}
+        if n > 1:
+            # the default routing: LW leaves the megakernel for the two-kernel
+            # path (mask from the export kernel, aerosol band sums from their
+            # kernel, composition in plain torch)
+            auto = mk()
+            mega.reset_launch_counts()
+            a_lw, _ = auto.update_fluxes()
+            assert _counts() == {"optics_fused": 1, "planck_band_rows": 3, "lw_noscat_banded_reduced": n,
+                                 "mcica_mask_export": 1, "sw_clear_mega": 1, "aerosol_bands": 2}
+            assert _rel(a_lw, f_lw) <= TOL["lw_noscat_banded_reduced"]
+            assert torch.equal(auto.lw_cloud_cover(), solver.lw_cloud_cover())
         t_lw, _ = ref.update_fluxes()
         assert _rel(f_lw, t_lw) <= TOL["lw_clear_mega"]
         assert torch.equal(solver.lw_cloud_cover(), ref.lw_cloud_cover())
         L = solver.lookups
         one = lambda a, b, s, off: solve_lw(L.lookup_lw, a, b, n_gauss_angles=n, lkp_cld=L.lookup_lw_cld,
-                                            lkp_aero=L.lookup_lw_aero, cld_mask_seed=s, col_offset=off)
+                                            lkp_aero=L.lookup_lw_aero, cld_mask_seed=s, col_offset=off,
+                                            impl="kernel")
         c_lw, c_diag = solve_chunked(one, atm, bl, 128, cld_mask_seed=solver._mcica_key(0))
         assert all(torch.equal(x, y) for x, y in zip(c_lw, f_lw))
         assert torch.equal(c_diag.cld_cover, solver.lw_cloud_cover())
@@ -449,3 +492,200 @@ def test_solver_update_fluxes_takes_the_kernels(cuda):
         assert _counts() == {"planck_band": 2 * n, "lw2_mega": n, "sw_clear_mega": n, "aerosol_bands": 2 * n}
         assert all(torch.isfinite(x).all() for x in (*f_lw, *f_sw))
         assert solver.lw_cloud_cover().shape == solver.sw_cloud_cover().shape == (ncol,)
+
+
+# ---------------------------------------------------------------------------
+# The two-kernel path: materialized optics, row-layout Planck, the sweeps
+# ---------------------------------------------------------------------------
+
+
+def _two_kernel_case(dev, ngpt, nbnd, ncol, nlay):
+    """Arguments of the four kernels of the two-kernel path at one size, the
+    sweeps' optics taken from the optics kernel, with incident fluxes and a
+    random asymmetry."""
+    _, lw_args, sw_args = _case(dev, ngpt, nbnd, ncol, nlay)
+    lw = lw_args[1].lkp
+    atm = synthetic_atmosphere(ncol=ncol, nlay=nlay, dtype=np.float32, device=dev)
+    rng = np.random.default_rng(8)
+    u = lambda lo, hi, *shape: torch.from_numpy(rng.uniform(lo, hi, shape).astype(np.float32)).to(dev)
+    plk_args = [(t.reshape(-1), lw.totplnk, lw.t_planck_min, lw.t_planck_delta)
+                for t in (atm.t_lay, atm.t_lev, atm.t_sfc)]
+    tau, pfrac = interp.optics_fused(*lw_args[:2])
+    plk = [interp.planck_band_rows(*a) for a in plk_args]
+    Ds, wts = angular_discretization(2)
+    k12 = (tau, pfrac, plk[0].reshape(nlay, ncol, nbnd), plk[1].reshape(nlay + 1, ncol, nbnd), plk[2],
+           lw_args[5], lw_args[1].gpt2band, float(Ds[1]), float(wts[1]), lw_args[6])
+    tau_sw, ssa = interp.optics_fused(*sw_args[:2])
+    k15 = (tau_sw, ssa, u(0.0, 0.8, nlay, ncol, ngpt), *sw_args[2:6], sw_args[1].gpt2band, sw_args[6])
+    return lw_args[:2], sw_args[:2], plk_args, k12, k15
+
+
+@pytest.mark.parametrize("ngpt,nbnd,ncol,nlay", [(36, 4, 1000, 30), (256, 16, 257, 60), (5, 5, 3, 2)])
+def test_two_kernel_kernels_match_twins(cuda, ngpt, nbnd, ncol, nlay):
+    """optics_fused (LW and SW), planck_band_rows, lw_noscat_banded_reduced
+    (with and without incident flux) and sw_2stream_reduced (with and without
+    asymmetry and incident flux) against their twins."""
+    lw_in, sw_in, plk_args, k12, k15 = _two_kernel_case(cuda, ngpt, nbnd, ncol, nlay)
+    mega.reset_launch_counts()
+    for args in (lw_in, sw_in):
+        out = interp.optics_fused(*args)
+        assert out[0].shape == out[1].shape == (nlay, ncol, ngpt)
+        for o, r in zip(out, interp.optics_fused_ref(*args)):
+            assert _rel([o], [r]) <= TOL["optics_fused"]
+        assert float(out[0].min()) >= 0.0
+    for a in plk_args:
+        out = interp.planck_band_rows(*a)
+        assert out.shape == (a[0].numel(), nbnd)
+        assert _rel([out], [interp.planck_band_rows_ref(*a)]) <= TOL["planck_band_rows"]
+        assert torch.equal(out.T, mega.planck_band(*a))
+    for args in (k12, (*k12[:-1], None)):
+        up, dn = rte_kernels.lw_noscat_banded_reduced(*args)
+        assert up.shape == dn.shape == (nlay + 1, ncol)
+        assert _rel((up, dn), rte_kernels.lw_noscat_banded_reduced_ref(*args)) <= TOL["lw_noscat_banded_reduced"]
+        assert torch.all(dn[-1] > 0.0) if args[-1] is not None else torch.all(dn[-1] == 0.0)
+    for args in (k15, (*k15[:2], None, *k15[3:]), (*k15[:-1], None)):
+        out = rte_kernels.sw_2stream_reduced(*args)
+        assert out[0].shape == (nlay + 1, ncol)
+        assert _rel(out, rte_kernels.sw_2stream_reduced_ref(*args)) <= TOL["sw_2stream_reduced"]
+    torch.cuda.synchronize()
+    assert _counts() == {"optics_fused": 2, "planck_band_rows": 3, "planck_band": 3,
+                         "lw_noscat_banded_reduced": 2, "sw_2stream_reduced": 3}
+
+
+def test_two_kernel_sweeps_equal_the_megakernels_on_equal_optics(cuda):
+    """On the optics of the optics kernel the sweeps reproduce the
+    megakernels: the SW sweep bit for bit (shared device code, equal
+    optics), the LW sweep to rounding (the megakernel stores the upward
+    source, the sweep recomputes it)."""
+    _, lw_args, sw_args = _case(cuda, 64, 4, 500, 20)
+    lw_in, sw_in, _, k12, k15 = _two_kernel_case(cuda, 64, 4, 500, 20)
+    clear = rte_kernels.sw_2stream_reduced(*k15[:2], None, *k15[3:])
+    for a, b in zip(clear, mega.sw_clear_mega(*sw_args)):
+        assert torch.equal(a, b)
+    Ds, wts = angular_discretization(2)
+    want = mega.lw_clear_mega(*lw_args[:7], float(Ds[1]), float(wts[1]))
+    assert _rel(rte_kernels.lw_noscat_banded_reduced(*k12), want) <= 1e-6
+
+
+def test_two_kernel_kernels_are_deterministic(cuda):
+    lw_in, sw_in, plk_args, k12, k15 = _two_kernel_case(cuda, 64, 4, 500, 20)
+    for fn, args in ((interp.optics_fused, lw_in), (interp.optics_fused, sw_in),
+                     (rte_kernels.lw_noscat_banded_reduced, k12), (rte_kernels.sw_2stream_reduced, k15)):
+        for a, b in zip(fn(*args), fn(*args)):
+            assert torch.equal(a, b)
+
+
+def test_two_kernel_wrappers_reject_what_the_kernels_do_not_take(cuda):
+    lw_in, sw_in, plk_args, k12, k15 = _two_kernel_case(cuda, 8, 2, 16, 4)
+    mega.reset_launch_counts()
+    t, totplnk, t_min, t_delta = plk_args[0]
+    with pytest.raises(TypeError, match="float32"):
+        interp.planck_band_rows(t.double(), totplnk, t_min, t_delta)
+    with pytest.raises(ValueError, match="contiguous"):
+        interp.planck_band_rows(t.repeat(2)[::2], totplnk, t_min, t_delta)
+    with pytest.raises(TypeError, match="float32"):
+        interp.optics_fused(lw_in[0].to(dtype=torch.float64), lw_in[1])
+    with pytest.raises((TypeError, ValueError)):
+        interp.optics_fused(lw_in[0], sw_in[1])  # longwave inputs with a shortwave lookup
+    with pytest.raises(ValueError, match="shape"):
+        rte_kernels.lw_noscat_banded_reduced(k12[0], k12[1][:, :-1].contiguous(), *k12[2:])
+    with pytest.raises(TypeError, match="int32"):
+        rte_kernels.lw_noscat_banded_reduced(*k12[:6], k12[6].long(), *k12[7:])
+    with pytest.raises(ValueError, match="on cpu"):
+        rte_kernels.lw_noscat_banded_reduced(*k12[:-1], k12[-1].cpu())
+    with pytest.raises(ValueError, match="shape"):
+        rte_kernels.sw_2stream_reduced(*k15[:3], k15[3][:-1], *k15[4:])
+    with pytest.raises(ValueError, match="contiguous"):
+        rte_kernels.sw_2stream_reduced(k15[0], k15[1].transpose(0, 1).contiguous().transpose(0, 1), *k15[2:])
+    with pytest.raises(TypeError, match="float32"):
+        rte_kernels.sw_2stream_reduced(*k15[:2], k15[2].double(), *k15[3:])
+    assert _counts() == {}
+
+
+def test_sw_direct_beam_runs_with_the_default_impl(cuda):
+    """solve_sw(two_stream=False) and RRTMGPSolver(two_stream_sw=False) on f32
+    CUDA tensors with the default impl return the direct-beam fluxes through
+    the optics kernel (clear and all-sky); impl="two_kernel" runs SW
+    two-stream and several LW angles; what it lacks raises."""
+    from rrtmgp_tpu_torch import AllSkyRadiation, RRTMGPGridParams, RRTMGPParameters, RRTMGPSolver
+
+    ncol, nlay = 300, 12
+    sw = synthetic_gas_lookup(longwave=False, n_gpt=32, n_bnd=4, seed=1, dtype=np.float32, device=cuda)
+    atm = synthetic_atmosphere(ncol=ncol, nlay=nlay, dtype=np.float32, device=cuda)
+    f = lambda shape, v: torch.full(shape, v, dtype=torch.float32, device=cuda)
+    mu0 = f((ncol,), 0.6)
+    mu0[::3] = -0.1
+    bs = SwBCs(cos_zenith=mu0, toa_flux=f((ncol,), 1361.0),
+               sfc_alb_direct=f((4, ncol), 0.2), sfc_alb_diffuse=f((4, ncol), 0.2))
+    mega.reset_launch_counts()
+    beam, _ = solve_sw(sw, atm, bs, two_stream=False)
+    assert _counts() == {"optics_fused": 1}
+    ref, _ = solve_sw(sw, atm, bs, two_stream=False, impl="torch")
+    assert _rel([beam.flux_dn_dir], [ref.flux_dn_dir]) <= TOL["optics_fused"]
+    assert torch.all(beam.flux_up == 0.0) and torch.all(beam.flux_dn == 0.0)
+    assert torch.all(beam.flux_dn_dir[:, mu0 <= 0] == 0.0) and float(beam.flux_dn_dir.max()) > 100.0
+    assert torch.all(beam.flux_dn_dir[:-1] <= beam.flux_dn_dir[1:])
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        solve_sw(sw, atm, bs, two_stream=False, impl="kernel")
+    # SW two-stream through the two-kernel path against the megakernel and the torch path
+    mega.reset_launch_counts()
+    two, _ = solve_sw(sw, atm, bs, impl="two_kernel")
+    assert _counts() == {"optics_fused": 1, "sw_2stream_reduced": 1}
+    assert _rel(two, solve_sw(sw, atm, bs, impl="kernel")[0]) <= TOL["sw_2stream_reduced"]
+    assert _rel(two, solve_sw(sw, atm, bs, impl="torch")[0]) <= TOL["sw_2stream_reduced"]
+    for flux in two:
+        assert torch.all(flux[:, mu0 <= 0] == 0.0)
+    lw = synthetic_gas_lookup(longwave=True, n_gpt=32, n_bnd=4, dtype=np.float32, device=cuda)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        solve_lw(lw, atm, LwBCs(sfc_emis=f((4, ncol), 0.98)), two_stream=True, impl="two_kernel")
+
+    # the solver, all-sky with aerosols: LW two-stream on its megakernel, SW direct beam
+    atm = synthetic_atmosphere(ncol=ncol, nlay=nlay, dtype=np.float32, device=cuda,
+                               with_clouds=True, with_aerosols=True)
+    bl = LwBCs(sfc_emis=f((16, ncol), 0.98))
+    bs = SwBCs(cos_zenith=mu0, toa_flux=f((ncol,), 1361.0),
+               sfc_alb_direct=f((14, ncol), 0.2), sfc_alb_diffuse=f((14, ncol), 0.2))
+    mk = lambda **kw: RRTMGPSolver(RRTMGPGridParams(nlay=nlay, ncol=ncol), AllSkyRadiation(aerosol_radiation=True),
+                                   RRTMGPParameters(), bl, bs, atm, two_stream_sw=False, **kw)
+    solver, exact = mk(), mk(impl="torch")
+    mega.reset_launch_counts()
+    _, f_sw = solver.update_fluxes()
+    assert _counts() == {"planck_band": 2, "lw2_mega": 1, "aerosol_bands": 2, "optics_fused": 1,
+                         "mcica_mask_export": 1}
+    _, t_sw = exact.update_fluxes()
+    assert _rel([f_sw.flux_dn_dir], [t_sw.flux_dn_dir]) <= TOL["optics_fused"]
+    assert torch.all(f_sw.flux_up == 0.0) and torch.all(f_sw.flux_dn_dir[:, mu0 <= 0] == 0.0)
+    assert torch.equal(solver.sw_cloud_cover(), exact.sw_cloud_cover())
+
+
+@pytest.mark.parametrize("n_angles", [2, 3, 4])
+def test_multi_angle_routes_agree(cuda, n_angles):
+    """Several LW angles, clear and all-sky (McICA by seed, aerosols), at a
+    width where both routes fit in memory: the default impl takes the
+    two-kernel path (the optics once, one sweep per angle) and impl="kernel"
+    one megakernel launch per angle; they agree within the LW sweep's gate,
+    draw the same cloud cover, and both stay within it of the torch path."""
+    from rrtmgp_tpu_torch.data.synthetic import synthetic_aerosol_lookup, synthetic_cloud_lookup
+
+    ncol, nlay = 300, 12
+    lw = synthetic_gas_lookup(longwave=True, n_gpt=32, n_bnd=4, dtype=np.float32, device=cuda)
+    bl = LwBCs(sfc_emis=torch.full((4, ncol), 0.98, device=cuda))
+    clear = synthetic_atmosphere(ncol=ncol, nlay=nlay, dtype=np.float32, device=cuda)
+    cloudy = synthetic_atmosphere(ncol=ncol, nlay=nlay, dtype=np.float32, device=cuda,
+                                  with_clouds=True, with_aerosols=True)
+    allsky = dict(lkp_cld=synthetic_cloud_lookup(n_bnd=4, dtype=np.float32, device=cuda),
+                  lkp_aero=synthetic_aerosol_lookup(n_bnd=4, dtype=np.float32, device=cuda), cld_mask_seed=5)
+    for atm, kw in ((clear, {}), (cloudy, allsky)):
+        mega.reset_launch_counts()
+        two, d_two = solve_lw(lw, atm, bl, n_gauss_angles=n_angles, **kw)
+        counts = _counts()
+        assert counts["optics_fused"] == 1 and counts["lw_noscat_banded_reduced"] == n_angles
+        assert "lw_clear_mega" not in counts
+        mega.reset_launch_counts()
+        per_angle, d_per = solve_lw(lw, atm, bl, n_gauss_angles=n_angles, impl="kernel", **kw)
+        assert _counts()["lw_clear_mega"] == n_angles
+        exact, _ = solve_lw(lw, atm, bl, n_gauss_angles=n_angles, impl="torch", **kw)
+        assert _rel(two[:2], per_angle[:2]) <= TOL["lw_noscat_banded_reduced"]
+        assert _rel(two[:2], exact[:2]) <= TOL["lw_noscat_banded_reduced"]
+        if kw:
+            assert torch.equal(d_two.cld_cover, d_per.cld_cover)

@@ -59,7 +59,7 @@ def kernel_dispatch(monkeypatch):
     their plain twins."""
     from rrtmgp_tpu_torch.models import rrtmgp as tmod
 
-    monkeypatch.setattr(tmod, "_resolve_impl", lambda impl, device, dtype, has_f64_kernel=False: "kernel")
+    monkeypatch.setattr(tmod, "_resolve_impl", lambda *args, **kwargs: "kernel")
 
 
 # ---------------------------------------------------------------------------

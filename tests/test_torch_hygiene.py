@@ -46,8 +46,8 @@ def test_public_api_resolves():
 
 
 def test_kernel_sources_present_and_build_is_lazy():
-    """Every kernel of the clear-sky, all-sky and f64 paths has its CUDA
-    source and C entry point (the f64 builds among them), every header a
+    """Every kernel of the clear-sky, all-sky, f64 and two-kernel paths has
+    its CUDA source and C entry point (the f64 builds among them), every header a
     source includes is there, and importing the ops builds nothing (the
     library is built on the first CUDA call)."""
     import re
@@ -57,12 +57,15 @@ def test_kernel_sources_present_and_build_is_lazy():
     names = {p.name for p in _build.CSRC.iterdir()}
     assert {"planck_band.cu", "lw_clear_mega.cu", "sw_clear_mega.cu", "lw2_mega.cu",
             "aerosol_bands.cu", "mcica_export.cu", "errors.cu", "mcica.cuh", "allsky.cuh",
-            "common.cuh"} <= names
+            "common.cuh", "optics_fused.cu", "lw_noscat_banded.cu", "sw_2stream_reduced.cu",
+            "sw_twostream.cuh"} <= names
     for p in _build.CSRC.iterdir():
         for header in re.findall(r'#include "([^"]+)"', p.read_text()):
             assert header in names, (p.name, header)
     sources = "".join(p.read_text() for p in _build.CSRC.glob("*.cu"))
-    assert {"rrtmgp_planck_band_f64", "rrtmgp_lw_clear_mega_f64"} <= set(_build.SIGNATURES)
+    assert {"rrtmgp_planck_band_f64", "rrtmgp_lw_clear_mega_f64", "rrtmgp_optics_fused",
+            "rrtmgp_planck_band_rows", "rrtmgp_lw_noscat_banded",
+            "rrtmgp_sw_2stream_reduced"} <= set(_build.SIGNATURES)
     for entry in _build.SIGNATURES:
         assert f'extern "C" int {entry}(' in sources, entry
     assert _build.library.cache_info().currsize == 0

@@ -156,7 +156,7 @@ def kernel_dispatch(monkeypatch):
     a card."""
     from rrtmgp_tpu_torch.models import rrtmgp as tmod
 
-    monkeypatch.setattr(tmod, "_resolve_impl", lambda impl, device, dtype, has_f64_kernel=False: "kernel")
+    monkeypatch.setattr(tmod, "_resolve_impl", lambda *args, **kwargs: "kernel")
 
 
 def _noscat_allsky_case():
@@ -219,15 +219,63 @@ def test_lw_unported_options_raise(kernel_dispatch, kwargs):
         assert diag.cld_cover is None
 
 
-@pytest.mark.parametrize("kwargs", [
-    dict(two_stream=False), dict(two_stream=False, lkp_cld=object()),
-    dict(two_stream=False, lkp_aero=object()),
-])
-def test_sw_unported_options_raise(kernel_dispatch, kwargs):
-    """The kernel path of SW is two-stream only."""
-    _, _, _, tl, ta, tb = _sw_case(8, np.float32)
+@pytest.fixture
+def cuda_routing(monkeypatch):
+    """solve_* route impl=None as they do for CUDA tensors of the inputs'
+    dtype; on CPU tensors the wrappers then run their plain twins."""
+    from rrtmgp_tpu_torch.models import rrtmgp as tmod
+
+    real = tmod._resolve_impl
+    monkeypatch.setattr(tmod, "_resolve_impl", lambda impl, device, *args, **kwargs: real(
+        impl, torch.device("cuda"), *args, **kwargs))
+
+
+@pytest.mark.parametrize("kwargs", [dict(option=o) for o in ("clear", "clouds by seed", "aerosols")])
+def test_sw_unported_options_raise(cuda_routing, monkeypatch, kwargs):
+    """The SW direct-beam-only solve, which the default impl once refused on
+    CUDA tensors (clear, with clouds, with aerosols), now runs: impl=None
+    routes it to the two-kernel path (the wrappers' twins on the CPU), where
+    it equals the torch path to 2e-6 and the JAX XLA solve within the
+    slice's tolerance, with flux_up = flux_dn = 0 and night columns 0.
+    Only the explicit megakernel impl still refuses it."""
+    option = kwargs["option"]
+    ncol = 24
+    jl, _, jb, tl, _, tb = _sw_case(ncol, np.float32)
+    ja = jsyn.synthetic_atmosphere(ncol=ncol, nlay=NLAY, dtype=np.float32, with_clouds=True,
+                                   with_aerosols=True)
+    rng = np.random.default_rng(23)
+    cf = np.asarray(ja.cloud_state.cld_frac) * rng.uniform(0.2, 1.0, (NLAY, ncol)).astype(np.float32)
+    mass = rng.uniform(0.0, 2e-5, (15, NLAY, ncol)).astype(np.float32)
+    ja = dataclasses.replace(
+        ja, cloud_state=dataclasses.replace(ja.cloud_state, cld_frac=jnp.asarray(cf)),
+        aerosol_state=dataclasses.replace(ja.aerosol_state, aero_mass=jnp.asarray(mass)),
+    )
+    ta = convert.atmosphere_from_object(ja)
+    jkw, tkw = {}, {}
+    if option == "clouds by seed":
+        jc = jsyn.synthetic_cloud_lookup(n_bnd=4, dtype=np.float32)
+        jkw, tkw = dict(lkp_cld=jc, cld_mask_seed=6), dict(lkp_cld=convert.cloud_lookup_from_object(jc),
+                                                           cld_mask_seed=6)
+    elif option == "aerosols":
+        jae = jsyn.synthetic_aerosol_lookup(n_bnd=4, dtype=np.float32)
+        jkw, tkw = dict(lkp_aero=jae), dict(lkp_aero=convert.aerosol_lookup_from_object(jae))
+    from rrtmgp_tpu_torch.ops import interp
+
+    calls = []
+    real_optics = interp.optics_fused_ref
+    monkeypatch.setattr(interp, "optics_fused_ref", lambda *a: calls.append(1) or real_optics(*a))
+    out, _ = solve_sw(tl, ta, tb, two_stream=False, **tkw)
+    assert calls, "impl=None did not take the two-kernel path"
+    exact, _ = solve_sw(tl, ta, tb, two_stream=False, impl="torch", **tkw)
+    ref, _ = jmod.solve_sw(jl, ja, jb, two_stream=False, **jkw)
+    assert _rel(out.flux_dn_dir, exact.flux_dn_dir.numpy()) <= 2e-6
+    assert _rel(out.flux_dn_dir, ref.flux_dn_dir) <= TOL[np.float32]
+    assert float(out.flux_dn_dir.max()) > 100.0
+    assert torch.all(out.flux_up == 0.0) and torch.all(out.flux_dn == 0.0)
+    night = tb.cos_zenith <= 0
+    assert night.any() and torch.all(out.flux_dn_dir[:, night] == 0.0)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        solve_sw(tl, ta, tb, **kwargs)
+        solve_sw(tl, ta, tb, two_stream=False, impl="kernel", **tkw)
 
 
 def test_resolve_impl_routes_by_device_and_dtype():
@@ -239,6 +287,7 @@ def test_resolve_impl_routes_by_device_and_dtype():
 
     cuda, cpu = torch.device("cuda"), torch.device("cpu")
     assert _resolve_impl(None, cuda, torch.float32) == "kernel"
+    assert _resolve_impl(None, cuda, torch.float32, mega=False) == "two_kernel"
     with pytest.warns(UserWarning, match="exact-precision torch path"):
         assert _resolve_impl(None, cuda, torch.float64) == "torch"
     assert _resolve_impl(None, cuda, torch.float64, has_f64_kernel=True) == "kernel"
