@@ -59,6 +59,26 @@ is non-zero:
    0, LW TOA down = 0; all-sky (McICA by seed + aerosols) through the
    two-kernel path against the torch path at 8192 columns. (The time of 1-4
    LW angles on both routes: scripts/port_measure.py angles.)
+9. sweep slice (after the two-kernel slice, on the clear cell's inputs; its
+   all-sky part after the all-sky slices, on theirs): the four sweeps from
+   materialized optics and sources (lw_noscat_reduced, lw_2stream_reduced,
+   sw_2stream_gpt, lw_noscat_gpt) against their twins at the small shape and
+   at 32768 x 60 (twins on 8192-column chunks; lw_2stream_reduced and
+   sw_2stream_gpt also with ssa and g of an all-sky composition at 8192
+   columns). Path A, LW two-stream on the two-kernel path:
+   solve_lw(two_stream=True, impl="two_kernel") clear at 32768 x 60 against
+   the megakernel route at full width and the torch path on 4096 columns,
+   and all-sky (McICA by seed + aerosols) at 75748 x 60, unchunked if its
+   memory (measured on 8192 columns and scaled) fits the card, else through
+   solve_chunked, with the peak memory and the cloud cover bitwise. Path B,
+   the sweep-only route: one step = solve_lw with 3 angles + solve_lw
+   two-stream + solve_sw through impl="sweep" at 32768 x 60 (3 steps): step
+   time, columns/s, peak memory, launches per step, against the torch path
+   on 4096 columns, LW TOA down = 0, night columns 0. Path C: each
+   per-g-point sweep, summed over g-points, against its g-summed sibling
+   (5e-6 of the largest flux: the two add the same 224 or 256 values in
+   another order). And boundary conditions in f64 with an f32 atmosphere
+   through the default impl equal the cast input's result bit for bit.
 
 The last lines are a JSON object per kernel, the card's name and power limit,
 and {"ok": true, "device": {...}}. Needs CUDA and nvcc; imports no JAX.
@@ -88,7 +108,9 @@ TOL = {"planck_band": 1e-6, "lw_clear_mega": 5e-5, "sw_clear_mega": 1e-4,
        "lw2_mega": 1e-4, "sw_clear_mega_allsky": 1e-4, "aerosol_bands": 1e-6,
        "mcica_mask_export": 0.0, "planck_band_f64": 1e-14, "lw_clear_mega_f64": 1e-12,
        "lw_clear_mega_allsky": 5e-5, "optics_fused_lw": 1e-6, "optics_fused_sw": 1e-6,
-       "planck_band_rows": 1e-6, "lw_noscat_banded_reduced": 5e-5, "sw_2stream_reduced": 1e-4}
+       "planck_band_rows": 1e-6, "lw_noscat_banded_reduced": 5e-5, "sw_2stream_reduced": 1e-4,
+       "lw_noscat_reduced": 5e-5, "lw_2stream_reduced": 1e-4, "sw_2stream_gpt": 1e-4, "lw_noscat_gpt": 5e-5}
+SUM_TOL = 5e-6                  # a per-g-point sweep summed over g-points vs its g-summed sibling
 F64_LW_TOL_WM2 = 1e-4           # the reference's f64 LW tolerance, absolute
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM data sheet
 PEAK_OPS_PER_S = {"f32": 67e12, "f64": 33.5e12}  # outside the tensor cores; f64 at half the f32 rate
@@ -108,6 +130,10 @@ SOURCES = {
     "planck_band_rows": ("rrtmgp_tpu_torch/csrc/planck_band.cu", "rrtmgp_tpu/ops/pallas_interp.py:828"),
     "lw_noscat_banded_reduced": ("rrtmgp_tpu_torch/csrc/lw_noscat_banded.cu", "rrtmgp_tpu/ops/pallas_rte.py:858"),
     "sw_2stream_reduced": ("rrtmgp_tpu_torch/csrc/sw_2stream_reduced.cu", "rrtmgp_tpu/ops/pallas_rte.py:225"),
+    "lw_noscat_reduced": ("rrtmgp_tpu_torch/csrc/lw_noscat_sources.cu", "rrtmgp_tpu/ops/pallas_rte.py:567"),
+    "lw_2stream_reduced": ("rrtmgp_tpu_torch/csrc/lw_2stream_reduced.cu", "rrtmgp_tpu/ops/pallas_rte.py:667"),
+    "sw_2stream_gpt": ("rrtmgp_tpu_torch/csrc/sw_2stream_reduced.cu", "rrtmgp_tpu/ops/pallas_rte.py:104"),
+    "lw_noscat_gpt": ("rrtmgp_tpu_torch/csrc/lw_noscat_sources.cu", "rrtmgp_tpu/ops/pallas_rte.py:513"),
 }
 
 
@@ -266,6 +292,7 @@ OPS_PER_POINT = {"lw_clear_mega": 90, "sw_clear_mega": 150, "lw2_mega": 140,
                  # the optics alone: major tau and the Planck fraction, or major tau, Rayleigh and ssa
                  "optics_fused_lw": 50, "optics_fused_sw": 42}
 OPS_LW_SWEEP = 44         # two sweeps of exp, Clough factor (a divide), sqrt, two sources, recurrence, level sum
+OPS_LW2_SWEEP = 70        # coefficients (two exp, a sqrt, two divides), Toon sources, adding (a divide), flux pass, sums
 OPS_SW_SWEEP = 110        # beam, coefficients (three exp, a sqrt, two divides), adding, flux pass, level sums
 OPS_PER_MINOR = 14        # one covering minor-gas interval: two eta blends, the temperature blend, scale, add
 OPS_INCREMENT = {"lw_clear_mega": 3, "sw_clear_mega": 12, "lw2_mega": 12}  # one cloud or aerosol increment
@@ -580,6 +607,8 @@ def phase_kernels_small() -> None:
     check_allsky_kernels(label, small_L, small_allsky, 0, {})
     check_two_kernel_kernels(label, lw, sw, atm, bcs_lw, bcs_sw, 0, {})
     check_sw_sweep_allsky(label, small_L, small_allsky, {})
+    check_sweep_kernels(label, lw, sw, atm, bcs_lw, bcs_sw, 0, {})
+    check_lw2_sweep_allsky(label, small_L, small_allsky, {})
 
 
 def phase_clear_slice(lw, sw, atm, bcs_lw, bcs_sw):
@@ -1021,9 +1050,9 @@ def check_two_kernel_kernels(label, lw, sw, atm, bcs_lw, bcs_sw, reps, results, 
 
 
 def check_sw_sweep_allsky(label, L, atm, results) -> None:
-    """sw_2stream_reduced with an asymmetry: the optics kernel's output
-    composed with clouds (McICA by seed) and aerosols, delta-scaled, at
-    g-point resolution."""
+    """sw_2stream_reduced and sw_2stream_gpt with an asymmetry: the optics
+    kernel's output composed with clouds (McICA by seed) and aerosols,
+    delta-scaled, at g-point resolution."""
     import torch
 
     from rrtmgp_tpu_torch.models.rrtmgp import _kernel_composition
@@ -1045,6 +1074,10 @@ def check_sw_sweep_allsky(label, L, atm, results) -> None:
     check_case(f"{label} [with g, clouds+aerosols]", "sw_2stream_reduced",
                lambda: rte_kernels.sw_2stream_reduced(*args),
                lambda: rte_kernels.sw_2stream_reduced_ref(*args), 0, results)
+    gpt_args = per_gpt_sw_args(args)
+    check_case(f"{label} [with g, clouds+aerosols]", "sw_2stream_gpt",
+               lambda: rte_kernels.sw_2stream_gpt(*gpt_args),
+               lambda: rte_kernels.sw_2stream_gpt_ref(*gpt_args), 0, results)
 
 
 def phase_two_kernel_slice(lw, sw, atm, bcs_lw, bcs_sw, mega_lw, L) -> dict:
@@ -1168,6 +1201,273 @@ def phase_two_kernel_slice(lw, sw, atm, bcs_lw, bcs_sw, mega_lw, L) -> dict:
     return launches
 
 
+def per_gpt_sw_args(k15):
+    """sw_2stream_reduced's arguments in sw_2stream_gpt's layout: mu0 and the
+    band-valued albedos expanded to (ncol, ngpt)."""
+    tau, ssa, g, mu0, toa_gpt, alb_dir, alb_dif, gpt2band, inc = k15
+    g2b = gpt2band.long()
+    return (tau, ssa, g, mu0[:, None].expand(-1, tau.shape[2]).contiguous(), toa_gpt,
+            alb_dir.T[:, g2b].contiguous(), alb_dif.T[:, g2b].contiguous(), inc)
+
+
+def sweep_args(lw, sw, atm, bcs_lw, bcs_sw):
+    """The arguments of the four sweeps from materialized optics and sources
+    as solve_lw / solve_sw build them on clear sky: tau and the Planck
+    sources of gas_optics_kernel.gas_optics_lw (the optics kernel, the band
+    Planck kernel, the sources in plain torch), ssa = g = 0 for LW
+    two-stream; SW as sw_2stream_reduced takes it, with mu0 and the albedos
+    expanded to g-points. Returns the argument tuples of lw_noscat_reduced,
+    lw_2stream_reduced, sw_2stream_reduced, sw_2stream_gpt, lw_noscat_gpt."""
+    import torch
+
+    from rrtmgp_tpu_torch.angular import angular_discretization
+    from rrtmgp_tpu_torch.ops.gas_optics_kernel import gas_optics_lw
+
+    Ds, wts = angular_discretization(1)
+    ds, w = float(Ds[0]), float(wts[0])
+    tau, src = gas_optics_lw(lw, atm)
+    g2b = lw.kernel_tables.gpt2band
+    zeros = torch.zeros_like(tau)
+    k13 = (tau, src.lay_source, src.lev_source, src.sfc_source, bcs_lw.sfc_emis, g2b, ds, w, None)
+    k14 = (tau, zeros, zeros, src.lev_source, src.sfc_source, bcs_lw.sfc_emis, g2b, None)
+    k16b = (tau, src.lay_source, src.lev_source, src.sfc_source, bcs_lw.sfc_emis.T[:, g2b.long()].contiguous(),
+            ds, w, None)
+    k15 = two_kernel_args(lw, sw, atm, bcs_lw, bcs_sw)[4]
+    return k13, k14, k15, per_gpt_sw_args(k15), k16b
+
+
+def check_sweep_kernels(label, lw, sw, atm, bcs_lw, bcs_sw, reps, results, chunk=None):
+    """The four sweeps from materialized optics and sources against their
+    twins (on column chunks when ``chunk`` is given), and path C: each
+    per-g-point sweep summed over g-points against its g-summed sibling on
+    the same inputs. Returns the launch counts of path C's two calls."""
+    from rrtmgp_tpu_torch.ops import mega
+    from rrtmgp_tpu_torch.ops import rte_kernels as rk
+
+    ncol = atm.ncol
+    k13, k14, k15, k16a, k16b = sweep_args(lw, sw, atm, bcs_lw, bcs_sw)
+    twin = lambda fn, args: by_columns(fn, args, ncol, chunk)
+    points = lambda lkp: atm.nlay * ncol * lkp.n_gpt
+    cases = (
+        ("lw_noscat_reduced", rk.lw_noscat_reduced, rk.lw_noscat_reduced_ref, k13, OPS_LW_SWEEP * points(lw)),
+        ("lw_2stream_reduced", rk.lw_2stream_reduced, rk.lw_2stream_reduced_ref, k14, OPS_LW2_SWEEP * points(lw)),
+        ("sw_2stream_gpt", rk.sw_2stream_gpt, rk.sw_2stream_gpt_ref, k16a, OPS_SW_SWEEP * points(sw)),
+        ("lw_noscat_gpt", rk.lw_noscat_gpt, rk.lw_noscat_gpt_ref, k16b, OPS_LW_SWEEP * points(lw)),
+    )
+    for name, kern, ref, args, ops in cases:
+        check_case(label, name, lambda: kern(*args), lambda: twin(ref, args), reps, results,
+                   work=Work(nbytes(args), ops))
+    # path C, the per-g-point entry points: driven once, summed, against the g-summed sweeps
+    mega.reset_launch_counts()
+    per_gpt = (("lw_noscat_gpt vs lw_noscat_reduced", rk.lw_noscat_gpt(*k16b), rk.lw_noscat_reduced(*k13)),
+               ("sw_2stream_gpt vs sw_2stream_reduced", rk.sw_2stream_gpt(*k16a), rk.sw_2stream_reduced(*k15)))
+    launches = mega.launch_counts()
+    for what, full, summed in per_gpt:
+        require(all(f.shape == (atm.nlay + 1, ncol, f.shape[2]) for f in full), f"{what}: per-g-point flux shape")
+        err, rel = rel_err(tuple(f.sum(-1) for f in full), summed)
+        phase("sweep", f"{label} path C, {what}: summed over g-points max|d|={err:.3e} rel={rel:.3e} "
+                       f"(tol {SUM_TOL:.0e})")
+        require(rel <= SUM_TOL, f"{what}: rel error {rel:.3e} > {SUM_TOL:.0e}")
+    return launches
+
+
+def check_lw2_sweep_allsky(label, L, atm, results) -> None:
+    """lw_2stream_reduced with scattering: the materialized optics composed
+    with clouds (McICA by seed) and aerosols at g-point resolution, so that
+    ssa and g are not zero."""
+    import torch
+
+    from rrtmgp_tpu_torch.models.rrtmgp import _kernel_composition
+    from rrtmgp_tpu_torch.ops import mega, rte_kernels
+    from rrtmgp_tpu_torch.ops.gas_optics_kernel import gas_optics_lw
+
+    lw, ncol = L.lookup_lw, atm.ncol
+    bcs_lw, _ = boundary_conditions(lw, L.lookup_sw, ncol)
+    tau, src = gas_optics_lw(lw, atm, need_lay_source=False)
+    comp = _kernel_composition(lw, atm, L.lookup_lw_cld, L.lookup_lw_aero, None, MCICA_SEED, COL_OFFSET,
+                               None, False, False)[0]
+    zeros = torch.zeros_like(tau)
+    tau, ssa, g, _ = mega._compose_ref(comp, lw, tau, zeros, zeros)
+    require(float(ssa.max()) > 0.1 and float(g.max()) > 0.1, "the all-sky composition does not scatter")
+    args = (tau.contiguous(), ssa.contiguous(), g.contiguous(), src.lev_source, src.sfc_source, bcs_lw.sfc_emis,
+            lw.kernel_tables.gpt2band, None)
+    check_case(f"{label} [with ssa and g, clouds+aerosols]", "lw_2stream_reduced",
+               lambda: rte_kernels.lw_2stream_reduced(*args),
+               lambda: rte_kernels.lw_2stream_reduced_ref(*args), 0, results)
+
+
+def timed_steps(step, steps):
+    """One warm-up, then ``steps`` host-timed steps closed by a synchronize:
+    (last step's result, median ms, min ms, max ms, peak GB, launch counts of
+    the timed steps)."""
+    import torch
+
+    from rrtmgp_tpu_torch.ops import mega
+
+    step()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    mega.reset_launch_counts()
+    times = []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        out = step()
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+    return (out, statistics.median(times), min(times), max(times), torch.cuda.max_memory_allocated() / 1e9,
+            {k: n for k, n in mega.launch_counts().items() if n})
+
+
+def compare_fluxes(tag, name, out, ref, tol, ncols=None) -> None:
+    """Fluxes of a route against a reference route's (on the first ``ncols``
+    columns), within ``tol`` of the largest reference value."""
+    import torch
+
+    if ncols is not None:
+        out = tuple(f[:, :ncols] for f in out)
+    err, rel = rel_err(tuple(out), tuple(ref))
+    phase(tag, f"{name}: max|d|={err:.3e} rel={rel:.3e} (tol {tol:.0e}), bitwise equal: "
+               f"{all(torch.equal(a, b) for a, b in zip(out, ref))}")
+    require(rel <= tol, f"{name}: rel error {rel:.3e} > {tol:.0e}")
+
+
+def phase_sweep_slice(lw, sw, atm, bcs_lw, bcs_sw) -> dict:
+    """Paths A and B of the sweep slice at full width on the clear cell's
+    inputs, and the mixed-dtype boundary conditions; returns the launch
+    counts of path B's timed steps plus path A's."""
+    import torch
+
+    from rrtmgp_tpu_torch import solve_lw, solve_sw
+    from rrtmgp_tpu_torch.states import slice_columns
+
+    tag, ncol = "sweep", atm.ncol
+    a, bl, bs = (slice_columns(x, 0, CMP_NCOL, ncol) for x in (atm, bcs_lw, bcs_sw))
+
+    # path A: LW two-stream on the two-kernel path
+    (f_a, _), ms, lo, hi, peak, launches_a = timed_steps(
+        lambda: solve_lw(lw, atm, bcs_lw, two_stream=True, impl="two_kernel"), STEPS)
+    per_step = {k: n / STEPS for k, n in launches_a.items()}
+    want = {"optics_fused": 1, "planck_band_rows": 2, "lw_2stream_reduced": 1}
+    require(per_step == want, f"path A launches per step {per_step}, expected {want}")
+    phase(tag, f"path A, solve_lw two-stream two-kernel clear at {ncol} x {NLAY}: median {ms:.3f} ms over {STEPS} "
+               f"steps (min {lo:.3f}, max {hi:.3f}), {ncol / (ms / 1e3):.1f} columns/s, peak memory {peak:.2f} GB, "
+               f"launches per step {per_step}")
+    (f_k, _), ms_k, lo, hi, peak_k, _ = timed_steps(
+        lambda: solve_lw(lw, atm, bcs_lw, two_stream=True, impl="kernel"), STEPS)
+    phase(tag, f"path A, the megakernel route (lw2_mega) on the same inputs: median {ms_k:.3f} ms "
+               f"(min {lo:.3f}, max {hi:.3f}), peak memory {peak_k:.2f} GB")
+    require(torch.all(f_a.flux_dn[-1] == 0.0), "path A: LW flux_dn at TOA is not 0 (no incident flux)")
+    compare_fluxes(tag, f"path A two-kernel vs megakernel route on {ncol} columns", f_a, f_k,
+                   TOL["lw_2stream_reduced"])
+    t_lw2, _ = solve_lw(lw, a, bl, two_stream=True, impl="torch")
+    compare_fluxes(tag, f"path A two-kernel vs torch on {CMP_NCOL} columns", f_a, t_lw2, TOL["lw_2stream_reduced"],
+                   CMP_NCOL)
+    del f_a, f_k
+    torch.cuda.empty_cache()
+
+    # path B: the sweep-only route
+    def step():
+        f3, _ = solve_lw(lw, atm, bcs_lw, n_gauss_angles=3, impl="sweep")
+        f2, _ = solve_lw(lw, atm, bcs_lw, two_stream=True, impl="sweep")
+        fs, _ = solve_sw(sw, atm, bcs_sw, impl="sweep")
+        return f3, f2, fs
+
+    steps = 3
+    (f3, f2, fs), ms, lo, hi, peak, launches = timed_steps(step, steps)
+    per_step = {k: n / steps for k, n in launches.items()}
+    want = {"lw_noscat_reduced": 3, "lw_2stream_reduced": 1, "sw_2stream_reduced": 1}
+    require(per_step == want, f"path B launches per step {per_step}, expected {want}")
+    phase(tag, f"path B, LW 3 angles + LW two-stream + SW two-stream through impl='sweep' at {ncol} x {NLAY}: "
+               f"median {ms:.3f} ms over {steps} steps (min {lo:.3f}, max {hi:.3f}), "
+               f"{ncol / (ms / 1e3):.1f} columns/s, peak memory {peak:.2f} GB, launches per step {per_step}")
+    for f in (*f3, *f2, *fs):
+        require(f.shape == (NLAY + 1, ncol) and torch.isfinite(f).all(), "flux shape or non-finite flux")
+    require(torch.all(f3.flux_dn[-1] == 0.0) and torch.all(f2.flux_dn[-1] == 0.0),
+            "path B: LW flux_dn at TOA is not 0 (no incident flux)")
+    require(torch.all(fs.flux_dn_dir[:-1] <= fs.flux_dn_dir[1:]), "SW direct beam increases toward the surface")
+    check_night(sw, a, bs, {}, tag, impl="sweep")
+    t_lw3, _ = solve_lw(lw, a, bl, n_gauss_angles=3, impl="torch")
+    t_sw, _ = solve_sw(sw, a, bs, impl="torch")
+    for name, out, ref, tol in (("solve_lw 3 angles", f3, t_lw3, TOL["lw_noscat_reduced"]),
+                                ("solve_lw two-stream", f2, t_lw2, TOL["lw_2stream_reduced"]),
+                                ("solve_sw", fs, t_sw, TOL["sw_2stream_reduced"])):
+        compare_fluxes(tag, f"path B {name} sweep vs torch on {CMP_NCOL} columns", out, ref, tol, CMP_NCOL)
+    del f3, f2, fs, t_lw3, t_lw2, t_sw
+    torch.cuda.empty_cache()
+
+    # boundary conditions of another dtype than the state, on the default route
+    f64 = lambda b: dataclasses.replace(b, **{f.name: getattr(b, f.name).double() for f in dataclasses.fields(b)
+                                              if isinstance(getattr(b, f.name), torch.Tensor)})
+    for name, solve, b in (("solve_lw", lambda x: solve_lw(lw, a, x)[0], bl),
+                           ("solve_sw", lambda x: solve_sw(sw, a, x)[0], bs)):
+        mixed, cast = solve(f64(b)), solve(b)
+        require(all(m.dtype == torch.float32 and torch.equal(m, c) for m, c in zip(mixed, cast)),
+                f"{name}: f64 boundary conditions with an f32 atmosphere differ from the cast input's result")
+    phase(tag, "f64 boundary conditions with an f32 atmosphere through the default impl: f32 fluxes, "
+               "bitwise equal to the cast input's")
+    launches["lw_2stream_reduced"] += launches_a["lw_2stream_reduced"]
+    return launches
+
+
+def phase_sweep_allsky(L, atm, bcs_lw) -> None:
+    """Path A all-sky (McICA by seed + aerosols) at the all-sky cell's size:
+    unchunked if its memory, measured on 8192 columns and scaled, fits the
+    free memory of the card with a tenth to spare; else through
+    solve_chunked in as few equal chunks as fit."""
+    import torch
+
+    from rrtmgp_tpu_torch import solve_lw
+    from rrtmgp_tpu_torch.models.rrtmgp import solve_chunked
+    from rrtmgp_tpu_torch.states import slice_columns
+
+    tag, ncol, lw = "sweep", atm.ncol, L.lookup_lw
+    kw = dict(two_stream=True, lkp_cld=L.lookup_lw_cld, lkp_aero=L.lookup_lw_aero)
+
+    def solve(impl, a, b, off=0):
+        return solve_lw(lw, a, b, cld_mask_seed=MCICA_SEED, col_offset=COL_OFFSET + off, impl=impl, **kw)
+
+    a, bl = slice_columns(atm, 0, TWIN_CHUNK, ncol), slice_columns(bcs_lw, 0, TWIN_CHUNK, ncol)
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    solve("two_kernel", a, bl)
+    per_col = (torch.cuda.max_memory_allocated() - base) / TWIN_CHUNK
+    free = torch.cuda.mem_get_info()[0] + torch.cuda.memory_reserved() - torch.cuda.memory_allocated()
+    n_chunks = -(-int(per_col * ncol) // int(0.9 * free))
+    fits = n_chunks == 1
+    chunk = -(-ncol // n_chunks // 1024) * 1024  # equal chunks, whole thousands of columns
+    phase(tag, f"path A all-sky: {per_col * ncol / 1e9:.2f} GB needed at {ncol} columns ({per_col / 1e3:.1f} KB "
+               f"per column on {TWIN_CHUNK}), {free / 1e9:.2f} GB free: "
+               + ("unchunked" if fits else f"through solve_chunked in {n_chunks} chunks of {chunk} columns"))
+
+    def run(impl):
+        if fits:
+            return solve(impl, atm, bcs_lw)
+        return solve_chunked(lambda x, y, seed, off: solve(impl, x, y, off), atm, bcs_lw, chunk,
+                             cld_mask_seed=MCICA_SEED)
+
+    (f_a, d_a), ms, lo, hi, peak, launches = timed_steps(lambda: run("two_kernel"), 3)
+    phase(tag, f"path A, solve_lw two-stream two-kernel all-sky at {ncol} x {NLAY}: median {ms:.3f} ms over 3 steps "
+               f"(min {lo:.3f}, max {hi:.3f}), {ncol / (ms / 1e3):.1f} columns/s, peak memory {peak:.2f} GB, "
+               f"launches in 3 steps {launches}")
+    for name in ("optics_fused", "planck_band_rows", "lw_2stream_reduced", "aerosol_bands", "mcica_mask_export"):
+        require(launches.get(name, 0) > 0, f"{name} was not launched on path A all-sky")
+    (f_k, d_k), ms_k, lo, hi, peak_k, _ = timed_steps(lambda: solve("kernel", atm, bcs_lw), 3)
+    phase(tag, f"path A all-sky, the megakernel route (lw2_mega): median {ms_k:.3f} ms (min {lo:.3f}, max {hi:.3f}), "
+               f"peak memory {peak_k:.2f} GB")
+    compare_fluxes(tag, f"path A all-sky two-kernel vs megakernel route on {ncol} columns", f_a, f_k,
+                   TOL["lw_2stream_reduced"])
+    require(torch.equal(d_a.cld_cover, d_k.cld_cover), "path A all-sky: cloud cover differs from the megakernel's")
+    a, bl = slice_columns(atm, 0, CMP_NCOL, ncol), slice_columns(bcs_lw, 0, CMP_NCOL, ncol)
+    f_t, d_t = solve("torch", a, bl)
+    compare_fluxes(tag, f"path A all-sky two-kernel vs torch on {CMP_NCOL} columns", f_a, f_t,
+                   TOL["lw_2stream_reduced"], CMP_NCOL)
+    require(torch.equal(d_a.cld_cover[:CMP_NCOL], d_t.cld_cover), "path A all-sky: cloud cover differs from torch's")
+    require(float(d_a.cld_cover.max()) > 0.0 and torch.all(f_a.flux_dn[-1] == 0.0), "path A all-sky oracles")
+    phase(tag, "path A all-sky: cloud cover bitwise on both comparisons, LW TOA dn = 0")
+
+
 def main() -> None:
     import torch
 
@@ -1197,6 +1497,14 @@ def main() -> None:
     two_kernel = phase_two_kernel_slice(lw, sw, atm, bcs_lw, bcs_sw, f32_lw, L)
     launches.update({k: two_kernel[k] for k in ("optics_fused_lw", "optics_fused_sw", "planck_band_rows",
                                                 "lw_noscat_banded_reduced", "sw_2stream_reduced")})
+    torch.cuda.empty_cache()
+    path_c = check_sweep_kernels(label, lw, sw, atm, bcs_lw, bcs_sw, 3, results, chunk=TWIN_CHUNK)
+    check_lw2_sweep_allsky(f"main ncol={TWIN_CHUNK} nlay={NLAY} ngpt=256", L, allsky_atmosphere(TWIN_CHUNK, NLAY),
+                           results)
+    torch.cuda.empty_cache()
+    sweep = phase_sweep_slice(lw, sw, atm, bcs_lw, bcs_sw)
+    launches.update(lw_noscat_reduced=sweep["lw_noscat_reduced"], lw_2stream_reduced=sweep["lw_2stream_reduced"],
+                    sw_2stream_gpt=path_c["sw_2stream_gpt"], lw_noscat_gpt=path_c["lw_noscat_gpt"])
     del atm, bcs_lw, bcs_sw
     torch.cuda.empty_cache()
     f64 = phase_f64_slice(lw64, sw64, atm64, bcs_lw64, bcs_sw64, f32_lw)
@@ -1215,6 +1523,8 @@ def main() -> None:
     torch.cuda.empty_cache()
     noscat = phase_allsky_slice(L, atm, bcs_lw, bcs_sw, two_stream_lw=False)
     launches.update(lw_clear_mega_allsky=noscat["lw_clear_mega"])
+    torch.cuda.empty_cache()
+    phase_sweep_allsky(L, atm, bcs_lw)
 
     kernels = [
         {"name": name, "route": "cuda", "source": SOURCES[name][0], "replaces": SOURCES[name][1],

@@ -21,10 +21,12 @@ exact torch path); every other f64 solve takes the torch path.
 Not ported: the TPU-only arguments of the JAX solver (``pallas_windowed``,
 ``use_pallas``). Features still to come raise ``NotImplementedError`` naming
 their ROADMAP item. The port adds ``impl`` (``"kernel"``, ``"two_kernel"``,
-``"torch"`` or None), passed through to ``solve_lw`` / ``solve_sw``; with the
-default None f32 CUDA solves take the megakernels, and the two-kernel path
-for several LW angles (``n_gauss_angles > 1``) and for the SW direct-beam
-solve (``two_stream_sw=False``).
+``"sweep"``, ``"torch"`` or None), passed through to ``solve_lw`` /
+``solve_sw``: the megakernels; the optics kernel, plain-torch composition and
+a sweep kernel; plain-torch optics and a sweep kernel; or plain torch
+throughout. With the default None f32 CUDA solves take the megakernels, and
+the two-kernel path for several LW angles (``n_gauss_angles > 1``) and for
+the SW direct-beam solve (``two_stream_sw=False``); never ``"sweep"``.
 """
 
 from __future__ import annotations

@@ -6,6 +6,11 @@ arrays (``np.asarray`` of each leaf) together with the static fields and
 build the matching torch containers, so the same weights and inputs feed both
 packages. Nothing here imports jax.
 
+Device: every function here, and through them ``data.synthetic`` and
+``api.lookup_tables``, takes ``device``; None is ``default_device()``, the
+card when there is one and the CPU otherwise, so that a solve runs on the
+card unless the caller asks for the CPU (``device="cpu"``).
+
 The kernels need no conversion of their own: the megakernels and the kernels
 of the two-kernel path read ``KernelTables`` (``ops.mega_inputs``, built once
 per converted ``GasLookup`` as ``lkp.kernel_tables``) and ``lkp.totplnk``.
@@ -44,10 +49,16 @@ GAS_LOOKUP_META = (
 )
 
 
+def default_device() -> torch.device:
+    """Where the port builds its tensors when the caller names no device:
+    the card when there is one, else the CPU."""
+    return torch.device("cuda" if torch.cuda.is_available() else "cpu")
+
+
 def _tensor(x, dtype, device):
     if x is None:
         return None
-    return torch.from_numpy(np.array(x)).to(device=device, dtype=dtype)
+    return torch.from_numpy(np.array(x)).to(device=default_device() if device is None else device, dtype=dtype)
 
 
 def _float_dtype(x, dtype):

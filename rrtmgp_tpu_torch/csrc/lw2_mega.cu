@@ -30,36 +30,13 @@
 //   source at its bottom level; the pass then needs no divide. Level sums
 //   are deterministic per-warp partials (common.cuh). Cloud, aerosol and
 //   mask mode are template parameters, so the clear variant carries none of
-//   their code.
+//   their code. The layer coefficients are lw_twostream.cuh's, shared with
+//   the sweep from materialized optics (lw_2stream_reduced.cu).
 #include "allsky.cuh"
 #include "common.cuh"
+#include "lw_twostream.cuh"
 
 namespace rrtmgp {
-
-// Meador-Weaver diffuse R/T + Toon linear-in-tau sources, in the order of
-// ops/rte.py lw_2stream_coeffs.
-__device__ __forceinline__ void lw2_coeffs(float tau, float ssa, float g, float lev_bot, float lev_top,
-                                           float& Rdif, float& Tdif, float& src_up, float& src_dn) {
-  const float eps = FLT_EPSILON;
-  const float k_min = 3.4526698300124393e-4f;  // sqrt(eps)
-  const float tau_thresh = 100.f * eps;
-  const float diff_sec = 1.66f;
-  const float half_diff_sec = (float)(1.66 * 0.5);
-  const float pi = 3.14159265358979323846f;
-  const float gamma1 = diff_sec * (1.f - 0.5f * ssa * (1.f + g));
-  const float gamma2 = half_diff_sec * ssa * (1.f - g);
-  const float k = sqrtf(fmaxf((gamma1 + gamma2) * (gamma1 - gamma2), k_min));
-  const float coeff = expf(-2.f * tau * k);
-  const float rt = 1.f / (k * (1.f + coeff) + gamma1 * (1.f - coeff));
-  Rdif = rt * gamma2 * (1.f - coeff);
-  Tdif = rt * 2.f * k * expf(-tau * k);
-  const bool big = tau > tau_thresh;
-  const float Z = (lev_bot - lev_top) / ((big ? tau : 1.f) * (gamma1 + gamma2));
-  const float zup_top = Z + lev_top, zup_bot = Z + lev_bot;
-  const float zdn_top = -Z + lev_top, zdn_bot = -Z + lev_bot;
-  src_up = big ? pi * (zup_top - Rdif * zdn_top - Tdif * zup_bot) : 0.f;
-  src_dn = big ? pi * (zdn_bot - Rdif * zup_bot - Tdif * zdn_top) : 0.f;
-}
 
 template <bool CLOUD, bool AERO, int MASK>
 __global__ void lw2_mega_kernel(OpticsIn in, Tables tb, Dims d, AllSkyIn as,

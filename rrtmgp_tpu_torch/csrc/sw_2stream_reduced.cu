@@ -1,9 +1,11 @@
-// SW two-stream sweep of the two-kernel path: from materialized optics to
-// fluxes summed over g-points.
+// SW two-stream sweeps from materialized optics: fluxes summed over g-points
+// or kept per g-point.
 //
 // Replaces: rrtmgp_tpu/ops/pallas_rte.py, _sw_sweep_reduced_kernel and
 //   _sw_sweep_reduced_stream_kernel (wrapper sw_2stream_pallas_reduced; the
-//   two TPU kernels compute one function, blocked or streamed to fit VMEM):
+//   two TPU kernels compute one function, blocked or streamed to fit VMEM;
+//   here PER_GPT = false) and _sw_sweep_kernel (wrapper sw_2stream_pallas;
+//   PER_GPT = true, see the end of Design):
 //   the direct beam from the top, the PIFM / Meador-Weaver layer coefficients
 //   with their energy clamps, the adding recurrence from the surface, the
 //   diffuse flux from the top, and the g-point sums of up, down and direct
@@ -30,29 +32,35 @@
 //   the megakernel's, so the two paths agree to rounding; mu0 guarded by eps
 //   enters only the beam transmittance. Night columns (mu0 <= 0) give finite
 //   or non-finite values that the caller replaces by zeros. The real type
-//   and has_g are template parameters (the entry point builds f32). Nothing
+//   and has_g are template parameters (the entry points build f32). Nothing
 //   of the TPU kernels' structure is kept: no column blocks, no lane
 //   padding, no streaming ring buffer.
+//   PER_GPT, a third template parameter, is the same kernel without the
+//   g-point sums: mu0 and the albedos come per g-point, (ncol, ngpt), as the
+//   TPU function takes them, each thread stores its beam per level in the
+//   top-down pass and its up and down flux in the flux pass, (nlev, ncol,
+//   ngpt) each, and no shared memory is used. At 32768 x 60 x 224 its outputs are 3 x 1.79
+//   GB beside 3 x 1.76 GB of inputs: 10.7 GB, 3.2 ms at 3.35 TB/s.
 #include "common.cuh"
 #include "sw_twostream.cuh"
 
 namespace rrtmgp {
 
-template <typename R, bool HAS_G>
+template <typename R, bool HAS_G, bool PER_GPT>
 __global__ void sw_2stream_reduced_kernel(const R* __restrict__ tau,        // (nlay, ncol, ngpt)
                                           const R* __restrict__ ssa,        // (nlay, ncol, ngpt)
                                           const R* __restrict__ gasym,      // (nlay, ncol, ngpt), HAS_G
-                                          const R* __restrict__ mu0_col,    // (ncol,)
+                                          const R* __restrict__ mu0_col,    // (ncol,); PER_GPT (ncol, ngpt)
                                           const R* __restrict__ toa_gpt,    // (ncol, ngpt)
-                                          const R* __restrict__ alb_dir,    // (nbnd, ncol)
-                                          const R* __restrict__ alb_dif,    // (nbnd, ncol)
-                                          const int* __restrict__ gpt2band,  // (ngpt,)
+                                          const R* __restrict__ alb_dir,    // (nbnd, ncol); PER_GPT (ncol, ngpt)
+                                          const R* __restrict__ alb_dif,    // (nbnd, ncol); PER_GPT (ncol, ngpt)
+                                          const int* __restrict__ gpt2band,  // (ngpt,); PER_GPT unused
                                           const R* __restrict__ inc_dif,    // (ncol, ngpt) or null
                                           R* __restrict__ s_rdir,           // 4 x (nlay, ncol, ngpt)
                                           R* __restrict__ s_tdir,
                                           R* __restrict__ s_rdif,
                                           R* __restrict__ s_tdif,
-                                          R* __restrict__ flux_up,          // 3 x (nlev, ncol)
+                                          R* __restrict__ flux_up,          // 3 x (nlev, ncol); PER_GPT (nlev, ncol, ngpt)
                                           R* __restrict__ flux_dn,
                                           R* __restrict__ flux_dir,
                                           Dims d) {
@@ -62,13 +70,24 @@ __global__ void sw_2stream_reduced_kernel(const R* __restrict__ tau,        // (
   const bool active = g < d.ngpt;
   const int nlay = d.nlay;
   const LevelSumsT<R> sums{reinterpret_cast<R*>(smem_raw), nlay + 1, (int)(blockDim.x >> 5)};
-  const int band = active ? __ldg(gpt2band + g) : 0;
-  const R mu0 = __ldg(mu0_col + col);
+  int band = 0;
+  R mu0;
+  if constexpr (PER_GPT) {
+    mu0 = active ? __ldg(mu0_col + (size_t)col * d.ngpt + g) : R(1);
+  } else {
+    band = active ? __ldg(gpt2band + g) : 0;
+    mu0 = __ldg(mu0_col + col);
+  }
   const R mu0_safe = r_max(mu0, r_eps<R>());
 
-  // top-down: coefficients to scratch, beam in a register
+  // top-down: coefficients to scratch, beam in a register; the beam of each
+  // level goes to the level sum or, per g-point, to flux_dir
   R beam = active ? __ldg(toa_gpt + (size_t)col * d.ngpt + g) * mu0 : R(0);
-  sums.add(SW_DIR, nlay, beam);
+  if constexpr (PER_GPT) {
+    if (active) flux_dir[((size_t)nlay * d.ncol + col) * d.ngpt + g] = beam;
+  } else {
+    sums.add(SW_DIR, nlay, beam);
+  }
   for (int l = nlay - 1; l >= 0; --l) {
     if (active) {
       const size_t s = ((size_t)l * d.ncol + col) * d.ngpt + g;
@@ -81,21 +100,22 @@ __global__ void sw_2stream_reduced_kernel(const R* __restrict__ tau,        // (
       s_rdif[s] = Rdif;
       s_tdif[s] = Tdif;
       beam *= T0;
+      if constexpr (PER_GPT) flux_dir[s] = beam;  // level l: the same offset as layer l
     }
-    sums.add(SW_DIR, l, beam);
+    if constexpr (!PER_GPT) sums.add(SW_DIR, l, beam);
   }
 
-  sw_adding_and_fluxes(d, sums, col, g, active, band, beam, alb_dir, alb_dif, inc_dif,
-                       s_rdir, s_tdir, s_rdif, s_tdif, flux_up, flux_dn, flux_dir);
+  sw_adding_and_fluxes<PER_GPT>(d, sums, col, g, active, band, beam, alb_dir, alb_dif, inc_dif, s_rdir, s_tdir,
+                                s_rdif, s_tdif, flux_up, flux_dn, flux_dir);
 }
 
-template <typename R, bool HAS_G>
+template <typename R, bool HAS_G, bool PER_GPT>
 cudaError_t launch_sw_reduced(const Dims& d, cudaStream_t stream, const R* tau, const R* ssa, const R* gasym,
                               const R* mu0, const R* toa_gpt, const R* alb_dir, const R* alb_dif,
                               const int* gpt2band, const R* inc_dif, R* s_rdir, R* s_tdir, R* s_rdif,
                               R* s_tdif, R* up, R* dn, R* dir) {
-  const MegaLaunch m = mega_launch<R>(d, 3);
-  auto kernel = sw_2stream_reduced_kernel<R, HAS_G>;
+  const MegaLaunch m = mega_launch<R>(d, PER_GPT ? 0 : 3);
+  auto kernel = sw_2stream_reduced_kernel<R, HAS_G, PER_GPT>;
   cudaError_t err = prepare_smem(kernel, m.smem);
   if (err != cudaSuccess) return err;
   kernel<<<m.grid, m.block, m.smem, stream>>>(tau, ssa, gasym, mu0, toa_gpt, alb_dir, alb_dif, gpt2band,
@@ -106,6 +126,15 @@ cudaError_t launch_sw_reduced(const Dims& d, cudaStream_t stream, const R* tau, 
 }  // namespace rrtmgp
 
 // f32; gasym null = asymmetry 0, inc_dif null = no incident diffuse flux.
+#define RRTMGP_SWR(G, P)                                                                                       \
+  launch_sw_reduced<float, G, P>(d, (cudaStream_t)stream, (const float*)tau, (const float*)ssa,                \
+                                 (const float*)gasym, (const float*)mu0, (const float*)toa_gpt,                \
+                                 (const float*)alb_dir, (const float*)alb_dif, (const int*)gpt2band,           \
+                                 (const float*)inc_dif, (float*)s_rdir, (float*)s_tdir, (float*)s_rdif,        \
+                                 (float*)s_tdif, (float*)flux_up, (float*)flux_dn, (float*)flux_dir)
+
+// Summed over g-points: mu0 (ncol,), albedos (nbnd, ncol) with gpt2band,
+// fluxes (nlev, ncol).
 extern "C" int rrtmgp_sw_2stream_reduced(const void* tau, const void* ssa, const void* gasym, const void* mu0,
                                          const void* toa_gpt, const void* alb_dir, const void* alb_dif,
                                          const void* gpt2band, const void* inc_dif, void* s_rdir, void* s_tdir,
@@ -113,14 +142,18 @@ extern "C" int rrtmgp_sw_2stream_reduced(const void* tau, const void* ssa, const
                                          void* flux_dir, int nlay, int ncol, int ngpt, int nbnd, void* stream) {
   using namespace rrtmgp;
   const Dims d{nlay, ncol, ngpt, nbnd, 0, 0, 0};
-  const cudaStream_t s = (cudaStream_t)stream;
-#define RRTMGP_SWR(G)                                                                                          \
-  launch_sw_reduced<float, G>(d, s, (const float*)tau, (const float*)ssa, (const float*)gasym,                 \
-                              (const float*)mu0, (const float*)toa_gpt, (const float*)alb_dir,                 \
-                              (const float*)alb_dif, (const int*)gpt2band, (const float*)inc_dif,              \
-                              (float*)s_rdir, (float*)s_tdir, (float*)s_rdif, (float*)s_tdif,                  \
-                              (float*)flux_up, (float*)flux_dn, (float*)flux_dir)
-  const cudaError_t err = gasym != nullptr ? RRTMGP_SWR(true) : RRTMGP_SWR(false);
-#undef RRTMGP_SWR
-  return (int)err;
+  return (int)(gasym != nullptr ? RRTMGP_SWR(true, false) : RRTMGP_SWR(false, false));
 }
+
+// Per g-point: mu0 and albedos (ncol, ngpt), fluxes (nlev, ncol, ngpt).
+extern "C" int rrtmgp_sw_2stream_gpt(const void* tau, const void* ssa, const void* gasym, const void* mu0,
+                                     const void* toa_gpt, const void* alb_dir, const void* alb_dif,
+                                     const void* inc_dif, void* s_rdir, void* s_tdir, void* s_rdif,
+                                     void* s_tdif, void* flux_up, void* flux_dn, void* flux_dir, int nlay,
+                                     int ncol, int ngpt, void* stream) {
+  using namespace rrtmgp;
+  const Dims d{nlay, ncol, ngpt, 0, 0, 0, 0};
+  const void* gpt2band = nullptr;
+  return (int)(gasym != nullptr ? RRTMGP_SWR(true, true) : RRTMGP_SWR(false, true));
+}
+#undef RRTMGP_SWR

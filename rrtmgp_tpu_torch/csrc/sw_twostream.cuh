@@ -1,10 +1,11 @@
 // SW two-stream device code shared by the SW megakernel (sw_clear_mega.cu)
-// and the SW sweep of the two-kernel path (sw_2stream_reduced.cu): the layer
-// coefficients, and the adding and flux passes over four scratch arrays.
-// Both kernels run one block per column and one thread per g-point, carry
-// the direct beam top-down in a register and leave, per layer, Rdir * beam,
-// Tdir * beam, Rdif and Tdif in the scratch; from there on they are the same
-// code, so the two paths agree to the last bit on equal optics.
+// and the SW sweeps from materialized optics (sw_2stream_reduced.cu, summed
+// over g-points or per g-point): the layer coefficients, and the adding and
+// flux passes over four scratch arrays. The kernels run one block per column
+// and one thread per g-point, carry the direct beam top-down in a register
+// and leave, per layer, Rdir * beam, Tdir * beam, Rdif and Tdif in the
+// scratch; from there on they are the same code, so the paths agree to the
+// last bit on equal optics.
 #pragma once
 
 #include "common.cuh"
@@ -57,7 +58,12 @@ __device__ __forceinline__ void sw_coeffs(R tau, R ssa, R g, R mu0, R T0, R& Rdi
 //   top-down diffuse flux with the SW_UP and SW_DN_DIF sums;
 //   then the block writes flux_up, flux_dn (diffuse + direct) and flux_dir,
 //   each (nlev, ncol).
-template <typename R>
+// With PER_GPT nothing is summed: the albedos are per g-point, (ncol, ngpt),
+// the fluxes (nlev, ncol, ngpt); the caller has stored the direct beam of
+// every level in flux_dir, and each thread stores its own flux_up and
+// flux_dn (diffuse + the direct beam it reads back). `sums` and `band` are
+// not used then.
+template <bool PER_GPT = false, typename R>
 __device__ __forceinline__ void sw_adding_and_fluxes(const Dims& d, const LevelSumsT<R>& sums, int col, int g,
                                                      bool active, int band, R beam,
                                                      const R* __restrict__ alb_dir,  // (nbnd, ncol)
@@ -68,8 +74,16 @@ __device__ __forceinline__ void sw_adding_and_fluxes(const Dims& d, const LevelS
                                                      R* __restrict__ s_tdif, R* __restrict__ flux_up,
                                                      R* __restrict__ flux_dn, R* __restrict__ flux_dir) {
   const int nlay = d.nlay, nlev = d.nlay + 1, ncol = d.ncol;
-  const R alb0 = active ? __ldg(alb_dif + (size_t)band * ncol + col) : R(0);
-  const R src0 = active ? beam * __ldg(alb_dir + (size_t)band * ncol + col) : R(0);
+  R alb0 = R(0), src0 = R(0);
+  if constexpr (PER_GPT) {
+    if (active) {
+      alb0 = __ldg(alb_dif + (size_t)col * d.ngpt + g);
+      src0 = beam * __ldg(alb_dir + (size_t)col * d.ngpt + g);
+    }
+  } else {
+    alb0 = active ? __ldg(alb_dif + (size_t)band * ncol + col) : R(0);
+    src0 = active ? beam * __ldg(alb_dir + (size_t)band * ncol + col) : R(0);
+  }
   R alb = alb0, src = src0;
   if (active) {
     for (int l = 0; l < nlay; ++l) {
@@ -88,8 +102,16 @@ __device__ __forceinline__ void sw_adding_and_fluxes(const Dims& d, const LevelS
   }
 
   R fd = (active && inc_dif != nullptr) ? inc_dif[(size_t)col * d.ngpt + g] : R(0);
-  sums.add(SW_UP, nlay, active ? fd * alb + src : R(0));
-  sums.add(SW_DN_DIF, nlay, fd);
+  if constexpr (PER_GPT) {
+    if (active) {
+      const size_t o = ((size_t)nlay * ncol + col) * d.ngpt + g;
+      flux_up[o] = fd * alb + src;
+      flux_dn[o] = fd + flux_dir[o];
+    }
+  } else {
+    sums.add(SW_UP, nlay, active ? fd * alb + src : R(0));
+    sums.add(SW_DN_DIF, nlay, fd);
+  }
   for (int l = nlay - 1; l >= 0; --l) {
     R up = R(0);
     if (active) {
@@ -99,18 +121,26 @@ __device__ __forceinline__ void sw_adding_and_fluxes(const Dims& d, const LevelS
       const R alb_l = l == 0 ? alb0 : s_rdir[below];
       const R src_l = l == 0 ? src0 : s_tdir[below];
       up = fd * alb_l + src_l;
+      if constexpr (PER_GPT) {
+        flux_up[i] = up;  // level l: the same offset as layer l
+        flux_dn[i] = fd + flux_dir[i];
+      }
     }
-    sums.add(SW_UP, l, up);
-    sums.add(SW_DN_DIF, l, fd);
+    if constexpr (!PER_GPT) {
+      sums.add(SW_UP, l, up);
+      sums.add(SW_DN_DIF, l, fd);
+    }
   }
 
-  __syncthreads();
-  for (int lev = threadIdx.x; lev < nlev; lev += blockDim.x) {
-    const size_t o = (size_t)lev * ncol + col;
-    const R dir = sums.total(SW_DIR, lev);
-    flux_up[o] = sums.total(SW_UP, lev);
-    flux_dn[o] = sums.total(SW_DN_DIF, lev) + dir;
-    flux_dir[o] = dir;
+  if constexpr (!PER_GPT) {
+    __syncthreads();
+    for (int lev = threadIdx.x; lev < nlev; lev += blockDim.x) {
+      const size_t o = (size_t)lev * ncol + col;
+      const R dir = sums.total(SW_DIR, lev);
+      flux_up[o] = sums.total(SW_UP, lev);
+      flux_dn[o] = sums.total(SW_DN_DIF, lev) + dir;
+      flux_dir[o] = dir;
+    }
   }
 }
 

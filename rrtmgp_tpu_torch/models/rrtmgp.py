@@ -2,7 +2,7 @@
 ``rrtmgp_tpu/models/rrtmgp.py``): LW no-scattering or two-stream, SW
 two-stream or direct beam only, with McICA clouds and MERRA aerosols.
 
-Three implementations of the same functions, chosen by ``impl``:
+Four implementations of the same functions, chosen by ``impl``:
 
 - ``"kernel"``: the megakernels, the hand-written CUDA kernels of
   ``ops.mega`` and ``ops.aerosol_bands`` (band Planck, then one kernel for
@@ -18,11 +18,18 @@ Three implementations of the same functions, chosen by ``impl``:
   Planck values), clouds and aerosols are composed on those tensors in plain
   torch as on the torch path (a seeded McICA mask comes from the export
   kernel K6, the aerosol band sums from K5), and a sweep kernel returns g-summed fluxes
-  (``ops.rte_kernels``: K12 once per angle on the same optics, K15). CUDA
-  tensors, f32. LW no-scattering with 1-4 angles, SW two-stream, and SW
-  direct beam only (the optics kernel, then the beam recurrence in plain
-  torch, which the JAX package too computes outside any kernel). LW
-  two-stream is not ported on this path yet.
+  (``ops.rte_kernels``: K12 once per angle on the same optics, K14, K15).
+  CUDA tensors, f32. LW no-scattering with 1-4 angles, LW two-stream (the
+  level sources materialized per g-point from the band Planck values and the
+  Planck fraction in plain torch, then K14), SW two-stream, and SW direct
+  beam only (the optics kernel, then the beam recurrence in plain torch,
+  which the JAX package too computes outside any kernel).
+- ``"sweep"``: the sweep kernels alone, the JAX package's ``pallas_rte=True``
+  without ``pallas_tables``. Gas optics, Planck sources and the composition
+  are the torch path's, in plain torch; then a sweep kernel returns g-summed
+  fluxes: K13 once per angle (LW no-scattering, 1-4 angles), K14 (LW
+  two-stream) or K15 (SW two-stream); the SW direct-beam solve is the torch
+  path's. CUDA tensors, f32. Never chosen by ``impl=None``.
 - ``"torch"``: plain torch, ``ops.gas_optics`` then the composition and
   ``ops.rte``; any device, f32 or f64. Every combination of the JAX
   package's XLA path.
@@ -38,6 +45,8 @@ that has one and ``"torch"`` otherwise (with a warning); CPU tensors take
 ``impl=None`` never does for a solve the JAX package computes. (The kernels
 run one thread per g-point: a lookup of more than 1024 g-points is refused
 by their wrappers on CUDA tensors, whatever the ``impl`` but ``"torch"``.)
+On the kernel routes float boundary conditions of another dtype than the
+state are cast to the state's dtype, as the JAX package casts them.
 Fluxes are (nlay+1, ncol), level 0 = surface.
 
 ``solve_chunked`` runs a solve over column chunks in bounded memory; the
@@ -70,6 +79,7 @@ from ..ops.cloud_optics import (
     delta_scale,
 )
 from ..ops.gas_optics import gas_optics_lw, gas_optics_sw, gpt2band
+from ..ops.gas_optics_kernel import gas_optics_lw as gas_optics_lw_kernel
 from ..ops.gas_optics_kernel import gas_optics_lw_raw
 from ..ops.gas_optics_kernel import gas_optics_sw as gas_optics_sw_kernel
 from ..ops.mega import (
@@ -82,7 +92,12 @@ from ..ops.mega import (
     sw_clear_mega,
 )
 from ..ops.mega_inputs import mega_lw_inputs, mega_sw_inputs
-from ..ops.rte_kernels import lw_noscat_banded_reduced, sw_2stream_reduced
+from ..ops.rte_kernels import (
+    lw_2stream_reduced,
+    lw_noscat_banded_reduced,
+    lw_noscat_reduced,
+    sw_2stream_reduced,
+)
 from ..states import AtmosphericState, LwBCs, SwBCs, slice_columns
 
 
@@ -105,10 +120,7 @@ class SolveDiagnostics(NamedTuple):
     aod_sw_sca: torch.Tensor | None = None
 
 
-IMPLS = ("kernel", "two_kernel", "torch")
-#: ROADMAP queue 1 item that adds LW two-stream and the sweep from
-#: precomputed sources to the two-kernel path (K13, K14)
-TWO_KERNEL_LW2_ITEM = "item 21"
+IMPLS = ("kernel", "two_kernel", "sweep", "torch")
 F64_WARNING = (
     "impl=None on float64 CUDA tensors: only the clear-sky LW no-scattering "
     "solve without aerosols has an f64 CUDA kernel; this f64 solve dispatches "
@@ -122,9 +134,10 @@ def _resolve_impl(impl: str | None, device: torch.device, dtype: torch.dtype,
     """``impl=None``: for f32 CUDA tensors the megakernels where they cover
     the solve (``mega``), else the two-kernel path; the kernel for an f64
     solve that has one (``has_f64_kernel``); the torch path otherwise (with
-    a warning for the other f64 solves on CUDA tensors). ``"kernel"`` and
-    ``"two_kernel"`` need CUDA tensors; ``"kernel"`` raises for an f64
-    solve without a kernel, ``"two_kernel"`` for any f64 solve."""
+    a warning for the other f64 solves on CUDA tensors); never ``"sweep"``.
+    ``"kernel"``, ``"two_kernel"`` and ``"sweep"`` need CUDA tensors;
+    ``"kernel"`` raises for an f64 solve without a kernel, ``"two_kernel"``
+    and ``"sweep"`` for any f64 solve."""
     f64 = dtype == torch.float64
     f64_without = f64 and not has_f64_kernel
     if impl is None:
@@ -144,7 +157,9 @@ def _resolve_impl(impl: str | None, device: torch.device, dtype: torch.dtype,
         _not_ported("an f64 CUDA kernel for this solve (f64 has one for clear-sky LW "
                     "no-scattering without aerosols only)", F64_ALLSKY_ITEM)
     if impl == "two_kernel" and f64:
-        _not_ported("the two-kernel path in f64 (its four kernels are built for f32)", F64_ALLSKY_ITEM)
+        _not_ported("the two-kernel path in f64 (its kernels are built for f32)", F64_ALLSKY_ITEM)
+    if impl == "sweep" and f64:
+        _not_ported("the sweep route in f64 (the sweep kernels are built for f32)", F64_ALLSKY_ITEM)
     return impl
 
 
@@ -152,13 +167,21 @@ def _not_ported(what: str, item: str):
     raise NotImplementedError(f"{what} is not ported yet (ROADMAP queue 1, {item})")
 
 
-def _kernel_ready(bcs, cld_mask):
+def _kernel_ready(bcs, cld_mask, dtype):
     """Boundary conditions and cloud mask as the kernel wrappers take them:
-    contiguous (the wrappers check and refuse, the torch path takes any
-    strides; a contiguous tensor is returned as it is)."""
-    c = lambda x: x.contiguous() if isinstance(x, torch.Tensor) else x
-    bcs = dataclasses.replace(bcs, **{f.name: c(getattr(bcs, f.name)) for f in dataclasses.fields(bcs)})
-    return bcs, c(cld_mask)
+    float fields in the state's ``dtype`` (the wrappers refuse another, the
+    torch path promotes; the JAX package casts them likewise) and contiguous
+    (the wrappers check and refuse, the torch path takes any strides). A
+    tensor that already is both is returned as it is."""
+    def ready(x):
+        if not isinstance(x, torch.Tensor):
+            return x
+        if x.is_floating_point() and x.dtype != dtype:
+            x = x.to(dtype)
+        return x.contiguous()
+
+    bcs = dataclasses.replace(bcs, **{f.name: ready(getattr(bcs, f.name)) for f in dataclasses.fields(bcs)})
+    return bcs, ready(cld_mask)
 
 
 def _apply_metric_scaling(flux, metric_scaling):
@@ -384,7 +407,12 @@ def solve_lw(
     one from 2 angles on. ``impl="kernel"`` keeps the low-memory route (one
     megakernel launch per angle) for a solve that would not fit otherwise;
     f32 solves are not chunked by ``RRTMGPSolver``, ``solve_chunked`` bounds
-    either route."""
+    either route. LW two-stream through ``impl="two_kernel"`` holds tau,
+    ssa, g, the level sources, two scratch tensors and the two-stream
+    composition's temporaries: on the same card, all-sky at 75748 x 60 x 256,
+    it peaked at 77.5 GB against the megakernel route's 24.7 GB (same
+    script), so at that width it goes through ``solve_chunked``; the default
+    ``impl`` keeps LW two-stream on the megakernel."""
     dtype = as_.p_lay.dtype
     # f64 has a kernel for clear sky, no scattering, no aerosols (sky type
     # and aerosols decide together: an aerosol-laden solve keeps its aerosols
@@ -396,7 +424,7 @@ def solve_lw(
     mega = two_stream or n_gauss_angles == 1
     impl = _resolve_impl(impl, as_.p_lay.device, dtype, has_f64_kernel, mega)
     if impl != "torch":
-        bcs, cld_mask = _kernel_ready(bcs, cld_mask)
+        bcs, cld_mask = _kernel_ready(bcs, cld_mask, dtype)
     Ds, wts = angular_discretization(n_gauss_angles)
 
     def noscat_angles(one_angle):
@@ -438,17 +466,19 @@ def solve_lw(
         diag = SolveDiagnostics(cld_cover=_cover(cover, cld_mask, dtype))
         return _apply_metric_scaling(flux, metric_scaling), diag
 
-    two_kernel = impl == "two_kernel"
-    if two_kernel and two_stream:
-        _not_ported("LW two-stream on the two-kernel path (the sweeps from precomputed "
-                    "sources, K13 and K14)", TWO_KERNEL_LW2_ITEM)
+    two_kernel, sweep = impl == "two_kernel", impl == "sweep"
     cld_mask = _mcica_mask(lkp, as_, lkp_cld, cld_mask, cld_mask_seed, col_offset, two_kernel)
-    if two_kernel:
+    raw = None
+    if two_kernel and not two_stream:
         # the sources stay in banded form: the sweep builds them
         raw = gas_optics_lw_raw(lkp, as_, eta_node_mode=eta_node_mode)
         tau = raw.tau
     else:
-        optics = gas_optics_lw(lkp, as_, eta_node_mode=eta_node_mode)
+        if two_kernel:
+            # the two-stream sweep reads level sources only
+            optics = gas_optics_lw_kernel(lkp, as_, eta_node_mode=eta_node_mode, need_lay_source=False)
+        else:
+            optics = gas_optics_lw(lkp, as_, eta_node_mode=eta_node_mode)
         src = optics.sources
         tau = optics.tau
     ssa = torch.zeros_like(tau) if two_stream else None
@@ -460,10 +490,18 @@ def solve_lw(
             lkp, lkp_aero, as_, tau, ssa, g_asym, delta_scaling=False, collect_aod=False,
             active_species=aero_species, kernel=two_kernel,
         )
-    if two_kernel:
+    if two_kernel or sweep:
+        # the sweep kernels: band-valued emissivity, expanded in the kernel
         g2b = lkp.kernel_tables.gpt2band
-        flux_up, flux_dn, _ = noscat_angles(lambda ds, w, inc_k: lw_noscat_banded_reduced(
-            tau, raw.pfrac, raw.plk_lay, raw.plk_lev, raw.plk_sfc, bcs.sfc_emis, g2b, ds, w, inc_k))
+        if raw is not None:
+            flux_up, flux_dn, _ = noscat_angles(lambda ds, w, inc_k: lw_noscat_banded_reduced(
+                tau, raw.pfrac, raw.plk_lay, raw.plk_lev, raw.plk_sfc, bcs.sfc_emis, g2b, ds, w, inc_k))
+        elif two_stream:
+            flux_up, flux_dn = lw_2stream_reduced(
+                tau, ssa, g_asym, src.lev_source, src.sfc_source, bcs.sfc_emis, g2b, bcs.inc_flux)
+        else:
+            flux_up, flux_dn, _ = noscat_angles(lambda ds, w, inc_k: lw_noscat_reduced(
+                tau, src.lay_source, src.lev_source, src.sfc_source, bcs.sfc_emis, g2b, ds, w, inc_k))
     elif two_stream:
         sfc_emis = _bands_to_gpt(lkp, bcs.sfc_emis.T)  # (ncol, ngpt)
         up, dn = rte.lw_2stream(
@@ -505,10 +543,11 @@ def solve_sw(
     (cos_zenith <= 0) produce exactly zero fluxes."""
     dtype = as_.p_lay.dtype
     # the SW megakernel is two-stream only: the direct-beam solve takes the
-    # two-kernel path (the optics kernel, then the beam recurrence)
+    # two-kernel path (the optics kernel, then the beam recurrence); under
+    # "sweep" it is the torch path's, as in the JAX package
     impl = _resolve_impl(impl, as_.p_lay.device, dtype, mega=two_stream)
     if impl != "torch":
-        bcs, cld_mask = _kernel_ready(bcs, cld_mask)
+        bcs, cld_mask = _kernel_ready(bcs, cld_mask, dtype)
     mu0 = bcs.cos_zenith
     toa_gpt = bcs.toa_flux[:, None] * lkp.solar_src_scaled[None, :]  # (ncol, ngpt)
     aod_ext = aod_sca = cover = None
@@ -530,7 +569,7 @@ def solve_sw(
         if comp.seeded:
             cover = out[3]
     else:
-        two_kernel = impl == "two_kernel"
+        two_kernel, sweep = impl == "two_kernel", impl == "sweep"
         cld_mask = _mcica_mask(lkp, as_, lkp_cld, cld_mask, cld_mask_seed, col_offset, two_kernel)
         optics = (gas_optics_sw_kernel if two_kernel else gas_optics_sw)(
             lkp, as_, eta_node_mode=eta_node_mode)
@@ -547,7 +586,7 @@ def solve_sw(
                 lkp, lkp_aero, as_, tau, ssa, g_asym, delta_scaling=True, collect_aod=True,
                 active_species=aero_species, kernel=two_kernel,
             )
-        if two_stream and two_kernel:
+        if two_stream and (two_kernel or sweep):
             flux_up, flux_dn, flux_dn_dir = sw_2stream_reduced(
                 tau, ssa, g_asym, mu0, toa_gpt, bcs.sfc_alb_direct, bcs.sfc_alb_diffuse,
                 lkp.kernel_tables.gpt2band, bcs.inc_flux_diffuse,

@@ -38,7 +38,10 @@ _P, _I, _U, _L, _F, _D = (ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c
 #: _f64 entries take f64 tensors and double scalars. The kernels of the
 #: two-kernel path: optics_fused ends with (7 dims, shortwave, stream),
 #: lw_noscat_banded with (nlay, ncol, ngpt, nbnd, ds, i2f, stream),
-#: sw_2stream_reduced with (nlay, ncol, ngpt, nbnd, stream).
+#: sw_2stream_reduced with (nlay, ncol, ngpt, nbnd, stream). The sweeps from
+#: materialized sources: lw_noscat_reduced and lw_noscat_gpt end with (nlay,
+#: ncol, ngpt, ds, i2f, stream), lw_2stream_reduced with (nlay, ncol, ngpt,
+#: nbnd, stream), sw_2stream_gpt with (nlay, ncol, ngpt, stream).
 SIGNATURES = {
     "rrtmgp_planck_band": [_P, _P, _P, _L, _I, _I, _F, _F, _P],
     "rrtmgp_planck_band_f64": [_P, _P, _P, _L, _I, _I, _D, _D, _P],
@@ -52,6 +55,10 @@ SIGNATURES = {
     "rrtmgp_planck_band_rows": [_P, _P, _P, _L, _I, _I, _F, _F, _P],
     "rrtmgp_lw_noscat_banded": [_P] * 10 + [_I] * 4 + [_F, _F, _P],
     "rrtmgp_sw_2stream_reduced": [_P] * 16 + [_I] * 4 + [_P],
+    "rrtmgp_lw_noscat_reduced": [_P] * 9 + [_I] * 3 + [_F, _F, _P],
+    "rrtmgp_lw_noscat_gpt": [_P] * 8 + [_I] * 3 + [_F, _F, _P],
+    "rrtmgp_lw_2stream_reduced": [_P] * 12 + [_I] * 4 + [_P],
+    "rrtmgp_sw_2stream_gpt": [_P] * 15 + [_I] * 3 + [_P],
 }
 
 

@@ -1,12 +1,14 @@
 """Gas optics through the materialized-optics kernel (counterpart of
-``gas_optics_lw_raw`` / ``gas_optics_sw`` in
+``gas_optics_lw_raw`` / ``gas_optics_lw`` / ``gas_optics_sw`` in
 ``rrtmgp_tpu/ops/gas_optics_pallas.py``): the first half of the two-kernel
 path. The plain-torch prologue (``ops.mega_inputs``, the inputs the
 megakernels read) feeds ``ops.interp.optics_fused``; LW adds the band Planck
-values in row layout (``ops.interp.planck_band_rows``) and leaves the
-sources in banded form for ``ops.rte_kernels.lw_noscat_banded_reduced``, so
-no (nlay, ncol, ngpt) source tensor exists. On CPU tensors the wrappers run
-their plain twins.
+values in row layout (``ops.interp.planck_band_rows``). ``gas_optics_lw_raw``
+leaves the sources in banded form for
+``ops.rte_kernels.lw_noscat_banded_reduced``, so no (nlay, ncol, ngpt) source
+tensor exists; ``gas_optics_lw`` materializes them per g-point for the sweeps
+that read sources (``lw_2stream_reduced``, ``lw_noscat_reduced``). On CPU
+tensors the wrappers run their plain twins.
 """
 
 from __future__ import annotations
@@ -17,7 +19,7 @@ import torch
 
 from ..data.lookups import GasLookup
 from ..states import AtmosphericState
-from .gas_optics import SWOptics
+from .gas_optics import LWOptics, SWOptics, planck_sources_from_bands
 from .interp import optics_fused, planck_band_rows
 from .mega_inputs import mega_lw_inputs, mega_sw_inputs
 
@@ -28,16 +30,17 @@ class RawLWOptics(NamedTuple):
 
     tau: torch.Tensor      # (nlay, ncol, ngpt)
     pfrac: torch.Tensor    # (nlay, ncol, ngpt)
-    plk_lay: torch.Tensor  # (nlay, ncol, nbnd) band Planck at t_lay
+    plk_lay: torch.Tensor | None  # (nlay, ncol, nbnd) band Planck at t_lay
     plk_lev: torch.Tensor  # (nlay+1, ncol, nbnd) band Planck at t_lev
     plk_sfc: torch.Tensor  # (ncol, nbnd) band Planck at t_sfc
 
 
 def gas_optics_lw_raw(
-    lkp: GasLookup, as_: AtmosphericState, eta_node_mode: str = "continuous"
+    lkp: GasLookup, as_: AtmosphericState, eta_node_mode: str = "continuous", need_lay: bool = True
 ) -> RawLWOptics:
     """LW gas optics for the source-fused sweep: tau, Planck fraction and
-    band Planck values at layers, levels and the surface."""
+    band Planck values at layers (None without ``need_lay``), levels and the
+    surface."""
     tau, pfrac = optics_fused(mega_lw_inputs(lkp, as_, eta_node_mode), lkp.kernel_tables)
     nlay, ncol = as_.nlay, as_.ncol
     plk = lambda t: planck_band_rows(
@@ -45,10 +48,29 @@ def gas_optics_lw_raw(
     )
     return RawLWOptics(
         tau=tau, pfrac=pfrac,
-        plk_lay=plk(as_.t_lay).reshape(nlay, ncol, -1),
+        plk_lay=plk(as_.t_lay).reshape(nlay, ncol, -1) if need_lay else None,
         plk_lev=plk(as_.t_lev).reshape(nlay + 1, ncol, -1),
         plk_sfc=plk(as_.t_sfc),
     )
+
+
+def gas_optics_lw(
+    lkp: GasLookup, as_: AtmosphericState, eta_node_mode: str = "continuous",
+    need_lay_source: bool = True,
+) -> LWOptics:
+    """LW gas optics with the Planck sources materialized per g-point: tau
+    (nlay, ncol, ngpt) and layer, level and surface sources; same contract as
+    ``ops.gas_optics.gas_optics_lw``. The optics kernel writes tau and the
+    Planck fraction and the band Planck kernel the band values; the sources
+    are formed from them in plain torch, as the JAX package forms them
+    outside any kernel. Without ``need_lay_source`` the layer source is None
+    and its Planck call is skipped (the two-stream sweep reads level sources
+    only)."""
+    raw = gas_optics_lw_raw(lkp, as_, eta_node_mode, need_lay=need_lay_source)
+    sources = planck_sources_from_bands(
+        lkp.kernel_tables.gpt2band.long(), raw.plk_lay, raw.plk_lev, raw.plk_sfc, raw.pfrac
+    )
+    return LWOptics(tau=raw.tau, sources=sources)
 
 
 def gas_optics_sw(

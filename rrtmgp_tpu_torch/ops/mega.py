@@ -55,7 +55,14 @@ from .gas_optics import gpt2band, planck_bands, planck_sources_from_bands
 from .interp import optics_fused, optics_fused_ref, planck_band_rows
 from .mega_inputs import KernelTables, MegaInputs
 from .rte import intensity_to_flux, lw_2stream, lw_noscat, round_to, sw_2stream
-from .rte_kernels import lw_noscat_banded_reduced, sw_2stream_reduced
+from .rte_kernels import (
+    lw_2stream_reduced,
+    lw_noscat_banded_reduced,
+    lw_noscat_gpt,
+    lw_noscat_reduced,
+    sw_2stream_gpt,
+    sw_2stream_reduced,
+)
 from .threefry import seed_key
 
 # ---------------------------------------------------------------------------
@@ -483,11 +490,12 @@ def mcica_mask_export(cld_frac: torch.Tensor, seed: int, col_offset: int, n_gpt:
 
 mcica_mask_export.launches = 0
 
-#: every kernel wrapper of the port: the megakernels' path and the two-kernel
-#: path (``ops.interp``, ``ops.rte_kernels``)
+#: every kernel wrapper of the port: the megakernels' path, the optics
+#: kernels (``ops.interp``) and the sweeps (``ops.rte_kernels``)
 KERNEL_WRAPPERS = (planck_band, lw_clear_mega, lw2_mega, sw_clear_mega, aerosol_bands,
                    mcica_mask_export, optics_fused, planck_band_rows, lw_noscat_banded_reduced,
-                   sw_2stream_reduced)
+                   sw_2stream_reduced, lw_noscat_reduced, lw_2stream_reduced, sw_2stream_gpt,
+                   lw_noscat_gpt)
 
 
 def reset_launch_counts() -> None:

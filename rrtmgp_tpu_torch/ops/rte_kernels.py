@@ -1,25 +1,40 @@
-"""The sweep kernels of the two-kernel path and their plain torch twins
-(counterpart of ``rrtmgp_tpu/ops/pallas_rte.py``): from optics materialized
-per (layer, column, g-point) to fluxes summed over g-points.
+"""The sweep kernels and their plain torch twins (counterpart of
+``rrtmgp_tpu/ops/pallas_rte.py``): from optics materialized per (layer,
+column, g-point) to fluxes.
+
+Summed over g-points, (nlay+1, ncol), as the solves use them:
 
 - ``lw_noscat_banded_reduced``: LW no-scattering sweep for one angle, the
   Planck sources built in the kernel from band Planck values and the Planck
   fraction (replaces ``lw_noscat_banded_reduced``);
+- ``lw_noscat_reduced``: the same sweep from materialized layer, level and
+  surface sources (replaces ``lw_noscat_pallas_reduced``);
+- ``lw_2stream_reduced``: LW two-stream sweep from materialized level and
+  surface sources (replaces ``lw_2stream_pallas_reduced``);
 - ``sw_2stream_reduced``: SW two-stream sweep, the asymmetry optional
   (replaces ``sw_2stream_pallas_reduced``, blocked and streamed).
 
-Each wrapper launches its CUDA kernel (``csrc/lw_noscat_banded.cu``,
-``csrc/sw_2stream_reduced.cu``) for CUDA tensors and raises on anything the
-kernel does not take; for CPU tensors it returns its twin.
-``<wrapper>.launches`` counts the launches. The kernels are f32. Band-valued
-boundary conditions come as the solves hold them, (nbnd, ncol), and
-``gpt2band`` is the (ngpt,) int32 band of each g-point
-(``KernelTables.gpt2band``).
+Per g-point, (nlay+1, ncol, ngpt), entry points of their own that no solve
+calls (spectral diagnostics):
 
-The TPU sweeps from precomputed sources (``lw_noscat_pallas_reduced``), LW
-two-stream (``lw_2stream_pallas_reduced``) and with per-g-point output
-(``sw_2stream_pallas``, ``lw_noscat_pallas``) are not ported yet (ROADMAP
-queue 2).
+- ``sw_2stream_gpt``: SW two-stream sweep (replaces ``sw_2stream_pallas``);
+- ``lw_noscat_gpt``: LW no-scattering sweep for one angle (replaces
+  ``lw_noscat_pallas``).
+
+Each wrapper launches its CUDA kernel (``csrc/lw_noscat_banded.cu``,
+``csrc/lw_noscat_sources.cu``, ``csrc/lw_2stream_reduced.cu``,
+``csrc/sw_2stream_reduced.cu``) for CUDA tensors and raises on anything the
+kernel does not take; for CPU tensors it returns its twin ``*_ref``.
+``<wrapper>.launches`` counts the launches. The kernels are f32 and run one
+thread per g-point, so more than 1024 g-points are refused.
+
+Boundary fields: the g-summed sweeps take band-valued emissivity and albedos
+as the solves hold them, (nbnd, ncol), with ``gpt2band``, the (ngpt,) int32
+band of each g-point (``KernelTables.gpt2band``), which spares the solves an
+expansion to g-points; the surface source, the TOA flux and the incident
+fluxes are per g-point, (ncol, ngpt), as they exist. The per-g-point sweeps
+take every boundary field per g-point, (ncol, ngpt), ``mu0`` included, in the
+argument order of the JAX functions they replace.
 """
 
 from __future__ import annotations
@@ -29,7 +44,17 @@ import torch
 from . import _build
 from ._launch import MAX_GPT, cuda_device, ptr, require, stream
 from .gas_optics import planck_sources_from_bands
-from .rte import intensity_to_flux, lw_noscat, round_to, sw_2stream
+from .rte import intensity_to_flux, lw_2stream, lw_noscat, round_to, sw_2stream
+
+
+def _dims(tau: torch.Tensor, name: str) -> tuple[int, int, int]:
+    """(nlay, ncol, ngpt) of a sweep's tau; raises unless it is 3-D with
+    1..MAX_GPT g-points (one thread each)."""
+    if tau.dim() != 3:
+        raise ValueError(f"{name}: tau {tuple(tau.shape)}, expected (nlay, ncol, ngpt)")
+    if not 1 <= tau.shape[2] <= MAX_GPT:
+        raise ValueError(f"n_gpt={tau.shape[2]}: the kernels take 1..{MAX_GPT} g-points")
+    return tuple(tau.shape)
 
 
 def lw_noscat_banded_reduced_ref(
@@ -66,9 +91,9 @@ def lw_noscat_banded_reduced(
         return lw_noscat_banded_reduced_ref(
             tau, pfrac, plk_lay, plk_lev, plk_sfc, sfc_emis, gpt2band, ds, w_mu, inc_flux)
     dev = cuda_device(tau, "lw_noscat_banded_reduced")
-    if tau.dim() != 3 or plk_sfc.dim() != 2 or not 1 <= tau.shape[2] <= MAX_GPT:
-        raise ValueError(f"lw_noscat_banded_reduced: tau {tuple(tau.shape)}, plk_sfc {tuple(plk_sfc.shape)}")
-    nlay, ncol, ngpt = tau.shape
+    if plk_sfc.dim() != 2:
+        raise ValueError(f"lw_noscat_banded_reduced: plk_sfc {tuple(plk_sfc.shape)}")
+    nlay, ncol, ngpt = _dims(tau, "lw_noscat_banded_reduced")
     nbnd = plk_sfc.shape[1]
     f32 = torch.float32
     for name, x, shape in (
@@ -125,9 +150,9 @@ def sw_2stream_reduced(
     if tau.device.type == "cpu":
         return sw_2stream_reduced_ref(tau, ssa, g, mu0, toa_gpt, alb_dir, alb_dif, gpt2band, inc_flux_diffuse)
     dev = cuda_device(tau, "sw_2stream_reduced")
-    if tau.dim() != 3 or alb_dir.dim() != 2 or not 1 <= tau.shape[2] <= MAX_GPT:
-        raise ValueError(f"sw_2stream_reduced: tau {tuple(tau.shape)}, alb_dir {tuple(alb_dir.shape)}")
-    nlay, ncol, ngpt = tau.shape
+    if alb_dir.dim() != 2:
+        raise ValueError(f"sw_2stream_reduced: alb_dir {tuple(alb_dir.shape)}")
+    nlay, ncol, ngpt = _dims(tau, "sw_2stream_reduced")
     nbnd = alb_dir.shape[0]
     f32 = torch.float32
     for name, x, shape in (
@@ -155,3 +180,211 @@ def sw_2stream_reduced(
 
 
 sw_2stream_reduced.launches = 0
+
+
+def _emis_gpt(sfc_emis, gpt2band):
+    """Band-valued (nbnd, ncol) boundary field per g-point, (ncol, ngpt)."""
+    return sfc_emis.T[:, gpt2band.long()]
+
+
+def lw_noscat_reduced_ref(tau, lay_source, lev_source, sfc_source, sfc_emis, gpt2band, ds: float, w_mu: float,
+                          inc_flux=None):
+    """Plain twin of ``lw_noscat_reduced``: ``ops.rte.lw_noscat`` summed
+    over g-points. Any float dtype."""
+    up, dn = lw_noscat(tau, lay_source, lev_source, sfc_source, _emis_gpt(sfc_emis, gpt2band), ds, w_mu, inc_flux)
+    return up.sum(-1), dn.sum(-1)
+
+
+def lw_noscat_reduced(
+    tau: torch.Tensor,         # (nlay, ncol, ngpt) optical depth
+    lay_source: torch.Tensor,  # (nlay, ncol, ngpt) layer Planck source
+    lev_source: torch.Tensor,  # (nlay+1, ncol, ngpt) level Planck source
+    sfc_source: torch.Tensor,  # (ncol, ngpt) surface Planck source
+    sfc_emis: torch.Tensor,    # (nbnd, ncol)
+    gpt2band: torch.Tensor,    # (ngpt,) int32
+    ds: float, w_mu: float,
+    inc_flux: torch.Tensor | None = None,  # (ncol, ngpt) TOA incident flux
+):
+    """LW no-scattering transport for one angle (secant ``ds``, weight
+    ``w_mu``) from materialized Planck sources. Returns (flux_up, flux_dn),
+    each (nlay+1, ncol), summed over g-points."""
+    if tau.device.type == "cpu":
+        return lw_noscat_reduced_ref(tau, lay_source, lev_source, sfc_source, sfc_emis, gpt2band, ds, w_mu, inc_flux)
+    dev = cuda_device(tau, "lw_noscat_reduced")
+    nlay, ncol, ngpt = _dims(tau, "lw_noscat_reduced")
+    if sfc_emis.dim() != 2:
+        raise ValueError(f"lw_noscat_reduced: sfc_emis {tuple(sfc_emis.shape)}")
+    f32 = torch.float32
+    for name, x, shape in (
+        ("tau", tau, (nlay, ncol, ngpt)), ("lay_source", lay_source, (nlay, ncol, ngpt)),
+        ("lev_source", lev_source, (nlay + 1, ncol, ngpt)), ("sfc_source", sfc_source, (ncol, ngpt)),
+        ("sfc_emis", sfc_emis, (sfc_emis.shape[0], ncol)),
+    ):
+        require(x, name, shape, f32, dev)
+    require(gpt2band, "gpt2band", (ngpt,), torch.int32, dev)
+    if inc_flux is not None:
+        require(inc_flux, "inc_flux", (ncol, ngpt), f32, dev)
+    up = torch.empty((nlay + 1, ncol), dtype=f32, device=dev)
+    dn = torch.empty_like(up)
+    with torch.cuda.device(dev):
+        err = _build.library().rrtmgp_lw_noscat_reduced(
+            *map(ptr, (tau, lay_source, lev_source, sfc_source, sfc_emis, gpt2band, inc_flux, up, dn)),
+            nlay, ncol, ngpt, round_to(ds, f32), intensity_to_flux(w_mu, f32), stream(dev),
+        )
+    _build.check(err, "lw_noscat_reduced")
+    lw_noscat_reduced.launches += 1
+    return up, dn
+
+
+lw_noscat_reduced.launches = 0
+
+
+def lw_noscat_gpt_ref(tau, lay_source, lev_source, sfc_source, sfc_emis, ds: float, w_mu: float, inc_flux=None):
+    """Plain twin of ``lw_noscat_gpt``: ``ops.rte.lw_noscat``. Any float
+    dtype."""
+    return lw_noscat(tau, lay_source, lev_source, sfc_source, sfc_emis, ds, w_mu, inc_flux)
+
+
+def lw_noscat_gpt(
+    tau: torch.Tensor,         # (nlay, ncol, ngpt) optical depth
+    lay_source: torch.Tensor,  # (nlay, ncol, ngpt) layer Planck source
+    lev_source: torch.Tensor,  # (nlay+1, ncol, ngpt) level Planck source
+    sfc_source: torch.Tensor,  # (ncol, ngpt) surface Planck source
+    sfc_emis: torch.Tensor,    # (ncol, ngpt)
+    ds: float, w_mu: float,
+    inc_flux: torch.Tensor | None = None,  # (ncol, ngpt) TOA incident flux
+):
+    """LW no-scattering transport for one angle with the fluxes kept per
+    g-point (the JAX package's ``lw_noscat_pallas``, same argument order).
+    Returns (flux_up, flux_dn), each (nlay+1, ncol, ngpt)."""
+    if tau.device.type == "cpu":
+        return lw_noscat_gpt_ref(tau, lay_source, lev_source, sfc_source, sfc_emis, ds, w_mu, inc_flux)
+    dev = cuda_device(tau, "lw_noscat_gpt")
+    nlay, ncol, ngpt = _dims(tau, "lw_noscat_gpt")
+    f32 = torch.float32
+    for name, x, shape in (
+        ("tau", tau, (nlay, ncol, ngpt)), ("lay_source", lay_source, (nlay, ncol, ngpt)),
+        ("lev_source", lev_source, (nlay + 1, ncol, ngpt)), ("sfc_source", sfc_source, (ncol, ngpt)),
+        ("sfc_emis", sfc_emis, (ncol, ngpt)),
+    ):
+        require(x, name, shape, f32, dev)
+    if inc_flux is not None:
+        require(inc_flux, "inc_flux", (ncol, ngpt), f32, dev)
+    up = torch.empty((nlay + 1, ncol, ngpt), dtype=f32, device=dev)
+    dn = torch.empty_like(up)
+    with torch.cuda.device(dev):
+        err = _build.library().rrtmgp_lw_noscat_gpt(
+            *map(ptr, (tau, lay_source, lev_source, sfc_source, sfc_emis, inc_flux, up, dn)),
+            nlay, ncol, ngpt, round_to(ds, f32), intensity_to_flux(w_mu, f32), stream(dev),
+        )
+    _build.check(err, "lw_noscat_gpt")
+    lw_noscat_gpt.launches += 1
+    return up, dn
+
+
+lw_noscat_gpt.launches = 0
+
+
+def lw_2stream_reduced_ref(tau, ssa, g, lev_source, sfc_source, sfc_emis, gpt2band, inc_flux=None):
+    """Plain twin of ``lw_2stream_reduced``: ``ops.rte.lw_2stream`` summed
+    over g-points. Any float dtype."""
+    up, dn = lw_2stream(tau, ssa, g, lev_source, sfc_source, _emis_gpt(sfc_emis, gpt2band), inc_flux)
+    return up.sum(-1), dn.sum(-1)
+
+
+def lw_2stream_reduced(
+    tau: torch.Tensor,         # (nlay, ncol, ngpt) optical depth
+    ssa: torch.Tensor,         # (nlay, ncol, ngpt) single-scattering albedo
+    g: torch.Tensor,           # (nlay, ncol, ngpt) asymmetry
+    lev_source: torch.Tensor,  # (nlay+1, ncol, ngpt) level Planck source
+    sfc_source: torch.Tensor,  # (ncol, ngpt) surface Planck source
+    sfc_emis: torch.Tensor,    # (nbnd, ncol)
+    gpt2band: torch.Tensor,    # (ngpt,) int32
+    inc_flux: torch.Tensor | None = None,  # (ncol, ngpt) TOA incident flux
+):
+    """LW two-stream transport from materialized optics and level sources:
+    layer coefficients, adding and diffuse flux. Returns (flux_up, flux_dn),
+    each (nlay+1, ncol), summed over g-points. The kernel holds two
+    (nlay, ncol, ngpt) scratch tensors while it runs."""
+    if tau.device.type == "cpu":
+        return lw_2stream_reduced_ref(tau, ssa, g, lev_source, sfc_source, sfc_emis, gpt2band, inc_flux)
+    dev = cuda_device(tau, "lw_2stream_reduced")
+    nlay, ncol, ngpt = _dims(tau, "lw_2stream_reduced")
+    if sfc_emis.dim() != 2:
+        raise ValueError(f"lw_2stream_reduced: sfc_emis {tuple(sfc_emis.shape)}")
+    nbnd = sfc_emis.shape[0]
+    f32 = torch.float32
+    for name, x, shape in (
+        ("tau", tau, (nlay, ncol, ngpt)), ("ssa", ssa, (nlay, ncol, ngpt)), ("g", g, (nlay, ncol, ngpt)),
+        ("lev_source", lev_source, (nlay + 1, ncol, ngpt)), ("sfc_source", sfc_source, (ncol, ngpt)),
+        ("sfc_emis", sfc_emis, (nbnd, ncol)),
+    ):
+        require(x, name, shape, f32, dev)
+    require(gpt2band, "gpt2band", (ngpt,), torch.int32, dev)
+    if inc_flux is not None:
+        require(inc_flux, "inc_flux", (ncol, ngpt), f32, dev)
+    scratch = [torch.empty((nlay, ncol, ngpt), dtype=f32, device=dev) for _ in range(2)]
+    up = torch.empty((nlay + 1, ncol), dtype=f32, device=dev)
+    dn = torch.empty_like(up)
+    with torch.cuda.device(dev):
+        err = _build.library().rrtmgp_lw_2stream_reduced(
+            *map(ptr, (tau, ssa, g, lev_source, sfc_source, sfc_emis, gpt2band, inc_flux, *scratch, up, dn)),
+            nlay, ncol, ngpt, nbnd, stream(dev),
+        )
+    _build.check(err, "lw_2stream_reduced")
+    lw_2stream_reduced.launches += 1
+    return up, dn
+
+
+lw_2stream_reduced.launches = 0
+
+
+def sw_2stream_gpt_ref(tau, ssa, g, mu0, toa_gpt, alb_dir, alb_dif, inc_flux_diffuse=None):
+    """Plain twin of ``sw_2stream_gpt``: ``ops.rte.sw_2stream`` (g None is
+    asymmetry 0). Night columns are not zeroed. Any float dtype."""
+    return sw_2stream(tau, ssa, 0.0 if g is None else g, mu0, toa_gpt, alb_dir, alb_dif, inc_flux_diffuse)
+
+
+def sw_2stream_gpt(
+    tau: torch.Tensor,        # (nlay, ncol, ngpt) optical depth
+    ssa: torch.Tensor,        # (nlay, ncol, ngpt) single-scattering albedo
+    g: torch.Tensor | None,   # (nlay, ncol, ngpt) asymmetry; None: 0
+    mu0: torch.Tensor,        # (ncol, ngpt) cosine of the solar zenith angle
+    toa_gpt: torch.Tensor,    # (ncol, ngpt) TOA flux per g-point
+    alb_dir: torch.Tensor,    # (ncol, ngpt)
+    alb_dif: torch.Tensor,    # (ncol, ngpt)
+    inc_flux_diffuse: torch.Tensor | None = None,  # (ncol, ngpt)
+):
+    """SW two-stream transport with the fluxes kept per g-point (the JAX
+    package's ``sw_2stream_pallas``, same argument order; the asymmetry may
+    be None here). Returns (flux_up, flux_dn, flux_dn_dir), each (nlay+1,
+    ncol, ngpt); flux_dn includes the direct beam. Night columns are the
+    caller's to zero. The kernel holds four (nlay, ncol, ngpt) scratch
+    tensors while it runs."""
+    if tau.device.type == "cpu":
+        return sw_2stream_gpt_ref(tau, ssa, g, mu0, toa_gpt, alb_dir, alb_dif, inc_flux_diffuse)
+    dev = cuda_device(tau, "sw_2stream_gpt")
+    nlay, ncol, ngpt = _dims(tau, "sw_2stream_gpt")
+    f32 = torch.float32
+    for name, x, shape in (
+        ("tau", tau, (nlay, ncol, ngpt)), ("ssa", ssa, (nlay, ncol, ngpt)), ("mu0", mu0, (ncol, ngpt)),
+        ("toa_gpt", toa_gpt, (ncol, ngpt)), ("alb_dir", alb_dir, (ncol, ngpt)), ("alb_dif", alb_dif, (ncol, ngpt)),
+    ):
+        require(x, name, shape, f32, dev)
+    if g is not None:
+        require(g, "g", (nlay, ncol, ngpt), f32, dev)
+    if inc_flux_diffuse is not None:
+        require(inc_flux_diffuse, "inc_flux_diffuse", (ncol, ngpt), f32, dev)
+    scratch = [torch.empty((nlay, ncol, ngpt), dtype=f32, device=dev) for _ in range(4)]
+    fluxes = [torch.empty((nlay + 1, ncol, ngpt), dtype=f32, device=dev) for _ in range(3)]
+    with torch.cuda.device(dev):
+        err = _build.library().rrtmgp_sw_2stream_gpt(
+            *map(ptr, (tau, ssa, g, mu0, toa_gpt, alb_dir, alb_dif, inc_flux_diffuse, *scratch, *fluxes)),
+            nlay, ncol, ngpt, stream(dev),
+        )
+    _build.check(err, "sw_2stream_gpt")
+    sw_2stream_gpt.launches += 1
+    return tuple(fluxes)
+
+
+sw_2stream_gpt.launches = 0

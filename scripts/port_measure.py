@@ -1,9 +1,10 @@
 """Measurements of the PyTorch/CUDA port (rrtmgp_tpu_torch) on one NVIDIA GPU
 that chip_smoke.py does not print. Run from the repository root:
 
-    python3 scripts/port_measure.py [f64-memory] [angles] [profile] [profile-two-kernel]
+    python3 scripts/port_measure.py [f64-memory] [angles] [profile] [profile-two-kernel] [profile-sweep]
+    python3 scripts/port_measure.py --root CHECKOUT kernel-hashes
 
-With no argument it runs all four. Each line names what it measured; the
+With no argument it runs the first five. Each line names what it measured; the
 first line is the card's name and power limit. Problem sizes and inputs are
 chip_smoke.py's (its set-up functions are imported). Needs CUDA and nvcc;
 imports no JAX.
@@ -19,23 +20,49 @@ imports no JAX.
   the megakernel route (the two-kernel path is f32). Every f32 case is
   timed in three rounds, the routes taking turns (each time a median of 3
   calls), with the peak device memory of each all-sky solve: the numbers
-  behind the routing of several angles.
+  behind the routing of several angles. Then LW two-stream on its three
+  kernel routes, in the same rounds: impl="kernel" (the megakernel),
+  impl="two_kernel" (optics kernel, plain-torch sources and composition,
+  the sweep from materialized sources) and impl="sweep" (plain-torch optics,
+  the same sweep), clear at 32768 x 60 and all-sky at 75748 x 60 with each
+  route's peak memory; the all-sky sweep route runs through solve_chunked in
+  16384-column chunks (its plain-torch optics would not fit the card whole).
 - ``profile``: torch.profiler over 3 steps of the f64 clear solver (32768 x
   60) and of the all-sky no-scattering solver (75748 x 60): device time by
   kernel and the device's busy share of the step.
 - ``profile-two-kernel``: the same over 3 steps of the two-kernel cell
   (solve_lw with 3 angles and solve_sw through impl="two_kernel", then the SW
   direct-beam solve with the default impl, f32 clear sky at 32768 x 60).
+- ``profile-sweep``: the same over the sweep cell's step (solve_lw with 3
+  angles, solve_lw two-stream and solve_sw through impl="sweep", f32 clear
+  sky at 32768 x 60), and over solve_lw two-stream through impl="two_kernel"
+  and through impl="kernel" on the same inputs.
+- ``kernel-hashes``: median time of 7 calls, sha256 of the fluxes and
+  register counts of the kernels whose device code lives in shared headers
+  (sw_2stream_reduced and sw_clear_mega on the clear cell, lw2_mega on the
+  all-sky cell with McICA by seed + aerosols and clear). ``--root CHECKOUT``
+  imports chip_smoke.py and the package from another checkout and builds
+  there. To show that a change of a shared header left those kernels as
+  they were, unpack the parent commit into a directory that .gitignore
+  lists (``git archive <commit> | tar -x -C scratch_chip/parent``) and run
+  this mode on the two roots in turns within one call (parent, change,
+  change, parent): equal hashes are bitwise-equal fluxes on equal inputs,
+  and the times compare on one card.
 """
 
 from __future__ import annotations
 
+import hashlib
 import pathlib
 import sys
 import time
 import warnings
 
-sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent.parent))
+ARGS = sys.argv[1:]
+ROOT = pathlib.Path(__file__).resolve().parent.parent
+if ARGS[:1] == ["--root"]:
+    ROOT, ARGS = pathlib.Path(ARGS[1]).resolve(), ARGS[2:]
+sys.path.insert(0, str(ROOT))
 
 import chip_smoke as cs  # noqa: E402
 
@@ -108,6 +135,39 @@ def _fmt(times) -> str:
     return " / ".join(f"{t:.3f}" for t in times)
 
 
+SWEEP_ALLSKY_CHUNK = 16384
+
+
+def lw_two_stream_routes(lw, atm, bcs_lw, what: str, chunked_sweep: bool = False, **kw) -> None:
+    """solve_lw(two_stream=True) on the three kernel routes, three rounds
+    with the routes taking turns, and each route's peak memory."""
+    import torch
+
+    from rrtmgp_tpu_torch import solve_lw
+    from rrtmgp_tpu_torch.models.rrtmgp import solve_chunked
+
+    def solve(impl):
+        if impl == "sweep" and chunked_sweep:
+            rest = {k: v for k, v in kw.items() if k != "cld_mask_seed"}
+            return solve_chunked(
+                lambda a, b, seed, off: solve_lw(lw, a, b, two_stream=True, impl=impl, cld_mask_seed=seed,
+                                                 col_offset=off, **rest),
+                atm, bcs_lw, SWEEP_ALLSKY_CHUNK, cld_mask_seed=kw["cld_mask_seed"])
+        return solve_lw(lw, atm, bcs_lw, two_stream=True, impl=impl, **kw)
+
+    impls = ("kernel", "two_kernel", "sweep")
+    ms = _rounds(impls, solve)
+    for impl in impls:
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        solve(impl)
+        torch.cuda.synchronize()
+        note = f" (solve_chunked, {SWEEP_ALLSKY_CHUNK}-column chunks)" if impl == "sweep" and chunked_sweep else ""
+        say("angles", f"solve_lw two-stream {what}, impl={impl}{note}: {_fmt(ms[impl])} ms, peak memory "
+                      f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+
+
 def angles() -> None:
     import torch
 
@@ -123,6 +183,8 @@ def angles() -> None:
             for impl in routes[dtype]:
                 say("angles", f"solve_lw clear {dtype} {cs.NCOL} x {cs.NLAY}, {n} angle(s), impl={impl}: "
                               f"{_fmt(ms[impl])} ms")
+        if dtype == "float32":
+            lw_two_stream_routes(lw, atm, bcs_lw, f"clear float32 {cs.NCOL} x {cs.NLAY}")
         del lw, sw, atm, bcs_lw
         torch.cuda.empty_cache()
     L = lookup_tables(AllSkyRadiation(aerosol_radiation=True), dtype=torch.float32, device=cs.DEVICE)
@@ -141,6 +203,9 @@ def angles() -> None:
             say("angles", f"solve_lw all-sky + aerosols float32 {cs.ALLSKY_NCOL} x {cs.NLAY}, {n} angle(s), "
                           f"impl={impl}: {_fmt(ms[impl])} ms, peak memory "
                           f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    lw_two_stream_routes(L.lookup_lw, atm, bcs_lw, f"all-sky + aerosols float32 {cs.ALLSKY_NCOL} x {cs.NLAY}",
+                         chunked_sweep=True, lkp_cld=L.lookup_lw_cld, lkp_aero=L.lookup_lw_aero,
+                         cld_mask_seed=cs.MCICA_SEED)
 
 
 def _profile(tag: str, step, steps: int = 3) -> None:
@@ -224,13 +289,87 @@ def profile_two_kernel() -> None:
         say("profile two-kernel", f"{name} alone, no profiler: {cs.timed(fn, 3):.3f} ms")
 
 
+def profile_sweep() -> None:
+    from rrtmgp_tpu_torch import solve_lw, solve_sw
+
+    lw, sw = cs.lookups(256, 16, 224, 14)
+    atm = cs.atmosphere(cs.NCOL, cs.NLAY)
+    bcs_lw, bcs_sw = cs.boundary_conditions(lw, sw, cs.NCOL)
+    parts = (("LW 3 angles", lambda: solve_lw(lw, atm, bcs_lw, n_gauss_angles=3, impl="sweep")),
+             ("LW two-stream", lambda: solve_lw(lw, atm, bcs_lw, two_stream=True, impl="sweep")),
+             ("SW two-stream", lambda: solve_sw(sw, atm, bcs_sw, impl="sweep")))
+
+    def step():
+        for _, fn in parts:
+            fn()
+
+    _profile("profile sweep", step)
+    for name, fn in parts:
+        say("profile sweep", f"{name} alone, no profiler: {cs.timed(fn, 3):.3f} ms")
+    for impl in ("two_kernel", "kernel"):
+        _profile(f"profile LW two-stream {impl}", lambda: solve_lw(lw, atm, bcs_lw, two_stream=True, impl=impl))
+
+
+REGISTERS_OF = ("sw_clear_mega_kernelILb0ELb0", "lw2_mega_kernelILb0ELb0", "lw2_mega_kernelILb1ELb1ELi2",
+                "sw_2stream_reduced_kernel")
+
+
+def kernel_hashes() -> None:
+    import torch
+
+    import rrtmgp_tpu_torch
+    from rrtmgp_tpu_torch import AllSkyRadiation, lookup_tables
+    from rrtmgp_tpu_torch.models.rrtmgp import _kernel_composition
+    from rrtmgp_tpu_torch.ops import _build, mega, rte_kernels
+    from rrtmgp_tpu_torch.ops.mega_inputs import mega_lw_inputs
+
+    if not rrtmgp_tpu_torch.__file__.startswith(str(ROOT)):
+        raise SystemExit(f"imported {rrtmgp_tpu_torch.__file__}, not the package under {ROOT}")
+
+    def report(name, fn):
+        ms = cs.timed(fn, 7)
+        h = hashlib.sha256()
+        for t in fn():
+            h.update(t.cpu().numpy().tobytes())
+        say("kernel-hashes", f"{ROOT} {name}: {ms:.3f} ms, sha256 {h.hexdigest()[:16]}")
+
+    lw, sw = cs.lookups(256, 16, 224, 14)
+    atm = cs.atmosphere(cs.NCOL, cs.NLAY)
+    bcs_lw, bcs_sw = cs.boundary_conditions(lw, sw, cs.NCOL)
+    k15 = cs.two_kernel_args(lw, sw, atm, bcs_lw, bcs_sw)[4]
+    k2 = cs.kernel_args(lw, sw, atm, bcs_lw, bcs_sw)[2]
+    report("sw_2stream_reduced clear", lambda: rte_kernels.sw_2stream_reduced(*k15))
+    report("sw_clear_mega clear", lambda: mega.sw_clear_mega(*k2))
+    del atm, k15, k2
+    torch.cuda.empty_cache()
+
+    L = lookup_tables(AllSkyRadiation(aerosol_radiation=True), dtype=torch.float32, device=cs.DEVICE)
+    lw = L.lookup_lw
+    atm = cs.allsky_atmosphere(cs.ALLSKY_NCOL, cs.NLAY)
+    bcs_lw, _ = cs.boundary_conditions(lw, L.lookup_sw, cs.ALLSKY_NCOL)
+    plk = cs.plk_fn(lw)
+    comp = _kernel_composition(lw, atm, L.lookup_lw_cld, L.lookup_lw_aero, None, cs.MCICA_SEED, cs.COL_OFFSET,
+                               None, False, False)[0]
+    args = (mega_lw_inputs(lw, atm), lw.kernel_tables, plk(atm.t_lev), plk(atm.t_sfc), bcs_lw.sfc_emis, None)
+    report("lw2_mega seed+aerosols", lambda: mega.lw2_mega(*args, comp)[:2])
+    report("lw2_mega clear", lambda: mega.lw2_mega(*args)[:2])
+
+    entry = None
+    for line in _build.library_path().with_suffix(".log").read_text().splitlines():
+        if "Compiling entry function" in line:
+            entry = line.split("'")[1]
+        elif "Used" in line and entry and any(k in entry for k in REGISTERS_OF):
+            say("kernel-hashes", f"{ROOT} {entry[:72]}: {line.split(':', 1)[1].strip()}")
+
+
 def main() -> None:
-    want = sys.argv[1:] or ["f64-memory", "angles", "profile", "profile-two-kernel"]
+    want = ARGS or ["f64-memory", "angles", "profile", "profile-two-kernel", "profile-sweep"]
     cs.phase_device()
     cs.phase_build()
     warnings.simplefilter("ignore")  # the f64 torch-path and auto-chunk notices
     for name, fn in (("f64-memory", f64_memory), ("angles", angles), ("profile", profile_cells),
-                     ("profile-two-kernel", profile_two_kernel)):
+                     ("profile-two-kernel", profile_two_kernel), ("profile-sweep", profile_sweep),
+                     ("kernel-hashes", kernel_hashes)):
         if name in want:
             fn()
 

@@ -8,13 +8,15 @@ tests/conftest.py:
     python -m pytest --noconftest -m gpu tests/test_torch_cuda.py -q
 
 They cover what chip_smoke.py does not: the incident-flux inputs of the
-megakernels and of the two-kernel path's sweeps, odd shapes, run-to-run
+megakernels and of the sweeps, odd shapes, run-to-run
 determinism, the wrappers' argument checks on CUDA tensors, the routing of
 solve_lw / solve_sw (f64, several angles, the SW direct-beam solve), the
-angle loop, and the launch counts of solve_lw / solve_sw and
-RRTMGPSolver.update_fluxes. Tolerances as chip_smoke.py: max |kernel - twin|
+angle loop, the launch counts of solve_lw / solve_sw and
+RRTMGPSolver.update_fluxes, LW two-stream on the two-kernel path, the
+sweep-only route (impl="sweep") and boundary conditions of another dtype
+than the state. Tolerances as chip_smoke.py: max |kernel - twin|
 / max |twin| <= 1e-6 (Planck, aerosol_bands), 5e-5 (LW no-scattering), 1e-4
-(LW two-stream, SW), 1e-6 (materialized optics, row-layout Planck); in f64 1e-14 (Planck) and 1e-12 (LW no-scattering: the
+(LW two-stream, SW, their sweeps), 1e-6 (materialized optics, row-layout Planck); in f64 1e-14 (Planck) and 1e-12 (LW no-scattering: the
 same operations, up to the order of the g-point sums and an ulp of exp);
 the McICA cloud cover and mcica_mask_export bit for bit.
 """
@@ -35,7 +37,8 @@ pytestmark = pytest.mark.gpu
 
 TOL = {"planck_band": 1e-6, "lw_clear_mega": 5e-5, "sw_clear_mega": 1e-4, "lw2_mega": 1e-4,
        "aerosol_bands": 1e-6, "optics_fused": 1e-6, "planck_band_rows": 1e-6,
-       "lw_noscat_banded_reduced": 5e-5, "sw_2stream_reduced": 1e-4}
+       "lw_noscat_banded_reduced": 5e-5, "sw_2stream_reduced": 1e-4,
+       "lw_noscat_reduced": 5e-5, "lw_2stream_reduced": 1e-4, "sw_2stream_gpt": 1e-4, "lw_noscat_gpt": 5e-5}
 TOL64 = {"planck_band": 1e-14, "lw_clear_mega": 1e-12}
 
 
@@ -135,9 +138,10 @@ def test_more_than_1024_gpoints_raises(cuda):
                                dtype=np.float32, device=cuda)
     atm = synthetic_atmosphere(ncol=4, nlay=3, dtype=np.float32, device=cuda)
     bcs = LwBCs(sfc_emis=torch.full((4, 4), 0.98, device=cuda))
-    for impl in ("kernel", "two_kernel", None):
-        with pytest.raises(ValueError, match="1..1024"):
-            solve_lw(lkp, atm, bcs, impl=impl)
+    for impl in ("kernel", "two_kernel", "sweep", None):
+        for kw in (dict(), dict(two_stream=True)):
+            with pytest.raises(ValueError, match="1..1024"):
+                solve_lw(lkp, atm, bcs, impl=impl, **kw)
     mega.reset_launch_counts()  # the refused megakernel solves had launched planck_band
     out, _ = solve_lw(lkp, atm, bcs, impl="torch")
     assert _counts() == {} and torch.isfinite(out.flux_up).all()
@@ -606,7 +610,7 @@ def test_sw_direct_beam_runs_with_the_default_impl(cuda):
     """solve_sw(two_stream=False) and RRTMGPSolver(two_stream_sw=False) on f32
     CUDA tensors with the default impl return the direct-beam fluxes through
     the optics kernel (clear and all-sky); impl="two_kernel" runs SW
-    two-stream and several LW angles; what it lacks raises."""
+    two-stream, several LW angles and LW two-stream."""
     from rrtmgp_tpu_torch import AllSkyRadiation, RRTMGPGridParams, RRTMGPParameters, RRTMGPSolver
 
     ncol, nlay = 300, 12
@@ -636,8 +640,11 @@ def test_sw_direct_beam_runs_with_the_default_impl(cuda):
     for flux in two:
         assert torch.all(flux[:, mu0 <= 0] == 0.0)
     lw = synthetic_gas_lookup(longwave=True, n_gpt=32, n_bnd=4, dtype=np.float32, device=cuda)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        solve_lw(lw, atm, LwBCs(sfc_emis=f((4, ncol), 0.98)), two_stream=True, impl="two_kernel")
+    bl = LwBCs(sfc_emis=f((4, ncol), 0.98))
+    mega.reset_launch_counts()
+    lw2, _ = solve_lw(lw, atm, bl, two_stream=True, impl="two_kernel")
+    assert _counts() == {"optics_fused": 1, "planck_band_rows": 2, "lw_2stream_reduced": 1}
+    assert _rel(lw2, solve_lw(lw, atm, bl, two_stream=True, impl="torch")[0]) <= TOL["lw_2stream_reduced"]
 
     # the solver, all-sky with aerosols: LW two-stream on its megakernel, SW direct beam
     atm = synthetic_atmosphere(ncol=ncol, nlay=nlay, dtype=np.float32, device=cuda,
@@ -689,3 +696,212 @@ def test_multi_angle_routes_agree(cuda, n_angles):
         assert _rel(two[:2], exact[:2]) <= TOL["lw_noscat_banded_reduced"]
         if kw:
             assert torch.equal(d_two.cld_cover, d_per.cld_cover)
+
+
+# ---------------------------------------------------------------------------
+# The sweeps from materialized optics and sources, and the paths that run them
+# ---------------------------------------------------------------------------
+
+
+def _sweep_case(dev, ngpt, nbnd, ncol, nlay):
+    """Arguments of lw_noscat_reduced, lw_2stream_reduced, sw_2stream_gpt and
+    lw_noscat_gpt at one size: the optics kernel's tau, numpy-seeded sources,
+    scattering media and incident fluxes."""
+    _, _, _, k12, k15 = _two_kernel_case(dev, ngpt, nbnd, ncol, nlay)
+    rng = np.random.default_rng(9)
+    u = lambda lo, hi, *shape: torch.from_numpy(rng.uniform(lo, hi, shape).astype(np.float32)).to(dev)
+    tau, emis, g2b, ds, w, inc = k12[0], k12[5], k12[6], k12[7], k12[8], k12[9]
+    lay, lev, sfc = u(0.5, 1.5, nlay, ncol, ngpt), u(0.5, 1.5, nlay + 1, ncol, ngpt), u(0.5, 1.5, ncol, ngpt)
+    k13 = (tau, lay, lev, sfc, emis, g2b, ds, w, inc)
+    k14 = (tau, u(0.0, 0.9, nlay, ncol, ngpt), u(0.0, 0.8, nlay, ncol, ngpt), lev * 30.0, sfc * 40.0, emis, g2b,
+           inc * 20.0)
+    k16b = (tau, lay, lev, sfc, emis.T[:, g2b.long()].contiguous(), ds, w, inc)
+    tau_sw, ssa, g, mu0, toa, adir, adif, sg2b, sinc = k15
+    expand = lambda x: x.T[:, sg2b.long()].contiguous()
+    k16a = (tau_sw, ssa, g, mu0[:, None].expand(ncol, ngpt).contiguous(), toa, expand(adir), expand(adif), sinc)
+    return k13, k14, k15, k16a, k16b
+
+
+@pytest.mark.parametrize("ngpt,nbnd,ncol,nlay", [(36, 4, 1000, 30), (256, 16, 257, 60), (5, 5, 3, 2), (1024, 4, 7, 3)])
+def test_sweep_kernels_match_twins(cuda, ngpt, nbnd, ncol, nlay):
+    """The four sweeps from materialized optics and sources against their
+    twins, with and without incident flux (and asymmetry); each per-g-point
+    sweep summed over g-points equals its g-summed sibling to the sum's
+    rounding."""
+    k13, k14, k15, k16a, k16b = _sweep_case(cuda, ngpt, nbnd, ncol, nlay)
+    mega.reset_launch_counts()
+    no_inc = lambda a: (*a[:-1], None)
+    for name, ref, args in (
+        ("lw_noscat_reduced", rte_kernels.lw_noscat_reduced_ref, k13),
+        ("lw_2stream_reduced", rte_kernels.lw_2stream_reduced_ref, k14),
+        ("lw_noscat_gpt", rte_kernels.lw_noscat_gpt_ref, k16b),
+        ("sw_2stream_gpt", rte_kernels.sw_2stream_gpt_ref, k16a),
+    ):
+        shape = (nlay + 1, ncol, ngpt) if name.endswith("gpt") else (nlay + 1, ncol)
+        for a in (args, no_inc(args)):
+            out = getattr(rte_kernels, name)(*a)
+            assert all(o.shape == shape for o in out)
+            assert _rel(out, ref(*a)) <= TOL[name], name
+            if name.startswith("lw"):
+                assert torch.all(out[1][-1] > 0.0) if a[-1] is not None else torch.all(out[1][-1] == 0.0)
+    no_g = (*k16a[:2], None, *k16a[3:])
+    assert _rel(rte_kernels.sw_2stream_gpt(*no_g), rte_kernels.sw_2stream_gpt_ref(*no_g)) <= TOL["sw_2stream_gpt"]
+    summed = lambda out: [o.sum(-1) for o in out]
+    assert _rel(summed(rte_kernels.lw_noscat_gpt(*k16b)), rte_kernels.lw_noscat_reduced(*k13)) <= 5e-6
+    assert _rel(summed(rte_kernels.sw_2stream_gpt(*k16a)), rte_kernels.sw_2stream_reduced(*k15)) <= 5e-6
+    torch.cuda.synchronize()
+    assert _counts() == {"lw_noscat_reduced": 3, "lw_2stream_reduced": 2, "lw_noscat_gpt": 3, "sw_2stream_gpt": 4,
+                         "sw_2stream_reduced": 1}
+
+
+def test_sweep_kernels_are_deterministic_and_reject_what_they_do_not_take(cuda):
+    k13, k14, k15, k16a, k16b = _sweep_case(cuda, 8, 2, 16, 4)
+    for fn, args in ((rte_kernels.lw_noscat_reduced, k13), (rte_kernels.lw_2stream_reduced, k14),
+                     (rte_kernels.sw_2stream_gpt, k16a), (rte_kernels.lw_noscat_gpt, k16b)):
+        for a, b in zip(fn(*args), fn(*args)):
+            assert torch.equal(a, b)
+    mega.reset_launch_counts()
+    with pytest.raises(ValueError, match="shape"):
+        rte_kernels.lw_noscat_reduced(k13[0], k13[1][:, :-1].contiguous(), *k13[2:])
+    with pytest.raises(TypeError, match="int32"):
+        rte_kernels.lw_noscat_reduced(*k13[:5], k13[5].long(), *k13[6:])
+    with pytest.raises(ValueError, match="shape"):  # band-valued emissivity where per-g-point is due
+        rte_kernels.lw_noscat_gpt(*k16b[:4], k13[4], *k16b[5:])
+    with pytest.raises(TypeError, match="float32"):
+        rte_kernels.lw_2stream_reduced(k14[0], k14[1].double(), *k14[2:])
+    with pytest.raises(ValueError, match="contiguous"):
+        rte_kernels.lw_2stream_reduced(*k14[:3], k14[3].transpose(0, 1).contiguous().transpose(0, 1), *k14[4:])
+    with pytest.raises(ValueError, match="on cpu"):
+        rte_kernels.lw_2stream_reduced(*k14[:-1], k14[-1].cpu())
+    with pytest.raises(ValueError, match="shape"):  # mu0 per column where per g-point is due
+        rte_kernels.sw_2stream_gpt(*k16a[:3], k15[3], *k16a[4:])
+    assert _counts() == {}
+
+
+def test_lw_two_stream_sweep_equals_the_megakernel_on_equal_optics(cuda):
+    """solve_lw(two_stream=True) through the two-kernel path reproduces the
+    megakernel route bit for bit, clear and all-sky (McICA by seed,
+    aerosols): the same coefficient function and recurrence on equal optics
+    and sources; both stay within the gate of the torch path."""
+    from rrtmgp_tpu_torch.data.synthetic import synthetic_aerosol_lookup, synthetic_cloud_lookup
+
+    ncol, nlay = 300, 12
+    lw = synthetic_gas_lookup(longwave=True, n_gpt=32, n_bnd=4, dtype=np.float32, device=cuda)
+    bl = LwBCs(sfc_emis=torch.rand((4, ncol), device=cuda) * 0.1 + 0.9, inc_flux=torch.rand((ncol, 32), device=cuda))
+    clear = synthetic_atmosphere(ncol=ncol, nlay=nlay, dtype=np.float32, device=cuda)
+    cloudy = synthetic_atmosphere(ncol=ncol, nlay=nlay, dtype=np.float32, device=cuda,
+                                  with_clouds=True, with_aerosols=True)
+    allsky = dict(lkp_cld=synthetic_cloud_lookup(n_bnd=4, dtype=np.float32, device=cuda),
+                  lkp_aero=synthetic_aerosol_lookup(n_bnd=4, dtype=np.float32, device=cuda), cld_mask_seed=5)
+    for atm, kw, extra in ((clear, {}, {}), (cloudy, allsky, {"aerosol_bands": 1, "mcica_mask_export": 1})):
+        mega.reset_launch_counts()
+        two, d_two = solve_lw(lw, atm, bl, two_stream=True, impl="two_kernel", **kw)
+        assert _counts() == {"optics_fused": 1, "planck_band_rows": 2, "lw_2stream_reduced": 1, **extra}
+        one, d_one = solve_lw(lw, atm, bl, two_stream=True, impl="kernel", **kw)
+        exact, _ = solve_lw(lw, atm, bl, two_stream=True, impl="torch", **kw)
+        for a, b in zip(two, one):
+            assert torch.equal(a, b)
+        assert _rel(two, exact) <= TOL["lw_2stream_reduced"]
+        if kw:
+            assert torch.equal(d_two.cld_cover, d_one.cld_cover)
+
+
+def test_sweep_route_runs_the_sweeps_on_plain_optics(cuda):
+    """impl="sweep": plain-torch optics and composition, then one sweep
+    kernel per angle (LW no-scattering), the LW two-stream sweep or the SW
+    sweep, clear and all-sky; no optics kernel is launched, the direct-beam
+    solve launches none at all, and the default impl never takes the route."""
+    from rrtmgp_tpu_torch.data.synthetic import synthetic_aerosol_lookup, synthetic_cloud_lookup
+
+    ncol, nlay = 300, 12
+    lw = synthetic_gas_lookup(longwave=True, n_gpt=32, n_bnd=4, dtype=np.float32, device=cuda)
+    sw = synthetic_gas_lookup(longwave=False, n_gpt=32, n_bnd=4, seed=1, dtype=np.float32, device=cuda)
+    f = lambda shape, v: torch.full(shape, v, dtype=torch.float32, device=cuda)
+    bl = LwBCs(sfc_emis=f((4, ncol), 0.98))
+    mu0 = f((ncol,), 0.6)
+    mu0[::3] = -0.1
+    bs = SwBCs(cos_zenith=mu0, toa_flux=f((ncol,), 1361.0), sfc_alb_direct=f((4, ncol), 0.2),
+               sfc_alb_diffuse=f((4, ncol), 0.2))
+    clear = synthetic_atmosphere(ncol=ncol, nlay=nlay, dtype=np.float32, device=cuda)
+    cloudy = synthetic_atmosphere(ncol=ncol, nlay=nlay, dtype=np.float32, device=cuda,
+                                  with_clouds=True, with_aerosols=True)
+    kw = lambda seed: dict(lkp_cld=synthetic_cloud_lookup(n_bnd=4, dtype=np.float32, device=cuda),
+                           lkp_aero=synthetic_aerosol_lookup(n_bnd=4, dtype=np.float32, device=cuda),
+                           cld_mask_seed=seed)
+    for atm, lw_kw, sw_kw in ((clear, {}, {}), (cloudy, kw(5), kw(6))):
+        for n in (1, 3):
+            mega.reset_launch_counts()
+            out, diag = solve_lw(lw, atm, bl, n_gauss_angles=n, impl="sweep", **lw_kw)
+            assert _counts() == {"lw_noscat_reduced": n}
+            exact, ediag = solve_lw(lw, atm, bl, n_gauss_angles=n, impl="torch", **lw_kw)
+            assert _rel(out, exact) <= TOL["lw_noscat_reduced"]
+        mega.reset_launch_counts()
+        out, _ = solve_lw(lw, atm, bl, two_stream=True, impl="sweep", **lw_kw)
+        assert _counts() == {"lw_2stream_reduced": 1}
+        assert _rel(out, solve_lw(lw, atm, bl, two_stream=True, impl="torch", **lw_kw)[0]) <= TOL["lw_2stream_reduced"]
+        mega.reset_launch_counts()
+        out, diag = solve_sw(sw, atm, bs, impl="sweep", **sw_kw)
+        assert _counts() == {"sw_2stream_reduced": 1}
+        exact, ediag = solve_sw(sw, atm, bs, impl="torch", **sw_kw)
+        assert _rel(out, exact) <= TOL["sw_2stream_reduced"]
+        assert all(torch.all(x[:, mu0 <= 0] == 0.0) for x in out)
+        if lw_kw:
+            assert torch.equal(diag.cld_cover, ediag.cld_cover) and torch.equal(diag.aod_sw_ext, ediag.aod_sw_ext)
+        mega.reset_launch_counts()
+        beam, _ = solve_sw(sw, atm, bs, two_stream=False, impl="sweep", **sw_kw)
+        assert _counts() == {}
+        assert all(torch.equal(a, b) for a, b in zip(beam, solve_sw(sw, atm, bs, two_stream=False, impl="torch", **sw_kw)[0]))
+    mega.reset_launch_counts()
+    solve_lw(lw, clear, bl, n_gauss_angles=2)
+    solve_lw(lw, clear, bl, two_stream=True)
+    solve_sw(sw, clear, bs)
+    assert not {"lw_noscat_reduced", "lw_2stream_reduced"} & set(_counts())
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        solve_lw(synthetic_gas_lookup(longwave=True, n_gpt=32, n_bnd=4, dtype=np.float64, device=cuda),
+                 synthetic_atmosphere(ncol=8, nlay=4, dtype=np.float64, device=cuda),
+                 LwBCs(sfc_emis=torch.full((4, 8), 0.98, dtype=torch.float64, device=cuda)), impl="sweep")
+
+
+@pytest.mark.parametrize("impl", [None, "kernel", "two_kernel", "sweep"])
+def test_mixed_dtype_boundary_conditions_are_cast(cuda, impl):
+    """Boundary conditions in f64 with an f32 atmosphere: every kernel route
+    casts them to the state's dtype instead of raising in a wrapper; the
+    fluxes are f32, equal to the cast input's bit for bit and within the
+    gates of the torch path."""
+    ncol, nlay = 64, 8
+    lw = synthetic_gas_lookup(longwave=True, n_gpt=32, n_bnd=4, dtype=np.float32, device=cuda)
+    sw = synthetic_gas_lookup(longwave=False, n_gpt=32, n_bnd=4, seed=1, dtype=np.float32, device=cuda)
+    atm = synthetic_atmosphere(ncol=ncol, nlay=nlay, dtype=np.float32, device=cuda)
+    r = lambda lo, hi, *shape: torch.rand(shape, dtype=torch.float64, device=cuda) * (hi - lo) + lo
+    bl = LwBCs(sfc_emis=r(0.9, 1.0, 4, ncol), inc_flux=r(0.0, 1.0, ncol, 32))
+    bs = SwBCs(cos_zenith=r(0.1, 1.0, ncol), toa_flux=r(1300.0, 1400.0, ncol), sfc_alb_direct=r(0.1, 0.3, 4, ncol),
+               sfc_alb_diffuse=r(0.1, 0.3, 4, ncol), inc_flux_diffuse=r(0.0, 1.0, ncol, 32))
+    f32 = lambda b: dataclasses.replace(b, **{f.name: getattr(b, f.name).float() for f in dataclasses.fields(b)})
+    for solve, lkp, b, tol in ((solve_lw, lw, bl, TOL["lw_clear_mega"]), (solve_sw, sw, bs, TOL["sw_clear_mega"])):
+        mixed, _ = solve(lkp, atm, b, impl=impl)
+        cast, _ = solve(lkp, atm, f32(b), impl=impl)
+        for m, c in zip(mixed, cast):
+            assert m.dtype == torch.float32 and torch.equal(m, c)
+        assert _rel(mixed, solve(lkp, atm, b, impl="torch")[0]) <= tol
+
+
+def test_default_built_inputs_live_on_the_card_and_take_the_kernels(cuda):
+    """Inputs built without naming a device lie on the card, so the solve
+    with the default impl launches the kernels; device="cpu" keeps the
+    plain version."""
+    from rrtmgp_tpu_torch import convert
+
+    lw = synthetic_gas_lookup(longwave=True, n_gpt=32, n_bnd=4, dtype=np.float32)
+    atm = synthetic_atmosphere(ncol=64, nlay=8, dtype=np.float32)
+    bl = convert.lw_bcs_from_numpy(sfc_emis=np.full((4, 64), 0.98, np.float32))
+    assert lw.kmajor.is_cuda and atm.p_lay.is_cuda and bl.sfc_emis.is_cuda
+    mega.reset_launch_counts()
+    out, _ = solve_lw(lw, atm, bl)
+    assert out.flux_up.is_cuda and _counts() == {"planck_band": 3, "lw_clear_mega": 1}
+    cpu = dict(dtype=np.float32, device="cpu")
+    mega.reset_launch_counts()
+    ref, _ = solve_lw(synthetic_gas_lookup(longwave=True, n_gpt=32, n_bnd=4, **cpu),
+                      synthetic_atmosphere(ncol=64, nlay=8, **cpu),
+                      convert.lw_bcs_from_numpy(sfc_emis=np.full((4, 64), 0.98, np.float32), device="cpu"))
+    assert not ref.flux_up.is_cuda and _counts() == {}
+    assert _rel([out.flux_up.cpu()], [ref.flux_up]) <= TOL["lw_clear_mega"]

@@ -316,13 +316,16 @@ def test_solve_sw_two_kernel_matches_jax(two_kernel_dispatch, ncol, option, two_
 
 def test_two_kernel_needs_cuda_and_refuses_what_it_lacks(two_kernel_dispatch, monkeypatch):
     """impl="two_kernel" on CPU tensors raises like "kernel"; LW two-stream
-    through it raises naming its ROADMAP item; f64 names the f64 item."""
+    through it is computed (no ROADMAP item is left on this path for f32);
+    f64 names the f64 item."""
     jl, tl = _lookup(True)
     ta = convert.atmosphere_from_object(jsyn.synthetic_atmosphere(ncol=8, nlay=NLAY, dtype=np.float32))
     tb = convert.lw_bcs_from_numpy(sfc_emis=np.full((4, 8), 0.98, np.float32))
-    with pytest.raises(NotImplementedError, match=f"ROADMAP queue 1, {tmod.TWO_KERNEL_LW2_ITEM}"):
-        solve_lw(tl, ta, tb, two_stream=True)
+    lw2, _ = solve_lw(tl, ta, tb, two_stream=True)
+    assert not hasattr(tmod, "TWO_KERNEL_LW2_ITEM")
     monkeypatch.undo()  # the real routing from here on
+    exact, _ = solve_lw(tl, ta, tb, two_stream=True, impl="torch")
+    assert _rel(lw2.flux_net, exact.flux_net.numpy()) <= 2e-6
     with pytest.raises(ValueError, match="CUDA"):
         solve_lw(tl, ta, tb, impl="two_kernel")
     jls, tls = _lookup(False)
