@@ -79,6 +79,20 @@ is non-zero:
    (5e-6 of the largest flux: the two add the same 224 or 256 values in
    another order). And boundary conditions in f64 with an f32 atmosphere
    through the default impl equal the cast input's result bit for bit.
+10. unfused two-kernel slice (after the two-kernel slice, on the clear
+   cell's inputs, nothing cut): the kernels of the unfused optics
+   (interp_pt_eta for each table it reads: LW kmajor with col_mix, LW
+   Planck fraction, SW kmajor, SW Rayleigh at the troposphere side's slab
+   with fpress = 0; interp_minor LW and SW) against their twins at the small
+   shape and at 32768 x 60 (twins on 8192-column chunks); then one step =
+   the two-kernel slice's step with fused_optics=False (the JAX
+   pallas_windowed="off"): solve_lw with 3 angles + solve_sw + the SW
+   direct-beam solve, with the step time, columns/s, peak memory and
+   launches per step; the unfused optics against optics_fused at full width
+   (bitwise printed), the fluxes against the fused two-kernel route at full
+   width (2e-6, bitwise printed) and the torch path on 4096 columns, the
+   two-kernel slice's oracles, and all-sky (McICA by seed + aerosols)
+   against the torch path at 8192 columns.
 
 The last lines are a JSON object per kernel, the card's name and power limit,
 and {"ok": true, "device": {...}}. Needs CUDA and nvcc; imports no JAX.
@@ -109,7 +123,9 @@ TOL = {"planck_band": 1e-6, "lw_clear_mega": 5e-5, "sw_clear_mega": 1e-4,
        "mcica_mask_export": 0.0, "planck_band_f64": 1e-14, "lw_clear_mega_f64": 1e-12,
        "lw_clear_mega_allsky": 5e-5, "optics_fused_lw": 1e-6, "optics_fused_sw": 1e-6,
        "planck_band_rows": 1e-6, "lw_noscat_banded_reduced": 5e-5, "sw_2stream_reduced": 1e-4,
-       "lw_noscat_reduced": 5e-5, "lw_2stream_reduced": 1e-4, "sw_2stream_gpt": 1e-4, "lw_noscat_gpt": 5e-5}
+       "lw_noscat_reduced": 5e-5, "lw_2stream_reduced": 1e-4, "sw_2stream_gpt": 1e-4, "lw_noscat_gpt": 5e-5,
+       "interp_pt_eta": 1e-6, "interp_minor": 1e-6}
+UNFUSED_TOL = 2e-6              # the unfused route's fluxes vs the fused two-kernel route's (bitwise expected)
 SUM_TOL = 5e-6                  # a per-g-point sweep summed over g-points vs its g-summed sibling
 F64_LW_TOL_WM2 = 1e-4           # the reference's f64 LW tolerance, absolute
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM data sheet
@@ -134,6 +150,8 @@ SOURCES = {
     "lw_2stream_reduced": ("rrtmgp_tpu_torch/csrc/lw_2stream_reduced.cu", "rrtmgp_tpu/ops/pallas_rte.py:667"),
     "sw_2stream_gpt": ("rrtmgp_tpu_torch/csrc/sw_2stream_reduced.cu", "rrtmgp_tpu/ops/pallas_rte.py:104"),
     "lw_noscat_gpt": ("rrtmgp_tpu_torch/csrc/lw_noscat_sources.cu", "rrtmgp_tpu/ops/pallas_rte.py:513"),
+    "interp_pt_eta": ("rrtmgp_tpu_torch/csrc/interp_pt_eta.cu", "rrtmgp_tpu/ops/pallas_interp.py:110"),
+    "interp_minor": ("rrtmgp_tpu_torch/csrc/interp_minor.cu", "rrtmgp_tpu/ops/pallas_interp.py:405"),
 }
 
 
@@ -290,7 +308,9 @@ def kernel_args(lw, sw, atm, bcs_lw, bcs_sw):
 # sweeps and the shuffle sums of the levels.
 OPS_PER_POINT = {"lw_clear_mega": 90, "sw_clear_mega": 150, "lw2_mega": 140,
                  # the optics alone: major tau and the Planck fraction, or major tau, Rayleigh and ssa
-                 "optics_fused_lw": 50, "optics_fused_sw": 42}
+                 "optics_fused_lw": 50, "optics_fused_sw": 42,
+                 # the minor gases alone: only the covering intervals' operations
+                 "interp_minor": 0}
 OPS_LW_SWEEP = 44         # two sweeps of exp, Clough factor (a divide), sqrt, two sources, recurrence, level sum
 OPS_LW2_SWEEP = 70        # coefficients (two exp, a sqrt, two divides), Toon sources, adding (a divide), flux pass, sums
 OPS_SW_SWEEP = 110        # beam, coefficients (three exp, a sqrt, two divides), adding, flux pass, level sums
@@ -299,6 +319,7 @@ OPS_INCREMENT = {"lw_clear_mega": 3, "sw_clear_mega": 12, "lw2_mega": 12}  # one
 OPS_MCICA = 85            # threefry2x32 (20 rounds of add, rotate, xor; integer) and the overlap recurrence
 OPS_PLANCK = 10           # per band value
 OPS_AEROSOL = 90          # per (layer, column, band): 15 species, a table blend and three sums each
+OPS_INTERP = 26           # one table point: four pressure blends, two eta blends, two col_mix scales, the T blend
 
 
 def nbytes(x) -> int:
@@ -609,6 +630,7 @@ def phase_kernels_small() -> None:
     check_sw_sweep_allsky(label, small_L, small_allsky, {})
     check_sweep_kernels(label, lw, sw, atm, bcs_lw, bcs_sw, 0, {})
     check_lw2_sweep_allsky(label, small_L, small_allsky, {})
+    check_unfused_kernels(label, lw, sw, atm, 0, {})
 
 
 def phase_clear_slice(lw, sw, atm, bcs_lw, bcs_sw):
@@ -1201,6 +1223,155 @@ def phase_two_kernel_slice(lw, sw, atm, bcs_lw, bcs_sw, mega_lw, L) -> dict:
     return launches
 
 
+def interp_cases(lw, sw, atm):
+    """(label, interp_pt_eta arguments) of each table the unfused optics
+    read, as optics_unfused builds them, the LW kmajor call last (its time
+    is the one the kernels line keeps); and the MegaInputs of LW and SW."""
+    import torch
+
+    from rrtmgp_tpu_torch.ops.mega_inputs import mega_lw_inputs, mega_sw_inputs
+
+    cases, inputs = [], {}
+    for wave, lkp in (("SW", sw), ("LW", lw)):
+        inp = (mega_lw_inputs if wave == "LW" else mega_sw_inputs)(lkp, atm)
+        tabs = lkp.kernel_tables
+        inputs[wave] = (inp, tabs)
+        eta = (inp.jeta1, inp.feta1, inp.jeta2, inp.feta2, tabs.gpt2band)
+        if wave == "LW":
+            cases.append(("LW Planck fraction", (tabs.second, inp.jtemp, inp.ftemp, inp.jpress_base, inp.fpress,
+                                                 *eta)))
+        else:
+            cases.append(("SW Rayleigh", (tabs.second, inp.jtemp, inp.ftemp, (~inp.tropo_lower).to(torch.int32),
+                                          torch.zeros_like(inp.fpress), *eta)))
+        cases.append((f"{wave} kmajor", (tabs.kmajor, inp.jtemp, inp.ftemp, inp.jpress_base, inp.fpress, *eta,
+                                         inp.col_mix1, inp.col_mix2)))
+    cases.sort(key=lambda c: c[0] == "LW kmajor")
+    return cases, inputs
+
+
+def minor_work(inp, tabs) -> Work:
+    """interp_minor's work: the inputs it reads (indices and fractions of
+    temperature and eta, the troposphere side, the scalings, kminor and the
+    interval index) and the operations of the intervals covering each
+    point on its cell's side."""
+    read = [getattr(inp, k) for k in ("jtemp", "ftemp", "tropo_lower", "jeta1", "feta1", "jeta2", "feta2",
+                                      "minor_scaling")]
+    read += [getattr(tabs, k) for k in ("kminor", "gpt2band", "minor_start", "minor_list", "minor_kbase",
+                                        "minor_band")]
+    return Work(nbytes(read), mega_ops("interp_minor", inp, tabs))
+
+
+def check_unfused_kernels(label, lw, sw, atm, reps, results, chunk=None) -> None:
+    """The kernels of the unfused optics against their twins (on column
+    chunks when ``chunk`` is given): interp_pt_eta for each table and
+    interp_minor for LW and SW."""
+    from rrtmgp_tpu_torch.ops import interp
+
+    ncol = atm.ncol
+    cases, inputs = interp_cases(lw, sw, atm)
+    for what, args in cases:
+        ngpt = args[0].shape[-1]
+        check_case(f"{label} [{what}]", "interp_pt_eta", lambda: (interp.interp_pt_eta(*args),),
+                   lambda: by_columns(lambda *a: (interp.interp_pt_eta_ref(*a),), args, ncol, chunk), reps, results,
+                   work=Work(nbytes(args), OPS_INTERP * atm.nlay * ncol * ngpt))
+    for wave in ("SW", "LW"):
+        inp, tabs = inputs[wave]
+        check_case(f"{label} [{wave}]", "interp_minor", lambda: (interp.interp_minor(inp, tabs),),
+                   lambda: by_columns(lambda *a: (interp.interp_minor_ref(*a),), (inp, tabs), ncol, chunk), reps,
+                   results, work=minor_work(inp, tabs))
+
+
+def phase_unfused_slice(lw, sw, atm, bcs_lw, bcs_sw, L) -> dict:
+    """The unfused two-kernel slice at full width on the clear cell's
+    inputs: the two-kernel slice's step with fused_optics=False. Returns the
+    launch counts of the timed steps."""
+    import torch
+
+    from rrtmgp_tpu_torch import solve_lw, solve_sw
+    from rrtmgp_tpu_torch.ops import interp
+    from rrtmgp_tpu_torch.states import slice_columns
+
+    tag, ncol = "unfused", atm.ncol
+
+    def step(**kw):
+        f_lw, _ = solve_lw(lw, atm, bcs_lw, n_gauss_angles=3, **kw)
+        f_sw, _ = solve_sw(sw, atm, bcs_sw, **kw)
+        f_dir, _ = solve_sw(sw, atm, bcs_sw, two_stream=False, **kw)
+        return f_lw, f_sw, f_dir
+
+    (f_lw, f_sw, f_dir), ms, lo, hi, peak, launches = timed_steps(lambda: step(fused_optics=False), STEPS)
+    per_step = {k: n / STEPS for k, n in launches.items()}
+    want = {"interp_pt_eta": 6, "interp_minor": 3, "planck_band_rows": 3, "lw_noscat_banded_reduced": 3,
+            "sw_2stream_reduced": 1}
+    phase(tag, f"launches in {STEPS} steps: {launches}")
+    require(per_step == want, f"launches per step {per_step}, expected {want}")
+    phase(tag, f"LW 3 angles + SW two-stream + SW direct beam, fused_optics=False, at {ncol} x {NLAY}: median "
+               f"{ms:.3f} ms over {STEPS} steps (min {lo:.3f}, max {hi:.3f}), {ncol / (ms / 1e3):.1f} columns/s, "
+               f"peak memory {peak:.2f} GB, launches per step {per_step}")
+    (fused, ms_f, lo, hi, peak_f, _) = timed_steps(lambda: step(impl="two_kernel"), STEPS)
+    phase(tag, f"the same step with the fused optics (impl='two_kernel'): median {ms_f:.3f} ms (min {lo:.3f}, "
+               f"max {hi:.3f}), peak memory {peak_f:.2f} GB")
+
+    # physics oracles, as the two-kernel slice holds them
+    for f in (*f_lw, *f_sw, *f_dir):
+        require(f.shape == (NLAY + 1, ncol) and torch.isfinite(f).all(), "flux shape or non-finite flux")
+    require(torch.all(f_lw.flux_dn[-1] == 0.0), "LW flux_dn at TOA is not 0 (no incident flux)")
+    for f in (f_sw, f_dir):
+        require(torch.all(f.flux_dn_dir[:-1] <= f.flux_dn_dir[1:]), "SW direct beam increases toward the surface")
+    require(torch.all(f_dir.flux_up == 0.0) and torch.all(f_dir.flux_dn == 0.0),
+            "the direct-beam solve has a diffuse flux")
+    require(torch.all(f_sw.flux_up[-1] <= 1361.0 * 0.6), "SW TOA up flux exceeds the incoming flux")
+    phase(tag, "oracles: finite, LW TOA dn = 0, direct beam monotone, flux_up = flux_dn = 0 in the direct-beam "
+               "solve, TOA up <= incoming")
+    check_night(sw, atm, bcs_sw, dict(fused_optics=False), tag, impl=None)
+
+    # the unfused optics against optics_fused at full width, LW and SW
+    _, inputs = interp_cases(lw, sw, atm)
+    for wave, (inp, tabs) in inputs.items():
+        out, ref = interp.optics_unfused(inp, tabs), interp.optics_fused(inp, tabs)
+        err, rel = rel_err(out, ref)
+        phase(tag, f"{wave} optics_unfused vs optics_fused on {ncol} columns: max|d|={err:.3e} rel={rel:.3e} "
+                   f"(tol {TOL['interp_pt_eta']:.0e}), bitwise equal: {all(torch.equal(a, b) for a, b in zip(out, ref))}")
+        require(rel <= TOL["interp_pt_eta"], f"{wave} unfused optics vs optics_fused: rel error {rel:.3e}")
+        del out, ref
+    del inputs
+    torch.cuda.empty_cache()
+
+    # the fluxes against the fused two-kernel route at full width and the torch path on the first columns
+    names = ("solve_lw 3 angles", "solve_sw", "solve_sw direct beam")
+    for name, out, ref in zip(names, (f_lw, f_sw, f_dir), fused):
+        compare_fluxes(tag, f"{name} unfused vs fused two-kernel route on {ncol} columns", out, ref, UNFUSED_TOL)
+    del fused
+    a, bl, bs = (slice_columns(x, 0, CMP_NCOL, ncol) for x in (atm, bcs_lw, bcs_sw))
+    refs = (solve_lw(lw, a, bl, n_gauss_angles=3, impl="torch")[0], solve_sw(sw, a, bs, impl="torch")[0],
+            solve_sw(sw, a, bs, two_stream=False, impl="torch")[0])
+    tols = (TOL["lw_noscat_banded_reduced"], TOL["sw_2stream_reduced"], TOL["sw_2stream_reduced"])
+    for name, out, ref, tol in zip(names, (f_lw, f_sw, f_dir), refs, tols):
+        compare_fluxes(tag, f"{name} unfused vs torch on {CMP_NCOL} columns", out, ref, tol, CMP_NCOL)
+    del refs, f_lw, f_sw, f_dir
+    torch.cuda.empty_cache()
+
+    # all-sky (McICA by seed + aerosols) through the unfused route against the torch path
+    atm_as = allsky_atmosphere(TWIN_CHUNK, NLAY)
+    bl, bs = boundary_conditions(L.lookup_lw, L.lookup_sw, TWIN_CHUNK)
+    lw_kw = dict(lkp_cld=L.lookup_lw_cld, lkp_aero=L.lookup_lw_aero, cld_mask_seed=MCICA_SEED,
+                 col_offset=COL_OFFSET)
+    sw_kw = dict(lkp_cld=L.lookup_sw_cld, lkp_aero=L.lookup_sw_aero, cld_mask_seed=MCICA_SEED + 1,
+                 col_offset=COL_OFFSET)
+    cases = (
+        ("solve_lw 3 angles", lambda **k: solve_lw(L.lookup_lw, atm_as, bl, n_gauss_angles=3, **lw_kw, **k),
+         TOL["lw_noscat_banded_reduced"]),
+        ("solve_sw", lambda **k: solve_sw(L.lookup_sw, atm_as, bs, **sw_kw, **k), TOL["sw_2stream_reduced"]),
+    )
+    for name, solve, tol in cases:
+        (out, d_out), (ref, d_ref) = solve(fused_optics=False), solve(impl="torch")
+        compare_fluxes(tag, f"all-sky {name} unfused vs torch on {TWIN_CHUNK} columns", out, ref, tol)
+        require(torch.equal(d_out.cld_cover, d_ref.cld_cover), f"all-sky {name}: cloud cover differs")
+        require(float(d_out.cld_cover.max()) > 0.0, "no cloud in the all-sky comparison")
+    phase(tag, "all-sky: cloud cover bitwise against the torch path")
+    return launches
+
+
 def per_gpt_sw_args(k15):
     """sw_2stream_reduced's arguments in sw_2stream_gpt's layout: mu0 and the
     band-valued albedos expanded to (ncol, ngpt)."""
@@ -1497,6 +1668,11 @@ def main() -> None:
     two_kernel = phase_two_kernel_slice(lw, sw, atm, bcs_lw, bcs_sw, f32_lw, L)
     launches.update({k: two_kernel[k] for k in ("optics_fused_lw", "optics_fused_sw", "planck_band_rows",
                                                 "lw_noscat_banded_reduced", "sw_2stream_reduced")})
+    torch.cuda.empty_cache()
+    check_unfused_kernels(label, lw, sw, atm, 3, results, chunk=TWIN_CHUNK)
+    torch.cuda.empty_cache()
+    unfused = phase_unfused_slice(lw, sw, atm, bcs_lw, bcs_sw, L)
+    launches.update(interp_pt_eta=unfused["interp_pt_eta"], interp_minor=unfused["interp_minor"])
     torch.cuda.empty_cache()
     path_c = check_sweep_kernels(label, lw, sw, atm, bcs_lw, bcs_sw, 3, results, chunk=TWIN_CHUNK)
     check_lw2_sweep_allsky(f"main ncol={TWIN_CHUNK} nlay={NLAY} ngpt=256", L, allsky_atmosphere(TWIN_CHUNK, NLAY),

@@ -18,7 +18,8 @@ tensors the clear-sky LW no-scattering solve without aerosols takes the f64
 build of the ``lw_clear_mega`` kernel (``f64_kernel=False`` keeps it on the
 exact torch path); every other f64 solve takes the torch path.
 
-Not ported: the TPU-only arguments of the JAX solver (``pallas_windowed``,
+Not ported: the TPU-only arguments of the JAX solver (``pallas_windowed``
+"force" and "auto", which choose table windows the port does not have, and
 ``use_pallas``). Features still to come raise ``NotImplementedError`` naming
 their ROADMAP item. The port adds ``impl`` (``"kernel"``, ``"two_kernel"``,
 ``"sweep"``, ``"torch"`` or None), passed through to ``solve_lw`` /
@@ -27,6 +28,10 @@ a sweep kernel; plain-torch optics and a sweep kernel; or plain torch
 throughout. With the default None f32 CUDA solves take the megakernels, and
 the two-kernel path for several LW angles (``n_gauss_angles > 1``) and for
 the SW direct-beam solve (``two_stream_sw=False``); never ``"sweep"``.
+``fused_optics=False``, passed through likewise, is the counterpart of
+``pallas_windowed="off"``: every f32 CUDA solve takes the two-kernel path
+with the unfused optics (the table interpolation and minor-gas kernels in
+place of the materialized-optics kernel).
 """
 
 from __future__ import annotations
@@ -212,6 +217,7 @@ class RRTMGPSolver:
         eta_node_mode: str = "continuous",
         f64_kernel: bool | None = None,
         impl: str | None = None,
+        fused_optics: bool = True,
     ):
         if isinstance(radiation_method, GrayRadiation):
             _not_ported("GrayRadiation (the gray model)", 12)
@@ -240,6 +246,7 @@ class RRTMGPSolver:
         self.eta_node_mode = eta_node_mode
         self.f64_kernel = f64_kernel
         self.impl = impl
+        self.fused_optics = fused_optics
         if lookups is None:
             lookups = lookup_tables(radiation_method, data_dir, dtype=want, device=as_.p_lay.device)
         self.lookups = lookups
@@ -307,13 +314,15 @@ class RRTMGPSolver:
 
     def _lw(self, cloudy: bool):
         impl = self.impl
-        if impl is None and self.f64_kernel is False and self.grid_params.dtype == torch.float64:
+        if (impl is None and self.f64_kernel is False and self.fused_optics
+                and self.grid_params.dtype == torch.float64):
             impl = "torch"  # the exact path also where f64 has a kernel
         solve = lambda a, b, **kw: _solvers.solve_lw(self.lookups.lookup_lw, a, b, **kw)
         return self._solve(
             solve, self.bcs_lw, cloudy, 0, two_stream=self.two_stream_lw,
             n_gauss_angles=self.n_gauss_angles, lkp_aero=self._aero(0),
             aero_species=self.aero_species, eta_node_mode=self.eta_node_mode, impl=impl,
+            fused_optics=self.fused_optics,
         )
 
     def _sw(self, cloudy: bool):
@@ -321,6 +330,7 @@ class RRTMGPSolver:
         return self._solve(
             solve, self.bcs_sw, cloudy, 1, two_stream=self.two_stream_sw, lkp_aero=self._aero(1),
             aero_species=self.aero_species, eta_node_mode=self.eta_node_mode, impl=self.impl,
+            fused_optics=self.fused_optics,
         )
 
     def _mcica_key(self, wave: int) -> int:

@@ -1,6 +1,7 @@
 // Device helpers shared by the megakernels (lw_clear_mega.cu,
 // sw_clear_mega.cu, lw2_mega.cu) and the kernels of the two-kernel path
-// (optics_fused.cu, lw_noscat_banded.cu, sw_2stream_reduced.cu): the
+// (optics_fused.cu, interp_pt_eta.cu, interp_minor.cu, lw_noscat_banded.cu,
+// sw_2stream_reduced.cu): the
 // per-(layer, column) gas-optics inputs, table interpolation for one g-point,
 // the Clough source factor, and deterministic per-level g-point sums.
 //

@@ -34,6 +34,18 @@ Four implementations of the same functions, chosen by ``impl``:
   ``ops.rte``; any device, f32 or f64. Every combination of the JAX
   package's XLA path.
 
+``fused_optics=False`` is the port's counterpart of the JAX package's
+``pallas_windowed="off"``: the two-kernel path with the unfused optics, the
+table interpolation kernel K9 twice (kmajor with col_mix; the Planck fraction
+or the Rayleigh table) and the minor-gas kernel K10 once per solve, in place
+of the materialized-optics kernel K8 (``ops.interp.optics_unfused``; the same
+optics bit for bit). It covers every two-kernel solve (LW no-scattering with
+1-4 angles, LW two-stream, SW two-stream, the SW direct beam, clear or
+all-sky); like ``"off"`` it gives up the megakernels, so ``impl=None`` takes
+the two-kernel path for every f32 CUDA solve. ``"kernel"``, ``"sweep"`` and
+``"torch"`` have no materialized-optics kernel and raise ``ValueError`` with
+it.
+
 ``impl=None`` routes as the JAX package does. f32 CUDA tensors take the
 megakernels for LW no-scattering with one angle, LW two-stream and SW
 two-stream, and the two-kernel path for LW no-scattering with several angles
@@ -130,16 +142,25 @@ F64_WARNING = (
 
 
 def _resolve_impl(impl: str | None, device: torch.device, dtype: torch.dtype,
-                  has_f64_kernel: bool = False, mega: bool = True) -> str:
+                  has_f64_kernel: bool = False, mega: bool = True, fused_optics: bool = True) -> str:
     """``impl=None``: for f32 CUDA tensors the megakernels where they cover
     the solve (``mega``), else the two-kernel path; the kernel for an f64
     solve that has one (``has_f64_kernel``); the torch path otherwise (with
     a warning for the other f64 solves on CUDA tensors); never ``"sweep"``.
     ``"kernel"``, ``"two_kernel"`` and ``"sweep"`` need CUDA tensors;
     ``"kernel"`` raises for an f64 solve without a kernel, ``"two_kernel"``
-    and ``"sweep"`` for any f64 solve."""
+    and ``"sweep"`` for any f64 solve. Without ``fused_optics`` only the
+    two-kernel path runs: ``impl=None`` takes it on CUDA tensors (and
+    ``"torch"`` on CPU tensors), any other ``impl`` raises ``ValueError``."""
     f64 = dtype == torch.float64
     f64_without = f64 and not has_f64_kernel
+    if not fused_optics:
+        if impl not in (None, "two_kernel"):
+            raise ValueError(f"fused_optics=False runs the two-kernel path; impl={impl!r} has no "
+                             "materialized-optics kernel (use impl=None or 'two_kernel')")
+        if impl is None and device.type != "cuda":
+            return "torch"
+        impl = "two_kernel"
     if impl is None:
         if device.type != "cuda":
             return "torch"
@@ -393,9 +414,16 @@ def solve_lw(
     col_offset: int = 0,                    # global index of column 0
     eta_node_mode: str = "continuous",
     impl: str | None = None,
+    fused_optics: bool = True,
 ) -> tuple[FluxLW, SolveDiagnostics]:
     """Longwave flux solve over all g-points: no-scattering (one or more
     angles) or two-stream, clear or with clouds and aerosols.
+
+    ``fused_optics=False`` (the JAX package's ``pallas_windowed="off"``)
+    runs the two-kernel path with the unfused optics: the table
+    interpolation kernel for tau and the Planck fraction and the minor-gas
+    kernel in place of the materialized-optics kernel, the same optics bit
+    for bit (see the module docstring).
 
     Memory: with several angles the default ``impl`` on f32 CUDA tensors
     takes the two-kernel path, which holds tau and the Planck fraction as
@@ -422,7 +450,7 @@ def solve_lw(
     # several angles leave it for the two-kernel path, which computes the
     # optics once and sweeps once per angle
     mega = two_stream or n_gauss_angles == 1
-    impl = _resolve_impl(impl, as_.p_lay.device, dtype, has_f64_kernel, mega)
+    impl = _resolve_impl(impl, as_.p_lay.device, dtype, has_f64_kernel, mega, fused_optics=fused_optics)
     if impl != "torch":
         bcs, cld_mask = _kernel_ready(bcs, cld_mask, dtype)
     Ds, wts = angular_discretization(n_gauss_angles)
@@ -471,12 +499,13 @@ def solve_lw(
     raw = None
     if two_kernel and not two_stream:
         # the sources stay in banded form: the sweep builds them
-        raw = gas_optics_lw_raw(lkp, as_, eta_node_mode=eta_node_mode)
+        raw = gas_optics_lw_raw(lkp, as_, eta_node_mode=eta_node_mode, fused=fused_optics)
         tau = raw.tau
     else:
         if two_kernel:
             # the two-stream sweep reads level sources only
-            optics = gas_optics_lw_kernel(lkp, as_, eta_node_mode=eta_node_mode, need_lay_source=False)
+            optics = gas_optics_lw_kernel(lkp, as_, eta_node_mode=eta_node_mode, need_lay_source=False,
+                                          fused=fused_optics)
         else:
             optics = gas_optics_lw(lkp, as_, eta_node_mode=eta_node_mode)
         src = optics.sources
@@ -537,15 +566,17 @@ def solve_sw(
     col_offset: int = 0,
     eta_node_mode: str = "continuous",
     impl: str | None = None,
+    fused_optics: bool = True,
 ) -> tuple[FluxSW, SolveDiagnostics]:
     """Shortwave flux solve over all g-points: two-stream or direct beam
     only, clear or with clouds and aerosols (delta-scaled). Night columns
-    (cos_zenith <= 0) produce exactly zero fluxes."""
+    (cos_zenith <= 0) produce exactly zero fluxes. ``fused_optics=False``:
+    the two-kernel path with the unfused optics, as in ``solve_lw``."""
     dtype = as_.p_lay.dtype
     # the SW megakernel is two-stream only: the direct-beam solve takes the
     # two-kernel path (the optics kernel, then the beam recurrence); under
     # "sweep" it is the torch path's, as in the JAX package
-    impl = _resolve_impl(impl, as_.p_lay.device, dtype, mega=two_stream)
+    impl = _resolve_impl(impl, as_.p_lay.device, dtype, mega=two_stream, fused_optics=fused_optics)
     if impl != "torch":
         bcs, cld_mask = _kernel_ready(bcs, cld_mask, dtype)
     mu0 = bcs.cos_zenith
@@ -571,8 +602,10 @@ def solve_sw(
     else:
         two_kernel, sweep = impl == "two_kernel", impl == "sweep"
         cld_mask = _mcica_mask(lkp, as_, lkp_cld, cld_mask, cld_mask_seed, col_offset, two_kernel)
-        optics = (gas_optics_sw_kernel if two_kernel else gas_optics_sw)(
-            lkp, as_, eta_node_mode=eta_node_mode)
+        if two_kernel:
+            optics = gas_optics_sw_kernel(lkp, as_, eta_node_mode=eta_node_mode, fused=fused_optics)
+        else:
+            optics = gas_optics_sw(lkp, as_, eta_node_mode=eta_node_mode)
         tau = optics.tau
         ssa = optics.ssa if two_stream else None
         # clear-sky gas optics has zero asymmetry (Rayleigh g = 0): kept as

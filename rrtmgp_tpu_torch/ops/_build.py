@@ -41,7 +41,10 @@ _P, _I, _U, _L, _F, _D = (ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c
 #: sw_2stream_reduced with (nlay, ncol, ngpt, nbnd, stream). The sweeps from
 #: materialized sources: lw_noscat_reduced and lw_noscat_gpt end with (nlay,
 #: ncol, ngpt, ds, i2f, stream), lw_2stream_reduced with (nlay, ncol, ngpt,
-#: nbnd, stream), sw_2stream_gpt with (nlay, ncol, ngpt, stream).
+#: nbnd, stream), sw_2stream_gpt with (nlay, ncol, ngpt, stream). The
+#: kernels of the unfused optics: interp_pt_eta ends with (nlay, ncol, ngpt,
+#: nbnd, npress, ntemp, neta, stream), interp_minor with optics_fused's 7
+#: dims and the stream.
 SIGNATURES = {
     "rrtmgp_planck_band": [_P, _P, _P, _L, _I, _I, _F, _F, _P],
     "rrtmgp_planck_band_f64": [_P, _P, _P, _L, _I, _I, _D, _D, _P],
@@ -59,6 +62,8 @@ SIGNATURES = {
     "rrtmgp_lw_noscat_gpt": [_P] * 8 + [_I] * 3 + [_F, _F, _P],
     "rrtmgp_lw_2stream_reduced": [_P] * 12 + [_I] * 4 + [_P],
     "rrtmgp_sw_2stream_gpt": [_P] * 15 + [_I] * 3 + [_P],
+    "rrtmgp_interp_pt_eta": [_P] * 13 + [_I] * 7 + [_P],
+    "rrtmgp_interp_minor": [_P] * 20 + [_I] * 7 + [_P],
 }
 
 

@@ -51,15 +51,17 @@ def kernel_dtype(t: torch.Tensor, name: str) -> torch.dtype:
     return t.dtype
 
 
-def check_optics_inputs(inp, tabs, dev, shortwave: bool, dtype: torch.dtype = torch.float32) -> tuple:
+def check_optics_inputs(inp, tabs, dev, shortwave: bool, dtype: torch.dtype = torch.float32,
+                        max_gpt: int | None = MAX_GPT) -> tuple:
     """Check the gas-optics inputs (MegaInputs) and tables (KernelTables) of
-    a kernel built for ``dtype``; returns (nlay, ncol, ngpt, nbnd, ntemp,
-    neta, ncontrib)."""
+    a kernel built for ``dtype`` that takes at most ``max_gpt`` g-points
+    (None: a kernel of one thread per point, with no limit); returns (nlay,
+    ncol, ngpt, nbnd, ntemp, neta, ncontrib)."""
     lkp = tabs.lkp
     nlay, ncol = inp.nlay, inp.ncol
     ngpt, nbnd = lkp.n_gpt, lkp.n_bnd
-    if not 1 <= ngpt <= MAX_GPT:
-        raise ValueError(f"n_gpt={ngpt}: the kernels take 1..{MAX_GPT} g-points")
+    if ngpt < 1 or (max_gpt is not None and ngpt > max_gpt):
+        raise ValueError(f"n_gpt={ngpt}: the kernels take 1..{max_gpt or ''} g-points")
     real, i32 = dtype, torch.int32
     lc, lcb = (nlay, ncol), (nlay, ncol, nbnd)
     for name, shape, dtype in (

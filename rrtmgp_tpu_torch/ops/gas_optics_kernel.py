@@ -1,9 +1,12 @@
-"""Gas optics through the materialized-optics kernel (counterpart of
+"""Gas optics through the materialized-optics kernels (counterpart of
 ``gas_optics_lw_raw`` / ``gas_optics_lw`` / ``gas_optics_sw`` in
 ``rrtmgp_tpu/ops/gas_optics_pallas.py``): the first half of the two-kernel
 path. The plain-torch prologue (``ops.mega_inputs``, the inputs the
-megakernels read) feeds ``ops.interp.optics_fused``; LW adds the band Planck
-values in row layout (``ops.interp.planck_band_rows``). ``gas_optics_lw_raw``
+megakernels read) feeds ``ops.interp.optics_fused``, or with ``fused=False``
+``ops.interp.optics_unfused`` (the table interpolation and minor-gas
+kernels, the JAX package's ``pallas_windowed="off"`` optics; the same values
+bit for bit); LW adds the band Planck values in row layout
+(``ops.interp.planck_band_rows``). ``gas_optics_lw_raw``
 leaves the sources in banded form for
 ``ops.rte_kernels.lw_noscat_banded_reduced``, so no (nlay, ncol, ngpt) source
 tensor exists; ``gas_optics_lw`` materializes them per g-point for the sweeps
@@ -20,7 +23,7 @@ import torch
 from ..data.lookups import GasLookup
 from ..states import AtmosphericState
 from .gas_optics import LWOptics, SWOptics, planck_sources_from_bands
-from .interp import optics_fused, planck_band_rows
+from .interp import optics_fused, optics_unfused, planck_band_rows
 from .mega_inputs import mega_lw_inputs, mega_sw_inputs
 
 
@@ -36,12 +39,15 @@ class RawLWOptics(NamedTuple):
 
 
 def gas_optics_lw_raw(
-    lkp: GasLookup, as_: AtmosphericState, eta_node_mode: str = "continuous", need_lay: bool = True
+    lkp: GasLookup, as_: AtmosphericState, eta_node_mode: str = "continuous", need_lay: bool = True,
+    fused: bool = True,
 ) -> RawLWOptics:
     """LW gas optics for the source-fused sweep: tau, Planck fraction and
     band Planck values at layers (None without ``need_lay``), levels and the
-    surface."""
-    tau, pfrac = optics_fused(mega_lw_inputs(lkp, as_, eta_node_mode), lkp.kernel_tables)
+    surface; tau and the Planck fraction from ``optics_fused``, or
+    ``optics_unfused`` without ``fused``."""
+    optics = optics_fused if fused else optics_unfused
+    tau, pfrac = optics(mega_lw_inputs(lkp, as_, eta_node_mode), lkp.kernel_tables)
     nlay, ncol = as_.nlay, as_.ncol
     plk = lambda t: planck_band_rows(
         t.reshape(-1).contiguous(), lkp.totplnk, lkp.t_planck_min, lkp.t_planck_delta
@@ -56,7 +62,7 @@ def gas_optics_lw_raw(
 
 def gas_optics_lw(
     lkp: GasLookup, as_: AtmosphericState, eta_node_mode: str = "continuous",
-    need_lay_source: bool = True,
+    need_lay_source: bool = True, fused: bool = True,
 ) -> LWOptics:
     """LW gas optics with the Planck sources materialized per g-point: tau
     (nlay, ncol, ngpt) and layer, level and surface sources; same contract as
@@ -65,8 +71,8 @@ def gas_optics_lw(
     are formed from them in plain torch, as the JAX package forms them
     outside any kernel. Without ``need_lay_source`` the layer source is None
     and its Planck call is skipped (the two-stream sweep reads level sources
-    only)."""
-    raw = gas_optics_lw_raw(lkp, as_, eta_node_mode, need_lay=need_lay_source)
+    only). ``fused``: as in ``gas_optics_lw_raw``."""
+    raw = gas_optics_lw_raw(lkp, as_, eta_node_mode, need_lay=need_lay_source, fused=fused)
     sources = planck_sources_from_bands(
         lkp.kernel_tables.gpt2band.long(), raw.plk_lay, raw.plk_lev, raw.plk_sfc, raw.pfrac
     )
@@ -74,10 +80,12 @@ def gas_optics_lw(
 
 
 def gas_optics_sw(
-    lkp: GasLookup, as_: AtmosphericState, eta_node_mode: str = "continuous"
+    lkp: GasLookup, as_: AtmosphericState, eta_node_mode: str = "continuous", fused: bool = True
 ) -> SWOptics:
     """SW gas optics: tau with Rayleigh and the Rayleigh single-scattering
     albedo, each (nlay, ncol, ngpt); same contract as
-    ``ops.gas_optics.gas_optics_sw``."""
-    tau, ssa = optics_fused(mega_sw_inputs(lkp, as_, eta_node_mode), lkp.kernel_tables)
+    ``ops.gas_optics.gas_optics_sw``. ``fused``: as in
+    ``gas_optics_lw_raw``."""
+    optics = optics_fused if fused else optics_unfused
+    tau, ssa = optics(mega_sw_inputs(lkp, as_, eta_node_mode), lkp.kernel_tables)
     return SWOptics(tau=tau, ssa=ssa)

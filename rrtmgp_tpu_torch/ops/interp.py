@@ -11,15 +11,22 @@ kernels of the two-kernel path, with their plain torch twins (counterpart of
 - ``planck_band_rows``: band Planck emission (N, nbnd), the band index
   fastest (replaces ``planck_band_pallas``); ``ops.mega.planck_band`` is the
   same function with the bands leading.
+- ``interp_pt_eta``: one table's (pressure, temperature, eta) interpolation
+  per (layer, column, g-point), times col_mix when given (replaces
+  ``interp_pt_eta`` and ``interp_pt_eta_windowed``: the port reads whole
+  tables, so the two are one function);
+- ``interp_minor``: the minor-gas optical depth per (layer, column,
+  g-point) (replaces ``interp_minor_merged``);
+- ``optics_unfused``: ``optics_fused``'s function from three launches (the
+  two tables through ``interp_pt_eta``, the minor gases through
+  ``interp_minor``) and a few plain-torch passes, the counterpart of the JAX
+  package's unfused optics (``pallas_windowed="off"``).
 
 Each wrapper launches its CUDA kernel (``csrc/optics_fused.cu``,
-``csrc/planck_band.cu``) for CUDA tensors and raises on anything the kernel
-does not take; for CPU tensors it returns its twin. ``<wrapper>.launches``
-counts the launches. The kernels are f32.
-
-The TPU kernels' generic table interpolation (``interp_pt_eta``,
-``interp_pt_eta_windowed``) and merged minor-gas kernel
-(``interp_minor_merged``) are not ported yet (ROADMAP queue 2).
+``csrc/planck_band.cu``, ``csrc/interp_pt_eta.cu``, ``csrc/interp_minor.cu``)
+for CUDA tensors and raises on anything the kernel does not take; for CPU
+tensors it returns its twin. ``<wrapper>.launches`` counts the launches. The
+kernels are f32.
 """
 
 from __future__ import annotations
@@ -40,15 +47,21 @@ from .gas_optics import (
 from .mega_inputs import KernelTables, MegaInputs
 
 
-def tau_gas(inp: MegaInputs, tabs: KernelTables) -> torch.Tensor:
-    """Major + minor optical depth (nlay, ncol, ngpt), not yet clamped."""
+def interp_minor_ref(inp: MegaInputs, tabs: KernelTables) -> torch.Tensor:
+    """Plain twin of ``interp_minor``: ``ops.gas_optics``' minor-gas optical
+    depth on the kernel's inputs. Any float dtype."""
     lkp = tabs.lkp
     scalings = [
         (side, itv, inp.minor_scaling[i])
         for i, (side, itv) in enumerate(minor_intervals(lkp))
     ]
-    tau = compute_tau_major(lkp, inp.col_dry, inp.pt, inp.eta)
-    return tau.add_(tau_minor_from_scalings(lkp, scalings, inp.pt, inp.eta))
+    return tau_minor_from_scalings(lkp, scalings, inp.pt, inp.eta)
+
+
+def tau_gas(inp: MegaInputs, tabs: KernelTables) -> torch.Tensor:
+    """Major + minor optical depth (nlay, ncol, ngpt), not yet clamped."""
+    tau = compute_tau_major(tabs.lkp, inp.col_dry, inp.pt, inp.eta)
+    return tau.add_(interp_minor_ref(inp, tabs))
 
 
 def optics_fused_ref(inp: MegaInputs, tabs: KernelTables) -> tuple[torch.Tensor, torch.Tensor]:
@@ -119,3 +132,142 @@ def planck_band_rows(t: torch.Tensor, totplnk: torch.Tensor, t_min: float, t_del
 
 
 planck_band_rows.launches = 0
+
+
+def _band_ranges(gpt2band: torch.Tensor) -> list:
+    """(band, g0, g1) of each run of equal bands in ``gpt2band``."""
+    g2b = gpt2band.tolist()
+    starts = [g for g in range(len(g2b)) if g == 0 or g2b[g] != g2b[g - 1]] + [len(g2b)]
+    return [(g2b[g0], g0, g1) for g0, g1 in zip(starts[:-1], starts[1:])]
+
+
+def interp_pt_eta_ref(table, jtemp, ftemp, jpress, fpress, jeta1, feta1, jeta2, feta2, gpt2band,
+                      col_mix1=None, col_mix2=None) -> torch.Tensor:
+    """Plain twin of ``interp_pt_eta``, written from ``ops.gas_optics``'
+    ``_interp3d`` on the g-point-fastest table: per band, two gathered table
+    rows per (pressure, temperature, eta) corner. A pressure node past the
+    table's last slab is not read: its weight ``fpress`` is 0 by
+    construction and it contributes ``fpress * 0``, as in the kernel. Any
+    float dtype."""
+    n_p, ntemp, neta, ngpt = table.shape
+    tab = table.reshape(-1, ngpt)
+    slab = ntemp * neta
+    fp = fpress[..., None]
+    ft = ftemp[..., None]
+    jp = jpress.long()
+    jt = jtemp.long()
+    above = (jp + 1 < n_p)[..., None]
+    jp_above = torch.where(jp + 1 < n_p, jp + 1, jp)  # a row that exists; its value is not used past the table
+    pieces = []
+    for band, g0, g1 in _band_ranges(gpt2band):
+        tb = tab[:, g0:g1]
+        out = 0.0
+        for half in (0, 1):
+            je = (jeta1 if half == 0 else jeta2)[..., band].long()
+            fe = (feta1 if half == 0 else feta2)[..., band, None]
+            row = (jp * ntemp + jt + half) * neta + je  # (nlay, ncol)
+            row_above = row + (jp_above - jp) * slab
+            node0 = (1.0 - fp) * tb[row] + fp * torch.where(above, tb[row_above], 0.0)
+            node1 = (1.0 - fp) * tb[row + 1] + fp * torch.where(above, tb[row_above + 1], 0.0)
+            val = node0 * (1.0 - fe) + node1 * fe
+            if col_mix1 is not None:
+                val = val * (col_mix1 if half == 0 else col_mix2)[..., band, None]
+            out = out + (ft if half else 1.0 - ft) * val
+        pieces.append(out)
+    return torch.cat(pieces, dim=-1)
+
+
+def interp_pt_eta(table, jtemp, ftemp, jpress, fpress, jeta1, feta1, jeta2, feta2, gpt2band,
+                  col_mix1=None, col_mix2=None) -> torch.Tensor:
+    """(nlay, ncol, ngpt) f32: trilinear interpolation of a g-point-fastest
+    table (npress, ntemp, neta, ngpt) at the (layer, column) nodes ``jpress``
+    (the lower pressure slab), ``jtemp`` with fractions ``fpress``,
+    ``ftemp`` (each (nlay, ncol)) and the per-band eta nodes ``jeta1`` /
+    ``feta1`` (lower temperature node) and ``jeta2`` / ``feta2`` (upper),
+    each (nlay, ncol, nbnd), g-point g reading band ``gpt2band[g]``. Each
+    temperature node's value is scaled by its ``col_mix1`` / ``col_mix2``
+    (nlay, ncol, nbnd) when given (both or neither)."""
+    if (col_mix1 is None) != (col_mix2 is None):
+        raise ValueError("interp_pt_eta: give both col_mix1 and col_mix2, or neither")
+    if jtemp.device.type == "cpu":
+        return interp_pt_eta_ref(table, jtemp, ftemp, jpress, fpress, jeta1, feta1, jeta2, feta2, gpt2band,
+                                 col_mix1, col_mix2)
+    dev = cuda_device(jtemp, "interp_pt_eta")
+    if table.dim() != 4 or jtemp.dim() != 2 or jeta1.dim() != 3:
+        raise ValueError(f"interp_pt_eta: table {tuple(table.shape)}, jtemp {tuple(jtemp.shape)}, "
+                         f"jeta1 {tuple(jeta1.shape)}")
+    n_p, ntemp, neta, ngpt = table.shape
+    (nlay, ncol), nbnd = jtemp.shape, jeta1.shape[2]
+    if n_p < 1 or ntemp < 2 or neta < 2 or ngpt < 1:
+        raise ValueError(f"interp_pt_eta: table {tuple(table.shape)} has no cell to interpolate in")
+    f32, i32 = torch.float32, torch.int32
+    lc, lcb = (nlay, ncol), (nlay, ncol, nbnd)
+    require(table, "table", (n_p, ntemp, neta, ngpt), f32, dev)
+    for name, t, shape, dtype in (
+        ("jtemp", jtemp, lc, i32), ("ftemp", ftemp, lc, f32), ("jpress", jpress, lc, i32),
+        ("fpress", fpress, lc, f32), ("jeta1", jeta1, lcb, i32), ("feta1", feta1, lcb, f32),
+        ("jeta2", jeta2, lcb, i32), ("feta2", feta2, lcb, f32), ("gpt2band", gpt2band, (ngpt,), i32),
+    ):
+        require(t, name, shape, dtype, dev)
+    if col_mix1 is not None:
+        require(col_mix1, "col_mix1", lcb, f32, dev)
+        require(col_mix2, "col_mix2", lcb, f32, dev)
+    out = torch.empty((nlay, ncol, ngpt), dtype=f32, device=dev)
+    with torch.cuda.device(dev):
+        err = _build.library().rrtmgp_interp_pt_eta(
+            ptr(table), ptr(jtemp), ptr(ftemp), ptr(jpress), ptr(fpress), ptr(jeta1), ptr(feta1),
+            ptr(col_mix1), ptr(jeta2), ptr(feta2), ptr(col_mix2), ptr(gpt2band), ptr(out),
+            nlay, ncol, ngpt, nbnd, n_p, ntemp, neta, stream(dev),
+        )
+    _build.check(err, "interp_pt_eta")
+    interp_pt_eta.launches += 1
+    return out
+
+
+interp_pt_eta.launches = 0
+
+
+def interp_minor(inp: MegaInputs, tabs: KernelTables) -> torch.Tensor:
+    """Minor-gas optical depth (nlay, ncol, ngpt) f32 of ``MegaInputs``:
+    per minor interval covering a g-point on the cell's troposphere side, a
+    (temperature, eta) interpolation of its kminor rows times its scaling."""
+    if inp.jtemp.device.type == "cpu":
+        return interp_minor_ref(inp, tabs)
+    dev = cuda_device(inp.jtemp, "interp_minor")
+    dims = check_optics_inputs(inp, tabs, dev, not tabs.lkp.is_longwave, max_gpt=None)
+    nlay, ncol, ngpt = dims[:3]
+    out = torch.empty((nlay, ncol, ngpt), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        err = _build.library().rrtmgp_interp_minor(
+            *optics_input_ptrs(inp), *table_ptrs(tabs)[2:], ptr(out), *dims, stream(dev),
+        )
+    _build.check(err, "interp_minor")
+    interp_minor.launches += 1
+    return out
+
+
+interp_minor.launches = 0
+
+
+def optics_unfused(inp: MegaInputs, tabs: KernelTables) -> tuple[torch.Tensor, torch.Tensor]:
+    """``optics_fused``'s function, unfused (the JAX package's
+    ``pallas_windowed="off"`` optics): ``interp_pt_eta`` of kmajor with
+    col_mix, times col_dry, plus ``interp_minor``; LW: clamped at 0, and
+    ``interp_pt_eta`` of the Planck fraction without col_mix; SW: plus the
+    Rayleigh optical depth, ``interp_pt_eta`` of the Rayleigh table at the
+    troposphere side's slab with fpress = 0, without col_mix, times the
+    Rayleigh column amount, then ``gas_optics.sw_tau_ssa``. The Rayleigh
+    depth enters ssa unclamped, as on the XLA path (the JAX unfused optics
+    clamps it; the tables make it positive). Three launches on CUDA tensors
+    (their twins on CPU tensors); the same values as ``optics_fused`` bit for
+    bit."""
+    eta = (inp.jeta1, inp.feta1, inp.jeta2, inp.feta2, tabs.gpt2band)
+    pt = (inp.jtemp, inp.ftemp)
+    tau = interp_pt_eta(tabs.kmajor, *pt, inp.jpress_base, inp.fpress, *eta, inp.col_mix1, inp.col_mix2)
+    tau = tau.mul_(inp.col_dry[..., None]).add_(interp_minor(inp, tabs))
+    if tabs.lkp.is_longwave:
+        return tau.clamp_(min=0.0), interp_pt_eta(tabs.second, *pt, inp.jpress_base, inp.fpress, *eta)
+    side = (~inp.tropo_lower).to(torch.int32)  # the Rayleigh table's slab: 0 below the tropopause, 1 above
+    ray = interp_pt_eta(tabs.second, *pt, side, torch.zeros_like(inp.fpress), *eta)
+    optics = sw_tau_ssa(tau, ray.mul_(inp.ray_factor[..., None]))
+    return optics.tau, optics.ssa

@@ -52,7 +52,7 @@ from ._launch import table_ptrs as _table_ptrs
 from .aerosol_bands import aerosol_bands
 from .cloud_optics import cloud_cover_from_mask, compose_2stream, mcica_sample
 from .gas_optics import gpt2band, planck_bands, planck_sources_from_bands
-from .interp import optics_fused, optics_fused_ref, planck_band_rows
+from .interp import interp_minor, interp_pt_eta, optics_fused, optics_fused_ref, planck_band_rows
 from .mega_inputs import KernelTables, MegaInputs
 from .rte import intensity_to_flux, lw_2stream, lw_noscat, round_to, sw_2stream
 from .rte_kernels import (
@@ -495,7 +495,7 @@ mcica_mask_export.launches = 0
 KERNEL_WRAPPERS = (planck_band, lw_clear_mega, lw2_mega, sw_clear_mega, aerosol_bands,
                    mcica_mask_export, optics_fused, planck_band_rows, lw_noscat_banded_reduced,
                    sw_2stream_reduced, lw_noscat_reduced, lw_2stream_reduced, sw_2stream_gpt,
-                   lw_noscat_gpt)
+                   lw_noscat_gpt, interp_pt_eta, interp_minor)
 
 
 def reset_launch_counts() -> None:

@@ -21,6 +21,20 @@ def _eps(dtype) -> float:
     return float(torch.finfo(dtype).eps)
 
 
+def _level(x, like: torch.Tensor, shape: torch.Size | None = None) -> torch.Tensor:
+    """One level of a recurrence as a preallocated buffer of levels shaped
+    ``shape`` (default ``like.shape``) in ``like``'s dtype would store it:
+    cast and broadcast. The recurrences keep their levels in lists and
+    stack them at the end, so that no tensor is written after autograd saved
+    it and gradients pass through."""
+    dtype, shape = like.dtype, like.shape if shape is None else shape
+    if not isinstance(x, torch.Tensor):
+        return torch.full(shape, x, dtype=dtype, device=like.device)
+    if x.dtype != dtype:
+        x = x.to(dtype)
+    return x if x.shape == shape else x.expand(shape)
+
+
 def round_to(x: float, dtype) -> float:
     """Python float rounded to ``dtype`` (constants enter the arithmetic at
     the working precision, as in the JAX package)."""
@@ -58,10 +72,11 @@ def lw_noscat(
     ds = round_to(Ds, dtype)
     nlay = tau.shape[0]
 
-    i_dn = torch.empty_like(lev_source)
-    i_dn[nlay] = 0.0 if inc_flux is None else inc_flux / i2f
-    trans_all = torch.empty_like(tau)
-    src_up_all = torch.empty_like(tau)
+    lev, lay = lev_source[0], tau[0]  # a level's and a layer's dtype and shape
+    i_dn = [None] * (nlay + 1)
+    i_dn[nlay] = _level(0.0 if inc_flux is None else inc_flux / i2f, lev)
+    trans_all = [None] * nlay
+    src_up_all = [None] * nlay
     # downward recurrence, TOA -> surface: I[l] = trans[l]*I[l+1] + src_dn[l];
     # the emission toward the surface uses the layer's bottom level source,
     # the emission toward space its top level source
@@ -75,18 +90,20 @@ def lw_noscat(
             tau_loc * (0.5 + tau_loc * (-1.0 / 3.0 + tau_loc * 0.125)),
         )
         src_dn = (1.0 - trans) * lev_source[l] + 2.0 * fact * (lay_source[l] - lev_source[l])
-        src_up_all[l] = (1.0 - trans) * lev_source[l + 1] + 2.0 * fact * (
+        src_up_all[l] = _level((1.0 - trans) * lev_source[l + 1] + 2.0 * fact * (
             lay_source[l] - lev_source[l + 1]
-        )
-        trans_all[l] = trans
-        i_dn[l] = trans * i_dn[l + 1] + src_dn
+        ), lay)
+        trans_all[l] = _level(trans, lay)
+        i_dn[l] = _level(trans * i_dn[l + 1] + src_dn, lev)
 
     # surface reflection + emission, then the upward recurrence
-    i_up = torch.empty_like(lev_source)
-    i_up[0] = i_dn[0] * (1.0 - sfc_emis) + sfc_emis * sfc_source
+    i_up = [_level(i_dn[0] * (1.0 - sfc_emis) + sfc_emis * sfc_source, lev)]
     for l in range(nlay):
-        i_up[l + 1] = trans_all[l] * i_up[l] + src_up_all[l]
-    return i_up.mul_(i2f), i_dn.mul_(i2f)
+        i_up.append(_level(trans_all[l] * i_up[l] + src_up_all[l], lev))
+    del trans_all, src_up_all
+    dn = torch.stack(i_dn).mul_(i2f)
+    del i_dn
+    return torch.stack(i_up).mul_(i2f), dn
 
 
 # ---------------------------------------------------------------------------
@@ -138,11 +155,11 @@ def lw_2stream(
     """LW two-stream adding; returns (flux_up, flux_dn), each (nlay+1, *B)."""
     nlay = tau.shape[0]
     pi = round_to(math.pi, tau.dtype)
-    Rdif, Tdif, src_up, src_dn = (torch.empty_like(tau) for _ in range(4))
+    Rdif, Tdif, src_up, src_dn = ([None] * nlay for _ in range(4))
     for l in range(nlay):
-        Rdif[l], Tdif[l], src_up[l], src_dn[l] = lw_2stream_coeffs(
+        Rdif[l], Tdif[l], src_up[l], src_dn[l] = (_level(x, tau[0]) for x in lw_2stream_coeffs(
             tau[l], ssa[l], g[l], lev_source[l], lev_source[l + 1]
-        )
+        ))
     flux_dn_top = 0.0 if inc_flux is None else inc_flux
     return _adding(
         Rdif, Tdif, src_up, src_dn, 1.0 - sfc_emis, pi * sfc_emis * sfc_source, flux_dn_top
@@ -222,27 +239,31 @@ def sw_2stream_coeffs(tau, ssa, g, mu0):
 
 
 def _adding(Rdif, Tdif, src_up, src_dn, albedo_sfc, src_sfc, flux_dn_top):
-    """Shonk-Hogan adding: bottom-up albedo/source (Eqs 9-11), then the
-    top-down diffuse flux (Eqs 12-13). Returns diffuse (flux_up, flux_dn)
-    at all levels."""
-    nlay = Rdif.shape[0]
-    lev_shape = (nlay + 1, *Rdif.shape[1:])
-    albedo = Rdif.new_empty(lev_shape)
-    src = Rdif.new_empty(lev_shape)
-    albedo[0] = albedo_sfc
-    src[0] = src_sfc
+    """Shonk-Hogan adding over the layers' lists of coefficients and sources:
+    bottom-up albedo/source (Eqs 9-11), then the top-down diffuse flux (Eqs
+    12-13). Returns diffuse (flux_up, flux_dn) at all levels, stacked. A
+    level's albedo and source are dropped once its upward flux is formed, so
+    at most three level fields are alive at a time."""
+    nlay = len(Rdif)
+    lev = Rdif[0]  # a level's dtype and shape
+    albedo = [_level(albedo_sfc, lev)]
+    src = [_level(src_sfc, lev)]
     for l in range(nlay):
-        denom = 1.0 / (1.0 - Rdif[l] * albedo[l])                                  # Eq 10
-        albedo[l + 1] = Rdif[l] + Tdif[l] * Tdif[l] * albedo[l] * denom             # Eq 9
-        src[l + 1] = src_up[l] + Tdif[l] * denom * (src[l] + albedo[l] * src_dn[l])  # Eq 11
+        denom = 1.0 / (1.0 - Rdif[l] * albedo[l])                                     # Eq 10
+        albedo.append(Rdif[l] + Tdif[l] * Tdif[l] * albedo[l] * denom)                # Eq 9
+        src.append(src_up[l] + Tdif[l] * denom * (src[l] + albedo[l] * src_dn[l]))    # Eq 11
 
-    flux_dn = Rdif.new_empty(lev_shape)
-    flux_dn[nlay] = flux_dn_top
-    for l in range(nlay - 1, -1, -1):
-        denom = 1.0 / (1.0 - Rdif[l] * albedo[l])
-        flux_dn[l] = (Tdif[l] * flux_dn[l + 1] + Rdif[l] * src[l] + src_dn[l]) * denom  # Eq 13
-    flux_up = albedo.mul_(flux_dn).add_(src)  # Eq 12 at every level
-    return flux_up, flux_dn
+    flux_dn = [None] * (nlay + 1)
+    flux_up = [None] * (nlay + 1)
+    flux_dn[nlay] = _level(flux_dn_top, lev)
+    for l in range(nlay, -1, -1):
+        if l < nlay:
+            denom = 1.0 / (1.0 - Rdif[l] * albedo[l])
+            flux_dn[l] = (Tdif[l] * flux_dn[l + 1] + Rdif[l] * src[l] + src_dn[l]) * denom  # Eq 13
+        flux_up[l] = albedo[l] * flux_dn[l] + src[l]  # Eq 12
+        albedo[l] = src[l] = None
+    flux_up = torch.stack(flux_up)
+    return flux_up, torch.stack(flux_dn)
 
 
 def sw_2stream(
@@ -264,30 +285,29 @@ def sw_2stream(
     mu0_safe = torch.clamp(mu0, min=_eps(dtype))
     nlay = tau.shape[0]
     batch = torch.broadcast_shapes(tau.shape[1:], mu0.shape, toa_flux.shape)
-    lev_shape = (nlay + 1, *batch)
+    lev = (tau[0], batch)
 
     # direct beam at every level from the optical depth summed down from TOA
-    flux_dn_dir = tau.new_empty(lev_shape)
-    flux_dn_dir[nlay] = toa_flux * mu0
+    flux_dn_dir = [None] * (nlay + 1)
+    flux_dn_dir[nlay] = _level(toa_flux * mu0, *lev)
     tau_above = torch.zeros_like(tau[0])
     for l in range(nlay - 1, -1, -1):
         tau_above = tau_above + tau[l]
-        flux_dn_dir[l] = flux_dn_dir[nlay] * torch.exp(-tau_above / mu0_safe)
+        flux_dn_dir[l] = _level(flux_dn_dir[nlay] * torch.exp(-tau_above / mu0_safe), *lev)
 
-    Rdif = tau.new_empty((nlay, *batch))
-    Tdif = torch.empty_like(Rdif)
-    src_up = torch.empty_like(Rdif)
-    src_dn = torch.empty_like(Rdif)
+    Rdif, Tdif, src_up, src_dn = ([None] * nlay for _ in range(4))
     for l in range(nlay):
         g_l = g[l] if isinstance(g, torch.Tensor) else g
-        Rdir, Tdir, _, Rdif[l], Tdif[l] = sw_2stream_coeffs(tau[l], ssa[l], g_l, mu0)
+        Rdir, Tdir, _, rdif, tdif = sw_2stream_coeffs(tau[l], ssa[l], g_l, mu0)
+        Rdif[l], Tdif[l] = _level(rdif, *lev), _level(tdif, *lev)
         # layer direct sources use the direct beam at the top of the layer
-        src_up[l] = Rdir * flux_dn_dir[l + 1]
-        src_dn[l] = Tdir * flux_dn_dir[l + 1]
+        src_up[l] = _level(Rdir * flux_dn_dir[l + 1], *lev)
+        src_dn[l] = _level(Tdir * flux_dn_dir[l + 1], *lev)
 
     flux_dn_top = 0.0 if inc_flux_diffuse is None else inc_flux_diffuse
     flux_up, flux_dn = _adding(
         Rdif, Tdif, src_up, src_dn, sfc_alb_diffuse,
         flux_dn_dir[0] * sfc_alb_direct, flux_dn_top,
     )
+    flux_dn_dir = torch.stack(flux_dn_dir)
     return flux_up, flux_dn.add_(flux_dn_dir), flux_dn_dir

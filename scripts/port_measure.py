@@ -2,6 +2,7 @@
 that chip_smoke.py does not print. Run from the repository root:
 
     python3 scripts/port_measure.py [f64-memory] [angles] [profile] [profile-two-kernel] [profile-sweep]
+    python3 scripts/port_measure.py profile-two-kernel --unfused
     python3 scripts/port_measure.py --root CHECKOUT kernel-hashes
 
 With no argument it runs the first five. Each line names what it measured; the
@@ -33,6 +34,10 @@ imports no JAX.
 - ``profile-two-kernel``: the same over 3 steps of the two-kernel cell
   (solve_lw with 3 angles and solve_sw through impl="two_kernel", then the SW
   direct-beam solve with the default impl, f32 clear sky at 32768 x 60).
+  With ``--unfused`` also over the same step with ``fused_optics=False``
+  (the unfused optics: interp_pt_eta twice and interp_minor once per solve
+  in place of optics_fused), each solve of both steps timed alone, and the
+  fused and the unfused optics of one LW and one SW solve timed alone.
 - ``profile-sweep``: the same over the sweep cell's step (solve_lw with 3
   angles, solve_lw two-stream and solve_sw through impl="sweep", f32 clear
   sky at 32768 x 60), and over solve_lw two-stream through impl="two_kernel"
@@ -59,6 +64,8 @@ import time
 import warnings
 
 ARGS = sys.argv[1:]
+UNFUSED = "--unfused" in ARGS
+ARGS = [a for a in ARGS if a != "--unfused"]
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 if ARGS[:1] == ["--root"]:
     ROOT, ARGS = pathlib.Path(ARGS[1]).resolve(), ARGS[2:]
@@ -212,8 +219,11 @@ def _profile(tag: str, step, steps: int = 3) -> None:
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    step()
-    torch.cuda.synchronize()
+    # the warm-up step runs under a profiler of its own: the first profiler
+    # session of a process starts the device tracing, which takes seconds
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+        step()
+        torch.cuda.synchronize()
     t0 = time.perf_counter()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(steps):
@@ -272,21 +282,28 @@ def profile_cells() -> None:
 
 def profile_two_kernel() -> None:
     from rrtmgp_tpu_torch import solve_lw, solve_sw
+    from rrtmgp_tpu_torch.ops import interp
+    from rrtmgp_tpu_torch.ops.mega_inputs import mega_lw_inputs, mega_sw_inputs
 
     lw, sw = cs.lookups(256, 16, 224, 14)
     atm = cs.atmosphere(cs.NCOL, cs.NLAY)
     bcs_lw, bcs_sw = cs.boundary_conditions(lw, sw, cs.NCOL)
-
-    def step():
-        solve_lw(lw, atm, bcs_lw, n_gauss_angles=3, impl="two_kernel")
-        solve_sw(sw, atm, bcs_sw, impl="two_kernel")
-        solve_sw(sw, atm, bcs_sw, two_stream=False)
-
-    _profile("profile two-kernel", step)
-    for name, fn in (("LW 3 angles", lambda: solve_lw(lw, atm, bcs_lw, n_gauss_angles=3, impl="two_kernel")),
-                     ("SW two-stream", lambda: solve_sw(sw, atm, bcs_sw, impl="two_kernel")),
-                     ("SW direct beam", lambda: solve_sw(sw, atm, bcs_sw, two_stream=False))):
-        say("profile two-kernel", f"{name} alone, no profiler: {cs.timed(fn, 3):.3f} ms")
+    cells = [("two-kernel", dict(impl="two_kernel"), {})]
+    if UNFUSED:
+        cells.append(("unfused two-kernel", dict(fused_optics=False), dict(fused_optics=False)))
+    for tag, kw, beam_kw in cells:
+        parts = (("LW 3 angles", lambda: solve_lw(lw, atm, bcs_lw, n_gauss_angles=3, **kw)),
+                 ("SW two-stream", lambda: solve_sw(sw, atm, bcs_sw, **kw)),
+                 ("SW direct beam", lambda: solve_sw(sw, atm, bcs_sw, two_stream=False, **beam_kw)))
+        _profile(f"profile {tag}", lambda: [fn() for _, fn in parts])
+        for name, fn in parts:
+            say(f"profile {tag}", f"{name} alone, no profiler: {cs.timed(fn, 3):.3f} ms")
+    if UNFUSED:
+        for wave, inp, tabs in (("LW", mega_lw_inputs(lw, atm), lw.kernel_tables),
+                                ("SW", mega_sw_inputs(sw, atm), sw.kernel_tables)):
+            for name, fn in (("optics_fused", interp.optics_fused), ("optics_unfused", interp.optics_unfused)):
+                say("profile unfused two-kernel",
+                    f"{wave} {name} alone (the prologue excluded): {cs.timed(lambda: fn(inp, tabs), 3):.3f} ms")
 
 
 def profile_sweep() -> None:

@@ -13,8 +13,9 @@ determinism, the wrappers' argument checks on CUDA tensors, the routing of
 solve_lw / solve_sw (f64, several angles, the SW direct-beam solve), the
 angle loop, the launch counts of solve_lw / solve_sw and
 RRTMGPSolver.update_fluxes, LW two-stream on the two-kernel path, the
-sweep-only route (impl="sweep") and boundary conditions of another dtype
-than the state. Tolerances as chip_smoke.py: max |kernel - twin|
+sweep-only route (impl="sweep"), boundary conditions of another dtype
+than the state, and the unfused optics (interp_pt_eta, interp_minor,
+fused_optics=False: equal to the fused optics and route bit for bit). Tolerances as chip_smoke.py: max |kernel - twin|
 / max |twin| <= 1e-6 (Planck, aerosol_bands), 5e-5 (LW no-scattering), 1e-4
 (LW two-stream, SW, their sweeps), 1e-6 (materialized optics, row-layout Planck); in f64 1e-14 (Planck) and 1e-12 (LW no-scattering: the
 same operations, up to the order of the g-point sums and an ulp of exp);
@@ -38,7 +39,8 @@ pytestmark = pytest.mark.gpu
 TOL = {"planck_band": 1e-6, "lw_clear_mega": 5e-5, "sw_clear_mega": 1e-4, "lw2_mega": 1e-4,
        "aerosol_bands": 1e-6, "optics_fused": 1e-6, "planck_band_rows": 1e-6,
        "lw_noscat_banded_reduced": 5e-5, "sw_2stream_reduced": 1e-4,
-       "lw_noscat_reduced": 5e-5, "lw_2stream_reduced": 1e-4, "sw_2stream_gpt": 1e-4, "lw_noscat_gpt": 5e-5}
+       "lw_noscat_reduced": 5e-5, "lw_2stream_reduced": 1e-4, "sw_2stream_gpt": 1e-4, "lw_noscat_gpt": 5e-5,
+       "interp_pt_eta": 1e-6, "interp_minor": 1e-6}
 TOL64 = {"planck_band": 1e-14, "lw_clear_mega": 1e-12}
 
 
@@ -905,3 +907,121 @@ def test_default_built_inputs_live_on_the_card_and_take_the_kernels(cuda):
                       convert.lw_bcs_from_numpy(sfc_emis=np.full((4, 64), 0.98, np.float32), device="cpu"))
     assert not ref.flux_up.is_cuda and _counts() == {}
     assert _rel([out.flux_up.cpu()], [ref.flux_up]) <= TOL["lw_clear_mega"]
+
+
+def _interp_calls(inp, tabs):
+    """The three interp_pt_eta argument tuples of the unfused optics of
+    ``inp`` (kmajor with col_mix; the Planck fraction, or the Rayleigh table
+    at the troposphere side's slab with fpress = 0)."""
+    eta = (inp.jeta1, inp.feta1, inp.jeta2, inp.feta2, tabs.gpt2band)
+    calls = [(tabs.kmajor, inp.jtemp, inp.ftemp, inp.jpress_base, inp.fpress, *eta, inp.col_mix1, inp.col_mix2)]
+    if tabs.lkp.is_longwave:
+        calls.append((tabs.second, inp.jtemp, inp.ftemp, inp.jpress_base, inp.fpress, *eta))
+    else:
+        calls.append((tabs.second, inp.jtemp, inp.ftemp, (~inp.tropo_lower).to(torch.int32),
+                      torch.zeros_like(inp.fpress), *eta))
+    return calls
+
+
+@pytest.mark.parametrize("ngpt,nbnd,ncol,nlay", [(36, 4, 1000, 30), (256, 16, 257, 60), (224, 14, 130, 60),
+                                                 (5, 5, 3, 2), (1100, 4, 7, 5)])
+def test_unfused_kernels_match_twins(cuda, ngpt, nbnd, ncol, nlay):
+    """interp_pt_eta (each table the unfused optics read) and interp_minor
+    against their twins within 1e-6 of the largest value, LW and SW, any
+    g-point count (more than a block has threads too: no limit); the
+    unfused optics equal the fused optics bit for bit."""
+    for longwave in (True, False):
+        lkp = synthetic_gas_lookup(longwave=longwave, n_gpt=ngpt, n_bnd=nbnd, seed=0 if longwave else 1,
+                                   dtype=np.float32, device=cuda)
+        atm = synthetic_atmosphere(ncol=ncol, nlay=nlay, dtype=np.float32, device=cuda)
+        inp, tabs = (mega_lw_inputs if longwave else mega_sw_inputs)(lkp, atm), lkp.kernel_tables
+        mega.reset_launch_counts()
+        for args in _interp_calls(inp, tabs):
+            out = interp.interp_pt_eta(*args)
+            assert out.shape == (nlay, ncol, ngpt)
+            assert _rel([out], [interp.interp_pt_eta_ref(*args)]) <= TOL["interp_pt_eta"]
+        minor = interp.interp_minor(inp, tabs)
+        assert _rel([minor], [interp.interp_minor_ref(inp, tabs)]) <= TOL["interp_minor"]
+        assert _counts() == {"interp_pt_eta": 2, "interp_minor": 1}
+        if ngpt <= 1024:
+            for a, b in zip(interp.optics_unfused(inp, tabs), interp.optics_fused(inp, tabs)):
+                assert torch.equal(a, b)
+
+
+def test_unfused_kernels_are_deterministic_and_reject_what_they_do_not_take(cuda):
+    lkp = synthetic_gas_lookup(longwave=True, n_gpt=64, n_bnd=4, dtype=np.float32, device=cuda)
+    atm = synthetic_atmosphere(ncol=200, nlay=12, dtype=np.float32, device=cuda)
+    inp, tabs = mega_lw_inputs(lkp, atm), lkp.kernel_tables
+    args = _interp_calls(inp, tabs)[0]
+    assert torch.equal(interp.interp_pt_eta(*args), interp.interp_pt_eta(*args))
+    assert torch.equal(interp.interp_minor(inp, tabs), interp.interp_minor(inp, tabs))
+    mega.reset_launch_counts()
+    with pytest.raises(ValueError, match="col_mix"):
+        interp.interp_pt_eta(*args[:-1], None)
+    with pytest.raises(TypeError, match="float32"):
+        interp.interp_pt_eta(args[0].double(), *args[1:])
+    with pytest.raises(TypeError, match="int32"):
+        interp.interp_pt_eta(*args[:3], args[3].long(), *args[4:])
+    with pytest.raises(ValueError, match="shape"):
+        interp.interp_pt_eta(*args[:5], args[5][:, :-1].contiguous(), *args[6:])
+    with pytest.raises(ValueError, match="on cpu"):
+        interp.interp_pt_eta(*args[:9], args[9].cpu(), *args[10:])
+    with pytest.raises(TypeError, match="float32"):
+        interp.interp_minor(inp.to(dtype=torch.float64), tabs)
+    assert _counts() == {}
+
+
+def test_unfused_solves_take_the_unfused_kernels(cuda):
+    """fused_optics=False on f32 CUDA tensors: every solve takes the
+    two-kernel path with interp_pt_eta twice and interp_minor once in place
+    of optics_fused, and equals the fused two-kernel route bit for bit (LW
+    1 and 3 angles, LW two-stream, SW two-stream, SW direct beam, clear and
+    all-sky); RRTMGPSolver passes it through."""
+    from rrtmgp_tpu_torch import AllSkyRadiation, RRTMGPGridParams, RRTMGPParameters, RRTMGPSolver
+    from rrtmgp_tpu_torch.data.synthetic import synthetic_aerosol_lookup, synthetic_cloud_lookup
+
+    ncol, nlay = 300, 12
+    lw = synthetic_gas_lookup(longwave=True, n_gpt=32, n_bnd=4, dtype=np.float32, device=cuda)
+    sw = synthetic_gas_lookup(longwave=False, n_gpt=32, n_bnd=4, seed=1, dtype=np.float32, device=cuda)
+    f = lambda shape, v: torch.full(shape, v, dtype=torch.float32, device=cuda)
+    mu0 = f((ncol,), 0.6)
+    mu0[::3] = -0.1
+    bl = LwBCs(sfc_emis=f((4, ncol), 0.98))
+    bs = SwBCs(cos_zenith=mu0, toa_flux=f((ncol,), 1361.0), sfc_alb_direct=f((4, ncol), 0.2),
+               sfc_alb_diffuse=f((4, ncol), 0.2))
+    clear = synthetic_atmosphere(ncol=ncol, nlay=nlay, dtype=np.float32, device=cuda)
+    cloudy = synthetic_atmosphere(ncol=ncol, nlay=nlay, dtype=np.float32, device=cuda, with_clouds=True,
+                                  with_aerosols=True)
+    kw_lw = dict(lkp_cld=synthetic_cloud_lookup(n_bnd=4, dtype=np.float32, device=cuda),
+                 lkp_aero=synthetic_aerosol_lookup(n_bnd=4, dtype=np.float32, device=cuda), cld_mask_seed=5)
+    kw_sw = dict(lkp_cld=synthetic_cloud_lookup(n_bnd=4, seed=5, dtype=np.float32, device=cuda),
+                 lkp_aero=synthetic_aerosol_lookup(n_bnd=4, seed=6, dtype=np.float32, device=cuda), cld_mask_seed=6)
+    cases = [(solve_lw, lw, bl, dict(n_gauss_angles=1)), (solve_lw, lw, bl, dict(n_gauss_angles=3)),
+             (solve_lw, lw, bl, dict(two_stream=True)), (solve_sw, sw, bs, {}),
+             (solve_sw, sw, bs, dict(two_stream=False))]
+    for atm, sky_lw, sky_sw in ((clear, {}, {}), (cloudy, kw_lw, kw_sw)):
+        for solve, lkp, b, kw in cases:
+            sky = sky_lw if solve is solve_lw else sky_sw
+            mega.reset_launch_counts()
+            out, d_out = solve(lkp, atm, b, fused_optics=False, **kw, **sky)
+            counts = _counts()
+            assert counts["interp_pt_eta"] == 2 and counts["interp_minor"] == 1, counts
+            assert not {"optics_fused", "lw_clear_mega", "lw2_mega", "sw_clear_mega"} & set(counts), counts
+            ref, d_ref = solve(lkp, atm, b, impl="two_kernel", **kw, **sky)
+            assert all(torch.equal(x, y) for x, y in zip(out, ref)), (solve.__name__, kw)
+            if sky:
+                assert torch.equal(d_out.cld_cover, d_ref.cld_cover)
+    with pytest.raises(ValueError, match="fused_optics"):
+        solve_lw(lw, clear, bl, impl="kernel", fused_optics=False)
+    bl16 = LwBCs(sfc_emis=f((16, ncol), 0.98))
+    bs14 = SwBCs(cos_zenith=mu0, toa_flux=f((ncol,), 1361.0), sfc_alb_direct=f((14, ncol), 0.2),
+                 sfc_alb_diffuse=f((14, ncol), 0.2))
+    mk = lambda **kw: RRTMGPSolver(RRTMGPGridParams(nlay=nlay, ncol=ncol), AllSkyRadiation(aerosol_radiation=True),
+                                   RRTMGPParameters(), bl16, bs14, cloudy, **kw)
+    mega.reset_launch_counts()
+    unfused = mk(fused_optics=False).update_fluxes()
+    counts = _counts()
+    assert counts["interp_pt_eta"] == 4 and counts["interp_minor"] == 2 and "optics_fused" not in counts, counts
+    fused = mk(impl="two_kernel").update_fluxes()
+    for a, b in zip((*unfused[0], *unfused[1]), (*fused[0], *fused[1])):
+        assert torch.equal(a, b)
