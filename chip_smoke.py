@@ -94,8 +94,20 @@ is non-zero:
    two-kernel slice's oracles, and all-sky (McICA by seed + aerosols)
    against the torch path at 8192 columns.
 
-The last lines are a JSON object per kernel, the card's name and power limit,
-and {"ok": true, "device": {...}}. Needs CUDA and nvcc; imports no JAX.
+11. wide and deep (after the small shapes): every kernel against its twin
+   at 1100 g-points, more than a block has threads (ncol 64, 12 layers: the
+   megakernels, the two-kernel path, the sweeps, the unfused optics, f64),
+   and the all-sky kernels, lw2_mega and sw_clear_mega among them, at 800
+   layers (ncol 512, LW 256 / SW 224 g-points), where their in-block level
+   sums take more than the 48 KB of shared memory a block gets without
+   asking. The lw2_mega and sw_clear_mega lines of every phase print their
+   design (the adding state in device memory, blocks per column) and the
+   device scratch of one call, measured: the peak allocated during the call
+   less what it returns.
+
+The last lines are a JSON object per kernel, the card's name and power
+limit, and {"ok": true, "device": {...}}. Needs CUDA and nvcc; imports no
+JAX.
 """
 
 from __future__ import annotations
@@ -114,6 +126,8 @@ TWIN_CHUNK = 8192               # the all-sky twins run on column chunks (bounds
 F64_TWIN_CHUNK = 4096           # the f64 twin holds 8-byte (nlay, ncol, ngpt) tensors
 ANGLES_NCOL = 8192              # the 3-angle all-sky comparison
 SMALL_NCOL, SMALL_NLAY = 1000, 30
+WIDE_NGPT, WIDE_NCOL, WIDE_NLAY = 1100, 64, 12  # more g-points than a block has threads
+DEEP_NCOL, DEEP_NLAY = 512, 800  # the megakernels' in-block level sums past 48 KB
 CMP_NCOL = 4096                 # kernel vs torch path on the first columns
 STEPS = 5
 DEVICE = "cuda"
@@ -217,14 +231,14 @@ def lookups(n_lw, b_lw, n_sw, b_sw, dtype="float32"):
     return lw, sw
 
 
-def small_allsky_lookups():
+def small_allsky_lookups(n_gpt=36):
     """A LookupBundle at the small shapes (36 g-points in 4 bands)."""
     import numpy as np
 
     from rrtmgp_tpu_torch import LookupBundle
     from rrtmgp_tpu_torch.data.synthetic import synthetic_aerosol_lookup, synthetic_cloud_lookup
 
-    lw, sw = lookups(36, 4, 36, 4)
+    lw, sw = lookups(n_gpt, 4, n_gpt, 4)
     kw = dict(n_bnd=4, dtype=np.float32, device=DEVICE)
     return LookupBundle(
         lookup_lw=lw, lookup_sw=sw,
@@ -404,6 +418,27 @@ def phase_build() -> float:
     return seconds
 
 
+def print_design(label, name, kern, ngpt) -> None:
+    """The design lw2_mega / sw_clear_mega run, and the device scratch of one
+    call ``kern``, measured: the peak allocated during the call less what is
+    allocated after it (what was there before, and what the call returns)."""
+    import torch
+
+    from rrtmgp_tpu_torch.ops._launch import gpoint_plan
+
+    plan = gpoint_plan(ngpt)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    out = kern()
+    torch.cuda.synchronize()
+    scratch = torch.cuda.max_memory_allocated() - torch.cuda.memory_allocated()
+    del out
+    sums = "in the block" if not plan.grouped else "warp partials in device memory"
+    phase("kernels", f"{label} {name} design: adding state in device memory, {plan.n_groups} block(s) of "
+                     f"{plan.group} threads per column, level sums {sums}; device scratch of one call "
+                     f"{scratch / 1e9:.3f} GB (measured)")
+
+
 def check_case(label, name, kern, ref, reps, results, cover=False, work=None) -> None:
     """One kernel call against its twin on the same inputs (tuples of
     tensors). With ``cover`` the last output is the McICA cloud cover, which
@@ -457,6 +492,7 @@ def check_kernels(label, lw, sw, atm, bcs_lw, bcs_sw, reps, results) -> None:
     }
     for name, (kern, ref, work) in cases.items():
         check_case(label, name, kern, ref, reps, results, work=work)
+    print_design(label, "sw_clear_mega", cases["sw_clear_mega"][0], sw.n_gpt)
 
 
 def check_f64_kernels(label, lw64, atm64, bcs_lw64, lw_f32_args, reps, results, chunk=None,
@@ -581,6 +617,7 @@ def check_allsky_kernels(label, L, atm, reps, results, chunk=None) -> None:
         check_case(f"{label} [{what}]", "lw2_mega", lambda: mega.lw2_mega(*lw_args, c),
                    lambda: twin(mega.lw2_mega_ref, *lw_args, c), reps if i == 2 else 0, results, c.seeded,
                    work("lw2_mega", lw_args, c))
+    print_design(f"{label} [seed+aerosols]", "lw2_mega", lambda: mega.lw2_mega(*lw_args, lw_cases[2][1]), lw.n_gpt)
     # LW no-scattering composed (absorption only), one angle as solve_lw passes it
     Ds, wts = angular_discretization(1)
     ns_args = (*lw_args[:2], plk(atm.t_lay), *lw_args[2:], float(Ds[0]), float(wts[0]))
@@ -597,6 +634,8 @@ def check_allsky_kernels(label, L, atm, reps, results, chunk=None) -> None:
         check_case(f"{label} [{what}]", "sw_clear_mega_allsky", lambda: mega.sw_clear_mega(*sw_args, c),
                    lambda: twin(mega.sw_clear_mega_ref, *sw_args, c), reps if i == 1 else 0, results,
                    c.seeded, work("sw_clear_mega", sw_args, c))
+    print_design(f"{label} [seed+aerosols]", "sw_clear_mega_allsky",
+                 lambda: mega.sw_clear_mega(*sw_args, sw_cases[1][1]), sw.n_gpt)
     for i, lkp in enumerate((L.lookup_sw_aero, L.lookup_lw_aero)):
         a = (lkp, atm.aerosol_state, atm.rel_hum)
         nbnd = lkp.dust.shape[-1]
@@ -610,27 +649,37 @@ def check_allsky_kernels(label, L, atm, reps, results, chunk=None) -> None:
                work=Work(nbytes(cf), OPS_MCICA * atm.nlay * ncol * lw.n_gpt))
 
 
-def phase_kernels_small() -> None:
+def phase_kernels_small(ngpt=36, ncol=SMALL_NCOL, nlay=SMALL_NLAY) -> None:
+    """Every kernel against its twin at a small shape (4 bands)."""
     import torch
 
-    lw, sw = lookups(36, 4, 36, 4)
-    atm = atmosphere(SMALL_NCOL, SMALL_NLAY)
+    lw, sw = lookups(ngpt, 4, ngpt, 4)
+    atm = atmosphere(ncol, nlay)
     gen = torch.Generator(device=DEVICE).manual_seed(3)
-    mu0 = 0.05 + 0.95 * torch.rand(SMALL_NCOL, generator=gen, device=DEVICE)  # day columns
-    bcs_lw, bcs_sw = boundary_conditions(lw, sw, SMALL_NCOL, mu0)
-    label = f"small ncol={SMALL_NCOL} nlay={SMALL_NLAY} ngpt=36"
+    mu0 = 0.05 + 0.95 * torch.rand(ncol, generator=gen, device=DEVICE)  # day columns
+    bcs_lw, bcs_sw = boundary_conditions(lw, sw, ncol, mu0)
+    label = f"small ncol={ncol} nlay={nlay} ngpt={ngpt}"
     check_kernels(label, lw, sw, atm, bcs_lw, bcs_sw, 0, {})
-    lw64, _ = lookups(36, 4, 36, 4, "float64")
-    check_f64_kernels(label, lw64, atmosphere(SMALL_NCOL, SMALL_NLAY, "float64"),
-                      boundary_conditions(lw64, lw64, SMALL_NCOL)[0],
+    lw64, _ = lookups(ngpt, 4, ngpt, 4, "float64")
+    check_f64_kernels(label, lw64, atmosphere(ncol, nlay, "float64"),
+                      boundary_conditions(lw64, lw64, ncol)[0],
                       kernel_args(lw, None, atm, bcs_lw, None)[1], 0, {}, f32_tol=1e-4)
-    small_L, small_allsky = small_allsky_lookups(), allsky_atmosphere(SMALL_NCOL, SMALL_NLAY)
+    small_L, small_allsky = small_allsky_lookups(ngpt), allsky_atmosphere(ncol, nlay)
     check_allsky_kernels(label, small_L, small_allsky, 0, {})
     check_two_kernel_kernels(label, lw, sw, atm, bcs_lw, bcs_sw, 0, {})
     check_sw_sweep_allsky(label, small_L, small_allsky, {})
     check_sweep_kernels(label, lw, sw, atm, bcs_lw, bcs_sw, 0, {})
     check_lw2_sweep_allsky(label, small_L, small_allsky, {})
     check_unfused_kernels(label, lw, sw, atm, 0, {})
+
+
+def phase_kernels_deep(L) -> None:
+    """The all-sky kernels, lw2_mega and sw_clear_mega among them, at 800
+    layers, where the megakernels' in-block level sums (SW 3 x 801 x 7 warps,
+    LW 2 x 801 x 8 warps of floats) take more than 48 KB of shared memory, as
+    the launch asks for."""
+    check_allsky_kernels(f"deep ncol={DEEP_NCOL} nlay={DEEP_NLAY} ngpt=256/224", L,
+                         allsky_atmosphere(DEEP_NCOL, DEEP_NLAY), 0, {})
 
 
 def phase_clear_slice(lw, sw, atm, bcs_lw, bcs_sw):
@@ -1645,6 +1694,7 @@ def main() -> None:
     phase_device()
     phase_build()
     phase_kernels_small()
+    phase_kernels_small(WIDE_NGPT, WIDE_NCOL, WIDE_NLAY)
 
     from rrtmgp_tpu_torch import AllSkyRadiation, lookup_tables
 
@@ -1661,6 +1711,8 @@ def main() -> None:
                       chunk=F64_TWIN_CHUNK)
     launches, _, f32_lw = phase_clear_slice(lw, sw, atm, bcs_lw, bcs_sw)
     L = lookup_tables(AllSkyRadiation(aerosol_radiation=True), dtype=torch.float32, device=DEVICE)
+    phase_kernels_deep(L)
+    torch.cuda.empty_cache()
     check_two_kernel_kernels(label, lw, sw, atm, bcs_lw, bcs_sw, 3, results, chunk=TWIN_CHUNK)
     check_sw_sweep_allsky(f"main ncol={TWIN_CHUNK} nlay={NLAY} ngpt=224", L, allsky_atmosphere(TWIN_CHUNK, NLAY),
                           results)

@@ -3,7 +3,8 @@
 // (optics_fused.cu, interp_pt_eta.cu, interp_minor.cu, lw_noscat_banded.cu,
 // sw_2stream_reduced.cu): the
 // per-(layer, column) gas-optics inputs, table interpolation for one g-point,
-// the Clough source factor, and deterministic per-level g-point sums.
+// the Clough source factor, deterministic per-level g-point sums in a block
+// or across the blocks of a column, and the launch shapes.
 //
 // Every real-valued type is a template parameter R (float by default, double
 // for the f64 instantiations); the unsuffixed names (OpticsIn, Tables, Cell,
@@ -23,6 +24,7 @@
 
 #include <cfloat>
 #include <cstddef>
+#include <type_traits>
 #include <cuda_runtime.h>
 
 namespace rrtmgp {
@@ -224,10 +226,105 @@ struct LevelSumsT {
 };
 using LevelSums = LevelSumsT<float>;
 
+// The same sums when a column's g-points span several blocks (grid (ncol,
+// groups), from the host's launch plan): each warp's partial goes to its
+// slot of a device buffer [nf][nlev][ncol][column's warps], and
+// finish_level_sums adds a column's slots in warp order after the kernel.
+// Warp w of a column holds g-points 32w..32w+31 either way and the warps are
+// added in the order 0, 1, ..., so the sums have the bits of LevelSumsT.
+template <typename R>
+struct LevelPartialsT {
+  R* part;
+  int nlev;
+
+  __device__ __forceinline__ void add(int f, int lev, R v) const {
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
+    if ((threadIdx.x & 31) == 0) {
+      const size_t col_warps = (size_t)gridDim.y * (blockDim.x >> 5);
+      part[(((size_t)f * nlev + lev) * gridDim.x + blockIdx.x) * col_warps + blockIdx.y * (blockDim.x >> 5) +
+           (threadIdx.x >> 5)] = v;
+    }
+  }
+};
+
+// The sums of a kernel that runs in-block (SPLIT false: one block per
+// column, shared memory `smem`) or across blocks (SPLIT true: `partials`).
+template <typename R, bool SPLIT>
+using SumsOf = typename std::conditional<SPLIT, LevelPartialsT<R>, LevelSumsT<R>>::type;
+
+template <typename R, bool SPLIT>
+__device__ __forceinline__ SumsOf<R, SPLIT> level_sums(R* smem, R* partials, int nlev) {
+  if constexpr (SPLIT) {
+    return LevelPartialsT<R>{partials, nlev};
+  } else {
+    return LevelSumsT<R>{smem, nlev, (int)(blockDim.x >> 5)};
+  }
+}
+
+// This thread's g-point: one block per column, or a column over gridDim.y
+// blocks.
+template <bool SPLIT>
+__device__ __forceinline__ int gpoint() {
+  return SPLIT ? (int)(blockIdx.y * blockDim.x + threadIdx.x) : (int)threadIdx.x;
+}
+
+// What finish_level_sums writes, per (level, column): each field's total
+// (SUMS_PLAIN), times `scale` (SUMS_SCALED), or the SW fluxes from the
+// SW_UP / SW_DN_DIF / SW_DIR totals (SUMS_SW: up, diffuse + direct down,
+// direct), each as the in-block epilogue of the kernels writes it.
+enum SumsEpilogue { SUMS_PLAIN = 0, SUMS_SCALED = 1, SUMS_SW = 2 };
+
+// Completes the partials of nf <= 3 fields, [nf][nlev][ncol][nw], in warp
+// order into out[f] (nlev, ncol); with `cover`, also the McICA cloud cover
+// of each column from its blocks' counts cover_part (ncol, n_groups),
+// integers added in any order.
+template <typename R>
+__global__ void finish_level_sums(const R* __restrict__ part, int nf, int nlev, int ncol, int nw, int epi, R scale,
+                                  R* __restrict__ out0, R* __restrict__ out1, R* __restrict__ out2,
+                                  const int* __restrict__ cover_part, int n_groups, int ngpt,
+                                  float* __restrict__ cover) {
+  const size_t idx = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (idx >= (size_t)nlev * ncol) return;
+  const int lev = (int)(idx / ncol), col = (int)(idx - (size_t)lev * ncol);
+  auto total = [&](int f) {
+    const R* p = part + (((size_t)f * nlev + lev) * ncol + col) * nw;
+    R s = R(0);
+    for (int w = 0; w < nw; ++w) s += p[w];
+    return s;
+  };
+  if (epi == SUMS_SW) {
+    const R dir = total(2);
+    out0[idx] = total(0);
+    out1[idx] = total(1) + dir;
+    out2[idx] = dir;
+  } else {
+    R* out[3] = {out0, out1, out2};
+    for (int f = 0; f < nf; ++f) out[f][idx] = epi == SUMS_SCALED ? total(f) * scale : total(f);
+  }
+  if (cover != nullptr && lev == 0) {
+    int n = 0;
+    for (int b = 0; b < n_groups; ++b) n += cover_part[(size_t)col * n_groups + b];
+    cover[col] = (float)n / (float)ngpt;
+  }
+}
+
+template <typename R>
+inline cudaError_t finish_sums(cudaStream_t stream, const R* part, int nf, int nlev, int ncol, int nw, int epi,
+                               R scale, R* out0, R* out1, R* out2, const int* cover_part = nullptr,
+                               int n_groups = 0, int ngpt = 0, float* cover = nullptr) {
+  const size_t n = (size_t)nlev * ncol;
+  if (n == 0) return cudaGetLastError();
+  const int threads = 256;
+  finish_level_sums<R><<<(unsigned)((n + threads - 1) / threads), threads, 0, stream>>>(
+      part, nf, nlev, ncol, nw, epi, scale, out0, out1, out2, cover_part, n_groups, ngpt, cover);
+  return cudaGetLastError();
+}
+
 // Launch shape shared by the megakernels: one block per column, one thread
 // per g-point rounded up to whole warps, nf per-level fields of per-warp
-// partial sums of type R in dynamic shared memory. Any ngpt: the idle
-// threads of the last warp add zeros.
+// partial sums of type R in dynamic shared memory. Any ngpt up to 1024: the
+// idle threads of the last warp add zeros.
 struct MegaLaunch {
   dim3 grid, block;
   size_t smem;
@@ -240,6 +337,25 @@ inline MegaLaunch mega_launch(const Dims& d, int nf) {
   m.grid = dim3((unsigned)d.ncol);
   m.block = dim3((unsigned)threads);
   m.smem = (size_t)nf * (d.nlay + 1) * (threads / 32) * sizeof(R);
+  return m;
+}
+
+// The launch of the host's plan (ops/_launch.py gpoint_plan): with the sums
+// in the block (one group), mega_launch; else a column's g-points over
+// n_groups blocks of `group` threads (whole warps), grid (ncol, n_groups),
+// g = blockIdx.y * group + threadIdx.x, the level sums in device memory.
+// `smem` is added to what the in-block sums take.
+template <typename R = float>
+inline MegaLaunch group_launch(const Dims& d, int nf, int group, int n_groups, bool in_block, size_t smem = 0) {
+  if (in_block) {
+    MegaLaunch m = mega_launch<R>(d, nf);
+    m.smem += smem;
+    return m;
+  }
+  MegaLaunch m;
+  m.grid = dim3((unsigned)d.ncol, (unsigned)n_groups);
+  m.block = dim3((unsigned)group);
+  m.smem = smem;
   return m;
 }
 

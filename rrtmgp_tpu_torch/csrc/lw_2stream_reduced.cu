@@ -15,8 +15,9 @@
 //   inputs twice and writes and reads two scratch arrays: ~24 GB, three
 //   times the bytes of the bound. Four exp, two sqrt and five divides per point (the coefficients twice).
 //
-// Design: one block per column, one thread per g-point (any ngpt up to
-//   1024), as the LW two-stream megakernel (lw2_mega.cu). The bottom-up pass
+// Design: one block per column, one thread per g-point (more than 1024: a
+//   column over several blocks, the sums completed by finish_level_sums),
+//   the LW two-stream megakernel's recurrence (lw2_mega.cu). The bottom-up pass
 //   computes each layer's coefficients, stores the albedo and the source at
 //   the layer's bottom level in two scratch arrays in device memory and
 //   carries the adding recurrence in registers. The top-down pass computes
@@ -39,7 +40,7 @@
 
 namespace rrtmgp {
 
-template <typename R>
+template <typename R, bool SPLIT>
 __global__ void lw_2stream_reduced_kernel(const R* __restrict__ tau,         // (nlay, ncol, ngpt)
                                           const R* __restrict__ ssa,         // (nlay, ncol, ngpt)
                                           const R* __restrict__ gasym,       // (nlay, ncol, ngpt)
@@ -52,13 +53,14 @@ __global__ void lw_2stream_reduced_kernel(const R* __restrict__ tau,         // 
                                           R* __restrict__ s_src,
                                           R* __restrict__ flux_up,           // (nlev, ncol)
                                           R* __restrict__ flux_dn,
+                                          R* __restrict__ partials,          // (2, nlev, ncol, column's warps) or null
                                           int nlay, int ncol, int ngpt) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int col = blockIdx.x;
-  const int g = threadIdx.x;
+  const int g = gpoint<SPLIT>();
   const bool active = g < ngpt;
   const int nlev = nlay + 1;
-  const LevelSumsT<R> sums{reinterpret_cast<R*>(smem_raw), nlev, (int)(blockDim.x >> 5)};
+  const auto sums = level_sums<R, SPLIT>(reinterpret_cast<R*>(smem_raw), partials, nlev);
   const size_t stride = (size_t)ncol * ngpt, g0 = (size_t)col * ngpt + g;
   const R one = R(1), pi = R(3.14159265358979323846);
   enum { UP = 0, DN = 1 };
@@ -109,30 +111,39 @@ __global__ void lw_2stream_reduced_kernel(const R* __restrict__ tau,         // 
     sums.add(DN, l, fd);
   }
 
-  __syncthreads();
-  for (int lev = threadIdx.x; lev < nlev; lev += blockDim.x) {
-    flux_up[(size_t)lev * ncol + col] = sums.total(UP, lev);
-    flux_dn[(size_t)lev * ncol + col] = sums.total(DN, lev);
+  if constexpr (!SPLIT) {
+    __syncthreads();
+    for (int lev = threadIdx.x; lev < nlev; lev += blockDim.x) {
+      flux_up[(size_t)lev * ncol + col] = sums.total(UP, lev);
+      flux_dn[(size_t)lev * ncol + col] = sums.total(DN, lev);
+    }
   }
 }
 
 }  // namespace rrtmgp
 
-// f32; inc_flux null = no incident flux.
+// f32; inc_flux null = no incident flux. group, n_groups: the host's launch
+// plan; partials (2, nlev, ncol, column's warps) when n_groups > 1, else null.
 extern "C" int rrtmgp_lw_2stream_reduced(const void* tau, const void* ssa, const void* gasym,
                                          const void* lev_source, const void* sfc_source, const void* sfc_emis,
                                          const void* gpt2band, const void* inc_flux, void* s_alb, void* s_src,
-                                         void* flux_up, void* flux_dn, int nlay, int ncol, int ngpt, int nbnd,
-                                         void* stream) {
+                                         void* flux_up, void* flux_dn, void* partials, int nlay, int ncol, int ngpt,
+                                         int nbnd, int group, int n_groups, void* stream) {
   using namespace rrtmgp;
   const Dims d{nlay, ncol, ngpt, nbnd, 0, 0, 0};
-  const MegaLaunch m = mega_launch<float>(d, 2);
-  auto kernel = lw_2stream_reduced_kernel<float>;
+  const bool in_block = n_groups == 1;
+  const MegaLaunch m = group_launch<float>(d, 2, group, n_groups, in_block);
+  const cudaStream_t s = (cudaStream_t)stream;
+  auto kernel = in_block ? lw_2stream_reduced_kernel<float, false> : lw_2stream_reduced_kernel<float, true>;
   cudaError_t err = prepare_smem(kernel, m.smem);
   if (err != cudaSuccess) return (int)err;
-  kernel<<<m.grid, m.block, m.smem, (cudaStream_t)stream>>>(
+  kernel<<<m.grid, m.block, m.smem, s>>>(
       (const float*)tau, (const float*)ssa, (const float*)gasym, (const float*)lev_source,
       (const float*)sfc_source, (const float*)sfc_emis, (const int*)gpt2band, (const float*)inc_flux,
-      (float*)s_alb, (float*)s_src, (float*)flux_up, (float*)flux_dn, nlay, ncol, ngpt);
-  return (int)cudaGetLastError();
+      (float*)s_alb, (float*)s_src, (float*)flux_up, (float*)flux_dn, in_block ? nullptr : (float*)partials, nlay,
+      ncol, ngpt);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || in_block) return (int)err;
+  return (int)finish_sums<float>(s, (const float*)partials, 2, nlay + 1, ncol, n_groups * group / 32, SUMS_PLAIN,
+                                 1.f, (float*)flux_up, (float*)flux_dn, nullptr);
 }

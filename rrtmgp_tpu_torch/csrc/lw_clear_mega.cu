@@ -22,8 +22,11 @@
 //   divide per point, meet an f64 rate half the f32 one: arithmetic and
 //   registers weigh as much as the loads there.
 //
-// Design: one block per column, one thread per g-point (any ngpt up to
-//   1024; the last warp is padded with idle threads). The layer loop runs
+// Design: one block per column, one thread per g-point (up to 1024; the
+//   last warp is padded with idle threads; more g-points spread a column
+//   over several blocks of the host's launch plan, each warp's level
+//   partials completed in warp order by finish_level_sums, the same bits as
+//   the in-block sums). The layer loop runs
 //   top-down in registers: a level source needs the Planck fractions of both
 //   adjacent layers, so the downward radiance crosses layer l+1 when layer l's
 //   fraction is known, one step behind the optics, as in the TPU kernel. Only
@@ -44,7 +47,7 @@
 
 namespace rrtmgp {
 
-template <typename R, bool CLOUD, bool AERO, int MASK>
+template <typename R, bool CLOUD, bool AERO, int MASK, bool SPLIT>
 __global__ void lw_clear_mega_kernel(OpticsInT<R> in, TablesT<R> tb, Dims d, AllSkyIn as,
                                      const R* __restrict__ plk_lay,   // (nbnd, nlay*ncol)
                                      const R* __restrict__ plk_lev,   // (nbnd, nlev*ncol)
@@ -56,14 +59,16 @@ __global__ void lw_clear_mega_kernel(OpticsInT<R> in, TablesT<R> tb, Dims d, All
                                      R* __restrict__ flux_up,         // (nlev, ncol)
                                      R* __restrict__ flux_dn,         // (nlev, ncol)
                                      float* __restrict__ cover,       // (ncol,), MASK_SEED
+                                     R* __restrict__ partials,        // (2, nlev, ncol, column's warps) or null
+                                     int* __restrict__ cover_part,    // (ncol, groups), MASK_SEED with partials
                                      R ds, R i2f) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   R* smem = reinterpret_cast<R*>(smem_raw);
   const int col = blockIdx.x;
-  const int g = threadIdx.x;
+  const int g = gpoint<SPLIT>();
   const bool active = g < d.ngpt;
   const int nlay = d.nlay, nlev = d.nlay + 1, ncol = d.ncol;
-  const LevelSumsT<R> sums{smem, nlev, (int)(blockDim.x >> 5)};
+  const auto sums = level_sums<R, SPLIT>(smem, partials, nlev);
   const R one = R(1), two = R(2);
   const int band = active ? __ldg(tb.gpt2band + g) : 0;
   const size_t lay_plane = (size_t)nlay * ncol, lev_plane = (size_t)nlev * ncol;
@@ -121,8 +126,13 @@ __global__ void lw_clear_mega_kernel(OpticsInT<R> in, TablesT<R> tb, Dims d, All
     if (l < nlay - 1) sums.add(1, l + 1, i_dn);
   }
   if constexpr (MASK == MASK_SEED) {
-    const int n = block_count(any_cloud, (int*)(smem + 2 * nlev * (int)(blockDim.x >> 5)));
-    if (threadIdx.x == 0) cover[col] = (float)n / (float)d.ngpt;
+    if constexpr (SPLIT) {
+      const int n = block_count(any_cloud, (int*)smem_raw);
+      if (threadIdx.x == 0) cover_part[(size_t)col * gridDim.y + blockIdx.y] = n;
+    } else {
+      const int n = block_count(any_cloud, (int*)(smem + 2 * nlev * (int)(blockDim.x >> 5)));
+      if (threadIdx.x == 0) cover[col] = (float)n / (float)d.ngpt;
+    }
   }
 
   // cross layer 0 (level 0 uses layer 0's own fraction), then the surface
@@ -144,10 +154,12 @@ __global__ void lw_clear_mega_kernel(OpticsInT<R> in, TablesT<R> tb, Dims d, All
     sums.add(0, l + 1, i_up);
   }
 
-  __syncthreads();
-  for (int lev = threadIdx.x; lev < nlev; lev += blockDim.x) {
-    flux_up[(size_t)lev * ncol + col] = sums.total(0, lev) * i2f;
-    flux_dn[(size_t)lev * ncol + col] = sums.total(1, lev) * i2f;
+  if constexpr (!SPLIT) {
+    __syncthreads();
+    for (int lev = threadIdx.x; lev < nlev; lev += blockDim.x) {
+      flux_up[(size_t)lev * ncol + col] = sums.total(0, lev) * i2f;
+      flux_dn[(size_t)lev * ncol + col] = sums.total(1, lev) * i2f;
+    }
   }
 }
 
@@ -162,19 +174,32 @@ struct LwArgs {
   R *trans_s, *sup_s, *flux_up, *flux_dn;
   float* cover;
   R ds, i2f;
+  int group, n_groups;  // the host's launch plan (ops/_launch.py gpoint_plan)
+  R* partials;          // (2, nlev, ncol, column's warps) when n_groups > 1
+  int* cover_part;      // (ncol, n_groups), seed mode with n_groups > 1
 };
 
 template <typename R, bool CLOUD, bool AERO, int MASK>
 cudaError_t launch_lw(const LwArgs<R>& a, cudaStream_t stream) {
-  MegaLaunch m = mega_launch<R>(a.d, 2);
-  if (MASK == MASK_SEED) m.smem += 32 * sizeof(int);  // block_count of the McICA cover
-  auto kernel = lw_clear_mega_kernel<R, CLOUD, AERO, MASK>;
+  // up to 1024 g-points one block per column, the sums in the block; beyond,
+  // a column over n_groups blocks, the sums completed by finish_level_sums
+  const bool in_block = a.n_groups == 1;
+  const MegaLaunch m = group_launch<R>(a.d, 2, a.group, a.n_groups, in_block,
+                                       MASK == MASK_SEED ? 32 * sizeof(int) : 0);  // block_count of the cover
+  if (a.d.ncol == 0) return cudaGetLastError();
+  auto kernel = in_block ? lw_clear_mega_kernel<R, CLOUD, AERO, MASK, false>
+                         : lw_clear_mega_kernel<R, CLOUD, AERO, MASK, true>;
   cudaError_t err = prepare_smem(kernel, m.smem);
   if (err != cudaSuccess) return err;
   kernel<<<m.grid, m.block, m.smem, stream>>>(a.in, a.tb, a.d, a.as, a.plk_lay, a.plk_lev, a.plk_sfc,
                                               a.sfc_emis, a.inc_flux, a.trans_s, a.sup_s, a.flux_up, a.flux_dn,
-                                              a.cover, a.ds, a.i2f);
-  return cudaGetLastError();
+                                              a.cover, in_block ? nullptr : a.partials, a.cover_part, a.ds, a.i2f);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || in_block) return err;
+  const bool seeded = MASK == MASK_SEED;
+  return finish_sums<R>(stream, a.partials, 2, a.d.nlay + 1, a.d.ncol, a.n_groups * a.group / 32, SUMS_SCALED, a.i2f,
+                        a.flux_up, a.flux_dn, nullptr, seeded ? a.cover_part : nullptr, a.n_groups, a.d.ngpt,
+                        seeded ? a.cover : nullptr);
 }
 
 template <typename R>
@@ -213,10 +238,10 @@ extern "C" int rrtmgp_lw_clear_mega(
     const void* inc_flux,
     const void* ctau, const void* cssa, const void* cg, const void* cmask, const void* cld_frac,
     const void* atau, const void* assa, const void* ag, const void* amask,
-    void* trans_s, void* sup_s, void* flux_up, void* flux_dn, void* cover,
+    void* trans_s, void* sup_s, void* flux_up, void* flux_dn, void* cover, void* partials, void* cover_part,
     int nlay, int ncol, int ngpt, int nbnd, int ntemp, int neta, int ncontrib,
     int cloud, int aero, int mask_mode, unsigned seed_hi, unsigned seed_lo, long long col_offset,
-    float ds, float i2f, void* stream) {
+    int group, int n_groups, float ds, float i2f, void* stream) {
   using namespace rrtmgp;
   const LwArgs<float> a{
       lw_optics_in<float>(jtemp, ftemp, jpress, fpress, tropo_lower, col_dry, jeta1, feta1, cmix1, jeta2, feta2,
@@ -228,7 +253,7 @@ extern "C" int rrtmgp_lw_clear_mega(
                (const float*)atau, (const float*)assa, (const float*)ag, (const unsigned char*)amask},
       (const float*)plk_lay, (const float*)plk_lev, (const float*)plk_sfc, (const float*)sfc_emis,
       (const float*)inc_flux, (float*)trans_s, (float*)sup_s, (float*)flux_up, (float*)flux_dn,
-      (float*)cover, ds, i2f};
+      (float*)cover, ds, i2f, group, n_groups, (float*)partials, (int*)cover_part};
   const cudaStream_t s = (cudaStream_t)stream;
 #define RRTMGP_LW(C, A, M) launch_lw<float, C, A, M>(a, s)
   cudaError_t err;
@@ -253,9 +278,9 @@ extern "C" int rrtmgp_lw_clear_mega_f64(
     const void* kmajor, const void* pfrac, const void* kminor, const void* gpt2band,
     const void* minor_start, const void* minor_list, const void* minor_kbase, const void* minor_band,
     const void* plk_lay, const void* plk_lev, const void* plk_sfc, const void* sfc_emis,
-    const void* inc_flux, void* trans_s, void* sup_s, void* flux_up, void* flux_dn,
+    const void* inc_flux, void* trans_s, void* sup_s, void* flux_up, void* flux_dn, void* partials,
     int nlay, int ncol, int ngpt, int nbnd, int ntemp, int neta, int ncontrib,
-    double ds, double i2f, void* stream) {
+    int group, int n_groups, double ds, double i2f, void* stream) {
   using namespace rrtmgp;
   const LwArgs<double> a{
       lw_optics_in<double>(jtemp, ftemp, jpress, fpress, tropo_lower, col_dry, jeta1, feta1, cmix1, jeta2,
@@ -265,6 +290,6 @@ extern "C" int rrtmgp_lw_clear_mega_f64(
       AllSkyIn{},
       (const double*)plk_lay, (const double*)plk_lev, (const double*)plk_sfc, (const double*)sfc_emis,
       (const double*)inc_flux, (double*)trans_s, (double*)sup_s, (double*)flux_up, (double*)flux_dn,
-      nullptr, ds, i2f};
+      nullptr, ds, i2f, group, n_groups, (double*)partials, nullptr};
   return (int)launch_lw<double, false, false, MASK_NONE>(a, (cudaStream_t)stream);
 }

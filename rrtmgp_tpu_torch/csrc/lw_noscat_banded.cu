@@ -20,7 +20,8 @@
 //   the limit.
 //
 // Design: the mapping of the LW megakernel (lw_clear_mega.cu): one block per
-//   column, one thread per g-point (any ngpt up to 1024), layers looped in
+//   column, one thread per g-point (more than 1024: a column over several
+//   blocks, the sums completed by finish_level_sums), layers looped in
 //   registers, per-level sums as per-warp shuffle partials in shared memory
 //   added in a fixed order (deterministic, no atomics). Each thread reads its
 //   band's Planck values through gpt2band; a column's bands are adjacent in
@@ -37,7 +38,7 @@
 
 namespace rrtmgp {
 
-template <typename R>
+template <typename R, bool SPLIT>
 __global__ void lw_noscat_banded_kernel(const R* __restrict__ tau,       // (nlay, ncol, ngpt)
                                         const R* __restrict__ pfrac,     // (nlay, ncol, ngpt)
                                         const R* __restrict__ plk_lay,   // (nlay, ncol, nbnd)
@@ -48,13 +49,14 @@ __global__ void lw_noscat_banded_kernel(const R* __restrict__ tau,       // (nla
                                         const R* __restrict__ inc_flux,  // (ncol, ngpt) or null
                                         R* __restrict__ flux_up,         // (nlev, ncol)
                                         R* __restrict__ flux_dn,         // (nlev, ncol)
+                                        R* __restrict__ partials,        // (2, nlev, ncol, column's warps) or null
                                         int nlay, int ncol, int ngpt, int nbnd, R ds, R i2f) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int col = blockIdx.x;
-  const int g = threadIdx.x;
+  const int g = gpoint<SPLIT>();
   const bool active = g < ngpt;
   const int nlev = nlay + 1;
-  const LevelSumsT<R> sums{reinterpret_cast<R*>(smem_raw), nlev, (int)(blockDim.x >> 5)};
+  const auto sums = level_sums<R, SPLIT>(reinterpret_cast<R*>(smem_raw), partials, nlev);
   const R one = R(1), two = R(2);
   const int band = active ? __ldg(gpt2band + g) : 0;
   // offsets of (layer or level 0, col, g) and (layer or level 0, col, band)
@@ -106,30 +108,39 @@ __global__ void lw_noscat_banded_kernel(const R* __restrict__ tau,       // (nla
     sums.add(0, l + 1, i_up);
   }
 
-  __syncthreads();
-  for (int lev = threadIdx.x; lev < nlev; lev += blockDim.x) {
-    flux_up[(size_t)lev * ncol + col] = sums.total(0, lev) * i2f;
-    flux_dn[(size_t)lev * ncol + col] = sums.total(1, lev) * i2f;
+  if constexpr (!SPLIT) {
+    __syncthreads();
+    for (int lev = threadIdx.x; lev < nlev; lev += blockDim.x) {
+      flux_up[(size_t)lev * ncol + col] = sums.total(0, lev) * i2f;
+      flux_dn[(size_t)lev * ncol + col] = sums.total(1, lev) * i2f;
+    }
   }
 }
 
 }  // namespace rrtmgp
 
-// f32; ds is the secant of the angle, i2f = pi * weight.
+// f32; ds is the secant of the angle, i2f = pi * weight. group, n_groups:
+// the host's launch plan; partials (2, nlev, ncol, column's warps) when
+// n_groups > 1, else null.
 extern "C" int rrtmgp_lw_noscat_banded(const void* tau, const void* pfrac, const void* plk_lay,
                                        const void* plk_lev, const void* plk_sfc, const void* sfc_emis,
                                        const void* gpt2band, const void* inc_flux, void* flux_up, void* flux_dn,
-                                       int nlay, int ncol, int ngpt, int nbnd, float ds, float i2f,
-                                       void* stream) {
+                                       void* partials, int nlay, int ncol, int ngpt, int nbnd, int group,
+                                       int n_groups, float ds, float i2f, void* stream) {
   using namespace rrtmgp;
   const Dims d{nlay, ncol, ngpt, nbnd, 0, 0, 0};
-  const MegaLaunch m = mega_launch<float>(d, 2);
-  auto kernel = lw_noscat_banded_kernel<float>;
+  const bool in_block = n_groups == 1;
+  const MegaLaunch m = group_launch<float>(d, 2, group, n_groups, in_block);
+  const cudaStream_t s = (cudaStream_t)stream;
+  auto kernel = in_block ? lw_noscat_banded_kernel<float, false> : lw_noscat_banded_kernel<float, true>;
   cudaError_t err = prepare_smem(kernel, m.smem);
   if (err != cudaSuccess) return (int)err;
-  kernel<<<m.grid, m.block, m.smem, (cudaStream_t)stream>>>(
+  kernel<<<m.grid, m.block, m.smem, s>>>(
       (const float*)tau, (const float*)pfrac, (const float*)plk_lay, (const float*)plk_lev,
       (const float*)plk_sfc, (const float*)sfc_emis, (const int*)gpt2band, (const float*)inc_flux,
-      (float*)flux_up, (float*)flux_dn, nlay, ncol, ngpt, nbnd, ds, i2f);
-  return (int)cudaGetLastError();
+      (float*)flux_up, (float*)flux_dn, in_block ? nullptr : (float*)partials, nlay, ncol, ngpt, nbnd, ds, i2f);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || in_block) return (int)err;
+  return (int)finish_sums<float>(s, (const float*)partials, 2, nlay + 1, ncol, n_groups * group / 32, SUMS_SCALED,
+                                 i2f, (float*)flux_up, (float*)flux_dn, nullptr);
 }

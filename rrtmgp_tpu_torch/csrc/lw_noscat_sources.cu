@@ -18,7 +18,8 @@
 //   One exp and one divide per point and sweep.
 //
 // Design: the source-fused sweep's mapping (lw_noscat_banded.cu): one block
-//   per column, one thread per g-point (any ngpt up to 1024), the radiance in
+//   per column, one thread per g-point (more than 1024: a column over
+//   several blocks, the sums completed by finish_level_sums), the radiance in
 //   a register, layers looped. The upward sweep reads tau and the two sources
 //   again and recomputes the transmittance and the Clough factor
 //   (common.cuh's, the one every LW no-scattering kernel uses) instead of
@@ -38,7 +39,7 @@
 
 namespace rrtmgp {
 
-template <typename R, bool PER_GPT>
+template <typename R, bool PER_GPT, bool SPLIT>
 __global__ void lw_noscat_sources_kernel(const R* __restrict__ tau,         // (nlay, ncol, ngpt)
                                          const R* __restrict__ lay_source,  // (nlay, ncol, ngpt)
                                          const R* __restrict__ lev_source,  // (nlev, ncol, ngpt)
@@ -48,13 +49,14 @@ __global__ void lw_noscat_sources_kernel(const R* __restrict__ tau,         // (
                                          const R* __restrict__ inc_flux,    // (ncol, ngpt) or null
                                          R* __restrict__ flux_up,           // (nlev, ncol); PER_GPT (nlev, ncol, ngpt)
                                          R* __restrict__ flux_dn,
+                                         R* __restrict__ partials,          // (2, nlev, ncol, column's warps) or null
                                          int nlay, int ncol, int ngpt, R ds, R i2f) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int col = blockIdx.x;
-  const int g = threadIdx.x;
+  const int g = gpoint<SPLIT>();
   const bool active = g < ngpt;
   const int nlev = nlay + 1;
-  const LevelSumsT<R> sums{reinterpret_cast<R*>(smem_raw), nlev, (int)(blockDim.x >> 5)};
+  const auto sums = level_sums<R, SPLIT>(reinterpret_cast<R*>(smem_raw), partials, nlev);
   const R one = R(1), two = R(2);
   const size_t stride = (size_t)ncol * ngpt, g0 = (size_t)col * ngpt + g;
   enum { UP = 0, DN = 1 };
@@ -107,7 +109,7 @@ __global__ void lw_noscat_sources_kernel(const R* __restrict__ tau,         // (
     put(UP, l + 1, i_up);
   }
 
-  if constexpr (!PER_GPT) {
+  if constexpr (!PER_GPT && !SPLIT) {
     __syncthreads();
     for (int lev = threadIdx.x; lev < nlev; lev += blockDim.x) {
       flux_up[(size_t)lev * ncol + col] = sums.total(UP, lev) * i2f;
@@ -116,21 +118,28 @@ __global__ void lw_noscat_sources_kernel(const R* __restrict__ tau,         // (
   }
 }
 
+// group, n_groups: the host's launch plan; partials (2, nlev, ncol, column's
+// warps) for the summed variant with n_groups > 1, else null.
 template <bool PER_GPT>
 int launch_lw_noscat_sources(const void* tau, const void* lay_source, const void* lev_source,
                              const void* sfc_source, const void* sfc_emis, const void* gpt2band,
-                             const void* inc_flux, void* flux_up, void* flux_dn, int nlay, int ncol, int ngpt,
-                             float ds, float i2f, void* stream) {
+                             const void* inc_flux, void* flux_up, void* flux_dn, void* partials, int nlay, int ncol,
+                             int ngpt, int group, int n_groups, float ds, float i2f, void* stream) {
   const Dims d{nlay, ncol, ngpt, 0, 0, 0, 0};
-  const MegaLaunch m = mega_launch<float>(d, PER_GPT ? 0 : 2);
-  auto kernel = lw_noscat_sources_kernel<float, PER_GPT>;
+  const bool in_block = n_groups == 1;
+  const MegaLaunch m = group_launch<float>(d, PER_GPT ? 0 : 2, group, n_groups, in_block);
+  const cudaStream_t s = (cudaStream_t)stream;
+  auto kernel = in_block ? lw_noscat_sources_kernel<float, PER_GPT, false> : lw_noscat_sources_kernel<float, PER_GPT, true>;
   cudaError_t err = prepare_smem(kernel, m.smem);
   if (err != cudaSuccess) return (int)err;
-  kernel<<<m.grid, m.block, m.smem, (cudaStream_t)stream>>>(
+  kernel<<<m.grid, m.block, m.smem, s>>>(
       (const float*)tau, (const float*)lay_source, (const float*)lev_source, (const float*)sfc_source,
       (const float*)sfc_emis, (const int*)gpt2band, (const float*)inc_flux, (float*)flux_up, (float*)flux_dn,
-      nlay, ncol, ngpt, ds, i2f);
-  return (int)cudaGetLastError();
+      in_block ? nullptr : (float*)partials, nlay, ncol, ngpt, ds, i2f);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || PER_GPT || in_block) return (int)err;
+  return (int)finish_sums<float>(s, (const float*)partials, 2, nlay + 1, ncol, n_groups * group / 32, SUMS_SCALED,
+                                 i2f, (float*)flux_up, (float*)flux_dn, nullptr);
 }
 
 }  // namespace rrtmgp
@@ -139,17 +148,20 @@ int launch_lw_noscat_sources(const void* tau, const void* lay_source, const void
 // g-points: sfc_emis (nbnd, ncol) with gpt2band, fluxes (nlev, ncol).
 extern "C" int rrtmgp_lw_noscat_reduced(const void* tau, const void* lay_source, const void* lev_source,
                                         const void* sfc_source, const void* sfc_emis, const void* gpt2band,
-                                        const void* inc_flux, void* flux_up, void* flux_dn, int nlay, int ncol,
-                                        int ngpt, float ds, float i2f, void* stream) {
+                                        const void* inc_flux, void* flux_up, void* flux_dn, void* partials,
+                                        int nlay, int ncol, int ngpt, int group, int n_groups, float ds, float i2f,
+                                        void* stream) {
   return rrtmgp::launch_lw_noscat_sources<false>(tau, lay_source, lev_source, sfc_source, sfc_emis, gpt2band,
-                                                 inc_flux, flux_up, flux_dn, nlay, ncol, ngpt, ds, i2f, stream);
+                                                 inc_flux, flux_up, flux_dn, partials, nlay, ncol, ngpt, group,
+                                                 n_groups, ds, i2f, stream);
 }
 
 // Per g-point: sfc_emis (ncol, ngpt), fluxes (nlev, ncol, ngpt).
 extern "C" int rrtmgp_lw_noscat_gpt(const void* tau, const void* lay_source, const void* lev_source,
                                     const void* sfc_source, const void* sfc_emis, const void* inc_flux,
-                                    void* flux_up, void* flux_dn, int nlay, int ncol, int ngpt, float ds,
-                                    float i2f, void* stream) {
+                                    void* flux_up, void* flux_dn, int nlay, int ncol, int ngpt, int group,
+                                    int n_groups, float ds, float i2f, void* stream) {
   return rrtmgp::launch_lw_noscat_sources<true>(tau, lay_source, lev_source, sfc_source, sfc_emis, nullptr,
-                                                inc_flux, flux_up, flux_dn, nlay, ncol, ngpt, ds, i2f, stream);
+                                                inc_flux, flux_up, flux_dn, nullptr, nlay, ncol, ngpt, group,
+                                                n_groups, ds, i2f, stream);
 }

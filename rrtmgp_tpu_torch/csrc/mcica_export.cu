@@ -13,7 +13,8 @@
 //   card's ~34 Tops/s of 32-bit integer throughput): the integer arithmetic
 //   bounds it, as it bounds the in-kernel samplers.
 //
-// Design: one block per column, one thread per g-point; the column key is
+// Design: one block per column, one thread per g-point (more than 1024: a
+//   column over several blocks of the host's launch plan); the column key is
 //   computed once per thread, the layer loop runs top-down carrying the
 //   recurrence in registers. Outputs (nlay, ncol, ngpt) f32, mask as 0/1.
 #include "mcica.cuh"
@@ -25,7 +26,7 @@ __global__ void mcica_export_kernel(const float* __restrict__ cld_frac,  // (nla
                                     float* __restrict__ m_out,           // (nlay, ncol, ngpt)
                                     int nlay, int ncol, int ngpt, Key2x32 seed, long long col_offset) {
   const int col = blockIdx.x;
-  const int g = threadIdx.x;
+  const int g = blockIdx.y * blockDim.x + threadIdx.x;  // gridDim.y > 1 past 1024 g-points
   if (g >= ngpt) return;
   const Key2x32 ck = mcica_column_key(seed, col_offset + col);
   McicaCarry carry;
@@ -40,13 +41,13 @@ __global__ void mcica_export_kernel(const float* __restrict__ cld_frac,  // (nla
 
 }  // namespace rrtmgp
 
+// group, n_groups: the host's launch plan (ops/_launch.py gpoint_plan).
 extern "C" int rrtmgp_mcica_export(const void* cld_frac, void* u_out, void* m_out, int nlay, int ncol,
-                                   int ngpt, unsigned seed_hi, unsigned seed_lo, long long col_offset,
-                                   void* stream) {
+                                   int ngpt, int group, int n_groups, unsigned seed_hi, unsigned seed_lo,
+                                   long long col_offset, void* stream) {
   using namespace rrtmgp;
-  const int threads = (ngpt + 31) / 32 * 32;
   if (ncol > 0) {
-    mcica_export_kernel<<<ncol, threads, 0, (cudaStream_t)stream>>>(
+    mcica_export_kernel<<<dim3((unsigned)ncol, (unsigned)n_groups), group, 0, (cudaStream_t)stream>>>(
         (const float*)cld_frac, (float*)u_out, (float*)m_out, nlay, ncol, ngpt, Key2x32{seed_hi, seed_lo},
         col_offset);
   }

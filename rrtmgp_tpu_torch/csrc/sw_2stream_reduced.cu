@@ -20,8 +20,10 @@
 //   again by the flux pass: ~28 GB in all, ~8 ms. Three exp, one sqrt and
 //   two divides per point.
 //
-// Design: the SW megakernel (sw_clear_mega.cu) with the optics read instead
-//   of computed: one block per column, one thread per g-point, the beam in a
+// Design: the SW megakernel's passes (sw_twostream.cuh) with the optics read
+//   instead of computed: one block per column, one thread per g-point (more
+//   than 1024: a column's g-points over several blocks of the host's launch
+//   plan, the level sums completed by finish_level_sums), the beam in a
 //   register top-down, the coefficients to four scratch arrays in device
 //   memory, then the shared adding and flux passes of sw_twostream.cuh, which
 //   rewrite the scratch in place (no (nlev, ncol, ngpt) albedo and source
@@ -46,7 +48,7 @@
 
 namespace rrtmgp {
 
-template <typename R, bool HAS_G, bool PER_GPT>
+template <typename R, bool HAS_G, bool PER_GPT, bool SPLIT>
 __global__ void sw_2stream_reduced_kernel(const R* __restrict__ tau,        // (nlay, ncol, ngpt)
                                           const R* __restrict__ ssa,        // (nlay, ncol, ngpt)
                                           const R* __restrict__ gasym,      // (nlay, ncol, ngpt), HAS_G
@@ -63,13 +65,18 @@ __global__ void sw_2stream_reduced_kernel(const R* __restrict__ tau,        // (
                                           R* __restrict__ flux_up,          // 3 x (nlev, ncol); PER_GPT (nlev, ncol, ngpt)
                                           R* __restrict__ flux_dn,
                                           R* __restrict__ flux_dir,
+                                          R* __restrict__ partials,         // null: sums in the block
                                           Dims d) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int col = blockIdx.x;
-  const int g = threadIdx.x;
+  const int g = gpoint<SPLIT>();
   const bool active = g < d.ngpt;
   const int nlay = d.nlay;
-  const LevelSumsT<R> sums{reinterpret_cast<R*>(smem_raw), nlay + 1, (int)(blockDim.x >> 5)};
+  const auto sums = level_sums<R, SPLIT>(reinterpret_cast<R*>(smem_raw), partials, nlay + 1);
+  const size_t g0 = (size_t)col * d.ngpt + g;
+  // this thread's state: layer l at [l * stride]
+  const size_t stride = (size_t)d.ncol * d.ngpt;
+  R *rdir = s_rdir + g0, *tdir = s_tdir + g0, *rdif = s_rdif + g0, *tdif = s_tdif + g0;
   int band = 0;
   R mu0;
   if constexpr (PER_GPT) {
@@ -95,51 +102,61 @@ __global__ void sw_2stream_reduced_kernel(const R* __restrict__ tau,        // (
       const R T0 = r_exp(-t / mu0_safe);
       R Rdir, Tdir, Rdif, Tdif;
       sw_coeffs(t, __ldg(ssa + s), HAS_G ? __ldg(gasym + s) : R(0), mu0, T0, Rdir, Tdir, Rdif, Tdif);
-      s_rdir[s] = Rdir * beam;
-      s_tdir[s] = Tdir * beam;
-      s_rdif[s] = Rdif;
-      s_tdif[s] = Tdif;
+      rdir[l * stride] = Rdir * beam;
+      tdir[l * stride] = Tdir * beam;
+      rdif[l * stride] = Rdif;
+      tdif[l * stride] = Tdif;
       beam *= T0;
       if constexpr (PER_GPT) flux_dir[s] = beam;  // level l: the same offset as layer l
     }
     if constexpr (!PER_GPT) sums.add(SW_DIR, l, beam);
   }
 
-  sw_adding_and_fluxes<PER_GPT>(d, sums, col, g, active, band, beam, alb_dir, alb_dif, inc_dif, s_rdir, s_tdir,
-                                s_rdif, s_tdif, flux_up, flux_dn, flux_dir);
+  sw_adding_and_fluxes<PER_GPT>(d, sums, col, g, active, band, beam, alb_dir, alb_dif, inc_dif, rdir, tdir, rdif,
+                                tdif, flux_up, flux_dn, flux_dir);
 }
 
+// group, n_groups: the host's launch plan; partials (3, nlev, ncol, column's
+// warps) when n_groups > 1 (summed variant), else null.
 template <typename R, bool HAS_G, bool PER_GPT>
-cudaError_t launch_sw_reduced(const Dims& d, cudaStream_t stream, const R* tau, const R* ssa, const R* gasym,
-                              const R* mu0, const R* toa_gpt, const R* alb_dir, const R* alb_dif,
-                              const int* gpt2band, const R* inc_dif, R* s_rdir, R* s_tdir, R* s_rdif,
-                              R* s_tdif, R* up, R* dn, R* dir) {
-  const MegaLaunch m = mega_launch<R>(d, PER_GPT ? 0 : 3);
-  auto kernel = sw_2stream_reduced_kernel<R, HAS_G, PER_GPT>;
+cudaError_t launch_sw_reduced(const Dims& d, int group, int n_groups, cudaStream_t stream, const R* tau,
+                              const R* ssa, const R* gasym, const R* mu0, const R* toa_gpt, const R* alb_dir,
+                              const R* alb_dif, const int* gpt2band, const R* inc_dif, R* s_rdir, R* s_tdir,
+                              R* s_rdif, R* s_tdif, R* up, R* dn, R* dir, R* partials) {
+  const bool in_block = n_groups == 1;
+  const MegaLaunch m = group_launch<R>(d, PER_GPT ? 0 : 3, group, n_groups, in_block);
+  auto kernel = in_block ? sw_2stream_reduced_kernel<R, HAS_G, PER_GPT, false>
+                         : sw_2stream_reduced_kernel<R, HAS_G, PER_GPT, true>;
   cudaError_t err = prepare_smem(kernel, m.smem);
   if (err != cudaSuccess) return err;
   kernel<<<m.grid, m.block, m.smem, stream>>>(tau, ssa, gasym, mu0, toa_gpt, alb_dir, alb_dif, gpt2band,
-                                              inc_dif, s_rdir, s_tdir, s_rdif, s_tdif, up, dn, dir, d);
-  return cudaGetLastError();
+                                              inc_dif, s_rdir, s_tdir, s_rdif, s_tdif, up, dn, dir,
+                                              in_block ? nullptr : partials, d);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || PER_GPT || in_block) return err;
+  return finish_sums<R>(stream, partials, 3, d.nlay + 1, d.ncol, n_groups * group / 32, SUMS_SW, R(1), up, dn, dir);
 }
 
 }  // namespace rrtmgp
 
 // f32; gasym null = asymmetry 0, inc_dif null = no incident diffuse flux.
 #define RRTMGP_SWR(G, P)                                                                                       \
-  launch_sw_reduced<float, G, P>(d, (cudaStream_t)stream, (const float*)tau, (const float*)ssa,                \
+  launch_sw_reduced<float, G, P>(d, group, n_groups, (cudaStream_t)stream, (const float*)tau, (const float*)ssa, \
                                  (const float*)gasym, (const float*)mu0, (const float*)toa_gpt,                \
                                  (const float*)alb_dir, (const float*)alb_dif, (const int*)gpt2band,           \
                                  (const float*)inc_dif, (float*)s_rdir, (float*)s_tdir, (float*)s_rdif,        \
-                                 (float*)s_tdif, (float*)flux_up, (float*)flux_dn, (float*)flux_dir)
+                                 (float*)s_tdif, (float*)flux_up, (float*)flux_dn, (float*)flux_dir,       \
+                                 (float*)partials)
 
 // Summed over g-points: mu0 (ncol,), albedos (nbnd, ncol) with gpt2band,
-// fluxes (nlev, ncol).
+// fluxes (nlev, ncol). group, n_groups: the launch plan; partials
+// (3, nlev, ncol, column's warps) when n_groups > 1, else null.
 extern "C" int rrtmgp_sw_2stream_reduced(const void* tau, const void* ssa, const void* gasym, const void* mu0,
                                          const void* toa_gpt, const void* alb_dir, const void* alb_dif,
                                          const void* gpt2band, const void* inc_dif, void* s_rdir, void* s_tdir,
                                          void* s_rdif, void* s_tdif, void* flux_up, void* flux_dn,
-                                         void* flux_dir, int nlay, int ncol, int ngpt, int nbnd, void* stream) {
+                                         void* flux_dir, void* partials, int nlay, int ncol, int ngpt, int nbnd,
+                                         int group, int n_groups, void* stream) {
   using namespace rrtmgp;
   const Dims d{nlay, ncol, ngpt, nbnd, 0, 0, 0};
   return (int)(gasym != nullptr ? RRTMGP_SWR(true, false) : RRTMGP_SWR(false, false));
@@ -150,10 +167,11 @@ extern "C" int rrtmgp_sw_2stream_gpt(const void* tau, const void* ssa, const voi
                                      const void* toa_gpt, const void* alb_dir, const void* alb_dif,
                                      const void* inc_dif, void* s_rdir, void* s_tdir, void* s_rdif,
                                      void* s_tdif, void* flux_up, void* flux_dn, void* flux_dir, int nlay,
-                                     int ncol, int ngpt, void* stream) {
+                                     int ncol, int ngpt, int group, int n_groups, void* stream) {
   using namespace rrtmgp;
   const Dims d{nlay, ncol, ngpt, 0, 0, 0, 0};
   const void* gpt2band = nullptr;
+  void* partials = nullptr;
   return (int)(gasym != nullptr ? RRTMGP_SWR(true, true) : RRTMGP_SWR(false, true));
 }
 #undef RRTMGP_SWR

@@ -1,11 +1,11 @@
 // SW two-stream device code shared by the SW megakernel (sw_clear_mega.cu)
 // and the SW sweeps from materialized optics (sw_2stream_reduced.cu, summed
 // over g-points or per g-point): the layer coefficients, and the adding and
-// flux passes over four scratch arrays. The kernels run one block per column
-// and one thread per g-point, carry the direct beam top-down in a register
-// and leave, per layer, Rdir * beam, Tdir * beam, Rdif and Tdif in the
-// scratch; from there on they are the same code, so the paths agree to the
-// last bit on equal optics.
+// flux passes over four per-layer state arrays in device memory. The
+// kernels run one thread per g-point, carry the direct beam top-down in a
+// register and leave, per layer, Rdir * beam, Tdir * beam, Rdif and Tdif in
+// the state; from there on they are the same code, so the paths agree to
+// the last bit on equal optics.
 #pragma once
 
 #include "common.cuh"
@@ -49,36 +49,41 @@ __device__ __forceinline__ void sw_coeffs(R tau, R ssa, R g, R mu0, R T0, R& Rdi
 
 // The passes after the top-down optics pass, for the thread of g-point g of
 // column col (every thread of the block calls it; idle threads add zeros).
-// On entry the scratch holds, per layer, Rdir * beam, Tdir * beam (beam at
+// On entry the state holds, per layer, Rdir * beam, Tdir * beam (beam at
 // the top of the layer), Rdif and Tdif; `beam` is the direct beam at the
-// surface, and the SW_DIR sums of every level are already added.
+// surface, and the SW_DIR sums of every level are already added. The state
+// is four (nlay, ncol, ngpt) arrays in device memory; rdir, tdir, rdif and
+// tdif point to the thread's (col, g) in each, layer l at [l * ncol * ngpt].
 //   bottom-up adding: layer l's slots become rdif = denom * (Rdif * src_l +
 //     Tdir * beam), tdif = Tdif * denom, and rdir / tdir the albedo / source
 //     at level l + 1, so no (nlev, ncol, ngpt) arrays exist;
 //   top-down diffuse flux with the SW_UP and SW_DN_DIF sums;
-//   then the block writes flux_up, flux_dn (diffuse + direct) and flux_dir,
-//   each (nlev, ncol).
+//   then, with the sums in the block (LevelSumsT), the block writes flux_up,
+//   flux_dn (diffuse + direct) and flux_dir, each (nlev, ncol); partials
+//   across blocks are completed by finish_level_sums (SUMS_SW).
 // With PER_GPT nothing is summed: the albedos are per g-point, (ncol, ngpt),
 // the fluxes (nlev, ncol, ngpt); the caller has stored the direct beam of
 // every level in flux_dir, and each thread stores its own flux_up and
 // flux_dn (diffuse + the direct beam it reads back). `sums` and `band` are
 // not used then.
-template <bool PER_GPT = false, typename R>
-__device__ __forceinline__ void sw_adding_and_fluxes(const Dims& d, const LevelSumsT<R>& sums, int col, int g,
-                                                     bool active, int band, R beam,
+template <bool PER_GPT = false, typename R, typename Sums>
+__device__ __forceinline__ void sw_adding_and_fluxes(const Dims& d, const Sums& sums, int col, int g, bool active,
+                                                     int band, R beam,
                                                      const R* __restrict__ alb_dir,  // (nbnd, ncol)
                                                      const R* __restrict__ alb_dif,  // (nbnd, ncol)
                                                      const R* __restrict__ inc_dif,  // (ncol, ngpt) or null
-                                                     R* __restrict__ s_rdir,  // 4 x (nlay, ncol, ngpt)
-                                                     R* __restrict__ s_tdir, R* __restrict__ s_rdif,
-                                                     R* __restrict__ s_tdif, R* __restrict__ flux_up,
-                                                     R* __restrict__ flux_dn, R* __restrict__ flux_dir) {
+                                                     R* rdir, R* tdir, R* rdif, R* tdif,  // the state
+                                                     R* __restrict__ flux_up, R* __restrict__ flux_dn,
+                                                     R* __restrict__ flux_dir) {
   const int nlay = d.nlay, nlev = d.nlay + 1, ncol = d.ncol;
+  // the state's layer l and the per-g-point fluxes' level l of (col, g) at
+  // l * fstride (+ g0)
+  const size_t fstride = (size_t)ncol * d.ngpt, g0 = (size_t)col * d.ngpt + g;
   R alb0 = R(0), src0 = R(0);
   if constexpr (PER_GPT) {
     if (active) {
-      alb0 = __ldg(alb_dif + (size_t)col * d.ngpt + g);
-      src0 = beam * __ldg(alb_dir + (size_t)col * d.ngpt + g);
+      alb0 = __ldg(alb_dif + g0);
+      src0 = beam * __ldg(alb_dir + g0);
     }
   } else {
     alb0 = active ? __ldg(alb_dif + (size_t)band * ncol + col) : R(0);
@@ -87,24 +92,24 @@ __device__ __forceinline__ void sw_adding_and_fluxes(const Dims& d, const LevelS
   R alb = alb0, src = src0;
   if (active) {
     for (int l = 0; l < nlay; ++l) {
-      const size_t i = ((size_t)l * ncol + col) * d.ngpt + g;
-      const R Rdif = s_rdif[i], Tdif = s_tdif[i], tdird = s_tdir[i];
+      const size_t s = (size_t)l * fstride;
+      const R Rdif = rdif[s], Tdif = tdif[s], tdird = tdir[s];
       const R denom = R(1) / (R(1) - Rdif * alb);
       const R alb_n = Rdif + Tdif * Tdif * alb * denom;
-      const R src_n = s_rdir[i] + Tdif * denom * (src + alb * tdird);
-      s_rdif[i] = denom * (Rdif * src + tdird);
-      s_tdif[i] = Tdif * denom;
-      s_rdir[i] = alb_n;
-      s_tdir[i] = src_n;
+      const R src_n = rdir[s] + Tdif * denom * (src + alb * tdird);
+      rdif[s] = denom * (Rdif * src + tdird);
+      tdif[s] = Tdif * denom;
+      rdir[s] = alb_n;
+      tdir[s] = src_n;
       alb = alb_n;
       src = src_n;
     }
   }
 
-  R fd = (active && inc_dif != nullptr) ? inc_dif[(size_t)col * d.ngpt + g] : R(0);
+  R fd = (active && inc_dif != nullptr) ? inc_dif[g0] : R(0);
   if constexpr (PER_GPT) {
     if (active) {
-      const size_t o = ((size_t)nlay * ncol + col) * d.ngpt + g;
+      const size_t o = (size_t)nlay * fstride + g0;
       flux_up[o] = fd * alb + src;
       flux_dn[o] = fd + flux_dir[o];
     }
@@ -115,15 +120,15 @@ __device__ __forceinline__ void sw_adding_and_fluxes(const Dims& d, const LevelS
   for (int l = nlay - 1; l >= 0; --l) {
     R up = R(0);
     if (active) {
-      const size_t i = ((size_t)l * ncol + col) * d.ngpt + g;
-      fd = s_tdif[i] * fd + s_rdif[i];
-      const size_t below = i - (size_t)ncol * d.ngpt;
-      const R alb_l = l == 0 ? alb0 : s_rdir[below];
-      const R src_l = l == 0 ? src0 : s_tdir[below];
+      const size_t s = (size_t)l * fstride;
+      fd = tdif[s] * fd + rdif[s];
+      const R alb_l = l == 0 ? alb0 : rdir[s - fstride];
+      const R src_l = l == 0 ? src0 : tdir[s - fstride];
       up = fd * alb_l + src_l;
       if constexpr (PER_GPT) {
-        flux_up[i] = up;  // level l: the same offset as layer l
-        flux_dn[i] = fd + flux_dir[i];
+        const size_t o = (size_t)l * fstride + g0;
+        flux_up[o] = up;
+        flux_dn[o] = fd + flux_dir[o];
       }
     }
     if constexpr (!PER_GPT) {
@@ -132,7 +137,7 @@ __device__ __forceinline__ void sw_adding_and_fluxes(const Dims& d, const LevelS
     }
   }
 
-  if constexpr (!PER_GPT) {
+  if constexpr (!PER_GPT && std::is_same<Sums, LevelSumsT<R>>::value) {
     __syncthreads();
     for (int lev = threadIdx.x; lev < nlev; lev += blockDim.x) {
       const size_t o = (size_t)lev * ncol + col;

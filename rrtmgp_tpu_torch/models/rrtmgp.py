@@ -55,8 +55,8 @@ that has one and ``"torch"`` otherwise (with a warning); CPU tensors take
 ``"torch"``. An explicit ``impl`` that does not cover a solve raises
 ``NotImplementedError`` naming the ROADMAP item that will add it;
 ``impl=None`` never does for a solve the JAX package computes. (The kernels
-run one thread per g-point: a lookup of more than 1024 g-points is refused
-by their wrappers on CUDA tensors, whatever the ``impl`` but ``"torch"``.)
+run one thread per g-point; a lookup of more than 1024 g-points spreads a
+column over several blocks, with the same fluxes as one block would give.)
 On the kernel routes float boundary conditions of another dtype than the
 state are cast to the state's dtype, as the JAX package casts them.
 Fluxes are (nlay+1, ncol), level 0 = surface.

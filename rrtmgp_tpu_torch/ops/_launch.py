@@ -1,12 +1,15 @@
 """Argument plumbing shared by the kernel wrappers: raw pointers and the
 current stream for the ctypes calls, the checks a wrapper makes before it
-hands a tensor to a kernel, and the checks and pointer lists of the
-gas-optics inputs (``MegaInputs``) and tables (``KernelTables``) that the
-megakernels and the materialized-optics kernel share."""
+hands a tensor to a kernel, the checks and pointer lists of the gas-optics
+inputs (``MegaInputs``) and tables (``KernelTables``) that the megakernels
+and the materialized-optics kernel share, and the launch plans of the
+kernels that run one thread per g-point (``gpoint_plan``)."""
 
 from __future__ import annotations
 
 import ctypes
+import math
+from typing import NamedTuple
 
 import torch
 
@@ -41,7 +44,6 @@ def cuda_device(t: torch.Tensor, name: str) -> torch.device:
     return t.device
 
 
-MAX_GPT = 1024  # one thread per g-point in a block
 KERNEL_DTYPES = (torch.float32, torch.float64)
 
 
@@ -51,17 +53,15 @@ def kernel_dtype(t: torch.Tensor, name: str) -> torch.dtype:
     return t.dtype
 
 
-def check_optics_inputs(inp, tabs, dev, shortwave: bool, dtype: torch.dtype = torch.float32,
-                        max_gpt: int | None = MAX_GPT) -> tuple:
+def check_optics_inputs(inp, tabs, dev, shortwave: bool, dtype: torch.dtype = torch.float32) -> tuple:
     """Check the gas-optics inputs (MegaInputs) and tables (KernelTables) of
-    a kernel built for ``dtype`` that takes at most ``max_gpt`` g-points
-    (None: a kernel of one thread per point, with no limit); returns (nlay,
-    ncol, ngpt, nbnd, ntemp, neta, ncontrib)."""
+    a kernel built for ``dtype`` (any number of g-points from 1); returns
+    (nlay, ncol, ngpt, nbnd, ntemp, neta, ncontrib)."""
     lkp = tabs.lkp
     nlay, ncol = inp.nlay, inp.ncol
     ngpt, nbnd = lkp.n_gpt, lkp.n_bnd
-    if ngpt < 1 or (max_gpt is not None and ngpt > max_gpt):
-        raise ValueError(f"n_gpt={ngpt}: the kernels take 1..{max_gpt or ''} g-points")
+    if ngpt < 1:
+        raise ValueError(f"n_gpt={ngpt}: the kernels take 1 g-point or more")
     real, i32 = dtype, torch.int32
     lc, lcb = (nlay, ncol), (nlay, ncol, nbnd)
     for name, shape, dtype in (
@@ -101,3 +101,57 @@ def table_ptrs(tabs) -> list:
         "kmajor", "second", "kminor", "gpt2band",
         "minor_start", "minor_list", "minor_kbase", "minor_band",
     )]
+
+
+# ---------------------------------------------------------------------------
+# Launch plans of the kernels that run one thread per g-point
+# ---------------------------------------------------------------------------
+
+WARP = 32
+MAX_THREADS = 1024  # threads of one block
+
+
+class LaunchPlan(NamedTuple):
+    """How a kernel of one thread per g-point covers a column: ``n_groups``
+    blocks (gridDim.y) of ``group`` threads, whole warps, with g-point g =
+    blockIdx.y * group + threadIdx.x. With one group the level sums are
+    added in the block (shared memory), as the kernels always did up to 1024
+    g-points; with more, each warp writes its partial to a device buffer
+    (``level_partials``) and a second kernel adds a column's partials in
+    warp order 0, 1, ..., which is g-point order, as the in-block sum does:
+    the same bits."""
+
+    group: int
+    n_groups: int
+
+    @property
+    def grouped(self) -> bool:
+        return self.n_groups > 1
+
+
+def gpoint_plan(ngpt: int) -> LaunchPlan:
+    """The plan of every kernel of one thread per g-point: up to 1024
+    g-points one block per column, its launch as it always was; beyond, the
+    fewest groups of at most 1024 threads, equal in whole warps."""
+    if ngpt < 1:
+        raise ValueError(f"n_gpt={ngpt}: the kernels take 1 g-point or more")
+    n_groups = math.ceil(ngpt / MAX_THREADS)
+    return LaunchPlan(-(-math.ceil(ngpt / n_groups) // WARP) * WARP, n_groups)
+
+
+def level_partials(plan: LaunchPlan, nf: int, nlev: int, ncol: int, dtype: torch.dtype,
+                   device: torch.device) -> torch.Tensor | None:
+    """The device buffer of a grouped launch's warp partials, (fields,
+    levels, columns, warps of a column), or None when a column's sums stay in
+    its block."""
+    if not plan.grouped:
+        return None
+    return torch.empty((nf, nlev, ncol, plan.n_groups * plan.group // WARP), dtype=dtype, device=device)
+
+
+def cover_counts(plan: LaunchPlan, ncol: int, seeded: bool, device: torch.device) -> torch.Tensor | None:
+    """Each block's count of cloudy g-points, (ncol, n_groups) int32, that a
+    grouped launch adds up to the McICA cloud cover; None otherwise."""
+    if not (seeded and plan.grouped):
+        return None
+    return torch.empty((ncol, plan.n_groups), dtype=torch.int32, device=device)

@@ -234,7 +234,7 @@ def interp_minor(inp: MegaInputs, tabs: KernelTables) -> torch.Tensor:
     if inp.jtemp.device.type == "cpu":
         return interp_minor_ref(inp, tabs)
     dev = cuda_device(inp.jtemp, "interp_minor")
-    dims = check_optics_inputs(inp, tabs, dev, not tabs.lkp.is_longwave, max_gpt=None)
+    dims = check_optics_inputs(inp, tabs, dev, not tabs.lkp.is_longwave)
     nlay, ncol, ngpt = dims[:3]
     out = torch.empty((nlay, ncol, ngpt), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):

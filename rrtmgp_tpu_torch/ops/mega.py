@@ -5,7 +5,10 @@ Each wrapper launches its hand-written CUDA kernel (``csrc/*.cu``) for CUDA
 tensors and raises on anything the kernel does not take; for CPU tensors it
 returns its plain twin ``*_ref``. Each counts its launches in a plain integer
 attribute, ``<wrapper>.launches``, incremented only where the kernel is
-launched.
+launched. Past 1024 g-points a column spans several blocks
+(``_launch.gpoint_plan``), and a call of a kernel with level sums is then
+two launches, the kernel and ``finish_level_sums`` (``csrc/common.cuh``),
+which adds the blocks' partials; the count takes one for the call.
 
 - ``planck_band``: band Planck emission, f32 or f64 (replaces
   ``planck_band_pallas_t`` and ``planck_band_windowed``);
@@ -40,8 +43,8 @@ from typing import NamedTuple
 import torch
 
 from . import _build
-from ._launch import MAX_GPT
 from ._launch import check_optics_inputs as _check_inputs
+from ._launch import cover_counts, gpoint_plan, level_partials
 from ._launch import cuda_device as _cuda_device
 from ._launch import kernel_dtype as _kernel_dtype
 from ._launch import optics_input_ptrs as _input_ptrs
@@ -288,25 +291,36 @@ def lw_clear_mega(
     up = torch.empty((nlay + 1, ncol), dtype=real, device=dev)
     dn = torch.empty_like(up)
     cover = torch.empty((ncol,), dtype=torch.float32, device=dev) if seeded else None
+    plan = gpoint_plan(ngpt)
+    partials = level_partials(plan, 2, nlay + 1, ncol, real, dev)
     head = (*_input_ptrs(inp), *_table_ptrs(tabs),
             *map(_ptr, (plk_lay, plk_lev, plk_sfc, sfc_emis, inc_flux)))
     dims = (nlay, ncol, ngpt, nbnd, ntemp, neta, ncontrib)
-    scalars = (round_to(ds, real), intensity_to_flux(w_mu, real), _stream(dev))
+    scalars = (plan.group, plan.n_groups, round_to(ds, real), intensity_to_flux(w_mu, real), _stream(dev))
     lib = _build.library()
     with torch.cuda.device(dev):
         if f64:
             err = lib.rrtmgp_lw_clear_mega_f64(
-                *head, *map(_ptr, (trans_s, sup_s, up, dn)), *dims, *scalars)
+                *head, *map(_ptr, (trans_s, sup_s, up, dn, partials)), *dims, *scalars)
         else:
             err = lib.rrtmgp_lw_clear_mega(
-                *head, *comp_ptrs, *map(_ptr, (trans_s, sup_s, up, dn, cover)), *dims,
-                *comp_scalars, *scalars)
+                *head, *comp_ptrs,
+                *map(_ptr, (trans_s, sup_s, up, dn, cover, partials, cover_counts(plan, ncol, seeded, dev))),
+                *dims, *comp_scalars, *scalars)
     _build.check(err, "lw_clear_mega")
     lw_clear_mega.launches += 1
     return (up, dn, cover) if seeded else (up, dn)
 
 
 lw_clear_mega.launches = 0
+
+
+def _mega_scratch_tensors(plan, nf, nlay, ncol, ngpt, seeded, dev):
+    """The four f32 state arrays, the level partials and the cover counts of
+    a megakernel call (the last two None unless a column spans blocks)."""
+    state = [torch.empty((nlay, ncol, ngpt), dtype=torch.float32, device=dev) for _ in range(4)]
+    return (*state, level_partials(plan, nf, nlay + 1, ncol, torch.float32, dev),
+            cover_counts(plan, ncol, seeded, dev))
 
 
 # ---------------------------------------------------------------------------
@@ -360,8 +374,9 @@ def lw2_mega(
         _require(inc_flux, "inc_flux", (ncol, ngpt), f32, dev)
     comp_ptrs, comp_scalars = _composition_args(comp, dev, nlay, ncol, ngpt, nbnd)
     seeded = comp_scalars[2] == MASK_SEED
+    plan = gpoint_plan(ngpt)
     mask_s = torch.empty((nlay, ncol, ngpt), dtype=torch.uint8, device=dev) if seeded else None
-    scratch = [torch.empty((nlay, ncol, ngpt), dtype=f32, device=dev) for _ in range(4)]
+    scratch = _mega_scratch_tensors(plan, 2, nlay, ncol, ngpt, seeded, dev)
     up = torch.empty((nlay + 1, ncol), dtype=f32, device=dev)
     dn = torch.empty_like(up)
     cover = torch.empty((ncol,), dtype=f32, device=dev) if seeded else None
@@ -370,7 +385,7 @@ def lw2_mega(
             *_input_ptrs(inp), *_table_ptrs(tabs),
             *map(_ptr, (plk_lev, plk_sfc, sfc_emis, inc_flux)), *comp_ptrs,
             *map(_ptr, (mask_s, *scratch, up, dn, cover)),
-            nlay, ncol, ngpt, nbnd, ntemp, neta, ncontrib, *comp_scalars, _stream(dev),
+            nlay, ncol, ngpt, nbnd, ntemp, neta, ncontrib, *comp_scalars, plan.group, plan.n_groups, _stream(dev),
         )
     _build.check(err, "lw2_mega")
     lw2_mega.launches += 1
@@ -436,7 +451,8 @@ def sw_clear_mega(
         _require(inc_flux_diffuse, "inc_flux_diffuse", (ncol, ngpt), f32, dev)
     comp_ptrs, comp_scalars = _composition_args(comp, dev, nlay, ncol, ngpt, nbnd)
     seeded = comp_scalars[2] == MASK_SEED
-    scratch = [torch.empty((nlay, ncol, ngpt), dtype=f32, device=dev) for _ in range(4)]
+    plan = gpoint_plan(ngpt)
+    scratch = _mega_scratch_tensors(plan, 3, nlay, ncol, ngpt, seeded, dev)
     fluxes = [torch.empty((nlay + 1, ncol), dtype=f32, device=dev) for _ in range(3)]
     cover = torch.empty((ncol,), dtype=f32, device=dev) if seeded else None
     with torch.cuda.device(dev):
@@ -444,7 +460,7 @@ def sw_clear_mega(
             *_input_ptrs(inp), _ptr(inp.ray_factor), *_table_ptrs(tabs),
             *map(_ptr, (mu0, toa_gpt, alb_dir, alb_dif, inc_flux_diffuse)), *comp_ptrs,
             *map(_ptr, (*scratch, *fluxes, cover)),
-            nlay, ncol, ngpt, nbnd, ntemp, neta, ncontrib, *comp_scalars, _stream(dev),
+            nlay, ncol, ngpt, nbnd, ntemp, neta, ncontrib, *comp_scalars, plan.group, plan.n_groups, _stream(dev),
         )
     _build.check(err, "sw_clear_mega")
     sw_clear_mega.launches += 1
@@ -472,8 +488,9 @@ def mcica_mask_export(cld_frac: torch.Tensor, seed: int, col_offset: int, n_gpt:
     if cld_frac.device.type == "cpu":
         return mcica_mask_export_ref(cld_frac, seed, col_offset, n_gpt)
     dev = _cuda_device(cld_frac, "mcica_mask_export")
-    if cld_frac.dim() != 2 or not 1 <= n_gpt <= MAX_GPT:
+    if cld_frac.dim() != 2 or n_gpt < 1:
         raise ValueError(f"mcica_mask_export: cld_frac {tuple(cld_frac.shape)}, n_gpt {n_gpt}")
+    plan = gpoint_plan(n_gpt)
     nlay, ncol = cld_frac.shape
     _require(cld_frac, "cld_frac", (nlay, ncol), torch.float32, dev)
     hi, lo = seed_key(seed)
@@ -481,7 +498,8 @@ def mcica_mask_export(cld_frac: torch.Tensor, seed: int, col_offset: int, n_gpt:
     m = torch.empty_like(u)
     with torch.cuda.device(dev):
         err = _build.library().rrtmgp_mcica_export(
-            _ptr(cld_frac), _ptr(u), _ptr(m), nlay, ncol, n_gpt, hi, lo, int(col_offset), _stream(dev)
+            _ptr(cld_frac), _ptr(u), _ptr(m), nlay, ncol, n_gpt, plan.group, plan.n_groups, hi, lo,
+            int(col_offset), _stream(dev)
         )
     _build.check(err, "mcica_mask_export")
     mcica_mask_export.launches += 1

@@ -26,7 +26,12 @@ Each wrapper launches its CUDA kernel (``csrc/lw_noscat_banded.cu``,
 ``csrc/sw_2stream_reduced.cu``) for CUDA tensors and raises on anything the
 kernel does not take; for CPU tensors it returns its twin ``*_ref``.
 ``<wrapper>.launches`` counts the launches. The kernels are f32 and run one
-thread per g-point, so more than 1024 g-points are refused.
+thread per g-point: up to 1024 g-points one block per column, beyond that a
+column over several blocks (``_launch.gpoint_plan``), its level sums
+completed in the same order, so any g-point count gives the same bits as
+one block would. A g-summed call over several blocks is two launches, the
+sweep and ``finish_level_sums`` (``csrc/common.cuh``); the count takes one
+for the call.
 
 Boundary fields: the g-summed sweeps take band-valued emissivity and albedos
 as the solves hold them, (nbnd, ncol), with ``gpt2band``, the (ngpt,) int32
@@ -42,19 +47,32 @@ from __future__ import annotations
 import torch
 
 from . import _build
-from ._launch import MAX_GPT, cuda_device, ptr, require, stream
+from ._launch import cuda_device, gpoint_plan, level_partials, ptr, require, stream
 from .gas_optics import planck_sources_from_bands
 from .rte import intensity_to_flux, lw_2stream, lw_noscat, round_to, sw_2stream
 
 
 def _dims(tau: torch.Tensor, name: str) -> tuple[int, int, int]:
-    """(nlay, ncol, ngpt) of a sweep's tau; raises unless it is 3-D with
-    1..MAX_GPT g-points (one thread each)."""
+    """(nlay, ncol, ngpt) of a sweep's tau; raises unless it is 3-D with at
+    least one g-point."""
     if tau.dim() != 3:
         raise ValueError(f"{name}: tau {tuple(tau.shape)}, expected (nlay, ncol, ngpt)")
-    if not 1 <= tau.shape[2] <= MAX_GPT:
-        raise ValueError(f"n_gpt={tau.shape[2]}: the kernels take 1..{MAX_GPT} g-points")
+    if tau.shape[2] < 1:
+        raise ValueError(f"n_gpt={tau.shape[2]}: the kernels take 1 g-point or more")
     return tuple(tau.shape)
+
+
+def _groups(ngpt: int) -> tuple[int, int]:
+    """(group, n_groups) of the launch plan."""
+    plan = gpoint_plan(ngpt)
+    return plan.group, plan.n_groups
+
+
+def _plan(nf: int, nlay: int, ncol: int, ngpt: int, dev):
+    """(group, n_groups) of the launch plan and the level partials (None
+    when a column fits one block) of a g-summed sweep with nf fields."""
+    plan = gpoint_plan(ngpt)
+    return (plan.group, plan.n_groups), level_partials(plan, nf, nlay + 1, ncol, torch.float32, dev)
 
 
 def lw_noscat_banded_reduced_ref(
@@ -107,10 +125,11 @@ def lw_noscat_banded_reduced(
         require(inc_flux, "inc_flux", (ncol, ngpt), f32, dev)
     up = torch.empty((nlay + 1, ncol), dtype=f32, device=dev)
     dn = torch.empty_like(up)
+    groups, partials = _plan(2, nlay, ncol, ngpt, dev)
     with torch.cuda.device(dev):
         err = _build.library().rrtmgp_lw_noscat_banded(
-            *map(ptr, (tau, pfrac, plk_lay, plk_lev, plk_sfc, sfc_emis, gpt2band, inc_flux, up, dn)),
-            nlay, ncol, ngpt, nbnd, round_to(ds, f32), intensity_to_flux(w_mu, f32), stream(dev),
+            *map(ptr, (tau, pfrac, plk_lay, plk_lev, plk_sfc, sfc_emis, gpt2band, inc_flux, up, dn, partials)),
+            nlay, ncol, ngpt, nbnd, *groups, round_to(ds, f32), intensity_to_flux(w_mu, f32), stream(dev),
         )
     _build.check(err, "lw_noscat_banded_reduced")
     lw_noscat_banded_reduced.launches += 1
@@ -168,11 +187,12 @@ def sw_2stream_reduced(
         require(inc_flux_diffuse, "inc_flux_diffuse", (ncol, ngpt), f32, dev)
     scratch = [torch.empty((nlay, ncol, ngpt), dtype=f32, device=dev) for _ in range(4)]
     fluxes = [torch.empty((nlay + 1, ncol), dtype=f32, device=dev) for _ in range(3)]
+    groups, partials = _plan(3, nlay, ncol, ngpt, dev)
     with torch.cuda.device(dev):
         err = _build.library().rrtmgp_sw_2stream_reduced(
             *map(ptr, (tau, ssa, g, mu0, toa_gpt, alb_dir, alb_dif, gpt2band, inc_flux_diffuse,
-                       *scratch, *fluxes)),
-            nlay, ncol, ngpt, nbnd, stream(dev),
+                       *scratch, *fluxes, partials)),
+            nlay, ncol, ngpt, nbnd, *groups, stream(dev),
         )
     _build.check(err, "sw_2stream_reduced")
     sw_2stream_reduced.launches += 1
@@ -226,10 +246,11 @@ def lw_noscat_reduced(
         require(inc_flux, "inc_flux", (ncol, ngpt), f32, dev)
     up = torch.empty((nlay + 1, ncol), dtype=f32, device=dev)
     dn = torch.empty_like(up)
+    groups, partials = _plan(2, nlay, ncol, ngpt, dev)
     with torch.cuda.device(dev):
         err = _build.library().rrtmgp_lw_noscat_reduced(
-            *map(ptr, (tau, lay_source, lev_source, sfc_source, sfc_emis, gpt2band, inc_flux, up, dn)),
-            nlay, ncol, ngpt, round_to(ds, f32), intensity_to_flux(w_mu, f32), stream(dev),
+            *map(ptr, (tau, lay_source, lev_source, sfc_source, sfc_emis, gpt2band, inc_flux, up, dn, partials)),
+            nlay, ncol, ngpt, *groups, round_to(ds, f32), intensity_to_flux(w_mu, f32), stream(dev),
         )
     _build.check(err, "lw_noscat_reduced")
     lw_noscat_reduced.launches += 1
@@ -275,7 +296,8 @@ def lw_noscat_gpt(
     with torch.cuda.device(dev):
         err = _build.library().rrtmgp_lw_noscat_gpt(
             *map(ptr, (tau, lay_source, lev_source, sfc_source, sfc_emis, inc_flux, up, dn)),
-            nlay, ncol, ngpt, round_to(ds, f32), intensity_to_flux(w_mu, f32), stream(dev),
+            nlay, ncol, ngpt, *_groups(ngpt), round_to(ds, f32), intensity_to_flux(w_mu, f32),
+            stream(dev),
         )
     _build.check(err, "lw_noscat_gpt")
     lw_noscat_gpt.launches += 1
@@ -326,10 +348,12 @@ def lw_2stream_reduced(
     scratch = [torch.empty((nlay, ncol, ngpt), dtype=f32, device=dev) for _ in range(2)]
     up = torch.empty((nlay + 1, ncol), dtype=f32, device=dev)
     dn = torch.empty_like(up)
+    groups, partials = _plan(2, nlay, ncol, ngpt, dev)
     with torch.cuda.device(dev):
         err = _build.library().rrtmgp_lw_2stream_reduced(
-            *map(ptr, (tau, ssa, g, lev_source, sfc_source, sfc_emis, gpt2band, inc_flux, *scratch, up, dn)),
-            nlay, ncol, ngpt, nbnd, stream(dev),
+            *map(ptr, (tau, ssa, g, lev_source, sfc_source, sfc_emis, gpt2band, inc_flux, *scratch, up, dn,
+                       partials)),
+            nlay, ncol, ngpt, nbnd, *groups, stream(dev),
         )
     _build.check(err, "lw_2stream_reduced")
     lw_2stream_reduced.launches += 1
@@ -380,7 +404,7 @@ def sw_2stream_gpt(
     with torch.cuda.device(dev):
         err = _build.library().rrtmgp_sw_2stream_gpt(
             *map(ptr, (tau, ssa, g, mu0, toa_gpt, alb_dir, alb_dif, inc_flux_diffuse, *scratch, *fluxes)),
-            nlay, ncol, ngpt, stream(dev),
+            nlay, ncol, ngpt, *_groups(ngpt), stream(dev),
         )
     _build.check(err, "sw_2stream_gpt")
     sw_2stream_gpt.launches += 1

@@ -4,6 +4,7 @@ that chip_smoke.py does not print. Run from the repository root:
     python3 scripts/port_measure.py [f64-memory] [angles] [profile] [profile-two-kernel] [profile-sweep]
     python3 scripts/port_measure.py profile-two-kernel --unfused
     python3 scripts/port_measure.py --root CHECKOUT kernel-hashes
+    python3 scripts/port_measure.py [--root CHECKOUT] megakernels
 
 With no argument it runs the first five. Each line names what it measured; the
 first line is the card's name and power limit. Problem sizes and inputs are
@@ -42,10 +43,12 @@ imports no JAX.
   angles, solve_lw two-stream and solve_sw through impl="sweep", f32 clear
   sky at 32768 x 60), and over solve_lw two-stream through impl="two_kernel"
   and through impl="kernel" on the same inputs.
-- ``kernel-hashes``: median time of 7 calls, sha256 of the fluxes and
+- ``kernel-hashes``: median time of 7 calls, sha256 of the outputs and
   register counts of the kernels whose device code lives in shared headers
-  (sw_2stream_reduced and sw_clear_mega on the clear cell, lw2_mega on the
-  all-sky cell with McICA by seed + aerosols and clear). ``--root CHECKOUT``
+  (sw_2stream_reduced, sw_clear_mega, lw_clear_mega, optics_fused,
+  lw_noscat_banded_reduced and the four sweeps from materialized sources on
+  the clear cell; lw2_mega on the all-sky cell with McICA by seed +
+  aerosols and clear; mcica_mask_export). ``--root CHECKOUT``
   imports chip_smoke.py and the package from another checkout and builds
   there. To show that a change of a shared header left those kernels as
   they were, unpack the parent commit into a directory that .gitignore
@@ -53,6 +56,16 @@ imports no JAX.
   this mode on the two roots in turns within one call (parent, change,
   change, parent): equal hashes are bitwise-equal fluxes on equal inputs,
   and the times compare on one card.
+- ``megakernels``: the two-stream megakernels at full width, each the
+  median of 7 synchronized calls: sw_clear_mega on the clear cell (32768 x
+  60, 224 g-points) and on the all-sky cell (75748 x 60, McICA by seed +
+  aerosols), lw2_mega on the all-sky cell (256 g-points, the same
+  composition); then the step time (median of 5) and the peak device memory
+  (``torch.cuda.max_memory_allocated()`` over the steps, after one warm-up) of
+  the clear, all-sky and all-sky no-scattering cells as chip_smoke.py drives
+  them. It uses only entry points that every commit of the port has, so
+  ``--root`` runs it on an older checkout. Compare commits in one call, in
+  turns (parent, change, change, parent).
 """
 
 from __future__ import annotations
@@ -328,7 +341,8 @@ def profile_sweep() -> None:
 
 
 REGISTERS_OF = ("sw_clear_mega_kernelILb0ELb0", "lw2_mega_kernelILb0ELb0", "lw2_mega_kernelILb1ELb1ELi2",
-                "sw_2stream_reduced_kernel")
+                "sw_2stream_reduced_kernel", "lw_clear_mega_kernelIfLb0ELb0", "lw_noscat_banded_kernel",
+                "lw_noscat_sources_kernel", "lw_2stream_reduced_kernel", "optics_fused_kernel")
 
 
 def kernel_hashes() -> None:
@@ -337,7 +351,7 @@ def kernel_hashes() -> None:
     import rrtmgp_tpu_torch
     from rrtmgp_tpu_torch import AllSkyRadiation, lookup_tables
     from rrtmgp_tpu_torch.models.rrtmgp import _kernel_composition
-    from rrtmgp_tpu_torch.ops import _build, mega, rte_kernels
+    from rrtmgp_tpu_torch.ops import _build, interp, mega, rte_kernels
     from rrtmgp_tpu_torch.ops.mega_inputs import mega_lw_inputs
 
     if not rrtmgp_tpu_torch.__file__.startswith(str(ROOT)):
@@ -353,11 +367,22 @@ def kernel_hashes() -> None:
     lw, sw = cs.lookups(256, 16, 224, 14)
     atm = cs.atmosphere(cs.NCOL, cs.NLAY)
     bcs_lw, bcs_sw = cs.boundary_conditions(lw, sw, cs.NCOL)
-    k15 = cs.two_kernel_args(lw, sw, atm, bcs_lw, bcs_sw)[4]
-    k2 = cs.kernel_args(lw, sw, atm, bcs_lw, bcs_sw)[2]
+    lw_in, sw_in, _, k12, k15 = cs.two_kernel_args(lw, sw, atm, bcs_lw, bcs_sw)
+    _, k1, k2 = cs.kernel_args(lw, sw, atm, bcs_lw, bcs_sw)
     report("sw_2stream_reduced clear", lambda: rte_kernels.sw_2stream_reduced(*k15))
     report("sw_clear_mega clear", lambda: mega.sw_clear_mega(*k2))
-    del atm, k15, k2
+    report("lw_clear_mega clear", lambda: mega.lw_clear_mega(*k1))
+    report("optics_fused LW", lambda: interp.optics_fused(*lw_in))
+    report("optics_fused SW", lambda: interp.optics_fused(*sw_in))
+    report("lw_noscat_banded_reduced", lambda: rte_kernels.lw_noscat_banded_reduced(*k12))
+    del k1, k2, k12, k15, lw_in, sw_in
+    torch.cuda.empty_cache()
+    k13, k14, _, k16a, k16b = cs.sweep_args(lw, sw, atm, bcs_lw, bcs_sw)
+    report("lw_noscat_reduced", lambda: rte_kernels.lw_noscat_reduced(*k13))
+    report("lw_2stream_reduced", lambda: rte_kernels.lw_2stream_reduced(*k14))
+    report("sw_2stream_gpt", lambda: rte_kernels.sw_2stream_gpt(*k16a))
+    report("lw_noscat_gpt", lambda: rte_kernels.lw_noscat_gpt(*k16b))
+    del atm, k13, k14, k16a, k16b
     torch.cuda.empty_cache()
 
     L = lookup_tables(AllSkyRadiation(aerosol_radiation=True), dtype=torch.float32, device=cs.DEVICE)
@@ -370,6 +395,8 @@ def kernel_hashes() -> None:
     args = (mega_lw_inputs(lw, atm), lw.kernel_tables, plk(atm.t_lev), plk(atm.t_sfc), bcs_lw.sfc_emis, None)
     report("lw2_mega seed+aerosols", lambda: mega.lw2_mega(*args, comp)[:2])
     report("lw2_mega clear", lambda: mega.lw2_mega(*args)[:2])
+    report("mcica_mask_export", lambda: mega.mcica_mask_export(atm.cloud_state.cld_frac, cs.MCICA_SEED,
+                                                               cs.COL_OFFSET, lw.n_gpt))
 
     entry = None
     for line in _build.library_path().with_suffix(".log").read_text().splitlines():
@@ -379,6 +406,86 @@ def kernel_hashes() -> None:
             say("kernel-hashes", f"{ROOT} {entry[:72]}: {line.split(':', 1)[1].strip()}")
 
 
+def _steps(tag: str, step, steps: int = 5) -> None:
+    """Step time (median, min, max of ``steps``) and peak device memory."""
+    import statistics
+
+    import torch
+
+    step()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+    say("megakernels", f"{ROOT} {tag}: step median {statistics.median(times):.3f} ms (min {min(times):.3f}, "
+                       f"max {max(times):.3f}), peak memory {torch.cuda.max_memory_allocated() / 1e9:.3f} GB")
+    torch.cuda.empty_cache()
+
+
+def megakernels() -> None:
+    import torch
+
+    from rrtmgp_tpu_torch import (
+        AllSkyRadiation,
+        RRTMGPGridParams,
+        RRTMGPParameters,
+        RRTMGPSolver,
+        lookup_tables,
+        solve_lw,
+        solve_sw,
+    )
+    from rrtmgp_tpu_torch.models.rrtmgp import _kernel_composition
+    from rrtmgp_tpu_torch.ops import mega
+    from rrtmgp_tpu_torch.ops.mega_inputs import mega_lw_inputs, mega_sw_inputs
+
+    tag = str(ROOT)
+    lw, sw = cs.lookups(256, 16, 224, 14)
+    atm = cs.atmosphere(cs.NCOL, cs.NLAY)
+    bcs_lw, bcs_sw = cs.boundary_conditions(lw, sw, cs.NCOL)
+    k2 = cs.kernel_args(lw, sw, atm, bcs_lw, bcs_sw)[2]
+    ms = cs.timed(lambda: mega.sw_clear_mega(*k2), 7)
+    say("megakernels", f"{tag} sw_clear_mega clear {cs.NCOL} x {cs.NLAY}: {ms:.3f} ms")
+    del k2
+    _steps(f"clear step (solve_lw + solve_sw, impl='kernel') {cs.NCOL} x {cs.NLAY}",
+           lambda: (solve_lw(lw, atm, bcs_lw, impl="kernel"), solve_sw(sw, atm, bcs_sw, impl="kernel")))
+    del atm, bcs_lw, bcs_sw
+    torch.cuda.empty_cache()
+
+    L = lookup_tables(AllSkyRadiation(aerosol_radiation=True), dtype=torch.float32, device=cs.DEVICE)
+    ncol = cs.ALLSKY_NCOL
+    atm = cs.allsky_atmosphere(ncol, cs.NLAY)
+    bcs_lw, bcs_sw = cs.boundary_conditions(L.lookup_lw, L.lookup_sw, ncol)
+    comp = lambda lkp, cld, aero, delta: _kernel_composition(lkp, atm, cld, aero, None, cs.MCICA_SEED, cs.COL_OFFSET,
+                                                             None, delta, False)[0]
+    lw, sw = L.lookup_lw, L.lookup_sw
+    plk = cs.plk_fn(lw)
+    lw_args = (mega_lw_inputs(lw, atm), lw.kernel_tables, plk(atm.t_lev), plk(atm.t_sfc), bcs_lw.sfc_emis, None,
+               comp(lw, L.lookup_lw_cld, L.lookup_lw_aero, False))
+    toa_gpt = bcs_sw.toa_flux[:, None] * sw.solar_src_scaled[None, :]
+    sw_args = (mega_sw_inputs(sw, atm), sw.kernel_tables, bcs_sw.cos_zenith, toa_gpt, bcs_sw.sfc_alb_direct,
+               bcs_sw.sfc_alb_diffuse, None, comp(sw, L.lookup_sw_cld, L.lookup_sw_aero, True))
+    for name, fn, args in (("lw2_mega", mega.lw2_mega, lw_args), ("sw_clear_mega", mega.sw_clear_mega, sw_args)):
+        say("megakernels", f"{tag} {name} all-sky (McICA seed + aerosols) {ncol} x {cs.NLAY}: "
+                           f"{cs.timed(lambda: fn(*args), 7):.3f} ms")
+    del lw_args, sw_args
+    torch.cuda.empty_cache()
+    grid = RRTMGPGridParams(nlay=cs.NLAY, ncol=ncol, dtype=torch.float32)
+    for two_stream_lw, what in ((True, "all-sky"), (False, "all-sky no-scattering")):
+        solver = RRTMGPSolver(grid, AllSkyRadiation(aerosol_radiation=True), RRTMGPParameters(), bcs_lw, bcs_sw,
+                              atm, lookups=L, two_stream_lw=two_stream_lw)
+
+        def step():
+            solver.advance_step()
+            solver.update_fluxes()
+
+        _steps(f"{what} step (RRTMGPSolver.update_fluxes) {ncol} x {cs.NLAY}", step)
+        del solver
+
+
 def main() -> None:
     want = ARGS or ["f64-memory", "angles", "profile", "profile-two-kernel", "profile-sweep"]
     cs.phase_device()
@@ -386,7 +493,7 @@ def main() -> None:
     warnings.simplefilter("ignore")  # the f64 torch-path and auto-chunk notices
     for name, fn in (("f64-memory", f64_memory), ("angles", angles), ("profile", profile_cells),
                      ("profile-two-kernel", profile_two_kernel), ("profile-sweep", profile_sweep),
-                     ("kernel-hashes", kernel_hashes)):
+                     ("kernel-hashes", kernel_hashes), ("megakernels", megakernels)):
         if name in want:
             fn()
 

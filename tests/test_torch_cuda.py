@@ -88,7 +88,8 @@ def _case(dev, ngpt, nbnd, ncol, nlay):
     return plk_args, lw_args, sw_args
 
 
-@pytest.mark.parametrize("ngpt,nbnd,ncol,nlay", [(36, 4, 1000, 30), (256, 16, 257, 60), (5, 5, 3, 2)])
+@pytest.mark.parametrize("ngpt,nbnd,ncol,nlay", [(36, 4, 1000, 30), (256, 16, 257, 60), (5, 5, 3, 2),
+                                                 (1100, 4, 7, 5)])
 def test_kernels_match_twins_with_incident_flux(cuda, ngpt, nbnd, ncol, nlay):
     plk_args, lw_args, sw_args = _case(cuda, ngpt, nbnd, ncol, nlay)
     mega.reset_launch_counts()
@@ -130,33 +131,80 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
     assert _counts() == {"planck_band": 3}
 
 
-def test_more_than_1024_gpoints_raises(cuda):
-    """A lookup of more g-points than a kernel block has threads: every
-    impl that runs the kernels raises, the default one too (CUDA tensors
-    never give way to the plain version unasked), and impl="torch" runs;
-    boundary conditions with other strides than the kernels take are made
-    contiguous by the solves."""
-    lkp = synthetic_gas_lookup(longwave=True, n_gpt=1040, n_bnd=4, n_eta=3, n_press=4, n_temp=3,
-                               dtype=np.float32, device=cuda)
-    atm = synthetic_atmosphere(ncol=4, nlay=3, dtype=np.float32, device=cuda)
-    bcs = LwBCs(sfc_emis=torch.full((4, 4), 0.98, device=cuda))
-    for impl in ("kernel", "two_kernel", "sweep", None):
-        for kw in (dict(), dict(two_stream=True)):
-            with pytest.raises(ValueError, match="1..1024"):
-                solve_lw(lkp, atm, bcs, impl=impl, **kw)
-    mega.reset_launch_counts()  # the refused megakernel solves had launched planck_band
-    out, _ = solve_lw(lkp, atm, bcs, impl="torch")
-    assert _counts() == {} and torch.isfinite(out.flux_up).all()
+def test_more_than_1024_gpoints_run_on_every_impl(cuda):
+    """A lookup of more g-points than a block has threads raises nowhere:
+    every impl (the default one too) runs it, a column's g-points over
+    several blocks, and agrees with impl="torch", LW no-scattering (1 and 3
+    angles), LW two-stream and SW, clear and all-sky (McICA by seed,
+    aerosols); boundary conditions with other strides than the kernels take
+    are made contiguous by the solves."""
+    from rrtmgp_tpu_torch.data.synthetic import synthetic_aerosol_lookup, synthetic_cloud_lookup
+
+    ngpt, ncol, nlay = 1100, 6, 5
+    small = dict(n_eta=3, n_press=4, n_temp=3, dtype=np.float32, device=cuda)
+    lw = synthetic_gas_lookup(longwave=True, n_gpt=ngpt, n_bnd=4, **small)
+    sw = synthetic_gas_lookup(longwave=False, n_gpt=ngpt, n_bnd=4, seed=1, **small)
+    clear = synthetic_atmosphere(ncol=ncol, nlay=nlay, dtype=np.float32, device=cuda)
+    cloudy = synthetic_atmosphere(ncol=ncol, nlay=nlay, dtype=np.float32, device=cuda, with_clouds=True,
+                                  with_aerosols=True)
+    f = lambda shape, v: torch.full(shape, v, dtype=torch.float32, device=cuda)
+    bl = LwBCs(sfc_emis=f((4, ncol), 0.98))
+    bs = SwBCs(cos_zenith=f((ncol,), 0.6), toa_flux=f((ncol,), 1361.0), sfc_alb_direct=f((4, ncol), 0.2),
+               sfc_alb_diffuse=f((4, ncol), 0.2))
+    sky = lambda seed: dict(lkp_cld=synthetic_cloud_lookup(n_bnd=4, dtype=np.float32, device=cuda),
+                            lkp_aero=synthetic_aerosol_lookup(n_bnd=4, dtype=np.float32, device=cuda),
+                            cld_mask_seed=seed)
+    cases = ((solve_lw, lw, bl, dict(), TOL["lw_clear_mega"]),
+             (solve_lw, lw, bl, dict(n_gauss_angles=3), TOL["lw_noscat_banded_reduced"]),
+             (solve_lw, lw, bl, dict(two_stream=True), TOL["lw2_mega"]),
+             (solve_sw, sw, bs, dict(), TOL["sw_clear_mega"]))
+    for atm, kw_lw, kw_sw in ((clear, {}, {}), (cloudy, sky(5), sky(6))):
+        for solve, lkp, b, kw, tol in cases:
+            extra = kw_lw if solve is solve_lw else kw_sw
+            exact, d_exact = solve(lkp, atm, b, impl="torch", **kw, **extra)
+            for impl in ("kernel", "two_kernel", "sweep", None):
+                mega.reset_launch_counts()
+                out, d_out = solve(lkp, atm, b, impl=impl, **kw, **extra)
+                assert _counts(), (impl, kw)  # the kernels ran
+                assert _rel(out, exact) <= tol, (solve.__name__, impl, kw)
+                if extra:
+                    assert torch.equal(d_out.cld_cover, d_exact.cld_cover)
     lkp = synthetic_gas_lookup(longwave=True, n_gpt=32, n_bnd=4, dtype=np.float32, device=cuda)
+    atm = synthetic_atmosphere(ncol=4, nlay=3, dtype=np.float32, device=cuda)
     emis = torch.rand((4, 4), device=cuda) * 0.1 + 0.9
     strided = LwBCs(sfc_emis=emis.T.contiguous().T)
     assert not strided.sfc_emis.is_contiguous()
+    mega.reset_launch_counts()
     for n in (1, 2):
         a, _ = solve_lw(lkp, atm, strided, n_gauss_angles=n)
         b, _ = solve_lw(lkp, atm, LwBCs(sfc_emis=emis), n_gauss_angles=n)
         assert torch.equal(a.flux_up, b.flux_up)
     assert _counts() == {"planck_band": 6, "lw_clear_mega": 2, "optics_fused": 2, "planck_band_rows": 6,
                          "lw_noscat_banded_reduced": 4}
+
+
+@pytest.mark.parametrize("ngpt,nlay", [(40, 60), (256, 800)])
+def test_megakernels_at_sixty_and_800_layers(cuda, ngpt, nlay):
+    """lw2_mega and sw_clear_mega at 60 layers and at 800 with 256 g-points
+    (the in-block level sums, LW 2 x 801 x 8 and SW 3 x 801 x 8 floats, past
+    the 48 KB of shared memory a block gets without asking), clear and with
+    McICA by seed + aerosols, against their twins and run to run; the cloud
+    cover bit for bit."""
+    lw, sw, atm, cld, aero, lw_args, sw_args, masks = _allsky_case(cuda, ngpt, 4, 16, nlay)
+    for (fn, ref, args, tol), lkp, c, a, m, delta in (
+        ((mega.lw2_mega, mega.lw2_mega_ref, lw_args, TOL["lw2_mega"]), lw, cld[0], aero[0], masks[0], False),
+        ((mega.sw_clear_mega, mega.sw_clear_mega_ref, sw_args, TOL["sw_clear_mega"]), sw, cld[1], aero[1],
+         masks[1], True),
+    ):
+        for comp in (mega.CLEAR, *_compositions(lkp, atm, c, a, m, delta)):
+            out, want = fn(*args, comp), ref(*args, comp)
+            if comp.seeded:
+                assert torch.equal(out[-1], want[-1])
+                out, want = out[:-1], want[:-1]
+            assert out[0].shape == (nlay + 1, 16)
+            assert _rel(out, want) <= tol
+            again = fn(*args, comp)
+            assert all(torch.equal(x, y) for x, y in zip(out, again))
 
 
 def test_solves_on_cuda_take_the_kernels(cuda):
@@ -319,7 +367,8 @@ def _compositions(lkp, atm, cld, aero, mask, delta):
     return make(None, mask, None), make(aero, None, 9)
 
 
-@pytest.mark.parametrize("ngpt,nbnd,ncol,nlay", [(36, 4, 1000, 30), (256, 16, 257, 12), (5, 5, 3, 4)])
+@pytest.mark.parametrize("ngpt,nbnd,ncol,nlay", [(36, 4, 1000, 30), (256, 16, 257, 12), (5, 5, 3, 4),
+                                                 (1100, 4, 7, 5)])
 def test_allsky_kernels_match_twins(cuda, ngpt, nbnd, ncol, nlay):
     from rrtmgp_tpu_torch.ops import aerosol_bands as ab
 
@@ -350,7 +399,8 @@ def test_allsky_kernels_match_twins(cuda, ngpt, nbnd, ncol, nlay):
     assert _counts() == {"lw2_mega": 3, "sw_clear_mega": 3, "aerosol_bands": 4, "mcica_mask_export": 2}
 
 
-@pytest.mark.parametrize("ngpt,nbnd,ncol,nlay", [(36, 4, 1000, 30), (256, 16, 257, 12), (5, 5, 3, 4)])
+@pytest.mark.parametrize("ngpt,nbnd,ncol,nlay", [(36, 4, 1000, 30), (256, 16, 257, 12), (5, 5, 3, 4),
+                                                 (1100, 4, 7, 5)])
 def test_lw_noscat_composed_matches_twin(cuda, ngpt, nbnd, ncol, nlay):
     """lw_clear_mega with a cloud mask, McICA seed + aerosols, and aerosols
     alone against its twin; seed mode equals the exported-mask mode and its
@@ -467,7 +517,7 @@ def test_allsky_wrappers_reject_what_the_kernels_do_not_take(cuda):
     with pytest.raises(ValueError, match="species index"):
         ab.aerosol_bands(aero[0], atm.aerosol_state, atm.rel_hum, (0, 15))
     with pytest.raises(ValueError, match="n_gpt"):
-        mega.mcica_mask_export(atm.cloud_state.cld_frac, 1, 0, 1025)
+        mega.mcica_mask_export(atm.cloud_state.cld_frac, 1, 0, 0)
     assert _counts() == {}
 
 
@@ -526,7 +576,8 @@ def _two_kernel_case(dev, ngpt, nbnd, ncol, nlay):
     return lw_args[:2], sw_args[:2], plk_args, k12, k15
 
 
-@pytest.mark.parametrize("ngpt,nbnd,ncol,nlay", [(36, 4, 1000, 30), (256, 16, 257, 60), (5, 5, 3, 2)])
+@pytest.mark.parametrize("ngpt,nbnd,ncol,nlay", [(36, 4, 1000, 30), (256, 16, 257, 60), (5, 5, 3, 2),
+                                                 (1100, 4, 7, 5)])
 def test_two_kernel_kernels_match_twins(cuda, ngpt, nbnd, ncol, nlay):
     """optics_fused (LW and SW), planck_band_rows, lw_noscat_banded_reduced
     (with and without incident flux) and sw_2stream_reduced (with and without
@@ -561,12 +612,18 @@ def test_two_kernel_kernels_match_twins(cuda, ngpt, nbnd, ncol, nlay):
 def test_two_kernel_sweeps_equal_the_megakernels_on_equal_optics(cuda):
     """On the optics of the optics kernel the sweeps reproduce the
     megakernels: the SW sweep bit for bit (shared device code, equal
-    optics), the LW sweep to rounding (the megakernel stores the upward
-    source, the sweep recomputes it)."""
+    optics; one block per column in both, and at 1100 g-points both over
+    several blocks), the LW
+    sweep to rounding (the megakernel stores the upward source, the sweep
+    recomputes it)."""
     _, lw_args, sw_args = _case(cuda, 64, 4, 500, 20)
     lw_in, sw_in, _, k12, k15 = _two_kernel_case(cuda, 64, 4, 500, 20)
     clear = rte_kernels.sw_2stream_reduced(*k15[:2], None, *k15[3:])
     for a, b in zip(clear, mega.sw_clear_mega(*sw_args)):
+        assert torch.equal(a, b)
+    _, _, sw_big = _case(cuda, 1100, 4, 7, 5)
+    _, _, _, _, k15_big = _two_kernel_case(cuda, 1100, 4, 7, 5)
+    for a, b in zip(rte_kernels.sw_2stream_reduced(*k15_big[:2], None, *k15_big[3:]), mega.sw_clear_mega(*sw_big)):
         assert torch.equal(a, b)
     Ds, wts = angular_discretization(2)
     want = mega.lw_clear_mega(*lw_args[:7], float(Ds[1]), float(wts[1]))
@@ -724,7 +781,8 @@ def _sweep_case(dev, ngpt, nbnd, ncol, nlay):
     return k13, k14, k15, k16a, k16b
 
 
-@pytest.mark.parametrize("ngpt,nbnd,ncol,nlay", [(36, 4, 1000, 30), (256, 16, 257, 60), (5, 5, 3, 2), (1024, 4, 7, 3)])
+@pytest.mark.parametrize("ngpt,nbnd,ncol,nlay", [(36, 4, 1000, 30), (256, 16, 257, 60), (5, 5, 3, 2), (1024, 4, 7, 3),
+                                                 (1100, 4, 7, 3)])
 def test_sweep_kernels_match_twins(cuda, ngpt, nbnd, ncol, nlay):
     """The four sweeps from materialized optics and sources against their
     twins, with and without incident flux (and asymmetry); each per-g-point

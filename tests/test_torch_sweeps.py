@@ -196,11 +196,13 @@ def test_sw_2stream_gpt_ref_matches_jax_pallas_and_xla(with_g, with_inc):
 
 
 def test_sweep_wrappers_refuse_more_than_1024_gpoints_and_are_counted():
-    """The shape check every sweep wrapper makes before a launch refuses more
-    than 1024 g-points (one thread each) with the kernels' common message,
-    and the four new wrappers are among the counted ones."""
-    with pytest.raises(ValueError, match=r"n_gpt=1025: the kernels take 1\.\.1024 g-points"):
-        rk._dims(torch.empty(2, 3, 1025), "lw_noscat_reduced")
+    """The shape check every sweep wrapper makes before a launch takes any
+    g-point count from 1 (more than 1024 spread a column over several
+    blocks) and refuses none, with the kernels' common message, and the four
+    new wrappers are among the counted ones."""
+    assert rk._dims(torch.empty(2, 3, 1025), "lw_noscat_reduced") == (2, 3, 1025)
+    with pytest.raises(ValueError, match=r"n_gpt=0: the kernels take 1 g-point or more"):
+        rk._dims(torch.empty(2, 3, 0), "lw_noscat_reduced")
     with pytest.raises(ValueError, match="expected \\(nlay, ncol, ngpt\\)"):
         rk._dims(torch.empty(2, 3), "lw_2stream_reduced")
     assert rk._dims(torch.empty(2, 3, 1024), "sw_2stream_gpt") == (2, 3, 1024)
