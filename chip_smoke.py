@@ -103,7 +103,10 @@ is non-zero:
    asking. The lw2_mega and sw_clear_mega lines of every phase print their
    design (the adding state in device memory, blocks per column) and the
    device scratch of one call, measured: the peak allocated during the call
-   less what it returns.
+   less what it returns. The optics_fused and lw_clear_mega (clear,
+   composed, f64) lines print theirs: the block shape, column tile or
+   staging chunk, dynamic shared memory, ptxas registers and whether an L2
+   access-policy window is set (it is not: measured slower).
 
 The last lines are a JSON object per kernel, the card's name and power
 limit, and {"ok": true, "device": {...}}. Needs CUDA and nvcc; imports no
@@ -439,6 +442,35 @@ def print_design(label, name, kern, ngpt) -> None:
                      f"{scratch / 1e9:.3f} GB (measured)")
 
 
+def kernel_registers(fragment: str) -> str:
+    """ptxas's resource line of the first kernel whose mangled name holds
+    ``fragment`` (the build log beside the library)."""
+    from rrtmgp_tpu_torch.ops import _build
+
+    entry = None
+    for line in _build.library_path().with_suffix(".log").read_text().splitlines():
+        if "Compiling entry function" in line:
+            entry = line.split("'")[1]
+        elif "Used" in line and entry and fragment in entry:
+            return line.split(":", 1)[1].strip()
+    return "not in the build log"
+
+
+def print_gather_design(label, name, design: dict, fragment: str) -> None:
+    """The design optics_fused / lw_clear_mega run around the staged table
+    gather (csrc/gather.cuh): block shape, column tile or staging chunk,
+    dynamic shared memory, registers."""
+    if "tile" in design:
+        shape = (f"block = 1 layer x {design['tile']} columns (column tile) x {design['group']} threads, one "
+                 f"per g-point, {design['n_groups']} block(s) per tile; streaming stores")
+    else:
+        sums = "in the block" if design["in_block"] else "in device memory"
+        shape = (f"{design['n_groups']} block(s) of {design['group']} threads per column, staging chunk "
+                 f"{design['chunk']} layers (cp.async, double-buffered), level sums {sums}")
+    phase("kernels", f"{label} {name} design: {shape}; dynamic shared memory {design['smem']} B; "
+                     f"ptxas: {kernel_registers(fragment)}; L2 access-policy window off")
+
+
 def check_case(label, name, kern, ref, reps, results, cover=False, work=None) -> None:
     """One kernel call against its twin on the same inputs (tuples of
     tensors). With ``cover`` the last output is the McICA cloud cover, which
@@ -492,6 +524,9 @@ def check_kernels(label, lw, sw, atm, bcs_lw, bcs_sw, reps, results) -> None:
     }
     for name, (kern, ref, work) in cases.items():
         check_case(label, name, kern, ref, reps, results, work=work)
+    design = mega.lw_clear_mega_design(*lw_args[:2])
+    print_gather_design(label, "lw_clear_mega", design,
+                        f"lw_clear_mega_kernelIfLb0ELb0ELi0ELb{int(not design['in_block'])}")
     print_design(label, "sw_clear_mega", cases["sw_clear_mega"][0], sw.n_gpt)
 
 
@@ -515,6 +550,9 @@ def check_f64_kernels(label, lw64, atm64, bcs_lw64, lw_f32_args, reps, results, 
     check_case(label, "lw_clear_mega_f64", lambda: mega.lw_clear_mega(*lw_args),
                lambda: by_columns(mega.lw_clear_mega_ref, lw_args, ncol, chunk), reps, results,
                work=Work(nbytes(lw_args), mega_ops("lw_clear_mega", *lw_args[:2]), "f64"))
+    design = mega.lw_clear_mega_design(*lw_args[:2])
+    print_gather_design(label, "lw_clear_mega_f64", design,
+                        f"lw_clear_mega_kernelIdLb0ELb0ELi0ELb{int(not design['in_block'])}")
     out64, out32 = mega.lw_clear_mega(*lw_args), mega.lw_clear_mega(*lw_f32_args)
     require(out64[0].dtype == torch.float64, "the f64 kernel returned another dtype")
     err, rel = rel_err(out32, out64)
@@ -627,6 +665,9 @@ def check_allsky_kernels(label, L, atm, reps, results, chunk=None) -> None:
         check_case(f"{label} [{what}]", "lw_clear_mega_allsky", lambda: mega.lw_clear_mega(*ns_args, c),
                    lambda: twin(mega.lw_clear_mega_ref, *ns_args, c), reps if i == 2 else 0, results, c.seeded,
                    work("lw_clear_mega", ns_args, c))
+    design = mega.lw_clear_mega_design(*ns_args[:2], ns_cases[2][1])
+    print_gather_design(f"{label} [seed+aerosols]", "lw_clear_mega_allsky", design,
+                        f"lw_clear_mega_kernelIfLb1ELb1ELi2ELb{int(not design['in_block'])}")
     del ns_args, ns_cases, lw_cases
     sw_cases = (("cloud mask+aerosols", comp(sw, L.lookup_sw_cld, L.lookup_sw_aero, "mask", True)),
                 ("seed+aerosols", comp(sw, L.lookup_sw_cld, L.lookup_sw_aero, "seed", True)))
@@ -1118,6 +1159,9 @@ def check_two_kernel_kernels(label, lw, sw, atm, bcs_lw, bcs_sw, reps, results, 
     )
     for name, kern, ref, work in cases:
         check_case(label, name, kern, ref, reps, results, work=work)
+    for name, (inp, tabs) in (("optics_fused_lw", lw_in), ("optics_fused_sw", sw_in)):
+        print_gather_design(label, name, interp.optics_fused_design(tabs),
+                            f"optics_fused_kernelIfLb{int(name.endswith('sw'))}")
 
 
 def check_sw_sweep_allsky(label, L, atm, results) -> None:

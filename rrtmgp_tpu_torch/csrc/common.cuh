@@ -1,10 +1,11 @@
 // Device helpers shared by the megakernels (lw_clear_mega.cu,
 // sw_clear_mega.cu, lw2_mega.cu) and the kernels of the two-kernel path
 // (optics_fused.cu, interp_pt_eta.cu, interp_minor.cu, lw_noscat_banded.cu,
-// sw_2stream_reduced.cu): the
-// per-(layer, column) gas-optics inputs, table interpolation for one g-point,
-// the Clough source factor, deterministic per-level g-point sums in a block
-// or across the blocks of a column, and the launch shapes.
+// sw_2stream_reduced.cu): the per-(layer, column) gas-optics inputs, table
+// interpolation for one g-point (sw_clear_mega, lw2_mega, interp_pt_eta,
+// interp_minor; lw_clear_mega and optics_fused stage it, gather.cuh), the
+// Clough source factor, deterministic per-level g-point sums in a block or
+// across the blocks of a column, and the launch shapes.
 //
 // Every real-valued type is a template parameter R (float by default, double
 // for the f64 instantiations); the unsuffixed names (OpticsIn, Tables, Cell,
@@ -167,14 +168,6 @@ __device__ __forceinline__ R tau_minor(const OpticsInT<R>& in, const TablesT<R>&
     tau += ((R(1) - c.ft) * v1 + c.ft * v2) * s;
   }
   return tau;
-}
-
-// Planck fraction of g-point g (LW: tb.second is the Planck-fraction table).
-template <typename R>
-__device__ __forceinline__ R planck_fraction(const TablesT<R>& tb, const Dims& d, const CellT<R>& c, int g) {
-  R v0, v1;
-  interp_p_eta(tb.second, d, c, g, v0, v1);
-  return (R(1) - c.ft) * v0 + c.ft * v1;
 }
 
 // Rayleigh optical depth of g-point g (SW: tb.second is the Rayleigh table):

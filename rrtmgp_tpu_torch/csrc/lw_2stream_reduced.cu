@@ -122,16 +122,16 @@ __global__ void lw_2stream_reduced_kernel(const R* __restrict__ tau,         // 
 
 }  // namespace rrtmgp
 
-// f32; inc_flux null = no incident flux. group, n_groups: the host's launch
-// plan; partials (2, nlev, ncol, column's warps) when n_groups > 1, else null.
+// f32; inc_flux null = no incident flux. group, n_groups, in_block: the
+// host's launch plan; partials (2, nlev, ncol, column's warps) unless
+// in_block, else null.
 extern "C" int rrtmgp_lw_2stream_reduced(const void* tau, const void* ssa, const void* gasym,
                                          const void* lev_source, const void* sfc_source, const void* sfc_emis,
                                          const void* gpt2band, const void* inc_flux, void* s_alb, void* s_src,
                                          void* flux_up, void* flux_dn, void* partials, int nlay, int ncol, int ngpt,
-                                         int nbnd, int group, int n_groups, void* stream) {
+                                         int nbnd, int group, int n_groups, int in_block, void* stream) {
   using namespace rrtmgp;
   const Dims d{nlay, ncol, ngpt, nbnd, 0, 0, 0};
-  const bool in_block = n_groups == 1;
   const MegaLaunch m = group_launch<float>(d, 2, group, n_groups, in_block);
   const cudaStream_t s = (cudaStream_t)stream;
   auto kernel = in_block ? lw_2stream_reduced_kernel<float, false> : lw_2stream_reduced_kernel<float, true>;

@@ -119,17 +119,16 @@ __global__ void lw_noscat_banded_kernel(const R* __restrict__ tau,       // (nla
 
 }  // namespace rrtmgp
 
-// f32; ds is the secant of the angle, i2f = pi * weight. group, n_groups:
-// the host's launch plan; partials (2, nlev, ncol, column's warps) when
-// n_groups > 1, else null.
+// f32; ds is the secant of the angle, i2f = pi * weight. group, n_groups,
+// in_block: the host's launch plan; partials (2, nlev, ncol, column's warps)
+// unless in_block, else null.
 extern "C" int rrtmgp_lw_noscat_banded(const void* tau, const void* pfrac, const void* plk_lay,
                                        const void* plk_lev, const void* plk_sfc, const void* sfc_emis,
                                        const void* gpt2band, const void* inc_flux, void* flux_up, void* flux_dn,
                                        void* partials, int nlay, int ncol, int ngpt, int nbnd, int group,
-                                       int n_groups, float ds, float i2f, void* stream) {
+                                       int n_groups, int in_block, float ds, float i2f, void* stream) {
   using namespace rrtmgp;
   const Dims d{nlay, ncol, ngpt, nbnd, 0, 0, 0};
-  const bool in_block = n_groups == 1;
   const MegaLaunch m = group_launch<float>(d, 2, group, n_groups, in_block);
   const cudaStream_t s = (cudaStream_t)stream;
   auto kernel = in_block ? lw_noscat_banded_kernel<float, false> : lw_noscat_banded_kernel<float, true>;

@@ -118,15 +118,14 @@ __global__ void lw_noscat_sources_kernel(const R* __restrict__ tau,         // (
   }
 }
 
-// group, n_groups: the host's launch plan; partials (2, nlev, ncol, column's
-// warps) for the summed variant with n_groups > 1, else null.
+// group, n_groups, in_block: the host's launch plan; partials (2, nlev, ncol,
+// column's warps) for the summed variant unless in_block, else null.
 template <bool PER_GPT>
 int launch_lw_noscat_sources(const void* tau, const void* lay_source, const void* lev_source,
                              const void* sfc_source, const void* sfc_emis, const void* gpt2band,
                              const void* inc_flux, void* flux_up, void* flux_dn, void* partials, int nlay, int ncol,
-                             int ngpt, int group, int n_groups, float ds, float i2f, void* stream) {
+                             int ngpt, int group, int n_groups, bool in_block, float ds, float i2f, void* stream) {
   const Dims d{nlay, ncol, ngpt, 0, 0, 0, 0};
-  const bool in_block = n_groups == 1;
   const MegaLaunch m = group_launch<float>(d, PER_GPT ? 0 : 2, group, n_groups, in_block);
   const cudaStream_t s = (cudaStream_t)stream;
   auto kernel = in_block ? lw_noscat_sources_kernel<float, PER_GPT, false> : lw_noscat_sources_kernel<float, PER_GPT, true>;
@@ -149,11 +148,11 @@ int launch_lw_noscat_sources(const void* tau, const void* lay_source, const void
 extern "C" int rrtmgp_lw_noscat_reduced(const void* tau, const void* lay_source, const void* lev_source,
                                         const void* sfc_source, const void* sfc_emis, const void* gpt2band,
                                         const void* inc_flux, void* flux_up, void* flux_dn, void* partials,
-                                        int nlay, int ncol, int ngpt, int group, int n_groups, float ds, float i2f,
-                                        void* stream) {
+                                        int nlay, int ncol, int ngpt, int group, int n_groups, int in_block,
+                                        float ds, float i2f, void* stream) {
   return rrtmgp::launch_lw_noscat_sources<false>(tau, lay_source, lev_source, sfc_source, sfc_emis, gpt2band,
                                                  inc_flux, flux_up, flux_dn, partials, nlay, ncol, ngpt, group,
-                                                 n_groups, ds, i2f, stream);
+                                                 n_groups, in_block != 0, ds, i2f, stream);
 }
 
 // Per g-point: sfc_emis (ncol, ngpt), fluxes (nlev, ncol, ngpt).
@@ -163,5 +162,5 @@ extern "C" int rrtmgp_lw_noscat_gpt(const void* tau, const void* lay_source, con
                                     int n_groups, float ds, float i2f, void* stream) {
   return rrtmgp::launch_lw_noscat_sources<true>(tau, lay_source, lev_source, sfc_source, sfc_emis, nullptr,
                                                 inc_flux, flux_up, flux_dn, nullptr, nlay, ncol, ngpt, group,
-                                                n_groups, ds, i2f, stream);
+                                                n_groups, n_groups == 1, ds, i2f, stream);
 }

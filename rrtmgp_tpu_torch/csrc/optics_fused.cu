@@ -13,72 +13,135 @@
 //   g-points the two outputs are 2 x 2.01 GB (SW, 224 g-points: 2 x 1.76 GB)
 //   against ~0.2 GB of inputs: ~1.3 ms at 3.35 TB/s. Each point reads 16 (LW)
 //   or 12 (SW) table values plus 4 kminor values per covering minor interval
-//   from tables that stay in L2, and does ~60 operations: expected limit, as
-//   for the megakernels' optics loops, the latency of dependent table
-//   loads through L1/L2 (cell indices, then table values, then the
-//   minor-interval chain), with the stores behind it.
+//   from tables that stay in L2, and does ~60 operations.
 //
-// Design: one thread per (layer, column, g-point), the g-point fastest, so a
-//   warp reads neighbouring entries of the g-point-fastest tables, broadcasts
-//   the per-(layer, column) inputs, and writes 128 contiguous bytes per
-//   output. 64-bit offsets throughout (5.0e8 points per output). The device
-//   code is the optics of the megakernels' layer loops (common.cuh:
-//   load_cell, tau_major, tau_minor, planck_fraction, tau_rayleigh), in the
-//   same operation order, so the two-kernel path and the megakernels see the
-//   same optics to the last bit. The real type and the spectral range are
-//   template parameters. Nothing of the TPU kernel's structure is kept: no
-//   one-hot contraction, no bf16 hi/lo tables, no windows, no scalar pack, no
+// Design: a block is one layer and a tile of adjacent columns, a thread one
+//   g-point (a column's g-points over several blocks past 1024, the host's
+//   launch plan). The block first stages what its cells share
+//   (gather.cuh): per (layer, column) the weights, col_dry and the side,
+//   per (layer, column, band) the table corner offsets (32-bit, formed once
+//   instead of in sixteen 64-bit tab() calls per point), the eta weights and
+//   mixing ratios, per (interval, column) the minor scalings, and each
+//   interval's band and kminor base. Each thread then reads its band and
+//   minor ranges once and walks the tile's columns: the table lines that
+//   neighbouring columns share stay in its SM's L1. A warp still writes 128
+//   contiguous bytes per output, g-point fastest, with streaming stores so
+//   that the outputs do not push the tables out of L2. The arithmetic is
+//   that of the megakernels' layer loops in the same operation order, so
+//   the two-kernel path and the megakernels see the same optics to the
+//   last bit. The real type and the spectral range are template
+//   parameters. Nothing of the TPU kernel's structure is kept: no one-hot
+//   contraction, no bf16 hi/lo tables, no windows, no scalar pack, no
 //   128-lane g-point padding.
-#include "common.cuh"
+#include "gather.cuh"
 
 namespace rrtmgp {
 
+// Shared memory of a block: the staged bands and columns of the tile, the
+// minor scalings, and each interval's band and kminor base.
+template <typename R>
+struct OpticsSmem {
+  size_t bands, cols, scal, meta, total;
+  __host__ __device__ OpticsSmem(int tile, int nbnd, int n_minor) {
+    bands = 0;
+    cols = bands + sizeof(StagedBand<R>) * tile * nbnd;
+    scal = cols + sizeof(StagedCol<R>) * tile;
+    meta = scal + sizeof(R) * n_minor * tile;
+    total = meta + sizeof(int) * 2 * n_minor;
+  }
+};
+
 template <typename R, bool SW>
-__global__ void optics_fused_kernel(OpticsInT<R> in, TablesT<R> tb, Dims d,
+__global__ void optics_fused_kernel(OpticsInT<R> in, TablesT<R> tb, Dims d, int n_minor, int tile, int n_tiles,
                                     R* __restrict__ tau_out,      // (nlay, ncol, ngpt)
                                     R* __restrict__ second_out) { // (nlay, ncol, ngpt)
-  const size_t total = (size_t)d.nlay * d.ncol * d.ngpt;
-  const size_t idx = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= total) return;
-  const size_t lc = idx / d.ngpt;
-  const int g = (int)(idx - lc * d.ngpt);
-  const int l = (int)(lc / d.ncol);
-  const int col = (int)(lc - (size_t)l * d.ncol);
-  const CellT<R> c = load_cell(in, d, l, col, __ldg(tb.gpt2band + g));
-  const R gas = tau_major(tb, d, c, g) + tau_minor(in, tb, d, c, g);
-  if constexpr (SW) {
-    const R ray = tau_rayleigh(in, tb, d, c, g);
-    const R tau = r_max(gas + ray, R(0));
-    tau_out[idx] = tau;
-    second_out[idx] = tau > R(0) ? ray / tau : R(0);
-  } else {
-    tau_out[idx] = r_max(gas, R(0));
-    second_out[idx] = planck_fraction(tb, d, c, g);
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const OpticsSmem<R> lay(tile, d.nbnd, n_minor);
+  StagedBand<R>* sb = reinterpret_cast<StagedBand<R>*>(smem_raw + lay.bands);
+  StagedCol<R>* sc = reinterpret_cast<StagedCol<R>*>(smem_raw + lay.cols);
+  R* scal = reinterpret_cast<R*>(smem_raw + lay.scal);
+  int* mband = reinterpret_cast<int*>(smem_raw + lay.meta);
+  int* mkbase = mband + n_minor;
+
+  const int l = (int)(blockIdx.x / (unsigned)n_tiles);
+  const int c0 = (int)(blockIdx.x - (unsigned)l * n_tiles) * tile;
+  const int nc = min(tile, d.ncol - c0);
+  const size_t lc0 = (size_t)l * d.ncol + c0;
+  const size_t plane = (size_t)d.nlay * d.ncol;
+  for (int e = threadIdx.x; e < nc * d.nbnd; e += blockDim.x) {
+    const size_t lc = lc0 + e / d.nbnd;
+    const size_t lcb = lc0 * d.nbnd + e;
+    set_band<R, SW>(d, __ldg(in.jtemp + lc), __ldg(in.jpress + lc), __ldg(in.tropo_lower + lc) != 0,
+                    __ldg(in.jeta1 + lcb), __ldg(in.jeta2 + lcb), __ldg(in.feta1 + lcb), __ldg(in.feta2 + lcb),
+                    __ldg(in.cmix1 + lcb), __ldg(in.cmix2 + lcb), sb[e]);
+  }
+  for (int c = threadIdx.x; c < nc; c += blockDim.x) {
+    const size_t lc = lc0 + c;
+    set_col(__ldg(in.ftemp + lc), __ldg(in.fpress + lc), __ldg(in.col_dry + lc), __ldg(in.tropo_lower + lc) != 0,
+            sc[c]);
+    if constexpr (SW) sc[c].ray = __ldg(in.ray_factor + lc);
+  }
+  for (int e = threadIdx.x; e < n_minor * nc; e += blockDim.x) {
+    const int i = e / nc;
+    scal[i * tile + (e - i * nc)] = __ldg(in.minor_scaling + i * plane + lc0 + (e - i * nc));
+  }
+  for (int i = threadIdx.x; i < n_minor; i += blockDim.x) {
+    mband[i] = __ldg(tb.minor_band + i);
+    mkbase[i] = __ldg(tb.minor_kbase + i);
+  }
+  __syncthreads();
+
+  const int g = blockIdx.y * blockDim.x + threadIdx.x;
+  if (g >= d.ngpt) return;
+  const GptMeta m = gpt_meta(tb.gpt2band, tb.minor_start, d.ngpt, g);
+  const int se = d.ngpt, sp = d.ntemp * d.neta * d.ngpt;
+  const R* kmajor = tb.kmajor + g;
+  const R* second = tb.second + g;
+  const R* kminor = tb.kminor + g;
+  // streaming stores (__stcs): the optics are written once and read by
+  // another kernel, so they should not push the tables out of L2
+  R* tau_p = tau_out + lc0 * d.ngpt + g;
+  R* second_p = second_out + lc0 * d.ngpt + g;
+  for (int c = 0; c < nc; ++c) {
+    const StagedCol<R>& col = sc[c];
+    const StagedBand<R>* bands = sb + c * d.nbnd;
+    const StagedBand<R>& b = bands[m.band];
+    const R gas = staged_tau_major(kmajor, sp, se, col, b) +
+                  staged_tau_minor(kminor, tb.minor_list, d.ncontrib, m, col, bands, scal + c, tile, mband, mkbase);
+    if constexpr (SW) {
+      const R ray = staged_tau_rayleigh(second, se, col, b);
+      const R tau = r_max(gas + ray, R(0));
+      __stcs(tau_p + (size_t)c * d.ngpt, tau);
+      __stcs(second_p + (size_t)c * d.ngpt, tau > R(0) ? ray / tau : R(0));
+    } else {
+      __stcs(tau_p + (size_t)c * d.ngpt, r_max(gas, R(0)));
+      __stcs(second_p + (size_t)c * d.ngpt, staged_planck_fraction(second, sp, se, col, b));
+    }
   }
 }
 
 template <typename R, bool SW>
-cudaError_t launch_optics_fused(const OpticsInT<R>& in, const TablesT<R>& tb, const Dims& d, R* tau, R* second,
-                                cudaStream_t stream) {
-  // 128 threads a block: at 62-72 registers a thread that is 7 blocks per SM
-  // where 256-thread blocks fit 3, and the kernel waits on load latency
-  // (measured on an H100 at 32768 x 60: LW 9.9 ms against 14.6, SW 8.6
-  // against 10.1; 64-thread blocks the same, launch bounds that force fewer
-  // registers spill and lose)
-  const int threads = 128;
-  const size_t total = (size_t)d.nlay * d.ncol * d.ngpt;
-  const size_t blocks = (total + threads - 1) / threads;
-  if (blocks > 0x7fffffffull) return cudaErrorInvalidConfiguration;
-  if (blocks > 0) {
-    optics_fused_kernel<R, SW><<<(unsigned)blocks, threads, 0, stream>>>(in, tb, d, tau, second);
-  }
+cudaError_t launch_optics_fused(const OpticsInT<R>& in, const TablesT<R>& tb, const Dims& d, int n_minor, int tile,
+                                int group, int n_groups, R* tau, R* second, cudaStream_t stream) {
+  if (tile < 1) return cudaErrorInvalidValue;
+  const long long n_tiles = (d.ncol + tile - 1) / tile;
+  const long long blocks = n_tiles * d.nlay;
+  if (blocks > 0x7fffffffll) return cudaErrorInvalidConfiguration;
+  if (blocks == 0) return cudaGetLastError();
+  const size_t smem = OpticsSmem<R>(tile, d.nbnd, n_minor).total;
+  auto kernel = optics_fused_kernel<R, SW>;
+  cudaError_t err = prepare_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<dim3((unsigned)blocks, (unsigned)n_groups), group, smem, stream>>>(in, tb, d, n_minor, tile, (int)n_tiles,
+                                                                              tau, second);
   return cudaGetLastError();
 }
 
 }  // namespace rrtmgp
 
 // f32. `second` is the Planck-fraction table (LW) or the Rayleigh table (SW);
-// ray_factor is read only when shortwave != 0.
+// ray_factor is read only when shortwave != 0. tile: columns of a block;
+// group, n_groups: the g-point launch plan (ops/_launch.py gpoint_plan).
 extern "C" int rrtmgp_optics_fused(
     const void* jtemp, const void* ftemp, const void* jpress, const void* fpress,
     const void* tropo_lower, const void* col_dry,
@@ -88,8 +151,8 @@ extern "C" int rrtmgp_optics_fused(
     const void* kmajor, const void* second, const void* kminor, const void* gpt2band,
     const void* minor_start, const void* minor_list, const void* minor_kbase, const void* minor_band,
     void* tau_out, void* second_out,
-    int nlay, int ncol, int ngpt, int nbnd, int ntemp, int neta, int ncontrib, int shortwave,
-    void* stream) {
+    int nlay, int ncol, int ngpt, int nbnd, int ntemp, int neta, int ncontrib, int n_minor, int shortwave,
+    int tile, int group, int n_groups, void* stream) {
   using namespace rrtmgp;
   const OpticsIn in{(const int*)jtemp, (const float*)ftemp, (const int*)jpress, (const float*)fpress,
                     (const unsigned char*)tropo_lower, (const float*)col_dry,
@@ -101,8 +164,15 @@ extern "C" int rrtmgp_optics_fused(
                   (const int*)minor_band};
   const Dims d{nlay, ncol, ngpt, nbnd, ntemp, neta, ncontrib};
   const cudaStream_t s = (cudaStream_t)stream;
-  const cudaError_t err = shortwave
-                              ? launch_optics_fused<float, true>(in, tb, d, (float*)tau_out, (float*)second_out, s)
-                              : launch_optics_fused<float, false>(in, tb, d, (float*)tau_out, (float*)second_out, s);
+  const cudaError_t err =
+      shortwave ? launch_optics_fused<float, true>(in, tb, d, n_minor, tile, group, n_groups, (float*)tau_out,
+                                                   (float*)second_out, s)
+                : launch_optics_fused<float, false>(in, tb, d, n_minor, tile, group, n_groups, (float*)tau_out,
+                                                    (float*)second_out, s);
   return (int)err;
+}
+
+// Dynamic shared memory of one optics_fused block (f32).
+extern "C" long long rrtmgp_optics_fused_smem(int tile, int nbnd, int n_minor) {
+  return (long long)rrtmgp::OpticsSmem<float>(tile, nbnd, n_minor).total;
 }

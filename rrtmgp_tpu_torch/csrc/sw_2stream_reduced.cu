@@ -116,14 +116,13 @@ __global__ void sw_2stream_reduced_kernel(const R* __restrict__ tau,        // (
                                 tdif, flux_up, flux_dn, flux_dir);
 }
 
-// group, n_groups: the host's launch plan; partials (3, nlev, ncol, column's
-// warps) when n_groups > 1 (summed variant), else null.
+// group, n_groups, in_block: the host's launch plan; partials (3, nlev, ncol,
+// column's warps) unless in_block (summed variant), else null.
 template <typename R, bool HAS_G, bool PER_GPT>
-cudaError_t launch_sw_reduced(const Dims& d, int group, int n_groups, cudaStream_t stream, const R* tau,
+cudaError_t launch_sw_reduced(const Dims& d, int group, int n_groups, bool in_block, cudaStream_t stream, const R* tau,
                               const R* ssa, const R* gasym, const R* mu0, const R* toa_gpt, const R* alb_dir,
                               const R* alb_dif, const int* gpt2band, const R* inc_dif, R* s_rdir, R* s_tdir,
                               R* s_rdif, R* s_tdif, R* up, R* dn, R* dir, R* partials) {
-  const bool in_block = n_groups == 1;
   const MegaLaunch m = group_launch<R>(d, PER_GPT ? 0 : 3, group, n_groups, in_block);
   auto kernel = in_block ? sw_2stream_reduced_kernel<R, HAS_G, PER_GPT, false>
                          : sw_2stream_reduced_kernel<R, HAS_G, PER_GPT, true>;
@@ -141,7 +140,7 @@ cudaError_t launch_sw_reduced(const Dims& d, int group, int n_groups, cudaStream
 
 // f32; gasym null = asymmetry 0, inc_dif null = no incident diffuse flux.
 #define RRTMGP_SWR(G, P)                                                                                       \
-  launch_sw_reduced<float, G, P>(d, group, n_groups, (cudaStream_t)stream, (const float*)tau, (const float*)ssa, \
+  launch_sw_reduced<float, G, P>(d, group, n_groups, in_block, (cudaStream_t)stream, (const float*)tau, (const float*)ssa, \
                                  (const float*)gasym, (const float*)mu0, (const float*)toa_gpt,                \
                                  (const float*)alb_dir, (const float*)alb_dif, (const int*)gpt2band,           \
                                  (const float*)inc_dif, (float*)s_rdir, (float*)s_tdir, (float*)s_rdif,        \
@@ -149,14 +148,14 @@ cudaError_t launch_sw_reduced(const Dims& d, int group, int n_groups, cudaStream
                                  (float*)partials)
 
 // Summed over g-points: mu0 (ncol,), albedos (nbnd, ncol) with gpt2band,
-// fluxes (nlev, ncol). group, n_groups: the launch plan; partials
-// (3, nlev, ncol, column's warps) when n_groups > 1, else null.
+// fluxes (nlev, ncol). group, n_groups, in_block: the launch plan; partials
+// (3, nlev, ncol, column's warps) unless in_block, else null.
 extern "C" int rrtmgp_sw_2stream_reduced(const void* tau, const void* ssa, const void* gasym, const void* mu0,
                                          const void* toa_gpt, const void* alb_dir, const void* alb_dif,
                                          const void* gpt2band, const void* inc_dif, void* s_rdir, void* s_tdir,
                                          void* s_rdif, void* s_tdif, void* flux_up, void* flux_dn,
                                          void* flux_dir, void* partials, int nlay, int ncol, int ngpt, int nbnd,
-                                         int group, int n_groups, void* stream) {
+                                         int group, int n_groups, int in_block, void* stream) {
   using namespace rrtmgp;
   const Dims d{nlay, ncol, ngpt, nbnd, 0, 0, 0};
   return (int)(gasym != nullptr ? RRTMGP_SWR(true, false) : RRTMGP_SWR(false, false));
@@ -170,6 +169,7 @@ extern "C" int rrtmgp_sw_2stream_gpt(const void* tau, const void* ssa, const voi
                                      int ncol, int ngpt, int group, int n_groups, void* stream) {
   using namespace rrtmgp;
   const Dims d{nlay, ncol, ngpt, 0, 0, 0, 0};
+  const bool in_block = n_groups == 1;  // no level sums
   const void* gpt2band = nullptr;
   void* partials = nullptr;
   return (int)(gasym != nullptr ? RRTMGP_SWR(true, true) : RRTMGP_SWR(false, true));

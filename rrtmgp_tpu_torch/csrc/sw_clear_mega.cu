@@ -142,9 +142,9 @@ cudaError_t launch_sw(const MegaLaunch& m, bool split, cudaStream_t stream, Opti
 
 }  // namespace rrtmgp
 
-// group, n_groups: the host's launch plan (ops/_launch.py gpoint_plan);
-// partials (3, nlev, ncol, column's warps) and, in seed mode, cover_part
-// (ncol, n_groups) int32 when n_groups > 1, else null.
+// group, n_groups, in_block: the host's launch plan (ops/_launch.py
+// gpoint_plan); partials (3, nlev, ncol, column's warps) and, in seed mode,
+// cover_part (ncol, n_groups) int32 unless in_block, else null.
 extern "C" int rrtmgp_sw_clear_mega(
     const void* jtemp, const void* ftemp, const void* jpress, const void* fpress,
     const void* tropo_lower, const void* col_dry,
@@ -160,7 +160,7 @@ extern "C" int rrtmgp_sw_clear_mega(
     void* flux_up, void* flux_dn, void* flux_dir, void* cover,
     int nlay, int ncol, int ngpt, int nbnd, int ntemp, int neta, int ncontrib,
     int cloud, int aero, int mask_mode, unsigned seed_hi, unsigned seed_lo, long long col_offset,
-    int group, int n_groups, void* stream) {
+    int group, int n_groups, int in_block, void* stream) {
   using namespace rrtmgp;
   const OpticsIn in{(const int*)jtemp, (const float*)ftemp, (const int*)jpress, (const float*)fpress,
                     (const unsigned char*)tropo_lower, (const float*)col_dry,
@@ -174,7 +174,7 @@ extern "C" int rrtmgp_sw_clear_mega(
   const AllSkyIn as{(const float*)ctau, (const float*)cssa, (const float*)cg, (const unsigned char*)cmask,
                     (const float*)cld_frac, Key2x32{seed_hi, seed_lo}, col_offset,
                     (const float*)atau, (const float*)assa, (const float*)ag, (const unsigned char*)amask};
-  const bool split = n_groups > 1;
+  const bool split = !in_block;
   // block_count of the McICA cover after the in-block sums
   const MegaLaunch m = group_launch(d, 3, group, n_groups, !split, 32 * sizeof(int));
   const cudaStream_t s = (cudaStream_t)stream;

@@ -34,37 +34,39 @@ _P, _I, _U, _L, _F, _D = (ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c
                           ctypes.c_double)
 #: C entry points: name -> argtypes. Each returns a cudaError_t as int. The
 #: kernels of one thread per g-point take their launch plan
-#: (``ops/_launch.py``): (group, n_groups) after their dims, and a device
-#: buffer of level partials (null when a column fits one block); the
-#: all-sky megakernels end with (cloud, aero, mask_mode, seed_hi, seed_lo,
-#: col_offset), then (group, n_groups), lw_clear_mega (ds, i2f), and the
-#: stream. The _f64 entries take f64 tensors and double scalars. The
-#: kernels of the two-kernel path: optics_fused ends with (7 dims,
-#: shortwave, stream), lw_noscat_banded with (nlay, ncol, ngpt, nbnd, group,
-#: n_groups, ds, i2f, stream), sw_2stream_reduced with (nlay, ncol, ngpt,
-#: nbnd, group, n_groups, stream). The sweeps from materialized sources:
-#: lw_noscat_reduced and lw_noscat_gpt end with (nlay, ncol, ngpt, group,
-#: n_groups, ds, i2f, stream), lw_2stream_reduced with (nlay, ncol, ngpt,
-#: nbnd, group, n_groups, stream), sw_2stream_gpt with (nlay, ncol, ngpt,
-#: group, n_groups, stream). The kernels of the unfused optics:
+#: (``ops/_launch.py``): (group, n_groups, in_block) after their dims (the
+#: per-g-point sweeps, which have no level sums, (group, n_groups)), and a
+#: device buffer of level partials (null when the sums stay in the block);
+#: lw_clear_mega's dims end with n_minor; the all-sky megakernels end with
+#: (cloud, aero, mask_mode, seed_hi, seed_lo, col_offset), then the plan,
+#: lw_clear_mega (ds, i2f), and the stream. The _f64 entries take f64
+#: tensors and double scalars. The kernels of the two-kernel path:
+#: optics_fused ends with (7 dims, n_minor, shortwave, column tile, group,
+#: n_groups, stream), lw_noscat_banded with (nlay, ncol, ngpt, nbnd, plan,
+#: ds, i2f, stream), sw_2stream_reduced with (nlay, ncol, ngpt, nbnd, plan,
+#: stream). The sweeps from materialized sources: lw_noscat_reduced ends
+#: with (nlay, ncol, ngpt, plan, ds, i2f, stream), lw_noscat_gpt with
+#: (nlay, ncol, ngpt, group, n_groups, ds, i2f, stream), lw_2stream_reduced
+#: with (nlay, ncol, ngpt, nbnd, plan, stream), sw_2stream_gpt with (nlay,
+#: ncol, ngpt, group, n_groups, stream). The kernels of the unfused optics:
 #: interp_pt_eta ends with (nlay, ncol, ngpt, nbnd, npress, ntemp, neta,
 #: stream), interp_minor with optics_fused's 7 dims and the stream.
 SIGNATURES = {
     "rrtmgp_planck_band": [_P, _P, _P, _L, _I, _I, _F, _F, _P],
     "rrtmgp_planck_band_f64": [_P, _P, _P, _L, _I, _I, _D, _D, _P],
-    "rrtmgp_lw_clear_mega": [_P] * 42 + [_I] * 10 + [_U, _U, _L, _I, _I, _F, _F, _P],
-    "rrtmgp_lw_clear_mega_f64": [_P] * 31 + [_I] * 9 + [_D, _D, _P],
-    "rrtmgp_sw_clear_mega": [_P] * 46 + [_I] * 10 + [_U, _U, _L, _I, _I, _P],
-    "rrtmgp_lw2_mega": [_P] * 44 + [_I] * 10 + [_U, _U, _L, _I, _I, _P],
+    "rrtmgp_lw_clear_mega": [_P] * 42 + [_I] * 11 + [_U, _U, _L, _I, _I, _I, _F, _F, _P],
+    "rrtmgp_lw_clear_mega_f64": [_P] * 31 + [_I] * 11 + [_D, _D, _P],
+    "rrtmgp_sw_clear_mega": [_P] * 46 + [_I] * 10 + [_U, _U, _L, _I, _I, _I, _P],
+    "rrtmgp_lw2_mega": [_P] * 44 + [_I] * 10 + [_U, _U, _L, _I, _I, _I, _P],
     "rrtmgp_aerosol_bands": [_P] * 15 + [_I] * 6 + [_P],
     "rrtmgp_mcica_export": [_P] * 3 + [_I] * 5 + [_U, _U, _L, _P],
-    "rrtmgp_optics_fused": [_P] * 24 + [_I] * 8 + [_P],
+    "rrtmgp_optics_fused": [_P] * 24 + [_I] * 12 + [_P],
     "rrtmgp_planck_band_rows": [_P, _P, _P, _L, _I, _I, _F, _F, _P],
-    "rrtmgp_lw_noscat_banded": [_P] * 11 + [_I] * 6 + [_F, _F, _P],
-    "rrtmgp_sw_2stream_reduced": [_P] * 17 + [_I] * 6 + [_P],
-    "rrtmgp_lw_noscat_reduced": [_P] * 10 + [_I] * 5 + [_F, _F, _P],
+    "rrtmgp_lw_noscat_banded": [_P] * 11 + [_I] * 7 + [_F, _F, _P],
+    "rrtmgp_sw_2stream_reduced": [_P] * 17 + [_I] * 7 + [_P],
+    "rrtmgp_lw_noscat_reduced": [_P] * 10 + [_I] * 6 + [_F, _F, _P],
     "rrtmgp_lw_noscat_gpt": [_P] * 8 + [_I] * 5 + [_F, _F, _P],
-    "rrtmgp_lw_2stream_reduced": [_P] * 13 + [_I] * 6 + [_P],
+    "rrtmgp_lw_2stream_reduced": [_P] * 13 + [_I] * 7 + [_P],
     "rrtmgp_sw_2stream_gpt": [_P] * 15 + [_I] * 5 + [_P],
     "rrtmgp_interp_pt_eta": [_P] * 13 + [_I] * 7 + [_P],
     "rrtmgp_interp_minor": [_P] * 20 + [_I] * 7 + [_P],
@@ -140,6 +142,12 @@ def library() -> ctypes.CDLL:
         fn.restype = ctypes.c_int
     lib.rrtmgp_error_string.argtypes = [ctypes.c_int]
     lib.rrtmgp_error_string.restype = ctypes.c_char_p
+    lib.rrtmgp_smem_optin.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+    lib.rrtmgp_smem_optin.restype = ctypes.c_int
+    lib.rrtmgp_lw_clear_mega_staged.argtypes = [ctypes.c_int] * 6
+    lib.rrtmgp_lw_clear_mega_staged.restype = ctypes.c_longlong
+    lib.rrtmgp_optics_fused_smem.argtypes = [ctypes.c_int] * 3
+    lib.rrtmgp_optics_fused_smem.restype = ctypes.c_longlong
     return lib
 
 

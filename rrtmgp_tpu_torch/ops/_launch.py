@@ -8,6 +8,7 @@ kernels that run one thread per g-point (``gpoint_plan``)."""
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 from typing import NamedTuple
 
@@ -78,6 +79,10 @@ def check_optics_inputs(inp, tabs, dev, shortwave: bool, dtype: torch.dtype = to
     npp = tabs.kmajor.shape[0]
     ncontrib = tabs.kminor.shape[-1]
     second = (2, ntemp, neta, ngpt) if shortwave else (npp, ntemp, neta, ngpt)
+    for name in ("kmajor", "second", "kminor"):
+        if getattr(tabs, name).numel() >= 2**31:
+            raise ValueError(f"{name}: {getattr(tabs, name).numel()} elements; the kernels index the tables "
+                             "with 32-bit offsets (fewer than 2^31 elements)")
     for name, shape, dtype in (
         ("kmajor", (npp, ntemp, neta, ngpt), real), ("second", second, real),
         ("kminor", (ntemp, neta, ncontrib), real), ("gpt2band", (ngpt,), i32),
@@ -114,44 +119,81 @@ MAX_THREADS = 1024  # threads of one block
 class LaunchPlan(NamedTuple):
     """How a kernel of one thread per g-point covers a column: ``n_groups``
     blocks (gridDim.y) of ``group`` threads, whole warps, with g-point g =
-    blockIdx.y * group + threadIdx.x. With one group the level sums are
-    added in the block (shared memory), as the kernels always did up to 1024
-    g-points; with more, each warp writes its partial to a device buffer
-    (``level_partials``) and a second kernel adds a column's partials in
-    warp order 0, 1, ..., which is g-point order, as the in-block sum does:
-    the same bits."""
+    blockIdx.y * group + threadIdx.x. With ``in_block`` the level sums are
+    added in the block (shared memory), as the kernels do when a column is
+    one block and its sums fit; without, each warp writes its partial to a
+    device buffer (``level_partials``) and a second kernel adds a column's
+    partials in warp order 0, 1, ..., which is g-point order, as the
+    in-block sum does: the same bits."""
 
     group: int
     n_groups: int
+    in_block: bool = True
 
     @property
     def grouped(self) -> bool:
         return self.n_groups > 1
 
 
-def gpoint_plan(ngpt: int) -> LaunchPlan:
+def in_block_bytes(group: int, nlay: int, fields: int, itemsize: int) -> int:
+    """Shared memory of a block's in-block level sums: one slot per field,
+    level and warp."""
+    return fields * (nlay + 1) * (group // WARP) * itemsize
+
+
+def gpoint_plan(ngpt: int, nlay: int = 0, fields: int = 0, itemsize: int = 4, staged: int = 0,
+                limit: int | None = None) -> LaunchPlan:
     """The plan of every kernel of one thread per g-point: up to 1024
-    g-points one block per column, its launch as it always was; beyond, the
-    fewest groups of at most 1024 threads, equal in whole warps."""
+    g-points one block per column, beyond the fewest groups of at most 1024
+    threads, equal in whole warps. A column of one block adds its ``fields``
+    level sums of ``nlay + 1`` levels (reals of ``itemsize`` bytes) in the
+    block when they and the ``staged`` bytes the kernel keeps in shared
+    memory of its own fit the device's opt-in limit per block (``limit``,
+    ``smem_limit(device)`` on the card); else in device memory, through the
+    same warp-order sum. ``limit`` may be None only for a kernel without
+    shared memory (no fields, nothing staged)."""
     if ngpt < 1:
         raise ValueError(f"n_gpt={ngpt}: the kernels take 1 g-point or more")
     n_groups = math.ceil(ngpt / MAX_THREADS)
-    return LaunchPlan(-(-math.ceil(ngpt / n_groups) // WARP) * WARP, n_groups)
+    group = -(-math.ceil(ngpt / n_groups) // WARP) * WARP
+    if not (fields or staged):
+        return LaunchPlan(group, n_groups, n_groups == 1)
+    if limit is None:
+        raise ValueError("gpoint_plan: a kernel with shared memory needs the device's limit")
+    if staged > limit:
+        raise ValueError(f"gpoint_plan: {staged} bytes staged per block, the device allows {limit}")
+    fits = staged + in_block_bytes(group, nlay, fields, itemsize) <= limit
+    return LaunchPlan(group, n_groups, n_groups == 1 and fits)
+
+
+@functools.cache
+def _smem_optin(index: int) -> int:
+    from . import _build
+
+    value = ctypes.c_int(0)
+    _build.check(_build.library().rrtmgp_smem_optin(index, ctypes.byref(value)), "cudaDeviceGetAttribute")
+    return value.value
+
+
+def smem_limit(device: torch.device) -> int:
+    """The most dynamic shared memory a block of ``device`` may opt in to
+    (cudaDevAttrMaxSharedMemoryPerBlockOptin), read once per device."""
+    return _smem_optin(device.index if device.index is not None else torch.cuda.current_device())
 
 
 def level_partials(plan: LaunchPlan, nf: int, nlev: int, ncol: int, dtype: torch.dtype,
                    device: torch.device) -> torch.Tensor | None:
-    """The device buffer of a grouped launch's warp partials, (fields,
-    levels, columns, warps of a column), or None when a column's sums stay in
-    its block."""
-    if not plan.grouped:
+    """The device buffer of the warp partials, (fields, levels, columns,
+    warps of a column), or None when a column's sums stay in its block."""
+    if plan.in_block:
         return None
     return torch.empty((nf, nlev, ncol, plan.n_groups * plan.group // WARP), dtype=dtype, device=device)
 
 
 def cover_counts(plan: LaunchPlan, ncol: int, seeded: bool, device: torch.device) -> torch.Tensor | None:
     """Each block's count of cloudy g-points, (ncol, n_groups) int32, that a
-    grouped launch adds up to the McICA cloud cover; None otherwise."""
-    if not (seeded and plan.grouped):
+    launch with its sums in device memory adds up to the McICA cloud cover;
+    None otherwise."""
+    if not seeded or plan.in_block:
         return None
     return torch.empty((ncol, plan.n_groups), dtype=torch.int32, device=device)

@@ -34,7 +34,7 @@ from __future__ import annotations
 import torch
 
 from . import _build
-from ._launch import check_optics_inputs, cuda_device, optics_input_ptrs, ptr, require, stream, table_ptrs
+from ._launch import check_optics_inputs, cuda_device, gpoint_plan, optics_input_ptrs, ptr, require, stream, table_ptrs
 from .gas_optics import (
     compute_planck_fraction,
     compute_tau_major,
@@ -64,6 +64,11 @@ def tau_gas(inp: MegaInputs, tabs: KernelTables) -> torch.Tensor:
     return tau.add_(interp_minor_ref(inp, tabs))
 
 
+#: columns of one optics_fused block: its threads (one per g-point) walk
+#: them, so the table lines that neighbouring columns share stay in L1
+OPTICS_TILE = 16
+
+
 def optics_fused_ref(inp: MegaInputs, tabs: KernelTables) -> tuple[torch.Tensor, torch.Tensor]:
     """Plain twin of ``optics_fused``: ``ops.gas_optics`` on the kernel's
     inputs. LW: (tau clamped at 0, Planck fraction). SW: (tau with Rayleigh
@@ -89,11 +94,12 @@ def optics_fused(inp: MegaInputs, tabs: KernelTables) -> tuple[torch.Tensor, tor
     nlay, ncol, ngpt, nbnd, ntemp, neta, ncontrib = check_optics_inputs(inp, tabs, dev, shortwave)
     tau = torch.empty((nlay, ncol, ngpt), dtype=torch.float32, device=dev)
     second = torch.empty_like(tau)
+    plan = gpoint_plan(ngpt)
     with torch.cuda.device(dev):
         err = _build.library().rrtmgp_optics_fused(
             *optics_input_ptrs(inp), ptr(inp.ray_factor if shortwave else None), *table_ptrs(tabs),
-            ptr(tau), ptr(second), nlay, ncol, ngpt, nbnd, ntemp, neta, ncontrib, int(shortwave),
-            stream(dev),
+            ptr(tau), ptr(second), nlay, ncol, ngpt, nbnd, ntemp, neta, ncontrib, tabs.n_minor, int(shortwave),
+            OPTICS_TILE, plan.group, plan.n_groups, stream(dev),
         )
     _build.check(err, "optics_fused")
     optics_fused.launches += 1
@@ -101,6 +107,15 @@ def optics_fused(inp: MegaInputs, tabs: KernelTables) -> tuple[torch.Tensor, tor
 
 
 optics_fused.launches = 0
+
+
+def optics_fused_design(tabs: KernelTables) -> dict:
+    """How ``optics_fused`` launches for these tables (on the card): the
+    block (one layer, ``tile`` columns, ``group`` threads, one per g-point,
+    ``n_groups`` blocks per column tile) and its dynamic shared memory."""
+    plan = gpoint_plan(tabs.lkp.n_gpt)
+    smem = _build.library().rrtmgp_optics_fused_smem(OPTICS_TILE, tabs.lkp.n_bnd, tabs.n_minor)
+    return dict(tile=OPTICS_TILE, group=plan.group, n_groups=plan.n_groups, smem=smem)
 
 
 def planck_band_rows_ref(t: torch.Tensor, totplnk: torch.Tensor, t_min: float, t_delta: float):

@@ -6,9 +6,11 @@ tensors and raises on anything the kernel does not take; for CPU tensors it
 returns its plain twin ``*_ref``. Each counts its launches in a plain integer
 attribute, ``<wrapper>.launches``, incremented only where the kernel is
 launched. Past 1024 g-points a column spans several blocks
-(``_launch.gpoint_plan``), and a call of a kernel with level sums is then
-two launches, the kernel and ``finish_level_sums`` (``csrc/common.cuh``),
-which adds the blocks' partials; the count takes one for the call.
+(``_launch.gpoint_plan``), and so do its level sums where they would not fit
+a block's shared memory (very deep columns): a call of a kernel with level
+sums is then two launches, the kernel and ``finish_level_sums``
+(``csrc/common.cuh``), which adds the warps' partials in the in-block
+order; the count takes one for the call.
 
 - ``planck_band``: band Planck emission, f32 or f64 (replaces
   ``planck_band_pallas_t`` and ``planck_band_windowed``);
@@ -44,7 +46,7 @@ import torch
 
 from . import _build
 from ._launch import check_optics_inputs as _check_inputs
-from ._launch import cover_counts, gpoint_plan, level_partials
+from ._launch import cover_counts, gpoint_plan, in_block_bytes, level_partials, smem_limit
 from ._launch import cuda_device as _cuda_device
 from ._launch import kernel_dtype as _kernel_dtype
 from ._launch import optics_input_ptrs as _input_ptrs
@@ -136,6 +138,9 @@ class Composition(NamedTuple):
 
 CLEAR = Composition()
 MASK_NONE, MASK_GIVEN, MASK_SEED = 0, 1, 2
+#: shared memory of the McICA cover count of a block (csrc/mcica.cuh
+#: block_count, one int per warp), beside the level sums in seed mode
+BLOCK_COUNT_BYTES = 32 * 4
 #: ROADMAP queue 1 item that adds f64 builds of the all-sky kernels
 F64_ALLSKY_ITEM = "item 20"
 
@@ -286,17 +291,17 @@ def lw_clear_mega(
         _require(inc_flux, "inc_flux", (ncol, ngpt), real, dev)
     comp_ptrs, comp_scalars = _composition_args(comp, dev, nlay, ncol, ngpt, nbnd)
     seeded = comp_scalars[2] == MASK_SEED
+    plan, _ = _lw_clear_mega_plan(tabs, nlay, real, comp_scalars[:3], dev)
     trans_s = torch.empty((nlay, ncol, ngpt), dtype=real, device=dev)
     sup_s = torch.empty_like(trans_s)
     up = torch.empty((nlay + 1, ncol), dtype=real, device=dev)
     dn = torch.empty_like(up)
     cover = torch.empty((ncol,), dtype=torch.float32, device=dev) if seeded else None
-    plan = gpoint_plan(ngpt)
     partials = level_partials(plan, 2, nlay + 1, ncol, real, dev)
     head = (*_input_ptrs(inp), *_table_ptrs(tabs),
             *map(_ptr, (plk_lay, plk_lev, plk_sfc, sfc_emis, inc_flux)))
-    dims = (nlay, ncol, ngpt, nbnd, ntemp, neta, ncontrib)
-    scalars = (plan.group, plan.n_groups, round_to(ds, real), intensity_to_flux(w_mu, real), _stream(dev))
+    dims = (nlay, ncol, ngpt, nbnd, ntemp, neta, ncontrib, tabs.n_minor)
+    scalars = (*plan, round_to(ds, real), intensity_to_flux(w_mu, real), _stream(dev))
     lib = _build.library()
     with torch.cuda.device(dev):
         if f64:
@@ -313,6 +318,33 @@ def lw_clear_mega(
 
 
 lw_clear_mega.launches = 0
+
+#: layers of one chunk that lw_clear_mega stages in shared memory
+#: (csrc/lw_clear_mega.cu LW_CHUNK)
+LW_CHUNK = 8
+
+
+def _lw_clear_mega_plan(tabs: KernelTables, nlay: int, real: torch.dtype, composition: list, dev):
+    """lw_clear_mega's launch plan and the shared memory it stages besides
+    its level sums (chunks of layers: it does not grow with nlay);
+    ``composition`` is (cloud, aero, mask_mode)."""
+    staged = _build.library().rrtmgp_lw_clear_mega_staged(tabs.lkp.n_bnd, tabs.n_minor, *composition,
+                                                           int(real == torch.float64))
+    return gpoint_plan(tabs.lkp.n_gpt, nlay, 2, real.itemsize, staged, smem_limit(dev)), staged
+
+
+def lw_clear_mega_design(inp: MegaInputs, tabs: KernelTables, comp: Composition = CLEAR) -> dict:
+    """How ``lw_clear_mega`` launches for these inputs (on the card): one
+    block of ``group`` threads per column (``n_groups`` past 1024 g-points),
+    the staging chunk, the dynamic shared memory and where the level sums
+    are added."""
+    dev = inp.jtemp.device
+    real = inp.ftemp.dtype
+    scalars = _composition_args(comp, dev, inp.nlay, inp.ncol, tabs.lkp.n_gpt, tabs.lkp.n_bnd)[1]
+    plan, staged = _lw_clear_mega_plan(tabs, inp.nlay, real, scalars[:3], dev)
+    sums = in_block_bytes(plan.group, inp.nlay, 2, real.itemsize) if plan.in_block else 0
+    return dict(group=plan.group, n_groups=plan.n_groups, chunk=LW_CHUNK, smem=staged + sums,
+                in_block=plan.in_block)
 
 
 def _mega_scratch_tensors(plan, nf, nlay, ncol, ngpt, seeded, dev):
@@ -374,7 +406,7 @@ def lw2_mega(
         _require(inc_flux, "inc_flux", (ncol, ngpt), f32, dev)
     comp_ptrs, comp_scalars = _composition_args(comp, dev, nlay, ncol, ngpt, nbnd)
     seeded = comp_scalars[2] == MASK_SEED
-    plan = gpoint_plan(ngpt)
+    plan = gpoint_plan(ngpt, nlay, 2, 4, BLOCK_COUNT_BYTES, smem_limit(dev))
     mask_s = torch.empty((nlay, ncol, ngpt), dtype=torch.uint8, device=dev) if seeded else None
     scratch = _mega_scratch_tensors(plan, 2, nlay, ncol, ngpt, seeded, dev)
     up = torch.empty((nlay + 1, ncol), dtype=f32, device=dev)
@@ -385,7 +417,7 @@ def lw2_mega(
             *_input_ptrs(inp), *_table_ptrs(tabs),
             *map(_ptr, (plk_lev, plk_sfc, sfc_emis, inc_flux)), *comp_ptrs,
             *map(_ptr, (mask_s, *scratch, up, dn, cover)),
-            nlay, ncol, ngpt, nbnd, ntemp, neta, ncontrib, *comp_scalars, plan.group, plan.n_groups, _stream(dev),
+            nlay, ncol, ngpt, nbnd, ntemp, neta, ncontrib, *comp_scalars, *plan, _stream(dev),
         )
     _build.check(err, "lw2_mega")
     lw2_mega.launches += 1
@@ -451,7 +483,7 @@ def sw_clear_mega(
         _require(inc_flux_diffuse, "inc_flux_diffuse", (ncol, ngpt), f32, dev)
     comp_ptrs, comp_scalars = _composition_args(comp, dev, nlay, ncol, ngpt, nbnd)
     seeded = comp_scalars[2] == MASK_SEED
-    plan = gpoint_plan(ngpt)
+    plan = gpoint_plan(ngpt, nlay, 3, 4, BLOCK_COUNT_BYTES, smem_limit(dev))
     scratch = _mega_scratch_tensors(plan, 3, nlay, ncol, ngpt, seeded, dev)
     fluxes = [torch.empty((nlay + 1, ncol), dtype=f32, device=dev) for _ in range(3)]
     cover = torch.empty((ncol,), dtype=f32, device=dev) if seeded else None
@@ -460,7 +492,7 @@ def sw_clear_mega(
             *_input_ptrs(inp), _ptr(inp.ray_factor), *_table_ptrs(tabs),
             *map(_ptr, (mu0, toa_gpt, alb_dir, alb_dif, inc_flux_diffuse)), *comp_ptrs,
             *map(_ptr, (*scratch, *fluxes, cover)),
-            nlay, ncol, ngpt, nbnd, ntemp, neta, ncontrib, *comp_scalars, plan.group, plan.n_groups, _stream(dev),
+            nlay, ncol, ngpt, nbnd, ntemp, neta, ncontrib, *comp_scalars, *plan, _stream(dev),
         )
     _build.check(err, "sw_clear_mega")
     sw_clear_mega.launches += 1

@@ -28,8 +28,9 @@ kernel does not take; for CPU tensors it returns its twin ``*_ref``.
 ``<wrapper>.launches`` counts the launches. The kernels are f32 and run one
 thread per g-point: up to 1024 g-points one block per column, beyond that a
 column over several blocks (``_launch.gpoint_plan``), its level sums
-completed in the same order, so any g-point count gives the same bits as
-one block would. A g-summed call over several blocks is two launches, the
+completed in the same order, as they are for a column too deep for its sums
+to fit a block, so any g-point count and depth gives the same bits as one
+block would. A g-summed call over several blocks is two launches, the
 sweep and ``finish_level_sums`` (``csrc/common.cuh``); the count takes one
 for the call.
 
@@ -47,7 +48,7 @@ from __future__ import annotations
 import torch
 
 from . import _build
-from ._launch import cuda_device, gpoint_plan, level_partials, ptr, require, stream
+from ._launch import cuda_device, gpoint_plan, level_partials, ptr, require, smem_limit, stream
 from .gas_optics import planck_sources_from_bands
 from .rte import intensity_to_flux, lw_2stream, lw_noscat, round_to, sw_2stream
 
@@ -69,10 +70,12 @@ def _groups(ngpt: int) -> tuple[int, int]:
 
 
 def _plan(nf: int, nlay: int, ncol: int, ngpt: int, dev):
-    """(group, n_groups) of the launch plan and the level partials (None
-    when a column fits one block) of a g-summed sweep with nf fields."""
-    plan = gpoint_plan(ngpt)
-    return (plan.group, plan.n_groups), level_partials(plan, nf, nlay + 1, ncol, torch.float32, dev)
+    """(group, n_groups, in_block) of the launch plan of a g-summed sweep
+    with nf fields and its level partials (None when the sums stay in the
+    block)."""
+    plan = gpoint_plan(ngpt, nlay, nf, 4, 0, smem_limit(dev))
+    return (plan.group, plan.n_groups, int(plan.in_block)), level_partials(plan, nf, nlay + 1, ncol, torch.float32,
+                                                                            dev)
 
 
 def lw_noscat_banded_reduced_ref(

@@ -5,6 +5,7 @@ that chip_smoke.py does not print. Run from the repository root:
     python3 scripts/port_measure.py profile-two-kernel --unfused
     python3 scripts/port_measure.py --root CHECKOUT kernel-hashes
     python3 scripts/port_measure.py [--root CHECKOUT] megakernels
+    python3 scripts/port_measure.py [--root CHECKOUT] gather [--tiles 4,8,16,32] [--k1]
 
 With no argument it runs the first five. Each line names what it measured; the
 first line is the card's name and power limit. Problem sizes and inputs are
@@ -46,9 +47,12 @@ imports no JAX.
 - ``kernel-hashes``: median time of 7 calls, sha256 of the outputs and
   register counts of the kernels whose device code lives in shared headers
   (sw_2stream_reduced, sw_clear_mega, lw_clear_mega, optics_fused,
-  lw_noscat_banded_reduced and the four sweeps from materialized sources on
-  the clear cell; lw2_mega on the all-sky cell with McICA by seed +
-  aerosols and clear; mcica_mask_export). ``--root CHECKOUT``
+  lw_noscat_banded_reduced, interp_pt_eta for each table, interp_minor and
+  the four sweeps from materialized sources on the clear cell; lw_clear_mega
+  built for f64 on the clear cell in f64; lw2_mega and the composed
+  lw_clear_mega on the all-sky cell with McICA by seed + aerosols, lw2_mega
+  also clear; mcica_mask_export; the cloud cover is hashed with the
+  fluxes). ``--root CHECKOUT``
   imports chip_smoke.py and the package from another checkout and builds
   there. To show that a change of a shared header left those kernels as
   they were, unpack the parent commit into a directory that .gitignore
@@ -62,10 +66,21 @@ imports no JAX.
   aerosols), lw2_mega on the all-sky cell (256 g-points, the same
   composition); then the step time (median of 5) and the peak device memory
   (``torch.cuda.max_memory_allocated()`` over the steps, after one warm-up) of
-  the clear, all-sky and all-sky no-scattering cells as chip_smoke.py drives
-  them. It uses only entry points that every commit of the port has, so
-  ``--root`` runs it on an older checkout. Compare commits in one call, in
-  turns (parent, change, change, parent).
+  the clear, two-kernel, all-sky and all-sky no-scattering cells as
+  chip_smoke.py drives them. It uses only entry points that every commit of
+  the port has, so ``--root`` runs it on an older checkout. Compare commits
+  in one call, in turns (parent, change, change, parent).
+- ``gather``: the kernels around the gas-optics table gather, each in 3
+  rounds of a median of 7 synchronized calls with the sha256 of its
+  outputs, and their ``ptxas`` registers: optics_fused LW and SW (with
+  ``--tiles``, once per column tile, set through ``ops.interp.OPTICS_TILE``),
+  lw_clear_mega clear, and the sweeps that read optics_fused's outputs
+  timed with it (lw_noscat_banded_reduced after the LW optics,
+  sw_2stream_reduced after the SW optics), on the clear cell; with
+  ``--k1`` lw_clear_mega alone: clear, built for f64 on the clear cell in
+  f64, and composed (McICA by seed + aerosols) on the all-sky cell. For
+  ablations and design variants: build each variant in its own checkout
+  and run this mode on each in turns within one call.
 """
 
 from __future__ import annotations
@@ -78,7 +93,12 @@ import warnings
 
 ARGS = sys.argv[1:]
 UNFUSED = "--unfused" in ARGS
-ARGS = [a for a in ARGS if a != "--unfused"]
+K1_ONLY = "--k1" in ARGS
+TILES = None
+if "--tiles" in ARGS:
+    TILES = [int(t) for t in ARGS[ARGS.index("--tiles") + 1].split(",")]
+    del ARGS[ARGS.index("--tiles"):ARGS.index("--tiles") + 2]
+ARGS = [a for a in ARGS if a not in ("--unfused", "--k1")]
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 if ARGS[:1] == ["--root"]:
     ROOT, ARGS = pathlib.Path(ARGS[1]).resolve(), ARGS[2:]
@@ -341,8 +361,9 @@ def profile_sweep() -> None:
 
 
 REGISTERS_OF = ("sw_clear_mega_kernelILb0ELb0", "lw2_mega_kernelILb0ELb0", "lw2_mega_kernelILb1ELb1ELi2",
-                "sw_2stream_reduced_kernel", "lw_clear_mega_kernelIfLb0ELb0", "lw_noscat_banded_kernel",
-                "lw_noscat_sources_kernel", "lw_2stream_reduced_kernel", "optics_fused_kernel")
+                "sw_2stream_reduced_kernel", "lw_clear_mega_kernelIfLb0ELb0", "lw_clear_mega_kernelIfLb1ELb1ELi2",
+                "lw_clear_mega_kernelIdLb0ELb0", "lw_noscat_banded_kernel", "lw_noscat_sources_kernel",
+                "lw_2stream_reduced_kernel", "optics_fused_kernel", "interp_pt_eta_kernel", "interp_minor_kernel")
 
 
 def kernel_hashes() -> None:
@@ -350,6 +371,7 @@ def kernel_hashes() -> None:
 
     import rrtmgp_tpu_torch
     from rrtmgp_tpu_torch import AllSkyRadiation, lookup_tables
+    from rrtmgp_tpu_torch.angular import angular_discretization
     from rrtmgp_tpu_torch.models.rrtmgp import _kernel_composition
     from rrtmgp_tpu_torch.ops import _build, interp, mega, rte_kernels
     from rrtmgp_tpu_torch.ops.mega_inputs import mega_lw_inputs
@@ -375,7 +397,16 @@ def kernel_hashes() -> None:
     report("optics_fused LW", lambda: interp.optics_fused(*lw_in))
     report("optics_fused SW", lambda: interp.optics_fused(*sw_in))
     report("lw_noscat_banded_reduced", lambda: rte_kernels.lw_noscat_banded_reduced(*k12))
-    del k1, k2, k12, k15, lw_in, sw_in
+    for wave, (inp, tabs) in (("LW", lw_in), ("SW", sw_in)):
+        second = (tabs.second, inp.jtemp, inp.ftemp, inp.jpress_base, inp.fpress) if wave == "LW" else (
+            tabs.second, inp.jtemp, inp.ftemp, (~inp.tropo_lower).to(torch.int32), torch.zeros_like(inp.fpress))
+        eta = (inp.jeta1, inp.feta1, inp.jeta2, inp.feta2, tabs.gpt2band)
+        kmajor = (tabs.kmajor, inp.jtemp, inp.ftemp, inp.jpress_base, inp.fpress, *eta, inp.col_mix1, inp.col_mix2)
+        report(f"interp_pt_eta {wave} kmajor", lambda: (interp.interp_pt_eta(*kmajor),))
+        report(f"interp_pt_eta {wave} {'Planck fraction' if wave == 'LW' else 'Rayleigh'}",
+               lambda: (interp.interp_pt_eta(*second, *eta),))
+        report(f"interp_minor {wave}", lambda: (interp.interp_minor(inp, tabs),))
+    del k1, k2, k12, k15, lw_in, sw_in, kmajor, second
     torch.cuda.empty_cache()
     k13, k14, _, k16a, k16b = cs.sweep_args(lw, sw, atm, bcs_lw, bcs_sw)
     report("lw_noscat_reduced", lambda: rte_kernels.lw_noscat_reduced(*k13))
@@ -383,6 +414,12 @@ def kernel_hashes() -> None:
     report("sw_2stream_gpt", lambda: rte_kernels.sw_2stream_gpt(*k16a))
     report("lw_noscat_gpt", lambda: rte_kernels.lw_noscat_gpt(*k16b))
     del atm, k13, k14, k16a, k16b
+    torch.cuda.empty_cache()
+    lw64, sw64 = cs.lookups(256, 16, 224, 14, "float64")
+    atm64 = cs.atmosphere(cs.NCOL, cs.NLAY, "float64")
+    k7 = cs.kernel_args(lw64, None, atm64, cs.boundary_conditions(lw64, sw64, cs.NCOL)[0], None)[1]
+    report("lw_clear_mega f64 clear (K7)", lambda: mega.lw_clear_mega(*k7))
+    del lw64, sw64, atm64, k7
     torch.cuda.empty_cache()
 
     L = lookup_tables(AllSkyRadiation(aerosol_radiation=True), dtype=torch.float32, device=cs.DEVICE)
@@ -393,7 +430,11 @@ def kernel_hashes() -> None:
     comp = _kernel_composition(lw, atm, L.lookup_lw_cld, L.lookup_lw_aero, None, cs.MCICA_SEED, cs.COL_OFFSET,
                                None, False, False)[0]
     args = (mega_lw_inputs(lw, atm), lw.kernel_tables, plk(atm.t_lev), plk(atm.t_sfc), bcs_lw.sfc_emis, None)
-    report("lw2_mega seed+aerosols", lambda: mega.lw2_mega(*args, comp)[:2])
+    report("lw2_mega seed+aerosols", lambda: mega.lw2_mega(*args, comp))
+    Ds, wts = angular_discretization(1)
+    ns_args = (*args[:2], plk(atm.t_lay), *args[2:], float(Ds[0]), float(wts[0]))
+    report("lw_clear_mega composed seed+aerosols", lambda: mega.lw_clear_mega(*ns_args, comp))
+    del ns_args
     report("lw2_mega clear", lambda: mega.lw2_mega(*args)[:2])
     report("mcica_mask_export", lambda: mega.mcica_mask_export(atm.cloud_state.cld_frac, cs.MCICA_SEED,
                                                                cs.COL_OFFSET, lw.n_gpt))
@@ -404,6 +445,70 @@ def kernel_hashes() -> None:
             entry = line.split("'")[1]
         elif "Used" in line and entry and any(k in entry for k in REGISTERS_OF):
             say("kernel-hashes", f"{ROOT} {entry[:72]}: {line.split(':', 1)[1].strip()}")
+
+
+GATHER_KERNELS = ("optics_fused_kernel", "lw_clear_mega_kernelIfLb0ELb0ELi0ELb0", "lw_clear_mega_kernelIdLb0ELb0ELi0ELb0",
+                  "lw_clear_mega_kernelIfLb1ELb1ELi2ELb0")
+
+
+def gather() -> None:
+    import torch
+
+    from rrtmgp_tpu_torch import AllSkyRadiation, lookup_tables
+    from rrtmgp_tpu_torch.angular import angular_discretization
+    from rrtmgp_tpu_torch.models.rrtmgp import _kernel_composition
+    from rrtmgp_tpu_torch.ops import _build, interp, mega, rte_kernels
+    from rrtmgp_tpu_torch.ops.mega_inputs import mega_lw_inputs, mega_sw_inputs
+
+    lw, sw = cs.lookups(256, 16, 224, 14)
+    atm = cs.atmosphere(cs.NCOL, cs.NLAY)
+    bcs_lw, bcs_sw = cs.boundary_conditions(lw, sw, cs.NCOL)
+    k1 = cs.kernel_args(lw, sw, atm, bcs_lw, bcs_sw)[1]
+    cases = [("lw_clear_mega clear", lambda: mega.lw_clear_mega(*k1))]
+    if K1_ONLY:
+        lw64, sw64 = cs.lookups(256, 16, 224, 14, "float64")
+        atm64 = cs.atmosphere(cs.NCOL, cs.NLAY, "float64")
+        k7 = cs.kernel_args(lw64, None, atm64, cs.boundary_conditions(lw64, sw64, cs.NCOL)[0], None)[1]
+        cases.append(("lw_clear_mega f64 clear (K7)", lambda: mega.lw_clear_mega(*k7)))
+        L = lookup_tables(AllSkyRadiation(aerosol_radiation=True), dtype=torch.float32, device=cs.DEVICE)
+        alw = L.lookup_lw
+        aatm = cs.allsky_atmosphere(cs.ALLSKY_NCOL, cs.NLAY)
+        plk = cs.plk_fn(alw)
+        comp = _kernel_composition(alw, aatm, L.lookup_lw_cld, L.lookup_lw_aero, None, cs.MCICA_SEED,
+                                   cs.COL_OFFSET, None, False, False)[0]
+        Ds, wts = angular_discretization(1)
+        ns = (mega_lw_inputs(alw, aatm), alw.kernel_tables, plk(aatm.t_lay), plk(aatm.t_lev), plk(aatm.t_sfc),
+              cs.boundary_conditions(alw, L.lookup_sw, cs.ALLSKY_NCOL)[0].sfc_emis, None, float(Ds[0]),
+              float(wts[0]))
+        cases.append(("lw_clear_mega composed seed+aerosols", lambda: mega.lw_clear_mega(*ns, comp)))
+    else:
+        lw_in = (mega_lw_inputs(lw, atm), lw.kernel_tables)
+        sw_in = (mega_sw_inputs(sw, atm), sw.kernel_tables)
+        for tile in TILES or [None]:
+            def optics(args, tile=tile):
+                if tile is not None:
+                    interp.OPTICS_TILE = tile
+                return interp.optics_fused(*args)
+
+            cases += [(f"optics_fused LW tile {tile or 'default'}", lambda f=optics: f(lw_in)),
+                      (f"optics_fused SW tile {tile or 'default'}", lambda f=optics: f(sw_in))]
+        _, _, _, k12, k15 = cs.two_kernel_args(lw, sw, atm, bcs_lw, bcs_sw)
+        cases += [("optics_fused LW + lw_noscat_banded_reduced",
+                   lambda: (interp.optics_fused(*lw_in), rte_kernels.lw_noscat_banded_reduced(*k12))[1]),
+                  ("optics_fused SW + sw_2stream_reduced",
+                   lambda: (interp.optics_fused(*sw_in), rte_kernels.sw_2stream_reduced(*k15))[1])]
+    for name, fn in cases:
+        ms = [cs.timed(fn, 7) for _ in range(3)]
+        h = hashlib.sha256()
+        for t in fn():
+            h.update(t.cpu().numpy().tobytes())
+        say("gather", f"{ROOT} {name}: {_fmt(ms)} ms, sha256 {h.hexdigest()[:16]}")
+    entry = None
+    for line in _build.library_path().with_suffix(".log").read_text().splitlines():
+        if "Compiling entry function" in line:
+            entry = line.split("'")[1]
+        elif "Used" in line and entry and any(k in entry for k in GATHER_KERNELS):
+            say("gather", f"{ROOT} {entry[:72]}: {line.split(':', 1)[1].strip()}")
 
 
 def _steps(tag: str, step, steps: int = 5) -> None:
@@ -452,6 +557,10 @@ def megakernels() -> None:
     del k2
     _steps(f"clear step (solve_lw + solve_sw, impl='kernel') {cs.NCOL} x {cs.NLAY}",
            lambda: (solve_lw(lw, atm, bcs_lw, impl="kernel"), solve_sw(sw, atm, bcs_sw, impl="kernel")))
+    _steps(f"two-kernel step (solve_lw 3 angles + solve_sw, impl='two_kernel', + SW direct beam) "
+           f"{cs.NCOL} x {cs.NLAY}",
+           lambda: (solve_lw(lw, atm, bcs_lw, n_gauss_angles=3, impl="two_kernel"),
+                    solve_sw(sw, atm, bcs_sw, impl="two_kernel"), solve_sw(sw, atm, bcs_sw, two_stream=False)))
     del atm, bcs_lw, bcs_sw
     torch.cuda.empty_cache()
 
@@ -493,7 +602,7 @@ def main() -> None:
     warnings.simplefilter("ignore")  # the f64 torch-path and auto-chunk notices
     for name, fn in (("f64-memory", f64_memory), ("angles", angles), ("profile", profile_cells),
                      ("profile-two-kernel", profile_two_kernel), ("profile-sweep", profile_sweep),
-                     ("kernel-hashes", kernel_hashes), ("megakernels", megakernels)):
+                     ("kernel-hashes", kernel_hashes), ("megakernels", megakernels), ("gather", gather)):
         if name in want:
             fn()
 

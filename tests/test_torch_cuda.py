@@ -207,6 +207,46 @@ def test_megakernels_at_sixty_and_800_layers(cuda, ngpt, nlay):
             assert all(torch.equal(x, y) for x, y in zip(out, again))
 
 
+@pytest.mark.parametrize("ngpt,nbnd,nlay", [(224, 14, 2800), (256, 16, 3700)])
+def test_deep_columns_keep_their_level_sums_in_device_memory(cuda, ngpt, nbnd, nlay):
+    """Columns too deep for their in-block level sums (SW 3 x 2801 x 7 warps,
+    LW 2 x 3701 x 8 warps of floats, each past the 227 KB a block can opt in
+    to): the launch plan keeps one block per column and completes the sums
+    in device memory, and every kernel with level sums holds its twin: K2
+    and K15 at 224 g-points x 2800 layers; K1, K4, K12, K13 and K14 at 256 x
+    3700."""
+    from rrtmgp_tpu_torch.ops._launch import gpoint_plan, smem_limit
+
+    ncol = 3
+    _, lw_args, sw_args = _case(cuda, ngpt, nbnd, ncol, nlay)
+    fields = 3 if ngpt == 224 else 2
+    plan = gpoint_plan(ngpt, nlay, fields, 4, mega.BLOCK_COUNT_BYTES, smem_limit(cuda))
+    assert plan.n_groups == 1 and not plan.in_block
+    if ngpt == 224:
+        _, _, _, _, k15 = _two_kernel_case(cuda, ngpt, nbnd, ncol, nlay)
+        cases = ((mega.sw_clear_mega, mega.sw_clear_mega_ref, sw_args, TOL["sw_clear_mega"]),
+                 (rte_kernels.sw_2stream_reduced, rte_kernels.sw_2stream_reduced_ref, k15,
+                  TOL["sw_2stream_reduced"]))
+    else:
+        inp, tabs, _, plk_lev, plk_sfc, emis, inc = lw_args[:7]
+        k13, k14, _, _, _ = _sweep_case(cuda, ngpt, nbnd, ncol, nlay)
+        k12 = _two_kernel_case(cuda, ngpt, nbnd, ncol, nlay)[3]
+        cases = ((mega.lw_clear_mega, mega.lw_clear_mega_ref, lw_args, TOL["lw_clear_mega"]),
+                 (mega.lw2_mega, mega.lw2_mega_ref, (inp, tabs, plk_lev, plk_sfc, emis, inc), TOL["lw2_mega"]),
+                 (rte_kernels.lw_noscat_banded_reduced, rte_kernels.lw_noscat_banded_reduced_ref, k12,
+                  TOL["lw_noscat_banded_reduced"]),
+                 (rte_kernels.lw_noscat_reduced, rte_kernels.lw_noscat_reduced_ref, k13, TOL["lw_noscat_reduced"]),
+                 (rte_kernels.lw_2stream_reduced, rte_kernels.lw_2stream_reduced_ref, k14,
+                  TOL["lw_2stream_reduced"]))
+    mega.reset_launch_counts()
+    for fn, ref, args, tol in cases:
+        out = fn(*args)
+        assert out[0].shape == (nlay + 1, ncol), fn.__name__
+        assert _rel(out, ref(*args)) <= tol, fn.__name__
+    torch.cuda.synchronize()
+    assert _counts() == {fn.__name__: 1 for fn, *_ in cases}
+
+
 def test_solves_on_cuda_take_the_kernels(cuda):
     lw = synthetic_gas_lookup(longwave=True, n_gpt=32, n_bnd=4, dtype=np.float32, device=cuda)
     sw = synthetic_gas_lookup(longwave=False, n_gpt=32, n_bnd=4, seed=1, dtype=np.float32, device=cuda)
@@ -1083,3 +1123,78 @@ def test_unfused_solves_take_the_unfused_kernels(cuda):
     fused = mk(impl="two_kernel").update_fluxes()
     for a, b in zip((*unfused[0], *unfused[1]), (*fused[0], *fused[1])):
         assert torch.equal(a, b)
+
+
+# ---------------------------------------------------------------------------
+# The staged gas-optics gather (csrc/gather.cuh): optics_fused and
+# lw_clear_mega at shapes that do not fill its tiles and chunks
+# ---------------------------------------------------------------------------
+
+
+def _rich_lookup(dev, longwave, ngpt, nbnd, n_per_side, seed):
+    """A synthetic lookup whose band limits are not multiples of 16 and with
+    n_per_side minor intervals a side (the synthetic lookup has three), each
+    over a whole band, so that several cover a g-point."""
+    from rrtmgp_tpu_torch.data.lookups import MinorInterval
+
+    lkp = synthetic_gas_lookup(longwave=longwave, n_gpt=ngpt, n_bnd=nbnd, seed=seed, dtype=np.float32, device=dev)
+    rng = np.random.default_rng(seed + 40)
+    cuts = np.sort(rng.choice(np.arange(1, ngpt), nbnd - 1, replace=False)).tolist()
+    edges = [0, *cuts, ngpt]
+    lims = tuple(zip(edges[:-1], edges[1:]))
+
+    def side():
+        intervals, rows, k0 = [], [], 0
+        for _ in range(n_per_side):
+            g0, g1 = lims[int(rng.integers(nbnd))]
+            intervals.append(MinorInterval(int(rng.choice([2, 3, 4, 5, 6])), int(rng.integers(2)),
+                                           bool(rng.integers(2)), bool(rng.integers(2)), g0, g1, k0))
+            rows.append(rng.uniform(1e-25, 5e-24, (g1 - g0, lkp.n_temp, lkp.n_eta)))
+            k0 += g1 - g0
+        return tuple(intervals), torch.from_numpy(np.concatenate(rows).astype(np.float32)).to(dev)
+
+    (lower, k_lower), (upper, k_upper) = side(), side()
+    assert any(b - a != 16 and b % 16 for a, b in lims)
+    return dataclasses.replace(lkp, bnd_lims_gpt=lims, minor_lower=lower, kminor_lower=k_lower,
+                               minor_upper=upper, kminor_upper=k_upper)
+
+
+@pytest.mark.parametrize("ngpt,nbnd,ncol,nlay,n_minor", [(36, 3, 13, 13, 12), (256, 16, 1001, 13, 30),
+                                                         (1100, 5, 9, 11, 20)])
+def test_staged_gather_kernels_match_twins(cuda, ngpt, nbnd, ncol, nlay, n_minor):
+    """optics_fused (LW, SW) and lw_clear_mega (clear, mask given, McICA seed
+    + aerosols, aerosols alone; f64 clear) against their twins where ncol is
+    not a multiple of optics_fused's column tile nor nlay of lw_clear_mega's
+    staging chunk, band limits are not multiples of 16 and more minor
+    intervals than the synthetic three cover each g-point."""
+    from rrtmgp_tpu_torch.models.rrtmgp import _kernel_composition
+
+    assert ncol % interp.OPTICS_TILE and nlay % 8
+    lw = _rich_lookup(cuda, True, ngpt, nbnd, n_minor, 0)
+    sw = _rich_lookup(cuda, False, ngpt, nbnd, n_minor, 1)
+    assert lw.kernel_tables.n_minor == 2 * n_minor
+    _, _, atm, cld, aero, _, _, masks = _allsky_case(cuda, ngpt, nbnd, ncol, nlay)
+    mega.reset_launch_counts()
+    for lkp, inputs in ((lw, mega_lw_inputs), (sw, mega_sw_inputs)):
+        args = (inputs(lkp, atm), lkp.kernel_tables)
+        out = interp.optics_fused(*args)
+        for o, r in zip(out, interp.optics_fused_ref(*args)):
+            assert _rel([o], [r]) <= TOL["optics_fused"]
+    rng = np.random.default_rng(12)
+    u = lambda lo, hi, *shape: torch.from_numpy(rng.uniform(lo, hi, shape).astype(np.float32)).to(cuda)
+    plk = lambda t: mega.planck_band(t.reshape(-1), lw.totplnk, lw.t_planck_min, lw.t_planck_delta)
+    Ds, wts = angular_discretization(1)
+    args = (mega_lw_inputs(lw, atm), lw.kernel_tables, plk(atm.t_lay), plk(atm.t_lev), plk(atm.t_sfc),
+            u(0.8, 1.0, nbnd, ncol), u(0.0, 2.0, ncol, ngpt), float(Ds[0]), float(wts[0]))
+    make = lambda c, a, m, s: _kernel_composition(lw, atm, c, a, m, s, 100, None, False, False)[0]
+    for comp in (mega.CLEAR, make(cld[0], None, masks[0], None), make(cld[0], aero[0], None, 9),
+                 make(None, aero[0], None, None)):
+        out, want = mega.lw_clear_mega(*args, comp), mega.lw_clear_mega_ref(*args, comp)
+        if comp.seeded:
+            assert torch.equal(out[2], want[2])
+        assert _rel(out[:2], want[:2]) <= TOL["lw_clear_mega"]
+    lw64, atm64 = lw.to(dtype=torch.float64), atm.to(dtype=torch.float64)
+    args64 = (mega_lw_inputs(lw64, atm64), lw64.kernel_tables, *(x.double() for x in args[2:7]), *args[7:])
+    assert _rel(mega.lw_clear_mega(*args64), mega.lw_clear_mega_ref(*args64)) <= TOL64["lw_clear_mega"]
+    torch.cuda.synchronize()
+    assert _counts() == {"optics_fused": 2, "planck_band": 3, "lw_clear_mega": 5, "aerosol_bands": 2}

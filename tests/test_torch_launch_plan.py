@@ -58,3 +58,56 @@ def test_no_gpoint_count_is_refused_but_zero():
     assert rte_kernels._dims(torch.empty(2, 3, 1100), "lw_noscat_reduced") == (2, 3, 1100)
     with pytest.raises(ValueError, match="n_gpt=0"):
         L.gpoint_plan(0)
+
+
+# The plan with the depth, the element size and the device's limit: an
+# H100's opt-in limit per block, passed in as the wrappers read it there.
+H100_OPTIN = 232448
+
+
+def _max_in_block_nlay(ngpt, fields, itemsize, staged, limit):
+    warps = -(-ngpt // 32)
+    return (limit - staged) // (fields * warps * itemsize) - 1
+
+
+@pytest.mark.parametrize("ngpt,fields,itemsize", [(224, 3, 4), (256, 2, 4), (256, 2, 8), (1024, 3, 4), (36, 2, 4)])
+def test_in_block_up_to_the_limit_then_one_block_with_device_sums(ngpt, fields, itemsize):
+    deepest = _max_in_block_nlay(ngpt, fields, itemsize, 128, H100_OPTIN)
+    fits = L.gpoint_plan(ngpt, deepest, fields, itemsize, 128, H100_OPTIN)
+    assert fits == L.gpoint_plan(ngpt) and fits.in_block
+    assert 128 + L.in_block_bytes(fits.group, deepest, fields, itemsize) <= H100_OPTIN
+    past = L.gpoint_plan(ngpt, deepest + 1, fields, itemsize, 128, H100_OPTIN)
+    assert past == L.LaunchPlan(fits.group, 1, False) and not past.grouped
+    part = L.level_partials(past, fields, deepest + 2, 4, torch.float32, torch.device("cpu"))
+    assert part.shape == (fields, deepest + 2, 4, fits.group // 32)
+    assert L.cover_counts(past, 4, True, torch.device("cpu")).shape == (4, 1)
+
+
+@pytest.mark.parametrize("ngpt,nlay,fields", [(224, 2800, 3), (256, 3700, 2), (1024, 610, 3)])
+def test_the_depths_that_failed_at_launch_take_device_sums(ngpt, nlay, fields):
+    plan = L.gpoint_plan(ngpt, nlay, fields, 4, 128, H100_OPTIN)
+    assert plan.n_groups == 1 and not plan.in_block
+
+
+def test_staged_bytes_count_against_the_limit():
+    deepest = _max_in_block_nlay(256, 2, 4, 0, H100_OPTIN)
+    assert L.gpoint_plan(256, deepest, 2, 4, 0, H100_OPTIN).in_block
+    assert not L.gpoint_plan(256, deepest, 2, 4, 4096, H100_OPTIN).in_block
+    staged_deepest = _max_in_block_nlay(256, 2, 4, 4096, H100_OPTIN)
+    assert L.gpoint_plan(256, staged_deepest, 2, 4, 4096, H100_OPTIN).in_block
+    with pytest.raises(ValueError, match="staged"):
+        L.gpoint_plan(256, 60, 2, 4, H100_OPTIN + 1, H100_OPTIN)
+    with pytest.raises(ValueError, match="limit"):
+        L.gpoint_plan(256, 60, 2, 4, 0, None)
+
+
+@pytest.mark.parametrize("ngpt", [1, 36, 224, 256, 1024, 1025, 4096, 16384])
+@pytest.mark.parametrize("nlay", [1, 60, 800, 2760, 3631, 3632, 100000])
+def test_every_depth_and_gpoint_count_gets_a_plan(ngpt, nlay):
+    for fields, itemsize in ((2, 4), (3, 4), (2, 8)):
+        plan = L.gpoint_plan(ngpt, nlay, fields, itemsize, 128, H100_OPTIN)
+        assert plan.n_groups * plan.group >= ngpt and plan.group <= L.MAX_THREADS
+        assert plan.in_block == (plan.n_groups == 1 and 128 + L.in_block_bytes(plan.group, nlay, fields, itemsize)
+                                 <= H100_OPTIN)
+        assert plan.in_block or (L.level_partials(plan, fields, nlay + 1, 1, torch.float32, torch.device("meta"))
+                                 .shape == (fields, nlay + 1, 1, plan.n_groups * plan.group // 32))
