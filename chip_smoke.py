@@ -103,10 +103,12 @@ is non-zero:
    asking. The lw2_mega and sw_clear_mega lines of every phase print their
    design (the adding state in device memory, blocks per column) and the
    device scratch of one call, measured: the peak allocated during the call
-   less what it returns. The optics_fused and lw_clear_mega (clear,
-   composed, f64) lines print theirs: the block shape, column tile or
-   staging chunk, dynamic shared memory, ptxas registers and whether an L2
-   access-policy window is set (it is not: measured slower).
+   less what it returns. The optics_fused, interp_pt_eta and lw_clear_mega
+   (clear, composed, f64) lines print theirs: the block shape, column tile
+   or staging chunk, dynamic shared memory, ptxas registers and whether an
+   L2 access-policy window is set (it is not: measured slower). The
+   sw_2stream_reduced line prints its passes, its scratch arrays, the
+   device scratch of one call, measured, and its registers.
 
 The last lines are a JSON object per kernel, the card's name and power
 limit, and {"ok": true, "device": {...}}. Needs CUDA and nvcc; imports no
@@ -469,6 +471,31 @@ def print_gather_design(label, name, design: dict, fragment: str) -> None:
                  f"{design['chunk']} layers (cp.async, double-buffered), level sums {sums}")
     phase("kernels", f"{label} {name} design: {shape}; dynamic shared memory {design['smem']} B; "
                      f"ptxas: {kernel_registers(fragment)}; L2 access-policy window off")
+
+
+def print_sw_sweep_design(label, kern, nlay, ncol, ngpt) -> None:
+    """The design sw_2stream_reduced runs (csrc/sw_2stream_reduced.cu: three
+    passes, coefficients recomputed) with the wrapper's launch plan, its
+    scratch arrays and the device scratch of one call ``kern``, measured as
+    print_design measures it."""
+    import torch
+
+    from rrtmgp_tpu_torch.ops import rte_kernels
+
+    plan = rte_kernels.sweep_plan(3, nlay, ngpt, torch.device(DEVICE))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    out = kern()
+    torch.cuda.synchronize()
+    scratch = torch.cuda.max_memory_allocated() - torch.cuda.memory_allocated()
+    del out
+    sums = "in the block" if plan.in_block else "warp partials in device memory"
+    phase("kernels", f"{label} sw_2stream_reduced design: three passes (beam top-down; adding bottom-up and flux "
+                     f"top-down with the coefficients recomputed), {plan.n_groups} block(s) of {plan.group} threads "
+                     f"per column, level sums {sums}; 2 scratch arrays (the beam, then the albedo in its slots; the "
+                     f"source) of {nlay * ncol * ngpt * 4 / 1e9:.3f} GB each; device scratch of one call "
+                     f"{scratch / 1e9:.3f} GB (measured); ptxas: "
+                     f"{kernel_registers('sw_2stream_reduced_kernelIfLb0ELb0')}")
 
 
 def check_case(label, name, kern, ref, reps, results, cover=False, work=None) -> None:
@@ -1162,6 +1189,7 @@ def check_two_kernel_kernels(label, lw, sw, atm, bcs_lw, bcs_sw, reps, results, 
     for name, (inp, tabs) in (("optics_fused_lw", lw_in), ("optics_fused_sw", sw_in)):
         print_gather_design(label, name, interp.optics_fused_design(tabs),
                             f"optics_fused_kernelIfLb{int(name.endswith('sw'))}")
+    print_sw_sweep_design(label, lambda: rte_kernels.sw_2stream_reduced(*k15), *k15[0].shape)
 
 
 def check_sw_sweep_allsky(label, L, atm, results) -> None:
@@ -1357,7 +1385,7 @@ def minor_work(inp, tabs) -> Work:
 def check_unfused_kernels(label, lw, sw, atm, reps, results, chunk=None) -> None:
     """The kernels of the unfused optics against their twins (on column
     chunks when ``chunk`` is given): interp_pt_eta for each table and
-    interp_minor for LW and SW."""
+    interp_minor for LW and SW; then interp_pt_eta's design."""
     from rrtmgp_tpu_torch.ops import interp
 
     ncol = atm.ncol
@@ -1372,6 +1400,10 @@ def check_unfused_kernels(label, lw, sw, atm, reps, results, chunk=None) -> None
         check_case(f"{label} [{wave}]", "interp_minor", lambda: (interp.interp_minor(inp, tabs),),
                    lambda: by_columns(lambda *a: (interp.interp_minor_ref(*a),), (inp, tabs), ncol, chunk), reps,
                    results, work=minor_work(inp, tabs))
+    for wave in ("SW", "LW"):
+        lkp = inputs[wave][1].lkp
+        print_gather_design(f"{label} [{wave}]", "interp_pt_eta", interp.interp_pt_eta_design(lkp.n_gpt, lkp.n_bnd),
+                            "interp_pt_eta_kernel")
 
 
 def phase_unfused_slice(lw, sw, atm, bcs_lw, bcs_sw, L) -> dict:

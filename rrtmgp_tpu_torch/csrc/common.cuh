@@ -2,8 +2,8 @@
 // sw_clear_mega.cu, lw2_mega.cu) and the kernels of the two-kernel path
 // (optics_fused.cu, interp_pt_eta.cu, interp_minor.cu, lw_noscat_banded.cu,
 // sw_2stream_reduced.cu): the per-(layer, column) gas-optics inputs, table
-// interpolation for one g-point (sw_clear_mega, lw2_mega, interp_pt_eta,
-// interp_minor; lw_clear_mega and optics_fused stage it, gather.cuh), the
+// interpolation for one g-point (sw_clear_mega, lw2_mega, interp_minor;
+// lw_clear_mega, optics_fused and interp_pt_eta stage it, gather.cuh), the
 // Clough source factor, deterministic per-level g-point sums in a block or
 // across the blocks of a column, and the launch shapes.
 //

@@ -1,8 +1,8 @@
 // The gas-optics table gather of the kernels redesigned around it
-// (optics_fused.cu, lw_clear_mega.cu): a block stages the interpolation
-// inputs of the cells it computes in shared memory once, with the table
-// offsets already formed, and every thread, one per g-point, reads them
-// from there. The arithmetic is common.cuh's (tau_major, tau_minor,
+// (optics_fused.cu, lw_clear_mega.cu, interp_pt_eta.cu): a block stages the
+// interpolation inputs of the cells it computes in shared memory once, with
+// the table offsets already formed, and every thread, one per g-point, reads
+// them from there. The arithmetic is common.cuh's (tau_major, tau_minor,
 // tau_rayleigh, and interp_p_eta with the temperature blend for the Planck
 // fraction, as lw2_mega forms it) in the same operation order, so the
 // optics have the same bits; only where an operand comes from differs.
@@ -17,7 +17,7 @@
 // and the column mixing ratios. The other corners of a table are fixed
 // strides (+ngpt for eta+1, +ntemp*neta*ngpt for p+1), so a point's
 // sixteen gathers are one add each. 32-bit offsets need tables of fewer
-// than 2^31 elements; the host checks (ops/_launch.py check_optics_inputs).
+// than 2^31 elements; the host checks (ops/_launch.py check_table_size).
 #pragma once
 
 #include "common.cuh"
@@ -101,6 +101,23 @@ __device__ __forceinline__ void staged_p_eta(const R* t, int sp, int se, const S
   v0 = a * b.omfe1 + bb * b.fe1;
   a = c.omfp * __ldg(p2) + c.fp * __ldg(p2 + sp);
   bb = c.omfp * __ldg(p2 + se) + c.fp * __ldg(p2 + se + sp);
+  v1 = a * b.omfe2 + bb * b.fe2;
+}
+
+// staged_p_eta for a table of npress slabs whose node above the cell's may
+// lie past the last slab (interp_pt_eta.cu: the Rayleigh table read at side
+// 1 with fpress = 0): without `above` the upper node is not read and
+// enters as fp * 0.
+template <typename R>
+__device__ __forceinline__ void staged_p_eta_bounded(const R* t, int sp, int se, const StagedCol<R>& c,
+                                                     const StagedBand<R>& b, bool above, R& v0, R& v1) {
+  const R* p1 = t + b.b1;
+  const R* p2 = t + b.b2;
+  R a = c.omfp * __ldg(p1) + c.fp * (above ? __ldg(p1 + sp) : R(0));
+  R bb = c.omfp * __ldg(p1 + se) + c.fp * (above ? __ldg(p1 + se + sp) : R(0));
+  v0 = a * b.omfe1 + bb * b.fe1;
+  a = c.omfp * __ldg(p2) + c.fp * (above ? __ldg(p2 + sp) : R(0));
+  bb = c.omfp * __ldg(p2 + se) + c.fp * (above ? __ldg(p2 + se + sp) : R(0));
   v1 = a * b.omfe2 + bb * b.fe2;
 }
 

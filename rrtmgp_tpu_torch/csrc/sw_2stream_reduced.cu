@@ -4,8 +4,8 @@
 // Replaces: rrtmgp_tpu/ops/pallas_rte.py, _sw_sweep_reduced_kernel and
 //   _sw_sweep_reduced_stream_kernel (wrapper sw_2stream_pallas_reduced; the
 //   two TPU kernels compute one function, blocked or streamed to fit VMEM;
-//   here PER_GPT = false) and _sw_sweep_kernel (wrapper sw_2stream_pallas;
-//   PER_GPT = true, see the end of Design):
+//   here sw_2stream_reduced_kernel) and _sw_sweep_kernel (wrapper
+//   sw_2stream_pallas; here sw_2stream_gpt_kernel, see the end of Design):
 //   the direct beam from the top, the PIFM / Meador-Weaver layer coefficients
 //   with their energy clamps, the adding recurrence from the surface, the
 //   diffuse flux from the top, and the g-point sums of up, down and direct
@@ -15,54 +15,76 @@
 //
 // Bound on this card: device memory. At 32768 columns x 60 layers x 224
 //   g-points tau and ssa are 2 x 1.76 GB (g a third), the outputs 24 MB:
-//   1.1 ms at 3.35 TB/s (1.6 ms with g). The design's four scratch arrays
-//   add 4 x 1.76 GB written, read and rewritten by the adding pass and read
-//   again by the flux pass: ~28 GB in all, ~8 ms. Three exp, one sqrt and
-//   two divides per point.
+//   1.1 ms at 3.35 TB/s (1.6 ms with g). The summed design's own scratch
+//   adds three (nlay, ncol, ngpt) passes: the beam written (top-down), read
+//   with tau and ssa while the albedo and the source are written
+//   (bottom-up), those two read with tau and ssa again (top-down): 44 bytes
+//   a point without g, 19.4 GB, 5.8 ms. Per point five exp, two sqrt and
+//   nine divides (the beam transmittance in every pass, the coefficients and
+//   the adding denominator in passes 2 and 3).
 //
-// Design: the SW megakernel's passes (sw_twostream.cuh) with the optics read
-//   instead of computed: one block per column, one thread per g-point (more
-//   than 1024: a column's g-points over several blocks of the host's launch
-//   plan, the level sums completed by finish_level_sums), the beam in a
-//   register top-down, the coefficients to four scratch arrays in device
-//   memory, then the shared adding and flux passes of sw_twostream.cuh, which
-//   rewrite the scratch in place (no (nlev, ncol, ngpt) albedo and source
-//   arrays) and write the level sums. Scratch in device memory rather than
-//   shared memory: three values per level and thread would be 164 KB for a
-//   224-thread block, one block per SM, and the sweep is latency-bound like
-//   the megakernel, which needs the occupancy. The coefficient function is
-//   the megakernel's, so the two paths agree to rounding; mu0 guarded by eps
-//   enters only the beam transmittance. Night columns (mu0 <= 0) give finite
-//   or non-finite values that the caller replaces by zeros. The real type
-//   and has_g are template parameters (the entry points build f32). Nothing
-//   of the TPU kernels' structure is kept: no column blocks, no lane
-//   padding, no streaming ring buffer.
-//   PER_GPT, a third template parameter, is the same kernel without the
-//   g-point sums: mu0 and the albedos come per g-point, (ncol, ngpt), as the
-//   TPU function takes them, each thread stores its beam per level in the
-//   top-down pass and its up and down flux in the flux pass, (nlev, ncol,
-//   ngpt) each, and no shared memory is used. At 32768 x 60 x 224 its outputs are 3 x 1.79
-//   GB beside 3 x 1.76 GB of inputs: 10.7 GB, 3.2 ms at 3.35 TB/s.
+// Design: one block per column, one thread per g-point (more than 1024: a
+//   column's g-points over several blocks of the host's launch plan, the
+//   level sums completed by finish_level_sums), in three passes, as the TPU
+//   kernel and lw_2stream_reduced.cu are structured:
+//   1. top-down: the direct beam, each layer's top value stored, and the
+//      SW_DIR level sums;
+//   2. bottom-up: the adding recurrence in registers; each layer's
+//      coefficients computed from tau, ssa (and g) and its stored beam, the
+//      albedo and the source at its bottom level stored;
+//   3. top-down: the coefficients, the beam (beam *= T0, pass 1's order) and
+//      the adding denominator computed again, the diffuse flux folded as
+//      the megakernel folds it (tdif' = Tdif * denom, rdif' = denom * (Rdif
+//      * src + Tdir * beam), fd = tdif' * fd + rdif'), and the SW_UP /
+//      SW_DN_DIF sums.
+//   Every pass reads the next layer's inputs (tau; tau, ssa, g and the
+//   stored beam; tau, ssa, g and the stored albedo and source) one layer
+//   ahead, so that the loads overlap the current layer's arithmetic:
+//   without it the kernel waited on each layer's loads (11.2 against 8.1
+//   ms, PERF.md).
+//   The coefficient function is sw_twostream.cuh's sw_coeffs, and every
+//   value is formed by the expressions of the SW megakernel's passes, so the
+//   two routes agree to the last bit on equal optics. The scratch is two
+//   (nlay, ncol, ngpt) arrays in device memory: the beam, whose slot pass 2
+//   reads before it writes the albedo there (a layer ahead), and the
+//   source. A third array for the albedo moved the same bytes and took
+//   1.76 GB more at 32768 x 60 x 224 (PERF.md). Storing the
+//   coefficients instead (Rdir * beam, Tdir * beam, Rdif and Tdif in four
+//   arrays rewritten by the adding pass, as the SW megakernel does) would
+//   move 72 bytes a point instead of 44. mu0 guarded by eps enters
+//   only the beam transmittance. Night columns (mu0 <= 0) give finite or
+//   non-finite values that the caller replaces by zeros. The real type and
+//   has_g are template parameters (the entry points build f32). Nothing of
+//   the TPU kernels' structure is kept: no column blocks, no lane padding,
+//   no streaming ring buffer.
+//   sw_2stream_gpt is the same transport without the g-point sums, in a
+//   kernel of its own with the SW megakernel's passes (sw_twostream.cuh):
+//   mu0 and the albedos come per g-point, (ncol, ngpt), as the TPU function
+//   takes them; the top-down pass stores the four coefficient arrays and
+//   each level's beam in flux_dir, and the flux pass stores each thread's up
+//   and down flux, (nlev, ncol, ngpt) each; no shared memory. At 32768 x 60
+//   x 224 its outputs are 3 x 1.79 GB beside 3 x 1.76 GB of inputs: 10.7 GB,
+//   3.2 ms at 3.35 TB/s.
 #include "common.cuh"
 #include "sw_twostream.cuh"
 
 namespace rrtmgp {
 
-template <typename R, bool HAS_G, bool PER_GPT, bool SPLIT>
+// The g-summed sweep: the three passes of Design.
+template <typename R, bool HAS_G, bool SPLIT>
 __global__ void sw_2stream_reduced_kernel(const R* __restrict__ tau,        // (nlay, ncol, ngpt)
                                           const R* __restrict__ ssa,        // (nlay, ncol, ngpt)
                                           const R* __restrict__ gasym,      // (nlay, ncol, ngpt), HAS_G
-                                          const R* __restrict__ mu0_col,    // (ncol,); PER_GPT (ncol, ngpt)
+                                          const R* __restrict__ mu0_col,    // (ncol,)
                                           const R* __restrict__ toa_gpt,    // (ncol, ngpt)
-                                          const R* __restrict__ alb_dir,    // (nbnd, ncol); PER_GPT (ncol, ngpt)
-                                          const R* __restrict__ alb_dif,    // (nbnd, ncol); PER_GPT (ncol, ngpt)
-                                          const int* __restrict__ gpt2band,  // (ngpt,); PER_GPT unused
+                                          const R* __restrict__ alb_dir,    // (nbnd, ncol)
+                                          const R* __restrict__ alb_dif,    // (nbnd, ncol)
+                                          const int* __restrict__ gpt2band,  // (ngpt,)
                                           const R* __restrict__ inc_dif,    // (ncol, ngpt) or null
-                                          R* __restrict__ s_rdir,           // 4 x (nlay, ncol, ngpt)
-                                          R* __restrict__ s_tdir,
-                                          R* __restrict__ s_rdif,
-                                          R* __restrict__ s_tdif,
-                                          R* __restrict__ flux_up,          // 3 x (nlev, ncol); PER_GPT (nlev, ncol, ngpt)
+                                          R* s_beam,                        // (nlay, ncol, ngpt): beam at the top,
+                                                                            // then albedo at the bottom
+                                          R* __restrict__ s_src,            // source at the bottom
+                                          R* __restrict__ flux_up,          // 3 x (nlev, ncol)
                                           R* __restrict__ flux_dn,
                                           R* __restrict__ flux_dir,
                                           R* __restrict__ partials,         // null: sums in the block
@@ -73,28 +95,146 @@ __global__ void sw_2stream_reduced_kernel(const R* __restrict__ tau,        // (
   const bool active = g < d.ngpt;
   const int nlay = d.nlay;
   const auto sums = level_sums<R, SPLIT>(reinterpret_cast<R*>(smem_raw), partials, nlay + 1);
+  // this thread's (col, g) in every (nlay, ncol, ngpt) array; layer l at
+  // [l * stride]
+  const size_t stride = (size_t)d.ncol * d.ngpt, g0 = (size_t)col * d.ngpt + g;
+  const R *tau_p = tau + g0, *ssa_p = ssa + g0, *g_p = HAS_G ? gasym + g0 : nullptr;
+  R *beam_p = s_beam + g0, *alb_p = beam_p, *src_p = s_src + g0;
+  const int band = active ? __ldg(gpt2band + g) : 0;
+  const R mu0 = __ldg(mu0_col + col);
+  const R mu0_safe = r_max(mu0, r_eps<R>());
+  const R beam_toa = active ? __ldg(toa_gpt + g0) * mu0 : R(0);
+
+  // 1. top-down: the beam at each layer's top to scratch
+  R beam = beam_toa;
+  sums.add(SW_DIR, nlay, beam);
+  R t1 = (active && nlay > 0) ? __ldg(tau_p + (size_t)(nlay - 1) * stride) : R(0);
+  for (int l = nlay - 1; l >= 0; --l) {
+    if (active) {
+      const size_t s = (size_t)l * stride;
+      const R t = t1;
+      if (l > 0) t1 = __ldg(tau_p + s - stride);
+      beam_p[s] = beam;
+      beam *= r_exp(-t / mu0_safe);
+    }
+    sums.add(SW_DIR, l, beam);
+  }
+
+  // 2. bottom-up adding: the albedo and source at each layer's bottom level
+  // to scratch (the beam's slot is read, a layer ahead, before the albedo's
+  // is written)
+  R alb = active ? __ldg(alb_dif + (size_t)band * d.ncol + col) : R(0);
+  R src = active ? beam * __ldg(alb_dir + (size_t)band * d.ncol + col) : R(0);
+  if (active && nlay > 0) {
+    R t_n = __ldg(tau_p), w_n = __ldg(ssa_p), g_n = HAS_G ? __ldg(g_p) : R(0), bt_n = beam_p[0];
+    for (int l = 0; l < nlay; ++l) {
+      const size_t s = (size_t)l * stride;
+      const R t = t_n, w = w_n, gg = g_n, bt = bt_n;
+      if (l + 1 < nlay) {
+        t_n = __ldg(tau_p + s + stride);
+        w_n = __ldg(ssa_p + s + stride);
+        if (HAS_G) g_n = __ldg(g_p + s + stride);
+        bt_n = beam_p[s + stride];
+      }
+      R Rdir, Tdir, Rdif, Tdif;
+      sw_coeffs(t, w, gg, mu0, r_exp(-t / mu0_safe), Rdir, Tdir, Rdif, Tdif);
+      alb_p[s] = alb;
+      src_p[s] = src;
+      const R denom = R(1) / (R(1) - Rdif * alb);
+      const R alb_n = Rdif + Tdif * Tdif * alb * denom;
+      const R src_n = Rdir * bt + Tdif * denom * (src + alb * (Tdir * bt));
+      alb = alb_n;
+      src = src_n;
+    }
+  }
+
+  // 3. top-down diffuse flux, the coefficients and the beam again, the
+  // inputs a layer ahead
+  R fd = (active && inc_dif != nullptr) ? inc_dif[g0] : R(0);
+  sums.add(SW_UP, nlay, active ? fd * alb + src : R(0));
+  sums.add(SW_DN_DIF, nlay, fd);
+  beam = beam_toa;
+  R t_n = R(0), w_n = R(0), g_n = R(0), a_n = R(0), c_n = R(0);
+  if (active && nlay > 0) {
+    const size_t s = (size_t)(nlay - 1) * stride;
+    t_n = __ldg(tau_p + s);
+    w_n = __ldg(ssa_p + s);
+    if (HAS_G) g_n = __ldg(g_p + s);
+    a_n = alb_p[s];
+    c_n = src_p[s];
+  }
+  for (int l = nlay - 1; l >= 0; --l) {
+    R up = R(0);
+    if (active) {
+      const size_t s = (size_t)l * stride;
+      const R t = t_n, w = w_n, gg = g_n, alb_l = a_n, src_l = c_n;
+      if (l > 0) {
+        t_n = __ldg(tau_p + s - stride);
+        w_n = __ldg(ssa_p + s - stride);
+        if (HAS_G) g_n = __ldg(g_p + s - stride);
+        a_n = alb_p[s - stride];
+        c_n = src_p[s - stride];
+      }
+      const R T0 = r_exp(-t / mu0_safe);
+      R Rdir, Tdir, Rdif, Tdif;
+      sw_coeffs(t, w, gg, mu0, T0, Rdir, Tdir, Rdif, Tdif);
+      const R denom = R(1) / (R(1) - Rdif * alb_l);
+      fd = (Tdif * denom) * fd + denom * (Rdif * src_l + Tdir * beam);
+      up = fd * alb_l + src_l;
+      beam *= T0;
+    }
+    sums.add(SW_UP, l, up);
+    sums.add(SW_DN_DIF, l, fd);
+  }
+
+  if constexpr (!SPLIT) {
+    __syncthreads();
+    for (int lev = threadIdx.x; lev <= nlay; lev += blockDim.x) {
+      const size_t o = (size_t)lev * d.ncol + col;
+      const R dir = sums.total(SW_DIR, lev);
+      flux_up[o] = sums.total(SW_UP, lev);
+      flux_dn[o] = sums.total(SW_DN_DIF, lev) + dir;
+      flux_dir[o] = dir;
+    }
+  }
+}
+
+// The per-g-point sweep: the SW megakernel's passes (sw_twostream.cuh) on
+// four coefficient arrays, the beam of every level in flux_dir.
+template <typename R, bool HAS_G, bool SPLIT>
+__global__ void sw_2stream_gpt_kernel(const R* __restrict__ tau,      // (nlay, ncol, ngpt)
+                                      const R* __restrict__ ssa,      // (nlay, ncol, ngpt)
+                                      const R* __restrict__ gasym,    // (nlay, ncol, ngpt), HAS_G
+                                      const R* __restrict__ mu0_gpt,  // (ncol, ngpt)
+                                      const R* __restrict__ toa_gpt,  // (ncol, ngpt)
+                                      const R* __restrict__ alb_dir,  // (ncol, ngpt)
+                                      const R* __restrict__ alb_dif,  // (ncol, ngpt)
+                                      const R* __restrict__ inc_dif,  // (ncol, ngpt) or null
+                                      R* __restrict__ s_rdir,         // 4 x (nlay, ncol, ngpt)
+                                      R* __restrict__ s_tdir,
+                                      R* __restrict__ s_rdif,
+                                      R* __restrict__ s_tdif,
+                                      R* __restrict__ flux_up,        // 3 x (nlev, ncol, ngpt)
+                                      R* __restrict__ flux_dn,
+                                      R* __restrict__ flux_dir,
+                                      Dims d) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int col = blockIdx.x;
+  const int g = gpoint<SPLIT>();
+  const bool active = g < d.ngpt;
+  const int nlay = d.nlay;
+  const auto sums = level_sums<R, SPLIT>(reinterpret_cast<R*>(smem_raw), nullptr, nlay + 1);  // not added to
   const size_t g0 = (size_t)col * d.ngpt + g;
   // this thread's state: layer l at [l * stride]
   const size_t stride = (size_t)d.ncol * d.ngpt;
   R *rdir = s_rdir + g0, *tdir = s_tdir + g0, *rdif = s_rdif + g0, *tdif = s_tdif + g0;
-  int band = 0;
-  R mu0;
-  if constexpr (PER_GPT) {
-    mu0 = active ? __ldg(mu0_col + (size_t)col * d.ngpt + g) : R(1);
-  } else {
-    band = active ? __ldg(gpt2band + g) : 0;
-    mu0 = __ldg(mu0_col + col);
-  }
+  const R mu0 = active ? __ldg(mu0_gpt + (size_t)col * d.ngpt + g) : R(1);
   const R mu0_safe = r_max(mu0, r_eps<R>());
 
-  // top-down: coefficients to scratch, beam in a register; the beam of each
-  // level goes to the level sum or, per g-point, to flux_dir
+  // top-down: coefficients to scratch, the beam in a register and at every
+  // level in flux_dir
   R beam = active ? __ldg(toa_gpt + (size_t)col * d.ngpt + g) * mu0 : R(0);
-  if constexpr (PER_GPT) {
-    if (active) flux_dir[((size_t)nlay * d.ncol + col) * d.ngpt + g] = beam;
-  } else {
-    sums.add(SW_DIR, nlay, beam);
-  }
+  if (active) flux_dir[((size_t)nlay * d.ncol + col) * d.ngpt + g] = beam;
   for (int l = nlay - 1; l >= 0; --l) {
     if (active) {
       const size_t s = ((size_t)l * d.ncol + col) * d.ngpt + g;
@@ -107,61 +247,67 @@ __global__ void sw_2stream_reduced_kernel(const R* __restrict__ tau,        // (
       rdif[l * stride] = Rdif;
       tdif[l * stride] = Tdif;
       beam *= T0;
-      if constexpr (PER_GPT) flux_dir[s] = beam;  // level l: the same offset as layer l
+      flux_dir[s] = beam;  // level l: the same offset as layer l
     }
-    if constexpr (!PER_GPT) sums.add(SW_DIR, l, beam);
   }
 
-  sw_adding_and_fluxes<PER_GPT>(d, sums, col, g, active, band, beam, alb_dir, alb_dif, inc_dif, rdir, tdir, rdif,
-                                tdif, flux_up, flux_dn, flux_dir);
+  sw_adding_and_fluxes<true>(d, sums, col, g, active, 0, beam, alb_dir, alb_dif, inc_dif, rdir, tdir, rdif, tdif,
+                             flux_up, flux_dn, flux_dir);
 }
 
-// group, n_groups, in_block: the host's launch plan; partials (3, nlev, ncol,
-// column's warps) unless in_block (summed variant), else null.
-template <typename R, bool HAS_G, bool PER_GPT>
+// group, n_groups, in_block: the host's launch plan; partials (3, nlev,
+// ncol, column's warps) unless in_block, else null.
+template <typename R, bool HAS_G>
 cudaError_t launch_sw_reduced(const Dims& d, int group, int n_groups, bool in_block, cudaStream_t stream, const R* tau,
                               const R* ssa, const R* gasym, const R* mu0, const R* toa_gpt, const R* alb_dir,
-                              const R* alb_dif, const int* gpt2band, const R* inc_dif, R* s_rdir, R* s_tdir,
-                              R* s_rdif, R* s_tdif, R* up, R* dn, R* dir, R* partials) {
-  const MegaLaunch m = group_launch<R>(d, PER_GPT ? 0 : 3, group, n_groups, in_block);
-  auto kernel = in_block ? sw_2stream_reduced_kernel<R, HAS_G, PER_GPT, false>
-                         : sw_2stream_reduced_kernel<R, HAS_G, PER_GPT, true>;
+                              const R* alb_dif, const int* gpt2band, const R* inc_dif, R* s_beam, R* s_src,
+                              R* up, R* dn, R* dir, R* partials) {
+  const MegaLaunch m = group_launch<R>(d, 3, group, n_groups, in_block);
+  auto kernel = in_block ? sw_2stream_reduced_kernel<R, HAS_G, false> : sw_2stream_reduced_kernel<R, HAS_G, true>;
   cudaError_t err = prepare_smem(kernel, m.smem);
   if (err != cudaSuccess) return err;
-  kernel<<<m.grid, m.block, m.smem, stream>>>(tau, ssa, gasym, mu0, toa_gpt, alb_dir, alb_dif, gpt2band,
-                                              inc_dif, s_rdir, s_tdir, s_rdif, s_tdif, up, dn, dir,
-                                              in_block ? nullptr : partials, d);
+  kernel<<<m.grid, m.block, m.smem, stream>>>(tau, ssa, gasym, mu0, toa_gpt, alb_dir, alb_dif, gpt2band, inc_dif,
+                                              s_beam, s_src, up, dn, dir, in_block ? nullptr : partials, d);
   err = cudaGetLastError();
-  if (err != cudaSuccess || PER_GPT || in_block) return err;
+  if (err != cudaSuccess || in_block) return err;
   return finish_sums<R>(stream, partials, 3, d.nlay + 1, d.ncol, n_groups * group / 32, SUMS_SW, R(1), up, dn, dir);
+}
+
+template <typename R, bool HAS_G>
+cudaError_t launch_sw_gpt(const Dims& d, int group, int n_groups, cudaStream_t stream, const R* tau, const R* ssa,
+                          const R* gasym, const R* mu0, const R* toa_gpt, const R* alb_dir, const R* alb_dif,
+                          const R* inc_dif, R* s_rdir, R* s_tdir, R* s_rdif, R* s_tdif, R* up, R* dn, R* dir) {
+  const MegaLaunch m = group_launch<R>(d, 0, group, n_groups, n_groups == 1);
+  auto kernel = n_groups == 1 ? sw_2stream_gpt_kernel<R, HAS_G, false> : sw_2stream_gpt_kernel<R, HAS_G, true>;
+  kernel<<<m.grid, m.block, 0, stream>>>(tau, ssa, gasym, mu0, toa_gpt, alb_dir, alb_dif, inc_dif, s_rdir, s_tdir,
+                                         s_rdif, s_tdif, up, dn, dir, d);
+  return cudaGetLastError();
 }
 
 }  // namespace rrtmgp
 
-// f32; gasym null = asymmetry 0, inc_dif null = no incident diffuse flux.
-#define RRTMGP_SWR(G, P)                                                                                       \
-  launch_sw_reduced<float, G, P>(d, group, n_groups, in_block, (cudaStream_t)stream, (const float*)tau, (const float*)ssa, \
-                                 (const float*)gasym, (const float*)mu0, (const float*)toa_gpt,                \
-                                 (const float*)alb_dir, (const float*)alb_dif, (const int*)gpt2band,           \
-                                 (const float*)inc_dif, (float*)s_rdir, (float*)s_tdir, (float*)s_rdif,        \
-                                 (float*)s_tdif, (float*)flux_up, (float*)flux_dn, (float*)flux_dir,       \
-                                 (float*)partials)
-
-// Summed over g-points: mu0 (ncol,), albedos (nbnd, ncol) with gpt2band,
-// fluxes (nlev, ncol). group, n_groups, in_block: the launch plan; partials
-// (3, nlev, ncol, column's warps) unless in_block, else null.
+// Summed over g-points, f32: mu0 (ncol,), albedos (nbnd, ncol) with
+// gpt2band, fluxes (nlev, ncol); gasym null = asymmetry 0, inc_dif null = no
+// incident diffuse flux. Scratch (nlay, ncol, ngpt) each: s_beam (then the
+// albedo), s_src. group, n_groups, in_block: the launch plan; partials (3,
+// nlev, ncol, column's warps) unless in_block, else null.
 extern "C" int rrtmgp_sw_2stream_reduced(const void* tau, const void* ssa, const void* gasym, const void* mu0,
                                          const void* toa_gpt, const void* alb_dir, const void* alb_dif,
-                                         const void* gpt2band, const void* inc_dif, void* s_rdir, void* s_tdir,
-                                         void* s_rdif, void* s_tdif, void* flux_up, void* flux_dn,
-                                         void* flux_dir, void* partials, int nlay, int ncol, int ngpt, int nbnd,
-                                         int group, int n_groups, int in_block, void* stream) {
+                                         const void* gpt2band, const void* inc_dif, void* s_beam, void* s_src,
+                                         void* flux_up, void* flux_dn, void* flux_dir, void* partials, int nlay,
+                                         int ncol, int ngpt, int nbnd, int group, int n_groups, int in_block,
+                                         void* stream) {
   using namespace rrtmgp;
   const Dims d{nlay, ncol, ngpt, nbnd, 0, 0, 0};
-  return (int)(gasym != nullptr ? RRTMGP_SWR(true, false) : RRTMGP_SWR(false, false));
+  auto launch = gasym != nullptr ? launch_sw_reduced<float, true> : launch_sw_reduced<float, false>;
+  return (int)launch(d, group, n_groups, in_block != 0, (cudaStream_t)stream, (const float*)tau, (const float*)ssa,
+                     (const float*)gasym, (const float*)mu0, (const float*)toa_gpt, (const float*)alb_dir,
+                     (const float*)alb_dif, (const int*)gpt2band, (const float*)inc_dif, (float*)s_beam,
+                     (float*)s_src, (float*)flux_up, (float*)flux_dn, (float*)flux_dir, (float*)partials);
 }
 
-// Per g-point: mu0 and albedos (ncol, ngpt), fluxes (nlev, ncol, ngpt).
+// Per g-point, f32: mu0 and albedos (ncol, ngpt), fluxes (nlev, ncol, ngpt);
+// four scratch arrays (nlay, ncol, ngpt).
 extern "C" int rrtmgp_sw_2stream_gpt(const void* tau, const void* ssa, const void* gasym, const void* mu0,
                                      const void* toa_gpt, const void* alb_dir, const void* alb_dif,
                                      const void* inc_dif, void* s_rdir, void* s_tdir, void* s_rdif,
@@ -169,9 +315,9 @@ extern "C" int rrtmgp_sw_2stream_gpt(const void* tau, const void* ssa, const voi
                                      int ncol, int ngpt, int group, int n_groups, void* stream) {
   using namespace rrtmgp;
   const Dims d{nlay, ncol, ngpt, 0, 0, 0, 0};
-  const bool in_block = n_groups == 1;  // no level sums
-  const void* gpt2band = nullptr;
-  void* partials = nullptr;
-  return (int)(gasym != nullptr ? RRTMGP_SWR(true, true) : RRTMGP_SWR(false, true));
+  auto launch = gasym != nullptr ? launch_sw_gpt<float, true> : launch_sw_gpt<float, false>;
+  return (int)launch(d, group, n_groups, (cudaStream_t)stream, (const float*)tau, (const float*)ssa,
+                     (const float*)gasym, (const float*)mu0, (const float*)toa_gpt, (const float*)alb_dir,
+                     (const float*)alb_dif, (const float*)inc_dif, (float*)s_rdir, (float*)s_tdir, (float*)s_rdif,
+                     (float*)s_tdif, (float*)flux_up, (float*)flux_dn, (float*)flux_dir);
 }
-#undef RRTMGP_SWR

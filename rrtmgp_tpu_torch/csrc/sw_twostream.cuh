@@ -1,11 +1,13 @@
 // SW two-stream device code shared by the SW megakernel (sw_clear_mega.cu)
-// and the SW sweeps from materialized optics (sw_2stream_reduced.cu, summed
-// over g-points or per g-point): the layer coefficients, and the adding and
-// flux passes over four per-layer state arrays in device memory. The
-// kernels run one thread per g-point, carry the direct beam top-down in a
-// register and leave, per layer, Rdir * beam, Tdir * beam, Rdif and Tdif in
-// the state; from there on they are the same code, so the paths agree to
-// the last bit on equal optics.
+// and the SW sweeps from materialized optics (sw_2stream_reduced.cu): the
+// layer coefficients (every SW kernel), and the adding and flux passes over
+// four per-layer state arrays in device memory (the megakernel and the
+// per-g-point sweep). Those kernels run one thread per g-point, carry the
+// direct beam top-down in a register and leave, per layer, Rdir * beam,
+// Tdir * beam, Rdif and Tdif in the state; from there on they are the same
+// code. The g-summed sweep recomputes the coefficients in passes of its
+// own with the same expressions, so every path agrees to the last bit on
+// equal optics.
 #pragma once
 
 #include "common.cuh"

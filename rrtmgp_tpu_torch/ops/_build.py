@@ -50,7 +50,8 @@ _P, _I, _U, _L, _F, _D = (ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c
 #: with (nlay, ncol, ngpt, nbnd, plan, stream), sw_2stream_gpt with (nlay,
 #: ncol, ngpt, group, n_groups, stream). The kernels of the unfused optics:
 #: interp_pt_eta ends with (nlay, ncol, ngpt, nbnd, npress, ntemp, neta,
-#: stream), interp_minor with optics_fused's 7 dims and the stream.
+#: column tile, group, n_groups, stream), interp_minor with optics_fused's 7
+#: dims and the stream.
 SIGNATURES = {
     "rrtmgp_planck_band": [_P, _P, _P, _L, _I, _I, _F, _F, _P],
     "rrtmgp_planck_band_f64": [_P, _P, _P, _L, _I, _I, _D, _D, _P],
@@ -63,12 +64,12 @@ SIGNATURES = {
     "rrtmgp_optics_fused": [_P] * 24 + [_I] * 12 + [_P],
     "rrtmgp_planck_band_rows": [_P, _P, _P, _L, _I, _I, _F, _F, _P],
     "rrtmgp_lw_noscat_banded": [_P] * 11 + [_I] * 7 + [_F, _F, _P],
-    "rrtmgp_sw_2stream_reduced": [_P] * 17 + [_I] * 7 + [_P],
+    "rrtmgp_sw_2stream_reduced": [_P] * 15 + [_I] * 7 + [_P],
     "rrtmgp_lw_noscat_reduced": [_P] * 10 + [_I] * 6 + [_F, _F, _P],
     "rrtmgp_lw_noscat_gpt": [_P] * 8 + [_I] * 5 + [_F, _F, _P],
     "rrtmgp_lw_2stream_reduced": [_P] * 13 + [_I] * 7 + [_P],
     "rrtmgp_sw_2stream_gpt": [_P] * 15 + [_I] * 5 + [_P],
-    "rrtmgp_interp_pt_eta": [_P] * 13 + [_I] * 7 + [_P],
+    "rrtmgp_interp_pt_eta": [_P] * 13 + [_I] * 10 + [_P],
     "rrtmgp_interp_minor": [_P] * 20 + [_I] * 7 + [_P],
 }
 
@@ -148,6 +149,8 @@ def library() -> ctypes.CDLL:
     lib.rrtmgp_lw_clear_mega_staged.restype = ctypes.c_longlong
     lib.rrtmgp_optics_fused_smem.argtypes = [ctypes.c_int] * 3
     lib.rrtmgp_optics_fused_smem.restype = ctypes.c_longlong
+    lib.rrtmgp_interp_pt_eta_smem.argtypes = [ctypes.c_int] * 2
+    lib.rrtmgp_interp_pt_eta_smem.restype = ctypes.c_longlong
     return lib
 
 

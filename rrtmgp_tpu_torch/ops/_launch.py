@@ -54,6 +54,17 @@ def kernel_dtype(t: torch.Tensor, name: str) -> torch.dtype:
     return t.dtype
 
 
+TABLE_ELEMENTS = 2**31  # the kernels index a table with 32-bit offsets
+
+
+def check_table_size(name: str, t: torch.Tensor) -> None:
+    """Raise unless the table ``t`` has fewer than 2^31 elements, as the
+    kernels that stage 32-bit table offsets (csrc/gather.cuh) need."""
+    if t.numel() >= TABLE_ELEMENTS:
+        raise ValueError(f"{name}: {t.numel()} elements; the kernels index the tables with 32-bit offsets "
+                         "(fewer than 2^31 elements)")
+
+
 def check_optics_inputs(inp, tabs, dev, shortwave: bool, dtype: torch.dtype = torch.float32) -> tuple:
     """Check the gas-optics inputs (MegaInputs) and tables (KernelTables) of
     a kernel built for ``dtype`` (any number of g-points from 1); returns
@@ -80,9 +91,7 @@ def check_optics_inputs(inp, tabs, dev, shortwave: bool, dtype: torch.dtype = to
     ncontrib = tabs.kminor.shape[-1]
     second = (2, ntemp, neta, ngpt) if shortwave else (npp, ntemp, neta, ngpt)
     for name in ("kmajor", "second", "kminor"):
-        if getattr(tabs, name).numel() >= 2**31:
-            raise ValueError(f"{name}: {getattr(tabs, name).numel()} elements; the kernels index the tables "
-                             "with 32-bit offsets (fewer than 2^31 elements)")
+        check_table_size(name, getattr(tabs, name))
     for name, shape, dtype in (
         ("kmajor", (npp, ntemp, neta, ngpt), real), ("second", second, real),
         ("kminor", (ntemp, neta, ncontrib), real), ("gpt2band", (ngpt,), i32),

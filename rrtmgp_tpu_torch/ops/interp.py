@@ -34,7 +34,17 @@ from __future__ import annotations
 import torch
 
 from . import _build
-from ._launch import check_optics_inputs, cuda_device, gpoint_plan, optics_input_ptrs, ptr, require, stream, table_ptrs
+from ._launch import (
+    check_optics_inputs,
+    check_table_size,
+    cuda_device,
+    gpoint_plan,
+    optics_input_ptrs,
+    ptr,
+    require,
+    stream,
+    table_ptrs,
+)
 from .gas_optics import (
     compute_planck_fraction,
     compute_tau_major,
@@ -192,25 +202,17 @@ def interp_pt_eta_ref(table, jtemp, ftemp, jpress, fpress, jeta1, feta1, jeta2, 
     return torch.cat(pieces, dim=-1)
 
 
-def interp_pt_eta(table, jtemp, ftemp, jpress, fpress, jeta1, feta1, jeta2, feta2, gpt2band,
-                  col_mix1=None, col_mix2=None) -> torch.Tensor:
-    """(nlay, ncol, ngpt) f32: trilinear interpolation of a g-point-fastest
-    table (npress, ntemp, neta, ngpt) at the (layer, column) nodes ``jpress``
-    (the lower pressure slab), ``jtemp`` with fractions ``fpress``,
-    ``ftemp`` (each (nlay, ncol)) and the per-band eta nodes ``jeta1`` /
-    ``feta1`` (lower temperature node) and ``jeta2`` / ``feta2`` (upper),
-    each (nlay, ncol, nbnd), g-point g reading band ``gpt2band[g]``. Each
-    temperature node's value is scaled by its ``col_mix1`` / ``col_mix2``
-    (nlay, ncol, nbnd) when given (both or neither)."""
-    if (col_mix1 is None) != (col_mix2 is None):
-        raise ValueError("interp_pt_eta: give both col_mix1 and col_mix2, or neither")
-    if jtemp.device.type == "cpu":
-        return interp_pt_eta_ref(table, jtemp, ftemp, jpress, fpress, jeta1, feta1, jeta2, feta2, gpt2band,
-                                 col_mix1, col_mix2)
-    dev = cuda_device(jtemp, "interp_pt_eta")
+def interp_pt_eta_dims(dev, table, jtemp, ftemp, jpress, fpress, jeta1, feta1, jeta2, feta2, gpt2band,
+                       col_mix1=None, col_mix2=None) -> tuple:
+    """The checks ``interp_pt_eta`` makes before it hands its arguments to
+    the kernel on ``dev``: a table of fewer than 2^31 elements (the kernel
+    stages 32-bit offsets) with a cell to interpolate in, and contiguous
+    inputs of the kernel's dtypes and shapes. Returns (nlay, ncol, ngpt,
+    nbnd, npress, ntemp, neta)."""
     if table.dim() != 4 or jtemp.dim() != 2 or jeta1.dim() != 3:
         raise ValueError(f"interp_pt_eta: table {tuple(table.shape)}, jtemp {tuple(jtemp.shape)}, "
                          f"jeta1 {tuple(jeta1.shape)}")
+    check_table_size("table", table)
     n_p, ntemp, neta, ngpt = table.shape
     (nlay, ncol), nbnd = jtemp.shape, jeta1.shape[2]
     if n_p < 1 or ntemp < 2 or neta < 2 or ngpt < 1:
@@ -227,12 +229,49 @@ def interp_pt_eta(table, jtemp, ftemp, jpress, fpress, jeta1, feta1, jeta2, feta
     if col_mix1 is not None:
         require(col_mix1, "col_mix1", lcb, f32, dev)
         require(col_mix2, "col_mix2", lcb, f32, dev)
-    out = torch.empty((nlay, ncol, ngpt), dtype=f32, device=dev)
+    return nlay, ncol, ngpt, nbnd, n_p, ntemp, neta
+
+
+#: columns of one interp_pt_eta block, as OPTICS_TILE for optics_fused
+INTERP_TILE = 16
+
+
+def interp_pt_eta_design(ngpt: int, nbnd: int) -> dict:
+    """How ``interp_pt_eta`` launches for ``ngpt`` g-points in ``nbnd``
+    bands (on the card): the block (one layer, ``tile`` columns, ``group``
+    threads, one per g-point, ``n_groups`` blocks per column tile) and its
+    dynamic shared memory."""
+    plan = gpoint_plan(ngpt)
+    smem = _build.library().rrtmgp_interp_pt_eta_smem(INTERP_TILE, nbnd)
+    return dict(tile=INTERP_TILE, group=plan.group, n_groups=plan.n_groups, smem=smem)
+
+
+def interp_pt_eta(table, jtemp, ftemp, jpress, fpress, jeta1, feta1, jeta2, feta2, gpt2band,
+                  col_mix1=None, col_mix2=None) -> torch.Tensor:
+    """(nlay, ncol, ngpt) f32: trilinear interpolation of a g-point-fastest
+    table (npress, ntemp, neta, ngpt) at the (layer, column) nodes ``jpress``
+    (the lower pressure slab), ``jtemp`` with fractions ``fpress``,
+    ``ftemp`` (each (nlay, ncol)) and the per-band eta nodes ``jeta1`` /
+    ``feta1`` (lower temperature node) and ``jeta2`` / ``feta2`` (upper),
+    each (nlay, ncol, nbnd), g-point g reading band ``gpt2band[g]``. Each
+    temperature node's value is scaled by its ``col_mix1`` / ``col_mix2``
+    (nlay, ncol, nbnd) when given (both or neither)."""
+    if (col_mix1 is None) != (col_mix2 is None):
+        raise ValueError("interp_pt_eta: give both col_mix1 and col_mix2, or neither")
+    if jtemp.device.type == "cpu":
+        return interp_pt_eta_ref(table, jtemp, ftemp, jpress, fpress, jeta1, feta1, jeta2, feta2, gpt2band,
+                                 col_mix1, col_mix2)
+    dev = cuda_device(jtemp, "interp_pt_eta")
+    nlay, ncol, ngpt, nbnd, n_p, ntemp, neta = interp_pt_eta_dims(
+        dev, table, jtemp, ftemp, jpress, fpress, jeta1, feta1, jeta2, feta2, gpt2band, col_mix1, col_mix2)
+    plan = gpoint_plan(ngpt)
+    out = torch.empty((nlay, ncol, ngpt), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         err = _build.library().rrtmgp_interp_pt_eta(
             ptr(table), ptr(jtemp), ptr(ftemp), ptr(jpress), ptr(fpress), ptr(jeta1), ptr(feta1),
             ptr(col_mix1), ptr(jeta2), ptr(feta2), ptr(col_mix2), ptr(gpt2band), ptr(out),
-            nlay, ncol, ngpt, nbnd, n_p, ntemp, neta, stream(dev),
+            nlay, ncol, ngpt, nbnd, n_p, ntemp, neta, INTERP_TILE, plan.group, plan.n_groups,
+            stream(dev),
         )
     _build.check(err, "interp_pt_eta")
     interp_pt_eta.launches += 1

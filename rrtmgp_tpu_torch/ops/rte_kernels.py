@@ -48,7 +48,7 @@ from __future__ import annotations
 import torch
 
 from . import _build
-from ._launch import cuda_device, gpoint_plan, level_partials, ptr, require, smem_limit, stream
+from ._launch import LaunchPlan, cuda_device, gpoint_plan, level_partials, ptr, require, smem_limit, stream
 from .gas_optics import planck_sources_from_bands
 from .rte import intensity_to_flux, lw_2stream, lw_noscat, round_to, sw_2stream
 
@@ -69,11 +69,16 @@ def _groups(ngpt: int) -> tuple[int, int]:
     return plan.group, plan.n_groups
 
 
+def sweep_plan(nf: int, nlay: int, ngpt: int, dev) -> LaunchPlan:
+    """The launch plan of a g-summed f32 sweep with nf fields on ``dev``."""
+    return gpoint_plan(ngpt, nlay, nf, 4, 0, smem_limit(dev))
+
+
 def _plan(nf: int, nlay: int, ncol: int, ngpt: int, dev):
     """(group, n_groups, in_block) of the launch plan of a g-summed sweep
     with nf fields and its level partials (None when the sums stay in the
     block)."""
-    plan = gpoint_plan(ngpt, nlay, nf, 4, 0, smem_limit(dev))
+    plan = sweep_plan(nf, nlay, ngpt, dev)
     return (plan.group, plan.n_groups, int(plan.in_block)), level_partials(plan, nf, nlay + 1, ncol, torch.float32,
                                                                             dev)
 
@@ -142,6 +147,14 @@ def lw_noscat_banded_reduced(
 lw_noscat_banded_reduced.launches = 0
 
 
+def sw_sweep_scratch(nlay: int, ncol: int, ngpt: int, device) -> tuple:
+    """The scratch of one sw_2stream_reduced call, two (nlay, ncol, ngpt)
+    f32 arrays: the beam at each layer's top, whose slot the kernel reads
+    before it writes the albedo at the layer's bottom there, and the
+    source."""
+    return tuple(torch.empty((nlay, ncol, ngpt), dtype=torch.float32, device=device) for _ in range(2))
+
+
 def sw_2stream_reduced_ref(tau, ssa, g, mu0, toa_gpt, alb_dir, alb_dif, gpt2band, inc_flux_diffuse=None):
     """Plain twin of ``sw_2stream_reduced``: ``ops.rte.sw_2stream`` (g None
     is asymmetry 0), summed over g-points. Night columns are not zeroed. Any
@@ -168,7 +181,8 @@ def sw_2stream_reduced(
     """SW two-stream transport: direct beam, layer coefficients, adding and
     diffuse flux. Returns (flux_up, flux_dn, flux_dn_dir), each (nlay+1,
     ncol), summed over g-points; flux_dn includes the direct beam. Night
-    columns are the caller's to zero."""
+    columns are the caller's to zero. The kernel holds the scratch of
+    ``sw_sweep_scratch`` while it runs."""
     if tau.device.type == "cpu":
         return sw_2stream_reduced_ref(tau, ssa, g, mu0, toa_gpt, alb_dir, alb_dif, gpt2band, inc_flux_diffuse)
     dev = cuda_device(tau, "sw_2stream_reduced")
@@ -188,7 +202,7 @@ def sw_2stream_reduced(
     require(gpt2band, "gpt2band", (ngpt,), torch.int32, dev)
     if inc_flux_diffuse is not None:
         require(inc_flux_diffuse, "inc_flux_diffuse", (ncol, ngpt), f32, dev)
-    scratch = [torch.empty((nlay, ncol, ngpt), dtype=f32, device=dev) for _ in range(4)]
+    scratch = sw_sweep_scratch(nlay, ncol, ngpt, dev)
     fluxes = [torch.empty((nlay + 1, ncol), dtype=f32, device=dev) for _ in range(3)]
     groups, partials = _plan(3, nlay, ncol, ngpt, dev)
     with torch.cuda.device(dev):

@@ -6,6 +6,7 @@ that chip_smoke.py does not print. Run from the repository root:
     python3 scripts/port_measure.py --root CHECKOUT kernel-hashes
     python3 scripts/port_measure.py [--root CHECKOUT] megakernels
     python3 scripts/port_measure.py [--root CHECKOUT] gather [--tiles 4,8,16,32] [--k1]
+    python3 scripts/port_measure.py [--root CHECKOUT] sw-sweep
 
 With no argument it runs the first five. Each line names what it measured; the
 first line is the card's name and power limit. Problem sizes and inputs are
@@ -72,15 +73,26 @@ imports no JAX.
   in one call, in turns (parent, change, change, parent).
 - ``gather``: the kernels around the gas-optics table gather, each in 3
   rounds of a median of 7 synchronized calls with the sha256 of its
-  outputs, and their ``ptxas`` registers: optics_fused LW and SW (with
-  ``--tiles``, once per column tile, set through ``ops.interp.OPTICS_TILE``),
-  lw_clear_mega clear, and the sweeps that read optics_fused's outputs
-  timed with it (lw_noscat_banded_reduced after the LW optics,
-  sw_2stream_reduced after the SW optics), on the clear cell; with
+  outputs, and their ``ptxas`` registers: optics_fused LW and SW and
+  interp_pt_eta on each table of the unfused optics (with ``--tiles``, once
+  per column tile, set through ``ops.interp.OPTICS_TILE`` and
+  ``ops.interp.INTERP_TILE`` where the checkout has it), lw_clear_mega
+  clear, and the sweeps that read optics_fused's outputs timed with it
+  (lw_noscat_banded_reduced after the LW optics, sw_2stream_reduced after
+  the SW optics), on the clear cell; with
   ``--k1`` lw_clear_mega alone: clear, built for f64 on the clear cell in
   f64, and composed (McICA by seed + aerosols) on the all-sky cell. For
   ablations and design variants: build each variant in its own checkout
   and run this mode on each in turns within one call.
+- ``sw-sweep``: the SW sweeps on the clear cell's SW optics (32768 x 60,
+  224 g-points), 3 rounds of a median of 7 synchronized calls, the cases
+  taking turns within a round, each with the sha256 of its outputs and the
+  device scratch of one call (peak allocated during the call less what is
+  allocated after it): sw_2stream_reduced and sw_2stream_gpt, then the
+  ``ptxas`` registers of their kernels. For design variants and ablations
+  of sw_2stream_reduced (the parent's four-array passes, a third scratch
+  array, the level sums left out): build each in its own checkout and run
+  this mode on each with ``--root``, in turns within one call.
 """
 
 from __future__ import annotations
@@ -363,7 +375,8 @@ def profile_sweep() -> None:
 REGISTERS_OF = ("sw_clear_mega_kernelILb0ELb0", "lw2_mega_kernelILb0ELb0", "lw2_mega_kernelILb1ELb1ELi2",
                 "sw_2stream_reduced_kernel", "lw_clear_mega_kernelIfLb0ELb0", "lw_clear_mega_kernelIfLb1ELb1ELi2",
                 "lw_clear_mega_kernelIdLb0ELb0", "lw_noscat_banded_kernel", "lw_noscat_sources_kernel",
-                "lw_2stream_reduced_kernel", "optics_fused_kernel", "interp_pt_eta_kernel", "interp_minor_kernel")
+                "lw_2stream_reduced_kernel", "optics_fused_kernel", "interp_pt_eta_kernel", "interp_minor_kernel",
+                "sw_2stream_gpt_kernel")
 
 
 def kernel_hashes() -> None:
@@ -448,7 +461,7 @@ def kernel_hashes() -> None:
 
 
 GATHER_KERNELS = ("optics_fused_kernel", "lw_clear_mega_kernelIfLb0ELb0ELi0ELb0", "lw_clear_mega_kernelIdLb0ELb0ELi0ELb0",
-                  "lw_clear_mega_kernelIfLb1ELb1ELi2ELb0")
+                  "lw_clear_mega_kernelIfLb1ELb1ELi2ELb0", "interp_pt_eta_kernel")
 
 
 def gather() -> None:
@@ -492,6 +505,14 @@ def gather() -> None:
 
             cases += [(f"optics_fused LW tile {tile or 'default'}", lambda f=optics: f(lw_in)),
                       (f"optics_fused SW tile {tile or 'default'}", lambda f=optics: f(sw_in))]
+        for tile in TILES or [None]:
+            for what, args in cs.interp_cases(lw, sw, atm)[0]:
+                def k9(args=args, tile=tile):
+                    if tile is not None and hasattr(interp, "INTERP_TILE"):
+                        interp.INTERP_TILE = tile
+                    return (interp.interp_pt_eta(*args),)
+
+                cases.append((f"interp_pt_eta {what} tile {tile or 'default'}", k9))
         _, _, _, k12, k15 = cs.two_kernel_args(lw, sw, atm, bcs_lw, bcs_sw)
         cases += [("optics_fused LW + lw_noscat_banded_reduced",
                    lambda: (interp.optics_fused(*lw_in), rte_kernels.lw_noscat_banded_reduced(*k12))[1]),
@@ -509,6 +530,49 @@ def gather() -> None:
             entry = line.split("'")[1]
         elif "Used" in line and entry and any(k in entry for k in GATHER_KERNELS):
             say("gather", f"{ROOT} {entry[:72]}: {line.split(':', 1)[1].strip()}")
+
+
+def _registers(log, kernels, tag):
+    entry = None
+    for line in log.read_text().splitlines():
+        if "Compiling entry function" in line:
+            entry = line.split("'")[1]
+        elif "Used" in line and entry and any(k in entry for k in kernels):
+            say(tag, f"{ROOT} {entry[:72]}: {line.split(':', 1)[1].strip()}")
+
+
+def sw_sweep() -> None:
+    import torch
+
+    from rrtmgp_tpu_torch.ops import _build, rte_kernels
+
+    lw, sw = cs.lookups(256, 16, 224, 14)
+    atm = cs.atmosphere(cs.NCOL, cs.NLAY)
+    bcs_lw, bcs_sw = cs.boundary_conditions(lw, sw, cs.NCOL)
+    k15 = cs.two_kernel_args(lw, sw, atm, bcs_lw, bcs_sw)[4]
+    del lw, atm, bcs_lw
+    torch.cuda.empty_cache()
+    k16a = cs.per_gpt_sw_args(k15)
+    cases = [("sw_2stream_reduced (K15)", lambda: rte_kernels.sw_2stream_reduced(*k15)),
+             ("sw_2stream_gpt (K16a)", lambda: rte_kernels.sw_2stream_gpt(*k16a))]
+    ms = {name: [] for name, _ in cases}
+    for _ in range(3):
+        for name, fn in cases:
+            ms[name].append(cs.timed(fn, 7))
+    for name, fn in cases:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        out = fn()
+        torch.cuda.synchronize()
+        scratch = torch.cuda.max_memory_allocated() - torch.cuda.memory_allocated()
+        h = hashlib.sha256()
+        for t in out:
+            h.update(t.cpu().numpy().tobytes())
+        del out
+        say("sw-sweep", f"{ROOT} {name}: {_fmt(ms[name])} ms, sha256 {h.hexdigest()[:16]}, device scratch of one "
+                        f"call {scratch / 1e9:.3f} GB")
+    _registers(_build.library_path().with_suffix(".log"), ("sw_2stream_reduced_kernel", "sw_2stream_gpt_kernel"),
+               "sw-sweep")
 
 
 def _steps(tag: str, step, steps: int = 5) -> None:
@@ -561,6 +625,19 @@ def megakernels() -> None:
            f"{cs.NCOL} x {cs.NLAY}",
            lambda: (solve_lw(lw, atm, bcs_lw, n_gauss_angles=3, impl="two_kernel"),
                     solve_sw(sw, atm, bcs_sw, impl="two_kernel"), solve_sw(sw, atm, bcs_sw, two_stream=False)))
+    for name, part in (("solve_lw 3 angles", lambda: solve_lw(lw, atm, bcs_lw, n_gauss_angles=3, impl="two_kernel")),
+                       ("solve_sw", lambda: solve_sw(sw, atm, bcs_sw, impl="two_kernel")),
+                       ("solve_sw direct beam", lambda: solve_sw(sw, atm, bcs_sw, two_stream=False))):
+        _steps(f"the two-kernel step's {name} alone {cs.NCOL} x {cs.NLAY}", part)
+    _steps(f"unfused two-kernel step (the two-kernel step with fused_optics=False) {cs.NCOL} x {cs.NLAY}",
+           lambda: (solve_lw(lw, atm, bcs_lw, n_gauss_angles=3, fused_optics=False),
+                    solve_sw(sw, atm, bcs_sw, fused_optics=False),
+                    solve_sw(sw, atm, bcs_sw, two_stream=False, fused_optics=False)))
+    _steps(f"sweep-route step (solve_lw 3 angles + solve_lw two-stream + solve_sw, impl='sweep') "
+           f"{cs.NCOL} x {cs.NLAY}",
+           lambda: (solve_lw(lw, atm, bcs_lw, n_gauss_angles=3, impl="sweep"),
+                    solve_lw(lw, atm, bcs_lw, two_stream=True, impl="sweep"),
+                    solve_sw(sw, atm, bcs_sw, impl="sweep")), steps=3)
     del atm, bcs_lw, bcs_sw
     torch.cuda.empty_cache()
 
@@ -602,7 +679,8 @@ def main() -> None:
     warnings.simplefilter("ignore")  # the f64 torch-path and auto-chunk notices
     for name, fn in (("f64-memory", f64_memory), ("angles", angles), ("profile", profile_cells),
                      ("profile-two-kernel", profile_two_kernel), ("profile-sweep", profile_sweep),
-                     ("kernel-hashes", kernel_hashes), ("megakernels", megakernels), ("gather", gather)):
+                     ("kernel-hashes", kernel_hashes), ("megakernels", megakernels), ("gather", gather),
+                     ("sw-sweep", sw_sweep)):
         if name in want:
             fn()
 

@@ -1198,3 +1198,95 @@ def test_staged_gather_kernels_match_twins(cuda, ngpt, nbnd, ncol, nlay, n_minor
     assert _rel(mega.lw_clear_mega(*args64), mega.lw_clear_mega_ref(*args64)) <= TOL64["lw_clear_mega"]
     torch.cuda.synchronize()
     assert _counts() == {"optics_fused": 2, "planck_band": 3, "lw_clear_mega": 5, "aerosol_bands": 2}
+
+
+# ---------------------------------------------------------------------------
+# interp_pt_eta on the staged gather and sw_2stream_reduced's three passes
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("ngpt,nbnd,ncol,nlay", [(36, 4, 1000, 30), (256, 16, 257, 60), (1100, 4, 7, 5)])
+def test_staged_interp_pt_eta_equals_its_twin_bit_for_bit(cuda, ngpt, nbnd, ncol, nlay):
+    """interp_pt_eta on each of the four tables of the unfused optics (LW
+    kmajor with col_mix, the Planck fraction, SW kmajor with col_mix, the
+    Rayleigh table at side 0 and 1 of its two slabs) and on kmajor without
+    col_mix equals its twin bit for bit, past 1024 g-points too."""
+    atm = synthetic_atmosphere(ncol=ncol, nlay=nlay, dtype=np.float32, device=cuda)
+    mega.reset_launch_counts()
+    for longwave in (True, False):
+        lkp = synthetic_gas_lookup(longwave=longwave, n_gpt=ngpt, n_bnd=nbnd, seed=0 if longwave else 1,
+                                   dtype=np.float32, device=cuda)
+        inp, tabs = (mega_lw_inputs if longwave else mega_sw_inputs)(lkp, atm), lkp.kernel_tables
+        calls = _interp_calls(inp, tabs)
+        if not longwave:
+            assert int(calls[1][3].min()) == 0 and int(calls[1][3].max()) == 1
+        for args in (*calls, calls[0][:-2]):
+            assert torch.equal(interp.interp_pt_eta(*args), interp.interp_pt_eta_ref(*args))
+    torch.cuda.synchronize()
+    assert _counts() == {"interp_pt_eta": 6}
+
+
+@pytest.mark.parametrize("with_mix", [True, False])
+def test_interp_pt_eta_reads_nothing_past_the_last_slab(cuda, with_mix):
+    """A table followed in memory by NaN, with cells on its last pressure
+    slab and a nonzero pressure weight (and a 2-slab Rayleigh-shaped table
+    read at side 1): the kernel reads no node above the last slab, so the
+    output is finite and equals the twin bit for bit, with col_mix and
+    without."""
+    rng = np.random.default_rng(21)
+    ntemp, neta, ngpt, nbnd, nlay, ncol = 5, 6, 40, 3, 6, 37
+    T = lambda a, dt=torch.float32: torch.from_numpy(np.asarray(a)).to(dt).to(cuda)
+    for n_p, fp in ((3, rng.uniform(0.1, 1, (nlay, ncol))), (2, np.zeros((nlay, ncol)))):
+        n = n_p * ntemp * neta * ngpt
+        buf = torch.full((n + ntemp * neta * ngpt,), float("nan"), device=cuda)
+        buf[:n] = T(rng.uniform(0.1, 2.0, n))
+        table = buf[:n].view(n_p, ntemp, neta, ngpt)
+        jpress = T(rng.integers(0, n_p, (nlay, ncol)), torch.int32)
+        jpress[::2] = n_p - 1
+        args = (table, T(rng.integers(0, ntemp - 1, (nlay, ncol)), torch.int32), T(rng.uniform(0, 1, (nlay, ncol))),
+                jpress, T(fp), T(rng.integers(0, neta - 1, (nlay, ncol, nbnd)), torch.int32),
+                T(rng.uniform(0, 1, (nlay, ncol, nbnd))), T(rng.integers(0, neta - 1, (nlay, ncol, nbnd)), torch.int32),
+                T(rng.uniform(0, 1, (nlay, ncol, nbnd))), T(np.arange(ngpt) * nbnd // ngpt, torch.int32))
+        if with_mix:
+            args += (T(rng.uniform(0.5, 2, (nlay, ncol, nbnd))), T(rng.uniform(0.5, 2, (nlay, ncol, nbnd))))
+        out = interp.interp_pt_eta(*args)
+        assert torch.isfinite(out).all()
+        assert torch.equal(out, interp.interp_pt_eta_ref(*args))
+
+
+def _night_sw(k15, every=5):
+    """k15 with every ``every``-th column at night (mu0 -0.1, one at 0)."""
+    mu0 = k15[3].clone()
+    mu0[::every] = -0.1
+    mu0[1] = 0.0
+    return (*k15[:3], mu0, *k15[4:])
+
+
+@pytest.mark.parametrize("ngpt,nbnd,ncol,nlay", [(36, 4, 1000, 30), (224, 14, 130, 60), (1100, 4, 7, 5),
+                                                 (224, 14, 3, 2800)])
+def test_sw_2stream_reduced_three_passes(cuda, ngpt, nbnd, ncol, nlay):
+    """sw_2stream_reduced against its twin on its day columns, with and
+    without g and incident diffuse flux, with night columns in the call; a
+    second call, on scratch that holds the first call's values, gives the
+    same bits, night columns included; past 1024 g-points over several
+    blocks, and at 2800 layers with the level sums in device memory."""
+    k15 = _night_sw(_two_kernel_case(cuda, ngpt, nbnd, ncol, nlay)[4])
+    day = k15[3] > 0
+    assert not bool(day.all())
+    for args in (k15, (*k15[:2], None, *k15[3:]), (*k15[:-1], None), (*k15[:2], None, *k15[3:-1], None)):
+        out = rte_kernels.sw_2stream_reduced(*args)
+        want = rte_kernels.sw_2stream_reduced_ref(*args)
+        assert _rel([o[:, day] for o in out], [w[:, day] for w in want]) <= TOL["sw_2stream_reduced"]
+        for a, b in zip(out, rte_kernels.sw_2stream_reduced(*args)):
+            torch.testing.assert_close(a, b, rtol=0.0, atol=0.0, equal_nan=True)
+
+
+def test_sw_2stream_reduced_equals_the_megakernel_with_night_columns(cuda):
+    """On the optics of the optics kernel, sw_2stream_reduced's three passes
+    give sw_clear_mega's bits on every column, night columns included (the
+    values a solve replaces by zeros)."""
+    _, _, sw_args = _case(cuda, 64, 4, 500, 20)
+    k15 = _night_sw(_two_kernel_case(cuda, 64, 4, 500, 20)[4])
+    sw_args = (*sw_args[:2], k15[3], *sw_args[3:])
+    for a, b in zip(rte_kernels.sw_2stream_reduced(*k15[:2], None, *k15[3:]), mega.sw_clear_mega(*sw_args)):
+        torch.testing.assert_close(a, b, rtol=0.0, atol=0.0, equal_nan=True)
