@@ -48,9 +48,10 @@ is non-zero:
    each);
 8. two-kernel slice (run after the clear slice, on its inputs): the
    kernels of the two-kernel path (optics_fused LW and SW, planck_band_rows,
-   lw_noscat_banded_reduced, sw_2stream_reduced) against their twins at the
-   small shape and at 32768 x 60 (twins on 8192-column chunks; the SW sweep
-   also with an asymmetry on an all-sky composition at 8192 columns), then
+   lw_noscat_banded_reduced at 1 angle and at solve_lw's 3 angles in one
+   launch, sw_2stream_reduced) against their twins at the small shape and at
+   32768 x 60 (twins on 8192-column chunks; the SW sweep also with an
+   asymmetry on an all-sky composition at 8192 columns), then
    solve_lw with 3 angles + solve_sw through impl="two_kernel" and the SW
    direct-beam solve with the default impl at 32768 x 60: step time,
    columns/s, peak memory, launches per step; the two-kernel path against
@@ -103,10 +104,12 @@ is non-zero:
    asking. The lw2_mega and sw_clear_mega lines of every phase print their
    design (the adding state in device memory, blocks per column) and the
    device scratch of one call, measured: the peak allocated during the call
-   less what it returns. The optics_fused, interp_pt_eta and lw_clear_mega
-   (clear, composed, f64) lines print theirs: the block shape, column tile
-   or staging chunk, dynamic shared memory, ptxas registers and whether an
-   L2 access-policy window is set (it is not: measured slower). The
+   less what it returns. The optics_fused, interp_pt_eta, interp_minor and
+   lw_clear_mega (clear, composed, f64) lines print theirs: the block shape,
+   column tile or staging chunk, dynamic shared memory, ptxas registers and
+   whether an L2 access-policy window is set (it is not: measured slower).
+   The lw_noscat_banded_reduced lines print its angles per launch, its
+   launch plan and its registers at 1 and 3 angles. The
    sw_2stream_reduced line prints its passes, its scratch arrays, the
    device scratch of one call, measured, and its registers.
 
@@ -1159,6 +1162,31 @@ def two_kernel_args(lw, sw, atm, bcs_lw, bcs_sw):
     return lw_in, sw_in, plk_args, k12, k15
 
 
+def angles_args(k12, n: int):
+    """The arguments of lw_noscat_banded_angles as solve_lw builds them for
+    n quadrature angles on k12's optics (secants and weights as lists, the
+    incident flux k12's)."""
+    from rrtmgp_tpu_torch.angular import angular_discretization
+
+    Ds, wts = angular_discretization(n)
+    return (*k12[:7], [float(d) for d in Ds], [float(w) for w in wts], k12[9])
+
+
+def print_banded_design(label, nang, nlay, ngpt) -> None:
+    """The design lw_noscat_banded runs (csrc/lw_noscat_banded.cu): angles
+    per launch, the launch plan for their 2 x nang level sums, registers."""
+    import torch
+
+    from rrtmgp_tpu_torch.ops import rte_kernels
+
+    (group, n_groups, in_block), _ = rte_kernels.banded_plan(nang, nlay, 1, ngpt, torch.device(DEVICE))
+    sums = "in the block" if in_block else "warp partials in device memory"
+    phase("kernels", f"{label} lw_noscat_banded_reduced design: {nang} angle(s) per launch (one radiance per angle in "
+                     f"registers, 2 x {nang} level sums, a level's angles reduced over the warp together), "
+                     f"{n_groups} block(s) of {group} threads per column, level sums {sums}; ptxas: "
+                     f"{kernel_registers(f'lw_noscat_banded_kernelIfLi{nang}ELb{int(not in_block)}')}")
+
+
 def check_two_kernel_kernels(label, lw, sw, atm, bcs_lw, bcs_sw, reps, results, chunk=None) -> None:
     """The kernels of the two-kernel path against their twins, the twins on
     column chunks when ``chunk`` is given."""
@@ -1186,6 +1214,16 @@ def check_two_kernel_kernels(label, lw, sw, atm, bcs_lw, bcs_sw, reps, results, 
     )
     for name, kern, ref, work in cases:
         check_case(label, name, kern, ref, reps, results, work=work)
+    # K12 as the solves launch it: solve_lw's 3 angles in one launch (the
+    # kernels line keeps this call's time), the same bytes as one angle and
+    # 3 x the operations
+    k12_3 = angles_args(k12, 3)
+    check_case(f"{label} [3 angles, one launch]", "lw_noscat_banded_reduced",
+               lambda: rte_kernels.lw_noscat_banded_angles(*k12_3),
+               lambda: twin(rte_kernels.lw_noscat_banded_angles_ref, k12_3), reps, results,
+               work=Work(nbytes(k12_3), 3 * OPS_LW_SWEEP * points(lw)))
+    for nang in (1, 3):
+        print_banded_design(label, nang, atm.nlay, lw.n_gpt)
     for name, (inp, tabs) in (("optics_fused_lw", lw_in), ("optics_fused_sw", sw_in)):
         print_gather_design(label, name, interp.optics_fused_design(tabs),
                             f"optics_fused_kernelIfLb{int(name.endswith('sw'))}")
@@ -1264,7 +1302,7 @@ def phase_two_kernel_slice(lw, sw, atm, bcs_lw, bcs_sw, mega_lw, L) -> dict:
     launches["optics_fused_sw"] = launches.pop("optics_fused") - launches["optics_fused_lw"]
     per_step = {k: n / STEPS for k, n in launches.items() if n}
     want = {"optics_fused_lw": 1, "optics_fused_sw": 2, "planck_band_rows": 3,
-            "lw_noscat_banded_reduced": 3, "sw_2stream_reduced": 1}
+            "lw_noscat_banded_reduced": 1, "sw_2stream_reduced": 1}
     phase(tag, f"launches in {STEPS} steps: {launches}")
     require(per_step == want, f"launches per step {per_step}, expected {want}")
     step_ms = 1e3 * statistics.median(times)
@@ -1401,9 +1439,11 @@ def check_unfused_kernels(label, lw, sw, atm, reps, results, chunk=None) -> None
                    lambda: by_columns(lambda *a: (interp.interp_minor_ref(*a),), (inp, tabs), ncol, chunk), reps,
                    results, work=minor_work(inp, tabs))
     for wave in ("SW", "LW"):
-        lkp = inputs[wave][1].lkp
-        print_gather_design(f"{label} [{wave}]", "interp_pt_eta", interp.interp_pt_eta_design(lkp.n_gpt, lkp.n_bnd),
-                            "interp_pt_eta_kernel")
+        tabs = inputs[wave][1]
+        print_gather_design(f"{label} [{wave}]", "interp_pt_eta",
+                            interp.interp_pt_eta_design(tabs.lkp.n_gpt, tabs.lkp.n_bnd), "interp_pt_eta_kernel")
+        print_gather_design(f"{label} [{wave}]", "interp_minor", interp.interp_minor_design(tabs),
+                            "interp_minor_kernel")
 
 
 def phase_unfused_slice(lw, sw, atm, bcs_lw, bcs_sw, L) -> dict:
@@ -1426,7 +1466,7 @@ def phase_unfused_slice(lw, sw, atm, bcs_lw, bcs_sw, L) -> dict:
 
     (f_lw, f_sw, f_dir), ms, lo, hi, peak, launches = timed_steps(lambda: step(fused_optics=False), STEPS)
     per_step = {k: n / STEPS for k, n in launches.items()}
-    want = {"interp_pt_eta": 6, "interp_minor": 3, "planck_band_rows": 3, "lw_noscat_banded_reduced": 3,
+    want = {"interp_pt_eta": 6, "interp_minor": 3, "planck_band_rows": 3, "lw_noscat_banded_reduced": 1,
             "sw_2stream_reduced": 1}
     phase(tag, f"launches in {STEPS} steps: {launches}")
     require(per_step == want, f"launches per step {per_step}, expected {want}")

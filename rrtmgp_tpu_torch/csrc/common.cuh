@@ -2,8 +2,8 @@
 // sw_clear_mega.cu, lw2_mega.cu) and the kernels of the two-kernel path
 // (optics_fused.cu, interp_pt_eta.cu, interp_minor.cu, lw_noscat_banded.cu,
 // sw_2stream_reduced.cu): the per-(layer, column) gas-optics inputs, table
-// interpolation for one g-point (sw_clear_mega, lw2_mega, interp_minor;
-// lw_clear_mega, optics_fused and interp_pt_eta stage it, gather.cuh), the
+// interpolation for one g-point (sw_clear_mega, lw2_mega; lw_clear_mega,
+// optics_fused, interp_pt_eta and interp_minor stage it, gather.cuh), the
 // Clough source factor, deterministic per-level g-point sums in a block or
 // across the blocks of a column, and the launch shapes.
 //
@@ -209,6 +209,11 @@ struct LevelSumsT {
     if ((threadIdx.x & 31) == 0) smem[((size_t)f * nlev + lev) * nwarps + (threadIdx.x >> 5)] = v;
   }
 
+  // this lane's value v as its warp's partial of field f at level lev
+  __device__ __forceinline__ void put(int f, int lev, R v) const {
+    smem[((size_t)f * nlev + lev) * nwarps + (threadIdx.x >> 5)] = v;
+  }
+
   // sum of field f at level lev, after a __syncthreads()
   __device__ __forceinline__ R total(int f, int lev) const {
     const R* p = smem + ((size_t)f * nlev + lev) * nwarps;
@@ -239,7 +244,55 @@ struct LevelPartialsT {
            (threadIdx.x >> 5)] = v;
     }
   }
+
+  __device__ __forceinline__ void put(int f, int lev, R v) const {
+    const size_t col_warps = (size_t)gridDim.y * (blockDim.x >> 5);
+    part[(((size_t)f * nlev + lev) * gridDim.x + blockIdx.x) * col_warps + blockIdx.y * (blockDim.x >> 5) +
+         (threadIdx.x >> 5)] = v;
+  }
 };
+
+// K level sums at once, v[k] of field f0 + k * fstride at level lev (K <=
+// 4), by a transposed warp reduction: over lane bit 4 each half of the
+// warp keeps half the fields and swaps the other half with its partner
+// lane (one shuffle per field kept), for K > 2 the same over bit 3, then a
+// butterfly over the remaining bits; field k's warp total ends in the
+// lanes of its group, whose first lane stores it. Each total is add()'s
+// sum tree (lanes combined over bit 4, then 3, 2, 1, 0; float addition
+// commutes), so the sums have add()'s bits with 5 or 6 shuffles in place
+// of 5 K. K = 1 is add().
+template <int K, typename S, typename R>
+__device__ __forceinline__ void add_fields(const S& sums, int f0, int fstride, int lev, const R (&v)[K]) {
+  static_assert(K >= 1 && K <= 4, "add_fields takes 1 to 4 fields");
+  if constexpr (K == 1) {
+    sums.add(f0, lev, v[0]);
+  } else {
+    constexpr int P = K <= 2 ? 2 : 4;  // the fields, padded to a power of two
+    const int lane = threadIdx.x & 31;
+    R a[P];
+#pragma unroll
+    for (int k = 0; k < P; ++k) a[k] = k < K ? v[k] : R(0);
+    {  // over bit 4: the lower half keeps fields [0, P/2), the upper [P/2, P)
+      const bool upper = (lane & 16) != 0;
+#pragma unroll
+      for (int j = 0; j < P / 2; ++j) {
+        const R send = upper ? a[j] : a[j + P / 2];
+        const R keep = upper ? a[j + P / 2] : a[j];
+        a[j] = keep + __shfl_xor_sync(0xffffffffu, send, 16);
+      }
+    }
+    if constexpr (P == 4) {  // over bit 3: each quarter keeps one of its half's two fields
+      const bool upper = (lane & 8) != 0;
+      const R send = upper ? a[0] : a[1];
+      const R keep = upper ? a[1] : a[0];
+      a[0] = keep + __shfl_xor_sync(0xffffffffu, send, 8);
+    }
+#pragma unroll
+    for (int bit = 16 / P; bit > 0; bit >>= 1) a[0] += __shfl_xor_sync(0xffffffffu, a[0], bit);
+    const int k = P == 2 ? lane >> 4 : ((lane >> 4) & 1) * 2 + ((lane >> 3) & 1);
+    if ((lane & (32 / P - 1)) == 0 && k < K) sums.put(f0 + k * fstride, lev, a[0]);
+  }
+}
 
 // The sums of a kernel that runs in-block (SPLIT false: one block per
 // column, shared memory `smem`) or across blocks (SPLIT true: `partials`).

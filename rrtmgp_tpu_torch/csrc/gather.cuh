@@ -1,5 +1,5 @@
 // The gas-optics table gather of the kernels redesigned around it
-// (optics_fused.cu, lw_clear_mega.cu, interp_pt_eta.cu): a block stages the
+// (optics_fused.cu, lw_clear_mega.cu, interp_pt_eta.cu, interp_minor.cu): a block stages the
 // interpolation inputs of the cells it computes in shared memory once, with
 // the table offsets already formed, and every thread, one per g-point, reads
 // them from there. The arithmetic is common.cuh's (tau_major, tau_minor,
@@ -70,6 +70,39 @@ __device__ __forceinline__ void set_band(const Dims& d, int jt, int jp, bool low
   s.omfe2 = R(1) - fe2;
   s.cm1 = cm1;
   s.cm2 = cm2;
+}
+
+// Shared memory of a block of the tile kernels that compute the minor
+// gases (optics_fused.cu, interp_minor.cu): the staged bands and columns
+// of the tile, the minor scalings, and each interval's band and kminor
+// base.
+template <typename R>
+struct OpticsSmem {
+  size_t bands, cols, scal, meta, total;
+  __host__ __device__ OpticsSmem(int tile, int nbnd, int n_minor) {
+    bands = 0;
+    cols = bands + sizeof(StagedBand<R>) * tile * nbnd;
+    scal = cols + sizeof(StagedCol<R>) * tile;
+    meta = scal + sizeof(R) * n_minor * tile;
+    total = meta + sizeof(int) * 2 * n_minor;
+  }
+};
+
+// Stages the minor scalings of the tile's nc columns from (layer, column)
+// offset lc0 (stride `tile` between intervals) and each interval's band and
+// kminor base; the block's threads share the work.
+template <typename R>
+__device__ __forceinline__ void stage_minor(const R* minor_scaling, const int* minor_band, const int* minor_kbase,
+                                            size_t plane, size_t lc0, int nc, int tile, int n_minor, R* scal,
+                                            int* mband, int* mkbase) {
+  for (int e = threadIdx.x; e < n_minor * nc; e += blockDim.x) {
+    const int i = e / nc;
+    scal[i * tile + (e - i * nc)] = __ldg(minor_scaling + i * plane + lc0 + (e - i * nc));
+  }
+  for (int i = threadIdx.x; i < n_minor; i += blockDim.x) {
+    mband[i] = __ldg(minor_band + i);
+    mkbase[i] = __ldg(minor_kbase + i);
+  }
 }
 
 // A thread's per-g-point metadata, read once: its band and, per

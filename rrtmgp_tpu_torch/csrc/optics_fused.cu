@@ -37,20 +37,6 @@
 
 namespace rrtmgp {
 
-// Shared memory of a block: the staged bands and columns of the tile, the
-// minor scalings, and each interval's band and kminor base.
-template <typename R>
-struct OpticsSmem {
-  size_t bands, cols, scal, meta, total;
-  __host__ __device__ OpticsSmem(int tile, int nbnd, int n_minor) {
-    bands = 0;
-    cols = bands + sizeof(StagedBand<R>) * tile * nbnd;
-    scal = cols + sizeof(StagedCol<R>) * tile;
-    meta = scal + sizeof(R) * n_minor * tile;
-    total = meta + sizeof(int) * 2 * n_minor;
-  }
-};
-
 template <typename R, bool SW>
 __global__ void optics_fused_kernel(OpticsInT<R> in, TablesT<R> tb, Dims d, int n_minor, int tile, int n_tiles,
                                     R* __restrict__ tau_out,      // (nlay, ncol, ngpt)
@@ -81,14 +67,7 @@ __global__ void optics_fused_kernel(OpticsInT<R> in, TablesT<R> tb, Dims d, int 
             sc[c]);
     if constexpr (SW) sc[c].ray = __ldg(in.ray_factor + lc);
   }
-  for (int e = threadIdx.x; e < n_minor * nc; e += blockDim.x) {
-    const int i = e / nc;
-    scal[i * tile + (e - i * nc)] = __ldg(in.minor_scaling + i * plane + lc0 + (e - i * nc));
-  }
-  for (int i = threadIdx.x; i < n_minor; i += blockDim.x) {
-    mband[i] = __ldg(tb.minor_band + i);
-    mkbase[i] = __ldg(tb.minor_kbase + i);
-  }
+  stage_minor(in.minor_scaling, tb.minor_band, tb.minor_kbase, plane, lc0, nc, tile, n_minor, scal, mband, mkbase);
   __syncthreads();
 
   const int g = blockIdx.y * blockDim.x + threadIdx.x;

@@ -18,7 +18,8 @@ Four implementations of the same functions, chosen by ``impl``:
   Planck values), clouds and aerosols are composed on those tensors in plain
   torch as on the torch path (a seeded McICA mask comes from the export
   kernel K6, the aerosol band sums from K5), and a sweep kernel returns g-summed fluxes
-  (``ops.rte_kernels``: K12 once per angle on the same optics, K14, K15).
+  (``ops.rte_kernels``: K12 sweeping every angle in one launch on the same
+  optics, K14, K15).
   CUDA tensors, f32. LW no-scattering with 1-4 angles, LW two-stream (the
   level sources materialized per g-point from the band Planck values and the
   Planck fraction in plain torch, then K14), SW two-stream, and SW direct
@@ -106,7 +107,7 @@ from ..ops.mega import (
 from ..ops.mega_inputs import mega_lw_inputs, mega_sw_inputs
 from ..ops.rte_kernels import (
     lw_2stream_reduced,
-    lw_noscat_banded_reduced,
+    lw_noscat_banded_angles,
     lw_noscat_reduced,
     sw_2stream_reduced,
 )
@@ -448,7 +449,7 @@ def solve_lw(
     has_f64_kernel = not two_stream and lkp_cld is None and lkp_aero is None
     # the megakernel bakes one angle into its sweep: like the JAX package,
     # several angles leave it for the two-kernel path, which computes the
-    # optics once and sweeps once per angle
+    # optics once and sweeps every angle in one launch
     mega = two_stream or n_gauss_angles == 1
     impl = _resolve_impl(impl, as_.p_lay.device, dtype, has_f64_kernel, mega, fused_optics=fused_optics)
     if impl != "torch":
@@ -523,8 +524,10 @@ def solve_lw(
         # the sweep kernels: band-valued emissivity, expanded in the kernel
         g2b = lkp.kernel_tables.gpt2band
         if raw is not None:
-            flux_up, flux_dn, _ = noscat_angles(lambda ds, w, inc_k: lw_noscat_banded_reduced(
-                tau, raw.pfrac, raw.plk_lay, raw.plk_lev, raw.plk_sfc, bcs.sfc_emis, g2b, ds, w, inc_k))
+            # every angle in one launch, summed in the angles' order
+            flux_up, flux_dn = lw_noscat_banded_angles(
+                tau, raw.pfrac, raw.plk_lay, raw.plk_lev, raw.plk_sfc, bcs.sfc_emis, g2b,
+                [float(d) for d in Ds], [float(w) for w in wts], bcs.inc_flux)
         elif two_stream:
             flux_up, flux_dn = lw_2stream_reduced(
                 tau, ssa, g_asym, src.lev_source, src.sfc_source, bcs.sfc_emis, g2b, bcs.inc_flux)

@@ -43,7 +43,7 @@ _P, _I, _U, _L, _F, _D = (ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c
 #: tensors and double scalars. The kernels of the two-kernel path:
 #: optics_fused ends with (7 dims, n_minor, shortwave, column tile, group,
 #: n_groups, stream), lw_noscat_banded with (nlay, ncol, ngpt, nbnd, plan,
-#: ds, i2f, stream), sw_2stream_reduced with (nlay, ncol, ngpt, nbnd, plan,
+#: nang, then host arrays of nang floats ds and i2f, stream), sw_2stream_reduced with (nlay, ncol, ngpt, nbnd, plan,
 #: stream). The sweeps from materialized sources: lw_noscat_reduced ends
 #: with (nlay, ncol, ngpt, plan, ds, i2f, stream), lw_noscat_gpt with
 #: (nlay, ncol, ngpt, group, n_groups, ds, i2f, stream), lw_2stream_reduced
@@ -51,7 +51,7 @@ _P, _I, _U, _L, _F, _D = (ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c
 #: ncol, ngpt, group, n_groups, stream). The kernels of the unfused optics:
 #: interp_pt_eta ends with (nlay, ncol, ngpt, nbnd, npress, ntemp, neta,
 #: column tile, group, n_groups, stream), interp_minor with optics_fused's 7
-#: dims and the stream.
+#: dims, n_minor, column tile, group, n_groups and the stream.
 SIGNATURES = {
     "rrtmgp_planck_band": [_P, _P, _P, _L, _I, _I, _F, _F, _P],
     "rrtmgp_planck_band_f64": [_P, _P, _P, _L, _I, _I, _D, _D, _P],
@@ -63,14 +63,23 @@ SIGNATURES = {
     "rrtmgp_mcica_export": [_P] * 3 + [_I] * 5 + [_U, _U, _L, _P],
     "rrtmgp_optics_fused": [_P] * 24 + [_I] * 12 + [_P],
     "rrtmgp_planck_band_rows": [_P, _P, _P, _L, _I, _I, _F, _F, _P],
-    "rrtmgp_lw_noscat_banded": [_P] * 11 + [_I] * 7 + [_F, _F, _P],
+    "rrtmgp_lw_noscat_banded": [_P] * 11 + [_I] * 8 + [_P, _P, _P],
     "rrtmgp_sw_2stream_reduced": [_P] * 15 + [_I] * 7 + [_P],
     "rrtmgp_lw_noscat_reduced": [_P] * 10 + [_I] * 6 + [_F, _F, _P],
     "rrtmgp_lw_noscat_gpt": [_P] * 8 + [_I] * 5 + [_F, _F, _P],
     "rrtmgp_lw_2stream_reduced": [_P] * 13 + [_I] * 7 + [_P],
     "rrtmgp_sw_2stream_gpt": [_P] * 15 + [_I] * 5 + [_P],
     "rrtmgp_interp_pt_eta": [_P] * 13 + [_I] * 10 + [_P],
-    "rrtmgp_interp_minor": [_P] * 20 + [_I] * 7 + [_P],
+    "rrtmgp_interp_minor": [_P] * 20 + [_I] * 11 + [_P],
+}
+
+#: entry points that report a launch's shared memory in bytes (long long)
+#: from int arguments: name -> their count
+SIZE_QUERIES = {
+    "rrtmgp_lw_clear_mega_staged": 6,
+    "rrtmgp_optics_fused_smem": 3,
+    "rrtmgp_interp_pt_eta_smem": 2,
+    "rrtmgp_interp_minor_smem": 3,
 }
 
 
@@ -145,12 +154,10 @@ def library() -> ctypes.CDLL:
     lib.rrtmgp_error_string.restype = ctypes.c_char_p
     lib.rrtmgp_smem_optin.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
     lib.rrtmgp_smem_optin.restype = ctypes.c_int
-    lib.rrtmgp_lw_clear_mega_staged.argtypes = [ctypes.c_int] * 6
-    lib.rrtmgp_lw_clear_mega_staged.restype = ctypes.c_longlong
-    lib.rrtmgp_optics_fused_smem.argtypes = [ctypes.c_int] * 3
-    lib.rrtmgp_optics_fused_smem.restype = ctypes.c_longlong
-    lib.rrtmgp_interp_pt_eta_smem.argtypes = [ctypes.c_int] * 2
-    lib.rrtmgp_interp_pt_eta_smem.restype = ctypes.c_longlong
+    for name, n_args in SIZE_QUERIES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = [ctypes.c_int] * n_args
+        fn.restype = ctypes.c_longlong
     return lib
 
 

@@ -281,6 +281,19 @@ def interp_pt_eta(table, jtemp, ftemp, jpress, fpress, jeta1, feta1, jeta2, feta
 interp_pt_eta.launches = 0
 
 
+#: columns of one interp_minor block, as OPTICS_TILE for optics_fused
+MINOR_TILE = 16
+
+
+def interp_minor_design(tabs: KernelTables) -> dict:
+    """How ``interp_minor`` launches for these tables (on the card): the
+    block (one layer, ``tile`` columns, ``group`` threads, one per g-point,
+    ``n_groups`` blocks per column tile) and its dynamic shared memory."""
+    plan = gpoint_plan(tabs.lkp.n_gpt)
+    smem = _build.library().rrtmgp_interp_minor_smem(MINOR_TILE, tabs.lkp.n_bnd, tabs.n_minor)
+    return dict(tile=MINOR_TILE, group=plan.group, n_groups=plan.n_groups, smem=smem)
+
+
 def interp_minor(inp: MegaInputs, tabs: KernelTables) -> torch.Tensor:
     """Minor-gas optical depth (nlay, ncol, ngpt) f32 of ``MegaInputs``:
     per minor interval covering a g-point on the cell's troposphere side, a
@@ -290,10 +303,12 @@ def interp_minor(inp: MegaInputs, tabs: KernelTables) -> torch.Tensor:
     dev = cuda_device(inp.jtemp, "interp_minor")
     dims = check_optics_inputs(inp, tabs, dev, not tabs.lkp.is_longwave)
     nlay, ncol, ngpt = dims[:3]
+    plan = gpoint_plan(ngpt)
     out = torch.empty((nlay, ncol, ngpt), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         err = _build.library().rrtmgp_interp_minor(
-            *optics_input_ptrs(inp), *table_ptrs(tabs)[2:], ptr(out), *dims, stream(dev),
+            *optics_input_ptrs(inp), *table_ptrs(tabs)[2:], ptr(out), *dims, tabs.n_minor, MINOR_TILE,
+            plan.group, plan.n_groups, stream(dev),
         )
     _build.check(err, "interp_minor")
     interp_minor.launches += 1

@@ -7,6 +7,10 @@ Summed over g-points, (nlay+1, ncol), as the solves use them:
 - ``lw_noscat_banded_reduced``: LW no-scattering sweep for one angle, the
   Planck sources built in the kernel from band Planck values and the Planck
   fraction (replaces ``lw_noscat_banded_reduced``);
+  ``lw_noscat_banded_angles``: the same summed over 1 to 4 quadrature
+  angles in one launch of the same kernel, the bits of the one-angle
+  wrapper called per angle (what the solves call; the JAX package calls
+  ``lw_noscat_banded_reduced`` per angle and sums);
 - ``lw_noscat_reduced``: the same sweep from materialized layer, level and
   surface sources (replaces ``lw_noscat_pallas_reduced``);
 - ``lw_2stream_reduced``: LW two-stream sweep from materialized level and
@@ -25,14 +29,16 @@ Each wrapper launches its CUDA kernel (``csrc/lw_noscat_banded.cu``,
 ``csrc/lw_noscat_sources.cu``, ``csrc/lw_2stream_reduced.cu``,
 ``csrc/sw_2stream_reduced.cu``) for CUDA tensors and raises on anything the
 kernel does not take; for CPU tensors it returns its twin ``*_ref``.
-``<wrapper>.launches`` counts the launches. The kernels are f32 and run one
-thread per g-point: up to 1024 g-points one block per column, beyond that a
-column over several blocks (``_launch.gpoint_plan``), its level sums
-completed in the same order, as they are for a column too deep for its sums
-to fit a block, so any g-point count and depth gives the same bits as one
-block would. A g-summed call over several blocks is two launches, the
-sweep and ``finish_level_sums`` (``csrc/common.cuh``); the count takes one
-for the call.
+``<wrapper>.launches`` counts the launches (the two wrappers of
+``csrc/lw_noscat_banded.cu`` on ``lw_noscat_banded_reduced.launches``).
+The kernels are f32 and run one thread per g-point: up to 1024 g-points one
+block per column, beyond that a column over several blocks
+(``_launch.gpoint_plan``), its level sums completed in the same order, as
+they are for a column too deep for its sums to fit a block, so any g-point
+count and depth gives the same bits as one block would. A g-summed call
+over several blocks is the sweep and ``finish_level_sums``
+(``csrc/common.cuh``, one launch per angle for K12); the count takes one for
+the call.
 
 Boundary fields: the g-summed sweeps take band-valued emissivity and albedos
 as the solves hold them, (nbnd, ncol), with ``gpt2band``, the (ngpt,) int32
@@ -44,6 +50,8 @@ argument order of the JAX functions they replace.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -83,6 +91,13 @@ def _plan(nf: int, nlay: int, ncol: int, ngpt: int, dev):
                                                                             dev)
 
 
+def banded_plan(nang: int, nlay: int, ncol: int, ngpt: int, dev):
+    """(group, n_groups, in_block) of the launch plan of lw_noscat_banded
+    over nang angles and its level partials (None when the sums stay in the
+    block): 2 x nang level-sum fields, each angle's up and down."""
+    return _plan(2 * nang, nlay, ncol, ngpt, dev)
+
+
 def lw_noscat_banded_reduced_ref(
     tau, pfrac, plk_lay, plk_lev, plk_sfc, sfc_emis, gpt2band, ds: float, w_mu: float, inc_flux=None,
 ):
@@ -95,6 +110,65 @@ def lw_noscat_banded_reduced_ref(
         tau, src.lay_source, src.lev_source, src.sfc_source, sfc_emis.T[:, g2b], ds, w_mu, inc_flux
     )
     return up.sum(-1), dn.sum(-1)
+
+
+def lw_noscat_banded_angles_ref(tau, pfrac, plk_lay, plk_lev, plk_sfc, sfc_emis, gpt2band, ds, w_mu,
+                                inc_flux=None):
+    """Plain twin of ``lw_noscat_banded_angles``: the one-angle twin per
+    angle with the incident flux ``inc_flux * w_k``, summed in the angles'
+    order. Any float dtype."""
+    up = dn = None
+    for d, w in zip(ds, w_mu):
+        u, v = lw_noscat_banded_reduced_ref(tau, pfrac, plk_lay, plk_lev, plk_sfc, sfc_emis, gpt2band, d, w,
+                                            None if inc_flux is None else inc_flux * float(w))
+        up, dn = (u, v) if up is None else (up + u, dn + v)
+    return up, dn
+
+
+#: the most quadrature angles one launch of lw_noscat_banded sweeps
+#: (csrc/lw_noscat_banded.cu MAX_ANGLES; angular_discretization's too)
+MAX_ANGLES = 4
+
+
+def _lw_noscat_banded_launch(tau, pfrac, plk_lay, plk_lev, plk_sfc, sfc_emis, gpt2band, ds, w_mu, inc,
+                             name: str):
+    """One launch of csrc/lw_noscat_banded.cu for the angles of secants
+    ``ds`` and weights ``w_mu`` (1 to 4), ``inc`` each angle's incident flux
+    (nang, ncol, ngpt) or None. Returns each angle's fluxes, (nang, nlay+1,
+    ncol) up and down. Counted on ``lw_noscat_banded_reduced.launches``,
+    which both wrappers of the kernel share."""
+    dev = cuda_device(tau, name)
+    nang = len(ds)
+    if not 1 <= nang <= MAX_ANGLES or len(w_mu) != nang:
+        raise ValueError(f"{name}: {nang} secants and {len(w_mu)} weights; the kernel takes 1 to {MAX_ANGLES} "
+                         "angles")
+    if plk_sfc.dim() != 2:
+        raise ValueError(f"{name}: plk_sfc {tuple(plk_sfc.shape)}")
+    nlay, ncol, ngpt = _dims(tau, name)
+    nbnd = plk_sfc.shape[1]
+    f32 = torch.float32
+    for arg, x, shape in (
+        ("tau", tau, (nlay, ncol, ngpt)), ("pfrac", pfrac, (nlay, ncol, ngpt)),
+        ("plk_lay", plk_lay, (nlay, ncol, nbnd)), ("plk_lev", plk_lev, (nlay + 1, ncol, nbnd)),
+        ("plk_sfc", plk_sfc, (ncol, nbnd)), ("sfc_emis", sfc_emis, (nbnd, ncol)),
+    ):
+        require(x, arg, shape, f32, dev)
+    require(gpt2band, "gpt2band", (ngpt,), torch.int32, dev)
+    if inc is not None:
+        require(inc, "inc_flux", (nang, ncol, ngpt), f32, dev)
+    up = torch.empty((nang, nlay + 1, ncol), dtype=f32, device=dev)
+    dn = torch.empty_like(up)
+    groups, partials = banded_plan(nang, nlay, ncol, ngpt, dev)
+    floats = lambda xs: (ctypes.c_float * nang)(*xs)
+    with torch.cuda.device(dev):
+        err = _build.library().rrtmgp_lw_noscat_banded(
+            *map(ptr, (tau, pfrac, plk_lay, plk_lev, plk_sfc, sfc_emis, gpt2band, inc, up, dn, partials)),
+            nlay, ncol, ngpt, nbnd, *groups, nang, floats([round_to(d, f32) for d in ds]),
+            floats([intensity_to_flux(w, f32) for w in w_mu]), stream(dev),
+        )
+    _build.check(err, name)
+    lw_noscat_banded_reduced.launches += 1
+    return up, dn
 
 
 def lw_noscat_banded_reduced(
@@ -116,32 +190,44 @@ def lw_noscat_banded_reduced(
     if tau.device.type == "cpu":
         return lw_noscat_banded_reduced_ref(
             tau, pfrac, plk_lay, plk_lev, plk_sfc, sfc_emis, gpt2band, ds, w_mu, inc_flux)
-    dev = cuda_device(tau, "lw_noscat_banded_reduced")
-    if plk_sfc.dim() != 2:
-        raise ValueError(f"lw_noscat_banded_reduced: plk_sfc {tuple(plk_sfc.shape)}")
-    nlay, ncol, ngpt = _dims(tau, "lw_noscat_banded_reduced")
-    nbnd = plk_sfc.shape[1]
-    f32 = torch.float32
-    for name, x, shape in (
-        ("tau", tau, (nlay, ncol, ngpt)), ("pfrac", pfrac, (nlay, ncol, ngpt)),
-        ("plk_lay", plk_lay, (nlay, ncol, nbnd)), ("plk_lev", plk_lev, (nlay + 1, ncol, nbnd)),
-        ("plk_sfc", plk_sfc, (ncol, nbnd)), ("sfc_emis", sfc_emis, (nbnd, ncol)),
-    ):
-        require(x, name, shape, f32, dev)
-    require(gpt2band, "gpt2band", (ngpt,), torch.int32, dev)
-    if inc_flux is not None:
-        require(inc_flux, "inc_flux", (ncol, ngpt), f32, dev)
-    up = torch.empty((nlay + 1, ncol), dtype=f32, device=dev)
-    dn = torch.empty_like(up)
-    groups, partials = _plan(2, nlay, ncol, ngpt, dev)
-    with torch.cuda.device(dev):
-        err = _build.library().rrtmgp_lw_noscat_banded(
-            *map(ptr, (tau, pfrac, plk_lay, plk_lev, plk_sfc, sfc_emis, gpt2band, inc_flux, up, dn, partials)),
-            nlay, ncol, ngpt, nbnd, *groups, round_to(ds, f32), intensity_to_flux(w_mu, f32), stream(dev),
-        )
-    _build.check(err, "lw_noscat_banded_reduced")
-    lw_noscat_banded_reduced.launches += 1
-    return up, dn
+    inc = None if inc_flux is None else inc_flux[None]
+    up, dn = _lw_noscat_banded_launch(tau, pfrac, plk_lay, plk_lev, plk_sfc, sfc_emis, gpt2band, [ds], [w_mu], inc,
+                                      "lw_noscat_banded_reduced")
+    return up[0], dn[0]
+
+
+def lw_noscat_banded_angles(
+    tau: torch.Tensor,       # (nlay, ncol, ngpt) optical depth
+    pfrac: torch.Tensor,     # (nlay, ncol, ngpt) Planck fraction
+    plk_lay: torch.Tensor,   # (nlay, ncol, nbnd) band Planck at t_lay
+    plk_lev: torch.Tensor,   # (nlay+1, ncol, nbnd) band Planck at t_lev
+    plk_sfc: torch.Tensor,   # (ncol, nbnd) band Planck at t_sfc
+    sfc_emis: torch.Tensor,  # (nbnd, ncol)
+    gpt2band: torch.Tensor,  # (ngpt,) int32
+    ds, w_mu,                # the angles' secants and weights, 1 to 4 of each
+    inc_flux: torch.Tensor | None = None,  # (ncol, ngpt) TOA incident flux
+):
+    """``lw_noscat_banded_reduced`` summed over the quadrature angles
+    (secants ``ds``, weights ``w_mu``) in one launch: angle k sees the
+    incident flux ``inc_flux * w_k`` (the Gauss-Jacobi weights sum to 1,
+    so every angle sees the same isotropic intensity). Returns (flux_up,
+    flux_dn), each (nlay+1, ncol), added in the angles' order: the bits of
+    the one-angle wrapper called per angle and summed."""
+    if tau.device.type == "cpu":
+        return lw_noscat_banded_angles_ref(tau, pfrac, plk_lay, plk_lev, plk_sfc, sfc_emis, gpt2band, ds, w_mu,
+                                           inc_flux)
+    inc = None if inc_flux is None else torch.stack([inc_flux * float(w) for w in w_mu])
+    up, dn = _lw_noscat_banded_launch(tau, pfrac, plk_lay, plk_lev, plk_sfc, sfc_emis, gpt2band, list(ds),
+                                      list(w_mu), inc, "lw_noscat_banded_angles")
+    return _sum_angles(up), _sum_angles(dn)
+
+
+def _sum_angles(per_angle: torch.Tensor) -> torch.Tensor:
+    """The angles' fluxes added in their order, (nlay+1, ncol)."""
+    total = per_angle[0]
+    for k in range(1, per_angle.shape[0]):
+        total = total + per_angle[k]
+    return total
 
 
 lw_noscat_banded_reduced.launches = 0

@@ -7,6 +7,7 @@ that chip_smoke.py does not print. Run from the repository root:
     python3 scripts/port_measure.py [--root CHECKOUT] megakernels
     python3 scripts/port_measure.py [--root CHECKOUT] gather [--tiles 4,8,16,32] [--k1]
     python3 scripts/port_measure.py [--root CHECKOUT] sw-sweep
+    python3 scripts/port_measure.py [--root CHECKOUT] lw-sweep
 
 With no argument it runs the first five. Each line names what it measured; the
 first line is the card's name and power limit. Problem sizes and inputs are
@@ -48,8 +49,12 @@ imports no JAX.
 - ``kernel-hashes``: median time of 7 calls, sha256 of the outputs and
   register counts of the kernels whose device code lives in shared headers
   (sw_2stream_reduced, sw_clear_mega, lw_clear_mega, optics_fused,
-  lw_noscat_banded_reduced, interp_pt_eta for each table, interp_minor and
-  the four sweeps from materialized sources on the clear cell; lw_clear_mega
+  lw_noscat_banded_reduced at 1 angle and at 3 (with and without an
+  incident flux; one launch where the checkout has lw_noscat_banded_angles,
+  else one per angle, summed), solve_lw's LW fluxes with 3 angles on the
+  two-kernel and the unfused route, interp_pt_eta for each table,
+  interp_minor and the four sweeps from materialized sources on the clear
+  cell; lw_clear_mega
   built for f64 on the clear cell in f64; lw2_mega and the composed
   lw_clear_mega on the all-sky cell with McICA by seed + aerosols, lw2_mega
   also clear; mcica_mask_export; the cloud cover is hashed with the
@@ -74,9 +79,10 @@ imports no JAX.
 - ``gather``: the kernels around the gas-optics table gather, each in 3
   rounds of a median of 7 synchronized calls with the sha256 of its
   outputs, and their ``ptxas`` registers: optics_fused LW and SW and
-  interp_pt_eta on each table of the unfused optics (with ``--tiles``, once
-  per column tile, set through ``ops.interp.OPTICS_TILE`` and
-  ``ops.interp.INTERP_TILE`` where the checkout has it), lw_clear_mega
+  interp_pt_eta on each table of the unfused optics and interp_minor LW and
+  SW (with ``--tiles``, once per column tile, set through
+  ``ops.interp.OPTICS_TILE``, ``ops.interp.INTERP_TILE`` and
+  ``ops.interp.MINOR_TILE`` where the checkout has them), lw_clear_mega
   clear, and the sweeps that read optics_fused's outputs timed with it
   (lw_noscat_banded_reduced after the LW optics, sw_2stream_reduced after
   the SW optics), on the clear cell; with
@@ -93,6 +99,14 @@ imports no JAX.
   of sw_2stream_reduced (the parent's four-array passes, a third scratch
   array, the level sums left out): build each in its own checkout and run
   this mode on each with ``--root``, in turns within one call.
+- ``lw-sweep``: the LW no-scattering sweep of the two-kernel path (K12) on
+  the clear cell's LW optics (32768 x 60, 256 g-points) at 1 and at 3
+  quadrature angles as the checkout's solves launch it (see
+  ``kernel-hashes``), 3 rounds of a median of 7 synchronized calls, the
+  cases taking turns within a round, each with the sha256 of its fluxes,
+  then the ``ptxas`` registers of the kernel's instantiations. For design
+  variants (angles per launch, read-ahead): build each in its own checkout
+  and run this mode on each with ``--root``, in turns within one call.
 """
 
 from __future__ import annotations
@@ -379,6 +393,29 @@ REGISTERS_OF = ("sw_clear_mega_kernelILb0ELb0", "lw2_mega_kernelILb0ELb0", "lw2_
                 "sw_2stream_gpt_kernel")
 
 
+def k12_angles(k12, n: int):
+    """K12 at solve_lw's n angles on k12's optics, as the checkout's solves
+    launch it: lw_noscat_banded_angles (one launch) where the checkout has
+    it, else lw_noscat_banded_reduced per angle with the incident flux
+    split by weight, summed in the angles' order (the solves before it)."""
+    from rrtmgp_tpu_torch.angular import angular_discretization
+    from rrtmgp_tpu_torch.ops import rte_kernels
+
+    Ds, wts = angular_discretization(n)
+    ds, w, inc = [float(d) for d in Ds], [float(x) for x in wts], k12[9]
+    if hasattr(rte_kernels, "lw_noscat_banded_angles"):
+        return lambda: rte_kernels.lw_noscat_banded_angles(*k12[:7], ds, w, inc)
+
+    def per_angle():
+        up = dn = None
+        for d, x in zip(ds, w):
+            u, v = rte_kernels.lw_noscat_banded_reduced(*k12[:7], d, x, None if inc is None else inc * x)
+            up, dn = (u, v) if up is None else (up + u, dn + v)
+        return up, dn
+
+    return per_angle
+
+
 def kernel_hashes() -> None:
     import torch
 
@@ -410,6 +447,15 @@ def kernel_hashes() -> None:
     report("optics_fused LW", lambda: interp.optics_fused(*lw_in))
     report("optics_fused SW", lambda: interp.optics_fused(*sw_in))
     report("lw_noscat_banded_reduced", lambda: rte_kernels.lw_noscat_banded_reduced(*k12))
+    report("lw_noscat_banded_reduced 3 angles", k12_angles(k12, 3))
+    inc = 0.5 + 0.25 * torch.sin(torch.arange(k12[0][0].numel(), device=cs.DEVICE, dtype=torch.float32)).view(
+        k12[0].shape[1:])
+    report("lw_noscat_banded_reduced 3 angles with incident flux", k12_angles((*k12[:9], inc), 3))
+    report("lw_noscat_banded_reduced 1 angle with incident flux", k12_angles((*k12[:9], inc), 1))
+    del inc
+    for name, kw in (("two-kernel", dict(impl="two_kernel")), ("unfused", dict(fused_optics=False))):
+        report(f"solve_lw 3 angles {name}", lambda: rrtmgp_tpu_torch.solve_lw(lw, atm, bcs_lw, n_gauss_angles=3,
+                                                                              **kw)[0])
     for wave, (inp, tabs) in (("LW", lw_in), ("SW", sw_in)):
         second = (tabs.second, inp.jtemp, inp.ftemp, inp.jpress_base, inp.fpress) if wave == "LW" else (
             tabs.second, inp.jtemp, inp.ftemp, (~inp.tropo_lower).to(torch.int32), torch.zeros_like(inp.fpress))
@@ -461,7 +507,7 @@ def kernel_hashes() -> None:
 
 
 GATHER_KERNELS = ("optics_fused_kernel", "lw_clear_mega_kernelIfLb0ELb0ELi0ELb0", "lw_clear_mega_kernelIdLb0ELb0ELi0ELb0",
-                  "lw_clear_mega_kernelIfLb1ELb1ELi2ELb0", "interp_pt_eta_kernel")
+                  "lw_clear_mega_kernelIfLb1ELb1ELi2ELb0", "interp_pt_eta_kernel", "interp_minor_kernel")
 
 
 def gather() -> None:
@@ -513,6 +559,13 @@ def gather() -> None:
                     return (interp.interp_pt_eta(*args),)
 
                 cases.append((f"interp_pt_eta {what} tile {tile or 'default'}", k9))
+            for wave, args in (("LW", lw_in), ("SW", sw_in)):
+                def k10(args=args, tile=tile):
+                    if tile is not None and hasattr(interp, "MINOR_TILE"):
+                        interp.MINOR_TILE = tile
+                    return (interp.interp_minor(*args),)
+
+                cases.append((f"interp_minor {wave} tile {tile or 'default'}", k10))
         _, _, _, k12, k15 = cs.two_kernel_args(lw, sw, atm, bcs_lw, bcs_sw)
         cases += [("optics_fused LW + lw_noscat_banded_reduced",
                    lambda: (interp.optics_fused(*lw_in), rte_kernels.lw_noscat_banded_reduced(*k12))[1]),
@@ -573,6 +626,26 @@ def sw_sweep() -> None:
                         f"call {scratch / 1e9:.3f} GB")
     _registers(_build.library_path().with_suffix(".log"), ("sw_2stream_reduced_kernel", "sw_2stream_gpt_kernel"),
                "sw-sweep")
+
+
+def lw_sweep() -> None:
+    from rrtmgp_tpu_torch.ops import _build
+
+    lw, sw = cs.lookups(256, 16, 224, 14)
+    atm = cs.atmosphere(cs.NCOL, cs.NLAY)
+    bcs_lw, bcs_sw = cs.boundary_conditions(lw, sw, cs.NCOL)
+    k12 = cs.two_kernel_args(lw, sw, atm, bcs_lw, bcs_sw)[3]
+    cases = [(f"lw_noscat_banded_reduced (K12) {n} angle(s)", k12_angles(k12, n)) for n in (1, 3)]
+    ms = {name: [] for name, _ in cases}
+    for _ in range(3):
+        for name, fn in cases:
+            ms[name].append(cs.timed(fn, 7))
+    for name, fn in cases:
+        h = hashlib.sha256()
+        for t in fn():
+            h.update(t.cpu().numpy().tobytes())
+        say("lw-sweep", f"{ROOT} {name}: {_fmt(ms[name])} ms, sha256 {h.hexdigest()[:16]}")
+    _registers(_build.library_path().with_suffix(".log"), ("lw_noscat_banded_kernel",), "lw-sweep")
 
 
 def _steps(tag: str, step, steps: int = 5) -> None:
@@ -680,7 +753,7 @@ def main() -> None:
     for name, fn in (("f64-memory", f64_memory), ("angles", angles), ("profile", profile_cells),
                      ("profile-two-kernel", profile_two_kernel), ("profile-sweep", profile_sweep),
                      ("kernel-hashes", kernel_hashes), ("megakernels", megakernels), ("gather", gather),
-                     ("sw-sweep", sw_sweep)):
+                     ("sw-sweep", sw_sweep), ("lw-sweep", lw_sweep)):
         if name in want:
             fn()
 

@@ -180,7 +180,7 @@ def test_more_than_1024_gpoints_run_on_every_impl(cuda):
         b, _ = solve_lw(lkp, atm, LwBCs(sfc_emis=emis), n_gauss_angles=n)
         assert torch.equal(a.flux_up, b.flux_up)
     assert _counts() == {"planck_band": 6, "lw_clear_mega": 2, "optics_fused": 2, "planck_band_rows": 6,
-                         "lw_noscat_banded_reduced": 4}
+                         "lw_noscat_banded_reduced": 2}
 
 
 @pytest.mark.parametrize("ngpt,nlay", [(40, 60), (256, 800)])
@@ -269,7 +269,7 @@ def test_solves_on_cuda_take_the_kernels(cuda):
         assert torch.all(flux[:, mu0 <= 0] == 0.0)
     # several angles: the megakernel path launches once per angle, the band
     # Planck values shared; the default is the two-kernel path, which computes
-    # the optics once and sweeps once per angle
+    # the optics once and sweeps every angle in one launch
     for n in (2, 3, 4):
         t_n = solve_lw(lw, atm, bl, n_gauss_angles=n, impl="torch")[0]
         mega.reset_launch_counts()
@@ -278,7 +278,7 @@ def test_solves_on_cuda_take_the_kernels(cuda):
         assert _rel(k_n, t_n) <= TOL["lw_clear_mega"]
         mega.reset_launch_counts()
         d_n, _ = solve_lw(lw, atm, bl, n_gauss_angles=n)
-        assert _counts() == {"optics_fused": 1, "planck_band_rows": 3, "lw_noscat_banded_reduced": n}
+        assert _counts() == {"optics_fused": 1, "planck_band_rows": 3, "lw_noscat_banded_reduced": 1}
         assert _rel(d_n, t_n) <= TOL["lw_noscat_banded_reduced"]
         assert _rel(d_n, k_n) <= TOL["lw_noscat_banded_reduced"]
     # f64 clear-sky LW no-scattering has a kernel, LW two-stream has none
@@ -508,7 +508,7 @@ def test_allsky_noscat_solver_takes_the_kernels(cuda):
             auto = mk()
             mega.reset_launch_counts()
             a_lw, _ = auto.update_fluxes()
-            assert _counts() == {"optics_fused": 1, "planck_band_rows": 3, "lw_noscat_banded_reduced": n,
+            assert _counts() == {"optics_fused": 1, "planck_band_rows": 3, "lw_noscat_banded_reduced": 1,
                                  "mcica_mask_export": 1, "sw_clear_mega": 1, "aerosol_bands": 2}
             assert _rel(a_lw, f_lw) <= TOL["lw_noscat_banded_reduced"]
             assert torch.equal(auto.lw_cloud_cover(), solver.lw_cloud_cover())
@@ -768,7 +768,8 @@ def test_sw_direct_beam_runs_with_the_default_impl(cuda):
 def test_multi_angle_routes_agree(cuda, n_angles):
     """Several LW angles, clear and all-sky (McICA by seed, aerosols), at a
     width where both routes fit in memory: the default impl takes the
-    two-kernel path (the optics once, one sweep per angle) and impl="kernel"
+    two-kernel path (the optics once, every angle in one sweep launch) and
+    impl="kernel"
     one megakernel launch per angle; they agree within the LW sweep's gate,
     draw the same cloud cover, and both stay within it of the torch path."""
     from rrtmgp_tpu_torch.data.synthetic import synthetic_aerosol_lookup, synthetic_cloud_lookup
@@ -785,7 +786,7 @@ def test_multi_angle_routes_agree(cuda, n_angles):
         mega.reset_launch_counts()
         two, d_two = solve_lw(lw, atm, bl, n_gauss_angles=n_angles, **kw)
         counts = _counts()
-        assert counts["optics_fused"] == 1 and counts["lw_noscat_banded_reduced"] == n_angles
+        assert counts["optics_fused"] == 1 and counts["lw_noscat_banded_reduced"] == 1
         assert "lw_clear_mega" not in counts
         mega.reset_launch_counts()
         per_angle, d_per = solve_lw(lw, atm, bl, n_gauss_angles=n_angles, impl="kernel", **kw)
@@ -1290,3 +1291,111 @@ def test_sw_2stream_reduced_equals_the_megakernel_with_night_columns(cuda):
     sw_args = (*sw_args[:2], k15[3], *sw_args[3:])
     for a, b in zip(rte_kernels.sw_2stream_reduced(*k15[:2], None, *k15[3:]), mega.sw_clear_mega(*sw_args)):
         torch.testing.assert_close(a, b, rtol=0.0, atol=0.0, equal_nan=True)
+
+
+# ---------------------------------------------------------------------------
+# interp_minor on the staged gather, and lw_noscat_banded over every angle
+# of a solve in one launch
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("ngpt,nbnd,ncol,nlay,n_minor", [(36, 3, 13, 13, 12), (36, 4, 1000, 30, 3),
+                                                         (1100, 5, 9, 11, 20)])
+def test_staged_interp_minor_is_optics_fused_minor_part(cuda, ngpt, nbnd, ncol, nlay, n_minor):
+    """interp_minor LW and SW against its twin where ncol is not a multiple
+    of its column tile, cells lie on both troposphere sides and several
+    intervals cover a g-point, at 36 and 1100 g-points (a column tile's
+    g-points over two blocks); and bit for bit optics_fused's minor part:
+    optics_fused with kmajor and the second table zeroed writes tau = max(0
+    + minor, 0), the minor optical depth itself."""
+    assert ncol % interp.MINOR_TILE
+    atm = synthetic_atmosphere(ncol=ncol, nlay=nlay, dtype=np.float32, device=cuda)
+    mega.reset_launch_counts()
+    for seed, (longwave, inputs) in enumerate(((True, mega_lw_inputs), (False, mega_sw_inputs))):
+        lkp = _rich_lookup(cuda, longwave, ngpt, nbnd, n_minor, seed)
+        inp, tabs = inputs(lkp, atm), lkp.kernel_tables
+        assert 0 < int(inp.tropo_lower.sum()) < inp.tropo_lower.numel()
+        minor = interp.interp_minor(inp, tabs)
+        assert minor.shape == (nlay, ncol, ngpt) and float(minor.max()) > 0.0
+        assert _rel([minor], [interp.interp_minor_ref(inp, tabs)]) <= TOL["interp_minor"]
+        no_major = dataclasses.replace(tabs, kmajor=torch.zeros_like(tabs.kmajor),
+                                       second=torch.zeros_like(tabs.second))
+        assert torch.equal(minor, interp.optics_fused(inp, no_major)[0])
+        assert torch.equal(minor, interp.interp_minor(inp, tabs))
+    torch.cuda.synchronize()
+    assert _counts() == {"interp_minor": 4, "optics_fused": 2}
+
+
+def _per_angle(args, ds, w, inc):
+    """lw_noscat_banded_reduced per angle, angle k with the incident flux
+    inc * w_k, summed in the angles' order: the solves' sum before one
+    launch took every angle."""
+    up = dn = None
+    for d, wk in zip(ds, w):
+        u, v = rte_kernels.lw_noscat_banded_reduced(*args, d, wk, None if inc is None else inc * wk)
+        up, dn = (u, v) if up is None else (up + u, dn + v)
+    return up, dn
+
+
+@pytest.mark.parametrize("ngpt,nbnd,ncol,nlay", [(36, 4, 1000, 30), (256, 16, 257, 60), (1100, 4, 7, 5)])
+def test_lw_noscat_banded_angles_equal_per_angle_launches(cuda, ngpt, nbnd, ncol, nlay):
+    """lw_noscat_banded_angles, 1 to 4 angles in one launch, with and
+    without incident flux: against its twin, and bit for bit the one-angle
+    launches summed in the angles' order, at 1100 g-points too (a column
+    over two blocks, the sums completed per angle)."""
+    k12 = _two_kernel_case(cuda, ngpt, nbnd, ncol, nlay)[3]
+    args, inc = k12[:7], k12[9]
+    for n in (1, 2, 3, 4):
+        Ds, wts = angular_discretization(n)
+        ds, w = [float(d) for d in Ds], [float(x) for x in wts]
+        for flux in (inc, None):
+            mega.reset_launch_counts()
+            up, dn = rte_kernels.lw_noscat_banded_angles(*args, ds, w, flux)
+            assert _counts() == {"lw_noscat_banded_reduced": 1}
+            assert up.shape == dn.shape == (nlay + 1, ncol)
+            want = _per_angle(args, ds, w, flux)
+            assert torch.equal(up, want[0]) and torch.equal(dn, want[1]), (n, flux is None)
+            assert _rel((up, dn), rte_kernels.lw_noscat_banded_angles_ref(*args, ds, w, flux)) <= \
+                TOL["lw_noscat_banded_reduced"]
+            assert torch.all(dn[-1] > 0.0) if flux is not None else torch.all(dn[-1] == 0.0)
+
+
+def test_lw_noscat_banded_angles_on_deep_columns(cuda):
+    """256 g-points x 3700 layers: the level sums of every angle count go
+    to device memory (2 x nang fields), and 1 to 4 angles in one launch
+    equal the one-angle launches summed bit for bit, with incident flux;
+    2 angles against the twin."""
+    from rrtmgp_tpu_torch.ops._launch import smem_limit
+
+    ncol, nlay = 3, 3700
+    k12 = _two_kernel_case(cuda, 256, 16, ncol, nlay)[3]
+    args, inc = k12[:7], k12[9]
+    for n in (1, 2, 3, 4):
+        (_, n_groups, in_block), partials = rte_kernels.banded_plan(n, nlay, ncol, 256, cuda)
+        assert n_groups == 1 and not in_block and partials.shape == (2 * n, nlay + 1, ncol, 8)
+        assert smem_limit(cuda) < 2 * n * (nlay + 1) * 8 * 4
+        Ds, wts = angular_discretization(n)
+        ds, w = [float(d) for d in Ds], [float(x) for x in wts]
+        out = rte_kernels.lw_noscat_banded_angles(*args, ds, w, inc)
+        want = _per_angle(args, ds, w, inc)
+        assert all(torch.equal(a, b) for a, b in zip(out, want)), n
+        if n == 2:
+            assert _rel(out, rte_kernels.lw_noscat_banded_angles_ref(*args, ds, w, inc)) <= \
+                TOL["lw_noscat_banded_reduced"]
+
+
+def test_lw_noscat_banded_angles_reject_what_the_kernel_does_not_take(cuda):
+    """No angle, more than four, secants and weights of other lengths, or an
+    incident flux of another shape raise before a launch; a CPU tensor among
+    CUDA ones too."""
+    k12 = _two_kernel_case(cuda, 8, 2, 16, 4)[3]
+    args, inc = k12[:7], k12[9]
+    mega.reset_launch_counts()
+    for ds, w in (([], []), ([1.5] * 5, [0.2] * 5), ([1.5, 2.0], [1.0])):
+        with pytest.raises(ValueError, match="angles"):
+            rte_kernels.lw_noscat_banded_angles(*args, ds, w)
+    with pytest.raises(ValueError, match="shape"):
+        rte_kernels.lw_noscat_banded_angles(*args, [1.5], [1.0], inc[:, :-1].contiguous())
+    with pytest.raises(ValueError, match="on cpu"):
+        rte_kernels.lw_noscat_banded_angles(*args[:5], args[5].cpu(), args[6], [1.5], [1.0])
+    assert _counts() == {}

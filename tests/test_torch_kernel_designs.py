@@ -1,4 +1,4 @@
-"""CPU rehearsals of the arithmetic of two kernel designs, with no card:
+"""CPU rehearsals of the arithmetic of the kernel designs, with no card:
 
 - ``sw_2stream_reduced`` (csrc/sw_2stream_reduced.cu): three passes, the beam
   stored top-down, the layer coefficients computed again from the optics in
@@ -14,6 +14,17 @@
   the node above the table's last pressure slab not read. Modelled here,
   it equals the twin ``interp_pt_eta_ref`` bit for bit on kmajor (with
   col_mix), the Planck fraction and a 2-slab Rayleigh table read at side 1.
+- ``interp_minor`` (csrc/interp_minor.cu): optics_fused's staged minor
+  gather, kminor rows in int32 per (layer, column, band), only the cell's
+  troposphere side's intervals. Modelled here, it equals the twin
+  ``interp_minor_ref`` bit for bit, f32 and f64, LW and SW.
+- ``lw_noscat_banded`` (csrc/lw_noscat_banded.cu) over several angles in
+  one launch: the multi-angle wrapper is the one-angle twin summed in the
+  angles' order (bit for bit on CPU tensors) and holds the JAX
+  ``lw_noscat_banded_reduced`` run per angle and summed (rtol 2e-5 / atol
+  1e-3, tests/test_torch_two_kernel.py's LW sweep tolerances); a level's
+  angles reduced over the warp together (``add_fields``) have the bits of
+  the per-field shuffle tree; the launch plan counts 2 x nang fields.
 
 And the wrappers' checks that the designs add: a table of 2^31 elements or
 more is refused, sw_2stream_reduced's scratch is two arrays, and each C
@@ -26,6 +37,7 @@ against the JAX ``sw_2stream`` rtol 2e-4 / atol 1e-3, as
 tests/test_torch_two_kernel.py holds the SW sweep.
 """
 
+import functools
 import re
 
 import jax.numpy as jnp
@@ -328,10 +340,273 @@ def test_tables_of_2_31_elements_are_refused():
 
 def test_entry_points_take_what_their_signatures_list():
     """Each C entry point of csrc/ takes as many parameters as its ctypes
-    signature in ops/_build.py lists (two of them changed with the designs
-    above)."""
+    signature in ops/_build.py lists (several of them changed with the
+    designs above: interp_minor's launch plan and tile, lw_noscat_banded's
+    angles), and each shared-memory query as many int parameters as
+    ``SIZE_QUERIES`` lists (interp_minor's is new)."""
     sources = "".join(p.read_text() for p in _build.CSRC.glob("*.cu"))
     for entry, argtypes in _build.SIGNATURES.items():
         m = re.search(r'extern "C" int ' + entry + r"\(([^)]*)\)", sources)
         assert m, entry
         assert len(m.group(1).split(",")) == len(argtypes), entry
+    assert "rrtmgp_interp_minor_smem" in _build.SIZE_QUERIES
+    for entry, n_args in _build.SIZE_QUERIES.items():
+        m = re.search(r'extern "C" long long ' + entry + r"\(([^)]*)\)", sources)
+        assert m, entry
+        params = m.group(1).split(",")
+        assert len(params) == n_args and all(p.split()[0] == "int" for p in params), entry
+    banded = re.search(r'extern "C" int rrtmgp_lw_noscat_banded\(([^)]*)\)', sources).group(1)
+    assert "int nang, const void* ds, const void* i2f" in " ".join(banded.split())
+
+
+# ---------------------------------------------------------------------------
+# interp_minor: the staged minor-gas layout of optics_fused
+# ---------------------------------------------------------------------------
+
+
+def _staged_minor(inp, tabs):
+    """interp_minor's design: per (layer, column, band) the two kminor rows
+    m1 = jt*neta + je1 and m2 = (jt+1)*neta + je2 in int32 and the eta
+    weights' complements, per (layer, column) the temperature weight's and
+    the troposphere side, per interval its band and kminor base; a thread
+    per g-point reads its ranges of minor_list once and, per cell, adds the
+    intervals of the cell's side in their order from 0, in the operation
+    order of gather.cuh's staged_tau_minor."""
+    kminor = tabs.kminor.reshape(-1)
+    ntemp, neta, ncontrib = tabs.kminor.shape
+    i32 = torch.int32
+    jt = inp.jtemp[..., None].to(i32)
+    m1 = jt * neta + inp.jeta1.to(i32)                                       # (nlay, ncol, nbnd)
+    m2 = (jt + 1) * neta + inp.jeta2.to(i32)
+    omfe1, omfe2 = 1.0 - inp.feta1, 1.0 - inp.feta2
+    ft, omft, lower = inp.ftemp, 1.0 - inp.ftemp, inp.tropo_lower
+    start, entries = tabs.minor_start.tolist(), tabs.minor_list.tolist()
+    mband, mkbase = tabs.minor_band.tolist(), tabs.minor_kbase.tolist()
+    ngpt = tabs.minor_start.shape[1] - 1
+    out = torch.empty(inp.jtemp.shape + (ngpt,), dtype=inp.ftemp.dtype)
+    for g in range(ngpt):
+        per_side = []
+        for side in (0, 1):
+            tau = torch.zeros_like(ft)
+            for i in entries[start[side][g]:start[side][g + 1]]:
+                b, base = mband[i], mkbase[i] + g
+                row = lambda m: kminor[(base + m[..., b].long() * ncontrib)]
+                v1 = omfe1[..., b] * row(m1) + inp.feta1[..., b] * row(m1 + 1)
+                v2 = omfe2[..., b] * row(m2) + inp.feta2[..., b] * row(m2 + 1)
+                tau = tau + (omft * v1 + ft * v2) * inp.minor_scaling[i]
+            per_side.append(tau)
+        out[..., g] = torch.where(lower, per_side[0], per_side[1])
+    return out
+
+
+def _rich_minor_lookup(longwave, ngpt, nbnd, n_per_side, seed, dtype):
+    """A synthetic lookup with n_per_side minor intervals a side, each over
+    a whole band of uneven width, so that several cover a g-point."""
+    import dataclasses
+
+    from rrtmgp_tpu_torch.data.lookups import MinorInterval
+
+    lkp = synthetic_gas_lookup(longwave=longwave, n_gpt=ngpt, n_bnd=nbnd, seed=seed, dtype=dtype, device="cpu")
+    rng = np.random.default_rng(seed + 40)
+    edges = [0, *np.sort(rng.choice(np.arange(1, ngpt), nbnd - 1, replace=False)).tolist(), ngpt]
+    lims = tuple(zip(edges[:-1], edges[1:]))
+
+    def side():
+        intervals, rows, k0 = [], [], 0
+        for _ in range(n_per_side):
+            g0, g1 = lims[int(rng.integers(nbnd))]
+            intervals.append(MinorInterval(int(rng.choice([2, 3, 4, 5, 6])), int(rng.integers(2)),
+                                           bool(rng.integers(2)), bool(rng.integers(2)), g0, g1, k0))
+            rows.append(rng.uniform(1e-25, 5e-24, (g1 - g0, lkp.n_temp, lkp.n_eta)))
+            k0 += g1 - g0
+        return tuple(intervals), torch.from_numpy(np.concatenate(rows).astype(dtype))
+
+    (lower, k_lower), (upper, k_upper) = side(), side()
+    return dataclasses.replace(lkp, bnd_lims_gpt=lims, minor_lower=lower, kminor_lower=k_lower,
+                               minor_upper=upper, kminor_upper=k_upper)
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("ngpt,nbnd", [(32, 4), (36, 3)])
+@pytest.mark.parametrize("rich", [False, True])
+def test_staged_minor_equals_the_twin_bit_for_bit(dtype, ngpt, nbnd, rich):
+    """The staged minor-gas model equals interp_minor_ref bit for bit, LW
+    and SW, with cells on both troposphere sides, on the synthetic lookup
+    (three intervals a side) and on one where six intervals a side cover
+    whole bands of uneven width: the twin adds every interval with its
+    scaling zeroed off its side, the kernel only the cell's side's, in the
+    same order."""
+    atm = synthetic_atmosphere(ncol=19, nlay=6, dtype=dtype, device="cpu")
+    for longwave, inputs in ((True, mega_lw_inputs), (False, mega_sw_inputs)):
+        seed = 0 if longwave else 1
+        lkp = (_rich_minor_lookup(longwave, ngpt, nbnd, 6, seed, dtype) if rich else
+               synthetic_gas_lookup(longwave=longwave, n_gpt=ngpt, n_bnd=nbnd, seed=seed, dtype=dtype,
+                                    device="cpu"))
+        inp, tabs = inputs(lkp, atm), lkp.kernel_tables
+        assert 0 < int(inp.tropo_lower.sum()) < inp.tropo_lower.numel()  # both sides present
+        if rich:
+            covers = tabs.minor_start[:, 1:] - tabs.minor_start[:, :-1]
+            assert int(covers.max()) >= 2  # several intervals cover a g-point
+        out = _staged_minor(inp, tabs)
+        assert out.dtype == inp.ftemp.dtype and bool((out > 0).any())
+        assert torch.equal(out, interp.interp_minor_ref(inp, tabs)), (longwave, ngpt)
+
+
+# ---------------------------------------------------------------------------
+# lw_noscat_banded: every quadrature angle in one launch
+# ---------------------------------------------------------------------------
+
+
+def _banded_inputs(seed=11, nlay=6, ncol=12, ngpt=32, nbnd=4):
+    rng = np.random.default_rng(seed)
+    f = lambda *shape, lo=0.5, hi=1.5: rng.uniform(lo, hi, shape).astype(np.float32)
+    tau = np.abs(rng.normal(0.4, 0.2, (nlay, ncol, ngpt))).astype(np.float32)
+    tau[0, :, :3] = 1e-7  # below the Clough threshold: the series branch
+    x = dict(tau=tau, pfrac=f(nlay, ncol, ngpt, lo=0.01, hi=0.2), plk_lay=f(nlay, ncol, nbnd),
+             plk_lev=f(nlay + 1, ncol, nbnd), plk_sfc=f(ncol, nbnd), emis=f(nbnd, ncol, lo=0.9, hi=1.0),
+             inc=f(ncol, ngpt, lo=0.0, hi=0.3))
+    g2b = (np.arange(ngpt) * nbnd // ngpt).astype(np.int32)
+    return x, g2b
+
+
+def _angles(n):
+    from rrtmgp_tpu_torch.angular import angular_discretization
+
+    Ds, wts = angular_discretization(n)
+    return [float(d) for d in Ds], [float(w) for w in wts]
+
+
+@pytest.mark.parametrize("n_angles", [1, 2, 3, 4])
+@pytest.mark.parametrize("with_inc", [False, True])
+def test_banded_angles_equal_the_per_angle_twin_sum_bit_for_bit(n_angles, with_inc):
+    """On CPU tensors the multi-angle wrapper is the one-angle twin per
+    angle, angle k with the incident flux inc * w_k, added in the angles'
+    order (the sum the solves made before): bit for bit, with no launch."""
+    x, g2b = _banded_inputs()
+    t = {k: torch.from_numpy(v) for k, v in x.items()}
+    args = (t["tau"], t["pfrac"], t["plk_lay"], t["plk_lev"], t["plk_sfc"], t["emis"], torch.from_numpy(g2b))
+    inc = t["inc"] if with_inc else None
+    ds, w = _angles(n_angles)
+    rte_kernels.lw_noscat_banded_reduced.launches = 0
+    out = rte_kernels.lw_noscat_banded_angles(*args, ds, w, inc)
+    up = dn = None
+    for d, wk in zip(ds, w):
+        u, v = rte_kernels.lw_noscat_banded_reduced_ref(*args, d, wk, None if inc is None else inc * wk)
+        up, dn = (u, v) if up is None else (up + u, dn + v)
+    assert torch.equal(out[0], up) and torch.equal(out[1], dn)
+    assert torch.equal(out[0], rte_kernels.lw_noscat_banded_angles_ref(*args, ds, w, inc)[0])
+    assert rte_kernels.lw_noscat_banded_reduced.launches == 0
+    if not with_inc:
+        assert torch.all(out[1][-1] == 0.0)
+
+
+@pytest.mark.parametrize("n_angles", [1, 3, 4])
+@pytest.mark.parametrize("with_inc", [False, True])
+def test_banded_angles_hold_jax_per_angle_sum(n_angles, with_inc):
+    """The multi-angle wrapper against the JAX lw_noscat_banded_reduced (its
+    Pallas kernel in interpret mode) called per angle with the incident flux
+    split by weight and summed, as the JAX solve does: rtol 2e-5 / atol
+    1e-3, the LW sweep's tolerances against the JAX Pallas sweep."""
+    from rrtmgp_tpu.ops import pallas_rte as jprte
+
+    x, g2b = _banded_inputs(seed=12)
+    j = {k: jnp.asarray(v) for k, v in x.items()}
+    lims = tuple((int(np.argmax(g2b == b)), int(np.argmax(g2b == b)) + int((g2b == b).sum())) for b in range(4))
+    ds, w = _angles(n_angles)
+    ref_up = ref_dn = 0.0
+    for d, wk in zip(ds, w):
+        inc_k = j["inc"] * np.float32(wk) if with_inc else None
+        u, v = jprte.lw_noscat_banded_reduced(j["tau"], j["pfrac"], j["plk_lay"], j["plk_lev"], j["plk_sfc"],
+                                              j["emis"].T, d, wk, lims, inc_k, block_cols=8)
+        ref_up, ref_dn = ref_up + np.asarray(u), ref_dn + np.asarray(v)
+    t = {k: torch.from_numpy(v) for k, v in x.items()}
+    out = rte_kernels.lw_noscat_banded_angles(t["tau"], t["pfrac"], t["plk_lay"], t["plk_lev"], t["plk_sfc"],
+                                              t["emis"], torch.from_numpy(g2b), ds, w,
+                                              t["inc"] if with_inc else None)
+    for o, r in zip(out, (ref_up, ref_dn)):
+        assert o.shape == (7, 12)
+        np.testing.assert_allclose(o.numpy(), r, rtol=2e-5, atol=1e-3)
+
+
+H100_OPTIN = 232448  # an H100's opt-in shared memory per block, as the wrappers read it there
+
+
+@pytest.mark.parametrize("n_angles", [1, 2, 3, 4])
+def test_banded_plan_counts_two_fields_per_angle(monkeypatch, n_angles):
+    """The launch plan of a K12 launch counts 2 x nang level-sum fields for
+    the shared memory, the in-block decision and the device partials: at 60
+    layers every angle count keeps its sums in the block; at 2000 layers x
+    256 g-points one angle's sums (2 x 2001 x 8 floats, 128 KB) still fit
+    the block, two angles' or more do not and go to device memory, one (2
+    x nang, nlev, ncol, warps) buffer; at 3700 layers every angle count
+    does."""
+    monkeypatch.setattr(rte_kernels, "smem_limit", lambda dev: H100_OPTIN)
+    cpu = torch.device("cpu")
+    assert rte_kernels.banded_plan(n_angles, 60, 5, 256, cpu) == ((256, 1, 1), None)
+    for nlay, in_block in ((2000, n_angles == 1), (3700, False)):
+        assert (2 * n_angles * (nlay + 1) * 8 * 4 <= H100_OPTIN) == in_block
+        groups, partials = rte_kernels.banded_plan(n_angles, nlay, 3, 256, cpu)
+        assert groups == (256, 1, int(in_block)), (nlay, n_angles)
+        if in_block:
+            assert partials is None
+        else:
+            assert partials.shape == (2 * n_angles, nlay + 1, 3, 8)
+
+
+def _warp_add(v):
+    """common.cuh LevelSumsT::add over one warp, lane 0's total: v +=
+    shfl_down(v, o) for o = 16, 8, 4, 2, 1. v: (32,) per lane."""
+    v = v.clone()
+    for o in (16, 8, 4, 2, 1):
+        v = v + torch.cat([v[o:], torch.zeros_like(v[:o])])
+    return v[0]
+
+
+def _warp_add_fields(vals):
+    """common.cuh add_fields over one warp: vals (K, 32), field k of lane i.
+    Returns each field's total as the lane that stores it holds it."""
+    K = vals.shape[0]
+    P = 2 if K <= 2 else 4
+    a = torch.cat([vals, torch.zeros((P - K, 32), dtype=vals.dtype)])     # (P, lane)
+    lane = torch.arange(32)
+    xor = lambda x, bit: x[lane ^ bit]
+    upper = (lane & 16) != 0
+    send = [torch.where(upper, a[j], a[j + P // 2]) for j in range(P // 2)]
+    keep = [torch.where(upper, a[j + P // 2], a[j]) for j in range(P // 2)]
+    a = [k + xor(s, 16) for k, s in zip(keep, send)]
+    if P == 4:
+        upper = (lane & 8) != 0
+        a = [torch.where(upper, a[1], a[0]) + xor(torch.where(upper, a[0], a[1]), 8)]
+    x = a[0]
+    bit = 16 // P
+    while bit:
+        x = x + xor(x, bit)
+        bit //= 2
+    k = lane >> 4 if P == 2 else ((lane >> 4) & 1) * 2 + ((lane >> 3) & 1)
+    leaders = [(int(i), int(k[i])) for i in range(32) if i % (32 // P) == 0 and k[i] < K]
+    assert sorted(f for _, f in leaders) == list(range(K))  # one store per field
+    return {f: x[i] for i, f in leaders}
+
+
+@pytest.mark.parametrize("n_fields", [2, 3, 4])
+@pytest.mark.parametrize("idle", [0, 7])
+def test_transposed_warp_sums_have_the_shuffle_tree_bits(n_fields, idle):
+    """lw_noscat_banded reduces a level's angles together (add_fields: over
+    lane bit 4, and bit 3 for 3-4 fields, the lanes swap the fields they do
+    not keep, then a butterfly): each field's total equals add()'s
+    shuffle-down tree bit for bit, in f32 and f64, with idle lanes adding
+    zeros. (One field is add() itself.) Another tree, the butterfly's bits
+    taken 1, 2, 4, gives other bits on these values."""
+    rng = np.random.default_rng(n_fields + idle)
+    for dtype in (torch.float32, torch.float64):
+        vals = torch.from_numpy(rng.lognormal(0.0, 3.0, (n_fields, 32))).to(dtype)
+        if idle:
+            vals[:, -idle:] = 0.0
+        got = _warp_add_fields(vals)
+        for f in range(n_fields):
+            assert torch.equal(got[f], _warp_add(vals[f])), (f, dtype)
+    # the check has power: another tree differs on some of a few draws
+    lane = torch.arange(32)
+    other = lambda v: functools.reduce(lambda x, bit: x + x[lane ^ bit], (1, 2, 4, 8, 16), v)[0]
+    draws = [torch.from_numpy(rng.lognormal(0.0, 3.0, (n_fields, 32))).float() for _ in range(8)]
+    assert any(not torch.equal(other(v[f]), _warp_add_fields(v)[f]) for v in draws for f in range(n_fields))
