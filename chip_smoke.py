@@ -64,7 +64,9 @@ is non-zero:
    all-sky part after the all-sky slices, on theirs): the four sweeps from
    materialized optics and sources (lw_noscat_reduced, lw_2stream_reduced,
    sw_2stream_gpt, lw_noscat_gpt) against their twins at the small shape and
-   at 32768 x 60 (twins on 8192-column chunks; lw_2stream_reduced and
+   at 32768 x 60 (lw_noscat_reduced at 1 angle and at solve_lw's 3 angles
+   in one launch, bit for bit the one-angle launches summed; twins on
+   8192-column chunks; lw_2stream_reduced and
    sw_2stream_gpt also with ssa and g of an all-sky composition at 8192
    columns). Path A, LW two-stream on the two-kernel path:
    solve_lw(two_stream=True, impl="two_kernel") clear at 32768 x 60 against
@@ -73,7 +75,8 @@ is non-zero:
    memory (measured on 8192 columns and scaled) fits the card, else through
    solve_chunked, with the peak memory and the cloud cover bitwise. Path B,
    the sweep-only route: one step = solve_lw with 3 angles + solve_lw
-   two-stream + solve_sw through impl="sweep" at 32768 x 60 (3 steps): step
+   two-stream + solve_sw through impl="sweep" at 32768 x 60 (3 steps; the
+   3 angles in one lw_noscat_reduced launch): step
    time, columns/s, peak memory, launches per step, against the torch path
    on 4096 columns, LW TOA down = 0, night columns 0. Path C: each
    per-g-point sweep, summed over g-points, against its g-summed sibling
@@ -102,14 +105,15 @@ is non-zero:
    layers (ncol 512, LW 256 / SW 224 g-points), where their in-block level
    sums take more than the 48 KB of shared memory a block gets without
    asking. The lw2_mega and sw_clear_mega lines of every phase print their
-   design (the adding state in device memory, blocks per column) and the
-   device scratch of one call, measured: the peak allocated during the call
-   less what it returns. The optics_fused, interp_pt_eta, interp_minor and
+   design (the adding state in device memory, blocks per column;
+   sw_clear_mega also its staging chunk, staged bytes and registers) and
+   the device scratch of one call, measured: the peak allocated during the
+   call less what it returns. The optics_fused, interp_pt_eta, interp_minor and
    lw_clear_mega (clear, composed, f64) lines print theirs: the block shape,
    column tile or staging chunk, dynamic shared memory, ptxas registers and
    whether an L2 access-policy window is set (it is not: measured slower).
-   The lw_noscat_banded_reduced lines print its angles per launch, its
-   launch plan and its registers at 1 and 3 angles. The
+   The lw_noscat_banded_reduced and lw_noscat_reduced lines print their
+   angles per launch, launch plan and registers at 1 and 3 angles. The
    sw_2stream_reduced line prints its passes, its scratch arrays, the
    device scratch of one call, measured, and its registers.
 
@@ -427,7 +431,7 @@ def phase_build() -> float:
 
 
 def print_design(label, name, kern, ngpt) -> None:
-    """The design lw2_mega / sw_clear_mega run, and the device scratch of one
+    """The design lw2_mega runs, and the device scratch of one
     call ``kern``, measured: the peak allocated during the call less what is
     allocated after it (what was there before, and what the call returns)."""
     import torch
@@ -445,6 +449,35 @@ def print_design(label, name, kern, ngpt) -> None:
     phase("kernels", f"{label} {name} design: adding state in device memory, {plan.n_groups} block(s) of "
                      f"{plan.group} threads per column, level sums {sums}; device scratch of one call "
                      f"{scratch / 1e9:.3f} GB (measured)")
+
+
+def print_sw_mega_design(label, name, kern, args, comp) -> None:
+    """The design sw_clear_mega runs (csrc/sw_clear_mega.cu): the state
+    layout, the staging chunk, the staged and the whole dynamic shared
+    memory, the launch plan, ptxas registers of the variant launched, and
+    the device scratch of one call ``kern``, measured as print_design
+    measures it."""
+    import torch
+
+    from rrtmgp_tpu_torch.ops import mega
+
+    design = mega.sw_clear_mega_design(*args[:2], comp)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    out = kern()
+    torch.cuda.synchronize()
+    scratch = torch.cuda.max_memory_allocated() - torch.cuda.memory_allocated()
+    del out
+    mode = 2 if comp.seeded else int(comp.cld_mask is not None)
+    variant = (f"sw_clear_mega_kernelILb{int(comp.cld_bands is not None)}ELb{int(comp.aero_bands is not None)}"
+               f"ELi{mode}ELb{int(not design['in_block'])}")
+    sums = "in the block" if design["in_block"] else "warp partials in device memory"
+    phase("kernels", f"{label} {name} design: state four (nlay, ncol, ngpt) arrays in device memory "
+                     f"({design['state']}), staged gather by "
+                     f"chunks of {design['chunk']} layers (cp.async, double-buffered), staged {design['staged']} B, "
+                     f"dynamic shared memory {design['smem']} B, {design['n_groups']} block(s) of {design['group']} "
+                     f"threads per column, level sums {sums}; ptxas: {kernel_registers(variant)}; device scratch "
+                     f"of one call {scratch / 1e9:.3f} GB (measured)")
 
 
 def kernel_registers(fragment: str) -> str:
@@ -557,7 +590,7 @@ def check_kernels(label, lw, sw, atm, bcs_lw, bcs_sw, reps, results) -> None:
     design = mega.lw_clear_mega_design(*lw_args[:2])
     print_gather_design(label, "lw_clear_mega", design,
                         f"lw_clear_mega_kernelIfLb0ELb0ELi0ELb{int(not design['in_block'])}")
-    print_design(label, "sw_clear_mega", cases["sw_clear_mega"][0], sw.n_gpt)
+    print_sw_mega_design(label, "sw_clear_mega", cases["sw_clear_mega"][0], sw_args, mega.CLEAR)
 
 
 def check_f64_kernels(label, lw64, atm64, bcs_lw64, lw_f32_args, reps, results, chunk=None,
@@ -705,8 +738,8 @@ def check_allsky_kernels(label, L, atm, reps, results, chunk=None) -> None:
         check_case(f"{label} [{what}]", "sw_clear_mega_allsky", lambda: mega.sw_clear_mega(*sw_args, c),
                    lambda: twin(mega.sw_clear_mega_ref, *sw_args, c), reps if i == 1 else 0, results,
                    c.seeded, work("sw_clear_mega", sw_args, c))
-    print_design(f"{label} [seed+aerosols]", "sw_clear_mega_allsky",
-                 lambda: mega.sw_clear_mega(*sw_args, sw_cases[1][1]), sw.n_gpt)
+    print_sw_mega_design(f"{label} [seed+aerosols]", "sw_clear_mega_allsky",
+                         lambda: mega.sw_clear_mega(*sw_args, sw_cases[1][1]), sw_args, sw_cases[1][1])
     for i, lkp in enumerate((L.lookup_sw_aero, L.lookup_lw_aero)):
         a = (lkp, atm.aerosol_state, atm.rel_hum)
         nbnd = lkp.dust.shape[-1]
@@ -1162,29 +1195,33 @@ def two_kernel_args(lw, sw, atm, bcs_lw, bcs_sw):
     return lw_in, sw_in, plk_args, k12, k15
 
 
-def angles_args(k12, n: int):
-    """The arguments of lw_noscat_banded_angles as solve_lw builds them for
-    n quadrature angles on k12's optics (secants and weights as lists, the
-    incident flux k12's)."""
+def angles_args(head, inc, n: int):
+    """The arguments of a multi-angle LW sweep (lw_noscat_banded_angles,
+    lw_noscat_reduced_angles) as solve_lw builds them for n quadrature
+    angles: the one-angle wrapper's arguments ``head`` that precede the
+    angle, the secants and weights as lists, the incident flux ``inc``."""
     from rrtmgp_tpu_torch.angular import angular_discretization
 
     Ds, wts = angular_discretization(n)
-    return (*k12[:7], [float(d) for d in Ds], [float(w) for w in wts], k12[9])
+    return (*head, [float(d) for d in Ds], [float(w) for w in wts], inc)
 
 
-def print_banded_design(label, nang, nlay, ngpt) -> None:
-    """The design lw_noscat_banded runs (csrc/lw_noscat_banded.cu): angles
-    per launch, the launch plan for their 2 x nang level sums, registers."""
+def print_angles_design(label, name, nang, nlay, ngpt) -> None:
+    """The design of a multi-angle LW sweep (csrc/lw_noscat_banded.cu,
+    the summed sweep of csrc/lw_noscat_sources.cu): angles per launch, the
+    launch plan for their 2 x nang level sums, registers."""
     import torch
 
     from rrtmgp_tpu_torch.ops import rte_kernels
 
-    (group, n_groups, in_block), _ = rte_kernels.banded_plan(nang, nlay, 1, ngpt, torch.device(DEVICE))
+    kernel = {"lw_noscat_banded_reduced": "lw_noscat_banded_kernel",
+              "lw_noscat_reduced": "lw_noscat_reduced_kernel"}[name]
+    (group, n_groups, in_block), _ = rte_kernels.angles_plan(nang, nlay, 1, ngpt, torch.device(DEVICE))
     sums = "in the block" if in_block else "warp partials in device memory"
-    phase("kernels", f"{label} lw_noscat_banded_reduced design: {nang} angle(s) per launch (one radiance per angle in "
+    phase("kernels", f"{label} {name} design: {nang} angle(s) per launch (one radiance per angle in "
                      f"registers, 2 x {nang} level sums, a level's angles reduced over the warp together), "
                      f"{n_groups} block(s) of {group} threads per column, level sums {sums}; ptxas: "
-                     f"{kernel_registers(f'lw_noscat_banded_kernelIfLi{nang}ELb{int(not in_block)}')}")
+                     f"{kernel_registers(f'{kernel}IfLi{nang}ELb{int(not in_block)}')}")
 
 
 def check_two_kernel_kernels(label, lw, sw, atm, bcs_lw, bcs_sw, reps, results, chunk=None) -> None:
@@ -1217,13 +1254,13 @@ def check_two_kernel_kernels(label, lw, sw, atm, bcs_lw, bcs_sw, reps, results, 
     # K12 as the solves launch it: solve_lw's 3 angles in one launch (the
     # kernels line keeps this call's time), the same bytes as one angle and
     # 3 x the operations
-    k12_3 = angles_args(k12, 3)
+    k12_3 = angles_args(k12[:7], k12[9], 3)
     check_case(f"{label} [3 angles, one launch]", "lw_noscat_banded_reduced",
                lambda: rte_kernels.lw_noscat_banded_angles(*k12_3),
                lambda: twin(rte_kernels.lw_noscat_banded_angles_ref, k12_3), reps, results,
                work=Work(nbytes(k12_3), 3 * OPS_LW_SWEEP * points(lw)))
     for nang in (1, 3):
-        print_banded_design(label, nang, atm.nlay, lw.n_gpt)
+        print_angles_design(label, "lw_noscat_banded_reduced", nang, atm.nlay, lw.n_gpt)
     for name, (inp, tabs) in (("optics_fused_lw", lw_in), ("optics_fused_sw", sw_in)):
         print_gather_design(label, name, interp.optics_fused_design(tabs),
                             f"optics_fused_kernelIfLb{int(name.endswith('sw'))}")
@@ -1574,9 +1611,13 @@ def sweep_args(lw, sw, atm, bcs_lw, bcs_sw):
 
 def check_sweep_kernels(label, lw, sw, atm, bcs_lw, bcs_sw, reps, results, chunk=None):
     """The four sweeps from materialized optics and sources against their
-    twins (on column chunks when ``chunk`` is given), and path C: each
+    twins (on column chunks when ``chunk`` is given), lw_noscat_reduced also
+    at the sweep route's 3 angles in one launch (against the per-angle twin
+    sum, and bit for bit the one-angle launches summed), and path C: each
     per-g-point sweep summed over g-points against its g-summed sibling on
     the same inputs. Returns the launch counts of path C's two calls."""
+    import torch
+
     from rrtmgp_tpu_torch.ops import mega
     from rrtmgp_tpu_torch.ops import rte_kernels as rk
 
@@ -1593,6 +1634,24 @@ def check_sweep_kernels(label, lw, sw, atm, bcs_lw, bcs_sw, reps, results, chunk
     for name, kern, ref, args, ops in cases:
         check_case(label, name, lambda: kern(*args), lambda: twin(ref, args), reps, results,
                    work=Work(nbytes(args), ops))
+    # K13 as the sweep route launches it: solve_lw's 3 angles in one launch
+    # (the kernels line keeps this call's time), the same bytes as one angle
+    # and 3 x the operations; bit for bit the one-angle launches summed
+    k13_3 = angles_args(k13[:6], k13[8], 3)
+    check_case(f"{label} [3 angles, one launch]", "lw_noscat_reduced",
+               lambda: rk.lw_noscat_reduced_angles(*k13_3), lambda: twin(rk.lw_noscat_reduced_angles_ref, k13_3),
+               reps, results, work=Work(nbytes(k13_3), 3 * OPS_LW_SWEEP * points(lw)))
+    one, per = rk.lw_noscat_reduced_angles(*k13_3), None
+    for d, w in zip(k13_3[6], k13_3[7]):
+        f = rk.lw_noscat_reduced(*k13_3[:6], d, w, None if k13_3[8] is None else k13_3[8] * w)
+        per = f if per is None else (per[0] + f[0], per[1] + f[1])
+    same = all(torch.equal(a, b) for a, b in zip(one, per))
+    phase("kernels", f"{label} lw_noscat_reduced 3 angles in one launch vs 3 one-angle launches summed: "
+                     f"bitwise equal: {same}")
+    require(same, "lw_noscat_reduced: 3 angles in one launch differ from the one-angle launches summed")
+    del one, per
+    for nang in (1, 3):
+        print_angles_design(label, "lw_noscat_reduced", nang, atm.nlay, lw.n_gpt)
     # path C, the per-g-point entry points: driven once, summed, against the g-summed sweeps
     mega.reset_launch_counts()
     per_gpt = (("lw_noscat_gpt vs lw_noscat_reduced", rk.lw_noscat_gpt(*k16b), rk.lw_noscat_reduced(*k13)),
@@ -1711,7 +1770,7 @@ def phase_sweep_slice(lw, sw, atm, bcs_lw, bcs_sw) -> dict:
     steps = 3
     (f3, f2, fs), ms, lo, hi, peak, launches = timed_steps(step, steps)
     per_step = {k: n / steps for k, n in launches.items()}
-    want = {"lw_noscat_reduced": 3, "lw_2stream_reduced": 1, "sw_2stream_reduced": 1}
+    want = {"lw_noscat_reduced": 1, "lw_2stream_reduced": 1, "sw_2stream_reduced": 1}
     require(per_step == want, f"path B launches per step {per_step}, expected {want}")
     phase(tag, f"path B, LW 3 angles + LW two-stream + SW two-stream through impl='sweep' at {ncol} x {NLAY}: "
                f"median {ms:.3f} ms over {steps} steps (min {lo:.3f}, max {hi:.3f}), "

@@ -367,6 +367,43 @@ inline cudaError_t finish_sums(cudaStream_t stream, const R* part, int nf, int n
   return cudaGetLastError();
 }
 
+// The most quadrature angles one launch of the LW no-scattering sweeps
+// takes (lw_noscat_banded.cu, lw_noscat_sources.cu).
+constexpr int MAX_ANGLES = 4;
+
+// The quadrature of one launch: each angle's secant and pi x weight.
+template <typename R>
+struct AnglesT {
+  R ds[MAX_ANGLES], i2f[MAX_ANGLES];
+};
+
+// The quadrature from host arrays of nang floats, secants and pi x weights;
+// false unless 1 <= nang <= MAX_ANGLES.
+inline bool host_angles(int nang, const void* ds, const void* i2f, AnglesT<float>& ang) {
+  if (nang < 1 || nang > MAX_ANGLES) return false;
+  ang = AnglesT<float>{};
+  for (int k = 0; k < nang; ++k) {
+    ang.ds[k] = ((const float*)ds)[k];
+    ang.i2f[k] = ((const float*)i2f)[k];
+  }
+  return true;
+}
+
+// Completes the device partials of a launch over nang angles, (2 nang,
+// nlev, ncol, nw): angle k's up and down fields (2k, 2k + 1) into its
+// (nlev, ncol) slab of flux_up and flux_dn, scaled by its pi x weight, one
+// finish_level_sums per angle.
+inline cudaError_t finish_angle_sums(cudaStream_t stream, const float* partials, int nang, int nlev, int ncol, int nw,
+                                     const AnglesT<float>& ang, float* flux_up, float* flux_dn) {
+  const size_t field = (size_t)nlev * ncol * nw, level_plane = (size_t)nlev * ncol;
+  cudaError_t err = cudaSuccess;
+  for (int k = 0; k < nang && err == cudaSuccess; ++k) {
+    err = finish_sums<float>(stream, partials + 2 * k * field, 2, nlev, ncol, nw, SUMS_SCALED, ang.i2f[k],
+                             flux_up + k * level_plane, flux_dn + k * level_plane, nullptr);
+  }
+  return err;
+}
+
 // Launch shape shared by the megakernels: one block per column, one thread
 // per g-point rounded up to whole warps, nf per-level fields of per-warp
 // partial sums of type R in dynamic shared memory. Any ngpt up to 1024: the

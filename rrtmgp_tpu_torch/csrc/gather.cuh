@@ -1,11 +1,12 @@
 // The gas-optics table gather of the kernels redesigned around it
-// (optics_fused.cu, lw_clear_mega.cu, interp_pt_eta.cu, interp_minor.cu): a block stages the
-// interpolation inputs of the cells it computes in shared memory once, with
-// the table offsets already formed, and every thread, one per g-point, reads
-// them from there. The arithmetic is common.cuh's (tau_major, tau_minor,
-// tau_rayleigh, and interp_p_eta with the temperature blend for the Planck
-// fraction, as lw2_mega forms it) in the same operation order, so the
-// optics have the same bits; only where an operand comes from differs.
+// (optics_fused.cu, lw_clear_mega.cu, sw_clear_mega.cu, interp_pt_eta.cu,
+// interp_minor.cu): a block stages the interpolation inputs of the cells it
+// computes in shared memory once, with the table offsets already formed,
+// and every thread, one per g-point, reads them from there. The arithmetic
+// is common.cuh's (tau_major, tau_minor, tau_rayleigh, and interp_p_eta with
+// the temperature blend for the Planck fraction, as lw2_mega forms it) in
+// the same operation order, so the optics have the same bits; only where an
+// operand comes from differs.
 //
 // Per staged (layer, column), StagedCol: the temperature and pressure
 // weights with their complements, col_dry, the troposphere side and, SW,
@@ -18,8 +19,14 @@
 // strides (+ngpt for eta+1, +ntemp*neta*ngpt for p+1), so a point's
 // sixteen gathers are one add each. 32-bit offsets need tables of fewer
 // than 2^31 elements; the host checks (ops/_launch.py check_table_size).
+//
+// The megakernels (lw_clear_mega.cu, sw_clear_mega.cu) keep a block per
+// column and stage its layers by chunks, double-buffered with asynchronous
+// copies (cp_async, ChunkLayout); the tile kernels (optics_fused.cu,
+// interp_pt_eta.cu, interp_minor.cu) stage a layer of a column tile.
 #pragma once
 
+#include "allsky.cuh"
 #include "common.cuh"
 
 namespace rrtmgp {
@@ -71,6 +78,92 @@ __device__ __forceinline__ void set_band(const Dims& d, int jt, int jp, bool low
   s.cm1 = cm1;
   s.cm2 = cm2;
 }
+
+// An asynchronous copy of N bytes (4, 8 or 16) from device to shared memory.
+template <int N>
+__device__ __forceinline__ void cp_async(void* smem_dst, const void* gmem_src) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(smem_dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(d), "l"(gmem_src), "n"(N) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() { asm volatile("cp.async.wait_all;\n" ::: "memory"); }
+
+// A byte of a (nlay, ncol) byte array through the aligned 4-byte word that
+// holds it (cp.async copies 4, 8 or 16 bytes): the word lies in the
+// tensor's allocation, which starts 4-byte aligned.
+__device__ __forceinline__ const void* byte_word(const unsigned char* p) {
+  return (const void*)((size_t)p & ~(size_t)3);
+}
+
+__device__ __forceinline__ int word_byte(unsigned w, const unsigned char* p) {
+  return (int)((w >> (8 * ((size_t)p & 3))) & 0xffu);
+}
+
+// Shared memory of a megakernel block that stages its column by chunks of
+// CHUNK layers (lw_clear_mega.cu: SW false; sw_clear_mega.cu: SW true), in
+// bytes from the start: the in-block level sums (none when they go to
+// device memory), 32 ints for the McICA cover count, two raw chunks (what
+// cp.async copies: reals, then 4-byte words), one staged chunk (CHUNK
+// StagedCol and CHUNK x nbnd StagedBand; LW then each (layer, band)'s cloud
+// and aerosol absorption), and each interval's band and kminor base.
+// Nothing grows with nlay. A raw chunk holds the gas-optics inputs both
+// megakernels read (per layer ft, fp, col_dry; per (layer, band) fe1, fe2,
+// cm1, cm2; per (interval, layer) the minor scalings; words: per layer jt,
+// jp, per (layer, band) je1, je2, per layer the troposphere flag's word),
+// then each kernel's own: SW the Rayleigh amount per layer, LW the band
+// Planck values at the layer and its bottom level per (layer, band); with
+// clouds and aerosols their tau and ssa (SW also g) per (layer, band), the
+// aerosol flag's word and, in seed mode, the cloud fraction per layer. A
+// field a variant does not read takes no room.
+template <typename R, int CHUNK, bool SW, bool CLOUD, bool AERO, int MASK>
+struct ChunkLayout {
+  int ft, fp, cd, fe1, fe2, cm1, cm2, scal, ray, play, plev, ctau, cssa, cg, atau, assa, ag;  // in reals
+  int n_reals;
+  int jt, jp, je1, je2, lower, amask, cfrac;  // in words
+  size_t raw_bytes, raw0, raw1, cols, bands, cabs, aabs, mband, stage_end;
+
+  __host__ __device__ ChunkLayout(size_t sums_bytes, int nbnd, int n_minor) {
+    const int C = CHUNK, CB = CHUNK * nbnd;
+    int r = 0;
+    ft = r; r += C;
+    fp = r; r += C;
+    cd = r; r += C;
+    fe1 = r; r += CB;
+    fe2 = r; r += CB;
+    cm1 = r; r += CB;
+    cm2 = r; r += CB;
+    scal = r; r += n_minor * C;
+    ray = r; r += SW ? C : 0;
+    play = r; r += SW ? 0 : CB;
+    plev = r; r += SW ? 0 : CB;
+    ctau = r; r += CLOUD ? CB : 0;
+    cssa = r; r += CLOUD ? CB : 0;
+    cg = r; r += SW && CLOUD ? CB : 0;
+    atau = r; r += AERO ? CB : 0;
+    assa = r; r += AERO ? CB : 0;
+    ag = r; r += SW && AERO ? CB : 0;
+    n_reals = r;
+    int w = 0;
+    jt = w; w += C;
+    jp = w; w += C;
+    je1 = w; w += CB;
+    je2 = w; w += CB;
+    lower = w; w += C;
+    amask = w; w += AERO ? C : 0;
+    cfrac = w; w += MASK == MASK_SEED ? C : 0;
+    raw_bytes = align16((size_t)r * sizeof(R) + (size_t)w * 4);
+    raw0 = align16(sums_bytes + 32 * sizeof(int));
+    raw1 = raw0 + raw_bytes;
+    cols = raw1 + raw_bytes;
+    bands = align16(cols + sizeof(StagedCol<R>) * C);
+    cabs = bands + sizeof(StagedBand<R>) * CB;
+    aabs = cabs + (!SW && CLOUD ? sizeof(R) * CB : 0);
+    mband = align16(aabs + (!SW && AERO ? sizeof(R) * CB : 0));
+    stage_end = mband + sizeof(int) * 2 * n_minor;
+  }
+
+  __host__ __device__ static size_t align16(size_t x) { return (x + 15) & ~(size_t)15; }
+};
 
 // Shared memory of a block of the tile kernels that compute the minor
 // gases (optics_fused.cu, interp_minor.cu): the staged bands and columns

@@ -64,77 +64,9 @@ namespace rrtmgp {
 // Layers of one staged chunk.
 constexpr int LW_CHUNK = 8;
 
-template <int N>
-__device__ __forceinline__ void cp_async(void* smem_dst, const void* gmem_src) {
-  const unsigned d = (unsigned)__cvta_generic_to_shared(smem_dst);
-  asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(d), "l"(gmem_src), "n"(N) : "memory");
-}
-
-__device__ __forceinline__ void cp_async_wait_all() { asm volatile("cp.async.wait_all;\n" ::: "memory"); }
-
-// A byte of a (nlay, ncol) byte array through the aligned 4-byte word that
-// holds it (cp.async copies 4, 8 or 16 bytes): the word lies in the
-// tensor's allocation, which starts 4-byte aligned.
-__device__ __forceinline__ const void* byte_word(const unsigned char* p) {
-  return (const void*)((size_t)p & ~(size_t)3);
-}
-
-__device__ __forceinline__ int word_byte(unsigned w, const unsigned char* p) {
-  return (int)((w >> (8 * ((size_t)p & 3))) & 0xffu);
-}
-
-// Shared memory of one block, in bytes from the start: the in-block level
-// sums (none when they go to device memory), 32 ints for the McICA cover
-// count, then the staging area: two raw chunks (what cp.async copies) and
-// one staged chunk (what the layer steps read), and each interval's band
-// and kminor base.
+// Shared memory of one block (gather.cuh ChunkLayout).
 template <typename R, bool CLOUD, bool AERO, int MASK>
-struct LwLayout {
-  // raw chunk, reals then 4-byte words
-  int ft, fp, cd, fe1, fe2, cm1, cm2, scal, play, plev, ctau, cssa, atau, assa;  // in reals
-  int n_reals;
-  int jt, jp, je1, je2, lower, amask, cfrac;                                    // in words
-  size_t raw_bytes, raw0, raw1, cols, bands, cabs, aabs, mband, stage_end;
-
-  __host__ __device__ LwLayout(size_t sums_bytes, int nbnd, int n_minor) {
-    const int C = LW_CHUNK, CB = LW_CHUNK * nbnd;
-    int r = 0;
-    ft = r; r += C;
-    fp = r; r += C;
-    cd = r; r += C;
-    fe1 = r; r += CB;
-    fe2 = r; r += CB;
-    cm1 = r; r += CB;
-    cm2 = r; r += CB;
-    scal = r; r += n_minor * C;
-    play = r; r += CB;
-    plev = r; r += CB;
-    ctau = r; r += CLOUD ? CB : 0;
-    cssa = r; r += CLOUD ? CB : 0;
-    atau = r; r += AERO ? CB : 0;
-    assa = r; r += AERO ? CB : 0;
-    n_reals = r;
-    int w = 0;
-    jt = w; w += C;
-    jp = w; w += C;
-    je1 = w; w += CB;
-    je2 = w; w += CB;
-    lower = w; w += C;
-    amask = w; w += AERO ? C : 0;
-    cfrac = w; w += MASK == MASK_SEED ? C : 0;
-    raw_bytes = align16((size_t)r * sizeof(R) + (size_t)w * 4);
-    raw0 = align16(sums_bytes + 32 * sizeof(int));
-    raw1 = raw0 + raw_bytes;
-    cols = raw1 + raw_bytes;
-    bands = align16(cols + sizeof(StagedCol<R>) * C);
-    cabs = bands + sizeof(StagedBand<R>) * CB;
-    aabs = cabs + (CLOUD ? sizeof(R) * CB : 0);
-    mband = align16(aabs + (AERO ? sizeof(R) * CB : 0));
-    stage_end = mband + sizeof(int) * 2 * n_minor;
-  }
-
-  __host__ __device__ static size_t align16(size_t x) { return (x + 15) & ~(size_t)15; }
-};
+using LwLayout = ChunkLayout<R, LW_CHUNK, false, CLOUD, AERO, MASK>;
 
 template <typename R, bool CLOUD, bool AERO, int MASK, bool SPLIT>
 __global__ void lw_clear_mega_kernel(OpticsInT<R> in, TablesT<R> tb, Dims d, int n_minor, AllSkyIn as,

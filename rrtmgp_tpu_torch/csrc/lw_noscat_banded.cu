@@ -61,14 +61,6 @@
 
 namespace rrtmgp {
 
-constexpr int MAX_ANGLES = 4;
-
-// The quadrature of one launch: each angle's secant and pi x weight.
-template <typename R>
-struct AnglesT {
-  R ds[MAX_ANGLES], i2f[MAX_ANGLES];
-};
-
 template <typename R, int NANG, bool SPLIT>
 __global__ void lw_noscat_banded_kernel(const R* __restrict__ tau,       // (nlay, ncol, ngpt)
                                         const R* __restrict__ pfrac,     // (nlay, ncol, ngpt)
@@ -182,14 +174,7 @@ cudaError_t launch_lw_noscat_banded(const float* tau, const float* pfrac, const 
                                          d.nbnd, ang);
   err = cudaGetLastError();
   if (err != cudaSuccess || in_block) return err;
-  // angle k's two fields are adjacent in the partials: one finish per angle
-  const int nlev = d.nlay + 1, nw = n_groups * group / 32;
-  const size_t field = (size_t)nlev * d.ncol * nw, level_plane = (size_t)nlev * d.ncol;
-  for (int k = 0; k < NANG && err == cudaSuccess; ++k) {
-    err = finish_sums<float>(s, partials + 2 * k * field, 2, nlev, d.ncol, nw, SUMS_SCALED, ang.i2f[k],
-                             flux_up + k * level_plane, flux_dn + k * level_plane, nullptr);
-  }
-  return err;
+  return finish_angle_sums(s, partials, NANG, d.nlay + 1, d.ncol, n_groups * group / 32, ang, flux_up, flux_dn);
 }
 
 }  // namespace rrtmgp
@@ -206,13 +191,9 @@ extern "C" int rrtmgp_lw_noscat_banded(const void* tau, const void* pfrac, const
                                        int n_groups, int in_block, int nang, const void* ds, const void* i2f,
                                        void* stream) {
   using namespace rrtmgp;
-  if (nang < 1 || nang > MAX_ANGLES) return (int)cudaErrorInvalidValue;
+  AnglesT<float> ang;
+  if (!host_angles(nang, ds, i2f, ang)) return (int)cudaErrorInvalidValue;
   const Dims d{nlay, ncol, ngpt, nbnd, 0, 0, 0};
-  AnglesT<float> ang{};
-  for (int k = 0; k < nang; ++k) {
-    ang.ds[k] = ((const float*)ds)[k];
-    ang.i2f[k] = ((const float*)i2f)[k];
-  }
   const float *t = (const float*)tau, *pf = (const float*)pfrac, *lay = (const float*)plk_lay,
               *lev = (const float*)plk_lev, *sfc = (const float*)plk_sfc, *emis = (const float*)sfc_emis,
               *inc = (const float*)inc_flux;

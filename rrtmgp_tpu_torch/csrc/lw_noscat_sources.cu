@@ -1,56 +1,77 @@
-// LW no-scattering sweeps from materialized optics and Planck sources: one
-// quadrature angle, fluxes summed over g-points or kept per g-point.
+// LW no-scattering sweeps from materialized optics and Planck sources:
+// fluxes summed over g-points for 1 to 4 quadrature angles in one launch, or
+// kept per g-point for one angle.
 //
 // Replaces: rrtmgp_tpu/ops/pallas_rte.py, _lw_noscat_reduced_kernel (wrapper
-//   lw_noscat_pallas_reduced; here PER_GPT = false) and _lw_noscat_kernel
-//   (wrapper lw_noscat_pallas; PER_GPT = true): from tau and the layer
-//   sources per (layer, column, g-point), the level sources per (level,
-//   column, g-point), the surface source and emissivity and an optional
-//   incident flux, the Clough linear-in-tau layer emission, the downward
-//   radiance from the top, the surface reflection and emission, the upward
-//   radiance, and both as fluxes at every level: summed over g-points,
-//   (nlev, ncol), or per g-point, (nlev, ncol, ngpt).
+//   lw_noscat_pallas_reduced; here lw_noscat_reduced_kernel) and
+//   _lw_noscat_kernel (wrapper lw_noscat_pallas; here lw_noscat_gpt_kernel):
+//   from tau and the layer sources per (layer, column, g-point), the level
+//   sources per (level, column, g-point), the surface source and emissivity
+//   and an optional incident flux, the Clough linear-in-tau layer emission,
+//   the downward radiance from the top, the surface reflection and emission,
+//   the upward radiance, and both as fluxes at every level: summed over
+//   g-points, (nlev, ncol), or per g-point, (nlev, ncol, ngpt). The TPU
+//   kernel is called once per angle on the same optics; the summed sweep
+//   here takes every angle of a solve in one launch and writes each angle's
+//   fluxes, which the host adds in the angles' order.
 //
 // Bound on this card: device memory. At 32768 columns x 60 layers x 256
 //   g-points tau and the layer sources are 2 x 2.01 GB, the level sources
 //   2.05 GB: 6.1 GB read, 1.8 ms at 3.35 TB/s with the 16 MB of summed
-//   fluxes, 10.2 GB and 3.0 ms with the 2 x 2.05 GB of per-g-point fluxes.
-//   One exp and one divide per point and sweep.
+//   fluxes per angle, 10.2 GB and 3.0 ms with the 2 x 2.05 GB of per-g-point
+//   fluxes. Per point, angle and sweep one exp, one divide (the Clough
+//   factor) and the recurrence: the summed sweep's time goes to that
+//   per-angle work and the level sums, as lw_noscat_banded.cu's does.
+//   Measured on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md): 3 angles in
+//   one launch 6.0-6.1 ms (3.3x the byte bound), against 13.4-13.6 for a
+//   launch per angle; one angle 3.9-4.6 ms.
 //
 // Design: the source-fused sweep's mapping (lw_noscat_banded.cu): one block
-//   per column, one thread per g-point (more than 1024: a column over
-//   several blocks, the sums completed by finish_level_sums), the radiance in
-//   a register, layers looped. The upward sweep reads tau and the two sources
-//   again and recomputes the transmittance and the Clough factor
-//   (common.cuh's, the one every LW no-scattering kernel uses) instead of
-//   keeping (transmittance, upward source) scratch from the downward sweep:
-//   three arrays read again against two written and two read, so the reread
-//   moves fewer bytes and holds no memory; its price is a second exp and
-//   divide per point, which are not near the limit. PER_GPT is a template
-//   parameter: the summed variant takes the band-valued emissivity of the
-//   solves, (nbnd, ncol) through gpt2band, and adds per-warp partial sums in
-//   a fixed order (common.cuh, no atomics); the per-g-point variant takes the
-//   emissivity per g-point, (ncol, ngpt), as the TPU function does, stores
-//   each thread's two fluxes per level and uses no shared memory. The secant
-//   and the weight are launch arguments; a null incident flux is zero.
-//   Nothing of the TPU kernels' structure is kept: no column blocks, no lane
-//   or column padding, no transposed (ncol, nlev) output.
+//   per column, one thread per g-point (more than 1024, or a column whose
+//   level sums do not fit the block: the sums in device memory, completed by
+//   finish_level_sums, once per angle), the radiances in registers, layers
+//   looped. The summed sweep takes the angle count NANG as a template
+//   parameter: a thread keeps one radiance per angle; the loads of tau and
+//   the two sources happen once per (layer, g-point), and the slant depth,
+//   transmittance, Clough factor (common.cuh's, the one every LW
+//   no-scattering kernel uses) and recurrence once per angle, each angle
+//   with its own two level sums (fields 2k up, 2k + 1 down), a level's
+//   angles reduced together over the warp (common.cuh add_fields: the
+//   shuffle tree of add(), so the same bits). Every value is formed by the
+//   one-angle sweep's expressions in the same order, so an angle's fluxes
+//   have the bits of a launch for that angle alone; one angle is NANG 1. The
+//   upward sweep reads tau and the two sources again and recomputes the
+//   transmittance and the Clough factor instead of keeping (transmittance,
+//   upward source) scratch from the downward sweep: three arrays read again
+//   against two written and two read, so the reread moves fewer bytes and
+//   holds no memory. The summed sweep takes the band-valued emissivity of
+//   the solves, (nbnd, ncol) through gpt2band, and adds per-warp partial
+//   sums in a fixed order (no atomics); the incident flux is one (ncol,
+//   ngpt) slab per angle, split by weight on the host, or null (zero). The
+//   per-g-point sweep (one angle) takes the emissivity per g-point, (ncol,
+//   ngpt), as the TPU function does, stores each thread's two fluxes per
+//   level and uses no shared memory. The secants and the flux factors are
+//   launch arguments. Nothing of the TPU kernels' structure is kept: no
+//   column blocks, no lane or column padding, no transposed (ncol, nlev)
+//   output.
 #include "common.cuh"
 
 namespace rrtmgp {
 
-template <typename R, bool PER_GPT, bool SPLIT>
-__global__ void lw_noscat_sources_kernel(const R* __restrict__ tau,         // (nlay, ncol, ngpt)
+// The g-summed sweep over NANG angles.
+template <typename R, int NANG, bool SPLIT>
+__global__ void lw_noscat_reduced_kernel(const R* __restrict__ tau,         // (nlay, ncol, ngpt)
                                          const R* __restrict__ lay_source,  // (nlay, ncol, ngpt)
                                          const R* __restrict__ lev_source,  // (nlev, ncol, ngpt)
                                          const R* __restrict__ sfc_source,  // (ncol, ngpt)
-                                         const R* __restrict__ sfc_emis,    // (nbnd, ncol); PER_GPT (ncol, ngpt)
-                                         const int* __restrict__ gpt2band,  // (ngpt,); PER_GPT unused
-                                         const R* __restrict__ inc_flux,    // (ncol, ngpt) or null
-                                         R* __restrict__ flux_up,           // (nlev, ncol); PER_GPT (nlev, ncol, ngpt)
-                                         R* __restrict__ flux_dn,
-                                         R* __restrict__ partials,          // (2, nlev, ncol, column's warps) or null
-                                         int nlay, int ncol, int ngpt, R ds, R i2f) {
+                                         const R* __restrict__ sfc_emis,    // (nbnd, ncol)
+                                         const int* __restrict__ gpt2band,  // (ngpt,)
+                                         const R* __restrict__ inc_flux,    // (NANG, ncol, ngpt) or null
+                                         R* __restrict__ flux_up,           // (NANG, nlev, ncol)
+                                         R* __restrict__ flux_dn,           // (NANG, nlev, ncol)
+                                         R* __restrict__ partials,          // (2 NANG, nlev, ncol, column's warps)
+                                                                            // or null
+                                         int nlay, int ncol, int ngpt, AnglesT<R> ang) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int col = blockIdx.x;
   const int g = gpoint<SPLIT>();
@@ -58,15 +79,91 @@ __global__ void lw_noscat_sources_kernel(const R* __restrict__ tau,         // (
   const int nlev = nlay + 1;
   const auto sums = level_sums<R, SPLIT>(reinterpret_cast<R*>(smem_raw), partials, nlev);
   const R one = R(1), two = R(2);
+  // this thread's (layer or level 0, col, g); layer l at [l * stride]
   const size_t stride = (size_t)ncol * ngpt, g0 = (size_t)col * ngpt + g;
-  enum { UP = 0, DN = 1 };
-  // one level's value of one field: a store per g-point, or the level sum
-  auto put = [&](int f, int lev, R v) {
-    if constexpr (PER_GPT) {
-      if (active) (f == UP ? flux_up : flux_dn)[(size_t)lev * stride + g0] = v * i2f;
-    } else {
-      sums.add(f, lev, v);
+  const R *tau_p = tau + g0, *lay_p = lay_source + g0, *lev_p = lev_source + g0;
+
+  R rad[NANG];
+#pragma unroll
+  for (int k = 0; k < NANG; ++k) {
+    rad[k] = (active && inc_flux != nullptr) ? inc_flux[k * stride + g0] / ang.i2f[k] : R(0);
+  }
+  add_fields<NANG>(sums, 1, 2, nlay, rad);
+
+  // downward, TOA -> surface: layer l emits toward the surface with its
+  // bottom level's source
+  for (int l = nlay - 1; l >= 0; --l) {
+    if (active) {
+      const size_t s = (size_t)l * stride;
+      const R t = __ldg(tau_p + s), lay_val = __ldg(lay_p + s), lev_val = __ldg(lev_p + s);
+#pragma unroll
+      for (int k = 0; k < NANG; ++k) {
+        const R tau_loc = t * ang.ds[k];
+        const R trans = r_exp(-tau_loc);
+        const R fact = clough_factor(tau_loc, trans);
+        rad[k] = trans * rad[k] + ((one - trans) * lev_val + two * fact * (lay_val - lev_val));
+      }
     }
+    add_fields<NANG>(sums, 1, 2, l, rad);
+  }
+
+  // surface reflection and emission
+  if (active) {
+    const R emis = __ldg(sfc_emis + (size_t)__ldg(gpt2band + g) * ncol + col);
+    const R emitted = emis * __ldg(sfc_source + g0);
+#pragma unroll
+    for (int k = 0; k < NANG; ++k) rad[k] = rad[k] * (one - emis) + emitted;
+  }
+  add_fields<NANG>(sums, 0, 2, 0, rad);
+
+  // upward: layer l emits toward space with its top level's source
+  for (int l = 0; l < nlay; ++l) {
+    if (active) {
+      const size_t s = (size_t)l * stride;
+      const R t = __ldg(tau_p + s), lay_val = __ldg(lay_p + s), lev_val = __ldg(lev_p + s + stride);
+#pragma unroll
+      for (int k = 0; k < NANG; ++k) {
+        const R tau_loc = t * ang.ds[k];
+        const R trans = r_exp(-tau_loc);
+        const R fact = clough_factor(tau_loc, trans);
+        rad[k] = trans * rad[k] + ((one - trans) * lev_val + two * fact * (lay_val - lev_val));
+      }
+    }
+    add_fields<NANG>(sums, 0, 2, l + 1, rad);
+  }
+
+  if constexpr (!SPLIT) {
+    __syncthreads();
+    for (int lev = threadIdx.x; lev < nlev; lev += blockDim.x) {
+#pragma unroll
+      for (int k = 0; k < NANG; ++k) {
+        const size_t o = ((size_t)k * nlev + lev) * ncol + col;
+        flux_up[o] = sums.total(2 * k, lev) * ang.i2f[k];
+        flux_dn[o] = sums.total(2 * k + 1, lev) * ang.i2f[k];
+      }
+    }
+  }
+}
+
+// The per-g-point sweep, one angle: each thread stores its fluxes.
+template <typename R, bool SPLIT>
+__global__ void lw_noscat_gpt_kernel(const R* __restrict__ tau,         // (nlay, ncol, ngpt)
+                                     const R* __restrict__ lay_source,  // (nlay, ncol, ngpt)
+                                     const R* __restrict__ lev_source,  // (nlev, ncol, ngpt)
+                                     const R* __restrict__ sfc_source,  // (ncol, ngpt)
+                                     const R* __restrict__ sfc_emis,    // (ncol, ngpt)
+                                     const R* __restrict__ inc_flux,    // (ncol, ngpt) or null
+                                     R* __restrict__ flux_up,           // (nlev, ncol, ngpt)
+                                     R* __restrict__ flux_dn,
+                                     int nlay, int ncol, int ngpt, R ds, R i2f) {
+  const int col = blockIdx.x;
+  const int g = gpoint<SPLIT>();
+  const bool active = g < ngpt;
+  const R one = R(1), two = R(2);
+  const size_t stride = (size_t)ncol * ngpt, g0 = (size_t)col * ngpt + g;
+  // one level's flux of this thread
+  auto put = [&](R* flux, int lev, R v) {
+    if (active) flux[(size_t)lev * stride + g0] = v * i2f;
   };
   // layer l's transmittance and its emission toward the level with source lev_val
   auto emission = [&](int l, R lev_val, R& trans) {
@@ -81,23 +178,23 @@ __global__ void lw_noscat_sources_kernel(const R* __restrict__ tau,         // (
   // bottom level's source
   R i_dn = R(0);
   if (active && inc_flux != nullptr) i_dn = inc_flux[g0] / i2f;
-  put(DN, nlay, i_dn);
+  put(flux_dn, nlay, i_dn);
   for (int l = nlay - 1; l >= 0; --l) {
     if (active) {
       R trans;
       const R s_dn = emission(l, __ldg(lev_source + (size_t)l * stride + g0), trans);
       i_dn = trans * i_dn + s_dn;
     }
-    put(DN, l, i_dn);
+    put(flux_dn, l, i_dn);
   }
 
   // surface reflection and emission
   R i_up = R(0);
   if (active) {
-    const R emis = PER_GPT ? __ldg(sfc_emis + g0) : __ldg(sfc_emis + (size_t)__ldg(gpt2band + g) * ncol + col);
+    const R emis = __ldg(sfc_emis + g0);
     i_up = i_dn * (one - emis) + emis * __ldg(sfc_source + g0);
   }
-  put(UP, 0, i_up);
+  put(flux_up, 0, i_up);
 
   // upward: layer l emits toward space with its top level's source
   for (int l = 0; l < nlay; ++l) {
@@ -106,61 +203,76 @@ __global__ void lw_noscat_sources_kernel(const R* __restrict__ tau,         // (
       const R s_up = emission(l, __ldg(lev_source + (size_t)(l + 1) * stride + g0), trans);
       i_up = trans * i_up + s_up;
     }
-    put(UP, l + 1, i_up);
-  }
-
-  if constexpr (!PER_GPT && !SPLIT) {
-    __syncthreads();
-    for (int lev = threadIdx.x; lev < nlev; lev += blockDim.x) {
-      flux_up[(size_t)lev * ncol + col] = sums.total(UP, lev) * i2f;
-      flux_dn[(size_t)lev * ncol + col] = sums.total(DN, lev) * i2f;
-    }
+    put(flux_up, l + 1, i_up);
   }
 }
 
-// group, n_groups, in_block: the host's launch plan; partials (2, nlev, ncol,
-// column's warps) for the summed variant unless in_block, else null.
-template <bool PER_GPT>
-int launch_lw_noscat_sources(const void* tau, const void* lay_source, const void* lev_source,
-                             const void* sfc_source, const void* sfc_emis, const void* gpt2band,
-                             const void* inc_flux, void* flux_up, void* flux_dn, void* partials, int nlay, int ncol,
-                             int ngpt, int group, int n_groups, bool in_block, float ds, float i2f, void* stream) {
-  const Dims d{nlay, ncol, ngpt, 0, 0, 0, 0};
-  const MegaLaunch m = group_launch<float>(d, PER_GPT ? 0 : 2, group, n_groups, in_block);
-  const cudaStream_t s = (cudaStream_t)stream;
-  auto kernel = in_block ? lw_noscat_sources_kernel<float, PER_GPT, false> : lw_noscat_sources_kernel<float, PER_GPT, true>;
+template <int NANG>
+cudaError_t launch_lw_noscat_reduced(const float* tau, const float* lay_source, const float* lev_source,
+                                     const float* sfc_source, const float* sfc_emis, const int* gpt2band,
+                                     const float* inc_flux, float* flux_up, float* flux_dn, float* partials,
+                                     const Dims& d, int group, int n_groups, bool in_block,
+                                     const AnglesT<float>& ang, cudaStream_t s) {
+  const MegaLaunch m = group_launch<float>(d, 2 * NANG, group, n_groups, in_block);
+  auto kernel = in_block ? lw_noscat_reduced_kernel<float, NANG, false> : lw_noscat_reduced_kernel<float, NANG, true>;
   cudaError_t err = prepare_smem(kernel, m.smem);
-  if (err != cudaSuccess) return (int)err;
-  kernel<<<m.grid, m.block, m.smem, s>>>(
-      (const float*)tau, (const float*)lay_source, (const float*)lev_source, (const float*)sfc_source,
-      (const float*)sfc_emis, (const int*)gpt2band, (const float*)inc_flux, (float*)flux_up, (float*)flux_dn,
-      in_block ? nullptr : (float*)partials, nlay, ncol, ngpt, ds, i2f);
+  if (err != cudaSuccess) return err;
+  kernel<<<m.grid, m.block, m.smem, s>>>(tau, lay_source, lev_source, sfc_source, sfc_emis, gpt2band, inc_flux,
+                                         flux_up, flux_dn, in_block ? nullptr : partials, d.nlay, d.ncol, d.ngpt,
+                                         ang);
   err = cudaGetLastError();
-  if (err != cudaSuccess || PER_GPT || in_block) return (int)err;
-  return (int)finish_sums<float>(s, (const float*)partials, 2, nlay + 1, ncol, n_groups * group / 32, SUMS_SCALED,
-                                 i2f, (float*)flux_up, (float*)flux_dn, nullptr);
+  if (err != cudaSuccess || in_block) return err;
+  return finish_angle_sums(s, partials, NANG, d.nlay + 1, d.ncol, n_groups * group / 32, ang, flux_up, flux_dn);
 }
 
 }  // namespace rrtmgp
 
-// f32; ds is the secant of the angle, i2f = pi * weight. Summed over
-// g-points: sfc_emis (nbnd, ncol) with gpt2band, fluxes (nlev, ncol).
+// f32, summed over g-points: nang angles (1 to 4), ds: their secants and
+// i2f: pi x their weights, each a host array of nang floats; sfc_emis
+// (nbnd, ncol) with gpt2band; inc_flux (nang, ncol, ngpt) or null; flux_up,
+// flux_dn (nang, nlev, ncol). group, n_groups, in_block: the host's launch
+// plan for 2 x nang fields; partials (2 nang, nlev, ncol, column's warps)
+// unless in_block, else null.
 extern "C" int rrtmgp_lw_noscat_reduced(const void* tau, const void* lay_source, const void* lev_source,
                                         const void* sfc_source, const void* sfc_emis, const void* gpt2band,
                                         const void* inc_flux, void* flux_up, void* flux_dn, void* partials,
                                         int nlay, int ncol, int ngpt, int group, int n_groups, int in_block,
-                                        float ds, float i2f, void* stream) {
-  return rrtmgp::launch_lw_noscat_sources<false>(tau, lay_source, lev_source, sfc_source, sfc_emis, gpt2band,
-                                                 inc_flux, flux_up, flux_dn, partials, nlay, ncol, ngpt, group,
-                                                 n_groups, in_block != 0, ds, i2f, stream);
+                                        int nang, const void* ds, const void* i2f, void* stream) {
+  using namespace rrtmgp;
+  AnglesT<float> ang;
+  if (!host_angles(nang, ds, i2f, ang)) return (int)cudaErrorInvalidValue;
+  const Dims d{nlay, ncol, ngpt, 0, 0, 0, 0};
+  const float *t = (const float*)tau, *lay = (const float*)lay_source, *lev = (const float*)lev_source,
+              *sfc = (const float*)sfc_source, *emis = (const float*)sfc_emis, *inc = (const float*)inc_flux;
+  const int* g2b = (const int*)gpt2band;
+  float *up = (float*)flux_up, *dn = (float*)flux_dn, *part = (float*)partials;
+  const cudaStream_t s = (cudaStream_t)stream;
+  const bool ib = in_block != 0;
+  cudaError_t err;
+  switch (nang) {
+    case 1: err = launch_lw_noscat_reduced<1>(t, lay, lev, sfc, emis, g2b, inc, up, dn, part, d, group, n_groups,
+                                              ib, ang, s); break;
+    case 2: err = launch_lw_noscat_reduced<2>(t, lay, lev, sfc, emis, g2b, inc, up, dn, part, d, group, n_groups,
+                                              ib, ang, s); break;
+    case 3: err = launch_lw_noscat_reduced<3>(t, lay, lev, sfc, emis, g2b, inc, up, dn, part, d, group, n_groups,
+                                              ib, ang, s); break;
+    default: err = launch_lw_noscat_reduced<4>(t, lay, lev, sfc, emis, g2b, inc, up, dn, part, d, group,
+                                               n_groups, ib, ang, s);
+  }
+  return (int)err;
 }
 
-// Per g-point: sfc_emis (ncol, ngpt), fluxes (nlev, ncol, ngpt).
+// Per g-point, one angle: sfc_emis (ncol, ngpt), fluxes (nlev, ncol, ngpt).
 extern "C" int rrtmgp_lw_noscat_gpt(const void* tau, const void* lay_source, const void* lev_source,
                                     const void* sfc_source, const void* sfc_emis, const void* inc_flux,
                                     void* flux_up, void* flux_dn, int nlay, int ncol, int ngpt, int group,
                                     int n_groups, float ds, float i2f, void* stream) {
-  return rrtmgp::launch_lw_noscat_sources<true>(tau, lay_source, lev_source, sfc_source, sfc_emis, nullptr,
-                                                inc_flux, flux_up, flux_dn, nullptr, nlay, ncol, ngpt, group,
-                                                n_groups, n_groups == 1, ds, i2f, stream);
+  using namespace rrtmgp;
+  const Dims d{nlay, ncol, ngpt, 0, 0, 0, 0};
+  const MegaLaunch m = group_launch<float>(d, 0, group, n_groups, n_groups == 1);
+  auto kernel = n_groups == 1 ? lw_noscat_gpt_kernel<float, false> : lw_noscat_gpt_kernel<float, true>;
+  kernel<<<m.grid, m.block, 0, (cudaStream_t)stream>>>(
+      (const float*)tau, (const float*)lay_source, (const float*)lev_source, (const float*)sfc_source,
+      (const float*)sfc_emis, (const float*)inc_flux, (float*)flux_up, (float*)flux_dn, nlay, ncol, ngpt, ds, i2f);
+  return (int)cudaGetLastError();
 }

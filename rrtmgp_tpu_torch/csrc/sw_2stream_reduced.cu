@@ -44,14 +44,18 @@
 //   ms, PERF.md).
 //   The coefficient function is sw_twostream.cuh's sw_coeffs, and every
 //   value is formed by the expressions of the SW megakernel's passes, so the
-//   two routes agree to the last bit on equal optics. The scratch is two
-//   (nlay, ncol, ngpt) arrays in device memory: the beam, whose slot pass 2
-//   reads before it writes the albedo there (a layer ahead), and the
-//   source. A third array for the albedo moved the same bytes and took
-//   1.76 GB more at 32768 x 60 x 224 (PERF.md). Storing the
-//   coefficients instead (Rdir * beam, Tdir * beam, Rdif and Tdif in four
-//   arrays rewritten by the adding pass, as the SW megakernel does) would
-//   move 72 bytes a point instead of 44. mu0 guarded by eps enters
+//   two routes agree to the last bit on equal optics. Passes 2 and 3 are
+//   those of sw_twostream.cuh's sw_recomputed_passes (there without g),
+//   which the SW megakernel runs on clear sky; this kernel keeps them
+//   inline, because calling that function took it from 53-56 to 57-62
+//   registers and 8.2 to 8.7 ms (PERF.md). The scratch is two (nlay, ncol, ngpt) arrays
+//   in device memory: the beam, whose slot pass 2 reads before it writes
+//   the albedo there (a layer ahead), and the source. A third array for the
+//   albedo moved the same bytes and took 1.76 GB more at 32768 x 60 x 224
+//   (PERF.md). Storing the coefficients instead (Rdir * beam, Tdir * beam,
+//   Rdif and Tdif in four arrays rewritten by the adding pass, as the SW
+//   megakernel does all-sky) would move 72 bytes a point instead of 44.
+//   mu0 guarded by eps enters
 //   only the beam transmittance. Night columns (mu0 <= 0) give finite or
 //   non-finite values that the caller replaces by zeros. The real type and
 //   has_g are template parameters (the entry points build f32). Nothing of

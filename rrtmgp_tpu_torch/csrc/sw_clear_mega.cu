@@ -11,140 +11,340 @@
 //   plus 4 kminor per covering minor interval) from tables that stay in L2,
 //   does ~150 flops with three exp, one sqrt and two divides: ~1 ms at the
 //   card's f32 rate; its inputs and outputs are ~0.1 GB. What it costs
-//   beyond: the adding method's state, four floats per (layer, g-point) that
-//   the passes write, read and rewrite (~28 GB of traffic a call), and the
-//   latency of the dependent table loads.
+//   beyond: the adding method's state in device memory, which the passes
+//   write, read and rewrite: all-sky 64 bytes a point (28.2 GB, 8.4 ms at
+//   3.35 TB/s at this size), clear sky 48 (21.1 GB, 6.3 ms). Measured on an
+//   NVIDIA H100 80GB HBM3 at 700 W (PERF.md): clear 12.6-12.9 ms, of which
+//   the optics pass alone took ~7 before the recompute; all-sky (McICA seed
+//   + aerosols, 75748 columns) 37.8-38.0.
 //
 // Design: one block per column, one thread per g-point (up to 1024; more
 //   spread a column over several blocks of the host's launch plan, the level
-//   partials completed in warp order by finish_level_sums, the same bits).
+//   partials completed in warp order by finish_level_sums, the same bits, as
+//   are a column's sums when they would not fit the block's shared memory).
 //   The optics loop runs top-down, which is also the direct beam's
 //   direction: the beam rides in a register (beam *= exp(-tau/mu0) per
-//   layer) and the coefficients go to the state already multiplied by the
-//   beam at the top of their layer. The bottom-up adding pass overwrites the
-//   state with what the top-down flux pass needs (sw_twostream.cuh, shared
-//   with the sweep of the two-kernel path), so no (nlev, ncol, ngpt)
-//   albedo/source arrays exist. The state lives in device memory, four
-//   (nlay, ncol, ngpt) arrays: the optics loop stores at the cell's offset,
-//   which it has at hand, and the passes address each thread's slots from a
-//   pointer to its (col, g) by layer. The TPU kernel keeps it in VMEM; here a
-//   block's whole state in shared memory (one warp of g-points a block, 7
-//   warps per SM at 60 layers) and the bottom layers of it beside a full
-//   block of g-points were both slower than device memory at full width: the
-//   optics loop waits on dependent table loads and needs the warps that
-//   shared memory would take (PERF.md). mu0 guarded by eps enters only
-//   the beam transmittance; the coefficients see the raw mu0. Night columns
-//   are zeroed by the caller. All-sky: the optics loop runs top-down, which
-//   is the McICA recurrence's direction, so in seed mode the mask is drawn
-//   inline (mcica.cuh) and the column's cloud cover counted; clouds and
-//   aerosols compose under their masks (allsky.cuh). Cloud, aerosol, mask
-//   mode and the split of a column are template parameters: the clear
-//   variant is the clear-sky kernel, with g = 0 folded in.
+//   layer). The state lives in device memory, four (nlay, ncol, ngpt)
+//   arrays, each thread's slots addressed from a pointer to its (col, g) by
+//   layer, in one of the two layouts of sw_twostream.cuh:
+//   - all-sky: the coefficients, already multiplied by the beam at the top
+//     of their layer (Rdir * beam, Tdir * beam, Rdif, Tdif), which the
+//     bottom-up adding pass overwrites with what the top-down flux pass
+//     needs (sw_adding_and_fluxes);
+//   - clear sky: tau, ssa and the beam at each layer's top, and the adding
+//     and flux passes compute the coefficients again as sw_2stream_reduced.cu
+//     does (sw_recomputed_passes: the albedo over the beam's slot, the
+//     source in the fourth array, each pass reading a layer ahead).
+//   Both give the same bits. The recomputed passes move 48 bytes a point
+//   against 64 and take the coefficients' arithmetic off the optics pass:
+//   clear 17.2-17.7 -> 13.1-13.4 ms; all-sky they would need a fifth array
+//   for g and took 46.4-46.7 ms against 37.8-38.0 (PERF.md). The TPU
+//   kernel keeps its state in VMEM; here a block's whole state in shared
+//   memory (one warp of g-points a block) and the bottom layers of it beside
+//   a full block of g-points were both slower than device memory at full
+//   width (PERF.md).
+//
+//   What a column's g-points share is staged in shared memory by chunks of
+//   SW_CHUNK layers, as lw_clear_mega.cu stages it (gather.cuh ChunkLayout):
+//   the block copies chunk k+1's inputs with asynchronous copies (cp.async)
+//   while it computes chunk k, then forms each (layer, band)'s kmajor and
+//   Rayleigh corner offsets, kminor rows and eta weights once (set_band
+//   with the troposphere side's Rayleigh corners), so a thread's layer step
+//   reads them, the weights, col_dry and the Rayleigh column amount, the
+//   minor scalings and, all-sky, the cloud and aerosol band properties, the
+//   aerosol flag and the cloud fraction from shared memory instead of ~20
+//   dependent global loads with 64-bit offsets; each interval's band and
+//   kminor base are staged once per block. The aerosol properties are
+//   (nlay, nbnd, ncol): a chunk's are 4-byte copies strided by ncol. Chunks
+//   of 4 and 16 layers ran within 2% of 8 (PERF.md). The optics keep
+//   common.cuh's operation order (tau = max(major + minor + ray, 0), ssa =
+//   ray / tau, then allsky.cuh's increments), so every output has the bits
+//   of the unstaged kernel. mu0 guarded by eps enters only the beam
+//   transmittance; the coefficients see the raw mu0. Night columns are
+//   zeroed by the caller. All-sky: top-down is the McICA recurrence's
+//   direction, so in seed mode the mask is drawn inline (mcica.cuh, uniform
+//   l * ngpt + g, layers in the same order) and the column's cloud cover
+//   counted after the loop. Cloud, aerosol, mask mode and the split of a
+//   column are template parameters: the clear variant is the clear-sky
+//   kernel, with g = 0 folded in.
 #include "allsky.cuh"
 #include "common.cuh"
+#include "gather.cuh"
 #include "sw_twostream.cuh"
 
 namespace rrtmgp {
 
+// Layers of one staged chunk.
+constexpr int SW_CHUNK = 8;
+
+// Shared memory of one block (gather.cuh ChunkLayout).
+template <bool CLOUD, bool AERO, int MASK>
+using SwLayout = ChunkLayout<float, SW_CHUNK, true, CLOUD, AERO, MASK>;
+
 template <bool CLOUD, bool AERO, int MASK, bool SPLIT>
-__global__ void sw_clear_mega_kernel(OpticsIn in, Tables tb, Dims d, AllSkyIn as,
+__global__ void sw_clear_mega_kernel(OpticsIn in, Tables tb, Dims d, int n_minor, AllSkyIn as,
                                      const float* __restrict__ mu0_col,   // (ncol,)
                                      const float* __restrict__ toa_gpt,   // (ncol, ngpt)
                                      const float* __restrict__ alb_dir,   // (nbnd, ncol)
                                      const float* __restrict__ alb_dif,   // (nbnd, ncol)
                                      const float* __restrict__ inc_dif,   // (ncol, ngpt) or null
-                                     float* __restrict__ s_rdir,          // 4 x (nlay, ncol, ngpt)
-                                     float* __restrict__ s_tdir,
-                                     float* __restrict__ s_rdif,
-                                     float* __restrict__ s_tdif,
+                                     float* __restrict__ s0,              // 4 x (nlay, ncol, ngpt): the state
+                                     float* __restrict__ s1,
+                                     float* __restrict__ s2,
+                                     float* __restrict__ s3,
                                      float* __restrict__ partials,        // SPLIT: (3, nlev, ncol, column's warps)
                                      int* __restrict__ cover_part,        // SPLIT, MASK_SEED: (ncol, groups)
                                      float* __restrict__ flux_up,         // 3 x (nlev, ncol)
                                      float* __restrict__ flux_dn,
                                      float* __restrict__ flux_dir,
                                      float* __restrict__ cover) {         // (ncol,), MASK_SEED
-  extern __shared__ float smem[];
+  extern __shared__ __align__(16) unsigned char smem_raw[];
   const int col = blockIdx.x;
   const int g = gpoint<SPLIT>();
   const bool active = g < d.ngpt;
-  const int nlay = d.nlay, nlev = d.nlay + 1, ncol = d.ncol;
-  const auto sums = level_sums<float, SPLIT>(smem, partials, nlev);
-  const size_t g0 = (size_t)col * d.ngpt + g;
-  const int band = active ? __ldg(tb.gpt2band + g) : 0;
+  const int nlay = d.nlay, nlev = d.nlay + 1, ncol = d.ncol, nbnd = d.nbnd;
+  const size_t sums_bytes = SPLIT ? 0 : sizeof(float) * 3 * nlev * (blockDim.x >> 5);
+  const SwLayout<CLOUD, AERO, MASK> lay(sums_bytes, nbnd, n_minor);
+  int* count32 = reinterpret_cast<int*>(smem_raw + sums_bytes);
+  StagedCol<float>* s_col = reinterpret_cast<StagedCol<float>*>(smem_raw + lay.cols);
+  StagedBand<float>* s_band = reinterpret_cast<StagedBand<float>*>(smem_raw + lay.bands);
+  int* mband = reinterpret_cast<int*>(smem_raw + lay.mband);
+  int* mkbase = mband + n_minor;
+  const auto sums = level_sums<float, SPLIT>(reinterpret_cast<float*>(smem_raw), partials, nlev);
+  const size_t lay_plane = (size_t)nlay * ncol;
+  const int tid = threadIdx.x, nthr = blockDim.x;
+  const int n_chunks = (nlay + SW_CHUNK - 1) / SW_CHUNK;
+
+  // chunk k holds layers top(k), top(k) - 1, ..., slot j = top(k) - l
+  auto chunk_top = [&](int k) { return nlay - 1 - k * SW_CHUNK; };
+  auto chunk_len = [&](int k) { return min(SW_CHUNK, chunk_top(k) + 1); };
+  // chunk k's raw buffer: its reals, then its 4-byte words
+  auto raw_of = [&](int k) { return reinterpret_cast<float*>(smem_raw + ((k & 1) ? lay.raw1 : lay.raw0)); };
+  auto raw_words = [&](int k) { return reinterpret_cast<int*>(raw_of(k) + lay.n_reals); };
+  // the asynchronous copies of chunk k's inputs
+  auto copy_chunk = [&](int k) {
+    float* rr = raw_of(k);
+    int* rw = raw_words(k);
+    const int top = chunk_top(k), n = chunk_len(k), nb = n * nbnd;
+    for (int e = tid; e < n; e += nthr) {
+      const size_t lc = (size_t)(top - e) * ncol + col;
+      cp_async<4>(rr + lay.ft + e, in.ftemp + lc);
+      cp_async<4>(rr + lay.fp + e, in.fpress + lc);
+      cp_async<4>(rr + lay.cd + e, in.col_dry + lc);
+      cp_async<4>(rr + lay.ray + e, in.ray_factor + lc);
+      cp_async<4>(rw + lay.jt + e, in.jtemp + lc);
+      cp_async<4>(rw + lay.jp + e, in.jpress + lc);
+      cp_async<4>(rw + lay.lower + e, byte_word(in.tropo_lower + lc));
+      if constexpr (AERO) cp_async<4>(rw + lay.amask + e, byte_word(as.amask + lc));
+      if constexpr (MASK == MASK_SEED) cp_async<4>(rw + lay.cfrac + e, as.cld_frac + lc);
+    }
+    for (int e = tid; e < nb; e += nthr) {
+      const int j = e / nbnd, b = e - j * nbnd, l = top - j;
+      const size_t lcb = ((size_t)l * ncol + col) * nbnd + b;
+      cp_async<4>(rr + lay.fe1 + e, in.feta1 + lcb);
+      cp_async<4>(rr + lay.fe2 + e, in.feta2 + lcb);
+      cp_async<4>(rr + lay.cm1 + e, in.cmix1 + lcb);
+      cp_async<4>(rr + lay.cm2 + e, in.cmix2 + lcb);
+      cp_async<4>(rw + lay.je1 + e, in.jeta1 + lcb);
+      cp_async<4>(rw + lay.je2 + e, in.jeta2 + lcb);
+      if constexpr (CLOUD) {
+        cp_async<4>(rr + lay.ctau + e, as.ctau + lcb);
+        cp_async<4>(rr + lay.cssa + e, as.cssa + lcb);
+        cp_async<4>(rr + lay.cg + e, as.cg + lcb);
+      }
+      if constexpr (AERO) {
+        // (nlay, nbnd, ncol): a column's values are ncol apart
+        const size_t ab = ((size_t)l * nbnd + b) * ncol + col;
+        cp_async<4>(rr + lay.atau + e, as.atau + ab);
+        cp_async<4>(rr + lay.assa + e, as.assa + ab);
+        cp_async<4>(rr + lay.ag + e, as.ag + ab);
+      }
+    }
+    for (int e = tid; e < n_minor * n; e += nthr) {
+      const int i = e / n, j = e - i * n;
+      cp_async<4>(rr + lay.scal + i * SW_CHUNK + j, in.minor_scaling + i * lay_plane + (size_t)(top - j) * ncol + col);
+    }
+  };
+  // chunk k's raw inputs -> its staged offsets and weights
+  auto transform = [&](int k) {
+    const float* rr = raw_of(k);
+    const int* rw = raw_words(k);
+    const int top = chunk_top(k), n = chunk_len(k), nb = n * nbnd;
+    for (int j = tid; j < n; j += nthr) {
+      const size_t lc = (size_t)(top - j) * ncol + col;
+      set_col(rr[lay.ft + j], rr[lay.fp + j], rr[lay.cd + j],
+              word_byte((unsigned)rw[lay.lower + j], in.tropo_lower + lc) != 0, s_col[j]);
+      s_col[j].ray = rr[lay.ray + j];
+      if constexpr (AERO) s_col[j].aero = word_byte((unsigned)rw[lay.amask + j], as.amask + lc) != 0;
+    }
+    for (int e = tid; e < nb; e += nthr) {
+      const int j = e / nbnd;
+      const bool lower = word_byte((unsigned)rw[lay.lower + j], in.tropo_lower + (size_t)(top - j) * ncol + col) != 0;
+      set_band<float, true>(d, rw[lay.jt + j], rw[lay.jp + j], lower, rw[lay.je1 + e], rw[lay.je2 + e],
+                            rr[lay.fe1 + e], rr[lay.fe2 + e], rr[lay.cm1 + e], rr[lay.cm2 + e], s_band[e]);
+    }
+  };
+
+  for (int i = tid; i < n_minor; i += nthr) {
+    mband[i] = __ldg(tb.minor_band + i);
+    mkbase[i] = __ldg(tb.minor_kbase + i);
+  }
+  copy_chunk(0);
+
+  GptMeta meta{0, {0, 0}, {0, 0}};
+  if (active) meta = gpt_meta(tb.gpt2band, tb.minor_start, d.ngpt, g);
+  const int band = meta.band;
+  const int se = d.ngpt, sp = d.ntemp * d.neta * d.ngpt;
+  const float* kmajor = tb.kmajor + g;
+  const float* rayl = tb.second + g;
+  const float* kminor = tb.kminor + g;
+  // the state layout: clear sky stores tau, ssa and the beam at each
+  // layer's top (RECOMPUTE: the later passes compute the coefficients
+  // again); all-sky stores Rdir * beam, Tdir * beam, Rdif and Tdif
+  constexpr bool RECOMPUTE = !CLOUD && !AERO;
+  // this thread's (col, g) in the four state arrays; layer l at [l * lstride]
+  const size_t lstride = (size_t)ncol * d.ngpt, g0 = (size_t)col * d.ngpt + g;
+  float *p0 = s0 + g0, *p1 = s1 + g0, *p2 = s2 + g0, *p3 = s3 + g0;
   const float mu0 = __ldg(mu0_col + col);
   const float mu0_safe = fmaxf(mu0, FLT_EPSILON);
 
-  // phase 1, top-down: optics + coefficients to the state, beam in a register
-  float beam = active ? __ldg(toa_gpt + g0) * mu0 : 0.f;
+  // phase 1, top-down: optics (+ coefficients) to the state, beam in a
+  // register
+  const float beam_toa = active ? __ldg(toa_gpt + g0) * mu0 : 0.f;
+  float beam = beam_toa;
   sums.add(SW_DIR, nlay, beam);
   Key2x32 ck{0u, 0u};
   if constexpr (MASK == MASK_SEED) ck = mcica_column_key(as.seed, as.col_offset + col);
   McicaCarry carry;
   bool any_cloud = false;
-  for (int l = nlay - 1; l >= 0; --l) {
-    if (active) {
-      const Cell c = load_cell(in, d, l, col, band);
-      const float tau_ray = tau_rayleigh(in, tb, d, c, g);
-      float tau = fmaxf(tau_major(tb, d, c, g) + tau_minor(in, tb, d, c, g) + tau_ray, 0.f);
-      float ssa = tau > 0.f ? tau_ray / tau : 0.f;
-      float gg = 0.f;
-      if constexpr (CLOUD) {
-        bool m;
-        if constexpr (MASK == MASK_SEED) {
-          m = carry.step(mcica_uniform(ck, (uint32_t)l * (uint32_t)d.ngpt + (uint32_t)g),
-                         __ldg(as.cld_frac + c.lc));
-          any_cloud = any_cloud || m;
-        } else {
-          m = __ldg(as.cmask + c.lc * d.ngpt + g) != 0;
+  for (int k = 0; k < n_chunks; ++k) {
+    cp_async_wait_all();
+    __syncthreads();  // chunk k's copies have landed; chunk k-1's steps are done
+    transform(k);
+    if (k + 1 < n_chunks) copy_chunk(k + 1);
+    __syncthreads();  // chunk k is staged
+    const float* rr = raw_of(k);
+    const int* rw = raw_words(k);
+    const int top = chunk_top(k), n = chunk_len(k);
+    for (int j = 0; j < n; ++j) {
+      const int l = top - j;
+      if (active) {
+        const StagedCol<float>& c = s_col[j];
+        const StagedBand<float>* bands = s_band + j * nbnd;
+        const StagedBand<float>& b = bands[band];
+        const float tau_ray = staged_tau_rayleigh(rayl, se, c, b);
+        float tau = fmaxf(staged_tau_major(kmajor, sp, se, c, b) +
+                              staged_tau_minor(kminor, tb.minor_list, d.ncontrib, meta, c, bands, rr + lay.scal + j,
+                                               SW_CHUNK, mband, mkbase) +
+                              tau_ray,
+                          0.f);
+        float ssa = tau > 0.f ? tau_ray / tau : 0.f;
+        float gg = 0.f;
+        const int e = j * nbnd + band;
+        if constexpr (CLOUD) {
+          bool m;
+          if constexpr (MASK == MASK_SEED) {
+            m = carry.step(mcica_uniform(ck, (uint32_t)l * (uint32_t)d.ngpt + (uint32_t)g),
+                           __int_as_float(rw[lay.cfrac + j]));
+            any_cloud = any_cloud || m;
+          } else {
+            m = __ldg(as.cmask + ((size_t)l * ncol + col) * d.ngpt + g) != 0;
+          }
+          if (m) increment_2stream(tau, ssa, gg, rr[lay.ctau + e], rr[lay.cssa + e], rr[lay.cg + e]);
         }
-        add_cloud(as, c.lc, d.nbnd, band, m, tau, ssa, gg);
+        if constexpr (AERO) {
+          if (c.aero) increment_2stream(tau, ssa, gg, rr[lay.atau + e], rr[lay.assa + e], rr[lay.ag + e]);
+        }
+        const float T0 = expf(-tau / mu0_safe);
+        const size_t s = (size_t)l * lstride;
+        if constexpr (RECOMPUTE) {
+          p0[s] = tau;
+          p1[s] = ssa;
+          p2[s] = beam;
+        } else {
+          float Rdir, Tdir, Rdif, Tdif;
+          sw_coeffs(tau, ssa, gg, mu0, T0, Rdir, Tdir, Rdif, Tdif);
+          p0[s] = Rdir * beam;
+          p1[s] = Tdir * beam;
+          p2[s] = Rdif;
+          p3[s] = Tdif;
+        }
+        beam *= T0;
       }
-      if constexpr (AERO) add_aerosol(as, l, col, ncol, c.lc, d.nbnd, band, tau, ssa, gg);
-      const float T0 = expf(-tau / mu0_safe);
-      float Rdir, Tdir, Rdif, Tdif;
-      sw_coeffs(tau, ssa, (CLOUD || AERO) ? gg : 0.f, mu0, T0, Rdir, Tdir, Rdif, Tdif);
-      const size_t i = c.lc * d.ngpt + g;
-      s_rdir[i] = Rdir * beam;
-      s_tdir[i] = Tdir * beam;
-      s_rdif[i] = Rdif;
-      s_tdif[i] = Tdif;
-      beam *= T0;
+      sums.add(SW_DIR, l, beam);
     }
-    sums.add(SW_DIR, l, beam);
   }
   if constexpr (MASK == MASK_SEED) {
-    if constexpr (SPLIT) {
-      const int n = block_count(any_cloud, (int*)smem);
-      if (threadIdx.x == 0) cover_part[(size_t)col * gridDim.y + blockIdx.y] = n;
-    } else {
-      const int n = block_count(any_cloud, (int*)(smem + 3 * nlev * (int)(blockDim.x >> 5)));
-      if (threadIdx.x == 0) cover[col] = (float)n / (float)d.ngpt;
+    const int n = block_count(any_cloud, count32);
+    if (threadIdx.x == 0) {
+      if constexpr (SPLIT) {
+        cover_part[(size_t)col * gridDim.y + blockIdx.y] = n;
+      } else {
+        cover[col] = (float)n / (float)d.ngpt;
+      }
     }
   }
 
   // phases 2 and 3: bottom-up adding, top-down diffuse flux, level sums
-  sw_adding_and_fluxes(d, sums, col, g, active, band, beam, alb_dir, alb_dif, inc_dif, s_rdir + g0, s_tdir + g0,
-                       s_rdif + g0, s_tdif + g0, flux_up, flux_dn, flux_dir);
+  if constexpr (RECOMPUTE) {
+    sw_recomputed_passes(d, sums, col, active, band, mu0, mu0_safe, beam_toa, beam, alb_dir, alb_dif, inc_dif, g0,
+                         lstride, p0, p1, p2, p3, flux_up, flux_dn, flux_dir);
+  } else {
+    sw_adding_and_fluxes(d, sums, col, g, active, band, beam, alb_dir, alb_dif, inc_dif, p0, p1, p2, p3, flux_up,
+                         flux_dn, flux_dir);
+  }
+}
+
+// The arguments of one launch.
+struct SwArgs {
+  OpticsIn in;
+  Tables tb;
+  Dims d;
+  int n_minor;
+  AllSkyIn as;
+  const float *mu0, *toa_gpt, *alb_dir, *alb_dif, *inc_dif;
+  float* state[4];
+  float *flux_up, *flux_dn, *flux_dir, *cover;
+  int group, n_groups;  // the host's launch plan (ops/_launch.py gpoint_plan)
+  bool in_block;        // the plan's: the level sums in the block
+  float* partials;      // (3, nlev, ncol, column's warps) unless in_block
+  int* cover_part;      // (ncol, n_groups), seed mode unless in_block
+};
+
+// Shared memory of a block whose level sums take sums_bytes.
+template <bool CLOUD, bool AERO, int MASK>
+size_t sw_smem(size_t sums_bytes, int nbnd, int n_minor) {
+  return SwLayout<CLOUD, AERO, MASK>(sums_bytes, nbnd, n_minor).stage_end;
 }
 
 template <bool CLOUD, bool AERO, int MASK>
-cudaError_t launch_sw(const MegaLaunch& m, bool split, cudaStream_t stream, OpticsIn in, Tables tb, Dims d,
-                      AllSkyIn as, const float* mu0, const float* toa_gpt, const float* alb_dir,
-                      const float* alb_dif, const float* inc_dif, float* const* s, float* part, int* cover_part,
-                      float* up, float* dn, float* dir, float* cover) {
-  auto kernel = split ? sw_clear_mega_kernel<CLOUD, AERO, MASK, true> : sw_clear_mega_kernel<CLOUD, AERO, MASK, false>;
-  cudaError_t err = prepare_smem(kernel, m.smem);
+cudaError_t launch_sw(const SwArgs& a, cudaStream_t stream) {
+  const bool in_block = a.in_block;
+  const size_t sums_bytes = in_block ? sizeof(float) * 3 * (a.d.nlay + 1) * (a.group / 32) : 0;
+  const size_t smem = sw_smem<CLOUD, AERO, MASK>(sums_bytes, a.d.nbnd, a.n_minor);
+  if (a.d.ncol == 0) return cudaGetLastError();
+  auto kernel = in_block ? sw_clear_mega_kernel<CLOUD, AERO, MASK, false> : sw_clear_mega_kernel<CLOUD, AERO, MASK, true>;
+  cudaError_t err = prepare_smem(kernel, smem);
   if (err != cudaSuccess) return err;
-  kernel<<<m.grid, m.block, m.smem, stream>>>(in, tb, d, as, mu0, toa_gpt, alb_dir, alb_dif, inc_dif, s[0], s[1],
-                                              s[2], s[3], part, cover_part, up, dn, dir, cover);
-  return cudaGetLastError();
+  kernel<<<dim3((unsigned)a.d.ncol, (unsigned)a.n_groups), a.group, smem, stream>>>(
+      a.in, a.tb, a.d, a.n_minor, a.as, a.mu0, a.toa_gpt, a.alb_dir, a.alb_dif, a.inc_dif, a.state[0], a.state[1],
+      a.state[2], a.state[3], in_block ? nullptr : a.partials, a.cover_part, a.flux_up, a.flux_dn, a.flux_dir,
+      a.cover);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || in_block) return err;
+  const bool seeded = MASK == MASK_SEED;
+  return finish_sums<float>(stream, a.partials, 3, a.d.nlay + 1, a.d.ncol, a.n_groups * a.group / 32, SUMS_SW, 1.f,
+                            a.flux_up, a.flux_dn, a.flux_dir, seeded ? a.cover_part : nullptr, a.n_groups, a.d.ngpt,
+                            seeded ? a.cover : nullptr);
 }
 
 }  // namespace rrtmgp
 
-// group, n_groups, in_block: the host's launch plan (ops/_launch.py
-// gpoint_plan); partials (3, nlev, ncol, column's warps) and, in seed mode,
-// cover_part (ncol, n_groups) int32 unless in_block, else null.
+// s0..s3: the state, four (nlay, ncol, ngpt) f32 arrays. group, n_groups,
+// in_block: the host's launch plan (ops/_launch.py gpoint_plan, with the
+// staged bytes of rrtmgp_sw_clear_mega_staged);
+// partials (3, nlev, ncol, column's warps) and, in seed mode, cover_part
+// (ncol, n_groups) int32 unless in_block, else null.
 extern "C" int rrtmgp_sw_clear_mega(
     const void* jtemp, const void* ftemp, const void* jpress, const void* fpress,
     const void* tropo_lower, const void* col_dry,
@@ -156,46 +356,53 @@ extern "C" int rrtmgp_sw_clear_mega(
     const void* mu0, const void* toa_gpt, const void* alb_dir, const void* alb_dif, const void* inc_dif,
     const void* ctau, const void* cssa, const void* cg, const void* cmask, const void* cld_frac,
     const void* atau, const void* assa, const void* ag, const void* amask,
-    void* s_rdir, void* s_tdir, void* s_rdif, void* s_tdif, void* partials, void* cover_part,
+    void* s0, void* s1, void* s2, void* s3, void* partials, void* cover_part,
     void* flux_up, void* flux_dn, void* flux_dir, void* cover,
-    int nlay, int ncol, int ngpt, int nbnd, int ntemp, int neta, int ncontrib,
+    int nlay, int ncol, int ngpt, int nbnd, int ntemp, int neta, int ncontrib, int n_minor,
     int cloud, int aero, int mask_mode, unsigned seed_hi, unsigned seed_lo, long long col_offset,
     int group, int n_groups, int in_block, void* stream) {
   using namespace rrtmgp;
-  const OpticsIn in{(const int*)jtemp, (const float*)ftemp, (const int*)jpress, (const float*)fpress,
-                    (const unsigned char*)tropo_lower, (const float*)col_dry,
-                    (const int*)jeta1, (const float*)feta1, (const float*)cmix1,
-                    (const int*)jeta2, (const float*)feta2, (const float*)cmix2,
-                    (const float*)minor_scaling, (const float*)ray_factor};
-  const Tables tb{(const float*)kmajor, (const float*)rayl, (const float*)kminor, (const int*)gpt2band,
-                  (const int*)minor_start, (const int*)minor_list, (const int*)minor_kbase,
-                  (const int*)minor_band};
-  const Dims d{nlay, ncol, ngpt, nbnd, ntemp, neta, ncontrib};
-  const AllSkyIn as{(const float*)ctau, (const float*)cssa, (const float*)cg, (const unsigned char*)cmask,
-                    (const float*)cld_frac, Key2x32{seed_hi, seed_lo}, col_offset,
-                    (const float*)atau, (const float*)assa, (const float*)ag, (const unsigned char*)amask};
-  const bool split = !in_block;
-  // block_count of the McICA cover after the in-block sums
-  const MegaLaunch m = group_launch(d, 3, group, n_groups, !split, 32 * sizeof(int));
+  const SwArgs a{
+      OpticsIn{(const int*)jtemp, (const float*)ftemp, (const int*)jpress, (const float*)fpress,
+               (const unsigned char*)tropo_lower, (const float*)col_dry,
+               (const int*)jeta1, (const float*)feta1, (const float*)cmix1,
+               (const int*)jeta2, (const float*)feta2, (const float*)cmix2,
+               (const float*)minor_scaling, (const float*)ray_factor},
+      Tables{(const float*)kmajor, (const float*)rayl, (const float*)kminor, (const int*)gpt2band,
+             (const int*)minor_start, (const int*)minor_list, (const int*)minor_kbase, (const int*)minor_band},
+      Dims{nlay, ncol, ngpt, nbnd, ntemp, neta, ncontrib}, n_minor,
+      AllSkyIn{(const float*)ctau, (const float*)cssa, (const float*)cg, (const unsigned char*)cmask,
+               (const float*)cld_frac, Key2x32{seed_hi, seed_lo}, col_offset,
+               (const float*)atau, (const float*)assa, (const float*)ag, (const unsigned char*)amask},
+      (const float*)mu0, (const float*)toa_gpt, (const float*)alb_dir, (const float*)alb_dif, (const float*)inc_dif,
+      {(float*)s0, (float*)s1, (float*)s2, (float*)s3},
+      (float*)flux_up, (float*)flux_dn, (float*)flux_dir, (float*)cover,
+      group, n_groups, in_block != 0, (float*)partials, (int*)cover_part};
   const cudaStream_t s = (cudaStream_t)stream;
-  float* const st[4] = {(float*)s_rdir, (float*)s_tdir, (float*)s_rdif, (float*)s_tdif};
-  float *up = (float*)flux_up, *dn = (float*)flux_dn, *dir = (float*)flux_dir, *part = (float*)partials;
-  int* cp = (int*)cover_part;
-  float* cv = (float*)cover;
-#define RRTMGP_SW(C, A, M) launch_sw<C, A, M>(m, split, s, in, tb, d, as, (const float*)mu0, (const float*)toa_gpt, \
-                                            (const float*)alb_dir, (const float*)alb_dif, (const float*)inc_dif, st, \
-                                            part, cp, up, dn, dir, cv)
   cudaError_t err;
   if (!cloud) {
-    err = aero ? RRTMGP_SW(false, true, MASK_NONE) : RRTMGP_SW(false, false, MASK_NONE);
+    err = aero ? launch_sw<false, true, MASK_NONE>(a, s) : launch_sw<false, false, MASK_NONE>(a, s);
   } else if (mask_mode == MASK_SEED) {
-    err = aero ? RRTMGP_SW(true, true, MASK_SEED) : RRTMGP_SW(true, false, MASK_SEED);
+    err = aero ? launch_sw<true, true, MASK_SEED>(a, s) : launch_sw<true, false, MASK_SEED>(a, s);
   } else {
-    err = aero ? RRTMGP_SW(true, true, MASK_GIVEN) : RRTMGP_SW(true, false, MASK_GIVEN);
+    err = aero ? launch_sw<true, true, MASK_GIVEN>(a, s) : launch_sw<true, false, MASK_GIVEN>(a, s);
   }
-#undef RRTMGP_SW
-  if (err != cudaSuccess || !split) return (int)err;
-  const bool seeded = cloud && mask_mode == MASK_SEED;
-  return (int)finish_sums<float>(s, part, 3, nlay + 1, ncol, n_groups * group / 32, SUMS_SW, 1.f, up, dn, dir,
-                                 seeded ? cp : nullptr, n_groups, ngpt, seeded ? cv : nullptr);
+  return (int)err;
+}
+
+// The shared memory a block of sw_clear_mega needs besides its in-block
+// level sums (the host's launch plan adds those): the McICA count, the
+// staging area, and 16 bytes of alignment.
+extern "C" long long rrtmgp_sw_clear_mega_staged(int nbnd, int n_minor, int cloud, int aero, int mask_mode) {
+  using namespace rrtmgp;
+  size_t bytes;
+  if (!cloud) {
+    bytes = aero ? sw_smem<false, true, MASK_NONE>(0, nbnd, n_minor) : sw_smem<false, false, MASK_NONE>(0, nbnd, n_minor);
+  } else if (mask_mode == MASK_SEED) {
+    bytes = aero ? sw_smem<true, true, MASK_SEED>(0, nbnd, n_minor) : sw_smem<true, false, MASK_SEED>(0, nbnd, n_minor);
+  } else {
+    bytes = aero ? sw_smem<true, true, MASK_GIVEN>(0, nbnd, n_minor)
+                 : sw_smem<true, false, MASK_GIVEN>(0, nbnd, n_minor);
+  }
+  return (long long)(bytes + 16);
 }

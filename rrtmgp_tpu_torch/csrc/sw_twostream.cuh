@@ -1,13 +1,21 @@
 // SW two-stream device code shared by the SW megakernel (sw_clear_mega.cu)
 // and the SW sweeps from materialized optics (sw_2stream_reduced.cu): the
-// layer coefficients (every SW kernel), and the adding and flux passes over
-// four per-layer state arrays in device memory (the megakernel and the
-// per-g-point sweep). Those kernels run one thread per g-point, carry the
-// direct beam top-down in a register and leave, per layer, Rdir * beam,
-// Tdir * beam, Rdif and Tdif in the state; from there on they are the same
-// code. The g-summed sweep recomputes the coefficients in passes of its
-// own with the same expressions, so every path agrees to the last bit on
-// equal optics.
+// layer coefficients (every SW kernel), and two designs of the passes after
+// the top-down beam, for a kernel of one thread per g-point that carried
+// the direct beam top-down in a register:
+// - four-array passes (sw_adding_and_fluxes): the top-down pass left, per
+//   layer, Rdir * beam, Tdir * beam, Rdif and Tdif in four state arrays,
+//   which the adding pass rewrites for the flux pass (the SW megakernel's
+//   all-sky variants and the per-g-point sweep);
+// - recomputed passes (sw_recomputed_passes): the top-down pass left the
+//   beam at each layer's top; the adding and the flux pass compute the
+//   coefficients again from tau and ssa (asymmetry 0), two more state
+//   arrays (the SW megakernel on clear sky, which stores its tau and ssa
+//   beside the beam; the g-summed sweep, the TPU kernel's design, runs the
+//   same passes with an optional asymmetry inline in sw_2stream_reduced.cu,
+//   where a call cost it registers and time, PERF.md).
+// Both use the same expressions in the same order, so every path agrees to
+// the last bit on equal optics.
 #pragma once
 
 #include "common.cuh"
@@ -143,6 +151,109 @@ __device__ __forceinline__ void sw_adding_and_fluxes(const Dims& d, const Sums& 
     __syncthreads();
     for (int lev = threadIdx.x; lev < nlev; lev += blockDim.x) {
       const size_t o = (size_t)lev * ncol + col;
+      const R dir = sums.total(SW_DIR, lev);
+      flux_up[o] = sums.total(SW_UP, lev);
+      flux_dn[o] = sums.total(SW_DN_DIF, lev) + dir;
+      flux_dir[o] = dir;
+    }
+  }
+}
+
+// The recomputed passes (sw_2stream_reduced.cu's passes 2 and 3 without an
+// asymmetry, the same expressions) for the thread of g-point g0 = col *
+// ngpt + g (every thread of the block calls it; idle threads add zeros).
+// Its (nlay, ncol, ngpt) slots, written earlier by the same kernel, hold per
+// layer at [l * stride] tau, ssa and, in beam_p, the direct beam at the
+// layer's top; `beam` is the beam at the surface, beam_toa at the top, and
+// the SW_DIR sums of every level are added.
+//   bottom-up adding: each layer's coefficients from tau, ssa and its
+//     stored beam, the adding recurrence in registers, the albedo (over the
+//     beam's slot, which is read first) and the source at the layer's
+//     bottom level stored;
+//   top-down flux: the coefficients, the beam (beam *= T0, the top-down
+//     pass's order) and the adding denominator computed again, the diffuse
+//     flux folded as sw_adding_and_fluxes folds it (tdif' = Tdif * denom,
+//     rdif' = denom * (Rdif * src + Tdir * beam), fd = tdif' * fd + rdif'),
+//     and the SW_UP / SW_DN_DIF sums;
+//   then, with the sums in the block (LevelSumsT), the block writes
+//   flux_up, flux_dn (diffuse + direct) and flux_dir, each (nlev, ncol);
+//   partials across blocks are completed by finish_level_sums (SUMS_SW).
+// Each pass reads the next layer's values one layer ahead, so that the
+// loads overlap the layer's arithmetic.
+template <typename R, typename Sums>
+__device__ __forceinline__ void sw_recomputed_passes(const Dims& d, const Sums& sums, int col, bool active, int band,
+                                                     R mu0, R mu0_safe, R beam_toa, R beam,
+                                                     const R* __restrict__ alb_dir,  // (nbnd, ncol)
+                                                     const R* __restrict__ alb_dif,  // (nbnd, ncol)
+                                                     const R* __restrict__ inc_dif,  // (ncol, ngpt) or null
+                                                     size_t g0, size_t stride, const R* tau_p, const R* ssa_p,
+                                                     R* beam_p, R* __restrict__ src_p, R* __restrict__ flux_up,
+                                                     R* __restrict__ flux_dn, R* __restrict__ flux_dir) {
+  R* alb_p = beam_p;
+  const int nlay = d.nlay;
+  R alb = active ? __ldg(alb_dif + (size_t)band * d.ncol + col) : R(0);
+  R src = active ? beam * __ldg(alb_dir + (size_t)band * d.ncol + col) : R(0);
+  if (active && nlay > 0) {
+    R t_n = tau_p[0], w_n = ssa_p[0], bt_n = beam_p[0];
+    for (int l = 0; l < nlay; ++l) {
+      const size_t s = (size_t)l * stride;
+      const R t = t_n, w = w_n, bt = bt_n;
+      if (l + 1 < nlay) {
+        t_n = tau_p[s + stride];
+        w_n = ssa_p[s + stride];
+        bt_n = beam_p[s + stride];
+      }
+      R Rdir, Tdir, Rdif, Tdif;
+      sw_coeffs(t, w, R(0), mu0, r_exp(-t / mu0_safe), Rdir, Tdir, Rdif, Tdif);
+      alb_p[s] = alb;
+      src_p[s] = src;
+      const R denom = R(1) / (R(1) - Rdif * alb);
+      const R alb_n = Rdif + Tdif * Tdif * alb * denom;
+      const R src_n = Rdir * bt + Tdif * denom * (src + alb * (Tdir * bt));
+      alb = alb_n;
+      src = src_n;
+    }
+  }
+
+  R fd = (active && inc_dif != nullptr) ? inc_dif[g0] : R(0);
+  sums.add(SW_UP, nlay, active ? fd * alb + src : R(0));
+  sums.add(SW_DN_DIF, nlay, fd);
+  beam = beam_toa;
+  R t_n = R(0), w_n = R(0), a_n = R(0), c_n = R(0);
+  if (active && nlay > 0) {
+    const size_t s = (size_t)(nlay - 1) * stride;
+    t_n = tau_p[s];
+    w_n = ssa_p[s];
+    a_n = alb_p[s];
+    c_n = src_p[s];
+  }
+  for (int l = nlay - 1; l >= 0; --l) {
+    R up = R(0);
+    if (active) {
+      const size_t s = (size_t)l * stride;
+      const R t = t_n, w = w_n, alb_l = a_n, src_l = c_n;
+      if (l > 0) {
+        t_n = tau_p[s - stride];
+        w_n = ssa_p[s - stride];
+        a_n = alb_p[s - stride];
+        c_n = src_p[s - stride];
+      }
+      const R T0 = r_exp(-t / mu0_safe);
+      R Rdir, Tdir, Rdif, Tdif;
+      sw_coeffs(t, w, R(0), mu0, T0, Rdir, Tdir, Rdif, Tdif);
+      const R denom = R(1) / (R(1) - Rdif * alb_l);
+      fd = (Tdif * denom) * fd + denom * (Rdif * src_l + Tdir * beam);
+      up = fd * alb_l + src_l;
+      beam *= T0;
+    }
+    sums.add(SW_UP, l, up);
+    sums.add(SW_DN_DIF, l, fd);
+  }
+
+  if constexpr (std::is_same<Sums, LevelSumsT<R>>::value) {
+    __syncthreads();
+    for (int lev = threadIdx.x; lev <= nlay; lev += blockDim.x) {
+      const size_t o = (size_t)lev * d.ncol + col;
       const R dir = sums.total(SW_DIR, lev);
       flux_up[o] = sums.total(SW_UP, lev);
       flux_dn[o] = sums.total(SW_DN_DIF, lev) + dir;

@@ -28,9 +28,9 @@ Four implementations of the same functions, chosen by ``impl``:
 - ``"sweep"``: the sweep kernels alone, the JAX package's ``pallas_rte=True``
   without ``pallas_tables``. Gas optics, Planck sources and the composition
   are the torch path's, in plain torch; then a sweep kernel returns g-summed
-  fluxes: K13 once per angle (LW no-scattering, 1-4 angles), K14 (LW
-  two-stream) or K15 (SW two-stream); the SW direct-beam solve is the torch
-  path's. CUDA tensors, f32. Never chosen by ``impl=None``.
+  fluxes: K13 sweeping every angle in one launch (LW no-scattering, 1-4
+  angles), K14 (LW two-stream) or K15 (SW two-stream); the SW direct-beam
+  solve is the torch path's. CUDA tensors, f32. Never chosen by ``impl=None``.
 - ``"torch"``: plain torch, ``ops.gas_optics`` then the composition and
   ``ops.rte``; any device, f32 or f64. Every combination of the JAX
   package's XLA path.
@@ -108,7 +108,7 @@ from ..ops.mega_inputs import mega_lw_inputs, mega_sw_inputs
 from ..ops.rte_kernels import (
     lw_2stream_reduced,
     lw_noscat_banded_angles,
-    lw_noscat_reduced,
+    lw_noscat_reduced_angles,
     sw_2stream_reduced,
 )
 from ..states import AtmosphericState, LwBCs, SwBCs, slice_columns
@@ -532,8 +532,10 @@ def solve_lw(
             flux_up, flux_dn = lw_2stream_reduced(
                 tau, ssa, g_asym, src.lev_source, src.sfc_source, bcs.sfc_emis, g2b, bcs.inc_flux)
         else:
-            flux_up, flux_dn, _ = noscat_angles(lambda ds, w, inc_k: lw_noscat_reduced(
-                tau, src.lay_source, src.lev_source, src.sfc_source, bcs.sfc_emis, g2b, ds, w, inc_k))
+            # every angle in one launch, summed in the angles' order
+            flux_up, flux_dn = lw_noscat_reduced_angles(
+                tau, src.lay_source, src.lev_source, src.sfc_source, bcs.sfc_emis, g2b,
+                [float(d) for d in Ds], [float(w) for w in wts], bcs.inc_flux)
     elif two_stream:
         sfc_emis = _bands_to_gpt(lkp, bcs.sfc_emis.T)  # (ncol, ngpt)
         up, dn = rte.lw_2stream(
@@ -588,9 +590,9 @@ def solve_sw(
 
     if impl == "kernel":
         if not two_stream:
-            _not_ported("the SW direct-beam-only solve on the megakernel (two_stream=False; "
-                        "impl=None or 'two_kernel' run it through the materialized-optics kernel)",
-                        "item 18")
+            raise ValueError("solve_sw(two_stream=False): the SW megakernel has no direct-beam route, and the "
+                             "reference has none either; impl=None or 'two_kernel' run this solve (the "
+                             "materialized-optics kernel, then the beam recurrence)")
         comp, aod_ext, aod_sca = _kernel_composition(
             lkp, as_, lkp_cld, lkp_aero, cld_mask, cld_mask_seed, col_offset, aero_species,
             delta_scaling=True, collect_aod=True,

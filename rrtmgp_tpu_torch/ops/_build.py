@@ -37,7 +37,7 @@ _P, _I, _U, _L, _F, _D = (ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c
 #: (``ops/_launch.py``): (group, n_groups, in_block) after their dims (the
 #: per-g-point sweeps, which have no level sums, (group, n_groups)), and a
 #: device buffer of level partials (null when the sums stay in the block);
-#: lw_clear_mega's dims end with n_minor; the all-sky megakernels end with
+#: lw_clear_mega's and sw_clear_mega's dims end with n_minor; the all-sky megakernels end with
 #: (cloud, aero, mask_mode, seed_hi, seed_lo, col_offset), then the plan,
 #: lw_clear_mega (ds, i2f), and the stream. The _f64 entries take f64
 #: tensors and double scalars. The kernels of the two-kernel path:
@@ -45,7 +45,7 @@ _P, _I, _U, _L, _F, _D = (ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c
 #: n_groups, stream), lw_noscat_banded with (nlay, ncol, ngpt, nbnd, plan,
 #: nang, then host arrays of nang floats ds and i2f, stream), sw_2stream_reduced with (nlay, ncol, ngpt, nbnd, plan,
 #: stream). The sweeps from materialized sources: lw_noscat_reduced ends
-#: with (nlay, ncol, ngpt, plan, ds, i2f, stream), lw_noscat_gpt with
+#: with (nlay, ncol, ngpt, plan, nang, host arrays ds and i2f, stream), lw_noscat_gpt with
 #: (nlay, ncol, ngpt, group, n_groups, ds, i2f, stream), lw_2stream_reduced
 #: with (nlay, ncol, ngpt, nbnd, plan, stream), sw_2stream_gpt with (nlay,
 #: ncol, ngpt, group, n_groups, stream). The kernels of the unfused optics:
@@ -57,7 +57,7 @@ SIGNATURES = {
     "rrtmgp_planck_band_f64": [_P, _P, _P, _L, _I, _I, _D, _D, _P],
     "rrtmgp_lw_clear_mega": [_P] * 42 + [_I] * 11 + [_U, _U, _L, _I, _I, _I, _F, _F, _P],
     "rrtmgp_lw_clear_mega_f64": [_P] * 31 + [_I] * 11 + [_D, _D, _P],
-    "rrtmgp_sw_clear_mega": [_P] * 46 + [_I] * 10 + [_U, _U, _L, _I, _I, _I, _P],
+    "rrtmgp_sw_clear_mega": [_P] * 46 + [_I] * 11 + [_U, _U, _L, _I, _I, _I, _P],
     "rrtmgp_lw2_mega": [_P] * 44 + [_I] * 10 + [_U, _U, _L, _I, _I, _I, _P],
     "rrtmgp_aerosol_bands": [_P] * 15 + [_I] * 6 + [_P],
     "rrtmgp_mcica_export": [_P] * 3 + [_I] * 5 + [_U, _U, _L, _P],
@@ -65,7 +65,7 @@ SIGNATURES = {
     "rrtmgp_planck_band_rows": [_P, _P, _P, _L, _I, _I, _F, _F, _P],
     "rrtmgp_lw_noscat_banded": [_P] * 11 + [_I] * 8 + [_P, _P, _P],
     "rrtmgp_sw_2stream_reduced": [_P] * 15 + [_I] * 7 + [_P],
-    "rrtmgp_lw_noscat_reduced": [_P] * 10 + [_I] * 6 + [_F, _F, _P],
+    "rrtmgp_lw_noscat_reduced": [_P] * 10 + [_I] * 7 + [_P, _P, _P],
     "rrtmgp_lw_noscat_gpt": [_P] * 8 + [_I] * 5 + [_F, _F, _P],
     "rrtmgp_lw_2stream_reduced": [_P] * 13 + [_I] * 7 + [_P],
     "rrtmgp_sw_2stream_gpt": [_P] * 15 + [_I] * 5 + [_P],
@@ -77,6 +77,7 @@ SIGNATURES = {
 #: from int arguments: name -> their count
 SIZE_QUERIES = {
     "rrtmgp_lw_clear_mega_staged": 6,
+    "rrtmgp_sw_clear_mega_staged": 5,
     "rrtmgp_optics_fused_smem": 3,
     "rrtmgp_interp_pt_eta_smem": 2,
     "rrtmgp_interp_minor_smem": 3,

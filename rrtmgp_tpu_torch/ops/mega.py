@@ -483,7 +483,7 @@ def sw_clear_mega(
         _require(inc_flux_diffuse, "inc_flux_diffuse", (ncol, ngpt), f32, dev)
     comp_ptrs, comp_scalars = _composition_args(comp, dev, nlay, ncol, ngpt, nbnd)
     seeded = comp_scalars[2] == MASK_SEED
-    plan = gpoint_plan(ngpt, nlay, 3, 4, BLOCK_COUNT_BYTES, smem_limit(dev))
+    plan, _ = _sw_clear_mega_plan(tabs, nlay, comp_scalars[:3], dev)
     scratch = _mega_scratch_tensors(plan, 3, nlay, ncol, ngpt, seeded, dev)
     fluxes = [torch.empty((nlay + 1, ncol), dtype=f32, device=dev) for _ in range(3)]
     cover = torch.empty((ncol,), dtype=f32, device=dev) if seeded else None
@@ -492,7 +492,7 @@ def sw_clear_mega(
             *_input_ptrs(inp), _ptr(inp.ray_factor), *_table_ptrs(tabs),
             *map(_ptr, (mu0, toa_gpt, alb_dir, alb_dif, inc_flux_diffuse)), *comp_ptrs,
             *map(_ptr, (*scratch, *fluxes, cover)),
-            nlay, ncol, ngpt, nbnd, ntemp, neta, ncontrib, *comp_scalars, *plan, _stream(dev),
+            nlay, ncol, ngpt, nbnd, ntemp, neta, ncontrib, tabs.n_minor, *comp_scalars, *plan, _stream(dev),
         )
     _build.check(err, "sw_clear_mega")
     sw_clear_mega.launches += 1
@@ -500,6 +500,34 @@ def sw_clear_mega(
 
 
 sw_clear_mega.launches = 0
+
+#: layers of one chunk that sw_clear_mega stages in shared memory
+#: (csrc/sw_clear_mega.cu SW_CHUNK)
+SW_CHUNK = 8
+
+
+def _sw_clear_mega_plan(tabs: KernelTables, nlay: int, composition: list, dev):
+    """sw_clear_mega's launch plan and the shared memory it stages besides
+    its level sums (chunks of layers: it does not grow with nlay);
+    ``composition`` is (cloud, aero, mask_mode)."""
+    staged = _build.library().rrtmgp_sw_clear_mega_staged(tabs.lkp.n_bnd, tabs.n_minor, *composition)
+    return gpoint_plan(tabs.lkp.n_gpt, nlay, 3, 4, staged, smem_limit(dev)), staged
+
+
+def sw_clear_mega_design(inp: MegaInputs, tabs: KernelTables, comp: Composition = CLEAR) -> dict:
+    """How ``sw_clear_mega`` launches for these inputs (on the card), as
+    ``lw_clear_mega_design`` reports it, with ``staged`` the shared memory
+    of the staging area alone and ``state`` what its four state arrays hold
+    (csrc/sw_clear_mega.cu: clear sky recomputes the coefficients in the
+    adding and flux passes)."""
+    dev = inp.jtemp.device
+    scalars = _composition_args(comp, dev, inp.nlay, inp.ncol, tabs.lkp.n_gpt, tabs.lkp.n_bnd)[1]
+    plan, staged = _sw_clear_mega_plan(tabs, inp.nlay, scalars[:3], dev)
+    sums = in_block_bytes(plan.group, inp.nlay, 3, 4) if plan.in_block else 0
+    state = ("tau, ssa, the beam (then the albedo), the source; coefficients recomputed" if comp.clear else
+             "Rdir * beam, Tdir * beam, Rdif, Tdif, rewritten by the adding pass")
+    return dict(group=plan.group, n_groups=plan.n_groups, chunk=SW_CHUNK, smem=staged + sums, staged=staged,
+                in_block=plan.in_block, state=state)
 
 
 # ---------------------------------------------------------------------------

@@ -13,6 +13,9 @@ Summed over g-points, (nlay+1, ncol), as the solves use them:
   ``lw_noscat_banded_reduced`` per angle and sums);
 - ``lw_noscat_reduced``: the same sweep from materialized layer, level and
   surface sources (replaces ``lw_noscat_pallas_reduced``);
+  ``lw_noscat_reduced_angles``: the same over 1 to 4 angles in one launch
+  of the same kernel, the bits of the one-angle wrapper called per angle
+  (what the sweep route's solves call);
 - ``lw_2stream_reduced``: LW two-stream sweep from materialized level and
   surface sources (replaces ``lw_2stream_pallas_reduced``);
 - ``sw_2stream_reduced``: SW two-stream sweep, the asymmetry optional
@@ -30,15 +33,17 @@ Each wrapper launches its CUDA kernel (``csrc/lw_noscat_banded.cu``,
 ``csrc/sw_2stream_reduced.cu``) for CUDA tensors and raises on anything the
 kernel does not take; for CPU tensors it returns its twin ``*_ref``.
 ``<wrapper>.launches`` counts the launches (the two wrappers of
-``csrc/lw_noscat_banded.cu`` on ``lw_noscat_banded_reduced.launches``).
+``csrc/lw_noscat_banded.cu`` on ``lw_noscat_banded_reduced.launches``, the
+two of the summed sweep of ``csrc/lw_noscat_sources.cu`` on
+``lw_noscat_reduced.launches``).
 The kernels are f32 and run one thread per g-point: up to 1024 g-points one
 block per column, beyond that a column over several blocks
 (``_launch.gpoint_plan``), its level sums completed in the same order, as
 they are for a column too deep for its sums to fit a block, so any g-point
 count and depth gives the same bits as one block would. A g-summed call
 over several blocks is the sweep and ``finish_level_sums``
-(``csrc/common.cuh``, one launch per angle for K12); the count takes one for
-the call.
+(``csrc/common.cuh``, one launch per angle for the multi-angle sweeps); the
+count takes one for the call.
 
 Boundary fields: the g-summed sweeps take band-valued emissivity and albedos
 as the solves hold them, (nbnd, ncol), with ``gpt2band``, the (ngpt,) int32
@@ -91,10 +96,11 @@ def _plan(nf: int, nlay: int, ncol: int, ngpt: int, dev):
                                                                             dev)
 
 
-def banded_plan(nang: int, nlay: int, ncol: int, ngpt: int, dev):
-    """(group, n_groups, in_block) of the launch plan of lw_noscat_banded
-    over nang angles and its level partials (None when the sums stay in the
-    block): 2 x nang level-sum fields, each angle's up and down."""
+def angles_plan(nang: int, nlay: int, ncol: int, ngpt: int, dev):
+    """(group, n_groups, in_block) of the launch plan of a multi-angle LW
+    sweep (lw_noscat_banded, the summed lw_noscat_sources) over nang angles
+    and its level partials (None when the sums stay in the block): 2 x nang
+    level-sum fields, each angle's up and down."""
     return _plan(2 * nang, nlay, ncol, ngpt, dev)
 
 
@@ -112,22 +118,43 @@ def lw_noscat_banded_reduced_ref(
     return up.sum(-1), dn.sum(-1)
 
 
+def _angles_sum(one_angle, args, ds, w_mu, inc_flux):
+    """one_angle(*args, ds_k, w_k, inc_flux * w_k) -> (flux_up, flux_dn)
+    summed in the angles' order: the sum a solve made of one launch per
+    angle."""
+    up = dn = None
+    for d, w in zip(ds, w_mu):
+        u, v = one_angle(*args, d, w, None if inc_flux is None else inc_flux * float(w))
+        up, dn = (u, v) if up is None else (up + u, dn + v)
+    return up, dn
+
+
 def lw_noscat_banded_angles_ref(tau, pfrac, plk_lay, plk_lev, plk_sfc, sfc_emis, gpt2band, ds, w_mu,
                                 inc_flux=None):
     """Plain twin of ``lw_noscat_banded_angles``: the one-angle twin per
     angle with the incident flux ``inc_flux * w_k``, summed in the angles'
     order. Any float dtype."""
-    up = dn = None
-    for d, w in zip(ds, w_mu):
-        u, v = lw_noscat_banded_reduced_ref(tau, pfrac, plk_lay, plk_lev, plk_sfc, sfc_emis, gpt2band, d, w,
-                                            None if inc_flux is None else inc_flux * float(w))
-        up, dn = (u, v) if up is None else (up + u, dn + v)
-    return up, dn
+    return _angles_sum(lw_noscat_banded_reduced_ref, (tau, pfrac, plk_lay, plk_lev, plk_sfc, sfc_emis, gpt2band),
+                       ds, w_mu, inc_flux)
 
 
-#: the most quadrature angles one launch of lw_noscat_banded sweeps
-#: (csrc/lw_noscat_banded.cu MAX_ANGLES; angular_discretization's too)
+#: the most quadrature angles one launch of lw_noscat_banded or
+#: lw_noscat_reduced sweeps (csrc/common.cuh MAX_ANGLES;
+#: angular_discretization's too)
 MAX_ANGLES = 4
+
+
+def _angle_arrays(ds, w_mu, name: str):
+    """The secants and pi x weights of a multi-angle launch as ctypes float
+    arrays (what the C entries read); raises unless there are 1 to
+    MAX_ANGLES of each."""
+    nang = len(ds)
+    if not 1 <= nang <= MAX_ANGLES or len(w_mu) != nang:
+        raise ValueError(f"{name}: {nang} secants and {len(w_mu)} weights; the kernel takes 1 to {MAX_ANGLES} "
+                         "angles")
+    f32 = torch.float32
+    floats = lambda xs: (ctypes.c_float * nang)(*xs)
+    return floats([round_to(d, f32) for d in ds]), floats([intensity_to_flux(w, f32) for w in w_mu])
 
 
 def _lw_noscat_banded_launch(tau, pfrac, plk_lay, plk_lev, plk_sfc, sfc_emis, gpt2band, ds, w_mu, inc,
@@ -139,9 +166,7 @@ def _lw_noscat_banded_launch(tau, pfrac, plk_lay, plk_lev, plk_sfc, sfc_emis, gp
     which both wrappers of the kernel share."""
     dev = cuda_device(tau, name)
     nang = len(ds)
-    if not 1 <= nang <= MAX_ANGLES or len(w_mu) != nang:
-        raise ValueError(f"{name}: {nang} secants and {len(w_mu)} weights; the kernel takes 1 to {MAX_ANGLES} "
-                         "angles")
+    angles = _angle_arrays(ds, w_mu, name)
     if plk_sfc.dim() != 2:
         raise ValueError(f"{name}: plk_sfc {tuple(plk_sfc.shape)}")
     nlay, ncol, ngpt = _dims(tau, name)
@@ -158,13 +183,11 @@ def _lw_noscat_banded_launch(tau, pfrac, plk_lay, plk_lev, plk_sfc, sfc_emis, gp
         require(inc, "inc_flux", (nang, ncol, ngpt), f32, dev)
     up = torch.empty((nang, nlay + 1, ncol), dtype=f32, device=dev)
     dn = torch.empty_like(up)
-    groups, partials = banded_plan(nang, nlay, ncol, ngpt, dev)
-    floats = lambda xs: (ctypes.c_float * nang)(*xs)
+    groups, partials = angles_plan(nang, nlay, ncol, ngpt, dev)
     with torch.cuda.device(dev):
         err = _build.library().rrtmgp_lw_noscat_banded(
             *map(ptr, (tau, pfrac, plk_lay, plk_lev, plk_sfc, sfc_emis, gpt2band, inc, up, dn, partials)),
-            nlay, ncol, ngpt, nbnd, *groups, nang, floats([round_to(d, f32) for d in ds]),
-            floats([intensity_to_flux(w, f32) for w in w_mu]), stream(dev),
+            nlay, ncol, ngpt, nbnd, *groups, nang, *angles, stream(dev),
         )
     _build.check(err, name)
     lw_noscat_banded_reduced.launches += 1
@@ -318,6 +341,51 @@ def lw_noscat_reduced_ref(tau, lay_source, lev_source, sfc_source, sfc_emis, gpt
     return up.sum(-1), dn.sum(-1)
 
 
+def lw_noscat_reduced_angles_ref(tau, lay_source, lev_source, sfc_source, sfc_emis, gpt2band, ds, w_mu,
+                                 inc_flux=None):
+    """Plain twin of ``lw_noscat_reduced_angles``: the one-angle twin per
+    angle with the incident flux ``inc_flux * w_k``, summed in the angles'
+    order. Any float dtype."""
+    return _angles_sum(lw_noscat_reduced_ref, (tau, lay_source, lev_source, sfc_source, sfc_emis, gpt2band), ds,
+                       w_mu, inc_flux)
+
+
+def _lw_noscat_reduced_launch(tau, lay_source, lev_source, sfc_source, sfc_emis, gpt2band, ds, w_mu, inc,
+                              name: str):
+    """One launch of csrc/lw_noscat_sources.cu's summed sweep for the angles
+    of secants ``ds`` and weights ``w_mu`` (1 to 4), ``inc`` each angle's
+    incident flux (nang, ncol, ngpt) or None. Returns each angle's fluxes,
+    (nang, nlay+1, ncol) up and down. Counted on
+    ``lw_noscat_reduced.launches``, which both wrappers of the sweep share."""
+    dev = cuda_device(tau, name)
+    nang = len(ds)
+    angles = _angle_arrays(ds, w_mu, name)
+    nlay, ncol, ngpt = _dims(tau, name)
+    if sfc_emis.dim() != 2:
+        raise ValueError(f"{name}: sfc_emis {tuple(sfc_emis.shape)}")
+    f32 = torch.float32
+    for arg, x, shape in (
+        ("tau", tau, (nlay, ncol, ngpt)), ("lay_source", lay_source, (nlay, ncol, ngpt)),
+        ("lev_source", lev_source, (nlay + 1, ncol, ngpt)), ("sfc_source", sfc_source, (ncol, ngpt)),
+        ("sfc_emis", sfc_emis, (sfc_emis.shape[0], ncol)),
+    ):
+        require(x, arg, shape, f32, dev)
+    require(gpt2band, "gpt2band", (ngpt,), torch.int32, dev)
+    if inc is not None:
+        require(inc, "inc_flux", (nang, ncol, ngpt), f32, dev)
+    up = torch.empty((nang, nlay + 1, ncol), dtype=f32, device=dev)
+    dn = torch.empty_like(up)
+    groups, partials = angles_plan(nang, nlay, ncol, ngpt, dev)
+    with torch.cuda.device(dev):
+        err = _build.library().rrtmgp_lw_noscat_reduced(
+            *map(ptr, (tau, lay_source, lev_source, sfc_source, sfc_emis, gpt2band, inc, up, dn, partials)),
+            nlay, ncol, ngpt, *groups, nang, *angles, stream(dev),
+        )
+    _build.check(err, name)
+    lw_noscat_reduced.launches += 1
+    return up, dn
+
+
 def lw_noscat_reduced(
     tau: torch.Tensor,         # (nlay, ncol, ngpt) optical depth
     lay_source: torch.Tensor,  # (nlay, ncol, ngpt) layer Planck source
@@ -333,31 +401,34 @@ def lw_noscat_reduced(
     each (nlay+1, ncol), summed over g-points."""
     if tau.device.type == "cpu":
         return lw_noscat_reduced_ref(tau, lay_source, lev_source, sfc_source, sfc_emis, gpt2band, ds, w_mu, inc_flux)
-    dev = cuda_device(tau, "lw_noscat_reduced")
-    nlay, ncol, ngpt = _dims(tau, "lw_noscat_reduced")
-    if sfc_emis.dim() != 2:
-        raise ValueError(f"lw_noscat_reduced: sfc_emis {tuple(sfc_emis.shape)}")
-    f32 = torch.float32
-    for name, x, shape in (
-        ("tau", tau, (nlay, ncol, ngpt)), ("lay_source", lay_source, (nlay, ncol, ngpt)),
-        ("lev_source", lev_source, (nlay + 1, ncol, ngpt)), ("sfc_source", sfc_source, (ncol, ngpt)),
-        ("sfc_emis", sfc_emis, (sfc_emis.shape[0], ncol)),
-    ):
-        require(x, name, shape, f32, dev)
-    require(gpt2band, "gpt2band", (ngpt,), torch.int32, dev)
-    if inc_flux is not None:
-        require(inc_flux, "inc_flux", (ncol, ngpt), f32, dev)
-    up = torch.empty((nlay + 1, ncol), dtype=f32, device=dev)
-    dn = torch.empty_like(up)
-    groups, partials = _plan(2, nlay, ncol, ngpt, dev)
-    with torch.cuda.device(dev):
-        err = _build.library().rrtmgp_lw_noscat_reduced(
-            *map(ptr, (tau, lay_source, lev_source, sfc_source, sfc_emis, gpt2band, inc_flux, up, dn, partials)),
-            nlay, ncol, ngpt, *groups, round_to(ds, f32), intensity_to_flux(w_mu, f32), stream(dev),
-        )
-    _build.check(err, "lw_noscat_reduced")
-    lw_noscat_reduced.launches += 1
-    return up, dn
+    inc = None if inc_flux is None else inc_flux[None]
+    up, dn = _lw_noscat_reduced_launch(tau, lay_source, lev_source, sfc_source, sfc_emis, gpt2band, [ds], [w_mu],
+                                       inc, "lw_noscat_reduced")
+    return up[0], dn[0]
+
+
+def lw_noscat_reduced_angles(
+    tau: torch.Tensor,         # (nlay, ncol, ngpt) optical depth
+    lay_source: torch.Tensor,  # (nlay, ncol, ngpt) layer Planck source
+    lev_source: torch.Tensor,  # (nlay+1, ncol, ngpt) level Planck source
+    sfc_source: torch.Tensor,  # (ncol, ngpt) surface Planck source
+    sfc_emis: torch.Tensor,    # (nbnd, ncol)
+    gpt2band: torch.Tensor,    # (ngpt,) int32
+    ds, w_mu,                  # the angles' secants and weights, 1 to 4 of each
+    inc_flux: torch.Tensor | None = None,  # (ncol, ngpt) TOA incident flux
+):
+    """``lw_noscat_reduced`` summed over the quadrature angles (secants
+    ``ds``, weights ``w_mu``) in one launch: angle k sees the incident flux
+    ``inc_flux * w_k``. Returns (flux_up, flux_dn), each (nlay+1, ncol),
+    added in the angles' order: the bits of the one-angle wrapper called
+    per angle and summed."""
+    if tau.device.type == "cpu":
+        return lw_noscat_reduced_angles_ref(tau, lay_source, lev_source, sfc_source, sfc_emis, gpt2band, ds, w_mu,
+                                            inc_flux)
+    inc = None if inc_flux is None else torch.stack([inc_flux * float(w) for w in w_mu])
+    up, dn = _lw_noscat_reduced_launch(tau, lay_source, lev_source, sfc_source, sfc_emis, gpt2band, list(ds),
+                                       list(w_mu), inc, "lw_noscat_reduced_angles")
+    return _sum_angles(up), _sum_angles(dn)
 
 
 lw_noscat_reduced.launches = 0

@@ -8,6 +8,7 @@ that chip_smoke.py does not print. Run from the repository root:
     python3 scripts/port_measure.py [--root CHECKOUT] gather [--tiles 4,8,16,32] [--k1]
     python3 scripts/port_measure.py [--root CHECKOUT] sw-sweep
     python3 scripts/port_measure.py [--root CHECKOUT] lw-sweep
+    python3 scripts/port_measure.py [--root CHECKOUT] sw-mega
 
 With no argument it runs the first five. Each line names what it measured; the
 first line is the card's name and power limit. Problem sizes and inputs are
@@ -48,16 +49,21 @@ imports no JAX.
   and through impl="kernel" on the same inputs.
 - ``kernel-hashes``: median time of 7 calls, sha256 of the outputs and
   register counts of the kernels whose device code lives in shared headers
-  (sw_2stream_reduced, sw_clear_mega, lw_clear_mega, optics_fused,
+  (sw_2stream_reduced, sw_clear_mega clear, lw_clear_mega, optics_fused,
   lw_noscat_banded_reduced at 1 angle and at 3 (with and without an
   incident flux; one launch where the checkout has lw_noscat_banded_angles,
   else one per angle, summed), solve_lw's LW fluxes with 3 angles on the
   two-kernel and the unfused route, interp_pt_eta for each table,
   interp_minor and the four sweeps from materialized sources on the clear
-  cell; lw_clear_mega
+  cell, lw_noscat_reduced also at 1 angle with an incident flux and at 3
+  angles with and without one (one launch where the checkout has
+  lw_noscat_reduced_angles, else one per angle, summed); lw_clear_mega
   built for f64 on the clear cell in f64; lw2_mega and the composed
   lw_clear_mega on the all-sky cell with McICA by seed + aerosols, lw2_mega
-  also clear; mcica_mask_export; the cloud cover is hashed with the
+  also clear; mcica_mask_export; sw_clear_mega with a cloud mask given
+  (with and without aerosols), McICA by seed + aerosols and aerosols alone
+  on the all-sky cell, and clear and seeded at 1100 g-points (64 x 12) and
+  at 800 layers (512 columns); the cloud cover is hashed with the
   fluxes). ``--root CHECKOUT``
   imports chip_smoke.py and the package from another checkout and builds
   there. To show that a change of a shared header left those kernels as
@@ -107,6 +113,17 @@ imports no JAX.
   then the ``ptxas`` registers of the kernel's instantiations. For design
   variants (angles per launch, read-ahead): build each in its own checkout
   and run this mode on each with ``--root``, in turns within one call.
+- ``sw-mega``: the SW megakernel (K2) on the clear cell (32768 x 60) and on
+  the all-sky cell (75748 x 60, McICA by seed + aerosols), 3 rounds of a
+  median of 7 synchronized calls, the cells taking turns within a round,
+  each with the sha256 of its outputs (the cover with them), the device
+  scratch of one call (peak allocated during the call less what is
+  allocated after it), the staging chunk and staged bytes where the
+  checkout reports them (``ops.mega.sw_clear_mega_design``), then the
+  ``ptxas`` registers of every instantiation. For design variants (the
+  staging chunk, the state layout): build each in its own checkout and run
+  this mode on each with ``--root``, in turns within one call with the
+  parent.
 """
 
 from __future__ import annotations
@@ -386,34 +403,75 @@ def profile_sweep() -> None:
         _profile(f"profile LW two-stream {impl}", lambda: solve_lw(lw, atm, bcs_lw, two_stream=True, impl=impl))
 
 
-REGISTERS_OF = ("sw_clear_mega_kernelILb0ELb0", "lw2_mega_kernelILb0ELb0", "lw2_mega_kernelILb1ELb1ELi2",
+REGISTERS_OF = ("sw_clear_mega_kernel", "lw2_mega_kernelILb0ELb0", "lw2_mega_kernelILb1ELb1ELi2",
                 "sw_2stream_reduced_kernel", "lw_clear_mega_kernelIfLb0ELb0", "lw_clear_mega_kernelIfLb1ELb1ELi2",
                 "lw_clear_mega_kernelIdLb0ELb0", "lw_noscat_banded_kernel", "lw_noscat_sources_kernel",
-                "lw_2stream_reduced_kernel", "optics_fused_kernel", "interp_pt_eta_kernel", "interp_minor_kernel",
-                "sw_2stream_gpt_kernel")
+                "lw_noscat_reduced_kernel", "lw_noscat_gpt_kernel", "lw_2stream_reduced_kernel",
+                "optics_fused_kernel", "interp_pt_eta_kernel", "interp_minor_kernel", "sw_2stream_gpt_kernel")
 
 
-def k12_angles(k12, n: int):
-    """K12 at solve_lw's n angles on k12's optics, as the checkout's solves
-    launch it: lw_noscat_banded_angles (one launch) where the checkout has
-    it, else lw_noscat_banded_reduced per angle with the incident flux
-    split by weight, summed in the angles' order (the solves before it)."""
+def angles_call(multi: str, one: str, head, n: int, inc=None):
+    """A multi-angle LW sweep at solve_lw's n angles on ``head`` (the
+    one-angle wrapper's arguments before the angle) with the incident flux
+    ``inc``, as the checkout's solves launch it: ``rte_kernels.<multi>``
+    (one launch) where the checkout has it, else ``rte_kernels.<one>`` per
+    angle with the incident flux split by weight, summed in the angles'
+    order (the solves before it)."""
     from rrtmgp_tpu_torch.angular import angular_discretization
     from rrtmgp_tpu_torch.ops import rte_kernels
 
     Ds, wts = angular_discretization(n)
-    ds, w, inc = [float(d) for d in Ds], [float(x) for x in wts], k12[9]
-    if hasattr(rte_kernels, "lw_noscat_banded_angles"):
-        return lambda: rte_kernels.lw_noscat_banded_angles(*k12[:7], ds, w, inc)
+    ds, w = [float(d) for d in Ds], [float(x) for x in wts]
+    if hasattr(rte_kernels, multi):
+        return lambda: getattr(rte_kernels, multi)(*head, ds, w, inc)
 
     def per_angle():
         up = dn = None
         for d, x in zip(ds, w):
-            u, v = rte_kernels.lw_noscat_banded_reduced(*k12[:7], d, x, None if inc is None else inc * x)
+            u, v = getattr(rte_kernels, one)(*head, d, x, None if inc is None else inc * x)
             up, dn = (u, v) if up is None else (up + u, dn + v)
         return up, dn
 
     return per_angle
+
+
+def k12_angles(k12, n: int):
+    """K12 (lw_noscat_banded) at n angles on k12's optics (see angles_call)."""
+    return angles_call("lw_noscat_banded_angles", "lw_noscat_banded_reduced", k12[:7], n, k12[9])
+
+
+def k13_angles(k13, n: int, inc=None):
+    """K13 (lw_noscat_reduced) at n angles on k13's sources with the
+    incident flux ``inc`` (see angles_call)."""
+    return angles_call("lw_noscat_reduced_angles", "lw_noscat_reduced", k13[:6], n, inc)
+
+
+def sw_mega_cases(L, atm):
+    """sw_clear_mega on the all-sky cell's inputs as solve_sw builds them
+    (delta-scaled band properties): a cloud mask given (McICA mask of the
+    seed) with aerosols, clouds without aerosols by mask, McICA by seed +
+    aerosols (the cover is hashed with the fluxes), aerosols alone. Returns
+    (name, composition) pairs and the wrapper's other arguments."""
+    from rrtmgp_tpu_torch.models.rrtmgp import _kernel_composition
+    from rrtmgp_tpu_torch.ops.cloud_optics import build_cloud_mask_mcica
+    from rrtmgp_tpu_torch.ops.mega_inputs import mega_sw_inputs
+
+    sw = L.lookup_sw
+    _, bcs_sw = cs.boundary_conditions(L.lookup_lw, sw, atm.ncol)
+    mask = build_cloud_mask_mcica(atm.cloud_state.cld_frac, sw.n_gpt, cs.MCICA_SEED, cs.COL_OFFSET)
+
+    def comp(cld, aero, seeded):
+        return _kernel_composition(sw, atm, cld, aero, None if seeded else mask, cs.MCICA_SEED if seeded else None,
+                                   cs.COL_OFFSET, None, True, False)[0]
+
+    toa_gpt = bcs_sw.toa_flux[:, None] * sw.solar_src_scaled[None, :]
+    args = (mega_sw_inputs(sw, atm), sw.kernel_tables, bcs_sw.cos_zenith, toa_gpt, bcs_sw.sfc_alb_direct,
+            bcs_sw.sfc_alb_diffuse, None)
+    cases = [("cloud mask+aerosols", comp(L.lookup_sw_cld, L.lookup_sw_aero, False)),
+             ("cloud mask", comp(L.lookup_sw_cld, None, False)),
+             ("seed+aerosols", comp(L.lookup_sw_cld, L.lookup_sw_aero, True)),
+             ("aerosols", comp(None, L.lookup_sw_aero, False))]
+    return cases, args
 
 
 def kernel_hashes() -> None:
@@ -469,6 +527,12 @@ def kernel_hashes() -> None:
     torch.cuda.empty_cache()
     k13, k14, _, k16a, k16b = cs.sweep_args(lw, sw, atm, bcs_lw, bcs_sw)
     report("lw_noscat_reduced", lambda: rte_kernels.lw_noscat_reduced(*k13))
+    inc = 0.5 + 0.25 * torch.sin(torch.arange(k13[0][0].numel(), device=cs.DEVICE, dtype=torch.float32)).view(
+        k13[0].shape[1:])
+    report("lw_noscat_reduced 1 angle with incident flux", k13_angles(k13, 1, inc))
+    report("lw_noscat_reduced 3 angles", k13_angles(k13, 3))
+    report("lw_noscat_reduced 3 angles with incident flux", k13_angles(k13, 3, inc))
+    del inc
     report("lw_2stream_reduced", lambda: rte_kernels.lw_2stream_reduced(*k14))
     report("sw_2stream_gpt", lambda: rte_kernels.sw_2stream_gpt(*k16a))
     report("lw_noscat_gpt", lambda: rte_kernels.lw_noscat_gpt(*k16b))
@@ -497,6 +561,22 @@ def kernel_hashes() -> None:
     report("lw2_mega clear", lambda: mega.lw2_mega(*args)[:2])
     report("mcica_mask_export", lambda: mega.mcica_mask_export(atm.cloud_state.cld_frac, cs.MCICA_SEED,
                                                                cs.COL_OFFSET, lw.n_gpt))
+    del args, comp
+    torch.cuda.empty_cache()
+    cases, sw_args = sw_mega_cases(L, atm)
+    for what, c in cases:
+        report(f"sw_clear_mega {what}", lambda: mega.sw_clear_mega(*sw_args, c))
+    del cases, sw_args, atm
+    torch.cuda.empty_cache()
+    # more g-points than a block has threads, and the deep column
+    for tag, lkps, a in (
+            (f"{cs.WIDE_NGPT} g-points", cs.small_allsky_lookups(cs.WIDE_NGPT),
+             cs.allsky_atmosphere(cs.WIDE_NCOL, cs.WIDE_NLAY)),
+            (f"{cs.DEEP_NLAY} layers", L, cs.allsky_atmosphere(cs.DEEP_NCOL, cs.DEEP_NLAY))):
+        cases, sw_args = sw_mega_cases(lkps, a)
+        report(f"sw_clear_mega clear {tag}", lambda: mega.sw_clear_mega(*sw_args))
+        for what, c in cases[2:3]:
+            report(f"sw_clear_mega {what} {tag}", lambda: mega.sw_clear_mega(*sw_args, c))
 
     entry = None
     for line in _build.library_path().with_suffix(".log").read_text().splitlines():
@@ -648,6 +728,45 @@ def lw_sweep() -> None:
     _registers(_build.library_path().with_suffix(".log"), ("lw_noscat_banded_kernel",), "lw-sweep")
 
 
+def sw_mega() -> None:
+    import torch
+
+    from rrtmgp_tpu_torch import AllSkyRadiation, lookup_tables
+    from rrtmgp_tpu_torch.ops import _build, mega
+
+    lw, sw = cs.lookups(256, 16, 224, 14)
+    atm = cs.atmosphere(cs.NCOL, cs.NLAY)
+    bcs_lw, bcs_sw = cs.boundary_conditions(lw, sw, cs.NCOL)
+    k2 = cs.kernel_args(lw, sw, atm, bcs_lw, bcs_sw)[2]
+    L = lookup_tables(AllSkyRadiation(aerosol_radiation=True), dtype=torch.float32, device=cs.DEVICE)
+    cases, args = sw_mega_cases(L, cs.allsky_atmosphere(cs.ALLSKY_NCOL, cs.NLAY))
+    seeded = cases[2][1]
+    runs = [(f"clear {cs.NCOL} x {cs.NLAY}", k2, mega.CLEAR),
+            (f"all-sky McICA seed+aerosols {cs.ALLSKY_NCOL} x {cs.NLAY}", args, seeded)]
+    ms = {name: [] for name, _, _ in runs}
+    for _ in range(3):
+        for name, a, c in runs:
+            ms[name].append(cs.timed(lambda: mega.sw_clear_mega(*a, c), 7))
+    for name, a, c in runs:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        out = mega.sw_clear_mega(*a, c)
+        torch.cuda.synchronize()
+        scratch = torch.cuda.max_memory_allocated() - torch.cuda.memory_allocated()
+        h = hashlib.sha256()
+        for t in out:
+            h.update(t.cpu().numpy().tobytes())
+        del out
+        design = ""
+        if hasattr(mega, "sw_clear_mega_design"):
+            dz = mega.sw_clear_mega_design(*a[:2], c)
+            design = (f", chunk {dz['chunk']} layers, staged {dz['staged']} B, shared memory {dz['smem']} B, "
+                      f"{dz['n_groups']} block(s) of {dz['group']}, state: {dz.get('state', 'four coefficients')}")
+        say("sw-mega", f"{ROOT} sw_clear_mega {name}: {_fmt(ms[name])} ms, sha256 {h.hexdigest()[:16]}, device "
+                       f"scratch of one call {scratch / 1e9:.3f} GB{design}")
+    _registers(_build.library_path().with_suffix(".log"), ("sw_clear_mega_kernel",), "sw-mega")
+
+
 def _steps(tag: str, step, steps: int = 5) -> None:
     """Step time (median, min, max of ``steps``) and peak device memory."""
     import statistics
@@ -753,7 +872,7 @@ def main() -> None:
     for name, fn in (("f64-memory", f64_memory), ("angles", angles), ("profile", profile_cells),
                      ("profile-two-kernel", profile_two_kernel), ("profile-sweep", profile_sweep),
                      ("kernel-hashes", kernel_hashes), ("megakernels", megakernels), ("gather", gather),
-                     ("sw-sweep", sw_sweep), ("lw-sweep", lw_sweep)):
+                     ("sw-sweep", sw_sweep), ("lw-sweep", lw_sweep), ("sw-mega", sw_mega)):
         if name in want:
             fn()
 

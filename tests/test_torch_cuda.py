@@ -728,7 +728,7 @@ def test_sw_direct_beam_runs_with_the_default_impl(cuda):
     assert torch.all(beam.flux_up == 0.0) and torch.all(beam.flux_dn == 0.0)
     assert torch.all(beam.flux_dn_dir[:, mu0 <= 0] == 0.0) and float(beam.flux_dn_dir.max()) > 100.0
     assert torch.all(beam.flux_dn_dir[:-1] <= beam.flux_dn_dir[1:])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="no direct-beam route.*impl=None or 'two_kernel'"):
         solve_sw(sw, atm, bs, two_stream=False, impl="kernel")
     # SW two-stream through the two-kernel path against the megakernel and the torch path
     mega.reset_launch_counts()
@@ -933,7 +933,7 @@ def test_sweep_route_runs_the_sweeps_on_plain_optics(cuda):
         for n in (1, 3):
             mega.reset_launch_counts()
             out, diag = solve_lw(lw, atm, bl, n_gauss_angles=n, impl="sweep", **lw_kw)
-            assert _counts() == {"lw_noscat_reduced": n}
+            assert _counts() == {"lw_noscat_reduced": 1}
             exact, ediag = solve_lw(lw, atm, bl, n_gauss_angles=n, impl="torch", **lw_kw)
             assert _rel(out, exact) <= TOL["lw_noscat_reduced"]
         mega.reset_launch_counts()
@@ -1326,13 +1326,13 @@ def test_staged_interp_minor_is_optics_fused_minor_part(cuda, ngpt, nbnd, ncol, 
     assert _counts() == {"interp_minor": 4, "optics_fused": 2}
 
 
-def _per_angle(args, ds, w, inc):
-    """lw_noscat_banded_reduced per angle, angle k with the incident flux
-    inc * w_k, summed in the angles' order: the solves' sum before one
-    launch took every angle."""
+def _per_angle(args, ds, w, inc, one=rte_kernels.lw_noscat_banded_reduced):
+    """A one-angle sweep (lw_noscat_banded_reduced, or lw_noscat_reduced)
+    per angle, angle k with the incident flux inc * w_k, summed in the
+    angles' order: the solves' sum before one launch took every angle."""
     up = dn = None
     for d, wk in zip(ds, w):
-        u, v = rte_kernels.lw_noscat_banded_reduced(*args, d, wk, None if inc is None else inc * wk)
+        u, v = one(*args, d, wk, None if inc is None else inc * wk)
         up, dn = (u, v) if up is None else (up + u, dn + v)
     return up, dn
 
@@ -1371,7 +1371,7 @@ def test_lw_noscat_banded_angles_on_deep_columns(cuda):
     k12 = _two_kernel_case(cuda, 256, 16, ncol, nlay)[3]
     args, inc = k12[:7], k12[9]
     for n in (1, 2, 3, 4):
-        (_, n_groups, in_block), partials = rte_kernels.banded_plan(n, nlay, ncol, 256, cuda)
+        (_, n_groups, in_block), partials = rte_kernels.angles_plan(n, nlay, ncol, 256, cuda)
         assert n_groups == 1 and not in_block and partials.shape == (2 * n, nlay + 1, ncol, 8)
         assert smem_limit(cuda) < 2 * n * (nlay + 1) * 8 * 4
         Ds, wts = angular_discretization(n)
@@ -1398,4 +1398,100 @@ def test_lw_noscat_banded_angles_reject_what_the_kernel_does_not_take(cuda):
         rte_kernels.lw_noscat_banded_angles(*args, [1.5], [1.0], inc[:, :-1].contiguous())
     with pytest.raises(ValueError, match="on cpu"):
         rte_kernels.lw_noscat_banded_angles(*args[:5], args[5].cpu(), args[6], [1.5], [1.0])
+    assert _counts() == {}
+
+
+# ---------------------------------------------------------------------------
+# sw_clear_mega on the staged gather, and lw_noscat_reduced over every angle
+# in one launch
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("ngpt,nbnd,ncol,nlay,n_minor", [(36, 3, 13, 13, 12), (224, 14, 257, 60, 30),
+                                                         (1100, 5, 9, 11, 20)])
+def test_staged_sw_clear_mega_matches_twin(cuda, ngpt, nbnd, ncol, nlay, n_minor):
+    """sw_clear_mega on its staged chunks against its twin: clear, a cloud
+    mask given (with and without aerosols), McICA by seed + aerosols (the
+    cloud cover bit for bit) and aerosols alone, where nlay is not a multiple
+    of the staging chunk, band limits are not multiples of 16, several minor
+    intervals cover each g-point and, at 1100 g-points, a column spans two
+    blocks; a second call equals the first bit for bit."""
+    from rrtmgp_tpu_torch.models.rrtmgp import _kernel_composition
+
+    assert nlay % mega.SW_CHUNK
+    sw = _rich_lookup(cuda, False, ngpt, nbnd, n_minor, 1)
+    _, _, atm, cld, aero, _, sw_args, masks = _allsky_case(cuda, ngpt, nbnd, ncol, nlay)
+    args = (mega_sw_inputs(sw, atm), sw.kernel_tables, *sw_args[2:])
+    make = lambda c, a, m, s: _kernel_composition(sw, atm, c, a, m, s, 100, None, True, False)[0]
+    comps = (mega.CLEAR, make(cld[1], None, masks[1], None), make(cld[1], aero[1], masks[1], None),
+             make(cld[1], aero[1], None, 9), make(None, aero[1], None, None))
+    mega.reset_launch_counts()
+    for comp in comps:
+        out, want = mega.sw_clear_mega(*args, comp), mega.sw_clear_mega_ref(*args, comp)
+        if comp.seeded:
+            assert torch.equal(out[3], want[3])
+        assert _rel(out[:3], want[:3]) <= TOL["sw_clear_mega"]
+        assert all(torch.equal(a, b) for a, b in zip(out, mega.sw_clear_mega(*args, comp)))
+    torch.cuda.synchronize()
+    assert _counts()["sw_clear_mega"] == 2 * len(comps)
+
+
+def test_staged_sw_clear_mega_on_deep_columns(cuda):
+    """224 g-points x 2800 layers, seed + aerosols: the staging area beside
+    level sums in device memory (the plan counts the staged bytes); the
+    fluxes hold the twin and the cover is the twin's bit for bit."""
+    from rrtmgp_tpu_torch.models.rrtmgp import _kernel_composition
+
+    ngpt, nbnd, ncol, nlay = 224, 14, 3, 2800
+    _, sw, atm, cld, aero, _, sw_args, _ = _allsky_case(cuda, ngpt, nbnd, ncol, nlay)
+    comp = _kernel_composition(sw, atm, cld[1], aero[1], None, 9, 100, None, True, False)[0]
+    design = mega.sw_clear_mega_design(*sw_args[:2], comp)
+    assert design["n_groups"] == 1 and not design["in_block"] and design["chunk"] == mega.SW_CHUNK
+    out, want = mega.sw_clear_mega(*sw_args, comp), mega.sw_clear_mega_ref(*sw_args, comp)
+    assert torch.equal(out[3], want[3])
+    assert _rel(out[:3], want[:3]) <= TOL["sw_clear_mega"]
+
+
+@pytest.mark.parametrize("ngpt,nbnd,ncol,nlay", [(36, 4, 1000, 30), (256, 16, 257, 60), (1100, 4, 7, 5),
+                                                 (256, 16, 3, 3700)])
+def test_lw_noscat_reduced_angles_equal_per_angle_launches(cuda, ngpt, nbnd, ncol, nlay):
+    """lw_noscat_reduced_angles, 1 to 4 angles in one launch, with and
+    without incident flux: bit for bit the one-angle launches summed in the
+    angles' order, and against its twin; at 1100 g-points a column spans
+    two blocks and at 3700 layers the level sums of every angle count go to
+    device memory (2 x nang fields)."""
+    k13 = _sweep_case(cuda, ngpt, nbnd, ncol, nlay)[0]
+    args, inc = k13[:6], k13[8]
+    for n in (1, 2, 3, 4):
+        (_, _, in_block), partials = rte_kernels.angles_plan(n, nlay, ncol, ngpt, cuda)
+        assert in_block == (ngpt <= 1024 and nlay < 1000)
+        Ds, wts = angular_discretization(n)
+        ds, w = [float(d) for d in Ds], [float(x) for x in wts]
+        for flux in (inc, None):
+            mega.reset_launch_counts()
+            up, dn = rte_kernels.lw_noscat_reduced_angles(*args, ds, w, flux)
+            assert _counts() == {"lw_noscat_reduced": 1}
+            assert up.shape == dn.shape == (nlay + 1, ncol)
+            want = _per_angle(args, ds, w, flux, rte_kernels.lw_noscat_reduced)
+            assert torch.equal(up, want[0]) and torch.equal(dn, want[1]), (n, flux is None)
+            if nlay < 1000 or n == 2:
+                assert _rel((up, dn), rte_kernels.lw_noscat_reduced_angles_ref(*args, ds, w, flux)) <= \
+                    TOL["lw_noscat_reduced"]
+            assert torch.all(dn[-1] > 0.0) if flux is not None else torch.all(dn[-1] == 0.0)
+
+
+def test_lw_noscat_reduced_angles_reject_what_the_kernel_does_not_take(cuda):
+    """No angle, more than four, secants and weights of other lengths, or an
+    incident flux of another shape raise before a launch; a CPU tensor among
+    CUDA ones too."""
+    k13 = _sweep_case(cuda, 8, 2, 16, 4)[0]
+    args, inc = k13[:6], k13[8]
+    mega.reset_launch_counts()
+    for ds, w in (([], []), ([1.5] * 5, [0.2] * 5), ([1.5, 2.0], [1.0])):
+        with pytest.raises(ValueError, match="angles"):
+            rte_kernels.lw_noscat_reduced_angles(*args, ds, w)
+    with pytest.raises(ValueError, match="shape"):
+        rte_kernels.lw_noscat_reduced_angles(*args, [1.5], [1.0], inc[:, :-1].contiguous())
+    with pytest.raises(ValueError, match="on cpu"):
+        rte_kernels.lw_noscat_reduced_angles(*args[:4], args[4].cpu(), args[5], [1.5], [1.0])
     assert _counts() == {}

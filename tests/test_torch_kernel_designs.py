@@ -26,6 +26,22 @@
   angles reduced over the warp together (``add_fields``) have the bits of
   the per-field shuffle tree; the launch plan counts 2 x nang fields.
 
+- ``sw_clear_mega`` (csrc/sw_clear_mega.cu) on the staged gather (and, on
+  clear sky, the three passes above from its stored tau, ssa and beam):
+  chunks
+  of layers top-down, per (layer, column, band) the int32 kmajor and
+  Rayleigh (troposphere side) corners, kminor rows and eta weights, per
+  (layer, column) the weights, col_dry and the Rayleigh amount, tau =
+  max(major + minor + ray, 0), ssa = ray / tau, then the cloud and aerosol
+  increments from the staged band properties. Modelled here at 13 layers
+  (a short last chunk), it equals ``optics_fused_ref`` bit for bit and, with
+  a cloud mask and aerosols, the twins' composition.
+- ``lw_noscat_reduced`` (csrc/lw_noscat_sources.cu) over several angles in
+  one launch, as ``lw_noscat_banded`` above: the multi-angle wrapper is the
+  one-angle twin summed in the angles' order and holds the JAX
+  ``lw_noscat_pallas_reduced`` run per angle and summed (rtol 2e-5 / atol
+  1e-3, tests/test_torch_sweeps.py's tolerance); it has K12's launch plan.
+
 And the wrappers' checks that the designs add: a table of 2^31 elements or
 more is refused, sw_2stream_reduced's scratch is two arrays, and each C
 entry point takes as many arguments as its ctypes signature lists.
@@ -533,8 +549,9 @@ H100_OPTIN = 232448  # an H100's opt-in shared memory per block, as the wrappers
 
 @pytest.mark.parametrize("n_angles", [1, 2, 3, 4])
 def test_banded_plan_counts_two_fields_per_angle(monkeypatch, n_angles):
-    """The launch plan of a K12 launch counts 2 x nang level-sum fields for
-    the shared memory, the in-block decision and the device partials: at 60
+    """The launch plan of a K12 or K13 launch (``angles_plan``, one plan)
+    counts 2 x nang level-sum fields for the shared memory, the in-block
+    decision and the device partials: at 60
     layers every angle count keeps its sums in the block; at 2000 layers x
     256 g-points one angle's sums (2 x 2001 x 8 floats, 128 KB) still fit
     the block, two angles' or more do not and go to device memory, one (2
@@ -542,10 +559,10 @@ def test_banded_plan_counts_two_fields_per_angle(monkeypatch, n_angles):
     does."""
     monkeypatch.setattr(rte_kernels, "smem_limit", lambda dev: H100_OPTIN)
     cpu = torch.device("cpu")
-    assert rte_kernels.banded_plan(n_angles, 60, 5, 256, cpu) == ((256, 1, 1), None)
+    assert rte_kernels.angles_plan(n_angles, 60, 5, 256, cpu) == ((256, 1, 1), None)
     for nlay, in_block in ((2000, n_angles == 1), (3700, False)):
         assert (2 * n_angles * (nlay + 1) * 8 * 4 <= H100_OPTIN) == in_block
-        groups, partials = rte_kernels.banded_plan(n_angles, nlay, 3, 256, cpu)
+        groups, partials = rte_kernels.angles_plan(n_angles, nlay, 3, 256, cpu)
         assert groups == (256, 1, int(in_block)), (nlay, n_angles)
         if in_block:
             assert partials is None
@@ -610,3 +627,223 @@ def test_transposed_warp_sums_have_the_shuffle_tree_bits(n_fields, idle):
     other = lambda v: functools.reduce(lambda x, bit: x + x[lane ^ bit], (1, 2, 4, 8, 16), v)[0]
     draws = [torch.from_numpy(rng.lognormal(0.0, 3.0, (n_fields, 32))).float() for _ in range(8)]
     assert any(not torch.equal(other(v[f]), _warp_add_fields(v)[f]) for v in draws for f in range(n_fields))
+
+
+# ---------------------------------------------------------------------------
+# sw_clear_mega: the staged SW chunks
+# ---------------------------------------------------------------------------
+
+
+def _staged_sw_chunks(inp, tabs, chunk, comp=None):
+    """sw_clear_mega's optics loop: chunks of ``chunk`` layers from the top,
+    slot j of a chunk holding layer top - j (the last chunk short); per
+    (layer, column, band) set_band<R, true>'s int32 kmajor corners b1, b2,
+    Rayleigh corners r1, r2 of the troposphere side, the eta weights and
+    their complements; per (layer, column) the temperature and pressure
+    weights, col_dry and the Rayleigh amount; a g-point reads its band's
+    record and adds the other corners as fixed strides, in the operation
+    order of gather.cuh (staged_tau_major + staged_tau_minor +
+    staged_tau_rayleigh, then max 0 and ssa = ray / tau). With ``comp`` (a
+    cloud mask given, aerosols) the increments of allsky.cuh follow in
+    their order, from the staged band properties: clouds (nlay, ncol,
+    nbnd), aerosols (nlay, nbnd, ncol) read ncol apart. Returns (tau, ssa,
+    g, the layers in the order visited)."""
+    from rrtmgp_tpu_torch.ops.cloud_optics import increment_2stream
+
+    lkp = tabs.lkp
+    ngpt, ntemp, neta = lkp.n_gpt, lkp.n_temp, lkp.n_eta
+    nlay = inp.nlay
+    i32 = torch.int32
+    kmajor, rayl = tabs.kmajor.reshape(-1), tabs.second.reshape(-1)
+    sp, se = ntemp * neta * ngpt, ngpt
+    assert tabs.kmajor.numel() < 2**31 and tabs.second.numel() < 2**31
+    g2b, gidx = tabs.gpt2band.long(), torch.arange(ngpt, dtype=i32)
+    minor = _staged_minor(inp, tabs)  # gather.cuh staged_tau_minor, per (layer, column, g-point)
+    tau, ssa = torch.empty_like(minor), torch.empty_like(minor)
+    gg = torch.zeros_like(minor)
+    order = []
+    for k in range(-(-nlay // chunk)):
+        top = nlay - 1 - k * chunk
+        for j in range(min(chunk, top + 1)):
+            l = top - j
+            order.append(l)
+            jt, jp = inp.jtemp[l].to(i32)[:, None], inp.jpress_base[l].to(i32)[:, None]
+            side = torch.where(inp.tropo_lower[l], 0, 1).to(i32)[:, None]
+            je1, je2 = inp.jeta1[l].to(i32), inp.jeta2[l].to(i32)  # (ncol, nbnd)
+            b1, b2 = ((jp * ntemp + jt) * neta + je1) * ngpt, ((jp * ntemp + jt + 1) * neta + je2) * ngpt
+            r1, r2 = ((side * ntemp + jt) * neta + je1) * ngpt, ((side * ntemp + jt + 1) * neta + je2) * ngpt
+            band = lambda x: x[:, g2b]  # the thread's band's staged value, (ncol, ngpt)
+            at = lambda t, off: t[(band(off) + gidx).long()]
+            fe1, fe2 = band(inp.feta1[l]), band(inp.feta2[l])
+            omfe1, omfe2 = band(1.0 - inp.feta1[l]), band(1.0 - inp.feta2[l])
+            ft, fp = inp.ftemp[l][:, None], inp.fpress[l][:, None]
+            omft, omfp = 1.0 - ft, 1.0 - fp
+
+            def p_eta(t, o, om, f):
+                a = omfp * at(t, o) + fp * at(t, o + sp)
+                bb = omfp * at(t, o + se) + fp * at(t, o + se + sp)
+                return a * om + bb * f
+
+            v0, v1 = p_eta(kmajor, b1, omfe1, fe1), p_eta(kmajor, b2, omfe2, fe2)
+            major = (omft * (v0 * band(inp.col_mix1[l])) + ft * (v1 * band(inp.col_mix2[l]))) * inp.col_dry[l][:, None]
+            ray0 = at(rayl, r1) * omfe1 + at(rayl, r1 + se) * fe1
+            ray1 = at(rayl, r2) * omfe2 + at(rayl, r2 + se) * fe2
+            ray = (omft * ray0 + ft * ray1) * inp.ray_factor[l][:, None]
+            t = torch.clamp(major + minor[l] + ray, min=0.0)
+            w = torch.where(t > 0.0, ray / torch.where(t > 0.0, t, 1.0), 0.0)
+            g = torch.zeros_like(t)
+            if comp is not None:
+                ct, cw, cg = (band(x[l]) for x in comp.cld_bands)
+                m = comp.cld_mask[l]
+                nt, nw, ng = increment_2stream(t, w, g, ct, cw, cg)
+                t, w, g = torch.where(m, nt, t), torch.where(m, nw, w), torch.where(m, ng, g)
+                at_, aw, ag = (x[l].T[:, g2b] for x in comp.aero_bands)  # (nbnd, ncol): a column's ncol apart
+                m = comp.aero_mask[l][:, None]
+                nt, nw, ng = increment_2stream(t, w, g, at_, aw, ag)
+                t, w, g = torch.where(m, nt, t), torch.where(m, nw, w), torch.where(m, ng, g)
+            tau[l], ssa[l], gg[l] = t, w, g
+    return tau, ssa, gg, order
+
+
+def _sw_allsky(ngpt, nbnd, ncol=7, nlay=13):
+    """A SW lookup, an atmosphere with fractional clouds and aerosols in
+    every layer, and the all-sky Composition (cloud mask given, aerosols) as
+    solve_sw builds it for sw_clear_mega, all numpy-seeded on the CPU."""
+    import dataclasses
+
+    from rrtmgp_tpu_torch.data.synthetic import synthetic_aerosol_lookup, synthetic_cloud_lookup
+    from rrtmgp_tpu_torch.models.rrtmgp import _kernel_composition
+    from rrtmgp_tpu_torch.ops.cloud_optics import build_cloud_mask_mcica
+
+    sw = synthetic_gas_lookup(longwave=False, n_gpt=ngpt, n_bnd=nbnd, seed=1, dtype=np.float32, device="cpu")
+    atm = synthetic_atmosphere(ncol=ncol, nlay=nlay, dtype=np.float32, device="cpu", with_clouds=True,
+                               with_aerosols=True)
+    rng = np.random.default_rng(31)
+    u = lambda lo, hi, *shape: torch.from_numpy(rng.uniform(lo, hi, shape).astype(np.float32))
+    cs = atm.cloud_state
+    atm = dataclasses.replace(
+        atm, cloud_state=dataclasses.replace(cs, cld_frac=(cs.cld_frac * u(0.2, 1.0, nlay, ncol)).contiguous()),
+        aerosol_state=dataclasses.replace(atm.aerosol_state, aero_mass=u(0.0, 2e-5, 15, nlay, ncol)))
+    kw = dict(n_bnd=nbnd, dtype=np.float32, device="cpu")
+    mask = build_cloud_mask_mcica(atm.cloud_state.cld_frac, ngpt, 9, 100)
+    comp = _kernel_composition(sw, atm, synthetic_cloud_lookup(seed=5, **kw), synthetic_aerosol_lookup(seed=6, **kw),
+                               mask, None, 100, None, True, False)[0]
+    return sw, atm, comp
+
+
+@pytest.mark.parametrize("ngpt,nbnd", [(36, 4), (224, 14)])
+def test_staged_sw_chunks_equal_the_twin_bit_for_bit(ngpt, nbnd):
+    """The staged SW chunks at 13 layers (a chunk of 8, then a short one of
+    5) visit every layer once, top-down, as the McICA recurrence needs; their
+    tau and ssa equal optics_fused_ref bit for bit, clear; composed with a
+    cloud mask and aerosols in every layer they equal the twin's
+    composition (ops.mega._compose_ref) bit for bit."""
+    from rrtmgp_tpu_torch.ops import mega
+
+    sw, atm, comp = _sw_allsky(ngpt, nbnd)
+    inp, tabs = mega_sw_inputs(sw, atm), sw.kernel_tables
+    assert inp.nlay % mega.SW_CHUNK and 0 < int(inp.tropo_lower.sum()) < inp.tropo_lower.numel()
+    assert comp.cld_mask.any() and comp.aero_mask.all()
+    tau, ssa, g, order = _staged_sw_chunks(inp, tabs, mega.SW_CHUNK)
+    assert order == list(range(inp.nlay - 1, -1, -1))
+    ref_tau, ref_ssa = interp.optics_fused_ref(inp, tabs)
+    assert torch.equal(tau, ref_tau) and torch.equal(ssa, ref_ssa) and not bool(g.any())
+    assert bool((ssa > 0).any())
+    tau_c, ssa_c, g_c, _ = _staged_sw_chunks(inp, tabs, mega.SW_CHUNK, comp)
+    want = mega._compose_ref(comp, sw, ref_tau, ref_ssa, torch.zeros_like(ref_tau))
+    for out, ref in zip((tau_c, ssa_c, g_c), want[:3]):
+        assert torch.equal(out, ref)
+    assert not torch.equal(tau_c, tau) and bool((g_c > 0).any())
+
+
+@pytest.mark.parametrize("with_inc", [False, True])
+def test_sw_mega_clear_recomputed_passes_equal_the_four_array_passes(with_inc):
+    """sw_clear_mega's clear-sky state: the staged optics pass stores tau,
+    ssa and the beam, and the adding and flux passes recompute the
+    coefficients (sw_2stream_reduced's passes); per g-point that gives the
+    bits of the four-array passes that the all-sky variants keep, night
+    columns included, and summed over g-points it holds the kernel's twin
+    sw_clear_mega_ref (1e-5, the three-pass model's tolerance above)."""
+    from rrtmgp_tpu_torch.ops import mega
+
+    sw, atm, _ = _sw_allsky(36, 4, ncol=12)
+    inp, tabs = mega_sw_inputs(sw, atm), sw.kernel_tables
+    tau, ssa, _, _ = _staged_sw_chunks(inp, tabs, mega.SW_CHUNK)
+    x = _sw_inputs(torch.float32, ncol=12, nlay=inp.nlay, ngpt=36, nbnd=4, seed=5)
+    x.update(tau=tau, ssa=ssa, gpt2band=tabs.gpt2band, toa_gpt=x["toa_gpt"] * sw.solar_src_scaled[None, :])
+    inc = x["inc"] if with_inc else None
+    for a, b in zip(_sw_three_passes(x, None, inc), _sw_four_arrays(x, None, inc)):
+        torch.testing.assert_close(a, b, rtol=0.0, atol=0.0, equal_nan=True)
+    day = x["mu0"] > 0
+    out = _summed(_sw_three_passes(x, None, inc))
+    ref = mega.sw_clear_mega_ref(inp, tabs, x["mu0"], x["toa_gpt"], x["alb_dir"], x["alb_dif"], inc)
+    assert _rel([o[:, day] for o in out], [r[:, day] for r in ref]) <= 1e-5
+
+
+# ---------------------------------------------------------------------------
+# lw_noscat_reduced: every quadrature angle in one launch
+# ---------------------------------------------------------------------------
+
+
+def _sources_inputs(seed=13, nlay=6, ncol=12, ngpt=32, nbnd=4):
+    rng = np.random.default_rng(seed)
+    f = lambda *shape, lo=0.5, hi=1.5: rng.uniform(lo, hi, shape).astype(np.float32)
+    tau = np.abs(rng.normal(0.4, 0.2, (nlay, ncol, ngpt))).astype(np.float32)
+    tau[0, :, :3] = 1e-7  # below the Clough threshold: the series branch
+    g2b = (np.arange(ngpt) * nbnd // ngpt).astype(np.int32)
+    emis = f(nbnd, ncol, lo=0.9, hi=1.0)
+    return dict(tau=tau, lay=f(nlay, ncol, ngpt), lev=f(nlay + 1, ncol, ngpt), sfc=f(ncol, ngpt), emis=emis,
+                emis_gpt=np.ascontiguousarray(emis.T[:, g2b]), inc=f(ncol, ngpt, lo=0.0, hi=0.3)), g2b
+
+
+@pytest.mark.parametrize("n_angles", [1, 2, 3, 4])
+@pytest.mark.parametrize("with_inc", [False, True])
+def test_sources_angles_equal_the_per_angle_twin_sum_bit_for_bit(n_angles, with_inc):
+    """On CPU tensors lw_noscat_reduced_angles is the one-angle twin per
+    angle, angle k with the incident flux inc * w_k, added in the angles'
+    order (the sum the sweep route made before): bit for bit, with no
+    launch."""
+    x, g2b = _sources_inputs()
+    t = {k: torch.from_numpy(v) for k, v in x.items()}
+    args = (t["tau"], t["lay"], t["lev"], t["sfc"], t["emis"], torch.from_numpy(g2b))
+    inc = t["inc"] if with_inc else None
+    ds, w = _angles(n_angles)
+    rte_kernels.lw_noscat_reduced.launches = 0
+    out = rte_kernels.lw_noscat_reduced_angles(*args, ds, w, inc)
+    up = dn = None
+    for d, wk in zip(ds, w):
+        u, v = rte_kernels.lw_noscat_reduced_ref(*args, d, wk, None if inc is None else inc * wk)
+        up, dn = (u, v) if up is None else (up + u, dn + v)
+    assert torch.equal(out[0], up) and torch.equal(out[1], dn)
+    ref = rte_kernels.lw_noscat_reduced_angles_ref(*args, ds, w, inc)
+    assert torch.equal(out[0], ref[0]) and torch.equal(out[1], ref[1])
+    assert rte_kernels.lw_noscat_reduced.launches == 0
+    if not with_inc:
+        assert torch.all(out[1][-1] == 0.0)
+
+
+@pytest.mark.parametrize("n_angles", [1, 2, 3, 4])
+@pytest.mark.parametrize("with_inc", [False, True])
+def test_sources_angles_hold_jax_per_angle_sum(n_angles, with_inc):
+    """lw_noscat_reduced_angles against the JAX lw_noscat_pallas_reduced
+    (its Pallas kernel in interpret mode, emissivity per g-point, 12 columns
+    in blocks of 8) called per angle with the incident flux split by weight
+    and summed, as the JAX sweep route does: rtol 2e-5 / atol 1e-3, as
+    tests/test_torch_sweeps.py holds K13's twin."""
+    from rrtmgp_tpu.ops import pallas_rte as jprte
+
+    x, g2b = _sources_inputs(seed=14)
+    j = {k: jnp.asarray(v) for k, v in x.items()}
+    ds, w = _angles(n_angles)
+    ref_up = ref_dn = 0.0
+    for d, wk in zip(ds, w):
+        inc_k = j["inc"] * np.float32(wk) if with_inc else None
+        u, v = jprte.lw_noscat_pallas_reduced(j["tau"], j["lay"], j["lev"], j["sfc"], j["emis_gpt"], d, wk, inc_k,
+                                              block_cols=8)
+        ref_up, ref_dn = ref_up + np.asarray(u), ref_dn + np.asarray(v)
+    t = {k: torch.from_numpy(v) for k, v in x.items()}
+    out = rte_kernels.lw_noscat_reduced_angles(t["tau"], t["lay"], t["lev"], t["sfc"], t["emis"],
+                                               torch.from_numpy(g2b), ds, w, t["inc"] if with_inc else None)
+    for o, r in zip(out, (ref_up, ref_dn)):
+        assert o.shape == (7, 12)
+        np.testing.assert_allclose(o.numpy(), r, rtol=2e-5, atol=1e-3)

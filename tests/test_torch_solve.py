@@ -274,7 +274,7 @@ def test_sw_unported_options_raise(cuda_routing, monkeypatch, kwargs):
     assert torch.all(out.flux_up == 0.0) and torch.all(out.flux_dn == 0.0)
     night = tb.cos_zenith <= 0
     assert night.any() and torch.all(out.flux_dn_dir[:, night] == 0.0)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="no direct-beam route.*impl=None or 'two_kernel'"):
         solve_sw(tl, ta, tb, two_stream=False, impl="kernel", **tkw)
 
 
