@@ -99,9 +99,12 @@ is non-zero:
    against the torch path at 8192 columns.
 
 11. wide and deep (after the small shapes): every kernel against its twin
-   at 1100 g-points, more than a block has threads (ncol 64, 12 layers: the
-   megakernels, the two-kernel path, the sweeps, the unfused optics, f64),
-   and the all-sky kernels, lw2_mega and sw_clear_mega among them, at 800
+   at 1100 g-points, more than a block has threads, and at 1000, more than
+   a block of the register-heavy kernels (lw2_mega, sw_clear_mega all-sky
+   seeded) may have (ncol 64, 12 layers: the megakernels, the two-kernel
+   path, the sweeps, the unfused optics, f64; every check line of a kernel
+   of one thread per g-point prints its plan: blocks per column, threads a
+   block and the kernel's maxThreadsPerBlock), and the all-sky kernels, lw2_mega and sw_clear_mega among them, at 800
    layers (ncol 512, LW 256 / SW 224 g-points), where their in-block level
    sums take more than the 48 KB of shared memory a block gets without
    asking. The lw2_mega and sw_clear_mega lines of every phase print their
@@ -115,7 +118,10 @@ is non-zero:
    The lw_noscat_banded_reduced and lw_noscat_reduced lines print their
    angles per launch, launch plan and registers at 1 and 3 angles. The
    sw_2stream_reduced line prints its passes, its scratch arrays, the
-   device scratch of one call, measured, and its registers.
+   device scratch of one call, measured, and its registers; the
+   lw_2stream_reduced line its chunk, where its checkpoints live, the
+   device scratch of one call, measured, and its registers; the
+   aerosol_bands line its staged bytes, blocks an SM and registers.
 
 The last lines are a JSON object per kernel, the card's name and power
 limit, and {"ok": true, "device": {...}}. Needs CUDA and nvcc; imports no
@@ -139,6 +145,7 @@ F64_TWIN_CHUNK = 4096           # the f64 twin holds 8-byte (nlay, ncol, ngpt) t
 ANGLES_NCOL = 8192              # the 3-angle all-sky comparison
 SMALL_NCOL, SMALL_NLAY = 1000, 30
 WIDE_NGPT, WIDE_NCOL, WIDE_NLAY = 1100, 64, 12  # more g-points than a block has threads
+LIMIT_NGPT = 1000               # fewer than 1024, more than a block of the register-heavy kernels holds
 DEEP_NCOL, DEEP_NLAY = 512, 800  # the megakernels' in-block level sums past 48 KB
 CMP_NCOL = 4096                 # kernel vs torch path on the first columns
 STEPS = 5
@@ -430,25 +437,23 @@ def phase_build() -> float:
     return seconds
 
 
-def print_design(label, name, kern, ngpt) -> None:
-    """The design lw2_mega runs, and the device scratch of one
-    call ``kern``, measured: the peak allocated during the call less what is
-    allocated after it (what was there before, and what the call returns)."""
+def print_design(label, name, kern, design) -> None:
+    """The design lw2_mega runs (``mega.lw2_mega_design``), and the device
+    scratch of one call ``kern``, measured: the peak allocated during the
+    call less what is allocated after it (what was there before, and what
+    the call returns)."""
     import torch
 
-    from rrtmgp_tpu_torch.ops._launch import gpoint_plan
-
-    plan = gpoint_plan(ngpt)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     out = kern()
     torch.cuda.synchronize()
     scratch = torch.cuda.max_memory_allocated() - torch.cuda.memory_allocated()
     del out
-    sums = "in the block" if not plan.grouped else "warp partials in device memory"
-    phase("kernels", f"{label} {name} design: adding state in device memory, {plan.n_groups} block(s) of "
-                     f"{plan.group} threads per column, level sums {sums}; device scratch of one call "
-                     f"{scratch / 1e9:.3f} GB (measured)")
+    sums = "in the block" if design["in_block"] else "warp partials in device memory"
+    phase("kernels", f"{label} {name} design: adding state in device memory, {design['n_groups']} block(s) of "
+                     f"{design['group']} threads per column (maxThreadsPerBlock {design['max_threads']}), level "
+                     f"sums {sums}; device scratch of one call {scratch / 1e9:.3f} GB (measured)")
 
 
 def print_sw_mega_design(label, name, kern, args, comp) -> None:
@@ -518,7 +523,7 @@ def print_sw_sweep_design(label, kern, nlay, ncol, ngpt) -> None:
 
     from rrtmgp_tpu_torch.ops import rte_kernels
 
-    plan = rte_kernels.sweep_plan(3, nlay, ngpt, torch.device(DEVICE))
+    plan = rte_kernels.sweep_plan("sw_2stream_reduced", 3, nlay, ngpt, torch.device(DEVICE))
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     out = kern()
@@ -534,16 +539,73 @@ def print_sw_sweep_design(label, kern, nlay, ncol, ngpt) -> None:
                      f"{kernel_registers('sw_2stream_reduced_kernelIfLb0ELb0')}")
 
 
+def print_lw2_sweep_design(label, kern, nlay, ngpt) -> None:
+    """The design lw_2stream_reduced runs (csrc/lw_2stream_reduced.cu: the
+    adding state checkpointed every LW2_CHUNK levels in device memory and
+    replayed a chunk at a time into shared memory) with the wrapper's launch plan,
+    the device scratch of one call ``kern``, measured as print_design
+    measures it, and its registers."""
+    import torch
+
+    from rrtmgp_tpu_torch.ops import rte_kernels
+
+    design = rte_kernels.lw_2stream_reduced_design(nlay, ngpt, torch.device(DEVICE))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    out = kern()
+    torch.cuda.synchronize()
+    scratch = torch.cuda.max_memory_allocated() - torch.cuda.memory_allocated()
+    del out
+    sums = "in the block" if design["in_block"] else "warp partials in device memory"
+    variant = f"lw_2stream_reduced_kernelIfLb{int(not design['in_block'])}"
+    phase("kernels", f"{label} lw_2stream_reduced design: chunks of C = {design['chunk']} layers, (alb, src) "
+                     f"checkpoints at {design['checkpoints']} levels in device memory, each chunk's adding state "
+                     f"replayed top-down into shared memory (4 x {design['chunk']} words a thread, "
+                     f"{design['chunk_smem']} B a block); {design['n_groups']} block(s) of "
+                     f"{design['group']} threads per column (maxThreadsPerBlock {design['max_threads']}), level "
+                     f"sums {sums}; device scratch of one call {scratch / 1e9:.3f} GB (measured); ptxas: "
+                     f"{kernel_registers(variant)}")
+
+
+def print_aerosol_design(label, lkp) -> None:
+    """The design aerosol_bands runs (csrc/aerosol_bands.cu: the tables
+    staged in each block's shared memory as odd-stride records, blocks
+    looping over rows): staged bytes (the wrapper's count and the library's),
+    blocks an SM and the grid, registers."""
+    import torch
+
+    from rrtmgp_tpu_torch.ops import _build
+    from rrtmgp_tpu_torch.ops import aerosol_bands as ab
+
+    design = ab.aerosol_bands_design(lkp, torch.device(DEVICE))
+    shape = (lkp.dust.shape[-1], lkp.size_bin_limits.shape[1], lkp.rh_levels.shape[0])
+    library = _build.library().rrtmgp_aerosol_bands_smem(*shape)
+    require(library == design["staged"], f"aerosol_bands: staged {design['staged']} B, the library's {library}")
+    phase("kernels", f"{label} aerosol_bands design: tables staged in shared memory ({shape[0]} bands, "
+                     f"{shape[1]} size bins, {shape[2]} RH levels: {design['staged']} B, records "
+                     f"{ab.record_stride(shape[0])} words apart), {design['blocks_per_sm']} block(s) of "
+                     f"{design['threads']} threads an SM x {design['sms']} SMs looping over (layer, column) rows; "
+                     f"ptxas, all species: {kernel_registers('aerosol_bands_kernelILb1E')}; a subset: "
+                     f"{kernel_registers('aerosol_bands_kernelILb0E')}")
+
+
 def check_case(label, name, kern, ref, reps, results, cover=False, work=None) -> None:
     """One kernel call against its twin on the same inputs (tuples of
     tensors). With ``cover`` the last output is the McICA cloud cover, which
     must agree bit for bit; mcica_mask_export must agree bit for bit
     throughout. Keeps the largest error of a name and, with reps, the times
-    and the bound of ``work``."""
+    and the bound of ``work``; prints the launch plan of every kernel of one
+    thread per g-point that the call made (blocks per column, threads a
+    block, the kernel's maxThreadsPerBlock)."""
     import torch
 
+    from rrtmgp_tpu_torch.ops._launch import LAST_PLANS
+
+    LAST_PLANS.clear()
     out = kern()
     torch.cuda.synchronize()
+    plans = "".join(f", {k} plan {p.n_groups} x {p.group} threads (maxThreadsPerBlock {most})"
+                    for k, (p, most) in LAST_PLANS.items())
     want = ref()
     if cover:
         require(torch.equal(out[-1], want[-1]), f"{label} {name}: McICA cloud cover differs from the twin's")
@@ -566,7 +628,7 @@ def check_case(label, name, kern, ref, reps, results, cover=False, work=None) ->
         if work is not None:
             timing += f", bound {res['bound_ms']:.3f} ms by {res['bound_by']}"
     torch.cuda.empty_cache()
-    phase("kernels", f"{label} {name}: max|d|={err:.3e} rel={rel:.3e} (tol {TOL[name]:.0e}){timing}")
+    phase("kernels", f"{label} {name}: max|d|={err:.3e} rel={rel:.3e} (tol {TOL[name]:.0e}){timing}{plans}")
     require(rel <= TOL[name], f"{label} {name}: rel error {rel:.3e} > {TOL[name]:.0e}")
 
 
@@ -718,7 +780,8 @@ def check_allsky_kernels(label, L, atm, reps, results, chunk=None) -> None:
         check_case(f"{label} [{what}]", "lw2_mega", lambda: mega.lw2_mega(*lw_args, c),
                    lambda: twin(mega.lw2_mega_ref, *lw_args, c), reps if i == 2 else 0, results, c.seeded,
                    work("lw2_mega", lw_args, c))
-    print_design(f"{label} [seed+aerosols]", "lw2_mega", lambda: mega.lw2_mega(*lw_args, lw_cases[2][1]), lw.n_gpt)
+    print_design(f"{label} [seed+aerosols]", "lw2_mega", lambda: mega.lw2_mega(*lw_args, lw_cases[2][1]),
+                 mega.lw2_mega_design(*lw_args[:2], lw_cases[2][1]))
     # LW no-scattering composed (absorption only), one angle as solve_lw passes it
     Ds, wts = angular_discretization(1)
     ns_args = (*lw_args[:2], plk(atm.t_lay), *lw_args[2:], float(Ds[0]), float(wts[0]))
@@ -746,6 +809,7 @@ def check_allsky_kernels(label, L, atm, reps, results, chunk=None) -> None:
         check_case(f"{label} [{nbnd} bands]", "aerosol_bands",
                    lambda: ab.aerosol_bands(*a), lambda: twin(ab.aerosol_bands_ref, *a), reps if i == 1 else 0,
                    results, work=Work(nbytes(a), OPS_AEROSOL * atm.nlay * ncol * nbnd))
+        print_aerosol_design(f"{label} [{nbnd} bands]", lkp)
     export_ref = lambda f, o: mega.mcica_mask_export_ref(f, seed, o.value, lw.n_gpt)
     check_case(f"{label} [ngpt {lw.n_gpt}]", "mcica_mask_export",
                lambda: mega.mcica_mask_export(cf, seed, off, lw.n_gpt),
@@ -1214,14 +1278,13 @@ def print_angles_design(label, name, nang, nlay, ngpt) -> None:
 
     from rrtmgp_tpu_torch.ops import rte_kernels
 
-    kernel = {"lw_noscat_banded_reduced": "lw_noscat_banded_kernel",
-              "lw_noscat_reduced": "lw_noscat_reduced_kernel"}[name]
-    (group, n_groups, in_block), _ = rte_kernels.angles_plan(nang, nlay, 1, ngpt, torch.device(DEVICE))
+    kernel = {"lw_noscat_banded_reduced": "lw_noscat_banded", "lw_noscat_reduced": "lw_noscat_reduced"}[name]
+    (group, n_groups, in_block), _ = rte_kernels.angles_plan(kernel, nang, nlay, 1, ngpt, torch.device(DEVICE))
     sums = "in the block" if in_block else "warp partials in device memory"
     phase("kernels", f"{label} {name} design: {nang} angle(s) per launch (one radiance per angle in "
                      f"registers, 2 x {nang} level sums, a level's angles reduced over the warp together), "
                      f"{n_groups} block(s) of {group} threads per column, level sums {sums}; ptxas: "
-                     f"{kernel_registers(f'{kernel}IfLi{nang}ELb{int(not in_block)}')}")
+                     f"{kernel_registers(f'{kernel}_kernelIfLi{nang}ELb{int(not in_block)}')}")
 
 
 def check_two_kernel_kernels(label, lw, sw, atm, bcs_lw, bcs_sw, reps, results, chunk=None) -> None:
@@ -1461,6 +1524,8 @@ def check_unfused_kernels(label, lw, sw, atm, reps, results, chunk=None) -> None
     """The kernels of the unfused optics against their twins (on column
     chunks when ``chunk`` is given): interp_pt_eta for each table and
     interp_minor for LW and SW; then interp_pt_eta's design."""
+    import torch
+
     from rrtmgp_tpu_torch.ops import interp
 
     ncol = atm.ncol
@@ -1478,7 +1543,8 @@ def check_unfused_kernels(label, lw, sw, atm, reps, results, chunk=None) -> None
     for wave in ("SW", "LW"):
         tabs = inputs[wave][1]
         print_gather_design(f"{label} [{wave}]", "interp_pt_eta",
-                            interp.interp_pt_eta_design(tabs.lkp.n_gpt, tabs.lkp.n_bnd), "interp_pt_eta_kernel")
+                            interp.interp_pt_eta_design(tabs.lkp.n_gpt, tabs.lkp.n_bnd, torch.device(DEVICE)),
+                            "interp_pt_eta_kernel")
         print_gather_design(f"{label} [{wave}]", "interp_minor", interp.interp_minor_design(tabs),
                             "interp_minor_kernel")
 
@@ -1634,6 +1700,7 @@ def check_sweep_kernels(label, lw, sw, atm, bcs_lw, bcs_sw, reps, results, chunk
     for name, kern, ref, args, ops in cases:
         check_case(label, name, lambda: kern(*args), lambda: twin(ref, args), reps, results,
                    work=Work(nbytes(args), ops))
+    print_lw2_sweep_design(label, lambda: rk.lw_2stream_reduced(*k14), atm.nlay, lw.n_gpt)
     # K13 as the sweep route launches it: solve_lw's 3 angles in one launch
     # (the kernels line keeps this call's time), the same bytes as one angle
     # and 3 x the operations; bit for bit the one-angle launches summed
@@ -1870,6 +1937,7 @@ def main() -> None:
     phase_build()
     phase_kernels_small()
     phase_kernels_small(WIDE_NGPT, WIDE_NCOL, WIDE_NLAY)
+    phase_kernels_small(LIMIT_NGPT, WIDE_NCOL, WIDE_NLAY)
 
     from rrtmgp_tpu_torch import AllSkyRadiation, lookup_tables
 

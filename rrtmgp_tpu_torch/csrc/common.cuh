@@ -25,6 +25,7 @@
 
 #include <cfloat>
 #include <cstddef>
+#include <initializer_list>
 #include <type_traits>
 #include <cuda_runtime.h>
 
@@ -447,6 +448,24 @@ template <typename K>
 inline cudaError_t prepare_smem(K kernel, size_t smem) {
   if (smem <= 48 * 1024) return cudaSuccess;
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+}
+
+// The most threads a block of each of `kernels` may have on the current
+// device (cudaFuncAttributes.maxThreadsPerBlock: the device's limit, or
+// fewer where a kernel's registers do not fit more), the smallest of them:
+// the host plans a launch that may run either variant of a kernel (its
+// level sums in the block or split) with this (ops/_launch.py gpoint_plan).
+template <typename... K>
+inline cudaError_t max_threads(int* threads, K... kernels) {
+  int least = 1 << 30;
+  for (const void* k : {(const void*)kernels...}) {
+    cudaFuncAttributes a;
+    const cudaError_t err = cudaFuncGetAttributes(&a, k);
+    if (err != cudaSuccess) return err;
+    least = a.maxThreadsPerBlock < least ? a.maxThreadsPerBlock : least;
+  }
+  *threads = least;
+  return cudaSuccess;
 }
 
 }  // namespace rrtmgp

@@ -131,3 +131,11 @@ extern "C" int rrtmgp_interp_minor(
 extern "C" long long rrtmgp_interp_minor_smem(int tile, int nbnd, int n_minor) {
   return (long long)rrtmgp::OpticsSmem<float>(tile, nbnd, n_minor).total;
 }
+
+namespace rrtmgp {
+
+// The most threads a block of interp_minor may have (errors.cu
+// rrtmgp_max_threads); variant is 0.
+cudaError_t interp_minor_max_threads(int, int* threads) { return max_threads(threads, interp_minor_kernel<float>); }
+
+}  // namespace rrtmgp

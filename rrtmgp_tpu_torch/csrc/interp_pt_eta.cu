@@ -158,3 +158,11 @@ extern "C" int rrtmgp_interp_pt_eta(
 extern "C" long long rrtmgp_interp_pt_eta_smem(int tile, int nbnd) {
   return (long long)rrtmgp::InterpSmem<float>(tile, nbnd).total;
 }
+
+namespace rrtmgp {
+
+// The most threads a block of interp_pt_eta may have (errors.cu
+// rrtmgp_max_threads); variant is 0.
+cudaError_t interp_pt_eta_max_threads(int, int* threads) { return max_threads(threads, interp_pt_eta_kernel<float>); }
+
+}  // namespace rrtmgp

@@ -247,3 +247,22 @@ extern "C" int rrtmgp_lw2_mega(
   return (int)finish_sums<float>(s, part, 2, nlay + 1, ncol, n_groups * group / 32, SUMS_PLAIN, 1.f, up, dn,
                                  nullptr, seeded ? cp : nullptr, n_groups, ngpt, seeded ? cv : nullptr);
 }
+
+namespace rrtmgp {
+
+// The most threads a block of lw2_mega's instance `variant` may have, both
+// level-sum variants (the launch plan's limit; errors.cu
+// rrtmgp_max_threads): variant = cloud | aero << 1 | mask_mode << 2.
+cudaError_t lw2_mega_max_threads(int variant, int* threads) {
+#define RRTMGP_MT(C, A, M) \
+  max_threads(threads, lw2_mega_kernel<C, A, M, false>, lw2_mega_kernel<C, A, M, true>)
+  const bool cloud = variant & 1, aero = variant & 2;
+  if (!cloud)
+    return aero ? RRTMGP_MT(false, true, MASK_NONE) : RRTMGP_MT(false, false, MASK_NONE);
+  if ((variant >> 2 & 3) == MASK_SEED)
+    return aero ? RRTMGP_MT(true, true, MASK_SEED) : RRTMGP_MT(true, false, MASK_SEED);
+  return aero ? RRTMGP_MT(true, true, MASK_GIVEN) : RRTMGP_MT(true, false, MASK_GIVEN);
+#undef RRTMGP_MT
+}
+
+}  // namespace rrtmgp

@@ -460,3 +460,24 @@ extern "C" long long rrtmgp_lw_clear_mega_staged(int nbnd, int n_minor, int clou
   }
   return (long long)(bytes + 16);
 }
+
+namespace rrtmgp {
+
+// The most threads a block of lw_clear_mega's instance `variant` may
+// have, both level-sum variants (the launch plan's limit; errors.cu
+// rrtmgp_max_threads): variant = cloud | aero << 1 | mask_mode << 2 |
+// f64 << 4.
+cudaError_t lw_clear_mega_max_threads(int variant, int* threads) {
+#define RRTMGP_MT(R, C, A, M) \
+  max_threads(threads, lw_clear_mega_kernel<R, C, A, M, false>, lw_clear_mega_kernel<R, C, A, M, true>)
+  const bool cloud = variant & 1, aero = variant & 2;
+  if (variant >> 4 & 1) return RRTMGP_MT(double, false, false, MASK_NONE);
+  if (!cloud)
+    return aero ? RRTMGP_MT(float, false, true, MASK_NONE) : RRTMGP_MT(float, false, false, MASK_NONE);
+  if ((variant >> 2 & 3) == MASK_SEED)
+    return aero ? RRTMGP_MT(float, true, true, MASK_SEED) : RRTMGP_MT(float, true, false, MASK_SEED);
+  return aero ? RRTMGP_MT(float, true, true, MASK_GIVEN) : RRTMGP_MT(float, true, false, MASK_GIVEN);
+#undef RRTMGP_MT
+}
+
+}  // namespace rrtmgp

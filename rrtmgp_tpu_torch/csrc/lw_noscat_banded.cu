@@ -214,3 +214,22 @@ extern "C" int rrtmgp_lw_noscat_banded(const void* tau, const void* pfrac, const
   }
   return (int)err;
 }
+
+namespace rrtmgp {
+
+// The most threads a block of lw_noscat_banded over `variant` angles (1 to 4) may have,
+// both level-sum variants (errors.cu rrtmgp_max_threads).
+cudaError_t lw_noscat_banded_max_threads(int variant, int* threads) {
+#define RRTMGP_MT(N) \
+  max_threads(threads, lw_noscat_banded_kernel<float, N, false>, lw_noscat_banded_kernel<float, N, true>)
+  switch (variant) {
+    case 1: return RRTMGP_MT(1);
+    case 2: return RRTMGP_MT(2);
+    case 3: return RRTMGP_MT(3);
+    case 4: return RRTMGP_MT(4);
+    default: return cudaErrorInvalidValue;
+  }
+#undef RRTMGP_MT
+}
+
+}  // namespace rrtmgp

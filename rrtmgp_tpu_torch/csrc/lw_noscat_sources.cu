@@ -276,3 +276,28 @@ extern "C" int rrtmgp_lw_noscat_gpt(const void* tau, const void* lay_source, con
       (const float*)sfc_emis, (const float*)inc_flux, (float*)flux_up, (float*)flux_dn, nlay, ncol, ngpt, ds, i2f);
   return (int)cudaGetLastError();
 }
+
+namespace rrtmgp {
+
+// The most threads a block of lw_noscat_reduced over `variant` angles (1 to 4) may have,
+// both level-sum variants (errors.cu rrtmgp_max_threads).
+cudaError_t lw_noscat_reduced_max_threads(int variant, int* threads) {
+#define RRTMGP_MT(N) \
+  max_threads(threads, lw_noscat_reduced_kernel<float, N, false>, lw_noscat_reduced_kernel<float, N, true>)
+  switch (variant) {
+    case 1: return RRTMGP_MT(1);
+    case 2: return RRTMGP_MT(2);
+    case 3: return RRTMGP_MT(3);
+    case 4: return RRTMGP_MT(4);
+    default: return cudaErrorInvalidValue;
+  }
+#undef RRTMGP_MT
+}
+
+// The most threads a block of lw_noscat_gpt may have, one block per column
+// or split (errors.cu rrtmgp_max_threads); variant is 0.
+cudaError_t lw_noscat_gpt_max_threads(int, int* threads) {
+  return max_threads(threads, lw_noscat_gpt_kernel<float, false>, lw_noscat_gpt_kernel<float, true>);
+}
+
+}  // namespace rrtmgp

@@ -17,6 +17,7 @@
 //   column over several blocks of the host's launch plan); the column key is
 //   computed once per thread, the layer loop runs top-down carrying the
 //   recurrence in registers. Outputs (nlay, ncol, ngpt) f32, mask as 0/1.
+#include "common.cuh"
 #include "mcica.cuh"
 
 namespace rrtmgp {
@@ -53,3 +54,11 @@ extern "C" int rrtmgp_mcica_export(const void* cld_frac, void* u_out, void* m_ou
   }
   return (int)cudaGetLastError();
 }
+
+namespace rrtmgp {
+
+// The most threads a block of mcica_export may have (errors.cu
+// rrtmgp_max_threads); variant is 0.
+cudaError_t mcica_export_max_threads(int, int* threads) { return max_threads(threads, mcica_export_kernel); }
+
+}  // namespace rrtmgp

@@ -155,3 +155,14 @@ extern "C" int rrtmgp_optics_fused(
 extern "C" long long rrtmgp_optics_fused_smem(int tile, int nbnd, int n_minor) {
   return (long long)rrtmgp::OpticsSmem<float>(tile, nbnd, n_minor).total;
 }
+
+namespace rrtmgp {
+
+// The most threads a block of optics_fused may have (errors.cu
+// rrtmgp_max_threads): variant = shortwave.
+cudaError_t optics_fused_max_threads(int variant, int* threads) {
+  return variant ? max_threads(threads, optics_fused_kernel<float, true>)
+                 : max_threads(threads, optics_fused_kernel<float, false>);
+}
+
+}  // namespace rrtmgp

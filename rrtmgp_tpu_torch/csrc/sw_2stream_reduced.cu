@@ -325,3 +325,23 @@ extern "C" int rrtmgp_sw_2stream_gpt(const void* tau, const void* ssa, const voi
                      (const float*)alb_dif, (const float*)inc_dif, (float*)s_rdir, (float*)s_tdir, (float*)s_rdif,
                      (float*)s_tdif, (float*)flux_up, (float*)flux_dn, (float*)flux_dir);
 }
+
+namespace rrtmgp {
+
+// The most threads a block of sw_2stream_reduced / sw_2stream_gpt may have,
+// both variants of each (errors.cu rrtmgp_max_threads): variant = has_g.
+cudaError_t sw_2stream_reduced_max_threads(int variant, int* threads) {
+  return variant ? max_threads(threads, sw_2stream_reduced_kernel<float, true, false>,
+                               sw_2stream_reduced_kernel<float, true, true>)
+                 : max_threads(threads, sw_2stream_reduced_kernel<float, false, false>,
+                               sw_2stream_reduced_kernel<float, false, true>);
+}
+
+cudaError_t sw_2stream_gpt_max_threads(int variant, int* threads) {
+  return variant ? max_threads(threads, sw_2stream_gpt_kernel<float, true, false>,
+                               sw_2stream_gpt_kernel<float, true, true>)
+                 : max_threads(threads, sw_2stream_gpt_kernel<float, false, false>,
+                               sw_2stream_gpt_kernel<float, false, true>);
+}
+
+}  // namespace rrtmgp

@@ -406,3 +406,22 @@ extern "C" long long rrtmgp_sw_clear_mega_staged(int nbnd, int n_minor, int clou
   }
   return (long long)(bytes + 16);
 }
+
+namespace rrtmgp {
+
+// The most threads a block of sw_clear_mega's instance `variant` may have, both
+// level-sum variants (the launch plan's limit; errors.cu
+// rrtmgp_max_threads): variant = cloud | aero << 1 | mask_mode << 2.
+cudaError_t sw_clear_mega_max_threads(int variant, int* threads) {
+#define RRTMGP_MT(C, A, M) \
+  max_threads(threads, sw_clear_mega_kernel<C, A, M, false>, sw_clear_mega_kernel<C, A, M, true>)
+  const bool cloud = variant & 1, aero = variant & 2;
+  if (!cloud)
+    return aero ? RRTMGP_MT(false, true, MASK_NONE) : RRTMGP_MT(false, false, MASK_NONE);
+  if ((variant >> 2 & 3) == MASK_SEED)
+    return aero ? RRTMGP_MT(true, true, MASK_SEED) : RRTMGP_MT(true, false, MASK_SEED);
+  return aero ? RRTMGP_MT(true, true, MASK_GIVEN) : RRTMGP_MT(true, false, MASK_GIVEN);
+#undef RRTMGP_MT
+}
+
+}  // namespace rrtmgp

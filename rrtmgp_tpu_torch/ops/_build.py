@@ -47,7 +47,7 @@ _P, _I, _U, _L, _F, _D = (ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c
 #: stream). The sweeps from materialized sources: lw_noscat_reduced ends
 #: with (nlay, ncol, ngpt, plan, nang, host arrays ds and i2f, stream), lw_noscat_gpt with
 #: (nlay, ncol, ngpt, group, n_groups, ds, i2f, stream), lw_2stream_reduced
-#: with (nlay, ncol, ngpt, nbnd, plan, stream), sw_2stream_gpt with (nlay,
+#: with (nlay, ncol, ngpt, nbnd, checkpoint levels, plan, stream), sw_2stream_gpt with (nlay,
 #: ncol, ngpt, group, n_groups, stream). The kernels of the unfused optics:
 #: interp_pt_eta ends with (nlay, ncol, ngpt, nbnd, npress, ntemp, neta,
 #: column tile, group, n_groups, stream), interp_minor with optics_fused's 7
@@ -67,7 +67,7 @@ SIGNATURES = {
     "rrtmgp_sw_2stream_reduced": [_P] * 15 + [_I] * 7 + [_P],
     "rrtmgp_lw_noscat_reduced": [_P] * 10 + [_I] * 7 + [_P, _P, _P],
     "rrtmgp_lw_noscat_gpt": [_P] * 8 + [_I] * 5 + [_F, _F, _P],
-    "rrtmgp_lw_2stream_reduced": [_P] * 13 + [_I] * 7 + [_P],
+    "rrtmgp_lw_2stream_reduced": [_P] * 13 + [_I] * 8 + [_P],
     "rrtmgp_sw_2stream_gpt": [_P] * 15 + [_I] * 5 + [_P],
     "rrtmgp_interp_pt_eta": [_P] * 13 + [_I] * 10 + [_P],
     "rrtmgp_interp_minor": [_P] * 20 + [_I] * 11 + [_P],
@@ -76,6 +76,7 @@ SIGNATURES = {
 #: entry points that report a launch's shared memory in bytes (long long)
 #: from int arguments: name -> their count
 SIZE_QUERIES = {
+    "rrtmgp_aerosol_bands_smem": 3,
     "rrtmgp_lw_clear_mega_staged": 6,
     "rrtmgp_sw_clear_mega_staged": 5,
     "rrtmgp_optics_fused_smem": 3,
@@ -155,6 +156,10 @@ def library() -> ctypes.CDLL:
     lib.rrtmgp_error_string.restype = ctypes.c_char_p
     lib.rrtmgp_smem_optin.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
     lib.rrtmgp_smem_optin.restype = ctypes.c_int
+    lib.rrtmgp_max_threads.argtypes = [ctypes.c_char_p, ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+    lib.rrtmgp_max_threads.restype = ctypes.c_int
+    lib.rrtmgp_aerosol_bands_blocks.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)]
+    lib.rrtmgp_aerosol_bands_blocks.restype = ctypes.c_int
     for name, n_args in SIZE_QUERIES.items():
         fn = getattr(lib, name)
         fn.argtypes = [ctypes.c_int] * n_args

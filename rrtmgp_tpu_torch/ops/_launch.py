@@ -3,7 +3,8 @@ current stream for the ctypes calls, the checks a wrapper makes before it
 hands a tensor to a kernel, the checks and pointer lists of the gas-optics
 inputs (``MegaInputs``) and tables (``KernelTables``) that the megakernels
 and the materialized-optics kernel share, and the launch plans of the
-kernels that run one thread per g-point (``gpoint_plan``)."""
+kernels that run one thread per g-point (``gpoint_plan``, sized by the
+kernel's own limit of threads a block, ``max_threads``)."""
 
 from __future__ import annotations
 
@@ -122,7 +123,7 @@ def table_ptrs(tabs) -> list:
 # ---------------------------------------------------------------------------
 
 WARP = 32
-MAX_THREADS = 1024  # threads of one block
+MAX_THREADS = 1024  # threads of one block on the device, the most any kernel may have
 
 
 class LaunchPlan(NamedTuple):
@@ -151,20 +152,27 @@ def in_block_bytes(group: int, nlay: int, fields: int, itemsize: int) -> int:
 
 
 def gpoint_plan(ngpt: int, nlay: int = 0, fields: int = 0, itemsize: int = 4, staged: int = 0,
-                limit: int | None = None) -> LaunchPlan:
-    """The plan of every kernel of one thread per g-point: up to 1024
-    g-points one block per column, beyond the fewest groups of at most 1024
-    threads, equal in whole warps. A column of one block adds its ``fields``
-    level sums of ``nlay + 1`` levels (reals of ``itemsize`` bytes) in the
-    block when they and the ``staged`` bytes the kernel keeps in shared
-    memory of its own fit the device's opt-in limit per block (``limit``,
-    ``smem_limit(device)`` on the card); else in device memory, through the
-    same warp-order sum. ``limit`` may be None only for a kernel without
-    shared memory (no fields, nothing staged)."""
+                limit: int | None = None, max_threads: int = MAX_THREADS, per_thread: int = 0) -> LaunchPlan:
+    """The plan of every kernel of one thread per g-point: up to
+    ``max_threads`` g-points (the most threads a block of the kernel may
+    have, ``max_threads(kernel, device)`` on the card) one block per column,
+    beyond the fewest groups of at most that many threads, equal in whole
+    warps. A column of one block adds its ``fields`` level sums of ``nlay +
+    1`` levels (reals of ``itemsize`` bytes) in the block when they and the
+    ``staged`` bytes the kernel keeps in shared memory of its own (and
+    ``per_thread`` bytes for each thread of the block) fit the device's
+    opt-in limit per block (``limit``, ``smem_limit(device)`` on the card);
+    else in device memory, through the same warp-order sum. ``limit`` may
+    be None only for a kernel without shared memory (no fields, nothing
+    staged)."""
     if ngpt < 1:
         raise ValueError(f"n_gpt={ngpt}: the kernels take 1 g-point or more")
-    n_groups = math.ceil(ngpt / MAX_THREADS)
+    most = min(max_threads, MAX_THREADS) // WARP * WARP
+    if most < WARP:
+        raise ValueError(f"gpoint_plan: a block of at most {max_threads} threads holds no warp")
+    n_groups = math.ceil(ngpt / most)
     group = -(-math.ceil(ngpt / n_groups) // WARP) * WARP
+    staged += per_thread * group
     if not (fields or staged):
         return LaunchPlan(group, n_groups, n_groups == 1)
     if limit is None:
@@ -173,6 +181,24 @@ def gpoint_plan(ngpt: int, nlay: int = 0, fields: int = 0, itemsize: int = 4, st
         raise ValueError(f"gpoint_plan: {staged} bytes staged per block, the device allows {limit}")
     fits = staged + in_block_bytes(group, nlay, fields, itemsize) <= limit
     return LaunchPlan(group, n_groups, n_groups == 1 and fits)
+
+
+#: each kernel's last plan, (plan, max_threads) by name, as ``kernel_plan``
+#: made it: what a launch ran with (chip_smoke.py prints them)
+LAST_PLANS: dict[str, tuple[LaunchPlan, int]] = {}
+
+
+def kernel_plan(kernel: str, device: torch.device, ngpt: int, nlay: int = 0, fields: int = 0, itemsize: int = 4,
+                staged: int = 0, variant: int = 0, per_thread: int = 0) -> LaunchPlan:
+    """``gpoint_plan`` of the kernel ``kernel`` (instance ``variant``) on
+    ``device``, with its block limit ``max_threads`` and, for a kernel with
+    level sums or shared memory of its own, the device's shared-memory
+    limit."""
+    most = max_threads(kernel, device, variant)
+    limit = smem_limit(device) if (fields or staged or per_thread) else None
+    plan = gpoint_plan(ngpt, nlay, fields, itemsize, staged, limit, most, per_thread)
+    LAST_PLANS[kernel] = (plan, most)
+    return plan
 
 
 @functools.cache
@@ -184,10 +210,35 @@ def _smem_optin(index: int) -> int:
     return value.value
 
 
+def _index(device: torch.device) -> int:
+    return device.index if device.index is not None else torch.cuda.current_device()
+
+
 def smem_limit(device: torch.device) -> int:
     """The most dynamic shared memory a block of ``device`` may opt in to
     (cudaDevAttrMaxSharedMemoryPerBlockOptin), read once per device."""
-    return _smem_optin(device.index if device.index is not None else torch.cuda.current_device())
+    return _smem_optin(_index(device))
+
+
+@functools.cache
+def _max_threads(kernel: str, variant: int, index: int) -> int:
+    from . import _build
+
+    value = ctypes.c_int(0)
+    _build.check(_build.library().rrtmgp_max_threads(kernel.encode(), variant, index, ctypes.byref(value)),
+                 f"cudaFuncGetAttributes({kernel})")
+    return value.value
+
+
+def max_threads(kernel: str, device: torch.device, variant: int = 0) -> int:
+    """The most threads a block of ``kernel`` (its wrapper's name) may have
+    on ``device``: cudaFuncAttributes.maxThreadsPerBlock of the template
+    instance ``variant`` (csrc/errors.cu ``rrtmgp_max_threads`` says what it
+    encodes), the smaller of its two variants, level sums in the block and
+    split, so that the plan holds whichever one it chooses. Read once per
+    device and instance. A kernel of R registers a thread fits about 65536 / R
+    threads a block."""
+    return _max_threads(kernel, variant, _index(device))
 
 
 def level_partials(plan: LaunchPlan, nf: int, nlev: int, ncol: int, dtype: torch.dtype,

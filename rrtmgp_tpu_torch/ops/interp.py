@@ -39,6 +39,8 @@ from ._launch import (
     check_table_size,
     cuda_device,
     gpoint_plan,
+    kernel_plan,
+    max_threads,
     optics_input_ptrs,
     ptr,
     require,
@@ -104,7 +106,7 @@ def optics_fused(inp: MegaInputs, tabs: KernelTables) -> tuple[torch.Tensor, tor
     nlay, ncol, ngpt, nbnd, ntemp, neta, ncontrib = check_optics_inputs(inp, tabs, dev, shortwave)
     tau = torch.empty((nlay, ncol, ngpt), dtype=torch.float32, device=dev)
     second = torch.empty_like(tau)
-    plan = gpoint_plan(ngpt)
+    plan = kernel_plan("optics_fused", dev, ngpt, variant=int(shortwave))
     with torch.cuda.device(dev):
         err = _build.library().rrtmgp_optics_fused(
             *optics_input_ptrs(inp), ptr(inp.ray_factor if shortwave else None), *table_ptrs(tabs),
@@ -122,10 +124,12 @@ optics_fused.launches = 0
 def optics_fused_design(tabs: KernelTables) -> dict:
     """How ``optics_fused`` launches for these tables (on the card): the
     block (one layer, ``tile`` columns, ``group`` threads, one per g-point,
-    ``n_groups`` blocks per column tile) and its dynamic shared memory."""
-    plan = gpoint_plan(tabs.lkp.n_gpt)
+    ``n_groups`` blocks per column tile, the block limit ``max_threads``)
+    and its dynamic shared memory."""
+    most = max_threads("optics_fused", tabs.kmajor.device, int(not tabs.lkp.is_longwave))
+    plan = gpoint_plan(tabs.lkp.n_gpt, max_threads=most)
     smem = _build.library().rrtmgp_optics_fused_smem(OPTICS_TILE, tabs.lkp.n_bnd, tabs.n_minor)
-    return dict(tile=OPTICS_TILE, group=plan.group, n_groups=plan.n_groups, smem=smem)
+    return dict(tile=OPTICS_TILE, group=plan.group, n_groups=plan.n_groups, smem=smem, max_threads=most)
 
 
 def planck_band_rows_ref(t: torch.Tensor, totplnk: torch.Tensor, t_min: float, t_delta: float):
@@ -236,14 +240,15 @@ def interp_pt_eta_dims(dev, table, jtemp, ftemp, jpress, fpress, jeta1, feta1, j
 INTERP_TILE = 16
 
 
-def interp_pt_eta_design(ngpt: int, nbnd: int) -> dict:
+def interp_pt_eta_design(ngpt: int, nbnd: int, device: torch.device) -> dict:
     """How ``interp_pt_eta`` launches for ``ngpt`` g-points in ``nbnd``
-    bands (on the card): the block (one layer, ``tile`` columns, ``group``
-    threads, one per g-point, ``n_groups`` blocks per column tile) and its
-    dynamic shared memory."""
-    plan = gpoint_plan(ngpt)
+    bands on ``device`` (the card): the block (one layer, ``tile`` columns,
+    ``group`` threads, one per g-point, ``n_groups`` blocks per column tile,
+    the block limit ``max_threads``) and its dynamic shared memory."""
+    most = max_threads("interp_pt_eta", device)
+    plan = gpoint_plan(ngpt, max_threads=most)
     smem = _build.library().rrtmgp_interp_pt_eta_smem(INTERP_TILE, nbnd)
-    return dict(tile=INTERP_TILE, group=plan.group, n_groups=plan.n_groups, smem=smem)
+    return dict(tile=INTERP_TILE, group=plan.group, n_groups=plan.n_groups, smem=smem, max_threads=most)
 
 
 def interp_pt_eta(table, jtemp, ftemp, jpress, fpress, jeta1, feta1, jeta2, feta2, gpt2band,
@@ -264,7 +269,7 @@ def interp_pt_eta(table, jtemp, ftemp, jpress, fpress, jeta1, feta1, jeta2, feta
     dev = cuda_device(jtemp, "interp_pt_eta")
     nlay, ncol, ngpt, nbnd, n_p, ntemp, neta = interp_pt_eta_dims(
         dev, table, jtemp, ftemp, jpress, fpress, jeta1, feta1, jeta2, feta2, gpt2band, col_mix1, col_mix2)
-    plan = gpoint_plan(ngpt)
+    plan = kernel_plan("interp_pt_eta", dev, ngpt)
     out = torch.empty((nlay, ncol, ngpt), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         err = _build.library().rrtmgp_interp_pt_eta(
@@ -288,10 +293,12 @@ MINOR_TILE = 16
 def interp_minor_design(tabs: KernelTables) -> dict:
     """How ``interp_minor`` launches for these tables (on the card): the
     block (one layer, ``tile`` columns, ``group`` threads, one per g-point,
-    ``n_groups`` blocks per column tile) and its dynamic shared memory."""
-    plan = gpoint_plan(tabs.lkp.n_gpt)
+    ``n_groups`` blocks per column tile, the block limit ``max_threads``)
+    and its dynamic shared memory."""
+    most = max_threads("interp_minor", tabs.kminor.device)
+    plan = gpoint_plan(tabs.lkp.n_gpt, max_threads=most)
     smem = _build.library().rrtmgp_interp_minor_smem(MINOR_TILE, tabs.lkp.n_bnd, tabs.n_minor)
-    return dict(tile=MINOR_TILE, group=plan.group, n_groups=plan.n_groups, smem=smem)
+    return dict(tile=MINOR_TILE, group=plan.group, n_groups=plan.n_groups, smem=smem, max_threads=most)
 
 
 def interp_minor(inp: MegaInputs, tabs: KernelTables) -> torch.Tensor:
@@ -303,7 +310,7 @@ def interp_minor(inp: MegaInputs, tabs: KernelTables) -> torch.Tensor:
     dev = cuda_device(inp.jtemp, "interp_minor")
     dims = check_optics_inputs(inp, tabs, dev, not tabs.lkp.is_longwave)
     nlay, ncol, ngpt = dims[:3]
-    plan = gpoint_plan(ngpt)
+    plan = kernel_plan("interp_minor", dev, ngpt)
     out = torch.empty((nlay, ncol, ngpt), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         err = _build.library().rrtmgp_interp_minor(

@@ -5,9 +5,11 @@ Each wrapper launches its hand-written CUDA kernel (``csrc/*.cu``) for CUDA
 tensors and raises on anything the kernel does not take; for CPU tensors it
 returns its plain twin ``*_ref``. Each counts its launches in a plain integer
 attribute, ``<wrapper>.launches``, incremented only where the kernel is
-launched. Past 1024 g-points a column spans several blocks
-(``_launch.gpoint_plan``), and so do its level sums where they would not fit
-a block's shared memory (very deep columns): a call of a kernel with level
+launched. Past the most threads a block of the kernel may have (1024, or
+fewer where its registers do not fit them: ``_launch.max_threads``) a
+column spans several blocks (``_launch.gpoint_plan``), and so do its level
+sums where they would not fit a block's shared memory (very deep columns):
+a call of a kernel with level
 sums is then two launches, the kernel and ``finish_level_sums``
 (``csrc/common.cuh``), which adds the warps' partials in the in-block
 order; the count takes one for the call.
@@ -46,7 +48,7 @@ import torch
 
 from . import _build
 from ._launch import check_optics_inputs as _check_inputs
-from ._launch import cover_counts, gpoint_plan, in_block_bytes, level_partials, smem_limit
+from ._launch import LAST_PLANS, cover_counts, in_block_bytes, kernel_plan, level_partials
 from ._launch import cuda_device as _cuda_device
 from ._launch import kernel_dtype as _kernel_dtype
 from ._launch import optics_input_ptrs as _input_ptrs
@@ -223,6 +225,13 @@ def _composition_args(comp: Composition, dev, nlay, ncol, ngpt, nbnd) -> tuple[l
     return list(map(_ptr, ptrs)), [int(cloud), int(aero), mode, hi, lo, int(comp.col_offset)]
 
 
+def _variant(composition) -> int:
+    """The megakernels' template instance of (cloud, aero, mask_mode), as
+    their block limits (``_launch.max_threads``) take it."""
+    cloud, aero, mode = composition[:3]
+    return cloud | aero << 1 | mode << 2
+
+
 # ---------------------------------------------------------------------------
 # LW no-scattering megakernel
 # ---------------------------------------------------------------------------
@@ -328,23 +337,25 @@ def _lw_clear_mega_plan(tabs: KernelTables, nlay: int, real: torch.dtype, compos
     """lw_clear_mega's launch plan and the shared memory it stages besides
     its level sums (chunks of layers: it does not grow with nlay);
     ``composition`` is (cloud, aero, mask_mode)."""
-    staged = _build.library().rrtmgp_lw_clear_mega_staged(tabs.lkp.n_bnd, tabs.n_minor, *composition,
-                                                           int(real == torch.float64))
-    return gpoint_plan(tabs.lkp.n_gpt, nlay, 2, real.itemsize, staged, smem_limit(dev)), staged
+    f64 = int(real == torch.float64)
+    staged = _build.library().rrtmgp_lw_clear_mega_staged(tabs.lkp.n_bnd, tabs.n_minor, *composition, f64)
+    plan = kernel_plan("lw_clear_mega", dev, tabs.lkp.n_gpt, nlay, 2, real.itemsize, staged,
+                       _variant(composition) | f64 << 4)
+    return plan, staged
 
 
 def lw_clear_mega_design(inp: MegaInputs, tabs: KernelTables, comp: Composition = CLEAR) -> dict:
     """How ``lw_clear_mega`` launches for these inputs (on the card): one
-    block of ``group`` threads per column (``n_groups`` past 1024 g-points),
-    the staging chunk, the dynamic shared memory and where the level sums
-    are added."""
+    block of ``group`` threads per column (``n_groups`` past the block limit
+    ``max_threads``), the staging chunk, the dynamic shared memory and where
+    the level sums are added."""
     dev = inp.jtemp.device
     real = inp.ftemp.dtype
     scalars = _composition_args(comp, dev, inp.nlay, inp.ncol, tabs.lkp.n_gpt, tabs.lkp.n_bnd)[1]
     plan, staged = _lw_clear_mega_plan(tabs, inp.nlay, real, scalars[:3], dev)
     sums = in_block_bytes(plan.group, inp.nlay, 2, real.itemsize) if plan.in_block else 0
     return dict(group=plan.group, n_groups=plan.n_groups, chunk=LW_CHUNK, smem=staged + sums,
-                in_block=plan.in_block)
+                in_block=plan.in_block, max_threads=LAST_PLANS["lw_clear_mega"][1])
 
 
 def _mega_scratch_tensors(plan, nf, nlay, ncol, ngpt, seeded, dev):
@@ -406,7 +417,7 @@ def lw2_mega(
         _require(inc_flux, "inc_flux", (ncol, ngpt), f32, dev)
     comp_ptrs, comp_scalars = _composition_args(comp, dev, nlay, ncol, ngpt, nbnd)
     seeded = comp_scalars[2] == MASK_SEED
-    plan = gpoint_plan(ngpt, nlay, 2, 4, BLOCK_COUNT_BYTES, smem_limit(dev))
+    plan = kernel_plan("lw2_mega", dev, ngpt, nlay, 2, 4, BLOCK_COUNT_BYTES, _variant(comp_scalars))
     mask_s = torch.empty((nlay, ncol, ngpt), dtype=torch.uint8, device=dev) if seeded else None
     scratch = _mega_scratch_tensors(plan, 2, nlay, ncol, ngpt, seeded, dev)
     up = torch.empty((nlay + 1, ncol), dtype=f32, device=dev)
@@ -425,6 +436,17 @@ def lw2_mega(
 
 
 lw2_mega.launches = 0
+
+
+def lw2_mega_design(inp: MegaInputs, tabs: KernelTables, comp: Composition = CLEAR) -> dict:
+    """How ``lw2_mega`` launches for these inputs (on the card): ``n_groups``
+    blocks of ``group`` threads per column, the block limit ``max_threads``
+    of the instance, and whether the level sums stay in the block."""
+    scalars = _composition_args(comp, inp.jtemp.device, inp.nlay, inp.ncol, tabs.lkp.n_gpt, tabs.lkp.n_bnd)[1]
+    plan = kernel_plan("lw2_mega", inp.jtemp.device, tabs.lkp.n_gpt, inp.nlay, 2, 4, BLOCK_COUNT_BYTES,
+                       _variant(scalars))
+    return dict(group=plan.group, n_groups=plan.n_groups, in_block=plan.in_block,
+                max_threads=LAST_PLANS["lw2_mega"][1])
 
 
 # ---------------------------------------------------------------------------
@@ -511,7 +533,7 @@ def _sw_clear_mega_plan(tabs: KernelTables, nlay: int, composition: list, dev):
     its level sums (chunks of layers: it does not grow with nlay);
     ``composition`` is (cloud, aero, mask_mode)."""
     staged = _build.library().rrtmgp_sw_clear_mega_staged(tabs.lkp.n_bnd, tabs.n_minor, *composition)
-    return gpoint_plan(tabs.lkp.n_gpt, nlay, 3, 4, staged, smem_limit(dev)), staged
+    return kernel_plan("sw_clear_mega", dev, tabs.lkp.n_gpt, nlay, 3, 4, staged, _variant(composition)), staged
 
 
 def sw_clear_mega_design(inp: MegaInputs, tabs: KernelTables, comp: Composition = CLEAR) -> dict:
@@ -527,7 +549,7 @@ def sw_clear_mega_design(inp: MegaInputs, tabs: KernelTables, comp: Composition 
     state = ("tau, ssa, the beam (then the albedo), the source; coefficients recomputed" if comp.clear else
              "Rdir * beam, Tdir * beam, Rdif, Tdif, rewritten by the adding pass")
     return dict(group=plan.group, n_groups=plan.n_groups, chunk=SW_CHUNK, smem=staged + sums, staged=staged,
-                in_block=plan.in_block, state=state)
+                in_block=plan.in_block, state=state, max_threads=LAST_PLANS["sw_clear_mega"][1])
 
 
 # ---------------------------------------------------------------------------
@@ -550,7 +572,7 @@ def mcica_mask_export(cld_frac: torch.Tensor, seed: int, col_offset: int, n_gpt:
     dev = _cuda_device(cld_frac, "mcica_mask_export")
     if cld_frac.dim() != 2 or n_gpt < 1:
         raise ValueError(f"mcica_mask_export: cld_frac {tuple(cld_frac.shape)}, n_gpt {n_gpt}")
-    plan = gpoint_plan(n_gpt)
+    plan = kernel_plan("mcica_mask_export", dev, n_gpt)
     nlay, ncol = cld_frac.shape
     _require(cld_frac, "cld_frac", (nlay, ncol), torch.float32, dev)
     hi, lo = seed_key(seed)

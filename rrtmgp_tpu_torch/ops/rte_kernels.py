@@ -36,9 +36,10 @@ kernel does not take; for CPU tensors it returns its twin ``*_ref``.
 ``csrc/lw_noscat_banded.cu`` on ``lw_noscat_banded_reduced.launches``, the
 two of the summed sweep of ``csrc/lw_noscat_sources.cu`` on
 ``lw_noscat_reduced.launches``).
-The kernels are f32 and run one thread per g-point: up to 1024 g-points one
-block per column, beyond that a column over several blocks
-(``_launch.gpoint_plan``), its level sums completed in the same order, as
+The kernels are f32 and run one thread per g-point: up to the kernel's
+block limit (``_launch.max_threads``: 1024, or fewer where its registers
+do not fit them) one block per column, beyond that a column over several
+blocks (``_launch.gpoint_plan``), its level sums completed in the same order, as
 they are for a column too deep for its sums to fit a block, so any g-point
 count and depth gives the same bits as one block would. A g-summed call
 over several blocks is the sweep and ``finish_level_sums``
@@ -61,7 +62,7 @@ import ctypes
 import torch
 
 from . import _build
-from ._launch import LaunchPlan, cuda_device, gpoint_plan, level_partials, ptr, require, smem_limit, stream
+from ._launch import LAST_PLANS, LaunchPlan, cuda_device, kernel_plan, level_partials, ptr, require, stream
 from .gas_optics import planck_sources_from_bands
 from .rte import intensity_to_flux, lw_2stream, lw_noscat, round_to, sw_2stream
 
@@ -76,32 +77,35 @@ def _dims(tau: torch.Tensor, name: str) -> tuple[int, int, int]:
     return tuple(tau.shape)
 
 
-def _groups(ngpt: int) -> tuple[int, int]:
-    """(group, n_groups) of the launch plan."""
-    plan = gpoint_plan(ngpt)
+def _groups(kernel: str, ngpt: int, dev, variant: int = 0) -> tuple[int, int]:
+    """(group, n_groups) of the launch plan of a per-g-point sweep."""
+    plan = kernel_plan(kernel, dev, ngpt, variant=variant)
     return plan.group, plan.n_groups
 
 
-def sweep_plan(nf: int, nlay: int, ngpt: int, dev) -> LaunchPlan:
-    """The launch plan of a g-summed f32 sweep with nf fields on ``dev``."""
-    return gpoint_plan(ngpt, nlay, nf, 4, 0, smem_limit(dev))
+def sweep_plan(kernel: str, nf: int, nlay: int, ngpt: int, dev, variant: int = 0, per_thread: int = 0) -> LaunchPlan:
+    """The launch plan of the g-summed f32 sweep ``kernel`` (instance
+    ``variant``, see ``_launch.max_threads``) with nf fields on ``dev``;
+    ``per_thread`` bytes of shared memory of its own a thread."""
+    return kernel_plan(kernel, dev, ngpt, nlay, nf, 4, 0, variant, per_thread)
 
 
-def _plan(nf: int, nlay: int, ncol: int, ngpt: int, dev):
+def _plan(kernel: str, nf: int, nlay: int, ncol: int, ngpt: int, dev, variant: int = 0, per_thread: int = 0):
     """(group, n_groups, in_block) of the launch plan of a g-summed sweep
     with nf fields and its level partials (None when the sums stay in the
     block)."""
-    plan = sweep_plan(nf, nlay, ngpt, dev)
+    plan = sweep_plan(kernel, nf, nlay, ngpt, dev, variant, per_thread)
     return (plan.group, plan.n_groups, int(plan.in_block)), level_partials(plan, nf, nlay + 1, ncol, torch.float32,
                                                                             dev)
 
 
-def angles_plan(nang: int, nlay: int, ncol: int, ngpt: int, dev):
-    """(group, n_groups, in_block) of the launch plan of a multi-angle LW
-    sweep (lw_noscat_banded, the summed lw_noscat_sources) over nang angles
-    and its level partials (None when the sums stay in the block): 2 x nang
-    level-sum fields, each angle's up and down."""
-    return _plan(2 * nang, nlay, ncol, ngpt, dev)
+def angles_plan(kernel: str, nang: int, nlay: int, ncol: int, ngpt: int, dev):
+    """(group, n_groups, in_block) of the launch plan of the multi-angle LW
+    sweep ``kernel`` (lw_noscat_banded, the summed lw_noscat_sources, whose
+    instance is the number of angles) over nang angles and its level
+    partials (None when the sums stay in the block): 2 x nang level-sum
+    fields, each angle's up and down."""
+    return _plan(kernel, 2 * nang, nlay, ncol, ngpt, dev, nang)
 
 
 def lw_noscat_banded_reduced_ref(
@@ -183,7 +187,7 @@ def _lw_noscat_banded_launch(tau, pfrac, plk_lay, plk_lev, plk_sfc, sfc_emis, gp
         require(inc, "inc_flux", (nang, ncol, ngpt), f32, dev)
     up = torch.empty((nang, nlay + 1, ncol), dtype=f32, device=dev)
     dn = torch.empty_like(up)
-    groups, partials = angles_plan(nang, nlay, ncol, ngpt, dev)
+    groups, partials = angles_plan("lw_noscat_banded", nang, nlay, ncol, ngpt, dev)
     with torch.cuda.device(dev):
         err = _build.library().rrtmgp_lw_noscat_banded(
             *map(ptr, (tau, pfrac, plk_lay, plk_lev, plk_sfc, sfc_emis, gpt2band, inc, up, dn, partials)),
@@ -313,7 +317,7 @@ def sw_2stream_reduced(
         require(inc_flux_diffuse, "inc_flux_diffuse", (ncol, ngpt), f32, dev)
     scratch = sw_sweep_scratch(nlay, ncol, ngpt, dev)
     fluxes = [torch.empty((nlay + 1, ncol), dtype=f32, device=dev) for _ in range(3)]
-    groups, partials = _plan(3, nlay, ncol, ngpt, dev)
+    groups, partials = _plan("sw_2stream_reduced", 3, nlay, ncol, ngpt, dev, int(g is not None))
     with torch.cuda.device(dev):
         err = _build.library().rrtmgp_sw_2stream_reduced(
             *map(ptr, (tau, ssa, g, mu0, toa_gpt, alb_dir, alb_dif, gpt2band, inc_flux_diffuse,
@@ -375,7 +379,7 @@ def _lw_noscat_reduced_launch(tau, lay_source, lev_source, sfc_source, sfc_emis,
         require(inc, "inc_flux", (nang, ncol, ngpt), f32, dev)
     up = torch.empty((nang, nlay + 1, ncol), dtype=f32, device=dev)
     dn = torch.empty_like(up)
-    groups, partials = angles_plan(nang, nlay, ncol, ngpt, dev)
+    groups, partials = angles_plan("lw_noscat_reduced", nang, nlay, ncol, ngpt, dev)
     with torch.cuda.device(dev):
         err = _build.library().rrtmgp_lw_noscat_reduced(
             *map(ptr, (tau, lay_source, lev_source, sfc_source, sfc_emis, gpt2band, inc, up, dn, partials)),
@@ -470,7 +474,7 @@ def lw_noscat_gpt(
     with torch.cuda.device(dev):
         err = _build.library().rrtmgp_lw_noscat_gpt(
             *map(ptr, (tau, lay_source, lev_source, sfc_source, sfc_emis, inc_flux, up, dn)),
-            nlay, ncol, ngpt, *_groups(ngpt), round_to(ds, f32), intensity_to_flux(w_mu, f32),
+            nlay, ncol, ngpt, *_groups("lw_noscat_gpt", ngpt, dev), round_to(ds, f32), intensity_to_flux(w_mu, f32),
             stream(dev),
         )
     _build.check(err, "lw_noscat_gpt")
@@ -479,6 +483,34 @@ def lw_noscat_gpt(
 
 
 lw_noscat_gpt.launches = 0
+
+
+#: layers of one chunk of lw_2stream_reduced: its checkpoint spacing
+#: (csrc/lw_2stream_reduced.cu LW2_CHUNK; the entry point refuses fewer
+#: checkpoint levels than it needs)
+LW2_CHUNK = 8
+#: its chunk state in shared memory, bytes a thread: 4 f32 a layer of the
+#: chunk (csrc/lw_2stream_reduced.cu lw2_chunk_bytes)
+LW2_STATE_BYTES = 4 * 4 * LW2_CHUNK
+
+
+def lw2_sweep_scratch(nlay: int, ncol: int, ngpt: int, device) -> tuple:
+    """The scratch of one lw_2stream_reduced call: the (alb, src)
+    checkpoints, two (ceil(nlay / LW2_CHUNK), ncol, ngpt) f32 arrays, the
+    albedo and the source at the bottom level of each chunk of layers."""
+    levels = -(-nlay // LW2_CHUNK)
+    return tuple(torch.empty((levels, ncol, ngpt), dtype=torch.float32, device=device) for _ in range(2))
+
+
+def lw_2stream_reduced_design(nlay: int, ngpt: int, device: torch.device) -> dict:
+    """How ``lw_2stream_reduced`` launches for ``nlay`` layers and ``ngpt``
+    g-points on ``device`` (the card): the chunk, the checkpoint levels (in
+    device memory), the chunk state's shared memory a block, the launch
+    plan and the block limit of the kernel."""
+    plan = sweep_plan("lw_2stream_reduced", 2, nlay, ngpt, device, per_thread=LW2_STATE_BYTES)
+    return dict(chunk=LW2_CHUNK, checkpoints=-(-nlay // LW2_CHUNK), chunk_smem=LW2_STATE_BYTES * plan.group,
+                group=plan.group, n_groups=plan.n_groups, in_block=plan.in_block,
+                max_threads=LAST_PLANS["lw_2stream_reduced"][1])
 
 
 def lw_2stream_reduced_ref(tau, ssa, g, lev_source, sfc_source, sfc_emis, gpt2band, inc_flux=None):
@@ -500,8 +532,8 @@ def lw_2stream_reduced(
 ):
     """LW two-stream transport from materialized optics and level sources:
     layer coefficients, adding and diffuse flux. Returns (flux_up, flux_dn),
-    each (nlay+1, ncol), summed over g-points. The kernel holds two
-    (nlay, ncol, ngpt) scratch tensors while it runs."""
+    each (nlay+1, ncol), summed over g-points. The kernel holds the
+    checkpoints of ``lw2_sweep_scratch`` while it runs."""
     if tau.device.type == "cpu":
         return lw_2stream_reduced_ref(tau, ssa, g, lev_source, sfc_source, sfc_emis, gpt2band, inc_flux)
     dev = cuda_device(tau, "lw_2stream_reduced")
@@ -519,15 +551,15 @@ def lw_2stream_reduced(
     require(gpt2band, "gpt2band", (ngpt,), torch.int32, dev)
     if inc_flux is not None:
         require(inc_flux, "inc_flux", (ncol, ngpt), f32, dev)
-    scratch = [torch.empty((nlay, ncol, ngpt), dtype=f32, device=dev) for _ in range(2)]
+    scratch = lw2_sweep_scratch(nlay, ncol, ngpt, dev)
     up = torch.empty((nlay + 1, ncol), dtype=f32, device=dev)
     dn = torch.empty_like(up)
-    groups, partials = _plan(2, nlay, ncol, ngpt, dev)
+    groups, partials = _plan("lw_2stream_reduced", 2, nlay, ncol, ngpt, dev, per_thread=LW2_STATE_BYTES)
     with torch.cuda.device(dev):
         err = _build.library().rrtmgp_lw_2stream_reduced(
             *map(ptr, (tau, ssa, g, lev_source, sfc_source, sfc_emis, gpt2band, inc_flux, *scratch, up, dn,
                        partials)),
-            nlay, ncol, ngpt, nbnd, *groups, stream(dev),
+            nlay, ncol, ngpt, nbnd, scratch[0].shape[0], *groups, stream(dev),
         )
     _build.check(err, "lw_2stream_reduced")
     lw_2stream_reduced.launches += 1
@@ -578,7 +610,7 @@ def sw_2stream_gpt(
     with torch.cuda.device(dev):
         err = _build.library().rrtmgp_sw_2stream_gpt(
             *map(ptr, (tau, ssa, g, mu0, toa_gpt, alb_dir, alb_dif, inc_flux_diffuse, *scratch, *fluxes)),
-            nlay, ncol, ngpt, *_groups(ngpt), stream(dev),
+            nlay, ncol, ngpt, *_groups("sw_2stream_gpt", ngpt, dev, int(g is not None)), stream(dev),
         )
     _build.check(err, "sw_2stream_gpt")
     sw_2stream_gpt.launches += 1

@@ -9,6 +9,8 @@ that chip_smoke.py does not print. Run from the repository root:
     python3 scripts/port_measure.py [--root CHECKOUT] sw-sweep
     python3 scripts/port_measure.py [--root CHECKOUT] lw-sweep
     python3 scripts/port_measure.py [--root CHECKOUT] sw-mega
+    python3 scripts/port_measure.py [--root CHECKOUT] lw2-sweep
+    python3 scripts/port_measure.py [--root CHECKOUT] aerosol
 
 With no argument it runs the first five. Each line names what it measured; the
 first line is the card's name and power limit. Problem sizes and inputs are
@@ -124,6 +126,25 @@ imports no JAX.
   staging chunk, the state layout): build each in its own checkout and run
   this mode on each with ``--root``, in turns within one call with the
   parent.
+- ``lw2-sweep``: the LW two-stream sweep from materialized optics (K14) on
+  the clear cell's LW optics and sources (32768 x 60, 256 g-points; ssa = g
+  = 0 as the clear solves make them), without and with an incident flux,
+  3 rounds of a median of 7 synchronized calls, the cases taking turns
+  within a round, each with the sha256 of its fluxes and the device scratch
+  of one call, then the design where the checkout reports it
+  (``rte_kernels.lw_2stream_reduced_design``) and the ``ptxas`` registers.
+  For design variants (the chunk, where the checkpoints live): build each
+  in its own checkout and run this mode on each with ``--root``, in turns
+  within one call with the parent.
+- ``aerosol``: the MERRA aerosol band sums (K5) on the all-sky cell
+  (75748 x 60, LW 16 and SW 14 bands, all species), as ``lw2-sweep`` times
+  K14, with the design where the checkout reports it
+  (``aerosol_bands.aerosol_bands_design``: staged bytes, blocks an SM) and
+  the registers. For ablations and design variants: one checkout each.
+- ``kernel-hashes`` also hashes K5 on the all-sky cell (LW and SW, all
+  species and a subset) and K14 with an incident flux, with ssa and g of an
+  all-sky composition (8192 columns), at 61 layers, at 1100 and 1000
+  g-points (64 x 12) and at 800 layers (512 columns).
 """
 
 from __future__ import annotations
@@ -407,7 +428,8 @@ REGISTERS_OF = ("sw_clear_mega_kernel", "lw2_mega_kernelILb0ELb0", "lw2_mega_ker
                 "sw_2stream_reduced_kernel", "lw_clear_mega_kernelIfLb0ELb0", "lw_clear_mega_kernelIfLb1ELb1ELi2",
                 "lw_clear_mega_kernelIdLb0ELb0", "lw_noscat_banded_kernel", "lw_noscat_sources_kernel",
                 "lw_noscat_reduced_kernel", "lw_noscat_gpt_kernel", "lw_2stream_reduced_kernel",
-                "optics_fused_kernel", "interp_pt_eta_kernel", "interp_minor_kernel", "sw_2stream_gpt_kernel")
+                "optics_fused_kernel", "interp_pt_eta_kernel", "interp_minor_kernel", "sw_2stream_gpt_kernel",
+                "aerosol_bands_kernel")
 
 
 def angles_call(multi: str, one: str, head, n: int, inc=None):
@@ -472,6 +494,89 @@ def sw_mega_cases(L, atm):
              ("seed+aerosols", comp(L.lookup_sw_cld, L.lookup_sw_aero, True)),
              ("aerosols", comp(None, L.lookup_sw_aero, False))]
     return cases, args
+
+
+AEROSOL_SUBSET = (0, 2, 4, 11)  # dust1, sulfate, BC, sea salt 2
+
+
+def aerosol_hashes(report, L) -> None:
+    """K5 (aerosol_bands) at the all-sky cell's width (75748 x 60) on its
+    aerosol-laden atmosphere: LW 16 bands and SW 14 bands, all species and a
+    subset."""
+    from rrtmgp_tpu_torch.ops import aerosol_bands as ab
+
+    atm = cs.allsky_atmosphere(cs.ALLSKY_NCOL, cs.NLAY)
+    for wave, lkp in (("LW", L.lookup_lw_aero), ("SW", L.lookup_sw_aero)):
+        a = (lkp, atm.aerosol_state, atm.rel_hum)
+        report(f"aerosol_bands {wave} {lkp.dust.shape[-1]} bands", lambda: ab.aerosol_bands(*a))
+        report(f"aerosol_bands {wave} species {AEROSOL_SUBSET}", lambda: ab.aerosol_bands(*a, AEROSOL_SUBSET))
+
+
+def _lw2_allsky_args(L, ncol, nlay):
+    """K14's arguments with ssa and g of an all-sky composition (McICA by
+    seed + aerosols at g-point resolution), as chip_smoke.py builds them."""
+    import torch
+
+    from rrtmgp_tpu_torch.models.rrtmgp import _kernel_composition
+    from rrtmgp_tpu_torch.ops import mega
+    from rrtmgp_tpu_torch.ops.gas_optics_kernel import gas_optics_lw
+
+    lw, atm = L.lookup_lw, cs.allsky_atmosphere(ncol, nlay)
+    bcs_lw, _ = cs.boundary_conditions(lw, L.lookup_sw, ncol)
+    tau, src = gas_optics_lw(lw, atm, need_lay_source=False)
+    comp = _kernel_composition(lw, atm, L.lookup_lw_cld, L.lookup_lw_aero, None, cs.MCICA_SEED, cs.COL_OFFSET,
+                               None, False, False)[0]
+    zeros = torch.zeros_like(tau)
+    tau, ssa, g, _ = mega._compose_ref(comp, lw, tau, zeros, zeros)
+    return (tau.contiguous(), ssa.contiguous(), g.contiguous(), src.lev_source, src.sfc_source, bcs_lw.sfc_emis,
+            lw.kernel_tables.gpt2band, None)
+
+
+def _incident(like):
+    """A smooth incident flux of tau's (ncol, ngpt) shape."""
+    import torch
+
+    n = like[0].numel()
+    return 0.5 + 0.25 * torch.sin(torch.arange(n, device=cs.DEVICE, dtype=torch.float32)).view(like.shape[1:])
+
+
+def lw2_sweep_hashes(report) -> None:
+    """K14 (lw_2stream_reduced) beyond the clear cell: with an incident flux,
+    with ssa and g of an all-sky composition (8192 columns), at 61 layers
+    (not a multiple of a chunk), at 1100 and 1000 g-points (64 x 12) and at
+    800 layers (512 columns)."""
+    import torch
+
+    from rrtmgp_tpu_torch import AllSkyRadiation, lookup_tables
+    from rrtmgp_tpu_torch.ops import rte_kernels
+
+    def sweep(lw, sw, ncol, nlay):
+        atm = cs.atmosphere(ncol, nlay)
+        return cs.sweep_args(lw, sw, atm, *cs.boundary_conditions(lw, sw, ncol))[1]
+
+    lw, sw = cs.lookups(256, 16, 224, 14)
+    k14 = sweep(lw, sw, cs.NCOL, cs.NLAY)
+    report("lw_2stream_reduced with incident flux", lambda: rte_kernels.lw_2stream_reduced(
+        *k14[:7], _incident(k14[0])))
+    del k14
+    k14 = sweep(lw, sw, cs.NCOL, 61)
+    report("lw_2stream_reduced 61 layers", lambda: rte_kernels.lw_2stream_reduced(*k14))
+    del k14
+    torch.cuda.empty_cache()
+    L = lookup_tables(AllSkyRadiation(aerosol_radiation=True), dtype=torch.float32, device=cs.DEVICE)
+    k14 = _lw2_allsky_args(L, 8192, cs.NLAY)
+    report("lw_2stream_reduced all-sky ssa and g", lambda: rte_kernels.lw_2stream_reduced(*k14))
+    report("lw_2stream_reduced all-sky ssa and g with incident flux", lambda: rte_kernels.lw_2stream_reduced(
+        *k14[:7], _incident(k14[0])))
+    del k14, L
+    torch.cuda.empty_cache()
+    for ngpt in (1100, 1000):
+        k14 = sweep(*cs.lookups(ngpt, 4, ngpt, 4), 64, 12)
+        report(f"lw_2stream_reduced {ngpt} g-points", lambda: rte_kernels.lw_2stream_reduced(*k14))
+        report(f"lw_2stream_reduced {ngpt} g-points with incident flux", lambda: rte_kernels.lw_2stream_reduced(
+            *k14[:7], _incident(k14[0])))
+    k14 = sweep(lw, sw, 512, 800)
+    report("lw_2stream_reduced 800 layers", lambda: rte_kernels.lw_2stream_reduced(*k14))
 
 
 def kernel_hashes() -> None:
@@ -577,6 +682,12 @@ def kernel_hashes() -> None:
         report(f"sw_clear_mega clear {tag}", lambda: mega.sw_clear_mega(*sw_args))
         for what, c in cases[2:3]:
             report(f"sw_clear_mega {what} {tag}", lambda: mega.sw_clear_mega(*sw_args, c))
+    del cases, sw_args, a
+    torch.cuda.empty_cache()
+    aerosol_hashes(report, L)
+    del L
+    torch.cuda.empty_cache()
+    lw2_sweep_hashes(report)
 
     entry = None
     for line in _build.library_path().with_suffix(".log").read_text().splitlines():
@@ -767,6 +878,70 @@ def sw_mega() -> None:
     _registers(_build.library_path().with_suffix(".log"), ("sw_clear_mega_kernel",), "sw-mega")
 
 
+def _rounds_of(tag: str, cases) -> None:
+    """3 rounds of a median of 7 synchronized calls, the cases taking turns
+    within a round; then each case's sha256 and the device scratch of one
+    call (peak allocated during the call less what is allocated after it)."""
+    import torch
+
+    ms = {name: [] for name, _ in cases}
+    for _ in range(3):
+        for name, fn in cases:
+            ms[name].append(cs.timed(fn, 7))
+    for name, fn in cases:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        out = fn()
+        torch.cuda.synchronize()
+        scratch = torch.cuda.max_memory_allocated() - torch.cuda.memory_allocated()
+        h = hashlib.sha256()
+        for t in out:
+            h.update(t.cpu().numpy().tobytes())
+        del out
+        say(tag, f"{ROOT} {name}: {_fmt(ms[name])} ms, sha256 {h.hexdigest()[:16]}, device scratch of one call "
+                 f"{scratch / 1e9:.3f} GB")
+
+
+def lw2_sweep() -> None:
+    import torch
+
+    from rrtmgp_tpu_torch.ops import _build, rte_kernels
+
+    lw, sw = cs.lookups(256, 16, 224, 14)
+    atm = cs.atmosphere(cs.NCOL, cs.NLAY)
+    k14 = cs.sweep_args(lw, sw, atm, *cs.boundary_conditions(lw, sw, cs.NCOL))[1]
+    del atm
+    torch.cuda.empty_cache()
+    inc = _incident(k14[0])
+    _rounds_of("lw2-sweep", [("lw_2stream_reduced (K14)", lambda: rte_kernels.lw_2stream_reduced(*k14)),
+                             ("lw_2stream_reduced (K14) with incident flux",
+                              lambda: rte_kernels.lw_2stream_reduced(*k14[:7], inc))])
+    if hasattr(rte_kernels, "lw_2stream_reduced_design"):
+        say("lw2-sweep", f"{ROOT} design: {rte_kernels.lw_2stream_reduced_design(cs.NLAY, lw.n_gpt, inc.device)}")
+    _registers(_build.library_path().with_suffix(".log"), ("lw_2stream_reduced_kernel",), "lw2-sweep")
+
+
+def aerosol() -> None:
+    import torch
+
+    from rrtmgp_tpu_torch import AllSkyRadiation, lookup_tables
+    from rrtmgp_tpu_torch.ops import _build
+    from rrtmgp_tpu_torch.ops import aerosol_bands as ab
+
+    L = lookup_tables(AllSkyRadiation(aerosol_radiation=True), dtype=torch.float32, device=cs.DEVICE)
+    atm = cs.allsky_atmosphere(cs.ALLSKY_NCOL, cs.NLAY)
+    cases = []
+    for wave, lkp in (("LW", L.lookup_lw_aero), ("SW", L.lookup_sw_aero)):
+        a = (lkp, atm.aerosol_state, atm.rel_hum)
+        cases.append((f"aerosol_bands (K5) {wave} {lkp.dust.shape[-1]} bands", lambda a=a: ab.aerosol_bands(*a)))
+    _rounds_of("aerosol", cases)
+    if hasattr(ab, "aerosol_bands_design"):
+        for lkp in (L.lookup_lw_aero, L.lookup_sw_aero):
+            design = ab.aerosol_bands_design(lkp, atm.rel_hum.device)
+            say("aerosol", f"{ROOT} design {lkp.dust.shape[-1]} bands: {design}")
+    _registers(_build.library_path().with_suffix(".log"), ("aerosol_bands_kernel",), "aerosol")
+
+
 def _steps(tag: str, step, steps: int = 5) -> None:
     """Step time (median, min, max of ``steps``) and peak device memory."""
     import statistics
@@ -872,7 +1047,8 @@ def main() -> None:
     for name, fn in (("f64-memory", f64_memory), ("angles", angles), ("profile", profile_cells),
                      ("profile-two-kernel", profile_two_kernel), ("profile-sweep", profile_sweep),
                      ("kernel-hashes", kernel_hashes), ("megakernels", megakernels), ("gather", gather),
-                     ("sw-sweep", sw_sweep), ("lw-sweep", lw_sweep), ("sw-mega", sw_mega)):
+                     ("sw-sweep", sw_sweep), ("lw-sweep", lw_sweep), ("sw-mega", sw_mega),
+                     ("lw2-sweep", lw2_sweep), ("aerosol", aerosol)):
         if name in want:
             fn()
 

@@ -89,7 +89,8 @@ def _case(dev, ngpt, nbnd, ncol, nlay):
 
 
 @pytest.mark.parametrize("ngpt,nbnd,ncol,nlay", [(36, 4, 1000, 30), (256, 16, 257, 60), (5, 5, 3, 2),
-                                                 (1100, 4, 7, 5)])
+                                                 (1100, 4, 7, 5),
+                                                 (1000, 4, 7, 5)])
 def test_kernels_match_twins_with_incident_flux(cuda, ngpt, nbnd, ncol, nlay):
     plk_args, lw_args, sw_args = _case(cuda, ngpt, nbnd, ncol, nlay)
     mega.reset_launch_counts()
@@ -131,16 +132,13 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
     assert _counts() == {"planck_band": 3}
 
 
-def test_more_than_1024_gpoints_run_on_every_impl(cuda):
-    """A lookup of more g-points than a block has threads raises nowhere:
-    every impl (the default one too) runs it, a column's g-points over
-    several blocks, and agrees with impl="torch", LW no-scattering (1 and 3
-    angles), LW two-stream and SW, clear and all-sky (McICA by seed,
-    aerosols); boundary conditions with other strides than the kernels take
-    are made contiguous by the solves."""
+def _every_impl(cuda, ngpt):
+    """Every impl (the default one too) of solve_lw (LW no-scattering at 1
+    and 3 angles, LW two-stream) and solve_sw, clear and all-sky (McICA by
+    seed, aerosols), at ``ngpt`` g-points against impl="torch"."""
     from rrtmgp_tpu_torch.data.synthetic import synthetic_aerosol_lookup, synthetic_cloud_lookup
 
-    ngpt, ncol, nlay = 1100, 6, 5
+    ncol, nlay = 6, 5
     small = dict(n_eta=3, n_press=4, n_temp=3, dtype=np.float32, device=cuda)
     lw = synthetic_gas_lookup(longwave=True, n_gpt=ngpt, n_bnd=4, **small)
     sw = synthetic_gas_lookup(longwave=False, n_gpt=ngpt, n_bnd=4, seed=1, **small)
@@ -169,6 +167,16 @@ def test_more_than_1024_gpoints_run_on_every_impl(cuda):
                 assert _rel(out, exact) <= tol, (solve.__name__, impl, kw)
                 if extra:
                     assert torch.equal(d_out.cld_cover, d_exact.cld_cover)
+
+
+def test_more_than_1024_gpoints_run_on_every_impl(cuda):
+    """A lookup of more g-points than a block has threads raises nowhere:
+    every impl (the default one too) runs it, a column's g-points over
+    several blocks, and agrees with impl="torch", LW no-scattering (1 and 3
+    angles), LW two-stream and SW, clear and all-sky (McICA by seed,
+    aerosols); boundary conditions with other strides than the kernels take
+    are made contiguous by the solves."""
+    _every_impl(cuda, 1100)
     lkp = synthetic_gas_lookup(longwave=True, n_gpt=32, n_bnd=4, dtype=np.float32, device=cuda)
     atm = synthetic_atmosphere(ncol=4, nlay=3, dtype=np.float32, device=cuda)
     emis = torch.rand((4, 4), device=cuda) * 0.1 + 0.9
@@ -181,6 +189,22 @@ def test_more_than_1024_gpoints_run_on_every_impl(cuda):
         assert torch.equal(a.flux_up, b.flux_up)
     assert _counts() == {"planck_band": 6, "lw_clear_mega": 2, "optics_fused": 2, "planck_band_rows": 6,
                          "lw_noscat_banded_reduced": 2}
+
+
+def test_1000_gpoints_run_on_every_impl(cuda):
+    """1000 g-points fit a block of 1024 threads but not the block of a
+    kernel whose registers allow fewer (lw2_mega, sw_clear_mega all-sky
+    seeded): each wrapper plans with its kernel's maxThreadsPerBlock, so
+    every impl runs and agrees with impl="torch"; every plan holds its
+    kernel's limit."""
+    from rrtmgp_tpu_torch.ops._launch import LAST_PLANS
+
+    LAST_PLANS.clear()
+    _every_impl(cuda, 1000)
+    assert {"lw2_mega", "sw_clear_mega", "lw_clear_mega", "lw_2stream_reduced"} <= set(LAST_PLANS)
+    for name, (plan, most) in LAST_PLANS.items():
+        assert 32 <= plan.group <= most <= 1024 and plan.n_groups * plan.group >= 1000, name
+        assert plan.n_groups == -(-1000 // (most // 32 * 32)), name
 
 
 @pytest.mark.parametrize("ngpt,nlay", [(40, 60), (256, 800)])
@@ -408,7 +432,8 @@ def _compositions(lkp, atm, cld, aero, mask, delta):
 
 
 @pytest.mark.parametrize("ngpt,nbnd,ncol,nlay", [(36, 4, 1000, 30), (256, 16, 257, 12), (5, 5, 3, 4),
-                                                 (1100, 4, 7, 5)])
+                                                 (1100, 4, 7, 5),
+                                                 (1000, 4, 7, 5)])
 def test_allsky_kernels_match_twins(cuda, ngpt, nbnd, ncol, nlay):
     from rrtmgp_tpu_torch.ops import aerosol_bands as ab
 
@@ -440,7 +465,8 @@ def test_allsky_kernels_match_twins(cuda, ngpt, nbnd, ncol, nlay):
 
 
 @pytest.mark.parametrize("ngpt,nbnd,ncol,nlay", [(36, 4, 1000, 30), (256, 16, 257, 12), (5, 5, 3, 4),
-                                                 (1100, 4, 7, 5)])
+                                                 (1100, 4, 7, 5),
+                                                 (1000, 4, 7, 5)])
 def test_lw_noscat_composed_matches_twin(cuda, ngpt, nbnd, ncol, nlay):
     """lw_clear_mega with a cloud mask, McICA seed + aerosols, and aerosols
     alone against its twin; seed mode equals the exported-mask mode and its
@@ -617,7 +643,8 @@ def _two_kernel_case(dev, ngpt, nbnd, ncol, nlay):
 
 
 @pytest.mark.parametrize("ngpt,nbnd,ncol,nlay", [(36, 4, 1000, 30), (256, 16, 257, 60), (5, 5, 3, 2),
-                                                 (1100, 4, 7, 5)])
+                                                 (1100, 4, 7, 5),
+                                                 (1000, 4, 7, 5)])
 def test_two_kernel_kernels_match_twins(cuda, ngpt, nbnd, ncol, nlay):
     """optics_fused (LW and SW), planck_band_rows, lw_noscat_banded_reduced
     (with and without incident flux) and sw_2stream_reduced (with and without
@@ -823,7 +850,8 @@ def _sweep_case(dev, ngpt, nbnd, ncol, nlay):
 
 
 @pytest.mark.parametrize("ngpt,nbnd,ncol,nlay", [(36, 4, 1000, 30), (256, 16, 257, 60), (5, 5, 3, 2), (1024, 4, 7, 3),
-                                                 (1100, 4, 7, 3)])
+                                                 (1100, 4, 7, 3),
+                                                 (1000, 4, 7, 3)])
 def test_sweep_kernels_match_twins(cuda, ngpt, nbnd, ncol, nlay):
     """The four sweeps from materialized optics and sources against their
     twins, with and without incident flux (and asymmetry); each per-g-point
@@ -1023,7 +1051,8 @@ def _interp_calls(inp, tabs):
 
 
 @pytest.mark.parametrize("ngpt,nbnd,ncol,nlay", [(36, 4, 1000, 30), (256, 16, 257, 60), (224, 14, 130, 60),
-                                                 (5, 5, 3, 2), (1100, 4, 7, 5)])
+                                                 (5, 5, 3, 2), (1100, 4, 7, 5),
+                                                 (1000, 4, 7, 5)])
 def test_unfused_kernels_match_twins(cuda, ngpt, nbnd, ncol, nlay):
     """interp_pt_eta (each table the unfused optics read) and interp_minor
     against their twins within 1e-6 of the largest value, LW and SW, any
@@ -1161,7 +1190,8 @@ def _rich_lookup(dev, longwave, ngpt, nbnd, n_per_side, seed):
 
 
 @pytest.mark.parametrize("ngpt,nbnd,ncol,nlay,n_minor", [(36, 3, 13, 13, 12), (256, 16, 1001, 13, 30),
-                                                         (1100, 5, 9, 11, 20)])
+                                                         (1100, 5, 9, 11, 20),
+                                                         (1000, 5, 9, 11, 20)])
 def test_staged_gather_kernels_match_twins(cuda, ngpt, nbnd, ncol, nlay, n_minor):
     """optics_fused (LW, SW) and lw_clear_mega (clear, mask given, McICA seed
     + aerosols, aerosols alone; f64 clear) against their twins where ncol is
@@ -1206,7 +1236,8 @@ def test_staged_gather_kernels_match_twins(cuda, ngpt, nbnd, ncol, nlay, n_minor
 # ---------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("ngpt,nbnd,ncol,nlay", [(36, 4, 1000, 30), (256, 16, 257, 60), (1100, 4, 7, 5)])
+@pytest.mark.parametrize("ngpt,nbnd,ncol,nlay", [(36, 4, 1000, 30), (256, 16, 257, 60), (1100, 4, 7, 5), (1000, 4, 7, 5),
+                                                 (1000, 4, 7, 5)])
 def test_staged_interp_pt_eta_equals_its_twin_bit_for_bit(cuda, ngpt, nbnd, ncol, nlay):
     """interp_pt_eta on each of the four tables of the unfused optics (LW
     kmajor with col_mix, the Planck fraction, SW kmajor with col_mix, the
@@ -1263,7 +1294,7 @@ def _night_sw(k15, every=5):
     return (*k15[:3], mu0, *k15[4:])
 
 
-@pytest.mark.parametrize("ngpt,nbnd,ncol,nlay", [(36, 4, 1000, 30), (224, 14, 130, 60), (1100, 4, 7, 5),
+@pytest.mark.parametrize("ngpt,nbnd,ncol,nlay", [(36, 4, 1000, 30), (224, 14, 130, 60), (1100, 4, 7, 5), (1000, 4, 7, 5),
                                                  (224, 14, 3, 2800)])
 def test_sw_2stream_reduced_three_passes(cuda, ngpt, nbnd, ncol, nlay):
     """sw_2stream_reduced against its twin on its day columns, with and
@@ -1300,7 +1331,8 @@ def test_sw_2stream_reduced_equals_the_megakernel_with_night_columns(cuda):
 
 
 @pytest.mark.parametrize("ngpt,nbnd,ncol,nlay,n_minor", [(36, 3, 13, 13, 12), (36, 4, 1000, 30, 3),
-                                                         (1100, 5, 9, 11, 20)])
+                                                         (1100, 5, 9, 11, 20),
+                                                         (1000, 5, 9, 11, 20)])
 def test_staged_interp_minor_is_optics_fused_minor_part(cuda, ngpt, nbnd, ncol, nlay, n_minor):
     """interp_minor LW and SW against its twin where ncol is not a multiple
     of its column tile, cells lie on both troposphere sides and several
@@ -1337,7 +1369,8 @@ def _per_angle(args, ds, w, inc, one=rte_kernels.lw_noscat_banded_reduced):
     return up, dn
 
 
-@pytest.mark.parametrize("ngpt,nbnd,ncol,nlay", [(36, 4, 1000, 30), (256, 16, 257, 60), (1100, 4, 7, 5)])
+@pytest.mark.parametrize("ngpt,nbnd,ncol,nlay", [(36, 4, 1000, 30), (256, 16, 257, 60), (1100, 4, 7, 5), (1000, 4, 7, 5),
+                                                 (1000, 4, 7, 5)])
 def test_lw_noscat_banded_angles_equal_per_angle_launches(cuda, ngpt, nbnd, ncol, nlay):
     """lw_noscat_banded_angles, 1 to 4 angles in one launch, with and
     without incident flux: against its twin, and bit for bit the one-angle
@@ -1371,7 +1404,7 @@ def test_lw_noscat_banded_angles_on_deep_columns(cuda):
     k12 = _two_kernel_case(cuda, 256, 16, ncol, nlay)[3]
     args, inc = k12[:7], k12[9]
     for n in (1, 2, 3, 4):
-        (_, n_groups, in_block), partials = rte_kernels.angles_plan(n, nlay, ncol, 256, cuda)
+        (_, n_groups, in_block), partials = rte_kernels.angles_plan("lw_noscat_banded", n, nlay, ncol, 256, cuda)
         assert n_groups == 1 and not in_block and partials.shape == (2 * n, nlay + 1, ncol, 8)
         assert smem_limit(cuda) < 2 * n * (nlay + 1) * 8 * 4
         Ds, wts = angular_discretization(n)
@@ -1408,7 +1441,8 @@ def test_lw_noscat_banded_angles_reject_what_the_kernel_does_not_take(cuda):
 
 
 @pytest.mark.parametrize("ngpt,nbnd,ncol,nlay,n_minor", [(36, 3, 13, 13, 12), (224, 14, 257, 60, 30),
-                                                         (1100, 5, 9, 11, 20)])
+                                                         (1100, 5, 9, 11, 20),
+                                                         (1000, 5, 9, 11, 20)])
 def test_staged_sw_clear_mega_matches_twin(cuda, ngpt, nbnd, ncol, nlay, n_minor):
     """sw_clear_mega on its staged chunks against its twin: clear, a cloud
     mask given (with and without aerosols), McICA by seed + aerosols (the
@@ -1452,7 +1486,7 @@ def test_staged_sw_clear_mega_on_deep_columns(cuda):
     assert _rel(out[:3], want[:3]) <= TOL["sw_clear_mega"]
 
 
-@pytest.mark.parametrize("ngpt,nbnd,ncol,nlay", [(36, 4, 1000, 30), (256, 16, 257, 60), (1100, 4, 7, 5),
+@pytest.mark.parametrize("ngpt,nbnd,ncol,nlay", [(36, 4, 1000, 30), (256, 16, 257, 60), (1100, 4, 7, 5), (1000, 4, 7, 5),
                                                  (256, 16, 3, 3700)])
 def test_lw_noscat_reduced_angles_equal_per_angle_launches(cuda, ngpt, nbnd, ncol, nlay):
     """lw_noscat_reduced_angles, 1 to 4 angles in one launch, with and
@@ -1463,7 +1497,7 @@ def test_lw_noscat_reduced_angles_equal_per_angle_launches(cuda, ngpt, nbnd, nco
     k13 = _sweep_case(cuda, ngpt, nbnd, ncol, nlay)[0]
     args, inc = k13[:6], k13[8]
     for n in (1, 2, 3, 4):
-        (_, _, in_block), partials = rte_kernels.angles_plan(n, nlay, ncol, ngpt, cuda)
+        (_, _, in_block), partials = rte_kernels.angles_plan("lw_noscat_reduced", n, nlay, ncol, ngpt, cuda)
         assert in_block == (ngpt <= 1024 and nlay < 1000)
         Ds, wts = angular_discretization(n)
         ds, w = [float(d) for d in Ds], [float(x) for x in wts]
@@ -1494,4 +1528,59 @@ def test_lw_noscat_reduced_angles_reject_what_the_kernel_does_not_take(cuda):
         rte_kernels.lw_noscat_reduced_angles(*args, [1.5], [1.0], inc[:, :-1].contiguous())
     with pytest.raises(ValueError, match="on cpu"):
         rte_kernels.lw_noscat_reduced_angles(*args[:4], args[4].cpu(), args[5], [1.5], [1.0])
+    assert _counts() == {}
+
+
+@pytest.mark.parametrize("nlay", [1, 7, 8, 9, 61])
+def test_lw_2stream_reduced_checkpoints_on_every_chunking(cuda, nlay):
+    """K14 keeps its adding state at one checkpoint level per chunk of
+    LW2_CHUNK layers and replays the chunks top-down: columns shallower than
+    a chunk, one layer short of, exactly and one past a chunk, and 61 layers
+    (a partial top chunk) hold the twin, with and without incident flux,
+    run to run bitwise; with fewer checkpoint levels than the kernel needs
+    the entry point refuses the launch."""
+    k14 = _sweep_case(cuda, 256, 16, 33, nlay)[1]
+    for args in (k14, (*k14[:7], None)):
+        out = rte_kernels.lw_2stream_reduced(*args)
+        assert _rel(out, rte_kernels.lw_2stream_reduced_ref(*args)) <= TOL["lw_2stream_reduced"]
+        assert all(torch.equal(a, b) for a, b in zip(out, rte_kernels.lw_2stream_reduced(*args)))
+    design = rte_kernels.lw_2stream_reduced_design(nlay, 256, cuda)
+    assert design["checkpoints"] == -(-nlay // rte_kernels.LW2_CHUNK) and design["n_groups"] == 1
+
+
+def test_lw_2stream_reduced_refuses_too_few_checkpoints(cuda, monkeypatch):
+    k14 = _sweep_case(cuda, 32, 4, 5, 17)[1]
+    scratch = rte_kernels.lw2_sweep_scratch
+    monkeypatch.setattr(rte_kernels, "lw2_sweep_scratch", lambda *a: tuple(t[:-1] for t in scratch(*a)))
+    with pytest.raises(RuntimeError, match="lw_2stream_reduced: CUDA error"):
+        rte_kernels.lw_2stream_reduced(*k14)
+
+
+def test_aerosol_bands_stage_what_fits_and_refuse_the_rest(cuda):
+    """K5 stages its tables in each block's shared memory: the library's
+    count (rrtmgp_aerosol_bands_smem) is the wrapper's staged_bytes, a block
+    fits the SM at least once, and a lookup of more RH levels than a block's
+    shared memory holds is refused before launch."""
+    from rrtmgp_tpu_torch.ops import _build
+    from rrtmgp_tpu_torch.ops import aerosol_bands as ab
+    from rrtmgp_tpu_torch.ops._launch import smem_limit
+
+    lw, sw, atm, cld, aero, *_ = _allsky_case(cuda, 36, 4, 40, 6)
+    for shape in ((16, 5, 7), (14, 5, 7), (16, 5, 36), (4, 3, 2), (15, 5, 9)):
+        assert _build.library().rrtmgp_aerosol_bands_smem(*shape) == ab.staged_bytes(*shape)
+    lkp = aero[0]
+    design = ab.aerosol_bands_design(lkp, cuda)
+    assert design["blocks_per_sm"] >= 1 and design["staged"] == ab.staged_bytes(
+        lkp.dust.shape[-1], lkp.size_bin_limits.shape[1], lkp.rh_levels.shape[0])
+    nrh, nbnd = 800, lkp.dust.shape[-1]
+    assert ab.staged_bytes(nbnd, lkp.size_bin_limits.shape[1], nrh) > smem_limit(cuda)
+    big = dataclasses.replace(
+        lkp, rh_levels=torch.linspace(0.0, 1.0, nrh, device=cuda),
+        sea_salt=lkp.sea_salt[:, :1].expand(-1, nrh, -1, -1).contiguous(),
+        sulfate=lkp.sulfate[:, :1].expand(-1, nrh, -1).contiguous(),
+        black_carbon_rh=lkp.black_carbon_rh[:, :1].expand(-1, nrh, -1).contiguous(),
+        organic_carbon_rh=lkp.organic_carbon_rh[:, :1].expand(-1, nrh, -1).contiguous())
+    mega.reset_launch_counts()
+    with pytest.raises(ValueError, match="shared memory"):
+        ab.aerosol_bands(big, atm.aerosol_state, atm.rel_hum)
     assert _counts() == {}

@@ -65,7 +65,7 @@ from rrtmgp_tpu.ops import rte as jrte
 from rrtmgp_tpu_torch.data.synthetic import synthetic_atmosphere, synthetic_gas_lookup
 from rrtmgp_tpu_torch.ops import _build, _launch, interp, rte_kernels
 from rrtmgp_tpu_torch.ops.mega_inputs import mega_lw_inputs, mega_sw_inputs
-from rrtmgp_tpu_torch.ops.rte import sw_2stream_coeffs
+from rrtmgp_tpu_torch.ops.rte import lw_2stream_coeffs, round_to, sw_2stream_coeffs
 
 # ---------------------------------------------------------------------------
 # sw_2stream_reduced: the three-pass design against the four-array passes
@@ -556,13 +556,16 @@ def test_banded_plan_counts_two_fields_per_angle(monkeypatch, n_angles):
     256 g-points one angle's sums (2 x 2001 x 8 floats, 128 KB) still fit
     the block, two angles' or more do not and go to device memory, one (2
     x nang, nlev, ncol, warps) buffer; at 3700 layers every angle count
-    does."""
-    monkeypatch.setattr(rte_kernels, "smem_limit", lambda dev: H100_OPTIN)
+    does. The plan asks for the kernel's block limit of its angle count
+    (1024 here, as both kernels have on an H100)."""
+    monkeypatch.setattr(_launch, "smem_limit", lambda dev: H100_OPTIN)
+    monkeypatch.setattr(_launch, "max_threads", lambda kernel, dev, variant=0: 1024)
     cpu = torch.device("cpu")
-    assert rte_kernels.angles_plan(n_angles, 60, 5, 256, cpu) == ((256, 1, 1), None)
+    for kernel in ("lw_noscat_banded", "lw_noscat_reduced"):
+        assert rte_kernels.angles_plan(kernel, n_angles, 60, 5, 256, cpu) == ((256, 1, 1), None)
     for nlay, in_block in ((2000, n_angles == 1), (3700, False)):
         assert (2 * n_angles * (nlay + 1) * 8 * 4 <= H100_OPTIN) == in_block
-        groups, partials = rte_kernels.angles_plan(n_angles, nlay, 3, 256, cpu)
+        groups, partials = rte_kernels.angles_plan("lw_noscat_banded", n_angles, nlay, 3, 256, cpu)
         assert groups == (256, 1, int(in_block)), (nlay, n_angles)
         if in_block:
             assert partials is None
@@ -847,3 +850,318 @@ def test_sources_angles_hold_jax_per_angle_sum(n_angles, with_inc):
     for o, r in zip(out, (ref_up, ref_dn)):
         assert o.shape == (7, 12)
         np.testing.assert_allclose(o.numpy(), r, rtol=2e-5, atol=1e-3)
+
+
+# ---------------------------------------------------------------------------
+# lw_2stream_reduced: the adding state checkpointed and replayed by chunks
+# ---------------------------------------------------------------------------
+
+
+def _lw2_inputs(dtype, nlay, ncol=9, ngpt=20, nbnd=4, seed=21):
+    rng = np.random.default_rng(seed)
+    u = lambda lo, hi, *shape: torch.from_numpy(rng.uniform(lo, hi, shape)).to(dtype)
+    tau = u(0.01, 3.0, nlay, ncol, ngpt)
+    tau[0, :, :3] = 1e-8  # below the Toon threshold: no layer source
+    return dict(tau=tau, ssa=u(0.0, 0.9, nlay, ncol, ngpt), g=u(0.0, 0.8, nlay, ncol, ngpt),
+                lev=u(5.0, 80.0, nlay + 1, ncol, ngpt), sfc=u(20.0, 120.0, ncol, ngpt),
+                emis=u(0.9, 1.0, nbnd, ncol),
+                gpt2band=torch.from_numpy((np.arange(ngpt) * nbnd // ngpt).astype(np.int32)),
+                inc=u(0.0, 30.0, ncol, ngpt))
+
+
+def _lw2_coeffs(x, l):
+    return lw_2stream_coeffs(x["tau"][l], x["ssa"][l], x["g"][l], x["lev"][l], x["lev"][l + 1])
+
+
+def _lw2_surface(x):
+    emis = x["emis"].T[:, x["gpt2band"].long()]
+    pi = round_to(np.pi, x["tau"].dtype)
+    return 1.0 - emis, pi * emis * x["sfc"]
+
+
+def _lw2_two_passes(x, inc):
+    """The parent's K14: bottom-up adding with the albedo and source below
+    every layer stored; top-down flux with the coefficients and the
+    denominator computed again. Per g-point (up, down), (nlev, ncol, ngpt)."""
+    nlay = x["tau"].shape[0]
+    alb, src = _lw2_surface(x)
+    s_alb, s_src = [None] * nlay, [None] * nlay
+    for l in range(nlay):
+        Rdif, Tdif, src_up, src_dn = _lw2_coeffs(x, l)
+        denom = 1.0 / (1.0 - Rdif * alb)
+        s_alb[l], s_src[l] = alb, src
+        alb_n = Rdif + Tdif * Tdif * alb * denom
+        src_n = src_up + Tdif * denom * (src + alb * src_dn)
+        alb, src = alb_n, src_n
+    fd = torch.zeros_like(alb) if inc is None else inc
+    up, dn = [None] * (nlay + 1), [None] * (nlay + 1)
+    up[nlay], dn[nlay] = alb * fd + src, fd
+    for l in range(nlay - 1, -1, -1):
+        Rdif, Tdif, src_up, src_dn = _lw2_coeffs(x, l)
+        denom = 1.0 / (1.0 - Rdif * s_alb[l])
+        fd = (Tdif * denom) * fd + denom * (Rdif * s_src[l] + src_dn)
+        up[l], dn[l] = s_alb[l] * fd + s_src[l], fd
+    return torch.stack(up), torch.stack(dn)
+
+
+def _lw2_checkpoints(x, inc, chunk):
+    """K14's design: the bottom-up pass stores (alb, src) at the bottom of
+    each chunk of ``chunk`` layers only and ends holding the top chunk's
+    state; the top-down pass replays each lower chunk from its checkpoint
+    (the same expressions), keeping per layer alb, src, td = Tdif * denom
+    and sc = denom * (Rdif * src + src_dn) (the kernel: in shared memory),
+    then folds the flux through them. Same result layout as
+    ``_lw2_two_passes``."""
+    nlay = x["tau"].shape[0]
+    nchunk = -(-nlay // chunk)
+
+    def chunk_up(k, alb, src):
+        state = {}
+        for l in range(k * chunk, min((k + 1) * chunk, nlay)):
+            Rdif, Tdif, src_up, src_dn = _lw2_coeffs(x, l)
+            denom = 1.0 / (1.0 - Rdif * alb)
+            state[l] = (alb, src, Tdif * denom, denom * (Rdif * src + src_dn))
+            alb_n = Rdif + Tdif * Tdif * alb * denom
+            src_n = src_up + Tdif * denom * (src + alb * src_dn)
+            alb, src = alb_n, src_n
+        return alb, src, state
+
+    alb, src = _lw2_surface(x)
+    checkpoints, state = [], {}
+    for k in range(nchunk):
+        checkpoints.append((alb, src))
+        alb, src, state = chunk_up(k, alb, src)
+    fd = torch.zeros_like(alb) if inc is None else inc
+    up, dn = [None] * (nlay + 1), [None] * (nlay + 1)
+    up[nlay], dn[nlay] = alb * fd + src, fd
+    for k in range(nchunk - 1, -1, -1):
+        if k < nchunk - 1:
+            state = chunk_up(k, *checkpoints[k])[2]
+        for l in range(min((k + 1) * chunk, nlay) - 1, k * chunk - 1, -1):
+            alb_l, src_l, td, sc = state[l]
+            fd = td * fd + sc
+            up[l], dn[l] = alb_l * fd + src_l, fd
+    return torch.stack(up), torch.stack(dn)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("chunk", [4, 8])
+@pytest.mark.parametrize("nlay", [1, 3, 8, 13])
+@pytest.mark.parametrize("with_inc", [False, True])
+def test_lw2_checkpoints_equal_the_two_passes_bit_for_bit(dtype, chunk, nlay, with_inc):
+    """Replaying each chunk's adding recurrence from its checkpoint gives the
+    bits of storing every layer's albedo and source, per g-point: columns
+    shallower than a chunk, a partial top chunk (3, 13 layers) and whole
+    chunks (8), with and without incident flux."""
+    x = _lw2_inputs(dtype, nlay)
+    inc = x["inc"] if with_inc else None
+    for a, b in zip(_lw2_checkpoints(x, inc, chunk), _lw2_two_passes(x, inc)):
+        torch.testing.assert_close(a, b, rtol=0.0, atol=0.0)
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.float64, 1e-12)])
+def test_lw2_checkpoints_hold_the_twin(dtype, tol):
+    """Summed over g-points, the checkpoint model agrees with
+    lw_2stream_reduced_ref (what chip_smoke.py holds the kernel against),
+    with and without incident flux."""
+    x = _lw2_inputs(dtype, 13, seed=22)
+    for inc in (x["inc"], None):
+        out = tuple(f.sum(-1) for f in _lw2_checkpoints(x, inc, rte_kernels.LW2_CHUNK))
+        ref = rte_kernels.lw_2stream_reduced_ref(x["tau"], x["ssa"], x["g"], x["lev"], x["sfc"], x["emis"],
+                                                 x["gpt2band"], inc)
+        assert _rel(out, ref) <= tol
+
+
+@pytest.mark.parametrize("with_inc", [False, True])
+def test_lw2_checkpoints_hold_jax_lw_2stream(with_inc):
+    """The checkpoint model at 8 layers (chunks of 4: a replayed chunk and
+    the top one) summed over g-points against the JAX
+    lw_2stream_pallas_reduced (its Pallas kernel in interpret mode, 16
+    columns in blocks of 8) and ops.rte.lw_2stream summed: rtol 2e-5 / atol
+    1e-3, as tests/test_torch_sweeps.py holds K14's twin."""
+    from rrtmgp_tpu.ops import pallas_rte as jprte
+
+    x = _lw2_inputs(torch.float32, 8, ncol=16, ngpt=32, seed=23)
+    inc = x["inc"] if with_inc else None
+    out = tuple(f.sum(-1) for f in _lw2_checkpoints(x, inc, 4))
+    J = lambda t: jnp.asarray(t.numpy())
+    emis = x["emis"].T[:, x["gpt2band"].long()].contiguous()
+    jargs = (J(x["tau"]), J(x["ssa"]), J(x["g"]), J(x["lev"]), J(x["sfc"]), J(emis), None if inc is None else J(inc))
+    pal = jprte.lw_2stream_pallas_reduced(*jargs, block_cols=8)
+    xla = tuple(jnp.sum(f, -1) for f in jrte.lw_2stream(*jargs))
+    for o, p, r in zip(out, pal, xla):
+        np.testing.assert_allclose(o.numpy(), np.asarray(p), rtol=2e-5, atol=1e-3)
+        np.testing.assert_allclose(o.numpy(), np.asarray(r), rtol=2e-5, atol=1e-3)
+
+
+@pytest.mark.parametrize("nlay", [1, 7, 8, 9, 60, 61, 800])
+def test_lw2_sweep_scratch_is_one_checkpoint_level_per_chunk(nlay):
+    """lw_2stream_reduced's scratch: two distinct (ceil(nlay / LW2_CHUNK),
+    ncol, ngpt) f32 arrays, the albedo and the source at the bottom of each
+    chunk, in place of two (nlay, ncol, ngpt) arrays: at 60 layers and
+    chunks of 8, 8 levels against 60."""
+    scratch = rte_kernels.lw2_sweep_scratch(nlay, 5, 7, "cpu")
+    assert len(scratch) == 2 and scratch[0].data_ptr() != scratch[1].data_ptr()
+    for t in scratch:
+        assert t.shape == (-(-nlay // rte_kernels.LW2_CHUNK), 5, 7) and t.dtype == torch.float32
+    source = (_build.CSRC / "lw_2stream_reduced.cu").read_text()
+    assert f"constexpr int LW2_CHUNK = {rte_kernels.LW2_CHUNK};" in source
+    assert "sizeof(float) * 4 * LW2_CHUNK * (size_t)group" in source
+    assert rte_kernels.LW2_STATE_BYTES == 4 * 4 * rte_kernels.LW2_CHUNK
+
+
+# ---------------------------------------------------------------------------
+# aerosol_bands: the tables staged as records in shared memory
+# ---------------------------------------------------------------------------
+
+_AERO_TABLES = ("dust", "sea_salt", "sulfate", "black_carbon_rh", "organic_carbon_rh", "black_carbon",
+                "organic_carbon")
+
+
+def _aero_case(seed=31, nlay=6, ncol=40):
+    from rrtmgp_tpu_torch import AllSkyRadiation, lookup_tables
+    from rrtmgp_tpu_torch.states import AerosolState
+
+    L = lookup_tables(AllSkyRadiation(aerosol_radiation=True), dtype=torch.float32, device="cpu")
+    lkp = L.lookup_lw_aero
+    lo, hi = lkp.size_bin_limits[0].numpy(), lkp.size_bin_limits[1].numpy()
+    rng = np.random.default_rng(seed)
+    mass = rng.uniform(-0.2, 1.0, (15, nlay, ncol)).astype(np.float32)  # some species absent (<= 0)
+    size = rng.uniform(lo.min() * 0.5, hi.max() * 1.5, (15, nlay, ncol)).astype(np.float32)  # some off every bin
+    rh = rng.uniform(-0.1, 1.1, (nlay, ncol)).astype(np.float32)  # some below and above the RH grid
+    aero = AerosolState(aero_size=torch.from_numpy(size), aero_mass=torch.from_numpy(mass))
+    return L, aero, torch.from_numpy(rh)
+
+
+def _staged_records(lkp):
+    """The staged tables as csrc/aerosol_bands.cu lays them out (AeroLayout):
+    bin limits, RH levels, then each table's records of nbnd (ext, ssa,
+    asy) triples ``record_stride`` words apart. Returns the words and the
+    first word of each table's records."""
+    from rrtmgp_tpu_torch.ops import aerosol_bands as ab
+
+    nbnd, nbin = lkp.dust.shape[-1], lkp.size_bin_limits.shape[1]
+    S = ab.record_stride(nbnd)
+    words = [lkp.size_bin_limits.reshape(-1), lkp.rh_levels]
+    first, at = {}, 2 * nbin + lkp.rh_levels.shape[0]
+    for name in _AERO_TABLES:
+        t = getattr(lkp, name)
+        recs = t.reshape(3, -1, nbnd).permute(1, 2, 0).reshape(-1, 3 * nbnd)  # (records, nbnd x 3)
+        padded = torch.zeros(recs.shape[0], S)
+        padded[:, :3 * nbnd] = recs
+        first[name], at = at, at + padded.numel()
+        words.append(padded.reshape(-1))
+    return torch.cat(words), first
+
+
+def _aero_rows(lkp, aero, rh, read, active=None):
+    """Per-(layer, column) band sums in the kernel's order: per band dust,
+    sea salt, sulfate, BC-RH, OC-RH, BC, OC, each from ``read(table, record,
+    band, value)``: the parent's gathers from the tables or the staged
+    records; a species not in ``active`` (all when None) is skipped.
+    Returns (tau, tau*ssa, tau*ssa*g), each (nlay, nbnd, ncol)."""
+    nbnd, nbin, nrh = lkp.dust.shape[-1], lkp.size_bin_limits.shape[1], lkp.rh_levels.shape[0]
+    levels = lkp.rh_levels
+    lo, hi = lkp.size_bin_limits
+    r = rh
+    loc = torch.clamp((levels[:, None, None] <= r).sum(0) - 1, 0, nrh - 2)
+    lev0, lev1 = levels[loc], levels[loc + 1]
+    fac = torch.clamp((r - lev0) / (lev1 - lev0), 0.0, 1.0)
+    omf = 1.0 - fac
+
+    def size_bin(sz):
+        inside = (sz[..., None] >= lo) & (sz[..., None] <= hi)
+        return torch.where(inside.any(-1), torch.argmax(inside.to(torch.uint8), -1), nbin - 1)
+
+    out = [torch.zeros(rh.shape[0], nbnd, rh.shape[1]) for _ in range(3)]
+    mass, size = aero.aero_mass, aero.aero_size
+    on = [active is None or i in active for i in range(15)]
+    for b in range(nbnd):
+        t = ts = tsg = torch.zeros_like(r)
+
+        def add(m, v):
+            nonlocal t, ts, tsg
+            if m is None:
+                return
+            tt = torch.where(m > 0.0, m * v[0], 0.0)
+            tts = tt * v[1]
+            t, ts, tsg = t + tt, ts + tts, tsg + tts * v[2]
+
+        interp = lambda name, rec0, rec1: [read(name, rec0, b, q) * omf + read(name, rec1, b, q) * fac
+                                           for q in range(3)]
+        m_of = lambda i: mass[i] if on[i] else None
+        for i in (0, 7, 8, 9, 10):
+            add(m_of(i), [read("dust", size_bin(size[i]), b, q) for q in range(3)])
+        for i in (1, 11, 12, 13, 14):
+            sb = size_bin(size[i])
+            add(m_of(i), interp("sea_salt", loc * nbin + sb, (loc + 1) * nbin + sb))
+        for name, i in (("sulfate", 2), ("black_carbon_rh", 3), ("organic_carbon_rh", 5)):
+            add(m_of(i), interp(name, loc, loc + 1))
+        for name, i in (("black_carbon", 4), ("organic_carbon", 6)):
+            add(m_of(i), [read(name, torch.zeros_like(loc), b, q) for q in range(3)])
+        for o, v in zip(out, (t, ts, tsg)):
+            o[:, b] = v
+    return tuple(out)
+
+
+@pytest.mark.parametrize("active", [None, (0, 2, 4, 11), (6,)])
+def test_staged_aerosol_records_equal_the_table_gathers_bit_for_bit(active):
+    """Read from the staged records (one word offset per record, band at 3 b,
+    value q at + q) the band sums are those of reading the (3, ..., nbnd)
+    tables, the parent's gathers, bit for bit, with every species active
+    (the kernel's instance without a test per species) and with a subset;
+    and both hold the twin aerosol_bands_ref (chip_smoke.py's 1e-6)."""
+    from rrtmgp_tpu_torch.ops import aerosol_bands as ab
+
+    L, aero, rh = _aero_case()
+    for lkp in (L.lookup_lw_aero, L.lookup_sw_aero):
+        nbnd = lkp.dust.shape[-1]
+        words, first = _staged_records(lkp)
+        S = ab.record_stride(nbnd)
+        staged = _aero_rows(lkp, aero, rh, lambda name, rec, b, q: words[first[name] + rec * S + 3 * b + q],
+                            active)
+        tables = {name: getattr(lkp, name).reshape(3, -1, nbnd) for name in _AERO_TABLES}
+        gathered = _aero_rows(lkp, aero, rh, lambda name, rec, b, q: tables[name][q, rec, b], active)
+        for a, b in zip(staged, gathered):
+            torch.testing.assert_close(a, b, rtol=0.0, atol=0.0)
+        assert _rel(staged, ab.aerosol_bands_ref(lkp, aero, rh, active)) <= 1e-6
+
+
+@pytest.mark.parametrize("nbnd,nbin,nrh", [(16, 5, 7), (14, 5, 7), (16, 5, 36), (1, 1, 2), (15, 3, 4)])
+def test_staged_bytes_count_the_records(nbnd, nbin, nrh):
+    """``staged_bytes`` (the wrapper's check against the device's limit) is
+    the bin limits, the RH levels and nbin + nrh nbin + 3 nrh + 2 records
+    of an odd stride >= 3 nbnd; with the synthetic tables it is the size of
+    the staged words, and the records of any 32 distinct (RH level, bin)
+    fall in 32 distinct banks."""
+    from rrtmgp_tpu_torch.ops import aerosol_bands as ab
+
+    S = ab.record_stride(nbnd)
+    assert S % 2 == 1 and 3 * nbnd <= S <= 3 * nbnd + 1
+    records = nbin + nrh * nbin + 3 * nrh + 2
+    assert ab.staged_bytes(nbnd, nbin, nrh) == 4 * (2 * nbin + nrh + records * S)
+    assert len({(r * S) % 32 for r in range(32)}) == 32
+    L, _, _ = _aero_case()
+    for lkp in (L.lookup_lw_aero, L.lookup_sw_aero):
+        words, _ = _staged_records(lkp)
+        shape = (lkp.dust.shape[-1], lkp.size_bin_limits.shape[1], lkp.rh_levels.shape[0])
+        assert ab.staged_bytes(*shape) == 4 * words.numel() <= 48 * 1024
+    source = (_build.CSRC / "aerosol_bands.cu").read_text()
+    assert "stride = 3 * nbnd | 1;" in source
+    assert ab.staged_bytes(16, 5, 36) == 58004  # a MERRA-sized lookup (36 RH levels) fits a block
+
+
+def test_every_planned_kernel_has_a_block_limit_query():
+    """Each kernel name the wrappers plan with (``kernel_plan`` /
+    ``max_threads`` in ops/) is one that the C entry point
+    ``rrtmgp_max_threads`` (csrc/errors.cu) answers, and every one it
+    answers is planned."""
+    import pathlib
+
+    ops = pathlib.Path(rte_kernels.__file__).parent
+    planned = set()
+    for p in ops.glob("*.py"):
+        planned |= set(re.findall(r'(?:kernel_plan|max_threads|_plan|_groups|angles_plan)\(\s*"(\w+)"', p.read_text()))
+    table = set(re.findall(r'\{"(\w+)", \w+_max_threads\}', (_build.CSRC / "errors.cu").read_text()))
+    assert planned == table
+    assert {"lw2_mega", "sw_clear_mega", "lw_clear_mega", "lw_2stream_reduced"} <= table

@@ -6,7 +6,11 @@
   of at most 1024 threads;
 - the groups cover every g-point once;
 - a grouped launch's buffers are the level partials, one slot per warp of a
-  column, and the cover counts, one per block.
+  column, and the cover counts, one per block;
+- a kernel whose registers allow fewer threads a block than 1024
+  (``max_threads``, cudaFuncAttributes.maxThreadsPerBlock on the card)
+  gets groups of at most that many threads: 1000 g-points at a limit of 800
+  are two blocks of 512, never one block the card refuses to launch.
 
 That the kernels write and add the partials in warp order, the bits of the
 in-block sums, shows only on a GPU (tests/test_torch_cuda.py at 1100
@@ -111,3 +115,80 @@ def test_every_depth_and_gpoint_count_gets_a_plan(ngpt, nlay):
                                  <= H100_OPTIN)
         assert plan.in_block or (L.level_partials(plan, fields, nlay + 1, 1, torch.float32, torch.device("meta"))
                                  .shape == (fields, nlay + 1, 1, plan.n_groups * plan.group // 32))
+
+
+# The plan with the kernel's block limit (``max_threads``): on the card the
+# wrappers read cudaFuncAttributes.maxThreadsPerBlock of the instance they
+# launch, the smaller of its in-block and split variants.
+LIMITS = (1024, 896, 800, 512, 64)
+
+
+def test_1000_gpoints_at_a_limit_of_800_are_two_blocks_of_512():
+    assert L.gpoint_plan(1000, max_threads=800) == L.LaunchPlan(512, 2, False)
+    assert L.gpoint_plan(1000, 60, 2, 4, 128, H100_OPTIN, 800) == L.LaunchPlan(512, 2, False)
+    assert L.gpoint_plan(1000, max_threads=1024) == L.gpoint_plan(1000) == L.LaunchPlan(1024, 1, True)
+
+
+@pytest.mark.parametrize("limit", LIMITS)
+@pytest.mark.parametrize("ngpt", NGPTS)
+def test_groups_of_a_limit_cover_every_gpoint_once(ngpt, limit):
+    plan = L.gpoint_plan(ngpt, max_threads=limit)
+    assert plan.group % 32 == 0 and 32 <= plan.group <= limit
+    assert plan.n_groups == -(-ngpt // limit)
+    covered = [b * plan.group + t for b in range(plan.n_groups) for t in range(plan.group)
+               if b * plan.group + t < ngpt]
+    assert covered == list(range(ngpt))
+    assert (plan.n_groups - 1) * plan.group < ngpt
+
+
+@pytest.mark.parametrize("limit", LIMITS)
+@pytest.mark.parametrize("ngpt", NGPTS)
+def test_a_column_over_several_blocks_never_sums_in_the_block(ngpt, limit):
+    for nlay in (1, 60, 800):
+        plan = L.gpoint_plan(ngpt, nlay, 2, 4, 128, H100_OPTIN, limit)
+        assert plan.group <= limit
+        if plan.n_groups > 1:
+            assert not plan.in_block
+        part = L.level_partials(plan, 2, nlay + 1, 3, torch.float32, torch.device("meta"))
+        assert (part is None) == plan.in_block
+
+
+@pytest.mark.parametrize("ngpt", (224, 256))
+def test_the_main_paths_plan_as_before_under_every_limit_above_them(ngpt):
+    for limit in (1024, 896, 800, 512, 256):
+        assert L.gpoint_plan(ngpt, 60, 3, 4, 128, H100_OPTIN, limit) == L.gpoint_plan(ngpt, 60, 3, 4, 128, H100_OPTIN)
+
+
+def test_a_limit_below_one_warp_is_refused():
+    assert L.gpoint_plan(100, max_threads=63) == L.gpoint_plan(100, max_threads=32)
+    with pytest.raises(ValueError, match="no warp"):
+        L.gpoint_plan(100, max_threads=31)
+
+
+def test_kernel_plan_asks_the_kernels_limit_and_records_it(monkeypatch):
+    """The wrappers plan through ``kernel_plan``: the block limit of the
+    kernel's instance and the device's shared-memory limit, and the plan is
+    recorded with the limit (what chip_smoke.py prints)."""
+    asked = []
+    monkeypatch.setattr(L, "max_threads", lambda kernel, dev, variant=0: asked.append((kernel, variant)) or 800)
+    monkeypatch.setattr(L, "smem_limit", lambda dev: H100_OPTIN)
+    plan = L.kernel_plan("lw2_mega", torch.device("cpu"), 1000, 60, 2, 4, 128, variant=6)
+    assert plan == L.LaunchPlan(512, 2, False) and asked == [("lw2_mega", 6)]
+    assert L.LAST_PLANS["lw2_mega"] == (plan, 800)
+    assert L.kernel_plan("lw2_mega", torch.device("cpu"), 256, 60, 2, 4, 128) == L.LaunchPlan(256, 1, True)
+
+
+def test_per_thread_bytes_count_against_the_limit():
+    """A kernel that keeps ``per_thread`` bytes of shared memory for each
+    thread (lw_2stream_reduced's chunk state) counts them for its group:
+    its level sums leave the block one layer earlier than without, and a
+    block whose own bytes pass the limit is refused."""
+    per = 128
+    deepest = _max_in_block_nlay(256, 2, 4, per * 256, H100_OPTIN)
+    assert L.gpoint_plan(256, deepest, 2, 4, 0, H100_OPTIN, per_thread=per).in_block
+    assert not L.gpoint_plan(256, deepest + 1, 2, 4, 0, H100_OPTIN, per_thread=per).in_block
+    assert L.gpoint_plan(256, deepest + 1, 2, 4, 0, H100_OPTIN).in_block
+    big = L.gpoint_plan(1000, 60, 2, 4, 0, H100_OPTIN, per_thread=per)
+    assert big == L.LaunchPlan(1024, 1, True) and per * 1024 + L.in_block_bytes(1024, 60, 2, 4) <= H100_OPTIN
+    with pytest.raises(ValueError, match="staged"):
+        L.gpoint_plan(256, 60, 2, 4, 0, H100_OPTIN, per_thread=H100_OPTIN // 200)
