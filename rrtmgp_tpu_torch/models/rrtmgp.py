@@ -101,7 +101,7 @@ from ..ops.mega import (
     lw2_mega,
     lw_clear_mega,
     mcica_mask_export,
-    planck_band,
+    planck_band_sets,
     sw_clear_mega,
 )
 from ..ops.mega_inputs import mega_lw_inputs, mega_sw_inputs
@@ -474,20 +474,21 @@ def solve_lw(
     if impl == "kernel":
         tabs = lkp.kernel_tables
         inp = mega_lw_inputs(lkp, as_, eta_node_mode)
-        plk = lambda t: planck_band(
-            t.reshape(-1), lkp.totplnk, lkp.t_planck_min, lkp.t_planck_delta
+        # every temperature set of the solve in one launch
+        plk = lambda *ts: planck_band_sets(
+            tuple(t.reshape(-1) for t in ts), lkp.totplnk, lkp.t_planck_min, lkp.t_planck_delta
         )
         comp, _, _ = _kernel_composition(
             lkp, as_, lkp_cld, lkp_aero, cld_mask, cld_mask_seed, col_offset, aero_species,
             delta_scaling=False, collect_aod=False,
         )
         if two_stream:
-            out = lw2_mega(inp, tabs, plk(as_.t_lev), plk(as_.t_sfc), bcs.sfc_emis, bcs.inc_flux, comp)
+            out = lw2_mega(inp, tabs, *plk(as_.t_lev, as_.t_sfc), bcs.sfc_emis, bcs.inc_flux, comp)
             flux_up, flux_dn = out[0], out[1]
         else:
             # one launch per angle; in seed mode every angle draws the same
             # mask (same seed and offset) and the cover is taken once
-            plk_lay, plk_lev, plk_sfc = plk(as_.t_lay), plk(as_.t_lev), plk(as_.t_sfc)
+            plk_lay, plk_lev, plk_sfc = plk(as_.t_lay, as_.t_lev, as_.t_sfc)
             flux_up, flux_dn, out = noscat_angles(lambda ds, w, inc_k: lw_clear_mega(
                 inp, tabs, plk_lay, plk_lev, plk_sfc, bcs.sfc_emis, inc_k, ds, w, comp))
         cover = out[2] if comp.seeded else None

@@ -33,6 +33,11 @@ NVCC_FLAGS = (
 _P, _I, _U, _L, _F, _D = (ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_longlong, ctypes.c_float,
                           ctypes.c_double)
 #: C entry points: name -> argtypes. Each returns a cudaError_t as int. The
+#: band Planck entries take the table, three temperature sets (pointers in,
+#: pointers out, sizes; null and 0 where unused), the sets plan
+#: (``ops/_launch.py`` ``sets_plan``: the first block of sets 1 and 2, the
+#: grid, the points a block covers), nbnd, n_t, t_min, t_delta and the
+#: stream. The
 #: kernels of one thread per g-point take their launch plan
 #: (``ops/_launch.py``): (group, n_groups, in_block) after their dims (the
 #: per-g-point sweeps, which have no level sums, (group, n_groups)), and a
@@ -53,8 +58,8 @@ _P, _I, _U, _L, _F, _D = (ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c
 #: column tile, group, n_groups, stream), interp_minor with optics_fused's 7
 #: dims, n_minor, column tile, group, n_groups and the stream.
 SIGNATURES = {
-    "rrtmgp_planck_band": [_P, _P, _P, _L, _I, _I, _F, _F, _P],
-    "rrtmgp_planck_band_f64": [_P, _P, _P, _L, _I, _I, _D, _D, _P],
+    "rrtmgp_planck_band": [_P] * 7 + [_I] * 9 + [_F, _F, _P],
+    "rrtmgp_planck_band_f64": [_P] * 7 + [_I] * 9 + [_D, _D, _P],
     "rrtmgp_lw_clear_mega": [_P] * 42 + [_I] * 11 + [_U, _U, _L, _I, _I, _I, _F, _F, _P],
     "rrtmgp_lw_clear_mega_f64": [_P] * 31 + [_I] * 11 + [_D, _D, _P],
     "rrtmgp_sw_clear_mega": [_P] * 46 + [_I] * 11 + [_U, _U, _L, _I, _I, _I, _P],
@@ -62,7 +67,7 @@ SIGNATURES = {
     "rrtmgp_aerosol_bands": [_P] * 15 + [_I] * 6 + [_P],
     "rrtmgp_mcica_export": [_P] * 3 + [_I] * 5 + [_U, _U, _L, _P],
     "rrtmgp_optics_fused": [_P] * 24 + [_I] * 12 + [_P],
-    "rrtmgp_planck_band_rows": [_P, _P, _P, _L, _I, _I, _F, _F, _P],
+    "rrtmgp_planck_band_rows": [_P] * 7 + [_I] * 9 + [_F, _F, _P],
     "rrtmgp_lw_noscat_banded": [_P] * 11 + [_I] * 8 + [_P, _P, _P],
     "rrtmgp_sw_2stream_reduced": [_P] * 15 + [_I] * 7 + [_P],
     "rrtmgp_lw_noscat_reduced": [_P] * 10 + [_I] * 7 + [_P, _P, _P],

@@ -4,7 +4,9 @@ hands a tensor to a kernel, the checks and pointer lists of the gas-optics
 inputs (``MegaInputs``) and tables (``KernelTables``) that the megakernels
 and the materialized-optics kernel share, and the launch plans of the
 kernels that run one thread per g-point (``gpoint_plan``, sized by the
-kernel's own limit of threads a block, ``max_threads``)."""
+kernel's own limit of threads a block, ``max_threads``), and the plan of the
+band Planck kernel over the temperature sets of one launch
+(``sets_plan``)."""
 
 from __future__ import annotations
 
@@ -257,3 +259,55 @@ def cover_counts(plan: LaunchPlan, ncol: int, seeded: bool, device: torch.device
     if not seeded or plan.in_block:
         return None
     return torch.empty((ncol, plan.n_groups), dtype=torch.int32, device=device)
+
+
+# ---------------------------------------------------------------------------
+# Launch plan of the band Planck kernel over several temperature sets
+# ---------------------------------------------------------------------------
+
+PLANCK_SETS = 3       # temperature sets of one launch (csrc/planck_band.cu kPlanckSets)
+PLANCK_SPAN = 1024    # points a block covers, looping: the table is staged once per block
+POINTS_LIMIT = 2**31  # the kernel indexes a set's points with 32-bit ints
+
+
+class SetsPlan(NamedTuple):
+    """How one launch of ``csrc/planck_band.cu`` covers 1-3 temperature
+    sets: set k owns the blocks ``starts[k]`` to ``starts[k + 1] - 1``, its
+    block ``starts[k] + m`` the points ``m * span`` to ``(m + 1) * span -
+    1`` (the last block fewer). ``starts`` has ``PLANCK_SETS + 1`` entries,
+    the last the grid; a set of 0 points, and every set past those given,
+    owns no block."""
+
+    starts: tuple
+    span: int
+
+    @property
+    def grid(self) -> int:
+        return self.starts[-1]
+
+
+def sets_plan(sizes, span: int = PLANCK_SPAN) -> SetsPlan:
+    """The plan of one launch over sets of ``sizes`` points (1 to
+    ``PLANCK_SETS`` sets, each of 0 to 2^31 - 1 points)."""
+    sizes = list(sizes)
+    if not 1 <= len(sizes) <= PLANCK_SETS:
+        raise ValueError(f"sets_plan: {len(sizes)} sets, one launch takes 1 to {PLANCK_SETS}")
+    if span < 1:
+        raise ValueError(f"sets_plan: span {span}, a block covers 1 point or more")
+    starts = [0]
+    for n in sizes:
+        if not 0 <= n < POINTS_LIMIT:
+            raise ValueError(f"sets_plan: a set of {n} points; the kernel takes 0 to {POINTS_LIMIT - 1}")
+        starts.append(starts[-1] + -(-n // span))
+    starts += [starts[-1]] * (PLANCK_SETS + 1 - len(starts))
+    if starts[-1] >= POINTS_LIMIT:
+        raise ValueError(f"sets_plan: {starts[-1]} blocks, more than a grid may have")
+    return SetsPlan(tuple(starts), span)
+
+
+def block_points(plan: SetsPlan, sizes, block: int) -> tuple[int, range]:
+    """The set and the points of block ``block``, as the kernel finds them
+    (``planck_block``): the last set that starts at or before the block."""
+    k = max(i for i in range(PLANCK_SETS) if plan.starts[i] <= block)
+    first = (block - plan.starts[k]) * plan.span
+    return k, range(first, min(first + plan.span, sizes[k]))

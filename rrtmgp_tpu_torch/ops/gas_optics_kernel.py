@@ -5,8 +5,9 @@ path. The plain-torch prologue (``ops.mega_inputs``, the inputs the
 megakernels read) feeds ``ops.interp.optics_fused``, or with ``fused=False``
 ``ops.interp.optics_unfused`` (the table interpolation and minor-gas
 kernels, the JAX package's ``pallas_windowed="off"`` optics; the same values
-bit for bit); LW adds the band Planck values in row layout
-(``ops.interp.planck_band_rows``). ``gas_optics_lw_raw``
+bit for bit); LW adds the band Planck values in row layout, every
+temperature set in one launch (``ops.interp.planck_band_rows_sets``).
+``gas_optics_lw_raw``
 leaves the sources in banded form for
 ``ops.rte_kernels.lw_noscat_banded_reduced``, so no (nlay, ncol, ngpt) source
 tensor exists; ``gas_optics_lw`` materializes them per g-point for the sweeps
@@ -23,7 +24,7 @@ import torch
 from ..data.lookups import GasLookup
 from ..states import AtmosphericState
 from .gas_optics import LWOptics, SWOptics, planck_sources_from_bands
-from .interp import optics_fused, optics_unfused, planck_band_rows
+from .interp import optics_fused, optics_unfused, planck_band_rows_sets
 from .mega_inputs import mega_lw_inputs, mega_sw_inputs
 
 
@@ -49,14 +50,16 @@ def gas_optics_lw_raw(
     optics = optics_fused if fused else optics_unfused
     tau, pfrac = optics(mega_lw_inputs(lkp, as_, eta_node_mode), lkp.kernel_tables)
     nlay, ncol = as_.nlay, as_.ncol
-    plk = lambda t: planck_band_rows(
-        t.reshape(-1).contiguous(), lkp.totplnk, lkp.t_planck_min, lkp.t_planck_delta
+    # every temperature set in one launch
+    ts = (as_.t_lay, as_.t_lev, as_.t_sfc) if need_lay else (as_.t_lev, as_.t_sfc)
+    *plk_lay, plk_lev, plk_sfc = planck_band_rows_sets(
+        tuple(t.reshape(-1).contiguous() for t in ts), lkp.totplnk, lkp.t_planck_min, lkp.t_planck_delta
     )
     return RawLWOptics(
         tau=tau, pfrac=pfrac,
-        plk_lay=plk(as_.t_lay).reshape(nlay, ncol, -1) if need_lay else None,
-        plk_lev=plk(as_.t_lev).reshape(nlay + 1, ncol, -1),
-        plk_sfc=plk(as_.t_sfc),
+        plk_lay=plk_lay[0].reshape(nlay, ncol, -1) if need_lay else None,
+        plk_lev=plk_lev.reshape(nlay + 1, ncol, -1),
+        plk_sfc=plk_sfc,
     )
 
 

@@ -9,8 +9,10 @@ kernels of the two-kernel path, with their plain torch twins (counterpart of
   one plain definition of the gas optics on those inputs: the megakernels'
   twins (``ops.mega``) call it too.
 - ``planck_band_rows``: band Planck emission (N, nbnd), the band index
-  fastest (replaces ``planck_band_pallas``); ``ops.mega.planck_band`` is the
-  same function with the bands leading.
+  fastest (replaces ``planck_band_pallas``); ``planck_band_rows_sets`` the
+  same for up to three temperature sets in one launch, as a solve calls it;
+  ``ops.mega.planck_band`` / ``planck_band_sets`` are the same function
+  with the bands leading (``planck_sets_launch`` launches both).
 - ``interp_pt_eta``: one table's (pressure, temperature, eta) interpolation
   per (layer, column, g-point), times col_mix when given (replaces
   ``interp_pt_eta`` and ``interp_pt_eta_windowed``: the port reads whole
@@ -35,15 +37,19 @@ import torch
 
 from . import _build
 from ._launch import (
+    PLANCK_SETS,
     check_optics_inputs,
     check_table_size,
     cuda_device,
     gpoint_plan,
+    kernel_dtype,
     kernel_plan,
     max_threads,
     optics_input_ptrs,
     ptr,
     require,
+    sets_plan,
+    smem_limit,
     stream,
     table_ptrs,
 )
@@ -132,32 +138,84 @@ def optics_fused_design(tabs: KernelTables) -> dict:
     return dict(tile=OPTICS_TILE, group=plan.group, n_groups=plan.n_groups, smem=smem, max_threads=most)
 
 
+PLANCK_MAX_BANDS = 256  # a block of the band Planck kernel stages the table with a thread per band or more
+
+
+def planck_staged_bytes(nbnd: int, n_t: int, itemsize: int) -> int:
+    """Shared memory of a band Planck block: the table transposed, (nbnd,
+    n_t) with the row stride made odd (``csrc/planck_band.cu``)."""
+    return nbnd * (n_t | 1) * itemsize
+
+
+def temperature_sets(name: str, ts) -> tuple:
+    """``ts`` as a tuple of 1 to 3 temperature sets; raises otherwise."""
+    ts = tuple(ts)
+    if not 1 <= len(ts) <= PLANCK_SETS:
+        raise ValueError(f"{name}: {len(ts)} temperature sets, one launch takes 1 to {PLANCK_SETS}")
+    return ts
+
+
+def on_cpu(ts) -> bool:
+    """Whether every tensor of ``ts`` lies on the CPU (the wrappers then run
+    their twins)."""
+    return all(t.device.type == "cpu" for t in ts)
+
+
+def planck_sets_launch(name: str, ts, totplnk: torch.Tensor, t_min: float, t_delta: float, rows: bool) -> tuple:
+    """One launch of ``csrc/planck_band.cu`` over the temperature sets ``ts``
+    (1 to 3 CUDA tensors (N_k,)): their band Planck values, (N_k, nbnd)
+    with ``rows`` (f32), else (nbnd, N_k) (f32 or f64). Raises on anything
+    the kernel does not take; the caller counts the launch."""
+    dev = cuda_device(ts[0], name)
+    if any(t.dim() != 1 for t in ts) or totplnk.dim() != 2 or totplnk.shape[0] < 2:
+        raise ValueError(f"{name}: t {[tuple(t.shape) for t in ts]}, totplnk {tuple(totplnk.shape)}")
+    n_t, nbnd = totplnk.shape
+    dtype = torch.float32 if rows else kernel_dtype(ts[0], name)
+    for k, t in enumerate(ts):
+        require(t, "t" if len(ts) == 1 else f"t[{k}]", (t.shape[0],), dtype, dev)
+    require(totplnk, "totplnk", (n_t, nbnd), dtype, dev)
+    if nbnd > PLANCK_MAX_BANDS:
+        raise ValueError(f"{name}: {nbnd} bands, the kernel takes at most {PLANCK_MAX_BANDS}")
+    staged = planck_staged_bytes(nbnd, n_t, totplnk.element_size())
+    if staged > smem_limit(dev):
+        raise ValueError(f"{name}: the table ({n_t} x {nbnd}) takes {staged} bytes of shared memory, more than "
+                         f"a block of {dev} may have ({smem_limit(dev)})")
+    sizes = [t.shape[0] for t in ts]
+    plan = sets_plan(sizes)
+    outs = tuple(torch.empty((n, nbnd) if rows else (nbnd, n), dtype=dtype, device=dev) for n in sizes)
+    pad = PLANCK_SETS - len(ts)
+    lib = _build.library()
+    entry = (lib.rrtmgp_planck_band_rows if rows else
+             lib.rrtmgp_planck_band if dtype == torch.float32 else lib.rrtmgp_planck_band_f64)
+    with torch.cuda.device(dev):
+        err = entry(ptr(totplnk), *map(ptr, ts), *[ptr(None)] * pad, *map(ptr, outs), *[ptr(None)] * pad,
+                    *sizes, *[0] * pad, *plan.starts[1:], plan.span, nbnd, n_t, t_min, t_delta, stream(dev))
+    _build.check(err, name)
+    return outs
+
+
 def planck_band_rows_ref(t: torch.Tensor, totplnk: torch.Tensor, t_min: float, t_delta: float):
     """Plain twin of ``planck_band_rows``: (N, nbnd) band Planck values at
     the temperatures ``t`` (N,)."""
     return planck_bands(totplnk, t, t_min, t_delta)
 
 
-def planck_band_rows(t: torch.Tensor, totplnk: torch.Tensor, t_min: float, t_delta: float):
-    """Band Planck emission (N, nbnd) f32 at temperatures ``t`` (N,), by
-    linear interpolation of ``totplnk`` (n_t, nbnd) on the uniform grid
-    (t_min, t_delta); outside the grid the end values."""
-    if t.device.type == "cpu":
-        return planck_band_rows_ref(t, totplnk, t_min, t_delta)
-    dev = cuda_device(t, "planck_band_rows")
-    if t.dim() != 1 or totplnk.dim() != 2 or totplnk.shape[0] < 2:
-        raise ValueError(f"planck_band_rows: t {tuple(t.shape)}, totplnk {tuple(totplnk.shape)}")
-    n = t.shape[0]
-    n_t, nbnd = totplnk.shape
-    require(t, "t", (n,), torch.float32, dev)
-    require(totplnk, "totplnk", (n_t, nbnd), torch.float32, dev)
-    out = torch.empty((n, nbnd), dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
-        err = _build.library().rrtmgp_planck_band_rows(
-            ptr(t), ptr(totplnk), ptr(out), n, nbnd, n_t, t_min, t_delta, stream(dev))
-    _build.check(err, "planck_band_rows")
+def planck_band_rows_sets(ts, totplnk: torch.Tensor, t_min: float, t_delta: float) -> tuple:
+    """Band Planck emission (N_k, nbnd) f32 at each temperature set ``ts[k]``
+    (N_k,), 1 to 3 sets, in one launch: linear interpolation of ``totplnk``
+    (n_t, nbnd) on the uniform grid (t_min, t_delta); outside the grid the
+    end values. Counts on ``planck_band_rows.launches``."""
+    ts = temperature_sets("planck_band_rows", ts)
+    if on_cpu(ts):
+        return tuple(planck_band_rows_ref(t, totplnk, t_min, t_delta) for t in ts)
+    outs = planck_sets_launch("planck_band_rows", ts, totplnk, t_min, t_delta, rows=True)
     planck_band_rows.launches += 1
-    return out
+    return outs
+
+
+def planck_band_rows(t: torch.Tensor, totplnk: torch.Tensor, t_min: float, t_delta: float):
+    """``planck_band_rows_sets`` of the one set ``t``."""
+    return planck_band_rows_sets((t,), totplnk, t_min, t_delta)[0]
 
 
 planck_band_rows.launches = 0

@@ -16,6 +16,8 @@ order; the count takes one for the call.
 
 - ``planck_band``: band Planck emission, f32 or f64 (replaces
   ``planck_band_pallas_t`` and ``planck_band_windowed``);
+  ``planck_band_sets`` the same for up to three temperature sets in one
+  launch, as a solve calls it;
 - ``lw_clear_mega``: whole LW no-scattering solve for one angle: f32 clear
   or all-sky (replaces ``lw_clear_mega``), f64 clear sky (replaces the
   double-f32 ``lw_noscat_mega_df`` / ``solve_lw_df64`` of
@@ -59,7 +61,16 @@ from ._launch import table_ptrs as _table_ptrs
 from .aerosol_bands import aerosol_bands
 from .cloud_optics import cloud_cover_from_mask, compose_2stream, mcica_sample
 from .gas_optics import gpt2band, planck_bands, planck_sources_from_bands
-from .interp import interp_minor, interp_pt_eta, optics_fused, optics_fused_ref, planck_band_rows
+from .interp import (
+    interp_minor,
+    interp_pt_eta,
+    on_cpu,
+    optics_fused,
+    optics_fused_ref,
+    planck_band_rows,
+    planck_sets_launch,
+    temperature_sets,
+)
 from .mega_inputs import KernelTables, MegaInputs
 from .rte import intensity_to_flux, lw_2stream, lw_noscat, round_to, sw_2stream
 from .rte_kernels import (
@@ -83,28 +94,22 @@ def planck_band_ref(t: torch.Tensor, totplnk: torch.Tensor, t_min: float, t_delt
     return planck_bands(totplnk, t, t_min, t_delta).T.contiguous()
 
 
-def planck_band(t: torch.Tensor, totplnk: torch.Tensor, t_min: float, t_delta: float):
-    """Band Planck emission (nbnd, N) at temperatures ``t`` (N,), by linear
-    interpolation of ``totplnk`` (n_t, nbnd) on the uniform grid
-    (t_min, t_delta)."""
-    if t.device.type == "cpu":
-        return planck_band_ref(t, totplnk, t_min, t_delta)
-    dev = _cuda_device(t, "planck_band")
-    if t.dim() != 1 or totplnk.dim() != 2 or totplnk.shape[0] < 2:
-        raise ValueError(f"planck_band: t {tuple(t.shape)}, totplnk {tuple(totplnk.shape)}")
-    n = t.shape[0]
-    n_t, nbnd = totplnk.shape
-    dtype = _kernel_dtype(t, "planck_band")
-    _require(t, "t", (n,), dtype, dev)
-    _require(totplnk, "totplnk", (n_t, nbnd), dtype, dev)
-    out = torch.empty((nbnd, n), dtype=dtype, device=dev)
-    lib = _build.library()
-    entry = lib.rrtmgp_planck_band if dtype == torch.float32 else lib.rrtmgp_planck_band_f64
-    with torch.cuda.device(dev):
-        err = entry(_ptr(t), _ptr(totplnk), _ptr(out), n, nbnd, n_t, t_min, t_delta, _stream(dev))
-    _build.check(err, "planck_band")
+def planck_band_sets(ts, totplnk: torch.Tensor, t_min: float, t_delta: float) -> tuple:
+    """Band Planck emission (nbnd, N_k) at each temperature set ``ts[k]``
+    (N_k,), 1 to 3 sets, f32 or f64, in one launch: linear interpolation of
+    ``totplnk`` (n_t, nbnd) on the uniform grid (t_min, t_delta). Counts on
+    ``planck_band.launches``."""
+    ts = temperature_sets("planck_band", ts)
+    if on_cpu(ts):
+        return tuple(planck_band_ref(t, totplnk, t_min, t_delta) for t in ts)
+    outs = planck_sets_launch("planck_band", ts, totplnk, t_min, t_delta, rows=False)
     planck_band.launches += 1
-    return out
+    return outs
+
+
+def planck_band(t: torch.Tensor, totplnk: torch.Tensor, t_min: float, t_delta: float):
+    """``planck_band_sets`` of the one set ``t``."""
+    return planck_band_sets((t,), totplnk, t_min, t_delta)[0]
 
 
 planck_band.launches = 0

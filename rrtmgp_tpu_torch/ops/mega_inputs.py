@@ -17,7 +17,7 @@ Two containers:
 The TPU-only structure of the JAX prologue (bf16 hi/lo table splits,
 per-layer table windows and their guards, 128-column padding) has no
 counterpart here. Band Planck values are not part of the inputs: the solves
-launch ``ops.mega.planck_band`` at t_lay, t_lev and t_sfc for LW
+launch ``ops.mega.planck_band_sets`` once, at t_lay, t_lev and t_sfc for LW
 no-scattering, and at t_lev and t_sfc only for LW two-stream (the JAX
 prologue's ``need_lay=False``).
 """

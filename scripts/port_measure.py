@@ -11,6 +11,7 @@ that chip_smoke.py does not print. Run from the repository root:
     python3 scripts/port_measure.py [--root CHECKOUT] sw-mega
     python3 scripts/port_measure.py [--root CHECKOUT] lw2-sweep
     python3 scripts/port_measure.py [--root CHECKOUT] aerosol
+    python3 scripts/port_measure.py [--root CHECKOUT] planck
 
 With no argument it runs the first five. Each line names what it measured; the
 first line is the card's name and power limit. Problem sizes and inputs are
@@ -141,10 +142,27 @@ imports no JAX.
   K14, with the design where the checkout reports it
   (``aerosol_bands.aerosol_bands_design``: staged bytes, blocks an SM) and
   the registers. For ablations and design variants: one checkout each.
+- ``planck``: the band Planck kernels, K3 in f32 and f64 and K11, on the
+  clear cell's three temperature sets (t_lay, t_lev, t_sfc at 32768 x 60:
+  4.0 M points, 256 MB out in f32), as the checkout's solves launch them
+  (one launch for the three sets where the checkout has
+  ``planck_band_sets`` / ``planck_band_rows_sets``, else one per set), 3
+  rounds, the cases taking turns within a round, each the median of 7
+  host-timed synchronized calls and the device time by CUDA events over 20
+  calls back to back; where the checkout's chip_smoke.py has the library
+  yardstick, ``torch.nn.functional.grid_sample`` for the same sets (bands
+  leading a call per set; rows in one call per set and bands leading then
+  transposed) in the same rounds, with its error against the twin; then
+  each kernel case's sha256 and the ``ptxas`` registers of the band Planck
+  kernels. For design variants: one checkout each, in turns with the
+  parent within one call.
 - ``kernel-hashes`` also hashes K5 on the all-sky cell (LW and SW, all
   species and a subset) and K14 with an incident flux, with ssa and g of an
   all-sky composition (8192 columns), at 61 layers, at 1100 and 1000
-  g-points (64 x 12) and at 800 layers (512 columns).
+  g-points (64 x 12) and at 800 layers (512 columns); and K3 (f32 and
+  f64) and K11 on the clear cell's three sets and on three sets of odd
+  sizes whose temperatures lie below the table, on every node, inside the
+  last interval, on the last node and above it.
 """
 
 from __future__ import annotations
@@ -429,7 +447,7 @@ REGISTERS_OF = ("sw_clear_mega_kernel", "lw2_mega_kernelILb0ELb0", "lw2_mega_ker
                 "lw_clear_mega_kernelIdLb0ELb0", "lw_noscat_banded_kernel", "lw_noscat_sources_kernel",
                 "lw_noscat_reduced_kernel", "lw_noscat_gpt_kernel", "lw_2stream_reduced_kernel",
                 "optics_fused_kernel", "interp_pt_eta_kernel", "interp_minor_kernel", "sw_2stream_gpt_kernel",
-                "aerosol_bands_kernel")
+                "aerosol_bands_kernel", "planck_band")
 
 
 def angles_call(multi: str, one: str, head, n: int, inc=None):
@@ -579,6 +597,115 @@ def lw2_sweep_hashes(report) -> None:
     report("lw_2stream_reduced 800 layers", lambda: rte_kernels.lw_2stream_reduced(*k14))
 
 
+def _device_ms(fn, reps: int = 20) -> float:
+    """Milliseconds a call by CUDA events around ``reps`` calls back to
+    back, after one warm-up."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def _planck_calls(lkp, ts):
+    """K3 and K11 over the sets ``ts`` as the checkout's solves launch them:
+    one launch where it has the sets wrappers, else one per set."""
+    from rrtmgp_tpu_torch.ops import interp, mega
+
+    tab = (lkp.totplnk, lkp.t_planck_min, lkp.t_planck_delta)
+    calls = {}
+    for name, one, many in (("planck_band", mega.planck_band, "planck_band_sets"),
+                            ("planck_band_rows", interp.planck_band_rows, "planck_band_rows_sets")):
+        if hasattr(mega if name == "planck_band" else interp, many):
+            fn = getattr(mega if name == "planck_band" else interp, many)
+            calls[name] = lambda fn=fn: fn(tuple(ts), *tab)
+        else:
+            calls[name] = lambda one=one: tuple(one(t, *tab) for t in ts)
+    return calls
+
+
+def _edge_temperatures(lkp, sizes=(257, 4099, 1)):
+    """Three sets of odd sizes: below the table, every node, inside the last
+    interval, the last node, above it, and uniform draws across and beyond
+    the table (numpy seed 9)."""
+    import numpy as np
+    import torch
+
+    n_t = lkp.totplnk.shape[0]
+    t_min, dt = float(lkp.t_planck_min), float(lkp.t_planck_delta)
+    t_max = t_min + (n_t - 1) * dt
+    edges = [t_min - 50.0, t_min - 1e-3, *(t_min + k * dt for k in range(n_t)), t_max - 0.5 * dt, t_max - 1e-3,
+             t_max + 1e-3, t_max + 50.0]
+    rng = np.random.default_rng(9)
+    t = np.concatenate([edges, rng.uniform(t_min - 30.0, t_max + 30.0, sum(sizes) - len(edges))])
+    t = torch.from_numpy(t).to(dtype=lkp.totplnk.dtype, device=lkp.totplnk.device)
+    return list(torch.split(t, list(sizes)))
+
+
+def planck() -> None:
+    import torch
+
+    from rrtmgp_tpu_torch.ops import _build
+
+    cases = []
+    for kind in ("float32", "float64"):
+        lw = cs.lookups(256, 16, 224, 14, kind)[0]
+        atm = cs.atmosphere(cs.NCOL, cs.NLAY, kind)
+        ts = [t.reshape(-1) for t in (atm.t_lay, atm.t_lev, atm.t_sfc)]
+        calls = _planck_calls(lw, ts)
+        tab = (lw.totplnk, lw.t_planck_min, lw.t_planck_delta)
+        tag = "f32" if kind == "float32" else "f64"
+        cases.append((f"planck_band {tag} (K3), 3 sets", calls["planck_band"], None))
+        if kind == "float32":
+            cases.append(("planck_band_rows (K11), 3 sets", calls["planck_band_rows"], None))
+        if hasattr(cs, "grid_sample_bands"):
+            from rrtmgp_tpu_torch.ops import interp, mega
+
+            want = lambda ts=ts, tab=tab: tuple(mega.planck_band_ref(t, *tab) for t in ts)
+            cases.append((f"grid_sample {tag} bands leading, a call per set",
+                          lambda ts=ts, tab=tab: tuple(cs.grid_sample_bands(t, *tab) for t in ts), want))
+            if kind == "float32":
+                rows = lambda ts=ts, tab=tab: tuple(interp.planck_band_rows_ref(t, *tab) for t in ts)
+                cases.append(("grid_sample rows, one call per set",
+                              lambda ts=ts, tab=tab: tuple(cs.grid_sample_rows(t, *tab) for t in ts), rows))
+                cases.append(("grid_sample rows, bands leading then .T.contiguous()",
+                              lambda ts=ts, tab=tab: tuple(cs.grid_sample_bands(t, *tab).T.contiguous()
+                                                           for t in ts), rows))
+    # the card's write rate on the same output bytes: one fill of an f32 and
+    # an f64 buffer of the three sets' size
+    n_out = sum(t.numel() for t in ts) * lw.totplnk.shape[1]
+    for dtype in (torch.float32, torch.float64):
+        buf = torch.empty(n_out, dtype=dtype, device=cs.DEVICE)
+        cases.append((f"fill_ of {n_out * buf.element_size() / 1e6:.0f} MB ({dtype}), the write rate",
+                      lambda buf=buf: (buf.fill_(1.0),), None))
+    host = {name: [] for name, _, _ in cases}
+    device = {name: [] for name, _, _ in cases}
+    for _ in range(3):
+        for name, fn, _ in cases:
+            host[name].append(cs.timed(fn, 7))
+            device[name].append(_device_ms(fn))
+    for name, fn, want in cases:
+        if name.startswith("fill_"):
+            check = f"{float(fn()[0].numel() * fn()[0].element_size()) / device[name][-1] / 1e9:.3f} TB/s"
+        elif want is None:
+            h = hashlib.sha256()
+            for t in fn():
+                h.update(t.cpu().numpy().tobytes())
+            check = f"sha256 {h.hexdigest()[:16]}"
+        else:
+            err, rel = cs.rel_err(fn(), want())
+            check = f"max|d|={err:.3e} rel={rel:.3e} against the twin"
+        say("planck", f"{ROOT} {name}: host {_fmt(host[name])} ms, device {_fmt(device[name])} ms, {check}")
+    torch.cuda.empty_cache()
+    _registers(_build.library_path().with_suffix(".log"), ("planck_band",), "planck")
+
+
 def kernel_hashes() -> None:
     import torch
 
@@ -602,6 +729,17 @@ def kernel_hashes() -> None:
     lw, sw = cs.lookups(256, 16, 224, 14)
     atm = cs.atmosphere(cs.NCOL, cs.NLAY)
     bcs_lw, bcs_sw = cs.boundary_conditions(lw, sw, cs.NCOL)
+    for kind in ("float32", "float64"):
+        lkp = lw if kind == "float32" else cs.lookups(256, 16, 224, 14, kind)[0]
+        a = atm if kind == "float32" else cs.atmosphere(cs.NCOL, cs.NLAY, kind)
+        tag = "f32" if kind == "float32" else "f64"
+        for what, ts in (("clear cell", [t.reshape(-1) for t in (a.t_lay, a.t_lev, a.t_sfc)]),
+                         ("edge temperatures", _edge_temperatures(lkp))):
+            calls = _planck_calls(lkp, ts)
+            report(f"planck_band {tag} (K3) {what}", calls["planck_band"])
+            if kind == "float32":
+                report(f"planck_band_rows (K11) {what}", calls["planck_band_rows"])
+        del lkp, a, calls, ts
     lw_in, sw_in, _, k12, k15 = cs.two_kernel_args(lw, sw, atm, bcs_lw, bcs_sw)
     _, k1, k2 = cs.kernel_args(lw, sw, atm, bcs_lw, bcs_sw)
     report("sw_2stream_reduced clear", lambda: rte_kernels.sw_2stream_reduced(*k15))
@@ -1048,7 +1186,7 @@ def main() -> None:
                      ("profile-two-kernel", profile_two_kernel), ("profile-sweep", profile_sweep),
                      ("kernel-hashes", kernel_hashes), ("megakernels", megakernels), ("gather", gather),
                      ("sw-sweep", sw_sweep), ("lw-sweep", lw_sweep), ("sw-mega", sw_mega),
-                     ("lw2-sweep", lw2_sweep), ("aerosol", aerosol)):
+                     ("lw2-sweep", lw2_sweep), ("aerosol", aerosol), ("planck", planck)):
         if name in want:
             fn()
 

@@ -132,6 +132,91 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
     assert _counts() == {"planck_band": 3}
 
 
+def _planck_sets(dev, dtype, sizes, nbnd=16):
+    """A lookup of ``nbnd`` bands and temperature sets of ``sizes`` points
+    (numpy seed 4) below the table, on every node, inside the last interval,
+    on the last node, above it and uniform across and beyond it."""
+    lw = synthetic_gas_lookup(longwave=True, n_gpt=2 * nbnd, n_bnd=nbnd, dtype=dtype, device=dev)
+    n_t = lw.totplnk.shape[0]
+    t_min, dt = float(lw.t_planck_min), float(lw.t_planck_delta)
+    t_max = t_min + (n_t - 1) * dt
+    edges = [t_min - 40.0, *(t_min + k * dt for k in range(n_t)), t_max - 0.5 * dt, t_max + 1e-3, t_max + 40.0]
+    rng = np.random.default_rng(4)
+    t = np.concatenate([edges, rng.uniform(t_min - 20.0, t_max + 20.0, max(sum(sizes) - len(edges), 0))])
+    t = torch.from_numpy(t[:sum(sizes)].astype(dtype)).to(dev)
+    return lw, torch.split(t, list(sizes))
+
+
+PLANCK_SIZES = [(4099,), (257, 0), (1, 255, 256), (7, 4099, 33)]
+
+
+@pytest.mark.parametrize("sizes", PLANCK_SIZES)
+@pytest.mark.parametrize("dtype,layout", [(np.float32, "bands"), (np.float64, "bands"), (np.float32, "rows")])
+def test_planck_sets_match_twins_and_one_set_calls(cuda, sizes, dtype, layout):
+    """One launch over 1-3 sets of odd sizes (a set of 0 points among them)
+    holds the twin (1e-6, f64 1e-14, as chip_smoke.py) and equals the
+    one-set calls bit for bit."""
+    lw, ts = _planck_sets(cuda, dtype, sizes)
+    tab = (lw.totplnk, lw.t_planck_min, lw.t_planck_delta)
+    sets, one, ref = ((mega.planck_band_sets, mega.planck_band, mega.planck_band_ref) if layout == "bands" else
+                      (interp.planck_band_rows_sets, interp.planck_band_rows, interp.planck_band_rows_ref))
+    out = sets(ts, *tab)
+    name = "planck_band" if layout == "bands" else "planck_band_rows"
+    assert _counts() == {name: 1}
+    tol = TOL64["planck_band"] if dtype == np.float64 else TOL[name]
+    for o, t in zip(out, ts):
+        assert o.shape == ((16, t.numel()) if layout == "bands" else (t.numel(), 16)) and o.dtype == t.dtype
+        if t.numel():
+            assert _rel([o], [ref(t, *tab)]) <= tol
+        assert torch.equal(o, one(t, *tab))
+    first = out[0][0] if layout == "rows" else out[0][:, 0]
+    assert torch.equal(first, lw.totplnk[0])  # below the table: the first node's values
+
+
+@pytest.mark.parametrize("nbnd", [1, 3, 4, 14])
+def test_planck_sets_take_any_band_count(cuda, nbnd):
+    """Band counts that are not a multiple of 4 (the rows kernel then
+    stores band by band) and a single band."""
+    lw, ts = _planck_sets(cuda, np.float32, (300, 41), nbnd)
+    tab = (lw.totplnk, lw.t_planck_min, lw.t_planck_delta)
+    for sets, ref in ((mega.planck_band_sets, mega.planck_band_ref),
+                      (interp.planck_band_rows_sets, interp.planck_band_rows_ref)):
+        for o, t in zip(sets(ts, *tab), ts):
+            assert _rel([o], [ref(t, *tab)]) <= TOL["planck_band"]
+
+
+def test_planck_sets_reject_what_the_kernel_does_not_take(cuda):
+    lw, ts = _planck_sets(cuda, np.float32, (10, 20))
+    tab = (lw.totplnk, lw.t_planck_min, lw.t_planck_delta)
+    for sets in (mega.planck_band_sets, interp.planck_band_rows_sets):
+        with pytest.raises(ValueError, match="temperature sets"):
+            sets((), *tab)
+        with pytest.raises(ValueError, match="temperature sets"):
+            sets((*ts, *ts), *tab)
+        with pytest.raises(TypeError, match="float32"):
+            sets((ts[0], ts[1].double()), *tab)
+        with pytest.raises(ValueError, match="on cpu"):
+            sets((ts[0], ts[1].cpu()), *tab)
+        with pytest.raises(ValueError, match="contiguous"):
+            sets((ts[0], ts[1][::2]), *tab)
+        with pytest.raises(ValueError, match="totplnk"):
+            sets(ts, lw.totplnk[:1], *tab[1:])
+    assert _counts() == {}
+
+
+@pytest.mark.parametrize("dtype,tol", [(np.float32, 1e-6), (np.float64, 1e-14)])
+def test_grid_sample_yardstick_holds_the_planck_twin(cuda, dtype, tol):
+    """chip_smoke.py's library yardstick of K3 / K11 on the card."""
+    import chip_smoke
+
+    lw, ts = _planck_sets(cuda, dtype, (4099, 33))
+    tab = (lw.totplnk, lw.t_planck_min, lw.t_planck_delta)
+    for t in ts:
+        assert _rel([chip_smoke.grid_sample_bands(t, *tab)], [mega.planck_band_ref(t, *tab)]) <= tol
+        if dtype == np.float32:
+            assert _rel([chip_smoke.grid_sample_rows(t, *tab)], [interp.planck_band_rows_ref(t, *tab)]) <= tol
+
+
 def _every_impl(cuda, ngpt):
     """Every impl (the default one too) of solve_lw (LW no-scattering at 1
     and 3 angles, LW two-stream) and solve_sw, clear and all-sky (McICA by
@@ -187,7 +272,7 @@ def test_more_than_1024_gpoints_run_on_every_impl(cuda):
         a, _ = solve_lw(lkp, atm, strided, n_gauss_angles=n)
         b, _ = solve_lw(lkp, atm, LwBCs(sfc_emis=emis), n_gauss_angles=n)
         assert torch.equal(a.flux_up, b.flux_up)
-    assert _counts() == {"planck_band": 6, "lw_clear_mega": 2, "optics_fused": 2, "planck_band_rows": 6,
+    assert _counts() == {"planck_band": 2, "lw_clear_mega": 2, "optics_fused": 2, "planck_band_rows": 2,
                          "lw_noscat_banded_reduced": 2}
 
 
@@ -283,7 +368,7 @@ def test_solves_on_cuda_take_the_kernels(cuda):
                sfc_alb_direct=f((4, 300), 0.2), sfc_alb_diffuse=f((4, 300), 0.2))
     k_lw, _ = solve_lw(lw, atm, bl)
     k_sw, _ = solve_sw(sw, atm, bs)
-    assert _counts() == {"planck_band": 3, "lw_clear_mega": 1, "sw_clear_mega": 1}
+    assert _counts() == {"planck_band": 1, "lw_clear_mega": 1, "sw_clear_mega": 1}
     t_lw, _ = solve_lw(lw, atm, bl, impl="torch")
     t_sw, _ = solve_sw(sw, atm, bs, impl="torch")
     assert mega.launch_counts()["lw_clear_mega"] == 1
@@ -298,11 +383,11 @@ def test_solves_on_cuda_take_the_kernels(cuda):
         t_n = solve_lw(lw, atm, bl, n_gauss_angles=n, impl="torch")[0]
         mega.reset_launch_counts()
         k_n, _ = solve_lw(lw, atm, bl, n_gauss_angles=n, impl="kernel")
-        assert _counts() == {"planck_band": 3, "lw_clear_mega": n}
+        assert _counts() == {"planck_band": 1, "lw_clear_mega": n}
         assert _rel(k_n, t_n) <= TOL["lw_clear_mega"]
         mega.reset_launch_counts()
         d_n, _ = solve_lw(lw, atm, bl, n_gauss_angles=n)
-        assert _counts() == {"optics_fused": 1, "planck_band_rows": 3, "lw_noscat_banded_reduced": 1}
+        assert _counts() == {"optics_fused": 1, "planck_band_rows": 1, "lw_noscat_banded_reduced": 1}
         assert _rel(d_n, t_n) <= TOL["lw_noscat_banded_reduced"]
         assert _rel(d_n, k_n) <= TOL["lw_noscat_banded_reduced"]
     # f64 clear-sky LW no-scattering has a kernel, LW two-stream has none
@@ -310,7 +395,7 @@ def test_solves_on_cuda_take_the_kernels(cuda):
     bl64 = dataclasses.replace(bl, sfc_emis=bl.sfc_emis.double())
     mega.reset_launch_counts()
     k64, _ = solve_lw(lw64, atm64, bl64, impl="kernel")
-    assert _counts() == {"planck_band": 3, "lw_clear_mega": 1} and k64.flux_up.dtype == torch.float64
+    assert _counts() == {"planck_band": 1, "lw_clear_mega": 1} and k64.flux_up.dtype == torch.float64
     assert _rel(k64, solve_lw(lw64, atm64, bl64, impl="torch")[0]) <= TOL64["lw_clear_mega"]
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         solve_lw(lw64, atm64, bl64, two_stream=True, impl="kernel")
@@ -339,7 +424,7 @@ def test_f64_routing(cuda):
     for bcs, n in ((bl, 1), (bl_inc, 3)):
         mega.reset_launch_counts()
         k_lw, _ = solve_lw(lw, atm, bcs, n_gauss_angles=n)
-        assert _counts() == {"planck_band": 3, "lw_clear_mega": n}
+        assert _counts() == {"planck_band": 1, "lw_clear_mega": n}
         t_lw, _ = solve_lw(lw, atm, bcs, n_gauss_angles=n, impl="torch")
         assert k_lw.flux_up.dtype == torch.float64 and _rel(k_lw, t_lw) <= TOL64["lw_clear_mega"]
     mega.reset_launch_counts()
@@ -526,7 +611,7 @@ def test_allsky_noscat_solver_takes_the_kernels(cuda):
         mega.reset_launch_counts()
         f_lw, f_sw = solver.update_fluxes()
         torch.cuda.synchronize()
-        assert _counts() == {"planck_band": 3, "lw_clear_mega": n, "sw_clear_mega": 1, "aerosol_bands": 2}
+        assert _counts() == {"planck_band": 1, "lw_clear_mega": n, "sw_clear_mega": 1, "aerosol_bands": 2}
         if n > 1:
             # the default routing: LW leaves the megakernel for the two-kernel
             # path (mask from the export kernel, aerosol band sums from their
@@ -534,7 +619,7 @@ def test_allsky_noscat_solver_takes_the_kernels(cuda):
             auto = mk()
             mega.reset_launch_counts()
             a_lw, _ = auto.update_fluxes()
-            assert _counts() == {"optics_fused": 1, "planck_band_rows": 3, "lw_noscat_banded_reduced": 1,
+            assert _counts() == {"optics_fused": 1, "planck_band_rows": 1, "lw_noscat_banded_reduced": 1,
                                  "mcica_mask_export": 1, "sw_clear_mega": 1, "aerosol_bands": 2}
             assert _rel(a_lw, f_lw) <= TOL["lw_noscat_banded_reduced"]
             assert torch.equal(auto.lw_cloud_cover(), solver.lw_cloud_cover())
@@ -610,8 +695,8 @@ def test_solver_update_fluxes_takes_the_kernels(cuda):
         mega.reset_launch_counts()
         f_lw, f_sw = solver.update_fluxes()
         torch.cuda.synchronize()
-        # LW two-stream needs Planck at t_lev and t_sfc only
-        assert _counts() == {"planck_band": 2 * n, "lw2_mega": n, "sw_clear_mega": n, "aerosol_bands": 2 * n}
+        # LW two-stream needs Planck at t_lev and t_sfc only, in one launch
+        assert _counts() == {"planck_band": n, "lw2_mega": n, "sw_clear_mega": n, "aerosol_bands": 2 * n}
         assert all(torch.isfinite(x).all() for x in (*f_lw, *f_sw))
         assert solver.lw_cloud_cover().shape == solver.sw_cloud_cover().shape == (ncol,)
 
@@ -769,7 +854,7 @@ def test_sw_direct_beam_runs_with_the_default_impl(cuda):
     bl = LwBCs(sfc_emis=f((4, ncol), 0.98))
     mega.reset_launch_counts()
     lw2, _ = solve_lw(lw, atm, bl, two_stream=True, impl="two_kernel")
-    assert _counts() == {"optics_fused": 1, "planck_band_rows": 2, "lw_2stream_reduced": 1}
+    assert _counts() == {"optics_fused": 1, "planck_band_rows": 1, "lw_2stream_reduced": 1}
     assert _rel(lw2, solve_lw(lw, atm, bl, two_stream=True, impl="torch")[0]) <= TOL["lw_2stream_reduced"]
 
     # the solver, all-sky with aerosols: LW two-stream on its megakernel, SW direct beam
@@ -783,7 +868,7 @@ def test_sw_direct_beam_runs_with_the_default_impl(cuda):
     solver, exact = mk(), mk(impl="torch")
     mega.reset_launch_counts()
     _, f_sw = solver.update_fluxes()
-    assert _counts() == {"planck_band": 2, "lw2_mega": 1, "aerosol_bands": 2, "optics_fused": 1,
+    assert _counts() == {"planck_band": 1, "lw2_mega": 1, "aerosol_bands": 2, "optics_fused": 1,
                          "mcica_mask_export": 1}
     _, t_sw = exact.update_fluxes()
     assert _rel([f_sw.flux_dn_dir], [t_sw.flux_dn_dir]) <= TOL["optics_fused"]
@@ -925,7 +1010,7 @@ def test_lw_two_stream_sweep_equals_the_megakernel_on_equal_optics(cuda):
     for atm, kw, extra in ((clear, {}, {}), (cloudy, allsky, {"aerosol_bands": 1, "mcica_mask_export": 1})):
         mega.reset_launch_counts()
         two, d_two = solve_lw(lw, atm, bl, two_stream=True, impl="two_kernel", **kw)
-        assert _counts() == {"optics_fused": 1, "planck_band_rows": 2, "lw_2stream_reduced": 1, **extra}
+        assert _counts() == {"optics_fused": 1, "planck_band_rows": 1, "lw_2stream_reduced": 1, **extra}
         one, d_one = solve_lw(lw, atm, bl, two_stream=True, impl="kernel", **kw)
         exact, _ = solve_lw(lw, atm, bl, two_stream=True, impl="torch", **kw)
         for a, b in zip(two, one):
@@ -1026,7 +1111,7 @@ def test_default_built_inputs_live_on_the_card_and_take_the_kernels(cuda):
     assert lw.kmajor.is_cuda and atm.p_lay.is_cuda and bl.sfc_emis.is_cuda
     mega.reset_launch_counts()
     out, _ = solve_lw(lw, atm, bl)
-    assert out.flux_up.is_cuda and _counts() == {"planck_band": 3, "lw_clear_mega": 1}
+    assert out.flux_up.is_cuda and _counts() == {"planck_band": 1, "lw_clear_mega": 1}
     cpu = dict(dtype=np.float32, device="cpu")
     mega.reset_launch_counts()
     ref, _ = solve_lw(synthetic_gas_lookup(longwave=True, n_gpt=32, n_bnd=4, **cpu),

@@ -42,6 +42,14 @@
   ``lw_noscat_pallas_reduced`` run per angle and summed (rtol 2e-5 / atol
   1e-3, tests/test_torch_sweeps.py's tolerance); it has K12's launch plan.
 
+- ``planck_band`` / ``planck_band_rows`` (csrc/planck_band.cu): the blocks
+  of the sets plan, each over its points, a point's node and weights formed
+  once, the table read as (nbnd, n_t) as it is staged, the bands looped.
+  Modelled here, it equals the twin ``planck_bands`` bit for bit in f32
+  and f64, both layouts, temperatures below the table, on its nodes, in
+  its last interval, on its last node and above it included; the staged
+  bytes are the kernel's.
+
 And the wrappers' checks that the designs add: a table of 2^31 elements or
 more is refused, sw_2stream_reduced's scratch is two arrays, and each C
 entry point takes as many arguments as its ctypes signature lists.
@@ -64,6 +72,7 @@ import torch
 from rrtmgp_tpu.ops import rte as jrte
 from rrtmgp_tpu_torch.data.synthetic import synthetic_atmosphere, synthetic_gas_lookup
 from rrtmgp_tpu_torch.ops import _build, _launch, interp, rte_kernels
+from rrtmgp_tpu_torch.ops.gas_optics import planck_bands
 from rrtmgp_tpu_torch.ops.mega_inputs import mega_lw_inputs, mega_sw_inputs
 from rrtmgp_tpu_torch.ops.rte import lw_2stream_coeffs, round_to, sw_2stream_coeffs
 
@@ -1165,3 +1174,71 @@ def test_every_planned_kernel_has_a_block_limit_query():
     table = set(re.findall(r'\{"(\w+)", \w+_max_threads\}', (_build.CSRC / "errors.cu").read_text()))
     assert planned == table
     assert {"lw2_mega", "sw_clear_mega", "lw_clear_mega", "lw_2stream_reduced"} <= table
+
+
+# ---------------------------------------------------------------------------
+# planck_band / planck_band_rows: a thread per point over the staged table
+# ---------------------------------------------------------------------------
+
+
+def _planck_per_point(ts, totplnk, t_min, t_delta, rows, span):
+    """csrc/planck_band.cu in plain torch: the blocks of the sets plan, each
+    over its points; a point's node and weights once, the table as (nbnd,
+    n_t), the bands looped; outputs (N, nbnd) with ``rows``, else (nbnd, N)."""
+    n_t, nbnd = totplnk.shape
+    table = totplnk.T.contiguous()
+    sizes = [t.numel() for t in ts]
+    plan = _launch.sets_plan(sizes, span)
+    outs = [torch.full((n, nbnd) if rows else (nbnd, n), float("nan"), dtype=totplnk.dtype) for n in sizes]
+    for block in range(plan.grid):
+        k, points = _launch.block_points(plan, sizes, block)
+        idx = torch.arange(points.start, points.stop)
+        loc = (ts[k][idx] - t_min) / t_delta
+        j = torch.clamp(torch.floor(loc), 0.0, float(n_t - 2))
+        f = torch.clamp(loc - j, 0.0, 1.0)
+        g = 1.0 - f
+        jj = j.to(torch.int32).long()
+        for b in range(nbnd):
+            v = table[b][jj] * g + table[b][jj + 1] * f
+            if rows:
+                outs[k][idx, b] = v
+            else:
+                outs[k][b, idx] = v
+    return outs
+
+
+def _planck_edge_sets(dtype, sizes=(257, 0, 1030)):
+    lkp = synthetic_gas_lookup(longwave=True, n_gpt=32, n_bnd=16, dtype=dtype, device="cpu")
+    n_t = lkp.totplnk.shape[0]
+    t_min, dt = float(lkp.t_planck_min), float(lkp.t_planck_delta)
+    t_max = t_min + (n_t - 1) * dt
+    edges = [t_min - 50.0, t_min - 1e-3, *(t_min + k * dt for k in range(n_t)), t_max - 0.5 * dt,
+             t_max - 1e-3, t_max, t_max + 1e-3, t_max + 50.0]
+    rng = np.random.default_rng(6)
+    t = np.concatenate([edges, rng.uniform(t_min - 30.0, t_max + 30.0, sum(sizes) - len(edges))]).astype(dtype)
+    return lkp, list(torch.split(torch.from_numpy(t), list(sizes)))
+
+
+@pytest.mark.parametrize("dtype,rows", [(np.float32, False), (np.float64, False), (np.float32, True)])
+@pytest.mark.parametrize("span", [256, _launch.PLANCK_SPAN])
+def test_planck_per_point_equals_the_twin_bit_for_bit(dtype, rows, span):
+    lkp, ts = _planck_edge_sets(dtype)
+    tab = (lkp.totplnk, lkp.t_planck_min, lkp.t_planck_delta)
+    out = _planck_per_point(ts, *tab, rows, span)
+    for o, t in zip(out, ts):
+        want = planck_bands(lkp.totplnk, t, *tab[1:])
+        assert torch.equal(o, want if rows else want.T)
+    first = out[0][0] if rows else out[0][:, 0]
+    assert torch.equal(first, lkp.totplnk[0])  # below the table: the first node
+    last = torch.nonzero(ts[0] > lkp.t_planck_min + (lkp.totplnk.shape[0] - 1) * lkp.t_planck_delta)
+    assert len(last) and torch.equal(out[0][last[0, 0]] if rows else out[0][:, last[0, 0]], lkp.totplnk[-1])
+
+
+def test_planck_staged_bytes_are_the_kernels():
+    """The wrapper's shared-memory count is the kernel's: the table
+    transposed at an odd row stride."""
+    source = (_build.CSRC / "planck_band.cu").read_text()
+    assert "inline int planck_ld(int n_t) { return n_t | 1; }" in source
+    assert "(size_t)nbnd * ld * sizeof(R)" in source
+    assert interp.planck_staged_bytes(16, 196, 4) == 16 * 197 * 4
+    assert interp.planck_staged_bytes(16, 197, 8) == 16 * 197 * 8

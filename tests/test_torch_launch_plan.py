@@ -15,6 +15,11 @@
 That the kernels write and add the partials in warp order, the bits of the
 in-block sums, shows only on a GPU (tests/test_torch_cuda.py at 1100
 g-points, chip_smoke.py).
+
+And the plan of the band Planck kernel over the temperature sets of one
+launch (``sets_plan``): every point of every set covered once, by blocks of
+``span`` consecutive points; sets of 0 points own no block; more than three
+sets, sizes past 32-bit ints and an empty span are refused.
 """
 
 import pytest
@@ -192,3 +197,37 @@ def test_per_thread_bytes_count_against_the_limit():
     assert big == L.LaunchPlan(1024, 1, True) and per * 1024 + L.in_block_bytes(1024, 60, 2, 4) <= H100_OPTIN
     with pytest.raises(ValueError, match="staged"):
         L.gpoint_plan(256, 60, 2, 4, 0, H100_OPTIN, per_thread=H100_OPTIN // 200)
+
+
+SET_SIZES = [(1,), (255,), (256,), (257,), (2**20 + 3,), (0,), (255, 256, 257), (0, 257), (257, 0, 1),
+             (2**20 + 3, 0, 31), (0, 0, 0)]
+
+
+@pytest.mark.parametrize("sizes", SET_SIZES)
+@pytest.mark.parametrize("span", [256, L.PLANCK_SPAN, 4096])
+def test_sets_plan_covers_every_point_of_every_set_once(sizes, span):
+    plan = L.sets_plan(sizes, span)
+    assert len(plan.starts) == L.PLANCK_SETS + 1 and plan.starts[0] == 0
+    assert list(plan.starts) == sorted(plan.starts)
+    seen = [[] for _ in sizes]
+    for block in range(plan.grid):
+        k, points = L.block_points(plan, sizes, block)
+        assert len(points) > 0  # no block without a point
+        seen[k].append(points)
+    for k, n in enumerate(sizes):
+        covered = [i for r in seen[k] for i in r]
+        assert covered == list(range(n)), (k, n)
+        assert plan.starts[k + 1] - plan.starts[k] == -(-n // span)
+    assert all(s == plan.grid for s in plan.starts[len(sizes):])
+
+
+def test_sets_plan_refuses_what_one_launch_does_not_take():
+    for sizes in ((), (1, 2, 3, 4)):
+        with pytest.raises(ValueError, match="sets"):
+            L.sets_plan(sizes)
+    for n in (-1, 2**31):
+        with pytest.raises(ValueError, match="points"):
+            L.sets_plan((5, n))
+    assert L.sets_plan((2**31 - 1,)).grid == -(-(2**31 - 1) // L.PLANCK_SPAN)
+    with pytest.raises(ValueError, match="span"):
+        L.sets_plan((5,), 0)

@@ -2,6 +2,10 @@
 the JAX Pallas kernels they replace, run in interpret mode on the CPU.
 
 - planck_band_ref vs planck_band_pallas_t and planck_band_windowed;
+  planck_band_sets (one launch for every temperature set of a solve) on
+  CPU tensors bit for bit the per-set twins, and so within 5e-5 of both;
+  chip_smoke.py's grid_sample yardstick within 1e-6 (f32) and 1e-14 (f64)
+  of the twin;
 - lw_clear_mega_ref / sw_clear_mega_ref vs the JAX megakernel path of
   solve_lw / solve_sw, set up as tests/test_pallas_optics.py does (ncol 128),
   at 5e-5 (LW) and 1e-4 (SW) of max |flux|, the JAX megakernel-vs-XLA
@@ -83,6 +87,50 @@ def test_planck_band_ref_matches_pallas_kernels():
     t = torch.tensor([100.0, 400.0], dtype=torch.float32)
     out = mega.planck_band_ref(t, tl.totplnk, tl.t_planck_min, tl.t_planck_delta)
     assert torch.equal(out[:, 0], tl.totplnk[0]) and torch.equal(out[:, 1], tl.totplnk[-1])
+
+
+def test_planck_band_sets_equal_the_per_set_twins_and_hold_pallas():
+    """The three sets of a solve in one call (the CPU runs the twins): bit
+    for bit the per-set twins, and within 5e-5 of both TPU kernels."""
+    from rrtmgp_tpu.ops.pallas_mega import planck_band_pallas_t, planck_band_windowed
+
+    jl = jsyn.synthetic_gas_lookup(longwave=True, n_gpt=32, n_bnd=4, seed=2, dtype=np.float32)
+    ja = jsyn.synthetic_atmosphere(ncol=NCOL, nlay=NLAY, dtype=np.float32)
+    tl = convert.gas_lookup_from_object(jl)
+    tabs = gp.build_pallas_tables(jl)
+    kw = dict(n_t=int(jl.totplnk.shape[0]), t_min=float(jl.t_planck_min),
+              t_delta=float(jl.t_planck_delta), nbp_sub=8)
+    wr = gp.compute_planck_window(jl, ja)
+    ts = [np.array(t).reshape(-1) for t in (ja.t_lay, ja.t_lev, ja.t_sfc)]
+    tab = (tl.totplnk, tl.t_planck_min, tl.t_planck_delta)
+    for sets in (ts, ts[1:]):  # LW no-scattering, LW two-stream
+        outs = mega.planck_band_sets([torch.from_numpy(t) for t in sets], *tab)
+        assert len(outs) == len(sets)
+        for out, t in zip(outs, sets):
+            assert torch.equal(out, mega.planck_band_ref(torch.from_numpy(t), *tab))
+            full = planck_band_pallas_t(jnp.asarray(t), tabs.totplnk_t, **kw)[: jl.n_bnd]
+            win, ok = planck_band_windowed(jnp.asarray(t), tabs.totplnk_rows, wr=wr, **kw)
+            assert bool(ok)
+            assert _rel(out, full) < 5e-5 and _rel(out, win[: jl.n_bnd]) < 5e-5
+    for bad in ((), [torch.from_numpy(ts[0])] * 4):
+        with pytest.raises(ValueError, match="temperature sets"):
+            mega.planck_band_sets(bad, *tab)
+
+
+@pytest.mark.parametrize("dtype,tol", [(np.float32, 1e-6), (np.float64, 1e-14)])
+def test_grid_sample_yardstick_holds_the_planck_twin(dtype, tol):
+    """chip_smoke.py's library yardstick of K3 (grid_sample of the table as
+    an image) against the twin, temperatures beyond both ends included."""
+    import chip_smoke
+
+    jl = jsyn.synthetic_gas_lookup(longwave=True, n_gpt=32, n_bnd=16, seed=2, dtype=dtype)
+    tl = convert.gas_lookup_from_object(jl)
+    tab = (tl.totplnk, tl.t_planck_min, tl.t_planck_delta)
+    t_max = tl.t_planck_min + (tl.totplnk.shape[0] - 1) * tl.t_planck_delta
+    rng = np.random.default_rng(3)
+    t = torch.from_numpy(rng.uniform(tl.t_planck_min - 20.0, t_max + 20.0, 5000).astype(dtype))
+    want = mega.planck_band_ref(t, *tab)
+    assert _rel(chip_smoke.grid_sample_bands(t, *tab), want.numpy()) <= tol
 
 
 def test_lw_clear_mega_ref_matches_jax_megakernel():

@@ -130,6 +130,34 @@ def test_planck_band_rows_ref_matches_jax_pallas():
                                                tl.t_planck_delta))
 
 
+def test_planck_band_rows_sets_equal_the_per_set_twins_and_hold_pallas():
+    """The sets of a solve in one call (the CPU runs the twins): bit for bit
+    the per-set twins, within 1e-5 of planck_band_pallas, and chip_smoke.py's
+    grid_sample yardstick (both forms) within 1e-6 of the twin."""
+    import chip_smoke
+
+    jl, tl = _lookup(True)
+    tabs = jgp.build_pallas_tables(jl)
+    n_t = int(jl.totplnk.shape[0])
+    t_min, t_delta = float(jl.t_planck_min), float(jl.t_planck_delta)
+    t_max = t_min + (n_t - 1) * t_delta
+    rng = np.random.default_rng(7)
+    sets = [rng.uniform(t_min - 30.0, t_max + 30.0, n).astype(np.float32) for n in (300, 0, 41)]
+    tab = (tl.totplnk, tl.t_planck_min, tl.t_planck_delta)
+    outs = interp.planck_band_rows_sets([torch.from_numpy(t) for t in sets], *tab)
+    for out, t in zip(outs, sets):
+        tt = torch.from_numpy(t)
+        want = interp.planck_band_rows_ref(tt, *tab)
+        assert out.shape == (t.size, 4) and torch.equal(out, want)
+        if t.size:
+            ref = jpi.planck_band_pallas(jnp.asarray(t), tabs.totplnk_hi, tabs.totplnk_lo,
+                                         n_t=n_t, t_min=t_min, t_delta=t_delta)
+            assert _rel(out, np.asarray(ref)[:, :4]) <= 1e-5
+            assert _rel(chip_smoke.grid_sample_rows(tt, *tab), want.numpy()) <= 1e-6
+            assert _rel(chip_smoke.grid_sample_bands(tt, *tab).T, want.numpy()) <= 1e-6
+    assert interp.planck_band_rows.launches == 0  # CPU tensors: the twin only
+
+
 def _lw_sweep_inputs():
     rng = np.random.default_rng(11)
     nlay, ncol, ngpt, nbnd = 6, 12, 32, 4
