@@ -72,7 +72,8 @@ is non-zero:
    in one launch, bit for bit the one-angle launches summed; twins on
    8192-column chunks; lw_2stream_reduced and
    sw_2stream_gpt also with ssa and g of an all-sky composition at 8192
-   columns). Path A, LW two-stream on the two-kernel path:
+   columns; sw_2stream_gpt and lw_noscat_gpt also with an incident flux).
+   Path A, LW two-stream on the two-kernel path:
    solve_lw(two_stream=True, impl="two_kernel") clear at 32768 x 60 against
    the megakernel route at full width and the torch path on 4096 columns,
    and all-sky (McICA by seed + aerosols) at 75748 x 60, unchunked if its
@@ -125,6 +126,11 @@ is non-zero:
    device scratch of one call, measured, and its registers; the
    lw_2stream_reduced line its chunk, where its checkpoints live, the
    device scratch of one call, measured, and its registers; the
+   sw_2stream_gpt line its passes, where its state lives (its outputs and,
+   for the bottom levels, shared memory), the device scratch of one call,
+   measured (none), and its registers; the
+   lw_noscat_gpt line the bottom layers it keeps in shared memory, its
+   plan, the device scratch of one call and its registers; the
    aerosol_bands line its staged bytes, blocks an SM and registers.
 
 The last lines are a JSON object per kernel, the card's name and power
@@ -441,11 +447,10 @@ def phase_build() -> float:
     return seconds
 
 
-def print_design(label, name, kern, design) -> None:
-    """The design lw2_mega runs (``mega.lw2_mega_design``), and the device
-    scratch of one call ``kern``, measured: the peak allocated during the
-    call less what is allocated after it (what was there before, and what
-    the call returns)."""
+def call_scratch(kern) -> int:
+    """The device scratch of one call ``kern()``, measured: the peak
+    allocated during the call less what is allocated after it (its outputs
+    kept)."""
     import torch
 
     torch.cuda.synchronize()
@@ -454,6 +459,15 @@ def print_design(label, name, kern, design) -> None:
     torch.cuda.synchronize()
     scratch = torch.cuda.max_memory_allocated() - torch.cuda.memory_allocated()
     del out
+    return scratch
+
+
+def print_design(label, name, kern, design) -> None:
+    """The design lw2_mega runs (``mega.lw2_mega_design``), and the device
+    scratch of one call ``kern``, measured: the peak allocated during the
+    call less what is allocated after it (what was there before, and what
+    the call returns)."""
+    scratch = call_scratch(kern)
     sums = "in the block" if design["in_block"] else "warp partials in device memory"
     phase("kernels", f"{label} {name} design: adding state in device memory, {design['n_groups']} block(s) of "
                      f"{design['group']} threads per column (maxThreadsPerBlock {design['max_threads']}), level "
@@ -466,17 +480,10 @@ def print_sw_mega_design(label, name, kern, args, comp) -> None:
     memory, the launch plan, ptxas registers of the variant launched, and
     the device scratch of one call ``kern``, measured as print_design
     measures it."""
-    import torch
-
     from rrtmgp_tpu_torch.ops import mega
 
     design = mega.sw_clear_mega_design(*args[:2], comp)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    out = kern()
-    torch.cuda.synchronize()
-    scratch = torch.cuda.max_memory_allocated() - torch.cuda.memory_allocated()
-    del out
+    scratch = call_scratch(kern)
     mode = 2 if comp.seeded else int(comp.cld_mask is not None)
     variant = (f"sw_clear_mega_kernelILb{int(comp.cld_bands is not None)}ELb{int(comp.aero_bands is not None)}"
                f"ELi{mode}ELb{int(not design['in_block'])}")
@@ -528,12 +535,7 @@ def print_sw_sweep_design(label, kern, nlay, ncol, ngpt) -> None:
     from rrtmgp_tpu_torch.ops import rte_kernels
 
     plan = rte_kernels.sweep_plan("sw_2stream_reduced", 3, nlay, ngpt, torch.device(DEVICE))
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    out = kern()
-    torch.cuda.synchronize()
-    scratch = torch.cuda.max_memory_allocated() - torch.cuda.memory_allocated()
-    del out
+    scratch = call_scratch(kern)
     sums = "in the block" if plan.in_block else "warp partials in device memory"
     phase("kernels", f"{label} sw_2stream_reduced design: three passes (beam top-down; adding bottom-up and flux "
                      f"top-down with the coefficients recomputed), {plan.n_groups} block(s) of {plan.group} threads "
@@ -554,12 +556,7 @@ def print_lw2_sweep_design(label, kern, nlay, ngpt) -> None:
     from rrtmgp_tpu_torch.ops import rte_kernels
 
     design = rte_kernels.lw_2stream_reduced_design(nlay, ngpt, torch.device(DEVICE))
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    out = kern()
-    torch.cuda.synchronize()
-    scratch = torch.cuda.max_memory_allocated() - torch.cuda.memory_allocated()
-    del out
+    scratch = call_scratch(kern)
     sums = "in the block" if design["in_block"] else "warp partials in device memory"
     variant = f"lw_2stream_reduced_kernelIfLb{int(not design['in_block'])}"
     phase("kernels", f"{label} lw_2stream_reduced design: chunks of C = {design['chunk']} layers, (alb, src) "
@@ -569,6 +566,38 @@ def print_lw2_sweep_design(label, kern, nlay, ngpt) -> None:
                      f"{design['group']} threads per column (maxThreadsPerBlock {design['max_threads']}), level "
                      f"sums {sums}; device scratch of one call {scratch / 1e9:.3f} GB (measured); ptxas: "
                      f"{kernel_registers(variant)}")
+
+
+def print_gpt_sweep_designs(label, k16a, k16b) -> None:
+    """The designs of the per-g-point sweeps on their arguments ``k16a`` /
+    ``k16b`` (``rte_kernels.sw_2stream_gpt_design`` and
+    ``lw_noscat_gpt_design``): sw_2stream_gpt's three passes with the state
+    in its outputs and lw_noscat_gpt's upward sources from the downward
+    pass, each with the bottom levels or layers it keeps in shared memory,
+    its launch plan, the device scratch of one call, measured as
+    print_design measures it, and its registers."""
+    import torch
+
+    from rrtmgp_tpu_torch.ops import rte_kernels
+
+    dev = torch.device(DEVICE)
+    for name, args, what, variant in (
+            ("sw_2stream_gpt", k16a, "three passes (the beam top-down to flux_dir; adding bottom-up and flux "
+             "top-down with the coefficients recomputed), the state in the outputs (each level's albedo and source "
+             "in flux_up / flux_dn until the flux pass overwrites them), the bottom {} of {} levels' albedo and "
+             "source", f"sw_2stream_gpt_kernelIfLb{int(k16a[2] is not None)}"),
+            ("lw_noscat_gpt", k16b, "the bottom {} of {} layers' transmittance and upward source from the "
+             "downward pass", "lw_noscat_gpt_kernelIfLb")):
+        nlay, _, ngpt = args[0].shape
+        design = (rte_kernels.sw_2stream_gpt_design(nlay, ngpt, dev, args[2] is not None) if name == "sw_2stream_gpt"
+                  else rte_kernels.lw_noscat_gpt_design(nlay, ngpt, dev))
+        gb = call_scratch(lambda: getattr(rte_kernels, name)(*args)) / 1e9
+        split = int(design["n_groups"] > 1)
+        regs = kernel_registers(f"{variant}ELb{split}" if name == "sw_2stream_gpt" else f"{variant}{split}")
+        phase("kernels", f"{label} {name} design: {what.format(design['kept'], nlay)} in shared memory "
+                         f"({design['smem']} B a block), {design['n_groups']} block(s) of {design['group']} threads "
+                         f"per column (maxThreadsPerBlock {design['max_threads']}); device scratch of one call "
+                         f"{gb:.3f} GB (measured); ptxas: {regs}")
 
 
 def print_aerosol_design(label, lkp) -> None:
@@ -1787,6 +1816,14 @@ def check_sweep_kernels(label, lw, sw, atm, bcs_lw, bcs_sw, reps, results, chunk
         check_case(label, name, lambda: kern(*args), lambda: twin(ref, args), reps, results,
                    work=Work(nbytes(args), ops))
     print_lw2_sweep_design(label, lambda: rk.lw_2stream_reduced(*k14), atm.nlay, lw.n_gpt)
+    # the per-g-point sweeps with an incident flux, then their designs
+    for name, kern, ref, args in (("sw_2stream_gpt", rk.sw_2stream_gpt, rk.sw_2stream_gpt_ref, k16a),
+                                  ("lw_noscat_gpt", rk.lw_noscat_gpt, rk.lw_noscat_gpt_ref, k16b)):
+        gen = torch.Generator(device=DEVICE).manual_seed(7)
+        inc = (*args[:-1], 0.5 + torch.rand(args[0].shape[1:], generator=gen, device=DEVICE))
+        check_case(f"{label} [incident flux]", name, lambda: kern(*inc), lambda: twin(ref, inc), 0, results)
+        del inc
+    print_gpt_sweep_designs(label, k16a, k16b)
     # K13 as the sweep route launches it: solve_lw's 3 angles in one launch
     # (the kernels line keeps this call's time), the same bytes as one angle
     # and 3 x the operations; bit for bit the one-angle launches summed

@@ -424,6 +424,13 @@ inline MegaLaunch mega_launch(const Dims& d, int nf) {
   return m;
 }
 
+// Shared memory of a block of `group` threads that keeps `n` levels or
+// layers of two reals a thread (the per-g-point sweeps' bottom state:
+// sw_2stream_gpt's albedo and source, lw_noscat_gpt's transmittance and
+// upward source; ops/rte_kernels.py BOTTOM_STATE_BYTES a level and thread).
+template <typename R>
+inline size_t bottom_state_bytes(int n, int group) { return 2 * sizeof(R) * (size_t)n * group; }
+
 // The launch of the host's plan (ops/_launch.py gpoint_plan): with the sums
 // in the block (one group), mega_launch; else a column's g-points over
 // n_groups blocks of `group` threads (whole warps), grid (ncol, n_groups),

@@ -49,9 +49,20 @@
 //   sums in a fixed order (no atomics); the incident flux is one (ncol,
 //   ngpt) slab per angle, split by weight on the host, or null (zero). The
 //   per-g-point sweep (one angle) takes the emissivity per g-point, (ncol,
-//   ngpt), as the TPU function does, stores each thread's two fluxes per
-//   level and uses no shared memory. The secants and the flux factors are
-//   launch arguments. Nothing of the TPU kernels' structure is kept: no
+//   ngpt), as the TPU function does, and stores each thread's two fluxes per
+//   level: 32 bytes a point if its upward pass read its inputs again (4.8
+//   ms at 32768 x 60 x 256), 20 in the bound. Its downward pass already
+//   holds each layer's transmittance and Clough factor, and the source of
+//   the layer's top level from the iteration before, so for the bottom C
+//   layers it also forms the upward source with the upward pass's
+//   expression and keeps it with the transmittance in shared memory (8
+//   bytes a layer and thread; C from the host's plan, ops/rte_kernels.py
+//   lw_noscat_gpt_design, a column of at most C layers whole): 32 - 12 C /
+//   nlay bytes a point, one exp and one divide fewer per cached point, the
+//   same bits. C = 12 ran fastest at 32768 x 60 x 256 (13 within its
+//   spread); from 14 layers (28 KB a block of 256 threads) an SM holds
+//   fewer blocks, which cost more than the bytes saved (PERF.md). The
+//   secants and the flux factors are launch arguments. Nothing of the TPU kernels' structure is kept: no
 //   column blocks, no lane or column padding, no transposed (ncol, nlev)
 //   output.
 #include "common.cuh"
@@ -145,7 +156,11 @@ __global__ void lw_noscat_reduced_kernel(const R* __restrict__ tau,         // (
   }
 }
 
-// The per-g-point sweep, one angle: each thread stores its fluxes.
+// The per-g-point sweep, one angle: each thread stores its fluxes. The
+// downward pass also forms the upward source of each of the bottom ncache
+// layers and keeps it with the layer's transmittance in shared memory,
+// [2][ncache][blockDim.x], which the upward pass reads in place of the
+// layer's inputs.
 template <typename R, bool SPLIT>
 __global__ void lw_noscat_gpt_kernel(const R* __restrict__ tau,         // (nlay, ncol, ngpt)
                                      const R* __restrict__ lay_source,  // (nlay, ncol, ngpt)
@@ -155,53 +170,63 @@ __global__ void lw_noscat_gpt_kernel(const R* __restrict__ tau,         // (nlay
                                      const R* __restrict__ inc_flux,    // (ncol, ngpt) or null
                                      R* __restrict__ flux_up,           // (nlev, ncol, ngpt)
                                      R* __restrict__ flux_dn,
-                                     int nlay, int ncol, int ngpt, R ds, R i2f) {
+                                     int nlay, int ncol, int ngpt, int ncache, R ds, R i2f) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
   const int col = blockIdx.x;
   const int g = gpoint<SPLIT>();
-  const bool active = g < ngpt;
+  if (g >= ngpt) return;  // no level sums and no barrier: an idle thread has nothing to do
   const R one = R(1), two = R(2);
   const size_t stride = (size_t)ncol * ngpt, g0 = (size_t)col * ngpt + g;
+  // cached layer l's transmittance at cache[l * blockDim.x], its upward
+  // source at cache[(ncache + l) * blockDim.x]
+  R* cache = reinterpret_cast<R*>(smem_raw) + threadIdx.x;
+  const size_t up_at = (size_t)ncache * blockDim.x;
   // one level's flux of this thread
-  auto put = [&](R* flux, int lev, R v) {
-    if (active) flux[(size_t)lev * stride + g0] = v * i2f;
-  };
-  // layer l's transmittance and its emission toward the level with source lev_val
-  auto emission = [&](int l, R lev_val, R& trans) {
-    const size_t s = (size_t)l * stride + g0;
-    const R tau_loc = __ldg(tau + s) * ds;
-    trans = r_exp(-tau_loc);
-    const R fact = clough_factor(tau_loc, trans);
-    return (one - trans) * lev_val + two * fact * (__ldg(lay_source + s) - lev_val);
+  auto put = [&](R* flux, int lev, R v) { flux[(size_t)lev * stride + g0] = v * i2f; };
+  // layer l's emission toward the level with source lev_val, from its
+  // transmittance and Clough factor
+  auto emission = [&](R trans, R fact, R lay_val, R lev_val) {
+    return (one - trans) * lev_val + two * fact * (lay_val - lev_val);
   };
 
   // downward, TOA -> surface: layer l emits toward the surface with its
-  // bottom level's source
-  R i_dn = R(0);
-  if (active && inc_flux != nullptr) i_dn = inc_flux[g0] / i2f;
+  // bottom level's source; a cached layer also toward space with its top
+  // level's, the level source the iteration before read (read here for the
+  // top layer)
+  R i_dn = inc_flux != nullptr ? inc_flux[g0] / i2f : R(0);
   put(flux_dn, nlay, i_dn);
+  R lev_top = nlay <= ncache ? __ldg(lev_source + (size_t)nlay * stride + g0) : R(0);
   for (int l = nlay - 1; l >= 0; --l) {
-    if (active) {
-      R trans;
-      const R s_dn = emission(l, __ldg(lev_source + (size_t)l * stride + g0), trans);
-      i_dn = trans * i_dn + s_dn;
+    const size_t s = (size_t)l * stride + g0;
+    const R tau_loc = __ldg(tau + s) * ds;
+    const R trans = r_exp(-tau_loc);
+    const R fact = clough_factor(tau_loc, trans);
+    const R lay_val = __ldg(lay_source + s), lev_val = __ldg(lev_source + s);
+    i_dn = trans * i_dn + emission(trans, fact, lay_val, lev_val);
+    if (l < ncache) {
+      cache[(size_t)l * blockDim.x] = trans;
+      cache[up_at + (size_t)l * blockDim.x] = emission(trans, fact, lay_val, lev_top);
     }
+    lev_top = lev_val;
     put(flux_dn, l, i_dn);
   }
 
   // surface reflection and emission
-  R i_up = R(0);
-  if (active) {
-    const R emis = __ldg(sfc_emis + g0);
-    i_up = i_dn * (one - emis) + emis * __ldg(sfc_source + g0);
-  }
+  const R emis = __ldg(sfc_emis + g0);
+  R i_up = i_dn * (one - emis) + emis * __ldg(sfc_source + g0);
   put(flux_up, 0, i_up);
 
-  // upward: layer l emits toward space with its top level's source
+  // upward: layer l emits toward space with its top level's source; the
+  // cached layers from shared memory
   for (int l = 0; l < nlay; ++l) {
-    if (active) {
-      R trans;
-      const R s_up = emission(l, __ldg(lev_source + (size_t)(l + 1) * stride + g0), trans);
-      i_up = trans * i_up + s_up;
+    if (l < ncache) {
+      i_up = cache[(size_t)l * blockDim.x] * i_up + cache[up_at + (size_t)l * blockDim.x];
+    } else {
+      const size_t s = (size_t)l * stride + g0;
+      const R tau_loc = __ldg(tau + s) * ds;
+      const R trans = r_exp(-tau_loc);
+      const R fact = clough_factor(tau_loc, trans);
+      i_up = trans * i_up + emission(trans, fact, __ldg(lay_source + s), __ldg(lev_source + s + stride));
     }
     put(flux_up, l + 1, i_up);
   }
@@ -263,17 +288,26 @@ extern "C" int rrtmgp_lw_noscat_reduced(const void* tau, const void* lay_source,
 }
 
 // Per g-point, one angle: sfc_emis (ncol, ngpt), fluxes (nlev, ncol, ngpt).
+// ncache: the bottom layers whose transmittance and upward source the
+// downward pass keeps in shared memory, 0 to nlay (else
+// cudaErrorInvalidValue); group, n_groups: the host's launch plan, which
+// counts that memory (bottom_state_bytes).
 extern "C" int rrtmgp_lw_noscat_gpt(const void* tau, const void* lay_source, const void* lev_source,
                                     const void* sfc_source, const void* sfc_emis, const void* inc_flux,
-                                    void* flux_up, void* flux_dn, int nlay, int ncol, int ngpt, int group,
-                                    int n_groups, float ds, float i2f, void* stream) {
+                                    void* flux_up, void* flux_dn, int nlay, int ncol, int ngpt, int ncache,
+                                    int group, int n_groups, float ds, float i2f, void* stream) {
   using namespace rrtmgp;
+  if (ncache < 0 || ncache > nlay) return (int)cudaErrorInvalidValue;
   const Dims d{nlay, ncol, ngpt, 0, 0, 0, 0};
-  const MegaLaunch m = group_launch<float>(d, 0, group, n_groups, n_groups == 1);
+  const MegaLaunch m =
+      group_launch<float>(d, 0, group, n_groups, n_groups == 1, bottom_state_bytes<float>(ncache, group));
   auto kernel = n_groups == 1 ? lw_noscat_gpt_kernel<float, false> : lw_noscat_gpt_kernel<float, true>;
-  kernel<<<m.grid, m.block, 0, (cudaStream_t)stream>>>(
+  cudaError_t err = prepare_smem(kernel, m.smem);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<m.grid, m.block, m.smem, (cudaStream_t)stream>>>(
       (const float*)tau, (const float*)lay_source, (const float*)lev_source, (const float*)sfc_source,
-      (const float*)sfc_emis, (const float*)inc_flux, (float*)flux_up, (float*)flux_dn, nlay, ncol, ngpt, ds, i2f);
+      (const float*)sfc_emis, (const float*)inc_flux, (float*)flux_up, (float*)flux_dn, nlay, ncol, ngpt, ncache,
+      ds, i2f);
   return (int)cudaGetLastError();
 }
 

@@ -62,13 +62,29 @@
 //   the TPU kernels' structure is kept: no column blocks, no lane padding,
 //   no streaming ring buffer.
 //   sw_2stream_gpt is the same transport without the g-point sums, in a
-//   kernel of its own with the SW megakernel's passes (sw_twostream.cuh):
-//   mu0 and the albedos come per g-point, (ncol, ngpt), as the TPU function
-//   takes them; the top-down pass stores the four coefficient arrays and
-//   each level's beam in flux_dir, and the flux pass stores each thread's up
-//   and down flux, (nlev, ncol, ngpt) each; no shared memory. At 32768 x 60
-//   x 224 its outputs are 3 x 1.79 GB beside 3 x 1.76 GB of inputs: 10.7 GB,
-//   3.2 ms at 3.35 TB/s.
+//   kernel of its own with the same three passes: mu0 and the albedos come
+//   per g-point, (ncol, ngpt), as the TPU function takes them, and the
+//   state lives in the thread's own slots of its outputs, (nlev, ncol, ngpt)
+//   each, so the kernel needs no scratch and no shared memory. Pass 1
+//   writes every level's beam to flux_dir; pass 2 reads the beam at each
+//   layer's top from flux_dir[l + 1] and writes the albedo and the source at
+//   level l (0 included) into flux_up[l] and flux_dn[l]; pass 3 reads them
+//   back and overwrites them with up = fd * alb + src and dn = fd + beam,
+//   the beam recomputed (beam *= T0, pass 1's bits), so it reads no
+//   flux_dir. The slots are written and read by one thread, never through
+//   the read-only (__ldg) path, which may serve a stale line. Per point
+//   without g: 8 bytes (tau, the beam), 20 (tau, ssa, the beam, albedo and
+//   source) and 24 (tau, ssa, albedo, source, up, down): 52 B, 22.9 GB at
+//   32768 x 60 x 224, a 6.8 ms floor at 3.35 TB/s (60 B and 7.9 ms with g),
+//   against the bound's 20 B (3 x 1.79 GB of outputs beside 3 x 1.76 GB of
+//   inputs: 10.7 GB, 3.2 ms). The albedo and source of the bottom C levels
+//   (the host's plan, ops/rte_kernels.py sw_2stream_gpt_design) stay in
+//   shared memory instead, 8 bytes a level and thread: 52 - 16 C / nlay B a
+//   point. C = 24 ran fastest at that size; more shared memory a block cost
+//   more resident blocks than the bytes it saved (PERF.md). Storing the coefficients instead (Rdir *
+//   beam, Tdir * beam, Rdif, Tdif in four arrays rewritten by the adding
+//   pass, as the SW megakernel does all-sky) moves 88 B a point and holds
+//   7.0 GB of scratch at that size (PERF.md).
 #include "common.cuh"
 #include "sw_twostream.cuh"
 
@@ -203,8 +219,9 @@ __global__ void sw_2stream_reduced_kernel(const R* __restrict__ tau,        // (
   }
 }
 
-// The per-g-point sweep: the SW megakernel's passes (sw_twostream.cuh) on
-// four coefficient arrays, the beam of every level in flux_dir.
+// The per-g-point sweep: the three passes of Design, each thread's state in
+// its own slots of the outputs (no scratch), the albedo and source of the
+// bottom nsm levels in shared memory, [2][nsm][blockDim.x].
 template <typename R, bool HAS_G, bool SPLIT>
 __global__ void sw_2stream_gpt_kernel(const R* __restrict__ tau,      // (nlay, ncol, ngpt)
                                       const R* __restrict__ ssa,      // (nlay, ncol, ngpt)
@@ -214,49 +231,119 @@ __global__ void sw_2stream_gpt_kernel(const R* __restrict__ tau,      // (nlay, 
                                       const R* __restrict__ alb_dir,  // (ncol, ngpt)
                                       const R* __restrict__ alb_dif,  // (ncol, ngpt)
                                       const R* __restrict__ inc_dif,  // (ncol, ngpt) or null
-                                      R* __restrict__ s_rdir,         // 4 x (nlay, ncol, ngpt)
-                                      R* __restrict__ s_tdir,
-                                      R* __restrict__ s_rdif,
-                                      R* __restrict__ s_tdif,
-                                      R* __restrict__ flux_up,        // 3 x (nlev, ncol, ngpt)
-                                      R* __restrict__ flux_dn,
-                                      R* __restrict__ flux_dir,
-                                      Dims d) {
+                                      R* __restrict__ flux_up,        // 3 x (nlev, ncol, ngpt): albedo, then up
+                                      R* __restrict__ flux_dn,        // source, then diffuse + direct down
+                                      R* __restrict__ flux_dir,       // the beam, written by pass 1
+                                      Dims d, int nsm) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int col = blockIdx.x;
   const int g = gpoint<SPLIT>();
-  const bool active = g < d.ngpt;
+  if (g >= d.ngpt) return;  // no level sums: an idle thread has nothing to add
   const int nlay = d.nlay;
-  const auto sums = level_sums<R, SPLIT>(reinterpret_cast<R*>(smem_raw), nullptr, nlay + 1);  // not added to
-  const size_t g0 = (size_t)col * d.ngpt + g;
-  // this thread's state: layer l at [l * stride]
-  const size_t stride = (size_t)d.ncol * d.ngpt;
-  R *rdir = s_rdir + g0, *tdir = s_tdir + g0, *rdif = s_rdif + g0, *tdif = s_tdif + g0;
-  const R mu0 = active ? __ldg(mu0_gpt + (size_t)col * d.ngpt + g) : R(1);
+  // this thread's (col, g) in every (nlay or nlev, ncol, ngpt) array; layer
+  // or level l at [l * stride]. flux_up / flux_dn / flux_dir are written and
+  // read back by this thread alone, never through the read-only path.
+  const size_t stride = (size_t)d.ncol * d.ngpt, g0 = (size_t)col * d.ngpt + g;
+  const R *tau_p = tau + g0, *ssa_p = ssa + g0, *g_p = HAS_G ? gasym + g0 : nullptr;
+  R *up_p = flux_up + g0, *dn_p = flux_dn + g0, *dir_p = flux_dir + g0;
+  // level l < nsm: its albedo at sm[l * bd], its source at sm[(nsm + l) * bd]
+  R* sm = reinterpret_cast<R*>(smem_raw) + threadIdx.x;
+  const size_t bd = blockDim.x;
+  const R mu0 = __ldg(mu0_gpt + g0);
   const R mu0_safe = r_max(mu0, r_eps<R>());
+  const R beam_toa = __ldg(toa_gpt + g0) * mu0;
 
-  // top-down: coefficients to scratch, the beam in a register and at every
-  // level in flux_dir
-  R beam = active ? __ldg(toa_gpt + (size_t)col * d.ngpt + g) * mu0 : R(0);
-  if (active) flux_dir[((size_t)nlay * d.ncol + col) * d.ngpt + g] = beam;
+  // 1. top-down: the beam of every level to flux_dir
+  R beam = beam_toa;
+  dir_p[(size_t)nlay * stride] = beam;
+  R t1 = nlay > 0 ? __ldg(tau_p + (size_t)(nlay - 1) * stride) : R(0);
   for (int l = nlay - 1; l >= 0; --l) {
-    if (active) {
-      const size_t s = ((size_t)l * d.ncol + col) * d.ngpt + g;
-      const R t = __ldg(tau + s);
-      const R T0 = r_exp(-t / mu0_safe);
+    const size_t s = (size_t)l * stride;
+    const R t = t1;
+    if (l > 0) t1 = __ldg(tau_p + s - stride);
+    beam *= r_exp(-t / mu0_safe);
+    dir_p[s] = beam;
+  }
+
+  // 2. bottom-up adding: each layer's coefficients from tau, ssa (g) and the
+  // beam at its top, flux_dir[l + 1]; the albedo and the source at its
+  // bottom level l to flux_up[l] and flux_dn[l] (the bottom nsm levels to
+  // shared memory)
+  R alb = __ldg(alb_dif + g0);
+  R src = beam * __ldg(alb_dir + g0);
+  if (nlay > 0) {
+    R t_n = __ldg(tau_p), w_n = __ldg(ssa_p), g_n = HAS_G ? __ldg(g_p) : R(0), bt_n = dir_p[stride];
+    for (int l = 0; l < nlay; ++l) {
+      const size_t s = (size_t)l * stride;
+      const R t = t_n, w = w_n, gg = g_n, bt = bt_n;
+      if (l + 1 < nlay) {
+        t_n = __ldg(tau_p + s + stride);
+        w_n = __ldg(ssa_p + s + stride);
+        if (HAS_G) g_n = __ldg(g_p + s + stride);
+        bt_n = dir_p[s + 2 * stride];
+      }
       R Rdir, Tdir, Rdif, Tdif;
-      sw_coeffs(t, __ldg(ssa + s), HAS_G ? __ldg(gasym + s) : R(0), mu0, T0, Rdir, Tdir, Rdif, Tdif);
-      rdir[l * stride] = Rdir * beam;
-      tdir[l * stride] = Tdir * beam;
-      rdif[l * stride] = Rdif;
-      tdif[l * stride] = Tdif;
-      beam *= T0;
-      flux_dir[s] = beam;  // level l: the same offset as layer l
+      sw_coeffs(t, w, gg, mu0, r_exp(-t / mu0_safe), Rdir, Tdir, Rdif, Tdif);
+      if (l < nsm) {
+        sm[l * bd] = alb;
+        sm[(nsm + l) * bd] = src;
+      } else {
+        up_p[s] = alb;
+        dn_p[s] = src;
+      }
+      const R denom = R(1) / (R(1) - Rdif * alb);
+      const R alb_n = Rdif + Tdif * Tdif * alb * denom;
+      const R src_n = Rdir * bt + Tdif * denom * (src + alb * (Tdir * bt));
+      alb = alb_n;
+      src = src_n;
     }
   }
 
-  sw_adding_and_fluxes<true>(d, sums, col, g, active, 0, beam, alb_dir, alb_dif, inc_dif, rdir, tdir, rdif, tdif,
-                             flux_up, flux_dn, flux_dir);
+  // 3. top-down diffuse flux, the coefficients and the beam again; level
+  // l's albedo and source read from its slots, then overwritten by its
+  // fluxes
+  R fd = inc_dif != nullptr ? inc_dif[g0] : R(0);
+  up_p[(size_t)nlay * stride] = fd * alb + src;
+  dn_p[(size_t)nlay * stride] = fd + beam_toa;
+  beam = beam_toa;
+  R t_n = R(0), w_n = R(0), g_n = R(0), a_n = R(0), c_n = R(0);
+  if (nlay > 0) {
+    const size_t s = (size_t)(nlay - 1) * stride;
+    t_n = __ldg(tau_p + s);
+    w_n = __ldg(ssa_p + s);
+    if (HAS_G) g_n = __ldg(g_p + s);
+    if (nlay - 1 < nsm) {
+      a_n = sm[(nlay - 1) * bd];
+      c_n = sm[(nsm + nlay - 1) * bd];
+    } else {
+      a_n = up_p[s];
+      c_n = dn_p[s];
+    }
+  }
+  for (int l = nlay - 1; l >= 0; --l) {
+    const size_t s = (size_t)l * stride;
+    const R t = t_n, w = w_n, gg = g_n, alb_l = a_n, src_l = c_n;
+    if (l > 0) {
+      t_n = __ldg(tau_p + s - stride);
+      w_n = __ldg(ssa_p + s - stride);
+      if (HAS_G) g_n = __ldg(g_p + s - stride);
+      if (l - 1 < nsm) {
+        a_n = sm[(l - 1) * bd];
+        c_n = sm[(nsm + l - 1) * bd];
+      } else {
+        a_n = up_p[s - stride];
+        c_n = dn_p[s - stride];
+      }
+    }
+    const R T0 = r_exp(-t / mu0_safe);
+    R Rdir, Tdir, Rdif, Tdif;
+    sw_coeffs(t, w, gg, mu0, T0, Rdir, Tdir, Rdif, Tdif);
+    const R denom = R(1) / (R(1) - Rdif * alb_l);
+    fd = (Tdif * denom) * fd + denom * (Rdif * src_l + Tdir * beam);
+    beam *= T0;
+    up_p[s] = fd * alb_l + src_l;
+    dn_p[s] = fd + beam;
+  }
 }
 
 // group, n_groups, in_block: the host's launch plan; partials (3, nlev,
@@ -278,13 +365,15 @@ cudaError_t launch_sw_reduced(const Dims& d, int group, int n_groups, bool in_bl
 }
 
 template <typename R, bool HAS_G>
-cudaError_t launch_sw_gpt(const Dims& d, int group, int n_groups, cudaStream_t stream, const R* tau, const R* ssa,
-                          const R* gasym, const R* mu0, const R* toa_gpt, const R* alb_dir, const R* alb_dif,
-                          const R* inc_dif, R* s_rdir, R* s_tdir, R* s_rdif, R* s_tdif, R* up, R* dn, R* dir) {
-  const MegaLaunch m = group_launch<R>(d, 0, group, n_groups, n_groups == 1);
+cudaError_t launch_sw_gpt(const Dims& d, int nsm, int group, int n_groups, cudaStream_t stream, const R* tau,
+                          const R* ssa, const R* gasym, const R* mu0, const R* toa_gpt, const R* alb_dir,
+                          const R* alb_dif, const R* inc_dif, R* up, R* dn, R* dir) {
+  const MegaLaunch m = group_launch<R>(d, 0, group, n_groups, n_groups == 1, bottom_state_bytes<R>(nsm, group));
   auto kernel = n_groups == 1 ? sw_2stream_gpt_kernel<R, HAS_G, false> : sw_2stream_gpt_kernel<R, HAS_G, true>;
-  kernel<<<m.grid, m.block, 0, stream>>>(tau, ssa, gasym, mu0, toa_gpt, alb_dir, alb_dif, inc_dif, s_rdir, s_tdir,
-                                         s_rdif, s_tdif, up, dn, dir, d);
+  cudaError_t err = prepare_smem(kernel, m.smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<m.grid, m.block, m.smem, stream>>>(tau, ssa, gasym, mu0, toa_gpt, alb_dir, alb_dif, inc_dif, up, dn, dir,
+                                              d, nsm);
   return cudaGetLastError();
 }
 
@@ -310,20 +399,23 @@ extern "C" int rrtmgp_sw_2stream_reduced(const void* tau, const void* ssa, const
                      (float*)s_src, (float*)flux_up, (float*)flux_dn, (float*)flux_dir, (float*)partials);
 }
 
-// Per g-point, f32: mu0 and albedos (ncol, ngpt), fluxes (nlev, ncol, ngpt);
-// four scratch arrays (nlay, ncol, ngpt).
+// Per g-point, f32: mu0 and albedos (ncol, ngpt), fluxes (nlev, ncol, ngpt),
+// which also hold the state of the passes: no scratch. nsm: the bottom
+// levels whose albedo and source stay in shared memory, 0 to nlay (else
+// cudaErrorInvalidValue); group, n_groups: the host's launch plan, which
+// counts that memory (bottom_state_bytes).
 extern "C" int rrtmgp_sw_2stream_gpt(const void* tau, const void* ssa, const void* gasym, const void* mu0,
                                      const void* toa_gpt, const void* alb_dir, const void* alb_dif,
-                                     const void* inc_dif, void* s_rdir, void* s_tdir, void* s_rdif,
-                                     void* s_tdif, void* flux_up, void* flux_dn, void* flux_dir, int nlay,
-                                     int ncol, int ngpt, int group, int n_groups, void* stream) {
+                                     const void* inc_dif, void* flux_up, void* flux_dn, void* flux_dir, int nlay,
+                                     int ncol, int ngpt, int nsm, int group, int n_groups, void* stream) {
   using namespace rrtmgp;
+  if (nsm < 0 || nsm > nlay) return (int)cudaErrorInvalidValue;
   const Dims d{nlay, ncol, ngpt, 0, 0, 0, 0};
   auto launch = gasym != nullptr ? launch_sw_gpt<float, true> : launch_sw_gpt<float, false>;
-  return (int)launch(d, group, n_groups, (cudaStream_t)stream, (const float*)tau, (const float*)ssa,
+  return (int)launch(d, nsm, group, n_groups, (cudaStream_t)stream, (const float*)tau, (const float*)ssa,
                      (const float*)gasym, (const float*)mu0, (const float*)toa_gpt, (const float*)alb_dir,
-                     (const float*)alb_dif, (const float*)inc_dif, (float*)s_rdir, (float*)s_tdir, (float*)s_rdif,
-                     (float*)s_tdif, (float*)flux_up, (float*)flux_dn, (float*)flux_dir);
+                     (const float*)alb_dif, (const float*)inc_dif, (float*)flux_up, (float*)flux_dn,
+                     (float*)flux_dir);
 }
 
 namespace rrtmgp {

@@ -6,14 +6,15 @@
 // - four-array passes (sw_adding_and_fluxes): the top-down pass left, per
 //   layer, Rdir * beam, Tdir * beam, Rdif and Tdif in four state arrays,
 //   which the adding pass rewrites for the flux pass (the SW megakernel's
-//   all-sky variants and the per-g-point sweep);
+//   all-sky variants);
 // - recomputed passes (sw_recomputed_passes): the top-down pass left the
 //   beam at each layer's top; the adding and the flux pass compute the
 //   coefficients again from tau and ssa (asymmetry 0), two more state
 //   arrays (the SW megakernel on clear sky, which stores its tau and ssa
 //   beside the beam; the g-summed sweep, the TPU kernel's design, runs the
 //   same passes with an optional asymmetry inline in sw_2stream_reduced.cu,
-//   where a call cost it registers and time, PERF.md).
+//   where a call cost it registers and time, PERF.md, and so does its
+//   per-g-point sweep).
 // Both use the same expressions in the same order, so every path agrees to
 // the last bit on equal optics.
 #pragma once
@@ -71,12 +72,7 @@ __device__ __forceinline__ void sw_coeffs(R tau, R ssa, R g, R mu0, R T0, R& Rdi
 //   then, with the sums in the block (LevelSumsT), the block writes flux_up,
 //   flux_dn (diffuse + direct) and flux_dir, each (nlev, ncol); partials
 //   across blocks are completed by finish_level_sums (SUMS_SW).
-// With PER_GPT nothing is summed: the albedos are per g-point, (ncol, ngpt),
-// the fluxes (nlev, ncol, ngpt); the caller has stored the direct beam of
-// every level in flux_dir, and each thread stores its own flux_up and
-// flux_dn (diffuse + the direct beam it reads back). `sums` and `band` are
-// not used then.
-template <bool PER_GPT = false, typename R, typename Sums>
+template <typename R, typename Sums>
 __device__ __forceinline__ void sw_adding_and_fluxes(const Dims& d, const Sums& sums, int col, int g, bool active,
                                                      int band, R beam,
                                                      const R* __restrict__ alb_dir,  // (nbnd, ncol)
@@ -86,19 +82,10 @@ __device__ __forceinline__ void sw_adding_and_fluxes(const Dims& d, const Sums& 
                                                      R* __restrict__ flux_up, R* __restrict__ flux_dn,
                                                      R* __restrict__ flux_dir) {
   const int nlay = d.nlay, nlev = d.nlay + 1, ncol = d.ncol;
-  // the state's layer l and the per-g-point fluxes' level l of (col, g) at
-  // l * fstride (+ g0)
+  // the state's layer l of (col, g) at l * fstride (+ g0)
   const size_t fstride = (size_t)ncol * d.ngpt, g0 = (size_t)col * d.ngpt + g;
-  R alb0 = R(0), src0 = R(0);
-  if constexpr (PER_GPT) {
-    if (active) {
-      alb0 = __ldg(alb_dif + g0);
-      src0 = beam * __ldg(alb_dir + g0);
-    }
-  } else {
-    alb0 = active ? __ldg(alb_dif + (size_t)band * ncol + col) : R(0);
-    src0 = active ? beam * __ldg(alb_dir + (size_t)band * ncol + col) : R(0);
-  }
+  const R alb0 = active ? __ldg(alb_dif + (size_t)band * ncol + col) : R(0);
+  const R src0 = active ? beam * __ldg(alb_dir + (size_t)band * ncol + col) : R(0);
   R alb = alb0, src = src0;
   if (active) {
     for (int l = 0; l < nlay; ++l) {
@@ -117,16 +104,8 @@ __device__ __forceinline__ void sw_adding_and_fluxes(const Dims& d, const Sums& 
   }
 
   R fd = (active && inc_dif != nullptr) ? inc_dif[g0] : R(0);
-  if constexpr (PER_GPT) {
-    if (active) {
-      const size_t o = (size_t)nlay * fstride + g0;
-      flux_up[o] = fd * alb + src;
-      flux_dn[o] = fd + flux_dir[o];
-    }
-  } else {
-    sums.add(SW_UP, nlay, active ? fd * alb + src : R(0));
-    sums.add(SW_DN_DIF, nlay, fd);
-  }
+  sums.add(SW_UP, nlay, active ? fd * alb + src : R(0));
+  sums.add(SW_DN_DIF, nlay, fd);
   for (int l = nlay - 1; l >= 0; --l) {
     R up = R(0);
     if (active) {
@@ -135,19 +114,12 @@ __device__ __forceinline__ void sw_adding_and_fluxes(const Dims& d, const Sums& 
       const R alb_l = l == 0 ? alb0 : rdir[s - fstride];
       const R src_l = l == 0 ? src0 : tdir[s - fstride];
       up = fd * alb_l + src_l;
-      if constexpr (PER_GPT) {
-        const size_t o = (size_t)l * fstride + g0;
-        flux_up[o] = up;
-        flux_dn[o] = fd + flux_dir[o];
-      }
     }
-    if constexpr (!PER_GPT) {
-      sums.add(SW_UP, l, up);
-      sums.add(SW_DN_DIF, l, fd);
-    }
+    sums.add(SW_UP, l, up);
+    sums.add(SW_DN_DIF, l, fd);
   }
 
-  if constexpr (!PER_GPT && std::is_same<Sums, LevelSumsT<R>>::value) {
+  if constexpr (std::is_same<Sums, LevelSumsT<R>>::value) {
     __syncthreads();
     for (int lev = threadIdx.x; lev < nlev; lev += blockDim.x) {
       const size_t o = (size_t)lev * ncol + col;

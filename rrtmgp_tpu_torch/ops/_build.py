@@ -71,9 +71,9 @@ SIGNATURES = {
     "rrtmgp_lw_noscat_banded": [_P] * 11 + [_I] * 8 + [_P, _P, _P],
     "rrtmgp_sw_2stream_reduced": [_P] * 15 + [_I] * 7 + [_P],
     "rrtmgp_lw_noscat_reduced": [_P] * 10 + [_I] * 7 + [_P, _P, _P],
-    "rrtmgp_lw_noscat_gpt": [_P] * 8 + [_I] * 5 + [_F, _F, _P],
+    "rrtmgp_lw_noscat_gpt": [_P] * 8 + [_I] * 6 + [_F, _F, _P],
     "rrtmgp_lw_2stream_reduced": [_P] * 13 + [_I] * 8 + [_P],
-    "rrtmgp_sw_2stream_gpt": [_P] * 15 + [_I] * 5 + [_P],
+    "rrtmgp_sw_2stream_gpt": [_P] * 11 + [_I] * 6 + [_P],
     "rrtmgp_interp_pt_eta": [_P] * 13 + [_I] * 10 + [_P],
     "rrtmgp_interp_minor": [_P] * 20 + [_I] * 11 + [_P],
 }

@@ -24,9 +24,12 @@ Summed over g-points, (nlay+1, ncol), as the solves use them:
 Per g-point, (nlay+1, ncol, ngpt), entry points of their own that no solve
 calls (spectral diagnostics):
 
-- ``sw_2stream_gpt``: SW two-stream sweep (replaces ``sw_2stream_pallas``);
+- ``sw_2stream_gpt``: SW two-stream sweep (replaces ``sw_2stream_pallas``),
+  its state in its outputs, the bottom levels' in shared memory
+  (``sw_2stream_gpt_design``);
 - ``lw_noscat_gpt``: LW no-scattering sweep for one angle (replaces
-  ``lw_noscat_pallas``).
+  ``lw_noscat_pallas``), the bottom layers' upward sources kept from the
+  downward pass in shared memory (``lw_noscat_gpt_design``).
 
 Each wrapper launches its CUDA kernel (``csrc/lw_noscat_banded.cu``,
 ``csrc/lw_noscat_sources.cu``, ``csrc/lw_2stream_reduced.cu``,
@@ -61,7 +64,7 @@ import ctypes
 
 import torch
 
-from . import _build
+from . import _build, _launch
 from ._launch import LAST_PLANS, LaunchPlan, cuda_device, kernel_plan, level_partials, ptr, require, stream
 from .gas_optics import planck_sources_from_bands
 from .rte import intensity_to_flux, lw_2stream, lw_noscat, round_to, sw_2stream
@@ -75,12 +78,6 @@ def _dims(tau: torch.Tensor, name: str) -> tuple[int, int, int]:
     if tau.shape[2] < 1:
         raise ValueError(f"n_gpt={tau.shape[2]}: the kernels take 1 g-point or more")
     return tuple(tau.shape)
-
-
-def _groups(kernel: str, ngpt: int, dev, variant: int = 0) -> tuple[int, int]:
-    """(group, n_groups) of the launch plan of a per-g-point sweep."""
-    plan = kernel_plan(kernel, dev, ngpt, variant=variant)
-    return plan.group, plan.n_groups
 
 
 def sweep_plan(kernel: str, nf: int, nlay: int, ngpt: int, dev, variant: int = 0, per_thread: int = 0) -> LaunchPlan:
@@ -438,6 +435,38 @@ def lw_noscat_reduced_angles(
 lw_noscat_reduced.launches = 0
 
 
+#: bytes a per-g-point sweep keeps in shared memory for each bottom level or
+#: layer it holds there, a thread: two f32 (csrc/common.cuh bottom_state_bytes)
+BOTTOM_STATE_BYTES = 8
+#: bottom layers whose transmittance and upward source lw_noscat_gpt keeps
+#: in shared memory from its downward pass, at most (csrc/lw_noscat_sources.cu;
+#: the fastest of 0-60 at 32768 x 60 x 256 on an H100, PERF.md)
+LW_GPT_LAYERS = 12
+
+
+def _bottom_state_plan(kernel: str, most: int, nlay: int, ngpt: int, device: torch.device, variant: int = 0) -> dict:
+    """How a per-g-point sweep ``kernel`` (instance ``variant``) launches
+    that keeps up to ``most`` bottom levels or layers of its state in
+    shared memory (``BOTTOM_STATE_BYTES`` each, a thread): the number it
+    keeps (a column of fewer whole, fewer where a block of the kernel's
+    plan would not hold them), that memory a block, the launch plan and the
+    block limit of the kernel."""
+    group = kernel_plan(kernel, device, ngpt, variant=variant).group
+    kept = min(most, nlay)
+    if kept:
+        kept = min(kept, _launch.smem_limit(device) // (BOTTOM_STATE_BYTES * group))
+    plan = sweep_plan(kernel, 0, nlay, ngpt, device, variant, per_thread=BOTTOM_STATE_BYTES * kept)
+    return dict(kept=kept, smem=BOTTOM_STATE_BYTES * kept * plan.group, group=plan.group, n_groups=plan.n_groups,
+                max_threads=LAST_PLANS[kernel][1])
+
+
+def lw_noscat_gpt_design(nlay: int, ngpt: int, device: torch.device) -> dict:
+    """How ``lw_noscat_gpt`` launches for ``nlay`` layers and ``ngpt``
+    g-points on ``device``: the bottom layers it keeps in shared memory (at
+    most ``LW_GPT_LAYERS``), see ``_bottom_state_plan``."""
+    return _bottom_state_plan("lw_noscat_gpt", LW_GPT_LAYERS, nlay, ngpt, device)
+
+
 def lw_noscat_gpt_ref(tau, lay_source, lev_source, sfc_source, sfc_emis, ds: float, w_mu: float, inc_flux=None):
     """Plain twin of ``lw_noscat_gpt``: ``ops.rte.lw_noscat``. Any float
     dtype."""
@@ -455,7 +484,8 @@ def lw_noscat_gpt(
 ):
     """LW no-scattering transport for one angle with the fluxes kept per
     g-point (the JAX package's ``lw_noscat_pallas``, same argument order).
-    Returns (flux_up, flux_dn), each (nlay+1, ncol, ngpt)."""
+    Returns (flux_up, flux_dn), each (nlay+1, ncol, ngpt). The kernel keeps
+    the bottom layers of ``lw_noscat_gpt_design`` in shared memory."""
     if tau.device.type == "cpu":
         return lw_noscat_gpt_ref(tau, lay_source, lev_source, sfc_source, sfc_emis, ds, w_mu, inc_flux)
     dev = cuda_device(tau, "lw_noscat_gpt")
@@ -471,11 +501,12 @@ def lw_noscat_gpt(
         require(inc_flux, "inc_flux", (ncol, ngpt), f32, dev)
     up = torch.empty((nlay + 1, ncol, ngpt), dtype=f32, device=dev)
     dn = torch.empty_like(up)
+    design = lw_noscat_gpt_design(nlay, ngpt, dev)
     with torch.cuda.device(dev):
         err = _build.library().rrtmgp_lw_noscat_gpt(
             *map(ptr, (tau, lay_source, lev_source, sfc_source, sfc_emis, inc_flux, up, dn)),
-            nlay, ncol, ngpt, *_groups("lw_noscat_gpt", ngpt, dev), round_to(ds, f32), intensity_to_flux(w_mu, f32),
-            stream(dev),
+            nlay, ncol, ngpt, design["kept"], design["group"], design["n_groups"], round_to(ds, f32),
+            intensity_to_flux(w_mu, f32), stream(dev),
         )
     _build.check(err, "lw_noscat_gpt")
     lw_noscat_gpt.launches += 1
@@ -569,6 +600,21 @@ def lw_2stream_reduced(
 lw_2stream_reduced.launches = 0
 
 
+#: bottom levels whose albedo and source sw_2stream_gpt keeps in shared
+#: memory between its adding and its flux pass, at most
+#: (csrc/sw_2stream_reduced.cu; the fastest of 0-60 at 32768 x 60 x 224 on
+#: an H100, PERF.md)
+SW_GPT_LEVELS = 24
+
+
+def sw_2stream_gpt_design(nlay: int, ngpt: int, device: torch.device, has_g: bool = False) -> dict:
+    """How ``sw_2stream_gpt`` launches for ``nlay`` layers and ``ngpt``
+    g-points on ``device`` (with or without an asymmetry): the bottom
+    levels it keeps in shared memory (at most ``SW_GPT_LEVELS``), see
+    ``_bottom_state_plan``."""
+    return _bottom_state_plan("sw_2stream_gpt", SW_GPT_LEVELS, nlay, ngpt, device, int(has_g))
+
+
 def sw_2stream_gpt_ref(tau, ssa, g, mu0, toa_gpt, alb_dir, alb_dif, inc_flux_diffuse=None):
     """Plain twin of ``sw_2stream_gpt``: ``ops.rte.sw_2stream`` (g None is
     asymmetry 0). Night columns are not zeroed. Any float dtype."""
@@ -589,8 +635,9 @@ def sw_2stream_gpt(
     package's ``sw_2stream_pallas``, same argument order; the asymmetry may
     be None here). Returns (flux_up, flux_dn, flux_dn_dir), each (nlay+1,
     ncol, ngpt); flux_dn includes the direct beam. Night columns are the
-    caller's to zero. The kernel holds four (nlay, ncol, ngpt) scratch
-    tensors while it runs."""
+    caller's to zero. The kernel keeps its state in the outputs, no
+    scratch, and the bottom levels of ``sw_2stream_gpt_design`` in shared
+    memory."""
     if tau.device.type == "cpu":
         return sw_2stream_gpt_ref(tau, ssa, g, mu0, toa_gpt, alb_dir, alb_dif, inc_flux_diffuse)
     dev = cuda_device(tau, "sw_2stream_gpt")
@@ -605,12 +652,12 @@ def sw_2stream_gpt(
         require(g, "g", (nlay, ncol, ngpt), f32, dev)
     if inc_flux_diffuse is not None:
         require(inc_flux_diffuse, "inc_flux_diffuse", (ncol, ngpt), f32, dev)
-    scratch = [torch.empty((nlay, ncol, ngpt), dtype=f32, device=dev) for _ in range(4)]
     fluxes = [torch.empty((nlay + 1, ncol, ngpt), dtype=f32, device=dev) for _ in range(3)]
+    design = sw_2stream_gpt_design(nlay, ngpt, dev, g is not None)
     with torch.cuda.device(dev):
         err = _build.library().rrtmgp_sw_2stream_gpt(
-            *map(ptr, (tau, ssa, g, mu0, toa_gpt, alb_dir, alb_dif, inc_flux_diffuse, *scratch, *fluxes)),
-            nlay, ncol, ngpt, *_groups("sw_2stream_gpt", ngpt, dev, int(g is not None)), stream(dev),
+            *map(ptr, (tau, ssa, g, mu0, toa_gpt, alb_dir, alb_dif, inc_flux_diffuse, *fluxes)),
+            nlay, ncol, ngpt, design["kept"], design["group"], design["n_groups"], stream(dev),
         )
     _build.check(err, "sw_2stream_gpt")
     sw_2stream_gpt.launches += 1

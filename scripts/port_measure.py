@@ -10,6 +10,7 @@ that chip_smoke.py does not print. Run from the repository root:
     python3 scripts/port_measure.py [--root CHECKOUT] lw-sweep
     python3 scripts/port_measure.py [--root CHECKOUT] sw-mega
     python3 scripts/port_measure.py [--root CHECKOUT] lw2-sweep
+    python3 scripts/port_measure.py [--root CHECKOUT] lw-gpt
     python3 scripts/port_measure.py [--root CHECKOUT] aerosol
     python3 scripts/port_measure.py [--root CHECKOUT] planck
 
@@ -58,7 +59,10 @@ imports no JAX.
   else one per angle, summed), solve_lw's LW fluxes with 3 angles on the
   two-kernel and the unfused route, interp_pt_eta for each table,
   interp_minor and the four sweeps from materialized sources on the clear
-  cell, lw_noscat_reduced also at 1 angle with an incident flux and at 3
+  cell (sw_2stream_gpt also with an incident diffuse flux and, at 8192
+  columns, with ssa and g of an all-sky composition, with and without one;
+  lw_noscat_gpt also with an incident flux), lw_noscat_reduced also at 1
+  angle with an incident flux and at 3
   angles with and without one (one launch where the checkout has
   lw_noscat_reduced_angles, else one per angle, summed); lw_clear_mega
   built for f64 on the clear cell in f64; lw2_mega and the composed
@@ -103,7 +107,11 @@ imports no JAX.
   224 g-points), 3 rounds of a median of 7 synchronized calls, the cases
   taking turns within a round, each with the sha256 of its outputs and the
   device scratch of one call (peak allocated during the call less what is
-  allocated after it): sw_2stream_reduced and sw_2stream_gpt, then the
+  allocated after it): sw_2stream_reduced and sw_2stream_gpt, the latter
+  with each number of bottom levels kept in shared memory in
+  ``SW_GPT_DEPTHS`` (set through ``ops.rte_kernels.SW_GPT_LEVELS`` where
+  the checkout has it; every depth gives the same bits), then
+  sw_2stream_gpt's plan (``rte_kernels.sw_2stream_gpt_design``) and the
   ``ptxas`` registers of their kernels. For design variants and ablations
   of sw_2stream_reduced (the parent's four-array passes, a third scratch
   array, the level sums left out): build each in its own checkout and run
@@ -137,6 +145,13 @@ imports no JAX.
   For design variants (the chunk, where the checkpoints live): build each
   in its own checkout and run this mode on each with ``--root``, in turns
   within one call with the parent.
+- ``lw-gpt``: the per-g-point LW no-scattering sweep (K16b) on the clear
+  cell's LW optics and sources (32768 x 60, 256 g-points) with each number
+  of bottom layers kept in shared memory in ``LW_GPT_DEPTHS`` (set through
+  ``ops.rte_kernels.LW_GPT_LAYERS`` where the checkout has it, else the
+  checkout's one design) and with an incident flux, as ``lw2-sweep`` times
+  K14, then the plan (``rte_kernels.lw_noscat_gpt_design``) and the
+  registers. Every depth gives the same bits: equal hashes.
 - ``aerosol``: the MERRA aerosol band sums (K5) on the all-sky cell
   (75748 x 60, LW 16 and SW 14 bands, all species), as ``lw2-sweep`` times
   K14, with the design where the checkout reports it
@@ -159,7 +174,8 @@ imports no JAX.
 - ``kernel-hashes`` also hashes K5 on the all-sky cell (LW and SW, all
   species and a subset) and K14 with an incident flux, with ssa and g of an
   all-sky composition (8192 columns), at 61 layers, at 1100 and 1000
-  g-points (64 x 12) and at 800 layers (512 columns); and K3 (f32 and
+  g-points (64 x 12) and at 800 layers (512 columns), K16a and K16b at
+  those g-point counts and that depth too; and K3 (f32 and
   f64) and K11 on the clear cell's three sets and on three sets of odd
   sizes whose temperatures lie below the table, on every node, inside the
   last interval, on the last node and above it.
@@ -558,19 +574,49 @@ def _incident(like):
     return 0.5 + 0.25 * torch.sin(torch.arange(n, device=cs.DEVICE, dtype=torch.float32)).view(like.shape[1:])
 
 
+def _sw_allsky_gpt_args(L, ncol, nlay):
+    """sw_2stream_gpt's arguments with the ssa and g of an all-sky
+    composition (McICA by seed + aerosols, delta-scaled, at g-point
+    resolution) at ncol x nlay, as chip_smoke.py's sw sweep check builds
+    them (mu0 in [0.05, 1] from seed 5; no incident flux)."""
+    import torch
+
+    from rrtmgp_tpu_torch.models.rrtmgp import _kernel_composition
+    from rrtmgp_tpu_torch.ops import interp, mega
+    from rrtmgp_tpu_torch.ops.mega_inputs import mega_sw_inputs
+
+    sw, atm = L.lookup_sw, cs.allsky_atmosphere(ncol, nlay)
+    _, bcs_sw = cs.boundary_conditions(L.lookup_lw, sw, ncol)
+    gen = torch.Generator(device=cs.DEVICE).manual_seed(5)
+    mu0 = 0.05 + 0.95 * torch.rand(ncol, generator=gen, device=cs.DEVICE)
+    tau, ssa = interp.optics_fused(mega_sw_inputs(sw, atm), sw.kernel_tables)
+    comp = _kernel_composition(sw, atm, L.lookup_sw_cld, L.lookup_sw_aero, None, cs.MCICA_SEED, cs.COL_OFFSET,
+                               None, True, False)[0]
+    tau, ssa, g, _ = mega._compose_ref(comp, sw, tau, ssa, torch.zeros_like(tau))
+    toa_gpt = bcs_sw.toa_flux[:, None] * sw.solar_src_scaled[None, :]
+    return cs.per_gpt_sw_args((tau.contiguous(), ssa.contiguous(), g.contiguous(), mu0, toa_gpt,
+                               bcs_sw.sfc_alb_direct, bcs_sw.sfc_alb_diffuse, sw.kernel_tables.gpt2band, None))
+
+
 def lw2_sweep_hashes(report) -> None:
     """K14 (lw_2stream_reduced) beyond the clear cell: with an incident flux,
     with ssa and g of an all-sky composition (8192 columns), at 61 layers
     (not a multiple of a chunk), at 1100 and 1000 g-points (64 x 12) and at
-    800 layers (512 columns)."""
+    800 layers (512 columns); the per-g-point sweeps K16a and K16b at those
+    g-point counts and that depth too."""
     import torch
 
     from rrtmgp_tpu_torch import AllSkyRadiation, lookup_tables
     from rrtmgp_tpu_torch.ops import rte_kernels
 
-    def sweep(lw, sw, ncol, nlay):
+    def sweep(lw, sw, ncol, nlay, which=1):
         atm = cs.atmosphere(ncol, nlay)
-        return cs.sweep_args(lw, sw, atm, *cs.boundary_conditions(lw, sw, ncol))[1]
+        return cs.sweep_args(lw, sw, atm, *cs.boundary_conditions(lw, sw, ncol))[which]
+
+    def per_gpt(tag, lw, sw, ncol, nlay):
+        k16a, k16b = (sweep(lw, sw, ncol, nlay, which) for which in (3, 4))
+        report(f"sw_2stream_gpt {tag}", lambda: rte_kernels.sw_2stream_gpt(*k16a))
+        report(f"lw_noscat_gpt {tag}", lambda: rte_kernels.lw_noscat_gpt(*k16b))
 
     lw, sw = cs.lookups(256, 16, 224, 14)
     k14 = sweep(lw, sw, cs.NCOL, cs.NLAY)
@@ -593,8 +639,11 @@ def lw2_sweep_hashes(report) -> None:
         report(f"lw_2stream_reduced {ngpt} g-points", lambda: rte_kernels.lw_2stream_reduced(*k14))
         report(f"lw_2stream_reduced {ngpt} g-points with incident flux", lambda: rte_kernels.lw_2stream_reduced(
             *k14[:7], _incident(k14[0])))
+        per_gpt(f"{ngpt} g-points", *cs.lookups(ngpt, 4, ngpt, 4), 64, 12)
     k14 = sweep(lw, sw, 512, 800)
     report("lw_2stream_reduced 800 layers", lambda: rte_kernels.lw_2stream_reduced(*k14))
+    del k14
+    per_gpt("800 layers", lw, sw, 512, 800)
 
 
 def _device_ms(fn, reps: int = 20) -> float:
@@ -778,7 +827,10 @@ def kernel_hashes() -> None:
     del inc
     report("lw_2stream_reduced", lambda: rte_kernels.lw_2stream_reduced(*k14))
     report("sw_2stream_gpt", lambda: rte_kernels.sw_2stream_gpt(*k16a))
+    report("sw_2stream_gpt with incident diffuse flux", lambda: rte_kernels.sw_2stream_gpt(
+        *k16a[:7], _incident(k16a[0])))
     report("lw_noscat_gpt", lambda: rte_kernels.lw_noscat_gpt(*k16b))
+    report("lw_noscat_gpt with incident flux", lambda: rte_kernels.lw_noscat_gpt(*k16b[:7], _incident(k16b[0])))
     del atm, k13, k14, k16a, k16b
     torch.cuda.empty_cache()
     lw64, sw64 = cs.lookups(256, 16, 224, 14, "float64")
@@ -789,6 +841,12 @@ def kernel_hashes() -> None:
     torch.cuda.empty_cache()
 
     L = lookup_tables(AllSkyRadiation(aerosol_radiation=True), dtype=torch.float32, device=cs.DEVICE)
+    k16a = _sw_allsky_gpt_args(L, cs.TWIN_CHUNK, cs.NLAY)
+    report("sw_2stream_gpt all-sky ssa and g", lambda: rte_kernels.sw_2stream_gpt(*k16a))
+    report("sw_2stream_gpt all-sky ssa and g with incident diffuse flux", lambda: rte_kernels.sw_2stream_gpt(
+        *k16a[:7], _incident(k16a[0])))
+    del k16a
+    torch.cuda.empty_cache()
     lw = L.lookup_lw
     atm = cs.allsky_atmosphere(cs.ALLSKY_NCOL, cs.NLAY)
     bcs_lw, _ = cs.boundary_conditions(lw, L.lookup_sw, cs.ALLSKY_NCOL)
@@ -923,6 +981,33 @@ def _registers(log, kernels, tag):
             say(tag, f"{ROOT} {entry[:72]}: {line.split(':', 1)[1].strip()}")
 
 
+SW_GPT_DEPTHS = (0, 8, 16, 24, 32)  # bottom levels sw_2stream_gpt keeps on chip, as sw-sweep measures them
+LW_GPT_DEPTHS = (0, 8, 12, 16, 32)  # layers lw_noscat_gpt keeps on chip, as lw-gpt measures them
+
+
+def _depth_cases(attr: str, depths, label: str, fn, args) -> list:
+    """(name, call) of a per-g-point sweep ``fn`` on ``args`` with each
+    number of bottom levels or layers in ``depths`` that it keeps in shared
+    memory, set through ``rte_kernels.<attr>`` where the checkout has it
+    (restored after each call), else the checkout's one design."""
+    from rrtmgp_tpu_torch.ops import rte_kernels
+
+    if not hasattr(rte_kernels, attr):
+        return [(f"{label} C=-", lambda: fn(*args))]
+
+    def at(depth):
+        def call():
+            default = getattr(rte_kernels, attr)
+            setattr(rte_kernels, attr, depth)
+            try:
+                return fn(*args)
+            finally:
+                setattr(rte_kernels, attr, default)
+        return call
+
+    return [(f"{label} C={c}", at(c)) for c in depths]
+
+
 def sw_sweep() -> None:
     import torch
 
@@ -935,24 +1020,11 @@ def sw_sweep() -> None:
     del lw, atm, bcs_lw
     torch.cuda.empty_cache()
     k16a = cs.per_gpt_sw_args(k15)
-    cases = [("sw_2stream_reduced (K15)", lambda: rte_kernels.sw_2stream_reduced(*k15)),
-             ("sw_2stream_gpt (K16a)", lambda: rte_kernels.sw_2stream_gpt(*k16a))]
-    ms = {name: [] for name, _ in cases}
-    for _ in range(3):
-        for name, fn in cases:
-            ms[name].append(cs.timed(fn, 7))
-    for name, fn in cases:
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        out = fn()
-        torch.cuda.synchronize()
-        scratch = torch.cuda.max_memory_allocated() - torch.cuda.memory_allocated()
-        h = hashlib.sha256()
-        for t in out:
-            h.update(t.cpu().numpy().tobytes())
-        del out
-        say("sw-sweep", f"{ROOT} {name}: {_fmt(ms[name])} ms, sha256 {h.hexdigest()[:16]}, device scratch of one "
-                        f"call {scratch / 1e9:.3f} GB")
+    _rounds_of("sw-sweep", [("sw_2stream_reduced (K15)", lambda: rte_kernels.sw_2stream_reduced(*k15))]
+               + _depth_cases("SW_GPT_LEVELS", SW_GPT_DEPTHS, "sw_2stream_gpt (K16a)", rte_kernels.sw_2stream_gpt,
+                              k16a))
+    if hasattr(rte_kernels, "sw_2stream_gpt_design"):
+        say("sw-sweep", f"{ROOT} design: {rte_kernels.sw_2stream_gpt_design(cs.NLAY, sw.n_gpt, k15[0].device)}")
     _registers(_build.library_path().with_suffix(".log"), ("sw_2stream_reduced_kernel", "sw_2stream_gpt_kernel"),
                "sw-sweep")
 
@@ -1057,6 +1129,25 @@ def lw2_sweep() -> None:
     if hasattr(rte_kernels, "lw_2stream_reduced_design"):
         say("lw2-sweep", f"{ROOT} design: {rte_kernels.lw_2stream_reduced_design(cs.NLAY, lw.n_gpt, inc.device)}")
     _registers(_build.library_path().with_suffix(".log"), ("lw_2stream_reduced_kernel",), "lw2-sweep")
+
+
+def lw_gpt() -> None:
+    import torch
+
+    from rrtmgp_tpu_torch.ops import _build, rte_kernels
+
+    lw, sw = cs.lookups(256, 16, 224, 14)
+    atm = cs.atmosphere(cs.NCOL, cs.NLAY)
+    k16b = cs.sweep_args(lw, sw, atm, *cs.boundary_conditions(lw, sw, cs.NCOL))[4]
+    del atm
+    torch.cuda.empty_cache()
+    inc = (*k16b[:7], _incident(k16b[0]))
+    label = "lw_noscat_gpt (K16b)"
+    _rounds_of("lw-gpt", _depth_cases("LW_GPT_LAYERS", LW_GPT_DEPTHS, label, rte_kernels.lw_noscat_gpt, k16b)
+               + [(f"{label} with incident flux", lambda: rte_kernels.lw_noscat_gpt(*inc))])
+    if hasattr(rte_kernels, "lw_noscat_gpt_design"):
+        say("lw-gpt", f"{ROOT} design: {rte_kernels.lw_noscat_gpt_design(cs.NLAY, lw.n_gpt, inc[0].device)}")
+    _registers(_build.library_path().with_suffix(".log"), ("lw_noscat_gpt_kernel",), "lw-gpt")
 
 
 def aerosol() -> None:
@@ -1186,7 +1277,7 @@ def main() -> None:
                      ("profile-two-kernel", profile_two_kernel), ("profile-sweep", profile_sweep),
                      ("kernel-hashes", kernel_hashes), ("megakernels", megakernels), ("gather", gather),
                      ("sw-sweep", sw_sweep), ("lw-sweep", lw_sweep), ("sw-mega", sw_mega),
-                     ("lw2-sweep", lw2_sweep), ("aerosol", aerosol), ("planck", planck)):
+                     ("lw2-sweep", lw2_sweep), ("lw-gpt", lw_gpt), ("aerosol", aerosol), ("planck", planck)):
         if name in want:
             fn()
 

@@ -968,6 +968,47 @@ def test_sweep_kernels_match_twins(cuda, ngpt, nbnd, ncol, nlay):
                          "sw_2stream_reduced": 1}
 
 
+@pytest.mark.parametrize("ngpt,nbnd,ncol,nlay", [(36, 4, 1000, 30), (256, 16, 257, 60), (5, 5, 3, 2),
+                                                 (1100, 4, 7, 3), (256, 16, 9, 800)])
+def test_per_gpoint_sweeps_match_twins_at_every_cache_depth(cuda, monkeypatch, ngpt, nbnd, ncol, nlay):
+    """sw_2stream_gpt (its state in its outputs) and lw_noscat_gpt (the
+    bottom layers' upward sources kept from the downward pass) against
+    their twins with and without asymmetry and incident flux, 1100
+    g-points over two blocks, 800 layers; each gives the same bits
+    whatever number of bottom levels or layers it keeps in shared memory
+    (none, one, eight, the plan's most), as its design says."""
+    _, _, _, k16a, k16b = _sweep_case(cuda, ngpt, nbnd, ncol, nlay)
+    no_inc = lambda a: (*a[:-1], None)
+    no_g = (*k16a[:2], None, *k16a[3:])
+    for name, most, cases in (("sw_2stream_gpt", "SW_GPT_LEVELS", (k16a, no_inc(k16a), no_g, no_inc(no_g))),
+                              ("lw_noscat_gpt", "LW_GPT_LAYERS", (k16b, no_inc(k16b)))):
+        fn, ref = getattr(rte_kernels, name), getattr(rte_kernels, f"{name}_ref")
+        for args in cases:
+            out = fn(*args)
+            assert all(o.shape == (nlay + 1, ncol, ngpt) for o in out)
+            assert _rel(out, ref(*args)) <= TOL[name]
+            for depth in (0, 1, 8, nlay):
+                monkeypatch.setattr(rte_kernels, most, depth)
+                assert all(torch.equal(a, b) for a, b in zip(fn(*args), out)), (name, depth)
+            monkeypatch.undo()
+
+
+def test_sw_2stream_gpt_allocates_no_scratch(cuda):
+    """A call of sw_2stream_gpt allocates its three outputs and nothing
+    else (the four (nlay, ncol, ngpt) scratch arrays of the four-array
+    passes would be 63 MB here); lw_noscat_gpt likewise its two."""
+    _, _, _, k16a, k16b = _sweep_case(cuda, 256, 16, 257, 60)
+    for fn, args in ((rte_kernels.sw_2stream_gpt, k16a), (rte_kernels.lw_noscat_gpt, k16b)):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        out = fn(*args)
+        torch.cuda.synchronize()
+        grown = torch.cuda.max_memory_allocated() - before
+        outputs = sum(o.numel() * o.element_size() for o in out)
+        assert outputs <= grown <= outputs + len(out) * 2**20, (fn.__name__, grown, outputs)
+
+
 def test_sweep_kernels_are_deterministic_and_reject_what_they_do_not_take(cuda):
     k13, k14, k15, k16a, k16b = _sweep_case(cuda, 8, 2, 16, 4)
     for fn, args in ((rte_kernels.lw_noscat_reduced, k13), (rte_kernels.lw_2stream_reduced, k14),

@@ -1,12 +1,15 @@
 """Package hygiene of the port: it never imports jax, every module imports
 cleanly, and the public names resolve."""
 
+import ast
 import importlib
 import pkgutil
 import subprocess
 import sys
 import textwrap
 from pathlib import Path
+
+import pytest
 
 import rrtmgp_tpu_torch
 
@@ -23,13 +26,30 @@ def test_import_leaves_no_jax_module():
         for m in pkgutil.walk_packages(rrtmgp_tpu_torch.__path__, prefix="rrtmgp_tpu_torch."):
             importlib.import_module(m.name)
         bad = sorted(m for m in sys.modules
-                     if m == "jax" or m.startswith(("jax.", "jaxlib", "rrtmgp_tpu.")))
+                     if m in ("jax", "rrtmgp_tpu") or m.startswith(("jax.", "jaxlib", "rrtmgp_tpu.")))
         print(",".join(bad))
         sys.exit(1 if bad else 0)
     """)
     # -I: no PYTHONPATH or user site, so nothing but the port can bring jax in
     proc = subprocess.run([sys.executable, "-I", "-c", code], capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, (proc.stdout, proc.stderr[-2000:])
+
+
+@pytest.mark.parametrize("script", ["chip_smoke.py", "scripts/port_measure.py"])
+def test_card_scripts_import_no_jax(script):
+    """The scripts that drive the port on the card (they need CUDA, so they
+    are read here, not imported) import neither jax nor the JAX package,
+    at top level or inside a function."""
+    tree = ast.parse((Path(ROOT) / script).read_text())
+    names = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names += [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names.append(node.module)
+    assert "rrtmgp_tpu_torch" in {n.split(".")[0] for n in names}
+    bad = [n for n in names if n.split(".")[0] in ("jax", "jaxlib", "rrtmgp_tpu")]
+    assert not bad, bad
 
 
 def test_all_modules_import():

@@ -50,6 +50,20 @@
   its last interval, on its last node and above it included; the staged
   bytes are the kernel's.
 
+- ``sw_2stream_gpt`` (csrc/sw_2stream_reduced.cu): K15's three passes per
+  g-point with the state in the three outputs, in place: the beam of every
+  level in ``direct``, each level's albedo and source in ``up`` / ``dn``
+  until the flux pass reads them and overwrites them with the fluxes, the
+  beam recomputed there. Modelled here, it equals the four-array passes
+  bit for bit, f32 and f64, with and without g and incident flux, night
+  columns included, and holds the JAX ``sw_2stream_pallas`` (rtol 2e-4 /
+  atol 2e-4, tests/test_torch_sweeps.py's gate).
+- ``lw_noscat_gpt`` (csrc/lw_noscat_sources.cu): the bottom C layers'
+  transmittance and upward source formed in the downward pass, the level
+  source of a layer's top held from the iteration before. Modelled here,
+  it equals the twin ``lw_noscat_gpt_ref`` bit for bit for every C, f32
+  and f64, and holds the JAX ``lw_noscat_pallas`` (rtol 2e-5 / atol 1e-5).
+
 And the wrappers' checks that the designs add: a table of 2^31 elements or
 more is refused, sw_2stream_reduced's scratch is two arrays, and each C
 entry point takes as many arguments as its ctypes signature lists.
@@ -74,6 +88,7 @@ from rrtmgp_tpu_torch.data.synthetic import synthetic_atmosphere, synthetic_gas_
 from rrtmgp_tpu_torch.ops import _build, _launch, interp, rte_kernels
 from rrtmgp_tpu_torch.ops.gas_optics import planck_bands
 from rrtmgp_tpu_torch.ops.mega_inputs import mega_lw_inputs, mega_sw_inputs
+from rrtmgp_tpu_torch.ops.rte import intensity_to_flux as rte_intensity_to_flux
 from rrtmgp_tpu_torch.ops.rte import lw_2stream_coeffs, round_to, sw_2stream_coeffs
 
 # ---------------------------------------------------------------------------
@@ -247,6 +262,193 @@ def test_sw_sweep_scratch_is_two_arrays():
     assert len(scratch) == 2 and scratch[0].data_ptr() != scratch[1].data_ptr()
     for t in scratch:
         assert t.shape == (5, 7, 9) and t.dtype == torch.float32
+
+
+# ---------------------------------------------------------------------------
+# sw_2stream_gpt: the three passes with the state in the outputs
+# ---------------------------------------------------------------------------
+
+
+def _sw_gpt_in_outputs(x, g, inc, kept=0):
+    """sw_2stream_gpt's design, per g-point and in place: mu0 and the
+    albedos per g-point, (ncol, ngpt); three preallocated (nlev, ncol, ngpt)
+    outputs, NaN until written, hold the state. 1. top-down the beam of
+    every level to ``direct``; 2. bottom-up adding, each layer's
+    coefficients from tau, ssa, g and the beam at its top read back from
+    ``direct[l + 1]``, the albedo and the source at level l written into
+    ``up[l]`` and ``dn[l]`` (the bottom ``kept`` levels' into a store of
+    their own, the kernel's shared memory); 3. top-down flux with the
+    coefficients and the beam computed again (the beam *= T0 of pass 1),
+    level l's albedo and source read back, then up = fd * alb + src and dn
+    = fd + beam written. Returns (up, dn, direct); dn includes the direct
+    beam."""
+    tau, ssa = x["tau"], x["ssa"]
+    nlay, ncol, ngpt = tau.shape
+    adir, adif, _ = _surface(x)
+    mu0 = x["mu0"][:, None].expand(ncol, ngpt)
+    mu0_safe = torch.clamp(mu0, min=torch.finfo(tau.dtype).eps)
+    up, dn, direct = (torch.full((nlay + 1, ncol, ngpt), torch.nan, dtype=tau.dtype) for _ in range(3))
+    shared = {}
+    coeffs = lambda l: sw_2stream_coeffs(tau[l], ssa[l], 0.0 if g is None else g[l], mu0)
+    beam_toa = x["toa_gpt"] * mu0
+    beam = beam_toa
+    direct[nlay] = beam
+    for l in range(nlay - 1, -1, -1):                      # 1.
+        beam = beam * torch.exp(-tau[l] / mu0_safe)
+        direct[l] = beam
+    alb, src = adif, beam * adir
+    for l in range(nlay):                                  # 2.
+        bt = direct[l + 1]
+        Rdir, Tdir, _, Rdif, Tdif = coeffs(l)
+        if l < kept:
+            shared[l] = (alb, src)
+        else:
+            up[l], dn[l] = alb, src
+        denom = 1.0 / (1.0 - Rdif * alb)
+        alb_n = Rdif + Tdif * Tdif * alb * denom
+        src_n = Rdir * bt + Tdif * denom * (src + alb * (Tdir * bt))
+        alb, src = alb_n, src_n
+    fd = torch.zeros_like(beam) if inc is None else inc
+    up[nlay], dn[nlay] = fd * alb + src, fd + beam_toa
+    beam = beam_toa
+    for l in range(nlay - 1, -1, -1):                      # 3.
+        Rdir, Tdir, T0, Rdif, Tdif = coeffs(l)
+        alb_l, src_l = shared[l] if l < kept else (up[l].clone(), dn[l].clone())
+        denom = 1.0 / (1.0 - Rdif * alb_l)
+        fd = (Tdif * denom) * fd + denom * (Rdif * src_l + Tdir * beam)
+        beam = beam * T0
+        up[l], dn[l] = fd * alb_l + src_l, fd + beam
+    return up, dn, direct
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("with_g", [True, False])
+@pytest.mark.parametrize("with_inc", [True, False])
+@pytest.mark.parametrize("kept", [0, 3, 8])
+def test_sw_gpt_state_in_outputs_equals_the_four_array_passes_bit_for_bit(dtype, with_g, with_inc, kept):
+    """The per-g-point sweep's three passes with its state in its outputs
+    (none, 3 or all 8 bottom levels kept apart) give the four-array passes'
+    bits (up; diffuse + direct down, the sum the four-array kernel formed;
+    direct), night columns too."""
+    x = _sw_inputs(dtype)
+    g, inc = (x["g"] if with_g else None), (x["inc"] if with_inc else None)
+    up, dn, direct = _sw_gpt_in_outputs(x, g, inc, kept)
+    ref_up, ref_dn, ref_dir = _sw_four_arrays(x, g, inc)
+    for a, b in ((up, ref_up), (dn, ref_dn + ref_dir), (direct, ref_dir)):
+        torch.testing.assert_close(a, b, rtol=0.0, atol=0.0, equal_nan=True)
+
+
+@pytest.mark.parametrize("with_g", [True, False])
+@pytest.mark.parametrize("with_inc", [True, False])
+def test_sw_gpt_state_in_outputs_holds_jax_sw_2stream_pallas(with_g, with_inc):
+    """The model against the JAX package's sw_2stream_pallas (interpret mode
+    on the CPU, 24 columns in blocks of 8; its asymmetry is not optional, so
+    g = None is held against zeros), rtol 2e-4 / atol 2e-4, the gate of
+    tests/test_torch_sweeps.py for the same kernel."""
+    from rrtmgp_tpu.ops import pallas_rte as jprte
+
+    x = _sw_inputs(torch.float32, night=False, seed=6)
+    g, inc = (x["g"] if with_g else None), (x["inc"] if with_inc else None)
+    adir, adif, _ = _surface(x)
+    ncol, ngpt = x["toa_gpt"].shape
+    J = lambda t: jnp.asarray(t.contiguous().numpy())
+    ref = jprte.sw_2stream_pallas(J(x["tau"]), J(x["ssa"]), J(x["g"] if with_g else torch.zeros_like(x["tau"])),
+                                  J(x["mu0"][:, None].expand(ncol, ngpt)), J(x["toa_gpt"]), J(adir), J(adif),
+                                  None if inc is None else J(inc), block_cols=8)
+    for o, r in zip(_sw_gpt_in_outputs(x, g, inc, 3), ref):
+        np.testing.assert_allclose(o.numpy(), np.asarray(r), rtol=2e-4, atol=2e-4)
+
+
+# ---------------------------------------------------------------------------
+# lw_noscat_gpt: the bottom layers' upward sources kept from the downward pass
+# ---------------------------------------------------------------------------
+
+
+def _lw_gpt_inputs(dtype, ncol=16, nlay=6, ngpt=12, seed=11):
+    rng = np.random.default_rng(seed)
+    f = lambda *shape, lo=0.5, hi=1.5: torch.from_numpy(rng.uniform(lo, hi, shape)).to(dtype)
+    tau = torch.from_numpy(np.abs(rng.normal(0.4, 0.2, (nlay, ncol, ngpt)))).to(dtype)
+    tau[0, :, :3] = 1e-7  # below the Clough threshold: the series branch
+    return dict(tau=tau, lay=f(nlay, ncol, ngpt), lev=f(nlay + 1, ncol, ngpt), sfc=f(ncol, ngpt),
+                emis=f(ncol, ngpt, lo=0.9, hi=1.0), inc=f(ncol, ngpt, lo=0.0, hi=0.3))
+
+
+def _lw_gpt_cached(x, ds, w_mu, inc, cache):
+    """lw_noscat_gpt's design with ``cache`` layers kept (a column of fewer
+    whole): the downward pass forms each layer's transmittance and Clough
+    factor and, for the bottom C layers, also the upward source from the
+    level source of the layer's top, held from the iteration before (read
+    before the loop for the top layer when the column is held whole); the
+    upward pass takes those C layers from the cache and recomputes the
+    rest from tau and the sources. Expressions of ops.rte.lw_noscat."""
+    tau, lay, lev = x["tau"], x["lay"], x["lev"]
+    dtype, nlay = tau.dtype, tau.shape[0]
+    c = min(cache, nlay)
+    tau_thresh = 100.0 * torch.finfo(dtype).eps
+    i2f, ds = rte_intensity_to_flux(w_mu, dtype), round_to(ds, dtype)
+
+    def trans_fact(l):
+        tau_loc = tau[l] * ds
+        trans = torch.exp(-tau_loc)
+        big = tau_loc > tau_thresh
+        fact = torch.where(big, (1.0 - trans) / torch.where(big, tau_loc, 1.0) - trans,
+                           tau_loc * (0.5 + tau_loc * (-1.0 / 3.0 + tau_loc * 0.125)))
+        return trans, fact
+
+    emission = lambda trans, fact, lay_val, lev_val: (1.0 - trans) * lev_val + 2.0 * fact * (lay_val - lev_val)
+    i_dn = [None] * (nlay + 1)
+    i_dn[nlay] = torch.zeros_like(lev[0]) if inc is None else inc / i2f
+    cached = {}
+    lev_top = lev[nlay] if nlay <= c else None
+    for l in range(nlay - 1, -1, -1):
+        trans, fact = trans_fact(l)
+        i_dn[l] = trans * i_dn[l + 1] + emission(trans, fact, lay[l], lev[l])
+        if l < c:
+            cached[l] = (trans, emission(trans, fact, lay[l], lev_top))
+        lev_top = lev[l]
+    i_up = [i_dn[0] * (1.0 - x["emis"]) + x["emis"] * x["sfc"]]
+    for l in range(nlay):
+        if l < c:
+            trans, s_up = cached[l]
+        else:
+            trans, fact = trans_fact(l)
+            s_up = emission(trans, fact, lay[l], lev[l + 1])
+        i_up.append(trans * i_up[l] + s_up)
+    assert len(cached) == c
+    return torch.stack(i_up) * i2f, torch.stack(i_dn) * i2f
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("with_inc", [True, False])
+@pytest.mark.parametrize("cache", ["0", "1", "half", "all", "more"])
+def test_lw_gpt_cached_layers_equal_the_twin_bit_for_bit(dtype, with_inc, cache):
+    """Taking the bottom C layers' transmittance and upward source from the
+    downward pass gives the twin's bits (C = 0, 1, nlay // 2, nlay and
+    nlay + 3, which holds the column whole)."""
+    x = _lw_gpt_inputs(dtype)
+    nlay = x["tau"].shape[0]
+    c = {"0": 0, "1": 1, "half": nlay // 2, "all": nlay, "more": nlay + 3}[cache]
+    inc = x["inc"] if with_inc else None
+    out = _lw_gpt_cached(x, 1.66, 0.5, inc, c)
+    ref = rte_kernels.lw_noscat_gpt_ref(x["tau"], x["lay"], x["lev"], x["sfc"], x["emis"], 1.66, 0.5, inc)
+    for a, b in zip(out, ref):
+        torch.testing.assert_close(a, b, rtol=0.0, atol=0.0)
+
+
+@pytest.mark.parametrize("with_inc", [True, False])
+def test_lw_gpt_cached_layers_hold_jax_lw_noscat_pallas(with_inc):
+    """The model (half the column cached) against the JAX package's
+    lw_noscat_pallas (interpret mode, 16 columns in blocks of 8), rtol 2e-5
+    / atol 1e-5, tests/test_torch_sweeps.py's gate for the same kernel."""
+    from rrtmgp_tpu.ops import pallas_rte as jprte
+
+    x = _lw_gpt_inputs(torch.float32)
+    inc = x["inc"] if with_inc else None
+    J = lambda t: jnp.asarray(t.numpy())
+    ref = jprte.lw_noscat_pallas(J(x["tau"]), J(x["lay"]), J(x["lev"]), J(x["sfc"]), J(x["emis"]), 1.66, 0.5,
+                                 None if inc is None else J(inc), block_cols=8)
+    for o, r in zip(_lw_gpt_cached(x, 1.66, 0.5, inc, x["tau"].shape[0] // 2), ref):
+        np.testing.assert_allclose(o.numpy(), np.asarray(r), rtol=2e-5, atol=1e-5)
 
 
 # ---------------------------------------------------------------------------

@@ -16,6 +16,11 @@ That the kernels write and add the partials in warp order, the bits of the
 in-block sums, shows only on a GPU (tests/test_torch_cuda.py at 1100
 g-points, chip_smoke.py).
 
+The plans of the per-g-point sweeps' shared memory (``rte_kernels.
+sw_2stream_gpt_design``, ``lw_noscat_gpt_design``): the bottom levels or
+layers they keep within [0, nlay], a column that fits whole, the block's
+bytes within the device's limit.
+
 And the plan of the band Planck kernel over the temperature sets of one
 launch (``sets_plan``): every point of every set covered once, by blocks of
 ``span`` consecutive points; sets of 0 points own no block; more than three
@@ -197,6 +202,36 @@ def test_per_thread_bytes_count_against_the_limit():
     assert big == L.LaunchPlan(1024, 1, True) and per * 1024 + L.in_block_bytes(1024, 60, 2, 4) <= H100_OPTIN
     with pytest.raises(ValueError, match="staged"):
         L.gpoint_plan(256, 60, 2, 4, 0, H100_OPTIN, per_thread=H100_OPTIN // 200)
+
+
+GPT_CASES = [(60, 256, 1024, None), (8, 256, 1024, None), (16, 256, 1024, None), (3, 5, 1024, None),
+             (60, 1100, 1024, None), (800, 1000, 800, None), (60, 256, 1024, 8 * 256 * 5),
+             (60, 1024, 1024, 8 * 1024 - 1), (60, 224, 640, 0)]
+
+
+@pytest.mark.parametrize("kernel,most", [("lw_noscat_gpt", "LW_GPT_LAYERS"), ("sw_2stream_gpt", "SW_GPT_LEVELS")])
+@pytest.mark.parametrize("nlay,ngpt,limit_threads,limit", GPT_CASES)
+def test_per_gpoint_sweep_plans_keep_what_fits(monkeypatch, kernel, most, nlay, ngpt, limit_threads, limit):
+    """The per-g-point sweeps keep C of a column's bottom levels or layers
+    of state in shared memory: C in [0, nlay], at most their constant, a
+    column of fewer layers whole, and fewer where the kernel's block would
+    not hold them (the block's bytes within the device's limit, down to
+    none when one does not fit); the launch plan is the kernel's own (1100
+    g-points: two blocks of 576)."""
+    limit = H100_OPTIN if limit is None else limit
+    monkeypatch.setattr(L, "max_threads", lambda kernel, dev, variant=0: limit_threads)
+    monkeypatch.setattr(L, "smem_limit", lambda dev: limit)
+    monkeypatch.setattr(rte_kernels, most, 16)
+    design = getattr(rte_kernels, f"{kernel}_design")(nlay, ngpt, torch.device("cpu"))
+    c, plan = design["kept"], L.gpoint_plan(ngpt, max_threads=limit_threads)
+    per = rte_kernels.BOTTOM_STATE_BYTES
+    assert (design["group"], design["n_groups"]) == (plan.group, plan.n_groups)
+    assert 0 <= c <= min(nlay, 16)
+    assert design["smem"] == per * c * plan.group <= limit
+    assert c == min(nlay, 16) or per * (c + 1) * plan.group > limit
+    if nlay <= 16 and limit == H100_OPTIN:
+        assert c == nlay  # held whole
+    assert design["max_threads"] == limit_threads and L.LAST_PLANS[kernel][0].group == plan.group
 
 
 SET_SIZES = [(1,), (255,), (256,), (257,), (2**20 + 3,), (0,), (255, 256, 257), (0, 257), (257, 0, 1),
