@@ -132,6 +132,26 @@ is non-zero:
    lw_noscat_gpt line the bottom layers it keeps in shared memory, its
    plan, the device scratch of one call and its registers; the
    aerosol_bands line its staged bytes, blocks an SM and registers.
+12. gradients (after the sweep slice, on the clear cell's inputs; then
+   with aerosols on 8192 columns of the all-sky atmosphere after the
+   all-sky slices): differentiable_solve_lw (no-scattering, two-stream)
+   and differentiable_solve_sw with impl=None (the megakernels, K5 with
+   aerosols) and "two_kernel", the gradient of the summed TOA upward LW /
+   surface downward SW flux with respect to t_lay, t_lev, t_sfc and
+   sfc_emis (LW) or t_lay and every SW boundary condition: the forward
+   bitwise equal to solve_lw / solve_sw on the same route, the gradient
+   bitwise equal to torch.autograd.grad through impl="torch" in the same
+   column chunks, the kernels of the route launched; forward and backward
+   ms, the chunk, the backward's peak memory and its elements per
+   (column, layer, g-point); on 4096 columns a backward in chunks of 1024
+   (grad_chunk patched to force them) within 1e-6 of one chunk;
+13. gray (last): RRTMGPSolver(GrayRadiation()) at 32768 x 60 in f32 and
+   f64, LW no-scattering + SW two-stream and LW two-stream + SW direct
+   beam (O'Gorman 2008): update_fluxes() step time, LW TOA down 0, surface
+   up sigma T^4, night columns 0, the direct beam within 1e-3 of
+   Beer-Lambert; then gray_lw_equilibrium in f64 at 9 x 60 (Schneider
+   2004) to the reference's 0.1 K gate, with its steps, seconds and time a
+   step (blocks of 64 steps replayed as CUDA graphs).
 
 The last lines are a JSON object per kernel, the card's name and power
 limit, and {"ok": true, "device": {...}}. Needs CUDA and nvcc; imports no
@@ -140,6 +160,7 @@ JAX.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import statistics
@@ -2053,6 +2074,260 @@ def phase_sweep_allsky(L, atm, bcs_lw) -> None:
     phase(tag, "path A all-sky: cloud cover bitwise on both comparisons, LW TOA dn = 0")
 
 
+# ---------------------------------------------------------------------------
+# Gradients: differentiable_solve_lw / _sw (kernel forward, torch backward)
+# ---------------------------------------------------------------------------
+
+GRAD_CASES = (  # (name, wave, two_stream)
+    ("lw_noscat", "lw", False), ("lw_2stream", "lw", True), ("sw", "sw", False),
+)
+#: kernels of each gradient forward, by route (impl=None: the megakernels)
+GRAD_KERNELS = {
+    (None, "lw_noscat"): ("planck_band", "lw_clear_mega"), (None, "lw_2stream"): ("planck_band", "lw2_mega"),
+    (None, "sw"): ("sw_clear_mega",),
+    ("two_kernel", "lw_noscat"): ("optics_fused", "planck_band_rows", "lw_noscat_banded_reduced"),
+    ("two_kernel", "lw_2stream"): ("optics_fused", "planck_band_rows", "lw_2stream_reduced"),
+    ("two_kernel", "sw"): ("optics_fused", "sw_2stream_reduced"),
+}
+GRAD_CHUNK_TOL = 1e-6           # chunked vs unchunked gradient, of the largest entry
+GRAD_AEROSOL_NCOL = 8192
+
+
+def with_grad(atm, bcs, wave):
+    """The state and BCs with fresh copies of the fields a gradient is taken
+    with respect to, requiring grad, and those copies by name: t_lay, t_lev,
+    t_sfc and sfc_emis for LW; t_lay and every SW boundary condition."""
+    a_names = ("t_lay", "t_lev", "t_sfc") if wave == "lw" else ("t_lay",)
+    b_names = ("sfc_emis",) if wave == "lw" else ("cos_zenith", "toa_flux", "sfc_alb_direct", "sfc_alb_diffuse")
+    leaves = {n: getattr(atm, n).detach().clone().requires_grad_(True) for n in a_names}
+    leaves.update({n: getattr(bcs, n).detach().clone().requires_grad_(True) for n in b_names})
+    atm = dataclasses.replace(atm, **{n: leaves[n] for n in a_names})
+    bcs = dataclasses.replace(bcs, **{n: leaves[n] for n in b_names})
+    return atm, bcs, leaves
+
+
+def grad_loss(flux, wave):
+    """The summed TOA upward LW / surface downward SW flux."""
+    return flux.flux_up[-1].sum() if wave == "lw" else flux.flux_dn[0].sum()
+
+
+@contextlib.contextmanager
+def grad_chunks(force=None):
+    """Record the column chunk of every differentiable-solve backward that
+    runs inside (the value rrtmgp.grad_chunk returns), forcing it to
+    ``force`` when given; yields the list of chunks."""
+    from rrtmgp_tpu_torch.models import rrtmgp
+
+    seen, real = [], rrtmgp.grad_chunk
+
+    def chunk(lkp, as_):
+        seen.append(force or real(lkp, as_))
+        return seen[-1]
+
+    rrtmgp.grad_chunk = chunk
+    try:
+        yield seen
+    finally:
+        rrtmgp.grad_chunk = real
+
+
+def chunked_torch_grad(solve, lkp, atm, bcs, wave, chunk, kw):
+    """torch.autograd.grad of the loss through impl="torch", column chunk by
+    column chunk (the loss is a sum over columns): the backward's reference."""
+    import torch
+
+    from rrtmgp_tpu_torch.states import slice_columns
+
+    atm, bcs, leaves = with_grad(atm, bcs, wave)
+    ncol, total = atm.ncol, None
+    for lo in range(0, ncol, chunk):
+        hi = min(lo + chunk, ncol)
+        flux, _ = solve(lkp, slice_columns(atm, lo, hi, ncol), slice_columns(bcs, lo, hi, ncol), impl="torch", **kw)
+        part = torch.autograd.grad(grad_loss(flux, wave), list(leaves.values()))
+        total = part if total is None else tuple(t + p for t, p in zip(total, part))
+    return total
+
+
+def phase_gradients(lw, sw, atm, bcs_lw, bcs_sw, tag="grad", lkp_aero=None) -> dict:
+    """differentiable_solve_lw (no-scattering, two-stream) and _sw at the
+    state's width, with impl=None (the megakernels) and "two_kernel": the
+    forward bitwise equal to solve_lw / solve_sw on the same route, the
+    gradient of the summed TOA up / surface down flux bitwise equal to
+    torch.autograd.grad through the torch path in the same chunks; forward
+    and backward ms, chunk, peak memory, and the torch path's backward bytes
+    per (column, layer, g-point). Returns the forward launch counts."""
+    import torch
+
+    from rrtmgp_tpu_torch import differentiable_solve_lw, differentiable_solve_sw, solve_lw, solve_sw
+    from rrtmgp_tpu_torch.ops import mega
+    from rrtmgp_tpu_torch.states import slice_columns
+
+    ncol, counts = atm.ncol, {}
+    for impl in (None, "two_kernel"):
+        for name, wave, two_stream in GRAD_CASES:
+            lkp, bcs = (lw, bcs_lw) if wave == "lw" else (sw, bcs_sw)
+            solve = solve_lw if wave == "lw" else solve_sw
+            make = differentiable_solve_lw if wave == "lw" else differentiable_solve_sw
+            kw = dict(two_stream=True) if two_stream else {}
+            if lkp_aero is not None:
+                kw["lkp_aero"] = lkp_aero[wave]
+            f = make(lkp, impl=impl, **kw)
+            # warm-up on the first columns: kernels and the torch path's code warm
+            a, b, leaves = with_grad(slice_columns(atm, 0, CMP_NCOL, ncol), slice_columns(bcs, 0, CMP_NCOL, ncol),
+                                     wave)
+            torch.autograd.grad(grad_loss(f(a, b), wave), list(leaves.values()))
+            a, b, leaves = with_grad(atm, bcs, wave)
+            torch.cuda.synchronize()
+            mega.reset_launch_counts()
+            t0 = time.perf_counter()
+            flux = f(a, b)
+            torch.cuda.synchronize()
+            fwd_ms = 1e3 * (time.perf_counter() - t0)
+            launched = {k: n for k, n in mega.launch_counts().items() if n}
+            for k in GRAD_KERNELS[(impl, name)]:
+                require(launched.get(k, 0) > 0, f"{tag} {name} impl={impl}: {k} not launched in the forward")
+            if lkp_aero is not None and impl is None:
+                require(launched.get("aerosol_bands", 0) > 0, f"{tag} {name}: aerosol_bands not launched")
+            for k, n in launched.items():
+                counts[k] = counts.get(k, 0) + n
+            plain, _ = solve(lkp, atm, bcs, impl=impl, **kw)
+            require(all(torch.equal(x, y) for x, y in zip(flux, plain)),
+                    f"{tag} {name} impl={impl}: the forward differs from the plain solve")
+            loss = grad_loss(flux, wave)
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            with grad_chunks() as seen:
+                t0 = time.perf_counter()
+                grads = torch.autograd.grad(loss, list(leaves.values()))
+                torch.cuda.synchronize()
+                bwd_ms = 1e3 * (time.perf_counter() - t0)
+            peak = torch.cuda.max_memory_allocated()
+            require(len(seen) == 1, f"{tag} {name} impl={impl}: {len(seen)} backward(s) sized a chunk")
+            chunk = seen[0]
+            per_point = (peak - base) / (min(chunk, ncol) * NLAY * lkp.n_gpt * atm.t_lay.element_size())
+            ref = chunked_torch_grad(solve, lkp, atm, bcs, wave, chunk, kw)
+            same = all(torch.equal(g, r) for g, r in zip(grads, ref))
+            require(all(torch.isfinite(g).all() for g in grads), f"{tag} {name}: non-finite gradient")
+            phase(tag, f"{name} impl={impl} at {ncol} x {NLAY}: forward {fwd_ms:.1f} ms (launches {launched}), "
+                       f"backward {bwd_ms:.1f} ms in chunks of {chunk} columns, backward peak {peak / 1e9:.2f} GB "
+                       f"({per_point:.1f} elements per column, layer and g-point above what was allocated), "
+                       f"forward bitwise equal to solve(impl={impl!r}); gradient vs the torch path in the same "
+                       f"chunks bitwise equal: {same}")
+            require(same, f"{tag} {name} impl={impl}: the gradient differs from the chunked torch path")
+            del flux, plain, loss, grads, ref
+            torch.cuda.empty_cache()
+
+    # chunking: a chunked backward equals the unchunked one on CMP_NCOL columns
+    for name, wave, two_stream in GRAD_CASES:
+        lkp, bcs = (lw, bcs_lw) if wave == "lw" else (sw, bcs_sw)
+        make = differentiable_solve_lw if wave == "lw" else differentiable_solve_sw
+        kw = dict(two_stream=True) if two_stream else {}
+        if lkp_aero is not None:
+            kw["lkp_aero"] = lkp_aero[wave]
+        a0, b0 = slice_columns(atm, 0, CMP_NCOL, ncol), slice_columns(bcs, 0, CMP_NCOL, ncol)
+        out = []
+        for chunk in (CMP_NCOL, CMP_NCOL // 4):
+            a, b, leaves = with_grad(a0, b0, wave)
+            with grad_chunks(force=chunk):
+                out.append(torch.autograd.grad(grad_loss(make(lkp, **kw)(a, b), wave), list(leaves.values())))
+        err, rel = rel_err(out[1], out[0])
+        phase(tag, f"{name} on {CMP_NCOL} columns: chunks of {CMP_NCOL // 4} vs one chunk: max|d|={err:.3e} "
+                   f"rel={rel:.3e} (tol {GRAD_CHUNK_TOL:.0e}), bitwise equal: "
+                   f"{all(torch.equal(x, y) for x, y in zip(*out))}")
+        require(rel <= GRAD_CHUNK_TOL, f"{tag} {name}: chunked gradient rel error {rel:.3e}")
+    return counts
+
+
+# ---------------------------------------------------------------------------
+# The gray model
+# ---------------------------------------------------------------------------
+
+GRAY_P0, GRAY_PE = 100000.0, 9000.0
+GRAY_EQ_NCOL = 9
+GRAY_EQ_GATE_K = 0.1            # the reference's equilibrium gate (f64)
+
+
+def phase_gray() -> None:
+    """RRTMGPSolver(GrayRadiation()) at 32768 x 60 in f32 and f64, LW
+    no-scattering and two-stream with SW two-stream and direct beam: step
+    time and the gray oracles (exact Beer-Lambert direct beam within 1e-3,
+    night columns 0, LW TOA down 0 and surface up sigma T^4); then the LW
+    radiative equilibrium in f64 at 9 columns x 60 layers to the reference's
+    0.1 K gate, with its steps, seconds and time per step."""
+    import math
+
+    import numpy as np
+    import torch
+
+    from rrtmgp_tpu_torch import (
+        GrayOpticalThicknessOGorman2008,
+        GrayOpticalThicknessSchneider2004,
+        GrayRadiation,
+        LwBCs,
+        RRTMGPGridParams,
+        RRTMGPParameters,
+        RRTMGPSolver,
+        SwBCs,
+        gray_lw_equilibrium,
+        setup_gray_as_pr_grid,
+    )
+    from rrtmgp_tpu_torch.models.gray import gray_optics_sw
+
+    P = RRTMGPParameters()
+    lat = np.linspace(-90.0, 90.0, NCOL)
+    mu0 = np.cos(np.deg2rad(52.95)) * np.ones(NCOL)
+    mu0[1::7] = -0.2  # night columns
+    for dtype in (torch.float32, torch.float64):
+        atm = setup_gray_as_pr_grid(NLAY, lat, GRAY_P0, GRAY_PE, GrayOpticalThicknessOGorman2008(), P, dtype=dtype,
+                                    device=DEVICE)
+        f = lambda x: torch.as_tensor(x, dtype=dtype, device=DEVICE)
+        bcs_lw = LwBCs(sfc_emis=f(np.ones((1, NCOL))))
+        bcs_sw = SwBCs(cos_zenith=f(mu0), toa_flux=f(np.full(NCOL, 1407.679)),
+                       sfc_alb_direct=f(np.full((1, NCOL), 0.1)), sfc_alb_diffuse=f(np.full((1, NCOL), 0.1)))
+        for two_stream_lw, two_stream_sw in ((False, True), (True, False)):
+            solver = RRTMGPSolver(RRTMGPGridParams(nlay=NLAY, ncol=NCOL, dtype=dtype), GrayRadiation(), P,
+                                  bcs_lw, bcs_sw, atm, two_stream_lw=two_stream_lw, two_stream_sw=two_stream_sw)
+            require(solver.auto_chunk is None, "a gray solver has no auto-chunk")
+            (f_lw, f_sw), ms, lo, hi, peak, launches = timed_steps(solver.update_fluxes, STEPS)
+            for x in (*f_lw, *f_sw):
+                require(torch.isfinite(x).all(), "gray: non-finite flux")
+            require(torch.all(f_lw.flux_dn[-1] == 0.0), "gray: LW TOA down is not 0")
+            sigma_t4 = P.Stefan * atm.t_sfc.double() ** 4
+            lw_rel = ((f_lw.flux_up[0].double() - sigma_t4).abs() / sigma_t4).max().item()
+            require(lw_rel <= (1e-12 if dtype == torch.float64 else 1e-5), f"gray: surface up vs sigma T^4 {lw_rel:.3e}")
+            night = bcs_sw.cos_zenith <= 0
+            require(all(torch.all(x[:, night] == 0.0) for x in f_sw), "gray: night columns are not 0")
+            day = int(torch.nonzero(~night)[0, 0])
+            exact = 1407.679 * mu0[day] * math.exp(-gray_optics_sw(atm)[:, day].double().sum().item() / mu0[day])
+            bl_rel = abs(f_sw.flux_dn_dir[0, day].item() - exact) / exact
+            require(bl_rel < 1e-3, f"gray: direct beam vs Beer-Lambert {bl_rel:.3e}")
+            phase("gray", f"RRTMGPSolver(GrayRadiation()) {str(dtype)[6:]} LW {'two-stream' if two_stream_lw else 'no-scattering'} "
+                          f"+ SW {'two-stream' if two_stream_sw else 'direct beam'} at {NCOL} x {NLAY}: update_fluxes() "
+                          f"median {ms:.3f} ms over {STEPS} steps (min {lo:.3f}, max {hi:.3f}), peak memory "
+                          f"{peak:.2f} GB, kernel launches {launches or 'none (plain torch)'}; oracles: LW TOA down 0, "
+                          f"surface up vs sigma T^4 rel {lw_rel:.2e}, night columns 0, direct beam vs Beer-Lambert "
+                          f"rel {bl_rel:.2e}")
+        del atm, solver, f_lw, f_sw
+        torch.cuda.empty_cache()
+
+    atm = setup_gray_as_pr_grid(NLAY, np.linspace(-90.0, 90.0, GRAY_EQ_NCOL), GRAY_P0, GRAY_PE,
+                                GrayOpticalThicknessSchneider2004(), P, dtype=torch.float64, device=DEVICE)
+    emis = torch.ones(GRAY_EQ_NCOL, dtype=torch.float64, device=DEVICE)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out, T_ex, err, n = gray_lw_equilibrium(atm, emis, P)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    n = int(n)
+    t_error = (T_ex - out.t_lev).abs().max().item()
+    phase("gray", f"gray_lw_equilibrium f64 at {GRAY_EQ_NCOL} x {NLAY}: {n} steps in {seconds:.1f} s "
+                  f"({1e3 * seconds / max(n, 1):.3f} ms a step, blocks of 64 steps as CUDA graphs), flux-gradient "
+                  f"error {err.item():.3e}, max |T_ex - t_lev| {t_error:.4f} K (gate {GRAY_EQ_GATE_K} K)"
+                  + (" - more than 90 s" if seconds > 90 else ""))
+    require(t_error < GRAY_EQ_GATE_K, f"gray equilibrium: {t_error:.4f} K off the analytic profile")
+
+
 def main() -> None:
     import torch
 
@@ -2099,6 +2374,8 @@ def main() -> None:
     sweep = phase_sweep_slice(lw, sw, atm, bcs_lw, bcs_sw)
     launches.update(lw_noscat_reduced=sweep["lw_noscat_reduced"], lw_2stream_reduced=sweep["lw_2stream_reduced"],
                     sw_2stream_gpt=path_c["sw_2stream_gpt"], lw_noscat_gpt=path_c["lw_noscat_gpt"])
+    torch.cuda.empty_cache()
+    grad = phase_gradients(lw, sw, atm, bcs_lw, bcs_sw)
     del atm, bcs_lw, bcs_sw
     torch.cuda.empty_cache()
     f64 = phase_f64_slice(lw64, sw64, atm64, bcs_lw64, bcs_sw64, f32_lw)
@@ -2119,6 +2396,16 @@ def main() -> None:
     launches.update(lw_clear_mega_allsky=noscat["lw_clear_mega"])
     torch.cuda.empty_cache()
     phase_sweep_allsky(L, atm, bcs_lw)
+    del atm, bcs_lw, bcs_sw
+    torch.cuda.empty_cache()
+    atm = allsky_atmosphere(GRAD_AEROSOL_NCOL, NLAY)
+    bcs_lw, bcs_sw = boundary_conditions(L.lookup_lw, L.lookup_sw, GRAD_AEROSOL_NCOL)
+    grad_aerosol = phase_gradients(L.lookup_lw, L.lookup_sw, atm, bcs_lw, bcs_sw, tag="grad-aerosol",
+                                   lkp_aero={"lw": L.lookup_lw_aero, "sw": L.lookup_sw_aero})
+    phase("grad", f"gradient forwards' launches (clear, aerosols): {grad}, {grad_aerosol}")
+    del atm, bcs_lw, bcs_sw
+    torch.cuda.empty_cache()
+    phase_gray()
 
     kernels = [
         {"name": name, "route": "cuda", "source": SOURCES[name][0], "replaces": SOURCES[name][1],

@@ -44,8 +44,10 @@ import torch
 
 from .data.lookups import AerosolLookup, CloudLookup, GasLookup
 from .models import rrtmgp as _solvers
+from .models.gray import solve_gray_lw, solve_gray_sw
 from .parameters import RRTMGPParameters
 from .states import AtmosphericState, LwBCs, SwBCs, get_vmr
+from .utils.datalayouts import domain_view
 
 #: (nlay, ncol, ngpt) tensor-equivalents the f64 auto-chunk budgets per solve:
 #: the JAX package's figure, kept so that both packages choose the same chunk.
@@ -179,14 +181,6 @@ def gas_names_sw() -> list[str]:
     ]
 
 
-def domain_view(isothermal_boundary_layer: bool, data):
-    """``data`` without the isothermal boundary layer (the top layer or
-    level; vertical axis leading) when the grid has one."""
-    if not isothermal_boundary_layer:
-        return data
-    return data[:-1]
-
-
 # ---------------------------------------------------------------------------
 # Solver
 # ---------------------------------------------------------------------------
@@ -219,15 +213,14 @@ class RRTMGPSolver:
         impl: str | None = None,
         fused_optics: bool = True,
     ):
-        if isinstance(radiation_method, GrayRadiation):
-            _not_ported("GrayRadiation (the gray model)", 12)
         if mesh is not None:
             _not_ported("the multi-device column split (mesh)", 14)
         want, got = grid_params.dtype, as_.p_lay.dtype
         if got != want:
             raise TypeError(
                 f"AtmosphericState dtype {got} != grid_params dtype {want}; "
-                "build the state with the grid dtype (e.g. synthetic_atmosphere(dtype=...))"
+                "build the state with the grid dtype (e.g. synthetic_atmosphere(dtype=...), "
+                "setup_gray_as_pr_grid(dtype=...))"
             )
         self.grid_params = grid_params
         self.radiation_method = radiation_method
@@ -251,9 +244,10 @@ class RRTMGPSolver:
             lookups = lookup_tables(radiation_method, data_dir, dtype=want, device=as_.p_lay.device)
         self.lookups = lookups
         #: columns per chunk of every solve, or None: set for f64 problems
-        #: above the memory budget
+        #: above the memory budget (never for the gray model, which has no
+        #: spectral tensors)
         self.auto_chunk: int | None = None
-        if want == torch.float64:
+        if want == torch.float64 and not isinstance(radiation_method, GrayRadiation):
             self._set_auto_chunk()
 
         self.flux_lw: _solvers.FluxLW | None = None
@@ -355,6 +349,11 @@ class RRTMGPSolver:
 
     def update_lw_fluxes(self):
         m = self.radiation_method
+        if isinstance(m, GrayRadiation):
+            up, dn, net = solve_gray_lw(self.as_, self.bcs_lw.sfc_emis[0], self.params,
+                                        two_stream=self.two_stream_lw, n_gauss_angles=self.n_gauss_angles)
+            self.flux_lw = _solvers.FluxLW(up, dn, net)
+            return self.flux_lw
         if isinstance(m, AllSkyRadiationWithClearSkyDiagnostics):
             self.clear_flux_lw, _ = self._lw(cloudy=False)
         self.flux_lw, self.diag_lw = self._lw(cloudy=isinstance(m, _CLOUDY))
@@ -362,6 +361,12 @@ class RRTMGPSolver:
 
     def update_sw_fluxes(self):
         m = self.radiation_method
+        if isinstance(m, GrayRadiation):
+            b = self.bcs_sw
+            self.flux_sw = _solvers.FluxSW(*solve_gray_sw(
+                self.as_, b.cos_zenith, b.toa_flux, b.sfc_alb_direct[0], b.sfc_alb_diffuse[0],
+                two_stream=self.two_stream_sw))
+            return self.flux_sw
         if isinstance(m, AllSkyRadiationWithClearSkyDiagnostics):
             self.clear_flux_sw, _ = self._sw(cloudy=False)
         self.flux_sw, self.diag_sw = self._sw(cloudy=isinstance(m, _CLOUDY))

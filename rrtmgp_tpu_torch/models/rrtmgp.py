@@ -73,17 +73,18 @@ and is invariant to column splits.
 
 from __future__ import annotations
 
-import dataclasses
 import warnings
 from typing import NamedTuple
 
 import torch
+from torch.autograd.function import once_differentiable
 
 from ..angular import angular_discretization
 from ..data.lookups import AerosolLookup, CloudLookup, GasLookup
 from ..ops import rte
 from ..ops.aerosol_bands import aerosol_bands
 from ..ops.aerosol_optics import aerosol_optics_bands
+from ..ops.bounds import at_least
 from ..ops.cloud_optics import (
     build_cloud_mask_mcica,
     cloud_cover_from_mask,
@@ -111,7 +112,7 @@ from ..ops.rte_kernels import (
     lw_noscat_reduced_angles,
     sw_2stream_reduced,
 )
-from ..states import AtmosphericState, LwBCs, SwBCs, slice_columns
+from ..states import AtmosphericState, LwBCs, SwBCs, slice_columns, tree_leaves, tree_unflatten
 
 
 class FluxLW(NamedTuple):
@@ -202,8 +203,7 @@ def _kernel_ready(bcs, cld_mask, dtype):
             x = x.to(dtype)
         return x.contiguous()
 
-    bcs = dataclasses.replace(bcs, **{f.name: ready(getattr(bcs, f.name)) for f in dataclasses.fields(bcs)})
-    return bcs, ready(cld_mask)
+    return tree_unflatten(bcs, [ready(x) for x in tree_leaves(bcs)]), ready(cld_mask)
 
 
 def _apply_metric_scaling(flux, metric_scaling):
@@ -211,18 +211,6 @@ def _apply_metric_scaling(flux, metric_scaling):
     if metric_scaling is None:
         return flux
     return type(flux)(*(f * metric_scaling for f in flux))
-
-
-def _map_tensors(fn, *trees):
-    """``fn`` over the tensors of (nested) tuples of the same structure;
-    None stays None and namedtuples keep their type."""
-    first = trees[0]
-    if isinstance(first, torch.Tensor):
-        return fn(*trees)
-    if isinstance(first, tuple):
-        vals = [_map_tensors(fn, *xs) for xs in zip(*trees)]
-        return type(first)(*vals) if hasattr(first, "_fields") else tuple(vals)
-    return first
 
 
 def solve_chunked(solve_fn, as_: AtmosphericState, bcs, chunk: int, *,
@@ -256,13 +244,9 @@ def solve_chunked(solve_fn, as_: AtmosphericState, bcs, chunk: int, *,
         else:
             part = solve_fn(atm_c, bcs_c)
         if out is None:
-            out = _map_tensors(lambda t: t.new_empty((*t.shape[:-1], ncol)), part)
-
-        def store(whole, piece):
+            out = tree_unflatten(part, [t.new_empty((*t.shape[:-1], ncol)) for t in tree_leaves(part)])
+        for whole, piece in zip(tree_leaves(out), tree_leaves(part)):
             whole[..., lo:hi] = piece
-            return whole
-
-        _map_tensors(store, out, part)
     return out
 
 
@@ -324,8 +308,8 @@ def _aod(lkp_aero, t_b, ts_b, collect_aod, band_axis):
 def _aerosol_props(t_b, ts_b, tsg_b, delta_scaling):
     """(tau, ssa, g) of the raw band sums, delta-scaled when asked."""
     eps = float(torch.finfo(t_b.dtype).eps)
-    g_a = tsg_b / torch.clamp(ts_b, min=eps)
-    ssa_a = ts_b / torch.clamp(t_b, min=eps)
+    g_a = tsg_b / at_least(ts_b, eps)
+    ssa_a = ts_b / at_least(t_b, eps)
     if delta_scaling:
         return delta_scale(t_b, ssa_a, g_a)
     return t_b, ssa_a, g_a
@@ -653,3 +637,132 @@ def solve_sw(
         cld_cover=_cover(cover, cld_mask, dtype), aod_sw_ext=aod_ext, aod_sw_sca=aod_sca
     )
     return _apply_metric_scaling(flux, metric_scaling), diag
+
+
+# ---------------------------------------------------------------------------
+# Gradients: kernel forward, plain-torch backward
+# ---------------------------------------------------------------------------
+
+#: What the torch path's backward holds at its peak per column and (layer,
+#: g-point), in elements of the state's dtype, above what was allocated
+#: before it: measured 32.6 (LW no-scattering), 47.8 (LW two-stream) and
+#: 84.0 (SW) on clear sky, 69.7 and 96.9 (LW two-stream, SW) with aerosols,
+#: at 60 layers on an NVIDIA H100 80GB HBM3 (chip_smoke.py, PERF.md); the
+#: largest, rounded up.
+GRAD_ELEMENTS_PER_POINT = 100
+#: share of the card's free memory a backward chunk may fill
+GRAD_MEMORY_SHARE = 0.8
+
+
+def grad_chunk(lkp: GasLookup, as_: AtmosphericState) -> int:
+    """Columns per chunk of the torch-path backward: the whole width on the
+    CPU; on the card as many as ``GRAD_ELEMENTS_PER_POINT`` per (layer,
+    g-point) element fit in ``GRAD_MEMORY_SHARE`` of its free memory, a
+    power of two below the width when they do not all fit."""
+    ncol, dev = as_.ncol, as_.p_lay.device
+    if dev.type != "cuda":
+        return ncol
+    free = torch.cuda.mem_get_info(dev)[0]
+    per_col = as_.nlay * lkp.n_gpt * GRAD_ELEMENTS_PER_POINT * as_.p_lay.element_size()
+    fit = max(int(GRAD_MEMORY_SHARE * free // per_col), 1)
+    return ncol if fit >= ncol else 1 << (fit.bit_length() - 1)
+
+
+class _KernelForward(torch.autograd.Function):
+    """Fluxes of ``owner``'s solve on the caller's route; their gradient
+    from the torch path at the same primals, over column chunks."""
+
+    @staticmethod
+    def forward(ctx, owner, tree, *leaves):
+        ctx.owner, ctx.tree = owner, tree
+        ctx.save_for_backward(*leaves)
+        as_, bcs = tree_unflatten(tree, leaves)
+        return tuple(owner.solve(owner.lkp, as_, bcs, **owner.kwargs)[0])
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, *cts):
+        owner, leaves = ctx.owner, ctx.saved_tensors
+        want = [i for i, need in enumerate(ctx.needs_input_grad[2:]) if need]
+        grads = [None] * len(leaves)
+        with torch.enable_grad():
+            prim = [x.detach().requires_grad_(i in want) for i, x in enumerate(leaves)]
+            as_, bcs = tree_unflatten(ctx.tree, prim)
+            ncol = as_.ncol
+            chunk = grad_chunk(owner.lkp, as_)
+            scaling = owner.plain_kwargs.get("metric_scaling")
+            for lo in range(0, ncol, chunk):
+                hi = min(lo + chunk, ncol)
+                # the slices are part of the graph: a column tensor's
+                # gradient lands in its columns, a tensor without a column
+                # axis (VmrGM.vmr) sums over the chunks
+                atm_c, bcs_c = slice_columns(as_, lo, hi, ncol), slice_columns(bcs, lo, hi, ncol)
+                kw = dict(owner.plain_kwargs)
+                if scaling is not None:
+                    # cut like a state tensor: only a trailing column axis
+                    kw["metric_scaling"] = slice_columns(scaling, lo, hi, ncol)
+                flux = owner.solve(owner.lkp, atm_c, bcs_c, impl="torch", **kw)[0]
+                part = torch.autograd.grad(
+                    tuple(flux), [prim[i] for i in want], [ct[..., lo:hi] for ct in cts],
+                    allow_unused=True,
+                )
+                for i, g in zip(want, part):
+                    if g is not None:
+                        grads[i] = g if grads[i] is None else grads[i] + g
+        # a tensor the solve does not read (p_lev) gets zeros, as in JAX
+        for i in want:
+            if grads[i] is None:
+                grads[i] = torch.zeros_like(leaves[i])
+        return (None, None, *grads)
+
+
+class DifferentiableSolve:
+    """``f(as_, bcs) -> FluxLW / FluxSW`` whose forward runs the solve on the
+    route ``kwargs`` select and whose backward differentiates the torch path
+    at the same primals (see ``differentiable_solve_lw``)."""
+
+    def __init__(self, solve, flux_type, lkp: GasLookup, kwargs: dict):
+        if "cld_mask" in kwargs or "cld_mask_seed" in kwargs:
+            raise ValueError(
+                "cld_mask / cld_mask_seed: McICA cloud solves are not differentiable through "
+                "the kernel route; differentiate solve_lw / solve_sw(impl='torch') with an "
+                "explicit cld_mask")
+        self.solve, self.flux_type, self.lkp = solve, flux_type, lkp
+        self.kwargs = kwargs
+        # the torch path's arguments: the route's own are dropped, as the
+        # JAX package drops its pallas_* kwargs
+        self.plain_kwargs = {k: v for k, v in kwargs.items() if k not in ("impl", "fused_optics")}
+
+    def __call__(self, as_: AtmosphericState, bcs):
+        tree = (as_, bcs)
+        return self.flux_type(*_KernelForward.apply(self, tree, *tree_leaves(tree)))
+
+
+def differentiable_solve_lw(lkp: GasLookup, **kwargs) -> DifferentiableSolve:
+    """``f(as_, bcs) -> FluxLW`` that autograd differentiates: the forward is
+    ``solve_lw(lkp, as_, bcs, **kwargs)`` on the route ``impl`` and
+    ``fused_optics`` select (on f32 CUDA tensors with ``impl=None`` the
+    kernels), the backward ``torch.autograd.grad`` through
+    ``solve_lw(impl="torch")`` at the same primals with every other kwarg.
+    The kernels have no adjoints; the two routes agree to f32 rounding, so
+    the gradient is the torch path's exactly and the kernel forward's to f32
+    accuracy.
+
+    Gradients reach every floating tensor of ``as_`` and ``bcs`` that
+    requires grad, never a lookup. The backward runs over column chunks
+    of ``grad_chunk`` columns (the whole width on the CPU, what fits the
+    card's free memory on CUDA tensors): a column tensor's gradient
+    is written into its columns, a tensor without a column axis (the
+    ``VmrGM.vmr`` global means) gets the sum over the chunks.
+
+    McICA is refused: ``cld_mask`` or ``cld_mask_seed`` in ``kwargs`` raise
+    ``ValueError`` (the JAX package asserts, which ``python -O`` strips);
+    differentiate ``solve_lw(impl="torch")`` with an explicit ``cld_mask``
+    for cloudy gradients."""
+    return DifferentiableSolve(solve_lw, FluxLW, lkp, kwargs)
+
+
+def differentiable_solve_sw(lkp: GasLookup, **kwargs) -> DifferentiableSolve:
+    """``f(as_, bcs) -> FluxSW``: kernel-route forward, torch-path backward
+    (see ``differentiable_solve_lw``)."""
+    return DifferentiableSolve(solve_sw, FluxSW, lkp, kwargs)

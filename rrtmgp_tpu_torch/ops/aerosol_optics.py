@@ -19,6 +19,7 @@ import torch
 
 from ..data.lookups import AerosolLookup
 from ..states import AerosolState
+from .bounds import unit_interval
 
 DUST_IDXS = (0, 7, 8, 9, 10)
 SALT_IDXS = (1, 11, 12, 13, 14)
@@ -46,7 +47,7 @@ def rh_loc_factor(rh_levels: torch.Tensor, rh: torch.Tensor):
     idx = torch.searchsorted(rh_levels, rh.contiguous(), right=True)
     loc = torch.clamp(idx - 1, 0, n - 2)
     factor = (rh - rh_levels[loc]) / (rh_levels[loc + 1] - rh_levels[loc])
-    return loc, torch.clamp(factor, 0.0, 1.0)
+    return loc, unit_interval(factor)
 
 
 def aerosol_optics_bands(
@@ -94,3 +95,9 @@ def aerosol_optics_bands(
         if on(i):
             add(tbl.to(dtype)[:, None, None, :], mass[i])
     return tau, tau_ssa, tau_ssag
+
+
+def aerosol_optics_band(lkp: AerosolLookup, aero: AerosolState, rel_hum: torch.Tensor, ibnd: int):
+    """Cumulative aerosol (tau, tau*ssa, tau*ssa*g) of band ``ibnd``, each
+    (nlay, ncol): that band of ``aerosol_optics_bands``."""
+    return tuple(x[..., ibnd] for x in aerosol_optics_bands(lkp, aero, rel_hum))

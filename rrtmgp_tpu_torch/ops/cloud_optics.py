@@ -3,7 +3,8 @@
 
 - ``cloud_optics_bands``: liquid/ice table interpolation in effective radius
   for every band at once, by a gather on the radius grid (the JAX package's
-  one-hot matrix product is TPU-only structure);
+  one-hot matrix product is TPU-only structure); ``cloud_optics_band``,
+  one band of it;
 - ``delta_scale``, ``increment_2stream``: two-stream property algebra;
 - ``build_cloud_mask_mcica``: the max-random-overlap McICA mask drawn from
   the JAX package's off-TPU threefry stream (``ops.threefry``), bit for bit:
@@ -21,6 +22,7 @@ import torch
 from ..data.lookups import CloudLookup
 from ..states import CloudState
 from . import threefry
+from .bounds import at_least
 
 
 def _eps(dtype) -> float:
@@ -33,8 +35,8 @@ def delta_scale(tau, ssa, g):
     f = g * g
     wf = ssa * f
     tau_s = (1.0 - wf) * tau
-    ssa_s = (ssa - wf) / torch.clamp(1.0 - wf, min=eps)
-    g_s = (g - f) / torch.clamp(1.0 - f, min=eps)
+    ssa_s = (ssa - wf) / at_least(1.0 - wf, eps)
+    g_s = (g - f) / at_least(1.0 - f, eps)
     return tau_s, ssa_s, g_s
 
 
@@ -43,8 +45,8 @@ def increment_2stream(tau1, ssa1, g1, tau2, ssa2, g2):
     eps = _eps(tau1.dtype)
     tau = tau1 + tau2
     ssa_w = tau1 * ssa1 + tau2 * ssa2
-    g_out = (tau1 * ssa1 * g1 + tau2 * ssa2 * g2) / torch.clamp(ssa_w, min=eps)
-    ssa_out = ssa_w / torch.clamp(tau, min=eps)
+    g_out = (tau1 * ssa1 * g1 + tau2 * ssa2 * g2) / at_least(ssa_w, eps)
+    ssa_out = ssa_w / at_least(tau, eps)
     return tau, ssa_out, g_out
 
 
@@ -69,7 +71,7 @@ def _rad_interp_bands(table, re, path, rad_lwr, rad_upr, nsize):
     ext = fc1 * lo[0] + fac * hi[0]
     ssa = fc1 * lo[1] + fac * hi[1]
     asy = fc1 * lo[2] + fac * hi[2]
-    tau = torch.clamp(ext * path[..., None], min=0.0)
+    tau = at_least(ext * path[..., None], 0.0)
     tau_ssa = ssa * tau
     tau_ssag = asy * tau_ssa
     active = (path > eps)[..., None]
@@ -94,9 +96,15 @@ def cloud_optics_bands(lkp: CloudLookup, cs: CloudState):
     )
     tau_c = tl + ti
     ssa_c = tl_ssa + ti_ssa
-    g_c = (tl_ssag + ti_ssag) / torch.clamp(ssa_c, min=eps)
-    ssa_c = ssa_c / torch.clamp(tau_c, min=eps)
+    g_c = (tl_ssag + ti_ssag) / at_least(ssa_c, eps)
+    ssa_c = ssa_c / at_least(tau_c, eps)
     return tau_c, ssa_c, g_c
+
+
+def cloud_optics_band(lkp: CloudLookup, cs: CloudState, ibnd: int):
+    """Cloud two-stream properties (tau, ssa, g) of band ``ibnd``, each
+    (nlay, ncol): that band of ``cloud_optics_bands``."""
+    return tuple(x[..., ibnd] for x in cloud_optics_bands(lkp, cs))
 
 
 # ---------------------------------------------------------------------------

@@ -24,6 +24,7 @@ import torch
 
 from ..data.lookups import GasLookup, band_limits_to_gpt2band
 from ..states import AtmosphericState, get_vmr
+from .bounds import nonnegative, unit_interval
 
 
 class PTInterp(NamedTuple):
@@ -295,7 +296,7 @@ def planck_bands(totplnk: torch.Tensor, t: torch.Tensor, t_min: float, t_delta: 
     n = totplnk.shape[0]
     loc = (t - t_min) / t_delta
     j = torch.clamp(torch.floor(loc), 0, n - 2)
-    f = torch.clamp(loc - j, 0.0, 1.0)[..., None]
+    f = unit_interval(loc - j)[..., None]
     jl = j.long()
     return totplnk[jl] * (1.0 - f) + totplnk[jl + 1] * f
 
@@ -337,7 +338,7 @@ def gas_optics_lw(
     eta = compute_eta_interp(lkp, as_.vmr, pt, node_mode=eta_node_mode)
     tau = compute_tau_major(lkp, as_.col_dry, pt, eta)
     tau += compute_tau_minor(lkp, as_.vmr, as_.col_dry, as_.p_lay, as_.t_lay, pt, eta)
-    tau = torch.clamp_(tau, min=0.0)
+    tau = nonnegative(tau)
     pfrac = compute_planck_fraction(lkp, pt, eta)
     return LWOptics(tau=tau, sources=compute_planck_sources(lkp, as_, pfrac))
 
@@ -357,7 +358,7 @@ def sw_tau_ssa(tau_gas, tau_ray) -> SWOptics:
     """Total tau (major + minor ``tau_gas`` plus Rayleigh, clamped at 0) and
     the Rayleigh single-scattering albedo; updates ``tau_gas`` in place to
     save a full-size temporary."""
-    tau = tau_gas.add_(tau_ray).clamp_(min=0.0)
+    tau = nonnegative(tau_gas.add_(tau_ray))
     pos = tau > 0.0
     ssa = torch.where(pos, tau_ray / torch.where(pos, tau, 1.0), 0.0)
     return SWOptics(tau=tau, ssa=ssa)

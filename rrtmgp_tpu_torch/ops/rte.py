@@ -16,6 +16,8 @@ import math
 
 import torch
 
+from .bounds import at_least
+
 
 def _eps(dtype) -> float:
     return float(torch.finfo(dtype).eps)
@@ -123,7 +125,7 @@ def lw_2stream_coeffs(tau, ssa, g, lev_src_bot, lev_src_top):
 
     gamma1 = lw_diff_sec * (1.0 - 0.5 * ssa * (1.0 + g))
     gamma2 = lw_diff_sec * 0.5 * ssa * (1.0 - g)
-    k = torch.sqrt(torch.clamp((gamma1 + gamma2) * (gamma1 - gamma2), min=k_min))
+    k = torch.sqrt(at_least((gamma1 + gamma2) * (gamma1 - gamma2), k_min))
 
     coeff = torch.exp(-2.0 * tau * k)
     rt_term = 1.0 / (k * (1.0 + coeff) + gamma1 * (1.0 - coeff))
@@ -174,7 +176,7 @@ def lw_2stream(
 def sw_noscat(tau: torch.Tensor, mu0: torch.Tensor, toa_flux: torch.Tensor) -> torch.Tensor:
     """Direct-beam extinction; returns flux_dn_dir (nlay+1, *B): the TOA beam
     times exp(-(optical depth above the level) / mu0)."""
-    mu0_safe = torch.clamp(mu0, min=_eps(tau.dtype))
+    mu0_safe = at_least(mu0, _eps(tau.dtype))
     tau_above = torch.flip(torch.cumsum(torch.flip(tau, (0,)), dim=0), (0,))
     tau_to_lev = torch.cat([tau_above, torch.zeros_like(tau_above[:1])], dim=0)
     return toa_flux * mu0 * torch.exp(-tau_to_lev / mu0_safe)
@@ -202,7 +204,7 @@ def sw_2stream_coeffs(tau, ssa, g, mu0):
     gamma4 = 1.0 - gamma3
     alpha1 = gamma1 * gamma4 + gamma2 * gamma3   # Eq 16
     alpha2 = gamma1 * gamma3 + gamma2 * gamma4   # Eq 17
-    k = torch.sqrt(torch.clamp((gamma1 - gamma2) * (gamma1 + gamma2), min=k_min))
+    k = torch.sqrt(at_least((gamma1 - gamma2) * (gamma1 + gamma2), k_min))
 
     exp_minusktau = torch.exp(-tau * k)
     exp_minus2ktau = exp_minusktau * exp_minusktau
@@ -211,7 +213,7 @@ def sw_2stream_coeffs(tau, ssa, g, mu0):
     Rdif = rt_term * gamma2 * (1.0 - exp_minus2ktau)  # Eq 25
     Tdif = rt_term * 2.0 * k * exp_minusktau          # Eq 26
 
-    T0 = torch.exp(-tau / torch.clamp(mu0, min=eps))  # direct transmittance
+    T0 = torch.exp(-tau / at_least(mu0, eps))  # direct transmittance
 
     k_mu = k * mu0
     k_gamma3 = k * gamma3
@@ -233,8 +235,9 @@ def sw_2stream_coeffs(tau, ssa, g, mu0):
         - 2.0 * (k_gamma4 + alpha1 * k_mu) * exp_minusktau
     )
     # energy conservation clamps (Hogan/Ukkonen)
-    Rdir = torch.clamp(torch.minimum(Rdir_unc, 1.0 - T0), min=0.0)
-    Tdir = torch.clamp(torch.minimum(Tdir_unc, 1.0 - T0 - Rdir), min=0.0)
+    zero = tau.new_zeros(())
+    Rdir = torch.maximum(zero, torch.minimum(Rdir_unc, 1.0 - T0))
+    Tdir = torch.maximum(zero, torch.minimum(Tdir_unc, 1.0 - T0 - Rdir))
     return Rdir, Tdir, T0, Rdif, Tdif
 
 
@@ -282,7 +285,7 @@ def sw_2stream(
     reference.
     """
     dtype = tau.dtype
-    mu0_safe = torch.clamp(mu0, min=_eps(dtype))
+    mu0_safe = at_least(mu0, _eps(dtype))
     nlay = tau.shape[0]
     batch = torch.broadcast_shapes(tau.shape[1:], mu0.shape, toa_flux.shape)
     lev = (tau[0], batch)

@@ -8,6 +8,8 @@ from __future__ import annotations
 
 import dataclasses
 
+import torch
+
 
 @dataclasses.dataclass(frozen=True)
 class RRTMGPParameters:
@@ -32,3 +34,8 @@ class RRTMGPParameters:
     @property
     def cp_d(self) -> float:
         return self.R_d / self.kappa_d
+
+
+def pow_fast(x: torch.Tensor, y) -> torch.Tensor:
+    """x ** y as exp(y * log(x)), the reference's fast power."""
+    return torch.exp(y * torch.log(x))

@@ -12,6 +12,7 @@ import dataclasses
 
 import torch
 
+from .ops.bounds import at_least
 from .parameters import RRTMGPParameters
 
 
@@ -23,16 +24,10 @@ class TensorContainer:
         cast to ``dtype``; integer and bool tensors keep their dtype."""
 
         def move(x):
-            if isinstance(x, torch.Tensor):
-                cast = dtype if dtype is not None and x.is_floating_point() else None
-                return x.to(device=device, dtype=cast)
-            if isinstance(x, TensorContainer):
-                return x.to(device, dtype)
-            return x
+            cast = dtype if dtype is not None and x.is_floating_point() else None
+            return x.to(device=device, dtype=cast)
 
-        return dataclasses.replace(
-            self, **{f.name: move(getattr(self, f.name)) for f in dataclasses.fields(self)}
-        )
+        return tree_unflatten(self, [move(x) for x in tree_leaves(self)])
 
 
 # ---------------------------------------------------------------------------
@@ -163,8 +158,39 @@ class SwBCs(TensorContainer):
 
 
 # ---------------------------------------------------------------------------
-# Column maps
+# Tree walks and column maps
 # ---------------------------------------------------------------------------
+
+
+def tree_leaves(tree) -> list:
+    """The tensors of a container, tuple or namedtuple tree (nested), in
+    field order; None and static fields are not leaves."""
+    if isinstance(tree, torch.Tensor):
+        return [tree]
+    if isinstance(tree, TensorContainer):
+        return [x for f in dataclasses.fields(tree) for x in tree_leaves(getattr(tree, f.name))]
+    if isinstance(tree, tuple):
+        return [x for t in tree for x in tree_leaves(t)]
+    return []
+
+
+def tree_unflatten(tree, leaves):
+    """``tree`` with its tensors replaced, in ``tree_leaves`` order, by the
+    items of ``leaves``; containers and namedtuples keep their type."""
+    it = iter(leaves)
+
+    def rebuild(x):
+        if isinstance(x, torch.Tensor):
+            return next(it)
+        if isinstance(x, TensorContainer):
+            return dataclasses.replace(x, **{f.name: rebuild(getattr(x, f.name)) for f in dataclasses.fields(x)})
+        if isinstance(x, tuple):
+            vals = [rebuild(t) for t in x]
+            return type(x)(*vals) if hasattr(x, "_fields") else tuple(vals)
+        return x
+
+    return rebuild(tree)
+
 
 #: boundary-condition fields laid out (ncol, ngpt): the column axis leads
 _COLUMN_LEADING = ("inc_flux", "inc_flux_diffuse")
@@ -253,6 +279,6 @@ def compute_relative_humidity(
     q_lay_min = 1e-7
     mmr_h2o = vmr_h2o * mwd
     q_lay = mmr_h2o / (1.0 + mmr_h2o)
-    q_tmp = torch.clamp(q_lay, min=q_lay_min)
+    q_tmp = at_least(q_lay, q_lay_min)
     es_tmp = torch.exp((17.67 * (t_lay - t_ref)) / (t_lay - 29.65))
-    return torch.clamp(0.01 * (0.263 * p_lay * q_tmp) / es_tmp, min=0.0)
+    return at_least(0.01 * (0.263 * p_lay * q_tmp) / es_tmp, 0.0)

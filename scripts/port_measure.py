@@ -881,9 +881,10 @@ def kernel_hashes() -> None:
     del cases, sw_args, a
     torch.cuda.empty_cache()
     aerosol_hashes(report, L)
-    del L
     torch.cuda.empty_cache()
     lw2_sweep_hashes(report)
+    plain_hashes(report, L)
+    del L
 
     entry = None
     for line in _build.library_path().with_suffix(".log").read_text().splitlines():
@@ -891,6 +892,48 @@ def kernel_hashes() -> None:
             entry = line.split("'")[1]
         elif "Used" in line and entry and any(k in entry for k in REGISTERS_OF):
             say("kernel-hashes", f"{ROOT} {entry[:72]}: {line.split(':', 1)[1].strip()}")
+
+
+def plain_hashes(report, L) -> None:
+    """The plain arithmetic the kernels are held against and the torch path
+    computes, on CMP_NCOL columns: the twins of lw_clear_mega, sw_clear_mega,
+    lw2_mega, lw_2stream_reduced and sw_2stream_reduced on the clear cell,
+    and solve_lw (no-scattering, two-stream) and solve_sw through
+    impl="torch", clear and all-sky (McICA by seed + aerosols). Equal hashes
+    of two checkouts: the same bits from the plain paths."""
+    import torch
+
+    import rrtmgp_tpu_torch
+    from rrtmgp_tpu_torch.ops import mega, rte_kernels
+
+    ncol = cs.CMP_NCOL
+    lw, sw = cs.lookups(256, 16, 224, 14)
+    atm = cs.atmosphere(ncol, cs.NLAY)
+    bcs_lw, bcs_sw = cs.boundary_conditions(lw, sw, ncol)
+    _, k1, k2 = cs.kernel_args(lw, sw, atm, bcs_lw, bcs_sw)
+    plk = cs.plk_fn(lw)
+    report("twin of lw_clear_mega clear", lambda: mega.lw_clear_mega_ref(*k1))
+    report("twin of sw_clear_mega clear", lambda: mega.sw_clear_mega_ref(*k2))
+    report("twin of lw2_mega clear", lambda: mega.lw2_mega_ref(k1[0], k1[1], plk(atm.t_lev), plk(atm.t_sfc),
+                                                              bcs_lw.sfc_emis, None)[:2])
+    _, _, _, _, k15 = cs.two_kernel_args(lw, sw, atm, bcs_lw, bcs_sw)
+    report("twin of sw_2stream_reduced clear", lambda: rte_kernels.sw_2stream_reduced_ref(*k15))
+    k14 = cs.sweep_args(lw, sw, atm, bcs_lw, bcs_sw)[1]
+    report("twin of lw_2stream_reduced clear", lambda: rte_kernels.lw_2stream_reduced_ref(*k14))
+    del k1, k2, k14, k15
+    for kw in ({}, {"two_stream": True}):
+        report(f"solve_lw torch clear {kw}", lambda: rrtmgp_tpu_torch.solve_lw(lw, atm, bcs_lw, impl="torch", **kw)[0])
+    report("solve_sw torch clear", lambda: rrtmgp_tpu_torch.solve_sw(sw, atm, bcs_sw, impl="torch")[0])
+    atm = cs.allsky_atmosphere(ncol, cs.NLAY)
+    bcs_lw, bcs_sw = cs.boundary_conditions(L.lookup_lw, L.lookup_sw, ncol)
+    seeded = dict(cld_mask_seed=cs.MCICA_SEED, col_offset=cs.COL_OFFSET, impl="torch")
+    flat = lambda out: (*out[0], *(x for x in out[1] if x is not None))  # fluxes, cover, AOD
+    for kw in ({}, {"two_stream": True}):
+        report(f"solve_lw torch seed+aerosols {kw}", lambda: flat(rrtmgp_tpu_torch.solve_lw(
+            L.lookup_lw, atm, bcs_lw, lkp_cld=L.lookup_lw_cld, lkp_aero=L.lookup_lw_aero, **seeded, **kw)))
+    report("solve_sw torch seed+aerosols", lambda: flat(rrtmgp_tpu_torch.solve_sw(
+        L.lookup_sw, atm, bcs_sw, lkp_cld=L.lookup_sw_cld, lkp_aero=L.lookup_sw_aero, **seeded)))
+    torch.cuda.empty_cache()
 
 
 GATHER_KERNELS = ("optics_fused_kernel", "lw_clear_mega_kernelIfLb0ELb0ELi0ELb0", "lw_clear_mega_kernelIdLb0ELb0ELi0ELb0",

@@ -235,8 +235,13 @@ def test_what_is_not_ported_raises(monkeypatch):
     grid = rt.RRTMGPGridParams(nlay=NLAY, ncol=NCOL)
     mk = lambda method, **kw: rt.RRTMGPSolver(grid, method, rt.RRTMGPParameters(), bl, bs, atm,
                                               lookups=T_LOOKUPS, **kw)
-    with pytest.raises(NotImplementedError, match="item 12"):
-        mk(rt.GrayRadiation())
+    # the gray model, once refused here (item 12), now runs
+    gray_atm = rt.setup_gray_as_pr_grid(NLAY, torch.linspace(-60.0, 60.0, NCOL), 1e5, 9e3,
+                                        rt.GrayOpticalThicknessOGorman2008(), rt.RRTMGPParameters(), device="cpu")
+    gray = rt.RRTMGPSolver(grid, rt.GrayRadiation(), rt.RRTMGPParameters(), bl, bs, gray_atm)
+    lw, sw = gray.update_fluxes()
+    assert gray.auto_chunk is None and lw.flux_up.shape == sw.flux_dn.shape == (NLAY + 1, NCOL)
+    assert all(torch.isfinite(f).all() for f in (*lw, *sw))
     with pytest.raises(NotImplementedError, match="item 14"):
         mk(rt.ClearSkyRadiation(), mesh=object())
     with pytest.raises(NotImplementedError, match="item 15"):

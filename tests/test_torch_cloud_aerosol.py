@@ -114,6 +114,30 @@ def test_aerosol_optics_bands(dtype, species):
         assert _rel(a, b) <= TOL[dtype], (name, _rel(a, b))
 
 
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_cloud_and_aerosol_optics_band_every_band(dtype):
+    """cloud_optics_band / aerosol_optics_band against the JAX package's
+    one-band functions (gathers both), for every band."""
+    fields = _cloud_inputs(dtype)
+    jl = jsyn.synthetic_cloud_lookup(n_bnd=NBND, dtype=dtype)
+    js = JCloudState(**{k: jnp.asarray(v) for k, v in fields.items()}, ice_rgh=2)
+    tl = convert.cloud_lookup_from_object(jl)
+    ts = CloudState(**{k: torch.from_numpy(v) for k, v in fields.items()}, ice_rgh=2)
+    mass, size, rh = _aerosol_inputs(dtype)
+    ja = jsyn.synthetic_aerosol_lookup(n_bnd=NBND, dtype=dtype)
+    jst = JAerosolState(aero_size=jnp.asarray(size), aero_mass=jnp.asarray(mass))
+    ta = convert.aerosol_lookup_from_object(ja)
+    tst = AerosolState(aero_size=torch.from_numpy(size), aero_mass=torch.from_numpy(mass))
+    for ibnd in range(NBND):
+        for a, b in zip(tcld.cloud_optics_band(tl, ts, ibnd), jcld.cloud_optics_band(jl, js, ibnd)):
+            assert a.shape == (NLAY, NCOL)
+            assert _rel(a, b) <= TOL[dtype], ("cloud", ibnd, _rel(a, b))
+        for a, b in zip(taero.aerosol_optics_band(ta, tst, torch.from_numpy(rh), ibnd),
+                        jaero.aerosol_optics_band(ja, jst, jnp.asarray(rh), ibnd)):
+            assert a.shape == (NLAY, NCOL)
+            assert _rel(a, b) <= TOL[dtype], ("aerosol", ibnd, _rel(a, b))
+
+
 def test_aerosol_species_constants_match():
     for name in ("DUST_IDXS", "SALT_IDXS", "SULFATE_IDX", "BC_RH_IDX", "BC_IDX", "OC_RH_IDX", "OC_IDX"):
         assert tuple(np.atleast_1d(getattr(taero, name))) == tuple(np.atleast_1d(getattr(jaero, name)))

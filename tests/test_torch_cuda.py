@@ -14,8 +14,12 @@ solve_lw / solve_sw (f64, several angles, the SW direct-beam solve), the
 angle loop, the launch counts of solve_lw / solve_sw and
 RRTMGPSolver.update_fluxes, LW two-stream on the two-kernel path, the
 sweep-only route (impl="sweep"), boundary conditions of another dtype
-than the state, and the unfused optics (interp_pt_eta, interp_minor,
-fused_optics=False: equal to the fused optics and route bit for bit). Tolerances as chip_smoke.py: max |kernel - twin|
+than the state, the unfused optics (interp_pt_eta, interp_minor,
+fused_optics=False: equal to the fused optics and route bit for bit),
+differentiable_solve_lw / _sw (kernel forward equal to the plain solve,
+gradient equal to the chunked torch path, bit for bit) and the gray model
+(the equilibrium's CUDA-graph blocks equal to the step-by-step loop bit for
+bit; the gray solver on the card against the CPU). Tolerances as chip_smoke.py: max |kernel - twin|
 / max |twin| <= 1e-6 (Planck, aerosol_bands), 5e-5 (LW no-scattering), 1e-4
 (LW two-stream, SW, their sweeps), 1e-6 (materialized optics, row-layout Planck); in f64 1e-14 (Planck) and 1e-12 (LW no-scattering: the
 same operations, up to the order of the g-point sums and an ulp of exp);
@@ -1710,3 +1714,107 @@ def test_aerosol_bands_stage_what_fits_and_refuse_the_rest(cuda):
     with pytest.raises(ValueError, match="shared memory"):
         ab.aerosol_bands(big, atm.aerosol_state, atm.rel_hum)
     assert _counts() == {}
+
+
+# ---------------------------------------------------------------------------
+# Gradients (kernel forward, torch backward) and the gray model on the card
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("wave,two_stream,impl", [("lw", False, None), ("lw", True, None), ("sw", False, None),
+                                                  ("lw", False, "two_kernel"), ("sw", False, "two_kernel")])
+def test_differentiable_solve_kernel_forward_torch_backward(cuda, monkeypatch, wave, two_stream, impl):
+    """differentiable_solve_lw / _sw on CUDA tensors: the forward launches the
+    route's kernels and equals solve_lw / solve_sw on that route bit for
+    bit; the gradient of the summed TOA up / surface down flux equals
+    torch.autograd.grad through impl="torch" over the same column chunks
+    (grad_chunk patched to 384 of the 1000 columns) bit for bit."""
+    from rrtmgp_tpu_torch import differentiable_solve_lw, differentiable_solve_sw
+    from rrtmgp_tpu_torch.models import rrtmgp
+    from rrtmgp_tpu_torch.states import slice_columns
+
+    ncol, nlay, chunk = 1000, 30, 384
+    monkeypatch.setattr(rrtmgp, "grad_chunk", lambda lkp, as_: chunk)
+    lkp = synthetic_gas_lookup(longwave=wave == "lw", n_gpt=36, n_bnd=4, seed=0 if wave == "lw" else 1,
+                               dtype=np.float32, device=cuda)
+    atm = synthetic_atmosphere(ncol=ncol, nlay=nlay, dtype=np.float32, device=cuda)
+    f = lambda shape, v: torch.full(shape, v, dtype=torch.float32, device=cuda)
+    if wave == "lw":
+        bcs, names, solve, make = LwBCs(sfc_emis=f((4, ncol), 0.98)), ("sfc_emis",), solve_lw, differentiable_solve_lw
+        loss = lambda flux: flux.flux_up[-1].sum()
+    else:
+        bcs = SwBCs(cos_zenith=f((ncol,), 0.6), toa_flux=f((ncol,), 1361.0), sfc_alb_direct=f((4, ncol), 0.2),
+                    sfc_alb_diffuse=f((4, ncol), 0.2))
+        names, solve, make = ("cos_zenith", "sfc_alb_direct"), solve_sw, differentiable_solve_sw
+        loss = lambda flux: flux.flux_dn[0].sum()
+    kw = dict(two_stream=True) if two_stream else {}
+
+    def leaves():
+        a = dataclasses.replace(atm, t_lay=atm.t_lay.clone().requires_grad_(True))
+        b = dataclasses.replace(bcs, **{n: getattr(bcs, n).clone().requires_grad_(True) for n in names})
+        return a, b, [a.t_lay] + [getattr(b, n) for n in names]
+
+    a, b, xs = leaves()
+    mega.reset_launch_counts()
+    flux = make(lkp, impl=impl, **kw)(a, b)
+    assert _counts(), "no kernel launched in the forward"
+    plain, _ = solve(lkp, atm, bcs, impl=impl, **kw)
+    assert all(torch.equal(x, y) for x, y in zip(flux, plain))
+    grads = torch.autograd.grad(loss(flux), xs)
+    a, b, xs = leaves()
+    ref = None
+    for lo in range(0, ncol, chunk):
+        hi = min(lo + chunk, ncol)
+        part_flux, _ = solve(lkp, slice_columns(a, lo, hi, ncol), slice_columns(b, lo, hi, ncol), impl="torch", **kw)
+        part = torch.autograd.grad(loss(part_flux), xs)
+        ref = part if ref is None else tuple(r + p for r, p in zip(ref, part))
+    for g, r in zip(grads, ref):
+        assert torch.isfinite(g).all() and torch.equal(g, r)
+
+
+def test_gray_equilibrium_graph_equals_eager(cuda):
+    """gray_lw_equilibrium in blocks of 64 steps replayed as a CUDA graph
+    equals the step-by-step loop bit for bit, ending on max_steps and on a
+    tolerance reached mid-block."""
+    from rrtmgp_tpu_torch import GrayOpticalThicknessSchneider2004, RRTMGPParameters, gray_lw_equilibrium
+    from rrtmgp_tpu_torch import setup_gray_as_pr_grid
+
+    P = RRTMGPParameters()
+    atm = setup_gray_as_pr_grid(60, np.linspace(-90.0, 90.0, 9), 1e5, 9e3, GrayOpticalThicknessSchneider2004(), P,
+                                dtype=torch.float64, device=cuda)
+    emis = torch.ones(9, dtype=torch.float64, device=cuda)
+    tol_mid = float(gray_lw_equilibrium(atm, emis, P, max_steps=100, block=1)[2]) * (1.0 + 1e-9)
+    for max_steps, tol in ((200, 1e-5), (400, tol_mid)):
+        one = gray_lw_equilibrium(atm, emis, P, max_steps=max_steps, flux_grad_tol=tol, block=1)
+        graph = gray_lw_equilibrium(atm, emis, P, max_steps=max_steps, flux_grad_tol=tol, block=64)
+        assert int(one[3]) == int(graph[3]) <= max_steps
+        for x, y in ((one[0].t_lay, graph[0].t_lay), (one[0].t_lev, graph[0].t_lev), (one[1], graph[1]),
+                     (one[2], graph[2])):
+            assert torch.equal(x, y)
+    assert int(one[3]) <= 101
+
+
+@pytest.mark.parametrize("two_stream", [False, True])
+def test_gray_solver_on_the_card_equals_the_cpu(cuda, two_stream):
+    """RRTMGPSolver(GrayRadiation()) on CUDA tensors against the same solver
+    on the CPU, f64: the same plain-torch operations (1e-12 of the largest
+    flux: CUDA's exp and pow may differ from the CPU's by an ulp)."""
+    from rrtmgp_tpu_torch import (GrayOpticalThicknessOGorman2008, GrayRadiation, RRTMGPGridParams,
+                                  RRTMGPParameters, RRTMGPSolver, setup_gray_as_pr_grid)
+
+    P, ncol, out = RRTMGPParameters(), 257, []
+    for dev in (cuda, torch.device("cpu")):
+        atm = setup_gray_as_pr_grid(60, np.linspace(-80.0, 80.0, ncol), 1e5, 9e3, GrayOpticalThicknessOGorman2008(), P,
+                                    dtype=torch.float64, device=dev)
+        f = lambda shape, v: torch.full(shape, v, dtype=torch.float64, device=dev)
+        mu0 = torch.linspace(-0.3, 1.0, ncol, dtype=torch.float64, device=dev)
+        s = RRTMGPSolver(RRTMGPGridParams(nlay=60, ncol=ncol, dtype=torch.float64), GrayRadiation(), P,
+                         LwBCs(sfc_emis=f((1, ncol), 0.95)),
+                         SwBCs(cos_zenith=mu0, toa_flux=f((ncol,), 1361.0), sfc_alb_direct=f((1, ncol), 0.1),
+                               sfc_alb_diffuse=f((1, ncol), 0.1)), atm,
+                         two_stream_lw=two_stream, two_stream_sw=two_stream)
+        out.append(s.update_fluxes())
+    for a, b in zip((*out[0][0], *out[0][1]), (*out[1][0], *out[1][1])):
+        assert a.is_cuda
+        scale = b.abs().max().item()
+        assert (a.cpu() - b).abs().max().item() <= 1e-12 * max(scale, 1.0)
