@@ -144,8 +144,30 @@ is non-zero:
    column chunks, the kernels of the route launched; forward and backward
    ms, the chunk, the backward's peak memory and its elements per
    (column, layer, g-point); on 4096 columns a backward in chunks of 1024
-   (grad_chunk patched to force them) within 1e-6 of one chunk;
-13. gray (last): RRTMGPSolver(GrayRadiation()) at 32768 x 60 in f32 and
+   (grad_chunk patched to force them) within 1e-6 of one chunk; then
+   differentiable_solve_lw (no-scattering) with 3 and 4 quadrature angles
+   on 8192 columns, its backward in chunks of 4096: the elements per
+   (column, layer, g-point) it holds (grad_chunk budgets
+   GRAD_ELEMENTS_PER_POINT), the gradient bitwise the chunked torch
+   path's, chunks of 1024 within 1e-6 of one chunk;
+13. data (after the all-sky slices): a fabricated rrtmgp-data v1.9
+   checkout written with scipy (NetCDF3; scripts/fabricate_rrtmgp_data.py):
+   the six lookup files from the full-width synthetic lookups with the
+   loader's hard cases added (a minor gas not in gas_names, a shared
+   g-point range, no scaling gas, the h2o alias, a 0/0 key species) and
+   some variables' axes reversed, an RFMIP input (100 sites x 60 layers,
+   2 experiments) and an all-sky example (60 layers); validated with the
+   v1.9 sizes; each file loaded (its time printed) and every table held
+   within 1e-12 of the one written; RRTMGPSolver(data_dir=...) on the
+   RFMIP input tiled to 32768 x 60 (clear, LW no-scattering: K3, K1, K2)
+   and on the all-sky example tiled to 75748 x 60 (AllSkyRadiation with
+   aerosols: K3, K4, K2, K5), each against impl="torch" on 4096 columns
+   and against the same step on the lookups and state in memory, timed by
+   utils.profiling.benchmark; then utils.profiling.trace of a clear step
+   (the kernels named in the trace), strict_mode (a clean step passes, a
+   NaN in t_lay raises, a NaN a kernel writes is caught by its wrapper),
+   assert_compiles_once over a step on new data, device_memory_stats;
+14. gray (last): RRTMGPSolver(GrayRadiation()) at 32768 x 60 in f32 and
    f64, LW no-scattering + SW two-stream and LW two-stream + SW direct
    beam (O'Gorman 2008): update_fluxes() step time, LW TOA down 0, surface
    up sigma T^4, night columns 0, the direct beam within 1e-3 of
@@ -163,6 +185,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -192,8 +215,6 @@ TOL = {"planck_band": 1e-6, "lw_clear_mega": 5e-5, "sw_clear_mega": 1e-4,
 UNFUSED_TOL = 2e-6              # the unfused route's fluxes vs the fused two-kernel route's (bitwise expected)
 SUM_TOL = 5e-6                  # a per-g-point sweep summed over g-points vs its g-summed sibling
 F64_LW_TOL_WM2 = 1e-4           # the reference's f64 LW tolerance, absolute
-HBM_BYTES_PER_S = 3.35e12       # H100 SXM data sheet
-PEAK_OPS_PER_S = {"f32": 67e12, "f64": 33.5e12}  # outside the tensor cores; f64 at half the f32 rate
 SOURCES = {
     "planck_band": ("rrtmgp_tpu_torch/csrc/planck_band.cu", "rrtmgp_tpu/ops/pallas_mega.py:224"),
     "lw_clear_mega": ("rrtmgp_tpu_torch/csrc/lw_clear_mega.cu", "rrtmgp_tpu/ops/pallas_mega.py:522"),
@@ -281,14 +302,16 @@ def lookups(n_lw, b_lw, n_sw, b_sw, dtype="float32"):
     return lw, sw
 
 
-def small_allsky_lookups(n_gpt=36):
-    """A LookupBundle at the small shapes (36 g-points in 4 bands)."""
+def small_allsky_lookups(n_gpt=36, gas=None):
+    """A LookupBundle at the small shapes (36 g-points in 4 bands); ``gas``:
+    its (LW, SW) gas lookups when already built (``lookups(n_gpt, 4,
+    n_gpt, 4)``: at 1000 g-points each takes ~15 s to generate)."""
     import numpy as np
 
     from rrtmgp_tpu_torch import LookupBundle
     from rrtmgp_tpu_torch.data.synthetic import synthetic_aerosol_lookup, synthetic_cloud_lookup
 
-    lw, sw = lookups(n_gpt, 4, n_gpt, 4)
+    lw, sw = gas or lookups(n_gpt, 4, n_gpt, 4)
     kw = dict(n_bnd=4, dtype=np.float32, device=DEVICE)
     return LookupBundle(
         lookup_lw=lw, lookup_sw=sw,
@@ -428,7 +451,9 @@ class Work(NamedTuple):
 def bound_ms(work: Work, out) -> tuple[float, str]:
     """(milliseconds, "bytes" or "operations"): the larger of the input and
     output bytes over the card's memory rate and the operations over its
-    peak rate for their type."""
+    peak rate for their type (the H100 figures of utils.perf_accounting)."""
+    from rrtmgp_tpu_torch.utils.perf_accounting import HBM_BYTES_PER_S, PEAK_OPS_PER_S
+
     t_bytes = (work.input_bytes + nbytes(out)) / HBM_BYTES_PER_S
     t_ops = work.ops / PEAK_OPS_PER_S[work.kind]
     return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
@@ -949,7 +974,10 @@ def check_allsky_kernels(label, L, atm, reps, results, chunk=None) -> None:
 
 def phase_kernels_small(ngpt=36, ncol=SMALL_NCOL, nlay=SMALL_NLAY) -> None:
     """Every kernel against its twin at a small shape (4 bands)."""
+    import numpy as np
     import torch
+
+    from rrtmgp_tpu_torch.data.synthetic import synthetic_gas_lookup
 
     lw, sw = lookups(ngpt, 4, ngpt, 4)
     atm = atmosphere(ncol, nlay)
@@ -958,11 +986,11 @@ def phase_kernels_small(ngpt=36, ncol=SMALL_NCOL, nlay=SMALL_NLAY) -> None:
     bcs_lw, bcs_sw = boundary_conditions(lw, sw, ncol, mu0)
     label = f"small ncol={ncol} nlay={nlay} ngpt={ngpt}"
     check_kernels(label, lw, sw, atm, bcs_lw, bcs_sw, 0, {})
-    lw64, _ = lookups(ngpt, 4, ngpt, 4, "float64")
+    lw64 = synthetic_gas_lookup(longwave=True, n_gpt=ngpt, n_bnd=4, dtype=np.float64, device=DEVICE)
     check_f64_kernels(label, lw64, atmosphere(ncol, nlay, "float64"),
                       boundary_conditions(lw64, lw64, ncol)[0],
                       kernel_args(lw, None, atm, bcs_lw, None)[1], 0, {}, f32_tol=1e-4)
-    small_L, small_allsky = small_allsky_lookups(ngpt), allsky_atmosphere(ncol, nlay)
+    small_L, small_allsky = small_allsky_lookups(ngpt, (lw, sw)), allsky_atmosphere(ncol, nlay)
     check_allsky_kernels(label, small_L, small_allsky, 0, {})
     check_two_kernel_kernels(label, lw, sw, atm, bcs_lw, bcs_sw, 0, {})
     check_sw_sweep_allsky(label, small_L, small_allsky, {})
@@ -2120,8 +2148,8 @@ def grad_chunks(force=None):
 
     seen, real = [], rrtmgp.grad_chunk
 
-    def chunk(lkp, as_):
-        seen.append(force or real(lkp, as_))
+    def chunk(*args, **kwargs):
+        seen.append(force or real(*args, **kwargs))
         return seen[-1]
 
     rrtmgp.grad_chunk = chunk
@@ -2236,7 +2264,68 @@ def phase_gradients(lw, sw, atm, bcs_lw, bcs_sw, tag="grad", lkp_aero=None) -> d
                    f"rel={rel:.3e} (tol {GRAD_CHUNK_TOL:.0e}), bitwise equal: "
                    f"{all(torch.equal(x, y) for x, y in zip(*out))}")
         require(rel <= GRAD_CHUNK_TOL, f"{tag} {name}: chunked gradient rel error {rel:.3e}")
+    if lkp_aero is None:
+        phase_grad_angles(lw, atm, bcs_lw, tag)
     return counts
+
+
+GRAD_ANGLES = (3, 4)
+GRAD_ANGLES_NCOL, GRAD_ANGLES_CHUNK = 8192, 4096
+
+
+def phase_grad_angles(lw, atm, bcs_lw, tag) -> None:
+    """differentiable_solve_lw (no-scattering) with 3 and 4 quadrature
+    angles on GRAD_ANGLES_NCOL columns, its backward forced into chunks of
+    GRAD_ANGLES_CHUNK columns: the elements per (column, layer, g-point) the
+    torch-path backward holds above what was allocated (the figure
+    rrtmgp.GRAD_ELEMENTS_PER_POINT bounds at one angle), the gradient bitwise
+    equal to torch.autograd.grad through the torch path in the same chunks,
+    and chunks of a quarter within GRAD_CHUNK_TOL of one chunk."""
+    import torch
+
+    from rrtmgp_tpu_torch import differentiable_solve_lw, solve_lw
+    from rrtmgp_tpu_torch.models import rrtmgp
+    from rrtmgp_tpu_torch.states import slice_columns
+
+    ncol = atm.ncol
+    a0, b0 = slice_columns(atm, 0, GRAD_ANGLES_NCOL, ncol), slice_columns(bcs_lw, 0, GRAD_ANGLES_NCOL, ncol)
+    for n in GRAD_ANGLES:
+        kw = dict(n_gauss_angles=n)
+        f = differentiable_solve_lw(lw, **kw)
+        a, b, leaves = with_grad(a0, b0, "lw")
+        loss = grad_loss(f(a, b), "lw")
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        with grad_chunks(force=GRAD_ANGLES_CHUNK) as seen:
+            t0 = time.perf_counter()
+            grads = torch.autograd.grad(loss, list(leaves.values()))
+            torch.cuda.synchronize()
+            bwd_ms = 1e3 * (time.perf_counter() - t0)
+        per_point = (torch.cuda.max_memory_allocated() - base) / (
+            GRAD_ANGLES_CHUNK * NLAY * lw.n_gpt * atm.t_lay.element_size())
+        natural = rrtmgp.grad_chunk(lw, a0)
+        ref = chunked_torch_grad(solve_lw, lw, a0, b0, "lw", GRAD_ANGLES_CHUNK, kw)
+        same = all(torch.equal(g, r) for g, r in zip(grads, ref))
+        phase(tag, f"lw_noscat {n} angles at {GRAD_ANGLES_NCOL} x {NLAY}: backward {bwd_ms:.1f} ms in {len(seen)} "
+                   f"chunk(s) of {GRAD_ANGLES_CHUNK} columns, {per_point:.1f} elements per column, layer and g-point "
+                   f"above what was allocated (GRAD_ELEMENTS_PER_POINT {rrtmgp.GRAD_ELEMENTS_PER_POINT}; grad_chunk "
+                   f"would take {natural} columns here); gradient vs the torch path in the same chunks bitwise "
+                   f"equal: {same}")
+        require(same, f"{tag} lw_noscat {n} angles: the gradient differs from the chunked torch path")
+        out = []
+        for chunk in (CMP_NCOL, CMP_NCOL // 4):
+            a, b, leaves = with_grad(slice_columns(a0, 0, CMP_NCOL, GRAD_ANGLES_NCOL),
+                                     slice_columns(b0, 0, CMP_NCOL, GRAD_ANGLES_NCOL), "lw")
+            with grad_chunks(force=chunk):
+                out.append(torch.autograd.grad(grad_loss(f(a, b), "lw"), list(leaves.values())))
+        err, rel = rel_err(out[1], out[0])
+        phase(tag, f"lw_noscat {n} angles on {CMP_NCOL} columns: chunks of {CMP_NCOL // 4} vs one chunk: "
+                   f"max|d|={err:.3e} rel={rel:.3e} (tol {GRAD_CHUNK_TOL:.0e}), bitwise equal: "
+                   f"{all(torch.equal(x, y) for x, y in zip(*out))}")
+        require(rel <= GRAD_CHUNK_TOL, f"{tag} lw_noscat {n} angles: chunked gradient rel error {rel:.3e}")
+        del loss, grads, ref, out
+        torch.cuda.empty_cache()
 
 
 # ---------------------------------------------------------------------------
@@ -2328,14 +2417,368 @@ def phase_gray() -> None:
     require(t_error < GRAY_EQ_GATE_K, f"gray equilibrium: {t_error:.4f} K off the analytic profile")
 
 
+# ---------------------------------------------------------------------------
+# Loading rrtmgp-data files: a fabricated v1.9 checkout
+# ---------------------------------------------------------------------------
+
+DATA_NSITE, DATA_NEXPT = 100, 2   # the RFMIP input's sites and experiments (experiment 0 is loaded)
+DATA_ALLSKY_COLS = 4              # columns of the all-sky example file
+DATA_CLDFRAC = 0.7                # the all-sky reader's cloud fraction: McICA draws matter
+DATA_TABLE_TOL = 1e-12            # a loaded table against the one written, of its largest entry
+#: variables written with their axes reversed (the loader orients by dimension name)
+DATA_REVERSED = ("kmajor", "kminor_upper", "totplnk", "rayl_upper", "key_species", "vmr_ref", "extice",
+                 "aero_salt_tbl", "aero_dust_tbl")
+DATA_KERNELS = {"clear": ("planck_band", "lw_clear_mega", "sw_clear_mega"),
+                "all-sky": ("planck_band", "lw2_mega", "sw_clear_mega", "aerosol_bands")}
+
+
+def fabricate():
+    """The fabricated-checkout writer (scripts/fabricate_rrtmgp_data.py)."""
+    from pathlib import Path
+
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "scripts"))
+    import fabricate_rrtmgp_data
+
+    return fabricate_rrtmgp_data
+
+
+def write_fake_checkout(root: str) -> dict:
+    """An rrtmgp-data v1.9 checkout under ``root``: the six lookup files from
+    the port's full-width synthetic lookups (f64) with the loader's hard
+    cases added, an RFMIP input (100 sites x 60 layers, 2 experiments, a
+    night site) from the synthetic atmosphere and an all-sky example (60
+    layers, 4 columns) with aerosols. Returns what was written: the
+    lookups' numpy specs, the RFMIP and all-sky truths, the paths."""
+    import math
+
+    import numpy as np
+
+    from rrtmgp_tpu_torch import AllSkyRadiation, lookup_tables
+    from rrtmgp_tpu_torch.data.synthetic import GAS_NAMES, synthetic_atmosphere
+
+    fab = fabricate()
+    L = lookup_tables(AllSkyRadiation(aerosol_radiation=True), device="cpu")
+    specs = {}
+    for band_set in ("lw", "sw"):
+        lkp = getattr(L, f"lookup_{band_set}")
+        specs[f"gas_{band_set}"] = fab.with_hard_cases(*fab.lookup_numpy(lkp, fab.GAS_ARRAYS, fab.GAS_META))
+        specs[f"cloud_{band_set}"] = fab.lookup_numpy(getattr(L, f"lookup_{band_set}_cld"), fab.CLOUD_ARRAYS,
+                                                      fab.CLOUD_META)
+        arrays, meta = fab.lookup_numpy(getattr(L, f"lookup_{band_set}_aero"), fab.AEROSOL_ARRAYS, fab.AEROSOL_META)
+        arrays["bnd_lims_wn"] = fab.aerosol_band_limits(arrays["dust"].shape[-1])  # 550 nm in band 1
+        specs[f"aerosol_{band_set}"] = (arrays, meta)
+    paths = fab.write_checkout(root, specs, reverse=DATA_REVERSED)
+
+    p_top = specs["gas_lw"][1]["p_ref_min"]  # the reader clamps the TOA level to it
+    atm = synthetic_atmosphere(ncol=DATA_NSITE, nlay=NLAY, p_top=p_top, device="cpu")
+    rfmip = {k: getattr(atm, k).numpy() for k in ("p_lev", "p_lay", "t_lev", "t_lay", "t_sfc")}
+    rfmip.update(vmr_h2o=atm.vmr.vmr_h2o.numpy(), vmr_o3=atm.vmr.vmr_o3.numpy())
+    zenith = np.full(DATA_NSITE, math.degrees(math.acos(0.6)))
+    zenith[3] = 120.0  # a night site
+    gm = {fab.GM_VARS[g]: float(atm.vmr.vmr[i + 1]) for i, g in enumerate(GAS_NAMES) if g in fab.GM_VARS}
+    rfmip.update(sfc_emis=np.full(DATA_NSITE, 0.98), sfc_alb=np.full(DATA_NSITE, 0.2), zenith=zenith,
+                 tsi=np.full(DATA_NSITE, 1361.0), vmr_gm=atm.vmr.vmr.numpy())
+    paths["rfmip"] = os.path.join(root, fab.RFMIP_FILE)
+    fab.write_rfmip_file(paths["rfmip"], rfmip, gm, rfmip["sfc_emis"], rfmip["sfc_alb"], zenith, rfmip["tsi"],
+                         nexpt=DATA_NEXPT)
+
+    col = synthetic_atmosphere(ncol=DATA_ALLSKY_COLS, nlay=NLAY, p_top=p_top, seed=11, device="cpu")
+    allsky = {k: getattr(col, k).numpy() for k in ("p_lev", "p_lay", "t_lev", "t_lay")}
+    allsky.update(h2o=col.vmr.vmr_h2o.numpy(), o3=col.vmr.vmr_o3.numpy())
+    aero = fab.allsky_aerosols(allsky["p_lay"])
+    paths["allsky"] = os.path.join(root, fab.ALLSKY_FILE)
+    fab.write_allsky_file(paths["allsky"], allsky, aero)
+    return dict(specs=specs, rfmip=rfmip, allsky=allsky, aero=aero, paths=paths, fab=fab)
+
+
+def check_loaded(name, lkp, spec) -> tuple[float, int]:
+    """A lookup loaded from its file against the one written: each table
+    within DATA_TABLE_TOL of its largest entry, integer metadata exactly,
+    float metadata within DATA_TABLE_TOL; (largest table difference, tables
+    bitwise equal)."""
+    import numpy as np
+
+    arrays, meta = spec[0], spec[1]
+    worst, same = 0.0, 0
+    for k, a in arrays.items():
+        got = getattr(lkp, k)
+        require((a is None) == (got is None), f"data: {name}.{k} present in one of file and memory only")
+        if a is None:
+            continue
+        got = got.double().cpu().numpy()
+        require(got.shape == a.shape, f"data: {name}.{k} shape {got.shape} != {a.shape}")
+        rel = float(np.abs(got - a).max() / max(np.abs(a).max(), 1e-300))
+        require(rel <= DATA_TABLE_TOL, f"data: {name}.{k} differs by {rel:.3e} of its largest entry")
+        worst, same = max(worst, rel), same + int(np.array_equal(got, a))
+    for k, v in meta.items():
+        got = getattr(lkp, k)
+        if isinstance(v, float):
+            require(abs(got - v) <= DATA_TABLE_TOL * max(abs(v), 1.0), f"data: {name}.{k} {got!r} != {v!r}")
+        else:
+            require(got == v, f"data: {name}.{k} differs from the lookup written")
+    return worst, same
+
+
+def tile_columns(tree, ncol: int):
+    """A state or boundary-condition container of n columns tiled to ``ncol``."""
+    import torch
+
+    from rrtmgp_tpu_torch.states import tree_map_columns
+
+    def tile(x):
+        idx = torch.arange(ncol, device=x.device) % x.shape[-1]
+        return x[..., idx].contiguous()
+
+    return tree_map_columns(tile, lambda x: x, tree)
+
+
+def memory_state(fields: dict, params, aerosols: bool = False):
+    """An AtmosphericState (f32, on the card) from numpy float64 fields,
+    its column density and relative humidity computed from them in f32, as
+    the readers compute them: the SW fluxes move by ~2e-4 of their largest
+    value when the f32 column density moves by an ulp (the two-stream
+    coefficients near k * mu0 = 1), more than the kernels' tolerance."""
+    import torch
+
+    from rrtmgp_tpu_torch.convert import atmosphere_from_numpy
+    from rrtmgp_tpu_torch.states import compute_col_gas, compute_relative_humidity
+
+    t = {k: torch.from_numpy(fields[k]).to(DEVICE, torch.float32) for k in ("p_lev", "p_lay", "t_lay", "vmr_h2o")}
+    col_dry = compute_col_gas(t["p_lev"], params, vmr_h2o=t["vmr_h2o"])
+    rel_hum = compute_relative_humidity(t["p_lay"], t["t_lay"], t["vmr_h2o"], params) if aerosols else None
+    return atmosphere_from_numpy(
+        **{k: fields[k] for k in ("p_lay", "t_lay", "p_lev", "t_lev", "t_sfc", "vmr_h2o", "vmr_o3")},
+        vmr_gm=fields["vmr_gm"], col_dry=col_dry, rel_hum=rel_hum, cloud_state=fields.get("cloud_state"),
+        aerosol_state=fields.get("aerosol_state"), dtype=torch.float32, device=DEVICE)
+
+
+def data_step(tag, method, bcs_lw, bcs_sw, atm, root, mem_lookups, mem_atm, mem_bcs, two_stream_lw) -> dict:
+    """RRTMGPSolver(method, data_dir=root) on the state read from the files:
+    the path's kernels launched, the fluxes against impl="torch" on the
+    first CMP_NCOL columns and against the same step on the lookups and
+    state in memory; its step time by utils.profiling.benchmark. Returns
+    the solver, its fluxes and the timing."""
+    import torch
+
+    from rrtmgp_tpu_torch import RRTMGPGridParams, RRTMGPParameters, RRTMGPSolver, solve_lw, solve_sw
+    from rrtmgp_tpu_torch.ops import mega
+    from rrtmgp_tpu_torch.states import slice_columns
+    from rrtmgp_tpu_torch.utils.profiling import benchmark
+
+    ncol = atm.ncol
+    grid = RRTMGPGridParams(nlay=NLAY, ncol=ncol, dtype=torch.float32)
+    t0 = time.perf_counter()
+    solver = RRTMGPSolver(grid, method, RRTMGPParameters(), bcs_lw, bcs_sw, atm, data_dir=root,
+                          two_stream_lw=two_stream_lw)
+    load_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    mega.reset_launch_counts()
+    f_lw, f_sw = solver.update_fluxes()
+    torch.cuda.synchronize()
+    launched = {k: n for k, n in mega.launch_counts().items() if n}
+    for k in DATA_KERNELS[tag]:
+        require(launched.get(k, 0) > 0, f"data {tag}: {k} not launched by the step from the files")
+    for f in (*f_lw, *f_sw):
+        require(torch.isfinite(f).all(), f"data {tag}: non-finite flux")
+    require(torch.all(f_lw.flux_dn[-1] == 0.0), f"data {tag}: LW TOA down is not 0")
+    phase("data", f"{tag} RRTMGPSolver(data_dir=...) at {ncol} x {NLAY}: lookup_tables from the files "
+                  f"{load_s:.3f} s; one update_fluxes() launches {launched}")
+
+    L = solver.lookups
+    cloudy = L.lookup_lw_cld is not None
+    kw_lw = dict(two_stream=two_stream_lw, lkp_cld=L.lookup_lw_cld, lkp_aero=L.lookup_lw_aero)
+    kw_sw = dict(lkp_cld=L.lookup_sw_cld, lkp_aero=L.lookup_sw_aero)
+    seeds = (solver._mcica_key(0), solver._mcica_key(1)) if cloudy else (None, None)
+    cut = lambda x: slice_columns(x, 0, CMP_NCOL, ncol)
+    t_lw, _ = solve_lw(L.lookup_lw, cut(atm), cut(bcs_lw), cld_mask_seed=seeds[0], impl="torch", **kw_lw)
+    t_sw, _ = solve_sw(L.lookup_sw, cut(atm), cut(bcs_sw), cld_mask_seed=seeds[1], impl="torch", **kw_sw)
+    lw_tol = TOL["lw2_mega" if two_stream_lw else "lw_clear_mega"]
+    sw_tol = TOL["sw_clear_mega_allsky" if cloudy else "sw_clear_mega"]
+    compare_fluxes("data", f"{tag} LW from the files vs impl='torch' on {CMP_NCOL} columns", f_lw, t_lw, lw_tol,
+                   CMP_NCOL)
+    compare_fluxes("data", f"{tag} SW from the files vs impl='torch' on {CMP_NCOL} columns", f_sw, t_sw, sw_tol,
+                   CMP_NCOL)
+    del t_lw, t_sw
+
+    mem = RRTMGPSolver(grid, method, RRTMGPParameters(), *mem_bcs, mem_atm, lookups=mem_lookups,
+                       two_stream_lw=two_stream_lw)
+    m_lw, m_sw = mem.update_fluxes()
+    for name, out, ref, tol in (("LW", f_lw, m_lw, lw_tol), ("SW", f_sw, m_sw, sw_tol)):
+        compare_fluxes("data", f"{tag} {name} from the files vs the same step on the lookups and state in memory",
+                       out, ref, tol)
+    del mem, m_lw, m_sw
+    torch.cuda.empty_cache()
+    bench = benchmark(solver.update_fluxes, n_iters=STEPS, warmup=1, label=tag)
+    phase("data", f"{tag} update_fluxes() from the files at {ncol} x {NLAY}: median "
+                  f"{1e3 * bench['median_s']:.3f} ms, min {1e3 * bench['min_s']:.3f} ms over {bench['n_iters']} "
+                  f"steps (utils.profiling.benchmark)")
+    return dict(solver=solver, flux=(f_lw, f_sw), bench=bench)
+
+
+def phase_data() -> None:
+    """A fabricated rrtmgp-data v1.9 checkout loaded through the public
+    entry points: validation, every table against the one written, the
+    clear step from the files at 32768 x 60 (K3, K1, K2) and the all-sky one
+    with aerosols at 75748 x 60 (K3, K4, K2 all-sky, K5), each against the
+    torch path and against the same step in memory; then the utilities on
+    the card: benchmark, trace, strict_mode, assert_compiles_once,
+    device_memory_stats."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from rrtmgp_tpu_torch import (
+        AllSkyRadiation,
+        ClearSkyRadiation,
+        LookupBundle,
+        LwBCs,
+        RRTMGPParameters,
+        SwBCs,
+    )
+    from rrtmgp_tpu_torch.convert import aerosol_lookup_from_numpy, cloud_lookup_from_numpy, gas_lookup_from_numpy
+    from rrtmgp_tpu_torch.data import loader
+    from rrtmgp_tpu_torch.data.allsky import load_allsky_atmosphere
+    from rrtmgp_tpu_torch.data.manifest import validate_rrtmgp_data
+    from rrtmgp_tpu_torch.data.rfmip import load_rfmip_atmosphere
+    from rrtmgp_tpu_torch.ops.mega import planck_band
+    from rrtmgp_tpu_torch.utils import debug, profiling
+
+    P = RRTMGPParameters()
+    with tempfile.TemporaryDirectory() as root:
+        t0 = time.perf_counter()
+        fake = write_fake_checkout(root)
+        specs, paths, fab = fake["specs"], fake["paths"], fake["fab"]
+        mb = sum(os.path.getsize(p) for p in paths.values()) / 1e6
+        phase("data", f"fabricated rrtmgp-data v1.9 checkout ({mb:.1f} MB of NetCDF3, variables {DATA_REVERSED} "
+                      f"with their axes reversed) written in {time.perf_counter() - t0:.1f} s")
+        report = validate_rrtmgp_data(root)
+        require(all(p == [] for p in report.values()) and len(report) == 6, f"data: validation {report}")
+        phase("data", f"validate_rrtmgp_data (v1.9 sizes enforced): no problem in {sorted(report)}")
+
+        load = {"gas": loader.load_gas_lookup, "cloud": loader.load_cloud_lookup,
+                "aerosol": loader.load_aerosol_lookup}
+        for key in fab.FILES:
+            t0 = time.perf_counter()
+            lkp = load[key.split("_")[0]](paths[key], dtype=torch.float64, device=DEVICE)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            worst, same = check_loaded(key, lkp, specs[key])
+            n = sum(a is not None for a in specs[key][0].values())
+            phase("data", f"{fab.FILES[key]}: loaded in {seconds:.3f} s (f64, on the card); tables within "
+                          f"{worst:.2e} of the ones written ({same} of {n} bitwise), metadata equal")
+        gas = {k: loader.load_gas_lookup(paths[f"gas_{k}"], dtype=torch.float32, device=DEVICE) for k in ("lw", "sw")}
+        itv = gas["lw"].minor_lower
+        require(len(itv) == 7 and itv[3].gas == 0 and (2, 2) in [p[1] for p in gas["lw"].key_species],
+                "data: the hard cases did not load as written")
+        mem = lambda key, make: make(*specs[key][:2], dtype=torch.float32, device=DEVICE)
+        mem_lookups = LookupBundle(
+            lookup_lw=mem("gas_lw", gas_lookup_from_numpy), lookup_sw=mem("gas_sw", gas_lookup_from_numpy),
+            lookup_lw_cld=mem("cloud_lw", cloud_lookup_from_numpy), lookup_sw_cld=mem("cloud_sw", cloud_lookup_from_numpy),
+            lookup_lw_aero=mem("aerosol_lw", aerosol_lookup_from_numpy),
+            lookup_sw_aero=mem("aerosol_sw", aerosol_lookup_from_numpy))
+
+        # clear sky: the RFMIP input tiled to the clear cell's width
+        t0 = time.perf_counter()
+        atm, emis, alb, mu0, toa = load_rfmip_atmosphere(paths["rfmip"], gas["lw"], ncol=NCOL, dtype=torch.float32,
+                                                         device=DEVICE)
+        torch.cuda.synchronize()
+        phase("data", f"load_rfmip_atmosphere: {DATA_NSITE} sites tiled to {NCOL} x {NLAY} in "
+                      f"{time.perf_counter() - t0:.3f} s")
+        bands = lambda x, nbnd: x[None, :].expand(nbnd, x.shape[0]).contiguous()
+        bcs_lw = LwBCs(sfc_emis=bands(emis, 16))
+        bcs_sw = SwBCs(cos_zenith=mu0, toa_flux=toa, sfc_alb_direct=bands(alb, 14), sfc_alb_diffuse=bands(alb, 14))
+        rf = fake["rfmip"]
+        f32 = lambda a: torch.as_tensor(np.asarray(a), dtype=torch.float32, device=DEVICE)
+        mem_bcs = (tile_columns(LwBCs(sfc_emis=bands(f32(rf["sfc_emis"]), 16)), NCOL),
+                   tile_columns(SwBCs(cos_zenith=f32(np.cos(np.deg2rad(rf["zenith"]))), toa_flux=f32(rf["tsi"]),
+                                      sfc_alb_direct=bands(f32(rf["sfc_alb"]), 14),
+                                      sfc_alb_diffuse=bands(f32(rf["sfc_alb"]), 14)), NCOL))
+        mem_atm = tile_columns(memory_state(rf, P), NCOL)
+        clear = data_step("clear", ClearSkyRadiation(), bcs_lw, bcs_sw, atm, root, mem_lookups, mem_atm, mem_bcs,
+                          two_stream_lw=False)
+        del mem_atm, mem_bcs
+        solver = clear["solver"]
+
+        # the utilities on the card
+        with profiling.trace(os.path.join(root, "trace")) as log_dir:
+            solver.update_fluxes()
+        with open(os.path.join(log_dir, profiling.TRACE_FILE)) as f:
+            names = {e.get("name", "") for e in json.load(f)["traceEvents"]}
+        for k in ("lw_clear_mega", "sw_clear_mega", "planck_band"):
+            require(any(k in n for n in names), f"data: the trace names no {k} kernel")
+        phase("data", f"utils.profiling.trace of one clear step: {len(names)} event names, the kernels "
+                      f"lw_clear_mega, sw_clear_mega and planck_band among them")
+        with debug.strict_mode():
+            lw, sw = solver.update_fluxes()
+        phase("data", "strict_mode: a clean clear step from the files raises nothing")
+        t_bad = atm.t_lay.clone()
+        t_bad[30, NCOL // 3] = float("nan")
+        solver.as_ = dataclasses.replace(atm, t_lay=t_bad)
+        try:
+            with debug.strict_mode():
+                solver.update_fluxes()
+            raise AssertionError("data: strict_mode let a NaN in t_lay through")
+        except FloatingPointError as e:
+            phase("data", f"strict_mode: a NaN in t_lay on the kernel route raises FloatingPointError ({e})")
+        lw_tables = gas["lw"].totplnk.clone()
+        lw_tables[:, 3] = float("nan")
+        t = atm.t_lev.reshape(-1)
+        try:
+            with debug.strict_mode():
+                planck_band(t, lw_tables, gas["lw"].t_planck_min, gas["lw"].t_planck_delta)
+            raise AssertionError("data: strict_mode missed a NaN a kernel wrote")
+        except FloatingPointError as e:
+            require("kernel" in str(e), f"data: {e}")
+            phase("data", f"strict_mode: a NaN the planck_band kernel writes is caught by its wrapper ({e})")
+        solver.as_ = dataclasses.replace(atm, t_lay=atm.t_lay + 0.5, t_lev=atm.t_lev + 0.5)
+        with debug.assert_compiles_once() as log:
+            solver.update_fluxes()
+        phase("data", f"assert_compiles_once: a second step on new data of the same shapes compiled nothing "
+                      f"({log})")
+        del solver, clear, atm, bcs_lw, bcs_sw, lw, sw, t_bad
+        torch.cuda.empty_cache()
+
+        # all-sky with aerosols: the all-sky example tiled to the all-sky cell's width
+        cld = loader.load_cloud_lookup(paths["cloud_lw"], dtype=torch.float32, device=DEVICE)
+        t0 = time.perf_counter()
+        atm, ncol_ds = load_allsky_atmosphere(paths["allsky"], gas["lw"], cld, ncol=ALLSKY_NCOL, cldfrac=DATA_CLDFRAC,
+                                              dtype=torch.float32, device=DEVICE)
+        torch.cuda.synchronize()
+        phase("data", f"load_allsky_atmosphere: {ncol_ds} file columns tiled to {ALLSKY_NCOL} x {NLAY} in "
+                      f"{time.perf_counter() - t0:.3f} s")
+        f = lambda shape, v: torch.full(shape, v, dtype=torch.float32, device=DEVICE)
+        bcs_lw = LwBCs(sfc_emis=f((16, ALLSKY_NCOL), 0.98))
+        bcs_sw = SwBCs(cos_zenith=f((ALLSKY_NCOL,), 0.86), toa_flux=f((ALLSKY_NCOL,), float(gas["sw"].solar_src_tot)),
+                       sfc_alb_direct=f((14, ALLSKY_NCOL), 0.06), sfc_alb_diffuse=f((14, ALLSKY_NCOL), 0.06))
+        r_liq = (float(cld.radliq_lwr) + float(cld.radliq_upr)) / 2
+        r_ice = (float(cld.radice_lwr) + float(cld.radice_upr)) / 2
+        fields = fab.allsky_expected(fake["allsky"], fake["aero"], r_liq, r_ice, ALLSKY_NCOL, DATA_CLDFRAC)
+        vmr_gm = np.zeros(len(gas["lw"].gas_names) + 1)
+        for g, v in {"co2": 348e-6, "ch4": 1650e-9, "n2o": 306e-9, "n2": 0.7808, "o2": 0.2095}.items():
+            vmr_gm[list(gas["lw"].gas_names).index(g) + 1] = v  # the Fortran example's global means
+        mem_atm = memory_state({**fields, "vmr_gm": vmr_gm}, P, aerosols=True)
+        allsky = data_step("all-sky", AllSkyRadiation(aerosol_radiation=True), bcs_lw, bcs_sw, atm, root,
+                           mem_lookups, mem_atm, (bcs_lw, bcs_sw), two_stream_lw=True)
+        del mem_atm, allsky["solver"]
+        torch.cuda.empty_cache()
+    stats = profiling.device_memory_stats()
+    peak = stats["cuda:0"]["allocated_bytes.all.peak"] / 1e9
+    phase("data", f"utils.profiling.device_memory_stats: cuda:0 peak allocated {peak:.2f} GB in this process")
+
+
 def main() -> None:
     import torch
 
+    t_start = time.perf_counter()
+    done = lambda what: phase("time", f"{what} done at {time.perf_counter() - t_start:.0f} s")
     phase_device()
     phase_build()
     phase_kernels_small()
+    done("small kernels")
     phase_kernels_small(WIDE_NGPT, WIDE_NCOL, WIDE_NLAY)
     phase_kernels_small(LIMIT_NGPT, WIDE_NCOL, WIDE_NLAY)
+    done("wide and limit kernels")
 
     from rrtmgp_tpu_torch import AllSkyRadiation, lookup_tables
 
@@ -2351,6 +2794,7 @@ def main() -> None:
     check_f64_kernels(label, lw64, atm64, bcs_lw64, kernel_args(lw, None, atm, bcs_lw, None)[1], 3, results,
                       chunk=F64_TWIN_CHUNK)
     launches, _, f32_lw = phase_clear_slice(lw, sw, atm, bcs_lw, bcs_sw)
+    done("main-shape kernels and the clear slice")
     L = lookup_tables(AllSkyRadiation(aerosol_radiation=True), dtype=torch.float32, device=DEVICE)
     phase_kernels_deep(L)
     torch.cuda.empty_cache()
@@ -2366,6 +2810,7 @@ def main() -> None:
     torch.cuda.empty_cache()
     unfused = phase_unfused_slice(lw, sw, atm, bcs_lw, bcs_sw, L)
     launches.update(interp_pt_eta=unfused["interp_pt_eta"], interp_minor=unfused["interp_minor"])
+    done("deep kernels, the two-kernel and unfused slices")
     torch.cuda.empty_cache()
     path_c = check_sweep_kernels(label, lw, sw, atm, bcs_lw, bcs_sw, 3, results, chunk=TWIN_CHUNK)
     check_lw2_sweep_allsky(f"main ncol={TWIN_CHUNK} nlay={NLAY} ngpt=256", L, allsky_atmosphere(TWIN_CHUNK, NLAY),
@@ -2375,11 +2820,14 @@ def main() -> None:
     launches.update(lw_noscat_reduced=sweep["lw_noscat_reduced"], lw_2stream_reduced=sweep["lw_2stream_reduced"],
                     sw_2stream_gpt=path_c["sw_2stream_gpt"], lw_noscat_gpt=path_c["lw_noscat_gpt"])
     torch.cuda.empty_cache()
+    done("the sweep slice")
     grad = phase_gradients(lw, sw, atm, bcs_lw, bcs_sw)
+    done("the gradient phase")
     del atm, bcs_lw, bcs_sw
     torch.cuda.empty_cache()
     f64 = phase_f64_slice(lw64, sw64, atm64, bcs_lw64, bcs_sw64, f32_lw)
     launches.update(planck_band_f64=f64["planck_band"], lw_clear_mega_f64=f64["lw_clear_mega"])
+    done("the f64 slice")
     del atm64, bcs_lw64, bcs_sw64, lw64, sw64, f32_lw
     torch.cuda.empty_cache()
 
@@ -2398,14 +2846,20 @@ def main() -> None:
     phase_sweep_allsky(L, atm, bcs_lw)
     del atm, bcs_lw, bcs_sw
     torch.cuda.empty_cache()
+    done("the all-sky kernels and slices")
+    phase_data()
+    torch.cuda.empty_cache()
+    done("the data phase")
     atm = allsky_atmosphere(GRAD_AEROSOL_NCOL, NLAY)
     bcs_lw, bcs_sw = boundary_conditions(L.lookup_lw, L.lookup_sw, GRAD_AEROSOL_NCOL)
     grad_aerosol = phase_gradients(L.lookup_lw, L.lookup_sw, atm, bcs_lw, bcs_sw, tag="grad-aerosol",
                                    lkp_aero={"lw": L.lookup_lw_aero, "sw": L.lookup_sw_aero})
     phase("grad", f"gradient forwards' launches (clear, aerosols): {grad}, {grad_aerosol}")
+    done("the aerosol gradient phase")
     del atm, bcs_lw, bcs_sw
     torch.cuda.empty_cache()
     phase_gray()
+    done("the gray phase")
 
     kernels = [
         {"name": name, "route": "cuda", "source": SOURCES[name][0], "replaces": SOURCES[name][1],

@@ -10,7 +10,9 @@ McICA clouds and MERRA aerosols, f32 or f64, ``solve_chunked`` and the
 ``ops.aerosol_bands`` on CUDA tensors and plain torch on the CPU.
 ``differentiable_solve_lw`` / ``_sw`` differentiate them (kernel forward,
 plain-torch backward). The gray model (``models.gray``, ``GrayRadiation``)
-is plain torch.
+is plain torch. ``lookup_tables(data_dir=...)`` loads the tables of an
+rrtmgp-data checkout (``data.loader``, ``data.netcdf``); ``utils`` holds
+profiling, accounting and debug helpers.
 """
 
 from .angular import angular_discretization

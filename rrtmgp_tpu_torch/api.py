@@ -1,10 +1,11 @@
 """High-level solver API (counterpart of ``rrtmgp_tpu/api.py``).
 
 ``RRTMGPGridParams`` and the radiation-method dataclasses, ``LookupBundle``
-and ``lookup_tables`` (synthetic tables), the canonical aerosol and gas name
-lists, ``domain_view``, and ``RRTMGPSolver``: a host-side bundle that owns the
-atmospheric state, boundary conditions and lookups, runs one LW and one SW
-solve per ``update_*`` call and keeps the fluxes for its getters.
+and ``lookup_tables`` (rrtmgp-data files or synthetic tables), the
+canonical aerosol and gas name lists, ``domain_view``, and
+``RRTMGPSolver``: a host-side bundle that owns the atmospheric state,
+boundary conditions and lookups, runs one LW and one SW solve per
+``update_*`` call and keeps the fluxes for its getters.
 
 McICA reproducibility: the cloudy solves draw their mask from the seed
 ``2 * step + wave`` (wave 0 = LW, 1 = SW) keyed on the global column, so
@@ -121,13 +122,43 @@ def lookup_tables(
     dtype=torch.float64,
     device=None,
 ) -> LookupBundle:
-    """The lookup set of a radiation method: synthetic tables at the real
-    files' dimensions (LW 256 g-points in 16 bands, SW 224 in 14), with the
-    JAX package's seeds, so they equal its tables bit for bit."""
+    """The lookup set of a radiation method, in ``dtype`` on ``device``
+    (None: the card when there is one).
+
+    With ``data_dir`` (or $RRTMGP_DATA) pointing at an rrtmgp-data v1.9
+    checkout, the NetCDF tables: the checkout is validated first
+    (``data.manifest.validate_rrtmgp_data``, the v1.9 sizes not enforced),
+    then the two gas files are loaded, the cloud files for the all-sky
+    methods and the aerosol files when ``aerosol_radiation`` is set. A
+    missing file raises ``FileNotFoundError`` naming it. NetCDF4 files need
+    h5py; NetCDF3 files are read with scipy.
+
+    Otherwise synthetic tables at the real files' dimensions (LW 256
+    g-points in 16 bands, SW 224 in 14), with the JAX package's seeds, so
+    they equal its tables bit for bit."""
     if isinstance(radiation_method, GrayRadiation):
         return LookupBundle()
-    if data_dir or os.environ.get("RRTMGP_DATA"):
-        _not_ported("loading rrtmgp-data files (data_dir / $RRTMGP_DATA)", 15)
+    data_dir = data_dir or os.environ.get("RRTMGP_DATA")
+    cloudy = isinstance(radiation_method, _CLOUDY)
+    aero = getattr(radiation_method, "aerosol_radiation", False)
+    kw = dict(dtype=dtype, device=device)
+
+    if data_dir:
+        from .data.loader import load_aerosol_lookup, load_cloud_lookup, load_gas_lookup
+        from .data.manifest import V19_FILES, validate_rrtmgp_data
+
+        # structural validation before first use: a malformed checkout
+        # fails loudly instead of scrambling a table
+        validate_rrtmgp_data(data_dir, strict_v19=False)
+        j = lambda key: os.path.join(data_dir, V19_FILES[key])
+        bundle = dict(lookup_lw=load_gas_lookup(j("gas_lw"), **kw), lookup_sw=load_gas_lookup(j("gas_sw"), **kw))
+        if cloudy:
+            bundle["lookup_lw_cld"] = load_cloud_lookup(j("cloud_lw"), **kw)
+            bundle["lookup_sw_cld"] = load_cloud_lookup(j("cloud_sw"), **kw)
+        if aero:
+            bundle["lookup_lw_aero"] = load_aerosol_lookup(j("aerosol_lw"), **kw)
+            bundle["lookup_sw_aero"] = load_aerosol_lookup(j("aerosol_sw"), **kw)
+        return LookupBundle(**bundle)
 
     from .data.synthetic import (
         synthetic_aerosol_lookup,
@@ -135,15 +166,14 @@ def lookup_tables(
         synthetic_gas_lookup,
     )
 
-    kw = dict(dtype=dtype, device=device)
     bundle = dict(
         lookup_lw=synthetic_gas_lookup(longwave=True, n_gpt=256, n_bnd=16, **kw),
         lookup_sw=synthetic_gas_lookup(longwave=False, n_gpt=224, n_bnd=14, seed=1, **kw),
     )
-    if isinstance(radiation_method, _CLOUDY):
+    if cloudy:
         bundle["lookup_lw_cld"] = synthetic_cloud_lookup(n_bnd=16, **kw)
         bundle["lookup_sw_cld"] = synthetic_cloud_lookup(n_bnd=14, seed=5, **kw)
-    if getattr(radiation_method, "aerosol_radiation", False):
+    if aero:
         bundle["lookup_lw_aero"] = synthetic_aerosol_lookup(n_bnd=16, **kw)
         bundle["lookup_sw_aero"] = synthetic_aerosol_lookup(n_bnd=14, seed=6, **kw)
     return LookupBundle(**bundle)

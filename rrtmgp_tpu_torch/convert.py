@@ -55,10 +55,25 @@ def default_device() -> torch.device:
     return torch.device("cuda" if torch.cuda.is_available() else "cpu")
 
 
+_TORCH_DTYPE = {np.float32: torch.float32, np.float64: torch.float64}
+
+
+def torch_dtype(dtype) -> torch.dtype:
+    """The torch float dtype of a torch or numpy dtype (np.float32 / np.float64)."""
+    if isinstance(dtype, torch.dtype):
+        return dtype
+    return _TORCH_DTYPE[np.dtype(dtype).type]
+
+
 def _tensor(x, dtype, device):
     if x is None:
         return None
-    return torch.from_numpy(np.array(x)).to(device=default_device() if device is None else device, dtype=dtype)
+    device = default_device() if device is None else device
+    if isinstance(x, torch.Tensor):
+        return x.to(device=device, dtype=dtype)
+    # a C-ordered copy: the kernels take contiguous tensors, and a loader's
+    # array may be a transposed view of what the file held
+    return torch.from_numpy(np.array(x, order="C")).to(device=device, dtype=dtype)
 
 
 def _float_dtype(x, dtype):
@@ -165,7 +180,8 @@ def atmosphere_from_numpy(
     rel_hum=None, cloud_state: dict | None = None, aerosol_state: dict | None = None,
     lon=None, lat=None, dtype: torch.dtype | None = None, device=None,
 ) -> AtmosphericState:
-    """AtmosphericState from numpy fields. Give either ``vmr_h2o``, ``vmr_o3``
+    """AtmosphericState from numpy fields (a field may also be a tensor,
+    moved and cast like the arrays). Give either ``vmr_h2o``, ``vmr_o3``
     and ``vmr_gm`` (a VmrGM) or ``vmr`` (a full (ngas+1, nlay, ncol) Vmr).
     ``cloud_state`` holds CloudState's fields (``ice_rgh`` an int),
     ``aerosol_state`` AerosolState's."""

@@ -10,13 +10,13 @@ in both packages.
 from __future__ import annotations
 
 import numpy as np
-import torch
 
 from ..convert import (
     aerosol_lookup_from_numpy,
     atmosphere_from_numpy,
     cloud_lookup_from_numpy,
     gas_lookup_from_numpy,
+    torch_dtype,
 )
 from ..parameters import RRTMGPParameters
 from ..states import AtmosphericState
@@ -24,14 +24,6 @@ from .lookups import AerosolLookup, CloudLookup, GasLookup, MinorInterval
 
 # Gas ordering mirrors rrtmgp-data g-files: h2o=1, co2=2, o3=3 (1-based).
 GAS_NAMES = ("h2o", "co2", "o3", "n2o", "co", "ch4", "o2", "n2")
-
-_TORCH_DTYPE = {np.float32: torch.float32, np.float64: torch.float64}
-
-
-def _torch_dtype(dtype) -> torch.dtype:
-    if isinstance(dtype, torch.dtype):
-        return dtype
-    return _TORCH_DTYPE[np.dtype(dtype).type]
 
 
 def synthetic_gas_lookup(
@@ -158,7 +150,7 @@ def synthetic_gas_lookup(
         t_planck_delta=t_planck_delta,
         solar_src_tot=solar_src_tot,
     )
-    return gas_lookup_from_numpy(arrays, meta, dtype=_torch_dtype(dtype), device=device)
+    return gas_lookup_from_numpy(arrays, meta, dtype=torch_dtype(dtype), device=device)
 
 
 def synthetic_cloud_lookup(
@@ -181,7 +173,7 @@ def synthetic_cloud_lookup(
         radice_lwr=np.asarray(10.0), radice_upr=np.asarray(90.0),
     )
     meta = dict(nsize_liq=nsize_liq, nsize_ice=nsize_ice, nrghice=nrghice)
-    return cloud_lookup_from_numpy(arrays, meta, dtype=_torch_dtype(dtype), device=device)
+    return cloud_lookup_from_numpy(arrays, meta, dtype=torch_dtype(dtype), device=device)
 
 
 def synthetic_aerosol_lookup(
@@ -210,7 +202,7 @@ def synthetic_aerosol_lookup(
         bnd_lims_wn=np.array([[2600.0, 16000.0], [16000.0, 50000.0]]).T.reshape(2, -1)[:, :n_bnd],
     )
     meta = dict(iband_550nm=min(1, n_bnd - 1), n_bin=n_bin, n_rh=n_rh)
-    return aerosol_lookup_from_numpy(arrays, meta, dtype=_torch_dtype(dtype), device=device)
+    return aerosol_lookup_from_numpy(arrays, meta, dtype=torch_dtype(dtype), device=device)
 
 
 def synthetic_atmosphere(
@@ -294,5 +286,5 @@ def synthetic_atmosphere(
         p_lay=p_lay, t_lay=t_lay, p_lev=p_lev, t_lev=t_lev, t_sfc=t_sfc,
         col_dry=col_dry, vmr_h2o=vmr_h2o, vmr_o3=vmr_o3, vmr_gm=vmr_gm,
         rel_hum=rel_hum, cloud_state=cloud_state, aerosol_state=aerosol_state,
-        dtype=_torch_dtype(dtype), device=device,
+        dtype=torch_dtype(dtype), device=device,
     )

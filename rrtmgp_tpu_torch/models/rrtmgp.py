@@ -647,8 +647,10 @@ def solve_sw(
 #: g-point), in elements of the state's dtype, above what was allocated
 #: before it: measured 32.6 (LW no-scattering), 47.8 (LW two-stream) and
 #: 84.0 (SW) on clear sky, 69.7 and 96.9 (LW two-stream, SW) with aerosols,
-#: at 60 layers on an NVIDIA H100 80GB HBM3 (chip_smoke.py, PERF.md); the
-#: largest, rounded up.
+#: at 60 layers on an NVIDIA H100 80GB HBM3 at 700 W (chip_smoke.py,
+#: PERF.md); the largest, rounded up. Each quadrature angle of LW
+#: no-scattering adds ~14.3 (1 to 4 angles: 32.8, 47.2, 61.5, 75.8, same
+#: card), so up to 4 angles stay under it and the chunk ignores the angles.
 GRAD_ELEMENTS_PER_POINT = 100
 #: share of the card's free memory a backward chunk may fill
 GRAD_MEMORY_SHARE = 0.8

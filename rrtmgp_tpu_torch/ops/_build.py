@@ -22,6 +22,8 @@ import shutil
 import subprocess
 import tempfile
 
+from ..utils.debug import check_kernel_outputs, note_compile
+
 _PKG = pathlib.Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "build"
@@ -128,6 +130,7 @@ def build() -> pathlib.Path:
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = find_nvcc()
+    note_compile("nvcc", out.name)
     cu = [p for p in _sources() if p.suffix == ".cu"]
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
         objs = [os.path.join(tmp, p.stem + ".o") for p in cu]
@@ -172,8 +175,11 @@ def library() -> ctypes.CDLL:
     return lib
 
 
-def check(err: int, name: str) -> None:
-    """Raise if a launch returned a CUDA error."""
+def check(err: int, name: str, *outputs) -> None:
+    """Raise if a launch returned a CUDA error; inside
+    ``utils.debug.strict_mode`` also if one of the kernel's ``outputs``
+    holds a NaN."""
     if err != 0:
         text = library().rrtmgp_error_string(err).decode()
         raise RuntimeError(f"{name}: CUDA error {err} ({text}) at launch")
+    check_kernel_outputs(name, outputs)

@@ -112,7 +112,7 @@ def aerosol_bands(lkp: AerosolLookup, aero: AerosolState, rel_hum: torch.Tensor,
             *map(ptr, (aero.aero_mass, aero.aero_size, rel_hum, *out)),
             nlay, ncol, nbnd, nbin, nrh, species_mask(active_species), stream(dev),
         )
-    _build.check(err, "aerosol_bands")
+    _build.check(err, "aerosol_bands", *out)
     aerosol_bands.launches += 1
     return tuple(out)
 

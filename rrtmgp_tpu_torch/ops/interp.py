@@ -119,7 +119,7 @@ def optics_fused(inp: MegaInputs, tabs: KernelTables) -> tuple[torch.Tensor, tor
             ptr(tau), ptr(second), nlay, ncol, ngpt, nbnd, ntemp, neta, ncontrib, tabs.n_minor, int(shortwave),
             OPTICS_TILE, plan.group, plan.n_groups, stream(dev),
         )
-    _build.check(err, "optics_fused")
+    _build.check(err, "optics_fused", tau, second)
     optics_fused.launches += 1
     return tau, second
 
@@ -190,7 +190,7 @@ def planck_sets_launch(name: str, ts, totplnk: torch.Tensor, t_min: float, t_del
     with torch.cuda.device(dev):
         err = entry(ptr(totplnk), *map(ptr, ts), *[ptr(None)] * pad, *map(ptr, outs), *[ptr(None)] * pad,
                     *sizes, *[0] * pad, *plan.starts[1:], plan.span, nbnd, n_t, t_min, t_delta, stream(dev))
-    _build.check(err, name)
+    _build.check(err, name, *outs)
     return outs
 
 
@@ -336,7 +336,7 @@ def interp_pt_eta(table, jtemp, ftemp, jpress, fpress, jeta1, feta1, jeta2, feta
             nlay, ncol, ngpt, nbnd, n_p, ntemp, neta, INTERP_TILE, plan.group, plan.n_groups,
             stream(dev),
         )
-    _build.check(err, "interp_pt_eta")
+    _build.check(err, "interp_pt_eta", out)
     interp_pt_eta.launches += 1
     return out
 
@@ -375,7 +375,7 @@ def interp_minor(inp: MegaInputs, tabs: KernelTables) -> torch.Tensor:
             *optics_input_ptrs(inp), *table_ptrs(tabs)[2:], ptr(out), *dims, tabs.n_minor, MINOR_TILE,
             plan.group, plan.n_groups, stream(dev),
         )
-    _build.check(err, "interp_minor")
+    _build.check(err, "interp_minor", out)
     interp_minor.launches += 1
     return out
 

@@ -326,7 +326,7 @@ def lw_clear_mega(
                 *head, *comp_ptrs,
                 *map(_ptr, (trans_s, sup_s, up, dn, cover, partials, cover_counts(plan, ncol, seeded, dev))),
                 *dims, *comp_scalars, *scalars)
-    _build.check(err, "lw_clear_mega")
+    _build.check(err, "lw_clear_mega", up, dn)
     lw_clear_mega.launches += 1
     return (up, dn, cover) if seeded else (up, dn)
 
@@ -435,7 +435,7 @@ def lw2_mega(
             *map(_ptr, (mask_s, *scratch, up, dn, cover)),
             nlay, ncol, ngpt, nbnd, ntemp, neta, ncontrib, *comp_scalars, *plan, _stream(dev),
         )
-    _build.check(err, "lw2_mega")
+    _build.check(err, "lw2_mega", up, dn)
     lw2_mega.launches += 1
     return (up, dn, cover) if seeded else (up, dn)
 
@@ -521,7 +521,7 @@ def sw_clear_mega(
             *map(_ptr, (*scratch, *fluxes, cover)),
             nlay, ncol, ngpt, nbnd, ntemp, neta, ncontrib, tabs.n_minor, *comp_scalars, *plan, _stream(dev),
         )
-    _build.check(err, "sw_clear_mega")
+    _build.check(err, "sw_clear_mega", *fluxes)
     sw_clear_mega.launches += 1
     return (*fluxes, cover) if seeded else tuple(fluxes)
 
@@ -588,7 +588,7 @@ def mcica_mask_export(cld_frac: torch.Tensor, seed: int, col_offset: int, n_gpt:
             _ptr(cld_frac), _ptr(u), _ptr(m), nlay, ncol, n_gpt, plan.group, plan.n_groups, hi, lo,
             int(col_offset), _stream(dev)
         )
-    _build.check(err, "mcica_mask_export")
+    _build.check(err, "mcica_mask_export", u)
     mcica_mask_export.launches += 1
     return u, m
 

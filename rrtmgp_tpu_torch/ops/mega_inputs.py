@@ -31,6 +31,7 @@ import torch
 
 from ..data.lookups import GasLookup, band_limits_to_gpt2band
 from ..states import AtmosphericState, TensorContainer
+from ..utils.debug import note_compile
 from .gas_optics import (
     EtaInterp,
     PTInterp,
@@ -135,6 +136,8 @@ def build_kernel_tables(lkp: GasLookup) -> KernelTables:
     """Build the kernels' table layouts for one lookup, in the lookup's
     dtype (a few MB of permuted copies). Use ``lkp.kernel_tables``, which
     builds them once."""
+    note_compile("kernel_tables", f"{'LW' if lkp.is_longwave else 'SW'} {lkp.n_gpt} g-points "
+                                  f"{str(lkp.kmajor.dtype)[6:]} {lkp.device}")
     g_last = lambda t: t.permute(*range(1, t.ndim), 0).contiguous()  # g-point axis to the end
     if lkp.is_longwave:
         second = g_last(lkp.planck_fraction)

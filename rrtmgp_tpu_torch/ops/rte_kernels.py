@@ -190,7 +190,7 @@ def _lw_noscat_banded_launch(tau, pfrac, plk_lay, plk_lev, plk_sfc, sfc_emis, gp
             *map(ptr, (tau, pfrac, plk_lay, plk_lev, plk_sfc, sfc_emis, gpt2band, inc, up, dn, partials)),
             nlay, ncol, ngpt, nbnd, *groups, nang, *angles, stream(dev),
         )
-    _build.check(err, name)
+    _build.check(err, name, up, dn)
     lw_noscat_banded_reduced.launches += 1
     return up, dn
 
@@ -321,7 +321,7 @@ def sw_2stream_reduced(
                        *scratch, *fluxes, partials)),
             nlay, ncol, ngpt, nbnd, *groups, stream(dev),
         )
-    _build.check(err, "sw_2stream_reduced")
+    _build.check(err, "sw_2stream_reduced", *fluxes)
     sw_2stream_reduced.launches += 1
     return tuple(fluxes)
 
@@ -382,7 +382,7 @@ def _lw_noscat_reduced_launch(tau, lay_source, lev_source, sfc_source, sfc_emis,
             *map(ptr, (tau, lay_source, lev_source, sfc_source, sfc_emis, gpt2band, inc, up, dn, partials)),
             nlay, ncol, ngpt, *groups, nang, *angles, stream(dev),
         )
-    _build.check(err, name)
+    _build.check(err, name, up, dn)
     lw_noscat_reduced.launches += 1
     return up, dn
 
@@ -508,7 +508,7 @@ def lw_noscat_gpt(
             nlay, ncol, ngpt, design["kept"], design["group"], design["n_groups"], round_to(ds, f32),
             intensity_to_flux(w_mu, f32), stream(dev),
         )
-    _build.check(err, "lw_noscat_gpt")
+    _build.check(err, "lw_noscat_gpt", up, dn)
     lw_noscat_gpt.launches += 1
     return up, dn
 
@@ -592,7 +592,7 @@ def lw_2stream_reduced(
                        partials)),
             nlay, ncol, ngpt, nbnd, scratch[0].shape[0], *groups, stream(dev),
         )
-    _build.check(err, "lw_2stream_reduced")
+    _build.check(err, "lw_2stream_reduced", up, dn)
     lw_2stream_reduced.launches += 1
     return up, dn
 
@@ -659,7 +659,7 @@ def sw_2stream_gpt(
             *map(ptr, (tau, ssa, g, mu0, toa_gpt, alb_dir, alb_dif, inc_flux_diffuse, *fluxes)),
             nlay, ncol, ngpt, design["kept"], design["group"], design["n_groups"], stream(dev),
         )
-    _build.check(err, "sw_2stream_gpt")
+    _build.check(err, "sw_2stream_gpt", *fluxes)
     sw_2stream_gpt.launches += 1
     return tuple(fluxes)
 

@@ -9,6 +9,7 @@ scaling 2).
 """
 
 import dataclasses
+import os
 
 import jax.numpy as jnp
 import numpy as np
@@ -227,7 +228,35 @@ def test_lookup_tables_match_jax_bitwise():
     assert rt.lookup_tables(rt.GrayRadiation()) == rt.LookupBundle()
 
 
-def test_what_is_not_ported_raises(monkeypatch):
+def _checkout(root):
+    """A small fabricated rrtmgp-data checkout (tests/test_loader.py's
+    writers under the v1.9 file names); name -> path."""
+    import sys
+
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import test_loader as tl
+
+    from rrtmgp_tpu_torch.data.manifest import V19_FILES
+
+    paths = {k: os.path.join(root, f) for k, f in V19_FILES.items()}
+    tl._write_gas_nc(paths["gas_lw"], longwave=True)
+    tl._write_gas_nc(paths["gas_sw"], longwave=False)
+    for band_set in ("lw", "sw"):
+        tl._write_cloud_nc(paths[f"cloud_{band_set}"])
+        tl._write_aerosol_nc(paths[f"aerosol_{band_set}"])
+    return paths
+
+
+def _assert_same(a, b):
+    from rrtmgp_tpu_torch.states import tree_leaves
+
+    assert type(a) is type(b)
+    assert all(torch.equal(x, y) for x, y in zip(tree_leaves(a), tree_leaves(b), strict=True))
+    assert all(getattr(a, f.name) == getattr(b, f.name) for f in dataclasses.fields(a)
+               if not isinstance(getattr(a, f.name), torch.Tensor | None))
+
+
+def test_what_is_not_ported_raises(monkeypatch, tmp_path):
     ja, bc_lw, bc_sw = _inputs()
     atm = convert.atmosphere_from_object(ja)
     bl = rt.LwBCs(sfc_emis=torch.from_numpy(bc_lw["sfc_emis"]))
@@ -244,8 +273,16 @@ def test_what_is_not_ported_raises(monkeypatch):
     assert all(torch.isfinite(f).all() for f in (*lw, *sw))
     with pytest.raises(NotImplementedError, match="item 14"):
         mk(rt.ClearSkyRadiation(), mesh=object())
-    with pytest.raises(NotImplementedError, match="item 15"):
-        rt.lookup_tables(rt.ClearSkyRadiation(), data_dir="/nonexistent")
+    # rrtmgp-data files, once refused here (item 15), now load: a checkout
+    # gives the loader's lookups, a missing one raises the loader's error
+    from rrtmgp_tpu_torch.data import loader
+
+    paths = _checkout(str(tmp_path))
+    got = rt.lookup_tables(rt.ClearSkyRadiation(), data_dir=str(tmp_path), device="cpu")
+    _assert_same(got.lookup_lw, loader.load_gas_lookup(paths["gas_lw"], device="cpu"))
+    _assert_same(got.lookup_sw, loader.load_gas_lookup(paths["gas_sw"], device="cpu"))
+    with pytest.raises(FileNotFoundError, match="rrtmgp-gas-lw-g256.nc"):
+        rt.lookup_tables(rt.ClearSkyRadiation(), data_dir=str(tmp_path / "nonexistent"))
     # dtype mismatch between the grid and the state
     with pytest.raises(TypeError, match="dtype"):
         rt.RRTMGPSolver(rt.RRTMGPGridParams(nlay=NLAY, ncol=NCOL, dtype=torch.float64),
@@ -268,3 +305,40 @@ def test_what_is_not_ported_raises(monkeypatch):
     for a, b in zip(chunked.update_lw_fluxes(), s.flux_lw):
         assert torch.equal(a, b)
     assert torch.equal(chunked.lw_cloud_cover(), s.lw_cloud_cover())
+
+
+@pytest.mark.parametrize("key", ["clear", "clear+aerosols", "allsky", "allsky+aerosols"])
+def test_lookup_tables_from_files_match_jax(key, tmp_path, monkeypatch):
+    """lookup_tables(data_dir=...) and $RRTMGP_DATA load the files the
+    method needs, equal to the JAX package's lookup_tables on the same
+    checkout bit for bit (f32); RRTMGPSolver(data_dir=...) reaches them."""
+    _checkout(str(tmp_path))
+    name, aero = METHODS[key]
+    method, jmethod = getattr(rt, name)(aerosol_radiation=aero), getattr(jrt, name)(aerosol_radiation=aero)
+    got = rt.lookup_tables(method, data_dir=str(tmp_path), dtype=torch.float32, device="cpu")
+    ref = jrt.lookup_tables(jmethod, data_dir=str(tmp_path), dtype=np.float32)
+    for f in dataclasses.fields(ref):
+        a, b = getattr(ref, f.name), getattr(got, f.name)
+        assert (a is None) == (b is None), f.name
+        if a is None:
+            continue
+        for g in dataclasses.fields(b):
+            x, y = getattr(a, g.name), getattr(b, g.name)
+            if isinstance(y, torch.Tensor):
+                assert y.dtype == torch.float32 and np.array_equal(np.asarray(x), y.numpy()), (f.name, g.name)
+            else:
+                assert x == y, (f.name, g.name)
+    monkeypatch.setenv("RRTMGP_DATA", str(tmp_path))
+    env = rt.lookup_tables(method, dtype=torch.float32, device="cpu")
+    _assert_same(env.lookup_sw, got.lookup_sw)
+    atm = convert.atmosphere_from_object(jsyn.synthetic_atmosphere(ncol=NCOL, nlay=NLAY, ngas=4, dtype=np.float32,
+                                                                   p_top=12.0), device="cpu")
+    monkeypatch.delenv("RRTMGP_DATA")
+    solver = rt.RRTMGPSolver(rt.RRTMGPGridParams(nlay=NLAY, ncol=NCOL), method, rt.RRTMGPParameters(),
+                             rt.LwBCs(sfc_emis=torch.full((NBND, NCOL), 0.98)), None, atm,
+                             data_dir=str(tmp_path))
+    for f in dataclasses.fields(got):
+        if getattr(got, f.name) is not None:
+            _assert_same(getattr(solver.lookups, f.name), getattr(got, f.name))
+    if key == "clear":  # the test files' cloud and aerosol tables have 6 bands, the gas tables 2
+        assert torch.isfinite(solver.update_lw_fluxes().flux_up).all()

@@ -264,10 +264,12 @@ DIFF = [("lw", {}), ("lw", {"two_stream": True}), ("sw", {})]
 
 
 @functools.lru_cache(maxsize=None)
-def _differentiable_case(wave, two_stream, dtype):
+def _differentiable_case(wave, two_stream, dtype, n_angles=1):
     """Both packages' differentiable solves' fluxes, and the JAX and port
     gradients of a weighted sum of every flux (computed once per case)."""
     kw = {"two_stream": True} if two_stream else {}
+    if n_angles > 1:
+        kw["n_gauss_angles"] = n_angles
     j, t = _lookups(dtype)
     ja, ta = _atmosphere(dtype)
     lw, sw = _bcs(dtype)
@@ -297,6 +299,21 @@ def test_differentiable_solve_matches_jax(wave, kw):
         r = np.asarray(r)
         assert np.abs(o.detach().numpy() - r).max() <= 1e-8 * np.abs(r).max()
     _assert_close(port, ref, {"p_lay": LW_P_LAY_TOL} if wave == "lw" else {})
+
+
+@pytest.mark.parametrize("n_angles", [2, 3, 4])
+def test_differentiable_solve_angles_match_jax(n_angles):
+    """differentiable_solve_lw with several quadrature angles (the torch
+    path's backward then keeps every angle's recurrence, and its chunk is
+    sized by ``grad_chunk``) against the JAX package's, f64, with the
+    tolerances of test_differentiable_solve_matches_jax."""
+    out, jout, ref, port = _differentiable_case("lw", False, np.float64, n_angles)
+    for o, r in zip(out, jout):
+        r = np.asarray(r)
+        assert np.abs(o.detach().numpy() - r).max() <= 1e-8 * np.abs(r).max()
+    _assert_close(port, ref, {"p_lay": LW_P_LAY_TOL})
+    one = _differentiable_case("lw", False, np.float64)[3]
+    assert any(not np.array_equal(port[k], one[k]) for k in port)  # the angles change the gradient
 
 
 #: f32: the port's gradient against the JAX package's, of the largest entry,

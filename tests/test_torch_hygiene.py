@@ -35,21 +35,61 @@ def test_import_leaves_no_jax_module():
     assert proc.returncode == 0, (proc.stdout, proc.stderr[-2000:])
 
 
-@pytest.mark.parametrize("script", ["chip_smoke.py", "scripts/port_measure.py"])
-def test_card_scripts_import_no_jax(script):
-    """The scripts that drive the port on the card (they need CUDA, so they
-    are read here, not imported) import neither jax nor the JAX package,
-    at top level or inside a function."""
-    tree = ast.parse((Path(ROOT) / script).read_text())
+def _imports(path: Path) -> list[str]:
+    """Every module a file imports, at top level or inside a function
+    (relative imports by their level-0 name: none)."""
     names = []
-    for node in ast.walk(tree):
+    for node in ast.walk(ast.parse(path.read_text())):
         if isinstance(node, ast.Import):
             names += [a.name for a in node.names]
         elif isinstance(node, ast.ImportFrom) and node.level == 0:
             names.append(node.module)
+    return names
+
+
+def _jax_imports(names) -> list[str]:
+    return [n for n in names if n.split(".")[0] in ("jax", "jaxlib", "rrtmgp_tpu")]
+
+
+@pytest.mark.parametrize("script", ["chip_smoke.py", "scripts/port_measure.py", "scripts/fabricate_rrtmgp_data.py"])
+def test_card_scripts_import_no_jax(script):
+    """The scripts that drive the port on the card (they need CUDA, so they
+    are read here, not imported), and the fabricated-checkout writer
+    chip_smoke.py imports, import neither jax nor the JAX package, at top
+    level or inside a function."""
+    names = _imports(Path(ROOT) / script)
     assert "rrtmgp_tpu_torch" in {n.split(".")[0] for n in names}
-    bad = [n for n in names if n.split(".")[0] in ("jax", "jaxlib", "rrtmgp_tpu")]
-    assert not bad, bad
+    assert not _jax_imports(names)
+
+
+@pytest.mark.parametrize("sub", ["data", "utils"])
+def test_data_and_utils_import_no_jax(sub):
+    """The loaders and utilities, ported from JAX modules some of which
+    import no jax themselves (data/netcdf.py, data/manifest.py), import
+    neither jax nor any module of the JAX package, anywhere in the file;
+    h5py only inside a function."""
+    files = sorted((Path(rrtmgp_tpu_torch.__file__).parent / sub).glob("*.py"))
+    assert len(files) >= 4
+    for path in files:
+        assert not _jax_imports(_imports(path)), path.name
+        top = [n for node in ast.parse(path.read_text()).body if isinstance(node, (ast.Import, ast.ImportFrom))
+               for n in ([a.name for a in node.names] if isinstance(node, ast.Import) else [node.module or ""])]
+        assert "h5py" not in top, path.name
+
+
+def test_import_loads_no_h5py():
+    """import rrtmgp_tpu_torch, all its modules, loads no h5py (NetCDF4
+    files import it when read; NetCDF3 files never need it)."""
+    code = textwrap.dedent(f"""
+        import importlib, pkgutil, sys
+        sys.path.insert(0, {ROOT!r})
+        import rrtmgp_tpu_torch
+        for m in pkgutil.walk_packages(rrtmgp_tpu_torch.__path__, prefix="rrtmgp_tpu_torch."):
+            importlib.import_module(m.name)
+        sys.exit(1 if any(m == "h5py" or m.startswith("h5py.") for m in sys.modules) else 0)
+    """)
+    proc = subprocess.run([sys.executable, "-I", "-c", code], capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-2000:]
 
 
 def test_all_modules_import():
