@@ -150,7 +150,21 @@ is non-zero:
    (column, layer, g-point) it holds (grad_chunk budgets
    GRAD_ELEMENTS_PER_POINT), the gradient bitwise the chunked torch
    path's, chunks of 1024 within 1e-6 of one chunk;
-13. data (after the all-sky slices): a fabricated rrtmgp-data v1.9
+13. mesh (after the all-sky slices): RRTMGPSolver(mesh=make_column_mesh(
+   [cuda:0, cuda:0])), two entries on the one card, against the unsplit
+   solver on the same inputs: AllSkyRadiation(aerosol_radiation=True) at
+   75748 x 60 (two entries of 37874 columns, LW two-stream, McICA by seed
+   on the fractional cloud: K3, K4, K2 twice and K5 four times a step) and
+   ClearSkyRadiation at 32768 x 60 (LW no-scattering: K3, K1, K2 twice a
+   step): the launches of one mesh step, assert_compiles_once quiet over a
+   second, update_fluxes() bitwise equal (fluxes and cloud cover, the mean
+   cover strictly between 0 and 1), both steps' medians timed in turns.
+   Then a world of two: two processes of this script (--mesh-worker) on
+   cuda:0, joined by gloo on a free localhost port, each with a time limit,
+   each building its half of the clear 32768 x 60 state and running
+   globalize -> RRTMGPSolver(mesh=global_column_mesh()) -> local_values;
+   both halves bitwise the unsplit clear solver's fluxes;
+14. data (after the mesh phase): a fabricated rrtmgp-data v1.9
    checkout written with scipy (NetCDF3; scripts/fabricate_rrtmgp_data.py):
    the six lookup files from the full-width synthetic lookups with the
    loader's hard cases added (a minor gas not in gas_names, a shared
@@ -167,7 +181,7 @@ is non-zero:
    (the kernels named in the trace), strict_mode (a clean step passes, a
    NaN in t_lay raises, a NaN a kernel writes is caught by its wrapper),
    assert_compiles_once over a step on new data, device_memory_stats;
-14. gray (last): RRTMGPSolver(GrayRadiation()) at 32768 x 60 in f32 and
+15. gray (last): RRTMGPSolver(GrayRadiation()) at 32768 x 60 in f32 and
    f64, LW no-scattering + SW two-stream and LW two-stream + SW direct
    beam (O'Gorman 2008): update_fluxes() step time, LW TOA down 0, surface
    up sigma T^4, night columns 0, the direct beam within 1e-3 of
@@ -2418,6 +2432,235 @@ def phase_gray() -> None:
 
 
 # ---------------------------------------------------------------------------
+# The column split: a mesh of two entries on one card, a world of two processes
+# ---------------------------------------------------------------------------
+
+MESH_CLEAR_WANT = {"planck_band": 2, "lw_clear_mega": 2, "sw_clear_mega": 2}
+MESH_ALLSKY_WANT = {"planck_band": 2, "lw2_mega": 2, "sw_clear_mega": 2, "aerosol_bands": 4}
+MESH_WORLD_TIMEOUT_S = 300      # each process of a world: start, lookups, one warm-up and 3 steps
+
+
+def split_equal(whole, split) -> bool:
+    """A tensor of the unsplit solver against a ColumnSharded one of the
+    mesh solver, slice by slice on the card: bitwise equal."""
+    import torch
+
+    per = split.ncol // len(split.mesh)
+    return all(torch.equal(whole[..., o:o + per], s) for o, s in zip(split.offsets, split.shards))
+
+
+def count_syncs(fn) -> int:
+    """The calls of ``fn()`` that synchronise the host with the card
+    (``torch.cuda.set_sync_debug_mode``: a stream or device synchronisation,
+    a blocking copy such as a host list copied to the card, ``.item()``)."""
+    import warnings
+
+    import torch
+
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    return sum("called a synchronizing" in str(w.message) for w in caught)
+
+
+def phase_mesh(L, atm, bcs_lw, bcs_sw, method, two_stream_lw, tag, want):
+    """RRTMGPSolver(method, mesh=make_column_mesh([cuda:0, cuda:0])) against
+    the unsplit solver on the same inputs: the launches of one mesh step
+    (each kernel once per entry), assert_compiles_once over a second mesh
+    step, no host synchronisation in a step of either solver (the entries
+    launch one after another from one thread: a synchronisation would
+    serialise entries on separate cards), update_fluxes() bitwise (fluxes
+    and, all-sky, cloud cover), and both steps' medians timed in turns. Returns (launch counts of the mesh
+    step, the unsplit solver's fluxes)."""
+    import torch
+
+    from rrtmgp_tpu_torch import RRTMGPGridParams, RRTMGPParameters, RRTMGPSolver
+    from rrtmgp_tpu_torch.ops import mega
+    from rrtmgp_tpu_torch.parallel.sharding import make_column_mesh
+    from rrtmgp_tpu_torch.utils import debug
+
+    ncol = atm.ncol
+    grid = RRTMGPGridParams(nlay=NLAY, ncol=ncol)
+    mesh = make_column_mesh([DEVICE, DEVICE])
+    mk = lambda **kw: RRTMGPSolver(grid, method, RRTMGPParameters(), bcs_lw, bcs_sw, atm, lookups=L,
+                                   two_stream_lw=two_stream_lw, **kw)
+    whole, split = mk(), mk(mesh=mesh)
+    for s in (whole, split):
+        s.advance_step(5)
+    f_whole = whole.update_fluxes()
+    torch.cuda.synchronize()
+    mega.reset_launch_counts()
+    f_split = split.update_fluxes()
+    torch.cuda.synchronize()
+    launches = {k: n for k, n in mega.launch_counts().items() if n}
+    phase(tag, f"mesh {[str(e.device) for e in mesh]}, {ncol // 2} columns an entry; launches of one mesh step: "
+               f"{launches}")
+    require(launches == want, f"launches of one mesh step {launches}, expected {want}")
+    with debug.assert_compiles_once() as log:
+        split.update_fluxes()
+    require(not log, f"a second mesh step compiled {log}")
+    torch.cuda.synchronize()
+    control = count_syncs(lambda: torch.tensor([0, 1], device=DEVICE))
+    syncs = {name: count_syncs(s.update_fluxes) for name, s in (("unsplit", whole), ("mesh", split))}
+    torch.cuda.synchronize()
+    phase(tag, f"synchronising calls in a step: {syncs} (a list copied to the card, the detector's check: "
+               f"{control})")
+    require(control > 0, "the synchronisation detector missed a blocking copy to the card")
+    require(not any(syncs.values()), f"a step synchronised the host with the card: {syncs}")
+    for wave, (a, b) in (("LW", (f_whole[0], f_split[0])), ("SW", (f_whole[1], f_split[1]))):
+        for name in a._fields:
+            require(split_equal(getattr(a, name), getattr(b, name)), f"{wave} {name}: mesh != unsplit")
+    cover = ""
+    if whole.lw_cloud_cover() is not None:
+        for name in ("lw_cloud_cover", "sw_cloud_cover"):
+            require(split_equal(getattr(whole, name)(), getattr(split, name)()), f"{name}: mesh != unsplit")
+        mean = whole.lw_cloud_cover().mean().item()
+        require(0.0 < mean < 1.0, f"mean cloud cover {mean}: the clouds were not drawn")
+        cover = f", cloud cover bitwise (mean LW {mean:.4f})"
+    phase(tag, f"update_fluxes() on the mesh equals the unsplit solver bitwise (every flux{cover}); "
+               "assert_compiles_once: a second mesh step compiled nothing")
+    times = {"unsplit": [], "mesh": []}
+    for i in range(STEPS):
+        for name, s in ((("unsplit", whole), ("mesh", split)) if i % 2 == 0 else (("mesh", split), ("unsplit", whole))):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            s.update_fluxes()
+            torch.cuda.synchronize()
+            times[name].append(1e3 * (time.perf_counter() - t0))
+    med = {k: statistics.median(v) for k, v in times.items()}
+    phase(tag, f"update_fluxes() at {ncol} x {NLAY}, in turns over {STEPS} steps each: unsplit median "
+               f"{med['unsplit']:.3f} ms (min {min(times['unsplit']):.3f}, max {max(times['unsplit']):.3f}), "
+               f"mesh of 2 on one card {med['mesh']:.3f} ms (min {min(times['mesh']):.3f}, "
+               f"max {max(times['mesh']):.3f}), mesh / unsplit {med['mesh'] / med['unsplit']:.3f}")
+    fluxes = tuple(f.clone() for f in (*whole.flux_lw, *whole.flux_sw))
+    return launches, fluxes
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def phase_mesh_world(whole, world: int = 2) -> None:
+    """A world of ``world`` processes of this script, joined by gloo on a
+    free localhost port (``mesh_worker``), rank r on card r modulo the
+    cards there are (all on the one card here): each builds its share of
+    the clear 32768 x 60 state and runs globalize -> RRTMGPSolver(mesh=
+    global_column_mesh()) -> local_values. Every share must equal ``whole``
+    (the unsplit clear solver's LW then SW fluxes) bitwise; a process that
+    fails or outlives its time limit fails the run."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    tmp = tempfile.mkdtemp(prefix="rrtmgp_mesh_world_")
+    port = free_port()
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--mesh-worker", str(rank), str(world),
+                               str(port), tmp], stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for rank in range(world)]
+    outs = []
+    try:
+        for p in procs:
+            left = max(MESH_WORLD_TIMEOUT_S - (time.perf_counter() - t0), 1.0)
+            try:
+                outs.append(p.communicate(timeout=left)[0])
+            except subprocess.TimeoutExpired as e:
+                raise AssertionError(f"a process of the world of {world} outlived {MESH_WORLD_TIMEOUT_S} s") from e
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    seconds = time.perf_counter() - t0
+    for rank, (p, out) in enumerate(zip(procs, outs)):
+        for line in out.strip().splitlines()[-12:]:
+            phase("mesh-world", f"rank {rank}: {line}")
+        require(p.returncode == 0, f"rank {rank} of the world of {world} exited with {p.returncode}")
+    names = [f"lw_{n}" for n in ("flux_up", "flux_dn", "flux_net")]
+    names += [f"sw_{n}" for n in ("flux_up", "flux_dn", "flux_dn_dir", "flux_net")]
+    ranges = []
+    for rank in range(world):
+        got = np.load(os.path.join(tmp, f"rank{rank}.npz"))
+        lo, hi = int(got["lo"]), int(got["hi"])
+        ranges.append((lo, hi))
+        for name, ref in zip(names, whole):
+            require(np.array_equal(got[name], ref[:, lo:hi].cpu().numpy()), f"rank {rank} {name} != the whole")
+    shutil.rmtree(tmp)
+    share = NCOL // world
+    require(ranges == [(r * share, (r + 1) * share) for r in range(world)], f"column ranges {ranges}")
+    cards = ", ".join(sorted(set(worlds_devices(world))))
+    phase("mesh-world", f"world of {world} (gloo) on {cards}: columns {ranges}, every share bitwise the unsplit "
+                        f"solver's fluxes; {seconds:.1f} s from start to the last exit")
+
+
+def worlds_devices(world: int) -> list[str]:
+    """The card of each rank of a world (``phase_mesh_world``)."""
+    import torch
+
+    return [f"cuda:{rank % torch.cuda.device_count()}" for rank in range(world)]
+
+
+def mesh_worker(rank: int, world: int, port: int, out_dir: str) -> None:
+    """One process of a world (``phase_mesh_world``)."""
+    import numpy as np
+    import torch
+
+    from rrtmgp_tpu_torch import (
+        ClearSkyRadiation,
+        LookupBundle,
+        RRTMGPGridParams,
+        RRTMGPParameters,
+        RRTMGPSolver,
+    )
+    from rrtmgp_tpu_torch.parallel import distributed as dist
+    from rrtmgp_tpu_torch.states import slice_columns
+
+    t0 = time.perf_counter()
+    card = torch.device(worlds_devices(world)[rank])
+    torch.cuda.set_device(card)
+    dist.initialize(f"localhost:{port}", num_processes=world, process_id=rank, local_device_ids=[card.index])
+    mesh = dist.global_column_mesh()
+    require([e.process for e in mesh] == list(range(world)), f"mesh {mesh}")
+    lo, hi = dist.process_column_range(NCOL, mesh)
+    lw, sw = lookups(256, 16, 224, 14)
+    # the host model's columns: this process keeps [lo, hi) of the state
+    atm = atmosphere(NCOL, NLAY)
+    bcs_lw, bcs_sw = boundary_conditions(lw, sw, NCOL)
+    local = [slice_columns(t, lo, hi, NCOL) for t in (atm, bcs_lw, bcs_sw)]
+    del atm, bcs_lw, bcs_sw
+    g_atm, g_bl, g_bs = (dist.globalize(t, mesh, NCOL) for t in local)
+    solver = RRTMGPSolver(RRTMGPGridParams(nlay=NLAY, ncol=NCOL), ClearSkyRadiation(), RRTMGPParameters(),
+                          g_bl, g_bs, g_atm, lookups=LookupBundle(lookup_lw=lw, lookup_sw=sw), mesh=mesh,
+                          two_stream_lw=False)
+    solver.update_fluxes()
+    torch.cuda.synchronize()
+    setup = time.perf_counter() - t0
+    times = []
+    for _ in range(3):
+        t1 = time.perf_counter()
+        f_lw, f_sw = solver.update_fluxes()
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t1))
+    got = dist.local_values((f_lw, f_sw))
+    np.savez(os.path.join(out_dir, f"rank{rank}.npz"), lo=lo, hi=hi,
+             **{f"lw_{k}": v for k, v in got[0]._asdict().items()},
+             **{f"sw_{k}": v for k, v in got[1]._asdict().items()})
+    print(f"columns [{lo}, {hi}) on {mesh[rank].device}: setup {setup:.1f} s (start, gloo, lookups, state, "
+          f"first step), update_fluxes() median {statistics.median(times):.3f} ms over 3 steps "
+          f"({world} processes, {torch.cuda.device_count()} card(s))", flush=True)
+    torch.distributed.destroy_process_group()
+
+
+# ---------------------------------------------------------------------------
 # Loading rrtmgp-data files: a fabricated v1.9 checkout
 # ---------------------------------------------------------------------------
 
@@ -2780,7 +3023,7 @@ def main() -> None:
     phase_kernels_small(LIMIT_NGPT, WIDE_NCOL, WIDE_NLAY)
     done("wide and limit kernels")
 
-    from rrtmgp_tpu_torch import AllSkyRadiation, lookup_tables
+    from rrtmgp_tpu_torch import AllSkyRadiation, ClearSkyRadiation, LookupBundle, lookup_tables
 
     results = {}
     lw, sw = lookups(256, 16, 224, 14)
@@ -2844,9 +3087,21 @@ def main() -> None:
     launches.update(lw_clear_mega_allsky=noscat["lw_clear_mega"])
     torch.cuda.empty_cache()
     phase_sweep_allsky(L, atm, bcs_lw)
+    done("the all-sky kernels and slices")
+    torch.cuda.empty_cache()
+    phase_mesh(L, atm, bcs_lw, bcs_sw, AllSkyRadiation(aerosol_radiation=True), True, "mesh-allsky",
+               MESH_ALLSKY_WANT)
     del atm, bcs_lw, bcs_sw
     torch.cuda.empty_cache()
-    done("the all-sky kernels and slices")
+    atm = atmosphere(NCOL, NLAY)
+    bcs_lw, bcs_sw = boundary_conditions(lw, sw, NCOL)
+    _, whole = phase_mesh(LookupBundle(lookup_lw=lw, lookup_sw=sw), atm, bcs_lw, bcs_sw, ClearSkyRadiation(),
+                          False, "mesh-clear", MESH_CLEAR_WANT)
+    del atm, bcs_lw, bcs_sw
+    torch.cuda.empty_cache()
+    phase_mesh_world(whole)
+    del whole
+    done("the mesh phase")
     phase_data()
     torch.cuda.empty_cache()
     done("the data phase")
@@ -2881,4 +3136,7 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--mesh-worker"]:
+        mesh_worker(int(sys.argv[2]), int(sys.argv[3]), int(sys.argv[4]), sys.argv[5])
+    else:
+        main()

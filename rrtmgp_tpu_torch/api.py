@@ -19,10 +19,20 @@ tensors the clear-sky LW no-scattering solve without aerosols takes the f64
 build of the ``lw_clear_mega`` kernel (``f64_kernel=False`` keeps it on the
 exact torch path); every other f64 solve takes the torch path.
 
+Mesh: ``RRTMGPSolver(mesh=...)`` with a ``parallel.sharding.ColumnMesh``
+splits the columns over the mesh entries (``grid_params.ncol`` is the
+global count and must divide by the mesh size). The state and boundary
+conditions may be whole trees, split at construction, or ``ColumnSharded``
+ones (``parallel.distributed.globalize``); the lookups are copied once to
+each device. Every solve runs once per mesh entry of this process
+(``shard_solve``), the McICA stream keyed on the global column as
+unsplit, so the fluxes equal the unsplit solver's bit for bit; fluxes,
+diagnostics and getters hold ``ColumnSharded`` values. An f64 solver
+chunks each entry's columns against the memory budget.
+
 Not ported: the TPU-only arguments of the JAX solver (``pallas_windowed``
 "force" and "auto", which choose table windows the port does not have, and
-``use_pallas``). Features still to come raise ``NotImplementedError`` naming
-their ROADMAP item. The port adds ``impl`` (``"kernel"``, ``"two_kernel"``,
+``use_pallas``). The port adds ``impl`` (``"kernel"``, ``"two_kernel"``,
 ``"sweep"``, ``"torch"`` or None), passed through to ``solve_lw`` /
 ``solve_sw``: the megakernels; the optics kernel, plain-torch composition and
 a sweep kernel; plain-torch optics and a sweep kernel; or plain torch
@@ -46,6 +56,7 @@ import torch
 from .data.lookups import AerosolLookup, CloudLookup, GasLookup
 from .models import rrtmgp as _solvers
 from .models.gray import solve_gray_lw, solve_gray_sw
+from .parallel.sharding import ColumnSharded, column_ids, replicate, shard_columns, shard_solve
 from .parameters import RRTMGPParameters
 from .states import AtmosphericState, LwBCs, SwBCs, get_vmr
 from .utils.datalayouts import domain_view
@@ -95,10 +106,6 @@ RadiationMethod = (
     GrayRadiation | ClearSkyRadiation | AllSkyRadiation | AllSkyRadiationWithClearSkyDiagnostics
 )
 _CLOUDY = (AllSkyRadiation, AllSkyRadiationWithClearSkyDiagnostics)
-
-
-def _not_ported(what: str, item: int):
-    raise NotImplementedError(f"{what} is not ported yet (ROADMAP queue 1, item {item})")
 
 
 # ---------------------------------------------------------------------------
@@ -244,7 +251,8 @@ class RRTMGPSolver:
         fused_optics: bool = True,
     ):
         if mesh is not None:
-            _not_ported("the multi-device column split (mesh)", 14)
+            as_, bcs_lw, bcs_sw, metric_scaling = _split(mesh, grid_params.ncol, as_, bcs_lw, bcs_sw,
+                                                         metric_scaling)
         want, got = grid_params.dtype, as_.p_lay.dtype
         if got != want:
             raise TypeError(
@@ -271,8 +279,13 @@ class RRTMGPSolver:
         self.impl = impl
         self.fused_optics = fused_optics
         if lookups is None:
-            lookups = lookup_tables(radiation_method, data_dir, dtype=want, device=as_.p_lay.device)
+            device = as_.p_lay.devices[0] if mesh is not None else as_.p_lay.device
+            lookups = lookup_tables(radiation_method, data_dir, dtype=want, device=device)
         self.lookups = lookups
+        #: what each solve is given as its lookups: the bundle, or in mesh
+        #: mode its copies by device; and the global column ids by mesh entry
+        self._lookups_arg = lookups if mesh is None else replicate(lookups, mesh)
+        self._col_ids = None if mesh is None else column_ids(mesh, grid_params.ncol)
         #: columns per chunk of every solve, or None: set for f64 problems
         #: above the memory budget (never for the gray model, which has no
         #: spectral tensors)
@@ -296,9 +309,10 @@ class RRTMGPSolver:
         through ``solve_chunked``; the f64 kernel's scratch (2 tensors) counts
         against the same budget. The chunk is the largest power of two under
         the budget and need not divide ncol. McICA stays chunk-invariant
-        (global-column keying)."""
+        (global-column keying). In mesh mode the budget holds per mesh
+        entry (the JAX package does not chunk in mesh mode)."""
         lk = self.lookups
-        ncol = self.as_.ncol
+        ncol = self.as_.ncol if self.mesh is None else self.grid_params.ncol // len(self.mesh)
         ngpt_max = max(lk.lookup_lw.n_gpt, lk.lookup_sw.n_gpt)
         per_col = self.as_.nlay * ngpt_max * 8 * F64_TENSOR_EQUIVALENTS
         budget = float(os.environ.get("RRTMGP_CHUNK_BUDGET_GB", "8")) * 1e9
@@ -306,7 +320,7 @@ class RRTMGPSolver:
         if ncol > cmax:
             self.auto_chunk = 1 << (cmax.bit_length() - 1)
             warnings.warn(
-                f"f64 solve at ncol={ncol} would materialize "
+                f"f64 solve at ncol={ncol}{'' if self.mesh is None else ' per mesh entry'} would materialize "
                 f"~{ncol * per_col / 1e9:.1f} GB of spectral tensors; "
                 f"auto-chunking into {self.auto_chunk}-column chunks "
                 f"(budget {budget / 1e9:.0f} GB, "
@@ -316,43 +330,59 @@ class RRTMGPSolver:
 
     # -- solves ------------------------------------------------------------
 
-    def _aero(self, wave: int):
+    def _aero(self, lk: LookupBundle, wave: int):
         if not getattr(self.radiation_method, "aerosol_radiation", False):
             return None
-        return self.lookups.lookup_sw_aero if wave else self.lookups.lookup_lw_aero
+        return lk.lookup_sw_aero if wave else lk.lookup_lw_aero
+
+    def _per_shard(self, fn, *args):
+        """``fn(*args)``; in mesh mode once per mesh entry of this process,
+        on its columns, as a ``ColumnSharded``."""
+        if self.mesh is None:
+            return fn(*args)
+        return shard_solve(fn, self.mesh, self.grid_params.ncol)(*args)
 
     def _solve(self, solve_fn, bcs, cloudy: bool, wave: int, **kw):
-        """One solve of the whole state, in ``auto_chunk``-column chunks when
-        that is set. Metric scaling is applied to the assembled fluxes."""
-        if cloudy:
-            kw["lkp_cld"] = self.lookups.lookup_sw_cld if wave else self.lookups.lookup_lw_cld
+        """One solve of the whole state (in mesh mode of each entry's
+        columns), in ``auto_chunk``-column chunks when that is set. Metric
+        scaling is applied to the assembled fluxes."""
         seed = self._mcica_key(wave) if cloudy else None
-        if self.auto_chunk is None:
-            return solve_fn(self.as_, bcs, metric_scaling=self.metric_scaling, cld_mask_seed=seed, **kw)
-        if cloudy:
-            one = lambda a, b, s, off: solve_fn(a, b, cld_mask_seed=s, col_offset=off, **kw)
-        else:
-            one = lambda a, b: solve_fn(a, b, **kw)
-        flux, diag = _solvers.solve_chunked(one, self.as_, bcs, self.auto_chunk, cld_mask_seed=seed)
-        return _solvers._apply_metric_scaling(flux, self.metric_scaling), diag
+
+        def run(lk, atm, b, col_ids, scale):
+            kw_lk = dict(kw, lkp_aero=self._aero(lk, wave))
+            if cloudy:
+                kw_lk["lkp_cld"] = lk.lookup_sw_cld if wave else lk.lookup_lw_cld
+            # the global index of the first column, on which the McICA stream is keyed
+            base = 0 if col_ids is None else int(col_ids[0])
+            if self.auto_chunk is None:
+                if cloudy:
+                    kw_lk["col_offset"] = base
+                return solve_fn(lk, atm, b, metric_scaling=scale, cld_mask_seed=seed, **kw_lk)
+            if cloudy:
+                one = lambda a, bb, s, off: solve_fn(lk, a, bb, cld_mask_seed=s, col_offset=base + off, **kw_lk)
+            else:
+                one = lambda a, bb: solve_fn(lk, a, bb, **kw_lk)
+            flux, diag = _solvers.solve_chunked(one, atm, b, self.auto_chunk, cld_mask_seed=seed)
+            return _solvers._apply_metric_scaling(flux, scale), diag
+
+        return self._per_shard(run, self._lookups_arg, self.as_, bcs, self._col_ids, self.metric_scaling)
 
     def _lw(self, cloudy: bool):
         impl = self.impl
         if (impl is None and self.f64_kernel is False and self.fused_optics
                 and self.grid_params.dtype == torch.float64):
             impl = "torch"  # the exact path also where f64 has a kernel
-        solve = lambda a, b, **kw: _solvers.solve_lw(self.lookups.lookup_lw, a, b, **kw)
+        solve = lambda lk, a, b, **kw: _solvers.solve_lw(lk.lookup_lw, a, b, **kw)
         return self._solve(
             solve, self.bcs_lw, cloudy, 0, two_stream=self.two_stream_lw,
-            n_gauss_angles=self.n_gauss_angles, lkp_aero=self._aero(0),
-            aero_species=self.aero_species, eta_node_mode=self.eta_node_mode, impl=impl,
-            fused_optics=self.fused_optics,
+            n_gauss_angles=self.n_gauss_angles, aero_species=self.aero_species,
+            eta_node_mode=self.eta_node_mode, impl=impl, fused_optics=self.fused_optics,
         )
 
     def _sw(self, cloudy: bool):
-        solve = lambda a, b, **kw: _solvers.solve_sw(self.lookups.lookup_sw, a, b, **kw)
+        solve = lambda lk, a, b, **kw: _solvers.solve_sw(lk.lookup_sw, a, b, **kw)
         return self._solve(
-            solve, self.bcs_sw, cloudy, 1, two_stream=self.two_stream_sw, lkp_aero=self._aero(1),
+            solve, self.bcs_sw, cloudy, 1, two_stream=self.two_stream_sw,
             aero_species=self.aero_species, eta_node_mode=self.eta_node_mode, impl=self.impl,
             fused_optics=self.fused_optics,
         )
@@ -380,9 +410,9 @@ class RRTMGPSolver:
     def update_lw_fluxes(self):
         m = self.radiation_method
         if isinstance(m, GrayRadiation):
-            up, dn, net = solve_gray_lw(self.as_, self.bcs_lw.sfc_emis[0], self.params,
-                                        two_stream=self.two_stream_lw, n_gauss_angles=self.n_gauss_angles)
-            self.flux_lw = _solvers.FluxLW(up, dn, net)
+            gray = lambda a, b: _solvers.FluxLW(*solve_gray_lw(
+                a, b.sfc_emis[0], self.params, two_stream=self.two_stream_lw, n_gauss_angles=self.n_gauss_angles))
+            self.flux_lw = self._per_shard(gray, self.as_, self.bcs_lw)
             return self.flux_lw
         if isinstance(m, AllSkyRadiationWithClearSkyDiagnostics):
             self.clear_flux_lw, _ = self._lw(cloudy=False)
@@ -392,10 +422,10 @@ class RRTMGPSolver:
     def update_sw_fluxes(self):
         m = self.radiation_method
         if isinstance(m, GrayRadiation):
-            b = self.bcs_sw
-            self.flux_sw = _solvers.FluxSW(*solve_gray_sw(
-                self.as_, b.cos_zenith, b.toa_flux, b.sfc_alb_direct[0], b.sfc_alb_diffuse[0],
+            gray = lambda a, b: _solvers.FluxSW(*solve_gray_sw(
+                a, b.cos_zenith, b.toa_flux, b.sfc_alb_direct[0], b.sfc_alb_diffuse[0],
                 two_stream=self.two_stream_sw))
+            self.flux_sw = self._per_shard(gray, self.as_, self.bcs_sw)
             return self.flux_sw
         if isinstance(m, AllSkyRadiationWithClearSkyDiagnostics):
             self.clear_flux_sw, _ = self._sw(cloudy=False)
@@ -511,6 +541,8 @@ class RRTMGPSolver:
         one (see ``domain_view``)."""
         if data is None:
             return None
+        if isinstance(data, ColumnSharded):
+            return data.map(lambda d: domain_view(self.grid_params.isothermal_boundary_layer, d))
         return domain_view(self.grid_params.isothermal_boundary_layer, data)
 
     def pressure(self):
@@ -539,4 +571,16 @@ class RRTMGPSolver:
         sw = self.lookups.lookup_sw
         names = list(sw.gas_names) if sw is not None else gas_names_sw()
         name = {"h2o_self": "h2o", "h2o_frgn": "h2o"}.get(name, name)
-        return get_vmr(self.as_.vmr, names.index(name) + 1)
+        ig = names.index(name) + 1
+        if isinstance(self.as_, ColumnSharded):
+            return self.as_.map(lambda a: get_vmr(a.vmr, ig))
+        return get_vmr(self.as_.vmr, ig)
+
+
+def _split(mesh, ncol: int, as_, bcs_lw, bcs_sw, metric_scaling):
+    """The solver's state, boundary conditions and metric scaling split over
+    the mesh; a ``ColumnSharded`` value is taken as it is."""
+    if not isinstance(as_, ColumnSharded) and as_.ncol != ncol:
+        raise ValueError(f"the state has {as_.ncol} columns, grid_params.ncol is {ncol}")
+    split = lambda x: x if x is None or isinstance(x, ColumnSharded) else shard_columns(x, mesh, ncol)
+    return split(as_), split(bcs_lw), split(bcs_sw), split(metric_scaling)

@@ -97,6 +97,23 @@ class GasLookup(TensorContainer):
         return self.kmajor.device
 
     @functools.cached_property
+    def key_species_index(self) -> tuple:
+        """The bands' distinct key-species gas indices, sorted, and for each
+        (slot, troposphere side) the position of each band's key species in
+        that list, a tensor on the lookup's device. Built on first use and
+        kept, so that a solve gathers the bands' VMRs without copying an
+        index from the host, a copy that synchronises the host with the card
+        (entries of a column split on separate cards would then run one
+        after another)."""
+        species = sorted({s for bnd in self.key_species for pair in bnd for s in pair})
+        index = {
+            (slot, tropo): torch.tensor([species.index(self.key_species[b][tropo][slot]) for b in range(self.n_bnd)],
+                                        device=self.device)
+            for slot in (0, 1) for tropo in (0, 1)
+        }
+        return tuple(species), index
+
+    @functools.cached_property
     def kernel_tables(self):
         """The CUDA kernels' layouts of these tables, in their dtype
         (``ops.mega_inputs.KernelTables``), built on first use and owned by

@@ -107,14 +107,13 @@ def compute_eta_interp(
 
     # the few distinct key-species VMRs, then one gather per (slot, side)
     # picks each band's: cheaper than stacking nbnd broadcast views
-    species = sorted({s for bnd in lkp.key_species for pair in bnd for s in pair})
+    species, index = lkp.key_species_index
     vmrs = torch.stack(
         [get_vmr(vmr, ig).to(dtype).expand(shape2d) for ig in species], dim=-1
     )  # (nlay, ncol, n_species)
 
     def vmr_bands(slot, tropo):
-        idx = [species.index(lkp.key_species[b][tropo][slot]) for b in range(lkp.n_bnd)]
-        return vmrs[..., torch.tensor(idx, device=vmrs.device)]  # (nlay, ncol, nbnd)
+        return vmrs[..., index[slot, tropo]]  # (nlay, ncol, nbnd)
 
     sel = pt.tropo_lower[..., None]
     vmr1 = torch.where(sel, vmr_bands(0, 0), vmr_bands(0, 1))

@@ -13,6 +13,7 @@ that chip_smoke.py does not print. Run from the repository root:
     python3 scripts/port_measure.py [--root CHECKOUT] lw-gpt
     python3 scripts/port_measure.py [--root CHECKOUT] aerosol
     python3 scripts/port_measure.py [--root CHECKOUT] planck
+    python3 scripts/port_measure.py mesh        # every visible card, e.g. four H100s on one host
 
 With no argument it runs the first five. Each line names what it measured; the
 first line is the card's name and power limit. Problem sizes and inputs are
@@ -171,6 +172,18 @@ imports no JAX.
   each kernel case's sha256 and the ``ptxas`` registers of the band Planck
   kernels. For design variants: one checkout each, in turns with the
   parent within one call.
+- ``mesh``: RRTMGPSolver(mesh=make_column_mesh()), one entry per card the
+  process sees, all-sky (McICA by seed + aerosols, 75748 x 60) and clear
+  (LW no-scattering, 32768 x 60), against the unsplit solver on cuda:0:
+  the launches of one mesh step, every entry's fluxes (and all-sky LW cloud
+  cover) bitwise the unsplit ones, and 5 steps each in turns of the
+  unsplit solver, the mesh solver (every card synchronised) and one entry's
+  share of the columns alone on cuda:0 (the work of each card: share /
+  mesh near 1 is full overlap of the cards), each with the host time until
+  update_fluxes() returns (the enqueue: near the step time, the one thread
+  that launches every entry bounds the step). Then a world of as many
+  processes as cards, one card each (chip_smoke.py ``phase_mesh_world``),
+  each share bitwise the unsplit clear fluxes.
 - ``kernel-hashes`` also hashes K5 on the all-sky cell (LW and SW, all
   species and a subset) and K14 with an incident flux, with ssa and g of an
   all-sky composition (8192 columns), at 61 layers, at 1100 and 1000
@@ -1311,6 +1324,98 @@ def megakernels() -> None:
         del solver
 
 
+def mesh() -> None:
+    """The column split over every card the process sees (module docstring,
+    ``mesh``)."""
+    import statistics
+
+    import torch
+
+    from rrtmgp_tpu_torch import (
+        AllSkyRadiation,
+        ClearSkyRadiation,
+        LookupBundle,
+        RRTMGPGridParams,
+        RRTMGPParameters,
+        RRTMGPSolver,
+        lookup_tables,
+    )
+    from rrtmgp_tpu_torch.ops import mega
+    from rrtmgp_tpu_torch.parallel.sharding import make_column_mesh
+    from rrtmgp_tpu_torch.states import slice_columns
+
+    grid_mesh = make_column_mesh()
+    n = len(grid_mesh)
+
+    def sync():
+        for d in grid_mesh.devices:
+            torch.cuda.synchronize(d)
+
+    def timed_step(solver):
+        """(ms until update_fluxes() returns: the host's enqueue, ms until every card is done)"""
+        sync()
+        t0 = time.perf_counter()
+        solver.update_fluxes()
+        t1 = time.perf_counter()
+        sync()
+        return 1e3 * (t1 - t0), 1e3 * (time.perf_counter() - t0)
+
+    L = lookup_tables(AllSkyRadiation(aerosol_radiation=True), dtype=torch.float32, device=cs.DEVICE)
+    lw, sw = cs.lookups(256, 16, 224, 14)
+    whole_clear = None
+    for tag, ncol in (("all-sky", cs.ALLSKY_NCOL), ("clear", cs.NCOL)):
+        allsky = tag == "all-sky"
+        lk = L if allsky else LookupBundle(lookup_lw=lw, lookup_sw=sw)
+        atm = cs.allsky_atmosphere(ncol, cs.NLAY) if allsky else cs.atmosphere(ncol, cs.NLAY)
+        bcs_lw, bcs_sw = cs.boundary_conditions(lk.lookup_lw, lk.lookup_sw, ncol)
+        method = AllSkyRadiation(aerosol_radiation=True) if allsky else ClearSkyRadiation()
+        share = ncol // n
+        mk = lambda a, bl, bs, nc, **kw: RRTMGPSolver(RRTMGPGridParams(nlay=cs.NLAY, ncol=nc), method,
+                                                      RRTMGPParameters(), bl, bs, a, lookups=lk,
+                                                      two_stream_lw=allsky, **kw)
+        whole = mk(atm, bcs_lw, bcs_sw, ncol)
+        split = mk(atm, bcs_lw, bcs_sw, ncol, mesh=grid_mesh)
+        # one entry's share alone on cuda:0: what each card has to do
+        part = mk(*(slice_columns(t, 0, share, ncol) for t in (atm, bcs_lw, bcs_sw)), share)
+        for s in (whole, split, part):
+            s.advance_step(5)
+            s.update_fluxes()
+        sync()
+        mega.reset_launch_counts()
+        f_split = split.update_fluxes()
+        sync()
+        launches = {k: v for k, v in mega.launch_counts().items() if v}
+        f_whole = whole.update_fluxes()
+        same = all(torch.equal(getattr(a, name)[..., o:o + share].to(t.device), t)
+                   for a, b in zip(f_whole, f_split) for name in a._fields
+                   for o, t in zip(getattr(b, name).offsets, getattr(b, name).shards))
+        if allsky:
+            same = same and all(torch.equal(whole.lw_cloud_cover()[o:o + share].to(t.device), t)
+                                for o, t in zip(split.lw_cloud_cover().offsets, split.lw_cloud_cover().shards))
+        say("mesh", f"{tag} {ncol} x {cs.NLAY} over {[str(d) for d in grid_mesh.devices]}: launches of one mesh "
+                    f"step {launches}; bitwise the unsplit solver on cuda:0: {same}")
+        cs.require(same, f"{tag}: the mesh solver differs from the unsplit one")
+        times = {"unsplit": [], "mesh": [], "share": []}
+        enqueue = {"unsplit": [], "mesh": [], "share": []}
+        for i in range(5):
+            order = [("unsplit", whole), ("mesh", split), ("share", part)]
+            for name, s in (order if i % 2 == 0 else order[::-1]):
+                host, total = timed_step(s)
+                enqueue[name].append(host)
+                times[name].append(total)
+        med = {k: statistics.median(v) for k, v in times.items()}
+        host = {k: statistics.median(v) for k, v in enqueue.items()}
+        ms = lambda k: f"median {med[k]:.3f} ms ({_fmt(times[k])}; enqueued in {host[k]:.3f})"
+        say("mesh", f"{tag} update_fluxes(), 5 steps each in turns: unsplit on cuda:0 {ms('unsplit')}; mesh of {n} "
+                    f"{ms('mesh')}; one entry's {share} columns alone on cuda:0 {ms('share')}; unsplit / mesh "
+                    f"{med['unsplit'] / med['mesh']:.3f}, share / mesh {med['share'] / med['mesh']:.3f}")
+        if not allsky:
+            whole_clear = tuple(f.clone() for f in (*whole.flux_lw, *whole.flux_sw))
+        del whole, split, part, atm, bcs_lw, bcs_sw, f_split, f_whole
+        torch.cuda.empty_cache()
+    cs.phase_mesh_world(whole_clear, world=n)
+
+
 def main() -> None:
     want = ARGS or ["f64-memory", "angles", "profile", "profile-two-kernel", "profile-sweep"]
     cs.phase_device()
@@ -1320,7 +1425,8 @@ def main() -> None:
                      ("profile-two-kernel", profile_two_kernel), ("profile-sweep", profile_sweep),
                      ("kernel-hashes", kernel_hashes), ("megakernels", megakernels), ("gather", gather),
                      ("sw-sweep", sw_sweep), ("lw-sweep", lw_sweep), ("sw-mega", sw_mega),
-                     ("lw2-sweep", lw2_sweep), ("lw-gpt", lw_gpt), ("aerosol", aerosol), ("planck", planck)):
+                     ("lw2-sweep", lw2_sweep), ("lw-gpt", lw_gpt), ("aerosol", aerosol), ("planck", planck),
+                     ("mesh", mesh)):
         if name in want:
             fn()
 

@@ -271,8 +271,26 @@ def test_what_is_not_ported_raises(monkeypatch, tmp_path):
     lw, sw = gray.update_fluxes()
     assert gray.auto_chunk is None and lw.flux_up.shape == sw.flux_dn.shape == (NLAY + 1, NCOL)
     assert all(torch.isfinite(f).all() for f in (*lw, *sw))
-    with pytest.raises(NotImplementedError, match="item 14"):
-        mk(rt.ClearSkyRadiation(), mesh=object())
+    # the column split over a mesh, once refused here (item 14), now runs:
+    # every getter of a mesh solver reads the unsplit solver's values
+    from rrtmgp_tpu_torch.parallel.sharding import ColumnSharded, make_column_mesh
+
+    key = "allsky+clear diagnostics+aerosols"
+    whole, split = _port_solver(key), _port_solver(key, mesh=make_column_mesh(["cpu"] * 4))
+    for s in (whole, split):
+        s.advance_step(2)
+        s.update_fluxes()
+    assert isinstance(split.lw_flux_up(), ColumnSharded) and split.lw_flux_up().shape == (NLAY + 1, NCOL)
+    for name in GETTERS + CLEAR_GETTERS:
+        a, b = getattr(whole, name)(), getattr(split, name)()
+        assert (a is None) == (b is None), name
+        if isinstance(a, torch.Tensor):
+            assert np.array_equal(a.numpy(), np.asarray(b)), name
+        else:
+            assert a == b, name
+    for name in ("h2o", "co2"):
+        assert np.array_equal(whole.volume_mixing_ratio(name).numpy(), np.asarray(split.volume_mixing_ratio(name)))
+    assert np.array_equal(whole.aero_radius("dust1").numpy(), np.asarray(split.aero_radius("dust1")))
     # rrtmgp-data files, once refused here (item 15), now load: a checkout
     # gives the loader's lookups, a missing one raises the loader's error
     from rrtmgp_tpu_torch.data import loader

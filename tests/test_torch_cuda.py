@@ -16,7 +16,8 @@ RRTMGPSolver.update_fluxes, LW two-stream on the two-kernel path, the
 sweep-only route (impl="sweep"), boundary conditions of another dtype
 than the state, the unfused optics (interp_pt_eta, interp_minor,
 fused_optics=False: equal to the fused optics and route bit for bit),
-differentiable_solve_lw / _sw (kernel forward equal to the plain solve,
+RRTMGPSolver on a mesh of two entries on the card (equal to the unsplit
+solver bit for bit), differentiable_solve_lw / _sw (kernel forward equal to the plain solve,
 gradient equal to the chunked torch path, bit for bit) and the gray model
 (the equilibrium's CUDA-graph blocks equal to the step-by-step loop bit for
 bit; the gray solver on the card against the CPU). Tolerances as chip_smoke.py: max |kernel - twin|
@@ -703,6 +704,53 @@ def test_solver_update_fluxes_takes_the_kernels(cuda):
         assert _counts() == {"planck_band": n, "lw2_mega": n, "sw_clear_mega": n, "aerosol_bands": 2 * n}
         assert all(torch.isfinite(x).all() for x in (*f_lw, *f_sw))
         assert solver.lw_cloud_cover().shape == solver.sw_cloud_cover().shape == (ncol,)
+
+
+@pytest.mark.parametrize("method", ["clear", "allsky"])
+def test_solver_on_a_mesh_of_two_on_one_card(cuda, method):
+    """RRTMGPSolver(mesh=...) with two entries on the one card (clear: LW
+    no-scattering; all-sky: LW two-stream, McICA by seed on a fractional
+    cloud fraction, aerosols) launches each kernel once per entry and equals
+    the unsplit solver bit for bit, fluxes and cloud cover."""
+    from rrtmgp_tpu_torch import (
+        AllSkyRadiation,
+        ClearSkyRadiation,
+        RRTMGPGridParams,
+        RRTMGPParameters,
+        RRTMGPSolver,
+    )
+    from rrtmgp_tpu_torch.parallel.sharding import make_column_mesh
+
+    ncol, nlay = 300, 12
+    atm = synthetic_atmosphere(ncol=ncol, nlay=nlay, dtype=np.float32, device=cuda,
+                               with_clouds=True, with_aerosols=True)
+    cs = atm.cloud_state
+    atm = dataclasses.replace(atm, cloud_state=dataclasses.replace(cs, cld_frac=(cs.cld_frac * 0.6).contiguous()))
+    f = lambda shape, v: torch.full(shape, v, dtype=torch.float32, device=cuda)
+    bl = LwBCs(sfc_emis=f((16, ncol), 0.98))
+    bs = SwBCs(cos_zenith=f((ncol,), 0.6), toa_flux=f((ncol,), 1361.0),
+               sfc_alb_direct=f((14, ncol), 0.2), sfc_alb_diffuse=f((14, ncol), 0.2))
+    allsky = method == "allsky"
+    m = AllSkyRadiation(aerosol_radiation=True) if allsky else ClearSkyRadiation()
+    mk = lambda **kw: RRTMGPSolver(RRTMGPGridParams(nlay=nlay, ncol=ncol), m, RRTMGPParameters(), bl, bs, atm,
+                                   two_stream_lw=allsky, **kw)
+    whole, split = mk(), mk(mesh=make_column_mesh([cuda, cuda]))
+    f_whole = whole.update_fluxes()
+    mega.reset_launch_counts()
+    f_split = split.update_fluxes()
+    torch.cuda.synchronize()
+    if allsky:
+        assert _counts() == {"planck_band": 2, "lw2_mega": 2, "sw_clear_mega": 2, "aerosol_bands": 4}
+    else:
+        assert _counts() == {"planck_band": 2, "lw_clear_mega": 2, "sw_clear_mega": 2}
+    for a, b in zip(f_whole, f_split):
+        for name in a._fields:
+            assert np.array_equal(getattr(a, name).cpu().numpy(), np.asarray(getattr(b, name))), name
+    if allsky:
+        for name in ("lw_cloud_cover", "sw_cloud_cover"):
+            cover = getattr(whole, name)().cpu().numpy()
+            assert np.array_equal(cover, np.asarray(getattr(split, name)())), name
+            assert 0.0 < cover.mean() < 1.0
 
 
 # ---------------------------------------------------------------------------

@@ -51,25 +51,26 @@ def _jax_imports(names) -> list[str]:
     return [n for n in names if n.split(".")[0] in ("jax", "jaxlib", "rrtmgp_tpu")]
 
 
-@pytest.mark.parametrize("script", ["chip_smoke.py", "scripts/port_measure.py", "scripts/fabricate_rrtmgp_data.py"])
+@pytest.mark.parametrize("script", ["chip_smoke.py", "scripts/port_measure.py", "scripts/fabricate_rrtmgp_data.py",
+                                    "scripts/golden_contact_torch.py"])
 def test_card_scripts_import_no_jax(script):
     """The scripts that drive the port on the card (they need CUDA, so they
     are read here, not imported), and the fabricated-checkout writer
-    chip_smoke.py imports, import neither jax nor the JAX package, at top
-    level or inside a function."""
+    chip_smoke.py imports, and the golden first-contact script, import
+    neither jax nor the JAX package, at top level or inside a function."""
     names = _imports(Path(ROOT) / script)
     assert "rrtmgp_tpu_torch" in {n.split(".")[0] for n in names}
     assert not _jax_imports(names)
 
 
-@pytest.mark.parametrize("sub", ["data", "utils"])
+@pytest.mark.parametrize("sub", ["data", "utils", "parallel"])
 def test_data_and_utils_import_no_jax(sub):
-    """The loaders and utilities, ported from JAX modules some of which
-    import no jax themselves (data/netcdf.py, data/manifest.py), import
-    neither jax nor any module of the JAX package, anywhere in the file;
-    h5py only inside a function."""
+    """The loaders, the utilities and the column split, ported from JAX
+    modules some of which import no jax themselves (data/netcdf.py,
+    data/manifest.py), import neither jax nor any module of the JAX
+    package, anywhere in the file; h5py only inside a function."""
     files = sorted((Path(rrtmgp_tpu_torch.__file__).parent / sub).glob("*.py"))
-    assert len(files) >= 4
+    assert len(files) >= {"data": 4, "utils": 4, "parallel": 3}[sub]
     for path in files:
         assert not _jax_imports(_imports(path)), path.name
         top = [n for node in ast.parse(path.read_text()).body if isinstance(node, (ast.Import, ast.ImportFrom))
