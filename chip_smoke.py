@@ -188,6 +188,25 @@ is non-zero:
    Beer-Lambert; then gray_lw_equilibrium in f64 at 9 x 60 (Schneider
    2004) to the reference's 0.1 K gate, with its steps, seconds and time a
    step (blocks of 64 steps replayed as CUDA graphs).
+16. routes (after the mesh phase, before the data phase): RRTMGPSolver
+   with impl=None at 1024 x 60 on the all-sky lookups (LW 256 / SW 224
+   g-points) and the cloudy, aerosol-laden atmosphere with fractional
+   cloud. (a) The f64 solver with fused_optics=False (the JAX
+   pallas_windowed="off", which the JAX package's f64 ignores): clear sky
+   with LW no-scattering at 1 and at 3 angles (the f64 lw_clear_mega, K7:
+   one launch per angle and one planck_band per LW solve), all-sky with
+   aerosols with LW two-stream and with LW no-scattering at 3 angles (the
+   torch path: no launch), SW two-stream and the direct beam; each bitwise
+   the fused f64 solver, and on a mesh of two entries on cuda:0 bitwise the
+   unsplit one, with both steps' medians. (b) A covering set of the
+   option matrix (every pair of two options' values in some configuration,
+   pairwise_configs: radiation method with and without aerosols and clear
+   diagnostics, f64_kernel, dtype, two_stream_lw, n_gauss_angles 1 / 3,
+   two_stream_sw, fused_optics, metric_scaling, mesh, isothermal boundary
+   layer): no refusal, the launches of the route table (route_launches),
+   every flux within its route's tolerance of impl="torch" (the f64 torch
+   route bit for bit), cloud cover bitwise, AOD within 1e-6; the phase's
+   wall time.
 
 The last lines are a JSON object per kernel, the card's name and power
 limit, and {"ok": true, "device": {...}}. Needs CUDA and nvcc; imports no
@@ -342,15 +361,15 @@ def atmosphere(ncol, nlay, dtype="float32", **kw):
     return synthetic_atmosphere(ncol=ncol, nlay=nlay, dtype=np.dtype(dtype).type, device=DEVICE, **kw)
 
 
-def allsky_atmosphere(ncol, nlay):
+def allsky_atmosphere(ncol, nlay, dtype="float32"):
     """The synthetic atmosphere with clouds and aerosols; its cloud
     fraction (0 or 1) times a numpy-seeded uniform in [0.2, 1], so that the
     McICA mask depends on the draws."""
     import numpy as np
     import torch
 
-    atm = atmosphere(ncol, nlay, with_clouds=True, with_aerosols=True)
-    scale = np.random.default_rng(17).uniform(0.2, 1.0, (nlay, ncol)).astype(np.float32)
+    atm = atmosphere(ncol, nlay, dtype, with_clouds=True, with_aerosols=True)
+    scale = np.random.default_rng(17).uniform(0.2, 1.0, (nlay, ncol)).astype(dtype)
     cs = atm.cloud_state
     cf = (cs.cld_frac * torch.from_numpy(scale).to(DEVICE)).contiguous()
     return dataclasses.replace(atm, cloud_state=dataclasses.replace(cs, cld_frac=cf))
@@ -2661,6 +2680,399 @@ def mesh_worker(rank: int, world: int, port: int, out_dir: str) -> None:
 
 
 # ---------------------------------------------------------------------------
+# Routes: the solver's option matrix as impl=None routes it
+# ---------------------------------------------------------------------------
+
+ROUTES_NCOL = 1024
+ROUTE_METHODS = {  # name: (radiation method class, aerosols)
+    "clear": ("ClearSkyRadiation", False), "clear+aerosols": ("ClearSkyRadiation", True),
+    "all-sky": ("AllSkyRadiation", False), "all-sky+aerosols": ("AllSkyRadiation", True),
+    "all-sky+clear diagnostics": ("AllSkyRadiationWithClearSkyDiagnostics", False),
+    "all-sky+clear diagnostics+aerosols": ("AllSkyRadiationWithClearSkyDiagnostics", True),
+}
+#: the options of RRTMGPSolver the covering set walks, each with its values
+ROUTE_FACTORS = (
+    ("method", tuple(ROUTE_METHODS)),
+    ("f64_kernel", (None, False, True)),
+    ("dtype", ("float32", "float64")),
+    ("two_stream_lw", (True, False)),
+    ("n_gauss_angles", (1, 3)),
+    ("two_stream_sw", (True, False)),
+    ("fused_optics", (True, False)),
+    ("metric_scaling", (False, True)),
+    ("mesh", (False, True)),
+    ("isothermal_boundary_layer", (False, True)),
+)
+#: configurations the covering set starts from, the other options chosen
+#: as for the rest: the f64 kernel (K7) without the fused optics at 1 angle
+#: and, on a mesh, for the clear-sky diagnostics at 3 angles (the cloudy
+#: solve on the torch path), f64_kernel=False without the fused optics, f32
+#: LW two-stream all-sky without them and f32 LW at 3 angles with them (the
+#: two-kernel path)
+ROUTE_SEEDS = (
+    dict(method="clear", dtype="float64", f64_kernel=None, two_stream_lw=False, n_gauss_angles=1,
+         fused_optics=False),
+    dict(method="all-sky+clear diagnostics", dtype="float64", f64_kernel=True, two_stream_lw=False,
+         n_gauss_angles=3, fused_optics=False, mesh=True),
+    dict(method="clear", dtype="float64", f64_kernel=False, two_stream_lw=False, fused_optics=False),
+    dict(method="all-sky+aerosols", dtype="float32", two_stream_lw=True, fused_optics=False),
+    dict(method="all-sky+aerosols", dtype="float32", two_stream_lw=False, n_gauss_angles=3, fused_optics=True),
+)
+#: (method, two_stream_lw, n_gauss_angles, two_stream_sw) of the f64 solver
+#: with fused_optics=False against the fused one, unsplit and on a mesh
+F64_UNFUSED_CASES = (
+    ("clear", False, 1, True),
+    ("all-sky+aerosols", True, 1, True),
+    ("clear", False, 3, False),
+    ("all-sky+aerosols", False, 3, False),
+)
+ROUTE_AOD_TOL = 1e-6
+
+
+def pairwise_configs(factors=ROUTE_FACTORS, seeds=ROUTE_SEEDS) -> list[dict]:
+    """A covering set of the factors' values: every value of each factor
+    meets every value of each other factor in some configuration. Greedy
+    and deterministic: the seeds come first, then each configuration starts
+    from the first pair not yet covered; each option a configuration does
+    not fix takes the value that covers the most pairs not yet covered with
+    the values already chosen (on a tie the values take turns from one
+    configuration to the next)."""
+    import itertools
+
+    n = len(factors)
+    names = [name for name, _ in factors]
+    sizes = [len(values) for _, values in factors]
+    todo = {(i, a, j, b) for i, j in itertools.combinations(range(n), 2)
+            for a in range(sizes[i]) for b in range(sizes[j])}
+    key = lambda i, a, j, b: (i, a, j, b) if i < j else (j, b, i, a)
+    starts = [{names.index(k): factors[names.index(k)][1].index(v) for k, v in seed.items()} for seed in seeds]
+    rows = []
+    while todo:
+        if len(rows) < len(starts):
+            row = dict(starts[len(rows)])
+        else:
+            i, a, j, b = min(todo)
+            row = {i: a, j: b}
+        for k in range(n):
+            if k not in row:
+                row[k] = max(range(sizes[k]), key=lambda v: (
+                    sum(key(k, v, m, w) in todo for m, w in row.items()), -((v - len(rows) - k) % sizes[k])))
+        todo -= {key(i, row[i], j, row[j]) for i, j in itertools.combinations(range(n), 2)}
+        rows.append({factors[k][0]: factors[k][1][row[k]] for k in range(n)})
+    return rows
+
+
+def route_solves(cfg: dict) -> list[bool]:
+    """The solves of one update_lw_fluxes() (or update_sw_fluxes()) of the
+    configuration, in order, by whether each is cloudy: the clear-sky
+    diagnostics' solve comes first."""
+    method = cfg["method"]
+    if "diagnostics" in method:
+        return [False, True]
+    return [method.startswith("all-sky")]
+
+
+def route_of(cfg: dict, wave: str, cloudy: bool) -> str:
+    """The route that impl=None takes for the solve, as the JAX package
+    dispatches it (tests/test_torch_routes.py holds the same table on the
+    CPU): f32 the megakernels, or the two-kernel path for several LW angles,
+    for the SW direct beam and for every solve without the fused optics
+    (pallas_windowed="off"); f64, whatever fused_optics says, the f64 kernel
+    for clear-sky LW no-scattering without aerosols unless f64_kernel=False,
+    the torch path otherwise."""
+    aerosols = ROUTE_METHODS[cfg["method"]][1]
+    two_stream = cfg["two_stream_lw"] if wave == "lw" else cfg["two_stream_sw"]
+    if cfg["dtype"] == "float64":
+        has_kernel = wave == "lw" and not two_stream and not cloudy and not aerosols
+        return "kernel" if has_kernel and cfg["f64_kernel"] is not False else "torch"
+    mega_covers = two_stream or (wave == "lw" and cfg["n_gauss_angles"] == 1)
+    return "kernel" if cfg["fused_optics"] and mega_covers else "two_kernel"
+
+
+def solve_launches(cfg: dict, wave: str, cloudy: bool) -> dict:
+    """Kernel launches of one solve of the configuration on one mesh entry."""
+    import collections
+
+    route, n = route_of(cfg, wave, cloudy), collections.Counter()
+    two_stream = cfg["two_stream_lw"] if wave == "lw" else cfg["two_stream_sw"]
+    if route == "torch":
+        return n
+    if route == "kernel" and wave == "lw":
+        n["planck_band"] += 1
+        n["lw2_mega" if two_stream else "lw_clear_mega"] += 1 if two_stream else cfg["n_gauss_angles"]
+    elif route == "kernel":
+        n["sw_clear_mega"] += 1
+    else:
+        if cfg["fused_optics"]:
+            n["optics_fused"] += 1
+        else:
+            n["interp_pt_eta"] += 2
+            n["interp_minor"] += 1
+        if wave == "lw":
+            n["planck_band_rows"] += 1
+            n["lw_2stream_reduced" if two_stream else "lw_noscat_banded_reduced"] += 1
+        elif two_stream:
+            n["sw_2stream_reduced"] += 1
+        if cloudy:
+            n["mcica_mask_export"] += 1
+    if ROUTE_METHODS[cfg["method"]][1]:
+        n["aerosol_bands"] += 1
+    return n
+
+
+def route_launches(cfg: dict) -> dict:
+    """Kernel launches of one update_fluxes() of the configuration."""
+    import collections
+
+    total = collections.Counter()
+    for wave in ("lw", "sw"):
+        for cloudy in route_solves(cfg):
+            for name, k in solve_launches(cfg, wave, cloudy).items():
+                total[name] += k * (2 if cfg["mesh"] else 1)
+    return dict(total)
+
+
+def route_tol(cfg: dict, wave: str, cloudy: bool) -> tuple[float, bool]:
+    """(tolerance, absolute) of a solve's fluxes against impl="torch": the
+    earlier phases' TOL of the route's kernel relative to the largest
+    flux; the f64 kernel within F64_LW_TOL_WM2 W/m2; the torch path bit for
+    bit."""
+    route = route_of(cfg, wave, cloudy)
+    two_stream = cfg["two_stream_lw"] if wave == "lw" else cfg["two_stream_sw"]
+    if route == "torch":
+        return 0.0, False
+    if cfg["dtype"] == "float64":
+        return F64_LW_TOL_WM2, True
+    if route == "kernel":
+        name = {"lw": "lw2_mega" if two_stream else "lw_clear_mega", "sw": "sw_clear_mega"}[wave]
+    else:
+        name = {"lw": "lw_2stream_reduced" if two_stream else "lw_noscat_banded_reduced",
+                "sw": "sw_2stream_reduced"}[wave]
+    return TOL[name], False
+
+
+def whole(x):
+    """A tensor of the unsplit solver, or a ColumnSharded one put together."""
+    import torch
+
+    if x is None or isinstance(x, torch.Tensor):
+        return x
+    require(list(x.offsets) == sorted(x.offsets), f"mesh entries out of order: {x.offsets}")
+    return torch.cat([s.to(DEVICE) for s in x.shards], dim=x.axis)
+
+
+def route_inputs(dtype: str, lookups, ncol: int, nlay: int):
+    """The all-sky inputs of the route phase in ``dtype``: ``lookups``, the
+    cloudy, aerosol-laden atmosphere with fractional cloud, the boundary
+    conditions and a metric scaling that varies by level and column."""
+    import torch
+
+    atm = allsky_atmosphere(ncol, nlay, dtype)
+    bcs_lw, bcs_sw = boundary_conditions(lookups.lookup_lw, lookups.lookup_sw, ncol)
+    dt = getattr(torch, dtype)
+    scale = (torch.linspace(0.95, 1.05, nlay + 1, dtype=dt, device=DEVICE)[:, None]
+             * torch.linspace(0.99, 1.01, ncol, dtype=dt, device=DEVICE)[None, :])
+    return lookups, atm, bcs_lw, bcs_sw, scale
+
+
+def route_solver(cfg: dict, inputs, **override):
+    """RRTMGPSolver of the configuration on ``inputs`` (``route_inputs``);
+    ``override`` replaces its keyword arguments."""
+    import rrtmgp_tpu_torch as rt
+    from rrtmgp_tpu_torch.parallel.sharding import make_column_mesh
+
+    lookups, atm, bcs_lw, bcs_sw, scale = inputs
+    name, aerosols = ROUTE_METHODS[cfg["method"]]
+    grid = rt.RRTMGPGridParams(nlay=atm.nlay, ncol=atm.ncol, dtype=atm.p_lay.dtype,
+                               isothermal_boundary_layer=cfg["isothermal_boundary_layer"])
+    kw = dict(two_stream_lw=cfg["two_stream_lw"], n_gauss_angles=cfg["n_gauss_angles"],
+              two_stream_sw=cfg["two_stream_sw"], fused_optics=cfg["fused_optics"], f64_kernel=cfg["f64_kernel"],
+              metric_scaling=scale if cfg["metric_scaling"] else None,
+              mesh=make_column_mesh([DEVICE, DEVICE]) if cfg["mesh"] else None)
+    kw.update(override)
+    return rt.RRTMGPSolver(grid, getattr(rt, name)(aerosol_radiation=aerosols), rt.RRTMGPParameters(),
+                           bcs_lw, bcs_sw, atm, lookups=lookups, **kw)
+
+
+def route_outputs(solver) -> dict:
+    """Every flux and diagnostic of the solver's last update_fluxes(), by
+    wave and kind, each a tuple of tensors put together from the mesh
+    entries, or None where the solver has none."""
+    tensors = lambda fields: None if fields is None or fields[0] is None else tuple(whole(f) for f in fields)
+    out = {}
+    for wave in ("lw", "sw"):
+        out[wave, "flux"] = tensors(getattr(solver, f"flux_{wave}"))
+        out[wave, "clear flux"] = tensors(getattr(solver, f"clear_flux_{wave}"))
+        out[wave, "cover"] = tensors((getattr(solver, f"{wave}_cloud_cover")(),))
+    out["sw", "aod"] = tensors((solver.aod_sw_extinction(), solver.aod_sw_scattering()))
+    return out
+
+
+def same_outputs(out: dict, ref: dict) -> bool:
+    """Two solvers' ``route_outputs``, bit for bit."""
+    import torch
+
+    return all((out[k] is None and ref[k] is None) or (
+        out[k] is not None and ref[k] is not None and all(map(torch.equal, out[k], ref[k]))) for k in out)
+
+
+def route_errors(cfg: dict, out: dict, ref: dict) -> tuple[list[str], list[str]]:
+    """The configuration's outputs against impl="torch"'s: (what is off:
+    each flux beyond its route's tolerance, cloud cover not bitwise, AOD
+    beyond ROUTE_AOD_TOL; each flux's error and tolerance)."""
+    import torch
+
+    wrong, readings = [], []
+    all_sky = route_solves(cfg)[-1]
+    for wave in ("lw", "sw"):
+        for kind, cloudy in (("clear flux", False), ("flux", all_sky)):
+            a, b = out[wave, kind], ref[wave, kind]
+            if (a is None) != (b is None):
+                wrong.append(f"{wave} {kind}: present in one solver only")
+            if a is None or b is None:
+                continue
+            tol, absolute = route_tol(cfg, wave, cloudy)
+            err, rel = rel_err(a, b)
+            if tol == 0.0:
+                readings.append(f"{wave} {kind} bitwise {all(map(torch.equal, a, b))}")
+            else:
+                readings.append(f"{wave} {kind} {err:.2e} W/m2 (tol {tol:.0e} W/m2)" if absolute
+                                else f"{wave} {kind} rel {rel:.2e} (tol {tol:.0e})")
+            if (err if absolute else rel) > tol or (tol == 0.0 and not all(map(torch.equal, a, b))):
+                wrong.append(f"{wave} {kind}: max|d|={err:.3e} rel={rel:.3e} (tol {tol:.0e}"
+                             f"{' W/m2' if absolute else ''})")
+        a, b = out[wave, "cover"], ref[wave, "cover"]
+        if (a is None) != (b is None) or (a is not None and not torch.equal(a[0], b[0])):
+            wrong.append(f"{wave} cloud cover differs from the torch path's")
+    a, b = out["sw", "aod"], ref["sw", "aod"]
+    if (a is None) != (b is None) or (a is not None and rel_err(a, b)[1] > ROUTE_AOD_TOL):
+        wrong.append("SW AOD differs from the torch path's")
+    return wrong, readings
+
+
+def run_route_config(cfg: dict, inputs) -> dict:
+    """One update_fluxes() of the configuration with impl=None and one with
+    impl="torch" (unsplit, fused optics: the torch path has no
+    materialized-optics kernel); their launches, the step's milliseconds and
+    its errors against impl="torch" and what is off (``route_errors``)."""
+    import warnings
+
+    import torch
+
+    from rrtmgp_tpu_torch.ops import mega
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")  # the f64 torch path's warning, by design
+        solver = route_solver(cfg, inputs)
+        torch.cuda.synchronize()
+        mega.reset_launch_counts()
+        t0 = time.perf_counter()
+        solver.update_fluxes()
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0)
+        launches = {k: n for k, n in mega.launch_counts().items() if n}
+        out = route_outputs(solver)
+        ref = route_solver(cfg, inputs, impl="torch", fused_optics=True, mesh=None)
+        ref.update_fluxes()
+        wrong, readings = route_errors(cfg, out, route_outputs(ref))
+    nlay = whole(solver.temperature()).shape[0]
+    if nlay != inputs[1].nlay - cfg["isothermal_boundary_layer"]:
+        wrong.append(f"temperature() has {nlay} layers with isothermal_boundary_layer="
+                     f"{cfg['isothermal_boundary_layer']}")
+    return dict(launches=launches, ms=ms, wrong=wrong, readings=readings)
+
+
+def f64_unfused_case(inputs, method, two_stream_lw, n_angles, two_stream_sw) -> dict:
+    """The f64 solver with fused_optics=False against the fused one and on
+    a two-entry mesh: LW launches of one update_lw_fluxes(), launches of an
+    update_fluxes() (unsplit and mesh), whether every output is bitwise the
+    fused solver's and the mesh's the unsplit's, and both steps' medians
+    over 3 steps in turns."""
+    import warnings
+
+    import torch
+
+    from rrtmgp_tpu_torch.ops import mega
+
+    cfg = dict(method=method, f64_kernel=None, dtype="float64", two_stream_lw=two_stream_lw,
+               n_gauss_angles=n_angles, two_stream_sw=two_stream_sw, fused_optics=False, metric_scaling=False,
+               mesh=False, isothermal_boundary_layer=False)
+    counts = lambda: {k: n for k, n in mega.launch_counts().items() if n}
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")  # the f64 torch path's warning, by design
+        unfused, fused = route_solver(cfg, inputs), route_solver(cfg, inputs, fused_optics=True)
+        split = route_solver({**cfg, "mesh": True}, inputs)
+        mega.reset_launch_counts()
+        unfused.update_lw_fluxes()
+        lw_launches = counts()
+        unfused.update_sw_fluxes()
+        fused.update_fluxes()
+        mega.reset_launch_counts()
+        split.update_fluxes()
+        mesh_launches = counts()
+        a, b, c = route_outputs(unfused), route_outputs(fused), route_outputs(split)
+        times = {"unfused": [], "fused": []}
+        for i in range(3):
+            for name, s in ((("unfused", unfused), ("fused", fused)) if i % 2 == 0
+                            else (("fused", fused), ("unfused", unfused))):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                s.update_fluxes()
+                torch.cuda.synchronize()
+                times[name].append(1e3 * (time.perf_counter() - t0))
+    return dict(cfg=cfg, lw_launches=lw_launches, mesh_launches=mesh_launches,
+                fused_equal=same_outputs(a, b), mesh_equal=same_outputs(a, c),
+                ms={k: statistics.median(v) for k, v in times.items()})
+
+
+def phase_routes(lookups32, lookups64, ncol: int = ROUTES_NCOL, nlay: int = NLAY) -> None:
+    """(a) The f64 solver with fused_optics=False at ``ncol`` x ``nlay``:
+    the same routes as the fused f64 solver (F64_UNFUSED_CASES), bitwise
+    its fluxes, also on a mesh of two entries on the card, with exactly one
+    lw_clear_mega launch (the f64 build, K7) per angle and one planck_band
+    per LW solve where f64 has a kernel, and no launch otherwise; (b) the
+    covering set of the option matrix (pairwise_configs) through
+    RRTMGPSolver with impl=None: no refusal, the launches of the route
+    table (route_launches), every output within its route's tolerance of
+    impl="torch"."""
+    t0 = time.perf_counter()
+    inputs = {"float32": route_inputs("float32", lookups32, ncol, nlay),
+              "float64": route_inputs("float64", lookups64, ncol, nlay)}
+    for method, two_stream_lw, n_angles, two_stream_sw in F64_UNFUSED_CASES:
+        r = f64_unfused_case(inputs["float64"], method, two_stream_lw, n_angles, two_stream_sw)
+        cfg = r["cfg"]
+        want_lw = dict(solve_launches(cfg, "lw", route_solves(cfg)[-1]))
+        want_mesh = route_launches({**cfg, "mesh": True})
+        what = (f"f64 fused_optics=False {method}, LW {'two-stream' if two_stream_lw else f'{n_angles} angle(s)'}, "
+                f"SW {'two-stream' if two_stream_sw else 'direct beam'}")
+        phase("routes", f"(a) {what} at {ncol} x {nlay}: LW route {route_of(cfg, 'lw', method != 'clear')}, "
+                        f"launches of update_lw_fluxes() {r['lw_launches']}, of a mesh step {r['mesh_launches']}; "
+                        f"bitwise the fused solver: {r['fused_equal']}, mesh bitwise unsplit: {r['mesh_equal']}; "
+                        f"step median unfused {r['ms']['unfused']:.3f} ms, fused {r['ms']['fused']:.3f} ms "
+                        f"(unfused / fused {r['ms']['unfused'] / r['ms']['fused']:.3f})")
+        require(r["lw_launches"] == want_lw, f"(a) {what}: LW launches {r['lw_launches']}, expected {want_lw}")
+        require(r["mesh_launches"] == want_mesh, f"(a) {what}: mesh launches {r['mesh_launches']}, "
+                                                 f"expected {want_mesh}")
+        require(r["fused_equal"], f"(a) {what}: not bitwise the fused f64 solver")
+        require(r["mesh_equal"], f"(a) {what}: the mesh is not bitwise the unsplit solver")
+    configs = pairwise_configs()
+    phase("routes", f"(b) a covering set of {len(configs)} configurations of {len(ROUTE_FACTORS)} options "
+                    f"(every pair of two options' values in one of them) at {ncol} x {nlay}")
+    off = []
+    for i, cfg in enumerate(configs):
+        r = run_route_config(cfg, inputs[cfg["dtype"]])
+        want = route_launches(cfg)
+        routes = {w: [route_of(cfg, w, c) for c in route_solves(cfg)] for w in ("lw", "sw")}
+        wrong = r["wrong"] + ([f"launches {r['launches']}, expected {want}"] if r["launches"] != want else [])
+        phase("routes", f"(b) {i + 1:2d} {cfg}: routes {routes}, launches {r['launches']}, "
+                        f"{r['ms']:.1f} ms; vs impl='torch': {', '.join(r['readings'])}; "
+                        f"{'ok' if not wrong else 'OFF: ' + '; '.join(wrong)}")
+        off += [f"config {i + 1}: {w}" for w in wrong]
+    require(not off, "routes: " + "; ".join(off))
+    phase("routes", f"routes phase wall time {time.perf_counter() - t0:.1f} s")
+
+
+# ---------------------------------------------------------------------------
 # Loading rrtmgp-data files: a fabricated v1.9 checkout
 # ---------------------------------------------------------------------------
 
@@ -3102,6 +3514,9 @@ def main() -> None:
     phase_mesh_world(whole)
     del whole
     done("the mesh phase")
+    phase_routes(L, lookup_tables(AllSkyRadiation(aerosol_radiation=True), dtype=torch.float64, device=DEVICE))
+    torch.cuda.empty_cache()
+    done("the routes phase")
     phase_data()
     torch.cuda.empty_cache()
     done("the data phase")

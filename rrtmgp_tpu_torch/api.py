@@ -17,7 +17,8 @@ solve goes through ``solve_chunked`` in ``auto_chunk``-column chunks, the
 kernel path too; chunked fluxes equal unchunked ones bit for bit. On CUDA
 tensors the clear-sky LW no-scattering solve without aerosols takes the f64
 build of the ``lw_clear_mega`` kernel (``f64_kernel=False`` keeps it on the
-exact torch path); every other f64 solve takes the torch path.
+exact torch path); every other f64 solve takes the torch path, whatever
+``fused_optics`` says.
 
 Mesh: ``RRTMGPSolver(mesh=...)`` with a ``parallel.sharding.ColumnMesh``
 splits the columns over the mesh entries (``grid_params.ncol`` is the
@@ -42,7 +43,11 @@ the SW direct-beam solve (``two_stream_sw=False``); never ``"sweep"``.
 ``fused_optics=False``, passed through likewise, is the counterpart of
 ``pallas_windowed="off"``: every f32 CUDA solve takes the two-kernel path
 with the unfused optics (the table interpolation and minor-gas kernels in
-place of the materialized-optics kernel).
+place of the materialized-optics kernel). f64 routing ignores it, as the
+JAX package's f64 ignores ``pallas_windowed``: an f64 solver with
+``fused_optics=False`` takes the routes of the fused f64 solver above (the
+f64 kernel, unless ``f64_kernel=False``, or the torch path) and gives its
+fluxes bit for bit.
 """
 
 from __future__ import annotations
@@ -368,15 +373,15 @@ class RRTMGPSolver:
         return self._per_shard(run, self._lookups_arg, self.as_, bcs, self._col_ids, self.metric_scaling)
 
     def _lw(self, cloudy: bool):
-        impl = self.impl
-        if (impl is None and self.f64_kernel is False and self.fused_optics
-                and self.grid_params.dtype == torch.float64):
-            impl = "torch"  # the exact path also where f64 has a kernel
+        impl, fused = self.impl, self.fused_optics
+        if impl is None and self.f64_kernel is False and self.grid_params.dtype == torch.float64:
+            # the exact path also where f64 has a kernel; f64 ignores fused_optics
+            impl, fused = "torch", True
         solve = lambda lk, a, b, **kw: _solvers.solve_lw(lk.lookup_lw, a, b, **kw)
         return self._solve(
             solve, self.bcs_lw, cloudy, 0, two_stream=self.two_stream_lw,
             n_gauss_angles=self.n_gauss_angles, aero_species=self.aero_species,
-            eta_node_mode=self.eta_node_mode, impl=impl, fused_optics=self.fused_optics,
+            eta_node_mode=self.eta_node_mode, impl=impl, fused_optics=fused,
         )
 
     def _sw(self, cloudy: bool):

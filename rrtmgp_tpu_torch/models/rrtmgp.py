@@ -43,17 +43,21 @@ of the materialized-optics kernel K8 (``ops.interp.optics_unfused``; the same
 optics bit for bit). It covers every two-kernel solve (LW no-scattering with
 1-4 angles, LW two-stream, SW two-stream, the SW direct beam, clear or
 all-sky); like ``"off"`` it gives up the megakernels, so ``impl=None`` takes
-the two-kernel path for every f32 CUDA solve. ``"kernel"``, ``"sweep"`` and
-``"torch"`` have no materialized-optics kernel and raise ``ValueError`` with
-it.
+the two-kernel path for every f32 CUDA solve. f64 routing ignores it, as the
+JAX package's f64 ignores ``pallas_windowed`` (its Pallas tier is f32 only):
+an f64 solve with ``impl=None`` takes the route of the fused f64 solve, and
+gives its fluxes bit for bit. ``"kernel"``, ``"sweep"`` and ``"torch"`` have
+no materialized-optics kernel and raise ``ValueError`` with it; an explicit
+``"two_kernel"`` in f64 raises ``NotImplementedError`` as without it.
 
 ``impl=None`` routes as the JAX package does. f32 CUDA tensors take the
 megakernels for LW no-scattering with one angle, LW two-stream and SW
 two-stream, and the two-kernel path for LW no-scattering with several angles
 (the optics are computed once, not once per angle; it holds them in memory,
-see ``solve_lw``) and for the SW direct-beam solve. f64 CUDA tensors take the kernel for the one f64 solve
-that has one and ``"torch"`` otherwise (with a warning); CPU tensors take
-``"torch"``. An explicit ``impl`` that does not cover a solve raises
+see ``solve_lw``) and for the SW direct-beam solve. f64 CUDA tensors, with
+or without ``fused_optics``, take the kernel for the one f64 solve that has
+one (clear-sky LW no-scattering without aerosols, 1-4 angles) and
+``"torch"`` otherwise (with a warning); CPU tensors take ``"torch"``. An explicit ``impl`` that does not cover a solve raises
 ``NotImplementedError`` naming the ROADMAP item that will add it;
 ``impl=None`` never does for a solve the JAX package computes. (The kernels
 run one thread per g-point; a lookup of more than 1024 g-points spreads a
@@ -152,17 +156,21 @@ def _resolve_impl(impl: str | None, device: torch.device, dtype: torch.dtype,
     ``"kernel"``, ``"two_kernel"`` and ``"sweep"`` need CUDA tensors;
     ``"kernel"`` raises for an f64 solve without a kernel, ``"two_kernel"``
     and ``"sweep"`` for any f64 solve. Without ``fused_optics`` only the
-    two-kernel path runs: ``impl=None`` takes it on CUDA tensors (and
-    ``"torch"`` on CPU tensors), any other ``impl`` raises ``ValueError``."""
+    two-kernel path runs in f32: ``impl=None`` takes it on f32 CUDA tensors
+    (and ``"torch"`` on CPU tensors), any other ``impl`` than
+    ``"two_kernel"`` raises ``ValueError``. f64 ignores ``fused_optics``
+    with ``impl=None``, as the JAX package's f64 ignores
+    ``pallas_windowed``: the same route as the fused solve, bit for bit."""
     f64 = dtype == torch.float64
     f64_without = f64 and not has_f64_kernel
     if not fused_optics:
         if impl not in (None, "two_kernel"):
             raise ValueError(f"fused_optics=False runs the two-kernel path; impl={impl!r} has no "
                              "materialized-optics kernel (use impl=None or 'two_kernel')")
-        if impl is None and device.type != "cuda":
-            return "torch"
-        impl = "two_kernel"
+        # impl=None takes it on f32 CUDA tensors; f64 routes below as a fused
+        # solve, as the JAX package's f64 ignores pallas_windowed
+        if impl is None and device.type == "cuda" and not f64:
+            impl = "two_kernel"
     if impl is None:
         if device.type != "cuda":
             return "torch"
@@ -408,7 +416,7 @@ def solve_lw(
     runs the two-kernel path with the unfused optics: the table
     interpolation kernel for tau and the Planck fraction and the minor-gas
     kernel in place of the materialized-optics kernel, the same optics bit
-    for bit (see the module docstring).
+    for bit (see the module docstring). An f64 solve ignores it.
 
     Memory: with several angles the default ``impl`` on f32 CUDA tensors
     takes the two-kernel path, which holds tau and the Planck fraction as

@@ -302,20 +302,24 @@ def test_solve_sw_unfused_matches_jax_off_and_the_fused_route(two_kernel_dispatc
 
 def test_unfused_routing():
     """fused_optics=False: the two-kernel path for impl=None on CUDA tensors
-    (every solve, as the JAX "off" gives up the megakernels) and for
+    (every f32 solve, as the JAX "off" gives up the megakernels) and for
     "two_kernel"; the torch path on CPU tensors; ValueError with "kernel",
-    "sweep" or "torch"; f64 names its ROADMAP item as an explicit
-    two-kernel f64 solve does."""
+    "sweep" or "torch" in either dtype; an explicit "two_kernel" in f64
+    names its ROADMAP item as with the fused optics. f64 with impl=None
+    routes as a fused f64 solve: tests/test_torch_routes.py holds those
+    routes."""
     cuda, cpu, f32, f64 = torch.device("cuda"), torch.device("cpu"), torch.float32, torch.float64
     for mega_ok in (True, False):
         assert tmod._resolve_impl(None, cuda, f32, mega=mega_ok, fused_optics=False) == "two_kernel"
     assert tmod._resolve_impl("two_kernel", cuda, f32, fused_optics=False) == "two_kernel"
     assert tmod._resolve_impl(None, cpu, f32, fused_optics=False) == "torch"
-    for impl in ("kernel", "sweep", "torch"):
-        with pytest.raises(ValueError, match="fused_optics"):
-            tmod._resolve_impl(impl, cuda, f32, fused_optics=False)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tmod._resolve_impl(None, cuda, f64, True, fused_optics=False)
+    for dtype in (f32, f64):
+        for impl in ("kernel", "sweep", "torch"):
+            with pytest.raises(ValueError, match="fused_optics"):
+                tmod._resolve_impl(impl, cuda, dtype, True, fused_optics=False)
+    for has_kernel in (False, True):
+        with pytest.raises(NotImplementedError, match=mega.F64_ALLSKY_ITEM):
+            tmod._resolve_impl("two_kernel", cuda, f64, has_kernel, fused_optics=False)
 
 
 def test_unfused_on_cpu_runs_the_torch_path_and_refuses_other_impls():
