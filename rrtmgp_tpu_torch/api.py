@@ -65,6 +65,7 @@ from .parallel.sharding import ColumnSharded, column_ids, replicate, shard_colum
 from .parameters import RRTMGPParameters
 from .states import AtmosphericState, LwBCs, SwBCs, get_vmr
 from .utils.datalayouts import domain_view
+from .utils.profiling import span
 
 #: (nlay, ncol, ngpt) tensor-equivalents the f64 auto-chunk budgets per solve:
 #: the JAX package's figure, kept so that both packages choose the same chunk.
@@ -413,29 +414,32 @@ class RRTMGPSolver:
         return self.flux_lw, self.flux_sw
 
     def update_lw_fluxes(self):
-        m = self.radiation_method
-        if isinstance(m, GrayRadiation):
-            gray = lambda a, b: _solvers.FluxLW(*solve_gray_lw(
-                a, b.sfc_emis[0], self.params, two_stream=self.two_stream_lw, n_gauss_angles=self.n_gauss_angles))
-            self.flux_lw = self._per_shard(gray, self.as_, self.bcs_lw)
+        with span("rrtmgp.update_lw_fluxes"):
+            m = self.radiation_method
+            if isinstance(m, GrayRadiation):
+                gray = lambda a, b: _solvers.FluxLW(*solve_gray_lw(
+                    a, b.sfc_emis[0], self.params, two_stream=self.two_stream_lw,
+                    n_gauss_angles=self.n_gauss_angles))
+                self.flux_lw = self._per_shard(gray, self.as_, self.bcs_lw)
+                return self.flux_lw
+            if isinstance(m, AllSkyRadiationWithClearSkyDiagnostics):
+                self.clear_flux_lw, _ = self._lw(cloudy=False)
+            self.flux_lw, self.diag_lw = self._lw(cloudy=isinstance(m, _CLOUDY))
             return self.flux_lw
-        if isinstance(m, AllSkyRadiationWithClearSkyDiagnostics):
-            self.clear_flux_lw, _ = self._lw(cloudy=False)
-        self.flux_lw, self.diag_lw = self._lw(cloudy=isinstance(m, _CLOUDY))
-        return self.flux_lw
 
     def update_sw_fluxes(self):
-        m = self.radiation_method
-        if isinstance(m, GrayRadiation):
-            gray = lambda a, b: _solvers.FluxSW(*solve_gray_sw(
-                a, b.cos_zenith, b.toa_flux, b.sfc_alb_direct[0], b.sfc_alb_diffuse[0],
-                two_stream=self.two_stream_sw))
-            self.flux_sw = self._per_shard(gray, self.as_, self.bcs_sw)
+        with span("rrtmgp.update_sw_fluxes"):
+            m = self.radiation_method
+            if isinstance(m, GrayRadiation):
+                gray = lambda a, b: _solvers.FluxSW(*solve_gray_sw(
+                    a, b.cos_zenith, b.toa_flux, b.sfc_alb_direct[0], b.sfc_alb_diffuse[0],
+                    two_stream=self.two_stream_sw))
+                self.flux_sw = self._per_shard(gray, self.as_, self.bcs_sw)
+                return self.flux_sw
+            if isinstance(m, AllSkyRadiationWithClearSkyDiagnostics):
+                self.clear_flux_sw, _ = self._sw(cloudy=False)
+            self.flux_sw, self.diag_sw = self._sw(cloudy=isinstance(m, _CLOUDY))
             return self.flux_sw
-        if isinstance(m, AllSkyRadiationWithClearSkyDiagnostics):
-            self.clear_flux_sw, _ = self._sw(cloudy=False)
-        self.flux_sw, self.diag_sw = self._sw(cloudy=isinstance(m, _CLOUDY))
-        return self.flux_sw
 
     # -- getters -------------------------------------------------------------
 

@@ -77,6 +77,7 @@ and is invariant to column splits.
 
 from __future__ import annotations
 
+import functools
 import warnings
 from typing import NamedTuple
 
@@ -117,6 +118,7 @@ from ..ops.rte_kernels import (
     sw_2stream_reduced,
 )
 from ..states import AtmosphericState, LwBCs, SwBCs, slice_columns, tree_leaves, tree_unflatten
+from ..utils.profiling import span
 
 
 class FluxLW(NamedTuple):
@@ -192,6 +194,17 @@ def _resolve_impl(impl: str | None, device: torch.device, dtype: torch.dtype,
     if impl == "sweep" and f64:
         _not_ported("the sweep route in f64 (the sweep kernels are built for f32)", F64_ALLSKY_ITEM)
     return impl
+
+
+def _spanned(name: str):
+    """Run the decorated solve inside ``span(name)``, whatever its route."""
+    def wrap(fn):
+        @functools.wraps(fn)
+        def spanned(*args, **kwargs):
+            with span(name):
+                return fn(*args, **kwargs)
+        return spanned
+    return wrap
 
 
 def _not_ported(what: str, item: str):
@@ -357,26 +370,29 @@ def _aerosol_bands_masked(lkp_aero, as_, delta_scaling, collect_aod, active_spec
 
 
 def _kernel_composition(lkp, as_, lkp_cld, lkp_aero, cld_mask, cld_mask_seed, col_offset,
-                        aero_species, delta_scaling, collect_aod):
+                        aero_species, delta_scaling, collect_aod, wave: str = "rrtmgp"):
     """The megakernels' Composition: cloud band properties (delta-scaled for
     SW) with the caller's mask or, in seed mode, the cloud fraction and
-    seed; aerosol band properties from the aerosol_bands kernel. Returns
-    (Composition, aod_ext, aod_sca)."""
+    seed; aerosol band properties from the aerosol_bands kernel. ``wave``
+    (the solves pass ``"rrtmgp.lw"`` or ``"rrtmgp.sw"``) prefixes the spans
+    of both parts. Returns (Composition, aod_ext, aod_sca)."""
     cld_bands = frac = seed = None
     if lkp_cld is not None:
         if cld_mask is None and cld_mask_seed is None:
             raise ValueError("lkp_cld needs cld_mask or cld_mask_seed")
-        cld_bands = cloud_optics_bands(lkp_cld, as_.cloud_state)
-        if delta_scaling:
-            cld_bands = delta_scale(*cld_bands)
-        cld_bands = tuple(x.contiguous() for x in cld_bands)
-        if cld_mask is None:
-            frac, seed = as_.cloud_state.cld_frac.contiguous(), int(cld_mask_seed)
+        with span(wave + ".clouds"):
+            cld_bands = cloud_optics_bands(lkp_cld, as_.cloud_state)
+            if delta_scaling:
+                cld_bands = delta_scale(*cld_bands)
+            cld_bands = tuple(x.contiguous() for x in cld_bands)
+            if cld_mask is None:
+                frac, seed = as_.cloud_state.cld_frac.contiguous(), int(cld_mask_seed)
     aero_bands = aero_mask = aod_ext = aod_sca = None
     if lkp_aero is not None:
-        aero_bands, aero_mask, aod_ext, aod_sca = _aerosol_bands_masked(
-            lkp_aero, as_, delta_scaling, collect_aod, aero_species
-        )
+        with span(wave + ".aerosols"):
+            aero_bands, aero_mask, aod_ext, aod_sca = _aerosol_bands_masked(
+                lkp_aero, as_, delta_scaling, collect_aod, aero_species
+            )
     comp = Composition(
         cld_bands=cld_bands, cld_mask=cld_mask if cld_bands is not None and frac is None else None,
         cld_frac=frac, seed=seed, col_offset=int(col_offset),
@@ -391,6 +407,7 @@ def _cover(cover, cld_mask, dtype):
     return None if cover is None else cover.to(dtype)
 
 
+@_spanned("rrtmgp.lw")
 def solve_lw(
     lkp: GasLookup,
     as_: AtmosphericState,
@@ -465,24 +482,32 @@ def solve_lw(
 
     if impl == "kernel":
         tabs = lkp.kernel_tables
-        inp = mega_lw_inputs(lkp, as_, eta_node_mode)
-        # every temperature set of the solve in one launch
-        plk = lambda *ts: planck_band_sets(
-            tuple(t.reshape(-1) for t in ts), lkp.totplnk, lkp.t_planck_min, lkp.t_planck_delta
-        )
+        with span("rrtmgp.lw.inputs"):
+            inp = mega_lw_inputs(lkp, as_, eta_node_mode)
+
+        def plk(*ts):
+            # every temperature set of the solve in one launch
+            with span("rrtmgp.lw.planck"):
+                return planck_band_sets(
+                    tuple(t.reshape(-1) for t in ts), lkp.totplnk, lkp.t_planck_min, lkp.t_planck_delta
+                )
+
         comp, _, _ = _kernel_composition(
             lkp, as_, lkp_cld, lkp_aero, cld_mask, cld_mask_seed, col_offset, aero_species,
-            delta_scaling=False, collect_aod=False,
+            delta_scaling=False, collect_aod=False, wave="rrtmgp.lw",
         )
         if two_stream:
-            out = lw2_mega(inp, tabs, *plk(as_.t_lev, as_.t_sfc), bcs.sfc_emis, bcs.inc_flux, comp)
+            plk_lev, plk_sfc = plk(as_.t_lev, as_.t_sfc)
+            with span("rrtmgp.lw.solve"):
+                out = lw2_mega(inp, tabs, plk_lev, plk_sfc, bcs.sfc_emis, bcs.inc_flux, comp)
             flux_up, flux_dn = out[0], out[1]
         else:
             # one launch per angle; in seed mode every angle draws the same
             # mask (same seed and offset) and the cover is taken once
             plk_lay, plk_lev, plk_sfc = plk(as_.t_lay, as_.t_lev, as_.t_sfc)
-            flux_up, flux_dn, out = noscat_angles(lambda ds, w, inc_k: lw_clear_mega(
-                inp, tabs, plk_lay, plk_lev, plk_sfc, bcs.sfc_emis, inc_k, ds, w, comp))
+            with span("rrtmgp.lw.solve"):
+                flux_up, flux_dn, out = noscat_angles(lambda ds, w, inc_k: lw_clear_mega(
+                    inp, tabs, plk_lay, plk_lev, plk_sfc, bcs.sfc_emis, inc_k, ds, w, comp))
         cover = out[2] if comp.seeded else None
         flux = FluxLW(flux_up, flux_dn, flux_up - flux_dn)
         diag = SolveDiagnostics(cld_cover=_cover(cover, cld_mask, dtype))
@@ -549,6 +574,7 @@ def solve_lw(
     return _apply_metric_scaling(flux, metric_scaling), diag
 
 
+@_spanned("rrtmgp.sw")
 def solve_sw(
     lkp: GasLookup,
     as_: AtmosphericState,
@@ -588,12 +614,15 @@ def solve_sw(
                              "materialized-optics kernel, then the beam recurrence)")
         comp, aod_ext, aod_sca = _kernel_composition(
             lkp, as_, lkp_cld, lkp_aero, cld_mask, cld_mask_seed, col_offset, aero_species,
-            delta_scaling=True, collect_aod=True,
+            delta_scaling=True, collect_aod=True, wave="rrtmgp.sw",
         )
-        out = sw_clear_mega(
-            mega_sw_inputs(lkp, as_, eta_node_mode), lkp.kernel_tables, mu0, toa_gpt,
-            bcs.sfc_alb_direct, bcs.sfc_alb_diffuse, bcs.inc_flux_diffuse, comp,
-        )
+        with span("rrtmgp.sw.inputs"):
+            inp = mega_sw_inputs(lkp, as_, eta_node_mode)
+        with span("rrtmgp.sw.solve"):
+            out = sw_clear_mega(
+                inp, lkp.kernel_tables, mu0, toa_gpt,
+                bcs.sfc_alb_direct, bcs.sfc_alb_diffuse, bcs.inc_flux_diffuse, comp,
+            )
         flux_up, flux_dn, flux_dn_dir = out[:3]
         if comp.seeded:
             cover = out[3]

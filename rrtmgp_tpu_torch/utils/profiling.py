@@ -3,9 +3,36 @@
 
 ``trace`` captures a ``torch.profiler`` trace of the host and, on a card,
 the device (CUDA kernels by name, the port's hand-written ones among them)
-as a Chrome trace viewable in Perfetto; ``benchmark`` runs a synchronised
-timing loop and reports median/min as the JAX package's does;
-``device_memory_stats`` reads the caching allocator's statistics.
+as a Chrome trace viewable in Perfetto; ``span`` names a stretch of the
+program in that trace; ``benchmark`` runs a synchronised timing loop and
+reports median/min as the JAX package's does; ``device_memory_stats``
+reads the caching allocator's statistics.
+
+The program's spans (host ranges on the profiler's own clock, beside the
+device activity) record only while a profiler runs; with none running a
+span costs one check. A radiation step opens, on the megakernel route (the
+default for f32 on the card)::
+
+    rrtmgp.update_lw_fluxes      RRTMGPSolver.update_lw_fluxes: chunking,
+    |                            the mesh split, the clear-sky diagnostics
+    `- rrtmgp.lw                 solve_lw, one solve: its self time is the
+       |                         night masks, net flux and scaling
+       |- rrtmgp.lw.inputs       pt and eta interpolation, minor scalings
+       |- rrtmgp.lw.clouds       cloud band optics
+       |- rrtmgp.lw.aerosols     the aerosol_bands kernel and properties
+       |- rrtmgp.lw.planck       the planck_band kernel, every set at once
+       `- rrtmgp.lw.solve        lw_clear_mega (each angle, their sum) or
+                                 lw2_mega
+    rrtmgp.update_sw_fluxes
+    `- rrtmgp.sw                 solve_sw
+       |- rrtmgp.sw.clouds       cloud band optics, delta-scaled
+       |- rrtmgp.sw.aerosols
+       |- rrtmgp.sw.inputs       pt and eta interpolation, Rayleigh factor
+       `- rrtmgp.sw.solve        sw_clear_mega
+
+``clouds`` and ``aerosols`` open only where the solver has clouds and
+aerosols. The two-kernel, sweep and torch routes open ``rrtmgp.lw`` and
+``rrtmgp.sw`` without children.
 """
 
 from __future__ import annotations
@@ -21,6 +48,22 @@ import torch
 from ..states import tree_leaves
 
 TRACE_FILE = "trace.json"
+_OFF = contextlib.nullcontext()
+
+
+def span(name: str):
+    """A profiler range named ``name`` while a profiler is recording, else a
+    shared context that does nothing.
+
+    The range is a function-scope one, as an operator's own: it shows on
+    the host thread above the operators and launches it holds. A
+    ``record_function`` range is a user annotation instead, which the
+    profiler also copies onto the device timeline over the kernels it
+    launched, so that each span would stand among the device's operations
+    as if it were one."""
+    if torch.autograd._profiler_enabled():
+        return torch._C._profiler._RecordFunctionFast(name)
+    return _OFF
 
 
 @contextlib.contextmanager
@@ -28,7 +71,11 @@ def trace(log_dir: str | None = None):
     """Capture a profiler trace of the enclosed block: CPU activity, and
     CUDA activity where there is a card. On exit the Chrome trace is written
     to ``log_dir/trace.json`` (``log_dir`` None: a directory of that name
-    in the temporary directory). Yields ``log_dir``."""
+    in the temporary directory). Yields ``log_dir``.
+
+    The program's spans (the module docstring's tree) record inside it and
+    show in Perfetto as named ranges on the host thread, each above the
+    operations and kernel launches it holds."""
     from torch.profiler import ProfilerActivity, profile
 
     log_dir = log_dir or os.path.join(tempfile.gettempdir(), "rrtmgp_tpu_torch_trace")
