@@ -15,7 +15,9 @@ is non-zero:
    (lw2_mega clear / cloud mask / McICA seed + aerosols, lw_clear_mega with
    cloud mask / aerosols / seed + aerosols, sw_clear_mega with cloud mask +
    aerosols / seed + aerosols, aerosol_bands, mcica_mask_export) at 75748 x
-   60, LW 256 / SW 224 g-points, their twins on 8192-column chunks; with
+   60, LW 256 / SW 224 g-points, their twins on 8192-column chunks, and
+   cloud_bands (LW 16 bands, SW 14 delta-scaled) bit for bit its twin at
+   full width); with
    each kernel's median time, its twin's, and its bound (the larger of its
    input and output bytes over 3.35 TB/s and its operations over the
    card's peak rate); band Planck as the solves launch it (planck_band,
@@ -244,7 +246,7 @@ TOL = {"planck_band": 1e-6, "lw_clear_mega": 5e-5, "sw_clear_mega": 1e-4,
        "lw_clear_mega_allsky": 5e-5, "optics_fused_lw": 1e-6, "optics_fused_sw": 1e-6,
        "planck_band_rows": 1e-6, "lw_noscat_banded_reduced": 5e-5, "sw_2stream_reduced": 1e-4,
        "lw_noscat_reduced": 5e-5, "lw_2stream_reduced": 1e-4, "sw_2stream_gpt": 1e-4, "lw_noscat_gpt": 5e-5,
-       "interp_pt_eta": 1e-6, "interp_minor": 1e-6}
+       "interp_pt_eta": 1e-6, "interp_minor": 1e-6, "cloud_bands_lw": 0.0, "cloud_bands_sw": 0.0}
 UNFUSED_TOL = 2e-6              # the unfused route's fluxes vs the fused two-kernel route's (bitwise expected)
 SUM_TOL = 5e-6                  # a per-g-point sweep summed over g-points vs its g-summed sibling
 F64_LW_TOL_WM2 = 1e-4           # the reference's f64 LW tolerance, absolute
@@ -270,6 +272,9 @@ SOURCES = {
     "lw_noscat_gpt": ("rrtmgp_tpu_torch/csrc/lw_noscat_sources.cu", "rrtmgp_tpu/ops/pallas_rte.py:513"),
     "interp_pt_eta": ("rrtmgp_tpu_torch/csrc/interp_pt_eta.cu", "rrtmgp_tpu/ops/pallas_interp.py:110"),
     "interp_minor": ("rrtmgp_tpu_torch/csrc/interp_minor.cu", "rrtmgp_tpu/ops/pallas_interp.py:405"),
+    # new code: the JAX package computes cloud optics in XLA, with no pallas_call
+    "cloud_bands_lw": ("rrtmgp_tpu_torch/csrc/cloud_bands.cu", "none (rrtmgp_tpu/ops/cloud_optics.py, XLA)"),
+    "cloud_bands_sw": ("rrtmgp_tpu_torch/csrc/cloud_bands.cu", "none (rrtmgp_tpu/ops/cloud_optics.py, XLA)"),
 }
 
 
@@ -439,6 +444,7 @@ OPS_INCREMENT = {"lw_clear_mega": 3, "sw_clear_mega": 12, "lw2_mega": 12}  # one
 OPS_MCICA = 85            # threefry2x32 (20 rounds of add, rotate, xor; integer) and the overlap recurrence
 OPS_PLANCK = 10           # per band value
 OPS_AEROSOL = 90          # per (layer, column, band): 15 species, a table blend and three sums each
+OPS_CLOUD = 40            # per (layer, column, band): two phases' table blends and products, the ratios, delta scaling
 OPS_INTERP = 26           # one table point: four pressure blends, two eta blends, two col_mix scales, the T blend
 
 
@@ -936,6 +942,7 @@ def check_allsky_kernels(label, L, atm, reps, results, chunk=None) -> None:
     from rrtmgp_tpu_torch.angular import angular_discretization
     from rrtmgp_tpu_torch.models.rrtmgp import _kernel_composition
     from rrtmgp_tpu_torch.ops import aerosol_bands as ab
+    from rrtmgp_tpu_torch.ops import cloud_bands as cb
     from rrtmgp_tpu_torch.ops import mega
     from rrtmgp_tpu_torch.ops.cloud_optics import build_cloud_mask_mcica
     from rrtmgp_tpu_torch.ops.mega_inputs import mega_lw_inputs, mega_sw_inputs
@@ -998,6 +1005,15 @@ def check_allsky_kernels(label, L, atm, reps, results, chunk=None) -> None:
                    lambda: ab.aerosol_bands(*a), lambda: twin(ab.aerosol_bands_ref, *a), reps if i == 1 else 0,
                    results, work=Work(nbytes(a), OPS_AEROSOL * atm.nlay * ncol * nbnd))
         print_aerosol_design(f"{label} [{nbnd} bands]", lkp)
+    cs = atm.cloud_state
+    fields = nbytes([getattr(cs, k) for k in cb.FIELDS])
+    for wave, lkp, delta in (("lw", L.lookup_lw_cld, False), ("sw", L.lookup_sw_cld, True)):
+        a = (lkp, cs, delta)
+        nbnd = lkp.liq.shape[-1]
+        check_case(f"{label} [{nbnd} bands]", f"cloud_bands_{wave}", lambda: cb.cloud_bands(*a),
+                   lambda: cb.cloud_bands_ref(*a), reps, results,
+                   work=Work(fields + nbytes(lkp.liq) + nbytes(lkp.ice) // lkp.nrghice,
+                             OPS_CLOUD * atm.nlay * ncol * nbnd))
     export_ref = lambda f, o: mega.mcica_mask_export_ref(f, seed, o.value, lw.n_gpt)
     check_case(f"{label} [ngpt {lw.n_gpt}]", "mcica_mask_export",
                lambda: mega.mcica_mask_export(cf, seed, off, lw.n_gpt),
@@ -1127,8 +1143,9 @@ def check_night(sw, atm, bcs_sw, kw, tag, impl="kernel") -> None:
 def phase_allsky_slice(L, atm, bcs_lw, bcs_sw, two_stream_lw=True) -> dict:
     """RRTMGPSolver all-sky with aerosols at full size, LW two-stream
     (lw2_mega) or, with two_stream_lw=False, LW no-scattering (lw_clear_mega
-    composed); returns the launch counts of its update_fluxes() steps and of
-    the exported-mask path. The no-scattering run repeats the LW oracles and
+    composed); returns the launch counts of its update_fluxes() steps,
+    cloud_bands split into its LW and SW launches, and of the exported-mask
+    path. The no-scattering run repeats the LW oracles and
     adds 3 angles; the SW-only ones (night columns, clear-sky diagnostics)
     belong to the two-stream run."""
     import torch
@@ -1143,6 +1160,7 @@ def phase_allsky_slice(L, atm, bcs_lw, bcs_sw, two_stream_lw=True) -> dict:
         solve_sw,
     )
     from rrtmgp_tpu_torch.ops import mega
+    from rrtmgp_tpu_torch.ops.cloud_bands import cloud_bands
     from rrtmgp_tpu_torch.ops.cloud_optics import build_cloud_mask_mcica
     from rrtmgp_tpu_torch.states import slice_columns
 
@@ -1153,25 +1171,40 @@ def phase_allsky_slice(L, atm, bcs_lw, bcs_sw, two_stream_lw=True) -> dict:
     grid = RRTMGPGridParams(nlay=NLAY, ncol=ncol, dtype=torch.float32)
     solver = RRTMGPSolver(grid, AllSkyRadiation(aerosol_radiation=True), RRTMGPParameters(),
                           bcs_lw, bcs_sw, atm, lookups=L, two_stream_lw=two_stream_lw)
-    solver.update_fluxes()  # warm-up
+    lw_clouds = []
+
+    def step():
+        # update_fluxes() is these two calls; apart, they count each wave's cloud_bands launches
+        before = cloud_bands.launches
+        solver.update_lw_fluxes()
+        lw_clouds.append(cloud_bands.launches - before)
+        solver.update_sw_fluxes()
+        return solver.flux_lw, solver.flux_sw
+
+    step()  # warm-up
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     mega.reset_launch_counts()
+    lw_clouds.clear()
     times = []
     for _ in range(STEPS):
         t0 = time.perf_counter()
         solver.advance_step()
-        f_lw, f_sw = solver.update_fluxes()
+        f_lw, f_sw = step()
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
     launches = mega.launch_counts()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     step_ms = 1e3 * statistics.median(times)
+    launches["cloud_bands_lw"] = sum(lw_clouds)
+    launches["cloud_bands_sw"] = launches.pop("cloud_bands") - launches["cloud_bands_lw"]
     phase(tag, f"launches in {STEPS} update_fluxes() steps: {launches}")
-    for name in ("planck_band", lw_kernel, "sw_clear_mega", "aerosol_bands"):
+    for name in ("planck_band", lw_kernel, "sw_clear_mega", "aerosol_bands", "cloud_bands_lw", "cloud_bands_sw"):
         require(launches[name] > 0, f"{name} was not launched on the {tag} path")
-    # per step: one Planck launch, at t_lev and t_sfc for LW two-stream, at t_lay too for no-scattering
-    want = {"planck_band": 1, lw_kernel: 1, "sw_clear_mega": 1, "aerosol_bands": 2}
+    # per step: one Planck launch, at t_lev and t_sfc for LW two-stream, at t_lay too for no-scattering;
+    # the aerosol and cloud band optics once a wave
+    want = {"planck_band": 1, lw_kernel: 1, "sw_clear_mega": 1, "aerosol_bands": 2, "cloud_bands_lw": 1,
+            "cloud_bands_sw": 1}
     per_step = {k: n / STEPS for k, n in launches.items() if n}
     require(per_step == want, f"launches per step {per_step}, expected {want}")
     phase(tag, f"update_fluxes() at {ncol} x {NLAY}: median {step_ms:.3f} ms over {STEPS} steps "
@@ -2455,7 +2488,7 @@ def phase_gray() -> None:
 # ---------------------------------------------------------------------------
 
 MESH_CLEAR_WANT = {"planck_band": 2, "lw_clear_mega": 2, "sw_clear_mega": 2}
-MESH_ALLSKY_WANT = {"planck_band": 2, "lw2_mega": 2, "sw_clear_mega": 2, "aerosol_bands": 4}
+MESH_ALLSKY_WANT = {"planck_band": 2, "lw2_mega": 2, "sw_clear_mega": 2, "aerosol_bands": 4, "cloud_bands": 4}
 MESH_WORLD_TIMEOUT_S = 300      # each process of a world: start, lookups, one warm-up and 3 steps
 
 
@@ -2797,6 +2830,8 @@ def solve_launches(cfg: dict, wave: str, cloudy: bool) -> dict:
     two_stream = cfg["two_stream_lw"] if wave == "lw" else cfg["two_stream_sw"]
     if route == "torch":
         return n
+    if route == "kernel" and cloudy:
+        n["cloud_bands"] += 1
     if route == "kernel" and wave == "lw":
         n["planck_band"] += 1
         n["lw2_mega" if two_stream else "lw_clear_mega"] += 1 if two_stream else cfg["n_gauss_angles"]
@@ -3084,7 +3119,7 @@ DATA_TABLE_TOL = 1e-12            # a loaded table against the one written, of i
 DATA_REVERSED = ("kmajor", "kminor_upper", "totplnk", "rayl_upper", "key_species", "vmr_ref", "extice",
                  "aero_salt_tbl", "aero_dust_tbl")
 DATA_KERNELS = {"clear": ("planck_band", "lw_clear_mega", "sw_clear_mega"),
-                "all-sky": ("planck_band", "lw2_mega", "sw_clear_mega", "aerosol_bands")}
+                "all-sky": ("planck_band", "lw2_mega", "sw_clear_mega", "aerosol_bands", "cloud_bands")}
 
 
 def fabricate():
@@ -3493,7 +3528,8 @@ def main() -> None:
     bcs_lw, bcs_sw = boundary_conditions(L.lookup_lw, L.lookup_sw, ALLSKY_NCOL)
     allsky = phase_allsky_slice(L, atm, bcs_lw, bcs_sw)
     launches.update(lw2_mega=allsky["lw2_mega"], sw_clear_mega_allsky=allsky["sw_clear_mega"],
-                    aerosol_bands=allsky["aerosol_bands"], mcica_mask_export=allsky["mcica_mask_export"])
+                    aerosol_bands=allsky["aerosol_bands"], mcica_mask_export=allsky["mcica_mask_export"],
+                    cloud_bands_lw=allsky["cloud_bands_lw"], cloud_bands_sw=allsky["cloud_bands_sw"])
     torch.cuda.empty_cache()
     noscat = phase_allsky_slice(L, atm, bcs_lw, bcs_sw, two_stream_lw=False)
     launches.update(lw_clear_mega_allsky=noscat["lw_clear_mega"])

@@ -90,6 +90,7 @@ from ..ops import rte
 from ..ops.aerosol_bands import aerosol_bands
 from ..ops.aerosol_optics import aerosol_optics_bands
 from ..ops.bounds import at_least
+from ..ops.cloud_bands import cloud_bands
 from ..ops.cloud_optics import (
     build_cloud_mask_mcica,
     cloud_cover_from_mask,
@@ -371,20 +372,18 @@ def _aerosol_bands_masked(lkp_aero, as_, delta_scaling, collect_aod, active_spec
 
 def _kernel_composition(lkp, as_, lkp_cld, lkp_aero, cld_mask, cld_mask_seed, col_offset,
                         aero_species, delta_scaling, collect_aod, wave: str = "rrtmgp"):
-    """The megakernels' Composition: cloud band properties (delta-scaled for
-    SW) with the caller's mask or, in seed mode, the cloud fraction and
-    seed; aerosol band properties from the aerosol_bands kernel. ``wave``
-    (the solves pass ``"rrtmgp.lw"`` or ``"rrtmgp.sw"``) prefixes the spans
-    of both parts. Returns (Composition, aod_ext, aod_sca)."""
+    """The megakernels' Composition: cloud band properties from the
+    cloud_bands kernel (delta-scaled for SW) with the caller's mask or, in
+    seed mode, the cloud fraction and seed; aerosol band properties from the
+    aerosol_bands kernel. ``wave`` (the solves pass ``"rrtmgp.lw"`` or
+    ``"rrtmgp.sw"``) prefixes the spans of both parts. Returns
+    (Composition, aod_ext, aod_sca)."""
     cld_bands = frac = seed = None
     if lkp_cld is not None:
         if cld_mask is None and cld_mask_seed is None:
             raise ValueError("lkp_cld needs cld_mask or cld_mask_seed")
         with span(wave + ".clouds"):
-            cld_bands = cloud_optics_bands(lkp_cld, as_.cloud_state)
-            if delta_scaling:
-                cld_bands = delta_scale(*cld_bands)
-            cld_bands = tuple(x.contiguous() for x in cld_bands)
+            cld_bands = cloud_bands(lkp_cld, as_.cloud_state, delta_scaling)
             if cld_mask is None:
                 frac, seed = as_.cloud_state.cld_frac.contiguous(), int(cld_mask_seed)
     aero_bands = aero_mask = aod_ext = aod_sca = None

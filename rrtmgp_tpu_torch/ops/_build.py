@@ -58,7 +58,10 @@ _P, _I, _U, _L, _F, _D = (ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c
 #: ncol, ngpt, group, n_groups, stream). The kernels of the unfused optics:
 #: interp_pt_eta ends with (nlay, ncol, ngpt, nbnd, npress, ntemp, neta,
 #: column tile, group, n_groups, stream), interp_minor with optics_fused's 7
-#: dims, n_minor, column tile, group, n_groups and the stream.
+#: dims, n_minor, column tile, group, n_groups and the stream. cloud_bands
+#: takes the two tables, the four radius bounds, the four fields and the
+#: three outputs, the fields' row strides, (nlay, ncol, nbnd, nsize_liq,
+#: nsize_ice, nrgh, rgh, delta_scale) and the stream.
 SIGNATURES = {
     "rrtmgp_planck_band": [_P] * 7 + [_I] * 9 + [_F, _F, _P],
     "rrtmgp_planck_band_f64": [_P] * 7 + [_I] * 9 + [_D, _D, _P],
@@ -67,6 +70,7 @@ SIGNATURES = {
     "rrtmgp_sw_clear_mega": [_P] * 46 + [_I] * 11 + [_U, _U, _L, _I, _I, _I, _P],
     "rrtmgp_lw2_mega": [_P] * 44 + [_I] * 10 + [_U, _U, _L, _I, _I, _I, _P],
     "rrtmgp_aerosol_bands": [_P] * 15 + [_I] * 6 + [_P],
+    "rrtmgp_cloud_bands": [_P] * 13 + [_L] * 4 + [_I] * 8 + [_P],
     "rrtmgp_mcica_export": [_P] * 3 + [_I] * 5 + [_U, _U, _L, _P],
     "rrtmgp_optics_fused": [_P] * 24 + [_I] * 12 + [_P],
     "rrtmgp_planck_band_rows": [_P] * 7 + [_I] * 9 + [_F, _F, _P],
@@ -84,6 +88,7 @@ SIGNATURES = {
 #: from int arguments: name -> their count
 SIZE_QUERIES = {
     "rrtmgp_aerosol_bands_smem": 3,
+    "rrtmgp_cloud_bands_smem": 3,
     "rrtmgp_lw_clear_mega_staged": 6,
     "rrtmgp_sw_clear_mega_staged": 5,
     "rrtmgp_optics_fused_smem": 3,

@@ -30,6 +30,10 @@ order; the count takes one for the call.
 - ``mcica_mask_export``: the McICA uniforms and mask the all-sky kernels
   draw in seed mode (replaces ``mcica_mask_export``).
 
+The composition's own kernels live beside their plain versions:
+``ops.aerosol_bands`` (the MERRA band sums) and ``ops.cloud_bands`` (the
+cloud band optics, new code: the JAX package has them in XLA).
+
 The all-sky inputs of the megakernels travel in a ``Composition``. Its McICA
 seed mode draws the JAX package's off-TPU threefry stream
 (``ops.cloud_optics``), so kernel and twin use the same mask.
@@ -59,6 +63,7 @@ from ._launch import require as _require
 from ._launch import stream as _stream
 from ._launch import table_ptrs as _table_ptrs
 from .aerosol_bands import aerosol_bands
+from .cloud_bands import cloud_bands
 from .cloud_optics import cloud_cover_from_mask, compose_2stream, mcica_sample
 from .gas_optics import gpt2band, planck_bands, planck_sources_from_bands
 from .interp import (
@@ -595,9 +600,10 @@ def mcica_mask_export(cld_frac: torch.Tensor, seed: int, col_offset: int, n_gpt:
 
 mcica_mask_export.launches = 0
 
-#: every kernel wrapper of the port: the megakernels' path, the optics
-#: kernels (``ops.interp``) and the sweeps (``ops.rte_kernels``)
-KERNEL_WRAPPERS = (planck_band, lw_clear_mega, lw2_mega, sw_clear_mega, aerosol_bands,
+#: every kernel wrapper of the port: the megakernels' path (with the
+#: composition's ``aerosol_bands`` and ``cloud_bands``), the optics kernels
+#: (``ops.interp``) and the sweeps (``ops.rte_kernels``)
+KERNEL_WRAPPERS = (planck_band, lw_clear_mega, lw2_mega, sw_clear_mega, aerosol_bands, cloud_bands,
                    mcica_mask_export, optics_fused, planck_band_rows, lw_noscat_banded_reduced,
                    sw_2stream_reduced, lw_noscat_reduced, lw_2stream_reduced, sw_2stream_gpt,
                    lw_noscat_gpt, interp_pt_eta, interp_minor)

@@ -18,14 +18,14 @@ default for f32 on the card)::
     `- rrtmgp.lw                 solve_lw, one solve: its self time is the
        |                         night masks, net flux and scaling
        |- rrtmgp.lw.inputs       pt and eta interpolation, minor scalings
-       |- rrtmgp.lw.clouds       cloud band optics
+       |- rrtmgp.lw.clouds       the cloud_bands kernel
        |- rrtmgp.lw.aerosols     the aerosol_bands kernel and properties
        |- rrtmgp.lw.planck       the planck_band kernel, every set at once
        `- rrtmgp.lw.solve        lw_clear_mega (each angle, their sum) or
                                  lw2_mega
     rrtmgp.update_sw_fluxes
     `- rrtmgp.sw                 solve_sw
-       |- rrtmgp.sw.clouds       cloud band optics, delta-scaled
+       |- rrtmgp.sw.clouds       the cloud_bands kernel, delta-scaled
        |- rrtmgp.sw.aerosols
        |- rrtmgp.sw.inputs       pt and eta interpolation, Rayleigh factor
        `- rrtmgp.sw.solve        sw_clear_mega

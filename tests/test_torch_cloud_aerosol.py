@@ -26,6 +26,7 @@ from rrtmgp_tpu.states import compute_relative_humidity as j_rh
 from rrtmgp_tpu_torch import AerosolState, CloudState, RRTMGPParameters, compute_relative_humidity, convert
 from rrtmgp_tpu_torch.data import synthetic as tsyn
 from rrtmgp_tpu_torch.ops import aerosol_optics as taero
+from rrtmgp_tpu_torch.ops.cloud_bands import cloud_bands
 from rrtmgp_tpu_torch.ops import cloud_optics as tcld
 
 NLAY, NCOL, NBND = 6, 7, 3
@@ -79,6 +80,20 @@ def test_cloud_optics_bands(dtype, ice_rgh):
     for name, a, b in zip(("tau", "ssa", "g"), port, ref):
         assert a.dtype == torch.from_numpy(np.zeros(1, dtype)).dtype
         assert _rel(a, b) <= TOL[dtype], (name, _rel(a, b))
+    # the cloud_bands wrapper on CPU tensors: the plain chain exactly, as the
+    # megakernels read it, and no launch counted
+    lkp = convert.cloud_lookup_from_object(jl)
+    cs = CloudState(**{k: torch.from_numpy(v) for k, v in fields.items()}, ice_rgh=ice_rgh)
+    cloud_bands.launches = 0
+    for delta in (False, True):
+        want = tcld.cloud_optics_bands(lkp, cs)
+        if delta:
+            want = tcld.delta_scale(*want)
+        out = cloud_bands(lkp, cs, delta)
+        assert len(out) == 3
+        for a, b in zip(out, want):
+            assert a.shape == (NLAY, NCOL, NBND) and a.is_contiguous() and torch.equal(a, b)
+    assert cloud_bands.launches == 0
 
 
 @pytest.mark.parametrize("dtype", [np.float32, np.float64])

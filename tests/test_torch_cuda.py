@@ -550,8 +550,10 @@ def test_allsky_kernels_match_twins(cuda, ngpt, nbnd, ncol, nlay):
         u_ref, m_ref = mega.mcica_mask_export_ref(cf, 9, off, ngpt)
         assert u.shape == (nlay, ncol, ngpt) and torch.equal(u, u_ref) and torch.equal(m, m_ref)
     torch.cuda.synchronize()
-    # aerosol_bands: 2 here, 2 in the seeded compositions
-    assert _counts() == {"lw2_mega": 3, "sw_clear_mega": 3, "aerosol_bands": 4, "mcica_mask_export": 2}
+    # aerosol_bands: 2 here, 2 in the seeded compositions; cloud_bands: one
+    # per cloudy composition
+    assert _counts() == {"lw2_mega": 3, "sw_clear_mega": 3, "aerosol_bands": 4, "cloud_bands": 4,
+                         "mcica_mask_export": 2}
 
 
 @pytest.mark.parametrize("ngpt,nbnd,ncol,nlay", [(36, 4, 1000, 30), (256, 16, 257, 12), (5, 5, 3, 4),
@@ -616,16 +618,18 @@ def test_allsky_noscat_solver_takes_the_kernels(cuda):
         mega.reset_launch_counts()
         f_lw, f_sw = solver.update_fluxes()
         torch.cuda.synchronize()
-        assert _counts() == {"planck_band": 1, "lw_clear_mega": n, "sw_clear_mega": 1, "aerosol_bands": 2}
+        assert _counts() == {"planck_band": 1, "lw_clear_mega": n, "sw_clear_mega": 1, "aerosol_bands": 2,
+                             "cloud_bands": 2}
         if n > 1:
             # the default routing: LW leaves the megakernel for the two-kernel
             # path (mask from the export kernel, aerosol band sums from their
-            # kernel, composition in plain torch)
+            # kernel, composition in plain torch); SW keeps the megakernel
             auto = mk()
             mega.reset_launch_counts()
             a_lw, _ = auto.update_fluxes()
             assert _counts() == {"optics_fused": 1, "planck_band_rows": 1, "lw_noscat_banded_reduced": 1,
-                                 "mcica_mask_export": 1, "sw_clear_mega": 1, "aerosol_bands": 2}
+                                 "mcica_mask_export": 1, "sw_clear_mega": 1, "aerosol_bands": 2,
+                                 "cloud_bands": 1}
             assert _rel(a_lw, f_lw) <= TOL["lw_noscat_banded_reduced"]
             assert torch.equal(auto.lw_cloud_cover(), solver.lw_cloud_cover())
         t_lw, _ = ref.update_fluxes()
@@ -677,6 +681,160 @@ def test_allsky_wrappers_reject_what_the_kernels_do_not_take(cuda):
     assert _counts() == {}
 
 
+def _cloud_state(dev, lkp, nlay, ncol, ice_rgh=2, seed=7):
+    """A cloud state on the card with radii below and above both tables'
+    bounds and on the radius grid's nodes (the bounds themselves among
+    them), and paths of 0, eps, just above eps and in clouds."""
+    from rrtmgp_tpu_torch import CloudState
+
+    rng = np.random.default_rng(seed)
+    shape = (nlay, ncol)
+    eps = np.finfo(np.float32).eps
+
+    def radii(lwr, upr, nsize):
+        lwr, upr = float(lwr), float(upr)
+        r = rng.uniform(lwr - 3.0, upr + 3.0, shape).astype(np.float32)
+        nodes = (np.float32(lwr) + np.arange(nsize, dtype=np.float32)
+                 * np.float32((upr - lwr) / (nsize - 1))).astype(np.float32)
+        pick = rng.random(shape) < 0.2
+        r[pick] = rng.choice(nodes, size=int(pick.sum()))
+        r.flat[:4] = (lwr, upr, lwr - 1.0, upr + 1.0)
+        return r
+
+    def paths():
+        p = rng.uniform(0.0, 120.0, shape).astype(np.float32)
+        special = np.array([0.0, eps, np.nextafter(eps, np.float32(1.0)), eps / 2], np.float32)
+        pick = rng.random(shape) < 0.3
+        p[pick] = rng.choice(special, size=int(pick.sum()))
+        p.flat[:4] = special
+        return p
+
+    t = lambda a: torch.from_numpy(a).to(dev)
+    return CloudState(cld_r_eff_liq=t(radii(lkp.radliq_lwr, lkp.radliq_upr, lkp.nsize_liq)),
+                      cld_r_eff_ice=t(radii(lkp.radice_lwr, lkp.radice_upr, lkp.nsize_ice)),
+                      cld_path_liq=t(paths()), cld_path_ice=t(paths()),
+                      cld_frac=t(rng.uniform(0.0, 1.0, shape).astype(np.float32)), ice_rgh=ice_rgh)
+
+
+def _equal_bands(out, want, nlay, ncol, nbnd) -> None:
+    assert len(out) == 3
+    for o, w in zip(out, want):
+        assert o.shape == (nlay, ncol, nbnd) and o.is_contiguous()
+        assert torch.equal(o, w)
+
+
+@pytest.mark.parametrize("wave", ["lw", "sw"])
+def test_cloud_bands_equal_the_twin_at_the_allsky_size(cuda, wave):
+    """cloud_bands at the all-sky cell's 75748 x 60 (LW 16 bands, SW 14
+    bands delta-scaled) equals its twin on the card bit for bit, for every
+    ice roughness, with radii beyond the tables and on their nodes and
+    paths of 0, eps and just above; one launch a call."""
+    from rrtmgp_tpu_torch import AllSkyRadiation, lookup_tables
+    from rrtmgp_tpu_torch.ops import cloud_bands as cb
+
+    L = lookup_tables(AllSkyRadiation(aerosol_radiation=True), dtype=torch.float32, device=cuda)
+    lkp, delta = (L.lookup_lw_cld, False) if wave == "lw" else (L.lookup_sw_cld, True)
+    nbnd = lkp.liq.shape[-1]
+    assert nbnd == (16 if wave == "lw" else 14)
+    nlay, ncol = 60, 75748
+    for rgh in (1, 2, 3):
+        cs = _cloud_state(cuda, lkp, nlay, ncol, rgh, seed=rgh)
+        mega.reset_launch_counts()
+        out = cb.cloud_bands(lkp, cs, delta)
+        assert _counts() == {"cloud_bands": 1}
+        _equal_bands(out, cb.cloud_bands_ref(lkp, cs, delta), nlay, ncol, nbnd)
+        assert _counts() == {"cloud_bands": 1}  # the twin launches nothing
+        eps = torch.finfo(torch.float32).eps
+        assert torch.all(out[0][(cs.cld_path_liq <= eps) & (cs.cld_path_ice <= eps)] == 0.0)
+
+
+def test_cloud_bands_odd_shapes_and_column_slices(cuda):
+    """Columns that are not a multiple of the block, band counts that do
+    not divide it, and a column slice that is not contiguous (as a split
+    passes it) give the twin's bits; the slice's bands are those columns of
+    the whole state's."""
+    from rrtmgp_tpu_torch.data.synthetic import synthetic_cloud_lookup
+    from rrtmgp_tpu_torch.ops import cloud_bands as cb
+    from rrtmgp_tpu_torch.states import slice_columns
+
+    for nbnd, ncol, nlay in ((16, 1007, 7), (14, 257, 3), (5, 3, 2), (1, 1, 1)):
+        lkp = synthetic_cloud_lookup(n_bnd=nbnd, dtype=np.float32, device=cuda)
+        cs = _cloud_state(cuda, lkp, nlay, ncol, seed=nbnd)
+        for delta in (False, True):
+            whole = cb.cloud_bands(lkp, cs, delta)
+            _equal_bands(whole, cb.cloud_bands_ref(lkp, cs, delta), nlay, ncol, nbnd)
+            lo, hi = ncol // 3, ncol - ncol // 4
+            view = dataclasses.replace(cs, **{k: getattr(cs, k)[:, lo:hi] for k in cb.FIELDS})
+            assert ncol < 4 or not view.cld_r_eff_liq.is_contiguous()
+            part = cb.cloud_bands(lkp, view, delta)
+            _equal_bands(part, cb.cloud_bands_ref(lkp, slice_columns(cs, lo, hi, ncol), delta), nlay, hi - lo, nbnd)
+            for p, w in zip(part, whole):
+                assert torch.equal(p, w[:, lo:hi])
+    assert _counts() == {"cloud_bands": 16}
+
+
+def test_cloud_bands_reject_what_the_kernel_does_not_take(cuda):
+    """The wrapper's checks on CUDA tensors."""
+    from rrtmgp_tpu_torch.data.synthetic import synthetic_cloud_lookup
+    from rrtmgp_tpu_torch.ops import cloud_bands as cb
+
+    lkp = synthetic_cloud_lookup(n_bnd=4, dtype=np.float32, device=cuda)
+    cs = _cloud_state(cuda, lkp, 3, 40)
+    with pytest.raises(ValueError, match="float32"):
+        cb.cloud_bands(lkp, dataclasses.replace(cs, cld_path_ice=cs.cld_path_ice.double()), False)
+    with pytest.raises(ValueError, match="float32"):
+        cb.cloud_bands(lkp, dataclasses.replace(cs, cld_path_liq=cs.cld_path_liq[:, :-1]), False)
+    with pytest.raises(IndexError, match="ice_rgh"):
+        cb.cloud_bands(lkp, dataclasses.replace(cs, ice_rgh=4), False)
+    with pytest.raises(ValueError, match="on cpu"):
+        cb.cloud_bands(lkp.to(device="cpu"), cs, False)
+    with pytest.raises(TypeError, match="float32"):
+        cb.cloud_bands(lkp.to(dtype=torch.float64), cs, True)
+    assert _counts() == {}
+
+
+@pytest.mark.parametrize("two_stream_lw", [True, False])
+def test_cloud_bands_once_a_wave_and_the_plain_composition_bits(cuda, monkeypatch, two_stream_lw):
+    """update_fluxes() launches cloud_bands once a wave all-sky and never
+    clear-sky, and its all-sky fluxes and cloud cover equal those of the
+    plain-torch composition bit for bit."""
+    from rrtmgp_tpu_torch import AllSkyRadiation, ClearSkyRadiation, RRTMGPGridParams, RRTMGPParameters, RRTMGPSolver
+    from rrtmgp_tpu_torch.models import rrtmgp as tmod
+    from rrtmgp_tpu_torch.ops import cloud_bands as cb
+
+    ncol, nlay = 300, 12
+    atm = synthetic_atmosphere(ncol=ncol, nlay=nlay, dtype=np.float32, device=cuda,
+                               with_clouds=True, with_aerosols=True)
+    f = lambda shape, v: torch.full(shape, v, dtype=torch.float32, device=cuda)
+    bl = LwBCs(sfc_emis=f((16, ncol), 0.98))
+    bs = SwBCs(cos_zenith=f((ncol,), 0.6), toa_flux=f((ncol,), 1361.0),
+               sfc_alb_direct=f((14, ncol), 0.2), sfc_alb_diffuse=f((14, ncol), 0.2))
+    grid = RRTMGPGridParams(nlay=nlay, ncol=ncol)
+    mk = lambda m, **kw: RRTMGPSolver(grid, m, RRTMGPParameters(), bl, bs, atm, two_stream_lw=two_stream_lw, **kw)
+    clear = mk(ClearSkyRadiation())
+    mega.reset_launch_counts()
+    clear.update_fluxes()
+    assert "cloud_bands" not in _counts()
+    solver = mk(AllSkyRadiation(aerosol_radiation=True))
+    L = solver.lookups
+    cs = dataclasses.replace(_cloud_state(cuda, L.lookup_lw_cld, nlay, ncol), cld_frac=atm.cloud_state.cld_frac)
+    atm = dataclasses.replace(atm, cloud_state=cs)
+    solver, plain = (mk(AllSkyRadiation(aerosol_radiation=True), lookups=L) for _ in range(2))
+    mega.reset_launch_counts()
+    f_kernel = solver.update_fluxes()
+    torch.cuda.synchronize()
+    assert _counts()["cloud_bands"] == 2
+    monkeypatch.setattr(tmod, "cloud_bands", lambda lkp, c, delta: cb.cloud_bands_ref(lkp, c, delta))
+    mega.reset_launch_counts()
+    f_plain = plain.update_fluxes()
+    assert "cloud_bands" not in _counts()
+    for a, b in zip(f_kernel, f_plain):
+        for name in a._fields:
+            assert torch.equal(getattr(a, name), getattr(b, name)), name
+    assert torch.equal(solver.lw_cloud_cover(), plain.lw_cloud_cover())
+    assert torch.equal(solver.sw_cloud_cover(), plain.sw_cloud_cover())
+
+
 def test_solver_update_fluxes_takes_the_kernels(cuda):
     from rrtmgp_tpu_torch import (
         AllSkyRadiation,
@@ -700,8 +858,10 @@ def test_solver_update_fluxes_takes_the_kernels(cuda):
         mega.reset_launch_counts()
         f_lw, f_sw = solver.update_fluxes()
         torch.cuda.synchronize()
-        # LW two-stream needs Planck at t_lev and t_sfc only, in one launch
-        assert _counts() == {"planck_band": n, "lw2_mega": n, "sw_clear_mega": n, "aerosol_bands": 2 * n}
+        # LW two-stream needs Planck at t_lev and t_sfc only, in one launch;
+        # the cloud band optics once a wave, in the cloudy solve
+        assert _counts() == {"planck_band": n, "lw2_mega": n, "sw_clear_mega": n, "aerosol_bands": 2 * n,
+                             "cloud_bands": 2}
         assert all(torch.isfinite(x).all() for x in (*f_lw, *f_sw))
         assert solver.lw_cloud_cover().shape == solver.sw_cloud_cover().shape == (ncol,)
 
@@ -740,7 +900,8 @@ def test_solver_on_a_mesh_of_two_on_one_card(cuda, method):
     f_split = split.update_fluxes()
     torch.cuda.synchronize()
     if allsky:
-        assert _counts() == {"planck_band": 2, "lw2_mega": 2, "sw_clear_mega": 2, "aerosol_bands": 4}
+        assert _counts() == {"planck_band": 2, "lw2_mega": 2, "sw_clear_mega": 2, "aerosol_bands": 4,
+                             "cloud_bands": 4}
     else:
         assert _counts() == {"planck_band": 2, "lw_clear_mega": 2, "sw_clear_mega": 2}
     for a, b in zip(f_whole, f_split):
@@ -920,8 +1081,8 @@ def test_sw_direct_beam_runs_with_the_default_impl(cuda):
     solver, exact = mk(), mk(impl="torch")
     mega.reset_launch_counts()
     _, f_sw = solver.update_fluxes()
-    assert _counts() == {"planck_band": 1, "lw2_mega": 1, "aerosol_bands": 2, "optics_fused": 1,
-                         "mcica_mask_export": 1}
+    assert _counts() == {"planck_band": 1, "lw2_mega": 1, "aerosol_bands": 2, "cloud_bands": 1,
+                         "optics_fused": 1, "mcica_mask_export": 1}
     _, t_sw = exact.update_fluxes()
     assert _rel([f_sw.flux_dn_dir], [t_sw.flux_dn_dir]) <= TOL["optics_fused"]
     assert torch.all(f_sw.flux_up == 0.0) and torch.all(f_sw.flux_dn_dir[:, mu0 <= 0] == 0.0)
@@ -1406,7 +1567,8 @@ def test_staged_gather_kernels_match_twins(cuda, ngpt, nbnd, ncol, nlay, n_minor
     args64 = (mega_lw_inputs(lw64, atm64), lw64.kernel_tables, *(x.double() for x in args[2:7]), *args[7:])
     assert _rel(mega.lw_clear_mega(*args64), mega.lw_clear_mega_ref(*args64)) <= TOL64["lw_clear_mega"]
     torch.cuda.synchronize()
-    assert _counts() == {"optics_fused": 2, "planck_band": 3, "lw_clear_mega": 5, "aerosol_bands": 2}
+    assert _counts() == {"optics_fused": 2, "planck_band": 3, "lw_clear_mega": 5, "aerosol_bands": 2,
+                         "cloud_bands": 2}
 
 
 # ---------------------------------------------------------------------------

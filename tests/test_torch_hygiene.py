@@ -107,9 +107,10 @@ def test_public_api_resolves():
 
 
 def test_kernel_sources_present_and_build_is_lazy():
-    """Every kernel of the clear-sky, all-sky, f64, two-kernel and sweep paths has
-    its CUDA source and C entry point (the f64 builds among them), every header a
-    source includes is there, and importing the ops builds nothing (the
+    """Every kernel of the clear-sky, all-sky (the cloud band optics among
+    them), f64, two-kernel and sweep paths has its CUDA source and C entry
+    point (the f64 builds among them), every header a source includes is
+    there, and importing the ops builds nothing (the
     library is built on the first CUDA call)."""
     import re
 
@@ -119,7 +120,8 @@ def test_kernel_sources_present_and_build_is_lazy():
     assert {"planck_band.cu", "lw_clear_mega.cu", "sw_clear_mega.cu", "lw2_mega.cu",
             "aerosol_bands.cu", "mcica_export.cu", "errors.cu", "mcica.cuh", "allsky.cuh",
             "common.cuh", "optics_fused.cu", "lw_noscat_banded.cu", "sw_2stream_reduced.cu",
-            "sw_twostream.cuh", "lw_twostream.cuh", "lw_noscat_sources.cu", "lw_2stream_reduced.cu"} <= names
+            "sw_twostream.cuh", "lw_twostream.cuh", "lw_noscat_sources.cu", "lw_2stream_reduced.cu",
+            "cloud_bands.cu"} <= names
     for p in _build.CSRC.iterdir():
         for header in re.findall(r'#include "([^"]+)"', p.read_text()):
             assert header in names, (p.name, header)
@@ -127,7 +129,7 @@ def test_kernel_sources_present_and_build_is_lazy():
     assert {"rrtmgp_planck_band_f64", "rrtmgp_lw_clear_mega_f64", "rrtmgp_optics_fused",
             "rrtmgp_planck_band_rows", "rrtmgp_lw_noscat_banded",
             "rrtmgp_sw_2stream_reduced", "rrtmgp_lw_noscat_reduced", "rrtmgp_lw_noscat_gpt",
-            "rrtmgp_lw_2stream_reduced", "rrtmgp_sw_2stream_gpt"} <= set(_build.SIGNATURES)
+            "rrtmgp_lw_2stream_reduced", "rrtmgp_sw_2stream_gpt", "rrtmgp_cloud_bands"} <= set(_build.SIGNATURES)
     for entry in _build.SIGNATURES:
         assert f'extern "C" int {entry}(' in sources, entry
     assert _build.library.cache_info().currsize == 0

@@ -39,6 +39,7 @@ from rrtmgp_tpu.states import LwBCs, SwBCs
 from rrtmgp_tpu_torch import convert
 from rrtmgp_tpu_torch.angular import angular_discretization
 from rrtmgp_tpu_torch.ops import mega
+from rrtmgp_tpu_torch.ops.cloud_bands import cloud_bands
 from rrtmgp_tpu_torch.ops.mega_inputs import mega_lw_inputs, mega_sw_inputs
 
 NCOL, NLAY = 128, 6
@@ -195,12 +196,29 @@ def test_sw_clear_mega_ref_matches_jax_megakernel():
 def test_wrappers_reject_devices_other_than_cpu_and_cuda():
     """Only CPU tensors take the twin; anything else that is not CUDA raises
     instead of running somewhere else."""
-    from rrtmgp_tpu_torch.data.synthetic import synthetic_gas_lookup
+    from rrtmgp_tpu_torch.data.synthetic import synthetic_atmosphere, synthetic_cloud_lookup, synthetic_gas_lookup
 
     tl = synthetic_gas_lookup(n_gpt=8, n_bnd=2, dtype=np.float32)
     t = torch.full((4,), 250.0, device="meta")
     with pytest.raises(ValueError, match="CUDA"):
         mega.planck_band(t, tl.totplnk.to("meta"), tl.t_planck_min, tl.t_planck_delta)
+    cl = synthetic_cloud_lookup(n_bnd=2, dtype=np.float32)
+    cs = synthetic_atmosphere(ncol=4, nlay=3, dtype=np.float32, with_clouds=True).cloud_state
+    with pytest.raises(ValueError, match="CUDA"):
+        cloud_bands(cl.to("meta"), cs.to("meta"), True)
+
+
+def test_launch_counts_report_and_reset_every_wrapper():
+    """``launch_counts`` reads each kernel wrapper's count, the cloud band
+    kernel's among them, and ``reset_launch_counts`` sets each to 0."""
+    assert cloud_bands in mega.KERNEL_WRAPPERS
+    for i, fn in enumerate(mega.KERNEL_WRAPPERS):
+        fn.launches = i + 1
+    counts = mega.launch_counts()
+    assert counts["cloud_bands"] == mega.KERNEL_WRAPPERS.index(cloud_bands) + 1
+    assert counts == {fn.__name__: i + 1 for i, fn in enumerate(mega.KERNEL_WRAPPERS)}
+    mega.reset_launch_counts()
+    assert set(mega.launch_counts().values()) == {0}
 
 
 # ---------------------------------------------------------------------------

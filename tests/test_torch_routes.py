@@ -285,7 +285,8 @@ def test_f64_unfused_solver_equals_fused_and_jax_off(cuda_routing, sky, waves):
 COUNTED = {
     "planck_band": "planck_band", "planck_band_sets": "planck_band", "lw_clear_mega": "lw_clear_mega",
     "lw2_mega": "lw2_mega", "sw_clear_mega": "sw_clear_mega", "mcica_mask_export": "mcica_mask_export",
-    "aerosol_bands": "aerosol_bands", "optics_fused": "optics_fused", "planck_band_rows": "planck_band_rows",
+    "aerosol_bands": "aerosol_bands", "cloud_bands": "cloud_bands", "optics_fused": "optics_fused",
+    "planck_band_rows": "planck_band_rows",
     "planck_band_rows_sets": "planck_band_rows", "interp_pt_eta": "interp_pt_eta", "interp_minor": "interp_minor",
     "lw_noscat_banded_reduced": "lw_noscat_banded_reduced", "lw_noscat_banded_angles": "lw_noscat_banded_reduced",
     "lw_noscat_reduced": "lw_noscat_reduced", "lw_noscat_reduced_angles": "lw_noscat_reduced",

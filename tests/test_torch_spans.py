@@ -29,7 +29,7 @@ SW_KERNEL = ["rrtmgp.sw.clouds", "rrtmgp.sw.aerosols", "rrtmgp.sw.inputs", "rrtm
 #: the wrappers the kernel route calls, and the span each must be called in
 WRAPPERS = {"mega_lw_inputs": ["rrtmgp.lw.inputs"], "mega_sw_inputs": ["rrtmgp.sw.inputs"],
             "aerosol_bands": ["rrtmgp.lw.aerosols", "rrtmgp.sw.aerosols"],
-            "planck_band_sets": ["rrtmgp.lw.planck"], "sw_clear_mega": ["rrtmgp.sw.solve"]}
+            "cloud_bands": ["rrtmgp.lw.clouds", "rrtmgp.sw.clouds"], "planck_band_sets": ["rrtmgp.lw.planck"], "sw_clear_mega": ["rrtmgp.sw.solve"]}
 
 
 def _solver(device="cpu", **kw):
@@ -189,7 +189,8 @@ def _device_spans(prof) -> list:
 @pytest.mark.parametrize("two_stream_lw", [True, False])
 def test_card_kernels_launch_inside_their_spans(two_stream_lw):
     """On the card each megakernel launches inside its wave's ``solve``,
-    the aerosol kernel inside each wave's ``aerosols``, the Planck kernel
+    the aerosol kernel inside each wave's ``aerosols``, the cloud kernel
+    inside each wave's ``clouds``, the Planck kernel
     inside ``rrtmgp.lw.planck``; every device op inside a solve span, and
     no span copied onto the device timeline; the fluxes bitwise those of
     the step without a profiler."""
@@ -212,5 +213,6 @@ def test_card_kernels_launch_inside_their_spans(two_stream_lw):
     assert where(lw) == ["rrtmgp.lw.solve"]
     assert where("sw_clear_mega_kernel") == ["rrtmgp.sw.solve"]
     assert where("aerosol_bands_kernel") == ["rrtmgp.lw.aerosols", "rrtmgp.sw.aerosols"]
+    assert where("cloud_bands_kernel") == ["rrtmgp.lw.clouds", "rrtmgp.sw.clouds"]
     assert where("planck_band_kernel") == ["rrtmgp.lw.planck"]
     assert not [n for n, sp in ops if not (sp or "").startswith(("rrtmgp.lw", "rrtmgp.sw"))]
