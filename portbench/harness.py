@@ -7,6 +7,13 @@ into the solver's own state tensors in place (as a host model writes its
 columns before each call), sets the McICA step and calls
 ``update_fluxes()``; a CUDA event is recorded after it. One
 synchronisation closes the window.
+
+On a mesh (a configuration with ``mesh``) one process drives every card
+of the cell: each card holds its own columns of the two states, the step's
+time is that of the card that took longest over it, the window closes when
+every card is done, and the peak is the fullest card's. The whole inputs
+are off the cards during the window and are made again from the seed for
+the check.
 """
 
 from __future__ import annotations
@@ -26,31 +33,54 @@ _HERE = os.path.dirname(os.path.abspath(__file__))
 
 
 class Marks:
-    """Step boundaries: CUDA events on a card; the host clock elsewhere
-    (the CPU runs of the tests, which report no device metric)."""
+    """Step boundaries: a CUDA event on each card, recorded on its current
+    stream after the step's work there; the host clock elsewhere (the CPU
+    runs of the tests, which report no device metric)."""
 
-    def __init__(self, device):
-        self.cuda = torch.device(device).type == "cuda"
+    def __init__(self, devices):
+        self.devices = devices
+        self.cuda = torch.device(devices[0]).type == "cuda"
         self.marks = []
 
     def record(self):
         if self.cuda:
-            ev = torch.cuda.Event(enable_timing=True)
-            ev.record()
-            self.marks.append(ev)
+            events = []
+            for d in self.devices:
+                ev = torch.cuda.Event(enable_timing=True)
+                ev.record(torch.cuda.current_stream(d))
+                events.append(ev)
+            self.marks.append(events)
         else:
             self.marks.append(time.perf_counter())
 
     def step_ms(self) -> list:
+        """Each step's time: on several cards, the longest any card took
+        from its mark before the step to its mark after it."""
         m = self.marks
         if self.cuda:
-            return [a.elapsed_time(b) for a, b in zip(m, m[1:])]
+            return [max(a.elapsed_time(b) for a, b in zip(x, y)) for x, y in zip(m, m[1:])]
         return [(b - a) * 1e3 for a, b in zip(m, m[1:])]
 
 
-def sync(device):
-    if torch.device(device).type == "cuda":
-        torch.cuda.synchronize()
+def _cards(devices) -> list:
+    return [d for d in devices if torch.device(d).type == "cuda"]
+
+
+def sync(devices):
+    """Wait for every card of ``devices``."""
+    for d in _cards(devices):
+        torch.cuda.synchronize(d)
+
+
+def reset_peaks(devices):
+    for d in _cards(devices):
+        torch.cuda.reset_peak_memory_stats(d)
+
+
+def peak_bytes(devices) -> int:
+    """The fullest card's peak allocated memory since its reset; 0 off the
+    card."""
+    return max((torch.cuda.max_memory_allocated(d) for d in _cards(devices)), default=0)
 
 
 def load_reader(name: str):
@@ -67,9 +97,16 @@ def run_cell(cfg: dict, traffic: dict, seed: int, seconds: float, trace: bool, d
     """Run the cell once. Returns the window's readings (``ctx``, what the
     metric readers take), the compared numbers and, with ``keep_inputs``,
     the inputs and the checked steps (for the control)."""
+    cards = program.devices(cfg, device)
+    mesh = len(cards) > 1
     inp = inputs.make_inputs(cfg, seed, traffic["states"], device)
     solver = program.solver(cfg, traffic, inp)
     pairs = [program.copy_pairs(solver.as_, st) for st in inp["states"]]
+    if mesh:
+        # each card keeps only its own columns of the states, the copy-in's
+        # sources, as a host model holds its own; the whole inputs are made
+        # again from the seed for the check
+        del inp
     spans = tracing.Spans(trace)
     enqueue_s = []
 
@@ -87,10 +124,9 @@ def run_cell(cfg: dict, traffic: dict, seed: int, seconds: float, trace: bool, d
     warm = traffic["warmup_steps"]
     for g in range(warm):
         step(g)
-    sync(device)
+    sync(cards)
     cuda = torch.device(device).type == "cuda"
-    if cuda:
-        torch.cuda.reset_peak_memory_stats()
+    reset_peaks(cards)
     setup_s = time.perf_counter() - t0
     enqueue_s.clear()
 
@@ -98,7 +134,7 @@ def run_cell(cfg: dict, traffic: dict, seed: int, seconds: float, trace: bool, d
     # one of the last two, of the other state
     early = int(seed) % 4
     kept, recent = {}, collections.deque(maxlen=2)
-    marks = Marks(device)
+    marks = Marks(cards)
     prof = None
     if trace:
         act = torch.profiler.ProfilerActivity
@@ -116,31 +152,33 @@ def run_cell(cfg: dict, traffic: dict, seed: int, seconds: float, trace: bool, d
                 kept[i] = out
             recent.append((i, out))
             i += 1
-        sync(device)
+        sync(cards)
         window_s = time.perf_counter() - w0
     if prof is not None:
         prof.__exit__(None, None, None)
-    peak = torch.cuda.max_memory_allocated() if cuda else 0
-    if cuda:
-        torch.cuda.reset_peak_memory_stats()  # from here on, the reference's peak
+    peak = peak_bytes(cards)
+    reset_peaks(cards)  # from here on, the reference's peak
     for j, out in recent:
         if (j - early) % len(pairs):
             kept[j] = out
-    checked = [(warm + j, (warm + j) % len(pairs), out) for j, out in sorted(kept.items())]
-
-    ctx = types.SimpleNamespace(
-        cfg=cfg, traffic=traffic, ncol=cfg["ncol"], steps=i, window_s=window_s, step_ms=marks.step_ms(),
-        setup_s=setup_s, peak_bytes=peak, enqueue_s=list(enqueue_s), work=work.step_work(cfg, traffic, inp),
-        trace=tracing.from_profiler(prof) if prof is not None else None, kernels=tracing.port_kernels(),
-    )
+    checked = [(warm + j, (warm + j) % len(pairs), program.gather(out)) for j, out in sorted(kept.items())]
+    step_trace = tracing.from_profiler(prof) if prof is not None else None
     del prof, solver, pairs, recent, kept
     gc.collect()
     if cuda:
         torch.cuda.empty_cache()
+    if mesh:
+        inp = inputs.make_inputs(cfg, seed, traffic["states"], device)
+
+    ctx = types.SimpleNamespace(
+        cfg=cfg, traffic=traffic, ncol=cfg["ncol"], steps=i, window_s=window_s, step_ms=marks.step_ms(),
+        setup_s=setup_s, peak_bytes=peak, enqueue_s=list(enqueue_s), work=work.step_work(cfg, traffic, inp),
+        trace=step_trace, kernels=tracing.port_kernels(),
+    )
     t = time.perf_counter()
     per_step = compare.step_errors(inp, cfg, traffic, checked)
     result = dict(ctx=ctx, per_step=per_step, checked_steps=[s for s, _, _ in checked],
-                  check_s=time.perf_counter() - t, check_peak=torch.cuda.max_memory_allocated() if cuda else 0)
+                  check_s=time.perf_counter() - t, check_peak=peak_bytes(cards))
     if keep_inputs:
         result.update(inputs=inp, checked=checked)
     return result

@@ -2,6 +2,12 @@
 copies of a cell's seeded inputs, and the copy of an atmospheric state into
 the solver's own state tensors that starts every step.
 
+A configuration with ``mesh`` (a number of cards) gets a solver over a
+``ColumnMesh`` of that many entries, one a card, which splits the columns
+over them; each card's copy-in then writes that card's columns from a copy
+on the same card, and the fluxes come back split, to be gathered after the
+window.
+
 This is the only module of the harness that imports the port.
 """
 
@@ -11,6 +17,7 @@ import torch
 
 import rrtmgp_tpu_torch as rt
 from rrtmgp_tpu_torch import convert
+from rrtmgp_tpu_torch.parallel.sharding import ColumnSharded, make_column_mesh
 
 
 def _copy(tree):
@@ -50,11 +57,27 @@ def atmosphere(state: dict) -> rt.AtmosphericState:
     )
 
 
+def devices(cfg: dict, device) -> list:
+    """The devices a cell runs on: ``device`` alone, or with ``mesh`` one
+    mesh entry a card, ``cuda:0`` to ``cuda:{mesh-1}`` (off the card, the
+    one device repeated, as the CPU tests split the columns)."""
+    n = cfg.get("mesh")
+    if not n:
+        return [device]
+    if torch.device(device).type == "cuda":
+        return [torch.device("cuda", i) for i in range(n)]
+    return [torch.device(device)] * n
+
+
 def solver(cfg: dict, traffic: dict, inputs: dict) -> rt.RRTMGPSolver:
     """``RRTMGPSolver`` of the configuration with the traffic's solver
-    options, on a copy of the first state."""
+    options, on a copy of the first state; with ``mesh``, over a column
+    mesh of the cell's cards, given the whole state to split itself."""
     tables, bcs = inputs["tables"], _copy(inputs["bcs"])
     atm = atmosphere(inputs["states"][0])
+    options = dict(traffic["solver"])
+    if cfg.get("mesh"):
+        options["mesh"] = make_column_mesh(devices(cfg, atm.p_lay.device))
     if cfg["sky"] == "allsky":
         method = rt.AllSkyRadiation(aerosol_radiation=cfg["aerosols"])
     else:
@@ -65,13 +88,30 @@ def solver(cfg: dict, traffic: dict, inputs: dict) -> rt.RRTMGPSolver:
         rt.LwBCs(sfc_emis=bcs["sfc_emis"]),
         rt.SwBCs(cos_zenith=bcs["cos_zenith"], toa_flux=bcs["toa_flux"],
                  sfc_alb_direct=bcs["sfc_alb_direct"], sfc_alb_diffuse=bcs["sfc_alb_diffuse"]),
-        atm, lookups=lookups(tables), **traffic["solver"],
+        atm, lookups=lookups(tables), **options,
     )
 
 
-def copy_pairs(atm: rt.AtmosphericState, state: dict) -> list:
+def _columns(tree, lo: int, hi: int, device):
+    """Columns [lo, hi) of a state dict, copied to ``device`` (the
+    global-mean vmr vector, which has no column axis, whole)."""
+    if isinstance(tree, dict):
+        return {k: v.to(device, copy=True) if k == "vmr_gm" else _columns(v, lo, hi, device) for k, v in tree.items()}
+    if isinstance(tree, torch.Tensor):
+        return tree[..., lo:hi].to(device, copy=True).contiguous()
+    return tree
+
+
+def copy_pairs(atm, state: dict) -> list:
     """(destination, source) pairs that write ``state`` into the solver's
-    state ``atm`` in place, every tensor of it."""
+    state ``atm`` in place, every tensor of it. On a mesh (``atm`` a
+    ``ColumnSharded``) one set a mesh entry, whose sources are a copy of
+    that entry's columns of ``state`` on the entry's own card, so that the
+    copy-in never crosses cards."""
+    if isinstance(atm, ColumnSharded):
+        per = atm.ncol // len(atm.mesh)
+        return [pair for part, lo, device in zip(atm.shards, atm.offsets, atm.devices)
+                for pair in copy_pairs(part, _columns(state, lo, lo + per, device))]
     pairs = [(getattr(atm, k), state[k]) for k in ("p_lay", "t_lay", "p_lev", "t_lev", "t_sfc", "col_dry")]
     pairs += [(atm.vmr.vmr_h2o, state["vmr_h2o"]), (atm.vmr.vmr_o3, state["vmr_o3"]), (atm.vmr.vmr, state["vmr_gm"])]
     if "rel_hum" in state:
@@ -84,8 +124,10 @@ def copy_pairs(atm: rt.AtmosphericState, state: dict) -> list:
         ae = atm.aerosol_state
         pairs += [(ae.aero_size, state["aerosol"]["aero_size"]), (ae.aero_mass, state["aerosol"]["aero_mass"])]
     for dst, src in pairs:
-        if dst.shape != src.shape or dst.dtype != src.dtype or dst.data_ptr() == src.data_ptr():
-            raise ValueError(f"state copy: {tuple(src.shape)} {src.dtype} into {tuple(dst.shape)} {dst.dtype}")
+        if (dst.shape != src.shape or dst.dtype != src.dtype or dst.device != src.device
+                or dst.data_ptr() == src.data_ptr()):
+            raise ValueError(f"state copy: {tuple(src.shape)} {src.dtype} on {src.device} "
+                             f"into {tuple(dst.shape)} {dst.dtype} on {dst.device}")
     return pairs
 
 
@@ -94,3 +136,15 @@ def fluxes(s: rt.RRTMGPSolver) -> dict:
     to the program's own output tensors."""
     return dict(lw_up=s.flux_lw.flux_up, lw_dn=s.flux_lw.flux_dn,
                 sw_up=s.flux_sw.flux_up, sw_dn=s.flux_sw.flux_dn, sw_dir=s.flux_sw.flux_dn_dir)
+
+
+def gather(fluxes: dict) -> dict:
+    """``fluxes`` as whole tensors: on a mesh, every entry's columns joined
+    on the first entry's device (after the window, for the check)."""
+    def whole(v):
+        if not isinstance(v, ColumnSharded):
+            return v
+        device = v.shards[0].device
+        return torch.cat([part.to(device) for part in v.shards], dim=v.axis)
+
+    return {f: whole(v) for f, v in fluxes.items()}

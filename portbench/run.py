@@ -105,7 +105,9 @@ def main(argv=None) -> int:
     device = dict(platform="gpu", kind=torch.cuda.get_device_name(0), count=chips,
                   memory_peak_bytes=ctx.peak_bytes)
     if trace:
-        device.update(busy_s=ctx.trace.busy_ns() / 1e9, window_s=ctx.trace.window_ns / 1e9)
+        # the seconds an op ran, averaged over the cell's cards
+        busy_ns = ctx.trace.busy_ns() if chips == 1 else sum(ctx.trace.card_busy_ns().values()) / chips
+        device.update(busy_s=busy_ns / 1e9, window_s=ctx.trace.window_ns / 1e9)
     out, lines = result_line(spec, res, metrics, trace, device)
     found = forbidden_modules()
     if found:

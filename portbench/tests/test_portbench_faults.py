@@ -12,8 +12,11 @@ reference, the result line. The faults a radiation step can have:
 - ``altered``: one flux value, the largest LW up flux, 5% off where it
   is produced (the widest limit, 1e-2 of the LW scale, sits below it).
 
-A cell on one chip has no exchange between chips to leave out. A sound run
-comes out correct under the same limits.
+On a mesh (one process, several cards) the columns are split over the
+cards with no exchange between them; what stands for an exchange left out
+is one card's work: ``stale_entry`` leaves the last mesh entry's columns
+of every step as an earlier step left them. A sound run comes out correct
+under the same limits.
 """
 
 import json
@@ -24,6 +27,7 @@ import torch
 
 import rrtmgp_tpu_torch as rt
 from portbench import harness, run
+from rrtmgp_tpu_torch.parallel.sharding import ColumnSharded
 
 ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 BENCH = json.load(open(os.path.join(ROOT, "BENCHMARK.json")))
@@ -37,22 +41,42 @@ def stale(self):
     return self.flux_lw, self.flux_sw
 
 
+def _tensors(flux) -> list:
+    """A flux field's tensors: its mesh entries' slices, or itself."""
+    return list(flux.shards) if isinstance(flux, ColumnSharded) else [flux]
+
+
 def half(self):
     out = ORIGINAL(self)
     for flux in (*self.flux_lw, *self.flux_sw):
-        n = flux.shape[-1] // 2
-        flux[:, n:2 * n] = flux[:, :n]
+        for t in _tensors(flux):
+            n = t.shape[-1] // 2
+            t[:, n:2 * n] = t[:, :n]
     return out
 
 
 def altered(self):
     out = ORIGINAL(self)
-    up = self.flux_lw.flux_up
+    up = max(_tensors(self.flux_lw.flux_up), key=lambda t: float(t.max()))
     up.view(-1)[int(up.argmax())] *= 1.05
     return out
 
 
+def stale_entry(self):
+    before = None if self.flux_lw is None else (self.flux_lw.shards[-1], self.flux_sw.shards[-1])
+    out = ORIGINAL(self)
+    if before is not None:
+        for new, old in zip((self.flux_lw.shards[-1], self.flux_sw.shards[-1]), before):
+            for a, b in zip(new, old):
+                if isinstance(a, torch.Tensor):
+                    a.copy_(b)
+    return out
+
+
 FAULTS = {"stale": stale, "half": half, "altered": altered}
+#: faults only a mesh can have, and the cells they apply to
+MESH_FAULTS = {"stale_entry": stale_entry}
+MESH_CELLS = [w["name"] for w in BENCH["workloads"] if w["chips"] > 1]
 
 
 def _result(cell: str, seed: int) -> dict:
@@ -66,6 +90,14 @@ def _result(cell: str, seed: int) -> dict:
 @pytest.mark.parametrize("fault", sorted(FAULTS))
 def test_fault_comes_out_not_correct(cell, fault, monkeypatch):
     monkeypatch.setattr(rt.RRTMGPSolver, "update_fluxes", FAULTS[fault])
+    out = _result(cell, 2**31 + 7)
+    assert out["correct"] is False and out["failed"] >= 1, out["compared"]
+
+
+@pytest.mark.parametrize("cell", MESH_CELLS)
+@pytest.mark.parametrize("fault", sorted(MESH_FAULTS))
+def test_mesh_fault_comes_out_not_correct(cell, fault, monkeypatch):
+    monkeypatch.setattr(rt.RRTMGPSolver, "update_fluxes", MESH_FAULTS[fault])
     out = _result(cell, 2**31 + 7)
     assert out["correct"] is False and out["failed"] >= 1, out["compared"]
 

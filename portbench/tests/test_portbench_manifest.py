@@ -77,6 +77,9 @@ def test_every_cell_resolves(cell):
     assert spec["traffic"]["loop"] == "closed" and spec["traffic"]["states"] >= 2
     assert set(spec["limits"]) == set(compare.NUMBERS)
     assert len(spec["end_to_end"]) >= 2 and "setup_s" in spec["end_to_end"] and spec["per_layer"]
+    # a mesh has one entry a card the cell asks for; a cell without one runs on one card
+    assert spec["cell"]["chips"] == spec["cfg"].get("mesh", 1)
+    assert spec["cfg"]["ncol"] % spec["cell"]["chips"] == 0
     # every metric a cell's runs report has a reader
     for name in [*spec["end_to_end"], *spec["per_layer"]]:
         assert callable(harness.load_reader(name))
@@ -112,7 +115,7 @@ def test_copy_in_equals_a_fresh_solver(cell):
     fresh = program.solver(cfg, traffic, dict(inp, states=[inp["states"][1]]))
     fresh.advance_step(5)
     fresh.update_fluxes()
-    got, want = program.fluxes(s), program.fluxes(fresh)
+    got, want = program.gather(program.fluxes(s)), program.gather(program.fluxes(fresh))
     for f in want:
         assert torch.equal(got[f], want[f]), f
     # and the copy touched every tensor of the state

@@ -129,7 +129,7 @@ def test_reference_matches_port_torch_path_f64(cell):
             dst.copy_(src)
         s.advance_step(step)
         s.update_fluxes()
-        out = program.fluxes(s)
+        out = program.gather(program.fluxes(s))
         ref = reference.step_fluxes(inp["tables"], inp["states"][k], inp["bcs"], two_stream, step, 0, cfg["ncol"])
         for f in ref:
             assert out[f].dtype == torch.float64

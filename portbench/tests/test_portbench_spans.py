@@ -45,6 +45,9 @@ class Event:
     def linked_correlation_id(self):
         return 0
 
+    def device_index(self):
+        return 0
+
     def is_user_annotation(self):
         return self._v[5]
 

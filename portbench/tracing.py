@@ -62,12 +62,14 @@ class Trace:
     """A traced window reduced: ``device`` holds (name, start, end, span)
     of every device op, ``span`` the harness span in which the host launched
     it (None where the launch is not linked); ``host`` holds (start, end,
-    name) of every host event, sorted by start; times in ns on the
-    profiler's clock."""
+    name) of every host event, sorted by start; ``cards`` the card (CUDA
+    device index) of each op of ``device``, in its order (empty: all on
+    one); times in ns on the profiler's clock."""
 
     window: tuple
     device: list
     host: list
+    cards: list = dataclasses.field(default_factory=list)
 
     @property
     def window_ns(self) -> int:
@@ -82,13 +84,17 @@ class Trace:
         return sum(e - s for s, e in self._merged())
 
     def _merged(self):
-        out = []
-        for _, s, e, _ in sorted(self.in_window(), key=lambda d: d[1]):
-            if out and s <= out[-1][1]:
-                out[-1][1] = max(out[-1][1], e)
-            else:
-                out.append([s, e])
-        return out
+        return _union((s, e) for _, s, e, _ in self.in_window())
+
+    def card_busy_ns(self) -> dict:
+        """{card: nanoseconds of the window in which some op runs on it},
+        for each card that ran an op in the window."""
+        w0, w1 = self.window
+        by_card = {}
+        for (_, s, e, _), card in zip(self.device, self.cards or [0] * len(self.device)):
+            if e > w0 and s < w1:
+                by_card.setdefault(card, []).append((max(s, w0), min(e, w1)))
+        return {card: sum(e - s for s, e in _union(spans)) for card, spans in by_card.items()}
 
     def gaps(self):
         """(start, end) of the window's idle stretches, longest first."""
@@ -117,6 +123,17 @@ class Trace:
                 "idle_gaps": [[self.host_at(s), (e - s) / 1e9] for s, e in gaps]}
 
 
+def _union(intervals) -> list:
+    """[start, end] of the union of (start, end) intervals, in time order."""
+    out = []
+    for s, e in sorted(intervals, key=lambda p: p[0]):
+        if out and s <= out[-1][1]:
+            out[-1][1] = max(out[-1][1], e)
+        else:
+            out.append([s, e])
+    return out
+
+
 def from_profiler(prof) -> Trace:
     """Reduce a finished ``torch.profiler.profile`` of the window: the
     ``portbench.window`` span bounds it, each device op is linked through
@@ -132,7 +149,7 @@ def from_profiler(prof) -> Trace:
         if ev.device_type() == DeviceType.CUDA:
             if name.startswith(PREFIX):
                 continue  # a record_function range mirrored on the device timeline, not an op
-            device.append((name, start, end, ev.correlation_id(), ev.linked_correlation_id()))
+            device.append((name, start, end, ev.correlation_id(), ev.linked_correlation_id(), ev.device_index()))
             continue
         host.append((start, end, name))
         if name.startswith(PREFIX):
@@ -154,9 +171,9 @@ def from_profiler(prof) -> Trace:
         i = bisect.bisect_right(starts, t) - 1
         return spans[i][2] if i >= 0 and spans[i][1] >= t else None
 
-    linked = [(n, s, e, span_at(runtime.get(c, runtime.get(lc)))) for n, s, e, c, lc in device]
+    linked = [(n, s, e, span_at(runtime.get(c, runtime.get(lc)))) for n, s, e, c, lc, _ in device]
     host.sort()
-    return Trace(window=window, device=linked, host=host)
+    return Trace(window=window, device=linked, host=host, cards=[d[-1] for d in device])
 
 
 #: the harness spans inside which the host calls into the program
