@@ -68,9 +68,19 @@ def worst(per_step: list) -> dict:
     return {name: max(s[name] for s in per_step) for name in NUMBERS}
 
 
-def control(inputs: dict, cfg: dict, traffic: dict, checked: list, cdt=torch.bfloat16) -> dict:
-    """The control: the reference computed in ``cdt`` (bfloat16, the
-    precision below the configuration's float32) in the program's place."""
+#: the precision below each configuration dtype, in which the control computes
+PRECISION_BELOW = {"float32": torch.bfloat16, "float64": torch.float32}
+
+
+def control_dtype(cfg: dict) -> torch.dtype:
+    """The control's precision: the one below the configuration's dtype."""
+    return PRECISION_BELOW[cfg["dtype"]]
+
+
+def control(inputs: dict, cfg: dict, traffic: dict, checked: list) -> dict:
+    """The control: the reference computed in the precision below the
+    configuration's (``control_dtype``) in the program's place."""
+    cdt = control_dtype(cfg)
     two_stream = traffic["solver"].get("two_stream_lw", True)
     low = lambda step, k, lo, hi: reference.step_fluxes(
         inputs["tables"], inputs["states"][k], inputs["bcs"], two_stream, step, lo, hi, cdt)

@@ -3,8 +3,8 @@ synchronising CUDA calls (``cu*Synchronize`` host events) and
 device-to-host copies (``Memcpy DtoH`` device ops) launched there; a read
 of a tensor on the host (``.item()``, ``.cpu()``) counts as its copy and
 its synchronisation. A step that a CUDA graph could capture reads 0.
-None where the trace holds no program span, or where its launches do
-not pair with its ops."""
+None where the trace holds no program span, or where it keeps no
+launches."""
 
 from portbench.program_spans import innermost, program_ops, spans
 

@@ -2,7 +2,7 @@
 route's per-wave prologue (the program's spans ``rrtmgp.lw.inputs`` and
 ``rrtmgp.sw.inputs``): pt and eta interpolation, minor scalings, the
 Rayleigh factor. None where the trace holds neither span,
-or where its launches do not pair with its ops."""
+or where it keeps no launches."""
 
 from portbench.program_spans import program_ops, spans
 

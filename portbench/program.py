@@ -6,12 +6,18 @@ A configuration with ``mesh`` (a number of cards) gets a solver over a
 ``ColumnMesh`` of that many entries, one a card, which splits the columns
 over them; each card's copy-in then writes that card's columns from a copy
 on the same card, and the fluxes come back split, to be gathered after the
-window.
+window. A configuration with ``chunk_budget_gb`` builds its solver under
+that memory budget for the f64 column chunks (the solver's
+``$RRTMGP_CHUNK_BUDGET_GB``, set while it is built and then restored), so
+that the run's environment does not change the chunks.
 
 This is the only module of the harness that imports the port.
 """
 
 from __future__ import annotations
+
+import contextlib
+import os
 
 import torch
 
@@ -69,10 +75,27 @@ def devices(cfg: dict, device) -> list:
     return [torch.device(device)] * n
 
 
+@contextlib.contextmanager
+def _chunk_budget(gb):
+    """``$RRTMGP_CHUNK_BUDGET_GB`` set to ``gb`` (unchanged where None), and
+    restored on leaving."""
+    key, was = "RRTMGP_CHUNK_BUDGET_GB", os.environ.get("RRTMGP_CHUNK_BUDGET_GB")
+    if gb is not None:
+        os.environ[key] = repr(gb)
+    try:
+        yield
+    finally:
+        if was is None:
+            os.environ.pop(key, None)
+        else:
+            os.environ[key] = was
+
+
 def solver(cfg: dict, traffic: dict, inputs: dict) -> rt.RRTMGPSolver:
     """``RRTMGPSolver`` of the configuration with the traffic's solver
     options, on a copy of the first state; with ``mesh``, over a column
-    mesh of the cell's cards, given the whole state to split itself."""
+    mesh of the cell's cards, given the whole state to split itself; with
+    ``chunk_budget_gb``, under that f64 chunk budget."""
     tables, bcs = inputs["tables"], _copy(inputs["bcs"])
     atm = atmosphere(inputs["states"][0])
     options = dict(traffic["solver"])
@@ -82,14 +105,15 @@ def solver(cfg: dict, traffic: dict, inputs: dict) -> rt.RRTMGPSolver:
         method = rt.AllSkyRadiation(aerosol_radiation=cfg["aerosols"])
     else:
         method = rt.ClearSkyRadiation(aerosol_radiation=cfg["aerosols"])
-    return rt.RRTMGPSolver(
-        rt.RRTMGPGridParams(nlay=cfg["nlay"], ncol=cfg["ncol"], dtype=atm.p_lay.dtype),
-        method, rt.RRTMGPParameters(),
-        rt.LwBCs(sfc_emis=bcs["sfc_emis"]),
-        rt.SwBCs(cos_zenith=bcs["cos_zenith"], toa_flux=bcs["toa_flux"],
-                 sfc_alb_direct=bcs["sfc_alb_direct"], sfc_alb_diffuse=bcs["sfc_alb_diffuse"]),
-        atm, lookups=lookups(tables), **options,
-    )
+    with _chunk_budget(cfg.get("chunk_budget_gb")):
+        return rt.RRTMGPSolver(
+            rt.RRTMGPGridParams(nlay=cfg["nlay"], ncol=cfg["ncol"], dtype=atm.p_lay.dtype),
+            method, rt.RRTMGPParameters(),
+            rt.LwBCs(sfc_emis=bcs["sfc_emis"]),
+            rt.SwBCs(cos_zenith=bcs["cos_zenith"], toa_flux=bcs["toa_flux"],
+                     sfc_alb_direct=bcs["sfc_alb_direct"], sfc_alb_diffuse=bcs["sfc_alb_diffuse"]),
+            atm, lookups=lookups(tables), **options,
+        )
 
 
 def _columns(tree, lo: int, hi: int, device):

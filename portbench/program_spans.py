@@ -4,24 +4,16 @@
 the innermost of them that was open when the host launched it.
 
 The spans are host events of ``Trace.host``, as are the runtime calls that
-launch device work; of an op's launch ``Trace.device`` keeps only the
-harness span it fell in. The ops of a window run on one stream in the order
-the host launched them, one op to each launching runtime call, so the k-th
-launch of the trace is the k-th op to start on the device. ``launches``
-pairs them so, and checks each pair against the harness span that the
-reduction linked the op to; where that does not hold, the readers of
-device time by program span leave their metrics out rather than guess.
+launch device work. The reduction links each op to the call that launched
+it by correlation id (``Trace.launches``), whatever the order in which the
+ops ran or the trace listed them, and whichever card they ran on; an op
+whose call the trace does not hold is put down to no span, as the
+reduction puts it down to no harness span.
 """
 
 from __future__ import annotations
 
-import bisect
-
-from portbench import tracing
-
 PREFIX = "rrtmgp."
-#: what a runtime call's name holds when it puts one op on the device
-LAUNCH_WORDS = ("Launch", "Memcpy", "Memset")
 
 
 def spans(trace) -> list:
@@ -29,43 +21,11 @@ def spans(trace) -> list:
     return sorted(((s, e, n) for s, e, n in trace.host if n.startswith(PREFIX)), key=lambda p: (p[0], -p[1]))
 
 
-def _launch_calls(trace) -> list:
-    """Start times of the runtime calls that launch device ops, in order;
-    a call made inside another (the runtime's own driver call) is the
-    outer call's launch, not one of its own."""
-    out, reach = [], None
-    for s, e, n in trace.host:
-        if n.startswith("cu") and any(w in n for w in LAUNCH_WORDS):
-            if reach is not None and s <= reach:
-                continue
-            out.append(s)
-            reach = e
-    return out
-
-
 def launches(trace):
     """For each op of ``trace.device`` the start of the runtime call that
-    launched it, paired in order; None where the pairing does not hold: the
-    trace's launches and ops differ in number, or a paired launch fell
-    outside the harness span that the reduction linked the op to."""
-    calls = _launch_calls(trace)
-    order = sorted(range(len(trace.device)), key=lambda i: trace.device[i][1])
-    if len(calls) != len(order):
-        return None
-    harness = sorted((s, e, n[len(tracing.PREFIX):]) for s, e, n in trace.host
-                     if n.startswith(tracing.PREFIX) and n[len(tracing.PREFIX):] in tracing.STEP_SPANS)
-    starts = [s for s, _, _ in harness]
-
-    def harness_at(t):
-        i = bisect.bisect_right(starts, t) - 1
-        return harness[i][2] if i >= 0 and harness[i][1] >= t else None
-
-    launch = [None] * len(order)
-    for i, t in zip(order, calls):
-        if harness_at(t) != trace.device[i][3]:
-            return None
-        launch[i] = t
-    return launch
+    launched it (None for an op whose call the trace lacks); None where the
+    trace keeps no launches (one built by hand)."""
+    return trace.launches if len(trace.launches) == len(trace.device) else None
 
 
 def innermost(nested: list, times: list) -> list:
@@ -89,8 +49,8 @@ def innermost(nested: list, times: list) -> list:
 def program_ops(trace):
     """The window's device ops as (name, start, end, span, program):
     ``program`` the innermost program span open when the host launched the
-    op, None where it was launched outside them. None where the launches do
-    not pair with the ops (``launches``)."""
+    op, None where it was launched outside them. None where the trace keeps
+    no launches (``launches``)."""
     launch = launches(trace)
     if launch is None:
         return None

@@ -73,7 +73,7 @@ def test_every_cell_resolves(cell):
     spec = run.cell_spec(BENCH, cell)
     config = next(c for c in BENCH["configs"] if c["name"] == spec["cell"]["config"])
     assert config["file"].startswith(tuple(p + "/" for p in BENCH["paths"]))
-    assert spec["cfg"]["dtype"] == "float32" and spec["cfg"]["nlay"] >= 1
+    assert spec["cfg"]["dtype"] in ("float32", "float64") and spec["cfg"]["nlay"] >= 1
     assert spec["traffic"]["loop"] == "closed" and spec["traffic"]["states"] >= 2
     assert set(spec["limits"]) == set(compare.NUMBERS)
     assert len(spec["end_to_end"]) >= 2 and "setup_s" in spec["end_to_end"] and spec["per_layer"]

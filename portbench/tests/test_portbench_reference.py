@@ -5,9 +5,10 @@
   the largest flux, the port's own tolerance against JAX at 8 layers;
 - against the port's ``impl="torch"`` path in float64 through the solver
   the harness drives, within 1e-12 of the largest flux;
-- and the comparison that decides ``correct``: a float32 program run
-  passes the cell's limits, the control (the reference in bfloat16 in the
-  program's place) fails them.
+- and the comparison that decides ``correct``: a program run in the
+  configuration's dtype passes the cell's limits, the control (the
+  reference in the precision below, bfloat16 for float32 and float32 for
+  float64, in the program's place) fails them.
 
 Run with ``python -m pytest portbench/tests -q`` from the repository root.
 """
@@ -138,9 +139,10 @@ def test_reference_matches_port_torch_path_f64(cell):
 
 
 @pytest.mark.parametrize("cell", CELLS)
-def test_comparison_passes_f32_program_and_fails_bf16_control(cell):
-    """A sound float32 run reads under the cell's limits; the reference
-    in bfloat16, put in the program's place, reads over one of them."""
+def test_comparison_passes_program_and_fails_control(cell):
+    """A sound run in the configuration's dtype reads under the cell's
+    limits; the reference in the precision below, put in the program's
+    place, reads over one of them."""
     spec = _small(cell, ncol=48, nlay=16)
     res = harness.run_cell(spec["cfg"], spec["traffic"], 2**32 + 5, 0.0, False, "cpu", 0.0, keep_inputs=True)
     limits = {n: v["limit"] for n, v in spec["limits"].items()}

@@ -64,12 +64,15 @@ class Trace:
     it (None where the launch is not linked); ``host`` holds (start, end,
     name) of every host event, sorted by start; ``cards`` the card (CUDA
     device index) of each op of ``device``, in its order (empty: all on
-    one); times in ns on the profiler's clock."""
+    one); ``launches`` the start of the runtime call that launched each op
+    of ``device``, in its order, found by correlation id (None where the
+    trace holds no such call); times in ns on the profiler's clock."""
 
     window: tuple
     device: list
     host: list
     cards: list = dataclasses.field(default_factory=list)
+    launches: list = dataclasses.field(default_factory=list)
 
     @property
     def window_ns(self) -> int:
@@ -171,9 +174,10 @@ def from_profiler(prof) -> Trace:
         i = bisect.bisect_right(starts, t) - 1
         return spans[i][2] if i >= 0 and spans[i][1] >= t else None
 
-    linked = [(n, s, e, span_at(runtime.get(c, runtime.get(lc)))) for n, s, e, c, lc, _ in device]
+    launches = [runtime.get(c, runtime.get(lc)) for _, _, _, c, lc, _ in device]
+    linked = [(n, s, e, span_at(t)) for (n, s, e, *_), t in zip(device, launches)]
     host.sort()
-    return Trace(window=window, device=linked, host=host, cards=[d[-1] for d in device])
+    return Trace(window=window, device=linked, host=host, cards=[d[-1] for d in device], launches=launches)
 
 
 #: the harness spans inside which the host calls into the program

@@ -10,10 +10,11 @@ tables and its fluxes, each counted once.
 
 from __future__ import annotations
 
-#: NVIDIA H100 SXM data sheet: HBM3 bytes per second, and f32 operations
-#: per second outside the tensor cores (700 W)
+#: NVIDIA H100 SXM data sheet: HBM3 bytes per second, and f32 and f64
+#: operations per second outside the tensor cores (700 W)
 HBM_BYTES_PER_S = 3.35e12
 PEAK_F32_OPS_PER_S = 67e12
+PEAK_F64_OPS_PER_S = 33.5e12
 
 
 def algorithmic_flops(meta: dict, ngpt: int, ncol: int, nlay: int, longwave: bool, two_stream: bool) -> int:
@@ -75,7 +76,7 @@ def step_work(cfg: dict, traffic: dict, inputs: dict) -> dict:
     }
 
 
-def least_seconds(ops: int, nbytes: int) -> float:
-    """The least time the card could take: operations at the f32 peak or
-    bytes at the memory rate, the larger."""
-    return max(ops / PEAK_F32_OPS_PER_S, nbytes / HBM_BYTES_PER_S)
+def least_seconds(ops: int, nbytes: int, peak_ops_per_s: float = PEAK_F32_OPS_PER_S) -> float:
+    """The least time the card could take: operations at the peak (f32
+    unless given) or bytes at the memory rate, the larger."""
+    return max(ops / peak_ops_per_s, nbytes / HBM_BYTES_PER_S)
