@@ -10,8 +10,9 @@ is non-zero:
 3. kernels: each kernel against its plain torch twin on the card, first at
    small shapes (ncol 1000, 36 g-points in 4 bands, f32 and f64), then at
    the main paths' shapes: the clear-sky kernels at 32768 columns x 60
-   layers in f32 and, for planck_band and lw_clear_mega, in f64 (the f64
-   twin on 4096-column chunks; f64 against f32 too), the all-sky ones
+   layers in f32 and, for planck_band, lw_clear_mega and sw_clear_mega, in
+   f64 (the f64 twins on 4096-column chunks; f64 against f32 too), the
+   all-sky ones
    (lw2_mega clear / cloud mask / McICA seed + aerosols, lw_clear_mega with
    cloud mask / aerosols / seed + aerosols, sw_clear_mega with cloud mask +
    aerosols / seed + aerosols, aerosol_bands, mcica_mask_export) at 75748 x
@@ -41,11 +42,12 @@ is non-zero:
    and one AllSkyRadiationWithClearSkyDiagnostics step;
 6. f64 slice: RRTMGPSolver in f64 with ClearSkyRadiation and LW
    no-scattering at 32768 x 60: LW through the f64 builds of planck_band
-   and lw_clear_mega, SW through solve_chunked on the torch path, both in
+   and lw_clear_mega, SW through the f64 build of sw_clear_mega, both in
    the auto-chunk's column chunks; step time, columns/s, peak memory; LW
    within 1e-4 W/m2 of the exact f64 torch path and 5e-5 of the f32 slice,
-   chunked SW equal to unchunked bit for bit, 3 angles, and the
-   aerosol-laden clear-sky solver keeping its aerosols on the torch path;
+   SW within 1e-12 of the exact f64 torch path, chunked SW equal to
+   unchunked bit for bit, 3 angles, and the aerosol-laden clear-sky solver
+   keeping its aerosols on the torch path;
 7. all-sky no-scattering slice: RRTMGPSolver + AllSkyRadiation(aerosol_
    radiation=True) with two_stream_lw=False at 75748 x 60 in f32: LW
    through lw_clear_mega composed with in-kernel McICA and aerosols; step
@@ -198,7 +200,8 @@ is non-zero:
    with LW no-scattering at 1 and at 3 angles (the f64 lw_clear_mega, K7:
    one launch per angle and one planck_band per LW solve), all-sky with
    aerosols with LW two-stream and with LW no-scattering at 3 angles (the
-   torch path: no launch), SW two-stream and the direct beam; each bitwise
+   torch path: no launch), SW two-stream (clear: the f64 sw_clear_mega)
+   and the direct beam; each bitwise
    the fused f64 solver, and on a mesh of two entries on cuda:0 bitwise the
    unsplit one, with both steps' medians. (b) A covering set of the
    option matrix (every pair of two options' values in some configuration,
@@ -242,13 +245,14 @@ DEVICE = "cuda"
 MCICA_SEED, COL_OFFSET = 11, 384
 TOL = {"planck_band": 1e-6, "lw_clear_mega": 5e-5, "sw_clear_mega": 1e-4,
        "lw2_mega": 1e-4, "sw_clear_mega_allsky": 1e-4, "aerosol_bands": 1e-6,
-       "mcica_mask_export": 0.0, "planck_band_f64": 1e-14, "lw_clear_mega_f64": 1e-12,
+       "mcica_mask_export": 0.0, "planck_band_f64": 1e-14, "lw_clear_mega_f64": 1e-12, "sw_clear_mega_f64": 1e-12,
        "lw_clear_mega_allsky": 5e-5, "optics_fused_lw": 1e-6, "optics_fused_sw": 1e-6,
        "planck_band_rows": 1e-6, "lw_noscat_banded_reduced": 5e-5, "sw_2stream_reduced": 1e-4,
        "lw_noscat_reduced": 5e-5, "lw_2stream_reduced": 1e-4, "sw_2stream_gpt": 1e-4, "lw_noscat_gpt": 5e-5,
        "interp_pt_eta": 1e-6, "interp_minor": 1e-6, "cloud_bands_lw": 0.0, "cloud_bands_sw": 0.0}
 UNFUSED_TOL = 2e-6              # the unfused route's fluxes vs the fused two-kernel route's (bitwise expected)
 SUM_TOL = 5e-6                  # a per-g-point sweep summed over g-points vs its g-summed sibling
+F32_SW_TOL = 1e-2               # the f32 SW kernel vs the f64 one: f32's own error (3-4e-4 at the f64 cell)
 F64_LW_TOL_WM2 = 1e-4           # the reference's f64 LW tolerance, absolute
 SOURCES = {
     "planck_band": ("rrtmgp_tpu_torch/csrc/planck_band.cu", "rrtmgp_tpu/ops/pallas_mega.py:224"),
@@ -260,6 +264,7 @@ SOURCES = {
     "mcica_mask_export": ("rrtmgp_tpu_torch/csrc/mcica_export.cu", "rrtmgp_tpu/ops/pallas_mega.py:1983"),
     "planck_band_f64": ("rrtmgp_tpu_torch/csrc/planck_band.cu", "rrtmgp_tpu/ops/pallas_mega.py:224"),
     "lw_clear_mega_f64": ("rrtmgp_tpu_torch/csrc/lw_clear_mega.cu", "rrtmgp_tpu/ops/pallas_mega_df.py:218"),
+    "sw_clear_mega_f64": ("rrtmgp_tpu_torch/csrc/sw_clear_mega.cu", "rrtmgp_tpu/ops/pallas_mega.py:959"),
     "lw_clear_mega_allsky": ("rrtmgp_tpu_torch/csrc/lw_clear_mega.cu", "rrtmgp_tpu/ops/pallas_mega.py:522"),
     "optics_fused_lw": ("rrtmgp_tpu_torch/csrc/optics_fused.cu", "rrtmgp_tpu/ops/pallas_interp.py:530"),
     "optics_fused_sw": ("rrtmgp_tpu_torch/csrc/optics_fused.cu", "rrtmgp_tpu/ops/pallas_interp.py:530"),
@@ -565,12 +570,15 @@ def print_sw_mega_design(label, name, kern, args, comp) -> None:
     memory, the launch plan, ptxas registers of the variant launched, and
     the device scratch of one call ``kern``, measured as print_design
     measures it."""
+    import torch
+
     from rrtmgp_tpu_torch.ops import mega
 
     design = mega.sw_clear_mega_design(*args[:2], comp)
     scratch = call_scratch(kern)
     mode = 2 if comp.seeded else int(comp.cld_mask is not None)
-    variant = (f"sw_clear_mega_kernelILb{int(comp.cld_bands is not None)}ELb{int(comp.aero_bands is not None)}"
+    real = "d" if args[0].ftemp.dtype == torch.float64 else "f"
+    variant = (f"sw_clear_mega_kernelI{real}Lb{int(comp.cld_bands is not None)}ELb{int(comp.aero_bands is not None)}"
                f"ELi{mode}ELb{int(not design['in_block'])}")
     sums = "in the block" if design["in_block"] else "warp partials in device memory"
     phase("kernels", f"{label} {name} design: state four (nlay, ncol, ngpt) arrays in device memory "
@@ -846,19 +854,23 @@ def check_kernels(label, lw, sw, atm, bcs_lw, bcs_sw, reps, results) -> None:
     print_sw_mega_design(label, "sw_clear_mega", cases["sw_clear_mega"][0], sw_args, mega.CLEAR)
 
 
-def check_f64_kernels(label, lw64, atm64, bcs_lw64, lw_f32_args, reps, results, chunk=None,
+def check_f64_kernels(label, lw64, sw64, atm64, bcs64, f32_args, reps, results, chunk=None,
                       f32_tol=TOL["lw_clear_mega"]) -> None:
-    """planck_band and lw_clear_mega built for f64 against their f64 twins
-    (the LW twin on column chunks), and the f64 LW kernel against the f32
-    one on the f32 rounding of the same inputs, within ``f32_tol`` of the
-    largest flux: that difference is the f32 algorithm's own (its Clough
-    factor cancels in thin layers), not the kernel's."""
+    """planck_band, lw_clear_mega and sw_clear_mega built for f64 against
+    their f64 twins (the megakernels' twins on column chunks), and the f64
+    megakernels against the f32 ones (``f32_args``: their LW and SW
+    arguments) on the f32 rounding of the same inputs: LW within
+    ``f32_tol`` of the largest flux, a difference that is the f32
+    algorithm's own (its Clough factor cancels in thin layers), not the
+    kernel's; SW within F32_SW_TOL (f32 rounding near the Meador-Weaver
+    singularity)."""
     import torch
 
     from rrtmgp_tpu_torch.ops import mega
 
     ncol = atm64.ncol
-    plk_args, lw_args, _ = kernel_args(lw64, None, atm64, bcs_lw64, None)
+    plk_args, lw_args, sw_args = kernel_args(lw64, sw64, atm64, *bcs64)
+    lw_f32_args, sw_f32_args = f32_args
     sets = planck_sets_args(plk_args)
     plk_ref = lambda: tuple(mega.planck_band_ref(*a) for a in plk_args)
     check_case(label, "planck_band_f64", lambda: mega.planck_band_sets(*sets), plk_ref, reps, results,
@@ -878,6 +890,19 @@ def check_f64_kernels(label, lw64, atm64, bcs_lw64, lw_f32_args, reps, results, 
     phase("kernels", f"{label} lw_clear_mega f32 vs f64 kernel: max|d|={err:.3e} rel={rel:.3e} "
                      f"(tol {f32_tol:.0e})")
     require(rel <= f32_tol, f"lw_clear_mega f32 vs f64: rel error {rel:.3e} > {f32_tol:.0e}")
+    del out64, out32
+    check_case(label, "sw_clear_mega_f64", lambda: mega.sw_clear_mega(*sw_args),
+               lambda: by_columns(mega.sw_clear_mega_ref, sw_args, ncol, chunk), reps, results,
+               work=Work(nbytes(sw_args), mega_ops("sw_clear_mega", *sw_args[:2]), "f64"))
+    kern = lambda: mega.sw_clear_mega(*sw_args)
+    print_sw_mega_design(label, "sw_clear_mega_f64", kern, sw_args, mega.CLEAR)
+    out64, again = kern(), kern()
+    require(all(a.dtype == torch.float64 and torch.equal(a, b) for a, b in zip(out64, again)),
+            "the f64 SW kernel returned another dtype or other bits on a second call")
+    err, rel = rel_err(mega.sw_clear_mega(*sw_f32_args), out64)
+    phase("kernels", f"{label} sw_clear_mega f32 vs f64 kernel: max|d|={err:.3e} rel={rel:.3e} "
+                     f"(tol {F32_SW_TOL:.0e})")
+    require(rel <= F32_SW_TOL, f"sw_clear_mega f32 vs f64: rel error {rel:.3e} > {F32_SW_TOL:.0e}")
 
 
 class ColOffset(NamedTuple):
@@ -1036,9 +1061,10 @@ def phase_kernels_small(ngpt=36, ncol=SMALL_NCOL, nlay=SMALL_NLAY) -> None:
     label = f"small ncol={ncol} nlay={nlay} ngpt={ngpt}"
     check_kernels(label, lw, sw, atm, bcs_lw, bcs_sw, 0, {})
     lw64 = synthetic_gas_lookup(longwave=True, n_gpt=ngpt, n_bnd=4, dtype=np.float64, device=DEVICE)
-    check_f64_kernels(label, lw64, atmosphere(ncol, nlay, "float64"),
-                      boundary_conditions(lw64, lw64, ncol)[0],
-                      kernel_args(lw, None, atm, bcs_lw, None)[1], 0, {}, f32_tol=1e-4)
+    sw64 = sw.to(dtype=torch.float64)
+    check_f64_kernels(label, lw64, sw64, atmosphere(ncol, nlay, "float64"),
+                      boundary_conditions(lw64, sw64, ncol, mu0.double()),
+                      kernel_args(lw, sw, atm, bcs_lw, bcs_sw)[1:], 0, {}, f32_tol=1e-4)
     small_L, small_allsky = small_allsky_lookups(ngpt, (lw, sw)), allsky_atmosphere(ncol, nlay)
     check_allsky_kernels(label, small_L, small_allsky, 0, {})
     check_two_kernel_kernels(label, lw, sw, atm, bcs_lw, bcs_sw, 0, {})
@@ -1337,7 +1363,7 @@ def phase_allsky_slice(L, atm, bcs_lw, bcs_sw, two_stream_lw=True) -> dict:
 
 def phase_f64_slice(lw, sw, atm, bcs_lw, bcs_sw, f32_lw) -> dict:
     """RRTMGPSolver in f64, clear sky, LW no-scattering, at full size: LW
-    through the f64 kernels, SW through the chunked torch path. ``f32_lw``
+    and SW through the f64 kernels, one launch a column chunk. ``f32_lw``
     is the f32 clear slice's LW flux on the f32 rounding of the same
     inputs. Returns the launch counts of the timed steps."""
     import warnings
@@ -1377,8 +1403,8 @@ def phase_f64_slice(lw, sw, atm, bcs_lw, bcs_sw, f32_lw) -> dict:
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
         solver.update_fluxes()  # warm-up
-    require(any("exact-precision torch path" in str(w.message) for w in caught),
-            "the f64 SW solve did not warn that it takes the torch path")
+    require(not any("exact-precision torch path" in str(w.message) for w in caught),
+            "a clear-sky f64 solve warned that it takes the torch path")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     mega.reset_launch_counts()
@@ -1397,7 +1423,9 @@ def phase_f64_slice(lw, sw, atm, bcs_lw, bcs_sw, f32_lw) -> dict:
     phase("f64", f"launches in 3 update_fluxes() steps: {launches}")
     require(launches["lw_clear_mega"] == 3 * n_chunks and launches["planck_band"] == 3 * n_chunks,
             f"LW did not go through the f64 kernels once per chunk: {launches}")
-    require(launches["sw_clear_mega"] == 0 and launches["lw2_mega"] == 0, "an f32-only kernel was launched")
+    require(launches["sw_clear_mega"] == 3 * n_chunks, f"SW did not go through the f64 kernel once per chunk: "
+                                                       f"{launches}")
+    require(launches["lw2_mega"] == 0, "an f32-only kernel was launched")
     step_ms = 1e3 * statistics.median(times)
     phase("f64", f"update_fluxes() at {ncol} x {NLAY} f64: median {step_ms:.3f} ms over 3 steps "
                  f"(min {1e3 * min(times):.3f}, max {1e3 * max(times):.3f}), "
@@ -1420,15 +1448,23 @@ def phase_f64_slice(lw, sw, atm, bcs_lw, bcs_sw, f32_lw) -> dict:
         phase("f64", f"LW f32 slice vs f64 slice: max|d|={err:.3e} rel={rel:.3e} (tol {TOL['lw_clear_mega']:.0e})")
         require(rel <= TOL["lw_clear_mega"], f"f32 vs f64 LW: rel error {rel:.3e}")
 
-        # SW: chunked equals unchunked, bit for bit
+        # SW: the f64 kernel chunked equals unchunked, bit for bit, and the
+        # exact torch path to rounding
+        mega.reset_launch_counts()
         whole, _ = solve_sw(sw, a, bs)
-        parts, _ = solve_chunked(lambda x, y: solve_sw(sw, x, y), a, bs, solver.auto_chunk)
+        require(mega.launch_counts()["sw_clear_mega"] == 1, "f64 clear SW did not launch its kernel")
+        chunk = solver.auto_chunk
+        parts, _ = solve_chunked(lambda x, y: solve_sw(sw, x, y), a, bs, chunk)
         require(all(torch.equal(p, w) for p, w in zip(parts, whole)), "SW chunked != unchunked")
         require(all(torch.equal(f[:, :CMP_NCOL], w) for f, w in zip(f_sw, whole)),
-                "SW of the solver != the unchunked torch path")
-        phase("f64", f"SW chunked ({solver.auto_chunk}) equals unchunked bitwise on {CMP_NCOL} columns, "
-                     "and the solver's SW equals both")
-        del whole, parts
+                "SW of the solver != the unchunked f64 kernel route")
+        exact, _ = solve_sw(sw, a, bs, impl="torch")
+        err, rel = rel_err(tuple(whole), tuple(exact))
+        phase("f64", f"SW chunked ({chunk}) equals unchunked bitwise on {CMP_NCOL} columns, and the solver's "
+                     f"SW equals both; vs exact f64 torch path: max|d|={err:.3e} W/m2 rel={rel:.3e} "
+                     f"(tol {TOL['sw_clear_mega_f64']:.0e})")
+        require(rel <= TOL["sw_clear_mega_f64"], f"f64 SW: rel error {rel:.3e} from the exact torch path")
+        del whole, parts, exact
 
         # 3 angles through the solver
         s3, _ = make(a, bl, bs, n_gauss_angles=3)
@@ -2810,13 +2846,13 @@ def route_of(cfg: dict, wave: str, cloudy: bool) -> str:
     dispatches it (tests/test_torch_routes.py holds the same table on the
     CPU): f32 the megakernels, or the two-kernel path for several LW angles,
     for the SW direct beam and for every solve without the fused optics
-    (pallas_windowed="off"); f64, whatever fused_optics says, the f64 kernel
-    for clear-sky LW no-scattering without aerosols unless f64_kernel=False,
-    the torch path otherwise."""
+    (pallas_windowed="off"); f64, whatever fused_optics says, the f64
+    kernels for clear-sky LW no-scattering and SW two-stream without
+    aerosols unless f64_kernel=False, the torch path otherwise."""
     aerosols = ROUTE_METHODS[cfg["method"]][1]
     two_stream = cfg["two_stream_lw"] if wave == "lw" else cfg["two_stream_sw"]
     if cfg["dtype"] == "float64":
-        has_kernel = wave == "lw" and not two_stream and not cloudy and not aerosols
+        has_kernel = (two_stream if wave == "sw" else not two_stream) and not cloudy and not aerosols
         return "kernel" if has_kernel and cfg["f64_kernel"] is not False else "torch"
     mega_covers = two_stream or (wave == "lw" and cfg["n_gauss_angles"] == 1)
     return "kernel" if cfg["fused_optics"] and mega_covers else "two_kernel"
@@ -2870,14 +2906,14 @@ def route_launches(cfg: dict) -> dict:
 def route_tol(cfg: dict, wave: str, cloudy: bool) -> tuple[float, bool]:
     """(tolerance, absolute) of a solve's fluxes against impl="torch": the
     earlier phases' TOL of the route's kernel relative to the largest
-    flux; the f64 kernel within F64_LW_TOL_WM2 W/m2; the torch path bit for
-    bit."""
+    flux; the f64 LW kernel within F64_LW_TOL_WM2 W/m2; the torch path bit
+    for bit."""
     route = route_of(cfg, wave, cloudy)
     two_stream = cfg["two_stream_lw"] if wave == "lw" else cfg["two_stream_sw"]
     if route == "torch":
         return 0.0, False
     if cfg["dtype"] == "float64":
-        return F64_LW_TOL_WM2, True
+        return (F64_LW_TOL_WM2, True) if wave == "lw" else (TOL["sw_clear_mega_f64"], False)
     if route == "kernel":
         name = {"lw": "lw2_mega" if two_stream else "lw_clear_mega", "sw": "sw_clear_mega"}[wave]
     else:
@@ -3481,8 +3517,8 @@ def main() -> None:
     lw64, sw64 = lookups(256, 16, 224, 14, "float64")
     atm64 = atmosphere(NCOL, NLAY, "float64")
     bcs_lw64, bcs_sw64 = boundary_conditions(lw64, sw64, NCOL)
-    check_f64_kernels(label, lw64, atm64, bcs_lw64, kernel_args(lw, None, atm, bcs_lw, None)[1], 3, results,
-                      chunk=F64_TWIN_CHUNK)
+    check_f64_kernels(label, lw64, sw64, atm64, (bcs_lw64, bcs_sw64), kernel_args(lw, sw, atm, bcs_lw, bcs_sw)[1:],
+                      3, results, chunk=F64_TWIN_CHUNK)
     launches, _, f32_lw = phase_clear_slice(lw, sw, atm, bcs_lw, bcs_sw)
     done("main-shape kernels and the clear slice")
     L = lookup_tables(AllSkyRadiation(aerosol_radiation=True), dtype=torch.float32, device=DEVICE)
@@ -3516,7 +3552,8 @@ def main() -> None:
     del atm, bcs_lw, bcs_sw
     torch.cuda.empty_cache()
     f64 = phase_f64_slice(lw64, sw64, atm64, bcs_lw64, bcs_sw64, f32_lw)
-    launches.update(planck_band_f64=f64["planck_band"], lw_clear_mega_f64=f64["lw_clear_mega"])
+    launches.update(planck_band_f64=f64["planck_band"], lw_clear_mega_f64=f64["lw_clear_mega"],
+                    sw_clear_mega_f64=f64["sw_clear_mega"])
     done("the f64 slice")
     del atm64, bcs_lw64, bcs_sw64, lw64, sw64, f32_lw
     torch.cuda.empty_cache()

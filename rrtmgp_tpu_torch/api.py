@@ -15,9 +15,10 @@ f64: an f64 solver runs at any column count. Above a memory budget (8 GB
 of spectral tensors by default, ``$RRTMGP_CHUNK_BUDGET_GB`` to adjust) every
 solve goes through ``solve_chunked`` in ``auto_chunk``-column chunks, the
 kernel path too; chunked fluxes equal unchunked ones bit for bit. On CUDA
-tensors the clear-sky LW no-scattering solve without aerosols takes the f64
-build of the ``lw_clear_mega`` kernel (``f64_kernel=False`` keeps it on the
-exact torch path); every other f64 solve takes the torch path, whatever
+tensors the clear-sky solves without aerosols take the f64 builds of the
+``lw_clear_mega`` kernel (LW no-scattering) and of the ``sw_clear_mega``
+kernel (SW two-stream); ``f64_kernel=False`` keeps them on the exact torch
+path. Every other f64 solve takes the torch path, whatever
 ``fused_optics`` says.
 
 Mesh: ``RRTMGPSolver(mesh=...)`` with a ``parallel.sharding.ColumnMesh``
@@ -373,24 +374,27 @@ class RRTMGPSolver:
 
         return self._per_shard(run, self._lookups_arg, self.as_, bcs, self._col_ids, self.metric_scaling)
 
+    def _route(self) -> dict:
+        """The solves' ``impl`` and ``fused_optics``: with ``f64_kernel=False``
+        an f64 solver takes the exact path also where f64 has a kernel (f64
+        ignores fused_optics)."""
+        if self.impl is None and self.f64_kernel is False and self.grid_params.dtype == torch.float64:
+            return dict(impl="torch", fused_optics=True)
+        return dict(impl=self.impl, fused_optics=self.fused_optics)
+
     def _lw(self, cloudy: bool):
-        impl, fused = self.impl, self.fused_optics
-        if impl is None and self.f64_kernel is False and self.grid_params.dtype == torch.float64:
-            # the exact path also where f64 has a kernel; f64 ignores fused_optics
-            impl, fused = "torch", True
         solve = lambda lk, a, b, **kw: _solvers.solve_lw(lk.lookup_lw, a, b, **kw)
         return self._solve(
             solve, self.bcs_lw, cloudy, 0, two_stream=self.two_stream_lw,
             n_gauss_angles=self.n_gauss_angles, aero_species=self.aero_species,
-            eta_node_mode=self.eta_node_mode, impl=impl, fused_optics=fused,
+            eta_node_mode=self.eta_node_mode, **self._route(),
         )
 
     def _sw(self, cloudy: bool):
         solve = lambda lk, a, b, **kw: _solvers.solve_sw(lk.lookup_sw, a, b, **kw)
         return self._solve(
             solve, self.bcs_sw, cloudy, 1, two_stream=self.two_stream_sw,
-            aero_species=self.aero_species, eta_node_mode=self.eta_node_mode, impl=self.impl,
-            fused_optics=self.fused_optics,
+            aero_species=self.aero_species, eta_node_mode=self.eta_node_mode, **self._route(),
         )
 
     def _mcica_key(self, wave: int) -> int:

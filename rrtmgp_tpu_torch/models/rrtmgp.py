@@ -9,9 +9,9 @@ Four implementations of the same functions, chosen by ``impl``:
   the whole solve), fed by ``ops.mega_inputs``. CUDA tensors. In f32, LW
   no-scattering (K1, one launch per quadrature angle), LW two-stream (K4)
   and SW two-stream (K2) take clouds (a mask, or McICA drawn in the kernel
-  from a seed) and aerosols. In f64, clear-sky LW no-scattering without
-  aerosols (K1 built for native f64, 1-4 angles, with or without incident
-  flux).
+  from a seed) and aerosols. In f64, clear sky without aerosols: LW
+  no-scattering (K1 built for native f64, 1-4 angles, with or without
+  incident flux) and SW two-stream (K2 built for native f64).
 - ``"two_kernel"``: the two-kernel path of the JAX package. An optics kernel
   writes tau and the Planck fraction (LW) or ssa (SW) per (layer, column,
   g-point) to memory (``ops.gas_optics_kernel``: K8, and K11 for the band
@@ -55,9 +55,10 @@ megakernels for LW no-scattering with one angle, LW two-stream and SW
 two-stream, and the two-kernel path for LW no-scattering with several angles
 (the optics are computed once, not once per angle; it holds them in memory,
 see ``solve_lw``) and for the SW direct-beam solve. f64 CUDA tensors, with
-or without ``fused_optics``, take the kernel for the one f64 solve that has
-one (clear-sky LW no-scattering without aerosols, 1-4 angles) and
-``"torch"`` otherwise (with a warning); CPU tensors take ``"torch"``. An explicit ``impl`` that does not cover a solve raises
+or without ``fused_optics``, take the kernel for the two f64 solves that
+have one (clear sky without aerosols: LW no-scattering with 1-4 angles, SW
+two-stream) and ``"torch"`` otherwise (with a warning); CPU tensors take
+``"torch"``. An explicit ``impl`` that does not cover a solve raises
 ``NotImplementedError`` naming the ROADMAP item that will add it;
 ``impl=None`` never does for a solve the JAX package computes. (The kernels
 run one thread per g-point; a lookup of more than 1024 g-points spreads a
@@ -144,9 +145,9 @@ class SolveDiagnostics(NamedTuple):
 IMPLS = ("kernel", "two_kernel", "sweep", "torch")
 F64_WARNING = (
     "impl=None on float64 CUDA tensors: only the clear-sky LW no-scattering "
-    "solve without aerosols has an f64 CUDA kernel; this f64 solve dispatches "
-    "the exact-precision torch path instead (slower, but true f64 — not an "
-    "f32-faithful approximation)"
+    "and SW two-stream solves without aerosols have an f64 CUDA kernel; this "
+    "f64 solve dispatches the exact-precision torch path instead (slower, but "
+    "true f64 — not an f32-faithful approximation)"
 )
 
 
@@ -189,7 +190,7 @@ def _resolve_impl(impl: str | None, device: torch.device, dtype: torch.dtype,
         )
     if impl == "kernel" and f64_without:
         _not_ported("an f64 CUDA kernel for this solve (f64 has one for clear-sky LW "
-                    "no-scattering without aerosols only)", F64_ALLSKY_ITEM)
+                    "no-scattering and SW two-stream without aerosols only)", F64_ALLSKY_ITEM)
     if impl == "two_kernel" and f64:
         _not_ported("the two-kernel path in f64 (its kernels are built for f32)", F64_ALLSKY_ITEM)
     if impl == "sweep" and f64:
@@ -596,10 +597,12 @@ def solve_sw(
     (cos_zenith <= 0) produce exactly zero fluxes. ``fused_optics=False``:
     the two-kernel path with the unfused optics, as in ``solve_lw``."""
     dtype = as_.p_lay.dtype
+    # f64 has a kernel for the clear-sky two-stream solve without aerosols
+    has_f64_kernel = two_stream and lkp_cld is None and lkp_aero is None
     # the SW megakernel is two-stream only: the direct-beam solve takes the
     # two-kernel path (the optics kernel, then the beam recurrence); under
     # "sweep" it is the torch path's, as in the JAX package
-    impl = _resolve_impl(impl, as_.p_lay.device, dtype, mega=two_stream, fused_optics=fused_optics)
+    impl = _resolve_impl(impl, as_.p_lay.device, dtype, has_f64_kernel, two_stream, fused_optics=fused_optics)
     if impl != "torch":
         bcs, cld_mask = _kernel_ready(bcs, cld_mask, dtype)
     mu0 = bcs.cos_zenith

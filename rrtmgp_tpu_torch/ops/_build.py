@@ -68,6 +68,7 @@ SIGNATURES = {
     "rrtmgp_lw_clear_mega": [_P] * 42 + [_I] * 11 + [_U, _U, _L, _I, _I, _I, _F, _F, _P],
     "rrtmgp_lw_clear_mega_f64": [_P] * 31 + [_I] * 11 + [_D, _D, _P],
     "rrtmgp_sw_clear_mega": [_P] * 46 + [_I] * 11 + [_U, _U, _L, _I, _I, _I, _P],
+    "rrtmgp_sw_clear_mega_f64": [_P] * 35 + [_I] * 11 + [_P],
     "rrtmgp_lw2_mega": [_P] * 44 + [_I] * 10 + [_U, _U, _L, _I, _I, _I, _P],
     "rrtmgp_aerosol_bands": [_P] * 15 + [_I] * 6 + [_P],
     "rrtmgp_cloud_bands": [_P] * 13 + [_L] * 4 + [_I] * 8 + [_P],
@@ -90,7 +91,7 @@ SIZE_QUERIES = {
     "rrtmgp_aerosol_bands_smem": 3,
     "rrtmgp_cloud_bands_smem": 3,
     "rrtmgp_lw_clear_mega_staged": 6,
-    "rrtmgp_sw_clear_mega_staged": 5,
+    "rrtmgp_sw_clear_mega_staged": 6,
     "rrtmgp_optics_fused_smem": 3,
     "rrtmgp_interp_pt_eta_smem": 2,
     "rrtmgp_interp_minor_smem": 3,

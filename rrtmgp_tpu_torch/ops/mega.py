@@ -25,8 +25,9 @@ order; the count takes one for the call.
   f64);
 - ``lw2_mega``: whole LW two-stream solve, clear or all-sky (replaces
   ``lw2_mega``);
-- ``sw_clear_mega``: whole SW two-stream solve, clear or all-sky (replaces
-  ``sw_clear_mega``);
+- ``sw_clear_mega``: whole SW two-stream solve: f32 clear or all-sky
+  (replaces ``sw_clear_mega``), f64 clear sky (the same kernel built for
+  native f64; the JAX package leaves the f64 SW solve to XLA);
 - ``mcica_mask_export``: the McICA uniforms and mask the all-sky kernels
   draw in seed mode (replaces ``mcica_mask_export``).
 
@@ -155,6 +156,16 @@ MASK_NONE, MASK_GIVEN, MASK_SEED = 0, 1, 2
 BLOCK_COUNT_BYTES = 32 * 4
 #: ROADMAP queue 1 item that adds f64 builds of the all-sky kernels
 F64_ALLSKY_ITEM = "item 20"
+
+
+def _f64_clear_only(name: str, comp: Composition) -> None:
+    """Raise for an f64 call of a megakernel with a composition: its f64
+    build is clear sky only."""
+    if not comp.clear:
+        raise NotImplementedError(
+            f"{name}: the f64 kernel is clear sky only; cloud/aerosol composition in f64 "
+            f"is not ported yet (ROADMAP queue 1, {F64_ALLSKY_ITEM})"
+        )
 
 
 def _cloud_mask_ref(comp: Composition, lkp):
@@ -296,11 +307,8 @@ def lw_clear_mega(
         raise ValueError("lw_clear_mega: needs a longwave lookup")
     real = _kernel_dtype(inp.ftemp, "lw_clear_mega")
     f64 = real == torch.float64
-    if f64 and not comp.clear:
-        raise NotImplementedError(
-            "lw_clear_mega: the f64 kernel is clear sky only; cloud/aerosol composition in f64 "
-            f"is not ported yet (ROADMAP queue 1, {F64_ALLSKY_ITEM})"
-        )
+    if f64:
+        _f64_clear_only("lw_clear_mega", comp)
     nlay, ncol, ngpt, nbnd, ntemp, neta, ncontrib = _check_inputs(inp, tabs, dev, False, real)
     _require(plk_lay, "plk_lay", (nbnd, nlay * ncol), real, dev)
     _require(plk_lev, "plk_lev", (nbnd, (nlay + 1) * ncol), real, dev)
@@ -368,12 +376,12 @@ def lw_clear_mega_design(inp: MegaInputs, tabs: KernelTables, comp: Composition 
                 in_block=plan.in_block, max_threads=LAST_PLANS["lw_clear_mega"][1])
 
 
-def _mega_scratch_tensors(plan, nf, nlay, ncol, ngpt, seeded, dev):
-    """The four f32 state arrays, the level partials and the cover counts of
-    a megakernel call (the last two None unless a column spans blocks)."""
-    state = [torch.empty((nlay, ncol, ngpt), dtype=torch.float32, device=dev) for _ in range(4)]
-    return (*state, level_partials(plan, nf, nlay + 1, ncol, torch.float32, dev),
-            cover_counts(plan, ncol, seeded, dev))
+def _mega_scratch_tensors(plan, nf, nlay, ncol, ngpt, seeded, dev, real=torch.float32):
+    """The four state arrays and the level partials of a megakernel call in
+    ``real``, and its cover counts (the last two None unless a column spans
+    blocks)."""
+    state = [torch.empty((nlay, ncol, ngpt), dtype=real, device=dev) for _ in range(4)]
+    return (*state, level_partials(plan, nf, nlay + 1, ncol, real, dev), cover_counts(plan, ncol, seeded, dev))
 
 
 # ---------------------------------------------------------------------------
@@ -499,33 +507,41 @@ def sw_clear_mega(
     aerosol band properties already delta-scaled); returns (flux_up,
     flux_dn, flux_dn_dir), each (nlev, ncol), plus the McICA cloud cover
     (ncol,) in seed mode. flux_dn includes the direct beam. Night columns
-    are the caller's to zero."""
+    are the caller's to zero. f32 or f64 by the inputs' dtype; the f64
+    kernel is clear sky only."""
     if inp.jtemp.device.type == "cpu":
         return sw_clear_mega_ref(inp, tabs, mu0, toa_gpt, alb_dir, alb_dif, inc_flux_diffuse, comp)
     dev = _cuda_device(inp.jtemp, "sw_clear_mega")
     if tabs.lkp.is_longwave:
         raise ValueError("sw_clear_mega: needs a shortwave lookup")
-    nlay, ncol, ngpt, nbnd, ntemp, neta, ncontrib = _check_inputs(inp, tabs, dev, True)
-    f32 = torch.float32
-    _require(mu0, "mu0", (ncol,), f32, dev)
-    _require(toa_gpt, "toa_gpt", (ncol, ngpt), f32, dev)
-    _require(alb_dir, "alb_dir", (nbnd, ncol), f32, dev)
-    _require(alb_dif, "alb_dif", (nbnd, ncol), f32, dev)
+    real = _kernel_dtype(inp.ftemp, "sw_clear_mega")
+    f64 = real == torch.float64
+    if f64:
+        _f64_clear_only("sw_clear_mega", comp)
+    nlay, ncol, ngpt, nbnd, ntemp, neta, ncontrib = _check_inputs(inp, tabs, dev, True, real)
+    _require(mu0, "mu0", (ncol,), real, dev)
+    _require(toa_gpt, "toa_gpt", (ncol, ngpt), real, dev)
+    _require(alb_dir, "alb_dir", (nbnd, ncol), real, dev)
+    _require(alb_dif, "alb_dif", (nbnd, ncol), real, dev)
     if inc_flux_diffuse is not None:
-        _require(inc_flux_diffuse, "inc_flux_diffuse", (ncol, ngpt), f32, dev)
+        _require(inc_flux_diffuse, "inc_flux_diffuse", (ncol, ngpt), real, dev)
     comp_ptrs, comp_scalars = _composition_args(comp, dev, nlay, ncol, ngpt, nbnd)
     seeded = comp_scalars[2] == MASK_SEED
-    plan, _ = _sw_clear_mega_plan(tabs, nlay, comp_scalars[:3], dev)
-    scratch = _mega_scratch_tensors(plan, 3, nlay, ncol, ngpt, seeded, dev)
-    fluxes = [torch.empty((nlay + 1, ncol), dtype=f32, device=dev) for _ in range(3)]
-    cover = torch.empty((ncol,), dtype=f32, device=dev) if seeded else None
+    plan, _ = _sw_clear_mega_plan(tabs, nlay, real, comp_scalars[:3], dev)
+    scratch = _mega_scratch_tensors(plan, 3, nlay, ncol, ngpt, seeded, dev, real)
+    fluxes = [torch.empty((nlay + 1, ncol), dtype=real, device=dev) for _ in range(3)]
+    cover = torch.empty((ncol,), dtype=torch.float32, device=dev) if seeded else None
+    head = (*_input_ptrs(inp), _ptr(inp.ray_factor), *_table_ptrs(tabs),
+            *map(_ptr, (mu0, toa_gpt, alb_dir, alb_dif, inc_flux_diffuse)))
+    dims = (nlay, ncol, ngpt, nbnd, ntemp, neta, ncontrib, tabs.n_minor)
+    lib = _build.library()
     with torch.cuda.device(dev):
-        err = _build.library().rrtmgp_sw_clear_mega(
-            *_input_ptrs(inp), _ptr(inp.ray_factor), *_table_ptrs(tabs),
-            *map(_ptr, (mu0, toa_gpt, alb_dir, alb_dif, inc_flux_diffuse)), *comp_ptrs,
-            *map(_ptr, (*scratch, *fluxes, cover)),
-            nlay, ncol, ngpt, nbnd, ntemp, neta, ncontrib, tabs.n_minor, *comp_scalars, *plan, _stream(dev),
-        )
+        if f64:
+            err = lib.rrtmgp_sw_clear_mega_f64(*head, *map(_ptr, (*scratch[:5], *fluxes)), *dims, *plan,
+                                               _stream(dev))
+        else:
+            err = lib.rrtmgp_sw_clear_mega(*head, *comp_ptrs, *map(_ptr, (*scratch, *fluxes, cover)), *dims,
+                                           *comp_scalars, *plan, _stream(dev))
     _build.check(err, "sw_clear_mega", *fluxes)
     sw_clear_mega.launches += 1
     return (*fluxes, cover) if seeded else tuple(fluxes)
@@ -538,12 +554,15 @@ sw_clear_mega.launches = 0
 SW_CHUNK = 8
 
 
-def _sw_clear_mega_plan(tabs: KernelTables, nlay: int, composition: list, dev):
+def _sw_clear_mega_plan(tabs: KernelTables, nlay: int, real: torch.dtype, composition: list, dev):
     """sw_clear_mega's launch plan and the shared memory it stages besides
     its level sums (chunks of layers: it does not grow with nlay);
     ``composition`` is (cloud, aero, mask_mode)."""
-    staged = _build.library().rrtmgp_sw_clear_mega_staged(tabs.lkp.n_bnd, tabs.n_minor, *composition)
-    return kernel_plan("sw_clear_mega", dev, tabs.lkp.n_gpt, nlay, 3, 4, staged, _variant(composition)), staged
+    f64 = int(real == torch.float64)
+    staged = _build.library().rrtmgp_sw_clear_mega_staged(tabs.lkp.n_bnd, tabs.n_minor, *composition, f64)
+    plan = kernel_plan("sw_clear_mega", dev, tabs.lkp.n_gpt, nlay, 3, real.itemsize, staged,
+                       _variant(composition) | f64 << 4)
+    return plan, staged
 
 
 def sw_clear_mega_design(inp: MegaInputs, tabs: KernelTables, comp: Composition = CLEAR) -> dict:
@@ -553,9 +572,10 @@ def sw_clear_mega_design(inp: MegaInputs, tabs: KernelTables, comp: Composition 
     (csrc/sw_clear_mega.cu: clear sky recomputes the coefficients in the
     adding and flux passes)."""
     dev = inp.jtemp.device
+    real = inp.ftemp.dtype
     scalars = _composition_args(comp, dev, inp.nlay, inp.ncol, tabs.lkp.n_gpt, tabs.lkp.n_bnd)[1]
-    plan, staged = _sw_clear_mega_plan(tabs, inp.nlay, scalars[:3], dev)
-    sums = in_block_bytes(plan.group, inp.nlay, 3, 4) if plan.in_block else 0
+    plan, staged = _sw_clear_mega_plan(tabs, inp.nlay, real, scalars[:3], dev)
+    sums = in_block_bytes(plan.group, inp.nlay, 3, real.itemsize) if plan.in_block else 0
     state = ("tau, ssa, the beam (then the albedo), the source; coefficients recomputed" if comp.clear else
              "Rdir * beam, Tdir * beam, Rdif, Tdif, rewritten by the adding pass")
     return dict(group=plan.group, n_groups=plan.n_groups, chunk=SW_CHUNK, smem=staged + sums, staged=staged,

@@ -125,10 +125,12 @@ imports no JAX.
   then the ``ptxas`` registers of the kernel's instantiations. For design
   variants (angles per launch, read-ahead): build each in its own checkout
   and run this mode on each with ``--root``, in turns within one call.
-- ``sw-mega``: the SW megakernel (K2) on the clear cell (32768 x 60) and on
-  the all-sky cell (75748 x 60, McICA by seed + aerosols), 3 rounds of a
-  median of 7 synchronized calls, the cells taking turns within a round,
-  each with the sha256 of its outputs (the cover with them), the device
+- ``sw-mega``: the SW megakernel (K2) on the clear cell (32768 x 60), on
+  the all-sky cell (75748 x 60, McICA by seed + aerosols) and, where the
+  checkout has its f64 build, in f64 on one 16384-column chunk of the f64
+  cell, 3 rounds of a median of 7 synchronized calls, the cells taking
+  turns within a round, each with the sha256 of its outputs (the cover
+  with them), the device
   scratch of one call (peak allocated during the call less what is
   allocated after it), the staging chunk and staged bytes where the
   checkout reports them (``ops.mega.sw_clear_mega_design``), then the
@@ -1105,6 +1107,11 @@ def lw_sweep() -> None:
     _registers(_build.library_path().with_suffix(".log"), ("lw_noscat_banded_kernel",), "lw-sweep")
 
 
+#: columns of one solve_chunked chunk of the f64 benchmark cell
+#: (portbench/configs/dyamond_clear_f64.json): sw-mega's f64 case
+F64_CHUNK_NCOL = 16384
+
+
 def sw_mega() -> None:
     import torch
 
@@ -1120,6 +1127,11 @@ def sw_mega() -> None:
     seeded = cases[2][1]
     runs = [(f"clear {cs.NCOL} x {cs.NLAY}", k2, mega.CLEAR),
             (f"all-sky McICA seed+aerosols {cs.ALLSKY_NCOL} x {cs.NLAY}", args, seeded)]
+    if hasattr(_build.library(), "rrtmgp_sw_clear_mega_f64"):
+        lw64, sw64 = cs.lookups(256, 16, 224, 14, "float64")
+        atm64 = cs.atmosphere(F64_CHUNK_NCOL, cs.NLAY, "float64")
+        k2_64 = cs.kernel_args(lw64, sw64, atm64, *cs.boundary_conditions(lw64, sw64, F64_CHUNK_NCOL))[2]
+        runs.append((f"clear f64 {F64_CHUNK_NCOL} x {cs.NLAY}", k2_64, mega.CLEAR))
     ms = {name: [] for name, _, _ in runs}
     for _ in range(3):
         for name, a, c in runs:

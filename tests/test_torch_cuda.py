@@ -22,8 +22,8 @@ gradient equal to the chunked torch path, bit for bit) and the gray model
 (the equilibrium's CUDA-graph blocks equal to the step-by-step loop bit for
 bit; the gray solver on the card against the CPU). Tolerances as chip_smoke.py: max |kernel - twin|
 / max |twin| <= 1e-6 (Planck, aerosol_bands), 5e-5 (LW no-scattering), 1e-4
-(LW two-stream, SW, their sweeps), 1e-6 (materialized optics, row-layout Planck); in f64 1e-14 (Planck) and 1e-12 (LW no-scattering: the
-same operations, up to the order of the g-point sums and an ulp of exp);
+(LW two-stream, SW, their sweeps), 1e-6 (materialized optics, row-layout Planck); in f64 1e-14 (Planck) and 1e-12 (LW no-scattering, SW
+two-stream: the same operations, up to the order of the g-point sums and an ulp of exp);
 the McICA cloud cover and mcica_mask_export bit for bit.
 """
 
@@ -46,7 +46,7 @@ TOL = {"planck_band": 1e-6, "lw_clear_mega": 5e-5, "sw_clear_mega": 1e-4, "lw2_m
        "lw_noscat_banded_reduced": 5e-5, "sw_2stream_reduced": 1e-4,
        "lw_noscat_reduced": 5e-5, "lw_2stream_reduced": 1e-4, "sw_2stream_gpt": 1e-4, "lw_noscat_gpt": 5e-5,
        "interp_pt_eta": 1e-6, "interp_minor": 1e-6}
-TOL64 = {"planck_band": 1e-14, "lw_clear_mega": 1e-12}
+TOL64 = {"planck_band": 1e-14, "lw_clear_mega": 1e-12, "sw_clear_mega": 1e-12}
 
 
 @pytest.fixture
@@ -409,8 +409,9 @@ def test_solves_on_cuda_take_the_kernels(cuda):
 def test_f64_routing(cuda):
     """impl=None on f64 CUDA tensors: clear-sky LW no-scattering without
     aerosols takes the f64 kernel (1-4 angles, with or without incident
-    flux); with aerosols, two-stream, or SW, the torch path with a warning;
-    impl='kernel' raises where f64 has no kernel."""
+    flux), and so does clear-sky SW two-stream without aerosols; LW with
+    aerosols or two-stream, SW with aerosols or direct beam only, the torch
+    path with a warning; impl='kernel' raises where f64 has no kernel."""
     from rrtmgp_tpu_torch.data.synthetic import synthetic_aerosol_lookup
 
     ncol = 40
@@ -432,21 +433,32 @@ def test_f64_routing(cuda):
         assert _counts() == {"planck_band": 1, "lw_clear_mega": n}
         t_lw, _ = solve_lw(lw, atm, bcs, n_gauss_angles=n, impl="torch")
         assert k_lw.flux_up.dtype == torch.float64 and _rel(k_lw, t_lw) <= TOL64["lw_clear_mega"]
+    bs_inc = dataclasses.replace(bs, inc_flux_diffuse=torch.from_numpy(rng.uniform(0.0, 2.0, (ncol, 16))).to(cuda))
+    for bcs in (bs, bs_inc):
+        mega.reset_launch_counts()
+        k_sw, _ = solve_sw(sw, atm, bcs)
+        assert _counts() == {"sw_clear_mega": 1}
+        t_sw, _ = solve_sw(sw, atm, bcs, impl="torch")
+        assert k_sw.flux_up.dtype == torch.float64 and _rel(k_sw, t_sw) <= TOL64["sw_clear_mega"]
     mega.reset_launch_counts()
     with pytest.warns(UserWarning, match="f64 CUDA kernel"):
         a_lw, _ = solve_lw(lw, atm, bl, lkp_aero=aero)
     with pytest.warns(UserWarning, match="f64 CUDA kernel"):
         k_lw2, _ = solve_lw(lw, atm, bl, two_stream=True)
     with pytest.warns(UserWarning, match="f64 CUDA kernel"):
-        k_sw, _ = solve_sw(sw, atm, bs)
+        a_sw, _ = solve_sw(sw, atm, bs, lkp_aero=aero)
+    with pytest.warns(UserWarning, match="f64 CUDA kernel"):
+        d_sw, _ = solve_sw(sw, atm, bs, two_stream=False)
     assert _counts() == {}
     # the aerosols are kept: the fluxes differ from the aerosol-free ones
     assert not torch.equal(a_lw.flux_up, solve_lw(lw, atm, bl, impl="torch")[0].flux_up)
-    for a, b in zip((*a_lw, *k_lw2, *k_sw), (*solve_lw(lw, atm, bl, lkp_aero=aero, impl="torch")[0],
-                                             *solve_lw(lw, atm, bl, two_stream=True, impl="torch")[0],
-                                             *solve_sw(sw, atm, bs, impl="torch")[0])):
+    assert not torch.equal(a_sw.flux_up, solve_sw(sw, atm, bs, impl="torch")[0].flux_up)
+    for a, b in zip((*a_lw, *k_lw2, *a_sw, *d_sw), (*solve_lw(lw, atm, bl, lkp_aero=aero, impl="torch")[0],
+                                                    *solve_lw(lw, atm, bl, two_stream=True, impl="torch")[0],
+                                                    *solve_sw(sw, atm, bs, lkp_aero=aero, impl="torch")[0],
+                                                    *solve_sw(sw, atm, bs, two_stream=False, impl="torch")[0])):
         assert a.dtype == torch.float64 and torch.equal(a, b)
-    for call in (lambda: solve_sw(sw, atm, bs, impl="kernel"),
+    for call in (lambda: solve_sw(sw, atm, bs, lkp_aero=aero, impl="kernel"),
                  lambda: solve_lw(lw, atm, bl, two_stream=True, impl="kernel"),
                  lambda: solve_lw(lw, atm, bl, lkp_aero=aero, impl="kernel")):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -455,9 +467,10 @@ def test_f64_routing(cuda):
 
 @pytest.mark.parametrize("ngpt,nbnd,ncol,nlay", [(36, 4, 1000, 30), (256, 16, 257, 60), (5, 5, 3, 2)])
 def test_f64_kernels_match_twins(cuda, ngpt, nbnd, ncol, nlay):
-    """planck_band and lw_clear_mega built for f64 against their f64 twins
-    (any n_gpt, not only powers of two), and against the f32 kernels."""
-    plk_args, lw_args, _ = _case(cuda, ngpt, nbnd, ncol, nlay)
+    """planck_band, lw_clear_mega and sw_clear_mega built for f64 against
+    their f64 twins (any n_gpt, not only powers of two; SW with an incident
+    diffuse flux), and against the f32 kernels."""
+    plk_args, lw_args, sw_args = _case(cuda, ngpt, nbnd, ncol, nlay)
     lw64 = synthetic_gas_lookup(longwave=True, n_gpt=ngpt, n_bnd=nbnd, dtype=np.float64, device=cuda)
     atm64 = synthetic_atmosphere(ncol=ncol, nlay=nlay, dtype=np.float64, device=cuda)
     plk64 = [(t.reshape(-1), lw64.totplnk, lw64.t_planck_min, lw64.t_planck_delta)
@@ -477,6 +490,15 @@ def test_f64_kernels_match_twins(cuda, ngpt, nbnd, ncol, nlay):
     assert _rel(mega.lw_clear_mega(*lw_args), (up, dn)) <= 1e-4
     again = mega.lw_clear_mega(*args64)
     assert torch.equal(again[0], up) and torch.equal(again[1], dn)
+    sw64 = synthetic_gas_lookup(longwave=False, n_gpt=ngpt, n_bnd=nbnd, seed=1, dtype=np.float64, device=cuda)
+    sw64_args = (mega_sw_inputs(sw64, atm64), sw64.kernel_tables, *(x.double() for x in sw_args[2:]))
+    out = mega.sw_clear_mega(*sw64_args)
+    assert all(f.dtype == torch.float64 and f.shape == (nlay + 1, ncol) for f in out)
+    assert _rel(out, mega.sw_clear_mega_ref(*sw64_args)) <= TOL64["sw_clear_mega"]
+    assert all(torch.equal(a, b) for a, b in zip(out, mega.sw_clear_mega(*sw64_args)))
+    # f32 against f64: f32 rounding, amplified near the Meador-Weaver singularity
+    assert _rel(mega.sw_clear_mega(*sw_args), out) <= 1e-2
+    assert _counts() == {"planck_band": 3, "lw_clear_mega": 3, "sw_clear_mega": 3}
 
 
 def _allsky_case(dev, ngpt, nbnd, ncol, nlay):
@@ -1789,7 +1811,8 @@ def test_staged_sw_clear_mega_matches_twin(cuda, ngpt, nbnd, ncol, nlay, n_minor
     cloud cover bit for bit) and aerosols alone, where nlay is not a multiple
     of the staging chunk, band limits are not multiples of 16, several minor
     intervals cover each g-point and, at 1100 g-points, a column spans two
-    blocks; a second call equals the first bit for bit."""
+    blocks; a second call equals the first bit for bit; the f64 build
+    likewise on clear sky, and it refuses a composition."""
     from rrtmgp_tpu_torch.models.rrtmgp import _kernel_composition
 
     assert nlay % mega.SW_CHUNK
@@ -1806,8 +1829,16 @@ def test_staged_sw_clear_mega_matches_twin(cuda, ngpt, nbnd, ncol, nlay, n_minor
             assert torch.equal(out[3], want[3])
         assert _rel(out[:3], want[:3]) <= TOL["sw_clear_mega"]
         assert all(torch.equal(a, b) for a, b in zip(out, mega.sw_clear_mega(*args, comp)))
+    sw64, atm64 = sw.to(dtype=torch.float64), atm.to(dtype=torch.float64)
+    args64 = (mega_sw_inputs(sw64, atm64), sw64.kernel_tables, *(x.double() for x in sw_args[2:]))
+    out = mega.sw_clear_mega(*args64)
+    assert all(f.dtype == torch.float64 for f in out)
+    assert _rel(out, mega.sw_clear_mega_ref(*args64)) <= TOL64["sw_clear_mega"]
+    assert all(torch.equal(a, b) for a, b in zip(out, mega.sw_clear_mega(*args64)))
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        mega.sw_clear_mega(*args64, comps[1])
     torch.cuda.synchronize()
-    assert _counts()["sw_clear_mega"] == 2 * len(comps)
+    assert _counts()["sw_clear_mega"] == 2 * len(comps) + 2
 
 
 def test_staged_sw_clear_mega_on_deep_columns(cuda):

@@ -8,7 +8,13 @@ CPU, and the column chunking that lets an f64 solver run at any width.
   exp and the order of the g-point sums), and against the JAX double-f32
   kernel solve_lw_df64 in interpret mode, as tests/test_df64_solve.py runs
   it, at 1e-4 W/m2 absolute (the reference's f64 LW tolerance);
-- a g-point count that is not a power of two (36) in f64;
+- sw_clear_mega_ref in f64 (the twin of the f64 build of the SW
+  two-stream kernel) and f64 solve_sw through the kernel path's wrappers,
+  against the JAX XLA f64 solve_sw at the same 1e-10, night columns
+  included;
+- a g-point count that is not a power of two (36) in f64, with an incident
+  flux (LW) or an incident diffuse flux (SW);
+- which f64 solves take their kernel with impl=None on CUDA tensors;
 - tree_map_columns / slice_columns, with the VmrGM exclusion;
 - solve_chunked against the unchunked solve, bit for bit, clear / with a
   given mask / in seed mode, the chunk dividing ncol or not, on the torch
@@ -21,6 +27,7 @@ CPU, and the column chunking that lets an f64 solver run at any width.
 
 import dataclasses
 import sys
+import warnings
 
 import jax
 import jax.numpy as jnp
@@ -36,7 +43,7 @@ from rrtmgp_tpu_torch import convert, solve_lw, solve_sw
 from rrtmgp_tpu_torch.angular import angular_discretization
 from rrtmgp_tpu_torch.models.rrtmgp import solve_chunked
 from rrtmgp_tpu_torch.ops import mega
-from rrtmgp_tpu_torch.ops.mega_inputs import mega_lw_inputs
+from rrtmgp_tpu_torch.ops.mega_inputs import mega_lw_inputs, mega_sw_inputs
 from rrtmgp_tpu_torch.states import VmrGM, slice_columns, tree_map_columns
 
 sys.setrecursionlimit(100000)  # the df64 kernel's interpret-mode trace is deep
@@ -141,21 +148,50 @@ def test_f64_lw_clear_mega_ref_with_36_gpoints_and_incident_flux():
     assert set(mega.launch_counts().values()) == {0}  # CPU tensors: twins only
 
 
-def test_f64_routing_by_solve():
-    """impl=None on f64 CUDA tensors takes the kernel only for the solve
-    that has one; impl='kernel' raises for the others, naming the ROADMAP
-    item; on CPU tensors f64 takes the torch path silently."""
-    from rrtmgp_tpu_torch.models.rrtmgp import _resolve_impl
+class _Routed(Exception):
+    """Raised by a recording ``_resolve_impl`` with (route, warned): the
+    solve goes no further."""
 
+
+def test_f64_routing_by_solve(monkeypatch):
+    """impl=None on f64 CUDA tensors takes the kernel only for the solves
+    that have one (clear-sky LW no-scattering and SW two-stream without
+    aerosols); the others warn and take the torch path; impl='kernel'
+    raises for them, naming the ROADMAP item; on CPU tensors f64 takes the
+    torch path silently."""
+    from rrtmgp_tpu_torch.models import rrtmgp as tmod
+
+    real = tmod._resolve_impl
     cuda, cpu, f64 = torch.device("cuda"), torch.device("cpu"), torch.float64
-    assert _resolve_impl(None, cuda, f64, True) == "kernel"
-    assert _resolve_impl("kernel", cuda, f64, True) == "kernel"
-    assert _resolve_impl("torch", cuda, f64, True) == "torch"
-    with pytest.warns(UserWarning, match="clear-sky LW no-scattering"):
-        assert _resolve_impl(None, cuda, f64, False) == "torch"
+    assert real(None, cuda, f64, True) == "kernel"
+    assert real("kernel", cuda, f64, True) == "kernel"
+    assert real("torch", cuda, f64, True) == "torch"
+    with pytest.warns(UserWarning, match="clear-sky LW no-scattering and SW two-stream solves without aerosols"):
+        assert real(None, cuda, f64, False) == "torch"
     with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 20"):
-        _resolve_impl("kernel", cuda, f64, False)
-    assert _resolve_impl(None, cpu, f64, True) == "torch"
+        real("kernel", cuda, f64, False)
+    assert real(None, cpu, f64, True) == "torch"
+
+    # solve_sw's own condition, routed as for CUDA tensors of the inputs
+    def spy(impl, device, *args, **kwargs):
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            route = real(impl, cuda, *args, **kwargs)
+        raise _Routed(route, any(str(w.message) == tmod.F64_WARNING for w in caught))
+
+    monkeypatch.setattr(tmod, "_resolve_impl", spy)
+    _, port = _allsky_case(np.float64)
+    sw, atm, bcs = port["sw"], port["atm"], port["bc_sw"]
+    clouds = dict(lkp_cld=port["cld"], cld_mask_seed=3)
+    for kw, want in ((dict(), ("kernel", False)), (dict(two_stream=False), ("torch", True)),
+                     (dict(lkp_aero=port["aero"]), ("torch", True)), (clouds, ("torch", True)),
+                     (dict(clouds, lkp_aero=port["aero"]), ("torch", True))):
+        with pytest.raises(_Routed) as routed:
+            solve_sw(sw, atm, bcs, **kw)
+        assert routed.value.args == want, kw
+    for kw in (dict(lkp_aero=port["aero"]), clouds):
+        with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 20"):
+            solve_sw(sw, atm, bcs, impl="kernel", **kw)
 
 
 def test_f64_two_stream_twin_runs_in_f64(df64_prob, kernel_dispatch):
@@ -167,6 +203,79 @@ def test_f64_two_stream_twin_runs_in_f64(df64_prob, kernel_dispatch):
     ref, _ = solve_lw(tl, ta, tb, two_stream=True, impl="torch")
     assert out.flux_up.dtype == torch.float64
     assert _rel(out.flux_up, ref.flux_up.numpy()) <= 1e-13
+
+
+# ---------------------------------------------------------------------------
+# The f64 SW two-stream solve
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def sw64_prob():
+    """A clear-sky SW problem in f64 for both packages: random albedos and
+    sun angles, every fifth column at night."""
+    ncol = 40
+    jl = jsyn.synthetic_gas_lookup(longwave=False, n_gpt=16, n_bnd=2, n_eta=3, n_press=10, n_temp=5, seed=1,
+                                   dtype=np.float64)
+    ja = jsyn.synthetic_atmosphere(ncol=ncol, nlay=NLAY, dtype=np.float64)
+    rng = np.random.default_rng(7)
+    mu0 = rng.uniform(0.02, 1.0, ncol)
+    mu0[::5] = -0.2
+    bc = dict(cos_zenith=mu0, toa_flux=rng.uniform(1300.0, 1400.0, ncol),
+              sfc_alb_direct=rng.uniform(0.05, 0.4, (2, ncol)), sfc_alb_diffuse=rng.uniform(0.05, 0.4, (2, ncol)))
+    return (jl, ja, jrt.SwBCs(**{k: jnp.asarray(v) for k, v in bc.items()}), convert.gas_lookup_from_object(jl),
+            convert.atmosphere_from_object(ja), convert.sw_bcs_from_numpy(**bc))
+
+
+def test_f64_solve_sw_kernel_path_matches_jax_exact(sw64_prob, kernel_dispatch):
+    jl, ja, jb, tl, ta, tb = sw64_prob
+    ref, _ = jax.jit(lambda a, b: jmod.solve_sw(jl, a, b))(ja, jb)
+    out, diag = solve_sw(tl, ta, tb)
+    for name in ("flux_up", "flux_dn", "flux_dn_dir", "flux_net"):
+        assert getattr(out, name).dtype == torch.float64
+        assert _rel(getattr(out, name), getattr(ref, name)) <= REL, name
+    assert diag.cld_cover is None and torch.all(out.flux_dn[:, ::5] == 0.0)
+    # the kernel path's pieces equal the torch path to rounding
+    exact, _ = solve_sw(tl, ta, tb, impl="torch")
+    for a, b in zip(out, exact):
+        assert _rel(a, b.numpy()) <= 1e-13
+
+
+def test_f64_sw_clear_mega_ref_with_36_gpoints_and_incident_diffuse_flux():
+    """A g-point count that is not a power of two, with an incident diffuse
+    flux: the f64 twin against the JAX exact f64 solve (day columns: the
+    twin leaves night columns to the caller)."""
+    ncol = 20
+    jl = jsyn.synthetic_gas_lookup(longwave=False, n_gpt=36, n_bnd=4, seed=2, dtype=np.float64)
+    ja = jsyn.synthetic_atmosphere(ncol=ncol, nlay=NLAY, dtype=np.float64)
+    rng = np.random.default_rng(5)
+    bc = dict(cos_zenith=rng.uniform(0.05, 1.0, ncol), toa_flux=np.full(ncol, 1361.0),
+              sfc_alb_direct=rng.uniform(0.05, 0.4, (4, ncol)), sfc_alb_diffuse=rng.uniform(0.05, 0.4, (4, ncol)),
+              inc_flux_diffuse=rng.uniform(0.0, 2.0, (ncol, 36)))
+    ref, _ = jax.jit(lambda a, b: jmod.solve_sw(jl, a, b))(ja, jrt.SwBCs(**{k: jnp.asarray(v) for k, v in bc.items()}))
+    tl, ta, tb = convert.gas_lookup_from_object(jl), convert.atmosphere_from_object(ja), convert.sw_bcs_from_numpy(**bc)
+    toa_gpt = tb.toa_flux[:, None] * tl.solar_src_scaled[None, :]
+    args = (mega_sw_inputs(tl, ta), tl.kernel_tables, tb.cos_zenith, toa_gpt, tb.sfc_alb_direct,
+            tb.sfc_alb_diffuse, tb.inc_flux_diffuse)
+    out, twin = mega.sw_clear_mega(*args), mega.sw_clear_mega_ref(*args)
+    assert all(torch.equal(a, b) and a.dtype == torch.float64 for a, b in zip(out, twin))
+    for got, name in zip(out, ("flux_up", "flux_dn", "flux_dn_dir")):
+        assert _rel(got, getattr(ref, name)) <= REL, name
+    assert set(mega.launch_counts().values()) == {0}  # CPU tensors: twins only
+
+
+def test_f64_megakernels_refuse_a_composition():
+    """The f64 builds of both megakernels are clear sky only: their wrappers
+    refuse clouds or aerosols in f64, naming the ROADMAP item."""
+    _, port = _allsky_case(np.float64)
+    aero = port["atm"].aerosol_state.aero_mass[0] > 0.0
+    composed = (mega.Composition(aero_bands=(aero,) * 3, aero_mask=aero),
+                mega.Composition(cld_bands=(aero,) * 3, cld_frac=aero, seed=3))
+    for name in ("lw_clear_mega", "sw_clear_mega"):
+        mega._f64_clear_only(name, mega.CLEAR)
+        for comp in composed:
+            with pytest.raises(NotImplementedError, match=f"{name}: .*ROADMAP queue 1, item 20"):
+                mega._f64_clear_only(name, comp)
 
 
 # ---------------------------------------------------------------------------

@@ -126,7 +126,7 @@ def test_kernel_sources_present_and_build_is_lazy():
         for header in re.findall(r'#include "([^"]+)"', p.read_text()):
             assert header in names, (p.name, header)
     sources = "".join(p.read_text() for p in _build.CSRC.glob("*.cu"))
-    assert {"rrtmgp_planck_band_f64", "rrtmgp_lw_clear_mega_f64", "rrtmgp_optics_fused",
+    assert {"rrtmgp_planck_band_f64", "rrtmgp_lw_clear_mega_f64", "rrtmgp_sw_clear_mega_f64", "rrtmgp_optics_fused",
             "rrtmgp_planck_band_rows", "rrtmgp_lw_noscat_banded",
             "rrtmgp_sw_2stream_reduced", "rrtmgp_lw_noscat_reduced", "rrtmgp_lw_noscat_gpt",
             "rrtmgp_lw_2stream_reduced", "rrtmgp_sw_2stream_gpt", "rrtmgp_cloud_bands"} <= set(_build.SIGNATURES)

@@ -23,7 +23,10 @@ written from the JAX package's dispatch:
   regard to ``pallas_windowed`` (``rrtmgp_tpu/api.py:440-446``): the f64
   kernel for clear-sky LW no-scattering without aerosols, unless
   ``f64_kernel=False``, and the exact torch path with ``F64_WARNING`` for
-  the rest. ``impl=None`` never raises.
+  the rest. The port adds an f64 kernel the JAX package does not have, for
+  clear-sky SW two-stream without aerosols, routed the same way (the JAX
+  package's f64 SW solve is XLA: the port's torch path). ``impl=None``
+  never raises.
 
 Numbers: the f64 ``RRTMGPSolver(fused_optics=False)``, routed as on the
 card (the kernel wrappers run their twins on CPU tensors), equals the
@@ -75,16 +78,16 @@ ROUTES = {
     ("f64", True, "lw two-stream"): (WARN, WARN),
     ("f64", True, "lw no-scattering, 1 angle"): ("kernel", WARN),
     ("f64", True, "lw no-scattering, 2-4 angles"): ("kernel", WARN),
-    ("f64", True, "sw two-stream"): (WARN, WARN),
+    ("f64", True, "sw two-stream"): ("kernel", WARN),
     ("f64", True, "sw direct beam"): (WARN, WARN),
     ("f64", False, "lw two-stream"): (WARN, WARN),
     ("f64", False, "lw no-scattering, 1 angle"): ("kernel", WARN),
     ("f64", False, "lw no-scattering, 2-4 angles"): ("kernel", WARN),
-    ("f64", False, "sw two-stream"): (WARN, WARN),
+    ("f64", False, "sw two-stream"): ("kernel", WARN),
     ("f64", False, "sw direct beam"): (WARN, WARN),
 }
-#: the solver's f64 LW solves with f64_kernel=False: the exact path, asked for
-F64_KERNEL_FALSE_LW = "torch"
+#: the solver's f64 solves with f64_kernel=False: the exact path, asked for
+F64_KERNEL_FALSE = "torch"
 
 #: (solve, keyword arguments of the solve)
 SOLVES = {
@@ -198,8 +201,8 @@ def test_routes_follow_the_jax_dispatch(recorded, inputs, entry, wave, dtype, fu
                     recorded.clear()
                     _drive(entry, wave, inputs[dtype], kw, clouds, aerosols, fused, f64_kernel)
                     want = ROUTES[dtype, fused, solve][clouds or aerosols]
-                    if dtype == "f64" and wave == "lw" and f64_kernel is False and "solver" in entry:
-                        want = F64_KERNEL_FALSE_LW
+                    if dtype == "f64" and f64_kernel is False and "solver" in entry:
+                        want = F64_KERNEL_FALSE
                     if recorded != [want]:
                         wrong.append((solve, kw, dict(clouds=clouds, aerosols=aerosols, f64_kernel=f64_kernel),
                                       recorded[:], want))
@@ -260,9 +263,12 @@ def test_f64_unfused_solver_equals_fused_and_jax_off(cuda_routing, sky, waves):
             warnings.simplefilter("ignore")  # F64_WARNING, by design
             s.update_fluxes()
         routes[key] = cuda_routing[:]
-    # LW then SW: the f64 kernel (its twin here) for the clear no-scattering LW
-    has_kernel = sky == "clear" and not WAVES[waves]["two_stream_lw"]
-    assert routes["unfused"] == routes["fused"] == ["kernel" if has_kernel else "torch", "torch"]
+    # LW then SW: the f64 kernels (their twins here) for the clear no-scattering
+    # LW and the clear two-stream SW
+    clear = sky == "clear"
+    want = [("kernel" if clear and has else "torch")
+            for has in (not WAVES[waves]["two_stream_lw"], WAVES[waves]["two_stream_sw"])]
+    assert routes["unfused"] == routes["fused"] == want
     for name_ in FLUXES:
         a, b = getattr(unfused, name_)(), getattr(fused, name_)()
         assert a.dtype == torch.float64 and torch.equal(a, b), name_
